@@ -1,0 +1,716 @@
+"""Coupled KNP-EMI splitting solver (torch port of knpemidg_tpu/solver.py,
+main path: degree 1, cell layout, iterative solvers, one device).
+
+Per time step (the splitting scheme):
+  step 0 (ODE):  advance the membrane ODEs (kernel C on the card),
+  step I (EMI):  DG solve for phi by increment-form PCG with a linear
+                 predictor and the two-level + deflation preconditioner,
+  step II (KNP): DG solves for all solved ions at once by batched GMRES,
+then phi_M = JUMP(phi) and the eliminated ion are updated.
+
+PyTorch runs eagerly, so there is no jit layer: the Krylov loops are
+Python loops and every function below works on device tensors directly.
+Options the port does not carry yet raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import time as _time
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .config import Ion, SolverParams, StimParams, ion_from_dict
+from .mesh.core import Mesh
+from .fem.tabulation import build_geometry, build_membrane_tables
+from .ops import assembly
+from .ops.spmv import (bell_matvec, bell_matvec_fan, bell_matvec_multi,
+                       block_jacobi_apply, block_jacobi_inverse)
+from .solvers.krylov import gmres_batched, pcg
+from .solvers.twolevel import (build_moment_deflation, build_two_level,
+                               compartment_ids, make_two_level, moment_vectors,
+                               two_level_apply_batched, two_level_apply_fn)
+from .membrane.engine import MembraneState, make_membrane, ode_step, set_param, get_param
+from .utils.stats import SolverStats, bcolors
+
+
+def _check_supported(sp: SolverParams):
+    """Raise for every solver option the port does not carry yet."""
+    unsupported = []
+    if sp.direct_emi or sp.direct_knp:
+        unsupported.append("direct solves")
+    if sp.emi_ritz != 0:
+        unsupported.append("emi_ritz != 0 (Ritz deflation; pass emi_ritz=0)")
+    if sp.emi_moment_order > 2:
+        unsupported.append("emi_moment_order > 2")
+    for name in ("emi_moment_host", "emi_moment_blocked", "emi_ritz_host",
+                 "emi_moment_axial", "emi_moment_order_ics", "knp_ritz"):
+        if getattr(sp, name):
+            unsupported.append(name)
+    if sp.knp_solver != "gmres":
+        unsupported.append(f"knp_solver={sp.knp_solver!r}")
+    if sp.gmres_orth != "cgs2" or sp.gmres_rot != "replay":
+        unsupported.append("gmres_orth/gmres_rot other than cgs2/replay")
+    for kind in (sp.precond, sp.precond_knp):
+        if kind not in ("", "two_level", "jacobi"):
+            unsupported.append(f"precond {kind!r}")
+    if sp.coarse_ridge < 1e-5:
+        unsupported.append("coarse_ridge < 1e-5 (NaN-fallback ladder)")
+    if sp.pc_refresh_factor > 0:
+        unsupported.append("pc_refresh_factor")
+    if unsupported:
+        raise NotImplementedError("knpemidg_tpu_torch does not support: "
+                                  + ", ".join(unsupported))
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Traces:
+    """Membrane-trace helpers handed to `update_ode`.  Index `k` refers to
+    the full ion list; the last ion is the eliminated one."""
+
+    def __init__(self, solver, c, c_elim, sl):
+        self._s = solver
+        self._c = c
+        self._elim = c_elim
+        self._sl = sl  # (start, stop) membrane slice of this tag
+
+    def _field(self, k):
+        n = len(self._s.ion_list)
+        return self._elim if k == n - 1 else self._c[k]
+
+    def plus(self, k):
+        """ECS-side facet-average trace of ion k on this tag's membranes."""
+        vals = assembly.membrane_avg_m(self._s.g, self._s.mem_dev, self._field(k), "p")
+        return vals[self._sl[0]:self._sl[1]]
+
+    def minus(self, k):
+        """ICS-side facet-average trace of ion k."""
+        vals = assembly.membrane_avg_m(self._s.g, self._s.mem_dev, self._field(k), "m")
+        return vals[self._sl[0]:self._sl[1]]
+
+    def ion_index(self, name):
+        return self._s.ion_names.index(name)
+
+
+class Solver:
+    """construct, then setup_domain -> setup_parameters -> setup_FEM_spaces
+    -> setup_membrane_model -> solve_system_active."""
+
+    def __init__(self, params, ion_list, degree_emi=1, degree_knp=1, mms=None,
+                 dtype=None, device=None):
+        if degree_emi != 1 or degree_knp != 1:
+            raise NotImplementedError("knpemidg_tpu_torch supports DG degree 1 only")
+        if mms is not None:
+            raise NotImplementedError("MMS verification is not ported yet")
+        self.params = params
+        self.ion_list = [
+            i if isinstance(i, Ion) else ion_from_dict(i) for i in ion_list
+        ]
+        for ion in self.ion_list:
+            if callable(ion.f_source) or float(ion.f_source) != 0.0:
+                raise NotImplementedError("ion source terms are not ported yet")
+        self.ion_names = [i.name for i in self.ion_list]
+        self.N_ions = len(ion_list) - 1      # number of *solved* ions
+        self.dtype = dtype or torch.float64
+        self.device = torch.device(device or "cpu")
+        self.stats = SolverStats()
+        self.mem_models: Dict[int, Any] = {}
+        self.splitting_scheme = True
+
+    # ------------------------------------------------------------------
+    # setup phases
+    # ------------------------------------------------------------------
+    def _tensor(self, a, dtype=None):
+        return torch.as_tensor(np.asarray(a), dtype=dtype or self.dtype,
+                               device=self.device)
+
+    def setup_domain(self, mesh: Mesh, quad_degree=None):
+        """Build geometry tables; penalty tau = 20 * gdim * degree.  Cells
+        come ordered (compartment, Morton) from build_mesh, so the coarse
+        chunks never mix compartments."""
+        self._invalidate_caches()
+        self._comp_np = compartment_ids(mesh)
+        self.mesh = mesh
+        qd = max(quad_degree or 4, 2)
+        self.geom = build_geometry(mesh, quad_degree_cell=qd,
+                                   quad_degree_facet=qd, degree=1)
+        self.g = assembly.precompute_static(
+            self.geom.to_device(self.dtype, self.device))
+        self.gdim = mesh.dim
+        self.tau = 20.0 * self.gdim
+        self.tau_knp = 20.0 * self.gdim
+        self.n_cells = mesh.num_cells
+        self.nd = self.geom.nd
+        ext = mesh.vertices.max(axis=0) - mesh.vertices.min(axis=0)
+        self.Lp = float(ext.max())
+        return self
+
+    def enable_pair_layout(self, interleave: bool = True):
+        raise NotImplementedError("the pair layout is not ported yet")
+
+    def _set_membrane_tags(self, tags):
+        self.tables = build_membrane_tables(self.mesh, tags)
+        self.mem_dev = self.tables.to_device(self.dtype, self.device)
+        # membrane-presliced trace tensors: gathers over n_mem instead of
+        # the full facet axis
+        fidx = self.mem_dev["fidx"]
+        self.mem_dev["Rp"] = self.g["f_Rp"][:, :, fidx]
+        self.mem_dev["Rm"] = self.g["f_Rm"][:, :, fidx]
+        self.mem_dev["cp"] = self.g["f_cp"][fidx]
+        self.mem_dev["cm"] = self.g["f_cm"][fidx]
+        self.masks = {
+            "f_sip": torch.as_tensor(self.geom.f_stag == 0, device=self.device),
+            "f_mem": torch.as_tensor(self.tables.mem_of_facet < self.tables.n_mem,
+                                     device=self.device),
+        }
+        self.n_mem = self.tables.n_mem
+
+    def _cellwise(self, sub: Dict[int, Any]) -> np.ndarray:
+        """Per-subdomain dict -> per-cell P0 array."""
+        out = np.zeros(self.n_cells)
+        for tag, val in sub.items():
+            out[self.mesh.cell_tags == tag] = float(val)
+        return out
+
+    def _invalidate_caches(self):
+        for attr in ("_knp_static_blocks", "_comp_onehot", "_comp_ids"):
+            if hasattr(self, attr):
+                delattr(self, attr)
+
+    def setup_parameters(self):
+        """Diffusion fields per ion + background charge."""
+        self._invalidate_caches()
+        p = self.params
+        self.D = self._tensor(np.stack([self._cellwise(ion.D_sub)
+                                        for ion in self.ion_list]))
+        rho = p.rho_sub if p.rho_sub is not None else {}
+        self.rho = self._tensor(self._cellwise(rho) if rho else np.zeros(self.n_cells))
+        self.z = self._tensor([float(i.z) for i in self.ion_list])
+        return self
+
+    def _interp_init(self, sub, kind) -> np.ndarray:
+        """Nodal interpolation of initial data per subdomain."""
+        coords = self.geom.nodes                           # (nc, nd, d)
+        out = np.zeros((self.n_cells, self.geom.nd))
+        if kind == "function":
+            return np.asarray(sub, dtype=np.float64)
+        for tag, val in sub.items():
+            m = self.mesh.cell_tags == tag
+            if kind == "constant":
+                out[m] = float(val)
+            elif kind == "expression":
+                out[m] = np.asarray(val(coords[m]))
+            else:
+                raise ValueError(
+                    f"initial condition type {kind!r} not recognized -- use "
+                    f"'constant', 'expression' or 'function'"
+                )
+        return out
+
+    def setup_FEM_spaces(self):
+        """Initial conditions for concentrations and potential."""
+        c0 = [self._interp_init(ion.c_init_sub, ion.c_init_sub_type).T
+              for ion in self.ion_list]
+        self.c_init = self._tensor(np.stack(c0[:-1]))
+        self.c_elim_init = self._tensor(c0[-1])
+        self.phi_init = self._tensor(np.zeros((self.nd, self.n_cells)))
+        return self
+
+    def setup_membrane_model(self, stim_params: StimParams, odes: Dict[int, Any]):
+        """One ODE system per membrane tag; Cm pushed into the ODE params,
+        the stimulus applied through the spatial locator mask."""
+        self._set_membrane_tags(sorted(odes))
+        self.stim_params = stim_params
+        self.mem_models = {}
+        for tag, model in odes.items():
+            s0, s1 = self.tables.slices[tag]
+            mids = self.tables.midpoints[s0:s1]
+            mm = make_membrane(model, mids, dtype=self.dtype, device=self.device)
+            mm = set_param(mm, "Cm", np.full(s1 - s0, self.params.C_M))
+            if stim_params is not None and stim_params.stimulus:
+                locator = stim_params.stimulus_locator or (lambda x: True)
+                mask = np.array([bool(locator(x)) for x in mids])
+                for key, value in stim_params.stimulus.items():
+                    cur = get_param(mm, key).cpu().numpy().copy()
+                    cur[mask] = value
+                    mm = set_param(mm, key, cur)
+            self.mem_models[tag] = mm
+        return self
+
+    def update_ode(self, tag: int, traces: Traces) -> Dict[str, torch.Tensor]:
+        """Return {ode_param_name: per-facet values} pushed into the tag's
+        ODE parameters each step.  Subclasses implement this."""
+        raise NotImplementedError("Subclasses must implement update_ode")
+
+    # ------------------------------------------------------------------
+    # assembly wrappers
+    # ------------------------------------------------------------------
+    def _phys_emi(self):
+        p = self.params
+        return {"F": p.F, "psi": p.psi, "C_phi": p.C_phi,
+                "tau_emi": self.tau, "Lp": self.Lp}
+
+    def _phys_knp(self):
+        p = self.params
+        return {"F": p.F, "psi": p.psi, "C_M": p.C_M, "dt": p.dt,
+                "tau_knp": self.tau_knp}
+
+    def _all_c(self, c, c_elim):
+        return torch.cat([c, c_elim[None]], dim=0)
+
+    def _assemble_emi(self, c, c_elim, phi_M_pad, I_ch_tot_pad, t):
+        """EMI blocks, rhs and P_diag.  ``t`` (read by the JAX package's MMS
+        sources only) keeps the JAX signature."""
+        ions = {"z": self.z, "D": self.D, "c": self._all_c(c, c_elim)}
+        return assembly.assemble_emi(
+            self.g, self.masks, ions, self._phys_emi(), phi_M_pad, I_ch_tot_pad,
+            mem_t=self.mem_dev, splitting=self.splitting_scheme)
+
+    def _knp_static(self, k):
+        """The time-independent KNP operator of ion k (mass + stiffness +
+        SIP), assembled once and cached."""
+        if not hasattr(self, "_knp_static_blocks"):
+            self._knp_static_blocks = {}
+        if k not in self._knp_static_blocks:
+            ion = self.ion_list[k]
+            self._knp_static_blocks[k] = assembly.assemble_knp_static(
+                self.g, self.masks, {"z": float(ion.z), "D": self.D[k]},
+                self._phys_knp())
+        return self._knp_static_blocks[k]
+
+    # ------------------------------------------------------------------
+    # one PDE time step (steps I + II + updates)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _pads(state):
+        phi_M = state["phi_M"]
+        phi_M_pad = torch.cat([phi_M, phi_M.new_zeros(1)])
+        I_ch = state["I_ch"]
+        I_ch_pad = torch.cat([I_ch, I_ch.new_zeros((I_ch.shape[0], 1))], dim=1)
+        return phi_M_pad, I_ch_pad, I_ch_pad.sum(dim=0)
+
+    def _pde_step(self, state, solver_params: SolverParams):
+        """EMI solve -> KNP solves -> state updates."""
+        sp_ = solver_params
+        c, c_elim, phi, t = state["c"], state["c_elim"], state["phi"], state["t"]
+        pc = state.get("pc")
+        phi_M_pad, I_ch_pad, I_ch_tot_pad = self._pads(state)
+
+        stats = {}
+        blocks, rhs, Pd = self._assemble_emi(c, c_elim, phi_M_pad, I_ch_tot_pad, t)
+        phi, stats["emi_iters"], stats["emi_converged"] = self._emi_solve_iterative(
+            blocks, Pd, rhs, phi, sp_, pc=pc.get("emi") if pc else None,
+            phi_prev=state.get("phi_prev"))
+
+        blocksK, rhsK = self._knp_assemble_all(
+            c, c_elim, phi, phi_M_pad, I_ch_pad, I_ch_tot_pad, t, c)
+        c, stats["knp_iters"], stats["knp_converged"] = self._knp_solve_all(
+            blocksK, rhsK, c, sp_, pcK=pc.get("knp") if pc else None)
+        return self._finalize_step(state, stats, c, phi, t)
+
+    def _matvec(self, blocks, v):
+        """Block-ELL operator apply (kernel A on the card), single systems
+        (nd, nc) and ion-batched (m, nd, nc)."""
+        v = v.contiguous()
+        if v.dim() == 3:
+            return bell_matvec_multi(blocks, self.g["nbr"], v)
+        return bell_matvec(blocks, self.g["nbr"], v)
+
+    def _emi_solve_iterative(self, blocks, Pd, rhs, phi, sp_: SolverParams,
+                             pc=None, phi_prev=None):
+        """Increment-form PCG for the EMI system: solve A d = b - A phi_0
+        around zero, the tolerance relative to the full rhs (b_ref).
+
+        ``phi_prev`` enables the linear-predictor guess 2 phi_k - phi_{k-1};
+        the guess with the smaller initial residual is used."""
+        mv = lambda v: self._matvec(blocks, v)
+        if phi_prev is not None:
+            pred = 2.0 * phi - phi_prev
+            ra = rhs - mv(phi)
+            rb = rhs - mv(pred)
+            use_pred = torch.dot(rb.reshape(-1), rb.reshape(-1)) < torch.dot(
+                ra.reshape(-1), ra.reshape(-1))
+            guess = torch.where(use_pred, pred, phi)
+            r0 = torch.where(use_pred, rb, ra)
+        else:
+            guess = phi
+            r0 = rhs - mv(phi)
+        res = pcg(
+            mv, r0, torch.zeros_like(phi),
+            self._make_precond(blocks, Pd, sp_, pc=pc),
+            rtol=sp_.rtol_emi, atol=sp_.atol_emi, max_it=sp_.max_it_emi,
+            project_nullspace=True, b_ref=rhs,
+        )
+        return guess + res.x, res.iters, res.converged
+
+    def _finalize_step(self, state, stats, c, phi, t):
+        """Post-solve updates: phi_M jump, eliminated ion, time."""
+        phi_M = assembly.jump_phi_M_m(self.g, self.mem_dev, phi)
+        c_elim = assembly.eliminated_concentration(
+            c, self.z[:-1], self.rho, float(self.ion_list[-1].z))
+        new_state = dict(state)
+        new_state.update(c=c, c_elim=c_elim, phi=phi, phi_M=phi_M,
+                         t=t + self.params.dt)
+        if "phi_prev" in state:        # predictor base for the next step
+            new_state["phi_prev"] = state["phi"]
+        return new_state, stats
+
+    def _knp_assemble_all(self, c, c_elim, phi, phi_M_pad, I_ch_pad,
+                          I_ch_tot_pad, t, c_n):
+        """KNP assembly for all solved ions in one pass:
+        (blocks (m, K, nd, nd, nc), rhs (m, nd, nc)).  ``t`` is unused; it
+        keeps the JAX signature."""
+        call = self._all_c(c, c_elim)
+        alpha_sum = torch.einsum("k,kc,kic->ic", self.z ** 2, self.D, call)
+        cache = getattr(self, "_knp_static_blocks", {})
+        statics = cache.get(-1)
+        if statics is None:
+            statics = torch.stack([self._knp_static(k) for k in range(self.N_ions)])
+        ionsd = {"z": self.z[:self.N_ions], "D": self.D[:self.N_ions],
+                 "c_n": c_n, "c_k": c}
+        return assembly.assemble_knp_all(
+            self.g, self.masks, ionsd, self._phys_knp(), phi, alpha_sum,
+            phi_M_pad, I_ch_pad[:self.N_ions], I_ch_tot_pad,
+            mem_t=self.mem_dev, static_blocks=statics,
+            splitting=self.splitting_scheme)
+
+    def _knp_solve_all(self, blocksK, rhsK, c, sp_: SolverParams, pcK=None):
+        """Batched increment-form GMRES over the ion axis: all solved ions
+        share one Krylov loop whose matvec is one kernel-A launch."""
+        kind = sp_.precond_knp or sp_.precond
+        mv = lambda V: self._matvec(blocksK, V)
+        P_diag = blocksK[:, 0].contiguous()
+        if kind == "two_level":
+            data = pcK if pcK is not None else self._build_knp_pc(blocksK, sp_)
+            pcf = two_level_apply_batched(data, P_diag, sp_.agg_size)
+        else:
+            Pinv = block_jacobi_inverse(P_diag)
+            pcf = lambda r: block_jacobi_apply(Pinv, r.contiguous())
+        r0 = rhsK - mv(c)
+        res = gmres_batched(
+            mv, r0, torch.zeros_like(r0), pcf,
+            rtol=sp_.rtol_knp, atol=sp_.atol_knp,
+            max_it=sp_.max_it_knp, restart=sp_.gmres_restart, b_ref=rhsK,
+        )
+        return c + res.x, res.iters, res.converged
+
+    # ------------------------------------------------------------------
+    # ODE step (step 0 of the splitting)
+    # ------------------------------------------------------------------
+    def _ode_inputs(self, state, first_step: bool):
+        """The membrane state of every tag with the PDE -> ODE pushes of
+        this step applied (V, Nernst potentials, update_ode), ready to
+        integrate."""
+        p = self.params
+        c, c_elim, phi_M = state["c"], state["c_elim"], state["phi_M"]
+        pushed = {}
+        for tag, mm in state["mem"].items():
+            s0, s1 = self.tables.slices[tag]
+            # push PDE -> ODE: membrane potential (skipped on the first
+            # step with a constant phi_M init)
+            if not (first_step and p.phi_M_init_type == "constant"):
+                mm = mm.replace_state("V", phi_M[s0:s1])
+            # Nernst potentials for every ion
+            for k, ion in enumerate(self.ion_list):
+                if not mm.has_param(f"E_{ion.name}"):
+                    continue
+                field = c_elim if k == len(self.ion_list) - 1 else c[k]
+                E = assembly.nernst_potential_m(
+                    self.g, self.mem_dev, field, float(ion.z),
+                    p.F, p.R, p.temperature)[s0:s1]
+                mm = set_param(mm, f"E_{ion.name}", E)
+            # app-specific parameter pushes (subclass hook)
+            upd = self.update_ode(tag, Traces(self, c, c_elim, (s0, s1)))
+            for name, vals in upd.items():
+                mm = set_param(mm, name, vals)
+            pushed[tag] = mm
+        return pushed
+
+    def _ode_step(self, state, first_step: bool):
+        p = self.params
+        new_mem = {tag: ode_step(mm, state["t"], p.dt, p.n_steps_ODE,
+                                 scheme=p.ode_scheme)
+                   for tag, mm in self._ode_inputs(state, first_step).items()}
+
+        # pull ODE -> PDE: phi_M and channel currents
+        phi_M_new = state["phi_M"].clone()
+        I_ch = torch.zeros((len(self.ion_list), self.n_mem), dtype=self.dtype,
+                           device=self.device)
+        for tag, mm in new_mem.items():
+            s0, s1 = self.tables.slices[tag]
+            phi_M_new[s0:s1] = mm.get_state("V")
+            for k, ion in enumerate(self.ion_list):
+                name = f"I_ch_{ion.name}"
+                if mm.has_param(name):
+                    I_ch[k, s0:s1] = get_param(mm, name)
+
+        new_state = dict(state)
+        new_state.update(mem=new_mem, phi_M=phi_M_new, I_ch=I_ch)
+        return new_state
+
+    # ------------------------------------------------------------------
+    # initial state
+    # ------------------------------------------------------------------
+    def _initial_state(self, t0: float):
+        p = self.params
+        if p.phi_M_init_type == "constant":
+            phi_M = torch.full((self.n_mem,), float(p.phi_M_init),
+                               dtype=self.dtype, device=self.device)
+            # active runs: seed phi_M from each membrane model's resting V
+            for tag, mm in self.mem_models.items():
+                s0, s1 = self.tables.slices[tag]
+                phi_M[s0:s1] = mm.get_state("V")
+        elif p.phi_M_init_type == "expression":
+            phi_M = self._tensor(
+                [p.phi_M_init(x) for x in self.tables.midpoints]
+                if callable(p.phi_M_init) else np.zeros(self.n_mem))
+        elif p.phi_M_init_type == "function":
+            phi_M = self._tensor(p.phi_M_init)
+        else:
+            raise ValueError(f"unknown phi_M_init_type {p.phi_M_init_type!r}")
+        return {
+            "c": self.c_init,
+            "c_elim": self.c_elim_init,
+            "phi": self.phi_init,
+            "phi_prev": self.phi_init,   # linear-predictor base (EMI guess)
+            "phi_M": phi_M,
+            "I_ch": torch.zeros((len(self.ion_list), self.n_mem),
+                                dtype=self.dtype, device=self.device),
+            "t": torch.tensor(float(t0), dtype=self.dtype, device=self.device),
+            "mem": dict(self.mem_models),
+        }
+
+    # ------------------------------------------------------------------
+    # time loops
+    # ------------------------------------------------------------------
+    def solve_system_active(self, Tstop, t, solver_params: SolverParams,
+                            filename=None, save_fields=False,
+                            save_solver_stats=False, scan_steps: int = 0):
+        """Full splitting scheme with membrane ODEs, one step at a time
+        (no field or stats files: H5 output is not ported).  Per-step walls
+        end in a device synchronise: ``self.ode_walls`` for the ODE,
+        ``self.stats.step_walls`` for the PDE part."""
+        if filename is not None or save_fields or save_solver_stats:
+            raise NotImplementedError("H5 field and solver-stats output are not ported")
+        if scan_steps:
+            raise NotImplementedError("scan_steps: use run_block")
+        _check_supported(solver_params)
+        self.splitting_scheme = True
+        state = self.attach_pc(self._initial_state(float(t)), solver_params)
+        n_steps = int(round(Tstop / self.params.dt))
+        refresh = solver_params.pc_refresh_every
+        self.ode_walls = []
+        for k in range(n_steps):
+            if refresh and k and k % refresh == 0:
+                state = self._refresh_pc(state, solver_params)
+            ts = _time.perf_counter()
+            state = self._ode_step(state, first_step=(k == 0))
+            _sync(self.device)
+            self.ode_walls.append(_time.perf_counter() - ts)
+            self.stats.ode_solve_timer += self.ode_walls[-1]
+            state = self._timed_pde_step(state, solver_params, k)
+        self.state = state
+        return state
+
+    def run_block(self, state, solver_params: SolverParams, n_steps: int):
+        """``n_steps`` full splitting steps (ODE + PDE) from ``state``; the
+        counterpart of the JAX package's fused_block.  Returns
+        (state, stats) with per-step lists under the same keys."""
+        _check_supported(solver_params)
+        self.splitting_scheme = True
+        out = {"emi_iters": [], "knp_iters": [], "emi_converged": [],
+               "knp_converged": []}
+        for _ in range(n_steps):
+            if self.mem_models:
+                state = self._ode_step(state, first_step=False)
+            state, st = self._pde_step(state, solver_params)
+            for key in out:
+                out[key].append(st[key])
+        return state, out
+
+    def _timed_pde_step(self, state, solver_params, k):
+        ts = _time.perf_counter()
+        state, st = self._pde_step(state, solver_params)
+        _sync(self.device)
+        dt_wall = _time.perf_counter() - ts
+        self._check_convergence(st, solver_params)
+        self.stats.record_step(st, dt_wall)
+        if solver_params.verbose:
+            print(f"{bcolors.WARNING} t = {float(state['t']):.6g}  k = {k} {bcolors.ENDC}")
+            print(f"{bcolors.OKGREEN} emi iters: {st['emi_iters']}, "
+                  f"knp iters: {st['knp_iters']}, "
+                  f"step wall: {dt_wall:.4f}s {bcolors.ENDC}")
+        return state
+
+    def _check_convergence(self, st, sp_: SolverParams):
+        """Fail loudly when a Krylov solve hit max_it without converging."""
+        if not sp_.error_if_not_converged or st is None:
+            return
+        if not st.get("emi_converged", True):
+            raise RuntimeError(
+                f"EMI Krylov solve did not converge within "
+                f"max_it_emi={sp_.max_it_emi} (rtol_emi={sp_.rtol_emi})")
+        if not st.get("knp_converged", True):
+            raise RuntimeError(
+                f"KNP Krylov solve did not converge within "
+                f"max_it_knp={sp_.max_it_knp} (rtol_knp={sp_.rtol_knp})")
+
+    # ------------------------------------------------------------------
+    # preconditioner
+    # ------------------------------------------------------------------
+    def _comp_arrays(self):
+        """Compartment one-hot rows (n_comp, nc) and ids (nc,) on the
+        device."""
+        if not hasattr(self, "_comp_onehot"):
+            comp = self._comp_np
+            oh = np.zeros((int(comp.max()) + 1, comp.shape[0]))
+            oh[comp, np.arange(comp.shape[0])] = 1.0
+            self._comp_onehot = self._tensor(oh)
+            self._comp_ids = torch.as_tensor(comp.astype(np.int32),
+                                             device=self.device)
+        return self._comp_onehot, self._comp_ids
+
+    def _make_precond(self, blocks, P_diag, sp_: SolverParams, pc=None):
+        """EMI preconditioner apply: two-level (from the frozen ``pc`` data,
+        or built on the spot) or plain block-Jacobi.  The KNP solve builds
+        its batched apply in _knp_solve_all."""
+        if sp_.precond == "two_level":
+            if pc is not None:
+                return two_level_apply_fn(pc, P_diag, sp_.agg_size)
+            comp_onehot, comp_ids = self._comp_arrays()
+            return make_two_level(
+                blocks, P_diag, self.g["nbr"], sp_.agg_size, sym=True,
+                comp_onehot=comp_onehot, comp_ids=comp_ids,
+                extra_diag=P_diag - blocks[0], ridge=sp_.coarse_ridge)
+        Pinv = block_jacobi_inverse(P_diag.contiguous())
+        return lambda r: block_jacobi_apply(Pinv, r.contiguous())
+
+    def _build_knp_pc(self, blocksK, sp_: SolverParams):
+        """Per-ion two-level coarse data stacked over the ion axis."""
+        parts = [build_two_level(b, self.g["nbr"], sp_.agg_size, sym=False,
+                                 mass_diag=self.g["vol"] / self.params.dt,
+                                 ridge=sp_.coarse_ridge)
+                 for b in blocksK]
+        return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+
+    def _emi_moment_W(self, sp_: SolverParams):
+        """Per-compartment moment deflation fields W (nw, nd, nc), built
+        from the nodal coordinates as the device holds them."""
+        nodes = self.g["nodes"].cpu().numpy().astype(np.float64)  # (nd, d, nc)
+        coords = np.moveaxis(nodes, -1, 0)                         # (nc, nd, d)
+        return moment_vectors(coords, self._comp_np, sp_.emi_moment_order,
+                              dtype=self.dtype, device=self.device)
+
+    def _emi_moment_data(self, blocks, sp_: SolverParams):
+        W = self._emi_moment_W(sp_)
+        return build_moment_deflation(
+            W, fan=lambda X: bell_matvec_fan(blocks, self.g["nbr"], X))
+
+    def _build_pc(self, state, sp_: SolverParams):
+        """Frozen two-level coarse data for the EMI and the per-ion KNP
+        operators at the given state: {'emi': data, 'knp': stacked data},
+        or None when neither uses the two-level preconditioner."""
+        pc = {}
+        phi_M_pad, I_ch_pad, I_ch_tot_pad = self._pads(state)
+        if sp_.precond == "two_level":
+            blocks, rhs, Pd = self._assemble_emi(state["c"], state["c_elim"],
+                                                 phi_M_pad, I_ch_tot_pad, state["t"])
+            comp_onehot, comp_ids = self._comp_arrays()
+            pc["emi"] = build_two_level(
+                blocks, self.g["nbr"], sp_.agg_size, sym=True,
+                comp_onehot=comp_onehot, comp_ids=comp_ids,
+                extra_diag=Pd - blocks[0], ridge=sp_.coarse_ridge)
+            if sp_.emi_moment_order > 0:
+                pc["emi"].update(self._emi_moment_data(blocks, sp_))
+        if (sp_.precond_knp or sp_.precond) == "two_level":
+            blocksK, _ = self._knp_assemble_all(
+                state["c"], state["c_elim"], state["phi"], phi_M_pad, I_ch_pad,
+                I_ch_tot_pad, state["t"], state["c"])
+            pc["knp"] = self._build_knp_pc(blocksK, sp_)
+        return pc or None
+
+    def _refresh_pc(self, state, sp_: SolverParams):
+        """Rebuild the frozen preconditioner data at the current state."""
+        state = {k: v for k, v in state.items() if k != "pc"}
+        return self.attach_pc(state, sp_)
+
+    def attach_pc(self, state, sp_: SolverParams):
+        """Attach frozen preconditioner data to a state (no-op if already
+        present).  Also caches the ion-stacked KNP static operator eagerly,
+        so the static assembly never reruns inside a step."""
+        _check_supported(sp_)
+        for k in range(self.N_ions):
+            self._knp_static(k)
+        cache = self._knp_static_blocks
+        if -1 not in cache:
+            cache[-1] = torch.stack([cache[k] for k in range(self.N_ions)])
+        if "pc" in state:
+            return state
+        pc = self._build_pc(state, sp_)
+        if pc is None:
+            return state
+        return dict(state, pc=pc)
+
+
+class StandardSolver(Solver):
+    """The `update_ode` of every shipped application: push the ECS trace of
+    K and the ICS trace of Na into the membrane ODEs."""
+
+    def __init__(self, *args, k_index=0, na_index=None, **kw):
+        super().__init__(*args, **kw)
+        self._k_index = k_index
+        self._na_index = na_index  # None -> eliminated ion
+
+    def update_ode(self, tag, traces: Traces):
+        na = self._na_index if self._na_index is not None else len(self.ion_list) - 1
+        return {
+            "K_e": traces.plus(self._k_index),
+            "Na_i": traces.minus(na),
+        }
+
+
+# ---------------------------------------------------------------------------
+# state exchange with numpy (and through it with the JAX package)
+# ---------------------------------------------------------------------------
+
+_FIELDS = ("c", "c_elim", "phi", "phi_prev", "phi_M", "I_ch", "t")
+
+
+def state_to_numpy(state) -> Dict[str, Any]:
+    """Numpy copy of a solver state: the fields, the membrane states, params
+    and model per tag, and the ``pc`` dict.  Works on any state whose leaves
+    convert with ``np.asarray`` after moving to the host."""
+    def host(v):
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    out = {k: host(state[k]) for k in _FIELDS if k in state}
+    out["mem"] = {tag: {"states": host(mm.states), "params": host(mm.params),
+                        "model": mm.model}
+                  for tag, mm in state.get("mem", {}).items()}
+    if state.get("pc"):
+        out["pc"] = {part: {k: host(v) for k, v in data.items()}
+                     for part, data in state["pc"].items()}
+    return out
+
+
+def state_from_numpy(state_np, device, dtype, models=None) -> Dict[str, Any]:
+    """Solver state on ``device`` in ``dtype`` from :func:`state_to_numpy`'s
+    layout.  ``models`` (tag -> port model), when given, supplies the
+    membrane models; otherwise each mem entry's own ``"model"`` is used."""
+    def dev(v):
+        return torch.as_tensor(np.array(v), dtype=dtype, device=device)
+
+    out = {k: dev(state_np[k]) for k in _FIELDS if k in state_np}
+    out["mem"] = {}
+    for tag, entry in state_np.get("mem", {}).items():
+        model = models[tag] if models is not None else entry["model"]
+        out["mem"][tag] = MembraneState(states=dev(entry["states"]),
+                                        params=dev(entry["params"]), model=model)
+    if state_np.get("pc"):
+        out["pc"] = {part: {k: dev(v) for k, v in data.items()}
+                     for part, data in state_np["pc"].items()}
+    return out

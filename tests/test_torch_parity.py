@@ -1,0 +1,154 @@
+"""Shared fixtures of the PyTorch port's parity tests (tests/test_torch_*.py);
+this module holds no tests of its own.
+
+Both packages are set up from the same description: the EMIx physics on
+box_3d_axons(0, length_factor=1) scaled to cm, and the idealised 2D neuron
+(box_2d_neuron(0), SI units, HH-SI membrane).  Each package builds its own
+mesh with its own generator; inputs that are not set up by the solvers come
+from numpy.random.default_rng(seed) and reach both packages as numpy arrays.
+"""
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
+
+import knpemidg_tpu_torch as kt  # noqa: E402
+from knpemidg_tpu_torch import emix  # noqa: E402
+
+F64 = torch.float64
+
+
+def rel(a, b):
+    """Relative 2-norm difference of two arrays (numpy, jax or torch)."""
+    a = to_np(a).astype(np.float64)
+    b = to_np(b).astype(np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
+
+
+def to_np(v):
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def t64(v):
+    return torch.as_tensor(np.array(v, dtype=np.float64))
+
+
+def solver_params_kw():
+    """bench.py's SolverParams with Ritz deflation off."""
+    return dict(direct_emi=False, direct_knp=False, rtol_emi=1e-5,
+                atol_emi=1e-40, rtol_knp=1e-7, atol_knp=2e-40,
+                max_it_emi=1000, max_it_knp=1000, gmres_restart=30,
+                agg_size=64, emi_ritz=0)
+
+
+# ---------------------------------------------------------------------------
+# 3D EMIx fixture
+# ---------------------------------------------------------------------------
+
+def emix_mesh_jax():
+    from knpemidg_tpu.mesh.generators import box_3d_axons
+
+    mesh = box_3d_axons(0, length_factor=1)
+    mesh.vertices *= 1e2
+    return mesh
+
+
+def emix_mesh_torch():
+    from knpemidg_tpu_torch.mesh.generators import box_3d_axons
+
+    mesh = box_3d_axons(0, length_factor=1)
+    mesh.vertices *= 1e2
+    return mesh
+
+
+def emix_jax():
+    """(JAX solver, JAX SolverParams) in float64."""
+    import jax.numpy as jnp
+    from run_EMIx_simulation import build_solver
+    from knpemidg_tpu.config import SolverParams
+
+    S = build_solver(mesh=emix_mesh_jax(), dtype=jnp.float64)
+    return S, SolverParams(**solver_params_kw())
+
+
+def emix_torch(device="cpu", dtype=F64):
+    """(port solver, port SolverParams)."""
+    S = emix.build_solver(emix_mesh_torch(), dtype=dtype, device=device)
+    return S, emix.solver_params()
+
+
+# ---------------------------------------------------------------------------
+# 2D neuron fixture (examples/run_2D.py physics)
+# ---------------------------------------------------------------------------
+
+def _neuron_2d(pkg):
+    """StandardSolver of package ``pkg`` ("jax" or "torch") on
+    box_2d_neuron(0) with the run_2D physics, in float64."""
+    if pkg == "jax":
+        import jax.numpy as jnp
+        from knpemidg_tpu.config import Ion, PhysicalParams, StimParams
+        from knpemidg_tpu.mesh.generators import box_2d_neuron
+        from knpemidg_tpu.models.hh import HodgkinHuxleySI
+        from knpemidg_tpu.solver import StandardSolver
+        kw = dict(dtype=jnp.float64)
+    else:
+        from knpemidg_tpu_torch.config import Ion, PhysicalParams, StimParams
+        from knpemidg_tpu_torch.mesh.generators import box_2d_neuron
+        from knpemidg_tpu_torch.models.hh import HodgkinHuxleySI
+        from knpemidg_tpu_torch.solver import StandardSolver
+        kw = dict(dtype=F64, device="cpu")
+    params = PhysicalParams(
+        dt=1.0e-4, n_steps_ODE=25, C_M=0.02, temperature=300.0, F=96485.0,
+        R=8.314, phi_M_init=-0.07438609374462003, phi_M_init_type="constant",
+        rho_sub={0: 0.0, 1: 0.0})
+    Na_i, Na_e = 12.838513108648856, 100.71925900027354
+    K_i, K_e = 124.15397583491901, 3.3236967382705265
+    Cl_i, Cl_e = Na_i + K_i, Na_e + K_e
+    D_Na, D_K, D_Cl = 1.33e-9, 1.96e-9, 2.03e-9
+    ions = [
+        Ion(name="K", z=1.0, D_sub={0: D_K, 1: D_K}, c_init_sub={0: K_e, 1: K_i}),
+        Ion(name="Cl", z=-1.0, D_sub={0: D_Cl, 1: D_Cl},
+            c_init_sub={0: Cl_e, 1: Cl_i}),
+        Ion(name="Na", z=1.0, D_sub={0: D_Na, 1: D_Na},
+            c_init_sub={0: Na_e, 1: Na_i}),
+    ]
+    stim = StimParams(stimulus={"stim_amplitude": 10.0},
+                      stimulus_locator=lambda x: x[0] < 20e-6, g_syn_bar=10.0)
+    S = StandardSolver(params, ions, **kw)
+    S.setup_domain(box_2d_neuron(0))
+    S.setup_parameters()
+    S.setup_FEM_spaces()
+    S.setup_membrane_model(stim, {1: HodgkinHuxleySI(stimulus=True)})
+    return S
+
+
+def neuron_2d_jax():
+    from knpemidg_tpu.config import SolverParams
+
+    return _neuron_2d("jax"), SolverParams(**solver_params_kw())
+
+
+def neuron_2d_torch():
+    return _neuron_2d("torch"), kt.SolverParams(**solver_params_kw())
+
+
+def jax_state_for_torch(S_jax_state, S_torch):
+    """A JAX solver state (pc included) as a port state on the CPU in f64,
+    through the numpy layout of state_to_numpy / state_from_numpy."""
+    st_np = kt.state_to_numpy(S_jax_state)
+    models = {tag: mm.model for tag, mm in S_torch.mem_models.items()}
+    return kt.state_from_numpy(st_np, "cpu", F64, models=models)
+
+
+def cuda_or_skip():
+    import pytest
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (kernels run on the card only)")
+    return torch.device("cuda")

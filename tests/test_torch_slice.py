@@ -1,0 +1,153 @@
+"""The whole splitting step of the port against the JAX package in
+float64: two steps of the EMIx-style setup (emi_ritz=0) and of the 2D
+neuron, with equal Krylov counts and matching fields; plus the package
+rules (no jax import, unsupported options raise) and the state exchange."""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import test_torch_parity as tp
+from test_torch_parity import rel
+
+import knpemidg_tpu_torch as kt
+from knpemidg_tpu_torch import solver as tsolver
+from knpemidg_tpu_torch.solvers import twolevel as ttwolevel
+
+TOL = 1e-8
+FIELDS = ("phi", "c", "c_elim", "phi_M")
+
+
+def _run_both(make_jax, make_torch, Tstop):
+    Sj, spj = make_jax()
+    St, spt = make_torch()
+    sj = Sj.solve_system_active(Tstop, 0.0, spj)
+    st = St.solve_system_active(Tstop, 0.0, spt)
+    return Sj, sj, St, st
+
+
+@pytest.fixture(scope="module")
+def emix_run():
+    return _run_both(tp.emix_jax, tp.emix_torch, 0.2)
+
+
+def test_emix_two_steps_match_jax(emix_run):
+    Sj, sj, St, st = emix_run
+    assert Sj.stats.emi_niters == St.stats.emi_niters == [7, 4]
+    assert Sj.stats.knp_niters == St.stats.knp_niters == [[4, 3], [2, 2]]
+    for key in FIELDS:
+        assert rel(st[key], sj[key]) < TOL, key
+    assert abs(float(st["t"]) - float(sj["t"])) < 1e-12
+
+
+@pytest.mark.parametrize("refresh", [0, 1])
+def test_neuron_2d_two_steps_match_jax(refresh):
+    """refresh=1 rebuilds the frozen preconditioner before the second step
+    (pc_refresh_every)."""
+    def with_refresh(make):
+        def made():
+            S, sp = make()
+            return S, dataclasses.replace(sp, pc_refresh_every=refresh)
+        return made
+
+    Sj, sj, St, st = _run_both(with_refresh(tp.neuron_2d_jax),
+                               with_refresh(tp.neuron_2d_torch), 2e-4)
+    assert Sj.stats.emi_niters == St.stats.emi_niters
+    assert Sj.stats.knp_niters == St.stats.knp_niters
+    for key in FIELDS:
+        assert rel(st[key], sj[key]) < TOL, key
+
+
+def test_run_block_matches_solve_system_active(emix_run):
+    """run_block (no first-step special case) gives the same two steps:
+    the phi_M seed equals each model's resting V."""
+    _, _, St, st = emix_run
+    S2, sp = tp.emix_torch()
+    state0 = S2.attach_pc(S2._initial_state(0.0), sp)
+    out, stats = S2.run_block(state0, sp, 2)
+    assert stats["emi_iters"] == St.stats.emi_niters
+    assert stats["knp_iters"] == St.stats.knp_niters
+    assert all(stats["emi_converged"]) and all(stats["knp_converged"])
+    for key in FIELDS:
+        assert rel(out[key], st[key]) < 1e-12, key
+
+
+def test_state_numpy_round_trip(emix_run):
+    _, _, St, st = emix_run
+    st_np = kt.state_to_numpy(st)
+    back = kt.state_from_numpy(st_np, "cpu", torch.float64)
+    for key in ("c", "c_elim", "phi", "phi_prev", "phi_M", "I_ch", "t"):
+        assert torch.equal(back[key], st[key]), key
+    for tag, mm in st["mem"].items():
+        assert torch.equal(back["mem"][tag].states, mm.states)
+        assert back["mem"][tag].model is mm.model
+    for part in st["pc"]:
+        for k, v in st["pc"][part].items():
+            assert torch.equal(back["pc"][part][k], v)
+
+
+@pytest.mark.parametrize("override", [
+    {"emi_ritz": -1}, {"emi_ritz": 24}, {"knp_solver": "bicgstab"},
+    {"emi_moment_host": True}, {"emi_moment_blocked": True},
+    {"emi_moment_axial": 6}, {"direct_emi": True}, {"precond": "two_level_mult"},
+    {"coarse_ridge": 1e-7},
+])
+def test_unsupported_solver_options_raise(override):
+    S, _ = tp.neuron_2d_torch()
+    kw = tp.solver_params_kw()
+    kw.update(override)
+    with pytest.raises(NotImplementedError):
+        S.solve_system_active(2e-4, 0.0, kt.SolverParams(**kw))
+
+
+def test_unsupported_setups_raise():
+    S, _ = tp.neuron_2d_torch()
+    with pytest.raises(NotImplementedError):
+        S.enable_pair_layout()
+    with pytest.raises(NotImplementedError):
+        kt.StandardSolver(S.params, S.ion_list, degree_emi=2)
+    with pytest.raises(NotImplementedError):
+        S.solve_system_active(2e-4, 0.0, kt.SolverParams(**tp.solver_params_kw()),
+                              filename="out/", save_fields=True)
+
+
+def test_port_imports_no_jax():
+    code = ("import sys; import knpemidg_tpu_torch, knpemidg_tpu_torch.emix, "
+            "knpemidg_tpu_torch._cuda; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'knpemidg_tpu' or m.startswith('knpemidg_tpu.')]; "
+            "assert not bad, bad")
+    root = os.path.join(os.path.dirname(__file__), "..")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_kernel_inputs_are_contiguous_on_main_path(monkeypatch):
+    """The CUDA wrappers raise on non-contiguous tensors; on the CPU the
+    same wrappers take anything, so check here that the main path hands
+    every kernel wrapper contiguous tensors of the working dtype."""
+    calls = []
+
+    def strict(fn):
+        def wrapped(*args, **kw):
+            for a in args:
+                if isinstance(a, torch.Tensor):
+                    assert a.is_contiguous(), fn.__name__
+                    assert a.dtype in (torch.float64, torch.int32), fn.__name__
+            calls.append(fn.__name__)
+            return fn(*args, **kw)
+        return wrapped
+
+    for mod in (tsolver, ttwolevel):
+        for name in ("bell_matvec", "bell_matvec_multi", "block_jacobi_inverse",
+                     "block_jacobi_apply"):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, strict(getattr(mod, name)))
+    S, sp = tp.neuron_2d_torch()
+    S.solve_system_active(2e-4, 0.0, sp)
+    assert {"bell_matvec", "bell_matvec_multi", "block_jacobi_inverse",
+            "block_jacobi_apply"} <= set(calls)

@@ -1,0 +1,84 @@
+"""Kernels A and B (ops/spmv): the port's plain path against the JAX
+package in float64 (the CUDA kernels are held against the plain path in
+tests/test_torch_cuda.py).  Blocks and vectors are random (numpy seed) on
+the neighbour table of box_3d_axons(0, length_factor=1)."""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from test_torch_parity import emix_mesh_torch, rel, t64
+
+from knpemidg_tpu.ops import spmv as jspmv
+from knpemidg_tpu_torch import _cuda
+from knpemidg_tpu_torch.fem.tabulation import build_geometry
+from knpemidg_tpu_torch.ops import spmv
+
+TOL = 1e-12      # f64 round-off of a 20-term sum in another order
+
+
+@pytest.fixture(scope="module")
+def nbr():
+    geom = build_geometry(emix_mesh_torch(), 2, 2)
+    return geom.to_device()["nbr"]                   # (K, nc) int32
+
+
+@pytest.mark.parametrize("m", [None, 2])
+def test_bell_matvec_matches_jax(nbr, m):
+    rng = np.random.default_rng(1)
+    K, nc = nbr.shape
+    shape = (K, 4, 4, nc) if m is None else (m, K, 4, 4, nc)
+    B = rng.standard_normal(shape)
+    x = rng.standard_normal(shape[:-4] + (4, nc))
+    if m is None:
+        ref = jspmv.bell_matvec(jnp.asarray(B), jnp.asarray(nbr.numpy()), jnp.asarray(x))
+        got = spmv.bell_matvec(t64(B), nbr, t64(x))
+    else:
+        ref = jspmv.bell_matvec_multi(jnp.asarray(B), jnp.asarray(nbr.numpy()),
+                                      jnp.asarray(x))
+        got = spmv.bell_matvec_multi(t64(B), nbr, t64(x))
+    assert rel(got, ref) < TOL
+
+
+def test_bell_matvec_fan_matches_jax(nbr):
+    rng = np.random.default_rng(2)
+    K, nc = nbr.shape
+    B = rng.standard_normal((K, 4, 4, nc))
+    X = rng.standard_normal((5, 4, nc))
+    ref = jspmv.bell_matvec_fan(jnp.asarray(B), jnp.asarray(nbr.numpy()), jnp.asarray(X))
+    assert rel(spmv.bell_matvec_fan(t64(B), nbr, t64(X)), ref) < TOL
+
+
+@pytest.mark.parametrize("m", [None, 2])
+def test_block_jacobi_matches_jax(m):
+    rng = np.random.default_rng(3)
+    nc = 500
+    lead = () if m is None else (m,)
+    P = rng.standard_normal(lead + (4, 4, 1, nc)).squeeze(-2) * 0.3
+    P = P + 4.0 * np.eye(4)[..., None]
+    r = rng.standard_normal(lead + (4, nc))
+    inv_j = (jspmv.block_jacobi_inverse(jnp.asarray(P)) if m is None else
+             jnp.stack([jspmv.block_jacobi_inverse(jnp.asarray(P[s])) for s in range(m)]))
+    inv_t = spmv.block_jacobi_inverse(t64(P))
+    assert rel(inv_t, inv_j) < TOL
+    app_j = (jspmv.block_jacobi_apply(inv_j, jnp.asarray(r)) if m is None else
+             jnp.einsum("mijc,mjc->mic", inv_j, jnp.asarray(r)))
+    assert rel(spmv.block_jacobi_apply(inv_t, t64(r)), app_j) < TOL
+
+
+def test_cpu_wrappers_run_plain_without_launching(nbr):
+    """On CPU tensors every wrapper is its plain version and no kernel
+    launch is counted."""
+    rng = np.random.default_rng(4)
+    K, nc = nbr.shape
+    B = t64(rng.standard_normal((2, K, 4, 4, nc)))
+    x = t64(rng.standard_normal((2, 4, nc)))
+    before = dict(_cuda.LAUNCHES)
+    assert torch.equal(spmv.bell_matvec_multi(B, nbr, x),
+                       spmv.bell_matvec_multi_plain(B, nbr, x))
+    assert torch.equal(spmv.bell_matvec(B[0], nbr, x[0]),
+                       spmv.bell_matvec_plain(B[0], nbr, x[0]))
+    P = B[:, 0]
+    assert torch.equal(spmv.block_jacobi_inverse(P), spmv.block_jacobi_inverse_plain(P))
+    assert torch.equal(spmv.block_jacobi_apply(P, x), spmv.block_jacobi_apply_plain(P, x))
+    assert _cuda.LAUNCHES == before
