@@ -70,24 +70,20 @@ def _stale() -> bool:
     return any(os.path.getmtime(s) > t_lib for s in srcs)
 
 
-def build(force: bool = False, verbose: bool = False) -> float:
+def build() -> float:
     """Compile the kernels if the library is missing or older than a
     source; returns the seconds spent compiling (0.0 when up to date)."""
     with _lock:
-        if not force and not _stale():
+        if not _stale():
             return 0.0
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = LIB_PATH + f".tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS]
-        if verbose:
-            cmd += ["-Xptxas", "-v"]
-        cmd += ["-o", tmp] + [os.path.join(_CSRC, f) for f in SOURCES]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp]
+        cmd += [os.path.join(_CSRC, f) for f in SOURCES]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-        if verbose:
-            print(proc.stdout + proc.stderr)
         os.replace(tmp, LIB_PATH)
         return time.perf_counter() - t0
 

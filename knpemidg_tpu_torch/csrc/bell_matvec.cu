@@ -67,8 +67,6 @@ static int bell_matvec_launch(const T* B, const int* nbr, const T* x, T* y,
   const unsigned int grid = knp_blocks((long long)m * nc);
   if (nd == 4) {
     bell_matvec_kernel<T, 4><<<grid, KNP_THREADS, 0, st>>>(B, nbr, x, y, m, K, nc);
-  } else if (nd == 3) {
-    bell_matvec_kernel<T, 3><<<grid, KNP_THREADS, 0, st>>>(B, nbr, x, y, m, K, nc);
   } else {
     return (int)cudaErrorInvalidValue;
   }

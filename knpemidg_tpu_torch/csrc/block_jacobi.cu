@@ -90,8 +90,6 @@ static int bj_inverse_launch(const T* P, T* Pinv, int m, int nd, int nc, void* s
   const unsigned int grid = knp_blocks((long long)m * nc);
   if (nd == 4) {
     bj_inverse_kernel<T, 4><<<grid, KNP_THREADS, 0, st>>>(P, Pinv, m, nc);
-  } else if (nd == 3) {
-    bj_inverse_kernel<T, 3><<<grid, KNP_THREADS, 0, st>>>(P, Pinv, m, nc);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -105,8 +103,6 @@ static int bj_apply_launch(const T* Pinv, const T* r, T* z, int m, int nd, int n
   const unsigned int grid = knp_blocks((long long)m * nc);
   if (nd == 4) {
     bj_apply_kernel<T, 4><<<grid, KNP_THREADS, 0, st>>>(Pinv, r, z, m, nc);
-  } else if (nd == 3) {
-    bj_apply_kernel<T, 3><<<grid, KNP_THREADS, 0, st>>>(Pinv, r, z, m, nc);
   } else {
     return (int)cudaErrorInvalidValue;
   }

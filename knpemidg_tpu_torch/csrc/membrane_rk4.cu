@@ -23,7 +23,7 @@ enum {
   P_m_K, P_m_Na, P_I_max, P_K_e_init, P_K_i_init
 };
 
-enum { MODEL_HH_MV = 1, MODEL_GLIAL_KIR = 2, MODEL_HH_SI = 3 };
+enum { MODEL_HH_MV = 1, MODEL_GLIAL_KIR = 2 };
 
 template <typename T>
 __device__ __forceinline__ T vtrap(T x, T y) {
@@ -47,20 +47,13 @@ __device__ __forceinline__ T pump_saturating(const T* p) {
   return p[P_I_max] / ((a * a) * (b * b * b));
 }
 
-// ---- Hodgkin-Huxley (mV/ms and SI variants) -------------------------------
-template <typename T, bool SI>
+// ---- Hodgkin-Huxley (emix mV/ms units) ------------------------------------
+template <typename T>
 __device__ __forceinline__ void hh_currents(T t, const T* y, const T* p, bool stim,
                                             T* i_Na, T* i_K) {
   const T m = y[0], h = y[1], n = y[2], V = y[3];
-  T i_stim = T(0);
-  if (stim) {
-    if constexpr (SI) {
-      i_stim = p[P_stim_amplitude] * exp(-floor_mod(t, T(0.03)) / T(0.002)) *
-               (t < T(125e-3) ? T(1) : T(0));
-    } else {
-      i_stim = p[P_stim_amplitude] * exp(-floor_mod(t, T(20.0)) / T(2.0));
-    }
-  }
+  const T i_stim =
+      stim ? p[P_stim_amplitude] * exp(-floor_mod(t, T(20.0)) / T(2.0)) : T(0);
   const T i_pump = pump_saturating(p);
   *i_Na = (p[P_g_leak_Na] + p[P_g_Na_bar] * h * (m * m * m) + i_stim) * (V - p[P_E_Na]) +
           T(3) * i_pump;
@@ -68,29 +61,17 @@ __device__ __forceinline__ void hh_currents(T t, const T* y, const T* p, bool st
   *i_K = (p[P_g_leak_K] + p[P_g_K_bar] * (n2 * n2)) * (V - p[P_E_K]) - T(2) * i_pump;
 }
 
-template <typename T, bool SI>
+template <typename T>
 __device__ __forceinline__ void hh_rhs(T t, const T* y, const T* p, bool stim, T* dy) {
-  const T m = y[0], h = y[1], n = y[2];
-  T am, bm, ah, bh, an, bn;
-  if constexpr (SI) {
-    const T v = y[3] * T(1e3);
-    am = T(0.1e3) * vtrap(v + T(40), T(10));
-    bm = T(4.0e3) * exp(-(v + T(65)) / T(18));
-    ah = T(0.07e3) * exp(-(v + T(65)) / T(20));
-    bh = T(1.0e3) / (exp((T(30) - (v + T(65))) / T(10)) + T(1));
-    an = T(0.01e3) * vtrap(v + T(55), T(10));
-    bn = T(0.125e3) * exp(-(v + T(65)) / T(80));
-  } else {
-    const T V = y[3];
-    am = T(0.1) * vtrap(V + T(40), T(10));
-    bm = T(4.0) * exp(-(V + T(65)) / T(18));
-    ah = T(0.07) * exp(-(V + T(65)) / T(20));
-    bh = T(1) / (T(1) + exp(-(V + T(35)) / T(10)));
-    an = T(0.01) * vtrap(V + T(55), T(10));
-    bn = T(0.125) * exp(-(V + T(65)) / T(80));
-  }
+  const T m = y[0], h = y[1], n = y[2], V = y[3];
+  const T am = T(0.1) * vtrap(V + T(40), T(10));
+  const T bm = T(4.0) * exp(-(V + T(65)) / T(18));
+  const T ah = T(0.07) * exp(-(V + T(65)) / T(20));
+  const T bh = T(1) / (T(1) + exp(-(V + T(35)) / T(10)));
+  const T an = T(0.01) * vtrap(V + T(55), T(10));
+  const T bn = T(0.125) * exp(-(V + T(65)) / T(80));
   T i_Na, i_K;
-  hh_currents<T, SI>(t, y, p, stim, &i_Na, &i_K);
+  hh_currents<T>(t, y, p, stim, &i_Na, &i_K);
   dy[0] = (T(1) - m) * am - m * bm;
   dy[1] = (T(1) - h) * ah - h * bh;
   dy[2] = (T(1) - n) * an - n * bn;
@@ -119,9 +100,7 @@ __device__ __forceinline__ void glial_currents(const T* y, const T* p, T* i_Na, 
 template <typename T, int MODEL>
 __device__ __forceinline__ void model_rhs(T t, const T* y, const T* p, bool stim, T* dy) {
   if constexpr (MODEL == MODEL_HH_MV) {
-    hh_rhs<T, false>(t, y, p, stim, dy);
-  } else if constexpr (MODEL == MODEL_HH_SI) {
-    hh_rhs<T, true>(t, y, p, stim, dy);
+    hh_rhs<T>(t, y, p, stim, dy);
   } else {
     T i_Na, i_K;
     glial_currents<T>(y, p, &i_Na, &i_K);
@@ -133,9 +112,7 @@ template <typename T, int MODEL>
 __device__ __forceinline__ void model_currents(T t, const T* y, const T* p, bool stim,
                                                T* i_Na, T* i_K) {
   if constexpr (MODEL == MODEL_HH_MV) {
-    hh_currents<T, false>(t, y, p, stim, i_Na, i_K);
-  } else if constexpr (MODEL == MODEL_HH_SI) {
-    hh_currents<T, true>(t, y, p, stim, i_Na, i_K);
+    hh_currents<T>(t, y, p, stim, i_Na, i_K);
   } else {
     glial_currents<T>(y, p, i_Na, i_K);
   }
@@ -201,9 +178,6 @@ static int membrane_rk4_launch(const T* states, const T* params, T* states_out,
   const T th = (T)h, th2 = (T)(0.5 * h), th6 = (T)(h / 6.0);
   if (model_id == MODEL_HH_MV && n_states == 4 && n_params == 17) {
     membrane_rk4_kernel<T, MODEL_HH_MV, 4, 17><<<grid, KNP_THREADS, 0, st>>>(
-        states, params, states_out, params_out, n, t0, tend, th, th2, th6, n_sub, stim);
-  } else if (model_id == MODEL_HH_SI && n_states == 4 && n_params == 17) {
-    membrane_rk4_kernel<T, MODEL_HH_SI, 4, 17><<<grid, KNP_THREADS, 0, st>>>(
         states, params, states_out, params_out, n, t0, tend, th, th2, th6, n_sub, stim);
   } else if (model_id == MODEL_GLIAL_KIR && n_states == 1 && n_params == 19) {
     membrane_rk4_kernel<T, MODEL_GLIAL_KIR, 1, 19><<<grid, KNP_THREADS, 0, st>>>(

@@ -101,7 +101,6 @@ class HodgkinHuxleySI(_HodgkinHuxley):
         "m_Na": 7.7,
         "I_max": 0.449,         # A/m^2
     }
-    cuda_model_id = 3
     _STIM_PERIOD = 0.03
     _STIM_DECAY = 0.002
     _STIM_END = 125e-3

@@ -9,12 +9,22 @@ Kernel A (``csrc/bell_matvec.cu``) carries :func:`bell_matvec` and
 :func:`block_jacobi_inverse` and :func:`block_jacobi_apply`.  Each wrapper
 runs its plain torch version (``*_plain``) for tensors on the CPU and
 launches its kernel for CUDA tensors; there is no fallback between the two.
+The kernels are built for the 3D DG1 blocks (nd = 4) only; other block
+sizes raise on a CUDA tensor.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import _cuda
+
+CUDA_ND = 4      # block size the kernels are instantiated for (3D DG1)
+
+
+def _check_nd(name, nd):
+    if nd != CUDA_ND:
+        raise NotImplementedError(
+            f"{name}: CUDA kernel built for nd = {CUDA_ND} blocks, got nd = {nd}")
 
 
 # ---------------------------------------------------------------------------
@@ -48,6 +58,7 @@ def _bell_cuda(blocks, nbr, x, m):
     _cuda.check("blocks", blocks, x.dtype,
                 ((m,) if blocks.dim() == 5 else ()) + (K, nd, nd, nc))
     _cuda.check("nbr", nbr, torch.int32, (K, nc))
+    _check_nd("bell_matvec", nd)
     y = torch.empty_like(x)
     _cuda.launch("bell_matvec", "knp_bell_matvec", x.dtype, blocks.data_ptr(),
                  nbr.data_ptr(), x.data_ptr(), y.data_ptr(), m, K, nd, nc)
@@ -128,6 +139,7 @@ def block_jacobi_inverse(diag_blocks):
         raise ValueError("block_jacobi_inverse: expected (m,) nd, nd, nc blocks")
     m = _batch(diag_blocks, 3)
     _cuda.check("diag_blocks", diag_blocks)
+    _check_nd("block_jacobi_inverse", nd)
     out = torch.empty_like(diag_blocks)
     _cuda.launch("block_jacobi_inverse", "knp_bj_inverse", diag_blocks.dtype,
                  diag_blocks.data_ptr(), out.data_ptr(), m, nd, nc)
@@ -145,6 +157,7 @@ def block_jacobi_apply(Pinv, r):
     m = _batch(r, 2)
     _cuda.check("r", r)
     _cuda.check("Pinv", Pinv, r.dtype, r.shape[:-2] + (nd, nd, nc))
+    _check_nd("block_jacobi_apply", nd)
     z = torch.empty_like(r)
     _cuda.launch("block_jacobi_apply", "knp_bj_apply", r.dtype, Pinv.data_ptr(),
                  r.data_ptr(), z.data_ptr(), m, nd, nc)

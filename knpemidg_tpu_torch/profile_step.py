@@ -1,0 +1,165 @@
+"""Phase profile of the port's splitting step on one CUDA card.
+
+Sets up the EMIx solver on box_3d_axons(1, length_factor=2) scaled to cm
+(124,416 tets, the cell of ``chip_smoke.py``), runs WARMUP steps, then
+profiles STEPS steady steps (``run_block``) twice:
+
+1. phases: a device synchronise and the host clock around each of the six
+   phases of a step (ODE, EMI assembly, EMI solve, KNP assembly, KNP solve,
+   finalize), in ms per step;
+2. trace: the same number of steps under ``torch.profiler`` with one
+   synchronise at the end: the wall, the device busy time (the union of the
+   device kernel intervals), the number of device events, and the
+   operators with the most device time, each as a share of the busy time
+   (an aten operator's row holds the kernels it launched, which also have
+   rows of their own, so the shares add up to more than 1).  The
+   profiler's own cost is in the wall, so the busy share it gives is a
+   lower bound.
+
+Usage (needs a CUDA card):
+
+    python -m knpemidg_tpu_torch.profile_step [--dtype float64|float32]
+        [--json FILE]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from . import emix
+from .mesh.generators import box_3d_axons
+
+WARMUP, STEPS = 3, 3     # steps before the profile, steps per profile
+TOP = 12                 # operators listed by device time
+PHASES = ("_ode_step", "_assemble_emi", "_emi_solve_iterative",
+          "_knp_assemble_all", "_knp_solve_all", "_finalize_step")
+
+
+def _timed_phases(S, walls):
+    """Wrap the six phase methods of solver ``S`` (instance attributes) so
+    each call ends in a synchronise and appends its ms to walls[name]."""
+    for name in PHASES:
+        fn = getattr(S, name)
+
+        def wrapped(*args, _fn=fn, _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            walls[_name].append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        setattr(S, name, wrapped)
+
+
+def _untimed(S):
+    for name in PHASES:
+        delattr(S, name)
+
+
+def _device_events(prof):
+    """Device (kernel, memcpy, memset) events of a finished profile as
+    (start_us, end_us) intervals."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == cuda]
+
+
+def _union_us(intervals):
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    return busy
+
+
+def _self_device_us(evt):
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return getattr(evt, attr)
+    return 0.0
+
+
+def profile(dtype=torch.float64):
+    """Set up the cell, warm up, and return the phase and trace readings
+    as a dict (times in ms)."""
+    mesh = box_3d_axons(1, length_factor=2)
+    mesh.vertices *= 1e2
+    S = emix.build_solver(mesh, dtype=dtype, device="cuda")
+    sp = emix.solver_params(error_if_not_converged=False)
+    state = S.attach_pc(S._initial_state(0.0), sp)
+    state = S._ode_step(state, first_step=True)       # the first-step V seed
+    state, _ = S._pde_step(state, sp)
+    state, _ = S.run_block(state, sp, WARMUP - 1)
+    torch.cuda.synchronize()
+
+    walls = {name: [] for name in PHASES}
+    _timed_phases(S, walls)
+    state, st_phase = S.run_block(state, sp, STEPS)
+    _untimed(S)
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, st_trace = S.run_block(state, sp, STEPS)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev = _device_events(prof)
+    # None when the profiler saw no device activity (not measured)
+    busy_ms = 1e-3 * _union_us(dev) if dev else None
+    ops = sorted(prof.key_averages(), key=_self_device_us, reverse=True)
+    return {
+        "cells": S.n_cells, "dtype": str(dtype), "warmup": WARMUP, "steps": STEPS,
+        "phases": {"emi_iters": st_phase["emi_iters"],
+                   "knp_iters": st_phase["knp_iters"],
+                   "ms": {name.strip("_"): walls[name] for name in PHASES}},
+        "trace": {"emi_iters": st_trace["emi_iters"],
+                  "knp_iters": st_trace["knp_iters"],
+                  "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                  "device_busy_share": None if busy_ms is None else busy_ms / wall_ms,
+                  "device_events": len(dev),
+                  "top_ops": [{"name": e.key, "self_device_ms": 1e-3 * _self_device_us(e),
+                               "share": (None if busy_ms is None else
+                                         1e-3 * _self_device_us(e) / busy_ms),
+                               "calls": e.count} for e in ops[:TOP]]},
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", choices=("float64", "float32"), default="float64")
+    ap.add_argument("--json", help="also write the readings to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA card")
+    out = profile(getattr(torch, args.dtype))
+    print(f"{out['cells']} cells, {out['dtype']}, steps {WARMUP + 1}-"
+          f"{WARMUP + STEPS} phased, the next {STEPS} traced")
+    ph = out["phases"]
+    print(f"phases  EMI iters {ph['emi_iters']}  KNP iters {ph['knp_iters']}")
+    for name, ms in ph["ms"].items():
+        print(f"  {name:22s} " + " ".join(f"{v:8.3f}" for v in ms) + "  ms")
+    tr = out["trace"]
+    print(f"trace   EMI iters {tr['emi_iters']}  KNP iters {tr['knp_iters']}")
+    busy = ("device busy not measured (no device events in the trace)"
+            if tr["device_busy_ms"] is None else
+            f"device busy {tr['device_busy_ms']:.3f} ms "
+            f"({100 * tr['device_busy_share']:.1f}%)")
+    print(f"  wall {tr['wall_ms']:.3f} ms, {busy}, {tr['device_events']} device events")
+    for op in tr["top_ops"]:
+        share = "" if op["share"] is None else f"{100 * op['share']:5.1f}%"
+        print(f"  {op['self_device_ms']:9.3f} ms {share:>6s} {op['calls']:6d}x  "
+              f"{op['name'][:90]}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(out, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -56,34 +56,49 @@ def test_matvec_and_block_jacobi_kernels_match_plain(nbr, dtype, tol):
         spmv.bell_matvec(B0, nb, x0.t())
 
 
-MODELS = {"hh_mv": (lambda: hh.HodgkinHuxleyMV(), 0.1, 0.3, 2.0),
-          "glial_kir": (lambda: glial.GlialKir(), 0.1, 0.3, 2.0),
-          "hh_si": (lambda: hh.HodgkinHuxleySI(), 1e-4, 0.02, 0.02)}
+MODELS = {"hh_mv": hh.HodgkinHuxleyMV, "glial_kir": glial.GlialKir}
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_membrane_rk4_kernel_matches_plain(name, dtype, tol):
     dev = cuda_or_skip()
-    make, dt, t0, cm = MODELS[name]
     rng = np.random.default_rng(6)
     n = 4000
-    mm = engine.make_membrane(make(), np.zeros((n, 3)), dtype=dtype, device=dev)
-    si = name == "hh_si"
-    for key, val in {"Cm": cm, "K_e": 3.3, "Na_i": 12.8,
-                     "E_K": -0.09 if si else -90.0, "E_Na": 0.05 if si else 50.0,
-                     "stim_amplitude": 5.0}.items():
+    mm = engine.make_membrane(MODELS[name](), np.zeros((n, 3)), dtype=dtype, device=dev)
+    for key, val in {"Cm": 2.0, "K_e": 3.3, "Na_i": 12.8, "E_K": -90.0,
+                     "E_Na": 50.0, "stim_amplitude": 5.0}.items():
         mm = engine.set_param(mm, key, val * rng.uniform(0.9, 1.1, n))
-    t = torch.tensor(t0, dtype=dtype, device=dev)
+    t = torch.tensor(0.3, dtype=dtype, device=dev)
     n0 = _cuda.LAUNCHES["membrane_rk4"]
-    got = engine.ode_step(mm, t, dt, 25)
-    ref = engine.ode_step_plain(mm, t, dt, 25)
+    got = engine.ode_step(mm, t, 0.1, 25)
+    ref = engine.ode_step_plain(mm, t, 0.1, 25)
     assert _cuda.LAUNCHES["membrane_rk4"] == n0 + 1
     for s in range(ref.states.shape[0]):
         assert rel(got.states[s], ref.states[s]) < 10 * tol
     assert rel(got.params, ref.params) < 10 * tol
     with pytest.raises(NotImplementedError):
-        engine.ode_step(mm, t, dt, 25, scheme="rush_larsen")
+        engine.ode_step(mm, t, 0.1, 25, scheme="rush_larsen")
+
+
+def test_kernels_raise_outside_the_main_path():
+    """The kernels exist for the 3D DG1 blocks (nd = 4) and the EMIx models;
+    anything else raises on a CUDA tensor instead of running plain."""
+    dev = cuda_or_skip()
+    mm = engine.make_membrane(hh.HodgkinHuxleySI(), np.zeros((8, 3)), device=dev)
+    t = torch.tensor(0.0, dtype=torch.float64, device=dev)
+    with pytest.raises(NotImplementedError):
+        engine.ode_step(mm, t, 1e-4, 25)
+    nc = 16
+    nbr = torch.zeros((4, nc), dtype=torch.int32, device=dev)
+    B = torch.ones((4, 3, 3, nc), dtype=torch.float64, device=dev)
+    x = torch.ones((3, nc), dtype=torch.float64, device=dev)
+    with pytest.raises(NotImplementedError):
+        spmv.bell_matvec(B, nbr, x)
+    with pytest.raises(NotImplementedError):
+        spmv.block_jacobi_inverse(B[0].contiguous())
+    with pytest.raises(NotImplementedError):
+        spmv.block_jacobi_apply(B[0].contiguous(), x)
 
 
 def test_emix_slice_on_cuda_matches_cpu():
