@@ -1,29 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of knpemidg_tpu_torch on one NVIDIA GPU.
 
-Drives the port's main path -- StandardSolver setup, then
+Drives the port's two paths -- StandardSolver setup, then
 solve_system_active over the 10-step reference protocol (Tstop 1 ms,
 dt 0.1 ms) -- on the 124,416-tet box_3d_axons(1, length_factor=2) mesh
-(scaled to cm) with the EMIx physics.  On the way it:
+(scaled to cm) with the EMIx physics: first on the cell layout, then on
+the interleaved pair layout (enable_pair_layout, the JAX benchmark's
+layout).  On the way it:
 
   1. requires a CUDA card and prints its name and power limit;
-  2. builds the CUDA kernels from csrc/ and prints the build seconds;
-  3. compares every kernel with its plain torch version at the main
-     path's shapes, in float32 and float64, and times both;
-  4. checks the result on a small input against the reference iteration
+  2. builds the CUDA kernels from csrc/ (one nvcc per source, in
+     parallel) and prints the build seconds;
+  3. compares every kernel of each path with its plain torch version at
+     that path's shapes, in float32 and float64, and times the kernel, the
+     plain version and, where one PyTorch call computes the same function,
+     that call; computes each kernel's bound from this run's inputs;
+  4. checks each layout on a small input against the reference iteration
      counts of the JAX package and the port's own CPU run;
-  5. runs the protocol in float64 with every launch counter reset first,
-     and fails unless every solve converged, the fields are finite and
-     every kernel was launched;
-  6. runs the same protocol in float32 and reports its Krylov counts and
-     whether each solve converged.  At the production tolerances the
-     float32 EMI solve can stall at the iteration cap on this mesh (so can
-     the JAX package's float32 program on the CPU), so this phase reports
-     and does not assert convergence.
+  5. runs the protocol in float64 on each layout with every launch
+     counter reset first, and fails unless every solve converged, the
+     fields are finite and every kernel of that path was launched;
+  6. runs the same protocol in float32 on each layout and reports its
+     Krylov counts and whether each solve converged.  At the production
+     tolerances the float32 EMI solve can stall at the iteration cap on
+     this mesh (so can the JAX package's float32 program on the CPU), so
+     this phase reports and does not assert convergence.
 
 Usage:  python3 chip_smoke.py      (exits non-zero on any failure)
 The last line is {"ok": true, "device": {...}}; the line before it the
-per-kernel JSON summary.
+card's name and power limit, and the line before that the per-kernel JSON
+summary.
 """
 import json
 import os
@@ -39,45 +45,79 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 # tolerances on max |kernel - plain| / scale, elementwise, where scale is
 # the size rounding is measured against (see kernel_phase): |B| |x| for the
-# matvec and the block-Jacobi apply, |P^-1| |P| |P^-1| for the inverse, and
-# each state's / parameter's own size for the ODE step (ode_scale).
+# matvecs and the block-Jacobi apply, |P^-1| |P| |P^-1| for the inverse,
+# and each state's / parameter's own size for the ODE step (ode_scale).
 # float32: sums in another order and fused multiply-adds change the last
 # bits, and the 100-evaluation ODE step carries them through the stiff
-# gating dynamics.
+# gating dynamics.  The relayout (K4) and the pair emit (K12) are moves,
+# selects and the plain version's additions in its order: exact.
 TOL = {torch.float32: {"bell_matvec": 1e-5, "block_jacobi_apply": 1e-5,
-                       "block_jacobi_inverse": 1e-5, "membrane_rk4": 1e-4},
+                       "block_jacobi_inverse": 1e-5, "membrane_rk4": 1e-4,
+                       "pair_matvec": 1e-5, "block_jacobi_inverse_nd8": 1e-5,
+                       "block_jacobi_apply_nd8": 1e-5, "to_pair": 0.0,
+                       "from_pair": 0.0, "gather_blocks_pair": 0.0},
        torch.float64: {"bell_matvec": 1e-12, "block_jacobi_apply": 1e-12,
-                       "block_jacobi_inverse": 1e-12, "membrane_rk4": 1e-12}}
-# dtype of the asserted protocol run: float64 converges in a few Krylov
-# iterations per step; float32 at the same tolerances can stall (step 6)
+                       "block_jacobi_inverse": 1e-12, "membrane_rk4": 1e-12,
+                       "pair_matvec": 1e-12, "block_jacobi_inverse_nd8": 1e-12,
+                       "block_jacobi_apply_nd8": 1e-12, "to_pair": 0.0,
+                       "from_pair": 0.0, "gather_blocks_pair": 0.0}}
+# dtype of the asserted protocol runs: float64 converges in a few Krylov
+# iterations per step; float32 at the same tolerances can stall
 MAIN_DTYPE = torch.float64
-# the small-input reference: box_3d_axons(0, 1) x 1e2, EMIx setup, f64,
-# two steps (counts of the JAX package, tests/test_torch_slice.py)
-REF_EMI = [7, 4]
-REF_KNP = [[4, 3], [2, 2]]
+# the small-input references: box_3d_axons(0, 1) x 1e2, EMIx setup, f64,
+# two steps (counts of the JAX package, tests/test_torch_slice.py and
+# tests/test_torch_pair_slice.py)
+REF = {"cell": ([7, 4], [[4, 3], [2, 2]]),
+       "pair": ([3, 9], [[11, 8], [9, 5]])}
 
+# the card's peaks (NVIDIA H100 SXM data sheet): HBM bandwidth, and the
+# non-tensor-core float32 / float64 rates
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# operations of one membrane right-hand side evaluation per point, counted
+# from csrc/membrane_rk4.cu (each exp, log, sqrt and division as one)
+RK4_RHS_OPS = {"HodgkinHuxleyMV": 85, "GlialKir": 40}
+
+# kernel -> (source, the TPU-side function it replaces, the path it serves)
 KERNELS = {
     "bell_matvec": ("knpemidg_tpu_torch/csrc/bell_matvec.cu",
-                    "knpemidg_tpu/ops/spmv.py:17"),
+                    "knpemidg_tpu/ops/spmv.py:17", "cell"),
     "block_jacobi_inverse": ("knpemidg_tpu_torch/csrc/block_jacobi.cu",
-                             "knpemidg_tpu/ops/spmv.py:102"),
+                             "knpemidg_tpu/ops/spmv.py:102", "cell"),
     "block_jacobi_apply": ("knpemidg_tpu_torch/csrc/block_jacobi.cu",
-                           "knpemidg_tpu/ops/spmv.py:131"),
+                           "knpemidg_tpu/ops/spmv.py:131", "cell"),
     "membrane_rk4": ("knpemidg_tpu_torch/csrc/membrane_rk4.cu",
-                     "knpemidg_tpu/membrane/engine.py:93"),
+                     "knpemidg_tpu/membrane/engine.py:93", "cell"),
+    "pair_matvec": ("knpemidg_tpu_torch/csrc/pair_matvec.cu",
+                    "knpemidg_tpu/ops/pairs.py:344", "pair"),
+    "to_pair": ("knpemidg_tpu_torch/csrc/pair_relayout.cu",
+                "knpemidg_tpu/ops/pairs.py:273", "pair"),
+    "from_pair": ("knpemidg_tpu_torch/csrc/pair_relayout.cu",
+                  "knpemidg_tpu/ops/pairs.py:326", "pair"),
+    "gather_blocks_pair": ("knpemidg_tpu_torch/csrc/pair_emit.cu",
+                           "knpemidg_tpu/ops/pairs.py:384", "pair"),
+    "block_jacobi_inverse_nd8": ("knpemidg_tpu_torch/csrc/block_jacobi.cu",
+                                 "knpemidg_tpu/ops/spmv.py:102", "pair"),
+    "block_jacobi_apply_nd8": ("knpemidg_tpu_torch/csrc/block_jacobi.cu",
+                               "knpemidg_tpu/ops/spmv.py:131", "pair"),
 }
+# kernels each path's window must launch (membrane_rk4 serves both)
+PATH_KERNELS = {"cell": [k for k, v in KERNELS.items() if v[2] == "cell"],
+                "pair": [k for k, v in KERNELS.items() if v[2] == "pair"]
+                + ["membrane_rk4"]}
 
 
-def report_window(S, dtype):
+def report_window(S, dtype, layout):
     """Print the per-step Krylov counts and walls of a finished
-    solve_system_active run."""
+    solve_system_active run; return (median ms/step, median ODE ms)."""
     steps_ms = [1e3 * (a + b) for a, b in zip(S.ode_walls, S.stats.step_walls)]
-    tag = "run" if dtype == MAIN_DTYPE else "f32"
+    tag = f"{layout}{'64' if dtype == MAIN_DTYPE else '32'}"
+    med, ode = statistics.median(steps_ms), 1e3 * statistics.median(S.ode_walls)
     print(f"{tag:7s} {dtype} emi iters {S.stats.emi_niters}")
     print(f"{tag:7s} {dtype} knp iters {S.stats.knp_niters}")
     print(f"{tag:7s} {dtype} ms/step {[round(v, 2) for v in steps_ms]}")
-    print(f"{tag:7s} {dtype} median {statistics.median(steps_ms):.2f} ms/step "
-          f"(ODE median {1e3 * statistics.median(S.ode_walls):.2f} ms)")
+    print(f"{tag:7s} {dtype} median {med:.2f} ms/step (ODE median {ode:.2f} ms)")
+    return med, ode
 
 
 def gpu_line():
@@ -112,28 +152,77 @@ def err(got, ref, scale):
     return float(d.max()), float(rel.max())
 
 
-def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results):
-    """Check one kernel against its plain version; record the error and
-    both times per dtype.  kernel_fn/plain_fn return a list of tensors,
+def nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def exact(ref):
+    """Error scales of a comparison that must be exact."""
+    return [torch.ones_like(r) for r in ref]
+
+
+def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results, inputs=(),
+            flops=0.0, library_fn=None, record=True):
+    """Check one kernel against its plain version; when ``record``, time
+    the kernel, the plain version and the library call per dtype and store
+    them with the bound (``inputs`` read once, the outputs written once,
+    ``flops`` operations).  kernel_fn/plain_fn return a list of tensors,
     scale_fn maps the plain outputs to the error scales (see TOL)."""
     got, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     errs = [err(a, b, sc) for a, b, sc in zip(got, ref, scale_fn(ref))]
     abs_e, rel_e = max(e[0] for e in errs), max(e[1] for e in errs)
     ok = bool(np.isfinite(rel_e)) and rel_e <= TOL[dtype][name]
-    print(f"compare {name:22s} {str(dtype):14s} max_abs_err {abs_e:.3e} "
+    label = name if record else f"{name} (check)"
+    print(f"compare {label:30s} {str(dtype):14s} max_abs_err {abs_e:.3e} "
           f"rel {rel_e:.3e} (tol {TOL[dtype][name]:.0e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version in {dtype}")
+    if not record:
+        return
     entry = results.setdefault(name, {}).setdefault(dtype, {})
     entry["max_abs_err"] = abs_e
     entry["ms"] = cuda_ms(kernel_fn)
     entry["plain_ms"] = cuda_ms(plain_fn)
-    print(f"time    {name:22s} {str(dtype):14s} kernel {entry['ms']:.4f} ms  "
-          f"plain {entry['plain_ms']:.4f} ms")
+    entry["library_ms"] = cuda_ms(library_fn) if library_fn is not None else None
+    byte_ms = 1e3 * (nbytes(inputs) + nbytes(got)) / PEAK_BYTES_S
+    op_ms = 1e3 * flops / PEAK_FLOPS[dtype]
+    entry["bound_ms"] = max(byte_ms, op_ms)
+    entry["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
+    lib = ("" if entry["library_ms"] is None
+           else f"  library {entry['library_ms']:.4f} ms")
+    print(f"time    {name:30s} {str(dtype):14s} kernel {entry['ms']:.4f} ms  "
+          f"plain {entry['plain_ms']:.4f} ms{lib}  bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']})")
+
+
+def inv_scale(P, inv):
+    """Componentwise bound of a block inverse: |P^-1| |P| |P^-1|."""
+    return torch.einsum("...ikc,...klc,...ljc->...ijc", inv.abs(), P.abs(), inv.abs())
+
+
+def bj_inv_flops(P):
+    nd = P.shape[-2]
+    return 2.0 * nd ** 3 * P.numel() / (nd * nd)
+
+
+def bj_apply_flops(P):
+    return 2.0 * P.numel()
+
+
+def lib_inv(P):
+    """torch.linalg.inv on the batched blocks (cells-last -> batch-first)."""
+    return torch.linalg.inv(torch.movedim(P, -1, -3))
+
+
+def lib_apply(Pinv, r):
+    """One batched torch.matmul for the block-Jacobi apply."""
+    return torch.matmul(torch.movedim(Pinv, -1, -3),
+                        torch.movedim(r, -1, -2)[..., None])
 
 
 def kernel_phase(S, state, results):
+    """The cell path's kernels at its shapes."""
     from knpemidg_tpu_torch.membrane import engine
     from knpemidg_tpu_torch.ops import spmv
 
@@ -150,9 +239,6 @@ def kernel_phase(S, state, results):
     def ode_all(step, mms, t):
         outs = [step(mm, t, S.params.dt, S.params.n_steps_ODE) for mm in mms.values()]
         return [v for o in outs for v in (o.states, o.params)]
-
-    def inv_scale(P, inv):           # componentwise bound of a block inverse
-        return torch.einsum("...ikc,...klc,...ljc->...ijc", inv.abs(), P.abs(), inv.abs())
 
     def ode_scale(mms, ref):
         """Each state row against its own max |plain| (a gating variable is
@@ -182,12 +268,15 @@ def kernel_phase(S, state, results):
                          spmv.bell_matvec_multi_plain(BK, nbr, xK)],
                 lambda ref: [spmv.bell_matvec_plain(B.abs(), nbr, x.abs()),
                              spmv.bell_matvec_multi_plain(BK.abs(), nbr, xK.abs())],
-                results)
+                results, inputs=[B, nbr, x, BK, nbr, xK],
+                flops=2.0 * (B.numel() + BK.numel()))
         compare("block_jacobi_inverse", dtype,
                 lambda: [spmv.block_jacobi_inverse(P), spmv.block_jacobi_inverse(PK)],
                 lambda: [spmv.block_jacobi_inverse_plain(P),
                          spmv.block_jacobi_inverse_plain(PK)],
-                lambda ref: [inv_scale(P, ref[0]), inv_scale(PK, ref[1])], results)
+                lambda ref: [inv_scale(P, ref[0]), inv_scale(PK, ref[1])], results,
+                inputs=[P, PK], flops=bj_inv_flops(P) + bj_inv_flops(PK),
+                library_fn=lambda: [lib_inv(P), lib_inv(PK)])
         inv, invK = spmv.block_jacobi_inverse(P), spmv.block_jacobi_inverse(PK)
         compare("block_jacobi_apply", dtype,
                 lambda: [spmv.block_jacobi_apply(inv, x),
@@ -196,40 +285,196 @@ def kernel_phase(S, state, results):
                          spmv.block_jacobi_apply_plain(invK, xK)],
                 lambda ref: [spmv.block_jacobi_apply_plain(inv.abs(), x.abs()),
                              spmv.block_jacobi_apply_plain(invK.abs(), xK.abs())],
-                results)
+                results, inputs=[inv, x, invK, xK],
+                flops=bj_apply_flops(inv) + bj_apply_flops(invK),
+                library_fn=lambda: [lib_apply(inv, x), lib_apply(invK, xK)])
         mms = {tag: engine.MembraneState(mm.states.to(dtype), mm.params.to(dtype),
                                          mm.model) for tag, mm in mem.items()}
         t = state["t"].to(dtype)
+        rhs_evals = 4 * S.params.n_steps_ODE
         compare("membrane_rk4", dtype, lambda: ode_all(engine.ode_step, mms, t),
                 lambda: ode_all(engine.ode_step_plain, mms, t),
-                lambda ref: ode_scale(mms, ref), results)
+                lambda ref: ode_scale(mms, ref), results,
+                inputs=[v for mm in mms.values() for v in (mm.states, mm.params)],
+                flops=sum(rhs_evals * RK4_RHS_OPS[type(mm.model).__name__]
+                          * mm.states.shape[1] for mm in mms.values()))
 
 
-def small_reference_phase():
-    """Two f64 steps of the small EMIx fixture on the card: the JAX
-    package's Krylov counts, and the port's CPU run's fields."""
+def pair_kernel_phase(S, state, results):
+    """The pair path's kernels (K3, K4, K12, K5 at nd = 8) at its shapes:
+    the pair operators, vectors and facet blocks of the step's EMI and KNP
+    assemblies."""
+    from knpemidg_tpu_torch.ops import assembly, pairs, spmv
+
+    pm = S.pairs
+    pM, Ich, Itot = S._pads(state)
+    # the facet blocks the assembly hands the pair emit (K12)
+    emits = {}
+    originals = {n: getattr(assembly, n) for n in ("gather_blocks_pair",
+                                                   "gather_blocks_pair_multi")}
+
+    def capture(name):
+        def wrapped(*args, **kw):
+            emits[name] = args[2:]
+            return originals[name](*args, **kw)
+        return wrapped
+
+    try:
+        for name in originals:
+            setattr(assembly, name, capture(name))
+        (pd, pe), rhs, Pd = S._assemble_emi(state["c"], state["c_elim"], pM, Itot,
+                                            state["t"], pair=True)
+        (pdK, peK), rhsK = S._knp_assemble_all(state["c"], state["c_elim"], state["phi"],
+                                               pM, Ich, Itot, state["t"], state["c"])
+    finally:
+        for name, fn in originals.items():
+            setattr(assembly, name, fn)
+    npair = pd.shape[-1]
+    print(f"shapes  pair EMI pd {tuple(pd.shape)} pe {tuple(pe.shape)}  KNP pd "
+          f"{tuple(pdK.shape)} pe {tuple(peK.shape)}  padded cells {rhs.shape[-1]}")
+    halves = S._pair_bj_halves
+
+    for dtype in (torch.float32, torch.float64):
+        cast = lambda ts: [t.to(dtype).contiguous() for t in ts]
+        e_args, k_args = cast(emits["gather_blocks_pair"]), cast(
+            emits["gather_blocks_pair_multi"])
+        compare("gather_blocks_pair", dtype,
+                lambda: [*pairs.gather_blocks_pair(None, pm, *e_args),
+                         *pairs.gather_blocks_pair_multi(None, pm, *k_args)],
+                lambda: [*pairs.gather_blocks_pair_plain(None, pm, *e_args),
+                         *pairs.gather_blocks_pair_multi_plain(None, pm, *k_args)],
+                exact, results,
+                inputs=e_args + k_args + [pm[k] for k in (
+                    "cop", "live1", "int_f", "int_p0", "ext_f", "ext_isp", "ext_h")])
+
+        stack = torch.stack([rhs, state["phi"], state["phi_prev"]]).to(dtype)
+        stackK = torch.stack([rhsK, state["c"]]).to(dtype)
+        mask = S._pair_mask.to(dtype).reshape(2, S.nd, npair)
+        bufs = [torch.empty((t.numel() // (2 * S.nd * npair), 2, S.nd, npair),
+                            dtype=dtype, device=t.device) for t in (stack, stackK)]
+
+        def lib_to_pair():
+            return [torch.mul(torch.movedim(t.reshape(-1, S.nd, npair, 2), -1, 1),
+                              mask, out=b)
+                    for t, b in zip((stack, stackK), bufs)]
+
+        compare("to_pair", dtype,
+                lambda: [pairs.to_pair(pm, stack), pairs.to_pair(pm, stackK)],
+                lambda: [pairs.to_pair_plain(pm, stack), pairs.to_pair_plain(pm, stackK)],
+                exact, results, inputs=[stack, stackK, pm["live1"]],
+                library_fn=lib_to_pair)
+        xp, xpK = pairs.to_pair(pm, stack[1]), pairs.to_pair(pm, stackK[1])
+        compare("from_pair", dtype,
+                lambda: [pairs.from_pair(pm, xp), pairs.from_pair(pm, xpK)],
+                lambda: [pairs.from_pair_plain(pm, xp), pairs.from_pair_plain(pm, xpK)],
+                exact, results, inputs=[xp, xpK],
+                library_fn=lambda: [torch.movedim(v.reshape(*v.shape[:-2], 2, S.nd, npair),
+                                                  -3, -1).contiguous() for v in (xp, xpK)])
+
+        D, E = pd.to(dtype), pe.to(dtype)
+        DK, EK = pdK.to(dtype), peK.to(dtype)
+        r, rK = pairs.to_pair(pm, rhs.to(dtype)), pairs.to_pair(pm, rhsK.to(dtype))
+        compare("pair_matvec", dtype,
+                lambda: [pairs.pair_matvec(D, E, pm, r), pairs.pair_matvec_multi(DK, EK, pm, rK)],
+                lambda: [pairs.pair_matvec_plain(D, E, pm, r),
+                         pairs.pair_matvec_multi_plain(DK, EK, pm, rK)],
+                lambda ref: [pairs.pair_matvec_plain(D.abs(), E.abs(), pm, r.abs()),
+                             pairs.pair_matvec_multi_plain(DK.abs(), EK.abs(), pm, rK.abs())],
+                results, inputs=[D, E, r, DK, EK, rK, pm["ext_col"]],
+                flops=2.0 * (D.numel() + E.numel() + DK.numel() + EK.numel()))
+
+        # the main path's 'halves' diagonals are timed; the full ones checked
+        P_h = (Pd.to(dtype) * halves.to(dtype)).contiguous()
+        PK_h = (DK * halves.to(dtype)[None]).contiguous()
+        P_f, PK_f = Pd.to(dtype).contiguous(), DK.contiguous()
+        for P, PK, record in ((P_h, PK_h, True), (P_f, PK_f, False)):
+            compare("block_jacobi_inverse_nd8", dtype,
+                    lambda: [spmv.block_jacobi_inverse(P), spmv.block_jacobi_inverse(PK)],
+                    lambda: [spmv.block_jacobi_inverse_plain(P),
+                             spmv.block_jacobi_inverse_plain(PK)],
+                    lambda ref: [inv_scale(P, ref[0]), inv_scale(PK, ref[1])], results,
+                    inputs=[P, PK], flops=bj_inv_flops(P) + bj_inv_flops(PK),
+                    library_fn=lambda: [lib_inv(P), lib_inv(PK)], record=record)
+            inv, invK = spmv.block_jacobi_inverse(P), spmv.block_jacobi_inverse(PK)
+            compare("block_jacobi_apply_nd8", dtype,
+                    lambda: [spmv.block_jacobi_apply(inv, r),
+                             spmv.block_jacobi_apply(invK, rK)],
+                    lambda: [spmv.block_jacobi_apply_plain(inv, r),
+                             spmv.block_jacobi_apply_plain(invK, rK)],
+                    lambda ref: [spmv.block_jacobi_apply_plain(inv.abs(), r.abs()),
+                                 spmv.block_jacobi_apply_plain(invK.abs(), rK.abs())],
+                    results, inputs=[inv, r, invK, rK],
+                    flops=bj_apply_flops(inv) + bj_apply_flops(invK),
+                    library_fn=lambda: [lib_apply(inv, r), lib_apply(invK, rK)],
+                    record=record)
+
+
+def small_reference_phase(layout):
+    """Two f64 steps of the small EMIx fixture on the card on one layout:
+    the JAX package's Krylov counts, and the port's CPU run's fields."""
     from knpemidg_tpu_torch import emix
     from knpemidg_tpu_torch.mesh.generators import box_3d_axons
+    from knpemidg_tpu_torch.parallel.sharding import unpad_state
 
     runs = {}
     for dev in ("cuda", "cpu"):
         mesh = box_3d_axons(0, length_factor=1)
         mesh.vertices *= 1e2
-        S = emix.build_solver(mesh, dtype=torch.float64, device=dev)
+        S = emix.build_solver(mesh, dtype=torch.float64, device=dev,
+                              pair=layout == "pair")
         st = S.solve_system_active(0.2, 0.0, emix.solver_params())
-        runs[dev] = (S, st)
+        runs[dev] = (S, unpad_state(S, st))
     Sg, sg = runs["cuda"]
     Sc, sc = runs["cpu"]
-    print(f"small   cuda emi {Sg.stats.emi_niters} knp {Sg.stats.knp_niters}  "
+    print(f"small   {layout} cuda emi {Sg.stats.emi_niters} knp {Sg.stats.knp_niters}  "
           f"cpu emi {Sc.stats.emi_niters} knp {Sc.stats.knp_niters}")
-    if Sg.stats.emi_niters != REF_EMI or Sg.stats.knp_niters != REF_KNP:
-        raise AssertionError("small-input Krylov counts differ from the reference")
+    if (Sg.stats.emi_niters, Sg.stats.knp_niters) != REF[layout]:
+        raise AssertionError(f"small-input {layout} Krylov counts differ from the reference")
     for key in ("phi", "c", "c_elim", "phi_M"):
         a, b = sg[key].cpu(), sc[key]
         r = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
-        print(f"small   {key:7s} rel diff cuda vs cpu {r:.3e}")
+        print(f"small   {layout} {key:7s} rel diff cuda vs cpu {r:.3e}")
         if not r < 1e-8:
-            raise AssertionError(f"small-input field {key} differs from the CPU run")
+            raise AssertionError(f"small-input {layout} field {key} differs from the CPU run")
+
+
+def window(S, sp, layout):
+    """The protocol through the user entry point with the launch counters
+    reset; asserts convergence (solve_system_active raises otherwise),
+    finite fields, the step count and every kernel of the path launched.
+    Returns (launches, median ms/step, median ODE ms)."""
+    from knpemidg_tpu_torch import _cuda
+
+    S.stats.__init__()
+    _cuda.reset_launches()
+    state = S.solve_system_active(1.0, 0.0, sp)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    med, ode = report_window(S, MAIN_DTYPE, layout)
+    print(f"{layout:7s} launches {launches}")
+    for key in ("c", "c_elim", "phi", "phi_M", "I_ch"):
+        if not bool(torch.isfinite(state[key]).all()):
+            raise AssertionError(f"non-finite values in {key}")
+    n_cells = getattr(S, "n_cells_pad", S.n_cells)
+    if state["c"].shape != (S.N_ions, S.nd, n_cells) or len(S.stats.emi_niters) != 10:
+        raise AssertionError("unexpected output shape or step count")
+    missing = [k for k in PATH_KERNELS[layout] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {layout} path: {missing}")
+    return launches, med, ode
+
+
+def f32_window(mesh, layout):
+    """The protocol in float32: reported, convergence not asserted."""
+    from knpemidg_tpu_torch import emix
+
+    S = emix.build_solver(mesh, dtype=torch.float32, device="cuda",
+                          pair=layout == "pair")
+    state = S.solve_system_active(1.0, 0.0, emix.solver_params(error_if_not_converged=False))
+    torch.cuda.synchronize()
+    report_window(S, torch.float32, layout)
+    finite = all(bool(torch.isfinite(state[k]).all()) for k in ("c", "phi", "phi_M"))
+    print(f"{layout}32  fields finite: {finite}")
 
 
 def main():
@@ -238,6 +483,7 @@ def main():
     from knpemidg_tpu_torch import _cuda, emix
     from knpemidg_tpu_torch.mesh.generators import box_3d_axons
 
+    t_start = time.perf_counter()
     card = gpu_line()
     print(f"gpu     {card}")
     print(f"torch   {torch.__version__} cuda {torch.version.cuda} python "
@@ -248,57 +494,40 @@ def main():
     _cuda.lib()
     print(f"build   {build_s:.2f} s compiling ({time.perf_counter() - t0:.2f} s incl. load)")
 
-    t0 = time.perf_counter()
     mesh = box_3d_axons(1, length_factor=2)
     mesh.vertices *= 1e2          # m -> cm (EMIx units)
-    S = emix.build_solver(mesh, dtype=MAIN_DTYPE, device="cuda")
     sp = emix.solver_params()
-    print(f"setup   {S.n_cells} cells, {S.n_mem} membrane points, "
-          f"{time.perf_counter() - t0:.1f} s")
-
-    results = {}
-    t0 = time.perf_counter()
-    state0 = S.attach_pc(S._initial_state(0.0), sp)
-    torch.cuda.synchronize()
-    print(f"pc      built in {time.perf_counter() - t0:.2f} s")
-    kernel_phase(S, state0, results)
-    small_reference_phase()
-
-    # the reference protocol through the user entry point
-    S.stats.__init__()
-    _cuda.reset_launches()
-    state = S.solve_system_active(1.0, 0.0, sp)
-    torch.cuda.synchronize()
-    launches = dict(_cuda.LAUNCHES)
-    report_window(S, MAIN_DTYPE)
-    print(f"run     launches {launches}")
-    for key in ("c", "c_elim", "phi", "phi_M", "I_ch"):
-        v = state[key]
-        if not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"non-finite values in {key}")
-    if state["c"].shape != (S.N_ions, S.nd, S.n_cells) or len(S.stats.emi_niters) != 10:
-        raise AssertionError("unexpected output shape or step count")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
-    del S, state, state0
-
-    # the same protocol in float32: reported, convergence not asserted
-    S32 = emix.build_solver(mesh, dtype=torch.float32, device="cuda")
-    state32 = S32.solve_system_active(
-        1.0, 0.0, emix.solver_params(error_if_not_converged=False))
-    torch.cuda.synchronize()
-    report_window(S32, torch.float32)
-    finite = all(bool(torch.isfinite(state32[k]).all()) for k in ("c", "phi", "phi_M"))
-    print(f"f32     fields finite: {finite}")
+    results, launches, walls = {}, {}, {}
+    for layout in ("cell", "pair"):
+        t0 = time.perf_counter()
+        S = emix.build_solver(mesh, dtype=MAIN_DTYPE, device="cuda", pair=layout == "pair")
+        extra = (f", {S.pairs['int_f'].shape[0]} pairs, {S.n_cells_pad} padded cells"
+                 if layout == "pair" else "")
+        print(f"setup   {layout}: {S.n_cells} cells, {S.n_mem} membrane points{extra}, "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        state0 = S.attach_pc(S._initial_state(0.0), sp)
+        torch.cuda.synchronize()
+        print(f"pc      {layout} built in {time.perf_counter() - t0:.2f} s")
+        (kernel_phase if layout == "cell" else pair_kernel_phase)(S, state0, results)
+        small_reference_phase(layout)
+        launches[layout], med, ode = window(S, sp, layout)
+        walls[layout] = (med, ode)
+        del S, state0
+        f32_window(mesh, layout)
+        torch.cuda.empty_cache()
+    print(f"layouts float64 median ms/step: cell {walls['cell'][0]:.2f}, pair "
+          f"{walls['pair'][0]:.2f}; ODE {walls['cell'][1]:.2f} / {walls['pair'][1]:.2f}")
 
     kernels = []
-    for name, (src, repl) in KERNELS.items():
+    for name, (src, repl, path) in KERNELS.items():
         r = results[name][MAIN_DTYPE]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": launches[name],
+                        "replaces": repl, "launches": launches[path][name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(f"total   {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

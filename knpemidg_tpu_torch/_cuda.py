@@ -1,9 +1,10 @@
 """Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, at first use, into ``_build/`` next to
-this file; the library is loaded with ctypes.  Nothing here runs at import
-time, so the package imports on machines without a card or a compiler.
+The sources are compiled with ``nvcc`` for ``sm_90a``, one compiler process
+per source, all started together, and linked into one shared library with a
+plain C interface, at first use, into ``_build/`` next to this file; the
+library is loaded with ctypes.  Nothing here runs at import time, so the
+package imports on machines without a card or a compiler.
 
 Every kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
 launches, and nowhere else, so a run can show which kernels its main path
@@ -22,15 +23,21 @@ import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("bell_matvec.cu", "block_jacobi.cu", "membrane_rk4.cu")
+SOURCES = ("bell_matvec.cu", "block_jacobi.cu", "membrane_rk4.cu",
+           "pair_matvec.cu", "pair_relayout.cu", "pair_emit.cu")
 BUILD_DIR = os.path.join(_HERE, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libknpemidg_kernels.so")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-# kernel name -> launches counted by its wrapper
+# kernel name -> launches counted by its wrapper; the block-Jacobi kernels
+# count their cell-layout (nd = 4) and pair-layout (nd = 8) instantiations
+# apart
 LAUNCHES = {"bell_matvec": 0, "block_jacobi_inverse": 0,
-            "block_jacobi_apply": 0, "membrane_rk4": 0}
+            "block_jacobi_apply": 0, "membrane_rk4": 0,
+            "pair_matvec": 0, "to_pair": 0, "from_pair": 0,
+            "gather_blocks_pair": 0, "block_jacobi_inverse_nd8": 0,
+            "block_jacobi_apply_nd8": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +48,10 @@ _SIGNATURES = {
     "knp_bj_inverse": (_P, _P, _I, _I, _I, _P),
     "knp_bj_apply": (_P, _P, _P, _I, _I, _I, _P),
     "knp_membrane_rk4": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _P),
+    "knp_pair_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "knp_to_pair": (_P, _P, _P, _I, _I, _I, _P),
+    "knp_from_pair": (_P, _P, _I, _I, _I, _P),
+    "knp_gather_blocks_pair": (_P,) * 14 + (_I,) * 6 + (_D, _P),
 }
 
 _lock = threading.Lock()
@@ -72,19 +83,40 @@ def _stale() -> bool:
 
 def build() -> float:
     """Compile the kernels if the library is missing or older than a
-    source; returns the seconds spent compiling (0.0 when up to date)."""
+    source; returns the seconds spent compiling (0.0 when up to date).
+    Each source compiles in its own nvcc process, all at once; the objects
+    are then linked into the library."""
     with _lock:
         if not _stale():
             return 0.0
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = LIB_PATH + f".tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp]
-        cmd += [os.path.join(_CSRC, f) for f in SOURCES]
+        nvcc = _nvcc()
+        tag = f".tmp{os.getpid()}"
+        objs = [os.path.join(BUILD_DIR, os.path.splitext(f)[0] + tag + ".o")
+                for f in SOURCES]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-        os.replace(tmp, LIB_PATH)
+        try:
+            procs = [subprocess.Popen(
+                [nvcc, *COMPILE_FLAGS, "-c", os.path.join(_CSRC, f), "-o", o],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for f, o in zip(SOURCES, objs)]
+            failed = []
+            for f, proc in zip(SOURCES, procs):
+                out, err = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"{f}:\n{out}{err}")
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+            tmp = LIB_PATH + tag
+            proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc link failed:\n" + proc.stdout + proc.stderr)
+            os.replace(tmp, LIB_PATH)
+        finally:
+            for o in objs:
+                if os.path.exists(o):
+                    os.remove(o)
         return time.perf_counter() - t0
 
 

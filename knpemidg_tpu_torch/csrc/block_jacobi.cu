@@ -2,16 +2,25 @@
 //
 // Replaces knpemidg_tpu/ops/spmv.py:102 block_jacobi_inverse (unrolled
 // Gauss-Jordan over the cell axis, elementwise XLA on the TPU) and :131
-// block_jacobi_apply (per-cell nd x nd GEMV), for one or m systems.
+// block_jacobi_apply (per-cell nd x nd GEMV), for one or m systems, at the
+// cell layout's nd = 4 and the pair layout's 2nd = 8.
 //
 // Bound: device-memory bandwidth.  The inverse reads and writes nd*nd values
-// per cell with ~nd^3 flops in between; the apply, called in every
+// per block with ~nd^3 flops in between; the apply, called in every
 // preconditioner apply of both Krylov solves, reads nd*nd + nd values and
-// writes nd.  Design: one thread per (system, cell) holds its whole block in
-// registers (16 values at nd = 4), with cells-last coalesced loads and stores.
-// The inverse is the unpivoted Gauss-Jordan of the JAX package in the same
-// elimination order: the DG diagonal blocks are mass-regularised SPD, so
-// the pivots stay positive.
+// writes nd.  At the pair layout's main-path shapes (63,558 pairs, one EMI
+// and two KNP systems) the inverses move 0.10 / 0.20 GB and the applies
+// 0.06 / 0.12 GB in float32 / float64 (29 / 58 us and 18 / 36 us at
+// 3.35 TB/s).  Design: one thread per (system, block) holds its whole block
+// in registers, with cells-last coalesced loads and stores.  The inverse is
+// the JAX package's unpivoted Gauss-Jordan in the same elimination order,
+// done in place: the inverse's column k is stored where A's column k dies
+// at step k, which gives the augmented [A | I] scheme's values operation for
+// operation with half its registers (64 doubles at nd = 8 instead of 128).
+// The DG diagonal blocks are mass-regularised SPD, so the pivots stay
+// positive; with pair_bj = 'halves' the 8 x 8 blocks are block diagonal and
+// the eliminations across the halves multiply by zero, as in the JAX
+// function.
 #include "common.cuh"
 
 template <typename T, int ND>
@@ -25,39 +34,31 @@ __global__ void bj_inverse_kernel(const T* __restrict__ P, T* __restrict__ Pinv,
   const T* Ps = P + (size_t)s * ND * ND * ncz;
 
   T A[ND][ND];
-  T I[ND][ND];
 #pragma unroll
   for (int i = 0; i < ND; ++i) {
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      A[i][j] = Ps[(size_t)(i * ND + j) * ncz + c];
-      I[i][j] = (i == j) ? T(1) : T(0);
-    }
+    for (int j = 0; j < ND; ++j) A[i][j] = Ps[(size_t)(i * ND + j) * ncz + c];
   }
 #pragma unroll
   for (int k = 0; k < ND; ++k) {
     const T piv = T(1) / A[k][k];
+    // row k: A's columns j != k scale, column k takes I[k][k] * piv = piv
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      A[k][j] = A[k][j] * piv;
-      I[k][j] = I[k][j] * piv;
-    }
+    for (int j = 0; j < ND; ++j) A[k][j] = (j == k) ? piv : A[k][j] * piv;
 #pragma unroll
     for (int i = 0; i < ND; ++i) {
       if (i == k) continue;
       const T f = A[i][k];
+      A[i][k] = T(0);                  // I[i][k] before step k
 #pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        A[i][j] = A[i][j] - f * A[k][j];
-        I[i][j] = I[i][j] - f * I[k][j];
-      }
+      for (int j = 0; j < ND; ++j) A[i][j] = A[i][j] - f * A[k][j];
     }
   }
   T* Os = Pinv + (size_t)s * ND * ND * ncz;
 #pragma unroll
   for (int i = 0; i < ND; ++i) {
 #pragma unroll
-    for (int j = 0; j < ND; ++j) Os[(size_t)(i * ND + j) * ncz + c] = I[i][j];
+    for (int j = 0; j < ND; ++j) Os[(size_t)(i * ND + j) * ncz + c] = A[i][j];
   }
 }
 
@@ -90,6 +91,8 @@ static int bj_inverse_launch(const T* P, T* Pinv, int m, int nd, int nc, void* s
   const unsigned int grid = knp_blocks((long long)m * nc);
   if (nd == 4) {
     bj_inverse_kernel<T, 4><<<grid, KNP_THREADS, 0, st>>>(P, Pinv, m, nc);
+  } else if (nd == 8) {
+    bj_inverse_kernel<T, 8><<<grid, KNP_THREADS, 0, st>>>(P, Pinv, m, nc);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -103,6 +106,8 @@ static int bj_apply_launch(const T* Pinv, const T* r, T* z, int m, int nd, int n
   const unsigned int grid = knp_blocks((long long)m * nc);
   if (nd == 4) {
     bj_apply_kernel<T, 4><<<grid, KNP_THREADS, 0, st>>>(Pinv, r, z, m, nc);
+  } else if (nd == 8) {
+    bj_apply_kernel<T, 8><<<grid, KNP_THREADS, 0, st>>>(Pinv, r, z, m, nc);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -9,9 +9,12 @@ from .models.hh import HodgkinHuxleyMV
 from .solver import StandardSolver
 
 
-def build_solver(mesh, dtype=None, device=None, dt=0.1):
+def build_solver(mesh, dtype=None, device="cuda", dt=0.1, pair=False):
     """StandardSolver on ``mesh`` (coordinates in cm) with the EMIx physics,
-    ions, stimulus and membrane models, set up through setup_membrane_model."""
+    ions, stimulus and membrane models, set up through setup_membrane_model,
+    on the CUDA card unless ``device`` names another.  ``pair=True``
+    switches to the interleaved pair layout (enable_pair_layout), the
+    layout of the JAX package's benchmark."""
     params = PhysicalParams(
         dt=dt,                      # ms
         n_steps_ODE=25,
@@ -55,6 +58,8 @@ def build_solver(mesh, dtype=None, device=None, dt=0.1):
     S.setup_membrane_model(
         stim_params, {1: GlialKir(), 2: HodgkinHuxleyMV(stimulus=True)}
     )
+    if pair:
+        S.enable_pair_layout()
     return S
 
 

@@ -85,7 +85,7 @@ class Geometry:
         "nodes", "f_gnp", "f_gnm",
     }
 
-    def to_device(self, dtype=torch.float64, device="cpu"):
+    def to_device(self, dtype=torch.float64, *, device):
         """Return a dict of torch tensors on `device` (floats cast to
         `dtype`, indices int32), cell/facet-indexed tensors transposed to
         the cells-last layout.  Exterior slots of ``nbr`` point at the cell
@@ -278,7 +278,7 @@ class MembraneTables:
     def n_mem(self) -> int:
         return len(self.fidx)
 
-    def to_device(self, dtype=torch.float64, device="cpu"):
+    def to_device(self, dtype=torch.float64, *, device):
         return {
             "fidx": torch.as_tensor(self.fidx.astype(np.int32), device=device),
             "mem_of_facet": torch.as_tensor(

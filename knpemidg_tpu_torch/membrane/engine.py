@@ -47,8 +47,8 @@ class MembraneState:
         return dataclasses.replace(self, states=states)
 
 
-def make_membrane(model, midpoints: np.ndarray, dtype=torch.float64,
-                  device="cpu") -> MembraneState:
+def make_membrane(model, midpoints: np.ndarray, dtype=torch.float64, *,
+                  device) -> MembraneState:
     n = len(midpoints)
     s0 = np.asarray(model.init_states(), dtype=np.float64)
     p0 = np.asarray(model.init_params(), dtype=np.float64)

@@ -1,5 +1,5 @@
 """Batched DG assembly, cells-last layout (torch port of
-knpemidg_tpu/ops/assembly.py, degree 1, cell layout).
+knpemidg_tpu/ops/assembly.py, degree 1; cell or pair operator layout).
 
 Shapes:
 
@@ -10,7 +10,9 @@ Shapes:
     neighbour table   nbr    (K, nc)
 
 The operator is block-ELL: the Krylov matvec is a gather and a small
-contraction only.  Everything here is plain torch.
+contraction only.  Given pair maps (``pm``) the emitters write the pair
+layout instead (ops/pairs.py, kernel K12 on the card); everything else here
+is plain torch.
 """
 from __future__ import annotations
 
@@ -18,15 +20,13 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .pairs import (gather_blocks_pair, gather_blocks_pair_multi,
+                    pair_block_diag_embed)
+
 
 def _degree1(g):
     if int(g.get("degree", 1)) != 1:
         raise NotImplementedError("knpemidg_tpu_torch assembles degree 1 only")
-
-
-def _no_pairs(pm):
-    if pm is not None:
-        raise NotImplementedError("the pair layout is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -208,9 +208,10 @@ def assemble_emi(
     Robin membrane source is computed on the n_mem axis and scatter-added
     into the facet rhs.
 
-    Returns (blocks (K,nd,nd,nc), rhs (nd,nc), P_diag (nd,nd,nc))."""
+    Returns (blocks (K,nd,nd,nc), rhs (nd,nc), P_diag (nd,nd,nc)); with
+    pair maps ``pm``, ((pd, pe), rhs, P_diag_pair), where the pair
+    diagonal of P_diag includes the intra-pair coupling."""
     _degree1(g)
-    _no_pairs(pm)
     if mms is not None:
         raise NotImplementedError("MMS verification is not ported yet")
     z, D, c = ions["z"], ions["D"], ions["c"]
@@ -237,7 +238,12 @@ def assemble_emi(
     Cpp, Cpm, Cmp, Cmm = _jump_jump_blocks(g, cphi, mem)
     Mpp, Mpm, Mmp, Mmm = Mpp + Cpp, Mpm + Cpm, Mmp + Cmp, Mmm + Cmm
 
-    blocks = gather_blocks(g, A_cell, Mpp, Mpm, Mmp, Mmm)
+    if pm is not None:
+        # the SIP blocks sum transposed views; the emit kernel reads rows
+        blocks = gather_blocks_pair(g, pm, A_cell, *(M.contiguous() for M in
+                                                     (Mpp, Mpm, Mmp, Mmm)))
+    else:
+        blocks = gather_blocks(g, A_cell, Mpp, Mpm, Mmp, Mmm)
 
     # --- rhs: diffusive terms, all ions -------------------------------------
     ones = torch.ones_like(g["f_Rp"][:, 0, :])                # (nq, nf+1)
@@ -263,6 +269,10 @@ def assemble_emi(
 
     # --- preconditioner: diag blocks of B = A + kappa/Lp^2 mass --------------
     reg = (g["vol"] * kbar / phys["Lp"] ** 2) * g["M0"][:, :, None]
+    if pm is not None:
+        pd, pe = blocks
+        P_diag = pd + pair_block_diag_embed(pm, reg)
+        return (pd, pe), rhs.contiguous(), P_diag.contiguous()
     P_diag = blocks[0] + reg
     return blocks, rhs.contiguous(), P_diag.contiguous()
 
@@ -310,8 +320,9 @@ def assemble_knp_all(
     the upwind switch is shared by the ions.  ``mem_t``: membrane-presliced
     tables; the whole membrane rhs is computed on the n_mem facet axis.
 
-    Returns (blocks (m,K,nd,nd,nc), rhs (m,nd,nc))."""
-    _no_pairs(pm)
+    Returns (blocks (m,K,nd,nd,nc), rhs (m,nd,nc)); with pair maps ``pm``
+    ((pdK, peK), rhs), and ``static_blocks`` must be in pair form too
+    (ops.pairs.cell_bell_to_pair)."""
     _degree1(g)
     z, D = ions["z"], ions["D"]                      # (m,), (m, nc)
     c_n, c_k = ions["c_n"], ions["c_k"]              # (m, nd, nc)
@@ -350,17 +361,25 @@ def assemble_knp_all(
     # --- batched block gather (one stacked gather per cell-facet slot) ------
     cf = g["cf_idx"]
     isp = g["cf_is_plus"]
-    Mstk = torch.stack([Mpp, Mmm, Mpm, Mmp], dim=1).reshape(m * 4 * nd * nd, nf1)
-    diag = A_cell
-    offs = []
-    for l in range(cf.shape[0]):
-        sel = isp[l][None, None, None, :]
-        got = Mstk[:, cf[l]].reshape(m, 4, nd, nd, -1)
-        diag = diag + torch.where(sel, got[:, 0], got[:, 1])
-        offs.append(torch.where(sel, got[:, 2], got[:, 3]))
-    blocks = torch.stack([diag] + offs, dim=1)       # (m, K, nd, nd, nc)
-    if static_blocks is not None:
-        blocks = blocks + static_blocks
+    if pm is not None:
+        pdK, peK = gather_blocks_pair_multi(g, pm, A_cell.contiguous(), *(
+            M.contiguous() for M in (Mpp, Mpm, Mmp, Mmm)))
+        if static_blocks is not None:
+            pdK = pdK + static_blocks[0]
+            peK = peK + static_blocks[1]
+        blocks = (pdK, peK)
+    else:
+        Mstk = torch.stack([Mpp, Mmm, Mpm, Mmp], dim=1).reshape(m * 4 * nd * nd, nf1)
+        diag = A_cell
+        offs = []
+        for l in range(cf.shape[0]):
+            sel = isp[l][None, None, None, :]
+            got = Mstk[:, cf[l]].reshape(m, 4, nd, nd, -1)
+            diag = diag + torch.where(sel, got[:, 0], got[:, 1])
+            offs.append(torch.where(sel, got[:, 2], got[:, 3]))
+        blocks = torch.stack([diag] + offs, dim=1)       # (m, K, nd, nd, nc)
+        if static_blocks is not None:
+            blocks = blocks + static_blocks
 
     # --- rhs ----------------------------------------------------------------
     b_cell = (g["vol"] / dt) * torch.einsum("ij,kjc->kic", g["M0"], c_n)

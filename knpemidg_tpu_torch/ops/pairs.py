@@ -1,0 +1,654 @@
+"""Pair-block operator layout (torch port of knpemidg_tpu/ops/pairs.py):
+2-cell macro rows for the Krylov path.
+
+Face-adjacent cells of one compartment are matched into pairs, and the
+operator is stored as a (2nd x 2nd) pair diagonal block plus S = 2d
+external slots of (2nd x nd) blocks per pair, gathered through ``ext_col``.
+Fields and right-hand sides stay cell-indexed; each solve converts its
+vectors once.  Unmatched cells become self-pairs whose second half is dead:
+identity diagonal, zero rhs and iterate.
+
+With the interleaved cell numbering (:func:`interleave_pair_maps`, the only
+form the device functions take) pair p occupies cell slots (2p, 2p+1), so
+the cell<->pair conversions are relayouts without an index map.
+
+Kernels (CUDA tensors; plain torch ``*_plain`` for CPU tensors, no
+fallback between the two):
+
+* K3 ``csrc/pair_matvec.cu``: :func:`pair_matvec`, :func:`pair_matvec_multi`;
+* K4 ``csrc/pair_relayout.cu``: :func:`to_pair`, :func:`from_pair`;
+* K12 ``csrc/pair_emit.cu``: :func:`gather_blocks_pair`,
+  :func:`gather_blocks_pair_multi`.
+
+The setup-only helpers (fan matvec, block embedding, value sums, the pair
+neighbour table, the cell-ELL conversion) are plain torch on every device.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .. import _cuda
+
+
+# ---------------------------------------------------------------------------
+# host-side maps (numpy)
+# ---------------------------------------------------------------------------
+
+def build_pair_maps(geom, block: np.ndarray | None = None
+                    ) -> Dict[str, np.ndarray]:
+    """Host-side pair maps from a fem.tabulation.Geometry (numpy, cells
+    first).  Ship them to a device with :func:`pair_maps_to_device`.
+
+    ``block`` (nc,) optional group ids: matching is additionally restricted
+    to same-block neighbours, so pairs never straddle blocks.
+
+    Keys:
+      cop      (2, npair) int32   cells of pair (self-pair: both equal)
+      pid      (nc,)      int32   pair id of cell
+      pos      (nc,)      int32   half index of cell within its pair
+      live1    (npair,)   bool    second half is a real cell
+      int_f    (npair,)   int32   internal facet id (dummy nf for self)
+      int_p0   (npair,)   bool    cell0 is the PLUS side of int_f
+      int_l    (2, npair) int32   local facet index of int_f per half
+      ext_f    (S, npair) int32   external facet ids (dummy nf), S = 2d
+      ext_isp  (S, npair) bool    owner cell is the PLUS side
+      ext_h    (S, npair) int32   owner half (0/1)
+      ext_l    (S, npair) int32   owner's local facet index
+      ext_col  (S, npair) int32   gather column pos*npair + pid of the
+                                  external cell (dummy -> own pair)
+      cell_col (nc,)      int32   pos*npair + pid of each cell
+      nf       int32              dummy facet index
+    """
+    nbr = np.asarray(geom.nbr)                     # (nc, d+2), col 0 = self
+    cf = np.asarray(geom.cf_idx)                   # (nc, d+1)
+    isp = np.asarray(geom.cf_is_plus)              # (nc, d+1)
+    tag = np.asarray(geom.cell_tag)
+    nc, K1 = cf.shape                              # K1 = d+1 local facets
+    nf = int(np.asarray(geom.f_cp).shape[0]) - 1   # dummy facet index
+    if block is not None:
+        # fold the block constraint into the tag comparison
+        tag = tag.astype(np.int64) + np.asarray(block, dtype=np.int64) * (
+            int(tag.max()) + 1)
+
+    # --- greedy same-tag matching over the (Morton) cell order ----------
+    mate = np.full(nc, -1, dtype=np.int64)
+    order_nbr = nbr[:, 1:]                         # (nc, d+1)
+    for c in range(nc):
+        if mate[c] >= 0:
+            continue
+        tc = tag[c]
+        for o in order_nbr[c]:
+            if o != c and o > c and mate[o] < 0 and tag[o] == tc:
+                mate[c] = o
+                mate[o] = c
+                break
+        else:
+            mate[c] = c                            # self-pair
+
+    first = np.flatnonzero(mate >= np.arange(nc))  # representative cells
+    c0 = first
+    c1 = mate[first]
+    npair = len(first)
+    cop = np.stack([c0, c1]).astype(np.int32)
+    live1 = c1 != c0
+    pid = np.empty(nc, dtype=np.int32)
+    pos = np.empty(nc, dtype=np.int32)
+    # c1 first, c0 second: a self-pair (c1 == c0) must end at pos 0
+    pid[c1] = np.arange(npair)
+    pos[c1] = 1
+    pid[c0] = np.arange(npair)
+    pos[c0] = 0
+
+    # --- internal facet of each matched pair -----------------------------
+    int_f = np.full(npair, nf, dtype=np.int32)
+    int_p0 = np.zeros(npair, dtype=bool)
+    for l in range(K1):
+        hit = live1 & (order_nbr[c0, l] == c1) & (int_f == nf)
+        int_f[hit] = cf[c0[hit], l]
+        int_p0[hit] = isp[c0[hit], l]
+
+    # internal local-facet index per half (for cell-ELL -> pair conversion)
+    int_l = np.zeros((2, npair), dtype=np.int32)
+    for l in range(K1):
+        hit0 = live1 & (order_nbr[c0, l] == c1)
+        int_l[0][hit0] = l
+        hit1 = live1 & (order_nbr[c1, l] == c0)
+        int_l[1][hit1] = l
+
+    # --- external slots: fixed (h, l) scan order, compacted per pair -----
+    d = K1 - 1
+    S = 2 * d
+    ext_f = np.full((S, npair), nf, dtype=np.int32)
+    ext_isp = np.zeros((S, npair), dtype=bool)
+    ext_h = np.zeros((S, npair), dtype=np.int32)
+    ext_l = np.zeros((S, npair), dtype=np.int32)
+    ext_other = np.tile(c0, (S, 1))                # dummy -> own cell
+    fill = np.zeros(npair, dtype=np.int64)
+    for h, ch in enumerate((c0, c1)):
+        hlive = live1 if h == 1 else np.ones(npair, dtype=bool)
+        for l in range(K1):
+            f = cf[ch, l]
+            other = order_nbr[ch, l]
+            real = hlive & (f != nf) & (other != ch) & (other != (c1 if h == 0 else c0))
+            idx = np.flatnonzero(real)
+            s = fill[idx]
+            if s.max(initial=0) >= S:
+                raise ValueError("more external facets than slots")
+            ext_f[s, idx] = f[idx]
+            ext_isp[s, idx] = isp[ch[idx], l]
+            ext_h[s, idx] = h
+            ext_l[s, idx] = l
+            ext_other[s, idx] = other[idx]
+            fill[idx] += 1
+
+    ext_col = (pos[ext_other].astype(np.int64) * npair
+               + pid[ext_other]).astype(np.int32)
+    cell_col = (pos.astype(np.int64) * npair + pid).astype(np.int32)
+
+    return {
+        "cop": cop, "pid": pid, "pos": pos, "live1": live1,
+        "int_f": int_f, "int_p0": int_p0, "int_l": int_l,
+        "ext_f": ext_f, "ext_isp": ext_isp, "ext_h": ext_h,
+        "ext_l": ext_l, "ext_col": ext_col, "cell_col": cell_col,
+        "nf": np.int32(nf),
+    }
+
+
+def interleave_pair_maps(pm: Dict[str, np.ndarray], nc: int,
+                         n_shards: int = 1, shard_size: int | None = None,
+                         align: int = 64):
+    """Rewrite pair maps for the INTERLEAVED cell order: pair p occupies
+    cell slots (2p, 2p+1), with fresh inert pad cells (ids nc..) as the
+    dead second halves of self-pairs.  The cell<->pair conversions become
+    relayouts, and the preconditioner's contiguous pair chunks (agg_size/2
+    pairs) cover the same contiguous (compartment, Morton) cell ranges as
+    the cell layout's chunks.
+
+    ``n_shards > 1`` (cells already in shard-blocked order of block size
+    ``shard_size``, the matching built with the matching ``block``): every
+    shard's pair range is padded to a common P (a multiple of ``align``)
+    with fully inert pad pairs, and the maps carry ``live0`` beside
+    ``live1``.
+
+    Returns ``(new_maps, perm)``: maps in the new numbering without
+    ``cell_col`` (its absence marks the interleaved form), and the
+    permutation ``perm`` (new slot -> old cell id, pad ids >= nc) to apply
+    to every cell-indexed solver array."""
+    cop, live1 = pm["cop"], pm["live1"]
+    npair = cop.shape[1]
+    nf = int(pm["nf"])
+    S = pm["ext_f"].shape[0]
+
+    if n_shards == 1:
+        P = npair
+        dst = np.arange(npair)
+    else:
+        shard_of = cop[0] // shard_size
+        if not np.array_equal(shard_of, cop[1] // shard_size):
+            raise ValueError("pairs straddle shards: build_pair_maps needs "
+                             "the block argument")
+        counts = np.bincount(shard_of, minlength=n_shards)
+        P = max(align, -(-int(counts.max()) // align) * align)
+        starts = np.concatenate([[0], np.cumsum(counts)])[:-1]
+        # pairs arrive sorted by c0, hence shard-major
+        dst = shard_of * P + (np.arange(npair) - starts[shard_of])
+    npair_t = n_shards * P
+
+    # --- the cell permutation: new slot -> old id (pads >= nc) ----------
+    perm = np.full(2 * npair_t, -1, dtype=np.int64)
+    perm[2 * dst] = cop[0]
+    perm[2 * dst + 1] = np.where(live1, cop[1], -1)
+    need = np.flatnonzero(perm < 0)
+    perm[need] = nc + np.arange(len(need))
+
+    def place(old, fill, dtype=None):
+        out = np.full((*old.shape[:-1], npair_t), fill,
+                      dtype=dtype or old.dtype)
+        out[..., dst] = old
+        return out
+
+    new = {
+        "cop": np.stack([np.arange(0, 2 * npair_t, 2, dtype=np.int32),
+                         np.arange(1, 2 * npair_t, 2, dtype=np.int32)]),
+        "pid": (np.arange(2 * npair_t, dtype=np.int32) // 2),
+        "pos": (np.arange(2 * npair_t, dtype=np.int32) % 2),
+        "live1": place(live1, False),
+        "int_f": place(pm["int_f"], nf),
+        "int_p0": place(pm["int_p0"], False),
+        "int_l": place(pm["int_l"], 0),
+        "ext_f": place(pm["ext_f"], nf),
+        "ext_isp": place(pm["ext_isp"], False),
+        "ext_h": place(pm["ext_h"], 0),
+        "ext_l": place(pm["ext_l"], 0),
+        "nf": pm["nf"],
+    }
+    if n_shards > 1:
+        live0 = np.zeros(npair_t, dtype=bool)
+        live0[dst] = True
+        new["live0"] = live0
+
+    # external gather columns: (h * npair + pid) -> (h * npair_t + dst);
+    # dummy slots keep pointing at the own pair (their blocks are zero)
+    h_old = pm["ext_col"] // npair
+    p_old = pm["ext_col"] % npair
+    ecol = (h_old * npair_t + dst[p_old]).astype(np.int32)
+    self_col = np.broadcast_to(np.arange(npair_t, dtype=np.int32),
+                               (S, npair_t))
+    new["ext_col"] = place(ecol, 0)
+    pad_pairs = np.ones(npair_t, dtype=bool)
+    pad_pairs[dst] = False
+    new["ext_col"][:, pad_pairs] = self_col[:, pad_pairs]
+    return new, perm
+
+
+def pair_maps_to_device(pm: Dict[str, np.ndarray], device) -> Dict[str, object]:
+    """Torch copies of the host maps on ``device``: bool arrays stay bool,
+    integer arrays become int32, the scalar ``nf`` a Python int."""
+    out = {}
+    for k, v in pm.items():
+        if np.ndim(v) == 0:
+            out[k] = int(v)
+        elif v.dtype == bool:
+            out[k] = torch.as_tensor(v, device=device)
+        else:
+            out[k] = torch.as_tensor(np.asarray(v, dtype=np.int32), device=device)
+    return out
+
+
+def _interleaved_only(pm, name):
+    if "cell_col" in pm:
+        raise NotImplementedError(
+            f"{name}: the non-interleaved (cell_col) pair maps are not "
+            f"ported; use interleave_pair_maps")
+
+
+def _no_live0(pm, name):
+    if "live0" in pm:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel takes single-device maps (no live0)")
+
+
+# ---------------------------------------------------------------------------
+# K4: vector conversions (once per solve)
+# ---------------------------------------------------------------------------
+
+def to_pair_plain(pm, x):
+    """(..., nd, 2 npair) -> (..., 2nd, npair), dead halves zeroed."""
+    _interleaved_only(pm, "to_pair")
+    *lead, nd, nc2 = x.shape
+    npair = nc2 // 2
+    xr = torch.movedim(x.reshape(*lead, nd, npair, 2), -1, -3)
+    out = xr.reshape(*lead, 2 * nd, npair)
+    live1 = pm["live1"].to(x.dtype)
+    live0 = (pm["live0"].to(x.dtype) if "live0" in pm
+             else torch.ones((), dtype=x.dtype, device=x.device))
+    mask = torch.cat([live0.expand(nd, npair), live1.expand(nd, npair)])
+    return out * mask
+
+
+def from_pair_plain(pm, xp):
+    """(..., 2nd, npair) -> (..., nd, 2 npair); dead halves land on the pad
+    cells."""
+    _interleaved_only(pm, "from_pair")
+    *lead, nd2, npair = xp.shape
+    nd = nd2 // 2
+    a = torch.movedim(xp.reshape(*lead, 2, nd, npair), -3, -1)
+    return a.reshape(*lead, nd, 2 * npair)
+
+
+def to_pair(pm, x):
+    """Cell -> pair relayout (kernel K4 on a CUDA tensor), any number of
+    leading stacked vectors."""
+    if not x.is_cuda:
+        return to_pair_plain(pm, x)
+    _interleaved_only(pm, "to_pair")
+    _no_live0(pm, "to_pair")
+    *lead, nd, nc2 = x.shape
+    npair = nc2 // 2
+    _cuda.check("x", x)
+    _cuda.check("live1", pm["live1"], torch.bool, (npair,))
+    if nc2 != 2 * npair:
+        raise ValueError("to_pair: the interleaved cell axis must be even")
+    out = torch.empty(tuple(lead) + (2 * nd, npair), dtype=x.dtype, device=x.device)
+    _cuda.launch("to_pair", "knp_to_pair", x.dtype, x.data_ptr(),
+                 pm["live1"].data_ptr(), out.data_ptr(), x.numel() // (nd * nc2),
+                 nd, npair)
+    return out
+
+
+def from_pair(pm, xp):
+    """Pair -> cell relayout (kernel K4 on a CUDA tensor)."""
+    if not xp.is_cuda:
+        return from_pair_plain(pm, xp)
+    _interleaved_only(pm, "from_pair")
+    *lead, nd2, npair = xp.shape
+    if nd2 % 2:
+        raise ValueError("from_pair: expected (..., 2nd, npair)")
+    _cuda.check("xp", xp)
+    out = torch.empty(tuple(lead) + (nd2 // 2, 2 * npair), dtype=xp.dtype,
+                      device=xp.device)
+    _cuda.launch("from_pair", "knp_from_pair", xp.dtype, xp.data_ptr(),
+                 out.data_ptr(), xp.numel() // (nd2 * npair), nd2 // 2, npair)
+    return out
+
+
+def to_pair_host(pmh, x):
+    """Numpy mirror of :func:`to_pair` on the host maps."""
+    _interleaved_only(pmh, "to_pair_host")
+    x = np.asarray(x)
+    *lead, nd, nc2 = x.shape
+    npair = nc2 // 2
+    xr = np.moveaxis(x.reshape(*lead, nd, npair, 2), -1, -3)
+    out = xr.reshape(*lead, 2 * nd, npair)
+    live1 = np.asarray(pmh["live1"], dtype=x.dtype)
+    live0 = (np.asarray(pmh["live0"], dtype=x.dtype) if "live0" in pmh
+             else np.ones((), dtype=x.dtype))
+    mask = np.concatenate([np.broadcast_to(live0, (nd, npair)),
+                           np.broadcast_to(live1, (nd, npair))])
+    return out * mask
+
+
+def from_pair_host(pmh, xp):
+    """Numpy mirror of :func:`from_pair` on the host maps."""
+    _interleaved_only(pmh, "from_pair_host")
+    xp = np.asarray(xp)
+    *lead, nd2, npair = xp.shape
+    nd = nd2 // 2
+    a = np.moveaxis(xp.reshape(*lead, 2, nd, npair), -3, -1)
+    return a.reshape(*lead, nd, 2 * npair)
+
+
+# ---------------------------------------------------------------------------
+# K3: pair matvecs
+# ---------------------------------------------------------------------------
+
+def pair_matvec_plain(pd, pe, pm, xp):
+    """y = A_pair xp.  pd (2nd, 2nd, npair); pe (S, 2nd, nd, npair);
+    xp (2nd, npair).  The diagonal term first, then the external slots."""
+    nd = pe.shape[2]
+    y = torch.einsum("ijp,jp->ip", pd, xp)
+    xv = torch.cat([xp[:nd], xp[nd:]], dim=1)             # (nd, 2 npair)
+    xe = xv[:, pm["ext_col"]]                               # (nd, S, npair)
+    return y + torch.einsum("sijp,jsp->ip", pe, xe)
+
+
+def pair_matvec_multi_plain(pd, pe, pm, xp):
+    """m systems sharing one external gather: pd (m, 2nd, 2nd, npair);
+    pe (m, S, 2nd, nd, npair); xp (m, 2nd, npair)."""
+    m, nd2, npair = xp.shape
+    nd = nd2 // 2
+    y = torch.einsum("mijp,mjp->mip", pd, xp)
+    xv = torch.cat([xp[:, :nd], xp[:, nd:]], dim=2).reshape(m * nd, 2 * npair)
+    xe = xv[:, pm["ext_col"]].reshape(m, nd, *pm["ext_col"].shape)
+    return y + torch.einsum("msijp,mjsp->mip", pe, xe)
+
+
+def _pair_matvec_cuda(pd, pe, pm, xp, m):
+    nd2, npair = xp.shape[-2], xp.shape[-1]
+    nd = nd2 // 2
+    S = pm["ext_col"].shape[0]
+    lead = (m,) if xp.dim() == 3 else ()
+    _cuda.check("xp", xp)
+    _cuda.check("pd", pd, xp.dtype, lead + (nd2, nd2, npair))
+    _cuda.check("pe", pe, xp.dtype, lead + (S, nd2, nd, npair))
+    _cuda.check("ext_col", pm["ext_col"], torch.int32, (S, npair))
+    y = torch.empty_like(xp)
+    _cuda.launch("pair_matvec", "knp_pair_matvec", xp.dtype, pd.data_ptr(),
+                 pe.data_ptr(), pm["ext_col"].data_ptr(), xp.data_ptr(),
+                 y.data_ptr(), m, nd, S, npair)
+    return y
+
+
+def pair_matvec(pd, pe, pm, xp):
+    """Single-system pair matvec (kernel K3 on a CUDA tensor)."""
+    if not xp.is_cuda:
+        return pair_matvec_plain(pd, pe, pm, xp)
+    if xp.dim() != 2:
+        raise ValueError("pair_matvec: xp must be (2nd, npair)")
+    return _pair_matvec_cuda(pd, pe, pm, xp, 1)
+
+
+def pair_matvec_multi(pd, pe, pm, xp):
+    """Ion-batched pair matvec (kernel K3 with m systems on a CUDA tensor):
+    one launch for all m operators sharing ``ext_col``."""
+    if not xp.is_cuda:
+        return pair_matvec_multi_plain(pd, pe, pm, xp)
+    if xp.dim() != 3:
+        raise ValueError("pair_matvec_multi: xp must be (m, 2nd, npair)")
+    return _pair_matvec_cuda(pd, pe, pm, xp, xp.shape[0])
+
+
+def pair_matvec_fan(pd, pe, pm, X):
+    """One operator applied to m vectors (the moment-deflation Galerkin
+    build): X (m, 2nd, npair) -> (m, 2nd, npair), one shared external
+    gather.  Setup only, so plain torch on every device."""
+    m, nd2, npair = X.shape
+    nd = nd2 // 2
+    y = torch.einsum("ijp,mjp->mip", pd, X)
+    xv = torch.cat([X[:, :nd], X[:, nd:]], dim=2).reshape(m * nd, 2 * npair)
+    xe = xv[:, pm["ext_col"]].reshape(m, nd, *pm["ext_col"].shape)
+    return y + torch.einsum("sijp,mjsp->mip", pe, xe)
+
+
+# ---------------------------------------------------------------------------
+# K12: pair-ELL assembly emitters (mirror ops.assembly.gather_blocks)
+# ---------------------------------------------------------------------------
+
+def gather_blocks_pair_multi_plain(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
+                                   dead_identity: float = 1.0):
+    """Pair-block operator of m systems from per-facet blocks: A_cell
+    (m, nd, nd, nc), M** (m, nd, nd, nf+1) -> pd (m, 2nd, 2nd, npair),
+    pe (m, S, 2nd, nd, npair).  ``dead_identity`` goes on the dead half's
+    diagonal of self-pairs (keeps the block-Jacobi inverse nonsingular;
+    the dead rows and rhs are zero, so the Krylov iterates stay zero
+    there).  ``g`` is unused; it keeps the JAX signature."""
+    m, nd = A_cell.shape[0], A_cell.shape[1]
+    nf1 = Mpp.shape[-1]
+    npair = pm["int_f"].shape[0]
+    M = torch.stack([Mpp, Mmm, Mpm, Mmp], dim=1).reshape(m * 4 * nd * nd, nf1)
+
+    live1 = pm["live1"].to(A_cell.dtype)
+    live0 = pm["live0"].to(A_cell.dtype) if "live0" in pm else None
+    A2 = A_cell.reshape(m * nd * nd, -1)
+    Ah = A2[:, pm["cop"]].reshape(m, nd, nd, 2, npair)
+    B00 = Ah[..., 0, :]
+    B11 = Ah[..., 1, :] * live1
+    if live0 is not None:                          # fully inert pad pairs
+        B00 = B00 * live0
+
+    gi = M[:, pm["int_f"]].reshape(m, 4, nd, nd, npair)
+    p0 = pm["int_p0"][None, None, None, :]
+    B00 = B00 + torch.where(p0, gi[:, 0], gi[:, 1])
+    B11 = B11 + torch.where(p0, gi[:, 1], gi[:, 0])
+    B01 = torch.where(p0, gi[:, 2], gi[:, 3])
+    B10 = torch.where(p0, gi[:, 3], gi[:, 2])
+
+    pes = []
+    for s in range(pm["ext_f"].shape[0]):
+        gs = M[:, pm["ext_f"][s]].reshape(m, 4, nd, nd, npair)
+        sel = pm["ext_isp"][s][None, None, None, :]
+        dg = torch.where(sel, gs[:, 0], gs[:, 1])
+        off = torch.where(sel, gs[:, 2], gs[:, 3])
+        h0 = (pm["ext_h"][s] == 0)[None, None, None, :]
+        B00 = B00 + torch.where(h0, dg, 0.0)
+        B11 = B11 + torch.where(h0, 0.0, dg)
+        pes.append(torch.cat([torch.where(h0, off, 0.0),
+                              torch.where(h0, 0.0, off)], dim=1))
+
+    eye = torch.eye(nd, dtype=A_cell.dtype, device=A_cell.device)[None, :, :, None]
+    B11 = B11 + eye * (dead_identity * (1.0 - live1))
+    if live0 is not None:
+        B00 = B00 + eye * (dead_identity * (1.0 - live0))
+    pd = torch.cat([torch.cat([B00, B01], dim=2),
+                    torch.cat([B10, B11], dim=2)], dim=1)
+    return pd, torch.stack(pes, dim=1)
+
+
+def gather_blocks_pair_plain(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
+                             dead_identity: float = 1.0):
+    """Single-system emitter: A_cell (nd, nd, nc), M** (nd, nd, nf+1) ->
+    (pd (2nd, 2nd, npair), pe (S, 2nd, nd, npair))."""
+    pd, pe = gather_blocks_pair_multi_plain(
+        g, pm, A_cell[None], Mpp[None], Mpm[None], Mmp[None], Mmm[None],
+        dead_identity)
+    return pd[0], pe[0]
+
+
+def _gather_blocks_pair_cuda(pm, A_cell, Mpp, Mpm, Mmp, Mmm, dead_identity):
+    """A_cell (m, nd, nd, nc), M** (m, nd, nd, nf+1) on the card."""
+    _no_live0(pm, "gather_blocks_pair")
+    m, nd, _, nc = A_cell.shape
+    nf1 = Mpp.shape[-1]
+    S, npair = pm["ext_f"].shape
+    _cuda.check("A_cell", A_cell)
+    for name, M in (("Mpp", Mpp), ("Mpm", Mpm), ("Mmp", Mmp), ("Mmm", Mmm)):
+        _cuda.check(name, M, A_cell.dtype, (m, nd, nd, nf1))
+    maps = {"cop": (torch.int32, (2, npair)), "live1": (torch.bool, (npair,)),
+            "int_f": (torch.int32, (npair,)), "int_p0": (torch.bool, (npair,)),
+            "ext_f": (torch.int32, (S, npair)), "ext_isp": (torch.bool, (S, npair)),
+            "ext_h": (torch.int32, (S, npair))}
+    for key, (dt, shape) in maps.items():
+        _cuda.check(key, pm[key], dt, shape)
+    pd = torch.empty((m, 2 * nd, 2 * nd, npair), dtype=A_cell.dtype,
+                     device=A_cell.device)
+    pe = torch.empty((m, S, 2 * nd, nd, npair), dtype=A_cell.dtype,
+                     device=A_cell.device)
+    _cuda.launch("gather_blocks_pair", "knp_gather_blocks_pair", A_cell.dtype,
+                 A_cell.data_ptr(), Mpp.data_ptr(), Mpm.data_ptr(),
+                 Mmp.data_ptr(), Mmm.data_ptr(),
+                 *(pm[key].data_ptr() for key in maps),
+                 pd.data_ptr(), pe.data_ptr(), m, nd, nc, nf1, S, npair,
+                 float(dead_identity))
+    return pd, pe
+
+
+def gather_blocks_pair(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
+                       dead_identity: float = 1.0):
+    """Pair-block operator from per-facet blocks (kernel K12 on a CUDA
+    tensor): (pd (2nd, 2nd, npair), pe (S, 2nd, nd, npair))."""
+    if not A_cell.is_cuda:
+        return gather_blocks_pair_plain(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
+                                        dead_identity)
+    pd, pe = _gather_blocks_pair_cuda(
+        pm, A_cell[None], Mpp[None], Mpm[None], Mmp[None], Mmm[None],
+        dead_identity)
+    return pd[0], pe[0]
+
+
+def gather_blocks_pair_multi(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
+                             dead_identity: float = 1.0):
+    """Batched emitter, one launch for all m systems (kernel K12 on a CUDA
+    tensor): pd (m, 2nd, 2nd, npair), pe (m, S, 2nd, nd, npair)."""
+    if not A_cell.is_cuda:
+        return gather_blocks_pair_multi_plain(g, pm, A_cell, Mpp, Mpm, Mmp,
+                                              Mmm, dead_identity)
+    return _gather_blocks_pair_cuda(pm, A_cell, Mpp, Mpm, Mmp, Mmm,
+                                    dead_identity)
+
+
+# ---------------------------------------------------------------------------
+# setup-only helpers (plain torch on every device)
+# ---------------------------------------------------------------------------
+
+def pair_block_diag_embed(pm, D_cell, dead_identity: float = 0.0):
+    """Embed per-cell (nd, nd, nc) diagonal blocks into the pair diagonal
+    (2nd, 2nd, npair) with zero off-halves (the EMI mass regularisation of
+    the preconditioner diagonal)."""
+    nd = D_cell.shape[0]
+    npair = pm["int_f"].shape[0]
+    live1 = pm["live1"].to(D_cell.dtype)
+    A2 = D_cell.reshape(nd * nd, -1)
+    Ah = A2[:, pm["cop"]]
+    B00 = Ah[:, 0].reshape(nd, nd, npair)
+    B11 = Ah[:, 1].reshape(nd, nd, npair) * live1
+    eye = torch.eye(nd, dtype=D_cell.dtype, device=D_cell.device)[:, :, None]
+    B11 = B11 + eye * (dead_identity * (1.0 - live1))
+    if "live0" in pm:                              # fully inert pad pairs
+        live0 = pm["live0"].to(D_cell.dtype)
+        B00 = B00 * live0 + eye * (dead_identity * (1.0 - live0))
+    z = torch.zeros_like(B00)
+    return torch.cat([torch.cat([B00, z], dim=1),
+                      torch.cat([z, B11], dim=1)], dim=0)
+
+
+def pair_v_sums(pd, pe):
+    """Block value sums in the (K, n) convention build_two_level reads:
+    slot 0 = pair diagonal, slots 1.. = external.  Returns (1+S, npair)."""
+    v0 = pd.sum(dim=(0, 1))
+    vs = pe.sum(dim=(1, 2))
+    return torch.cat([v0[None], vs], dim=0)
+
+
+def pair_nbr(pm):
+    """(1+S, npair) neighbour-pair table (slot 0 = self) for
+    build_two_level's chunk-crossing detection."""
+    npair = pm["int_f"].shape[0]
+    self_row = torch.arange(npair, dtype=torch.int32,
+                            device=pm["int_f"].device)[None]
+    ext_pid = pm["ext_col"] % npair
+    return torch.cat([self_row, ext_pid], dim=0)
+
+
+def cell_bell_to_pair(pm, blocks, dead_identity: float = 0.0):
+    """One-time cell block-ELL -> pair conversion (the cached static KNP
+    operator at setup; the per-step assemblies emit pair blocks directly).
+    blocks (..., K, nd, nd, nc) with slot l+1 = local facet l; leading axes
+    broadcast."""
+    *lead, K, nd, _, nc = blocks.shape
+    npair = pm["int_f"].shape[0]
+    live1 = pm["live1"].to(blocks.dtype)
+    live0 = pm["live0"].to(blocks.dtype) if "live0" in pm else None
+    c0, c1 = pm["cop"][0], pm["cop"][1]
+
+    B00 = blocks[..., 0, :, :, :][..., c0]
+    B11 = blocks[..., 0, :, :, :][..., c1] * live1
+    if live0 is not None:                          # fully inert pad pairs
+        B00 = B00 * live0
+
+    # flatten (K, nc) into one gather axis: column = l * nc + c
+    Bf = torch.movedim(blocks, -4, -1)              # (..., nd, nd, nc, K)
+    Bf = torch.swapaxes(Bf, -1, -2)                 # (..., nd, nd, K, nc)
+    Bf = Bf.reshape(*lead, nd, nd, K * nc)
+
+    def slot_at(l_arr, cells):                      # l_arr, cells (npair,)
+        col = (l_arr.to(torch.int64) + 1) * nc + cells.to(torch.int64)
+        return Bf[..., col]                         # (..., nd, nd, npair)
+
+    B01 = slot_at(pm["int_l"][0], c0) * live1
+    B10 = slot_at(pm["int_l"][1], c1) * live1
+    eye = torch.eye(nd, dtype=blocks.dtype, device=blocks.device)[:, :, None]
+    B11 = B11 + eye * (dead_identity * (1.0 - live1))
+    if live0 is not None:
+        B00 = B00 + eye * (dead_identity * (1.0 - live0))
+    pd = torch.cat([torch.cat([B00, B01], dim=-2),
+                    torch.cat([B10, B11], dim=-2)], dim=-3)
+
+    pes = []
+    z = torch.zeros((*lead, nd, nd, npair), dtype=blocks.dtype,
+                    device=blocks.device)
+    for s in range(pm["ext_f"].shape[0]):
+        owner = torch.where(pm["ext_h"][s] == 0, c0, c1)
+        blk = slot_at(pm["ext_l"][s], owner)
+        # dummy slots point at the owner's own local facet 0 -- mask them
+        mask = (pm["ext_f"][s] != pm["nf"]).to(blocks.dtype)
+        blk = blk * mask
+        h0 = pm["ext_h"][s] == 0
+        top = torch.where(h0, blk, z)
+        bot = torch.where(h0, z, blk)
+        pes.append(torch.cat([top, bot], dim=-3))   # row halves
+    return pd, torch.stack(pes, dim=-4)
+
+
+def mass_to_pair(pm, mass):
+    """(nc,) per-cell scalar -> (npair,) per-pair sum over live halves."""
+    c0, c1 = pm["cop"][0], pm["cop"][1]
+    return mass[c0] + mass[c1] * pm["live1"].to(mass.dtype)
+
+
+def onehot_to_pair(pm, onehot):
+    """(n_comp, nc) compartment indicator -> (n_comp, npair).  Pairs are
+    same-tag, hence same-compartment: take cell0's column."""
+    return onehot[:, pm["cop"][0]]

@@ -1,8 +1,9 @@
 """Phase profile of the port's splitting step on one CUDA card.
 
 Sets up the EMIx solver on box_3d_axons(1, length_factor=2) scaled to cm
-(124,416 tets, the cell of ``chip_smoke.py``), runs WARMUP steps, then
-profiles STEPS steady steps (``run_block``) twice:
+(124,416 tets, the cell of ``chip_smoke.py``) on the cell layout, or with
+``--pair`` on the interleaved pair layout, runs WARMUP steps, then profiles
+STEPS steady steps (``run_block``) twice:
 
 1. phases: a device synchronise and the host clock around each of the six
    phases of a step (ODE, EMI assembly, EMI solve, KNP assembly, KNP solve,
@@ -12,14 +13,15 @@ profiles STEPS steady steps (``run_block``) twice:
    device kernel intervals), the number of device events, and the
    operators with the most device time, each as a share of the busy time
    (an aten operator's row holds the kernels it launched, which also have
-   rows of their own, so the shares add up to more than 1).  The
+   rows of their own, so the shares add up to more than 1), and the
+   device time per launch of each hand-written kernel (csrc/).  The
    profiler's own cost is in the wall, so the busy share it gives is a
    lower bound.
 
 Usage (needs a CUDA card):
 
     python -m knpemidg_tpu_torch.profile_step [--dtype float64|float32]
-        [--json FILE]
+        [--pair] [--json FILE]
 """
 from __future__ import annotations
 
@@ -34,6 +36,10 @@ from .mesh.generators import box_3d_axons
 
 WARMUP, STEPS = 3, 3     # steps before the profile, steps per profile
 TOP = 12                 # operators listed by device time
+# the __global__ functions of csrc/, as the profiler names their launches
+HAND_KERNELS = ("bell_matvec_kernel", "bj_inverse_kernel", "bj_apply_kernel",
+                "membrane_rk4_kernel", "pair_matvec_kernel", "to_pair_kernel",
+                "from_pair_kernel", "gather_blocks_pair_kernel")
 PHASES = ("_ode_step", "_assemble_emi", "_emi_solve_iterative",
           "_knp_assemble_all", "_knp_solve_all", "_finalize_step")
 
@@ -85,12 +91,12 @@ def _self_device_us(evt):
     return 0.0
 
 
-def profile(dtype=torch.float64):
-    """Set up the cell, warm up, and return the phase and trace readings
-    as a dict (times in ms)."""
+def profile(dtype=torch.float64, pair=False):
+    """Set up the cell (on the pair layout with ``pair``), warm up, and
+    return the phase and trace readings as a dict (times in ms)."""
     mesh = box_3d_axons(1, length_factor=2)
     mesh.vertices *= 1e2
-    S = emix.build_solver(mesh, dtype=dtype, device="cuda")
+    S = emix.build_solver(mesh, dtype=dtype, device="cuda", pair=pair)
     sp = emix.solver_params(error_if_not_converged=False)
     state = S.attach_pc(S._initial_state(0.0), sp)
     state = S._ode_step(state, first_step=True)       # the first-step V seed
@@ -114,8 +120,12 @@ def profile(dtype=torch.float64):
     # None when the profiler saw no device activity (not measured)
     busy_ms = 1e-3 * _union_us(dev) if dev else None
     ops = sorted(prof.key_averages(), key=_self_device_us, reverse=True)
+    hand = [{"name": e.key, "calls": e.count,
+             "device_us_per_call": _self_device_us(e) / max(e.count, 1)}
+            for e in ops if any(k in e.key for k in HAND_KERNELS)]
     return {
-        "cells": S.n_cells, "dtype": str(dtype), "warmup": WARMUP, "steps": STEPS,
+        "cells": S.n_cells, "layout": "pair" if pair else "cell",
+        "dtype": str(dtype), "warmup": WARMUP, "steps": STEPS,
         "phases": {"emi_iters": st_phase["emi_iters"],
                    "knp_iters": st_phase["knp_iters"],
                    "ms": {name.strip("_"): walls[name] for name in PHASES}},
@@ -127,19 +137,22 @@ def profile(dtype=torch.float64):
                   "top_ops": [{"name": e.key, "self_device_ms": 1e-3 * _self_device_us(e),
                                "share": (None if busy_ms is None else
                                          1e-3 * _self_device_us(e) / busy_ms),
-                               "calls": e.count} for e in ops[:TOP]]},
+                               "calls": e.count} for e in ops[:TOP]],
+                  "hand_kernels": hand},
     }
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", choices=("float64", "float32"), default="float64")
+    ap.add_argument("--pair", action="store_true",
+                    help="profile the interleaved pair layout")
     ap.add_argument("--json", help="also write the readings to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
-    out = profile(getattr(torch, args.dtype))
-    print(f"{out['cells']} cells, {out['dtype']}, steps {WARMUP + 1}-"
+    out = profile(getattr(torch, args.dtype), pair=args.pair)
+    print(f"{out['cells']} cells, {out['layout']} layout, {out['dtype']}, steps {WARMUP + 1}-"
           f"{WARMUP + STEPS} phased, the next {STEPS} traced")
     ph = out["phases"]
     print(f"phases  EMI iters {ph['emi_iters']}  KNP iters {ph['knp_iters']}")
@@ -156,6 +169,9 @@ def main():
         share = "" if op["share"] is None else f"{100 * op['share']:5.1f}%"
         print(f"  {op['self_device_ms']:9.3f} ms {share:>6s} {op['calls']:6d}x  "
               f"{op['name'][:90]}")
+    print("hand-written kernels, device time per launch in the trace:")
+    for k in tr["hand_kernels"]:
+        print(f"  {k['device_us_per_call']:9.2f} us {k['calls']:6d}x  {k['name'][:90]}")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)

@@ -1,5 +1,6 @@
 """Coupled KNP-EMI splitting solver (torch port of knpemidg_tpu/solver.py,
-main path: degree 1, cell layout, iterative solvers, one device).
+main path: degree 1, iterative solvers, one device; the cell layout or the
+interleaved pair layout of enable_pair_layout).
 
 Per time step (the splitting scheme):
   step 0 (ODE):  advance the membrane ODEs (kernel C on the card),
@@ -10,6 +11,7 @@ then phi_M = JUMP(phi) and the eliminated ion are updated.
 
 PyTorch runs eagerly, so there is no jit layer: the Krylov loops are
 Python loops and every function below works on device tensors directly.
+The solver runs on the CUDA card unless the caller names another device.
 Options the port does not carry yet raise NotImplementedError.
 """
 from __future__ import annotations
@@ -24,6 +26,10 @@ from .config import Ion, SolverParams, StimParams, ion_from_dict
 from .mesh.core import Mesh
 from .fem.tabulation import build_geometry, build_membrane_tables
 from .ops import assembly
+from .ops.pairs import (build_pair_maps, cell_bell_to_pair, from_pair,
+                        interleave_pair_maps, pair_maps_to_device,
+                        pair_matvec, pair_matvec_fan, pair_matvec_multi,
+                        pair_nbr, pair_v_sums, to_pair)
 from .ops.spmv import (bell_matvec, bell_matvec_fan, bell_matvec_multi,
                        block_jacobi_apply, block_jacobi_inverse)
 from .solvers.krylov import gmres_batched, pcg
@@ -58,9 +64,22 @@ def _check_supported(sp: SolverParams):
         unsupported.append("coarse_ridge < 1e-5 (NaN-fallback ladder)")
     if sp.pc_refresh_factor > 0:
         unsupported.append("pc_refresh_factor")
+    if sp.pair_bj not in ("halves", "full"):
+        unsupported.append(f"pair_bj={sp.pair_bj!r}")
     if unsupported:
         raise NotImplementedError("knpemidg_tpu_torch does not support: "
                                   + ", ".join(unsupported))
+
+
+def _resolve_device(device) -> torch.device:
+    """The solver's device: the CUDA card unless the caller names another.
+    Never falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "knpemidg_tpu_torch runs on a CUDA card by default and none is "
+            "available; pass device='cpu' to run on the CPU")
+    return dev
 
 
 def _sync(device):
@@ -101,7 +120,7 @@ class Solver:
     -> setup_membrane_model -> solve_system_active."""
 
     def __init__(self, params, ion_list, degree_emi=1, degree_knp=1, mms=None,
-                 dtype=None, device=None):
+                 dtype=None, device="cuda"):
         if degree_emi != 1 or degree_knp != 1:
             raise NotImplementedError("knpemidg_tpu_torch supports DG degree 1 only")
         if mms is not None:
@@ -116,10 +135,12 @@ class Solver:
         self.ion_names = [i.name for i in self.ion_list]
         self.N_ions = len(ion_list) - 1      # number of *solved* ions
         self.dtype = dtype or torch.float64
-        self.device = torch.device(device or "cpu")
+        self.device = _resolve_device(device)
         self.stats = SolverStats()
         self.mem_models: Dict[int, Any] = {}
         self.splitting_scheme = True
+        self.pair_layout = False             # see enable_pair_layout
+        self.pairs = None
 
     # ------------------------------------------------------------------
     # setup phases
@@ -139,7 +160,7 @@ class Solver:
         self.geom = build_geometry(mesh, quad_degree_cell=qd,
                                    quad_degree_facet=qd, degree=1)
         self.g = assembly.precompute_static(
-            self.geom.to_device(self.dtype, self.device))
+            self.geom.to_device(self.dtype, device=self.device))
         self.gdim = mesh.dim
         self.tau = 20.0 * self.gdim
         self.tau_knp = 20.0 * self.gdim
@@ -150,11 +171,87 @@ class Solver:
         return self
 
     def enable_pair_layout(self, interleave: bool = True):
-        raise NotImplementedError("the pair layout is not ported yet")
+        """Switch the Krylov path to the pair-block operator layout
+        (ops/pairs.py): 2-cell macro rows whose block-Jacobi smoother sees
+        the intra-pair coupling.  Fields and rhs stay cell-indexed; each
+        solve converts its vectors once.
+
+        The cell axis is renumbered so that pair p occupies slots (2p,
+        2p+1), with inert pad cells (parallel.sharding.pad_cell_axis) as the
+        dead second halves of self-pairs: the conversions become relayouts
+        and the preconditioner's pair chunks cover the cell layout's
+        contiguous (compartment, Morton) chunk ranges.  Fields come back in
+        the padded numbering; parallel.sharding.unpad_state maps them to
+        the original one.
+
+        Call after setup_membrane_model (the renumbering must see the
+        membrane cell maps) and before attach_pc.  ``interleave=False``
+        (the index-map form) is not ported."""
+        if not interleave:
+            raise NotImplementedError(
+                "enable_pair_layout(interleave=False): the non-interleaved "
+                "(cell_col) pair maps are not ported")
+        if not hasattr(self, "c_init"):
+            raise RuntimeError("enable_pair_layout: call setup_FEM_spaces first")
+        if self.pairs is None:
+            pmh = build_pair_maps(self.geom)
+            # pair mass from the original numbering (pad cells are dead
+            # halves and add none)
+            vol = np.asarray(self.geom.vol)
+            pair_mass = vol[pmh["cop"][0]] + vol[pmh["cop"][1]] * pmh["live1"]
+            pmh, perm = interleave_pair_maps(pmh, self.n_cells)
+            self._apply_interleave(perm)
+            self.pairs_host = pmh
+            self.pairs = pair_maps_to_device(pmh, self.device)
+            # (2nd, npair) live mask of the pair vectors: half 0 is always
+            # a real cell, half 1 of a self-pair is a pad
+            live = np.stack([np.ones_like(pmh["live1"]), pmh["live1"]])
+            self._pair_mask = torch.as_tensor(np.repeat(live, self.nd, axis=0),
+                                              device=self.device)
+            # (2nd, 2nd, 1) mask selecting the two per-cell diagonal
+            # sub-blocks (the 'halves' pair_bj variant)
+            self._pair_bj_halves = self._tensor(
+                np.kron(np.eye(2), np.ones((self.nd, self.nd)))[:, :, None])
+            self._pair_mass = self._tensor(pair_mass)
+            self.pair_layout = True
+            self._invalidate_caches()
+        return self
+
+    def _apply_interleave(self, perm: np.ndarray):
+        """Renumber every cell-indexed solver array by the interleaved pair
+        permutation: pad the cell axis with the inert cells the permutation
+        references (ids >= n_cells), permute the pads into the dead half
+        slots, and remap the initial fields."""
+        from .parallel.sharding import pad_cell_axis, permute_cells
+
+        nc = self.n_cells
+        extra = len(perm) - nc
+        pad_cell_axis(self, extra)
+        # pads carry compartment id -1: no one-hot column and no moment
+        # field (a pad in a real compartment would add its zeroed node
+        # coordinates to that compartment's moment basis)
+        self._comp_np = np.concatenate(
+            [self._comp_np, np.full(extra, -1, dtype=self._comp_np.dtype)])
+        permute_cells(self, perm)
+        self._pad_mask = torch.as_tensor(perm < nc, device=self.device)
+        self.n_cells_pad = len(perm)
+        # original cell id -> padded slot (unpad_state)
+        self._cell_unpad_idx = self._cell_perm_inv[:nc].copy()
+        # the initial fields were built at the original size: a pad slot
+        # takes its live partner's value if it has one, else cell 0's (pad
+        # rows are decoupled and their increments stay zero; a live source
+        # keeps the concentrations positive)
+        src = perm.copy()
+        partner = perm[np.arange(len(perm)) ^ 1]   # the other pair half
+        dead = perm >= nc
+        src[dead] = np.where(partner[dead] < nc, partner[dead], 0)
+        src_t = torch.as_tensor(src, device=self.device)
+        for name in ("c_init", "c_elim_init", "phi_init"):
+            setattr(self, name, getattr(self, name)[..., src_t].contiguous())
 
     def _set_membrane_tags(self, tags):
         self.tables = build_membrane_tables(self.mesh, tags)
-        self.mem_dev = self.tables.to_device(self.dtype, self.device)
+        self.mem_dev = self.tables.to_device(self.dtype, device=self.device)
         # membrane-presliced trace tensors: gathers over n_mem instead of
         # the full facet axis
         fidx = self.mem_dev["fidx"]
@@ -177,6 +274,8 @@ class Solver:
         return out
 
     def _invalidate_caches(self):
+        """Drop the cached static operators and compartment arrays bound to
+        the previous mesh, physics or cell numbering."""
         for attr in ("_knp_static_blocks", "_comp_onehot", "_comp_ids"):
             if hasattr(self, attr):
                 delattr(self, attr)
@@ -262,13 +361,16 @@ class Solver:
     def _all_c(self, c, c_elim):
         return torch.cat([c, c_elim[None]], dim=0)
 
-    def _assemble_emi(self, c, c_elim, phi_M_pad, I_ch_tot_pad, t):
-        """EMI blocks, rhs and P_diag.  ``t`` (read by the JAX package's MMS
-        sources only) keeps the JAX signature."""
+    def _assemble_emi(self, c, c_elim, phi_M_pad, I_ch_tot_pad, t,
+                      pair: bool = False):
+        """EMI blocks (the pair operator with ``pair``), rhs and P_diag.
+        ``t`` (read by the JAX package's MMS sources only) keeps the JAX
+        signature."""
         ions = {"z": self.z, "D": self.D, "c": self._all_c(c, c_elim)}
         return assembly.assemble_emi(
             self.g, self.masks, ions, self._phys_emi(), phi_M_pad, I_ch_tot_pad,
-            mem_t=self.mem_dev, splitting=self.splitting_scheme)
+            mem_t=self.mem_dev, splitting=self.splitting_scheme,
+            pm=self.pairs if pair else None)
 
     def _knp_static(self, k):
         """The time-independent KNP operator of ion k (mass + stiffness +
@@ -301,7 +403,8 @@ class Solver:
         phi_M_pad, I_ch_pad, I_ch_tot_pad = self._pads(state)
 
         stats = {}
-        blocks, rhs, Pd = self._assemble_emi(c, c_elim, phi_M_pad, I_ch_tot_pad, t)
+        blocks, rhs, Pd = self._assemble_emi(c, c_elim, phi_M_pad, I_ch_tot_pad, t,
+                                             pair=self.pair_layout)
         phi, stats["emi_iters"], stats["emi_converged"] = self._emi_solve_iterative(
             blocks, Pd, rhs, phi, sp_, pc=pc.get("emi") if pc else None,
             phi_prev=state.get("phi_prev"))
@@ -326,8 +429,23 @@ class Solver:
         around zero, the tolerance relative to the full rhs (b_ref).
 
         ``phi_prev`` enables the linear-predictor guess 2 phi_k - phi_{k-1};
-        the guess with the smaller initial residual is used."""
-        mv = lambda v: self._matvec(blocks, v)
+        the guess with the smaller initial residual is used.  On the pair
+        layout (``blocks`` a (pd, pe) tuple) the vectors convert to pairs in
+        one stacked relayout, the solve runs on pairs with the live mask in
+        the nullspace projection, and the solution converts back."""
+        pair = isinstance(blocks, tuple)
+        mask = None
+        if pair:
+            pm = self.pairs
+            pd_, pe_ = blocks
+            mv = lambda v: pair_matvec(pd_, pe_, pm, v.contiguous())
+            stackc = [rhs, phi] + ([phi_prev] if phi_prev is not None else [])
+            conv = to_pair(pm, torch.stack(stackc))
+            rhs, phi = conv[0], conv[1]
+            phi_prev = conv[2] if phi_prev is not None else None
+            mask = self._pair_mask
+        else:
+            mv = lambda v: self._matvec(blocks, v)
         if phi_prev is not None:
             pred = 2.0 * phi - phi_prev
             ra = rhs - mv(phi)
@@ -343,9 +461,12 @@ class Solver:
             mv, r0, torch.zeros_like(phi),
             self._make_precond(blocks, Pd, sp_, pc=pc),
             rtol=sp_.rtol_emi, atol=sp_.atol_emi, max_it=sp_.max_it_emi,
-            project_nullspace=True, b_ref=rhs,
+            project_nullspace=True, b_ref=rhs, nullspace_mask=mask,
         )
-        return guess + res.x, res.iters, res.converged
+        out = guess + res.x
+        if pair:
+            out = from_pair(self.pairs, out)
+        return out, res.iters, res.converged
 
     def _finalize_step(self, state, stats, c, phi, t):
         """Post-solve updates: phi_M jump, eliminated ion, time."""
@@ -362,25 +483,32 @@ class Solver:
     def _knp_assemble_all(self, c, c_elim, phi, phi_M_pad, I_ch_pad,
                           I_ch_tot_pad, t, c_n):
         """KNP assembly for all solved ions in one pass:
-        (blocks (m, K, nd, nd, nc), rhs (m, nd, nc)).  ``t`` is unused; it
-        keeps the JAX signature."""
+        (blocks (m, K, nd, nd, nc), rhs (m, nd, nc)), or ((pdK, peK), rhs)
+        on the pair layout.  ``t`` is unused; it keeps the JAX signature."""
         call = self._all_c(c, c_elim)
         alpha_sum = torch.einsum("k,kc,kic->ic", self.z ** 2, self.D, call)
+        # the ion-stacked static operator (-1), in pair form (-2) on the
+        # pair layout, both cached by attach_pc
         cache = getattr(self, "_knp_static_blocks", {})
-        statics = cache.get(-1)
+        statics = cache.get(-2 if self.pair_layout else -1)
         if statics is None:
             statics = torch.stack([self._knp_static(k) for k in range(self.N_ions)])
+            if self.pair_layout:
+                statics = cell_bell_to_pair(self.pairs, statics)
         ionsd = {"z": self.z[:self.N_ions], "D": self.D[:self.N_ions],
                  "c_n": c_n, "c_k": c}
         return assembly.assemble_knp_all(
             self.g, self.masks, ionsd, self._phys_knp(), phi, alpha_sum,
             phi_M_pad, I_ch_pad[:self.N_ions], I_ch_tot_pad,
             mem_t=self.mem_dev, static_blocks=statics,
-            splitting=self.splitting_scheme)
+            splitting=self.splitting_scheme,
+            pm=self.pairs if self.pair_layout else None)
 
     def _knp_solve_all(self, blocksK, rhsK, c, sp_: SolverParams, pcK=None):
         """Batched increment-form GMRES over the ion axis: all solved ions
-        share one Krylov loop whose matvec is one kernel-A launch."""
+        share one Krylov loop whose matvec is one kernel launch."""
+        if isinstance(blocksK, tuple):
+            return self._knp_solve_all_pair(blocksK, rhsK, c, sp_, pcK)
         kind = sp_.precond_knp or sp_.precond
         mv = lambda V: self._matvec(blocksK, V)
         P_diag = blocksK[:, 0].contiguous()
@@ -397,6 +525,34 @@ class Solver:
             max_it=sp_.max_it_knp, restart=sp_.gmres_restart, b_ref=rhsK,
         )
         return c + res.x, res.iters, res.converged
+
+    def _knp_solve_all_pair(self, blocksK, rhsK, c, sp_: SolverParams, pcK):
+        """_knp_solve_all on the pair layout: the rhs and the iterate
+        convert once, the preconditioner is live-masked (its chunk prolong
+        writes into the dead self-pair halves) and uses the pair_bj variant
+        of the pair diagonal."""
+        kind = sp_.precond_knp or sp_.precond
+        pm = self.pairs
+        pdK, peK = blocksK
+        mv = lambda V: pair_matvec_multi(pdK, peK, pm, V.contiguous())
+        conv = to_pair(pm, torch.stack([rhsK, c]))
+        rhs_p, c_p = conv[0], conv[1]
+        lm = self._pair_mask.to(rhs_p.dtype)[None]
+        pdK_bj = pdK * self._pair_bj_halves[None] if sp_.pair_bj == "halves" else pdK
+        if kind == "two_level":
+            data = pcK if pcK is not None else self._build_knp_pc(blocksK, sp_)
+            pcf0 = two_level_apply_batched(data, pdK_bj, sp_.agg_size // 2)
+            pcf = lambda r: pcf0(r) * lm
+        else:
+            Pinv = block_jacobi_inverse(pdK_bj.contiguous())
+            pcf = lambda r: block_jacobi_apply(Pinv, r.contiguous()) * lm
+        r0 = rhs_p - mv(c_p)
+        res = gmres_batched(
+            mv, r0, torch.zeros_like(r0), pcf,
+            rtol=sp_.rtol_knp, atol=sp_.atol_knp,
+            max_it=sp_.max_it_knp, restart=sp_.gmres_restart, b_ref=rhs_p,
+        )
+        return c + from_pair(pm, res.x), res.iters, res.converged
 
     # ------------------------------------------------------------------
     # ODE step (step 0 of the splitting)
@@ -564,13 +720,15 @@ class Solver:
     # ------------------------------------------------------------------
     def _comp_arrays(self):
         """Compartment one-hot rows (n_comp, nc) and ids (nc,) on the
-        device."""
+        device.  Inert pad cells (compartment -1, the pair layout's dead
+        halves) get a zero column and id 0."""
         if not hasattr(self, "_comp_onehot"):
             comp = self._comp_np
+            live = comp >= 0
             oh = np.zeros((int(comp.max()) + 1, comp.shape[0]))
-            oh[comp, np.arange(comp.shape[0])] = 1.0
+            oh[comp[live], np.flatnonzero(live)] = 1.0
             self._comp_onehot = self._tensor(oh)
-            self._comp_ids = torch.as_tensor(comp.astype(np.int32),
+            self._comp_ids = torch.as_tensor(np.where(live, comp, 0).astype(np.int32),
                                              device=self.device)
         return self._comp_onehot, self._comp_ids
 
@@ -578,6 +736,8 @@ class Solver:
         """EMI preconditioner apply: two-level (from the frozen ``pc`` data,
         or built on the spot) or plain block-Jacobi.  The KNP solve builds
         its batched apply in _knp_solve_all."""
+        if sp_.precond == "two_level" and isinstance(blocks, tuple):
+            return self._make_precond_pair(blocks, P_diag, sp_, pc)
         if sp_.precond == "two_level":
             if pc is not None:
                 return two_level_apply_fn(pc, P_diag, sp_.agg_size)
@@ -589,12 +749,46 @@ class Solver:
         Pinv = block_jacobi_inverse(P_diag.contiguous())
         return lambda r: block_jacobi_apply(Pinv, r.contiguous())
 
+    def _make_precond_pair(self, blocks, P_diag, sp_: SolverParams, pc):
+        """Two-level EMI apply on the pair layout: chunks of agg_size // 2
+        pairs (agg_size cells).  The apply is live-masked: the chunk-coarse
+        prolong broadcasts into the dead self-pair halves, and left
+        unmasked those pollute <p, A p> through the dead-identity rows and
+        CG stalls at the iteration cap.  Masked, it is the preconditioner
+        restricted to the live subspace, SPD there, and the dead Krylov
+        components stay exactly zero."""
+        pd_, pe_ = blocks
+        agg_p = sp_.agg_size // 2
+        lm = self._pair_mask.to(P_diag.dtype)
+        if sp_.pair_bj == "halves":
+            P_diag = P_diag * self._pair_bj_halves
+        if pc is None:
+            oh, ids = self._comp_arrays()
+            cop0 = self.pairs["cop"][0]
+            # the JAX package forms extra_diag from the masked diagonal here
+            pc = build_two_level(
+                None, pair_nbr(self.pairs), agg_p, sym=True,
+                comp_onehot=oh[:, cop0], comp_ids=ids[cop0],
+                extra_diag=P_diag - pd_, v=pair_v_sums(pd_, pe_),
+                ridge=sp_.coarse_ridge)
+        fn = two_level_apply_fn(pc, P_diag, agg_p)
+        return lambda r: fn(r) * lm
+
     def _build_knp_pc(self, blocksK, sp_: SolverParams):
-        """Per-ion two-level coarse data stacked over the ion axis."""
-        parts = [build_two_level(b, self.g["nbr"], sp_.agg_size, sym=False,
-                                 mass_diag=self.g["vol"] / self.params.dt,
-                                 ridge=sp_.coarse_ridge)
-                 for b in blocksK]
+        """Per-ion two-level coarse data stacked over the ion axis (pairs:
+        chunks of agg_size // 2 pairs, the pair mass on the diagonal)."""
+        if isinstance(blocksK, tuple):
+            pdK, peK = blocksK
+            parts = [build_two_level(None, pair_nbr(self.pairs), sp_.agg_size // 2,
+                                     sym=False,
+                                     mass_diag=self._pair_mass / self.params.dt,
+                                     v=pair_v_sums(pd_, pe_), ridge=sp_.coarse_ridge)
+                     for pd_, pe_ in zip(pdK, peK)]
+        else:
+            parts = [build_two_level(b, self.g["nbr"], sp_.agg_size, sym=False,
+                                     mass_diag=self.g["vol"] / self.params.dt,
+                                     ridge=sp_.coarse_ridge)
+                     for b in blocksK]
         return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
 
     def _emi_moment_W(self, sp_: SolverParams):
@@ -606,7 +800,14 @@ class Solver:
                               dtype=self.dtype, device=self.device)
 
     def _emi_moment_data(self, blocks, sp_: SolverParams):
+        """Moment-deflation Galerkin data in the layout the solve applies
+        it in (on pairs: the fields converted with to_pair)."""
         W = self._emi_moment_W(sp_)
+        if isinstance(blocks, tuple):
+            pd_, pe_ = blocks
+            return build_moment_deflation(
+                to_pair(self.pairs, W),
+                fan=lambda X: pair_matvec_fan(pd_, pe_, self.pairs, X))
         return build_moment_deflation(
             W, fan=lambda X: bell_matvec_fan(blocks, self.g["nbr"], X))
 
@@ -618,12 +819,23 @@ class Solver:
         phi_M_pad, I_ch_pad, I_ch_tot_pad = self._pads(state)
         if sp_.precond == "two_level":
             blocks, rhs, Pd = self._assemble_emi(state["c"], state["c_elim"],
-                                                 phi_M_pad, I_ch_tot_pad, state["t"])
+                                                 phi_M_pad, I_ch_tot_pad, state["t"],
+                                                 pair=self.pair_layout)
             comp_onehot, comp_ids = self._comp_arrays()
-            pc["emi"] = build_two_level(
-                blocks, self.g["nbr"], sp_.agg_size, sym=True,
-                comp_onehot=comp_onehot, comp_ids=comp_ids,
-                extra_diag=Pd - blocks[0], ridge=sp_.coarse_ridge)
+            if self.pair_layout:
+                # coarse data over the pair axis: chunks of agg_size // 2
+                # pairs (pairs never cross compartments by construction)
+                cop0 = self.pairs["cop"][0]
+                pc["emi"] = build_two_level(
+                    None, pair_nbr(self.pairs), sp_.agg_size // 2, sym=True,
+                    comp_onehot=comp_onehot[:, cop0], comp_ids=comp_ids[cop0],
+                    extra_diag=Pd - blocks[0], v=pair_v_sums(*blocks),
+                    ridge=sp_.coarse_ridge)
+            else:
+                pc["emi"] = build_two_level(
+                    blocks, self.g["nbr"], sp_.agg_size, sym=True,
+                    comp_onehot=comp_onehot, comp_ids=comp_ids,
+                    extra_diag=Pd - blocks[0], ridge=sp_.coarse_ridge)
             if sp_.emi_moment_order > 0:
                 pc["emi"].update(self._emi_moment_data(blocks, sp_))
         if (sp_.precond_knp or sp_.precond) == "two_level":
@@ -648,6 +860,9 @@ class Solver:
         cache = self._knp_static_blocks
         if -1 not in cache:
             cache[-1] = torch.stack([cache[k] for k in range(self.N_ions)])
+        if self.pair_layout and -2 not in cache:
+            # key -2: the pair-converted static operator, one conversion
+            cache[-2] = cell_bell_to_pair(self.pairs, cache[-1])
         if "pc" in state:
             return state
         pc = self._build_pc(state, sp_)

@@ -46,13 +46,27 @@ def pcg(
     max_it: int,
     project_nullspace: bool = False,
     b_ref: Optional[torch.Tensor] = None,
+    nullspace_mask: Optional[torch.Tensor] = None,
 ) -> KrylovResult:
     """Preconditioned conjugate gradients.
 
     ``b_ref``: the vector whose preconditioned norm anchors the relative
     tolerance instead of ``b`` (increment-form solves, where ``b`` is the
-    initial residual)."""
-    proj = _project_constant if project_nullspace else (lambda v: v)
+    initial residual).
+
+    ``nullspace_mask``: boolean mask (broadcastable to the vector shape)
+    of the REAL entries when the vector carries inert padding (the dead
+    halves of the pair layout).  The constant mode of the padded operator
+    is 1 on the real entries and 0 on the pads, so the projection averages
+    over the real entries only and zeroes the pads."""
+    if nullspace_mask is not None and project_nullspace:
+        w = nullspace_mask.to(b.dtype)
+        wsum = torch.sum(w) * (b.numel() // nullspace_mask.numel())
+
+        def proj(v):
+            return (v - torch.sum(v * w) / wsum) * w
+    else:
+        proj = _project_constant if project_nullspace else (lambda v: v)
 
     b = proj(b)
     x = proj(x0)

@@ -27,13 +27,13 @@ def compartment_ids(mesh) -> np.ndarray:
     return _compartments(mesh)
 
 
-def moment_vectors(coords, comp, order: int = 2, dtype=torch.float64,
-                   device="cpu"):
+def moment_vectors(coords, comp, order: int = 2, *, dtype, device):
     """Per-compartment polynomial moment fields W (nw, nd, nc): for every
     compartment the centred, per-axis scaled monomials {x,y,z} (order >= 1)
     and {x^2,xy,...} (order >= 2), zero outside the compartment.  Constants
     are excluded: the compartment deflation handles them exactly.
-    ``coords`` (nc, nd, d): nodal coordinates per cell; ``comp`` (nc,)."""
+    ``coords`` (nc, nd, d): nodal coordinates per cell; ``comp`` (nc,),
+    -1 on inert pad cells (which get no field)."""
     if order > 2:
         raise NotImplementedError("moment deflation orders above 2 are not ported")
     comp = np.asarray(comp)
@@ -92,7 +92,7 @@ def build_moment_deflation(W, fan, ridge: float = 1e-6):
 
 def build_two_level(blocks, nbr, agg_size: int, sym: bool = True,
                     comp_onehot=None, comp_ids=None, extra_diag=None,
-                    mass_diag=None, max_dense: int = 4096,
+                    mass_diag=None, v=None, max_dense: int = 4096,
                     ridge: float = 1e-5):
     """Frozen coarse-level data of the two-level preconditioner: the dense
     equilibrated coarse inverse and the compartment-deflation inverse.
@@ -101,9 +101,14 @@ def build_two_level(blocks, nbr, agg_size: int, sym: bool = True,
     chunk-crossing block sums, diagonals come from the identity
     A(non-mass part) @ 1 = 0 plus the explicitly supplied positive parts
     (``mass_diag`` (nc,): the KNP mass; ``extra_diag`` (nd, nd, nc): the EMI
-    B-operator regularisation)."""
-    nd_b = blocks.shape[1]
-    v = sum(blocks[:, i, j] for i in range(nd_b) for j in range(nd_b))  # (K, nc)
+    B-operator regularisation).
+
+    ``v``: precomputed per-slot block value sums (K, n), the only thing
+    ``blocks`` is read for.  The pair layout passes ops.pairs.pair_v_sums
+    with ``blocks=None``; ``nbr`` and the chunks then index pairs."""
+    if v is None:
+        nd_b = blocks.shape[1]
+        v = sum(blocks[:, i, j] for i in range(nd_b) for j in range(nd_b))  # (K, nc)
     nc = v.shape[1]
     n_agg = -(-nc // agg_size)
     if n_agg > max_dense:

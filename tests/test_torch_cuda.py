@@ -16,18 +16,25 @@ from knpemidg_tpu_torch import _cuda
 from knpemidg_tpu_torch.fem.tabulation import build_geometry
 from knpemidg_tpu_torch.membrane import engine
 from knpemidg_tpu_torch.models import glial, hh
-from knpemidg_tpu_torch.ops import spmv
+from knpemidg_tpu_torch.ops import pairs, spmv
+from knpemidg_tpu_torch.parallel.sharding import unpad_state
 
 pytestmark = pytest.mark.cuda
 
 # float32: sums in another order and fused multiply-adds; float64 round-off
 DTYPES = [(torch.float32, 1e-5), (torch.float64, 1e-12)]
+# the kernels each layout's step goes through
+CELL_KERNELS = ("bell_matvec", "block_jacobi_inverse", "block_jacobi_apply",
+                "membrane_rk4")
+PAIR_KERNELS = ("pair_matvec", "to_pair", "from_pair", "gather_blocks_pair",
+                "block_jacobi_inverse_nd8", "block_jacobi_apply_nd8",
+                "membrane_rk4")
 
 
 @pytest.fixture(scope="module")
 def nbr():
     cuda_or_skip()
-    return build_geometry(tp.emix_mesh_torch(), 2, 2).to_device()["nbr"]
+    return build_geometry(tp.emix_mesh_torch(), 2, 2).to_device(device="cpu")["nbr"]
 
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
@@ -111,8 +118,100 @@ def test_emix_slice_on_cuda_matches_cpu():
     Sg, _ = tp.emix_torch(device=dev)
     _cuda.reset_launches()
     sg = Sg.solve_system_active(0.2, 0.0, sp)
-    assert all(n > 0 for n in _cuda.LAUNCHES.values()), _cuda.LAUNCHES
+    assert all(_cuda.LAUNCHES[k] > 0 for k in CELL_KERNELS), _cuda.LAUNCHES
     assert Sg.stats.emi_niters == Sc.stats.emi_niters == [7, 4]
     assert Sg.stats.knp_niters == Sc.stats.knp_niters == [[4, 3], [2, 2]]
+    for key in ("phi", "c", "c_elim", "phi_M"):
+        assert rel(sg[key], sc[key]) < 1e-8, key
+
+
+@pytest.fixture(scope="module")
+def pair_maps():
+    """Interleaved host pair maps of the EMIx fixture (the CPU solver's)."""
+    cuda_or_skip()
+    S, _ = tp.emix_torch(pair=True)
+    return S.pairs_host
+
+
+def _rand(rng, shape, dtype, dev):
+    return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_pair_kernels_match_plain(pair_maps, dtype, tol):
+    """K12 and K4 equal their plain versions exactly (moves, selects and the
+    same additions in the same order); K3 and K5 at nd = 8 to round-off."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(8)
+    pm = pairs.pair_maps_to_device(pair_maps, dev)
+    npair = pair_maps["int_f"].shape[0]
+    nf1 = int(pair_maps["nf"]) + 1
+    A = _rand(rng, (2, 4, 4, 2 * npair), dtype, dev)
+    Ms = []
+    for _ in range(4):
+        M = _rand(rng, (2, 4, 4, nf1), dtype, dev)
+        M[..., -1] = 0.0                              # the dummy facet
+        Ms.append(M)
+    n0 = dict(_cuda.LAUNCHES)
+    pd, pe = pairs.gather_blocks_pair_multi(None, pm, A, *Ms)
+    pd_ref, pe_ref = pairs.gather_blocks_pair_multi_plain(None, pm, A, *Ms)
+    assert torch.equal(pd, pd_ref) and torch.equal(pe, pe_ref)
+    pd1, pe1 = pairs.gather_blocks_pair(None, pm, A[0].contiguous(),
+                                        *(M[0].contiguous() for M in Ms))
+    assert torch.equal(pd1, pd[0]) and torch.equal(pe1, pe[0])
+
+    x = _rand(rng, (2, 4, 2 * npair), dtype, dev)
+    xp = pairs.to_pair(pm, x)
+    assert torch.equal(xp, pairs.to_pair_plain(pm, x))
+    assert torch.equal(pairs.from_pair(pm, xp), pairs.from_pair_plain(pm, xp))
+
+    y = pairs.pair_matvec_multi(pd, pe, pm, xp)
+    assert rel(y, pairs.pair_matvec_multi_plain(pd, pe, pm, xp)) < tol
+    y0 = pairs.pair_matvec(pd[0].contiguous(), pe[0].contiguous(), pm,
+                           xp[0].contiguous())
+    assert rel(y0, pairs.pair_matvec_plain(pd[0], pe[0], pm, xp[0])) < tol
+
+    eye = torch.eye(8, dtype=dtype, device=dev)[None, :, :, None]
+    P = (0.1 * pd + 8.0 * eye).contiguous()            # dominant diagonal
+    inv = spmv.block_jacobi_inverse(P)
+    assert rel(inv, spmv.block_jacobi_inverse_plain(P)) < 10 * tol
+    assert rel(spmv.block_jacobi_apply(inv, xp), spmv.block_jacobi_apply_plain(inv, xp)) < tol
+    for k, n in {"gather_blocks_pair": 2, "to_pair": 1, "from_pair": 1,
+                 "pair_matvec": 2, "block_jacobi_inverse_nd8": 1,
+                 "block_jacobi_apply_nd8": 1}.items():
+        assert _cuda.LAUNCHES[k] == n0[k] + n, k
+
+
+def test_pair_kernels_refuse_unported_maps(pair_maps):
+    """Sharded maps (live0) and index-map (cell_col) maps raise on the
+    card instead of running plain."""
+    dev = cuda_or_skip()
+    pm = pairs.pair_maps_to_device(pair_maps, dev)
+    npair = pair_maps["int_f"].shape[0]
+    x = torch.ones((4, 2 * npair), dtype=torch.float64, device=dev)
+    sharded = dict(pm, live0=torch.ones(npair, dtype=torch.bool, device=dev))
+    with pytest.raises(NotImplementedError):
+        pairs.to_pair(sharded, x)
+    with pytest.raises(NotImplementedError):
+        pairs.to_pair(dict(pm, cell_col=pm["pid"]), x)
+    with pytest.raises(ValueError):
+        pairs.from_pair(pm, torch.ones((npair, 8), dtype=torch.float64,
+                                       device=dev).t())
+
+
+def test_emix_pair_slice_on_cuda_matches_cpu():
+    """Two float64 steps of the EMIx fixture on the pair layout: the card
+    goes through every pair-path kernel, reproduces the JAX package's
+    Krylov counts and agrees with the CPU run."""
+    dev = cuda_or_skip()
+    Sc, sp = tp.emix_torch(pair=True)
+    sc = unpad_state(Sc, Sc.solve_system_active(0.2, 0.0, sp))
+    Sg, _ = tp.emix_torch(device=dev, pair=True)
+    _cuda.reset_launches()
+    sg = unpad_state(Sg, Sg.solve_system_active(0.2, 0.0, sp))
+    assert all(_cuda.LAUNCHES[k] > 0 for k in PAIR_KERNELS), _cuda.LAUNCHES
+    assert _cuda.LAUNCHES["bell_matvec"] == 0
+    assert Sg.stats.emi_niters == Sc.stats.emi_niters == [3, 9]
+    assert Sg.stats.knp_niters == Sc.stats.knp_niters == [[11, 8], [9, 5]]
     for key in ("phi", "c", "c_elim", "phi_M"):
         assert rel(sg[key], sc[key]) < 1e-8, key

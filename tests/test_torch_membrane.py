@@ -35,7 +35,7 @@ def _pair(name, n=300, seed=0):
     jmk, tmk, dt, t0, scales = MODELS[name]
     rng = np.random.default_rng(seed)
     jm = jengine.make_membrane(jmk(), np.zeros((n, 3)), dtype=jnp.float64)
-    tm = engine.make_membrane(tmk(), np.zeros((n, 3)))
+    tm = engine.make_membrane(tmk(), np.zeros((n, 3)), device="cpu")
     states = np.asarray(jm.states) * rng.uniform(0.97, 1.03, jm.states.shape)
     jm = jengine.MembraneState(states=states, params=np.asarray(jm.params), model=jm.model)
     tm = engine.MembraneState(states=torch.as_tensor(states), params=tm.params,

@@ -77,9 +77,10 @@ def emix_jax():
     return S, SolverParams(**solver_params_kw())
 
 
-def emix_torch(device="cpu", dtype=F64):
-    """(port solver, port SolverParams)."""
-    S = emix.build_solver(emix_mesh_torch(), dtype=dtype, device=device)
+def emix_torch(device="cpu", dtype=F64, pair=False):
+    """(port solver, port SolverParams); ``pair`` enables the interleaved
+    pair layout."""
+    S = emix.build_solver(emix_mesh_torch(), dtype=dtype, device=device, pair=pair)
     return S, emix.solver_params()
 
 

@@ -14,7 +14,9 @@ import test_torch_parity as tp
 from test_torch_parity import rel
 
 import knpemidg_tpu_torch as kt
+from knpemidg_tpu_torch import emix
 from knpemidg_tpu_torch import solver as tsolver
+from knpemidg_tpu_torch.ops import assembly as tassembly
 from knpemidg_tpu_torch.solvers import twolevel as ttwolevel
 
 TOL = 1e-8
@@ -106,7 +108,7 @@ def test_unsupported_solver_options_raise(override):
 def test_unsupported_setups_raise():
     S, _ = tp.neuron_2d_torch()
     with pytest.raises(NotImplementedError):
-        S.enable_pair_layout()
+        S.enable_pair_layout(interleave=False)
     with pytest.raises(NotImplementedError):
         kt.StandardSolver(S.params, S.ion_list, degree_emi=2)
     with pytest.raises(NotImplementedError):
@@ -114,9 +116,24 @@ def test_unsupported_setups_raise():
                               filename="out/", save_fields=True)
 
 
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a device argument the solver runs on the CUDA card, and
+    raises (never falls back to the CPU) when there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = tp.emix_mesh_torch()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        emix.build_solver(mesh)
+    S = emix.build_solver(mesh, device="cpu")
+    assert S.device.type == "cpu"
+    assert S.g["vol"].device.type == S.D.device.type == "cpu"
+    assert all(mm.states.device.type == "cpu" for mm in S.mem_models.values())
+
+
 def test_port_imports_no_jax():
     code = ("import sys; import knpemidg_tpu_torch, knpemidg_tpu_torch.emix, "
-            "knpemidg_tpu_torch._cuda; "
+            "knpemidg_tpu_torch._cuda, knpemidg_tpu_torch.ops.pairs, "
+            "knpemidg_tpu_torch.parallel.sharding, "
+            "knpemidg_tpu_torch.profile_step; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'knpemidg_tpu' or m.startswith('knpemidg_tpu.')]; "
             "assert not bad, bad")
@@ -126,15 +143,24 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-def test_kernel_inputs_are_contiguous_on_main_path(monkeypatch):
+CELL_WRAPPERS = {"bell_matvec", "bell_matvec_multi", "block_jacobi_inverse",
+                 "block_jacobi_apply"}
+PAIR_WRAPPERS = {"pair_matvec", "pair_matvec_multi", "to_pair", "from_pair",
+                 "gather_blocks_pair", "gather_blocks_pair_multi",
+                 "block_jacobi_inverse", "block_jacobi_apply"}
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_kernel_inputs_are_contiguous_on_main_path(monkeypatch, pair):
     """The CUDA wrappers raise on non-contiguous tensors; on the CPU the
-    same wrappers take anything, so check here that the main path hands
-    every kernel wrapper contiguous tensors of the working dtype."""
+    same wrappers take anything, so check here that the main path (cell or
+    pair layout) hands every kernel wrapper contiguous tensors of the
+    working dtype."""
     calls = []
 
     def strict(fn):
         def wrapped(*args, **kw):
-            for a in args:
+            for a in list(args) + list(kw.values()):
                 if isinstance(a, torch.Tensor):
                     assert a.is_contiguous(), fn.__name__
                     assert a.dtype in (torch.float64, torch.int32), fn.__name__
@@ -142,12 +168,12 @@ def test_kernel_inputs_are_contiguous_on_main_path(monkeypatch):
             return fn(*args, **kw)
         return wrapped
 
-    for mod in (tsolver, ttwolevel):
-        for name in ("bell_matvec", "bell_matvec_multi", "block_jacobi_inverse",
-                     "block_jacobi_apply"):
+    for mod in (tsolver, ttwolevel, tassembly):
+        for name in CELL_WRAPPERS | PAIR_WRAPPERS:
             if hasattr(mod, name):
                 monkeypatch.setattr(mod, name, strict(getattr(mod, name)))
     S, sp = tp.neuron_2d_torch()
+    if pair:
+        S.enable_pair_layout()
     S.solve_system_active(2e-4, 0.0, sp)
-    assert {"bell_matvec", "bell_matvec_multi", "block_jacobi_inverse",
-            "block_jacobi_apply"} <= set(calls)
+    assert (PAIR_WRAPPERS if pair else CELL_WRAPPERS) <= set(calls)

@@ -20,7 +20,7 @@ TOL = 1e-12      # f64 round-off of a 20-term sum in another order
 @pytest.fixture(scope="module")
 def nbr():
     geom = build_geometry(emix_mesh_torch(), 2, 2)
-    return geom.to_device()["nbr"]                   # (K, nc) int32
+    return geom.to_device(device="cpu")["nbr"]                   # (K, nc) int32
 
 
 @pytest.mark.parametrize("m", [None, 2])
