@@ -17,14 +17,20 @@ layout).  On the way it:
      that call; computes each kernel's bound from this run's inputs;
   4. checks each layout on a small input against the reference iteration
      counts of the JAX package and the port's own CPU run;
-  5. runs the protocol in float64 on each layout with every launch
-     counter reset first, and fails unless every solve converged, the
-     fields are finite and every kernel of that path was launched;
+  5. runs the protocol in float64 on each layout at emix.solver_params()
+     (the JAX bench's SolverParams: AUTO Ritz deflation, 24 fields on the
+     cell layout, none on the pair layout) with every launch counter reset
+     first, and fails unless every solve converged, the fields are finite,
+     every kernel of that path was launched and (cell layout) the
+     preconditioner carries the Ritz fields; then reports the cell layout's
+     emi_ritz=0 window beside it;
   6. runs the same protocol in float32 on each layout and reports its
-     Krylov counts and whether each solve converged.  At the production
-     tolerances the float32 EMI solve can stall at the iteration cap on
-     this mesh (so can the JAX package's float32 program on the CPU), so
-     this phase reports and does not assert convergence.
+     Krylov counts and whether each solve converged: on the cell layout
+     with the device Ritz harvest (three runs), the host float64 harvest
+     (emi_ritz_host) and emi_ritz=0.  At the production tolerances the
+     float32 EMI solve can stall at the iteration cap on this mesh (so can
+     the JAX package's float32 program on the CPU), so this phase reports
+     and does not assert convergence.
 
 Usage:  python3 chip_smoke.py      (exits non-zero on any failure)
 The last line is {"ok": true, "device": {...}}; the line before it the
@@ -51,23 +57,33 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 # bits, and the 100-evaluation ODE step carries them through the stiff
 # gating dynamics.  The relayout (K4) and the pair emit (K12) are moves,
 # selects and the plain version's additions in its order: exact.
+# The two-level kernels (K6, K7) are held to the same 1e-5 / 1e-12 against
+# their componentwise scales: the sums of |terms| of each restricted,
+# solved (through the refinement) or prolonged value (coarse_abs,
+# solve_scale).
+TWO_LEVEL = [f"two_level_{e}{b}{p}" for b in ("", "_batched") for p in ("", "_pair")
+             for e in ("restrict", "solve", "prolong")]
 TOL = {torch.float32: {"bell_matvec": 1e-5, "block_jacobi_apply": 1e-5,
                        "block_jacobi_inverse": 1e-5, "membrane_rk4": 1e-4,
                        "pair_matvec": 1e-5, "block_jacobi_inverse_nd8": 1e-5,
                        "block_jacobi_apply_nd8": 1e-5, "to_pair": 0.0,
-                       "from_pair": 0.0, "gather_blocks_pair": 0.0},
+                       "from_pair": 0.0, "gather_blocks_pair": 0.0,
+                       **{k: 1e-5 for k in TWO_LEVEL}},
        torch.float64: {"bell_matvec": 1e-12, "block_jacobi_apply": 1e-12,
                        "block_jacobi_inverse": 1e-12, "membrane_rk4": 1e-12,
                        "pair_matvec": 1e-12, "block_jacobi_inverse_nd8": 1e-12,
                        "block_jacobi_apply_nd8": 1e-12, "to_pair": 0.0,
-                       "from_pair": 0.0, "gather_blocks_pair": 0.0}}
+                       "from_pair": 0.0, "gather_blocks_pair": 0.0,
+                       **{k: 1e-12 for k in TWO_LEVEL}}}
 # dtype of the asserted protocol runs: float64 converges in a few Krylov
 # iterations per step; float32 at the same tolerances can stall
 MAIN_DTYPE = torch.float64
-# the small-input references: box_3d_axons(0, 1) x 1e2, EMIx setup, f64,
-# two steps (counts of the JAX package, tests/test_torch_slice.py and
+AGG = 64                  # emix.solver_params().agg_size: cells per coarse chunk
+# the small-input references: box_3d_axons(0, 1) x 1e2, EMIx setup at
+# emix.solver_params() (AUTO: Ritz-24 on cells, none on pairs), f64, two
+# steps (counts of the JAX package, tests/test_torch_ritz.py and
 # tests/test_torch_pair_slice.py)
-REF = {"cell": ([7, 4], [[4, 3], [2, 2]]),
+REF = {"cell": ([5, 3], [[1, 1], [2, 1]]),
        "pair": ([3, 9], [[11, 8], [9, 5]])}
 
 # the card's peaks (NVIDIA H100 SXM data sheet): HBM bandwidth, and the
@@ -78,7 +94,8 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # from csrc/membrane_rk4.cu (each exp, log, sqrt and division as one)
 RK4_RHS_OPS = {"HodgkinHuxleyMV": 85, "GlialKir": 40}
 
-# kernel -> (source, the TPU-side function it replaces, the path it serves)
+# kernel -> (source, the TPU-side function it replaces, the path it serves
+# [, the launch counter when it is not the kernel's name])
 KERNELS = {
     "bell_matvec": ("knpemidg_tpu_torch/csrc/bell_matvec.cu",
                     "knpemidg_tpu/ops/spmv.py:17", "cell"),
@@ -100,18 +117,33 @@ KERNELS = {
                                  "knpemidg_tpu/ops/spmv.py:102", "pair"),
     "block_jacobi_apply_nd8": ("knpemidg_tpu_torch/csrc/block_jacobi.cu",
                                "knpemidg_tpu/ops/spmv.py:131", "pair"),
+    # K6 (the EMI apply) and K7 (the batched KNP apply) at each layout's
+    # shapes; one launch counter per entry point serves both layouts
+    **{f"two_level_{e}{b}{'_pair' if p == 'pair' else ''}": (
+        "knpemidg_tpu_torch/csrc/two_level.cu",
+        "knpemidg_tpu/solvers/twolevel.py:" + ("907" if b else "784"), p,
+        f"two_level_{e}{b}")
+       for b in ("", "_batched") for p in ("cell", "pair")
+       for e in ("restrict", "solve", "prolong")},
 }
-# kernels each path's window must launch (membrane_rk4 serves both)
-PATH_KERNELS = {"cell": [k for k, v in KERNELS.items() if v[2] == "cell"],
-                "pair": [k for k, v in KERNELS.items() if v[2] == "pair"]
-                + ["membrane_rk4"]}
 
 
-def report_window(S, dtype, layout):
+def counter(name):
+    """The launch counter of a KERNELS entry."""
+    return KERNELS[name][3] if len(KERNELS[name]) > 3 else name
+
+
+# counters each path's window must launch (membrane_rk4 serves both)
+PATH_KERNELS = {"cell": sorted({counter(k) for k, v in KERNELS.items() if v[2] == "cell"}),
+                "pair": sorted({counter(k) for k, v in KERNELS.items() if v[2] == "pair"}
+                               | {"membrane_rk4"})}
+
+
+def report_window(S, dtype, layout, variant=""):
     """Print the per-step Krylov counts and walls of a finished
     solve_system_active run; return (median ms/step, median ODE ms)."""
     steps_ms = [1e3 * (a + b) for a, b in zip(S.ode_walls, S.stats.step_walls)]
-    tag = f"{layout}{'64' if dtype == MAIN_DTYPE else '32'}"
+    tag = f"{layout}{'64' if dtype == MAIN_DTYPE else '32'}{variant}"
     med, ode = statistics.median(steps_ms), 1e3 * statistics.median(S.ode_walls)
     print(f"{tag:7s} {dtype} emi iters {S.stats.emi_niters}")
     print(f"{tag:7s} {dtype} knp iters {S.stats.knp_niters}")
@@ -162,12 +194,14 @@ def exact(ref):
 
 
 def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results, inputs=(),
-            flops=0.0, library_fn=None, record=True):
+            flops=0.0, library_fn=None, record=True, timed=None):
     """Check one kernel against its plain version; when ``record``, time
     the kernel, the plain version and the library call per dtype and store
     them with the bound (``inputs`` read once, the outputs written once,
     ``flops`` operations).  kernel_fn/plain_fn return a list of tensors,
-    scale_fn maps the plain outputs to the error scales (see TOL)."""
+    scale_fn maps the plain outputs to the error scales (see TOL).
+    ``timed`` = (kernel, plain) functions to time instead of the checked
+    ones (an in-place kernel is checked on a copy, timed without one)."""
     got, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     errs = [err(a, b, sc) for a, b, sc in zip(got, ref, scale_fn(ref))]
@@ -182,8 +216,9 @@ def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results, inputs=(),
         return
     entry = results.setdefault(name, {}).setdefault(dtype, {})
     entry["max_abs_err"] = abs_e
-    entry["ms"] = cuda_ms(kernel_fn)
-    entry["plain_ms"] = cuda_ms(plain_fn)
+    k_fn, p_fn = timed or (kernel_fn, plain_fn)
+    entry["ms"] = cuda_ms(k_fn)
+    entry["plain_ms"] = cuda_ms(p_fn)
     entry["library_ms"] = cuda_ms(library_fn) if library_fn is not None else None
     byte_ms = 1e3 * (nbytes(inputs) + nbytes(got)) / PEAK_BYTES_S
     op_ms = 1e3 * flops / PEAK_FLOPS[dtype]
@@ -221,6 +256,102 @@ def lib_apply(Pinv, r):
                         torch.movedim(r, -1, -2)[..., None])
 
 
+def coarse_abs(co):
+    """Coarse operands with every tensor replaced by its absolute value."""
+    def a(v):
+        if isinstance(v, torch.Tensor):
+            return v.abs()
+        return tuple(a(x) for x in v) if isinstance(v, tuple) else v
+    return co._replace(**{k: a(v) for k, v in co._asdict().items()})
+
+
+def solve_scale(co, rc, proj):
+    """Componentwise scale of the solve: every product and sum of the dense
+    solve (through its refinement) and of the small solves in absolute
+    values."""
+    from knpemidg_tpu_torch.ops.coarse import _mv
+
+    a = coarse_abs(co)
+    x = (co.s * rc).abs()
+    z = _mv(a.inv, x)
+    if co.As is not None:
+        z = z + _mv(a.inv, x + _mv(a.As, z))
+    out = [a.s * z]
+    n_comp, nw, nr = co.sizes
+    if co.comp is not None:
+        invc, sc, Asc = a.comp
+        xc = sc * proj[:, :n_comp].abs()
+        y = xc @ invc.T
+        out.append(sc * (y + (xc + y @ Asc.T) @ invc.T))
+    for grp, lo, hi in ((a.mom, n_comp, n_comp + nw), (a.ritz, n_comp + nw, n_comp + nw + nr)):
+        if grp is not None:
+            out.append(grp[1] * ((grp[1] * proj[:, lo:hi].abs()) @ grp[0].T))
+    return [out[0], torch.cat(out[1:], dim=1)] if len(out) > 1 else [out[0]]
+
+
+def nonempty(ts):
+    return [t for t in ts if t.numel()]
+
+
+def dense_gemvs(co, x):
+    """The dense solve's GEMVs as cuBLAS calls (torch.mv, or one batched
+    torch.matmul for m systems): the yardstick of the solve entry."""
+    mats = [co.inv, co.As, co.inv] if co.As is not None else [co.inv]
+    if co.inv.shape[0] == 1:
+        return [torch.mv(A[0], x[0]) for A in mats]
+    return [torch.matmul(A, x[..., None]) for A in mats]
+
+
+def coarse_phase(layout, co, r, results):
+    """K6 (co.batched False) or K7 at one layout's shapes: restrict, solve
+    and prolong_add against their plain versions on the same inputs, timed
+    with their bounds."""
+    from knpemidg_tpu_torch.ops import coarse
+
+    dtype = r.dtype
+    sfx = ("_batched" if co.batched else "") + ("_pair" if layout == "pair" else "")
+    name = lambda e: f"two_level_{e}{sfx}"
+    a = coarse_abs(co)
+    fields = [t for t in (co.OH, co.W, co.Wr) if t is not None]
+    m, nd, nc = r.shape
+    n_comp, nw, nr = co.sizes
+    field_flops = 2.0 * m * ((nw + nr) * nd * nc + n_comp * nc)
+    compare(name("restrict"), dtype, lambda: nonempty(coarse.restrict(co, r)),
+            lambda: nonempty(coarse.restrict_plain(co, r)),
+            lambda ref: nonempty(coarse.restrict_plain(a, r.abs())), results,
+            inputs=[r] + fields, flops=field_flops + r.numel())
+    rc, proj = coarse.restrict_plain(co, r)
+    mats = [co.inv, co.s] + ([co.As] if co.As is not None else []) + [
+        t for grp in (co.comp, co.mom, co.ritz) if grp is not None for t in grp]
+    n = rc.shape[1]
+    x = co.s * rc
+    compare(name("solve"), dtype, lambda: nonempty(coarse.solve(co, rc, proj)),
+            lambda: nonempty(coarse.solve_plain(co, rc, proj)),
+            lambda ref: solve_scale(co, rc, proj), results,
+            inputs=[rc, proj] + mats,
+            flops=2.0 * m * n * n * (3 if co.As is not None else 1),
+            library_fn=lambda: dense_gemvs(co, x))
+    zc, coef = coarse.solve_plain(co, rc, proj)
+    out0 = r.clone()                   # stands in for the block-Jacobi output
+    bufs = [out0.clone(), out0.clone()]
+    compare(name("prolong"), dtype,
+            lambda: [coarse.prolong_add(co, out0.clone(), zc, coef)],
+            lambda: [coarse.prolong_add_plain(co, out0.clone(), zc, coef)],
+            lambda ref: [coarse.prolong_add_plain(a, out0.abs(), zc.abs(), coef.abs())],
+            results, inputs=[out0, zc, coef] + fields, flops=field_flops + 2.0 * r.numel(),
+            timed=(lambda: coarse.prolong_add(co, bufs[0], zc, coef),
+                   lambda: coarse.prolong_add_plain(co, bufs[1], zc, coef)))
+
+
+def coarse_inputs(pc, agg, dtype):
+    """K6 and K7 operands of a built pc, cast to ``dtype``."""
+    from knpemidg_tpu_torch.ops import coarse
+
+    cast = lambda d: {k: v.to(dtype) for k, v in d.items()}
+    return (coarse.operands(cast(pc["emi"]), agg, batched=False),
+            coarse.operands(cast(pc["knp"]), agg, batched=True))
+
+
 def kernel_phase(S, state, results):
     """The cell path's kernels at its shapes."""
     from knpemidg_tpu_torch.membrane import engine
@@ -232,9 +363,12 @@ def kernel_phase(S, state, results):
     blocksK, rhsK = S._knp_assemble_all(state["c"], state["c_elim"], state["phi"],
                                         pM, Ich, Itot, state["t"], state["c"])
     mem = S._ode_inputs(state, first_step=True)
+    pe = state["pc"]["emi"]
     print(f"shapes  EMI blocks {tuple(blocks.shape)}  KNP blocks "
           f"{tuple(blocksK.shape)}  membrane points "
-          f"{ {tag: mm.states.shape[1] for tag, mm in mem.items()} }")
+          f"{ {tag: mm.states.shape[1] for tag, mm in mem.items()} }  coarse "
+          f"{tuple(pe['inv'].shape)}  moment {tuple(pe['mom_W'].shape)}  Ritz "
+          f"{tuple(pe['ritz_W'].shape) if 'ritz_W' in pe else None}")
 
     def ode_all(step, mms, t):
         outs = [step(mm, t, S.params.dt, S.params.n_steps_ODE) for mm in mms.values()]
@@ -298,6 +432,13 @@ def kernel_phase(S, state, results):
                 inputs=[v for mm in mms.values() for v in (mm.states, mm.params)],
                 flops=sum(rhs_evals * RK4_RHS_OPS[type(mm.model).__name__]
                           * mm.states.shape[1] for mm in mms.values()))
+        # K6 with the compartment, moment and Ritz data of the pc build, K7
+        # with the two ions' coarse data; the step's EMI and KNP rhs
+        co6, co7 = coarse_inputs(state["pc"], AGG, dtype)
+        if co6.Wr is None:
+            raise AssertionError("the cell pc carries no Ritz fields")
+        coarse_phase("cell", co6, x[None], results)
+        coarse_phase("cell", co7, xK.contiguous(), results)
 
 
 def pair_kernel_phase(S, state, results):
@@ -407,6 +548,11 @@ def pair_kernel_phase(S, state, results):
                     flops=bj_apply_flops(inv) + bj_apply_flops(invK),
                     library_fn=lambda: [lib_apply(inv, r), lib_apply(invK, rK)],
                     record=record)
+        # K6 with the compartment and moment data (AUTO: no Ritz on pairs),
+        # K7 with the two ions' coarse data, on the pair rhs
+        co6, co7 = coarse_inputs(state["pc"], AGG // 2, dtype)
+        coarse_phase("pair", co6, r[None], results)
+        coarse_phase("pair", co7, rK, results)
 
 
 def small_reference_phase(layout):
@@ -441,7 +587,8 @@ def small_reference_phase(layout):
 def window(S, sp, layout):
     """The protocol through the user entry point with the launch counters
     reset; asserts convergence (solve_system_active raises otherwise),
-    finite fields, the step count and every kernel of the path launched.
+    finite fields, the step count, every kernel of the path launched and
+    the AUTO Ritz rule (24 fields in the cell pc, none in the pair pc).
     Returns (launches, median ms/step, median ODE ms)."""
     from knpemidg_tpu_torch import _cuda
 
@@ -461,20 +608,50 @@ def window(S, sp, layout):
     missing = [k for k in PATH_KERNELS[layout] if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {layout} path: {missing}")
+    n_ritz = ritz_fields(state)
+    print(f"{layout:7s} Ritz fields in the pc: {n_ritz}")
+    if n_ritz != (24 if layout == "cell" else 0):
+        raise AssertionError(f"the {layout} window ran with {n_ritz} Ritz fields")
     return launches, med, ode
 
 
+def ritz_fields(state):
+    pe = state["pc"]["emi"]
+    return int(pe["ritz_W"].shape[0]) if "ritz_W" in pe else 0
+
+
+def report_run(S, sp, dtype, layout, variant):
+    """One more protocol run on solver S, reported only: Krylov counts,
+    ms/step, the Ritz fields and the set-up time before the first step
+    (the pc build with any harvest)."""
+    S.stats.__init__()
+    t0 = time.perf_counter()
+    state = S.solve_system_active(1.0, 0.0, sp)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    report_window(S, dtype, layout, variant)
+    setup_s = total - sum(S.ode_walls) - sum(S.stats.step_walls)
+    finite = all(bool(torch.isfinite(state[k]).all()) for k in ("c", "phi", "phi_M"))
+    label = f"{layout}{'64' if dtype == MAIN_DTYPE else '32'}{variant}"
+    print(f"{label:7s} {dtype} Ritz fields {ritz_fields(state)}, set-up before the first "
+          f"step {setup_s:.3f} s, window total {1e3 * total:.1f} ms, fields finite: {finite}")
+
+
 def f32_window(mesh, layout):
-    """The protocol in float32: reported, convergence not asserted."""
+    """The protocol in float32, reported, convergence not asserted: at the
+    AUTO default, and on the cell layout three runs with the device Ritz
+    harvest (its float32 Lanczos is sensitive to rounding), one with the
+    host float64 harvest and one with emi_ritz=0."""
     from knpemidg_tpu_torch import emix
 
     S = emix.build_solver(mesh, dtype=torch.float32, device="cuda",
                           pair=layout == "pair")
-    state = S.solve_system_active(1.0, 0.0, emix.solver_params(error_if_not_converged=False))
-    torch.cuda.synchronize()
-    report_window(S, torch.float32, layout)
-    finite = all(bool(torch.isfinite(state[k]).all()) for k in ("c", "phi", "phi_M"))
-    print(f"{layout}32  fields finite: {finite}")
+    runs = [("", {})] if layout == "pair" else [
+        ("-r24", {}), ("-r24", {}), ("-r24", {}), ("-host", {"emi_ritz_host": True}),
+        ("-r0", {"emi_ritz": 0})]
+    for variant, over in runs:
+        report_run(S, emix.solver_params(error_if_not_converged=False, **over),
+                   torch.float32, layout, variant)
 
 
 def main():
@@ -513,6 +690,8 @@ def main():
         small_reference_phase(layout)
         launches[layout], med, ode = window(S, sp, layout)
         walls[layout] = (med, ode)
+        if layout == "cell":
+            report_run(S, emix.solver_params(emi_ritz=0), MAIN_DTYPE, "cell", "-r0")
         del S, state0
         f32_window(mesh, layout)
         torch.cuda.empty_cache()
@@ -520,10 +699,10 @@ def main():
           f"{walls['pair'][0]:.2f}; ODE {walls['cell'][1]:.2f} / {walls['pair'][1]:.2f}")
 
     kernels = []
-    for name, (src, repl, path) in KERNELS.items():
+    for name, (src, repl, path, *_) in KERNELS.items():
         r = results[name][MAIN_DTYPE]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": launches[path][name],
+                        "replaces": repl, "launches": launches[path][counter(name)],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

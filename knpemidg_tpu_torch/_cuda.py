@@ -24,7 +24,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = ("bell_matvec.cu", "block_jacobi.cu", "membrane_rk4.cu",
-           "pair_matvec.cu", "pair_relayout.cu", "pair_emit.cu")
+           "pair_matvec.cu", "pair_relayout.cu", "pair_emit.cu", "two_level.cu")
 BUILD_DIR = os.path.join(_HERE, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libknpemidg_kernels.so")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -32,12 +32,15 @@ COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # kernel name -> launches counted by its wrapper; the block-Jacobi kernels
 # count their cell-layout (nd = 4) and pair-layout (nd = 8) instantiations
-# apart
+# apart, and the two-level kernels their single EMI (K6) and batched KNP
+# (K7, "_batched") calls
 LAUNCHES = {"bell_matvec": 0, "block_jacobi_inverse": 0,
             "block_jacobi_apply": 0, "membrane_rk4": 0,
             "pair_matvec": 0, "to_pair": 0, "from_pair": 0,
             "gather_blocks_pair": 0, "block_jacobi_inverse_nd8": 0,
-            "block_jacobi_apply_nd8": 0}
+            "block_jacobi_apply_nd8": 0,
+            **{f"two_level_{e}{b}": 0 for b in ("", "_batched")
+               for e in ("restrict", "solve", "prolong")}}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,6 +55,9 @@ _SIGNATURES = {
     "knp_to_pair": (_P, _P, _P, _I, _I, _I, _P),
     "knp_from_pair": (_P, _P, _I, _I, _I, _P),
     "knp_gather_blocks_pair": (_P,) * 14 + (_I,) * 6 + (_D, _P),
+    "knp_tl_restrict": (_P,) * 7 + (_I,) * 9 + (_P,),
+    "knp_tl_solve": (_P,) * 16 + (_I,) * 5 + (_P,),
+    "knp_tl_prolong": (_P,) * 6 + (_I,) * 8 + (_P,),
 }
 
 _lock = threading.Lock()

@@ -64,14 +64,14 @@ def build_solver(mesh, dtype=None, device="cuda", dt=0.1, pair=False):
 
 
 def solver_params(**overrides):
-    """The benchmark's production tolerances (bench.py of the JAX package)
-    with Ritz deflation off, the port's supported configuration."""
+    """The benchmark's SolverParams (bench.py of the JAX package): the
+    production tolerances, every other option at its default (emi_ritz
+    AUTO: 24 Ritz fields on the cell layout, none on the pair layout)."""
     kw = dict(
         direct_emi=False, direct_knp=False,
         rtol_emi=1e-5, atol_emi=1e-40,
         rtol_knp=1e-7, atol_knp=2e-40,
         max_it_emi=1000, max_it_knp=1000, gmres_restart=30, agg_size=64,
-        emi_ritz=0,
     )
     kw.update(overrides)
     return SolverParams(**kw)

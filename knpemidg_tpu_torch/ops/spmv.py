@@ -126,8 +126,10 @@ def block_jacobi_inverse_plain(diag_blocks):
 
 
 def block_jacobi_apply_plain(Pinv, r):
-    """Per-cell GEMV: (..., nd, nd, nc) x (..., nd, nc) -> (..., nd, nc)."""
-    return torch.einsum("...ijc,...jc->...ic", Pinv, r)
+    """Per-cell GEMV: (..., nd, nd, nc) x (..., nd, nc) -> (..., nd, nc),
+    contiguous like the kernel's output (the two-level apply adds into it
+    in place)."""
+    return torch.einsum("...ijc,...jc->...ic", Pinv, r).contiguous()
 
 
 def _batch(t, core_dims):

@@ -1,8 +1,10 @@
 """Phase profile of the port's splitting step on one CUDA card.
 
 Sets up the EMIx solver on box_3d_axons(1, length_factor=2) scaled to cm
-(124,416 tets, the cell of ``chip_smoke.py``) on the cell layout, or with
-``--pair`` on the interleaved pair layout, runs WARMUP steps, then profiles
+(124,416 tets, the cell of ``chip_smoke.py``) at emix.solver_params() (AUTO
+Ritz: 24 fields on the cell layout) on the cell layout, or with ``--pair``
+on the interleaved pair layout; times the preconditioner build (with the
+Ritz harvest), runs WARMUP steps, then profiles
 STEPS steady steps (``run_block``) twice:
 
 1. phases: a device synchronise and the host clock around each of the six
@@ -39,7 +41,9 @@ TOP = 12                 # operators listed by device time
 # the __global__ functions of csrc/, as the profiler names their launches
 HAND_KERNELS = ("bell_matvec_kernel", "bj_inverse_kernel", "bj_apply_kernel",
                 "membrane_rk4_kernel", "pair_matvec_kernel", "to_pair_kernel",
-                "from_pair_kernel", "gather_blocks_pair_kernel")
+                "from_pair_kernel", "gather_blocks_pair_kernel",
+                "tl_restrict_kernel", "tl_reduce_kernel", "tl_gemv_kernel",
+                "tl_small_kernel", "tl_prolong_kernel")
 PHASES = ("_ode_step", "_assemble_emi", "_emi_solve_iterative",
           "_knp_assemble_all", "_knp_solve_all", "_finalize_step")
 
@@ -98,7 +102,11 @@ def profile(dtype=torch.float64, pair=False):
     mesh.vertices *= 1e2
     S = emix.build_solver(mesh, dtype=dtype, device="cuda", pair=pair)
     sp = emix.solver_params(error_if_not_converged=False)
-    state = S.attach_pc(S._initial_state(0.0), sp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = S.attach_pc(S._initial_state(0.0), sp)      # with the Ritz harvest
+    torch.cuda.synchronize()
+    pc_ms = 1e3 * (time.perf_counter() - t0)
     state = S._ode_step(state, first_step=True)       # the first-step V seed
     state, _ = S._pde_step(state, sp)
     state, _ = S.run_block(state, sp, WARMUP - 1)
@@ -125,7 +133,9 @@ def profile(dtype=torch.float64, pair=False):
             for e in ops if any(k in e.key for k in HAND_KERNELS)]
     return {
         "cells": S.n_cells, "layout": "pair" if pair else "cell",
-        "dtype": str(dtype), "warmup": WARMUP, "steps": STEPS,
+        "dtype": str(dtype), "warmup": WARMUP, "steps": STEPS, "pc_build_ms": pc_ms,
+        "ritz_fields": int(state["pc"]["emi"]["ritz_W"].shape[0])
+        if "ritz_W" in state["pc"]["emi"] else 0,
         "phases": {"emi_iters": st_phase["emi_iters"],
                    "knp_iters": st_phase["knp_iters"],
                    "ms": {name.strip("_"): walls[name] for name in PHASES}},
@@ -154,6 +164,7 @@ def main():
     out = profile(getattr(torch, args.dtype), pair=args.pair)
     print(f"{out['cells']} cells, {out['layout']} layout, {out['dtype']}, steps {WARMUP + 1}-"
           f"{WARMUP + STEPS} phased, the next {STEPS} traced")
+    print(f"pc build {out['pc_build_ms']:.1f} ms with {out['ritz_fields']} Ritz fields")
     ph = out["phases"]
     print(f"phases  EMI iters {ph['emi_iters']}  KNP iters {ph['knp_iters']}")
     for name, ms in ph["ms"].items():

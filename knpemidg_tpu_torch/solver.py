@@ -27,15 +27,18 @@ from .mesh.core import Mesh
 from .fem.tabulation import build_geometry, build_membrane_tables
 from .ops import assembly
 from .ops.pairs import (build_pair_maps, cell_bell_to_pair, from_pair,
-                        interleave_pair_maps, pair_maps_to_device,
-                        pair_matvec, pair_matvec_fan, pair_matvec_multi,
-                        pair_nbr, pair_v_sums, to_pair)
+                        from_pair_host, interleave_pair_maps,
+                        pair_maps_to_device, pair_matvec, pair_matvec_fan,
+                        pair_matvec_multi, pair_nbr, pair_v_sums, to_pair,
+                        to_pair_host)
 from .ops.spmv import (bell_matvec, bell_matvec_fan, bell_matvec_multi,
                        block_jacobi_apply, block_jacobi_inverse)
 from .solvers.krylov import gmres_batched, pcg
-from .solvers.twolevel import (build_moment_deflation, build_two_level,
+from .solvers.twolevel import (_np, build_moment_deflation, build_two_level,
                                compartment_ids, make_two_level, moment_vectors,
-                               two_level_apply_batched, two_level_apply_fn)
+                               ritz_galerkin_host, ritz_lanczos_W,
+                               ritz_lanczos_W_host, two_level_apply_batched,
+                               two_level_apply_fn)
 from .membrane.engine import MembraneState, make_membrane, ode_step, set_param, get_param
 from .utils.stats import SolverStats, bcolors
 
@@ -45,11 +48,9 @@ def _check_supported(sp: SolverParams):
     unsupported = []
     if sp.direct_emi or sp.direct_knp:
         unsupported.append("direct solves")
-    if sp.emi_ritz != 0:
-        unsupported.append("emi_ritz != 0 (Ritz deflation; pass emi_ritz=0)")
     if sp.emi_moment_order > 2:
         unsupported.append("emi_moment_order > 2")
-    for name in ("emi_moment_host", "emi_moment_blocked", "emi_ritz_host",
+    for name in ("emi_moment_host", "emi_moment_blocked",
                  "emi_moment_axial", "emi_moment_order_ics", "knp_ritz"):
         if getattr(sp, name):
             unsupported.append(name)
@@ -811,10 +812,87 @@ class Solver:
         return build_moment_deflation(
             W, fan=lambda X: bell_matvec_fan(blocks, self.g["nbr"], X))
 
-    def _build_pc(self, state, sp_: SolverParams):
+    def _pair_W_to_cell(self, W_pair):
+        """pair -> cell conversion of harvested deflation fields, on the host
+        (the consumer, ritz_galerkin_host, works in host float64)."""
+        return from_pair_host(self.pairs_host, _np(W_pair))
+
+    def _ritz_W_to_pair(self, W_cell):
+        """cell -> pair conversion of host-built deflation fields."""
+        return self._tensor(to_pair_host(self.pairs_host, _np(W_cell)))
+
+    def _assemble_emi_cell(self, state):
+        """The EMI cell-layout blocks, rhs and P_diag at ``state`` (on the
+        pair layout: over the padded cell axis, for the Ritz Galerkin)."""
+        phi_M_pad, _, I_ch_tot_pad = self._pads(state)
+        return self._assemble_emi(state["c"], state["c_elim"], phi_M_pad,
+                                  I_ch_tot_pad, state["t"])
+
+    def _emi_ritz_data(self, state, blocks, rhs, Pd, data, sp_: SolverParams,
+                       n_ritz: int):
+        """Ritz deflation entries ('ritz_W', 'ritz_inv', 'ritz_s') harvested
+        from the EMI operator at ``state`` with the preconditioner ``data``:
+        a k-step preconditioned Lanczos (on the device, or in host float64
+        with ``emi_ritz_host``), then the host float64 Galerkin on the cell
+        blocks.  On the pair layout the device harvest runs with the
+        production pair preconditioner (the pair_bj scope and the live
+        mask) and the fields convert through the cell layout."""
+        nbr = self.g["nbr"]
+        # k = 40 up to the AUTO budget; larger budgets need k >= 2 n_ritz
+        k = 40 if n_ritz <= 24 else 2 * n_ritz
+        pair = self.pair_layout
+        if sp_.emi_ritz_host:
+            # the host harvest runs on CELL blocks in both layouts
+            if pair:
+                blocks_c, rhs_c, Pd_c = self._assemble_emi_cell(state)
+                oh, ids = self._comp_arrays()
+                data_c = build_two_level(
+                    blocks_c, nbr, sp_.agg_size, sym=True, comp_onehot=oh,
+                    comp_ids=ids, extra_diag=Pd_c - blocks_c[0],
+                    ridge=sp_.coarse_ridge)
+                if sp_.emi_moment_order > 0:
+                    data_c.update(self._emi_moment_data(blocks_c, sp_))
+            else:
+                blocks_c, rhs_c, Pd_c, data_c = blocks, rhs, Pd, data
+            W_h = ritz_lanczos_W_host(blocks_c, nbr, data_c, Pd_c, rhs_c,
+                                      sp_.agg_size, k=k, n_ritz=n_ritz)
+            ritz = ritz_galerkin_host(blocks_c, nbr, W_h, project_mean=True)
+        elif pair:
+            pd_, pe_ = blocks
+            Pd_b = Pd * self._pair_bj_halves if sp_.pair_bj == "halves" else Pd
+            fn = two_level_apply_fn(data, Pd_b, sp_.agg_size // 2)
+            lm = self._pair_mask.to(Pd.dtype)
+            W_pair = ritz_lanczos_W(
+                None, None, lambda v: fn(v) * lm, to_pair(self.pairs, rhs),
+                k=k, n_ritz=n_ritz,
+                matvec=lambda v: pair_matvec(pd_, pe_, self.pairs, v.contiguous()),
+                mask=self._pair_mask)
+            blocks_c = self._assemble_emi_cell(state)[0]
+            ritz = ritz_galerkin_host(blocks_c, nbr, self._pair_W_to_cell(W_pair),
+                                      project_mean=True)
+        else:
+            W = ritz_lanczos_W(blocks, nbr,
+                               two_level_apply_fn(data, Pd, sp_.agg_size), rhs,
+                               k=k, n_ritz=n_ritz)
+            ritz = ritz_galerkin_host(blocks, nbr, W, project_mean=True)
+        if pair:
+            ritz["ritz_W"] = self._ritz_W_to_pair(ritz["ritz_W"])
+        # a Galerkin of host (numpy) fields comes back in float32 on the
+        # CPU (in float32 as in the JAX package); the solver applies it in
+        # its own dtype on its device
+        return {key: v.to(device=self.device, dtype=self.dtype)
+                for key, v in ritz.items()}
+
+    def _build_pc(self, state, sp_: SolverParams, reuse_ritz=None):
         """Frozen two-level coarse data for the EMI and the per-ion KNP
         operators at the given state: {'emi': data, 'knp': stacked data},
-        or None when neither uses the two-level preconditioner."""
+        or None when neither uses the two-level preconditioner.
+
+        The EMI data takes the Ritz deflation entries ``reuse_ritz`` when
+        given (a refresh), else harvests ``emi_ritz`` fields; -1 (AUTO) is
+        24 on the cell layout and 0 on the pair layout."""
+        n_ritz = (sp_.emi_ritz if sp_.emi_ritz >= 0
+                  else (0 if self.pair_layout else 24))
         pc = {}
         phi_M_pad, I_ch_pad, I_ch_tot_pad = self._pads(state)
         if sp_.precond == "two_level":
@@ -838,6 +916,18 @@ class Solver:
                     extra_diag=Pd - blocks[0], ridge=sp_.coarse_ridge)
             if sp_.emi_moment_order > 0:
                 pc["emi"].update(self._emi_moment_data(blocks, sp_))
+            if reuse_ritz:
+                pc["emi"].update(reuse_ritz)
+            elif n_ritz > 0:
+                ritz = self._emi_ritz_data(state, blocks, rhs, Pd, pc["emi"], sp_,
+                                           n_ritz)
+                # the harvest is numerically fragile; a NaN would zero every
+                # later solve's tolerance test, so drop it unless finite
+                if all(bool(torch.isfinite(v).all()) for v in ritz.values()):
+                    pc["emi"].update(ritz)
+                else:
+                    print(f"{bcolors.WARNING} emi_ritz harvest non-finite; "
+                          f"disabled for this pc build {bcolors.ENDC}")
         if (sp_.precond_knp or sp_.precond) == "two_level":
             blocksK, _ = self._knp_assemble_all(
                 state["c"], state["c_elim"], state["phi"], phi_M_pad, I_ch_pad,
@@ -846,14 +936,20 @@ class Solver:
         return pc or None
 
     def _refresh_pc(self, state, sp_: SolverParams):
-        """Rebuild the frozen preconditioner data at the current state."""
+        """Rebuild the frozen preconditioner data at the current state.  The
+        EMI Ritz harvest is not re-run (harvesting again mid-window is
+        measured harmful in the JAX package): its entries ride through."""
+        old = state.get("pc") or {}
+        keep = {k: v for k, v in (old.get("emi") or {}).items()
+                if k.startswith("ritz_")}
         state = {k: v for k, v in state.items() if k != "pc"}
-        return self.attach_pc(state, sp_)
+        return self.attach_pc(state, sp_, reuse_ritz=keep or None)
 
-    def attach_pc(self, state, sp_: SolverParams):
+    def attach_pc(self, state, sp_: SolverParams, reuse_ritz=None):
         """Attach frozen preconditioner data to a state (no-op if already
-        present).  Also caches the ion-stacked KNP static operator eagerly,
-        so the static assembly never reruns inside a step."""
+        present); ``reuse_ritz`` hands earlier Ritz entries to the build.
+        Also caches the ion-stacked KNP static operator eagerly, so the
+        static assembly never reruns inside a step."""
         _check_supported(sp_)
         for k in range(self.N_ions):
             self._knp_static(k)
@@ -865,7 +961,7 @@ class Solver:
             cache[-2] = cell_bell_to_pair(self.pairs, cache[-1])
         if "pc" in state:
             return state
-        pc = self._build_pc(state, sp_)
+        pc = self._build_pc(state, sp_, reuse_ritz=reuse_ritz)
         if pc is None:
             return state
         return dict(state, pc=pc)

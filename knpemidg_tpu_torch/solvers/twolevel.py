@@ -5,9 +5,13 @@ Additive SPD pieces: a block-Jacobi smoother (kernel B on the card), a
 coarse solve over contiguous fixed-size cell chunks (cells are numbered
 (compartment, Morton), so chunks never straddle membranes and
 restrict/prolong are reshape-sum/broadcast), exact deflation of the
-per-compartment constant modes, and order-2 moment deflation.  The coarse
-data is built once per preconditioner build (an equilibrated dense
-Cholesky inverse); the per-iteration apply is dense GEMVs only.
+per-compartment constant modes, order-2 moment deflation and the Ritz
+deflation of harvested small-eigenvalue modes.  The coarse data is built
+once per preconditioner build (an equilibrated dense Cholesky inverse);
+the per-iteration coarse and deflation apply is kernels K6/K7 on the card
+(ops/coarse.py).  The Ritz harvest runs once per build: a device Lanczos
+(ritz_lanczos_W) or a host float64 one (ritz_lanczos_W_host), then a host
+float64 Galerkin (ritz_galerkin_host).
 """
 from __future__ import annotations
 
@@ -16,7 +20,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..ops.spmv import block_jacobi_apply, block_jacobi_inverse
+from ..ops import coarse
+from ..ops.spmv import bell_matvec, block_jacobi_apply, block_jacobi_inverse
 
 
 def compartment_ids(mesh) -> np.ndarray:
@@ -178,73 +183,24 @@ def build_two_level(blocks, nbr, agg_size: int, sym: bool = True,
     return data
 
 
-def _chunk_restrict(rs, n_agg, agg_size):
-    """(..., nc) -> (..., n_agg): zero-pad to whole chunks and sum each."""
-    pad = n_agg * agg_size - rs.shape[-1]
-    rp = torch.nn.functional.pad(rs, (0, pad))
-    return rp.reshape(rs.shape[:-1] + (n_agg, agg_size)).sum(dim=-1)
-
-
-def _chunk_prolong(zc, agg_size, nc):
-    """(..., n_agg) -> (..., nc): broadcast each chunk value to its cells."""
-    out = zc[..., :, None].expand(zc.shape + (agg_size,))
-    return out.reshape(zc.shape[:-1] + (-1,))[..., :nc]
-
-
 def two_level_apply_fn(data, P_diag, agg_size: int) -> Callable:
     """Per-solve additive preconditioner apply from frozen coarse ``data``
     (see build_two_level) and the current block-Jacobi diagonal: BJ +
     chunk coarse (with one refinement sweep when ``As`` is present) +
-    compartment deflation + moment deflation."""
-    for key in ("d1inv", "momb_W", "ritz_W"):
+    compartment deflation + moment deflation + Ritz deflation (each when
+    its entries are in ``data``).  The BJ apply is kernel B; the rest is
+    K6's restrict, solve and prolong-add, added in place into it."""
+    for key in ("d1inv", "momb_W"):
         if key in data:
             raise NotImplementedError(f"two-level data {key!r} is not ported")
     Pinv = block_jacobi_inverse(P_diag.contiguous())
-    nd = P_diag.shape[0]
-    nc = P_diag.shape[2]
-    inv, s = data["inv"], data["s"]
-    refine = "As" in data
-    As = data.get("As")
-    n_agg = inv.shape[0]
-
-    def dense_solve(rc):
-        rs = s * rc
-        z = inv @ rs
-        if refine:
-            z = z + inv @ (rs - As @ z)
-        return s * z
-
-    comp = "comp_inv" in data
-    if comp:
-        invc, sc, OH = data["comp_inv"], data["comp_s"], data["comp_onehot"]
-        Asc = data["comp_As"]
-
-        def comp_solve(rcomp):
-            # one refinement sweep: the compartment system is the
-            # f32-fragile piece (tiny membrane-scale eigenvalues)
-            rsc = sc * rcomp
-            zc = invc @ rsc
-            zc = zc + invc @ (rsc - Asc @ zc)
-            return sc * zc
-
-    mom = "mom_W" in data
-    if mom:
-        Wm, inv_m, s_m = data["mom_W"], data["mom_inv"], data["mom_s"]
-
-    def coarse(r):
-        rs = r.sum(dim=0)                                # (nc,)
-        zc = dense_solve(_chunk_restrict(rs, n_agg, agg_size))
-        z = _chunk_prolong(zc, agg_size, nc)
-        if comp:
-            z = z + comp_solve(OH @ rs) @ OH
-        out = z[None, :].expand(nd, nc)
-        if mom:
-            rw = s_m * torch.einsum("wic,ic->w", Wm, r)
-            out = out + torch.einsum("w,wic->ic", s_m * (inv_m @ rw), Wm)
-        return out
+    co = coarse.operands(data, agg_size, batched=False)
 
     def apply(r):                      # additive: BJ + coarse (+ deflation)
-        return block_jacobi_apply(Pinv, r.contiguous()) + coarse(r)
+        r = r.contiguous()
+        out = block_jacobi_apply(Pinv, r)
+        coarse.coarse_add(co, out[None], r[None])
+        return out
 
     return apply
 
@@ -253,27 +209,16 @@ def two_level_apply_batched(data, P_diag, agg_size: int) -> Callable:
     """Batched additive two-level apply: ``data`` leaves and ``P_diag``
     carry a leading system axis m; the returned apply maps (m, nd, nc) ->
     (m, nd, nc).  The block-Jacobi inverses are computed once here, not per
-    apply."""
+    apply; the chunk coarse is K7 (the K6 kernels over m systems)."""
     for key in ("d1inv", "ritz_W"):
         if key in data:
             raise NotImplementedError(f"two-level data {key!r} is not ported")
     Pinv = block_jacobi_inverse(P_diag.contiguous())
-    inv, s = data["inv"], data["s"]                  # (m, n, n), (m, n)
-    refine = "As" in data
-    n_agg = inv.shape[-1]
-    m, nd, _, nc = P_diag.shape
-
-    def coarse_only(r):
-        rc = s * _chunk_restrict(r.sum(dim=1), n_agg, agg_size)   # (m, n_agg)
-        z = torch.einsum("mij,mj->mi", inv, rc)
-        if refine:
-            z = z + torch.einsum("mij,mj->mi", inv,
-                                 rc - torch.einsum("mij,mj->mi", data["As"], z))
-        zf = _chunk_prolong(s * z, agg_size, nc)                  # (m, nc)
-        return zf[:, None, :].expand(m, nd, nc)
+    co = coarse.operands(data, agg_size, batched=True)
 
     def apply(r):
-        return block_jacobi_apply(Pinv, r.contiguous()) + coarse_only(r)
+        r = r.contiguous()
+        return coarse.coarse_add(co, block_jacobi_apply(Pinv, r), r)
 
     return apply
 
@@ -287,3 +232,242 @@ def make_two_level(blocks, P_diag, nbr, agg_size: int, sym: bool = True,
                            extra_diag=extra_diag, mass_diag=mass_diag,
                            ridge=ridge)
     return two_level_apply_fn(data, P_diag, agg_size)
+
+
+# ---------------------------------------------------------------------------
+# Ritz deflation: harvest of small-eigenvalue modes of the preconditioned
+# EMI operator, once per pc build (off the per-iteration path)
+# ---------------------------------------------------------------------------
+
+def ritz_lanczos_W(blocks, nbr, precond, b, k: int = 40, n_ritz: int = 8,
+                   project_mean: bool = True, matvec=None, mask=None):
+    """Device half of the Ritz harvest: k steps of preconditioned Lanczos
+    with full reorthogonalization from rhs ``b`` (nd, nc), returning the
+    ``n_ritz`` smallest normalized Ritz fields W (n_ritz, nd, nc) on b's
+    device.  Pair with :func:`ritz_galerkin_host`.
+
+    ``project_mean`` removes the global constant from the iterates (the EMI
+    nullspace convention of the production PCG); ``matvec`` overrides the
+    block-ELL apply (the pair layout); ``mask`` (b-shaped, 0/1) marks the
+    live entries: the projection averages over and re-masks to them, so
+    the pair layout's dead halves stay exactly zero.  The tridiagonal
+    eigenproblem is solved in float64 on the host."""
+    mv = matvec if matvec is not None else (
+        lambda v: bell_matvec(blocks, nbr, v.contiguous()))
+
+    def dot(a, c):
+        return torch.sum(a * c)
+
+    if mask is not None:
+        w_m = mask.to(b.dtype)
+        wsum = torch.sum(w_m)
+        if project_mean:
+            proj = lambda v: (v - torch.sum(v * w_m) / wsum) * w_m
+        else:
+            proj = lambda v: v * w_m
+    elif project_mean:
+        proj = lambda v: v - torch.mean(v)
+    else:
+        proj = lambda v: v
+    r = proj(b)
+    z = proj(precond(r))
+    beta0 = torch.sqrt(torch.clamp(dot(r, z), min=1e-30))
+    Qr = torch.zeros((k,) + tuple(b.shape), dtype=b.dtype, device=b.device)
+    Qz = torch.zeros_like(Qr)
+    Qr[0], Qz[0] = r / beta0, z / beta0
+    alphas = torch.zeros(k, dtype=b.dtype, device=b.device)
+    betas = torch.zeros(k, dtype=b.dtype, device=b.device)
+    for j in range(k - 1):
+        qz = Qz[j]
+        w = mv(qz)
+        if j > 0:
+            w = w - betas[j - 1] * Qr[j - 1]
+        a = dot(qz, w)
+        w = w - a * Qr[j]
+        # full reorthogonalization in the M-inner product (k is small;
+        # rows above j are still zero)
+        coef = torch.einsum("kic,ic->k", Qz, w)
+        w = w - torch.einsum("k,kic->ic", coef, Qr)
+        w = proj(w)
+        z = proj(precond(w))
+        bnew = torch.sqrt(torch.clamp(dot(w, z), min=1e-30))
+        Qr[j + 1], Qz[j + 1] = w / bnew, z / bnew
+        alphas[j] = a
+        betas[j] = bnew
+    alphas[k - 1] = dot(Qz[k - 1], mv(Qz[k - 1]))
+    al = alphas.cpu().double()
+    be = betas[: k - 1].cpu().double()
+    T = torch.diag(al) + torch.diag(be, 1) + torch.diag(be, -1)
+    theta, Y = torch.linalg.eigh(T)
+    idx = torch.argsort(theta)[:n_ritz]
+    Ysel = Y[:, idx].to(dtype=b.dtype, device=b.device)
+    W = torch.einsum("kv,kic->vic", Ysel, Qz)
+    return W / torch.sqrt(torch.einsum("vic,vic->v", W, W))[:, None, None]
+
+
+def _np(x, dtype=None):
+    """Host numpy copy of a tensor or array (float64 when asked)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x) if dtype is None else np.asarray(x, dtype=dtype)
+
+
+def np_two_level_apply(data, P_diag, agg_size: int):
+    """Numpy float64 mirror of :func:`two_level_apply_fn` (additive form with
+    the compartment, moment and Ritz pieces present in ``data``), the
+    preconditioner of the host Ritz harvest: the float32 device Lanczos is
+    chaotic, a float64 recursion is deterministic."""
+    for key in ("d1inv", "momb_W"):
+        if key in data:
+            raise NotImplementedError(f"two-level data {key!r} is not ported")
+    d = {k: _np(v, np.float64) for k, v in data.items()}
+    Pd = _np(P_diag, np.float64)
+    Pinv = np.moveaxis(np.linalg.inv(np.moveaxis(Pd, -1, 0)), 0, -1)   # (nd, nd, nc)
+    nc = Pd.shape[2]
+    inv, s = d["inv"], d["s"]
+    As = d.get("As")
+
+    def dense_solve(rc):
+        rs = s * rc
+        z = inv @ rs
+        if As is not None:
+            z = z + inv @ (rs - As @ z)
+        return s * z
+
+    n_agg = inv.shape[0]
+    pad = n_agg * agg_size - nc
+
+    def apply(r):
+        z = np.einsum("ijc,jc->ic", Pinv, r)
+        rs = r.sum(axis=0)
+        rc = np.pad(rs, (0, pad)).reshape(n_agg, agg_size).sum(axis=1)
+        zc = np.repeat(dense_solve(rc), agg_size)[:nc]
+        if "comp_inv" in d:
+            invc, sc, OH = d["comp_inv"], d["comp_s"], d["comp_onehot"]
+            Asc = d["comp_As"]
+            rsc = sc * (OH @ rs)
+            zco = invc @ rsc
+            zco = zco + invc @ (rsc - Asc @ zco)
+            zc = zc + (sc * zco) @ OH
+        out = z + zc[None, :]
+        if "mom_W" in d:
+            Wm, inv_m, s_m = d["mom_W"], d["mom_inv"], d["mom_s"]
+            rw = s_m * np.einsum("wic,ic->w", Wm, r)
+            out = out + np.einsum("w,wic->ic", s_m * (inv_m @ rw), Wm)
+        if "ritz_W" in d:
+            Wr, inv_r, s_r = d["ritz_W"], d["ritz_inv"], d["ritz_s"]
+            rr = s_r * np.einsum("vic,ic->v", Wr, r)
+            out = out + np.einsum("v,vic->ic", s_r * (inv_r @ rr), Wr)
+        return out
+
+    return apply
+
+
+def ritz_lanczos_W_host(blocks, nbr, data, P_diag, b, agg_size: int,
+                        k: int = 40, n_ritz: int = 8,
+                        project_mean: bool = True):
+    """Host float64 Ritz harvest: preconditioned Lanczos with full
+    reorthogonalization in numpy, numerically deterministic (the mirror of
+    :func:`ritz_lanczos_W`, with :func:`np_two_level_apply`).  Returns W
+    (n_ritz, nd, nc) numpy float64 for :func:`ritz_galerkin_host`."""
+    B = _np(blocks, np.float64)
+    N = _np(nbr)
+    precond = np_two_level_apply(data, P_diag, agg_size)
+
+    def mv(x):
+        y = np.einsum("ijc,jc->ic", B[0], x)
+        for kk in range(1, B.shape[0]):
+            y = y + np.einsum("ijc,jc->ic", B[kk], x[:, N[kk]])
+        return y
+
+    proj = (lambda v: v - v.mean()) if project_mean else (lambda v: v)
+    r = proj(_np(b, np.float64))
+    z = proj(precond(r))
+    dot = lambda a, c: float(np.einsum("ic,ic->", a, c))
+    beta0 = np.sqrt(max(dot(r, z), 1e-300))
+    Qr = np.zeros((k,) + r.shape)
+    Qz = np.zeros((k,) + r.shape)
+    Qr[0], Qz[0] = r / beta0, z / beta0
+    alphas = np.zeros(k)
+    betas = np.zeros(k)
+    for j in range(k - 1):
+        w = mv(Qz[j])
+        if j > 0:
+            w = w - betas[j - 1] * Qr[j - 1]
+        a = dot(Qz[j], w)
+        w = w - a * Qr[j]
+        # full reorthogonalization in the M-inner product
+        coef = np.einsum("kic,ic->k", Qz[: j + 1], w)
+        w = w - np.einsum("k,kic->ic", coef, Qr[: j + 1])
+        w = proj(w)
+        z = proj(precond(w))
+        bnew = np.sqrt(max(dot(w, z), 1e-300))
+        alphas[j] = a
+        betas[j] = bnew
+        Qr[j + 1], Qz[j + 1] = w / bnew, z / bnew
+    alphas[k - 1] = dot(Qz[k - 1], mv(Qz[k - 1]))
+    T = (np.diag(alphas) + np.diag(betas[: k - 1], 1)
+         + np.diag(betas[: k - 1], -1))
+    theta, Y = np.linalg.eigh(T)
+    idx = np.argsort(theta)[:n_ritz]
+    W = np.einsum("kv,kic->vic", Y[:, idx], Qz)
+    return W / np.sqrt(np.einsum("vic,vic->v", W, W))[:, None, None]
+
+
+def ritz_galerkin_host(blocks, nbr, W, ridge: float = 1e-8,
+                       project_mean: bool = False, drop_rel: float = 1e-6):
+    """Host float64 deflation Galerkin of the Ritz fields W (v, nd, nc) on
+    the cell blocks (K, nd, nd, nc).
+
+    ``project_mean`` (EMI): remove the global-constant component of each
+    field in float64 (a field that collapsed onto the EMI nullspace has
+    A-energy ~0, and its 1/sqrt(dg) equilibration would amplify noise into
+    every apply); a field that was the constant is zeroed.  ``drop_rel``:
+    fields whose A-energy is below drop_rel * max are zeroed with their
+    scale.  The inverse is an eigenvalue-truncated pseudo-inverse (a
+    near-breakdown harvest can give near-parallel fields).
+
+    Returns {'ritz_W', 'ritz_inv', 'ritz_s'} as tensors of W's dtype on W's
+    device for a tensor W, and as float32 CPU tensors for a numpy W (the
+    JAX function's float32 for numpy fields)."""
+    B = _np(blocks, np.float64)                       # (K, nd, nd, nc)
+    N = _np(nbr)
+    Wh = _np(W, np.float64)                           # (v, nd, nc)
+    if project_mean:
+        Wh = Wh - Wh.mean(axis=(1, 2), keepdims=True)
+        nrm = np.sqrt((Wh ** 2).sum(axis=(1, 2), keepdims=True))
+        ok = nrm > 1e-3
+        Wh = np.where(ok, Wh / np.maximum(nrm, 1e-30), 0.0)
+    AW = np.einsum("ijc,vjc->vic", B[0], Wh)
+    for s in range(1, B.shape[0]):
+        AW += np.einsum("ijc,vjc->vic", B[s], Wh[:, :, N[s]])
+    G = np.einsum("vic,wic->vw", Wh, AW)
+    G = 0.5 * (G + G.T)
+    dg = np.diagonal(G).copy()
+    live = dg > drop_rel * max(dg.max(), 1e-300)
+    Wh = np.where(live[:, None, None], Wh, 0.0)
+    sg = np.where(live, 1.0 / np.sqrt(np.maximum(dg, 1e-300)), 0.0)
+    Gs = G * sg[:, None] * sg[None, :]
+    Gs = Gs + ridge * np.eye(Gs.shape[0])
+    Gs[~live, :] = 0.0
+    Gs[:, ~live] = 0.0
+    Gs[~live, ~live] = 1.0
+    lam, V = np.linalg.eigh(Gs)
+    keep = lam > 1e-6 * lam.max()
+    inv = (V[:, keep] / lam[keep]) @ V[:, keep].T
+    if isinstance(W, torch.Tensor):
+        dtype, device = W.dtype, W.device
+    else:
+        dtype, device = torch.float32, "cpu"
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return {"ritz_W": t(Wh), "ritz_inv": t(inv), "ritz_s": t(sg)}
+
+
+def build_ritz_deflation(blocks, nbr, precond, b, k: int = 40,
+                         n_ritz: int = 8, ridge: float = 1e-8):
+    """Harvest approximate small-eigenvalue modes of the preconditioned EMI
+    operator (device Lanczos, :func:`ritz_lanczos_W`) and build their
+    deflation Galerkin in float64 on the host (:func:`ritz_galerkin_host`):
+    the 'ritz_W', 'ritz_inv', 'ritz_s' entries of the two-level data."""
+    W = ritz_lanczos_W(blocks, nbr, precond, b, k=k, n_ritz=n_ritz)
+    return ritz_galerkin_host(blocks, nbr, W, ridge=ridge, project_mean=True)

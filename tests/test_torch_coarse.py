@@ -1,0 +1,121 @@
+"""ops/coarse (kernels K6/K7, their plain versions on the CPU) against the
+JAX package in float64: two_level_apply_fn and two_level_apply_batched of
+both packages on the same seeded two-level data -- coarse inv / As / s,
+compartment, moment and Ritz fields -- at a small size with a pad in the
+last chunk, for nd = 4 and nd = 8."""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+
+from test_torch_parity import N_COMP, NW, NR, rel, t64, two_level_data
+
+from knpemidg_tpu.solvers import twolevel as jtl
+from knpemidg_tpu_torch.ops import coarse
+from knpemidg_tpu_torch.solvers import twolevel
+
+TOL = 1e-12
+NC, AGG = 1000, 64            # 16 chunks, the last one 24 cells short
+
+
+def _data(rng, nd, groups=("As", "comp", "mom", "ritz"), m=None):
+    return two_level_data(rng, nd, NC, AGG, groups, m)
+
+
+def _P_diag(rng, nd, m=None):
+    P = 0.1 * rng.standard_normal(((m,) if m else ()) + (nd, nd, NC))
+    return P + 4.0 * np.eye(nd)[:, :, None]
+
+
+GROUPS = {"full": ("As", "comp", "mom", "ritz"), "coarse": (), "refined": ("As",),
+          "moment": ("As", "comp", "mom"), "ritz": ("ritz",)}
+
+
+@pytest.mark.parametrize("nd", [4, 8])
+@pytest.mark.parametrize("groups", sorted(GROUPS))
+def test_two_level_apply_matches_jax(nd, groups):
+    rng = np.random.default_rng(21)
+    d = _data(rng, nd, GROUPS[groups])
+    P = _P_diag(rng, nd)
+    r = rng.standard_normal((nd, NC))
+    fj = jtl.two_level_apply_fn({k: jnp.asarray(v) for k, v in d.items()},
+                                jnp.asarray(P), AGG)
+    ft = twolevel.two_level_apply_fn({k: t64(v) for k, v in d.items()}, t64(P), AGG)
+    assert rel(ft(t64(r)), fj(jnp.asarray(r))) < TOL
+
+
+@pytest.mark.parametrize("nd", [4, 8])
+@pytest.mark.parametrize("refine", [False, True])
+def test_two_level_apply_batched_matches_jax(nd, refine):
+    rng = np.random.default_rng(22)
+    d = _data(rng, nd, ("As",) if refine else (), m=2)
+    P = _P_diag(rng, nd, m=2)
+    r = rng.standard_normal((2, nd, NC))
+    gj = jtl.two_level_apply_batched({k: jnp.asarray(v) for k, v in d.items()},
+                                     jnp.asarray(P), AGG)
+    gt = twolevel.two_level_apply_batched({k: t64(v) for k, v in d.items()}, t64(P), AGG)
+    assert rel(gt(t64(r)), gj(jnp.asarray(r))) < TOL
+
+
+def test_coarse_steps_match_the_reference_formulas():
+    """restrict, solve and prolong_add one by one against numpy float64."""
+    rng = np.random.default_rng(23)
+    nd = 4
+    d = _data(rng, nd)
+    r = rng.standard_normal((1, nd, NC))
+    co = coarse.operands({k: t64(v) for k, v in d.items()}, AGG, batched=False)
+    rc, proj = coarse.restrict(co, t64(r))
+    rs = r[0].sum(axis=0)
+    n = d["s"].shape[0]
+    rc_ref = np.pad(rs, (0, n * AGG - NC)).reshape(n, AGG).sum(axis=1)
+    proj_ref = np.concatenate([d["comp_onehot"] @ rs,
+                               np.einsum("wic,ic->w", d["mom_W"], r[0]),
+                               np.einsum("vic,ic->v", d["ritz_W"], r[0])])
+    assert rel(rc[0], rc_ref) < TOL and rel(proj[0], proj_ref) < TOL
+
+    zc, coef = coarse.solve(co, rc, proj)
+    x = d["s"] * rc_ref
+    z = d["inv"] @ x
+    z = z + d["inv"] @ (x - d["As"] @ z)
+    assert rel(zc[0], d["s"] * z) < TOL
+    xc = d["comp_s"] * proj_ref[:N_COMP]
+    y = d["comp_inv"] @ xc
+    y = y + d["comp_inv"] @ (xc - d["comp_As"] @ y)
+    coef_ref = [d["comp_s"] * y]
+    for key, a, b in (("mom", N_COMP, N_COMP + NW), ("ritz", N_COMP + NW, None)):
+        sg = d[f"{key}_s"]
+        coef_ref.append(sg * (d[f"{key}_inv"] @ (sg * proj_ref[a:b])))
+    assert rel(coef[0], np.concatenate(coef_ref)) < TOL
+
+    out0 = rng.standard_normal((1, nd, NC))
+    out = coarse.prolong_add(co, t64(out0), zc, coef)
+    c = coef[0].numpy()
+    v = np.repeat(zc[0].numpy(), AGG)[:NC] + c[:N_COMP] @ d["comp_onehot"]
+    v = (v[None] + np.einsum("w,wic->ic", c[N_COMP:N_COMP + NW], d["mom_W"])
+         + np.einsum("v,vic->ic", c[N_COMP + NW:], d["ritz_W"]))
+    assert rel(out[0], out0[0] + v) < TOL
+
+
+def test_operands_count_k6_and_k7_apart():
+    rng = np.random.default_rng(24)
+    co6 = coarse.operands({k: t64(v) for k, v in _data(rng, 4).items()}, AGG, False)
+    co7 = coarse.operands({k: t64(v) for k, v in _data(rng, 4, ("As",), m=2).items()},
+                          AGG, True)
+    assert co6.inv.shape == (1, 16, 16) and co6.sizes == (N_COMP, NW, NR)
+    assert co7.inv.shape == (2, 16, 16) and co7.sizes == (0, 0, 0)
+    assert coarse._name("solve", co6) == "two_level_solve"
+    assert coarse._name("solve", co7) == "two_level_solve_batched"
+
+
+def test_unported_two_level_data_raise():
+    rng = np.random.default_rng(25)
+    d = {k: t64(v) for k, v in _data(rng, 4).items()}
+    P = t64(_P_diag(rng, 4))
+    for key in ("d1inv", "momb_W"):
+        with pytest.raises(NotImplementedError):
+            twolevel.two_level_apply_fn(dict(d, **{key: d["s"]}), P, AGG)
+    with pytest.raises(NotImplementedError):             # knp_ritz stays unported
+        twolevel.two_level_apply_batched(
+            {"inv": d["inv"][None], "s": d["s"][None], "ritz_W": d["ritz_W"]},
+            P[None], AGG)
+    with pytest.raises(NotImplementedError):
+        twolevel.np_two_level_apply(dict(d, d1inv=d["s"]), P, AGG)

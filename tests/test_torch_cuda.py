@@ -16,7 +16,7 @@ from knpemidg_tpu_torch import _cuda
 from knpemidg_tpu_torch.fem.tabulation import build_geometry
 from knpemidg_tpu_torch.membrane import engine
 from knpemidg_tpu_torch.models import glial, hh
-from knpemidg_tpu_torch.ops import pairs, spmv
+from knpemidg_tpu_torch.ops import coarse, pairs, spmv
 from knpemidg_tpu_torch.parallel.sharding import unpad_state
 
 pytestmark = pytest.mark.cuda
@@ -24,11 +24,13 @@ pytestmark = pytest.mark.cuda
 # float32: sums in another order and fused multiply-adds; float64 round-off
 DTYPES = [(torch.float32, 1e-5), (torch.float64, 1e-12)]
 # the kernels each layout's step goes through
+TWO_LEVEL_KERNELS = tuple(f"two_level_{e}{b}" for b in ("", "_batched")
+                          for e in ("restrict", "solve", "prolong"))
 CELL_KERNELS = ("bell_matvec", "block_jacobi_inverse", "block_jacobi_apply",
-                "membrane_rk4")
+                "membrane_rk4") + TWO_LEVEL_KERNELS
 PAIR_KERNELS = ("pair_matvec", "to_pair", "from_pair", "gather_blocks_pair",
                 "block_jacobi_inverse_nd8", "block_jacobi_apply_nd8",
-                "membrane_rk4")
+                "membrane_rk4") + TWO_LEVEL_KERNELS
 
 
 @pytest.fixture(scope="module")
@@ -213,5 +215,104 @@ def test_emix_pair_slice_on_cuda_matches_cpu():
     assert _cuda.LAUNCHES["bell_matvec"] == 0
     assert Sg.stats.emi_niters == Sc.stats.emi_niters == [3, 9]
     assert Sg.stats.knp_niters == Sc.stats.knp_niters == [[11, 8], [9, 5]]
+    for key in ("phi", "c", "c_elim", "phi_M"):
+        assert rel(sg[key], sc[key]) < 1e-8, key
+
+
+# K6 (m = 1, the EMI data with or without its deflation groups) and K7
+# (m = 2, the KNP data: no deflation, with or without As)
+TWO_LEVEL_CASES = {"k6_full": (None, ("As", "comp", "mom", "ritz")),
+                   "k6_coarse": (None, ("As",)), "k7": (2, ()), "k7_refined": (2, ("As",))}
+
+
+def _coarse_case(case, nd, dtype, dev, nc=5000, agg=64):
+    rng = np.random.default_rng(41)
+    m, groups = TWO_LEVEL_CASES[case]
+    d = tp.two_level_data(rng, nd, nc, agg, groups, m)
+    data = {k: torch.as_tensor(v, dtype=dtype, device=dev) for k, v in d.items()}
+    co = coarse.operands(data, agg, batched=m is not None)
+    r = _rand(rng, (m or 1, nd, nc), dtype, dev)
+    out0 = _rand(rng, (m or 1, nd, nc), dtype, dev)
+    return co, r, out0
+
+
+@pytest.mark.parametrize("case", sorted(TWO_LEVEL_CASES))
+@pytest.mark.parametrize("nd", [4, 8])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_two_level_kernels_match_plain(case, nd, dtype, tol):
+    """restrict, solve and prolong_add against their plain versions on the
+    same CUDA tensors; a second launch repeats the first bit for bit (no
+    atomics)."""
+    dev = cuda_or_skip()
+    co, r, out0 = _coarse_case(case, nd, dtype, dev)
+    n0 = dict(_cuda.LAUNCHES)
+    rc, proj = coarse.restrict(co, r)
+    rc_p, proj_p = coarse.restrict_plain(co, r)
+    assert rel(rc, rc_p) < tol and (proj.numel() == 0 or rel(proj, proj_p) < tol)
+    zc, coef = coarse.solve(co, rc_p, proj_p)
+    zc_p, coef_p = coarse.solve_plain(co, rc_p, proj_p)
+    assert rel(zc, zc_p) < 10 * tol and (coef.numel() == 0 or rel(coef, coef_p) < 10 * tol)
+    out = coarse.prolong_add(co, out0.clone(), zc_p, coef_p)
+    assert rel(out, coarse.prolong_add_plain(co, out0.clone(), zc_p, coef_p)) < tol
+    names = [coarse._name(e, co) for e in ("restrict", "solve", "prolong")]
+    for name in names:
+        assert _cuda.LAUNCHES[name] == n0[name] + 1, name
+    again = coarse.coarse_add(co, out0.clone(), r)
+    assert torch.equal(again, coarse.coarse_add(co, out0.clone(), r))
+    assert torch.equal(coarse.restrict(co, r)[1], proj)
+
+
+def test_two_level_wrappers_raise_on_what_they_cannot_take():
+    dev = cuda_or_skip()
+    co, r, out0 = _coarse_case("k6_full", 4, torch.float64, dev)
+    with pytest.raises(ValueError):                      # not contiguous
+        coarse.restrict(co, r.transpose(1, 2).contiguous().transpose(1, 2))
+    co_cpu = coarse.Coarse(**{k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                              for k, v in co._asdict().items()})
+    with pytest.raises(ValueError):                      # operands on the CPU
+        coarse.restrict(co_cpu, r)
+    with pytest.raises(TypeError):                       # dtype mismatch
+        coarse.prolong_add(co, out0.float(), *coarse.solve(co, *coarse.restrict(co, r)))
+    co3, r3, _ = _coarse_case("k7", 4, torch.float64, dev)
+    with pytest.raises(NotImplementedError):             # nd = 3
+        coarse.restrict(co3, r3[:, :3].contiguous())
+
+
+@pytest.mark.parametrize("host", [False, True])
+def test_emix_auto_slice_on_cuda_matches_cpu(host):
+    """Two float64 steps of the EMIx fixture at the AUTO default (24 Ritz
+    fields, harvested on the card or in host float64) on the card: every
+    apply goes through K6/K7, and the counts and fields are the CPU run's."""
+    dev = cuda_or_skip()
+    Sc, sp = tp.emix_torch_auto(emi_ritz_host=host)
+    sc = Sc.solve_system_active(0.2, 0.0, sp)
+    Sg, _ = tp.emix_torch_auto(device=dev)
+    _cuda.reset_launches()
+    sg = Sg.solve_system_active(0.2, 0.0, sp)
+    assert all(_cuda.LAUNCHES[k] > 0 for k in CELL_KERNELS), _cuda.LAUNCHES
+    assert sg["pc"]["emi"]["ritz_W"].shape[0] == 24
+    assert all(v.device.type == "cuda" for v in sg["pc"]["emi"].values())
+    assert Sg.stats.emi_niters == Sc.stats.emi_niters == [5, 3]
+    assert Sg.stats.knp_niters == Sc.stats.knp_niters == [[1, 1], [2, 1]]
+    for key in ("phi", "c", "c_elim", "phi_M"):
+        assert rel(sg[key], sc[key]) < 1e-8, key
+
+
+def test_emix_pair_ritz_on_cuda_matches_cpu():
+    """The pair layout's device harvest (emi_ritz=8) on the card: the fields
+    move through the host and back, and the counts and fields are the CPU
+    run's."""
+    dev = cuda_or_skip()
+    Sc, sp = tp.emix_torch(pair=True, emi_ritz=8)
+    sc = unpad_state(Sc, Sc.solve_system_active(0.2, 0.0, sp))
+    Sg, _ = tp.emix_torch(device=dev, pair=True)
+    _cuda.reset_launches()
+    stg = Sg.solve_system_active(0.2, 0.0, sp)
+    assert all(_cuda.LAUNCHES[k] > 0 for k in PAIR_KERNELS), _cuda.LAUNCHES
+    assert all(v.device.type == "cuda" for v in stg["pc"]["emi"].values())
+    assert stg["pc"]["emi"]["ritz_W"].shape[0] == 8
+    sg = unpad_state(Sg, stg)
+    assert Sg.stats.emi_niters == Sc.stats.emi_niters
+    assert Sg.stats.knp_niters == Sc.stats.knp_niters
     for key in ("phi", "c", "c_elim", "phi_M"):
         assert rel(sg[key], sc[key]) < 1e-8, key

@@ -55,7 +55,7 @@ def _solvers(resolution=0, length=1, dtype=F32):
     Sj = build_solver(mesh=mj, dtype=jnp.float32 if dtype == F32 else jnp.float64)
     spj = SolverParams(**tp.solver_params_kw(), error_if_not_converged=False)
     St = emix.build_solver(mt, dtype=dtype, device="cpu")
-    return Sj, spj, St, emix.solver_params(error_if_not_converged=False)
+    return Sj, spj, St, emix.solver_params(emi_ritz=0, error_if_not_converged=False)
 
 
 def first_emi_system(Sj, spj):

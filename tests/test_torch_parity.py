@@ -39,12 +39,22 @@ def t64(v):
     return torch.as_tensor(np.array(v, dtype=np.float64))
 
 
-def solver_params_kw():
-    """bench.py's SolverParams with Ritz deflation off."""
-    return dict(direct_emi=False, direct_knp=False, rtol_emi=1e-5,
-                atol_emi=1e-40, rtol_knp=1e-7, atol_knp=2e-40,
-                max_it_emi=1000, max_it_knp=1000, gmres_restart=30,
-                agg_size=64, emi_ritz=0)
+def solver_params_kw(**overrides):
+    """bench.py's SolverParams with Ritz deflation off (the ritz-0
+    references: EMIx cell EMI [7, 4], KNP [[4, 3], [2, 2]]; pair [3, 9],
+    [[11, 8], [9, 5]]); ``overrides`` replace entries."""
+    kw = dict(direct_emi=False, direct_knp=False, rtol_emi=1e-5,
+              atol_emi=1e-40, rtol_knp=1e-7, atol_knp=2e-40,
+              max_it_emi=1000, max_it_knp=1000, gmres_restart=30,
+              agg_size=64, emi_ritz=0)
+    kw.update(overrides)
+    return kw
+
+
+def auto_params_kw(**overrides):
+    """bench.py's SolverParams exactly (emi_ritz AUTO: 24 Ritz fields on the
+    cell layout, none on the pair layout)."""
+    return solver_params_kw(emi_ritz=-1, **overrides)
 
 
 # ---------------------------------------------------------------------------
@@ -67,21 +77,35 @@ def emix_mesh_torch():
     return mesh
 
 
-def emix_jax():
-    """(JAX solver, JAX SolverParams) in float64."""
+def emix_jax(**overrides):
+    """(JAX solver, JAX SolverParams) in float64, Ritz deflation off unless
+    ``overrides`` say otherwise."""
     import jax.numpy as jnp
     from run_EMIx_simulation import build_solver
     from knpemidg_tpu.config import SolverParams
 
     S = build_solver(mesh=emix_mesh_jax(), dtype=jnp.float64)
-    return S, SolverParams(**solver_params_kw())
+    return S, SolverParams(**solver_params_kw(**overrides))
 
 
-def emix_torch(device="cpu", dtype=F64, pair=False):
-    """(port solver, port SolverParams); ``pair`` enables the interleaved
-    pair layout."""
+def emix_torch(device="cpu", dtype=F64, pair=False, **overrides):
+    """(port solver, port SolverParams) with Ritz deflation off unless
+    ``overrides`` say otherwise; ``pair`` enables the interleaved pair
+    layout."""
     S = emix.build_solver(emix_mesh_torch(), dtype=dtype, device=device, pair=pair)
-    return S, emix.solver_params()
+    return S, emix.solver_params(**{"emi_ritz": 0, **overrides})
+
+
+def emix_jax_auto(**overrides):
+    """emix_jax with bench.py's SolverParams exactly (AUTO Ritz)."""
+    return emix_jax(emi_ritz=-1, **overrides)
+
+
+def emix_torch_auto(device="cpu", dtype=F64, pair=False, **overrides):
+    """The port's EMIx solver with emix.solver_params() as shipped (AUTO
+    Ritz: EMI [5, 3], KNP [[1, 1], [2, 1]] on the cell layout)."""
+    S = emix.build_solver(emix_mesh_torch(), dtype=dtype, device=device, pair=pair)
+    return S, emix.solver_params(**overrides)
 
 
 # ---------------------------------------------------------------------------
@@ -129,14 +153,54 @@ def _neuron_2d(pkg):
     return S
 
 
-def neuron_2d_jax():
+def neuron_2d_jax(**overrides):
     from knpemidg_tpu.config import SolverParams
 
-    return _neuron_2d("jax"), SolverParams(**solver_params_kw())
+    return _neuron_2d("jax"), SolverParams(**solver_params_kw(**overrides))
 
 
-def neuron_2d_torch():
-    return _neuron_2d("torch"), kt.SolverParams(**solver_params_kw())
+def neuron_2d_torch(**overrides):
+    return _neuron_2d("torch"), kt.SolverParams(**solver_params_kw(**overrides))
+
+
+# ---------------------------------------------------------------------------
+# seeded two-level preconditioner data (kernels K6 / K7)
+# ---------------------------------------------------------------------------
+
+N_COMP, NW, NR = 3, 6, 4      # compartments, moment fields, Ritz fields
+
+
+def _spd(rng, n, cond=1e3):
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    return (Q * np.geomspace(1.0, 1.0 / cond, n)) @ Q.T
+
+
+def two_level_data(rng, nd, nc, agg, groups=("As", "comp", "mom", "ritz"), m=None):
+    """Seeded numpy two-level data of the shapes build_two_level and the
+    deflation builds give (the groups named in ``groups``); ``m`` adds a
+    leading system axis to the coarse entries (the batched KNP data)."""
+    n = -(-nc // agg)
+    lead = () if m is None else (m,)
+
+    def coarse_mat():
+        A = np.stack([_spd(rng, n) for _ in range(m or 1)])
+        return A if m else A[0]
+
+    d = {"inv": coarse_mat(), "s": rng.uniform(0.5, 2.0, lead + (n,))}
+    if "As" in groups:
+        d["As"] = coarse_mat()
+    if "comp" in groups:
+        comp = np.repeat(np.arange(N_COMP), -(-nc // N_COMP))[:nc]
+        d["comp_onehot"] = (comp[None, :] == np.arange(N_COMP)[:, None]).astype(float)
+        d["comp_onehot"][:, -5:] = 0.0                 # inert pad cells: no compartment
+        d["comp_inv"], d["comp_As"] = _spd(rng, N_COMP), _spd(rng, N_COMP)
+        d["comp_s"] = rng.uniform(0.5, 2.0, N_COMP)
+    for key, k in (("mom", NW), ("ritz", NR)):
+        if key in groups:
+            d[f"{key}_W"] = rng.standard_normal((k, nd, nc))
+            d[f"{key}_inv"] = _spd(rng, k)
+            d[f"{key}_s"] = rng.uniform(0.5, 2.0, k)
+    return d
 
 
 def jax_state_for_torch(S_jax_state, S_torch):

@@ -1,5 +1,6 @@
 """The whole splitting step of the port against the JAX package in
-float64: two steps of the EMIx-style setup (emi_ritz=0) and of the 2D
+float64: two steps of the EMIx-style setup (emi_ritz=0; the Ritz runs are
+in test_torch_ritz.py) and of the 2D
 neuron, with equal Krylov counts and matching fields; plus the package
 rules (no jax import, unsupported options raise) and the state exchange."""
 import dataclasses
@@ -17,6 +18,7 @@ import knpemidg_tpu_torch as kt
 from knpemidg_tpu_torch import emix
 from knpemidg_tpu_torch import solver as tsolver
 from knpemidg_tpu_torch.ops import assembly as tassembly
+from knpemidg_tpu_torch.ops import coarse as tcoarse
 from knpemidg_tpu_torch.solvers import twolevel as ttwolevel
 
 TOL = 1e-8
@@ -92,7 +94,7 @@ def test_state_numpy_round_trip(emix_run):
 
 
 @pytest.mark.parametrize("override", [
-    {"emi_ritz": -1}, {"emi_ritz": 24}, {"knp_solver": "bicgstab"},
+    {"knp_ritz": 8}, {"emi_moment_order": 3}, {"knp_solver": "bicgstab"},
     {"emi_moment_host": True}, {"emi_moment_blocked": True},
     {"emi_moment_axial": 6}, {"direct_emi": True}, {"precond": "two_level_mult"},
     {"coarse_ridge": 1e-7},
@@ -132,6 +134,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
 def test_port_imports_no_jax():
     code = ("import sys; import knpemidg_tpu_torch, knpemidg_tpu_torch.emix, "
             "knpemidg_tpu_torch._cuda, knpemidg_tpu_torch.ops.pairs, "
+            "knpemidg_tpu_torch.ops.coarse, knpemidg_tpu_torch.solvers.twolevel, "
             "knpemidg_tpu_torch.parallel.sharding, "
             "knpemidg_tpu_torch.profile_step; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -143,37 +146,48 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+COARSE_WRAPPERS = {"restrict", "solve", "prolong_add"}
 CELL_WRAPPERS = {"bell_matvec", "bell_matvec_multi", "block_jacobi_inverse",
-                 "block_jacobi_apply"}
+                 "block_jacobi_apply"} | COARSE_WRAPPERS
 PAIR_WRAPPERS = {"pair_matvec", "pair_matvec_multi", "to_pair", "from_pair",
                  "gather_blocks_pair", "gather_blocks_pair_multi",
-                 "block_jacobi_inverse", "block_jacobi_apply"}
+                 "block_jacobi_inverse", "block_jacobi_apply"} | COARSE_WRAPPERS
+
+
+def _tensors(a):
+    """The tensors in an argument, through tuples (the coarse operands)."""
+    if isinstance(a, torch.Tensor):
+        yield a
+    elif isinstance(a, tuple):
+        for b in a:
+            yield from _tensors(b)
 
 
 @pytest.mark.parametrize("pair", [False, True])
 def test_kernel_inputs_are_contiguous_on_main_path(monkeypatch, pair):
     """The CUDA wrappers raise on non-contiguous tensors; on the CPU the
     same wrappers take anything, so check here that the main path (cell or
-    pair layout) hands every kernel wrapper contiguous tensors of the
-    working dtype."""
+    pair layout, with Ritz deflation) hands every kernel wrapper contiguous
+    tensors of the working dtype."""
     calls = []
 
     def strict(fn):
         def wrapped(*args, **kw):
             for a in list(args) + list(kw.values()):
-                if isinstance(a, torch.Tensor):
-                    assert a.is_contiguous(), fn.__name__
-                    assert a.dtype in (torch.float64, torch.int32), fn.__name__
+                for t in _tensors(a):
+                    assert t.is_contiguous(), fn.__name__
+                    assert t.dtype in (torch.float64, torch.int32), fn.__name__
             calls.append(fn.__name__)
             return fn(*args, **kw)
         return wrapped
 
-    for mod in (tsolver, ttwolevel, tassembly):
+    for mod in (tsolver, ttwolevel, tassembly, tcoarse):
         for name in CELL_WRAPPERS | PAIR_WRAPPERS:
             if hasattr(mod, name):
                 monkeypatch.setattr(mod, name, strict(getattr(mod, name)))
-    S, sp = tp.neuron_2d_torch()
+    S, sp = tp.neuron_2d_torch(emi_ritz=8)
     if pair:
         S.enable_pair_layout()
-    S.solve_system_active(2e-4, 0.0, sp)
+    st = S.solve_system_active(2e-4, 0.0, sp)
+    assert "ritz_W" in st["pc"]["emi"]
     assert (PAIR_WRAPPERS if pair else CELL_WRAPPERS) <= set(calls)
