@@ -14,7 +14,9 @@ layout).  On the way it:
   3. compares every kernel of each path with its plain torch version at
      that path's shapes, in float32 and float64, and times the kernel, the
      plain version and, where one PyTorch call computes the same function,
-     that call; computes each kernel's bound from this run's inputs;
+     that call; computes each kernel's bound from this run's inputs.  The
+     assembly kernels (K10, K11, K14) are checked on each layout at a state
+     perturbed from the initial one with a seeded generator;
   4. checks each layout on a small input against the reference iteration
      counts of the JAX package and the port's own CPU run;
   5. runs the protocol in float64 on each layout at emix.solver_params()
@@ -63,18 +65,40 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 # solve_scale).
 TWO_LEVEL = [f"two_level_{e}{b}{p}" for b in ("", "_batched") for p in ("", "_pair")
              for e in ("restrict", "solve", "prolong")]
+# The assembly kernels (K10, K11, K14): the cell, facet, membrane and trace
+# kernels do arithmetic and are held to 1e-5 / 1e-12 of each value's sum of
+# |terms| (the plain version with neg = +1 on absolute-valued inputs); the
+# two emit kernels add in the plain version's order, without fused
+# multiply-adds: exact.
+_ASM = "knpemidg_tpu/ops/assembly.py:"
+# kernel -> (source under csrc/, the TPU-side function it replaces)
+ASSEMBLY = {"emi_cell": ("assemble_emi.cu", _ASM + "289"),
+            "emi_facet": ("assemble_emi.cu", _ASM + "197"),
+            "emi_emit_cell": ("assemble_emi.cu", _ASM + "156"),
+            "alpha_sum": ("assemble_knp.cu", "knpemidg_tpu/solver.py:750"),
+            "knp_cell": ("assemble_knp.cu", _ASM + "678"),
+            "knp_facet": ("assemble_knp.cu", _ASM + "678"),
+            "knp_membrane_rhs": ("assemble_knp.cu", _ASM + "678"),
+            "knp_emit_cell": ("assemble_knp.cu", _ASM + "678"),
+            "membrane_trace": ("membrane_trace.cu", _ASM + "888"),
+            "eliminated_concentration": ("membrane_trace.cu", _ASM + "941")}
+ASSEMBLY_EXACT = ("emi_emit_cell", "knp_emit_cell")
 TOL = {torch.float32: {"bell_matvec": 1e-5, "block_jacobi_apply": 1e-5,
                        "block_jacobi_inverse": 1e-5, "membrane_rk4": 1e-4,
                        "pair_matvec": 1e-5, "block_jacobi_inverse_nd8": 1e-5,
                        "block_jacobi_apply_nd8": 1e-5, "to_pair": 0.0,
                        "from_pair": 0.0, "gather_blocks_pair": 0.0,
-                       **{k: 1e-5 for k in TWO_LEVEL}},
+                       **{k: 1e-5 for k in TWO_LEVEL},
+                       **{k + p: 0.0 if k in ASSEMBLY_EXACT else 1e-5
+                          for k in ASSEMBLY for p in ("", "_pair")}},
        torch.float64: {"bell_matvec": 1e-12, "block_jacobi_apply": 1e-12,
                        "block_jacobi_inverse": 1e-12, "membrane_rk4": 1e-12,
                        "pair_matvec": 1e-12, "block_jacobi_inverse_nd8": 1e-12,
                        "block_jacobi_apply_nd8": 1e-12, "to_pair": 0.0,
                        "from_pair": 0.0, "gather_blocks_pair": 0.0,
-                       **{k: 1e-12 for k in TWO_LEVEL}}}
+                       **{k: 1e-12 for k in TWO_LEVEL},
+                       **{k + p: 0.0 if k in ASSEMBLY_EXACT else 1e-12
+                          for k in ASSEMBLY for p in ("", "_pair")}}}
 # dtype of the asserted protocol runs: float64 converges in a few Krylov
 # iterations per step; float32 at the same tolerances can stall
 MAIN_DTYPE = torch.float64
@@ -125,6 +149,10 @@ KERNELS = {
         f"two_level_{e}{b}")
        for b in ("", "_batched") for p in ("cell", "pair")
        for e in ("restrict", "solve", "prolong")},
+    # K10, K11, K14 at each layout's cell axis; one counter serves both
+    **{f"{k}{'_pair' if p == 'pair' else ''}": (
+        "knpemidg_tpu_torch/csrc/" + src, repl, p, k)
+       for p in ("cell", "pair") for k, (src, repl) in ASSEMBLY.items()},
 }
 
 
@@ -456,7 +484,7 @@ def pair_kernel_phase(S, state, results):
 
     def capture(name):
         def wrapped(*args, **kw):
-            emits[name] = args[2:]
+            emits[name] = (args[2:], kw)
             return originals[name](*args, **kw)
         return wrapped
 
@@ -477,15 +505,20 @@ def pair_kernel_phase(S, state, results):
 
     for dtype in (torch.float32, torch.float64):
         cast = lambda ts: [t.to(dtype).contiguous() for t in ts]
-        e_args, k_args = cast(emits["gather_blocks_pair"]), cast(
-            emits["gather_blocks_pair_multi"])
+        # as the assemblies call it: the EMI emit with the regularisation
+        # blocks (third output pd + embedded reg), the KNP emit with the
+        # static pair operator added last
+        e_args, k_args = cast(emits["gather_blocks_pair"][0]), cast(
+            emits["gather_blocks_pair_multi"][0])
+        reg = emits["gather_blocks_pair"][1]["reg"].to(dtype)
+        add = tuple(cast(emits["gather_blocks_pair_multi"][1]["add"]))
         compare("gather_blocks_pair", dtype,
-                lambda: [*pairs.gather_blocks_pair(None, pm, *e_args),
-                         *pairs.gather_blocks_pair_multi(None, pm, *k_args)],
-                lambda: [*pairs.gather_blocks_pair_plain(None, pm, *e_args),
-                         *pairs.gather_blocks_pair_multi_plain(None, pm, *k_args)],
+                lambda: [*pairs.gather_blocks_pair(None, pm, *e_args, reg=reg),
+                         *pairs.gather_blocks_pair_multi(None, pm, *k_args, add=add)],
+                lambda: [*pairs.gather_blocks_pair_plain(None, pm, *e_args, reg=reg),
+                         *pairs.gather_blocks_pair_multi_plain(None, pm, *k_args, add=add)],
                 exact, results,
-                inputs=e_args + k_args + [pm[k] for k in (
+                inputs=e_args + k_args + [reg, *add] + [pm[k] for k in (
                     "cop", "live1", "int_f", "int_p0", "ext_f", "ext_isp", "ext_h")])
 
         stack = torch.stack([rhs, state["phi"], state["phi_prev"]]).to(dtype)
@@ -553,6 +586,190 @@ def pair_kernel_phase(S, state, results):
         co6, co7 = coarse_inputs(state["pc"], AGG // 2, dtype)
         coarse_phase("pair", co6, r[None], results)
         coarse_phase("pair", co7, rK, results)
+
+
+def abs_tables(d):
+    """A table dict with every floating-point tensor replaced by |tensor|."""
+    return {k: (v.abs() if isinstance(v, torch.Tensor) and v.is_floating_point() else v)
+            for k, v in d.items()}
+
+
+def cast_tables(d, dtype):
+    return {k: (v.to(dtype) if isinstance(v, torch.Tensor) and v.is_floating_point() else v)
+            for k, v in d.items()}
+
+
+def assembly_phase(S, state, results, layout):
+    """The assembly kernels (K10, K11, K14) on one layout's cell axis: each
+    entry point against its plain version on the same inputs, at a state
+    perturbed from the initial one with a seeded generator (so the upwind
+    switch takes both signs and the membrane terms are nonzero), timed with
+    its bound.  The emit kernels must equal their plain versions exactly;
+    the others are measured against each value's sum of |terms|."""
+    from knpemidg_tpu_torch.ops import assembly as asm
+
+    pair = layout == "pair"
+    name = lambda k: k + ("_pair" if pair else "")
+    p, m = S.params, S.N_ions
+    def floored(scale_fn):
+        """Error scales with the dtype's smallest normal number added where
+        they are positive: below it a float has fewer mantissa bits, and the
+        facet blocks' near-zero entries (products with E entries of ~1e-28)
+        land there in float32.  A zero scale (the dummy facet, masked
+        facets) stays zero: those values must be exactly equal."""
+        def fn(ref):
+            return [torch.where(sc > 0, sc + torch.finfo(sc.dtype).tiny, sc)
+                    for sc in scale_fn(ref)]
+        return fn
+
+    gen = torch.Generator(device=state["c"].device)
+    gen.manual_seed(2024)
+    rand = lambda t: torch.rand(t.shape, generator=gen, device=t.device, dtype=t.dtype)
+    randn = lambda t: torch.randn(t.shape, generator=gen, device=t.device, dtype=t.dtype)
+    pM0, Ich0, _ = S._pads(state)
+    vscale = float(pM0.abs().max())
+    c64 = (state["c"] * (0.99 + 0.02 * rand(state["c"]))).contiguous()
+    ce64 = (state["c_elim"] * (0.99 + 0.02 * rand(state["c_elim"]))).contiguous()
+    phi64 = 0.1 * vscale * randn(state["phi"])
+    pM64 = pM0 * (0.9 + 0.2 * rand(pM0))
+    Ich64 = 1e-2 * randn(Ich0)
+    Ich64[:, -1] = 0.0
+    statics64 = S._knp_static_blocks[-1]
+    inv_Lp2 = 1.0 / S.Lp ** 2
+    z_elim = float(S.ion_list[-1].z)
+    print(f"shapes  {layout} assembly: {S.g['G'].shape[-1]} cells, "
+          f"{S.g['f_area'].shape[0]} facets (with the dummy), {S.n_mem} membrane facets, "
+          f"nq {S.g['w_f'].shape[0]}, m {m} of {len(S.ion_list)} ions")
+
+    for dtype in (torch.float32, torch.float64):
+        g, mem = cast_tables(S.g, dtype), cast_tables(S.mem_dev, dtype)
+        ga, mema = abs_tables(g), abs_tables(mem)
+        masks = S.masks
+        zall, Dall = S.z.to(dtype), S.D.to(dtype)
+        z, D = zall[:m].contiguous(), Dall[:m].contiguous()
+        c, ce = c64.to(dtype), ce64.to(dtype)
+        call = torch.cat([c, ce[None]])
+        phi, pM, Ich = phi64.to(dtype), pM64.to(dtype), Ich64.to(dtype)
+        IchK, Itot = Ich[:m], Ich.sum(dim=0)
+        gt = lambda *keys: [g[k] for k in keys]
+
+        # --- K10 -----------------------------------------------------------
+        compare(name("emi_cell"), dtype,
+                lambda: list(asm.emi_cell(g, zall, Dall, call, p.F, p.psi)),
+                lambda: list(asm.emi_cell_plain(g, zall, Dall, call, p.F, p.psi)),
+                floored(lambda ref: list(asm.emi_cell_plain(ga, zall.abs(), Dall, call.abs(), p.F,
+                                                    p.psi, neg=1.0))),
+                results, inputs=[zall, Dall, call] + gt("G", "vol", "phibar"))
+        kappa, kbar, flux, b_cell = asm.emi_cell_plain(g, zall, Dall, call, p.F, p.psi)
+        compare(name("emi_facet"), dtype,
+                lambda: list(asm.emi_facet(g, masks, kappa, flux, pM, mem, p.F, p.C_phi,
+                                           S.tau)),
+                lambda: list(asm.emi_facet_plain(g, masks, kappa, flux, pM, mem, p.F,
+                                                 p.C_phi, S.tau)),
+                floored(lambda ref: list(asm.emi_facet_plain(ga, masks, kappa.abs(), flux.abs(),
+                                                     pM.abs(), mema, p.F, p.C_phi, S.tau,
+                                                     neg=1.0))),
+                results, inputs=[kappa, flux, pM, mem["inv"], masks["f_sip"],
+                                 masks["f_mem"]] + gt(*asm._EMI_FACET_TABLES))
+        *M, b_p, b_m = asm.emi_facet_plain(g, masks, kappa, flux, pM, mem, p.F, p.C_phi,
+                                           S.tau)
+        compare(name("emi_emit_cell"), dtype,
+                lambda: list(asm.emi_emit_cell(g, kbar, *M, b_cell, b_p, b_m, inv_Lp2,
+                                               pair=pair)),
+                lambda: list(asm.emi_emit_cell_plain(g, kbar, *M, b_cell, b_p, b_m,
+                                                     inv_Lp2, pair=pair)),
+                exact, results,
+                inputs=[kbar, b_cell, b_p, b_m] + gt("vol", "GG", "M0", "cf_idx",
+                                                     "cf_is_plus")
+                + ([] if pair else M))
+
+        # --- K11 -----------------------------------------------------------
+        compare(name("alpha_sum"), dtype, lambda: [asm.alpha_sum(zall, Dall, call)],
+                lambda: [asm.alpha_sum_plain(zall, Dall, call)],
+                floored(lambda ref: [asm.alpha_sum_plain(zall.abs(), Dall, call.abs())]),
+                results,
+                inputs=[zall, Dall, call],
+                library_fn=lambda: torch.einsum("k,kc,kic->ic", zall * zall, Dall, call))
+        asum = asm.alpha_sum_plain(zall, Dall, call)
+        compare(name("knp_cell"), dtype, lambda: list(asm.knp_cell(g, phi, c, p.dt)),
+                lambda: list(asm.knp_cell_plain(g, phi, c, p.dt)),
+                floored(lambda ref: list(asm.knp_cell_plain(ga, phi.abs(), c.abs(), p.dt))),
+                results, inputs=[phi, c] + gt("G", "vol", "M0"))
+        gphi, drift, b_cellK = asm.knp_cell_plain(g, phi, c, p.dt)
+        un = torch.einsum("df,df->f", gphi[:, g["f_cp"]], g["f_n"])
+        if not (bool((un > 0).any()) and bool((un < 0).any())):
+            raise AssertionError("the perturbed state does not exercise the upwind switch")
+        compare(name("knp_facet"), dtype,
+                lambda: list(asm.knp_facet(g, masks, z, D, gphi, p.psi)),
+                lambda: list(asm.knp_facet_plain(g, masks, z, D, gphi, p.psi)),
+                floored(lambda ref: list(asm.knp_facet_plain(ga, masks, z.abs(), D, gphi.abs(),
+                                                     p.psi, neg=1.0))),
+                results, inputs=[gphi, D, z, masks["f_sip"]] + gt(
+                    "f_cp", "f_cm", "f_n", "f_area", "E_pp", "E_pm", "E_mp", "E_mm"))
+        MK = asm.knp_facet_plain(g, masks, z, D, gphi, p.psi)
+        mem_args = (z, D, c, asum, phi, pM, IchK, Itot)
+        compare(name("knp_membrane_rhs"), dtype,
+                lambda: list(asm.knp_membrane_rhs(g, mem, *mem_args, p.F, p.C_M, p.dt)),
+                lambda: list(asm.knp_membrane_rhs_plain(g, mem, *mem_args, p.F, p.C_M,
+                                                        p.dt)),
+                floored(lambda ref: list(asm.knp_membrane_rhs_plain(
+                    ga, mema, z.abs(), D, c.abs(), asum, phi.abs(), pM.abs(), IchK.abs(),
+                    Itot.abs(), p.F, p.C_M, p.dt, neg=1.0))),
+                results, inputs=[mem[k] for k in ("Rp", "Rm", "cp", "cm", "fidx")]
+                + [pM, IchK, Itot]
+                # the fields' values at the membrane cells (a gather)
+                + [t[..., mem[side]] for t in (c, asum, phi, D) for side in ("cp", "cm")])
+        bK_p, bK_m = asm.knp_membrane_rhs_plain(g, mem, *mem_args, p.F, p.C_M, p.dt)
+        if not float(bK_p.abs().max()) > 0.0:
+            raise AssertionError("the perturbed state has a zero membrane rhs")
+        statics = None if pair else statics64.to(dtype)
+        compare(name("knp_emit_cell"), dtype,
+                lambda: list(asm.knp_emit_cell(g, mem, z, D, p.psi, drift, *MK, b_cellK,
+                                               bK_p, bK_m, statics, pair=pair)),
+                lambda: list(asm.knp_emit_cell_plain(g, mem, z, D, p.psi, drift, *MK,
+                                                     b_cellK, bK_p, bK_m, statics,
+                                                     pair=pair)),
+                exact, results,
+                inputs=[z, D, drift, b_cellK, bK_p, bK_m, mem["inv"]]
+                + gt("vol", "phibar", "cf_idx", "cf_is_plus")
+                + ([] if pair else list(MK) + [statics]))
+
+        # --- K14: one call of each mode, as a step's finalize and ODE
+        # inputs make them (per ion and tag on the main path) -----------------
+        coef = p.R * p.temperature / (p.F * float(S.ion_list[0].z))
+
+        def trace_scale(ref):
+            tp_, tm_ = asm._mem_trace(g, mem, c[0], "p"), asm._mem_trace(g, mem, c[0], "m")
+            # ln(p / m): |ln| plus one rounding of each trace and of the ratio
+            ln = abs(coef) * torch.einsum("q,qm->m", g["w_f"],
+                                          torch.log(tp_ / tm_).abs() + 3.0)
+            return [asm.membrane_avg_m_plain(ga, mema, phi.abs(), "p")
+                    + asm.membrane_avg_m_plain(ga, mema, phi.abs(), "m"),
+                    asm.membrane_avg_m_plain(ga, mema, c[0].abs(), "p"),
+                    asm.membrane_avg_m_plain(ga, mema, ce.abs(), "m"), ln]
+
+        compare(name("membrane_trace"), dtype,
+                lambda: [asm.jump_phi_M_m(g, mem, phi), asm.membrane_avg_m(g, mem, c[0], "p"),
+                         asm.membrane_avg_m(g, mem, ce, "m"),
+                         asm.nernst_potential_m(g, mem, c[0], float(S.ion_list[0].z), p.F,
+                                                p.R, p.temperature)],
+                lambda: [asm.jump_phi_M_m_plain(g, mem, phi),
+                         asm.membrane_avg_m_plain(g, mem, c[0], "p"),
+                         asm.membrane_avg_m_plain(g, mem, ce, "m"),
+                         asm.nernst_potential_m_plain(g, mem, c[0], float(S.ion_list[0].z),
+                                                      p.F, p.R, p.temperature)],
+                floored(trace_scale), results,
+                inputs=[mem["Rp"], mem["Rm"], mem["cp"], mem["cm"]] * 3
+                + [phi[:, mem["cp"]], phi[:, mem["cm"]], c[0][:, mem["cm"]],
+                   ce[:, mem["cm"]]] + [c[0][:, mem["cp"]]] * 2)
+        rho = S.rho.to(dtype)
+        compare(name("eliminated_concentration"), dtype,
+                lambda: [asm.eliminated_concentration(c, z, rho, z_elim)],
+                lambda: [asm.eliminated_concentration_plain(c, z, rho, z_elim)],
+                floored(lambda ref: [asm.eliminated_concentration_plain(
+                    c.abs(), z.abs(), rho.abs(), abs(z_elim)).abs()]),
+                results, inputs=[c, z, rho],
+                library_fn=lambda: -(torch.einsum("k,kic->ic", z, c) + rho[None, :]) / z_elim)
 
 
 def small_reference_phase(layout):
@@ -687,6 +904,7 @@ def main():
         torch.cuda.synchronize()
         print(f"pc      {layout} built in {time.perf_counter() - t0:.2f} s")
         (kernel_phase if layout == "cell" else pair_kernel_phase)(S, state0, results)
+        assembly_phase(S, state0, results, layout)
         small_reference_phase(layout)
         launches[layout], med, ode = window(S, sp, layout)
         walls[layout] = (med, ode)

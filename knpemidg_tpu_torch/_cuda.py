@@ -24,23 +24,33 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = ("bell_matvec.cu", "block_jacobi.cu", "membrane_rk4.cu",
-           "pair_matvec.cu", "pair_relayout.cu", "pair_emit.cu", "two_level.cu")
+           "pair_matvec.cu", "pair_relayout.cu", "pair_emit.cu", "two_level.cu",
+           "assemble_emi.cu", "assemble_knp.cu", "membrane_trace.cu")
 BUILD_DIR = os.path.join(_HERE, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libknpemidg_kernels.so")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+# the assembly emit kernels equal their plain versions exactly, which a
+# fused multiply-add (one rounding where torch makes two) would break
+SOURCE_FLAGS = {"assemble_emi.cu": ("-fmad=false",),
+                "assemble_knp.cu": ("-fmad=false",)}
 
 # kernel name -> launches counted by its wrapper; the block-Jacobi kernels
 # count their cell-layout (nd = 4) and pair-layout (nd = 8) instantiations
 # apart, and the two-level kernels their single EMI (K6) and batched KNP
-# (K7, "_batched") calls
+# (K7, "_batched") calls.  The assembly kernels (K10 emi_*, K11 alpha_sum and
+# knp_*, K14 membrane_trace and eliminated_concentration) serve both layouts
 LAUNCHES = {"bell_matvec": 0, "block_jacobi_inverse": 0,
             "block_jacobi_apply": 0, "membrane_rk4": 0,
             "pair_matvec": 0, "to_pair": 0, "from_pair": 0,
             "gather_blocks_pair": 0, "block_jacobi_inverse_nd8": 0,
             "block_jacobi_apply_nd8": 0,
             **{f"two_level_{e}{b}": 0 for b in ("", "_batched")
-               for e in ("restrict", "solve", "prolong")}}
+               for e in ("restrict", "solve", "prolong")},
+            "emi_cell": 0, "emi_facet": 0, "emi_emit_cell": 0, "alpha_sum": 0,
+            "knp_cell": 0, "knp_facet": 0, "knp_membrane_rhs": 0,
+            "knp_emit_cell": 0, "membrane_trace": 0,
+            "eliminated_concentration": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,10 +64,20 @@ _SIGNATURES = {
     "knp_pair_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "knp_to_pair": (_P, _P, _P, _I, _I, _I, _P),
     "knp_from_pair": (_P, _P, _I, _I, _I, _P),
-    "knp_gather_blocks_pair": (_P,) * 14 + (_I,) * 6 + (_D, _P),
+    "knp_gather_blocks_pair": (_P,) * 18 + (_I,) * 6 + (_D, _P),
     "knp_tl_restrict": (_P,) * 7 + (_I,) * 9 + (_P,),
     "knp_tl_solve": (_P,) * 16 + (_I,) * 5 + (_P,),
     "knp_tl_prolong": (_P,) * 6 + (_I,) * 8 + (_P,),
+    "knp_emi_cell": (_P,) * 10 + (_I,) * 4 + (_D, _D, _P),
+    "knp_emi_facet": (_P,) * 26 + (_I,) * 5 + (_D, _D, _D, _P),
+    "knp_emi_emit_cell": (_P,) * 16 + (_I,) * 5 + (_D, _P),
+    "knp_alpha_sum": (_P,) * 4 + (_I,) * 3 + (_P,),
+    "knp_ion_cell": (_P,) * 8 + (_I,) * 4 + (_D, _P),
+    "knp_ion_facet": (_P,) * 16 + (_I,) * 5 + (_D, _P),
+    "knp_ion_membrane_rhs": (_P,) * 17 + (_I,) * 7 + (_D, _D, _P),
+    "knp_ion_emit_cell": (_P,) * 18 + (_I,) * 7 + (_D, _P),
+    "knp_membrane_trace": (_P,) * 7 + (_I,) * 5 + (_D, _P),
+    "knp_eliminated": (_P,) * 4 + (_I,) * 3 + (_D, _P),
 }
 
 _lock = threading.Lock()
@@ -103,7 +123,8 @@ def build() -> float:
         t0 = time.perf_counter()
         try:
             procs = [subprocess.Popen(
-                [nvcc, *COMPILE_FLAGS, "-c", os.path.join(_CSRC, f), "-o", o],
+                [nvcc, *COMPILE_FLAGS, *SOURCE_FLAGS.get(f, ()), "-c",
+                 os.path.join(_CSRC, f), "-o", o],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                 for f, o in zip(SOURCES, objs)]
             failed = []

@@ -11,7 +11,12 @@
 //   pe[t] = the (isp_t ? Mpm : Mmp)[ext_f_t] block in the rows of half h_t
 //
 // with dg_t = (isp_t ? Mpp : Mmm)[ext_f_t], written as pd (m, 2nd, 2nd,
-// npair) and pe (m, S, 2nd, nd, npair) in one launch per call.
+// npair) and pe (m, S, 2nd, nd, npair) in one launch per call.  Two optional
+// parts serve the assemblies (csrc/assemble_emi.cu, csrc/assemble_knp.cu):
+// add_pd / add_pe, a static pair operator added last to every entry (the KNP
+// mass + stiffness part), and reg (m, nd, nd, nc), per-cell blocks embedded
+// on the pair diagonal's two halves and added to pd as a second output pdiag
+// (the EMI preconditioner diagonal).
 //
 // Bound: device-memory bandwidth.  Each call writes the pair operator once
 // (256 values per pair and system at nd = 4, S = 6) and reads A_cell and
@@ -34,8 +39,9 @@ __global__ void gather_blocks_pair_kernel(
     const unsigned char* __restrict__ live1, const int* __restrict__ int_f,
     const unsigned char* __restrict__ int_p0, const int* __restrict__ ext_f,
     const unsigned char* __restrict__ ext_isp, const int* __restrict__ ext_h,
-    T* __restrict__ pd, T* __restrict__ pe, int m, int nd, int nc, int nf1, int S,
-    int npair, T dead) {
+    T* __restrict__ pd, T* __restrict__ pe, const T* __restrict__ add_pd,
+    const T* __restrict__ add_pe, const T* __restrict__ reg, T* __restrict__ pdiag, int m,
+    int nd, int nc, int nf1, int S, int npair, T dead) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)m * nd * nd * npair) return;
   const int p = (int)(idx % npair);
@@ -58,8 +64,8 @@ __global__ void gather_blocks_pair_kernel(
   const T gpm = Mpm[mo + fi], gmp = Mmp[mo + fi];
   b00 = b00 + (p0 ? gpp : gmm);
   b11 = b11 + (p0 ? gmm : gpp);
-  const T b01 = p0 ? gpm : gmp;
-  const T b10 = p0 ? gmp : gpm;
+  T b01 = p0 ? gpm : gmp;
+  T b10 = p0 ? gmp : gpm;
 
   for (int t = 0; t < S; ++t) {
     const size_t tp = (size_t)t * np + p;
@@ -70,17 +76,41 @@ __global__ void gather_blocks_pair_kernel(
     const T off = sel ? Mpm[f] : Mmp[f];
     b00 = b00 + (h0 ? dg : T(0));
     b11 = b11 + (h0 ? T(0) : dg);
-    T* pet = pe + ((size_t)s * S + t) * nd2 * nd * np;
-    pet[((size_t)i * nd + j) * np + p] = h0 ? off : T(0);
-    pet[((size_t)(nd + i) * nd + j) * np + p] = h0 ? T(0) : off;
+    const size_t po = ((size_t)s * S + t) * nd2 * nd * np;
+    const size_t e0 = po + ((size_t)i * nd + j) * np + p;
+    const size_t e1 = po + ((size_t)(nd + i) * nd + j) * np + p;
+    T top = h0 ? off : T(0), bot = h0 ? T(0) : off;
+    if (add_pe) {
+      top = top + add_pe[e0];
+      bot = bot + add_pe[e1];
+    }
+    pe[e0] = top;
+    pe[e1] = bot;
   }
   b11 = b11 + ((i == j) ? dead * (T(1) - l1) : T(0));
 
-  T* pds = pd + (size_t)s * nd2 * nd2 * np;
-  pds[((size_t)i * nd2 + j) * np + p] = b00;
-  pds[((size_t)i * nd2 + nd + j) * np + p] = b01;
-  pds[((size_t)(nd + i) * nd2 + j) * np + p] = b10;
-  pds[((size_t)(nd + i) * nd2 + nd + j) * np + p] = b11;
+  const size_t so = (size_t)s * nd2 * nd2 * np;
+  const size_t o00 = so + ((size_t)i * nd2 + j) * np + p;
+  const size_t o01 = so + ((size_t)i * nd2 + nd + j) * np + p;
+  const size_t o10 = so + ((size_t)(nd + i) * nd2 + j) * np + p;
+  const size_t o11 = so + ((size_t)(nd + i) * nd2 + nd + j) * np + p;
+  if (add_pd) {
+    b00 = b00 + add_pd[o00];
+    b01 = b01 + add_pd[o01];
+    b10 = b10 + add_pd[o10];
+    b11 = b11 + add_pd[o11];
+  }
+  pd[o00] = b00;
+  pd[o01] = b01;
+  pd[o10] = b10;
+  pd[o11] = b11;
+  if (reg) {
+    const T* Rs = reg + (size_t)sij * nc;
+    pdiag[o00] = b00 + Rs[cop[p]];
+    pdiag[o01] = b01;
+    pdiag[o10] = b10;
+    pdiag[o11] = b11 + Rs[cop[np + p]] * l1;
+  }
 }
 
 template <typename T>
@@ -89,12 +119,13 @@ static int gather_blocks_pair_launch(const T* A, const T* Mpp, const T* Mpm, con
                                      const unsigned char* live1, const int* int_f,
                                      const unsigned char* int_p0, const int* ext_f,
                                      const unsigned char* ext_isp, const int* ext_h,
-                                     T* pd, T* pe, int m, int nd, int nc, int nf1, int S,
-                                     int npair, double dead, void* stream) {
+                                     T* pd, T* pe, const T* add_pd, const T* add_pe,
+                                     const T* reg, T* pdiag, int m, int nd, int nc,
+                                     int nf1, int S, int npair, double dead, void* stream) {
   const unsigned int grid = knp_blocks((long long)m * nd * nd * npair);
   gather_blocks_pair_kernel<T><<<grid, KNP_THREADS, 0, (cudaStream_t)stream>>>(
       A, Mpp, Mpm, Mmp, Mmm, cop, live1, int_f, int_p0, ext_f, ext_isp, ext_h, pd, pe,
-      m, nd, nc, nf1, S, npair, (T)dead);
+      add_pd, add_pe, reg, pdiag, m, nd, nc, nf1, S, npair, (T)dead);
   return (int)cudaGetLastError();
 }
 
@@ -102,20 +133,23 @@ extern "C" int knp_gather_blocks_pair_f32(
     const float* A, const float* Mpp, const float* Mpm, const float* Mmp,
     const float* Mmm, const int* cop, const unsigned char* live1, const int* int_f,
     const unsigned char* int_p0, const int* ext_f, const unsigned char* ext_isp,
-    const int* ext_h, float* pd, float* pe, int m, int nd, int nc, int nf1, int S,
-    int npair, double dead, void* stream) {
+    const int* ext_h, float* pd, float* pe, const float* add_pd, const float* add_pe,
+    const float* reg, float* pdiag, int m, int nd, int nc, int nf1, int S, int npair,
+    double dead, void* stream) {
   return gather_blocks_pair_launch<float>(A, Mpp, Mpm, Mmp, Mmm, cop, live1, int_f, int_p0,
-                                          ext_f, ext_isp, ext_h, pd, pe, m, nd, nc, nf1, S,
-                                          npair, dead, stream);
+                                          ext_f, ext_isp, ext_h, pd, pe, add_pd, add_pe, reg,
+                                          pdiag, m, nd, nc, nf1, S, npair, dead, stream);
 }
 
 extern "C" int knp_gather_blocks_pair_f64(
     const double* A, const double* Mpp, const double* Mpm, const double* Mmp,
     const double* Mmm, const int* cop, const unsigned char* live1, const int* int_f,
     const unsigned char* int_p0, const int* ext_f, const unsigned char* ext_isp,
-    const int* ext_h, double* pd, double* pe, int m, int nd, int nc, int nf1, int S,
-    int npair, double dead, void* stream) {
+    const int* ext_h, double* pd, double* pe, const double* add_pd, const double* add_pe,
+    const double* reg, double* pdiag, int m, int nd, int nc, int nf1, int S, int npair,
+    double dead, void* stream) {
   return gather_blocks_pair_launch<double>(A, Mpp, Mpm, Mmp, Mmm, cop, live1, int_f,
-                                           int_p0, ext_f, ext_isp, ext_h, pd, pe, m, nd,
-                                           nc, nf1, S, npair, dead, stream);
+                                           int_p0, ext_f, ext_isp, ext_h, pd, pe, add_pd,
+                                           add_pe, reg, pdiag, m, nd, nc, nf1, S, npair,
+                                           dead, stream);
 }

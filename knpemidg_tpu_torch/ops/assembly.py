@@ -11,8 +11,26 @@ Shapes:
 
 The operator is block-ELL: the Krylov matvec is a gather and a small
 contraction only.  Given pair maps (``pm``) the emitters write the pair
-layout instead (ops/pairs.py, kernel K12 on the card); everything else here
-is plain torch.
+layout instead (ops/pairs.py, kernel K12 on the card).
+
+Kernels (CUDA tensors; the plain torch ``*_plain`` version for CPU tensors,
+no fallback between the two), for nd <= 4 and d <= 3:
+
+* K10 ``csrc/assemble_emi.cu``: :func:`emi_cell`, :func:`emi_facet`,
+  :func:`emi_emit_cell`, the three launches of :func:`assemble_emi`;
+* K11 ``csrc/assemble_knp.cu``: :func:`alpha_sum`, :func:`knp_cell`,
+  :func:`knp_facet`, :func:`knp_membrane_rhs`, :func:`knp_emit_cell`, the
+  launches of :func:`assemble_knp_all`;
+* K14 ``csrc/membrane_trace.cu``: :func:`membrane_avg_m`,
+  :func:`nernst_potential_m`, :func:`jump_phi_M_m` (one kernel, four modes)
+  and :func:`eliminated_concentration`.
+
+The plain versions take ``neg``, the sign of every subtracted term (-1.0).
+With +1.0 and absolute-valued inputs they return each output's sum of
+|terms|, the scale the kernels' rounding is measured against.
+
+The setup-only functions (:func:`precompute_static`,
+:func:`assemble_knp_static`) are plain torch on every device.
 """
 from __future__ import annotations
 
@@ -20,8 +38,10 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .pairs import (gather_blocks_pair, gather_blocks_pair_multi,
-                    pair_block_diag_embed)
+from .. import _cuda
+from .pairs import gather_blocks_pair, gather_blocks_pair_multi
+
+MAX_ND, MAX_D = 4, 3      # the kernels' register arrays (DG1 in 2D and 3D)
 
 
 def _degree1(g):
@@ -73,6 +93,9 @@ def precompute_static(g):
     g["E_mm"] = _wsum_outer(w, None, Rm, Rm)
     g["M0"] = torch.einsum("q,qi,qj->ij", g["w_c"], g["Phi_c"], g["Phi_c"])
     g["phibar"] = torch.einsum("q,qj->j", g["w_c"], g["Phi_c"])
+    # an einsum may return a permuted memory order; the kernels read rows
+    for key in ("GG", "gnp", "gnm", "E_pp", "E_pm", "E_mp", "E_mm", "M0", "phibar"):
+        g[key] = g[key].contiguous()
     return g
 
 
@@ -121,7 +144,8 @@ def gather_rhs(g, b_cell, b_p, b_m):
     return b
 
 
-def _sip_blocks(g, kp, km, gnp, gnm, tau_over_h, sip_mask, pen_p=None, pen_m=None):
+def _sip_blocks(g, kp, km, gnp, gnm, tau_over_h, sip_mask, pen_p=None, pen_m=None,
+                neg=-1.0):
     """Symmetric interior penalty blocks for kappa grad(u).grad(v).
 
     kp/km   : (nq, nf+1) diffusion coefficient traces per side
@@ -137,12 +161,12 @@ def _sip_blocks(g, kp, km, gnp, gnm, tau_over_h, sip_mask, pen_p=None, pen_m=Non
     # -<avg(k grad u).n, [v]>
     def term1(sign_v, R_v, k_u, gn_u):
         s = _wsum_vec(w, k_u, R_v)                           # (nd, nf)
-        return sign_v * (-0.5) * area * s[:, None, :] * gn_u[None, :, :]
+        return sign_v * (neg * 0.5) * area * s[:, None, :] * gn_u[None, :, :]
 
     t1_pp = term1(+1.0, Rp, kp, gnp)
     t1_pm = term1(+1.0, Rp, km, gnm)
-    t1_mp = term1(-1.0, Rm, kp, gnp)
-    t1_mm = term1(-1.0, Rm, km, gnm)
+    t1_mp = term1(neg, Rm, kp, gnp)
+    t1_mm = term1(neg, Rm, km, gnm)
 
     # symmetric term: transpose blocks with sides swapped
     T = lambda M: torch.swapaxes(M, 0, 1)
@@ -157,9 +181,9 @@ def _sip_blocks(g, kp, km, gnp, gnm, tau_over_h, sip_mask, pen_p=None, pen_m=Non
         return (sv * su) * scale * _wsum_outer(w, coef, R_v, R_u)
 
     t3_pp = pen(Rp, +1, Rp, +1, pen_p)
-    t3_pm = pen(Rp, +1, Rm, -1, pen_m)
-    t3_mp = pen(Rm, -1, Rp, +1, pen_p)
-    t3_mm = pen(Rm, -1, Rm, -1, pen_m)
+    t3_pm = pen(Rp, +1, Rm, neg, pen_m)
+    t3_mp = pen(Rm, neg, Rp, +1, pen_p)
+    t3_mm = pen(Rm, neg, Rm, neg, pen_m)
 
     m = sip_mask[None, None, :]
     return (
@@ -170,11 +194,11 @@ def _sip_blocks(g, kp, km, gnp, gnm, tau_over_h, sip_mask, pen_p=None, pen_m=Non
     )
 
 
-def _jump_jump_blocks(g, coef, mask):
+def _jump_jump_blocks(g, coef, mask, neg=-1.0):
     """coef * <[u],[v]> blocks on masked facets; coef (nf+1,), a broadcast
     over the static facet mass tensors E_vu (precompute_static)."""
     s = torch.where(mask, coef * g["f_area"], 0.0)[None, None, :]
-    return (s * g["E_pp"], -s * g["E_pm"], -s * g["E_mp"], s * g["E_mm"])
+    return (s * g["E_pp"], neg * s * g["E_pm"], neg * s * g["E_mp"], s * g["E_mm"])
 
 
 def _test_integrals(g, vals_p, vals_m):
@@ -187,8 +211,177 @@ def _test_integrals(g, vals_p, vals_m):
 
 
 # ---------------------------------------------------------------------------
-# EMI system (potential)
+# kernel plumbing
 # ---------------------------------------------------------------------------
+
+def _dims(g):
+    """(nq, nd, d, nc, nf+1) of a geometry dict; raises on a CUDA tensor
+    outside the kernels' register arrays."""
+    nq, nd, nf1 = g["f_Rp"].shape
+    d, nc = g["G"].shape[1], g["G"].shape[2]
+    if nd > MAX_ND or d > MAX_D:
+        raise NotImplementedError(
+            f"assembly: CUDA kernels built for nd <= {MAX_ND}, d <= {MAX_D}, "
+            f"got nd = {nd}, d = {d}")
+    return nq, nd, d, nc, nf1
+
+
+def _tables(src, keys, dtype):
+    """Device pointers of the static tables ``src[key]``: checked to be
+    contiguous CUDA tensors of ``dtype`` (floats), int32 or bool."""
+    out = []
+    for key in keys:
+        t = src[key]
+        _cuda.check(key, t, dtype if t.is_floating_point() else None)
+        if not t.is_floating_point() and t.dtype not in (torch.int32, torch.bool):
+            raise TypeError(f"{key}: expected int32 or bool, got {t.dtype}")
+        out.append(t.data_ptr())
+    return out
+
+
+def _inputs(dtype, **tensors):
+    """Device pointers of per-call inputs, each checked with its shape."""
+    out = []
+    for name, (t, shape) in tensors.items():
+        _cuda.check(name, t, dtype, shape)
+        out.append(t.data_ptr())
+    return out
+
+
+def _facet_blocks(lead, nd, nf1, like):
+    return [torch.empty(lead + (nd, nd, nf1), dtype=like.dtype, device=like.device)
+            for _ in range(4)]
+
+
+# ---------------------------------------------------------------------------
+# K10: EMI system (potential)
+# ---------------------------------------------------------------------------
+
+def emi_cell_plain(g, z, D, c, F, psi, neg=-1.0):
+    """Per-cell part of the EMI assembly: kappa = F psi sum_k z_k^2 D_k c_k
+    (nd, nc), its cell mean kbar (nc,), flux = sum_k z_k D_k grad(c_k)
+    (d, nc) and the rhs cell part -F vol flux . grad(basis) (nd, nc)."""
+    kappa = F * psi * torch.einsum("k,kc,kic->ic", z * z, D, c)
+    kbar = torch.einsum("i,ic->c", g["phibar"], kappa)
+    gradc = torch.einsum("idc,kic->kdc", g["G"], c)           # (n_ions, d, nc)
+    flux = torch.einsum("k,kc,kdc->dc", z, D, gradc)          # (d, nc)
+    b_cell = neg * F * g["vol"] * torch.einsum("dc,idc->ic", flux, g["G"])
+    # an einsum may return a permuted memory order; the kernels never do
+    return tuple(t.contiguous() for t in (kappa, kbar, flux, b_cell))
+
+
+def emi_cell(g, z, D, c, F, psi):
+    """:func:`emi_cell_plain`, kernel K10 ``emi_cell`` on a CUDA tensor."""
+    if not c.is_cuda:
+        return emi_cell_plain(g, z, D, c, F, psi)
+    _, nd, d, nc, _ = _dims(g)
+    n_ions = c.shape[0]
+    ins = _inputs(c.dtype, z=(z, (n_ions,)), D=(D, (n_ions, nc)), c=(c, (n_ions, nd, nc)))
+    new = lambda *shape: torch.empty(shape, dtype=c.dtype, device=c.device)
+    kappa, kbar, flux, b_cell = new(nd, nc), new(nc), new(d, nc), new(nd, nc)
+    _cuda.launch("emi_cell", "knp_emi_cell", c.dtype, *ins,
+                 *_tables(g, ("G", "vol", "phibar"), c.dtype), kappa.data_ptr(),
+                 kbar.data_ptr(), flux.data_ptr(), b_cell.data_ptr(), n_ions, nd, d,
+                 nc, float(F * psi), float(-F))
+    return kappa, kbar, flux, b_cell
+
+
+_EMI_FACET_TABLES = ("f_cp", "f_cm", "f_n", "f_area", "f_havg", "f_Rp", "f_Rm", "gnp",
+                     "gnm", "E_pp", "E_pm", "E_mp", "E_mm", "w_f")
+
+
+def emi_facet_plain(g, masks, kappa, flux, gr, mem_t, F, C_phi, tau, neg=-1.0):
+    """Per-facet part of the EMI assembly: the SIP + penalty blocks plus
+    C_phi <[u],[v]> on membrane facets, Mpp, Mpm, Mmp, Mmm (nd, nd, nf+1),
+    and the facet rhs parts b_p, b_m (nd, nf+1): the flux average on SIP
+    facets and the Robin source C_phi gr JUMP(v) on membrane facets (``gr``
+    (n_mem+1,) on the membrane axis)."""
+    kp = facet_trace(g, kappa, "p")                          # (nq, nf+1)
+    km = facet_trace(g, kappa, "m")
+    sip = masks["f_sip"]
+    mem = masks["f_mem"]
+    Mpp, Mpm, Mmp, Mmm = _sip_blocks(g, kp, km, g["gnp"], g["gnm"],
+                                     tau / g["f_havg"], sip, neg=neg)
+    # membrane coupling: + C_phi <[u],[v]> on membrane facets
+    cphi = torch.full_like(g["f_area"], C_phi)
+    Cpp, Cpm, Cmp, Cmm = _jump_jump_blocks(g, cphi, mem, neg=neg)
+    blocks = [(M + C).contiguous() for M, C in
+              ((Mpp, Cpp), (Mpm, Cpm), (Mmp, Cmp), (Mmm, Cmm))]
+
+    ones = torch.ones_like(g["f_Rp"][:, 0, :])                # (nq, nf+1)
+    fp = torch.einsum("df,df->f", flux[:, g["f_cp"]], g["f_n"])
+    fm = torch.einsum("df,df->f", flux[:, g["f_cm"]], g["f_n"])
+    favg_q = (0.5 * F * (fp + fm) * sip)[None, :] * ones      # (nq, nf+1)
+    b_p, b_m = _test_integrals(g, favg_q, neg * favg_q)
+    nm = mem_t["cp"].shape[0]
+    fidx = mem_t["fidx"]
+    src = C_phi * gr[:nm] * g["f_area"][fidx]                  # (nm,)
+    w_f = g["w_f"]
+    b_p = b_p.index_add(1, fidx, neg * src * torch.einsum("q,qim->im", w_f, mem_t["Rp"]))
+    b_m = b_m.index_add(1, fidx, src * torch.einsum("q,qim->im", w_f, mem_t["Rm"]))
+    return (*blocks, b_p.contiguous(), b_m.contiguous())
+
+
+def emi_facet(g, masks, kappa, flux, gr, mem_t, F, C_phi, tau):
+    """:func:`emi_facet_plain`, kernel K10 ``emi_facet`` on a CUDA tensor;
+    the membrane source is read through the inverse membrane map
+    ``mem_t["inv"]`` (nf+1,), a gather."""
+    if not kappa.is_cuda:
+        return emi_facet_plain(g, masks, kappa, flux, gr, mem_t, F, C_phi, tau)
+    nq, nd, d, nc, nf1 = _dims(g)
+    dt_ = kappa.dtype
+    nm = mem_t["cp"].shape[0]
+    ins = _inputs(dt_, kappa=(kappa, (nd, nc)), flux=(flux, (d, nc)), gr=(gr, (nm + 1,)))
+    _cuda.check("inv", mem_t["inv"], torch.int32, (nf1,))
+    blocks = _facet_blocks((), nd, nf1, kappa)
+    b_p = torch.empty((nd, nf1), dtype=dt_, device=kappa.device)
+    b_m = torch.empty_like(b_p)
+    _cuda.launch("emi_facet", "knp_emi_facet", dt_, *ins, mem_t["inv"].data_ptr(),
+                 *_tables(g, _EMI_FACET_TABLES, dt_),
+                 *_tables(masks, ("f_sip", "f_mem"), dt_),
+                 *(M.data_ptr() for M in blocks), b_p.data_ptr(), b_m.data_ptr(),
+                 nq, nd, d, nc, nf1, float(tau), float(C_phi), float(F))
+    return (*blocks, b_p, b_m)
+
+
+def emi_emit_cell_plain(g, kbar, Mpp, Mpm, Mmp, Mmm, b_cell, b_p, b_m, inv_Lp2,
+                        pair=False):
+    """Per-cell emit of the EMI assembly: A_cell = vol kbar GG plus the
+    gathered facet blocks -> (blocks (K, nd, nd, nc), rhs (nd, nc), P_diag
+    (nd, nd, nc)) with P_diag = blocks[0] + reg, reg = vol kbar / Lp^2 M0.
+    ``pair``: (A_cell, rhs, reg) for the pair emit (ops.pairs)."""
+    vk = g["vol"] * kbar
+    A_cell = vk * g["GG"]
+    reg = (vk * inv_Lp2) * g["M0"][:, :, None]
+    rhs = gather_rhs(g, b_cell, b_p, b_m).contiguous()
+    if pair:
+        return A_cell, rhs, reg
+    blocks = gather_blocks(g, A_cell, Mpp, Mpm, Mmp, Mmm)
+    return blocks, rhs, (blocks[0] + reg).contiguous()
+
+
+def emi_emit_cell(g, kbar, Mpp, Mpm, Mmp, Mmm, b_cell, b_p, b_m, inv_Lp2, pair=False):
+    """:func:`emi_emit_cell_plain`, kernel K10 ``emi_emit_cell`` on a CUDA
+    tensor (equal to it exactly)."""
+    if not kbar.is_cuda:
+        return emi_emit_cell_plain(g, kbar, Mpp, Mpm, Mmp, Mmm, b_cell, b_p, b_m,
+                                   inv_Lp2, pair)
+    _, nd, d, nc, nf1 = _dims(g)
+    dt_ = kbar.dtype
+    _cuda.check("kbar", kbar, dt_, (nc,))
+    ins = _inputs(dt_, Mpp=(Mpp, (nd, nd, nf1)), Mpm=(Mpm, (nd, nd, nf1)),
+                  Mmp=(Mmp, (nd, nd, nf1)), Mmm=(Mmm, (nd, nd, nf1)),
+                  b_cell=(b_cell, (nd, nc)), b_p=(b_p, (nd, nf1)), b_m=(b_m, (nd, nf1)))
+    new = lambda *shape: torch.empty(shape, dtype=dt_, device=kbar.device)
+    blocks = new(nd, nd, nc) if pair else new(d + 2, nd, nd, nc)
+    rhs, second = new(nd, nc), new(nd, nd, nc)
+    _cuda.launch("emi_emit_cell", "knp_emi_emit_cell", dt_, kbar.data_ptr(),
+                 *_tables(g, ("vol", "GG", "M0"), dt_), *ins,
+                 *_tables(g, ("cf_idx", "cf_is_plus"), dt_), blocks.data_ptr(),
+                 rhs.data_ptr(), second.data_ptr(), nd, d + 1, nc, nf1, int(pair),
+                 float(inv_Lp2))
+    return blocks, rhs, second
+
 
 def assemble_emi(
     g: Dict[str, Any],
@@ -204,9 +397,10 @@ def assemble_emi(
     pm: Optional[Dict[str, Any]] = None,
 ):
     """EMI block-ELL operator, rhs and block-Jacobi preconditioner diagonal
-    (the regularised B operator).  ``mem_t``: membrane-presliced tables; the
-    Robin membrane source is computed on the n_mem axis and scatter-added
-    into the facet rhs.
+    (the regularised B operator), in three steps (kernel K10 on the card):
+    :func:`emi_cell`, :func:`emi_facet`, :func:`emi_emit_cell`.  ``mem_t``:
+    membrane-presliced tables; the Robin membrane source lives on the n_mem
+    axis.
 
     Returns (blocks (K,nd,nd,nc), rhs (nd,nc), P_diag (nd,nd,nc)); with
     pair maps ``pm``, ((pd, pe), rhs, P_diag_pair), where the pair
@@ -214,67 +408,21 @@ def assemble_emi(
     _degree1(g)
     if mms is not None:
         raise NotImplementedError("MMS verification is not ported yet")
-    z, D, c = ions["z"], ions["D"], ions["c"]
     F, psi, C_phi, tau = phys["F"], phys["psi"], phys["C_phi"], phys["tau_emi"]
 
-    # kappa = F * psi * sum_k z_k^2 D_k c_k   (nodal, (nd, nc))
-    kappa = F * psi * torch.einsum("k,kc,kic->ic", z * z, D, c)
-
-    # --- cell term: int kappa grad(u).grad(v) ------------------------------
-    kbar = torch.einsum("i,ic->c", g["phibar"], kappa)
-    A_cell = (g["vol"] * kbar) * g["GG"]
-
-    # --- facet traces of kappa ----------------------------------------------
-    kp = facet_trace(g, kappa, "p")                          # (nq, nf+1)
-    km = facet_trace(g, kappa, "m")
-
-    sip = masks["f_sip"]
-    mem = masks["f_mem"]
-    Mpp, Mpm, Mmp, Mmm = _sip_blocks(g, kp, km, g["gnp"], g["gnm"],
-                                     tau / g["f_havg"], sip)
-
-    # --- membrane coupling: + C_phi <[u],[v]> on membrane facets ------------
-    cphi = torch.full_like(g["f_area"], C_phi)
-    Cpp, Cpm, Cmp, Cmm = _jump_jump_blocks(g, cphi, mem)
-    Mpp, Mpm, Mmp, Mmm = Mpp + Cpp, Mpm + Cpm, Mmp + Cmp, Mmm + Cmm
-
-    if pm is not None:
-        # the SIP blocks sum transposed views; the emit kernel reads rows
-        blocks = gather_blocks_pair(g, pm, A_cell, *(M.contiguous() for M in
-                                                     (Mpp, Mpm, Mmp, Mmm)))
-    else:
-        blocks = gather_blocks(g, A_cell, Mpp, Mpm, Mmp, Mmm)
-
-    # --- rhs: diffusive terms, all ions -------------------------------------
-    ones = torch.ones_like(g["f_Rp"][:, 0, :])                # (nq, nf+1)
-    gradc = torch.einsum("idc,kic->kdc", g["G"], c)           # (n_ions, d, nc)
-    flux = torch.einsum("k,kc,kdc->dc", z, D, gradc)          # (d, nc)
-    fp = torch.einsum("df,df->f", flux[:, g["f_cp"]], g["f_n"])
-    fm = torch.einsum("df,df->f", flux[:, g["f_cm"]], g["f_n"])
-    favg_q = (0.5 * F * (fp + fm) * sip)[None, :] * ones      # (nq, nf+1)
-    b_cell = -F * g["vol"] * torch.einsum("dc,idc->ic", flux, g["G"])
-    b_p, b_m = _test_integrals(g, favg_q, -favg_q)
-
+    kappa, kbar, flux, b_cell = emi_cell(g, ions["z"], ions["D"], ions["c"], F, psi)
     # Robin data: splitting -> phi_M; passive -> phi_M - I_ch/C_phi.
     # Term: + C_phi g JUMP(v) = g C_phi (v_i - v_e)
     gr = phi_M if splitting else phi_M - I_ch_tot / C_phi
-    nm = mem_t["cp"].shape[0]
-    fidx = mem_t["fidx"]
-    src = C_phi * gr[:nm] * g["f_area"][fidx]                  # (nm,)
-    w_f = g["w_f"]
-    b_p = b_p.index_add(1, fidx, -src * torch.einsum("q,qim->im", w_f, mem_t["Rp"]))
-    b_m = b_m.index_add(1, fidx, src * torch.einsum("q,qim->im", w_f, mem_t["Rm"]))
-
-    rhs = gather_rhs(g, b_cell, b_p, b_m)
-
-    # --- preconditioner: diag blocks of B = A + kappa/Lp^2 mass --------------
-    reg = (g["vol"] * kbar / phys["Lp"] ** 2) * g["M0"][:, :, None]
+    *M, b_p, b_m = emi_facet(g, masks, kappa, flux, gr, mem_t, F, C_phi, tau)
+    # preconditioner: diag blocks of B = A + kappa/Lp^2 mass
+    inv_Lp2 = 1.0 / phys["Lp"] ** 2
     if pm is not None:
-        pd, pe = blocks
-        P_diag = pd + pair_block_diag_embed(pm, reg)
-        return (pd, pe), rhs.contiguous(), P_diag.contiguous()
-    P_diag = blocks[0] + reg
-    return blocks, rhs.contiguous(), P_diag.contiguous()
+        A_cell, rhs, reg = emi_emit_cell(g, kbar, *M, b_cell, b_p, b_m, inv_Lp2,
+                                         pair=True)
+        pd, pe, P_diag = gather_blocks_pair(g, pm, A_cell, *M, reg=reg)
+        return (pd, pe), rhs, P_diag
+    return emi_emit_cell(g, kbar, *M, b_cell, b_p, b_m, inv_Lp2)
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +431,7 @@ def assemble_emi(
 
 def assemble_knp_static(g, masks, ion, phys):
     """Time-independent part of the KNP operator for one ion: mass/dt +
-    stiffness + SIP + penalty (D is a static P0 field)."""
+    stiffness + SIP + penalty (D is a static P0 field).  Setup only."""
     _degree1(g)
     z, D = ion["z"], ion["D"]
     dt, tau = phys["dt"], phys["tau_knp"]
@@ -297,6 +445,227 @@ def assemble_knp_static(g, masks, ion, phys):
         g, Dp, Dm, g["gnp"], g["gnm"], tau / g["f_havg"], sip, pen_p=Dp, pen_m=Dm
     )
     return gather_blocks(g, A_cell, Mpp, Mpm, Mmp, Mmm)
+
+
+def alpha_sum_plain(z, D, c):
+    """sum_k z_k^2 D_k c_k over all ions: z (n,), D (n, nc), c (n, nd, nc)
+    -> (nd, nc)."""
+    return torch.einsum("k,kc,kic->ic", z * z, D, c).contiguous()
+
+
+def alpha_sum(z, D, c):
+    """:func:`alpha_sum_plain`, kernel K11 ``alpha_sum`` on a CUDA tensor."""
+    if not c.is_cuda:
+        return alpha_sum_plain(z, D, c)
+    n, nd, nc = c.shape
+    ins = _inputs(c.dtype, z=(z, (n,)), D=(D, (n, nc)), c=(c, (n, nd, nc)))
+    out = torch.empty((nd, nc), dtype=c.dtype, device=c.device)
+    _cuda.launch("alpha_sum", "knp_alpha_sum", c.dtype, *ins, out.data_ptr(), n, nd, nc)
+    return out
+
+
+def knp_cell_plain(g, phi, c_n, dt):
+    """Per-cell part of the KNP assembly: grad(phi) (d, nc), the drift
+    G . grad(phi) (nd, nc), and the mass rhs (vol/dt) M0 c_n (m, nd, nc)."""
+    gphi = cell_grad(g, phi)
+    drift = torch.einsum("idc,dc->ic", g["G"], gphi)
+    b_cell = (g["vol"] / dt) * torch.einsum("ij,kjc->kic", g["M0"], c_n)
+    return gphi.contiguous(), drift.contiguous(), b_cell.contiguous()
+
+
+def knp_cell(g, phi, c_n, dt):
+    """:func:`knp_cell_plain`, kernel K11 ``knp_cell`` on a CUDA tensor."""
+    if not phi.is_cuda:
+        return knp_cell_plain(g, phi, c_n, dt)
+    _, nd, d, nc, _ = _dims(g)
+    m = c_n.shape[0]
+    ins = _inputs(phi.dtype, phi=(phi, (nd, nc)), c_n=(c_n, (m, nd, nc)))
+    new = lambda *shape: torch.empty(shape, dtype=phi.dtype, device=phi.device)
+    gphi, drift, b_cell = new(d, nc), new(nd, nc), new(m, nd, nc)
+    _cuda.launch("knp_cell", "knp_ion_cell", phi.dtype, *ins,
+                 *_tables(g, ("G", "vol", "M0"), phi.dtype), gphi.data_ptr(),
+                 drift.data_ptr(), b_cell.data_ptr(), m, nd, d, nc, float(dt))
+    return gphi, drift, b_cell
+
+
+def knp_facet_plain(g, masks, z, D, gphi, psi, neg=-1.0):
+    """The m ions' upwind facet blocks Mpp, Mpm, Mmp, Mmm (m, nd, nd, nf+1)
+    with the switch u_p = max(grad(phi)_plus . n, 0), u_m = max(-grad(phi)_minus
+    . n, 0) shared by the ions."""
+    d = gphi.shape[0]
+    # one stacked gather per side: [gphi | D_all]
+    stackA = torch.cat([gphi, D], dim=0)             # (d+m, nc)
+    SP = stackA[:, g["f_cp"]]
+    SM = stackA[:, g["f_cm"]]
+    u_p = torch.clamp(torch.einsum("df,df->f", SP[:d], g["f_n"]), min=0.0)
+    u_m = torch.clamp(neg * torch.einsum("df,df->f", SM[:d], g["f_n"]), min=0.0)
+    D_p, D_m = SP[d:], SM[d:]                        # (m, nf+1)
+    scale = (neg * psi) * z[:, None] * (g["f_area"] * masks["f_sip"])[None, :]
+    sp_ = (scale * D_p * u_p[None, :])[:, None, None, :]
+    sm_ = (scale * D_m * u_m[None, :])[:, None, None, :]
+    # the broadcast products may come out in a permuted memory order
+    return tuple(M.contiguous() for M in (
+        sp_ * g["E_pp"][None], neg * sm_ * g["E_pm"][None],
+        neg * sp_ * g["E_mp"][None], sm_ * g["E_mm"][None]))
+
+
+def knp_facet(g, masks, z, D, gphi, psi):
+    """:func:`knp_facet_plain`, kernel K11 ``knp_facet`` on a CUDA tensor."""
+    if not gphi.is_cuda:
+        return knp_facet_plain(g, masks, z, D, gphi, psi)
+    _, nd, d, nc, nf1 = _dims(g)
+    m = z.shape[0]
+    dt_ = gphi.dtype
+    ins = _inputs(dt_, gphi=(gphi, (d, nc)), D=(D, (m, nc)), z=(z, (m,)))
+    blocks = _facet_blocks((m,), nd, nf1, gphi)
+    _cuda.launch("knp_facet", "knp_ion_facet", dt_, *ins,
+                 *_tables(g, ("f_cp", "f_cm", "f_n", "f_area"), dt_),
+                 masks["f_sip"].data_ptr(),
+                 *_tables(g, ("E_pp", "E_pm", "E_mp", "E_mm"), dt_),
+                 *(M.data_ptr() for M in blocks), m, nd, d, nc, nf1, float(-psi))
+    return tuple(blocks)
+
+
+def knp_membrane_rhs_plain(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch, I_ch_tot,
+                           F, C_M, dt, splitting=True, neg=-1.0):
+    """Membrane rhs of the m solved ions on the n_mem axis (every facet
+    here IS membrane, so no masks; phi_M / I_ch are slot-ordered): b_p, b_m
+    (m, nd, n_mem)."""
+    m, nd = c_k.shape[0], c_k.shape[1]
+    w = g["w_f"]
+    alpha = (D[:, None, :] * (z * z)[:, None, None]) * c_k / alpha_sum[None]
+    AU = alpha.reshape(m * nd, -1)
+    Cfac = (C_M / (F * dt)) / z                                  # (m,)
+    inv_Fz = (1.0 / (F * z))[:, None, None]
+    nm = mem_t["cp"].shape[0]
+    Rp_m, Rm_m = mem_t["Rp"], mem_t["Rm"]                # (nq, nd, nm)
+    stackM = torch.cat([AU, phi], dim=0)                 # (m*nd+nd, nc)
+    MPm = stackM[:, mem_t["cp"]]
+    MMm = stackM[:, mem_t["cm"]]
+    AUp = MPm[:m * nd].reshape(m, nd, nm)
+    AUm = MMm[:m * nd].reshape(m, nd, nm)
+    jphi_m = torch.einsum("qim,im->qm", Rp_m, MPm[m * nd:]) \
+        + neg * torch.einsum("qim,im->qm", Rm_m, MMm[m * nd:])  # (nq, nm)
+    a_p = torch.einsum("qim,kim->kqm", Rp_m, AUp)
+    a_m = torch.einsum("qim,kim->kqm", Rm_m, AUm)
+    C_p = a_p * Cfac[:, None, None]
+    C_m = a_m * Cfac[:, None, None]
+    phiM_f = phi_M[:nm][None, None, :]
+    Itot_f = I_ch_tot[:nm]
+    Ik_f = I_ch[:, :nm][:, None, :]                      # (m,1,nm)
+    s_extra_p = (a_p * Itot_f[None, None, :] * inv_Fz) if splitting else 0.0
+    s_extra_m = (a_m * Itot_f[None, None, :] * inv_Fz) if splitting else 0.0
+    s_e = C_p * phiM_f + neg * (Ik_f * inv_Fz) + s_extra_p       # (m, nq, nm)
+    s_i = C_m * phiM_f + neg * (Ik_f * inv_Fz) + s_extra_m
+    jC = C_p + neg * C_m
+    aC = 0.5 * (C_p + C_m)
+    jphi_b = jphi_m[None]
+    val_p = neg * s_e + (neg * jphi_b * jC * 0.5 + neg * (jphi_b * aC))
+    val_m = s_i + (neg * jphi_b * jC * 0.5 + jphi_b * aC)
+    area_m = g["f_area"][mem_t["fidx"]]
+    b_p = area_m * torch.einsum("q,kqm,qim->kim", w, val_p, Rp_m)
+    b_m = area_m * torch.einsum("q,kqm,qim->kim", w, val_m, Rm_m)
+    return b_p.contiguous(), b_m.contiguous()
+
+
+def knp_membrane_rhs(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch, I_ch_tot,
+                     F, C_M, dt, splitting=True):
+    """:func:`knp_membrane_rhs_plain`, kernel K11 ``knp_membrane_rhs`` on a
+    CUDA tensor.  ``I_ch`` may be the leading rows of a longer array."""
+    if not c_k.is_cuda:
+        return knp_membrane_rhs_plain(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch,
+                                      I_ch_tot, F, C_M, dt, splitting)
+    nq, nd, _, nc, _ = _dims(g)
+    m = c_k.shape[0]
+    dt_ = c_k.dtype
+    nm = mem_t["cp"].shape[0]
+    ins = _inputs(dt_, z=(z, (m,)), D=(D, (m, nc)), c_k=(c_k, (m, nd, nc)),
+                  alpha_sum=(alpha_sum, (nd, nc)), phi=(phi, (nd, nc)),
+                  phi_M=(phi_M, (nm + 1,)), I_ch=(I_ch, (m, nm + 1)),
+                  I_ch_tot=(I_ch_tot, (nm + 1,)))
+    b_p = torch.empty((m, nd, nm), dtype=dt_, device=c_k.device)
+    b_m = torch.empty_like(b_p)
+    if nm:
+        _cuda.launch("knp_membrane_rhs", "knp_ion_membrane_rhs", dt_, *ins,
+                     *_tables(mem_t, ("Rp", "Rm", "cp", "cm", "fidx"), dt_),
+                     *_tables(g, ("f_area", "w_f"), dt_), b_p.data_ptr(), b_m.data_ptr(),
+                     m, nq, nd, nc, nm, nm + 1, int(bool(splitting)), float(F),
+                     float(C_M / (F * dt)))
+    return b_p, b_m
+
+
+def knp_emit_cell_plain(g, mem_t, z, D, psi, drift, Mpp, Mpm, Mmp, Mmm, b_cell, b_p,
+                        b_m, static_blocks=None, pair=False):
+    """Per-cell emit of the KNP assembly: the drift cell block, the
+    gathered upwind blocks (one stacked gather per cell-facet slot), the
+    static operator added last -> blocks (m, K, nd, nd, nc); and the rhs
+    (m, nd, nc) = b_cell + the membrane parts b_p, b_m (m, nd, n_mem) of
+    each cell's facets.  ``pair``: (A_cell (m, nd, nd, nc), rhs) for the
+    pair emit (ops.pairs), which adds the static part itself."""
+    m, nd = b_cell.shape[0], b_cell.shape[1]
+    nf1 = g["f_area"].shape[0]
+    cf = g["cf_idx"]
+    isp = g["cf_is_plus"]
+    A_cell = ((z * psi)[:, None, None, None]
+              * (g["vol"] * D)[:, None, None, :]
+              * drift[None, :, None, :] * g["phibar"][None, None, :, None])
+
+    nm = mem_t["cp"].shape[0]
+    bpm = torch.zeros((m * 2 * nd, nf1), dtype=b_cell.dtype, device=b_cell.device)
+    bpm[:, mem_t["fidx"]] = torch.cat([b_p, b_m], dim=1).reshape(m * 2 * nd, nm)
+    rhs = b_cell
+    for l in range(cf.shape[0]):
+        got = bpm[:, cf[l]].reshape(m, 2, nd, -1)
+        rhs = rhs + torch.where(isp[l][None, None, :], got[:, 0], got[:, 1])
+    if pair:
+        return A_cell.contiguous(), rhs.contiguous()
+
+    Mstk = torch.stack([Mpp, Mmm, Mpm, Mmp], dim=1).reshape(m * 4 * nd * nd, nf1)
+    diag = A_cell
+    offs = []
+    for l in range(cf.shape[0]):
+        sel = isp[l][None, None, None, :]
+        got = Mstk[:, cf[l]].reshape(m, 4, nd, nd, -1)
+        diag = diag + torch.where(sel, got[:, 0], got[:, 1])
+        offs.append(torch.where(sel, got[:, 2], got[:, 3]))
+    blocks = torch.stack([diag] + offs, dim=1)       # (m, K, nd, nd, nc)
+    if static_blocks is not None:
+        blocks = blocks + static_blocks
+    return blocks, rhs.contiguous()
+
+
+def knp_emit_cell(g, mem_t, z, D, psi, drift, Mpp, Mpm, Mmp, Mmm, b_cell, b_p, b_m,
+                  static_blocks=None, pair=False):
+    """:func:`knp_emit_cell_plain`, kernel K11 ``knp_emit_cell`` on a CUDA
+    tensor (equal to it exactly); the membrane parts are read through the
+    inverse membrane map ``mem_t["inv"]``."""
+    if not drift.is_cuda:
+        return knp_emit_cell_plain(g, mem_t, z, D, psi, drift, Mpp, Mpm, Mmp, Mmm,
+                                   b_cell, b_p, b_m, static_blocks, pair)
+    _, nd, d, nc, nf1 = _dims(g)
+    m = z.shape[0]
+    dt_ = drift.dtype
+    nm = mem_t["cp"].shape[0]
+    K = d + 2
+    head = _inputs(dt_, z=(z, (m,)), D=(D, (m, nc)))
+    ins = _inputs(dt_, drift=(drift, (nd, nc)), Mpp=(Mpp, (m, nd, nd, nf1)),
+                  Mpm=(Mpm, (m, nd, nd, nf1)), Mmp=(Mmp, (m, nd, nd, nf1)),
+                  Mmm=(Mmm, (m, nd, nd, nf1)), b_cell=(b_cell, (m, nd, nc)),
+                  b_p=(b_p, (m, nd, nm)), b_m=(b_m, (m, nd, nm)))
+    _cuda.check("inv", mem_t["inv"], torch.int32, (nf1,))
+    statics = None
+    if static_blocks is not None and not pair:
+        _cuda.check("static_blocks", static_blocks, dt_, (m, K, nd, nd, nc))
+        statics = static_blocks.data_ptr()
+    blocks = torch.empty((m, nd, nd, nc) if pair else (m, K, nd, nd, nc), dtype=dt_,
+                         device=drift.device)
+    rhs = torch.empty((m, nd, nc), dtype=dt_, device=drift.device)
+    vol, phibar = _tables(g, ("vol", "phibar"), dt_)
+    _cuda.launch("knp_emit_cell", "knp_ion_emit_cell", dt_, *head, vol, ins[0], phibar,
+                 *ins[1:], mem_t["inv"].data_ptr(),
+                 *_tables(g, ("cf_idx", "cf_is_plus"), dt_), statics, blocks.data_ptr(),
+                 rhs.data_ptr(), m, nd, d + 1, nc, nf1, nm, int(pair), float(psi))
+    return blocks, rhs
 
 
 def assemble_knp_all(
@@ -316,7 +685,9 @@ def assemble_knp_all(
     pm: Optional[Dict[str, Any]] = None,
 ):
     """All solved ions' KNP operators + rhs in one pass with shared facet
-    and membrane gathers.  ``max(D*un, 0) == D*max(un, 0)`` since D > 0, so
+    and membrane gathers, in four steps (kernel K11 on the card):
+    :func:`knp_cell`, :func:`knp_facet`, :func:`knp_membrane_rhs`,
+    :func:`knp_emit_cell`.  ``max(D*un, 0) == D*max(un, 0)`` since D > 0, so
     the upwind switch is shared by the ions.  ``mem_t``: membrane-presliced
     tables; the whole membrane rhs is computed on the n_mem facet axis.
 
@@ -327,112 +698,21 @@ def assemble_knp_all(
     z, D = ions["z"], ions["D"]                      # (m,), (m, nc)
     c_n, c_k = ions["c_n"], ions["c_k"]              # (m, nd, nc)
     F, psi, C_M, dt = phys["F"], phys["psi"], phys["C_M"], phys["dt"]
-    m = z.shape[0]
-    nd = c_k.shape[1]
-    d = g["G"].shape[1]
-    nf1 = g["f_area"].shape[0]
-    sip = masks["f_sip"]
-    w = g["w_f"]
 
-    # --- shared cell drift --------------------------------------------------
-    gphi = cell_grad(g, phi)                         # (d, nc)
-    drift = torch.einsum("idc,dc->ic", g["G"], gphi)  # (nd, nc)
-    A_cell = ((z * psi)[:, None, None, None]
-              * (g["vol"] * D)[:, None, None, :]
-              * drift[None, :, None, :] * g["phibar"][None, None, :, None])
-
-    # --- one stacked gather per side: [gphi | D_all] ------------------------
-    stackA = torch.cat([gphi, D], dim=0)             # (d+m, nc)
-    SP = stackA[:, g["f_cp"]]
-    SM = stackA[:, g["f_cm"]]
-    u_p = torch.clamp(torch.einsum("df,df->f", SP[:d], g["f_n"]), min=0.0)
-    u_m = torch.clamp(-torch.einsum("df,df->f", SM[:d], g["f_n"]), min=0.0)
-    D_p, D_m = SP[d:], SM[d:]                        # (m, nf+1)
-
-    # --- upwind blocks ------------------------------------------------------
-    scale = (-psi) * z[:, None] * (g["f_area"] * sip)[None, :]   # (m, nf+1)
-    sp_ = (scale * D_p * u_p[None, :])[:, None, None, :]
-    sm_ = (scale * D_m * u_m[None, :])[:, None, None, :]
-    Mpp = sp_ * g["E_pp"][None]
-    Mpm = -sm_ * g["E_pm"][None]
-    Mmp = -sp_ * g["E_mp"][None]
-    Mmm = sm_ * g["E_mm"][None]
-
-    # --- batched block gather (one stacked gather per cell-facet slot) ------
-    cf = g["cf_idx"]
-    isp = g["cf_is_plus"]
+    gphi, drift, b_cell = knp_cell(g, phi, c_n, dt)
+    M = knp_facet(g, masks, z, D, gphi, psi)
+    b_p, b_m = knp_membrane_rhs(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch,
+                                I_ch_tot, F, C_M, dt, splitting)
     if pm is not None:
-        pdK, peK = gather_blocks_pair_multi(g, pm, A_cell.contiguous(), *(
-            M.contiguous() for M in (Mpp, Mpm, Mmp, Mmm)))
-        if static_blocks is not None:
-            pdK = pdK + static_blocks[0]
-            peK = peK + static_blocks[1]
-        blocks = (pdK, peK)
-    else:
-        Mstk = torch.stack([Mpp, Mmm, Mpm, Mmp], dim=1).reshape(m * 4 * nd * nd, nf1)
-        diag = A_cell
-        offs = []
-        for l in range(cf.shape[0]):
-            sel = isp[l][None, None, None, :]
-            got = Mstk[:, cf[l]].reshape(m, 4, nd, nd, -1)
-            diag = diag + torch.where(sel, got[:, 0], got[:, 1])
-            offs.append(torch.where(sel, got[:, 2], got[:, 3]))
-        blocks = torch.stack([diag] + offs, dim=1)       # (m, K, nd, nd, nc)
-        if static_blocks is not None:
-            blocks = blocks + static_blocks
-
-    # --- rhs ----------------------------------------------------------------
-    b_cell = (g["vol"] / dt) * torch.einsum("ij,kjc->kic", g["M0"], c_n)
-
-    alpha = (D[:, None, :] * (z * z)[:, None, None]) * c_k / alpha_sum[None]
-    AU = alpha.reshape(m * nd, -1)
-    Cfac = (C_M / (F * dt)) / z                                  # (m,)
-    inv_Fz = (1.0 / (F * z))[:, None, None]
-
-    # membrane rhs on the n_mem axis: every facet here IS membrane, so no
-    # masks; phi_M / I_ch are already slot-ordered (no gather)
-    nm = mem_t["cp"].shape[0]
-    Rp_m, Rm_m = mem_t["Rp"], mem_t["Rm"]                # (nq, nd, nm)
-    fidx = mem_t["fidx"]
-    stackM = torch.cat([AU, phi], dim=0)                 # (m*nd+nd, nc)
-    MPm = stackM[:, mem_t["cp"]]
-    MMm = stackM[:, mem_t["cm"]]
-    AUp = MPm[:m * nd].reshape(m, nd, nm)
-    AUm = MMm[:m * nd].reshape(m, nd, nm)
-    jphi_m = torch.einsum("qim,im->qm", Rp_m, MPm[m * nd:]) \
-        - torch.einsum("qim,im->qm", Rm_m, MMm[m * nd:])  # (nq, nm)
-    a_p = torch.einsum("qim,kim->kqm", Rp_m, AUp)
-    a_m = torch.einsum("qim,kim->kqm", Rm_m, AUm)
-    C_p = a_p * Cfac[:, None, None]
-    C_m = a_m * Cfac[:, None, None]
-    phiM_f = phi_M[:nm][None, None, :]
-    Itot_f = I_ch_tot[:nm]
-    Ik_f = I_ch[:, :nm][:, None, :]                      # (m,1,nm)
-    s_extra_p = (a_p * Itot_f[None, None, :] * inv_Fz) if splitting else 0.0
-    s_extra_m = (a_m * Itot_f[None, None, :] * inv_Fz) if splitting else 0.0
-    s_e = C_p * phiM_f - Ik_f * inv_Fz + s_extra_p       # (m, nq, nm)
-    s_i = C_m * phiM_f - Ik_f * inv_Fz + s_extra_m
-    jC = C_p - C_m
-    aC = 0.5 * (C_p + C_m)
-    jphi_b = jphi_m[None]
-    val_p = -s_e + (-jphi_b * jC * 0.5 - jphi_b * aC)
-    val_m = s_i + (-jphi_b * jC * 0.5 + jphi_b * aC)
-    area_m = g["f_area"][fidx]
-    b_p = area_m * torch.einsum("q,kqm,qim->kim", w, val_p, Rp_m)
-    b_m = area_m * torch.einsum("q,kqm,qim->kim", w, val_m, Rm_m)
-    bpm = torch.zeros((m * 2 * nd, nf1), dtype=b_cell.dtype, device=b_cell.device)
-    bpm[:, fidx] = torch.cat([b_p, b_m], dim=1).reshape(m * 2 * nd, nm)
-
-    # batched rhs gather
-    rhs = b_cell
-    for l in range(cf.shape[0]):
-        got = bpm[:, cf[l]].reshape(m, 2, nd, -1)
-        rhs = rhs + torch.where(isp[l][None, None, :], got[:, 0], got[:, 1])
-    return blocks, rhs.contiguous()
+        A_cell, rhs = knp_emit_cell(g, mem_t, z, D, psi, drift, *M, b_cell, b_p, b_m,
+                                    pair=True)
+        return gather_blocks_pair_multi(g, pm, A_cell, *M, add=static_blocks), rhs
+    return knp_emit_cell(g, mem_t, z, D, psi, drift, *M, b_cell, b_p, b_m,
+                         static_blocks)
 
 
 # ---------------------------------------------------------------------------
-# membrane traces and updates (the presliced n_mem-axis helpers)
+# K14: membrane traces and updates (the presliced n_mem-axis helpers)
 # ---------------------------------------------------------------------------
 
 def _mem_trace(g, mem, u, side: str):
@@ -442,26 +722,83 @@ def _mem_trace(g, mem, u, side: str):
     return torch.einsum("qim,im->qm", R, u[:, c])
 
 
-def membrane_avg_m(g, mem, u, side: str):
+_TRACE_MODES = {"p": 0, "m": 1, "jump": 2, "nernst": 3}
+
+
+def _membrane_trace_cuda(g, mem, u, mode, coef=1.0):
+    """Kernel K14 ``membrane_trace``: the facet average over n_mem of the
+    plus trace, the minus trace, the jump or coef * ln(plus / minus)."""
+    nq, nd, nm = mem["Rp"].shape
+    if nd > MAX_ND:
+        raise NotImplementedError(
+            f"membrane_trace: CUDA kernel built for nd <= {MAX_ND}, got nd = {nd}")
+    _cuda.check("u", u, None, (nd, u.shape[-1]))
+    out = torch.empty((nm,), dtype=u.dtype, device=u.device)
+    if nm:
+        _cuda.launch("membrane_trace", "knp_membrane_trace", u.dtype, u.data_ptr(),
+                     *_tables(mem, ("Rp", "Rm", "cp", "cm"), u.dtype),
+                     *_tables(g, ("w_f",), u.dtype), out.data_ptr(), nq, nd,
+                     u.shape[-1], nm, _TRACE_MODES[mode], float(coef))
+    return out
+
+
+def membrane_avg_m_plain(g, mem, u, side: str):
     """Facet-average membrane trace -> (n_mem,)."""
     return torch.einsum("q,qm->m", g["w_f"], _mem_trace(g, mem, u, side))
 
 
-def nernst_potential_m(g, mem, c, z, F, R, T):
+def membrane_avg_m(g, mem, u, side: str):
+    """Facet-average membrane trace -> (n_mem,) (kernel K14 on a CUDA
+    tensor)."""
+    if not u.is_cuda:
+        return membrane_avg_m_plain(g, mem, u, side)
+    return _membrane_trace_cuda(g, mem, u, side)
+
+
+def nernst_potential_m_plain(g, mem, c, z, F, R, T):
     """E = RT/(zF) * facet-avg ln(c_plus / c_minus)."""
     cp = _mem_trace(g, mem, c, "p")
     cm = _mem_trace(g, mem, c, "m")
     return R * T / (F * z) * torch.einsum("q,qm->m", g["w_f"], torch.log(cp / cm))
 
 
-def jump_phi_M_m(g, mem, phi):
+def nernst_potential_m(g, mem, c, z, F, R, T):
+    """E = RT/(zF) * facet-avg ln(c_plus / c_minus) (kernel K14 on a CUDA
+    tensor)."""
+    if not c.is_cuda:
+        return nernst_potential_m_plain(g, mem, c, z, F, R, T)
+    return _membrane_trace_cuda(g, mem, c, "nernst", R * T / (F * z))
+
+
+def jump_phi_M_m_plain(g, mem, phi):
     """phi_M = facet-avg JUMP(phi) = phi_i - phi_e."""
     j = _mem_trace(g, mem, phi, "m") - _mem_trace(g, mem, phi, "p")
     return torch.einsum("q,qm->m", g["w_f"], j)
 
 
-def eliminated_concentration(c, z, rho, z_elim):
+def jump_phi_M_m(g, mem, phi):
+    """phi_M = facet-avg JUMP(phi) = phi_i - phi_e (kernel K14 on a CUDA
+    tensor)."""
+    if not phi.is_cuda:
+        return jump_phi_M_m_plain(g, mem, phi)
+    return _membrane_trace_cuda(g, mem, phi, "jump")
+
+
+def eliminated_concentration_plain(c, z, rho, z_elim):
     """c_N = -(1/z_N)(sum_k z_k c_k + rho); exact nodal arithmetic since all
     fields are DG1.  c (n_ions-1, nd, nc), rho (nc,)."""
     acc = torch.einsum("k,kic->ic", z, c)
-    return -(acc + rho[None, :]) / z_elim
+    return (-(acc + rho[None, :]) / z_elim).contiguous()
+
+
+def eliminated_concentration(c, z, rho, z_elim):
+    """c_N = -(1/z_N)(sum_k z_k c_k + rho) (kernel K14 ``eliminated`` on a
+    CUDA tensor)."""
+    if not c.is_cuda:
+        return eliminated_concentration_plain(c, z, rho, z_elim)
+    m, nd, nc = c.shape
+    ins = _inputs(c.dtype, c=(c, (m, nd, nc)), z=(z, (m,)), rho=(rho, (nc,)))
+    out = torch.empty((nd, nc), dtype=c.dtype, device=c.device)
+    _cuda.launch("eliminated_concentration", "knp_eliminated", c.dtype, *ins,
+                 out.data_ptr(), m, nd, nc, float(z_elim))
+    return out

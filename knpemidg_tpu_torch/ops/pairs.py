@@ -17,11 +17,13 @@ fallback between the two):
 
 * K3 ``csrc/pair_matvec.cu``: :func:`pair_matvec`, :func:`pair_matvec_multi`;
 * K4 ``csrc/pair_relayout.cu``: :func:`to_pair`, :func:`from_pair`;
-* K12 ``csrc/pair_emit.cu``: :func:`gather_blocks_pair`,
-  :func:`gather_blocks_pair_multi`.
+* K12 ``csrc/pair_emit.cu``: :func:`gather_blocks_pair` (with ``reg`` also
+  the EMI preconditioner diagonal), :func:`gather_blocks_pair_multi` (with
+  ``add`` the static KNP operator added in the same launch).
 
-The setup-only helpers (fan matvec, block embedding, value sums, the pair
-neighbour table, the cell-ELL conversion) are plain torch on every device.
+The setup-only helpers (fan matvec, value sums, the pair neighbour table,
+the cell-ELL conversion) and the block embedding are plain torch on every
+device.
 """
 from __future__ import annotations
 
@@ -438,13 +440,14 @@ def pair_matvec_fan(pd, pe, pm, X):
 # ---------------------------------------------------------------------------
 
 def gather_blocks_pair_multi_plain(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
-                                   dead_identity: float = 1.0):
+                                   dead_identity: float = 1.0, add=None):
     """Pair-block operator of m systems from per-facet blocks: A_cell
     (m, nd, nd, nc), M** (m, nd, nd, nf+1) -> pd (m, 2nd, 2nd, npair),
     pe (m, S, 2nd, nd, npair).  ``dead_identity`` goes on the dead half's
     diagonal of self-pairs (keeps the block-Jacobi inverse nonsingular;
     the dead rows and rhs are zero, so the Krylov iterates stay zero
-    there).  ``g`` is unused; it keeps the JAX signature."""
+    there).  ``add``: a static pair operator (pd, pe) added last.  ``g`` is
+    unused; it keeps the JAX signature."""
     m, nd = A_cell.shape[0], A_cell.shape[1]
     nf1 = Mpp.shape[-1]
     npair = pm["int_f"].shape[0]
@@ -484,21 +487,31 @@ def gather_blocks_pair_multi_plain(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
         B00 = B00 + eye * (dead_identity * (1.0 - live0))
     pd = torch.cat([torch.cat([B00, B01], dim=2),
                     torch.cat([B10, B11], dim=2)], dim=1)
-    return pd, torch.stack(pes, dim=1)
+    pe = torch.stack(pes, dim=1)
+    if add is not None:
+        pd, pe = pd + add[0], pe + add[1]
+    return pd, pe
 
 
 def gather_blocks_pair_plain(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
-                             dead_identity: float = 1.0):
+                             dead_identity: float = 1.0, reg=None):
     """Single-system emitter: A_cell (nd, nd, nc), M** (nd, nd, nf+1) ->
-    (pd (2nd, 2nd, npair), pe (S, 2nd, nd, npair))."""
+    (pd (2nd, 2nd, npair), pe (S, 2nd, nd, npair)).  With per-cell blocks
+    ``reg`` (nd, nd, nc) a third output pd + their pair-diagonal embedding
+    (the EMI preconditioner diagonal)."""
     pd, pe = gather_blocks_pair_multi_plain(
         g, pm, A_cell[None], Mpp[None], Mpm[None], Mmp[None], Mmm[None],
         dead_identity)
-    return pd[0], pe[0]
+    if reg is None:
+        return pd[0], pe[0]
+    return pd[0], pe[0], pd[0] + pair_block_diag_embed(pm, reg)
 
 
-def _gather_blocks_pair_cuda(pm, A_cell, Mpp, Mpm, Mmp, Mmm, dead_identity):
-    """A_cell (m, nd, nd, nc), M** (m, nd, nd, nf+1) on the card."""
+def _gather_blocks_pair_cuda(pm, A_cell, Mpp, Mpm, Mmp, Mmm, dead_identity,
+                             add=None, reg=None):
+    """A_cell (m, nd, nd, nc), M** (m, nd, nd, nf+1) on the card; ``add``
+    a (pd, pe) pair operator added last, ``reg`` (m, nd, nd, nc) for the
+    third output pd + embedded reg."""
     _no_live0(pm, "gather_blocks_pair")
     m, nd, _, nc = A_cell.shape
     nf1 = Mpp.shape[-1]
@@ -516,37 +529,53 @@ def _gather_blocks_pair_cuda(pm, A_cell, Mpp, Mpm, Mmp, Mmm, dead_identity):
                      device=A_cell.device)
     pe = torch.empty((m, S, 2 * nd, nd, npair), dtype=A_cell.dtype,
                      device=A_cell.device)
+    add_ptrs = (None, None)
+    if add is not None:
+        _cuda.check("add pd", add[0], A_cell.dtype, pd.shape)
+        _cuda.check("add pe", add[1], A_cell.dtype, pe.shape)
+        add_ptrs = (add[0].data_ptr(), add[1].data_ptr())
+    pdiag = None
+    if reg is not None:
+        _cuda.check("reg", reg, A_cell.dtype, A_cell.shape)
+        pdiag = torch.empty_like(pd)
     _cuda.launch("gather_blocks_pair", "knp_gather_blocks_pair", A_cell.dtype,
                  A_cell.data_ptr(), Mpp.data_ptr(), Mpm.data_ptr(),
                  Mmp.data_ptr(), Mmm.data_ptr(),
                  *(pm[key].data_ptr() for key in maps),
-                 pd.data_ptr(), pe.data_ptr(), m, nd, nc, nf1, S, npair,
-                 float(dead_identity))
-    return pd, pe
+                 pd.data_ptr(), pe.data_ptr(), *add_ptrs,
+                 None if reg is None else reg.data_ptr(),
+                 None if reg is None else pdiag.data_ptr(),
+                 m, nd, nc, nf1, S, npair, float(dead_identity))
+    return pd, pe, pdiag
 
 
 def gather_blocks_pair(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
-                       dead_identity: float = 1.0):
+                       dead_identity: float = 1.0, reg=None):
     """Pair-block operator from per-facet blocks (kernel K12 on a CUDA
-    tensor): (pd (2nd, 2nd, npair), pe (S, 2nd, nd, npair))."""
+    tensor): (pd (2nd, 2nd, npair), pe (S, 2nd, nd, npair)); with ``reg``
+    (nd, nd, nc) also pd + the pair-diagonal embedding of reg, from the same
+    launch."""
     if not A_cell.is_cuda:
         return gather_blocks_pair_plain(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
-                                        dead_identity)
-    pd, pe = _gather_blocks_pair_cuda(
+                                        dead_identity, reg)
+    pd, pe, pdiag = _gather_blocks_pair_cuda(
         pm, A_cell[None], Mpp[None], Mpm[None], Mmp[None], Mmm[None],
-        dead_identity)
-    return pd[0], pe[0]
+        dead_identity, reg=None if reg is None else reg[None])
+    if reg is None:
+        return pd[0], pe[0]
+    return pd[0], pe[0], pdiag[0]
 
 
 def gather_blocks_pair_multi(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
-                             dead_identity: float = 1.0):
+                             dead_identity: float = 1.0, add=None):
     """Batched emitter, one launch for all m systems (kernel K12 on a CUDA
-    tensor): pd (m, 2nd, 2nd, npair), pe (m, S, 2nd, nd, npair)."""
+    tensor): pd (m, 2nd, 2nd, npair), pe (m, S, 2nd, nd, npair).  ``add``:
+    a static pair operator (pd, pe) added last, in the same launch."""
     if not A_cell.is_cuda:
         return gather_blocks_pair_multi_plain(g, pm, A_cell, Mpp, Mpm, Mmp,
-                                              Mmm, dead_identity)
+                                              Mmm, dead_identity, add)
     return _gather_blocks_pair_cuda(pm, A_cell, Mpp, Mpm, Mmp, Mmm,
-                                    dead_identity)
+                                    dead_identity, add=add)[:2]
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,11 @@ STEPS steady steps (``run_block``) twice:
    rows of their own, so the shares add up to more than 1), and the
    device time per launch of each hand-written kernel (csrc/).  The
    profiler's own cost is in the wall, so the busy share it gives is a
-   lower bound.
+   lower bound;
+3. census: one more step with every aten operator call counted per phase
+   (a dispatch mode, so nothing is timed here): the calls a phase makes
+   beside its hand-written kernels, and how many of them are matrix
+   products (bmm / mm, which is what an einsum lowers to).
 
 Usage (needs a CUDA card):
 
@@ -43,7 +47,11 @@ HAND_KERNELS = ("bell_matvec_kernel", "bj_inverse_kernel", "bj_apply_kernel",
                 "membrane_rk4_kernel", "pair_matvec_kernel", "to_pair_kernel",
                 "from_pair_kernel", "gather_blocks_pair_kernel",
                 "tl_restrict_kernel", "tl_reduce_kernel", "tl_gemv_kernel",
-                "tl_small_kernel", "tl_prolong_kernel")
+                "tl_small_kernel", "tl_prolong_kernel",
+                "emi_cell_kernel", "emi_facet_kernel", "emi_emit_cell_kernel",
+                "alpha_sum_kernel", "ion_cell_kernel", "ion_facet_kernel",
+                "ion_membrane_rhs_kernel", "ion_emit_cell_kernel",
+                "membrane_trace_kernel", "eliminated_kernel")
 PHASES = ("_ode_step", "_assemble_emi", "_emi_solve_iterative",
           "_knp_assemble_all", "_knp_solve_all", "_finalize_step")
 
@@ -68,6 +76,38 @@ def _timed_phases(S, walls):
 def _untimed(S):
     for name in PHASES:
         delattr(S, name)
+
+
+def _op_census(S, state, sp):
+    """One step with the aten operator calls of each phase counted:
+    {phase: {"aten_ops": n, "matrix_products": n}}."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counts = {name: {"aten_ops": 0, "matrix_products": 0} for name in PHASES}
+
+    class Count(TorchDispatchMode):
+        def __init__(self, slot):
+            super().__init__()
+            self.slot = slot
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.slot["aten_ops"] += 1
+            if func.__name__.split(".")[0] in ("bmm", "mm", "addmm", "baddbmm", "einsum"):
+                self.slot["matrix_products"] += 1
+            return func(*args, **(kwargs or {}))
+
+    for name in PHASES:
+        fn = getattr(S, name)
+
+        def wrapped(*args, _fn=fn, _name=name, **kw):
+            with Count(counts[_name]):
+                return _fn(*args, **kw)
+
+        setattr(S, name, wrapped)
+    S.run_block(state, sp, 1)
+    _untimed(S)
+    torch.cuda.synchronize()
+    return counts
 
 
 def _device_events(prof):
@@ -124,6 +164,7 @@ def profile(dtype=torch.float64, pair=False):
         state, st_trace = S.run_block(state, sp, STEPS)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    census = _op_census(S, state, sp)
     dev = _device_events(prof)
     # None when the profiler saw no device activity (not measured)
     busy_ms = 1e-3 * _union_us(dev) if dev else None
@@ -139,6 +180,7 @@ def profile(dtype=torch.float64, pair=False):
         "phases": {"emi_iters": st_phase["emi_iters"],
                    "knp_iters": st_phase["knp_iters"],
                    "ms": {name.strip("_"): walls[name] for name in PHASES}},
+        "census": {name.strip("_"): census[name] for name in PHASES},
         "trace": {"emi_iters": st_trace["emi_iters"],
                   "knp_iters": st_trace["knp_iters"],
                   "wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -169,6 +211,9 @@ def main():
     print(f"phases  EMI iters {ph['emi_iters']}  KNP iters {ph['knp_iters']}")
     for name, ms in ph["ms"].items():
         print(f"  {name:22s} " + " ".join(f"{v:8.3f}" for v in ms) + "  ms")
+    print("aten operator calls per phase in one step (matrix products among them):")
+    for name, cnt in out["census"].items():
+        print(f"  {name:22s} {cnt['aten_ops']:6d} ({cnt['matrix_products']})")
     tr = out["trace"]
     print(f"trace   EMI iters {tr['emi_iters']}  KNP iters {tr['knp_iters']}")
     busy = ("device busy not measured (no device events in the trace)"

@@ -260,6 +260,12 @@ class Solver:
         self.mem_dev["Rm"] = self.g["f_Rm"][:, :, fidx]
         self.mem_dev["cp"] = self.g["f_cp"][fidx]
         self.mem_dev["cm"] = self.g["f_cm"][fidx]
+        # the inverse of fidx over the facet axis (-1 off the membranes):
+        # the assembly kernels read membrane data by a gather, never scatter
+        mof = self.tables.mem_of_facet
+        self.mem_dev["inv"] = torch.as_tensor(
+            np.where(mof < self.tables.n_mem, mof, -1).astype(np.int32),
+            device=self.device)
         self.masks = {
             "f_sip": torch.as_tensor(self.geom.f_stag == 0, device=self.device),
             "f_mem": torch.as_tensor(self.tables.mem_of_facet < self.tables.n_mem,
@@ -315,8 +321,10 @@ class Solver:
         """Initial conditions for concentrations and potential."""
         c0 = [self._interp_init(ion.c_init_sub, ion.c_init_sub_type).T
               for ion in self.ion_list]
-        self.c_init = self._tensor(np.stack(c0[:-1]))
-        self.c_elim_init = self._tensor(c0[-1])
+        # stacked transposes keep numpy's memory order; the kernels take
+        # contiguous fields
+        self.c_init = self._tensor(np.stack(c0[:-1])).contiguous()
+        self.c_elim_init = self._tensor(c0[-1]).contiguous()
         self.phi_init = self._tensor(np.zeros((self.nd, self.n_cells)))
         return self
 
@@ -467,7 +475,8 @@ class Solver:
         out = guess + res.x
         if pair:
             out = from_pair(self.pairs, out)
-        return out, res.iters, res.converged
+        # the assembly and trace kernels take contiguous fields
+        return out.contiguous(), res.iters, res.converged
 
     def _finalize_step(self, state, stats, c, phi, t):
         """Post-solve updates: phi_M jump, eliminated ion, time."""
@@ -487,7 +496,7 @@ class Solver:
         (blocks (m, K, nd, nd, nc), rhs (m, nd, nc)), or ((pdK, peK), rhs)
         on the pair layout.  ``t`` is unused; it keeps the JAX signature."""
         call = self._all_c(c, c_elim)
-        alpha_sum = torch.einsum("k,kc,kic->ic", self.z ** 2, self.D, call)
+        alpha_sum = assembly.alpha_sum(self.z, self.D, call)
         # the ion-stacked static operator (-1), in pair form (-2) on the
         # pair layout, both cached by attach_pc
         cache = getattr(self, "_knp_static_blocks", {})
@@ -525,7 +534,7 @@ class Solver:
             rtol=sp_.rtol_knp, atol=sp_.atol_knp,
             max_it=sp_.max_it_knp, restart=sp_.gmres_restart, b_ref=rhsK,
         )
-        return c + res.x, res.iters, res.converged
+        return (c + res.x).contiguous(), res.iters, res.converged
 
     def _knp_solve_all_pair(self, blocksK, rhsK, c, sp_: SolverParams, pcK):
         """_knp_solve_all on the pair layout: the rhs and the iterate
@@ -553,7 +562,7 @@ class Solver:
             rtol=sp_.rtol_knp, atol=sp_.atol_knp,
             max_it=sp_.max_it_knp, restart=sp_.gmres_restart, b_ref=rhs_p,
         )
-        return c + from_pair(pm, res.x), res.iters, res.converged
+        return (c + from_pair(pm, res.x)).contiguous(), res.iters, res.converged
 
     # ------------------------------------------------------------------
     # ODE step (step 0 of the splitting)

@@ -1,0 +1,354 @@
+"""The plain versions of the assembly kernels (K10, K11, K14) of the port,
+one per kernel entry point, against the JAX functions they mirror, in
+float64 to 1e-12: on the EMIx fixture (3D) and the 2D neuron at a state
+perturbed from the initial one with numpy-seeded noise, and on the
+interleaved pair layout.  The JAX side runs on the CPU as in its own tests."""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import test_torch_parity as tp
+from test_torch_parity import rel, t64
+
+from knpemidg_tpu.ops import assembly as jasm
+from knpemidg_tpu_torch.ops import assembly, pairs
+
+TOL = 1e-12
+
+FIXTURES = {"emix": (lambda: tp.emix_jax()[0], lambda: tp.emix_torch()[0]),
+            "neuron2d": (lambda: tp.neuron_2d_jax()[0], lambda: tp.neuron_2d_torch()[0])}
+
+
+def _state(Sj, seed=11):
+    """Seeded inputs in the solver's cell numbering (numpy)."""
+    rng = np.random.default_rng(seed)
+    nc = np.asarray(Sj.c_init).shape[-1]
+    scale = float(np.abs(np.asarray(Sj._initial_state(0.0)["phi_M"])).max())
+    c = np.asarray(Sj.c_init) * rng.uniform(0.99, 1.01, Sj.c_init.shape)
+    c_elim = np.asarray(Sj.c_elim_init) * rng.uniform(0.99, 1.01, Sj.c_elim_init.shape)
+    phi_M = np.concatenate([rng.standard_normal(Sj.n_mem) * scale, [0.0]])
+    I_ch = np.concatenate([rng.standard_normal((len(Sj.ion_list), Sj.n_mem)) * 1e-2,
+                           np.zeros((len(Sj.ion_list), 1))], axis=1)
+    return dict(c=c, c_elim=c_elim, call=np.concatenate([c, c_elim[None]]),
+                phi=rng.standard_normal((Sj.nd, nc)) * 0.1 * scale,
+                phi_M=phi_M, I_ch=I_ch, I_tot=I_ch.sum(axis=0))
+
+
+@pytest.fixture(scope="module", params=sorted(FIXTURES))
+def solvers(request):
+    jb, tb = FIXTURES[request.param]
+    Sj, St = jb(), tb()
+    return Sj, St, _state(Sj)
+
+
+def _facet_blocks(rng, lead, nd, nf1):
+    """Seeded facet blocks with a zero dummy facet (the last column)."""
+    Ms = rng.standard_normal((4,) + lead + (nd, nd, nf1))
+    Ms[..., -1] = 0.0
+    return Ms
+
+
+def test_inverse_membrane_map(solvers):
+    _, St, _ = solvers
+    inv = tp.to_np(St.mem_dev["inv"])
+    fidx = tp.to_np(St.mem_dev["fidx"])
+    assert St.mem_dev["inv"].dtype == torch.int32
+    assert inv.shape == (St.g["f_area"].shape[0],)
+    assert np.array_equal(inv[fidx], np.arange(St.n_mem))
+    off = np.ones(inv.shape, dtype=bool)
+    off[fidx] = False
+    assert np.all(inv[off] == -1)
+
+
+G_TABLES = assembly._EMI_FACET_TABLES + ("G", "vol", "phibar", "GG", "M0", "cf_idx",
+                                          "cf_is_plus")
+MEM_TABLES = ("Rp", "Rm", "cp", "cm", "fidx", "inv")
+
+
+def _check_tables(St):
+    """The static tables the kernels read: contiguous, floats in the
+    solver's dtype, indices int32, masks bool."""
+    for src, keys in ((St.g, G_TABLES), (St.mem_dev, MEM_TABLES),
+                      (St.masks, ("f_sip", "f_mem"))):
+        for key in keys:
+            t = src[key]
+            assert t.is_contiguous(), key
+            assert t.dtype in (torch.float64, torch.int32, torch.bool), key
+
+
+def test_kernel_tables_are_contiguous(solvers):
+    _check_tables(solvers[1])
+
+
+def test_emi_cell_matches_reference_formulas(solvers):
+    Sj, St, x = solvers
+    p = Sj.params
+    kappa, kbar, flux, b_cell = assembly.emi_cell_plain(
+        St.g, St.z, St.D, t64(x["call"]), p.F, p.psi)
+    gj = Sj.g
+    kj = p.F * p.psi * jnp.einsum("k,kc,kic->ic", Sj.z * Sj.z, Sj.D, jnp.asarray(x["call"]))
+    fj = jnp.einsum("k,kc,kdc->dc", Sj.z, Sj.D,
+                    jnp.einsum("idc,kic->kdc", gj["G"], jnp.asarray(x["call"])))
+    assert rel(kappa, kj) < TOL
+    assert rel(kbar, jnp.einsum("i,ic->c", gj["phibar"], kj)) < TOL
+    assert rel(flux, fj) < TOL
+    assert rel(b_cell, -p.F * gj["vol"] * jnp.einsum("dc,idc->ic", fj, gj["G"])) < TOL
+    assert all(t.is_contiguous() for t in (kappa, kbar, flux, b_cell))
+
+
+def test_emi_facet_blocks_match_jax(solvers):
+    """The facet blocks against _sip_blocks + _jump_jump_blocks; the dummy
+    facet's blocks are exactly zero."""
+    Sj, St, x = solvers
+    p = Sj.params
+    kappa, _, flux, _ = assembly.emi_cell_plain(St.g, St.z, St.D, t64(x["call"]), p.F, p.psi)
+    *M, b_p, b_m = assembly.emi_facet_plain(
+        St.g, St.masks, kappa, flux, t64(x["phi_M"]), St.mem_dev, p.F, p.C_phi, St.tau)
+    gj = Sj.g
+    kj = jnp.asarray(tp.to_np(kappa))
+    kp, km = jasm.facet_trace(gj, kj, "p"), jasm.facet_trace(gj, kj, "m")
+    Sip = jasm._sip_blocks(gj, kp, km, jasm._gn(gj, "p"), jasm._gn(gj, "m"),
+                           Sj.tau / gj["f_havg"], Sj.masks["f_sip"])
+    Cj = jasm._jump_jump_blocks(gj, jnp.full_like(gj["f_area"], p.C_phi),
+                                Sj.masks["f_mem"])
+    for Mt, Ms, Mc in zip(M, Sip, Cj):
+        assert rel(Mt, Ms + Mc) < TOL
+        assert Mt.is_contiguous()
+        assert float(Mt[..., -1].abs().max()) == 0.0
+    assert float(b_p[:, -1].abs().max()) == 0.0 and float(b_m[:, -1].abs().max()) == 0.0
+
+
+def test_emi_emit_cell_matches_jax_gathers(solvers):
+    """Given the same facet blocks and rhs parts, the emit equals
+    gather_blocks / gather_rhs and the regularised diagonal."""
+    Sj, St, x = solvers
+    rng = np.random.default_rng(12)
+    nd, nc = St.nd, St.n_cells
+    nf1 = St.g["f_area"].shape[0]
+    Ms = _facet_blocks(rng, (), nd, nf1)
+    bs = rng.standard_normal((3, nd, max(nc, nf1)))
+    b_cell, b_p, b_m = bs[0][:, :nc], bs[1][:, :nf1], bs[2][:, :nf1]
+    kbar = rng.uniform(0.5, 2.0, nc)
+    inv_Lp2 = 1.0 / St.Lp ** 2
+    blocks, rhs, Pd = assembly.emi_emit_cell_plain(
+        St.g, t64(kbar), *(t64(M) for M in Ms), t64(b_cell), t64(b_p), t64(b_m), inv_Lp2)
+    gj = Sj.g
+    A_cell = (gj["vol"] * jnp.asarray(kbar)) * jasm._GG(gj)
+    bj = jasm.gather_blocks(gj, A_cell, *(jnp.asarray(M) for M in Ms))
+    rj = jasm.gather_rhs(gj, jnp.asarray(b_cell), jnp.asarray(b_p), jnp.asarray(b_m))
+    reg = (gj["vol"] * jnp.asarray(kbar) / Sj.Lp ** 2) * jasm._M0(gj)[:, :, None]
+    assert rel(blocks, bj) < TOL
+    assert rel(rhs, rj) < TOL
+    assert rel(Pd, bj[0] + reg) < TOL
+    A_t, rhs_p, reg_t = assembly.emi_emit_cell_plain(
+        St.g, t64(kbar), *(t64(M) for M in Ms), t64(b_cell), t64(b_p), t64(b_m), inv_Lp2,
+        pair=True)
+    assert rel(A_t, A_cell) < TOL and rel(reg_t, reg) < TOL
+    assert torch.equal(rhs_p, rhs)
+
+
+def _knp_parts(St, x, static_blocks=None):
+    """The four steps of the port's KNP assembly at state x."""
+    p = St.params
+    m = St.N_ions
+    z, D = St.z[:m], St.D[:m]
+    asum = assembly.alpha_sum_plain(St.z, St.D, t64(x["call"]))
+    gphi, drift, b_cell = assembly.knp_cell_plain(St.g, t64(x["phi"]), t64(x["c"]), p.dt)
+    M = assembly.knp_facet_plain(St.g, St.masks, z, D, gphi, p.psi)
+    b_p, b_m = assembly.knp_membrane_rhs_plain(
+        St.g, St.mem_dev, z, D, t64(x["c"]), asum, t64(x["phi"]), t64(x["phi_M"]),
+        t64(x["I_ch"][:m]), t64(x["I_tot"]), p.F, p.C_M, p.dt)
+    return z, D, asum, drift, M, b_cell, b_p, b_m
+
+
+def test_knp_upwind_blocks_and_membrane_rhs_match_jax(solvers):
+    """The port's four KNP steps without the static operator against the
+    JAX all-ion assembly without it: the upwind blocks, the drift cell
+    blocks and the membrane rhs."""
+    Sj, St, x = solvers
+    p = Sj.params
+    m = Sj.N_ions
+    z, D, asum, drift, M, b_cell, b_p, b_m = _knp_parts(St, x)
+    bt, rt = assembly.knp_emit_cell_plain(St.g, St.mem_dev, z, D, p.psi, drift, *M,
+                                          b_cell, b_p, b_m)
+    asum_j = jnp.einsum("k,kc,kic->ic", Sj.z ** 2, Sj.D, jnp.asarray(x["call"]))
+    ionsd = {"z": Sj.z[:m], "D": Sj.D[:m], "c_n": jnp.asarray(x["c"]),
+             "c_k": jnp.asarray(x["c"])}
+    bj, rj = jasm.assemble_knp_all(
+        Sj.g, Sj.masks, ionsd, Sj._phys_knp(), jnp.asarray(x["phi"]), asum_j,
+        phi_M=jnp.asarray(x["phi_M"]), I_ch=jnp.asarray(x["I_ch"][:m]),
+        I_ch_tot=jnp.asarray(x["I_tot"]), mem_t=Sj.mem_dev)
+    assert rel(asum, asum_j) < TOL
+    assert rel(bt, bj) < TOL
+    assert rel(rt, rj) < TOL
+    for Mt in M:
+        assert Mt.is_contiguous() and float(Mt[..., -1].abs().max()) == 0.0
+    # the upwind switch is exercised on both sides
+    gphi = assembly.knp_cell_plain(St.g, t64(x["phi"]), t64(x["c"]), p.dt)[0]
+    un = torch.einsum("df,df->f", gphi[:, St.g["f_cp"]], St.g["f_n"])
+    assert bool((un > 0).any()) and bool((un < 0).any())
+
+
+def test_knp_emit_cell_adds_static_last(solvers):
+    """Given the same facet blocks, the emit equals the JAX stacked gather
+    with the static operator added last, and its pair form hands the drift
+    blocks and the same rhs to the pair emit."""
+    Sj, St, x = solvers
+    p = Sj.params
+    m, nd, nc = St.N_ions, St.nd, St.n_cells
+    rng = np.random.default_rng(13)
+    z, D, _, drift, _, b_cell, b_p, b_m = _knp_parts(St, x)
+    Ms = _facet_blocks(rng, (m,), nd, St.g["f_area"].shape[0])
+    statics = rng.standard_normal((m, St.g["nbr"].shape[0], nd, nd, nc))
+    bt, rt = assembly.knp_emit_cell_plain(
+        St.g, St.mem_dev, z, D, p.psi, drift, *(t64(M) for M in Ms), b_cell, b_p, b_m,
+        static_blocks=t64(statics))
+    gj = Sj.g
+    A_cell = ((Sj.z[:m] * p.psi)[:, None, None, None]
+              * (gj["vol"] * Sj.D[:m])[:, None, None, :]
+              * jnp.asarray(tp.to_np(drift))[None, :, None, :]
+              * gj["phibar"][None, None, :, None])
+    ref = jnp.stack([jasm.gather_blocks(gj, A_cell[k], *(jnp.asarray(M[k]) for M in Ms))
+                     for k in range(m)]) + jnp.asarray(statics)
+    assert rel(bt, ref) < TOL
+    A_t, rt_pair = assembly.knp_emit_cell_plain(
+        St.g, St.mem_dev, z, D, p.psi, drift, *(t64(M) for M in Ms), b_cell, b_p, b_m,
+        pair=True)
+    assert rel(A_t, A_cell) < TOL
+    assert torch.equal(rt_pair, rt)
+
+
+def test_membrane_trace_helpers_match_jax(solvers):
+    """The K14 plain versions against the JAX helpers, every ion and side."""
+    Sj, St, x = solvers
+    gj, mj, gt, mt = Sj.g, Sj.mem_dev, St.g, St.mem_dev
+    p = Sj.params
+    assert rel(assembly.jump_phi_M_m_plain(gt, mt, t64(x["phi"])),
+               jasm.jump_phi_M_m(gj, mj, jnp.asarray(x["phi"]))) < TOL
+    for k, ion in enumerate(Sj.ion_list):
+        f = x["call"][k]
+        for side in ("p", "m"):
+            assert rel(assembly.membrane_avg_m_plain(gt, mt, t64(f), side),
+                       jasm.membrane_avg_m(gj, mj, jnp.asarray(f), side)) < TOL
+        zk = float(ion.z)
+        assert rel(assembly.nernst_potential_m_plain(gt, mt, t64(f), zk, p.F, p.R,
+                                                     p.temperature),
+                   jasm.nernst_potential_m(gj, mj, jnp.asarray(f), zk, p.F, p.R,
+                                           p.temperature)) < TOL
+    zj = np.asarray(Sj.z[:-1])
+    z_elim = float(Sj.ion_list[-1].z)
+    got = assembly.eliminated_concentration_plain(t64(x["c"]), t64(zj), St.rho, z_elim)
+    assert got.is_contiguous()
+    assert rel(got, jasm.eliminated_concentration(jnp.asarray(x["c"]), jnp.asarray(zj),
+                                                  Sj.rho, z_elim)) < TOL
+
+
+def _abs_tables(d):
+    return {k: (v.abs() if isinstance(v, torch.Tensor) and v.is_floating_point() else v)
+            for k, v in d.items()}
+
+
+def test_abs_versions_bound_the_values(solvers):
+    """With neg = +1 and absolute-valued inputs each plain version returns
+    its outputs' sums of |terms| (the error scale of the kernel checks on
+    the card): never below |value|, and zero on the dummy facet."""
+    _, St, x = solvers
+    p = St.params
+    m = St.N_ions
+    ga, ma = _abs_tables(St.g), _abs_tables(St.mem_dev)
+    ab = lambda v: t64(np.abs(v))
+    call = t64(x["call"])
+    vals = assembly.emi_cell_plain(St.g, St.z, St.D, call, p.F, p.psi)
+    scal = assembly.emi_cell_plain(ga, St.z.abs(), St.D, call.abs(), p.F, p.psi, neg=1.0)
+    kappa, _, flux, _ = vals
+    vals += assembly.emi_facet_plain(St.g, St.masks, kappa, flux, t64(x["phi_M"]),
+                                     St.mem_dev, p.F, p.C_phi, St.tau)
+    scal += assembly.emi_facet_plain(ga, St.masks, kappa.abs(), flux.abs(), ab(x["phi_M"]),
+                                     ma, p.F, p.C_phi, St.tau, neg=1.0)
+    z, D, asum, _, _, _, _, _ = _knp_parts(St, x)
+    gphi, drift, b_cell = assembly.knp_cell_plain(St.g, t64(x["phi"]), t64(x["c"]), p.dt)
+    vals += (gphi, drift, b_cell)
+    scal += assembly.knp_cell_plain(ga, ab(x["phi"]), ab(x["c"]), p.dt)
+    vals += assembly.knp_facet_plain(St.g, St.masks, z, D, gphi, p.psi)
+    scal += assembly.knp_facet_plain(ga, St.masks, z.abs(), D, gphi.abs(), p.psi, neg=1.0)
+    vals += assembly.knp_membrane_rhs_plain(
+        St.g, St.mem_dev, z, D, t64(x["c"]), asum, t64(x["phi"]), t64(x["phi_M"]),
+        t64(x["I_ch"][:m]), t64(x["I_tot"]), p.F, p.C_M, p.dt)
+    scal += assembly.knp_membrane_rhs_plain(
+        ga, ma, z.abs(), D, ab(x["c"]), asum, ab(x["phi"]), ab(x["phi_M"]),
+        ab(x["I_ch"][:m]), ab(x["I_tot"]), p.F, p.C_M, p.dt, neg=1.0)
+    assert len(vals) == len(scal) == 19
+    for v, s in zip(vals, scal):
+        assert v.shape == s.shape
+        assert bool((s >= 0).all())
+        assert bool((v.abs() <= s * (1 + 1e-12) + 1e-300).all())
+
+
+# ---------------------------------------------------------------------------
+# the pair layout: the port's assembly on the padded, renumbered cell axis
+# against the JAX package's pair assembly
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=sorted(FIXTURES))
+def pair_solvers(request):
+    jb, tb = FIXTURES[request.param]
+    Sj, St = jb(), tb()
+    Sj.enable_pair_layout()
+    St.enable_pair_layout()
+    return Sj, St, _state(Sj, seed=14)
+
+
+def test_pair_kernel_tables_are_contiguous(pair_solvers):
+    St = pair_solvers[1]
+    _check_tables(St)
+    assert St.g["G"].shape[-1] == St.n_cells_pad == St.D.shape[-1]
+    assert St.D.is_contiguous() and St.rho.is_contiguous()
+
+
+def test_pair_emi_assembly_matches_jax(pair_solvers):
+    Sj, St, x = pair_solvers
+    (pdj, pej), rj, Pj = Sj._assemble_emi(
+        jnp.asarray(x["c"]), jnp.asarray(x["c_elim"]), jnp.asarray(x["phi_M"]),
+        jnp.asarray(x["I_tot"]), 0.0, pair=True)
+    (pdt, pet), rt, Pt = St._assemble_emi(
+        t64(x["c"]), t64(x["c_elim"]), t64(x["phi_M"]), t64(x["I_tot"]), 0.0, pair=True)
+    assert pdt.shape == tuple(pdj.shape) and pet.shape == tuple(pej.shape)
+    assert rel(pdt, pdj) < TOL and rel(pet, pej) < TOL
+    assert rel(rt, rj) < TOL
+    assert rel(Pt, Pj) < TOL
+    assert all(t.is_contiguous() for t in (pdt, pet, rt, Pt))
+
+
+def test_pair_knp_assembly_matches_jax(pair_solvers):
+    Sj, St, x = pair_solvers
+    for k in range(Sj.N_ions):
+        Sj._knp_static(k)
+    args = (x["c"], x["c_elim"], x["phi"], x["phi_M"], x["I_ch"], x["I_tot"])
+    (pdj, pej), rj = Sj._knp_assemble_all(*(jnp.asarray(a) for a in args), 0.0,
+                                          jnp.asarray(x["c"]))
+    (pdt, pet), rt = St._knp_assemble_all(*(t64(a) for a in args), 0.0, t64(x["c"]))
+    assert pdt.shape == tuple(pdj.shape) and pet.shape == tuple(pej.shape)
+    assert rel(pdt, pdj) < TOL and rel(pet, pej) < TOL
+    assert rel(rt, rj) < TOL
+
+
+def test_pair_emit_optional_parts_match_the_separate_sums(pair_solvers):
+    """The pair emit's optional parts: ``add`` equals adding the static pair
+    operator afterwards, ``reg`` equals pd + the embedded per-cell blocks."""
+    _, St, _ = pair_solvers
+    rng = np.random.default_rng(15)
+    pm = St.pairs
+    nd, nc = St.nd, St.n_cells_pad
+    nf1 = St.g["f_area"].shape[0]
+    m = 2
+    A = t64(rng.standard_normal((m, nd, nd, nc)))
+    Ms = [t64(M) for M in _facet_blocks(rng, (m,), nd, nf1)]
+    pd, pe = pairs.gather_blocks_pair_multi(None, pm, A, *Ms)
+    add = (t64(rng.standard_normal(tuple(pd.shape))), t64(rng.standard_normal(tuple(pe.shape))))
+    pd2, pe2 = pairs.gather_blocks_pair_multi(None, pm, A, *Ms, add=add)
+    assert torch.equal(pd2, pd + add[0]) and torch.equal(pe2, pe + add[1])
+    reg = t64(rng.standard_normal((nd, nd, nc)))
+    pd1, pe1, Pd = pairs.gather_blocks_pair(None, pm, A[0], *(M[0] for M in Ms), reg=reg)
+    assert torch.equal(pd1, pd[0]) and torch.equal(pe1, pe[0])
+    assert torch.equal(Pd, pd1 + pairs.pair_block_diag_embed(pm, reg))

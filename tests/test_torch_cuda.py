@@ -16,7 +16,7 @@ from knpemidg_tpu_torch import _cuda
 from knpemidg_tpu_torch.fem.tabulation import build_geometry
 from knpemidg_tpu_torch.membrane import engine
 from knpemidg_tpu_torch.models import glial, hh
-from knpemidg_tpu_torch.ops import coarse, pairs, spmv
+from knpemidg_tpu_torch.ops import assembly, coarse, pairs, spmv
 from knpemidg_tpu_torch.parallel.sharding import unpad_state
 
 pytestmark = pytest.mark.cuda
@@ -26,11 +26,14 @@ DTYPES = [(torch.float32, 1e-5), (torch.float64, 1e-12)]
 # the kernels each layout's step goes through
 TWO_LEVEL_KERNELS = tuple(f"two_level_{e}{b}" for b in ("", "_batched")
                           for e in ("restrict", "solve", "prolong"))
+ASSEMBLY_KERNELS = ("emi_cell", "emi_facet", "emi_emit_cell", "alpha_sum", "knp_cell",
+                    "knp_facet", "knp_membrane_rhs", "knp_emit_cell", "membrane_trace",
+                    "eliminated_concentration")
 CELL_KERNELS = ("bell_matvec", "block_jacobi_inverse", "block_jacobi_apply",
-                "membrane_rk4") + TWO_LEVEL_KERNELS
+                "membrane_rk4") + TWO_LEVEL_KERNELS + ASSEMBLY_KERNELS
 PAIR_KERNELS = ("pair_matvec", "to_pair", "from_pair", "gather_blocks_pair",
                 "block_jacobi_inverse_nd8", "block_jacobi_apply_nd8",
-                "membrane_rk4") + TWO_LEVEL_KERNELS
+                "membrane_rk4") + TWO_LEVEL_KERNELS + ASSEMBLY_KERNELS
 
 
 @pytest.fixture(scope="module")
@@ -316,3 +319,115 @@ def test_emix_pair_ritz_on_cuda_matches_cpu():
     assert Sg.stats.knp_niters == Sc.stats.knp_niters
     for key in ("phi", "c", "c_elim", "phi_M"):
         assert rel(sg[key], sc[key]) < 1e-8, key
+
+
+# ---------------------------------------------------------------------------
+# the assembly kernels K10, K11, K14
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layout", ["cell", "pair"])
+def test_assembly_kernels_match_plain(layout):
+    """Every assembly kernel entry point against its plain version on the
+    EMIx fixture's tables on the card, in float32 and float64, at a seeded
+    perturbed state (chip_smoke.assembly_phase: the cell, facet, membrane
+    and trace kernels to 1e-5 / 1e-12 of each value's sum of |terms|, the
+    two emit kernels exactly), and one launch counted per call."""
+    import chip_smoke
+
+    cuda_or_skip()
+    S, sp = tp.emix_torch_auto(device="cuda", pair=layout == "pair")
+    state = S.attach_pc(S._initial_state(0.0), sp)
+    n0 = dict(_cuda.LAUNCHES)
+    results = {}
+    chip_smoke.assembly_phase(S, state, results, layout)
+    sfx = "_pair" if layout == "pair" else ""
+    assert sorted(results) == sorted(k + sfx for k in ASSEMBLY_KERNELS)
+    for k in ASSEMBLY_KERNELS:
+        assert _cuda.LAUNCHES[k] > n0[k], k
+        for dtype, _ in DTYPES:
+            assert results[k + sfx][dtype]["ms"] > 0.0
+
+
+def test_pair_emit_optional_parts_match_plain(pair_maps):
+    """K12 with the static operator added last (the KNP emit) and with the
+    regularisation blocks (the EMI emit's third output): exact."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(9)
+    pm = pairs.pair_maps_to_device(pair_maps, dev)
+    npair = pair_maps["int_f"].shape[0]
+    nf1 = int(pair_maps["nf"]) + 1
+    for dtype, _ in DTYPES:
+        A = _rand(rng, (2, 4, 4, 2 * npair), dtype, dev)
+        Ms = []
+        for _ in range(4):
+            M = _rand(rng, (2, 4, 4, nf1), dtype, dev)
+            M[..., -1] = 0.0
+            Ms.append(M)
+        add = (_rand(rng, (2, 8, 8, npair), dtype, dev),
+               _rand(rng, (2, 6, 8, 4, npair), dtype, dev))
+        got = pairs.gather_blocks_pair_multi(None, pm, A, *Ms, add=add)
+        ref = pairs.gather_blocks_pair_multi_plain(None, pm, A, *Ms, add=add)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        reg = _rand(rng, (4, 4, 2 * npair), dtype, dev)
+        one = [A[0].contiguous()] + [M[0].contiguous() for M in Ms]
+        got = pairs.gather_blocks_pair(None, pm, *one, reg=reg)
+        ref = pairs.gather_blocks_pair_plain(None, pm, *one, reg=reg)
+        assert len(got) == 3 and all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def test_assembly_wrappers_raise_on_what_they_cannot_take():
+    """Non-contiguous or mistyped inputs and shapes outside the kernels'
+    register arrays (nd <= 4, d <= 3) raise on the card instead of running
+    plain."""
+    dev = cuda_or_skip()
+    S, _ = tp.emix_torch(device="cuda")
+    g, mem, p = S.g, S.mem_dev, S.params
+    nd, nc = S.nd, S.n_cells
+    call = torch.cat([S.c_init, S.c_elim_init[None]])
+    with pytest.raises(ValueError):                      # not contiguous
+        assembly.emi_cell(g, S.z, S.D, call.transpose(1, 2).contiguous().transpose(1, 2),
+                          p.F, p.psi)
+    with pytest.raises(TypeError):                       # dtype mismatch
+        assembly.alpha_sum(S.z, S.D, call.float())
+    with pytest.raises(ValueError):                      # wrong shape
+        assembly.knp_cell(g, S.phi_init[:3].contiguous(), S.c_init, p.dt)
+    with pytest.raises(ValueError):
+        assembly.jump_phi_M_m(g, mem, S.phi_init.t().contiguous().t())
+    with pytest.raises(ValueError):
+        assembly.eliminated_concentration(S.c_init, S.z[:-1], S.rho[:-1].contiguous(), 1.0)
+    # a fifth basis function: outside the kernels' register arrays
+    g5 = dict(g, f_Rp=torch.zeros((2, 5, 8), dtype=torch.float64, device=dev),
+              G=torch.zeros((5, 3, nc), dtype=torch.float64, device=dev))
+    c5 = torch.ones((3, 5, nc), dtype=torch.float64, device=dev)
+    with pytest.raises(NotImplementedError):
+        assembly.emi_cell(g5, S.z, S.D, c5, p.F, p.psi)
+    with pytest.raises(NotImplementedError):
+        assembly.knp_cell(g5, c5[0].contiguous(), c5[:2].contiguous(), p.dt)
+    mem5 = dict(mem, Rp=torch.zeros((2, 5, 8), dtype=torch.float64, device=dev))
+    with pytest.raises(NotImplementedError):
+        assembly.membrane_avg_m(g, mem5, c5[0].contiguous(), "p")
+
+
+def test_assembly_kernels_take_the_2d_shapes():
+    """The 2D neuron (nd = 3, d = 2) goes through the same assembly and trace
+    kernels: its EMI and KNP operators and the membrane jump on the card
+    agree with the CPU's at a seeded state."""
+    dev = cuda_or_skip()
+    Sc, Sg = tp._neuron_2d("torch"), tp._neuron_2d("torch", device=dev)
+    rng = np.random.default_rng(10)
+    noise = rng.uniform(0.99, 1.01, tuple(Sc.c_init.shape))
+    phi = 0.01 * rng.standard_normal(tuple(Sc.phi_init.shape))
+    outs = []
+    for S in (Sc, Sg):
+        st = S._initial_state(0.0)
+        to = lambda a: torch.as_tensor(a, dtype=torch.float64, device=S.device)
+        c, ph = st["c"] * to(noise), to(phi)
+        pM, Ich, Itot = S._pads(st)
+        n0 = dict(_cuda.LAUNCHES)
+        b, r, P = S._assemble_emi(c, st["c_elim"], pM, Itot, st["t"])
+        bK, rK = S._knp_assemble_all(c, st["c_elim"], ph, pM, Ich, Itot, st["t"], c)
+        outs.append((b, r, P, bK, rK, assembly.jump_phi_M_m(S.g, S.mem_dev, ph),
+                     assembly.eliminated_concentration(c, S.z[:-1], S.rho, 1.0)))
+    assert all(_cuda.LAUNCHES[k] > n0[k] for k in ASSEMBLY_KERNELS)
+    for a_cpu, a_gpu in zip(*outs):
+        assert rel(a_gpu, a_cpu) < 1e-12

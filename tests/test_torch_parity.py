@@ -112,9 +112,10 @@ def emix_torch_auto(device="cpu", dtype=F64, pair=False, **overrides):
 # 2D neuron fixture (examples/run_2D.py physics)
 # ---------------------------------------------------------------------------
 
-def _neuron_2d(pkg):
+def _neuron_2d(pkg, device="cpu"):
     """StandardSolver of package ``pkg`` ("jax" or "torch") on
-    box_2d_neuron(0) with the run_2D physics, in float64."""
+    box_2d_neuron(0) with the run_2D physics, in float64 (the port's on
+    ``device``)."""
     if pkg == "jax":
         import jax.numpy as jnp
         from knpemidg_tpu.config import Ion, PhysicalParams, StimParams
@@ -127,7 +128,7 @@ def _neuron_2d(pkg):
         from knpemidg_tpu_torch.mesh.generators import box_2d_neuron
         from knpemidg_tpu_torch.models.hh import HodgkinHuxleySI
         from knpemidg_tpu_torch.solver import StandardSolver
-        kw = dict(dtype=F64, device="cpu")
+        kw = dict(dtype=F64, device=device)
     params = PhysicalParams(
         dt=1.0e-4, n_steps_ODE=25, C_M=0.02, temperature=300.0, F=96485.0,
         R=8.314, phi_M_init=-0.07438609374462003, phi_M_init_type="constant",

@@ -147,11 +147,15 @@ def test_port_imports_no_jax():
 
 
 COARSE_WRAPPERS = {"restrict", "solve", "prolong_add"}
+ASSEMBLY_WRAPPERS = {"emi_cell", "emi_facet", "emi_emit_cell", "alpha_sum", "knp_cell",
+                     "knp_facet", "knp_membrane_rhs", "knp_emit_cell", "membrane_avg_m",
+                     "nernst_potential_m", "jump_phi_M_m", "eliminated_concentration"}
 CELL_WRAPPERS = {"bell_matvec", "bell_matvec_multi", "block_jacobi_inverse",
-                 "block_jacobi_apply"} | COARSE_WRAPPERS
+                 "block_jacobi_apply"} | COARSE_WRAPPERS | ASSEMBLY_WRAPPERS
 PAIR_WRAPPERS = {"pair_matvec", "pair_matvec_multi", "to_pair", "from_pair",
                  "gather_blocks_pair", "gather_blocks_pair_multi",
-                 "block_jacobi_inverse", "block_jacobi_apply"} | COARSE_WRAPPERS
+                 "block_jacobi_inverse", "block_jacobi_apply"} | COARSE_WRAPPERS \
+    | ASSEMBLY_WRAPPERS
 
 
 def _tensors(a):
