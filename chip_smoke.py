@@ -28,17 +28,23 @@ layout).  On the way it:
      emi_ritz=0 window beside it;
   6. runs the same protocol in float32 on each layout and reports its
      Krylov counts and whether each solve converged: on the cell layout
-     with the device Ritz harvest (three runs), the host float64 harvest
-     (emi_ritz_host) and emi_ritz=0.  At the production tolerances the
-     float32 EMI solve can stall at the iteration cap on this mesh (so can
-     the JAX package's float32 program on the CPU), so this phase reports
-     and does not assert convergence.
+     with the device Ritz harvest (three runs, whose counts must repeat),
+     the host float64 harvest (emi_ritz_host) and emi_ritz=0.  At the
+     production tolerances the float32 EMI solve can stall at the
+     iteration cap on this mesh (so can the JAX package's float32 program
+     on the CPU), so this phase reports and does not assert convergence;
+  7. runs the cell layout's float64 protocol once more with
+     ode_scheme="rush_larsen" (the neuron's points through the Rush-Larsen
+     kernel) and asserts it as in 5;
+  8. drives the gather probes P1/P2 through knpemidg_tpu_torch.probes.run
+     (their own path) and holds them against the plain gathers exactly.
 
 Usage:  python3 chip_smoke.py      (exits non-zero on any failure)
 The last line is {"ok": true, "device": {...}}; the line before it the
 card's name and power limit, and the line before that the per-kernel JSON
 summary.
 """
+import dataclasses
 import json
 import os
 import statistics
@@ -83,8 +89,19 @@ ASSEMBLY = {"emi_cell": ("assemble_emi.cu", _ASM + "289"),
             "membrane_trace": ("membrane_trace.cu", _ASM + "888"),
             "eliminated_concentration": ("membrane_trace.cu", _ASM + "941")}
 ASSEMBLY_EXACT = ("emi_emit_cell", "knp_emit_cell")
+# The Krylov kernels (K8, K9) are held to 1e-5 / 1e-12 of each value's sum
+# of |terms| (the Givens scalars: of the largest value of each output), the
+# Rush-Larsen step as the RK4 one, the gather probes exactly.
+KRYLOV = {"pcg_dot": ":101", "pcg_update": ":105", "pcg_dot2": ":108",
+          "pcg_direction": ":110", "gmres_start": ":319", "gmres_cgs_dot": ":385",
+          "gmres_cgs_update": ":386", "gmres_next": ":392", "gmres_givens": ":403",
+          "gmres_solve_update": ":445"}
+KRYLOV_TOL = {torch.float32: {k + p: 1e-5 for k in KRYLOV for p in ("", "_pair")},
+              torch.float64: {k + p: 1e-12 for k in KRYLOV for p in ("", "_pair")}}
 TOL = {torch.float32: {"bell_matvec": 1e-5, "block_jacobi_apply": 1e-5,
                        "block_jacobi_inverse": 1e-5, "membrane_rk4": 1e-4,
+                       "membrane_rl": 1e-4, "pgather": 0.0, "pgather2": 0.0,
+                       **KRYLOV_TOL[torch.float32],
                        "pair_matvec": 1e-5, "block_jacobi_inverse_nd8": 1e-5,
                        "block_jacobi_apply_nd8": 1e-5, "to_pair": 0.0,
                        "from_pair": 0.0, "gather_blocks_pair": 0.0,
@@ -93,6 +110,8 @@ TOL = {torch.float32: {"bell_matvec": 1e-5, "block_jacobi_apply": 1e-5,
                           for k in ASSEMBLY for p in ("", "_pair")}},
        torch.float64: {"bell_matvec": 1e-12, "block_jacobi_apply": 1e-12,
                        "block_jacobi_inverse": 1e-12, "membrane_rk4": 1e-12,
+                       "membrane_rl": 1e-12, "pgather": 0.0, "pgather2": 0.0,
+                       **KRYLOV_TOL[torch.float64],
                        "pair_matvec": 1e-12, "block_jacobi_inverse_nd8": 1e-12,
                        "block_jacobi_apply_nd8": 1e-12, "to_pair": 0.0,
                        "from_pair": 0.0, "gather_blocks_pair": 0.0,
@@ -115,8 +134,15 @@ REF = {"cell": ([5, 3], [[1, 1], [2, 1]]),
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # operations of one membrane right-hand side evaluation per point, counted
-# from csrc/membrane_rk4.cu (each exp, log, sqrt and division as one)
+# from csrc/membrane_rk4.cu (each exp, log, sqrt and division as one); a
+# Rush-Larsen substep of HH is two right-hand sides and two half gate
+# updates of 45 operations each (GlialKir runs RK4 under that scheme)
 RK4_RHS_OPS = {"HodgkinHuxleyMV": 85, "GlialKir": 40}
+RL_SUBSTEP_OPS = {"HodgkinHuxleyMV": 2 * 85 + 2 * 45, "GlialKir": 4 * 40}
+# the float64 counts of the 10-step windows (the parent tree's, PERF.md)
+WINDOW_REF = {"cell": ([5, 3, 3, 3, 3, 3, 1, 3, 3, 1], 21),
+              "pair": ([9, 8, 2, 3, 2, 2, 2, 1, 2, 2], None)}
+KRYLOV_ROWS = 4           # populated basis rows at which K9 is checked and timed
 
 # kernel -> (source, the TPU-side function it replaces, the path it serves
 # [, the launch counter when it is not the kernel's name])
@@ -153,6 +179,18 @@ KERNELS = {
     **{f"{k}{'_pair' if p == 'pair' else ''}": (
         "knpemidg_tpu_torch/csrc/" + src, repl, p, k)
        for p in ("cell", "pair") for k, (src, repl) in ASSEMBLY.items()},
+    # K8 (the EMI PCG) and K9 (the KNP batched GMRES) at each layout's shapes
+    **{f"{k}{'_pair' if p == 'pair' else ''}": (
+        "knpemidg_tpu_torch/csrc/" + ("pcg.cu" if k.startswith("pcg") else "gmres.cu"),
+        "knpemidg_tpu/solvers/krylov.py" + line, p, k)
+       for p in ("cell", "pair") for k, line in KRYLOV.items()},
+    # K13's Rush-Larsen scheme: its own window; the probes: their own run
+    "membrane_rl": ("knpemidg_tpu_torch/csrc/membrane_rk4.cu",
+                    "knpemidg_tpu/membrane/engine.py:129", "rl"),
+    "pgather": ("knpemidg_tpu_torch/csrc/gather_probe.cu", "tools/profile_shapes.py:74",
+                "probe"),
+    "pgather2": ("knpemidg_tpu_torch/csrc/gather_probe.cu", "tools/profile_shapes.py:103",
+                 "probe"),
 }
 
 
@@ -161,10 +199,13 @@ def counter(name):
     return KERNELS[name][3] if len(KERNELS[name]) > 3 else name
 
 
-# counters each path's window must launch (membrane_rk4 serves both)
+# counters each path's run must launch (membrane_rk4 serves both layouts;
+# the Rush-Larsen window is a cell window whose glial points run RK4)
 PATH_KERNELS = {"cell": sorted({counter(k) for k, v in KERNELS.items() if v[2] == "cell"}),
                 "pair": sorted({counter(k) for k, v in KERNELS.items() if v[2] == "pair"}
                                | {"membrane_rk4"})}
+PATH_KERNELS["rl"] = PATH_KERNELS["cell"] + ["membrane_rl"]
+PATH_KERNELS["probe"] = ["pgather", "pgather2"]
 
 
 def report_window(S, dtype, layout, variant=""):
@@ -460,6 +501,14 @@ def kernel_phase(S, state, results):
                 inputs=[v for mm in mms.values() for v in (mm.states, mm.params)],
                 flops=sum(rhs_evals * RK4_RHS_OPS[type(mm.model).__name__]
                           * mm.states.shape[1] for mm in mms.values()))
+        compare("membrane_rl", dtype,
+                lambda: ode_all(lambda *a: engine.ode_step(*a, scheme="rush_larsen"), mms, t),
+                lambda: ode_all(lambda *a: engine.ode_step_plain(*a, scheme="rush_larsen"),
+                                mms, t),
+                lambda ref: ode_scale(mms, ref), results,
+                inputs=[v for mm in mms.values() for v in (mm.states, mm.params)],
+                flops=sum(S.params.n_steps_ODE * RL_SUBSTEP_OPS[type(mm.model).__name__]
+                          * mm.states.shape[1] for mm in mms.values()))
         # K6 with the compartment, moment and Ritz data of the pc build, K7
         # with the two ions' coarse data; the step's EMI and KNP rhs
         co6, co7 = coarse_inputs(state["pc"], AGG, dtype)
@@ -586,6 +635,212 @@ def pair_kernel_phase(S, state, results):
         co6, co7 = coarse_inputs(state["pc"], AGG // 2, dtype)
         coarse_phase("pair", co6, r[None], results)
         coarse_phase("pair", co7, rK, results)
+
+
+def krylov_phase(S, results, layout):
+    """K8 and K9 at one layout's main-path shapes (the EMI vector, the KNP
+    batch of S.N_ions systems) on seeded random inputs: each entry point
+    against its plain version, the basis populated in KRYLOV_ROWS rows
+    (zero beyond them, as the plain versions' basis is), timed with its
+    bound; the library calls are the reference's whole-basis products and
+    dots."""
+    from knpemidg_tpu_torch import emix
+    from knpemidg_tpu_torch.ops import krylov_ops as ko
+
+    pair = layout == "pair"
+    name = lambda k: k + ("_pair" if pair else "")
+    nd, dev = S.nd, S.c_init.device
+    ncol = S.pairs["int_f"].shape[0] if pair else S.n_cells
+    vshape = (2 * nd if pair else nd, ncol)
+    mb, m = S.N_ions, emix.solver_params().gmres_restart
+    n = vshape[0] * ncol
+    J = KRYLOV_ROWS - 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2025)
+    print(f"shapes  {layout} Krylov: EMI vector {vshape}, KNP batch ({mb}, {n}), restart {m}, "
+          f"K9 at {KRYLOV_ROWS} populated rows")
+
+    for dtype in (torch.float32, torch.float64):
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+        # --- K9 -------------------------------------------------------------
+        wk = ko.gmres_work(mb, n, m, dtype, dev)
+        wk.V.zero_()
+        wk.V[:KRYLOV_ROWS] = rnd(KRYLOV_ROWS, mb, n)
+        Vs = wk.V.transpose(0, 1).contiguous()          # the reference's (mb, m+1, n)
+        V_live = wk.V[:KRYLOV_ROWS]
+        w = rnd(mb, n)
+        h = torch.zeros_like(wk.h1)
+        rows = KRYLOV_ROWS
+        compare(name("gmres_cgs_dot"), dtype,
+                lambda: [ko.gmres_cgs_dot(wk.V, w, rows, h.clone())[:, :rows]],
+                lambda: [ko.gmres_cgs_dot_plain(wk.V, w, rows, h.clone())[:, :rows]],
+                lambda ref: [ko.gmres_cgs_dot_plain(wk.V.abs(), w.abs(), rows,
+                                                    h.clone())[:, :rows]],
+                results, inputs=[V_live, w], flops=2.0 * V_live.numel(),
+                library_fn=lambda: torch.bmm(Vs, w[..., None]))
+        hp = ko.gmres_cgs_dot_plain(wk.V, w, rows, h.clone())
+        wbuf = [w.clone(), w.clone()]
+        compare(name("gmres_cgs_update"), dtype,
+                lambda: [ko.gmres_cgs_update(wk.V, w.clone(), hp, rows)],
+                lambda: [ko.gmres_cgs_update_plain(wk.V, w.clone(), hp, rows)],
+                lambda ref: [ko.gmres_cgs_update_plain(wk.V.abs(), w.abs(), -hp.abs(), rows)],
+                results, inputs=[V_live, w, hp[:, :rows]], flops=2.0 * V_live.numel(),
+                library_fn=lambda: torch.baddbmm(w[:, None], hp[:, None], Vs, alpha=-1.0),
+                timed=(lambda: ko.gmres_cgs_update(wk.V, wbuf[0], hp, rows),
+                       lambda: ko.gmres_cgs_update_plain(wk.V, wbuf[1], hp, rows)))
+        # step J's scalars: system 0 live, the others frozen
+        wk.tol.copy_(torch.full((mb,), 1e3, dtype=dtype))
+        wk.tol[0] = 1e-3
+        wk.g[:, :rows] = rnd(mb, rows)
+        wk.g[0, J] = 5.0
+        ang = 2 * np.pi * torch.rand((mb, m), generator=gen, device=dev, dtype=dtype)
+        wk.cs.copy_(torch.cos(ang))
+        wk.sn.copy_(torch.sin(ang))
+        wk.R.copy_(rnd(mb, m + 1, m))
+        wk.R[:, range(m), range(m)] += 4.0
+        wk.h1[:, :rows] = rnd(mb, rows)
+        wk.h2[:, :rows] = 1e-3 * rnd(mb, rows)
+        wk.hj1.copy_(torch.rand((mb,), generator=gen, device=dev, dtype=dtype) + 0.5)
+        wk.ks.fill_(J)
+        copy = lambda: ko.GmresWork(*(t.clone() for t in wk))
+        outs = lambda a: [a.V[J + 1], a.hj1]
+        wn = [copy(), copy()]
+        compare(name("gmres_next"), dtype,
+                lambda: outs(ko.gmres_next(w, copy(), J)),
+                lambda: outs(ko.gmres_next_plain(w, copy(), J)),
+                lambda ref: [r.abs() for r in ref], results,
+                inputs=[w, wk.g[:, J], wk.tol], flops=3.0 * w.numel(),
+                timed=(lambda: ko.gmres_next(w, wn[0], J),
+                       lambda: ko.gmres_next_plain(w, wn[1], J)))
+        scal = lambda a: [a.R, a.g, a.cs, a.sn, a.ks, a.flag]
+        wg = [copy(), copy()]
+        compare(name("gmres_givens"), dtype,
+                lambda: scal(ko.gmres_givens(copy(), J)),
+                lambda: scal(ko.gmres_givens_plain(copy(), J)),
+                lambda ref: [r.abs().amax().expand_as(r) if r.is_floating_point()
+                             else torch.ones_like(r) for r in ref], results,
+                inputs=[wk.h1[:, :rows], wk.h2[:, :rows], wk.hj1, wk.tol, wk.R, wk.g,
+                        wk.cs[:, :J], wk.sn[:, :J], wk.ks],
+                timed=(lambda: ko.gmres_givens(wg[0], J),
+                       lambda: ko.gmres_givens_plain(wg[1], J)))
+        ws = ko.gmres_givens_plain(copy(), J)           # ks = rows for system 0
+        x = rnd(mb, n)
+        yk = ko.GmresWork(*(t.clone() for t in ws))
+        ko.gmres_solve_update_plain(yk, x.clone())      # the plain y, for the scale
+        xb = [x.clone(), x.clone()]
+        nk = int(ws.ks.max())
+        compare(name("gmres_solve_update"), dtype,
+                lambda: [ko.gmres_solve_update(ws, x.clone())],
+                lambda: [ko.gmres_solve_update_plain(ws, x.clone())],
+                lambda ref: [x.abs() + torch.einsum("sk,ksn->sn", yk.y.abs(),
+                                                    ws.V[:m].abs())],
+                results, inputs=[ws.R, ws.g, ws.ks, ws.V[:nk], x],
+                flops=2.0 * nk * mb * n,
+                library_fn=lambda: torch.baddbmm(x[:, None], yk.y[:, None], Vs[:, :m]),
+                timed=(lambda: ko.gmres_solve_update(ws, xb[0]),
+                       lambda: ko.gmres_solve_update_plain(ws, xb[1])))
+        r0 = rnd(mb, n)
+
+        def start_out(fn, a):
+            fn(r0, a)
+            return [a.V[0], a.beta, a.g]
+
+        compare(name("gmres_start"), dtype,
+                lambda: start_out(ko.gmres_start, copy()),
+                lambda: start_out(ko.gmres_start_plain, copy()),
+                lambda ref: [r.abs() for r in ref], results,
+                inputs=[r0, wk.tol], flops=3.0 * r0.numel(),
+                timed=(lambda: ko.gmres_start(r0, wn[0]),
+                       lambda: ko.gmres_start_plain(r0, wn[1])))
+        del wk, ws, yk, Vs, wg, wn
+
+        # --- K8 -------------------------------------------------------------
+        x, r, p_, Ap, z = (rnd(*vshape) for _ in range(5))
+        if pair:
+            wmask = S._pair_mask.to(dtype).contiguous()
+            wsum, mode = wmask.sum(), 2
+        else:
+            wmask, wsum, mode = None, torch.tensor(float(x.numel()), dtype=dtype, device=dev), 1
+        sc0 = torch.stack([(r * z).sum(), (z * z).sum(), torch.zeros_like(wsum),
+                           torch.zeros_like(wsum), torch.zeros_like(wsum), wsum])
+        work = lambda: ko.PcgWork(sc=sc0.clone(), flag=torch.zeros(1, dtype=torch.int32,
+                                                                    device=dev),
+                                  w=wmask, mode=mode)
+        pa = work()
+        pap = (p_ * Ap).sum()
+        scale_alpha = (sc0[ko.RZ].abs() * (p_.abs() * Ap.abs()).sum() / pap ** 2)
+        compare(name("pcg_dot"), dtype,
+                lambda: [ko.pcg_dot(p_, Ap, work()).sc[ko.ALPHA]],
+                lambda: [ko.pcg_dot_plain(p_, Ap, work()).sc[ko.ALPHA]],
+                lambda ref: [scale_alpha], results, inputs=[p_, Ap],
+                flops=2.0 * p_.numel(), library_fn=lambda: torch.dot(p_.view(-1), Ap.view(-1)))
+        ko.pcg_dot_plain(p_, Ap, pa)
+        alpha = pa.sc[ko.ALPHA]
+        ax, ar = x.abs() + alpha.abs() * p_.abs(), r.abs() + alpha.abs() * Ap.abs()
+        ub = [(x.clone(), r.clone()), (x.clone(), r.clone())]
+        compare(name("pcg_update"), dtype,
+                lambda: list(ko.pcg_update(x.clone(), r.clone(), p_, Ap, pa)),
+                lambda: list(ko.pcg_update_plain(x.clone(), r.clone(), p_, Ap, pa)),
+                lambda ref: [ax + ax.mean(), ar + ar.mean()], results,
+                inputs=[x, r, p_, Ap] + ([wmask] if pair else []), flops=8.0 * x.numel(),
+                timed=(lambda: ko.pcg_update(*ub[0], p_, Ap, pa),
+                       lambda: ko.pcg_update_plain(*ub[1], p_, Ap, pa)))
+        rz_abs = (r.abs() * z.abs()).sum()
+        rzn = (r * z).sum()
+        stack = torch.stack([r.view(-1), z.view(-1)])
+
+        def dot2_out(fn):
+            a = fn(r, z, work())
+            return [a.sc[:4], a.flag]
+
+        # rz', zz, alpha (untouched), beta = rz' / rz against their sums of |terms|
+        dot2_scale = torch.stack([rz_abs, (z * z).sum(), torch.zeros_like(rz_abs),
+                                  (rzn / sc0[ko.RZ]).abs() * rz_abs / rzn.abs()])
+        compare(name("pcg_dot2"), dtype, lambda: dot2_out(ko.pcg_dot2),
+                lambda: dot2_out(ko.pcg_dot2_plain),
+                lambda ref: [dot2_scale, torch.ones_like(ref[1])],
+                results, inputs=[r, z], flops=4.0 * r.numel(),
+                library_fn=lambda: torch.mv(stack, z.view(-1)))
+        pd2 = ko.pcg_dot2_plain(r, z, work())
+        pb = [p_.clone(), p_.clone()]
+        compare(name("pcg_direction"), dtype,
+                lambda: [ko.pcg_direction(p_.clone(), z, pd2)],
+                lambda: [ko.pcg_direction_plain(p_.clone(), z, pd2)],
+                lambda ref: [z.abs() + pd2.sc[ko.BETA].abs() * p_.abs()], results,
+                inputs=[p_, z], flops=2.0 * p_.numel(),
+                library_fn=lambda: torch.addcmul(z, pd2.sc[ko.BETA], p_),
+                timed=(lambda: ko.pcg_direction(pb[0], z, pd2),
+                       lambda: ko.pcg_direction_plain(pb[1], z, pd2)))
+
+
+def probe_phase(results, launches):
+    """P1/P2 through their own entry point (knpemidg_tpu_torch.probes.run,
+    the counterpart of tools/profile_shapes.py's (b) and (b2)) with the
+    launch counters reset, then each against the plain gather at the
+    probe's shapes, exactly, in both dtypes, timed; the plain gathers are
+    the library yardstick too."""
+    from knpemidg_tpu_torch import _cuda, probes
+
+    _cuda.reset_launches()
+    for dtype in (torch.float32, torch.float64):
+        for name, (e, ms, gbs) in probes.run(dtype, reps=20).items():
+            print(f"probe   {name:9s} {str(dtype):14s} max |err| {e:.1e}, {ms:.4f} ms, "
+                  f"{gbs:.1f} GB/s")
+            if e != 0.0:
+                raise AssertionError(f"{name} differs from the plain gather")
+    torch.cuda.synchronize()
+    launches["probe"] = dict(_cuda.LAUNCHES)
+    missing = [k for k in PATH_KERNELS["probe"] if launches["probe"][k] == 0]
+    if missing:
+        raise AssertionError(f"probe kernels not launched: {missing}")
+    for dtype in (torch.float32, torch.float64):
+        idx1, xsrc, idx2, xs2 = probes.make_inputs(0, dtype, "cuda")
+        compare("pgather", dtype, lambda: [probes.pgather(idx1, xsrc)],
+                lambda: [probes.pgather_plain(idx1, xsrc)], exact, results,
+                inputs=[idx1, xsrc], library_fn=lambda: probes.pgather_plain(idx1, xsrc))
+        compare("pgather2", dtype, lambda: [probes.pgather2(idx2, xs2)],
+                lambda: [probes.pgather2_plain(idx2, xs2)], exact, results,
+                inputs=[idx2, xs2], library_fn=lambda: probes.pgather2_plain(idx2, xs2))
 
 
 def abs_tables(d):
@@ -807,6 +1062,25 @@ def window(S, sp, layout):
     finite fields, the step count, every kernel of the path launched and
     the AUTO Ritz rule (24 fields in the cell pc, none in the pair pc).
     Returns (launches, median ms/step, median ODE ms)."""
+    state, launches = run_checked(S, sp, layout)
+    med, ode = report_window(S, MAIN_DTYPE, layout)
+    emi_ref, knp_ref = WINDOW_REF[layout]
+    knp_total = sum(map(sum, S.stats.knp_niters))
+    print(f"{layout:7s} float64 counts as the parent tree's: EMI "
+          f"{S.stats.emi_niters == emi_ref}"
+          + ("" if knp_ref is None else f", KNP total {knp_total} (parent {knp_ref})"))
+    n_ritz = ritz_fields(state)
+    print(f"{layout:7s} Ritz fields in the pc: {n_ritz}")
+    if n_ritz != (24 if layout == "cell" else 0):
+        raise AssertionError(f"the {layout} window ran with {n_ritz} Ritz fields")
+    return launches, med, ode
+
+
+def run_checked(S, sp, path):
+    """One protocol run through the user entry point with the launch
+    counters reset first; asserts convergence (solve_system_active raises
+    otherwise), finite fields, the shapes and step count, and every kernel
+    of ``path`` launched.  Returns (state, launches)."""
     from knpemidg_tpu_torch import _cuda
 
     S.stats.__init__()
@@ -814,22 +1088,32 @@ def window(S, sp, layout):
     state = S.solve_system_active(1.0, 0.0, sp)
     torch.cuda.synchronize()
     launches = dict(_cuda.LAUNCHES)
-    med, ode = report_window(S, MAIN_DTYPE, layout)
-    print(f"{layout:7s} launches {launches}")
+    print(f"{path:7s} launches {launches}")
     for key in ("c", "c_elim", "phi", "phi_M", "I_ch"):
         if not bool(torch.isfinite(state[key]).all()):
             raise AssertionError(f"non-finite values in {key}")
     n_cells = getattr(S, "n_cells_pad", S.n_cells)
     if state["c"].shape != (S.N_ions, S.nd, n_cells) or len(S.stats.emi_niters) != 10:
         raise AssertionError("unexpected output shape or step count")
-    missing = [k for k in PATH_KERNELS[layout] if launches[k] == 0]
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the {layout} path: {missing}")
-    n_ritz = ritz_fields(state)
-    print(f"{layout:7s} Ritz fields in the pc: {n_ritz}")
-    if n_ritz != (24 if layout == "cell" else 0):
-        raise AssertionError(f"the {layout} window ran with {n_ritz} Ritz fields")
-    return launches, med, ode
+        raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+    return state, launches
+
+
+def rl_window(S, sp):
+    """The cell layout's float64 protocol with ode_scheme="rush_larsen":
+    the neuron's points through the Rush-Larsen kernel, the glial ones
+    (no gating states) through RK4; asserted as the main window.  Returns
+    the launches."""
+    params = S.params
+    S.params = dataclasses.replace(params, ode_scheme="rush_larsen")
+    try:
+        _, launches = run_checked(S, sp, "rl")
+    finally:
+        S.params = params
+    report_window(S, MAIN_DTYPE, "cell", "-rl")
+    return launches
 
 
 def ritz_fields(state):
@@ -852,6 +1136,7 @@ def report_run(S, sp, dtype, layout, variant):
     label = f"{layout}{'64' if dtype == MAIN_DTYPE else '32'}{variant}"
     print(f"{label:7s} {dtype} Ritz fields {ritz_fields(state)}, set-up before the first "
           f"step {setup_s:.3f} s, window total {1e3 * total:.1f} ms, fields finite: {finite}")
+    return S.stats.emi_niters, S.stats.knp_niters
 
 
 def f32_window(mesh, layout):
@@ -866,9 +1151,47 @@ def f32_window(mesh, layout):
     runs = [("", {})] if layout == "pair" else [
         ("-r24", {}), ("-r24", {}), ("-r24", {}), ("-host", {"emi_ritz_host": True}),
         ("-r0", {"emi_ritz": 0})]
-    for variant, over in runs:
-        report_run(S, emix.solver_params(error_if_not_converged=False, **over),
-                   torch.float32, layout, variant)
+    counts = [report_run(S, emix.solver_params(error_if_not_converged=False, **over),
+                         torch.float32, layout, variant) for variant, over in runs]
+    if layout == "cell":
+        # no kernel uses floating-point atomics: the device-harvest runs repeat
+        print(f"cell32  the three -r24 runs' counts repeat: {counts[0] == counts[1] == counts[2]}")
+        if not counts[0] == counts[1] == counts[2]:
+            raise AssertionError("float32 Krylov counts differ between identical runs")
+
+
+# launches of a kernel in one of its timed calls (one per system of the
+# step: EMI and KNP, or the two membrane tags; membrane_trace: its four
+# modes); 1 where not listed
+LAUNCHES_PER_TIMING = {**{k: 2 for k in (
+    "bell_matvec", "block_jacobi_inverse", "block_jacobi_apply", "membrane_rk4",
+    "pair_matvec", "to_pair", "from_pair", "gather_blocks_pair",
+    "block_jacobi_inverse_nd8", "block_jacobi_apply_nd8")},
+    "membrane_trace": 4, "membrane_trace_pair": 4}
+
+
+def rank_kernels(results, launches_of=None):
+    """The redesign order: first every kernel slower than its library call
+    in either dtype, the largest ratio first; then the rest by launches in
+    their window times (ms - bound ms) per launch, float64."""
+    slower, rest = [], []
+    for name, (_, _, path, *_) in KERNELS.items():
+        ratios = [(r["ms"] / r["library_ms"], dt) for dt, r in results[name].items()
+                  if r["library_ms"]]
+        worst = max(ratios, default=(0.0, None))
+        if worst[0] > 1.0:
+            slower.append((worst[0], name, worst[1]))
+        else:
+            r = results[name][MAIN_DTYPE]
+            n = (launches_of or {}).get(name, 0)
+            per = LAUNCHES_PER_TIMING.get(name, 1)
+            rest.append((n * (r["ms"] - r["bound_ms"]) / per, name, n))
+    for ratio, name, dt in sorted(slower, reverse=True):
+        r = results[name][dt]
+        print(f"rank    slower than library: {name:32s} {str(dt):14s} kernel {r['ms']:.4f} ms "
+              f"library {r['library_ms']:.4f} ms ({ratio:.2f}x)")
+    for cost, name, n in sorted(rest, reverse=True):
+        print(f"rank    launches x (ms - bound): {name:32s} {n:4d} x -> {cost:.3f} ms")
 
 
 def main():
@@ -905,18 +1228,23 @@ def main():
         print(f"pc      {layout} built in {time.perf_counter() - t0:.2f} s")
         (kernel_phase if layout == "cell" else pair_kernel_phase)(S, state0, results)
         assembly_phase(S, state0, results, layout)
+        krylov_phase(S, results, layout)
         small_reference_phase(layout)
         launches[layout], med, ode = window(S, sp, layout)
         walls[layout] = (med, ode)
         if layout == "cell":
             report_run(S, emix.solver_params(emi_ritz=0), MAIN_DTYPE, "cell", "-r0")
+            launches["rl"] = rl_window(S, sp)
         del S, state0
         f32_window(mesh, layout)
         torch.cuda.empty_cache()
+    probe_phase(results, launches)
     print(f"layouts float64 median ms/step: cell {walls['cell'][0]:.2f}, pair "
           f"{walls['pair'][0]:.2f}; ODE {walls['cell'][1]:.2f} / {walls['pair'][1]:.2f}")
 
     kernels = []
+    launches_of = {name: launches[path][counter(name)]
+                   for name, (_, _, path, *_) in KERNELS.items()}
     for name, (src, repl, path, *_) in KERNELS.items():
         r = results[name][MAIN_DTYPE]
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -924,6 +1252,7 @@ def main():
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    rank_kernels(results, launches_of)
     print(f"total   {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -25,23 +25,28 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = ("bell_matvec.cu", "block_jacobi.cu", "membrane_rk4.cu",
            "pair_matvec.cu", "pair_relayout.cu", "pair_emit.cu", "two_level.cu",
-           "assemble_emi.cu", "assemble_knp.cu", "membrane_trace.cu")
+           "assemble_emi.cu", "assemble_knp.cu", "membrane_trace.cu", "gmres.cu",
+           "pcg.cu", "gather_probe.cu")
 BUILD_DIR = os.path.join(_HERE, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libknpemidg_kernels.so")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # the assembly emit kernels equal their plain versions exactly, which a
-# fused multiply-add (one rounding where torch makes two) would break
-SOURCE_FLAGS = {"assemble_emi.cu": ("-fmad=false",),
-                "assemble_knp.cu": ("-fmad=false",)}
+# fused multiply-add (one rounding where torch makes two) would break; the
+# Krylov kernels round their updates and Givens arithmetic as the plain
+# versions do
+SOURCE_FLAGS = {f: ("-fmad=false",) for f in ("assemble_emi.cu", "assemble_knp.cu",
+                                               "gmres.cu", "pcg.cu")}
 
 # kernel name -> launches counted by its wrapper; the block-Jacobi kernels
 # count their cell-layout (nd = 4) and pair-layout (nd = 8) instantiations
 # apart, and the two-level kernels their single EMI (K6) and batched KNP
 # (K7, "_batched") calls.  The assembly kernels (K10 emi_*, K11 alpha_sum and
-# knp_*, K14 membrane_trace and eliminated_concentration) serve both layouts
+# knp_*, K14 membrane_trace and eliminated_concentration), the Krylov
+# kernels (K8 pcg_*, K9 gmres_*) serve both layouts; membrane_rl is K13's
+# Rush-Larsen scheme, pgather / pgather2 the gather probes P1 / P2
 LAUNCHES = {"bell_matvec": 0, "block_jacobi_inverse": 0,
-            "block_jacobi_apply": 0, "membrane_rk4": 0,
+            "block_jacobi_apply": 0, "membrane_rk4": 0, "membrane_rl": 0,
             "pair_matvec": 0, "to_pair": 0, "from_pair": 0,
             "gather_blocks_pair": 0, "block_jacobi_inverse_nd8": 0,
             "block_jacobi_apply_nd8": 0,
@@ -50,7 +55,11 @@ LAUNCHES = {"bell_matvec": 0, "block_jacobi_inverse": 0,
             "emi_cell": 0, "emi_facet": 0, "emi_emit_cell": 0, "alpha_sum": 0,
             "knp_cell": 0, "knp_facet": 0, "knp_membrane_rhs": 0,
             "knp_emit_cell": 0, "membrane_trace": 0,
-            "eliminated_concentration": 0}
+            "eliminated_concentration": 0,
+            **{f"pcg_{e}": 0 for e in ("dot", "update", "dot2", "direction")},
+            **{f"gmres_{e}": 0 for e in ("start", "cgs_dot", "cgs_update", "next",
+                                         "givens", "solve_update")},
+            "pgather": 0, "pgather2": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,6 +87,19 @@ _SIGNATURES = {
     "knp_ion_emit_cell": (_P,) * 18 + (_I,) * 7 + (_D, _P),
     "knp_membrane_trace": (_P,) * 7 + (_I,) * 5 + (_D, _P),
     "knp_eliminated": (_P,) * 4 + (_I,) * 3 + (_D, _P),
+    "knp_membrane_rl": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _P),
+    "knp_gmres_dot": (_P,) * 4 + (_I,) * 5 + (_P,),
+    "knp_gmres_update": (_P,) * 3 + (_I,) * 4 + (_P,),
+    "knp_gmres_next": (_P,) * 6 + (_I,) * 5 + (_P,),
+    "knp_gmres_start": (_P,) * 11 + (_I,) * 4 + (_P,),
+    "knp_gmres_givens": (_P,) * 3 + (_I,) + (_P,) * 7 + (_I,) * 3 + (_P,),
+    "knp_gmres_solve_update": (_P,) * 6 + (_I,) * 3 + (_P,),
+    "knp_pcg_dot": (_P,) * 4 + (_I,) * 2 + (_P,),
+    "knp_pcg_update": (_P,) * 7 + (_I,) * 3 + (_P,),
+    "knp_pcg_dot2": (_P,) * 5 + (_I,) * 2 + (_P,),
+    "knp_pcg_direction": (_P,) * 3 + (_I,) + (_P,),
+    "knp_pgather": (_P,) * 3 + (_I,) + (_P,),
+    "knp_pgather2": (_P,) * 3 + (_I,) * 2 + (_P,),
 }
 
 _lock = threading.Lock()

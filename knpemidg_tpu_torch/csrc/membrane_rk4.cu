@@ -1,8 +1,15 @@
-// Kernel C: membrane ODE step, fixed-substep RK4.
+// Kernel C: membrane ODE step, fixed-substep RK4 or Strang-split
+// Rush-Larsen.
 //
-// Replaces knpemidg_tpu/membrane/engine.py:93 ode_step (scheme "rk4"): a
-// vmapped fori_loop of RK4 substeps over all membrane points of one tag,
-// followed by the channel-current write-back at t + dt (engine.py:158-164).
+// Replaces knpemidg_tpu/membrane/engine.py:93 ode_step: a vmapped fori_loop
+// of substeps over all membrane points of one tag, followed by the
+// channel-current write-back at t + dt (engine.py:158-164).  Scheme "rk4"
+// (rk4_point, :116) runs for every model with a device right-hand side;
+// scheme "rush_larsen" (rl_point, :129-152) for the Hodgkin-Huxley model:
+// per substep half an exponential update of the gates m, h, n at frozen V,
+// a midpoint RK2 step of the rest with the gate rows of the right-hand side
+// zeroed, and the second half gate update.  A model without gating states
+// (GlialKir) takes the RK4 kernel under "rush_larsen" too (engine.py:154).
 //
 // Bound: arithmetic latency, not bandwidth.  Each point reads its states and
 // parameters once (23 values for the HH model) and then runs n_sub * 4 model
@@ -61,15 +68,25 @@ __device__ __forceinline__ void hh_currents(T t, const T* y, const T* p, bool st
   *i_K = (p[P_g_leak_K] + p[P_g_K_bar] * (n2 * n2)) * (V - p[P_E_K]) - T(2) * i_pump;
 }
 
+// the classic HH rate functions in mV and 1/ms (models/base.py
+// hh_gating_rates_mV): rates[0..5] = am, bm, ah, bh, an, bn
+template <typename T>
+__device__ __forceinline__ void hh_rates(T V, T* rates) {
+  rates[0] = T(0.1) * vtrap(V + T(40), T(10));
+  rates[1] = T(4.0) * exp(-(V + T(65)) / T(18));
+  rates[2] = T(0.07) * exp(-(V + T(65)) / T(20));
+  rates[3] = T(1) / (T(1) + exp(-(V + T(35)) / T(10)));
+  rates[4] = T(0.01) * vtrap(V + T(55), T(10));
+  rates[5] = T(0.125) * exp(-(V + T(65)) / T(80));
+}
+
 template <typename T>
 __device__ __forceinline__ void hh_rhs(T t, const T* y, const T* p, bool stim, T* dy) {
   const T m = y[0], h = y[1], n = y[2], V = y[3];
-  const T am = T(0.1) * vtrap(V + T(40), T(10));
-  const T bm = T(4.0) * exp(-(V + T(65)) / T(18));
-  const T ah = T(0.07) * exp(-(V + T(65)) / T(20));
-  const T bh = T(1) / (T(1) + exp(-(V + T(35)) / T(10)));
-  const T an = T(0.01) * vtrap(V + T(55), T(10));
-  const T bn = T(0.125) * exp(-(V + T(65)) / T(80));
+  T rates[6];
+  hh_rates<T>(V, rates);
+  const T am = rates[0], bm = rates[1], ah = rates[2], bh = rates[3], an = rates[4],
+          bn = rates[5];
   T i_Na, i_K;
   hh_currents<T>(t, y, p, stim, &i_Na, &i_K);
   dy[0] = (T(1) - m) * am - m * bm;
@@ -163,6 +180,64 @@ __global__ void membrane_rk4_kernel(const T* __restrict__ states,
   for (int k = 0; k < NP; ++k) params_out[k * nz + i] = p[k];
 }
 
+// Half an exponential gate update of HH's m, h, n at frozen V = y[3]:
+// y_g <- y_inf + (y_g - y_inf) exp(-hh (a + b)), y_inf = a / (a + b)
+template <typename T>
+__device__ __forceinline__ void hh_gate_half(T* y, T neg_hh) {
+  T rates[6];
+  hh_rates<T>(y[3], rates);
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    const T a = rates[2 * g], b = rates[2 * g + 1];
+    const T tau_inv = a + b;
+    const T y_inf = a / tau_inv;
+    y[g] = y_inf + (y[g] - y_inf) * exp(neg_hh * tau_inv);
+  }
+}
+
+// Strang-split Rush-Larsen substeps of the HH model, one thread per point
+template <typename T, int NP>
+__global__ void membrane_rl_kernel(const T* __restrict__ states, const T* __restrict__ params,
+                                   T* __restrict__ states_out, T* __restrict__ params_out,
+                                   int n, T t0, T tend, T h, T h_half, int n_sub, int stim) {
+  constexpr int NS = 4;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t nz = (size_t)n;
+  T y[NS], p[NP];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) y[s] = states[s * nz + i];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) p[k] = params[k * nz + i];
+
+  const T neg_hh = -h_half;
+  T k1[NS], k2[NS], yt[NS];
+  T tt = t0;
+  for (int sub = 0; sub < n_sub; ++sub) {
+    hh_gate_half<T>(y, neg_hh);
+    hh_rhs<T>(tt, y, p, stim != 0, k1);
+    k1[0] = k1[1] = k1[2] = T(0);                 // gate rows frozen
+#pragma unroll
+    for (int s = 0; s < NS; ++s) yt[s] = y[s] + h_half * k1[s];
+    hh_rhs<T>(tt + h_half, yt, p, stim != 0, k2);
+    k2[0] = k2[1] = k2[2] = T(0);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) y[s] = y[s] + h * k2[s];
+    hh_gate_half<T>(y, neg_hh);
+    tt = tt + h;
+  }
+
+  T i_Na, i_K;
+  hh_currents<T>(tend, y, p, stim != 0, &i_Na, &i_K);
+  p[P_I_ch_Na] = i_Na;
+  p[P_I_ch_K] = i_K;
+  p[P_I_ch_Cl] = T(0);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) states_out[s * nz + i] = y[s];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) params_out[k * nz + i] = p[k];
+}
+
 template <typename T>
 static int membrane_rk4_launch(const T* states, const T* params, T* states_out,
                                T* params_out, int model_id, int stim, int n_states,
@@ -186,6 +261,37 @@ static int membrane_rk4_launch(const T* states, const T* params, T* states_out,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int membrane_rl_launch(const T* states, const T* params, T* states_out, T* params_out,
+                              int model_id, int stim, int n_states, int n_params, int n,
+                              double t, double dt, int n_sub, void* stream) {
+  // the plain version's scalar roundings, as in membrane_rk4_launch
+  const double h = dt / n_sub;
+  const T t0 = (T)t;
+  const T tend = t0 + (T)dt;
+  if (model_id != MODEL_HH_MV || n_states != 4 || n_params != 17)
+    return (int)cudaErrorInvalidValue;
+  membrane_rl_kernel<T, 17><<<knp_blocks(n), KNP_THREADS, 0, (cudaStream_t)stream>>>(
+      states, params, states_out, params_out, n, t0, tend, (T)h, (T)(0.5 * h), n_sub, stim);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int knp_membrane_rl_f32(const float* states, const float* params,
+                                   float* states_out, float* params_out, int model_id,
+                                   int stim, int n_states, int n_params, int n, double t,
+                                   double dt, int n_sub, void* stream) {
+  return membrane_rl_launch<float>(states, params, states_out, params_out, model_id, stim,
+                                   n_states, n_params, n, t, dt, n_sub, stream);
+}
+
+extern "C" int knp_membrane_rl_f64(const double* states, const double* params,
+                                   double* states_out, double* params_out, int model_id,
+                                   int stim, int n_states, int n_params, int n, double t,
+                                   double dt, int n_sub, void* stream) {
+  return membrane_rl_launch<double>(states, params, states_out, params_out, model_id, stim,
+                                    n_states, n_params, n, t, dt, n_sub, stream);
 }
 
 extern "C" int knp_membrane_rk4_f32(const float* states, const float* params,

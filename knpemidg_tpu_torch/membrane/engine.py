@@ -1,10 +1,12 @@
 """Membrane ODE engine (torch port of knpemidg_tpu/membrane/engine.py).
 
 Fixed-substep integration of the per-point membrane ODEs of one tag, all
-points at once.  Kernel C (``csrc/membrane_rk4.cu``) carries the RK4 step
-on CUDA tensors: one thread per membrane point runs every substep in
-registers and writes the channel currents back into the parameters.  The
-plain torch version below is what runs for CPU tensors.
+points at once.  Kernel C (``csrc/membrane_rk4.cu``) carries the step on
+CUDA tensors: one thread per membrane point runs every substep in
+registers and writes the channel currents back into the parameters; the
+RK4 kernel serves every scheme of a model without gating states, the
+Rush-Larsen kernel the gated Hodgkin-Huxley model.  The plain torch version
+below is what runs for CPU tensors.
 """
 from __future__ import annotations
 
@@ -128,7 +130,9 @@ def ode_step_plain(mm: MembraneState, t, dt: float, n_sub: int,
     return dataclasses.replace(mm, states=y, params=params)
 
 
-def _rk4_cuda(mm: MembraneState, t, dt: float, n_sub: int) -> MembraneState:
+def _kernel_cuda(mm: MembraneState, t, dt: float, n_sub: int,
+                 rush_larsen: bool) -> MembraneState:
+    """Launch the RK4 or the Rush-Larsen kernel for the model's points."""
     model = mm.model
     mid = getattr(model, "cuda_model_id", 0)
     names = tuple(model.PARAMS)
@@ -144,19 +148,22 @@ def _rk4_cuda(mm: MembraneState, t, dt: float, n_sub: int) -> MembraneState:
     # the step time as the state's dtype holds it (float of a 0-d tensor)
     t_val = float(_as_time(t, y))
     stim = int(bool(getattr(model, "stimulus", False)))
-    _cuda.launch("membrane_rk4", "knp_membrane_rk4", y.dtype, y.data_ptr(),
-                 p.data_ptr(), y_out.data_ptr(), p_out.data_ptr(), mid, stim,
-                 ns, len(names), n, t_val, float(dt), int(n_sub))
+    kernel = "membrane_rl" if rush_larsen else "membrane_rk4"
+    _cuda.launch(kernel, "knp_" + kernel, y.dtype, y.data_ptr(), p.data_ptr(),
+                 y_out.data_ptr(), p_out.data_ptr(), mid, stim, ns, len(names), n, t_val,
+                 float(dt), int(n_sub))
     return dataclasses.replace(mm, states=y_out, params=p_out)
 
 
 def ode_step(mm: MembraneState, t, dt: float, n_sub: int,
              scheme: str = "rk4") -> MembraneState:
-    """One PDE step of the membrane ODEs: kernel C on CUDA tensors (RK4
-    only), the plain version on CPU tensors."""
+    """One PDE step of the membrane ODEs: kernel C on CUDA tensors, the
+    plain version on CPU tensors.  As in the plain version, a model without
+    gating states runs RK4 under ``"rush_larsen"``."""
     if not mm.states.is_cuda:
         return ode_step_plain(mm, t, dt, n_sub, scheme=scheme)
-    if scheme != "rk4":
+    gating = mm.model.gating_indices() if scheme == "rush_larsen" else ()
+    if gating and gating != (0, 1, 2):
         raise NotImplementedError(
-            f"ode_step: scheme {scheme!r} has no CUDA kernel (rk4 only)")
-    return _rk4_cuda(mm, t, dt, n_sub)
+            f"{mm.model.name}: the Rush-Larsen kernel gates states 0-2 (m, h, n)")
+    return _kernel_cuda(mm, t, dt, n_sub, rush_larsen=bool(gating))

@@ -1,0 +1,392 @@
+"""The vector and scalar work of the Krylov loops, kernels K8 (the PCG
+iteration, ``csrc/pcg.cu``) and K9 (the batched GMRES cycle,
+``csrc/gmres.cu``), with the loops' scalars held on the device.
+
+K9 keeps the Krylov basis rows first, ``V (m+1, mb, n)``, so row j of all
+systems is one contiguous slab the matvec takes as it is.  The kernels read
+only the populated rows 0..j; no kernel reads a row it has not written, so
+:func:`gmres_work` allocates V with ``torch.empty`` on the card.  The plain
+versions (``*_plain``) keep the whole-basis einsums of the reference and a
+zeroed basis (:func:`gmres_start_plain` zeroes it every cycle), so the CPU
+tests hold the populated-rows kernels to the full-basis semantics.
+
+K8 keeps ``sc = [rz, zz, alpha, beta, tol^2, wsum]`` (:data:`RZ` ...) and
+an int32 flag (zz > tol^2) on the device; the host reads the flag once per
+iteration, as the JAX while-loop's test does on the device.
+
+Each wrapper runs its plain version for tensors on the CPU and launches its
+kernel for CUDA tensors; there is no fallback between the two.  Every sum
+of the kernels is a fixed-order reduction (no floating-point atomics).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .. import _cuda
+
+RED_CHUNK = 2048      # entries a reduction block of the kernels covers
+MAX_RESTART = 63      # csrc/gmres.cu GM_MAX_ROWS - 1
+RZ, ZZ, ALPHA, BETA, TOL2, WSUM = range(6)    # slots of the PCG scalars
+
+
+def _nblk(n):
+    return -(-n // RED_CHUNK)
+
+
+# ---------------------------------------------------------------------------
+# K9: batched GMRES
+# ---------------------------------------------------------------------------
+
+class GmresWork(NamedTuple):
+    """Basis and scalars of one batched GMRES solve (mb systems of n
+    entries, restart m), allocated once per solve."""
+    V: torch.Tensor       # (m+1, mb, n) Krylov basis, rows first
+    h1: torch.Tensor      # (mb, m+1) first CGS projection
+    h2: torch.Tensor      # (mb, m+1) second CGS projection
+    hj1: torch.Tensor     # (mb,) norm of the orthogonalised vector
+    beta: torch.Tensor    # (mb,) residual norm at the cycle's start
+    tol: torch.Tensor     # (mb,) absolute tolerance per system
+    R: torch.Tensor       # (mb, m+1, m) rotated Hessenberg columns
+    g: torch.Tensor       # (mb, m+1) rotated beta e1
+    cs: torch.Tensor      # (mb, m) stored rotations
+    sn: torch.Tensor      # (mb, m)
+    ks: torch.Tensor      # (mb,) int32 steps of each system in the cycle
+    y: torch.Tensor       # (mb, m) least-squares coefficients
+    flag: torch.Tensor    # (1,) int32: some system is still above its tolerance
+
+    @property
+    def m(self):
+        return self.cs.shape[1]
+
+
+def gmres_work(mb: int, n: int, m: int, dtype, device) -> GmresWork:
+    """Buffers of a solve.  On the card V is left unwritten (the kernels
+    read only rows they wrote); on the CPU it is zeroed, as the plain
+    versions' whole-basis einsums need."""
+    if m > MAX_RESTART:
+        raise NotImplementedError(f"gmres: restart above {MAX_RESTART} is not supported")
+    dev = torch.device(device)
+    new = torch.empty if dev.type == "cuda" else torch.zeros
+    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
+    return GmresWork(V=new((m + 1, mb, n), dtype=dtype, device=dev), h1=z(mb, m + 1),
+                     h2=z(mb, m + 1), hj1=z(mb), beta=z(mb), tol=z(mb), R=z(mb, m + 1, m),
+                     g=z(mb, m + 1), cs=z(mb, m), sn=z(mb, m),
+                     ks=torch.zeros(mb, dtype=torch.int32, device=dev), y=z(mb, m),
+                     flag=torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def gmres_cgs_dot_plain(V, w, rows, out):
+    """out[:, :R] = the projections of w (mb, n) on every basis row of V
+    (R, mb, n); rows beyond the populated ``rows`` are zero rows of V."""
+    out[:, :V.shape[0]] = torch.einsum("ksn,sn->sk", V, w)
+    return out
+
+
+def gmres_cgs_update_plain(V, w, h, rows):
+    """w -= sum_k h[:, k] V[k] over the whole basis, in place."""
+    return w.sub_(torch.einsum("sk,ksn->sn", h[:, :V.shape[0]], V))
+
+
+def _norms(v):
+    return torch.sqrt(torch.einsum("sn,sn->s", v, v))
+
+
+def gmres_start_plain(r, wk: GmresWork):
+    """The cycle's start: beta = ||r||, the basis zeroed with V[0] = r /
+    beta, the scalars zeroed with g = beta e1, and the flag any beta > tol."""
+    beta = _norms(r)
+    wk.beta.copy_(beta)
+    wk.V.zero_()
+    wk.V[0] = r / torch.where(beta > 0, beta, torch.ones_like(beta))[:, None]
+    for t in (wk.R, wk.g, wk.cs, wk.sn, wk.ks):
+        t.zero_()
+    wk.g[:, 0] = beta
+    wk.flag.fill_(int(bool(torch.any(beta > wk.tol))))
+    return wk
+
+
+def gmres_next_plain(w, wk: GmresWork, j):
+    """hj1 = ||w|| and the next basis row V[j+1] (zero for a system whose
+    residual estimate |g[:, j]| already met its tolerance)."""
+    hj1 = _norms(w)
+    wk.hj1.copy_(hj1)
+    live = torch.abs(wk.g[:, j]) > wk.tol
+    vnext = torch.where((hj1 > 1e-300)[:, None],
+                        w / torch.where(hj1 > 0, hj1, torch.ones_like(hj1))[:, None],
+                        torch.zeros_like(w))
+    wk.V[j + 1] = torch.where(live[:, None], vnext, torch.zeros_like(w))
+    return wk
+
+
+def gmres_givens_plain(wk: GmresWork, j):
+    """One Arnoldi step's scalar work (krylov.py:397-439 of the JAX
+    package): the new Hessenberg column h1 + h2 with hj1 below it, the j
+    stored rotations replayed, the new rotation, the freeze of systems that
+    are no longer live, ks += live, and the flag any |g[:, j+1]| > tol."""
+    m = wk.m
+    gj = wk.g[:, j].clone()
+    live = torch.abs(gj) > wk.tol
+    h = wk.h1 + wk.h2
+    h[:, j + 1:] = 0
+    h[:, j + 1] = wk.hj1
+    for i in range(j):
+        c, s = wk.cs[:, i], wk.sn[:, i]
+        hi = c * h[:, i] + s * h[:, i + 1]
+        hi1 = -s * h[:, i] + c * h[:, i + 1]
+        h[:, i] = hi
+        h[:, i + 1] = hi1
+    hj, hjp = h[:, j].clone(), h[:, j + 1].clone()
+    denom = torch.sqrt(hj * hj + hjp * hjp)
+    one, zero = torch.ones_like(denom), torch.zeros_like(denom)
+    pos = denom > 0
+    dsafe = torch.where(pos, denom, one)
+    c_new = torch.where(live, torch.where(pos, hj / dsafe, one), one)
+    s_new = torch.where(live, torch.where(pos, hjp / dsafe, zero), zero)
+    wk.cs[:, j] = c_new
+    wk.sn[:, j] = s_new
+    h[:, j] = torch.where(live, denom, hj)
+    h[:, j + 1] = 0
+    wk.g[:, j + 1] = torch.where(live, -s_new * gj, zero)
+    wk.g[:, j] = torch.where(live, c_new * gj, gj)
+    wk.R[:, :, j] = torch.where(live[:, None], h[:, :m + 1], wk.R[:, :, j])
+    wk.ks.add_(live.to(torch.int32))
+    wk.flag.fill_(int(bool(torch.any(torch.abs(wk.g[:, j + 1]) > wk.tol))))
+    return wk
+
+
+def gmres_solve_update_plain(wk: GmresWork, x):
+    """y solves R[:ks, :ks] y = g[:ks] per system (zero beyond ks); then
+    x += y^T V[:m] over the whole basis, in place."""
+    wk.y.zero_()
+    for s, k in enumerate(wk.ks.tolist()):
+        if k:
+            wk.y[s, :k] = torch.linalg.solve_triangular(
+                wk.R[s, :k, :k], wk.g[s, :k, None], upper=True)[:, 0]
+    return x.add_(torch.einsum("sk,ksn->sn", wk.y, wk.V[:wk.m]))
+
+
+def _check_basis(V, w, rows):
+    _cuda.check("V", V)
+    _cuda.check("w", w, V.dtype, V.shape[1:])
+    if not 1 <= rows <= V.shape[0]:
+        raise ValueError(f"gmres: {rows} populated rows of a {V.shape[0]}-row basis")
+
+
+def gmres_cgs_dot(V, w, rows, out):
+    """out[:, :rows] = V[:rows] . w per system, the basis V (R, mb, n)
+    populated in its first ``rows`` rows (the dot kernels on a CUDA
+    tensor); returns out."""
+    if not V.is_cuda:
+        return gmres_cgs_dot_plain(V, w, rows, out)
+    _check_basis(V, w, rows)
+    _, mb, n = V.shape
+    _cuda.check("out", out, V.dtype)
+    if out.dim() != 2 or out.shape[0] != mb or out.shape[1] < rows:
+        raise ValueError("gmres_cgs_dot: out must be (mb, >= rows)")
+    partial = torch.empty(mb * rows * _nblk(n), dtype=V.dtype, device=V.device)
+    _cuda.launch("gmres_cgs_dot", "knp_gmres_dot", V.dtype, V.data_ptr(), w.data_ptr(),
+                 partial.data_ptr(), out.data_ptr(), mb, n, rows, out.shape[1], RED_CHUNK)
+    return out
+
+
+def gmres_cgs_update(V, w, h, rows):
+    """w -= sum_{k < rows} h[:, k] V[k], in place (the update kernel on a
+    CUDA tensor); returns w."""
+    if not V.is_cuda:
+        return gmres_cgs_update_plain(V, w, h, rows)
+    _check_basis(V, w, rows)
+    _, mb, n = V.shape
+    _cuda.check("h", h, V.dtype)
+    if h.dim() != 2 or h.shape[0] != mb or h.shape[1] < rows:
+        raise ValueError("gmres_cgs_update: h must be (mb, >= rows)")
+    _cuda.launch("gmres_cgs_update", "knp_gmres_update", V.dtype, V.data_ptr(),
+                 w.data_ptr(), h.data_ptr(), mb, n, rows, h.shape[1])
+    return w
+
+
+def _check_work(wk: GmresWork, mb, n, dtype):
+    m = wk.m
+    _cuda.check("V", wk.V, dtype, (m + 1, mb, n))
+    for name, shape in (("h1", (mb, m + 1)), ("h2", (mb, m + 1)), ("hj1", (mb,)),
+                        ("beta", (mb,)), ("tol", (mb,)), ("R", (mb, m + 1, m)),
+                        ("g", (mb, m + 1)), ("cs", (mb, m)), ("sn", (mb, m)), ("y", (mb, m))):
+        _cuda.check(name, getattr(wk, name), dtype, shape)
+    _cuda.check("ks", wk.ks, torch.int32, (mb,))
+    _cuda.check("flag", wk.flag, torch.int32, (1,))
+    if mb > 32:
+        raise NotImplementedError("gmres: more than 32 systems in one batch")
+
+
+def gmres_start(r, wk: GmresWork):
+    """The cycle's start from the preconditioned residual r (mb, n): beta,
+    V[0], the zeroed scalars and the flag (the start kernels on a CUDA
+    tensor); returns wk."""
+    if not r.is_cuda:
+        return gmres_start_plain(r, wk)
+    mb, n = r.shape
+    _cuda.check("r", r)
+    _check_work(wk, mb, n, r.dtype)
+    partial = torch.empty(mb * _nblk(n), dtype=r.dtype, device=r.device)
+    _cuda.launch("gmres_start", "knp_gmres_start", r.dtype, r.data_ptr(), wk.V.data_ptr(),
+                 partial.data_ptr(), wk.beta.data_ptr(), wk.tol.data_ptr(), wk.R.data_ptr(),
+                 wk.g.data_ptr(), wk.cs.data_ptr(), wk.sn.data_ptr(), wk.ks.data_ptr(),
+                 wk.flag.data_ptr(), mb, n, wk.m, RED_CHUNK)
+    return wk
+
+
+def gmres_next(w, wk: GmresWork, j):
+    """hj1 = ||w|| and V[j+1] (the norm and scale kernels on a CUDA
+    tensor); returns wk."""
+    if not w.is_cuda:
+        return gmres_next_plain(w, wk, j)
+    mb, n = w.shape
+    _cuda.check("w", w)
+    _check_work(wk, mb, n, w.dtype)
+    if not 0 <= j < wk.m:
+        raise ValueError(f"gmres_next: step {j} outside the restart {wk.m}")
+    partial = torch.empty(mb * _nblk(n), dtype=w.dtype, device=w.device)
+    _cuda.launch("gmres_next", "knp_gmres_next", w.dtype, w.data_ptr(), wk.V[j + 1].data_ptr(),
+                 partial.data_ptr(), wk.g.data_ptr(), wk.tol.data_ptr(), wk.hj1.data_ptr(),
+                 mb, n, wk.m + 1, j, RED_CHUNK)
+    return wk
+
+
+def gmres_givens(wk: GmresWork, j):
+    """One Arnoldi step's scalar work on the device (the Givens kernel on
+    CUDA tensors); returns wk."""
+    if not wk.g.is_cuda:
+        return gmres_givens_plain(wk, j)
+    _, mb, n = wk.V.shape
+    _check_work(wk, mb, n, wk.g.dtype)
+    if not 0 <= j < wk.m:
+        raise ValueError(f"gmres_givens: step {j} outside the restart {wk.m}")
+    _cuda.launch("gmres_givens", "knp_gmres_givens", wk.g.dtype, wk.h1.data_ptr(),
+                 wk.h2.data_ptr(), wk.hj1.data_ptr(), wk.m + 1, wk.R.data_ptr(),
+                 wk.g.data_ptr(), wk.cs.data_ptr(), wk.sn.data_ptr(), wk.ks.data_ptr(),
+                 wk.tol.data_ptr(), wk.flag.data_ptr(), mb, wk.m, j)
+    return wk
+
+
+def gmres_solve_update(wk: GmresWork, x):
+    """x (mb, n) += the cycle's correction, in place (the back-substitution
+    and update kernels on a CUDA tensor); returns x."""
+    if not x.is_cuda:
+        return gmres_solve_update_plain(wk, x)
+    mb, n = x.shape
+    _cuda.check("x", x)
+    _check_work(wk, mb, n, x.dtype)
+    _cuda.launch("gmres_solve_update", "knp_gmres_solve_update", x.dtype, wk.R.data_ptr(),
+                 wk.g.data_ptr(), wk.ks.data_ptr(), wk.y.data_ptr(), wk.V.data_ptr(),
+                 x.data_ptr(), mb, n, wk.m)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# K8: PCG
+# ---------------------------------------------------------------------------
+
+class PcgWork(NamedTuple):
+    """Scalars and projection data of one PCG solve."""
+    sc: torch.Tensor               # (6,) rz, zz, alpha, beta, tol^2, wsum
+    flag: torch.Tensor             # (1,) int32: zz > tol^2
+    w: "torch.Tensor | None"       # nullspace mask expanded to the vector shape (mode 2)
+    mode: int                      # 0 no projection, 1 mean, 2 masked mean
+
+
+def _proj_plain(v, wk: PcgWork):
+    if wk.mode == 1:
+        return v - torch.mean(v)
+    if wk.mode == 2:
+        return (v - torch.sum(v * wk.w) / wk.sc[WSUM]) * wk.w
+    return v
+
+
+def pcg_dot_plain(p, Ap, wk: PcgWork):
+    """alpha = rz / (p . Ap)."""
+    wk.sc[ALPHA] = wk.sc[RZ] / torch.dot(p.reshape(-1), Ap.reshape(-1))
+    return wk
+
+
+def pcg_update_plain(x, r, p, Ap, wk: PcgWork):
+    """x = proj(x + alpha p), r = proj(r - alpha Ap), in place."""
+    alpha = wk.sc[ALPHA]
+    x.copy_(_proj_plain(x + alpha * p, wk))
+    r.copy_(_proj_plain(r - alpha * Ap, wk))
+    return x, r
+
+
+def pcg_dot2_plain(r, z, wk: PcgWork):
+    """rz' = r . z, zz = z . z, beta = rz' / rz, rz = rz', flag = zz > tol^2."""
+    rz_new = torch.dot(r.reshape(-1), z.reshape(-1))
+    wk.sc[BETA] = rz_new / wk.sc[RZ]
+    wk.sc[RZ] = rz_new
+    wk.sc[ZZ] = torch.dot(z.reshape(-1), z.reshape(-1))
+    wk.flag.fill_(int(bool(wk.sc[ZZ] > wk.sc[TOL2])))
+    return wk
+
+
+def pcg_direction_plain(p, z, wk: PcgWork):
+    """p = z + beta p, in place."""
+    return p.copy_(z + wk.sc[BETA] * p)
+
+
+def _check_pcg(wk: PcgWork, *vecs):
+    v0 = vecs[0]
+    for i, v in enumerate(vecs):
+        _cuda.check(f"vector {i}", v, v0.dtype, v0.shape)
+    _cuda.check("sc", wk.sc, v0.dtype, (6,))
+    _cuda.check("flag", wk.flag, torch.int32, (1,))
+    if wk.mode == 2:
+        _cuda.check("w", wk.w, v0.dtype, v0.shape)
+
+
+def pcg_dot(p, Ap, wk: PcgWork):
+    """alpha = rz / (p . Ap) into wk.sc (the dot kernels on a CUDA tensor)."""
+    if not p.is_cuda:
+        return pcg_dot_plain(p, Ap, wk)
+    _check_pcg(wk, p, Ap)
+    n = p.numel()
+    partial = torch.empty(_nblk(n), dtype=p.dtype, device=p.device)
+    _cuda.launch("pcg_dot", "knp_pcg_dot", p.dtype, p.data_ptr(), Ap.data_ptr(),
+                 partial.data_ptr(), wk.sc.data_ptr(), n, RED_CHUNK)
+    return wk
+
+
+def pcg_update(x, r, p, Ap, wk: PcgWork):
+    """x += alpha p, r -= alpha Ap and their nullspace projection, in place
+    (the update and projection kernels on a CUDA tensor)."""
+    if not x.is_cuda:
+        return pcg_update_plain(x, r, p, Ap, wk)
+    _check_pcg(wk, x, r, p, Ap)
+    n = x.numel()
+    partial = torch.empty(2 * _nblk(n), dtype=x.dtype, device=x.device)
+    _cuda.launch("pcg_update", "knp_pcg_update", x.dtype, x.data_ptr(), r.data_ptr(),
+                 p.data_ptr(), Ap.data_ptr(), wk.sc.data_ptr(),
+                 None if wk.w is None else wk.w.data_ptr(), partial.data_ptr(), n,
+                 RED_CHUNK, wk.mode)
+    return x, r
+
+
+def pcg_dot2(r, z, wk: PcgWork):
+    """rz, zz, beta and the flag into wk (the dot kernels on a CUDA
+    tensor)."""
+    if not r.is_cuda:
+        return pcg_dot2_plain(r, z, wk)
+    _check_pcg(wk, r, z)
+    n = r.numel()
+    partial = torch.empty(2 * _nblk(n), dtype=r.dtype, device=r.device)
+    _cuda.launch("pcg_dot2", "knp_pcg_dot2", r.dtype, r.data_ptr(), z.data_ptr(),
+                 partial.data_ptr(), wk.sc.data_ptr(), wk.flag.data_ptr(), n, RED_CHUNK)
+    return wk
+
+
+def pcg_direction(p, z, wk: PcgWork):
+    """p = z + beta p, in place (the direction kernel on a CUDA tensor)."""
+    if not p.is_cuda:
+        return pcg_direction_plain(p, z, wk)
+    _check_pcg(wk, p, z)
+    _cuda.launch("pcg_direction", "knp_pcg_direction", p.dtype, p.data_ptr(), z.data_ptr(),
+                 wk.sc.data_ptr(), p.numel())
+    return p

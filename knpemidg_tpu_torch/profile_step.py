@@ -21,8 +21,10 @@ STEPS steady steps (``run_block``) twice:
    lower bound;
 3. census: one more step with every aten operator call counted per phase
    (a dispatch mode, so nothing is timed here): the calls a phase makes
-   beside its hand-written kernels, and how many of them are matrix
-   products (bmm / mm, which is what an einsum lowers to).
+   beside its hand-written kernels, how many of them are matrix products
+   (bmm / mm, which is what an einsum lowers to), and how many read a
+   value back to the host (``_local_scalar_dense``: ``bool``, ``int``,
+   ``float`` or ``item`` of a device tensor).
 
 Usage (needs a CUDA card):
 
@@ -51,7 +53,12 @@ HAND_KERNELS = ("bell_matvec_kernel", "bj_inverse_kernel", "bj_apply_kernel",
                 "emi_cell_kernel", "emi_facet_kernel", "emi_emit_cell_kernel",
                 "alpha_sum_kernel", "ion_cell_kernel", "ion_facet_kernel",
                 "ion_membrane_rhs_kernel", "ion_emit_cell_kernel",
-                "membrane_trace_kernel", "eliminated_kernel")
+                "membrane_trace_kernel", "eliminated_kernel", "membrane_rl_kernel",
+                "gm_dot_partial_kernel", "gm_dot_finish_kernel", "gm_update_kernel",
+                "gm_scale_kernel", "gm_init_kernel", "gm_givens_kernel",
+                "gm_backsolve_kernel", "gm_xupdate_kernel", "pcg_dot_partial_kernel",
+                "pcg_finish_kernel", "pcg_update_kernel", "pcg_project_kernel",
+                "pcg_direction_kernel")
 PHASES = ("_ode_step", "_assemble_emi", "_emi_solve_iterative",
           "_knp_assemble_all", "_knp_solve_all", "_finalize_step")
 
@@ -80,10 +87,11 @@ def _untimed(S):
 
 def _op_census(S, state, sp):
     """One step with the aten operator calls of each phase counted:
-    {phase: {"aten_ops": n, "matrix_products": n}}."""
+    {phase: {"aten_ops": n, "matrix_products": n, "host_reads": n}}."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    counts = {name: {"aten_ops": 0, "matrix_products": 0} for name in PHASES}
+    counts = {name: {"aten_ops": 0, "matrix_products": 0, "host_reads": 0}
+              for name in PHASES}
 
     class Count(TorchDispatchMode):
         def __init__(self, slot):
@@ -92,8 +100,11 @@ def _op_census(S, state, sp):
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             self.slot["aten_ops"] += 1
-            if func.__name__.split(".")[0] in ("bmm", "mm", "addmm", "baddbmm", "einsum"):
+            op = func.__name__.split(".")[0]
+            if op in ("bmm", "mm", "addmm", "baddbmm", "einsum"):
                 self.slot["matrix_products"] += 1
+            elif op == "_local_scalar_dense":
+                self.slot["host_reads"] += 1
             return func(*args, **(kwargs or {}))
 
     for name in PHASES:
@@ -104,10 +115,10 @@ def _op_census(S, state, sp):
                 return _fn(*args, **kw)
 
         setattr(S, name, wrapped)
-    S.run_block(state, sp, 1)
+    _, st = S.run_block(state, sp, 1)
     _untimed(S)
     torch.cuda.synchronize()
-    return counts
+    return counts, {"emi_iters": st["emi_iters"], "knp_iters": st["knp_iters"]}
 
 
 def _device_events(prof):
@@ -164,7 +175,7 @@ def profile(dtype=torch.float64, pair=False):
         state, st_trace = S.run_block(state, sp, STEPS)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    census = _op_census(S, state, sp)
+    census, census_iters = _op_census(S, state, sp)
     dev = _device_events(prof)
     # None when the profiler saw no device activity (not measured)
     busy_ms = 1e-3 * _union_us(dev) if dev else None
@@ -181,6 +192,7 @@ def profile(dtype=torch.float64, pair=False):
                    "knp_iters": st_phase["knp_iters"],
                    "ms": {name.strip("_"): walls[name] for name in PHASES}},
         "census": {name.strip("_"): census[name] for name in PHASES},
+        "census_iters": census_iters,
         "trace": {"emi_iters": st_trace["emi_iters"],
                   "knp_iters": st_trace["knp_iters"],
                   "wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -211,9 +223,12 @@ def main():
     print(f"phases  EMI iters {ph['emi_iters']}  KNP iters {ph['knp_iters']}")
     for name, ms in ph["ms"].items():
         print(f"  {name:22s} " + " ".join(f"{v:8.3f}" for v in ms) + "  ms")
-    print("aten operator calls per phase in one step (matrix products among them):")
+    print(f"aten operator calls per phase in one step (EMI iters "
+          f"{out['census_iters']['emi_iters']}, KNP iters {out['census_iters']['knp_iters']}; "
+          f"matrix products, host reads among them):")
     for name, cnt in out["census"].items():
-        print(f"  {name:22s} {cnt['aten_ops']:6d} ({cnt['matrix_products']})")
+        print(f"  {name:22s} {cnt['aten_ops']:6d} ({cnt['matrix_products']}, "
+              f"{cnt['host_reads']})")
     tr = out["trace"]
     print(f"trace   EMI iters {tr['emi_iters']}  KNP iters {tr['knp_iters']}")
     busy = ("device busy not measured (no device events in the trace)"

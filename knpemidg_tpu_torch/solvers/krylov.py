@@ -5,19 +5,18 @@ Convergence test: ||M^-1 r||_2 <= max(rtol * ||M^-1 b||_2, atol) -- the
 preconditioned residual norm (PETSc's KSP_NORM_PRECONDITIONED), which for
 the EMI system weights the small membrane-jump modes by 1/lambda.
 
-The JAX ``lax.while_loop``s become Python loops that read the convergence
-flag on the host every iteration.  Vector work stays on the device; the
-GMRES Hessenberg column, its Givens rotations and the small triangular
-solve (a few dozen scalars per system) run on the host in the vector
-dtype, in the same order as the JAX version.
+The JAX ``lax.while_loop``s become Python loops around the vector and
+scalar work of ``ops/krylov_ops.py`` (kernels K8 and K9 on the card), which
+keeps the loops' scalars on the device: per PCG iteration or Arnoldi step
+the host reads one convergence flag and copies nothing else across.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
-import numpy as np
-import scipy.linalg
 import torch
+
+from ..ops import krylov_ops as ko
 
 
 class KrylovResult(NamedTuple):
@@ -62,39 +61,41 @@ def pcg(
     if nullspace_mask is not None and project_nullspace:
         w = nullspace_mask.to(b.dtype)
         wsum = torch.sum(w) * (b.numel() // nullspace_mask.numel())
+        w = w.expand(b.shape).contiguous()
+        mode = 2
 
         def proj(v):
             return (v - torch.sum(v * w) / wsum) * w
     else:
+        w, wsum = None, torch.tensor(float(b.numel()), dtype=b.dtype, device=b.device)
+        mode = 1 if project_nullspace else 0
         proj = _project_constant if project_nullspace else (lambda v: v)
 
     b = proj(b)
-    x = proj(x0)
-    r = proj(b - matvec(x))
-    z = precond(r)
-    p = z
+    x = proj(x0).clone(memory_format=torch.contiguous_format)
+    r = proj(b - matvec(x)).contiguous()
+    z = precond(r).contiguous()
+    p = z.clone()
     rz = _dot(r, z)
     zz = _dot(z, z)
     bz = precond(b if b_ref is None else b_ref)
     bnorm = torch.sqrt(_dot(bz, bz))
     tol = torch.clamp(rtol * bnorm, min=atol)
-    tol2 = tol * tol
+    zero = torch.zeros_like(rz)
+    wk = ko.PcgWork(sc=torch.stack([rz, zz, zero, zero, tol * tol, wsum]),
+                    flag=(zz > tol * tol).to(torch.int32).reshape(1), w=w, mode=mode)
 
     k = 0
     # the convergence test reads the carried ||z||^2 of the last iteration
-    while k < max_it and bool(zz > tol2):
-        Ap = matvec(p)
-        alpha = rz / _dot(p, Ap)
-        x = proj(x + alpha * p)
-        r = proj(r - alpha * Ap)
-        z = precond(r)
-        rz_new = _dot(r, z)
-        beta = rz_new / rz
-        p = z + beta * p
-        rz = rz_new
-        zz = _dot(z, z)
+    while k < max_it and bool(wk.flag):
+        Ap = matvec(p).contiguous()
+        ko.pcg_dot(p, Ap, wk)                  # alpha = rz / p.Ap
+        ko.pcg_update(x, r, p, Ap, wk)         # x += alpha p, r -= alpha Ap, projected
+        z = precond(r).contiguous()
+        ko.pcg_dot2(r, z, wk)                  # rz, zz, beta, the flag
+        ko.pcg_direction(p, z, wk)             # p = z + beta p
         k += 1
-    rn = torch.sqrt(zz)
+    rn = torch.sqrt(wk.sc[ko.ZZ])
     return KrylovResult(x=x, iters=k, resnorm=rn, converged=bool(rn <= tol))
 
 
@@ -125,105 +126,45 @@ def gmres_batched(
     bv = b.reshape(mb, n)
 
     def Aop(v):
-        return precond(matvec(v.reshape(shape))).reshape(mb, n)
+        return precond(matvec(v.reshape(shape))).reshape(mb, n).contiguous()
 
     def res_of(x):
         return precond((bv - matvec(x.reshape(shape)).reshape(mb, n))
-                       .reshape(shape)).reshape(mb, n)
+                       .reshape(shape)).reshape(mb, n).contiguous()
 
-    def norms(v):                                     # (mb, n) -> (mb,)
-        return torch.sqrt(torch.einsum("sn,sn->s", v, v))
-
-    bz = precond((bv if b_ref is None else b_ref.reshape(mb, n))
-                 .reshape(shape)).reshape(mb, n)
-    tol_t = torch.clamp(rtol * norms(bz), min=atol)
-    tol = tol_t.cpu().numpy()
-    rdt = tol.dtype                       # host scalars in the vector dtype
-    max_cycles = -(-max_it // restart)
     m = restart
+    wk = ko.gmres_work(mb, n, m, b.dtype, b.device)
+    bz = precond((bv if b_ref is None else b_ref.reshape(mb, n))
+                 .reshape(shape)).reshape(mb, n).contiguous()
+    ko.gmres_cgs_dot(bz[None], bz, 1, wk.h1)
+    wk.tol.copy_(torch.clamp(rtol * torch.sqrt(wk.h1[:, 0]), min=atol))
+    max_cycles = -(-max_it // restart)
 
-    def host(t):
-        return t.cpu().numpy().astype(rdt)
-
-    def cycle(x, r):
-        beta_t = norms(r)
-        safe = torch.where(beta_t > 0, beta_t, torch.ones_like(beta_t))
-        V = torch.zeros((mb, m + 1, n), dtype=b.dtype, device=b.device)
-        V[:, 0] = r / safe[:, None]
-        # R: rotated Hessenberg columns; g: rotated beta*e1 (|g[j]| is the
-        # residual-norm estimate after j steps); cs/sn: stored rotations
-        R = np.zeros((mb, m + 1, m), dtype=rdt)
-        g = np.zeros((mb, m + 1), dtype=rdt)
-        g[:, 0] = host(beta_t)
-        cs = np.zeros((mb, m), dtype=rdt)
-        sn = np.zeros((mb, m), dtype=rdt)
-        ks = np.zeros(mb, dtype=np.int64)
-        j = 0
-        while j < m and np.any(np.abs(g[:, j]) > tol):
-            gj = g[:, j].copy()
-            live = np.abs(gj) > tol                   # systems still stepping
-            ks += live
-            w = Aop(V[:, j])
-            # classical Gram-Schmidt with reorthogonalisation (CGS2) over
-            # the whole basis (rows > j are zero)
-            h1 = torch.einsum("skn,sn->sk", V, w)
-            w = w - torch.einsum("sk,skn->sn", h1, V)
-            h2 = torch.einsum("skn,sn->sk", V, w)
-            w = w - torch.einsum("sk,skn->sn", h2, V)
-            hj1_t = norms(w)
-            vnext = torch.where(
-                (hj1_t > 1e-300)[:, None],
-                w / torch.where(hj1_t > 0, hj1_t, torch.ones_like(hj1_t))[:, None],
-                torch.zeros_like(w))
-            live_t = torch.as_tensor(live, device=b.device)
-            V[:, j + 1] = torch.where(live_t[:, None], vnext, torch.zeros_like(w))
-            h = host(h1 + h2)
-            h[:, j + 1] = host(hj1_t)
-            # replay the j stored rotations on the new column
-            for i in range(j):
-                hi = cs[:, i] * h[:, i] + sn[:, i] * h[:, i + 1]
-                hi1 = -sn[:, i] * h[:, i] + cs[:, i] * h[:, i + 1]
-                h[:, i] = hi
-                h[:, i + 1] = hi1
-            hj = h[:, j].copy()
-            hjp = h[:, j + 1].copy()
-            denom = np.sqrt(hj ** 2 + hjp ** 2)
-            dsafe = np.where(denom > 0, denom, rdt.type(1))
-            c_new = np.where(denom > 0, hj / dsafe, rdt.type(1))
-            s_new = np.where(denom > 0, hjp / dsafe, rdt.type(0))
-            # freeze converged systems: identity rotation, masked updates
-            c_new = np.where(live, c_new, rdt.type(1)).astype(rdt)
-            s_new = np.where(live, s_new, rdt.type(0)).astype(rdt)
-            cs[:, j] = c_new
-            sn[:, j] = s_new
-            h[:, j] = np.where(live, denom, hj)
-            h[:, j + 1] = 0
-            g[:, j + 1] = np.where(live, -s_new * gj, rdt.type(0))
-            g[:, j] = np.where(live, c_new * gj, gj)
-            R[:, :, j] = np.where(live[:, None], h, R[:, :, j])
-            j += 1
-        # triangular solve of R[:k,:k] y = g[:k] per system
-        y = np.zeros((mb, m), dtype=rdt)
-        for s in range(mb):
-            k = int(ks[s])
-            if k:
-                y[s, :k] = scipy.linalg.solve_triangular(
-                    R[s, :k, :k], g[s, :k], lower=False)
-        y_t = torch.as_tensor(y, dtype=b.dtype, device=b.device)
-        u = torch.einsum("sk,skn->sn", y_t, V[:, :m])
-        return x + u, ks
-
-    x = x0.reshape(mb, n)
-    it = np.zeros(mb, dtype=np.int64)
+    x = x0.reshape(mb, n).clone()
+    it = torch.zeros(mb, dtype=torch.int32, device=b.device)
     k = 0
     while True:
-        r = res_of(x)
-        rn = norms(r)
-        if not (np.any(host(rn) > tol) and k < max_cycles):
+        # beta = ||r||, V[0] = r / beta, g = beta e1; the flag: any beta > tol
+        ko.gmres_start(res_of(x), wk)
+        if not (k < max_cycles and bool(wk.flag)):
             break
-        x, steps = cycle(x, r)
+        j = 0
+        while True:
+            w = Aop(wk.V[j])
+            # classical Gram-Schmidt with reorthogonalisation (CGS2) over
+            # the populated rows 0..j
+            ko.gmres_cgs_dot(wk.V, w, j + 1, wk.h1)
+            ko.gmres_cgs_update(wk.V, w, wk.h1, j + 1)
+            ko.gmres_cgs_dot(wk.V, w, j + 1, wk.h2)
+            ko.gmres_cgs_update(wk.V, w, wk.h2, j + 1)
+            ko.gmres_next(w, wk, j)            # hj1, V[j+1]
+            ko.gmres_givens(wk, j)             # rotations, freeze, ks, flag
+            j += 1
+            if j >= m or not bool(wk.flag):
+                break
+        ko.gmres_solve_update(wk, x)           # x += V^T y
+        it += wk.ks
         k += 1
-        it += steps
-    converged = bool(torch.all(rn <= tol_t))
-    return KrylovResult(x=x.reshape(shape), iters=[int(v) for v in it],
-                        resnorm=rn, converged=converged)
+    converged = bool(torch.all(wk.beta <= wk.tol))
+    return KrylovResult(x=x.reshape(shape), iters=[int(v) for v in it.tolist()],
+                        resnorm=wk.beta.clone(), converged=converged)

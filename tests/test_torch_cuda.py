@@ -16,8 +16,10 @@ from knpemidg_tpu_torch import _cuda
 from knpemidg_tpu_torch.fem.tabulation import build_geometry
 from knpemidg_tpu_torch.membrane import engine
 from knpemidg_tpu_torch.models import glial, hh
-from knpemidg_tpu_torch.ops import assembly, coarse, pairs, spmv
+from knpemidg_tpu_torch import probes
+from knpemidg_tpu_torch.ops import assembly, coarse, krylov_ops as ko, pairs, spmv
 from knpemidg_tpu_torch.parallel.sharding import unpad_state
+from knpemidg_tpu_torch.solvers import krylov
 
 pytestmark = pytest.mark.cuda
 
@@ -29,11 +31,13 @@ TWO_LEVEL_KERNELS = tuple(f"two_level_{e}{b}" for b in ("", "_batched")
 ASSEMBLY_KERNELS = ("emi_cell", "emi_facet", "emi_emit_cell", "alpha_sum", "knp_cell",
                     "knp_facet", "knp_membrane_rhs", "knp_emit_cell", "membrane_trace",
                     "eliminated_concentration")
+KRYLOV_KERNELS = tuple(f"pcg_{e}" for e in ("dot", "update", "dot2", "direction")) + tuple(
+    f"gmres_{e}" for e in ("start", "cgs_dot", "cgs_update", "next", "givens", "solve_update"))
 CELL_KERNELS = ("bell_matvec", "block_jacobi_inverse", "block_jacobi_apply",
-                "membrane_rk4") + TWO_LEVEL_KERNELS + ASSEMBLY_KERNELS
+                "membrane_rk4") + TWO_LEVEL_KERNELS + ASSEMBLY_KERNELS + KRYLOV_KERNELS
 PAIR_KERNELS = ("pair_matvec", "to_pair", "from_pair", "gather_blocks_pair",
                 "block_jacobi_inverse_nd8", "block_jacobi_apply_nd8",
-                "membrane_rk4") + TWO_LEVEL_KERNELS + ASSEMBLY_KERNELS
+                "membrane_rk4") + TWO_LEVEL_KERNELS + ASSEMBLY_KERNELS + KRYLOV_KERNELS
 
 
 @pytest.fixture(scope="module")
@@ -82,15 +86,16 @@ def test_membrane_rk4_kernel_matches_plain(name, dtype, tol):
                      "E_Na": 50.0, "stim_amplitude": 5.0}.items():
         mm = engine.set_param(mm, key, val * rng.uniform(0.9, 1.1, n))
     t = torch.tensor(0.3, dtype=dtype, device=dev)
-    n0 = _cuda.LAUNCHES["membrane_rk4"]
-    got = engine.ode_step(mm, t, 0.1, 25)
-    ref = engine.ode_step_plain(mm, t, 0.1, 25)
-    assert _cuda.LAUNCHES["membrane_rk4"] == n0 + 1
-    for s in range(ref.states.shape[0]):
-        assert rel(got.states[s], ref.states[s]) < 10 * tol
-    assert rel(got.params, ref.params) < 10 * tol
-    with pytest.raises(NotImplementedError):
-        engine.ode_step(mm, t, 0.1, 25, scheme="rush_larsen")
+    for scheme in ("rk4", "rush_larsen"):
+        # GlialKir has no gating states: Rush-Larsen runs the RK4 kernel
+        kernel = "membrane_rl" if scheme == "rush_larsen" and name == "hh_mv" else "membrane_rk4"
+        n0 = _cuda.LAUNCHES[kernel]
+        got = engine.ode_step(mm, t, 0.1, 25, scheme=scheme)
+        ref = engine.ode_step_plain(mm, t, 0.1, 25, scheme=scheme)
+        assert _cuda.LAUNCHES[kernel] == n0 + 1, scheme
+        for s in range(ref.states.shape[0]):
+            assert rel(got.states[s], ref.states[s]) < 10 * tol, (scheme, s)
+        assert rel(got.params, ref.params) < 10 * tol, scheme
 
 
 def test_kernels_raise_outside_the_main_path():
@@ -99,8 +104,9 @@ def test_kernels_raise_outside_the_main_path():
     dev = cuda_or_skip()
     mm = engine.make_membrane(hh.HodgkinHuxleySI(), np.zeros((8, 3)), device=dev)
     t = torch.tensor(0.0, dtype=torch.float64, device=dev)
-    with pytest.raises(NotImplementedError):
-        engine.ode_step(mm, t, 1e-4, 25)
+    for scheme in ("rk4", "rush_larsen"):
+        with pytest.raises(NotImplementedError):
+            engine.ode_step(mm, t, 1e-4, 25, scheme=scheme)
     nc = 16
     nbr = torch.zeros((4, nc), dtype=torch.int32, device=dev)
     B = torch.ones((4, 3, 3, nc), dtype=torch.float64, device=dev)
@@ -431,3 +437,225 @@ def test_assembly_kernels_take_the_2d_shapes():
     assert all(_cuda.LAUNCHES[k] > n0[k] for k in ASSEMBLY_KERNELS)
     for a_cpu, a_gpu in zip(*outs):
         assert rel(a_gpu, a_cpu) < 1e-12
+
+
+# ---------------------------------------------------------------------------
+# the Krylov kernels K8, K9 and the gather probes P1, P2
+# ---------------------------------------------------------------------------
+
+def _gmres_case(rng, dtype, dev, j, mb=2, n=5000, m=8):
+    """A GMRES work with rows 0..j of a random basis written (the rest zero,
+    as the plain versions' basis is), a random new vector w, and scalars
+    of step j: system 0 live, system 1 frozen."""
+    wk = ko.gmres_work(mb, n, m, dtype, dev)
+    wk.V.zero_()
+    wk.V[:j + 1] = _rand(rng, (j + 1, mb, n), dtype, dev)
+    w = _rand(rng, (mb, n), dtype, dev)
+    wk.tol.copy_(torch.as_tensor([1e-3, 1e3], dtype=dtype))
+    wk.g[:, :j + 1] = _rand(rng, (mb, j + 1), dtype, dev)
+    wk.g[0, j] = 5.0
+    ang = torch.as_tensor(rng.uniform(0, 2 * np.pi, (mb, m)), dtype=dtype, device=dev)
+    wk.cs[:, :j], wk.sn[:, :j] = torch.cos(ang[:, :j]), torch.sin(ang[:, :j])
+    wk.R.copy_(_rand(rng, (mb, m + 1, m), dtype, dev))
+    wk.R[:, range(m), range(m)] += 4.0                   # well conditioned
+    wk.h1[:, :j + 1] = _rand(rng, (mb, j + 1), dtype, dev)
+    wk.h2[:, :j + 1] = 1e-3 * _rand(rng, (mb, j + 1), dtype, dev)
+    wk.hj1.copy_(torch.as_tensor([2.0, 0.5], dtype=dtype))
+    wk.ks.copy_(torch.as_tensor([j, j - 1 if j else 0], dtype=torch.int32))
+    return wk, w
+
+
+def _clone_work(wk):
+    return ko.GmresWork(*(t.clone() for t in wk))
+
+
+@pytest.mark.parametrize("j", [0, 3])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_krylov_gmres_kernels_match_plain(j, dtype, tol):
+    """Each K9 entry point against its whole-basis plain version on the
+    same CUDA tensors (the kernels read only rows 0..j), one launch each."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(11)
+    wk, w = _gmres_case(rng, dtype, dev, j)
+    rows = j + 1
+    n0 = dict(_cuda.LAUNCHES)
+    h = ko.gmres_cgs_dot(wk.V, w, rows, torch.zeros_like(wk.h1))
+    h_p = ko.gmres_cgs_dot_plain(wk.V, w, rows, torch.zeros_like(wk.h1))
+    assert rel(h[:, :rows], h_p[:, :rows]) < tol
+    w1 = ko.gmres_cgs_update(wk.V, w.clone(), h_p, rows)
+    assert rel(w1, ko.gmres_cgs_update_plain(wk.V, w.clone(), h_p, rows)) < tol
+    a, b = _clone_work(wk), _clone_work(wk)
+    ko.gmres_next(w, a, j)
+    ko.gmres_next_plain(w, b, j)
+    assert rel(a.hj1, b.hj1) < tol and rel(a.V[:j + 2], b.V[:j + 2]) < tol
+    assert not bool(a.V[j + 1, 1].any())                  # the frozen system
+    a, b = _clone_work(wk), _clone_work(wk)
+    ko.gmres_givens(a, j)
+    ko.gmres_givens_plain(b, j)
+    for name in ("R", "g", "cs", "sn"):
+        assert rel(getattr(a, name), getattr(b, name)) < tol, name
+    assert torch.equal(a.ks, b.ks) and torch.equal(a.flag, b.flag)
+    a, b = _clone_work(b), _clone_work(b)
+    x = _rand(rng, (2, w.shape[1]), dtype, dev)
+    xa = ko.gmres_solve_update(a, x.clone())
+    xb = ko.gmres_solve_update_plain(b, x.clone())
+    assert rel(xa, xb) < 10 * tol
+    a, b = _clone_work(wk), _clone_work(wk)
+    ko.gmres_start(w, a)
+    ko.gmres_start_plain(w, b)
+    assert rel(a.beta, b.beta) < tol and rel(a.V[0], b.V[0]) < tol
+    assert rel(a.g, b.g) < tol and torch.equal(a.flag, b.flag)
+    for k in KRYLOV_KERNELS[4:]:
+        assert _cuda.LAUNCHES[k] == n0[k] + 1, k
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_krylov_pcg_kernels_match_plain(mode, dtype, tol):
+    """Each K8 entry point against its plain version: no projection, the
+    mean (cell layout) and the masked mean (pair layout)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(12)
+    shape = (8, 3001)
+    x, r, p, Ap, z = (_rand(rng, shape, dtype, dev) for _ in range(5))
+    w = torch.as_tensor(rng.uniform(size=shape) > 0.2, dtype=dtype, device=dev)
+    wsum = w.sum() if mode == 2 else torch.tensor(float(x.numel()), dtype=dtype, device=dev)
+    sc = torch.as_tensor([1.5, 2.0, 0.0, 0.0, 1e-6, 0.0], dtype=dtype, device=dev)
+    sc[ko.WSUM] = wsum
+
+    def work():
+        return ko.PcgWork(sc=sc.clone(), flag=torch.zeros(1, dtype=torch.int32, device=dev),
+                          w=w if mode == 2 else None, mode=mode)
+
+    a, b = work(), work()
+    n0 = dict(_cuda.LAUNCHES)
+    ko.pcg_dot(p, Ap, a)
+    ko.pcg_dot_plain(p, Ap, b)
+    assert rel(a.sc, b.sc) < tol
+    xa, ra = ko.pcg_update(x.clone(), r.clone(), p, Ap, a)
+    xb, rb = ko.pcg_update_plain(x.clone(), r.clone(), p, Ap, a)
+    assert rel(xa, xb) < tol and rel(ra, rb) < tol
+    ko.pcg_dot2(r, z, a)
+    ko.pcg_dot2_plain(r, z, b)
+    assert rel(a.sc[:4], b.sc[:4]) < tol and torch.equal(a.flag, b.flag)
+    assert rel(ko.pcg_direction(p.clone(), z, a), ko.pcg_direction_plain(p.clone(), z, a)) < tol
+    for k in KRYLOV_KERNELS[:4]:
+        assert _cuda.LAUNCHES[k] == n0[k] + 1, k
+
+
+def _dominant_system(rng, nc=3000, K=5, m=2):
+    nbr = np.vstack([np.arange(nc), rng.integers(0, nc, size=(K - 1, nc))]).astype(np.int32)
+    B = rng.normal(size=(m, K, 4, 4, nc)) * 0.05
+    B[:, 0, range(4), range(4), :] += 3.0
+    B[0, 0] *= 30.0                                  # system 0 converges first
+    return B, nbr
+
+
+def test_krylov_solvers_on_cuda_match_cpu():
+    """The batched GMRES (uneven convergence: one system frozen while the
+    other steps) and a nullspace-projected PCG through the kernels on the
+    card: the CPU's iteration counts and solutions; the float32 counts
+    repeat from call to call."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(13)
+    B, nbr = _dominant_system(rng)
+    b = rng.normal(size=(2, 4, B.shape[-1]))
+    out = {}
+    for d in ("cpu", dev):
+        Bt = torch.as_tensor(B, device=d)
+        nt = torch.as_tensor(nbr, device=d)
+        bt = torch.as_tensor(b, device=d)
+        out[str(d)] = krylov.gmres_batched(
+            lambda V: spmv.bell_matvec_multi(Bt, nt, V.contiguous()), bt,
+            torch.zeros_like(bt), lambda r: r, rtol=1e-9, atol=0.0, max_it=300, restart=12)
+    rc, rg = out["cpu"], out[str(dev)]
+    assert rg.converged and rg.iters == rc.iters and rg.iters[0] < rg.iters[1]
+    assert rel(rg.x, rc.x) < 1e-10
+    # SPD: the symmetric part of system 1's diagonal blocks, constant projection
+    P = B[1, 0] + np.swapaxes(B[1, 0], 0, 1)
+    rhs = rng.normal(size=(4, B.shape[-1]))
+    res = {}
+    for d in ("cpu", dev):
+        Pt = torch.as_tensor(P, device=d)
+        mv = lambda v: torch.einsum("ijc,jc->ic", Pt, v)
+        res[str(d)] = krylov.pcg(mv, torch.as_tensor(rhs, device=d),
+                                 torch.zeros(4, P.shape[-1], dtype=torch.float64, device=d),
+                                 lambda r: r / 6.0, rtol=1e-10, atol=0.0, max_it=200,
+                                 project_nullspace=True)
+    assert res[str(dev)].iters == res["cpu"].iters and res[str(dev)].converged
+    assert rel(res[str(dev)].x, res["cpu"].x) < 1e-10
+    counts = []
+    for _ in range(2):
+        Bt = torch.as_tensor(B, dtype=torch.float32, device=dev)
+        nt = torch.as_tensor(nbr, device=dev)
+        bt = torch.as_tensor(b, dtype=torch.float32, device=dev)
+        counts.append(krylov.gmres_batched(
+            lambda V: spmv.bell_matvec_multi(Bt, nt, V.contiguous()), bt,
+            torch.zeros_like(bt), lambda r: r, rtol=1e-6, atol=0.0, max_it=300,
+            restart=12).iters)
+    assert counts[0] == counts[1]
+
+
+def test_krylov_wrappers_raise_on_what_they_cannot_take():
+    """Mixed devices, non-contiguous or mistyped tensors, a restart beyond
+    the kernel's rows, and the GMRES variants the port does not carry."""
+    from knpemidg_tpu_torch.config import SolverParams
+    from knpemidg_tpu_torch.solver import _check_supported
+
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(14)
+    wk, w = _gmres_case(rng, torch.float64, dev, 2)
+    with pytest.raises(ValueError):                      # w on the CPU
+        ko.gmres_cgs_dot(wk.V, w.cpu(), 3, wk.h1)
+    with pytest.raises(ValueError):                      # not contiguous
+        ko.gmres_cgs_update(wk.V, w.t().contiguous().t(), wk.h1, 3)
+    with pytest.raises(TypeError):                       # dtype mismatch
+        ko.gmres_next(w.float(), wk, 2)
+    with pytest.raises(ValueError):                      # rows beyond the basis
+        ko.gmres_cgs_dot(wk.V, w, wk.V.shape[0] + 1, wk.h1)
+    with pytest.raises(NotImplementedError):
+        ko.gmres_work(2, 10, ko.MAX_RESTART + 1, torch.float64, dev)
+    pw = ko.PcgWork(sc=torch.zeros(6, dtype=torch.float64, device=dev),
+                    flag=torch.zeros(1, dtype=torch.int32, device=dev), w=None, mode=1)
+    with pytest.raises(TypeError):
+        ko.pcg_dot(w, w.float(), pw)
+    with pytest.raises(ValueError):
+        ko.pcg_direction(w, w.t().contiguous().t(), pw)
+    for over in ({"gmres_orth": "cgs1"}, {"gmres_rot": "carry"}, {"knp_solver": "bicgstab"}):
+        with pytest.raises(NotImplementedError):
+            _check_supported(SolverParams(**tp.solver_params_kw(**over)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_probe_kernels_match_plain(dtype):
+    """P1 and P2 at the probe's shapes equal the plain gathers exactly."""
+    dev = cuda_or_skip()
+    idx1, xsrc, idx2, xs2 = probes.make_inputs(0, dtype, dev)
+    n0 = dict(_cuda.LAUNCHES)
+    assert torch.equal(probes.pgather(idx1, xsrc), probes.pgather_plain(idx1, xsrc))
+    assert torch.equal(probes.pgather2(idx2, xs2), probes.pgather2_plain(idx2, xs2))
+    for k in ("pgather", "pgather2"):
+        assert _cuda.LAUNCHES[k] == n0[k] + 1
+    with pytest.raises(ValueError):
+        probes.pgather2(idx2[:, :10].contiguous(), xs2)
+
+
+def test_rush_larsen_window_on_cuda_matches_cpu():
+    """Two float64 steps of the EMIx fixture with ode_scheme="rush_larsen":
+    the neuron's points go through the Rush-Larsen kernel, the glial ones
+    through RK4, and the counts and fields are the CPU run's."""
+    import dataclasses
+
+    dev = cuda_or_skip()
+    runs = {}
+    for d in ("cpu", dev):
+        S, sp = tp.emix_torch(device=d)
+        S.params = dataclasses.replace(S.params, ode_scheme="rush_larsen")
+        _cuda.reset_launches()
+        runs[str(d)] = (S, S.solve_system_active(0.2, 0.0, sp))
+    assert _cuda.LAUNCHES["membrane_rl"] > 0 and _cuda.LAUNCHES["membrane_rk4"] > 0
+    (Sc, sc), (Sg, sg) = runs["cpu"], runs[str(dev)]
+    assert Sg.stats.emi_niters == Sc.stats.emi_niters
+    assert Sg.stats.knp_niters == Sc.stats.knp_niters
+    for key in ("phi", "c", "c_elim", "phi_M"):
+        assert rel(sg[key], sc[key]) < 1e-8, key

@@ -1,0 +1,313 @@
+"""The plain versions of the Krylov kernels (ops/krylov_ops.py: K8 the PCG
+iteration, K9 the batched GMRES cycle) against the JAX package's formulas
+in float64, and the restructured loops (solvers/krylov.py, which run every
+entry point through its wrapper) against jkry.pcg / jkry.gmres_batched.
+
+The K9 kernels read only the populated basis rows 0..j; their plain
+versions keep the whole-basis einsums of knpemidg_tpu/solvers/krylov.py:
+385-389 on a basis that is zero beyond row j.  The first test holds the
+two readings equal: the rows beyond j add exact zeros."""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+import jax.scipy.linalg as jsl
+
+from test_torch_parity import rel, t64
+
+from knpemidg_tpu.ops.spmv import bell_matvec as jbm, bell_matvec_multi as jbmm
+from knpemidg_tpu.solvers import krylov as jkry
+from knpemidg_tpu_torch.ops import krylov_ops as ko
+from knpemidg_tpu_torch.ops.spmv import bell_matvec, bell_matvec_multi
+from knpemidg_tpu_torch.solvers import krylov
+
+MB, N, M = 2, 600, 8           # systems, entries, restart
+
+
+def _basis(rng, j):
+    """A (mb, m+1, n) basis (the JAX layout) with rows 0..j populated."""
+    V = np.zeros((MB, M + 1, N))
+    V[:, :j + 1] = rng.normal(size=(MB, j + 1, N))
+    return V
+
+
+def _work(V):
+    wk = ko.gmres_work(MB, N, M, torch.float64, "cpu")
+    wk.V.copy_(t64(np.swapaxes(V, 0, 1)))
+    return wk
+
+
+@pytest.mark.parametrize("j", [0, 3, 7])
+def test_cgs2_pass_matches_jax_whole_basis(j):
+    """Both CGS passes (dot, update, dot, update) against the whole-basis
+    einsums of the JAX package, and against the populated-rows sums the
+    kernels compute, to 1e-14."""
+    rng = np.random.default_rng(20 + j)
+    V = _basis(rng, j)
+    w = rng.normal(size=(MB, N))
+    Vj, wj = jnp.asarray(V), jnp.asarray(w)
+    h1j = jnp.einsum("skn,sn->sk", Vj, wj)
+    w1j = wj - jnp.einsum("sk,skn->sn", h1j, Vj)
+    h2j = jnp.einsum("skn,sn->sk", Vj, w1j)
+    w2j = w1j - jnp.einsum("sk,skn->sn", h2j, Vj)
+
+    wk = _work(V)
+    wt = t64(w)
+    ko.gmres_cgs_dot(wk.V, wt, j + 1, wk.h1)
+    ko.gmres_cgs_update(wk.V, wt, wk.h1, j + 1)
+    ko.gmres_cgs_dot(wk.V, wt, j + 1, wk.h2)
+    ko.gmres_cgs_update(wk.V, wt, wk.h2, j + 1)
+    assert rel(wk.h1, h1j) < 1e-14 and rel(wk.h2, h2j) < 1e-14
+    assert rel(wt, w2j) < 1e-14
+    # the populated rows alone (what the kernels read)
+    Vp = V[:, :j + 1]
+    h1p = np.einsum("skn,sn->sk", Vp, w)
+    assert rel(wk.h1[:, :j + 1], h1p) < 1e-14
+    assert not wk.h1[:, j + 1:].any()
+    w1p = w - np.einsum("sk,skn->sn", h1p, Vp)
+    assert rel(wt, w1p - np.einsum("sk,skn->sn", np.einsum("skn,sn->sk", Vp, w1p), Vp)) < 1e-14
+
+
+def test_gmres_start_and_next_match_the_formulas():
+    """beta, V[0] and g = beta e1 (the cycle's start, krylov.py:319-325);
+    hj1 and V[j+1] with a frozen system's row zero (:392-396)."""
+    rng = np.random.default_rng(21)
+    wk = _work(_basis(rng, 2))
+    wk.tol.copy_(t64([1e-3, 1e3]))
+    r = rng.normal(size=(MB, N))
+    ko.gmres_start(t64(r), wk)
+    beta = np.sqrt(np.einsum("sn,sn->s", r, r))
+    assert rel(wk.beta, beta) < 1e-15
+    assert rel(wk.V[0], r / beta[:, None]) < 1e-15
+    assert not wk.V[1:].any()                         # zeroed for the whole-basis sums
+    assert rel(wk.g[:, 0], beta) < 1e-15 and not wk.g[:, 1:].any()
+    assert int(wk.flag) == 1 and not wk.ks.any() and not wk.R.any()
+    wk.g[:, 2] = t64([5.0, 5.0])                      # system 0 live, system 1 frozen
+    w = rng.normal(size=(MB, N))
+    ko.gmres_next(t64(w), wk, 2)
+    hj1 = np.sqrt(np.einsum("sn,sn->s", w, w))
+    assert rel(wk.hj1, hj1) < 1e-15
+    assert rel(wk.V[3, 0], w[0] / hj1[0]) < 1e-15 and not wk.V[3, 1].any()
+
+
+def _reference_step(h1, h2, hj1, R, g, cs, sn, ks, tol, j):
+    """knpemidg_tpu/solvers/krylov.py:397-439 (rot="replay") in numpy."""
+    R, g, cs, sn, ks = R.copy(), g.copy(), cs.copy(), sn.copy(), ks.copy()
+    gj = g[:, j].copy()
+    live = np.abs(gj) > tol
+    ks += live
+    h = h1 + h2
+    h[:, j + 1] = hj1
+    for i in range(j):
+        hi = cs[:, i] * h[:, i] + sn[:, i] * h[:, i + 1]
+        hi1 = -sn[:, i] * h[:, i] + cs[:, i] * h[:, i + 1]
+        h[:, i], h[:, i + 1] = hi, hi1
+    hj, hjp = h[:, j].copy(), h[:, j + 1].copy()
+    denom = np.sqrt(hj ** 2 + hjp ** 2)
+    dsafe = np.where(denom > 0, denom, 1.0)
+    c_new = np.where(live, np.where(denom > 0, hj / dsafe, 1.0), 1.0)
+    s_new = np.where(live, np.where(denom > 0, hjp / dsafe, 0.0), 0.0)
+    cs[:, j], sn[:, j] = c_new, s_new
+    h[:, j] = np.where(live, denom, hj)
+    h[:, j + 1] = 0.0
+    g[:, j + 1] = np.where(live, -s_new * gj, 0.0)
+    g[:, j] = np.where(live, c_new * gj, gj)
+    R[:, :, j] = np.where(live[:, None], h, R[:, :, j])
+    return R, g, cs, sn, ks, bool(np.any(np.abs(g[:, j + 1]) > tol))
+
+
+@pytest.mark.parametrize("j", [0, 4])
+def test_gmres_givens_matches_the_reference_step(j):
+    """The scalar work of step j (replay, new rotation, freeze of a system
+    that already met its tolerance, ks, the flag) equals the reference's."""
+    rng = np.random.default_rng(22 + j)
+    h1 = np.zeros((MB, M + 1))
+    h1[:, :j + 1] = rng.normal(size=(MB, j + 1))
+    h2 = np.zeros((MB, M + 1))
+    h2[:, :j + 1] = 1e-3 * rng.normal(size=(MB, j + 1))
+    hj1 = np.array([0.7, 1.3])
+    ang = rng.uniform(0, 2 * np.pi, (MB, M))
+    cs, sn = np.cos(ang), np.sin(ang)
+    cs[:, j:], sn[:, j:] = 0.0, 0.0
+    R = rng.normal(size=(MB, M + 1, M))
+    g = np.zeros((MB, M + 1))
+    g[:, :j + 1] = rng.normal(size=(MB, j + 1))
+    g[0, j] = 4.0
+    tol = np.array([1e-2, 1e2])
+    ks = np.array([j, max(j - 1, 0)])
+    ref = _reference_step(h1, h2, hj1, R, g, cs, sn, ks, tol, j)
+
+    wk = ko.gmres_work(MB, 4, M, torch.float64, "cpu")
+    for name, v in (("h1", h1), ("h2", h2), ("hj1", hj1), ("R", R), ("g", g), ("cs", cs),
+                    ("sn", sn), ("tol", tol)):
+        getattr(wk, name).copy_(t64(v))
+    wk.ks.copy_(torch.as_tensor(ks, dtype=torch.int32))
+    ko.gmres_givens(wk, j)
+    for got, want in zip((wk.R, wk.g, wk.cs, wk.sn), ref[:4]):
+        assert np.array_equal(got.numpy(), want)
+    assert wk.ks.tolist() == ref[4].tolist() == [j + 1, max(j - 1, 0)]
+    assert bool(wk.flag) == ref[5]
+
+
+def test_gmres_solve_update_matches_jax():
+    """y from R[:ks, :ks] y = g[:ks] per system (the JAX masked solve of
+    :445-450) and x += y^T V[:m] (:451)."""
+    rng = np.random.default_rng(23)
+    V = _basis(rng, M)
+    wk = _work(V)
+    R = rng.normal(size=(MB, M + 1, M)) + 4.0 * np.eye(M + 1, M)[None]
+    g = rng.normal(size=(MB, M + 1))
+    ks = np.array([5, 2])
+    wk.R.copy_(t64(R))
+    wk.g.copy_(t64(g))
+    wk.ks.copy_(torch.as_tensor(ks, dtype=torch.int32))
+    x = rng.normal(size=(MB, N))
+    got = ko.gmres_solve_update(wk, t64(x))
+    used = np.arange(M)[None, :] < ks[:, None]
+    Rm = np.where(used[:, None, :] & used[:, :, None], R[:, :M, :M], np.eye(M)[None])
+    gm = np.where(used, g[:, :M], 0.0)
+    y = np.stack([np.asarray(jsl.solve_triangular(jnp.asarray(a), jnp.asarray(b), lower=False))
+                  for a, b in zip(Rm, gm)])
+    assert rel(wk.y, y) < 1e-14
+    assert rel(got, x + np.einsum("sk,skn->sn", y, V[:, :M])) < 1e-14
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_pcg_entries_match_the_formulas(mode):
+    """alpha, the projected updates (none, the mean, the masked mean),
+    rz / zz / beta / the flag, and the direction (krylov.py:101-111)."""
+    rng = np.random.default_rng(24)
+    shape = (4, 300)
+    x, r, p, Ap, z = (rng.normal(size=shape) for _ in range(5))
+    w = (rng.uniform(size=shape) > 0.3).astype(np.float64)
+    wsum = w.sum() if mode == 2 else float(x.size)
+    wk = ko.PcgWork(sc=t64([1.7, 2.0, 0.0, 0.0, 1e-30, wsum]),
+                    flag=torch.zeros(1, dtype=torch.int32), w=t64(w) if mode == 2 else None,
+                    mode=mode)
+    ko.pcg_dot(t64(p), t64(Ap), wk)
+    alpha = 1.7 / np.vdot(p, Ap)
+    assert rel(wk.sc[ko.ALPHA], alpha) < 1e-15
+
+    def proj(v):
+        if mode == 1:
+            return v - v.mean()
+        if mode == 2:
+            return (v - np.sum(v * w) / wsum) * w
+        return v
+
+    xt, rt = ko.pcg_update(t64(x), t64(r), t64(p), t64(Ap), wk)
+    assert rel(xt, proj(x + alpha * p)) < 1e-14 and rel(rt, proj(r - alpha * Ap)) < 1e-14
+    ko.pcg_dot2(t64(r), t64(z), wk)
+    rz = np.vdot(r, z)
+    assert rel(wk.sc[ko.RZ], rz) < 1e-14 and rel(wk.sc[ko.ZZ], np.vdot(z, z)) < 1e-14
+    assert rel(wk.sc[ko.BETA], rz / 1.7) < 1e-14 and int(wk.flag) == 1
+    pt = ko.pcg_direction(t64(p), t64(z), wk)
+    assert rel(pt, z + (rz / 1.7) * p) < 1e-14
+
+
+def _system(rng, nc=240, K=4, m=2, nd=4):
+    nbr = np.vstack([np.arange(nc), rng.integers(0, nc, size=(K - 1, nc))]).astype(np.int32)
+    B = rng.normal(size=(m, K, nd, nd, nc)) * 0.05
+    B[:, 0, range(nd), range(nd), :] += 3.0
+    return B, nbr
+
+
+# (restart, rtol, b_ref, system 0's dominance): several restart cycles, a
+# reference rhs for the tolerance, uneven convergence (system 0 frozen
+# while system 1 steps on)
+GMRES_CASES = {"restarts": (4, 1e-10, False, 1.0), "b_ref": (6, 1e-8, True, 1.0),
+               "frozen": (12, 1e-9, False, 30.0)}
+
+
+@pytest.mark.parametrize("case", sorted(GMRES_CASES))
+def test_gmres_batched_through_the_wrappers_matches_jax(case):
+    restart, rtol, use_ref, dom = GMRES_CASES[case]
+    rng = np.random.default_rng(25)
+    B, nbr = _system(rng)
+    B[0, 0] *= dom
+    b = rng.normal(size=(2, 4, B.shape[-1]))
+    bref = b + rng.normal(size=b.shape) if use_ref else None
+    prec = lambda r: r * 0.3
+    rj = jkry.gmres_batched(lambda V: jbmm(jnp.asarray(B), jnp.asarray(nbr), V),
+                            jnp.asarray(b), jnp.zeros(b.shape), prec, rtol=rtol, atol=0.0,
+                            max_it=400, restart=restart,
+                            b_ref=None if bref is None else jnp.asarray(bref))
+    nbr_t = torch.as_tensor(nbr)
+    rt = krylov.gmres_batched(lambda V: bell_matvec_multi(t64(B), nbr_t, V), t64(b),
+                              torch.zeros(b.shape, dtype=torch.float64), prec, rtol=rtol,
+                              atol=0.0, max_it=400, restart=restart,
+                              b_ref=None if bref is None else t64(bref))
+    assert rt.converged and bool(np.all(np.asarray(rj.converged)))
+    assert rt.iters == np.asarray(rj.iters).tolist()
+    assert rel(rt.x, rj.x) < 1e-10
+    assert rel(rt.resnorm, rj.resnorm) < 1e-6
+    if case == "frozen":
+        assert rt.iters[0] < rt.iters[1]
+    if case == "restarts":
+        assert max(rt.iters) > restart
+
+
+def _ring(rng, nc, nd=4):
+    """A singular SPD cell-ring operator (constants its null mode)."""
+    nbr = np.vstack([np.arange(nc), (np.arange(nc) + 1) % nc,
+                     (np.arange(nc) - 1) % nc]).astype(np.int32)
+    B = np.zeros((3, nd, nd, nc))
+    wts = rng.uniform(0.5, 1.5, nc)
+    for i in range(nd):
+        B[1, i, i] = -wts
+        B[2, i, i] = -np.roll(wts, 1)
+        B[0, i, i] = wts + np.roll(wts, 1)
+    B[0] += (np.eye(nd) - 1.0 / nd)[..., None] * rng.uniform(0.5, 1.0, nc)
+    return B, nbr
+
+
+def test_pcg_masked_projection_matches_jax():
+    """The pair layout's masked projection: inert padded cells (identity
+    rows, outside the ring) carry no constant mode; the projection averages
+    over the real cells and zeroes the pads, and the preconditioner is
+    masked as the solver masks it."""
+    rng = np.random.default_rng(26)
+    nc, nd, npad = 160, 4, 16
+    Br, nbr_r = _ring(rng, nc, nd)
+    ntot = nc + npad
+    B = np.zeros((3, nd, nd, ntot))
+    B[..., :nc] = Br
+    B[0, range(nd), range(nd), nc:] = 1.0
+    nbr = np.vstack([np.arange(ntot)] * 3).astype(np.int32)
+    nbr[:, :nc] = nbr_r
+    mask = np.zeros((nd, ntot), dtype=bool)
+    mask[:, :nc] = True
+    b = rng.normal(size=(nd, ntot)) * mask
+    dinv = 1.0 / np.diagonal(B[0] + 0.1 * np.eye(nd)[..., None], axis1=0, axis2=1).T
+    rj = jkry.pcg(lambda v: jbm(jnp.asarray(B), jnp.asarray(nbr), v), jnp.asarray(b),
+                  jnp.zeros((nd, ntot)), lambda r: jnp.asarray(dinv * mask) * r, rtol=1e-10,
+                  atol=0.0, max_it=500, project_nullspace=True,
+                  nullspace_mask=jnp.asarray(mask))
+    mt = torch.as_tensor(mask)
+    rt = krylov.pcg(lambda v: bell_matvec(t64(B), torch.as_tensor(nbr), v), t64(b),
+                    torch.zeros(nd, ntot, dtype=torch.float64),
+                    lambda r: t64(dinv * mask) * r, rtol=1e-10, atol=0.0, max_it=500,
+                    project_nullspace=True, nullspace_mask=mt)
+    assert rt.converged and bool(rj.converged)
+    assert rt.iters == int(rj.iters)
+    assert rel(rt.x, rj.x) < 1e-10
+    assert not rt.x[:, nc:].any()
+
+
+def test_pcg_without_projection_matches_jax():
+    """An SPD system without the nullspace projection (the flag carried in
+    the work, the direction updated in place)."""
+    rng = np.random.default_rng(27)
+    B, nbr = _ring(rng, 200)
+    B[0, range(4), range(4), :] += 0.5                 # nonsingular
+    b = rng.normal(size=(4, 200))
+    dinv = 1.0 / np.diagonal(B[0], axis1=0, axis2=1).T
+    rj = jkry.pcg(lambda v: jbm(jnp.asarray(B), jnp.asarray(nbr), v), jnp.asarray(b),
+                  jnp.zeros((4, 200)), lambda r: jnp.asarray(dinv) * r, rtol=1e-11,
+                  atol=0.0, max_it=500)
+    rt = krylov.pcg(lambda v: bell_matvec(t64(B), torch.as_tensor(nbr), v), t64(b),
+                    torch.zeros(4, 200, dtype=torch.float64), lambda r: t64(dinv) * r,
+                    rtol=1e-11, atol=0.0, max_it=500)
+    assert rt.converged and bool(rj.converged)
+    assert rt.iters == int(rj.iters)
+    assert rel(rt.x, rj.x) < 1e-10

@@ -19,6 +19,7 @@ from knpemidg_tpu_torch import emix
 from knpemidg_tpu_torch import solver as tsolver
 from knpemidg_tpu_torch.ops import assembly as tassembly
 from knpemidg_tpu_torch.ops import coarse as tcoarse
+from knpemidg_tpu_torch.ops import krylov_ops as tkrylov_ops
 from knpemidg_tpu_torch.solvers import twolevel as ttwolevel
 
 TOL = 1e-8
@@ -136,7 +137,8 @@ def test_port_imports_no_jax():
             "knpemidg_tpu_torch._cuda, knpemidg_tpu_torch.ops.pairs, "
             "knpemidg_tpu_torch.ops.coarse, knpemidg_tpu_torch.solvers.twolevel, "
             "knpemidg_tpu_torch.parallel.sharding, "
-            "knpemidg_tpu_torch.profile_step; "
+            "knpemidg_tpu_torch.profile_step, knpemidg_tpu_torch.probes, "
+            "knpemidg_tpu_torch.ops.krylov_ops; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'knpemidg_tpu' or m.startswith('knpemidg_tpu.')]; "
             "assert not bad, bad")
@@ -152,10 +154,14 @@ ASSEMBLY_WRAPPERS = {"emi_cell", "emi_facet", "emi_emit_cell", "alpha_sum", "knp
                      "nernst_potential_m", "jump_phi_M_m", "eliminated_concentration"}
 CELL_WRAPPERS = {"bell_matvec", "bell_matvec_multi", "block_jacobi_inverse",
                  "block_jacobi_apply"} | COARSE_WRAPPERS | ASSEMBLY_WRAPPERS
+KRYLOV_WRAPPERS = {"pcg_dot", "pcg_update", "pcg_dot2", "pcg_direction", "gmres_start",
+                   "gmres_cgs_dot", "gmres_cgs_update", "gmres_next", "gmres_givens",
+                   "gmres_solve_update"}
+CELL_WRAPPERS |= KRYLOV_WRAPPERS
 PAIR_WRAPPERS = {"pair_matvec", "pair_matvec_multi", "to_pair", "from_pair",
                  "gather_blocks_pair", "gather_blocks_pair_multi",
                  "block_jacobi_inverse", "block_jacobi_apply"} | COARSE_WRAPPERS \
-    | ASSEMBLY_WRAPPERS
+    | ASSEMBLY_WRAPPERS | KRYLOV_WRAPPERS
 
 
 def _tensors(a):
@@ -185,7 +191,7 @@ def test_kernel_inputs_are_contiguous_on_main_path(monkeypatch, pair):
             return fn(*args, **kw)
         return wrapped
 
-    for mod in (tsolver, ttwolevel, tassembly, tcoarse):
+    for mod in (tsolver, ttwolevel, tassembly, tcoarse, tkrylov_ops):
         for name in CELL_WRAPPERS | PAIR_WRAPPERS:
             if hasattr(mod, name):
                 monkeypatch.setattr(mod, name, strict(getattr(mod, name)))
