@@ -763,17 +763,20 @@ def krylov_phase(S, results, layout):
             wmask, wsum, mode = None, torch.tensor(float(x.numel()), dtype=dtype, device=dev), 1
         sc0 = torch.stack([(r * z).sum(), (z * z).sum(), torch.zeros_like(wsum),
                            torch.zeros_like(wsum), torch.zeros_like(wsum), wsum])
-        work = lambda: ko.PcgWork(sc=sc0.clone(), flag=torch.zeros(1, dtype=torch.int32,
-                                                                    device=dev),
-                                  w=wmask, mode=mode)
+        work = lambda: ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev),
+                                   wmask, mode, n)
         pa = work()
         pap = (p_ * Ap).sum()
         scale_alpha = (sc0[ko.RZ].abs() * (p_.abs() * Ap.abs()).sum() / pap ** 2)
+        # the dots are timed as the solver calls them: on one work per solve
+        wd = [work(), work()]
         compare(name("pcg_dot"), dtype,
                 lambda: [ko.pcg_dot(p_, Ap, work()).sc[ko.ALPHA]],
                 lambda: [ko.pcg_dot_plain(p_, Ap, work()).sc[ko.ALPHA]],
                 lambda ref: [scale_alpha], results, inputs=[p_, Ap],
-                flops=2.0 * p_.numel(), library_fn=lambda: torch.dot(p_.view(-1), Ap.view(-1)))
+                flops=2.0 * p_.numel(), library_fn=lambda: torch.dot(p_.view(-1), Ap.view(-1)),
+                timed=(lambda: ko.pcg_dot(p_, Ap, wd[0]),
+                       lambda: ko.pcg_dot_plain(p_, Ap, wd[1])))
         ko.pcg_dot_plain(p_, Ap, pa)
         alpha = pa.sc[ko.ALPHA]
         ax, ar = x.abs() + alpha.abs() * p_.abs(), r.abs() + alpha.abs() * Ap.abs()
@@ -800,7 +803,12 @@ def krylov_phase(S, results, layout):
                 lambda: dot2_out(ko.pcg_dot2_plain),
                 lambda ref: [dot2_scale, torch.ones_like(ref[1])],
                 results, inputs=[r, z], flops=4.0 * r.numel(),
-                library_fn=lambda: torch.mv(stack, z.view(-1)))
+                library_fn=lambda: torch.mv(stack, z.view(-1)),
+                timed=(lambda: ko.pcg_dot2(r, z, wd[0]),
+                       lambda: ko.pcg_dot2_plain(r, z, wd[1])))
+        for entry, fn, vecs in (("pcg_dot", ko.pcg_dot, (p_, Ap)),
+                                ("pcg_dot2", ko.pcg_dot2, (r, z, z, z))):
+            dots_exact(name(entry), dtype, ko, fn, vecs, sc0, work())
         pd2 = ko.pcg_dot2_plain(r, z, work())
         pb = [p_.clone(), p_.clone()]
         compare(name("pcg_direction"), dtype,
@@ -811,6 +819,44 @@ def krylov_phase(S, results, layout):
                 library_fn=lambda: torch.addcmul(z, pd2.sc[ko.BETA], p_),
                 timed=(lambda: ko.pcg_direction(pb[0], z, pd2),
                        lambda: ko.pcg_direction_plain(pb[1], z, pd2)))
+
+
+def dots_exact(name, dtype, ko, fn, vecs, sc0, wk, calls=1000):
+    """A K8 dot entry against pcg_dots_ordered_plain (the kernels'
+    summation order) to the last bit of the scalars and the flag it
+    writes, then ``calls`` back-to-back calls on one work: each writes the
+    same bits (the written slots are NaN and the flag -1 before every
+    call) and the ticket is 0 after them."""
+    sums = ko.pcg_dots_ordered_plain(*vecs)
+    sc_in = sc0.clone()
+    sc_in[[ko.ZZ, ko.ALPHA, ko.BETA]] = float("nan")
+    flag_in = torch.full((1,), -1, dtype=torch.int32, device=sc0.device)
+    want, want_flag = sc_in.clone(), flag_in.clone()
+    if len(vecs) == 2:
+        want[ko.ALPHA] = want[ko.RZ] / sums[0]
+    else:
+        want[ko.BETA] = sums[0] / want[ko.RZ]
+        want[ko.RZ] = sums[0]
+        want[ko.ZZ] = sums[1]
+        want_flag.fill_(int(bool(sums[1] > want[ko.TOL2])))
+    got = torch.empty((calls, 6), dtype=dtype, device=sc0.device)
+    got_flag = torch.empty((calls, 1), dtype=torch.int32, device=sc0.device)
+    for i in range(calls):
+        wk.sc.copy_(sc_in)
+        wk.flag.copy_(flag_in)
+        fn(*vecs[:2], wk)
+        got[i].copy_(wk.sc)
+        got_flag[i].copy_(wk.flag)
+    torch.cuda.synchronize()
+    bits = lambda t: t.view(torch.int64 if dtype == torch.float64 else torch.int32)
+    first = torch.equal(bits(got[0, :4]), bits(want[:4])) and torch.equal(got_flag[0], want_flag)
+    repeat = (torch.equal(bits(got), bits(got[:1]).expand_as(bits(got)))
+              and torch.equal(got_flag, got_flag[:1].expand_as(got_flag)))
+    ticket = wk.ticket.tolist()
+    print(f"exact   {name:30s} {str(dtype):14s} sc[:4] and flag bitwise equal to the ordered "
+          f"sums: {first}; {calls} calls repeat: {repeat}; ticket after them {ticket}")
+    if not (first and repeat and ticket == [0]):
+        raise AssertionError(f"{name} differs from the ordered sums or does not repeat")
 
 
 def probe_phase(results, launches):

@@ -94,9 +94,9 @@ _SIGNATURES = {
     "knp_gmres_start": (_P,) * 11 + (_I,) * 4 + (_P,),
     "knp_gmres_givens": (_P,) * 3 + (_I,) + (_P,) * 7 + (_I,) * 3 + (_P,),
     "knp_gmres_solve_update": (_P,) * 6 + (_I,) * 3 + (_P,),
-    "knp_pcg_dot": (_P,) * 4 + (_I,) * 2 + (_P,),
+    "knp_pcg_dot": (_P,) * 5 + (_I,) * 2 + (_P,),
     "knp_pcg_update": (_P,) * 7 + (_I,) * 3 + (_P,),
-    "knp_pcg_dot2": (_P,) * 5 + (_I,) * 2 + (_P,),
+    "knp_pcg_dot2": (_P,) * 6 + (_I,) * 2 + (_P,),
     "knp_pcg_direction": (_P,) * 3 + (_I,) + (_P,),
     "knp_pgather": (_P,) * 3 + (_I,) + (_P,),
     "knp_pgather2": (_P,) * 3 + (_I,) * 2 + (_P,),
@@ -187,17 +187,24 @@ def lib() -> ctypes.CDLL:
 
 
 _SUFFIX = {torch.float32: "_f32", torch.float64: "_f64"}
+_FNS = {}                 # (entry, dtype) -> the library's C function
+
+
+def _resolve(kernel: str, entry: str, dtype: torch.dtype):
+    if dtype not in _SUFFIX:
+        raise TypeError(f"{kernel}: CUDA kernel takes float32/float64, got {dtype}")
+    fn = _FNS[(entry, dtype)] = getattr(lib(), entry + _SUFFIX[dtype])
+    return fn
 
 
 def launch(kernel: str, entry: str, dtype: torch.dtype, *args):
-    """Call C entry point ``entry`` for ``dtype`` on the current stream,
-    raise on a non-zero cudaGetLastError(), and count one launch of
-    ``kernel``."""
-    if dtype not in _SUFFIX:
-        raise TypeError(f"{kernel}: CUDA kernel takes float32/float64, got {dtype}")
-    fn = getattr(lib(), entry + _SUFFIX[dtype])
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = fn(*args, stream)
+    """Call C entry point ``entry`` for ``dtype`` on the current stream of
+    the current device, raise on a non-zero cudaGetLastError(), and count
+    one launch of ``kernel``.  The C function is looked up once per entry
+    and dtype; the stream is read as its raw handle, without building a
+    stream object."""
+    fn = _FNS.get((entry, dtype)) or _resolve(kernel, entry, dtype)
+    rc = fn(*args, torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
     LAUNCHES[kernel] += 1

@@ -18,58 +18,96 @@
 // Bound: device-memory bandwidth (a few flops per 8 bytes).  Every sum is
 // per-block partials over fixed chunks, block trees, then the chunks in
 // index order: no floating-point atomics, so results and iteration counts
-// repeat from call to call.  The projection is a second kernel in which
-// every block sums the update's partials itself (the same sum in the same
-// order in every block) and projects its own chunk.  The source compiles
-// with -fmad=false, so the updates round as the plain versions do.
+// repeat from call to call.  The two dot entries are one launch each: the
+// block that finishes last (an int32 ticket, the only atomic) sums the
+// partials and writes the scalars, so the finish pass costs no second launch
+// and no dependency gap.  The projection is a second kernel in
+// which every block sums the update's partials itself (the same sum in the
+// same order in every block) and projects its own chunk.  The source
+// compiles with -fmad=false, so the updates round as the plain versions do.
+#include <cuda/atomic>
+
 #include "common.cuh"
 
 enum { PCG_RZ = 0, PCG_ZZ, PCG_ALPHA, PCG_BETA, PCG_TOL2, PCG_WSUM };
 
-// partial[b NV + v] = sum over chunk b of a_v . b_v, for NV = 1 or 2 products
+// entries a thread of the dot kernel sums (RED_CHUNK = 2048 of
+// ops/krylov_ops.py is PCG_PER x KNP_THREADS)
+#define PCG_PER 8
+
+// NV = 1: alpha = rz / (a . b).  NV = 2: rz' = a . b, zz = b . b,
+// beta = rz' / rz, rz = rz', *flag = zz > tol^2.
+//
+// Block q sums chunk q into partial[q NV + v]: thread t adds its entries
+// lo + t + 256 k, k = 0..7, in order, then the block tree.  All of a
+// thread's loads are issued before its first add (the adds keep their
+// order, so the sum is the same; the loads' latency is paid once, not
+// eight times).  Thread 0 then publishes the partials with a release
+// ticket (an int32 atomic, the only one); the block that draws nblk - 1
+// has acquired every partial, sums them in index order (thread t takes
+// partials t + 256 k, then the block tree), writes the scalars and resets
+// the ticket for the next launch on the stream.  Both sums are in the order
+// of a partial pass followed by a one-block finish pass.
 template <typename T, int NV>
-__global__ void pcg_dot_partial_kernel(const T* __restrict__ a0, const T* __restrict__ b0,
-                                       const T* __restrict__ a1, const T* __restrict__ b1,
-                                       T* __restrict__ partial, long long n, int chunk) {
+__global__ void __launch_bounds__(KNP_THREADS)
+    pcg_dot_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ partial,
+                   int* __restrict__ ticket, T* __restrict__ sc, int* __restrict__ flag,
+                   long long n) {
   __shared__ T red[KNP_WARPS];
-  const long long lo = (long long)blockIdx.x * chunk;
-  const long long hi = lo + chunk < n ? lo + chunk : n;
+  __shared__ bool last;
+  const int nblk = gridDim.x;
+  // the scalars the finishing block reads, loaded while the chunk streams in
+  T rz = T(0), tol2 = T(0);
+  if (threadIdx.x == 0) {
+    rz = sc[PCG_RZ];
+    if (NV == 2) tol2 = sc[PCG_TOL2];
+  }
+  const long long lo = (long long)blockIdx.x * (PCG_PER * KNP_THREADS) + threadIdx.x;
+  T va[PCG_PER], vb[PCG_PER];
+#pragma unroll
+  for (int k = 0; k < PCG_PER; ++k) {
+    const long long i = lo + (long long)k * KNP_THREADS;
+    va[k] = i < n ? a[i] : T(0);
+    vb[k] = i < n ? b[i] : T(0);
+  }
   T acc0 = T(0), acc1 = T(0);
-  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    acc0 += a0[i] * b0[i];
-    if (NV == 2) acc1 += a1[i] * b1[i];
+#pragma unroll
+  for (int k = 0; k < PCG_PER; ++k) {
+    if (lo + (long long)k * KNP_THREADS < n) {
+      acc0 += va[k] * vb[k];
+      if (NV == 2) acc1 += vb[k] * vb[k];
+    }
   }
   acc0 = knp_block_sum(acc0, red);
   if (NV == 2) acc1 = knp_block_sum(acc1, red);
   if (threadIdx.x == 0) {
     partial[(long long)blockIdx.x * NV] = acc0;
     if (NV == 2) partial[(long long)blockIdx.x * NV + 1] = acc1;
+    cuda::atomic_ref<int, cuda::thread_scope_device> done(*ticket);
+    last = done.fetch_add(1, cuda::memory_order_acq_rel) == nblk - 1;
   }
-}
-
-// One block: the partial sums in index order, then the scalar update.
-// which 0: alpha = rz / sum.  which 1: rz', zz, beta, rz, flag.
-template <typename T>
-__global__ void pcg_finish_kernel(const T* __restrict__ partial, int nblk, T* __restrict__ sc,
-                                  int* __restrict__ flag, int which) {
-  __shared__ T red[KNP_WARPS];
-  const int nv = which == 0 ? 1 : 2;
-  T a = T(0), b = T(0);
+  __syncthreads();
+  if (!last) return;
+  // volatile: read where the other blocks wrote (no L1 copy), and not
+  // moved above the barrier
+  const volatile T* part = partial;
+  T s0 = T(0), s1 = T(0);
   for (int q = threadIdx.x; q < nblk; q += blockDim.x) {
-    a += partial[(long long)q * nv];
-    if (which) b += partial[(long long)q * nv + 1];
+    s0 += part[(long long)q * NV];
+    if (NV == 2) s1 += part[(long long)q * NV + 1];
   }
-  a = knp_block_sum(a, red);
-  if (which) b = knp_block_sum(b, red);
+  s0 = knp_block_sum(s0, red);
+  if (NV == 2) s1 = knp_block_sum(s1, red);
   if (threadIdx.x != 0) return;
-  if (which == 0) {
-    sc[PCG_ALPHA] = sc[PCG_RZ] / a;
+  if (NV == 1) {
+    sc[PCG_ALPHA] = rz / s0;
   } else {
-    sc[PCG_BETA] = a / sc[PCG_RZ];
-    sc[PCG_RZ] = a;
-    sc[PCG_ZZ] = b;
-    *flag = b > sc[PCG_TOL2];
+    sc[PCG_BETA] = s0 / rz;
+    sc[PCG_RZ] = s0;
+    sc[PCG_ZZ] = s1;
+    *flag = s1 > tol2;
   }
+  *ticket = 0;
 }
 
 // x += alpha p, r -= alpha Ap over chunk b, and (mode > 0) the partials of
@@ -147,17 +185,13 @@ __global__ void pcg_direction_kernel(T* __restrict__ p, const T* __restrict__ z,
 // launchers
 // ---------------------------------------------------------------------------
 
-template <typename T>
-static int pcg_dot_launch(const T* p, const T* Ap, T* partial, T* sc, int n, int chunk,
-                          void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (chunk < 1) return (int)cudaErrorInvalidValue;
-  const int nblk = knp_chunks(n, chunk);
-  pcg_dot_partial_kernel<T, 1><<<nblk, KNP_THREADS, 0, st>>>(p, Ap, nullptr, nullptr, partial,
-                                                             n, chunk);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  pcg_finish_kernel<T><<<1, KNP_THREADS, 0, st>>>(partial, nblk, sc, nullptr, 0);
+// One launch of the dot kernel over n entries; the ticket must be 0
+template <typename T, int NV>
+static int pcg_dot_launch(const T* a, const T* b, T* partial, int* ticket, T* sc, int* flag,
+                          int n, int chunk, void* stream) {
+  if (chunk != PCG_PER * KNP_THREADS || n < 1) return (int)cudaErrorInvalidValue;
+  pcg_dot_kernel<T, NV><<<knp_chunks(n, chunk), KNP_THREADS, 0, (cudaStream_t)stream>>>(
+      a, b, partial, ticket, sc, flag, n);
   return (int)cudaGetLastError();
 }
 
@@ -177,37 +211,24 @@ static int pcg_update_launch(T* x, T* r, const T* p, const T* Ap, const T* sc, c
 }
 
 template <typename T>
-static int pcg_dot2_launch(const T* r, const T* z, T* partial, T* sc, int* flag, int n,
-                           int chunk, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (chunk < 1) return (int)cudaErrorInvalidValue;
-  const int nblk = knp_chunks(n, chunk);
-  pcg_dot_partial_kernel<T, 2><<<nblk, KNP_THREADS, 0, st>>>(r, z, z, z, partial, n, chunk);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  pcg_finish_kernel<T><<<1, KNP_THREADS, 0, st>>>(partial, nblk, sc, flag, 1);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 static int pcg_direction_launch(T* p, const T* z, const T* sc, int n, void* stream) {
   pcg_direction_kernel<T><<<knp_blocks(n), KNP_THREADS, 0, (cudaStream_t)stream>>>(p, z, sc, n);
   return (int)cudaGetLastError();
 }
 
 #define PCG_ENTRIES(T, SFX)                                                                  \
-  extern "C" int knp_pcg_dot_##SFX(const T* p, const T* Ap, T* partial, T* sc, int n,       \
-                                   int chunk, void* stream) {                                \
-    return pcg_dot_launch<T>(p, Ap, partial, sc, n, chunk, stream);                          \
+  extern "C" int knp_pcg_dot_##SFX(const T* p, const T* Ap, T* partial, int* ticket, T* sc, \
+                                   int n, int chunk, void* stream) {                         \
+    return pcg_dot_launch<T, 1>(p, Ap, partial, ticket, sc, nullptr, n, chunk, stream);      \
   }                                                                                          \
   extern "C" int knp_pcg_update_##SFX(T* x, T* r, const T* p, const T* Ap, const T* sc,     \
                                       const T* w, T* partial, int n, int chunk, int mode,    \
                                       void* stream) {                                        \
     return pcg_update_launch<T>(x, r, p, Ap, sc, w, partial, n, chunk, mode, stream);        \
   }                                                                                          \
-  extern "C" int knp_pcg_dot2_##SFX(const T* r, const T* z, T* partial, T* sc, int* flag,   \
-                                    int n, int chunk, void* stream) {                        \
-    return pcg_dot2_launch<T>(r, z, partial, sc, flag, n, chunk, stream);                    \
+  extern "C" int knp_pcg_dot2_##SFX(const T* r, const T* z, T* partial, int* ticket, T* sc, \
+                                    int* flag, int n, int chunk, void* stream) {             \
+    return pcg_dot_launch<T, 2>(r, z, partial, ticket, sc, flag, n, chunk, stream);           \
   }                                                                                          \
   extern "C" int knp_pcg_direction_##SFX(T* p, const T* z, const T* sc, int n,              \
                                          void* stream) {                                     \

@@ -12,7 +12,9 @@ tests hold the populated-rows kernels to the full-basis semantics.
 
 K8 keeps ``sc = [rz, zz, alpha, beta, tol^2, wsum]`` (:data:`RZ` ...) and
 an int32 flag (zz > tol^2) on the device; the host reads the flag once per
-iteration, as the JAX while-loop's test does on the device.
+iteration, as the JAX while-loop's test does on the device.  Its two dot
+entries are one launch each into the workspace :func:`pcg_work` allocates
+once per solve, so they allocate nothing and read nothing back.
 
 Each wrapper runs its plain version for tensors on the CPU and launches its
 kernel for CUDA tensors; there is no fallback between the two.  Every sum
@@ -288,11 +290,36 @@ def gmres_solve_update(wk: GmresWork, x):
 # ---------------------------------------------------------------------------
 
 class PcgWork(NamedTuple):
-    """Scalars and projection data of one PCG solve."""
+    """Scalars, projection data and reduction workspace of one PCG solve
+    (build it with :func:`pcg_work`)."""
     sc: torch.Tensor               # (6,) rz, zz, alpha, beta, tol^2, wsum
     flag: torch.Tensor             # (1,) int32: zz > tol^2
     w: "torch.Tensor | None"       # nullspace mask expanded to the vector shape (mode 2)
     mode: int                      # 0 no projection, 1 mean, 2 masked mean
+    partial: "torch.Tensor | None" = None   # (2 ceil(n / RED_CHUNK),) the dots' block sums
+    ticket: "torch.Tensor | None" = None    # (1,) int32 blocks done, 0 between launches
+
+
+def pcg_work(sc, flag, w, mode, n) -> PcgWork:
+    """The work of a solve on n-entry vectors, checked once, with the dot
+    kernels' partial sums (``torch.empty``) and their int32 ticket (zero)
+    on the device of ``sc``: the dot entries then allocate nothing."""
+    if mode not in (0, 1, 2):
+        raise ValueError(f"pcg_work: mode {mode} is not 0, 1 or 2")
+    if sc.dtype not in (torch.float32, torch.float64) or tuple(sc.shape) != (6,):
+        raise ValueError(f"pcg_work: sc must be (6,) float32/float64, got "
+                         f"{tuple(sc.shape)} {sc.dtype}")
+    if flag.dtype != torch.int32 or tuple(flag.shape) != (1,):
+        raise TypeError(f"pcg_work: flag must be (1,) int32, got {tuple(flag.shape)} "
+                        f"{flag.dtype}")
+    if mode == 2 and (w is None or w.dtype != sc.dtype or w.numel() != n):
+        raise ValueError("pcg_work: mode 2 needs the mask w, n entries in sc's dtype")
+    if any(t.device != sc.device or not t.is_contiguous()
+           for t in [sc, flag] + ([w] if mode == 2 else [])):
+        raise ValueError("pcg_work: sc, flag and w must be contiguous, on one device")
+    return PcgWork(sc=sc, flag=flag, w=w, mode=mode,
+                   partial=torch.empty(2 * _nblk(n), dtype=sc.dtype, device=sc.device),
+                   ticket=torch.zeros(1, dtype=torch.int32, device=sc.device))
 
 
 def _proj_plain(v, wk: PcgWork):
@@ -332,6 +359,48 @@ def pcg_direction_plain(p, z, wk: PcgWork):
     return p.copy_(z + wk.sc[BETA] * p)
 
 
+def _block_sums(v):
+    """Per row of v (rows, 256): the sum a block of the kernels forms of one
+    value per thread, each warp's xor-shuffle tree (16, 8, 4, 2, 1), then
+    the 8 warps in index order (csrc/common.cuh knp_block_sum)."""
+    v = v.reshape(-1, 8, 32)
+    lane = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ o]
+    acc = v[:, 0, 0]
+    for k in range(1, 8):
+        acc = acc + v[:, k, 0]
+    return acc
+
+
+def _thread_sums(v, rows):
+    """Each thread t of ``rows`` blocks adds its values t + 256 k of the
+    block's row of v, in order from zero; returns (rows, 256)."""
+    v = v.reshape(rows, -1, 256)
+    acc = torch.zeros((rows, 256), dtype=v.dtype, device=v.device)
+    for k in range(v.shape[1]):
+        acc = acc + v[:, k]
+    return acc
+
+
+def pcg_dots_ordered_plain(a, b, c=None, d=None):
+    """a . b (and c . d) summed in the order of the dot kernels, to the last
+    bit: RED_CHUNK-entry chunks, thread t of a chunk's block adding its
+    products t + 256 k in order, the block tree, then the chunk sums the
+    same way in one block.  Returns a (1,) or (2,) tensor.  For the tests
+    and chip_smoke.py; the wrappers' CPU path keeps torch.dot."""
+    n = a.numel()
+    nblk = _nblk(n)
+    sums = []
+    for u, v in [(a, b)] + ([] if c is None else [(c, d)]):
+        prod = torch.zeros(nblk * RED_CHUNK, dtype=u.dtype, device=u.device)
+        prod[:n] = u.reshape(-1) * v.reshape(-1)
+        part = torch.zeros(-(-nblk // 256) * 256, dtype=u.dtype, device=u.device)
+        part[:nblk] = _block_sums(_thread_sums(prod, nblk))
+        sums.append(_block_sums(_thread_sums(part, 1)))
+    return torch.cat(sums)
+
+
 def _check_pcg(wk: PcgWork, *vecs):
     v0 = vecs[0]
     for i, v in enumerate(vecs):
@@ -342,15 +411,30 @@ def _check_pcg(wk: PcgWork, *vecs):
         _cuda.check("w", wk.w, v0.dtype, v0.shape)
 
 
+def _check_dots(wk: PcgWork, a, b):
+    """What may change between calls of a dot entry: the two vectors'
+    dtype, size, device and layout against the work; returns their size."""
+    if wk.partial is None:
+        raise ValueError("pcg: the work has no reduction workspace; build it with pcg_work")
+    if a.dtype != wk.sc.dtype or b.dtype != wk.sc.dtype:
+        raise TypeError(f"pcg: {a.dtype} / {b.dtype} vectors for a {wk.sc.dtype} work")
+    n = a.numel()
+    if b.numel() != n or 2 * _nblk(n) != wk.partial.numel():
+        raise ValueError(f"pcg: vectors of {n} / {b.numel()} entries for a work of "
+                         f"{wk.partial.numel() // 2} chunks")
+    if not (b.is_cuda and a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("pcg: expected contiguous CUDA vectors")
+    return n
+
+
 def pcg_dot(p, Ap, wk: PcgWork):
-    """alpha = rz / (p . Ap) into wk.sc (the dot kernels on a CUDA tensor)."""
+    """alpha = rz / (p . Ap) into wk.sc (one kernel launch on a CUDA tensor,
+    into the work's workspace)."""
     if not p.is_cuda:
         return pcg_dot_plain(p, Ap, wk)
-    _check_pcg(wk, p, Ap)
-    n = p.numel()
-    partial = torch.empty(_nblk(n), dtype=p.dtype, device=p.device)
+    n = _check_dots(wk, p, Ap)
     _cuda.launch("pcg_dot", "knp_pcg_dot", p.dtype, p.data_ptr(), Ap.data_ptr(),
-                 partial.data_ptr(), wk.sc.data_ptr(), n, RED_CHUNK)
+                 wk.partial.data_ptr(), wk.ticket.data_ptr(), wk.sc.data_ptr(), n, RED_CHUNK)
     return wk
 
 
@@ -370,15 +454,14 @@ def pcg_update(x, r, p, Ap, wk: PcgWork):
 
 
 def pcg_dot2(r, z, wk: PcgWork):
-    """rz, zz, beta and the flag into wk (the dot kernels on a CUDA
-    tensor)."""
+    """rz, zz, beta and the flag into wk (one kernel launch on a CUDA
+    tensor, into the work's workspace)."""
     if not r.is_cuda:
         return pcg_dot2_plain(r, z, wk)
-    _check_pcg(wk, r, z)
-    n = r.numel()
-    partial = torch.empty(2 * _nblk(n), dtype=r.dtype, device=r.device)
+    n = _check_dots(wk, r, z)
     _cuda.launch("pcg_dot2", "knp_pcg_dot2", r.dtype, r.data_ptr(), z.data_ptr(),
-                 partial.data_ptr(), wk.sc.data_ptr(), wk.flag.data_ptr(), n, RED_CHUNK)
+                 wk.partial.data_ptr(), wk.ticket.data_ptr(), wk.sc.data_ptr(),
+                 wk.flag.data_ptr(), n, RED_CHUNK)
     return wk
 
 

@@ -82,8 +82,8 @@ def pcg(
     bnorm = torch.sqrt(_dot(bz, bz))
     tol = torch.clamp(rtol * bnorm, min=atol)
     zero = torch.zeros_like(rz)
-    wk = ko.PcgWork(sc=torch.stack([rz, zz, zero, zero, tol * tol, wsum]),
-                    flag=(zz > tol * tol).to(torch.int32).reshape(1), w=w, mode=mode)
+    wk = ko.pcg_work(torch.stack([rz, zz, zero, zero, tol * tol, wsum]),
+                     (zz > tol * tol).to(torch.int32).reshape(1), w, mode, b.numel())
 
     k = 0
     # the convergence test reads the carried ||z||^2 of the last iteration

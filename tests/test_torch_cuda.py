@@ -524,8 +524,8 @@ def test_krylov_pcg_kernels_match_plain(mode, dtype, tol):
     sc[ko.WSUM] = wsum
 
     def work():
-        return ko.PcgWork(sc=sc.clone(), flag=torch.zeros(1, dtype=torch.int32, device=dev),
-                          w=w if mode == 2 else None, mode=mode)
+        return ko.pcg_work(sc.clone(), torch.zeros(1, dtype=torch.int32, device=dev),
+                           w if mode == 2 else None, mode, x.numel())
 
     a, b = work(), work()
     n0 = dict(_cuda.LAUNCHES)
@@ -541,6 +541,82 @@ def test_krylov_pcg_kernels_match_plain(mode, dtype, tol):
     assert rel(ko.pcg_direction(p.clone(), z, a), ko.pcg_direction_plain(p.clone(), z, a)) < tol
     for k in KRYLOV_KERNELS[:4]:
         assert _cuda.LAUNCHES[k] == n0[k] + 1, k
+
+
+@pytest.mark.parametrize("n", [1, 2049, 3 * 2048 + 17, 256 * 2048 + 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pcg_dots_equal_the_ordered_plain_bitwise(n, dtype):
+    """pcg_dot and pcg_dot2 (one launch each, the last block finishing)
+    write the scalars and flag that pcg_dots_ordered_plain's sums give, to
+    the last bit, on fewer and more than 256 chunks; 200 calls on one work
+    repeat the bits, each writes them (chip_smoke.dots_exact: the written
+    slots are NaN before every call), and the ticket ends at 0."""
+    import chip_smoke
+
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(15)
+    r, z, p, Ap = (_rand(rng, (n,), dtype, dev) for _ in range(4))
+    sc0 = torch.as_tensor([1.25, 0.0, 0.0, 0.0, 1e-6, float(n)], dtype=dtype, device=dev)
+    for entry, fn, vecs in (("pcg_dot", ko.pcg_dot, (p, Ap)),
+                            ("pcg_dot2", ko.pcg_dot2, (r, z, z, z))):
+        wk = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1, n)
+        n0 = _cuda.LAUNCHES[entry]
+        chip_smoke.dots_exact(entry, dtype, ko, fn, vecs, sc0, wk, calls=200)
+        assert _cuda.LAUNCHES[entry] == n0 + 200
+
+
+def test_pcg_dots_replay_in_a_cuda_graph():
+    """The dot entries allocate nothing, sync nothing and keep fixed
+    workspace pointers, so a captured iteration's dots replay: the same
+    bits as the eager calls, the ticket back at 0."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(16)
+    p, Ap = (_rand(rng, (4, 9000), torch.float64, dev) for _ in range(2))
+    sc0 = torch.as_tensor([1.5, 2.0, 0.0, 0.0, 1e-6, 0.0], dtype=torch.float64, device=dev)
+    eager = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1,
+                        p.numel())
+    ko.pcg_dot2(p, Ap, ko.pcg_dot(p, Ap, eager))
+    wk = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1,
+                     p.numel())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ko.pcg_dot(p, Ap, wk)                            # warm: the library loaded
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ko.pcg_dot(p, Ap, wk)
+        ko.pcg_dot2(p, Ap, wk)
+    for _ in range(3):
+        wk.sc.copy_(sc0)
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(wk.sc, eager.sc) and torch.equal(wk.flag, eager.flag)
+    assert wk.ticket.tolist() == [0]
+
+
+def test_pcg_dots_refuse_a_work_without_workspace():
+    """A PcgWork built by hand has no partials or ticket: the dot entries
+    raise on a CUDA tensor rather than allocate."""
+    dev = cuda_or_skip()
+    v = torch.ones(3000, dtype=torch.float64, device=dev)
+    bare = ko.PcgWork(sc=torch.ones(6, dtype=torch.float64, device=dev),
+                      flag=torch.zeros(1, dtype=torch.int32, device=dev), w=None, mode=1)
+    n0 = dict(_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="pcg_work"):
+        ko.pcg_dot(v, v, bare)
+    with pytest.raises(ValueError, match="pcg_work"):
+        ko.pcg_dot2(v, v, bare)
+    wk = ko.pcg_work(bare.sc, bare.flag, None, 1, 3000)
+    long = torch.ones(5000, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):                      # another chunk count
+        ko.pcg_dot(long, long, wk)
+    with pytest.raises(ValueError):                      # not contiguous
+        ko.pcg_dot2(v, torch.ones((3000, 2), dtype=torch.float64, device=dev)[:, 0], wk)
+    with pytest.raises(TypeError):                       # another dtype
+        ko.pcg_dot(v, v.float(), wk)
+    assert _cuda.LAUNCHES["pcg_dot"] == n0["pcg_dot"]
+    assert _cuda.LAUNCHES["pcg_dot2"] == n0["pcg_dot2"]
 
 
 def _dominant_system(rng, nc=3000, K=5, m=2):
@@ -615,8 +691,8 @@ def test_krylov_wrappers_raise_on_what_they_cannot_take():
         ko.gmres_cgs_dot(wk.V, w, wk.V.shape[0] + 1, wk.h1)
     with pytest.raises(NotImplementedError):
         ko.gmres_work(2, 10, ko.MAX_RESTART + 1, torch.float64, dev)
-    pw = ko.PcgWork(sc=torch.zeros(6, dtype=torch.float64, device=dev),
-                    flag=torch.zeros(1, dtype=torch.int32, device=dev), w=None, mode=1)
+    pw = ko.pcg_work(torch.zeros(6, dtype=torch.float64, device=dev),
+                     torch.zeros(1, dtype=torch.int32, device=dev), None, 1, w.numel())
     with pytest.raises(TypeError):
         ko.pcg_dot(w, w.float(), pw)
     with pytest.raises(ValueError):

@@ -311,3 +311,72 @@ def test_pcg_without_projection_matches_jax():
     assert rt.converged and bool(rj.converged)
     assert rt.iters == int(rj.iters)
     assert rel(rt.x, rj.x) < 1e-10
+
+
+# entry counts around the kernels' chunk of 2048 and a finish over 4 chunks
+ORDERED_SIZES = [1, 255, 2048, 2049, 3 * 2048 + 17]
+
+
+@pytest.mark.parametrize("n", ORDERED_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nprod", [1, 2])
+def test_pcg_dots_ordered_plain_matches_dot(n, dtype, nprod):
+    """The kernels' summation order (chunks, strided thread sums, the block
+    tree, then the chunk sums) adds every product once: against numpy's
+    float64 dot to within the recursive-summation bound of that order,
+    (8 + 5 + 7 + ceil(chunks / 256) + 5 + 7 + 1) eps sum |terms|, and
+    against torch.dot in float64 to round-off."""
+    rng = np.random.default_rng(28 + n)
+    vecs = [torch.as_tensor(rng.normal(size=(n,)), dtype=dtype) for _ in range(2 * nprod)]
+    got = ko.pcg_dots_ordered_plain(*vecs)
+    assert got.shape == (nprod,) and got.dtype == dtype
+    nblk = -(-n // ko.RED_CHUNK)
+    depth = 8 + 5 + 7 + -(-nblk // 256) + 5 + 7 + 1
+    for k in range(nprod):
+        a, b = (v.double().numpy() for v in vecs[2 * k:2 * k + 2])
+        bound = depth * torch.finfo(dtype).eps * np.abs(a * b).sum()
+        assert abs(float(got[k]) - np.dot(a, b)) <= bound
+        if dtype == torch.float64:
+            assert abs(float(got[k]) - float(torch.dot(vecs[2 * k], vecs[2 * k + 1]))) <= bound
+
+
+def test_pcg_dots_ordered_plain_is_exact_on_integers():
+    """Integer-valued products whose partial sums stay exact: every entry
+    counted once, in every chunk and lane."""
+    n = 5 * 2048 + 333
+    a = torch.arange(n, dtype=torch.float64) % 97
+    b = torch.arange(n, dtype=torch.float64) % 13 - 6
+    c = torch.ones(n, dtype=torch.float32)
+    got = ko.pcg_dots_ordered_plain(a, b, c, c)
+    assert float(got[0]) == float((a * b).sum()) and float(got[1]) == n
+
+
+@pytest.mark.parametrize("n", [1, 2048, 2049, 497664])
+def test_pcg_work_sizes_the_workspace(n):
+    """Two block sums per RED_CHUNK-entry chunk, in sc's dtype, and a zero
+    int32 ticket."""
+    sc = torch.zeros(6, dtype=torch.float32)
+    wk = ko.pcg_work(sc, torch.zeros(1, dtype=torch.int32), None, 1, n)
+    assert wk.partial.shape == (2 * -(-n // 2048),) and wk.partial.dtype == torch.float32
+    assert wk.ticket.dtype == torch.int32 and wk.ticket.tolist() == [0]
+    assert wk.sc is sc and wk.mode == 1 and wk.w is None
+
+
+PCG_WORK_REFUSALS = {
+    "sc_shape": (lambda sc, fl, w: (sc[:5], fl, None, 1), ValueError),
+    "sc_dtype": (lambda sc, fl, w: (sc.to(torch.int64), fl, None, 1), ValueError),
+    "flag_dtype": (lambda sc, fl, w: (sc, fl.to(torch.int64), None, 1), TypeError),
+    "mode2_without_w": (lambda sc, fl, w: (sc, fl, None, 2), ValueError),
+    "w_size": (lambda sc, fl, w: (sc, fl, w[:-1], 2), ValueError),
+    "mode": (lambda sc, fl, w: (sc, fl, None, 3), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PCG_WORK_REFUSALS))
+def test_pcg_work_refuses_what_the_kernels_cannot_take(case):
+    make, exc = PCG_WORK_REFUSALS[case]
+    sc = torch.zeros(6, dtype=torch.float64)
+    fl = torch.zeros(1, dtype=torch.int32)
+    w = torch.ones(40, dtype=torch.float64)
+    with pytest.raises(exc):
+        ko.pcg_work(*make(sc, fl, w), 40)
