@@ -326,12 +326,13 @@ def lib_apply(Pinv, r):
 
 
 def coarse_abs(co):
-    """Coarse operands with every tensor replaced by its absolute value."""
+    """Coarse operands with every tensor replaced by its absolute value, for
+    the plain versions (no workspace)."""
     def a(v):
         if isinstance(v, torch.Tensor):
             return v.abs()
         return tuple(a(x) for x in v) if isinstance(v, tuple) else v
-    return co._replace(**{k: a(v) for k, v in co._asdict().items()})
+    return co._replace(work=None, **{k: a(v) for k, v in co._asdict().items() if k != "work"})
 
 
 def solve_scale(co, rc, proj):
@@ -374,7 +375,9 @@ def dense_gemvs(co, x):
 def coarse_phase(layout, co, r, results):
     """K6 (co.batched False) or K7 at one layout's shapes: restrict, solve
     and prolong_add against their plain versions on the same inputs, timed
-    with their bounds."""
+    with their bounds.  solve and prolong_add run as the apply calls them:
+    on the workspace's buffers (restrict's and solve's outputs, here loaded
+    with the plain versions' values)."""
     from knpemidg_tpu_torch.ops import coarse
 
     dtype = r.dtype
@@ -390,25 +393,30 @@ def coarse_phase(layout, co, r, results):
             lambda ref: nonempty(coarse.restrict_plain(a, r.abs())), results,
             inputs=[r] + fields, flops=field_flops + r.numel())
     rc, proj = coarse.restrict_plain(co, r)
+    wk = co.work
+    wk.rc.copy_(rc)
+    wk.proj.copy_(proj)
     mats = [co.inv, co.s] + ([co.As] if co.As is not None else []) + [
         t for grp in (co.comp, co.mom, co.ritz) if grp is not None for t in grp]
     n = rc.shape[1]
     x = co.s * rc
-    compare(name("solve"), dtype, lambda: nonempty(coarse.solve(co, rc, proj)),
+    compare(name("solve"), dtype, lambda: nonempty(coarse.solve(co, wk.rc, wk.proj)),
             lambda: nonempty(coarse.solve_plain(co, rc, proj)),
             lambda ref: solve_scale(co, rc, proj), results,
             inputs=[rc, proj] + mats,
             flops=2.0 * m * n * n * (3 if co.As is not None else 1),
             library_fn=lambda: dense_gemvs(co, x))
     zc, coef = coarse.solve_plain(co, rc, proj)
+    wk.zc.copy_(zc)
+    wk.coef.copy_(coef)
     out0 = r.clone()                   # stands in for the block-Jacobi output
     bufs = [out0.clone(), out0.clone()]
     compare(name("prolong"), dtype,
-            lambda: [coarse.prolong_add(co, out0.clone(), zc, coef)],
+            lambda: [coarse.prolong_add(co, out0.clone(), wk.zc, wk.coef)],
             lambda: [coarse.prolong_add_plain(co, out0.clone(), zc, coef)],
             lambda ref: [coarse.prolong_add_plain(a, out0.abs(), zc.abs(), coef.abs())],
             results, inputs=[out0, zc, coef] + fields, flops=field_flops + 2.0 * r.numel(),
-            timed=(lambda: coarse.prolong_add(co, bufs[0], zc, coef),
+            timed=(lambda: coarse.prolong_add(co, bufs[0], wk.zc, wk.coef),
                    lambda: coarse.prolong_add_plain(co, bufs[1], zc, coef)))
 
 
@@ -570,22 +578,29 @@ def pair_kernel_phase(S, state, results):
                 inputs=e_args + k_args + [reg, *add] + [pm[k] for k in (
                     "cop", "live1", "int_f", "int_p0", "ext_f", "ext_isp", "ext_h")])
 
-        stack = torch.stack([rhs, state["phi"], state["phi_prev"]]).to(dtype)
-        stackK = torch.stack([rhsK, state["c"]]).to(dtype)
+        # the solver's vectors (EMI: rhs, iterate, predictor base; KNP: rhs,
+        # iterate), converted as the solver converts them: the list form
+        vecs = [t.to(dtype).contiguous() for t in (rhs, state["phi"], state["phi_prev"])]
+        vecsK = [t.to(dtype).contiguous() for t in (rhsK, state["c"])]
+        stack, stackK = torch.stack(vecs), torch.stack(vecsK)
         mask = S._pair_mask.to(dtype).reshape(2, S.nd, npair)
-        bufs = [torch.empty((t.numel() // (2 * S.nd * npair), 2, S.nd, npair),
-                            dtype=dtype, device=t.device) for t in (stack, stackK)]
+        bufs = [torch.empty(t.shape[:-2] + (2 * S.nd, npair), dtype=dtype, device=t.device)
+                for t in (stack, stackK)]
 
         def lib_to_pair():
             return [torch.mul(torch.movedim(t.reshape(-1, S.nd, npair, 2), -1, 1),
-                              mask, out=b)
+                              mask, out=b.view(-1, 2, S.nd, npair))
                     for t, b in zip((stack, stackK), bufs)]
 
-        compare("to_pair", dtype,
-                lambda: [pairs.to_pair(pm, stack), pairs.to_pair(pm, stackK)],
-                lambda: [pairs.to_pair_plain(pm, stack), pairs.to_pair_plain(pm, stackK)],
-                exact, results, inputs=[stack, stackK, pm["live1"]],
-                library_fn=lib_to_pair)
+        plain_to_pair = lambda: [pairs.to_pair_plain(pm, stack),
+                                 pairs.to_pair_plain(pm, stackK)]
+        compare("to_pair", dtype, lambda: [pairs.to_pair(pm, vecs), pairs.to_pair(pm, vecsK)],
+                plain_to_pair, exact, results, inputs=[stack, stackK, pm["live1"]],
+                library_fn=lib_to_pair,
+                timed=(lambda: [pairs.to_pair(pm, vecs, out=bufs[0]),
+                                pairs.to_pair(pm, vecsK, out=bufs[1])], plain_to_pair))
+        compare("to_pair", dtype, lambda: [pairs.to_pair(pm, stack), pairs.to_pair(pm, stackK)],
+                plain_to_pair, exact, results, record=False)
         xp, xpK = pairs.to_pair(pm, stack[1]), pairs.to_pair(pm, stackK[1])
         compare("from_pair", dtype,
                 lambda: [pairs.from_pair(pm, xp), pairs.from_pair(pm, xpK)],

@@ -71,11 +71,12 @@ _SIGNATURES = {
     "knp_bj_apply": (_P, _P, _P, _I, _I, _I, _P),
     "knp_membrane_rk4": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _P),
     "knp_pair_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "knp_to_pair": (_P, _P, _P, _I, _I, _I, _P),
+    "knp_to_pair": (_P,) * 6 + (_I,) * 4 + (_P,),
     "knp_from_pair": (_P, _P, _I, _I, _I, _P),
     "knp_gather_blocks_pair": (_P,) * 18 + (_I,) * 6 + (_D, _P),
     "knp_tl_restrict": (_P,) * 7 + (_I,) * 9 + (_P,),
-    "knp_tl_solve": (_P,) * 16 + (_I,) * 5 + (_P,),
+    "knp_tl_solve_prepare": (_P,),
+    "knp_tl_solve": (_P,) * 4,
     "knp_tl_prolong": (_P,) * 6 + (_I,) * 8 + (_P,),
     "knp_emi_cell": (_P,) * 10 + (_I,) * 4 + (_D, _D, _P),
     "knp_emi_facet": (_P,) * 26 + (_I,) * 5 + (_D, _D, _D, _P),
@@ -208,6 +209,15 @@ def launch(kernel: str, entry: str, dtype: torch.dtype, *args):
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
     LAUNCHES[kernel] += 1
+
+
+def call(entry: str, dtype: torch.dtype, *args):
+    """Call C entry point ``entry`` for ``dtype`` that launches nothing (a
+    set-up helper) and raise on a non-zero return."""
+    fn = _FNS.get((entry, dtype)) or _resolve(entry, entry, dtype)
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{entry}: failed with CUDA error {rc}")
 
 
 def check(name: str, t: torch.Tensor, dtype=None, shape=None):

@@ -12,28 +12,69 @@
 // the main-path shapes (63,558 pairs, nd = 4) the EMI solve converts 3
 // vectors in and 1 out, which moves 12.2 + 4.1 MB in float32 and twice that
 // in float64: 4.9 / 9.7 us at 3.35 TB/s, so a call is bound by its launch.
-// Design: one fused pass per direction, the mask applied in the same pass;
-// one thread per (vector, dof, pair) with pairs fastest, so the pair-side
-// rows are coalesced and the two cell-side values of a pair are adjacent.
+// Design: one fused pass per direction, the mask applied in the same pass.
+// to_pair reads up to TP_MAX_SRC source tensors of one shape directly (the
+// solver's 2-3 vectors, without stacking them first) and writes their
+// stacked pair form: a thread converts 4 pairs of one (vector, dof) row,
+// the row on the grid's y axis and the source on its z axis, so that no
+// index needs a 64-bit division; a pair's two cell values are one 8- or
+// 16-byte load and both halves are written coalesced.  from_pair keeps one thread per
+// (vector, dof, pair) with pairs fastest.
 #include "common.cuh"
 
+#define TP_MAX_SRC 4
+#define TP_PAIRS 4   // pairs a to_pair thread converts
+
 template <typename T>
-__global__ void to_pair_kernel(const T* __restrict__ x,
-                               const unsigned char* __restrict__ live1,
-                               T* __restrict__ out, int L, int nd, int npair) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)L * nd * npair) return;
-  const int p = (int)(idx % npair);
-  const long long li = idx / npair;            // l * nd + i
-  const int i = (int)(li % nd);
-  const long long l = li / nd;
-  const size_t np = (size_t)npair;
-  const T* xr = x + (size_t)li * 2 * np;
-  const T v0 = xr[2 * (size_t)p];
-  const T v1 = xr[2 * (size_t)p + 1];
-  T* o = out + (size_t)l * 2 * nd * np;
-  o[(size_t)i * np + p] = v0;
-  o[(size_t)(nd + i) * np + p] = v1 * (live1[p] ? T(1) : T(0));
+struct Pair2;
+template <>
+struct Pair2<float> {
+  using type = float2;
+};
+template <>
+struct Pair2<double> {
+  using type = double2;
+};
+
+struct ToPairSrc {
+  const void* x[TP_MAX_SRC];
+};
+
+// out[q lv + l, h nd + i, p] = src[q][l, i, 2p + h] * (h == 0 ? 1 : live1[p])
+// for source q, vector l < lv and dof i; blockIdx.y = l nd + i.  A thread
+// converts TP_PAIRS pairs, blockDim.x apart, all loads issued first.
+template <typename T>
+__global__ void to_pair_kernel(const ToPairSrc src, const unsigned char* __restrict__ live1,
+                               T* __restrict__ out, int lv, int nd, int npair) {
+  using V = typename Pair2<T>::type;
+  const int li = blockIdx.y, q = blockIdx.z;
+  const int l = li / nd, i = li - l * nd;
+  const void* x = src.x[0];
+#pragma unroll
+  for (int k = 1; k < TP_MAX_SRC; ++k)
+    if (q == k) x = src.x[k];
+  const V* xr = reinterpret_cast<const V*>(x) + (size_t)li * npair;
+  T* o = out + (size_t)((q * lv + l) * 2 * nd + i) * npair;
+  const size_t half = (size_t)nd * npair;
+  const int p0 = blockIdx.x * (TP_PAIRS * blockDim.x) + threadIdx.x;
+  V v[TP_PAIRS];
+  unsigned char live[TP_PAIRS];
+#pragma unroll
+  for (int k = 0; k < TP_PAIRS; ++k) {
+    const int p = p0 + k * blockDim.x;
+    if (p < npair) {
+      v[k] = xr[p];
+      live[k] = live1[p];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < TP_PAIRS; ++k) {
+    const int p = p0 + k * blockDim.x;
+    if (p < npair) {
+      o[p] = v[k].x;
+      o[half + p] = v[k].y * (live[k] ? T(1) : T(0));
+    }
+  }
 }
 
 template <typename T>
@@ -53,11 +94,15 @@ __global__ void from_pair_kernel(const T* __restrict__ xp, T* __restrict__ out,
 }
 
 template <typename T>
-static int to_pair_launch(const T* x, const unsigned char* live1, T* out, int L, int nd,
+static int to_pair_launch(const T* x0, const T* x1, const T* x2, const T* x3,
+                          const unsigned char* live1, T* out, int nsrc, int lv, int nd,
                           int npair, void* stream) {
-  const unsigned int grid = knp_blocks((long long)L * nd * npair);
-  to_pair_kernel<T><<<grid, KNP_THREADS, 0, (cudaStream_t)stream>>>(x, live1, out, L,
-                                                                    nd, npair);
+  if (nsrc < 1 || nsrc > TP_MAX_SRC || lv * nd > 65535) return (int)cudaErrorInvalidValue;
+  const ToPairSrc src = {{x0, x1, x2, x3}};
+  const dim3 grid((npair + TP_PAIRS * KNP_THREADS - 1) / (TP_PAIRS * KNP_THREADS), lv * nd,
+                  nsrc);
+  to_pair_kernel<T><<<grid, KNP_THREADS, 0, (cudaStream_t)stream>>>(src, live1, out, lv, nd,
+                                                                    npair);
   return (int)cudaGetLastError();
 }
 
@@ -69,14 +114,16 @@ static int from_pair_launch(const T* xp, T* out, int L, int nd, int npair, void*
   return (int)cudaGetLastError();
 }
 
-extern "C" int knp_to_pair_f32(const float* x, const unsigned char* live1, float* out,
-                               int L, int nd, int npair, void* stream) {
-  return to_pair_launch<float>(x, live1, out, L, nd, npair, stream);
+extern "C" int knp_to_pair_f32(const float* x0, const float* x1, const float* x2,
+                               const float* x3, const unsigned char* live1, float* out,
+                               int nsrc, int lv, int nd, int npair, void* stream) {
+  return to_pair_launch<float>(x0, x1, x2, x3, live1, out, nsrc, lv, nd, npair, stream);
 }
 
-extern "C" int knp_to_pair_f64(const double* x, const unsigned char* live1, double* out,
-                               int L, int nd, int npair, void* stream) {
-  return to_pair_launch<double>(x, live1, out, L, nd, npair, stream);
+extern "C" int knp_to_pair_f64(const double* x0, const double* x1, const double* x2,
+                               const double* x3, const unsigned char* live1, double* out,
+                               int nsrc, int lv, int nd, int npair, void* stream) {
+  return to_pair_launch<double>(x0, x1, x2, x3, live1, out, nsrc, lv, nd, npair, stream);
 }
 
 extern "C" int knp_from_pair_f32(const float* xp, float* out, int L, int nd, int npair,

@@ -35,13 +35,22 @@
 // per block (warp shuffles in a fixed tree, then the warps in order) into
 // per-block partials that a second kernel sums in a fixed order.  The
 // prolong loops over the fields unrolled by 4 for the same reason; the
-// unrolling keeps each sum's order.  No floating-point
-// atomics: the results repeat bit for bit from call to call, and so do the
-// Krylov counts.  The dense GEMVs give one warp to a row (coalesced row
-// reads, a fixed shuffle tree); the three dependent products of the
-// refinement are three launches.  The small Galerkin solves (5, 45 and 24
-// rows) take one block each, their vectors in shared memory.
+// unrolling keeps each sum's order.  No floating-point atomics: the
+// results repeat bit for bit from call to call, and so do the Krylov
+// counts.  The solve is one launch per apply (the coarse inv and As are
+// 1,944^2: 30 MB each in float64, 18 us at 3.35 TB/s for one read of
+// each): the dense GEMVs give one warp to a row (coalesced row reads, the
+// loads of a batch issued before its adds, a fixed shuffle tree), the
+// three dependent products of the refinement are three phases of a
+// cooperative launch with a grid barrier between them, inv is read under
+// an L2 evict-last policy so that its second read hits L2, and the small
+// Galerkin solves (5, 45 and 24 rows) run on otherwise idle blocks during
+// the first phase, their vectors in shared memory.  Each row is summed in
+// a fixed order: one warp, lanes striding by 32, the same shuffle tree in
+// every call.
 #include <algorithm>
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
@@ -49,6 +58,7 @@
 #define TL_MAX_TILE 1024   // cells a restrict block covers (whole chunks)
 #define TL_FIELD_BATCH 32  // field sums reduced per block synchronisation
 #define TL_FIELDS_PER_BLOCK 8  // projections a restrict block computes
+#define TL_MAX_SMEM 232448     // dynamic shared memory a block can have (227 KB)
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -159,39 +169,154 @@ __global__ void tl_reduce_kernel(const T* __restrict__ partial, T* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// solve: dense coarse GEMVs and the small deflation solves
+// solve: dense coarse GEMVs and the small deflation solves, one launch
 // ---------------------------------------------------------------------------
 
-// y[s,row] = P[row] * (Bs[row] B[row] + sign * sum_j A[s,row,j] xs[j] x[j]),
-// each of P, Bs, B, xs optional (1, 1, 0, 1 when absent); the vectors are
-// (m, n), A is (m, n, n).  One warp per row.
+// The solve's operands, fixed for a whole Krylov solve: the wrapper fills
+// this once per solve (ops/coarse.py mirrors it as a ctypes structure),
+// knp_tl_solve_prepare sets grid and smem, and every launch passes it by
+// value.  As, z1, t are null without the refinement; a deflation group's
+// pointers are null when it is absent.
 template <typename T>
-__global__ void tl_gemv_kernel(const T* __restrict__ A, const T* __restrict__ x,
-                               const T* __restrict__ xs, const T* __restrict__ B,
-                               const T* __restrict__ Bs, const T* __restrict__ P,
-                               T sign, T* __restrict__ y, int n) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * TL_WARPS + (threadIdx.x >> 5);
-  const int s = blockIdx.y;
-  if (row >= n) return;
-  const size_t off = (size_t)s * n;
-  const T* a = A + (off + row) * (size_t)n;
-  T acc = T(0);
-  // unrolled so that eight row loads are in flight; one accumulator keeps
-  // the sum order
-  if (xs != nullptr) {
-#pragma unroll 8
-    for (int j = lane; j < n; j += 32) acc += a[j] * (xs[off + j] * x[off + j]);
-  } else {
-#pragma unroll 8
-    for (int j = lane; j < n; j += 32) acc += a[j] * x[off + j];
+struct TlSolve {
+  const T* inv;    // (m, n, n)
+  const T* s;      // (m, n)
+  const T* As;     // (m, n, n)
+  T* z1;           // (m, n) inv (s rc)
+  T* t;            // (m, n) s rc - As z1
+  T* zc;           // (m, n) the result
+  T* coef;         // (m, nf) the deflation coefficients
+  const T* invc;
+  const T* sc;
+  const T* Asc;
+  const T* inv_m;
+  const T* s_m;
+  const T* inv_r;
+  const T* s_r;
+  int m, n, n_comp, nw, nr;
+  int grid;        // blocks, at most the co-resident limit
+  int smem;        // dynamic shared memory bytes (the small solves)
+  int pad;
+};
+
+// L2 eviction policies: with the refinement the coarse inverse is read
+// twice per solve (the first and third products) and kept, As is read once
+// and streamed; in float64 the two are 30 MB each, more than the 50 MB L2
+// holds together.  Without it inv is read once: kept in float32, where
+// the two ions' 30 MB fit L2 and stay there from call to call, read with
+// plain loads in float64 (60 MB; any hint measured slower).
+__device__ __forceinline__ unsigned long long tl_policy_keep() {
+  unsigned long long p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ unsigned long long tl_policy_stream() {
+  unsigned long long p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// a matrix load under L2 policy pol (HINT), or a plain one
+template <bool HINT>
+__device__ __forceinline__ double tl_load(const double* a, unsigned long long pol) {
+  if (!HINT) return *a;
+  double v;
+  asm("ld.global.L2::cache_hint.f64 %0, [%1], %2;" : "=d"(v) : "l"(a), "l"(pol));
+  return v;
+}
+
+template <bool HINT>
+__device__ __forceinline__ float tl_load(const float* a, unsigned long long pol) {
+  if (!HINT) return *a;
+  float v;
+  asm("ld.global.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(v) : "l"(a), "l"(pol));
+  return v;
+}
+
+// Entries of a row a lane loads per batch: 64 bytes of matrix values in
+// flight a lane (a 1,944-entry row is 3 batches and a 12-13-entry tail in
+// float32, 7 batches and a 4-5-entry tail in float64).
+template <typename T>
+struct TlBatch {
+  static constexpr int U = 64 / sizeof(T);
+};
+
+// v[u] = a[lane + 32 u]: a row's first batch, issued ahead (before a grid
+// barrier, or before the previous row's epilogue), since the matrix does
+// not depend on the previous phase.
+template <bool HINT, typename T, int U>
+__device__ __forceinline__ void tl_fetch(const T* a, int n, int lane, unsigned long long pol,
+                                         T (&v)[U]) {
+  if (lane + 32 * (U - 1) >= n) return;       // no full first batch: the tail reads it
+#pragma unroll
+  for (int u = 0; u < U; ++u) v[u] = tl_load<HINT>(a + lane + 32 * u, pol);
+}
+
+// acc += the products of the lane's next B entries from j on, if it has
+// that many below n, their loads issued before the adds; then the same
+// for B / 2, ..., 1: the lane's last (fewer than U) entries in increasing
+// j, in a handful of round trips instead of one per entry.
+template <typename T, bool XS, bool HINT, int B>
+__device__ __forceinline__ void tl_tail(T& acc, const T* a, const T* x, const T* xs, int& j,
+                                        int n, unsigned long long pol) {
+  if (j + 32 * (B - 1) < n) {
+    T v[B], w[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      v[u] = tl_load<HINT>(a + j + 32 * u, pol);
+      w[u] = XS ? xs[j + 32 * u] * x[j + 32 * u] : x[j + 32 * u];
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) acc += v[u] * w[u];
+    j += 32 * B;
   }
-  acc = warp_sum(acc);
-  if (lane == 0) {
-    T v = sign * acc;
-    if (B != nullptr) v = (Bs != nullptr ? Bs[off + row] * B[off + row] : B[off + row]) + v;
-    if (P != nullptr) v = P[off + row] * v;
-    y[off + row] = v;
+  if constexpr (B > 1) tl_tail<T, XS, HINT, B / 2>(acc, a, x, xs, j, n, pol);
+}
+
+// One warp's row product sum_j a[j] (xs[j] x[j]) (XS) or sum_j a[j] x[j],
+// lane j mod 32 summing its entries in increasing j, then the xor shuffle
+// tree (every lane gets the sum); v holds the row's first batch.  The
+// loads of a batch of U entries are all issued before its adds, which keep
+// the order.  x and xs may have been written earlier in this launch, so
+// they are read with plain loads.
+template <typename T, bool XS, bool HINT, int U>
+__device__ __forceinline__ T tl_row(const T* a, const T* x, const T* xs, int n, int lane,
+                                    unsigned long long pol, T (&v)[U]) {
+  T acc = T(0);
+  int j = lane;
+  for (bool first = true; j + 32 * (U - 1) < n; j += 32 * U, first = false) {
+    T w[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!first) v[u] = tl_load<HINT>(a + j + 32 * u, pol);
+      w[u] = XS ? xs[j + 32 * u] * x[j + 32 * u] : x[j + 32 * u];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc += v[u] * w[u];
+  }
+  tl_tail<T, XS, HINT, U / 2>(acc, a, x, xs, j, n, pol);
+  return warp_sum(acc);
+}
+
+// One phase of the solve: for each row q = s n + row of this warp,
+// epi(q, sum_j A[q, j] (xs x)[s, j]), v holding the first batch of the
+// warp's first row; each next row's first batch is issued before the
+// current row's epilogue.
+template <typename T, bool XS, bool HINT, int U, class Epi>
+__device__ __forceinline__ void tl_phase(const T* A, const T* x, const T* xs, int rows,
+                                         int n, unsigned long long pol, T (&v)[U], Epi epi) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * TL_WARPS;
+  for (int q = blockIdx.x * TL_WARPS + (threadIdx.x >> 5); q < rows; q += warps) {
+    const size_t off = (size_t)(q / n) * n;
+    const T acc = tl_row<T, XS, HINT>(A + (size_t)q * n, x + off, XS ? xs + off : nullptr, n,
+                                      lane, pol, v);
+    if (q + warps < rows) tl_fetch<HINT>(A + (size_t)(q + warps) * n, n, lane, pol, v);
+    if (lane == 0) epi(q, acc);
   }
 }
 
@@ -210,23 +335,18 @@ __device__ void small_matvec(const T* __restrict__ M, const T* x, T* y, int k) {
   __syncthreads();
 }
 
-// One block per (deflation group, system): group 0 the compartments (one
-// refinement sweep with Asc), 1 the moment fields, 2 the Ritz fields.
+// The small solve of deflation group g (0 the compartments, with one
+// refinement sweep with Asc; 1 the moment fields; 2 the Ritz fields) for
+// system s, by the whole block, its vectors in shared memory.
 template <typename T>
-__global__ void tl_small_kernel(const T* __restrict__ proj, T* __restrict__ coef,
-                                const T* __restrict__ invc, const T* __restrict__ sc,
-                                const T* __restrict__ Asc, const T* __restrict__ inv_m,
-                                const T* __restrict__ s_m, const T* __restrict__ inv_r,
-                                const T* __restrict__ s_r, int n_comp, int nw, int nr) {
-  extern __shared__ __align__(16) unsigned char tl_smem[];
-  T* x = reinterpret_cast<T*>(tl_smem);
-  const int g = blockIdx.x, s = blockIdx.y;
-  const int nf = n_comp + nw + nr;
-  const int k = g == 0 ? n_comp : (g == 1 ? nw : nr);
+__device__ void tl_small(const TlSolve<T>& p, const T* __restrict__ proj, int g, int s,
+                         T* x) {
+  const int nf = p.n_comp + p.nw + p.nr;
+  const int k = g == 0 ? p.n_comp : (g == 1 ? p.nw : p.nr);
   if (k == 0) return;
-  const int off = g == 0 ? 0 : (g == 1 ? n_comp : n_comp + nw);
-  const T* Mi = g == 0 ? invc : (g == 1 ? inv_m : inv_r);
-  const T* sg = g == 0 ? sc : (g == 1 ? s_m : s_r);
+  const int off = g == 0 ? 0 : (g == 1 ? p.n_comp : p.n_comp + p.nw);
+  const T* Mi = g == 0 ? p.invc : (g == 1 ? p.inv_m : p.inv_r);
+  const T* sg = g == 0 ? p.sc : (g == 1 ? p.s_m : p.s_r);
   T* y = x + k;
   T* t = y + k;
   const T* pr = proj + (size_t)s * nf + off;
@@ -234,15 +354,66 @@ __global__ void tl_small_kernel(const T* __restrict__ proj, T* __restrict__ coef
   __syncthreads();
   small_matvec(Mi, x, y, k);
   if (g == 0) {                       // zc = zc + invc (rsc - Asc zc)
-    small_matvec(Asc, y, t, k);
+    small_matvec(p.Asc, y, t, k);
     for (int j = threadIdx.x; j < k; j += blockDim.x) t[j] = x[j] - t[j];
     __syncthreads();
     small_matvec(Mi, t, x, k);        // x is free: rsc is no longer needed
     for (int j = threadIdx.x; j < k; j += blockDim.x) y[j] = y[j] + x[j];
     __syncthreads();
   }
-  T* out = coef + (size_t)s * nf + off;
+  T* out = p.coef + (size_t)s * nf + off;
   for (int j = threadIdx.x; j < k; j += blockDim.x) out[j] = sg[j] * y[j];
+  __syncthreads();                    // x, y, t are reused by the next group
+}
+
+// The whole solve in one cooperative launch.  The m n rows of all systems
+// are spread over the grid's warps, one warp a row; with As the three
+// dependent products are three phases with a grid barrier between them:
+//   1. z1 = inv (s rc)      2. t = s rc - As z1      3. zc = s (z1 + inv t)
+// and without As one phase, zc = s (inv (s rc)).  Each phase's first
+// matrix loads are issued before the barrier that precedes it.  The 3 m
+// small solves need only proj: the last blocks of the grid (which have no
+// rows when the grid is larger than the rows need) run them during phase 1,
+// their vectors in dynamic shared memory.
+template <typename T>
+__global__ void __launch_bounds__(KNP_THREADS)
+tl_solve_kernel(const TlSolve<T> p, const T* __restrict__ rc, const T* __restrict__ proj) {
+  extern __shared__ __align__(16) unsigned char tl_smem[];
+  constexpr int U = TlBatch<T>::U;
+  const int n = p.n, rows = p.m * p.n;
+  const int q0 = blockIdx.x * TL_WARPS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  const bool refine = p.As != nullptr;
+  T v[U];
+  // with the refinement inv is kept in L2 for its second read
+  const unsigned long long keep = tl_policy_keep();
+  if (refine) {
+    if (q0 < rows) tl_fetch<true>(p.inv + (size_t)q0 * n, n, lane, keep, v);
+    tl_phase<T, true, true>(p.inv, rc, p.s, rows, n, keep, v,
+                            [&](int q, T acc) { p.z1[q] = acc; });
+  } else {
+    // read once: kept where the systems' inverses fit L2 together (float32)
+    constexpr bool hint = sizeof(T) == 4;
+    if (q0 < rows) tl_fetch<hint>(p.inv + (size_t)q0 * n, n, lane, keep, v);
+    tl_phase<T, true, hint>(p.inv, rc, p.s, rows, n, keep, v,
+                            [&](int q, T acc) { p.zc[q] = p.s[q] * acc; });
+  }
+  if (p.n_comp + p.nw + p.nr > 0) {
+    for (int task = gridDim.x - 1 - blockIdx.x; task < 3 * p.m; task += gridDim.x)
+      tl_small(p, proj, task % 3, task / 3, reinterpret_cast<T*>(tl_smem));
+  }
+  if (!refine) return;
+
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const unsigned long long stream = tl_policy_stream();
+  if (q0 < rows) tl_fetch<true>(p.As + (size_t)q0 * n, n, lane, stream, v);
+  grid.sync();
+  // rounded as the plain version: the product s rc, then the difference
+  tl_phase<T, false, true>(p.As, p.z1, nullptr, rows, n, stream, v,
+                           [&](int q, T acc) { p.t[q] = mul_rn(p.s[q], rc[q]) - acc; });
+  if (q0 < rows) tl_fetch<true>(p.inv + (size_t)q0 * n, n, lane, keep, v);
+  grid.sync();
+  tl_phase<T, false, true>(p.inv, p.t, nullptr, rows, n, keep, v,
+                           [&](int q, T acc) { p.zc[q] = p.s[q] * (p.z1[q] + acc); });
 }
 
 // ---------------------------------------------------------------------------
@@ -331,33 +502,51 @@ static int tl_restrict_launch(const T* r, const T* OH, const T* W, const T* Wr, 
   return (int)cudaGetLastError();
 }
 
+// The grid (the blocks the rows need plus one for each small solve, at most
+// the co-resident limit that a cooperative launch requires) and the shared
+// memory of the small solves, for p's sizes on the current device.
 template <typename T>
-static int tl_solve_launch(const T* inv, const T* s, const T* As, const T* rc, T* z1,
-                           T* t, T* zc, const T* proj, T* coef, const T* invc,
-                           const T* sc, const T* Asc, const T* inv_m, const T* s_m,
-                           const T* inv_r, const T* s_r, int m, int n, int n_comp,
-                           int nw, int nr, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((n + TL_WARPS - 1) / TL_WARPS, m);
-  if (As != nullptr) {
-    tl_gemv_kernel<T><<<grid, KNP_THREADS, 0, st>>>(inv, rc, s, nullptr, nullptr, nullptr,
-                                                    T(1), z1, n);
-    tl_gemv_kernel<T><<<grid, KNP_THREADS, 0, st>>>(As, z1, nullptr, rc, s, nullptr, T(-1),
-                                                    t, n);
-    tl_gemv_kernel<T><<<grid, KNP_THREADS, 0, st>>>(inv, t, nullptr, z1, nullptr, s, T(1),
-                                                    zc, n);
-  } else {
-    tl_gemv_kernel<T><<<grid, KNP_THREADS, 0, st>>>(inv, rc, s, nullptr, nullptr, s, T(1),
-                                                    zc, n);
-  }
-  int err = (int)cudaGetLastError();
-  const int kmax = std::max(n_comp, std::max(nw, nr));
-  if (err != 0 || kmax == 0) return err;
+static int tl_solve_prepare(TlSolve<T>* p) {
+  const int kmax = std::max(p->n_comp, std::max(p->nw, p->nr));
   const size_t smem = 3 * (size_t)kmax * sizeof(T);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  tl_small_kernel<T><<<dim3(3, m), KNP_THREADS, smem, st>>>(
-      proj, coef, invc, sc, Asc, inv_m, s_m, inv_r, s_r, n_comp, nw, nr);
-  return (int)cudaGetLastError();
+  if (smem > TL_MAX_SMEM || p->m < 1 || p->n < 1) return (int)cudaErrorInvalidValue;
+  p->smem = (int)smem;
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  // the attribute is the kernel's, shared by every workspace: raised to the
+  // most a block can have, never lowered below another workspace's need
+  cudaError_t e = smem > 48 * 1024
+                      ? cudaFuncSetAttribute(tl_solve_kernel<T>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             TL_MAX_SMEM)
+                      : cudaSuccess;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tl_solve_kernel<T>,
+                                                      KNP_THREADS, p->smem);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop || per_sm < 1) return (int)cudaErrorNotSupported;
+  const long long rows = (long long)p->m * p->n;
+  const long long need = (rows + TL_WARPS - 1) / TL_WARPS + (kmax > 0 ? 3 * p->m : 0);
+  p->grid = (int)std::min((long long)per_sm * sms, need);
+  return 0;
+}
+
+// With the refinement a cooperative launch (its grid barriers need every
+// block resident); without it (one phase, no barrier) a plain launch.
+template <typename T>
+static int tl_solve_launch(const TlSolve<T>* p, const T* rc, const T* proj, void* stream) {
+  TlSolve<T> prm = *p;
+  if (prm.As == nullptr) {
+    tl_solve_kernel<T><<<prm.grid, KNP_THREADS, prm.smem, (cudaStream_t)stream>>>(prm, rc, proj);
+    return (int)cudaGetLastError();
+  }
+  void* args[] = {(void*)&prm, (void*)&rc, (void*)&proj};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)tl_solve_kernel<T>, dim3(prm.grid), dim3(KNP_THREADS), args,
+      (size_t)prm.smem, (cudaStream_t)stream);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -386,13 +575,12 @@ static int tl_prolong_launch(T* out, const T* zc, const T* coef, const T* OH, co
     return tl_restrict_launch<T>(r, OH, W, Wr, rc, proj, partial, m, nd, nc, agg, n_agg, \
                                  cpt, n_comp, nw, nr, stream);                            \
   }                                                                                       \
-  extern "C" int knp_tl_solve_##SFX(                                                      \
-      const T* inv, const T* s, const T* As, const T* rc, T* z1, T* t, T* zc,             \
-      const T* proj, T* coef, const T* invc, const T* sc, const T* Asc, const T* inv_m,   \
-      const T* s_m, const T* inv_r, const T* s_r, int m, int n, int n_comp, int nw,       \
-      int nr, void* stream) {                                                             \
-    return tl_solve_launch<T>(inv, s, As, rc, z1, t, zc, proj, coef, invc, sc, Asc,       \
-                              inv_m, s_m, inv_r, s_r, m, n, n_comp, nw, nr, stream);      \
+  extern "C" int knp_tl_solve_prepare_##SFX(void* params) {                              \
+    return tl_solve_prepare<T>(static_cast<TlSolve<T>*>(params));                         \
+  }                                                                                       \
+  extern "C" int knp_tl_solve_##SFX(const void* params, const T* rc, const T* proj,       \
+                                    void* stream) {                                       \
+    return tl_solve_launch<T>(static_cast<const TlSolve<T>*>(params), rc, proj, stream);  \
   }                                                                                       \
   extern "C" int knp_tl_prolong_##SFX(T* out, const T* zc, const T* coef, const T* OH,    \
                                       const T* W, const T* Wr, int m, int nd, int nc,     \

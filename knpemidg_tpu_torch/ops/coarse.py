@@ -14,9 +14,18 @@ Each wrapper runs its plain torch version (``*_plain``) for tensors on the
 CPU and launches its kernel for CUDA tensors; there is no fallback between
 the two.  The kernels take nd = 4 (cell layout) and 2nd = 8 (pair layout).
 K6 and K7 count their launches apart (``_batched`` for K7).
+
+The two-level data is frozen for a whole Krylov solve, so :func:`operands`
+checks it once and builds the solve's workspace (:class:`CoarseWork`): the
+buffers that restrict and solve write, and the solve kernel's launch
+parameters.  A CUDA call then checks only the vectors it is handed and
+allocates nothing; the solve is one cooperative launch.  On the card,
+restrict and solve return the workspace's buffers, which the next call of
+the same operands overwrites.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -25,7 +34,8 @@ from .. import _cuda
 
 COARSE_ND = (4, 8)
 MAX_TILE = 1024       # a restrict block covers whole chunks of at most this many cells
-MAX_SMALL = 2000      # rows of a deflation group solved in one block's shared memory
+MAX_SMEM = 232448     # shared memory bytes of a solve block: 3 x the largest
+                      # deflation group
 
 
 class Coarse(NamedTuple):
@@ -43,6 +53,7 @@ class Coarse(NamedTuple):
     Wr: Optional[torch.Tensor]         # (nr, nd, nc)
     ritz: Optional[Tuple[torch.Tensor, torch.Tensor]]                 # inv, s
     batched: bool                      # K7 (counted apart from K6)
+    work: Optional["CoarseWork"] = None    # built by operands()
 
     @property
     def sizes(self):
@@ -53,7 +64,8 @@ class Coarse(NamedTuple):
 def operands(data, agg: int, batched: bool) -> Coarse:
     """Pack two-level ``data`` (build_two_level plus the deflation entries)
     for the kernels: contiguous, the coarse matrices with a system axis
-    (``batched`` data already has one)."""
+    (``batched`` data already has one), checked once, with the workspace
+    of the solve's applies (:func:`work`)."""
     def c(t):
         return None if t is None else t.contiguous()
 
@@ -63,11 +75,12 @@ def operands(data, agg: int, batched: bool) -> Coarse:
     def group(*keys):
         return tuple(c(data[k]) for k in keys) if keys[0] in data else None
 
-    return Coarse(agg=agg, inv=sys_axis(data["inv"]), s=sys_axis(data["s"]),
-                  As=sys_axis(data.get("As")), OH=c(data.get("comp_onehot")),
-                  comp=group("comp_inv", "comp_s", "comp_As"), W=c(data.get("mom_W")),
-                  mom=group("mom_inv", "mom_s"), Wr=c(data.get("ritz_W")),
-                  ritz=group("ritz_inv", "ritz_s"), batched=batched)
+    co = Coarse(agg=agg, inv=sys_axis(data["inv"]), s=sys_axis(data["s"]),
+                As=sys_axis(data.get("As")), OH=c(data.get("comp_onehot")),
+                comp=group("comp_inv", "comp_s", "comp_As"), W=c(data.get("mom_W")),
+                mom=group("mom_inv", "mom_s"), Wr=c(data.get("ritz_W")),
+                ritz=group("ritz_inv", "ritz_s"), batched=batched)
+    return co._replace(work=work(co))
 
 
 def _name(entry, co: Coarse):
@@ -144,90 +157,182 @@ def prolong_add_plain(co: Coarse, out, zc, coef):
 
 
 # ---------------------------------------------------------------------------
-# wrappers
+# the workspace, built once per solve
 # ---------------------------------------------------------------------------
+
+_SOLVE_PTRS = ("inv", "s", "As", "z1", "t", "zc", "coef", "invc", "sc", "Asc", "inv_m",
+               "s_m", "inv_r", "s_r")
+
+
+class _SolveParams(ctypes.Structure):
+    """``TlSolve<T>`` of ``csrc/two_level.cu``, field for field."""
+    _fields_ = [(k, ctypes.c_void_p) for k in _SOLVE_PTRS] + [
+        (k, ctypes.c_int) for k in ("m", "n", "n_comp", "nw", "nr", "grid", "smem", "pad")]
+
+
+class CoarseWork(NamedTuple):
+    """What one solve's coarse applies need besides r and out (built by
+    :func:`work`): the frozen operands it was checked on (kept alive, as
+    the launch parameters hold their addresses), their sizes, the output
+    buffers of restrict and solve, and the kernels' fixed arguments."""
+    ops: Coarse                        # the operands, without work
+    m: int                             # systems
+    n: int                             # chunks (n_agg)
+    nd: Optional[int]                  # the fields' dofs and cells (None without fields)
+    nc: Optional[int]
+    rc: torch.Tensor                   # (m, n)   restrict
+    proj: torch.Tensor                 # (m, nf)  restrict
+    partial: torch.Tensor              # (m, nf, blocks) restrict's block sums
+    zc: torch.Tensor                   # (m, n)   solve
+    coef: torch.Tensor                 # (m, nf)  solve
+    z1: Optional[torch.Tensor]         # (m, n)   solve's refinement (with As)
+    t: Optional[torch.Tensor]
+    names: Tuple[str, str, str]        # launch counters of restrict, solve, prolong
+    fields: tuple                      # addresses of OH, W, Wr (None when absent)
+    restrict_tail: tuple               # agg, n, chunks per block, n_comp, nw, nr
+    prolong_tail: tuple                # agg, n, n_comp, nw, nr
+    params: Optional[_SolveParams]     # the solve kernel's, on the card only
+    params_ptr: Optional[int]
+
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check_fields(co: Coarse, nd, nc, dtype):
-    for name, t, shape in (("comp_onehot", co.OH, (nc,)), ("mom_W", co.W, (nd, nc)),
-                           ("ritz_W", co.Wr, (nd, nc))):
+def work(co: Coarse) -> CoarseWork:
+    """Check the frozen operands once -- one device, one float dtype,
+    contiguous, consistent shapes, the deflation groups matching their
+    fields -- and allocate the buffers that restrict and solve write.  On
+    the card also the solve kernel's launch parameters, its grid sized once
+    to the co-resident limit, and the kernels' limits."""
+    inv = co.inv
+    dt, dev = inv.dtype, inv.device
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"two_level operands: expected float32/float64, got {dt}")
+    if inv.dim() != 3 or inv.shape[1] != inv.shape[2]:
+        raise ValueError("two_level operands: inv must be (m, n_agg, n_agg)")
+    m, n = inv.shape[0], inv.shape[1]
+
+    def need(name, t, shape):
+        if t.device != dev:
+            raise ValueError(f"two_level operands: {name} is on {t.device}, inv on {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"two_level operands: {name} is {t.dtype}, inv {dt}")
+        if not t.is_contiguous():
+            raise ValueError(f"two_level operands: {name} is not contiguous")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"two_level operands: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+
+    need("inv", inv, (m, n, n))
+    need("s", co.s, (m, n))
+    if co.As is not None:
+        need("As", co.As, (m, n, n))
+    n_comp, nw, nr = co.sizes
+    fields = [("comp_onehot", co.OH), ("mom_W", co.W), ("ritz_W", co.Wr)]
+    nc = next((t.shape[-1] for _, t in fields if t is not None), None)
+    nd = next((t.shape[1] for _, t in fields[1:] if t is not None and t.dim() == 3), None)
+    for name, t in fields:
         if t is not None:
-            _cuda.check(name, t, dtype, (t.shape[0],) + shape)
+            need(name, t, (t.shape[0], nc) if t is co.OH else (t.shape[0], nd, nc))
+    if nc is not None and n != -(-nc // co.agg):
+        raise ValueError("two_level operands: coarse size does not match the chunks")
+    for name, grp, k in (("comp", co.comp, n_comp), ("mom", co.mom, nw),
+                         ("ritz", co.ritz, nr)):
+        if (grp is None) != (k == 0):
+            raise ValueError(f"two_level operands: {name} fields and Galerkin data disagree")
+        for i, t in enumerate(grp or ()):
+            need(f"{name}[{i}]", t, (k,) if t.dim() == 1 else (k, k))
+    if inv.is_cuda and co.agg > MAX_TILE:
+        raise NotImplementedError(
+            f"two_level restrict: chunks above {MAX_TILE} cells are not supported")
+    if inv.is_cuda and 3 * max(n_comp, nw, nr) * inv.element_size() > MAX_SMEM:
+        raise NotImplementedError(
+            "two_level solve: a deflation group too large for a block's shared memory")
+
+    nf = n_comp + nw + nr
+    cpt = max(1, 256 // co.agg)                  # chunks per restrict block
+
+    def buf(*shape):
+        return torch.empty(shape, dtype=dt, device=dev)
+
+    refine = co.As is not None
+    ops = co._replace(work=None)
+    wk = CoarseWork(
+        ops=ops, m=m, n=n, nd=nd, nc=nc, rc=buf(m, n), proj=buf(m, nf),
+        partial=buf(m, nf, -(-n // cpt)), zc=buf(m, n), coef=buf(m, nf),
+        z1=buf(m, n) if refine else None, t=buf(m, n) if refine else None,
+        names=tuple(_name(e, co) for e in ("restrict", "solve", "prolong")),
+        fields=(_ptr(co.OH), _ptr(co.W), _ptr(co.Wr)),
+        restrict_tail=(co.agg, n, cpt, n_comp, nw, nr),
+        prolong_tail=(co.agg, n, n_comp, nw, nr), params=None, params_ptr=None)
+    if not inv.is_cuda:
+        return wk
+    groups = (co.comp or (None,) * 3) + (co.mom or (None,) * 2) + (co.ritz or (None,) * 2)
+    params = _SolveParams(*(_ptr(t) for t in (inv, co.s, co.As, wk.z1, wk.t, wk.zc, wk.coef)
+                            + groups), m, n, n_comp, nw, nr, 0, 0, 0)
+    with torch.cuda.device(dev):
+        _cuda.call("knp_tl_solve_prepare", dt, ctypes.addressof(params))
+    return wk._replace(params=params, params_ptr=ctypes.addressof(params))
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _work(co: Coarse, entry: str) -> CoarseWork:
+    wk = co.work
+    if wk is None or wk.params is None:
+        raise ValueError(f"two_level {entry}: the operands carry no workspace on the card; "
+                         f"build them with coarse.operands from CUDA tensors")
+    return wk
+
+
+def _check_cells(entry, wk: CoarseWork, name, x, agg):
+    """x (m, nd, nc) handed to restrict or prolong_add: on the card, the
+    operands' dtype, contiguous, shaped as the operands' fields and chunks.
+    Returns (m, nd, nc)."""
+    _cuda.check(name, x, wk.rc.dtype)
+    if x.dim() != 3 or x.shape[0] != wk.m:
+        raise ValueError(f"two_level {entry}: expected {name} of shape ({wk.m}, nd, nc)")
+    m, nd, nc = x.shape
+    if nd not in COARSE_ND:
+        raise NotImplementedError(
+            f"two_level {entry}: CUDA kernel built for nd in {COARSE_ND}, got nd = {nd}")
+    if wk.nd is not None and (nd, nc) != (wk.nd, wk.nc):
+        raise ValueError(f"two_level {entry}: {name} does not match the deflation fields")
+    if wk.n != -(-nc // agg):
+        raise ValueError(f"two_level {entry}: coarse size does not match the chunks")
+    return m, nd, nc
 
 
 def restrict(co: Coarse, r):
     """Chunk sums and field projections (the restrict kernel on a CUDA
-    tensor): (rc (m, n_agg), proj (m, nf))."""
+    tensor): (rc (m, n_agg), proj (m, nf)); on the card the workspace's
+    buffers."""
     if not r.is_cuda:
         return restrict_plain(co, r)
-    if r.dim() != 3:
-        raise ValueError("two_level restrict: expected r of shape (m, nd, nc)")
-    m, nd, nc = r.shape
-    _cuda.check("r", r)
-    if nd not in COARSE_ND:
-        raise NotImplementedError(
-            f"two_level restrict: CUDA kernel built for nd in {COARSE_ND}, got nd = {nd}")
-    if co.agg > MAX_TILE:
-        raise NotImplementedError(
-            f"two_level restrict: chunks above {MAX_TILE} cells are not supported")
-    n_agg = co.s.shape[-1]
-    if n_agg != -(-nc // co.agg):
-        raise ValueError("two_level restrict: coarse size does not match the chunks")
-    _check_fields(co, nd, nc, r.dtype)
-    n_comp, nw, nr = co.sizes
-    nf = n_comp + nw + nr
-    cpt = max(1, 256 // co.agg)                  # chunks per restrict block
-    nblk = -(-n_agg // cpt)
-    rc = torch.empty((m, n_agg), dtype=r.dtype, device=r.device)
-    proj = torch.empty((m, nf), dtype=r.dtype, device=r.device)
-    partial = torch.empty((m, nf, nblk), dtype=r.dtype, device=r.device)
-    _cuda.launch(_name("restrict", co), "knp_tl_restrict", r.dtype, r.data_ptr(),
-                 _ptr(co.OH), _ptr(co.W), _ptr(co.Wr), rc.data_ptr(), proj.data_ptr(),
-                 partial.data_ptr(), m, nd, nc, co.agg, n_agg, cpt, n_comp, nw, nr)
-    return rc, proj
+    wk = _work(co, "restrict")
+    m, nd, nc = _check_cells("restrict", wk, "r", r, co.agg)
+    _cuda.launch(wk.names[0], "knp_tl_restrict", r.dtype, r.data_ptr(), *wk.fields,
+                 wk.rc.data_ptr(), wk.proj.data_ptr(), wk.partial.data_ptr(), m, nd, nc,
+                 *wk.restrict_tail)
+    return wk.rc, wk.proj
 
 
 def solve(co: Coarse, rc, proj):
-    """Dense coarse and small deflation solves (the solve kernels on a CUDA
-    tensor): (zc (m, n_agg), coef (m, nf))."""
+    """Dense coarse and small deflation solves (one launch of the solve
+    kernel on a CUDA tensor): (zc (m, n_agg), coef (m, nf)); on the card the
+    workspace's buffers.  restrict's own outputs need no check."""
     if not rc.is_cuda:
         return solve_plain(co, rc, proj)
-    m, n = rc.shape
-    dt = rc.dtype
-    _cuda.check("rc", rc)
-    _cuda.check("proj", proj, dt, (m, sum(co.sizes)))
-    _cuda.check("inv", co.inv, dt, (m, n, n))
-    _cuda.check("s", co.s, dt, (m, n))
-    if co.As is not None:
-        _cuda.check("As", co.As, dt, (m, n, n))
-    n_comp, nw, nr = co.sizes
-    if max(n_comp, nw, nr) > MAX_SMALL:
-        raise NotImplementedError(
-            f"two_level solve: deflation groups above {MAX_SMALL} rows are not supported")
-    groups = (("comp", co.comp, n_comp, 3), ("mom", co.mom, nw, 2), ("ritz", co.ritz, nr, 2))
-    for name, grp, k, nt in groups:
-        if (grp is None) != (k == 0):
-            raise ValueError(f"two_level solve: {name} fields and Galerkin data disagree")
-        if grp is not None:
-            for i, t in enumerate(grp):
-                _cuda.check(f"{name}[{i}]", t, dt, (k,) if t.dim() == 1 else (k, k))
-    comp = co.comp or (None, None, None)
-    mom = co.mom or (None, None)
-    ritz = co.ritz or (None, None)
-    zc = torch.empty_like(rc)
-    coef = torch.empty_like(proj)
-    refine = co.As is not None
-    z1 = torch.empty_like(rc) if refine else None
-    t = torch.empty_like(rc) if refine else None
-    _cuda.launch(_name("solve", co), "knp_tl_solve", dt, co.inv.data_ptr(),
-                 co.s.data_ptr(), _ptr(co.As), rc.data_ptr(), _ptr(z1), _ptr(t),
-                 zc.data_ptr(), proj.data_ptr(), coef.data_ptr(),
-                 *(_ptr(x) for x in comp), *(_ptr(x) for x in mom),
-                 *(_ptr(x) for x in ritz), m, n, n_comp, nw, nr)
-    return zc, coef
+    wk = _work(co, "solve")
+    if rc is not wk.rc or proj is not wk.proj:
+        _cuda.check("rc", rc, wk.rc.dtype, wk.rc.shape)
+        _cuda.check("proj", proj, wk.rc.dtype, wk.proj.shape)
+    _cuda.launch(wk.names[1], "knp_tl_solve", rc.dtype, wk.params_ptr, rc.data_ptr(),
+                 proj.data_ptr())
+    return wk.zc, wk.coef
 
 
 def prolong_add(co: Coarse, out, zc, coef):
@@ -235,23 +340,13 @@ def prolong_add(co: Coarse, out, zc, coef):
     CUDA tensor); returns out."""
     if not out.is_cuda:
         return prolong_add_plain(co, out, zc, coef)
-    if out.dim() != 3:
-        raise ValueError("two_level prolong_add: expected out of shape (m, nd, nc)")
-    m, nd, nc = out.shape
-    n_agg = co.s.shape[-1]
-    _cuda.check("out", out)
-    _cuda.check("zc", zc, out.dtype, (m, n_agg))
-    _cuda.check("coef", coef, out.dtype, (m, sum(co.sizes)))
-    if nd not in COARSE_ND:
-        raise NotImplementedError(
-            f"two_level prolong_add: CUDA kernel built for nd in {COARSE_ND}, got nd = {nd}")
-    if n_agg * co.agg < nc:
-        raise ValueError("two_level prolong_add: the chunks do not cover the cells")
-    _check_fields(co, nd, nc, out.dtype)
-    n_comp, nw, nr = co.sizes
-    _cuda.launch(_name("prolong", co), "knp_tl_prolong", out.dtype, out.data_ptr(),
-                 zc.data_ptr(), coef.data_ptr(), _ptr(co.OH), _ptr(co.W), _ptr(co.Wr),
-                 m, nd, nc, co.agg, n_agg, n_comp, nw, nr)
+    wk = _work(co, "prolong_add")
+    m, nd, nc = _check_cells("prolong_add", wk, "out", out, co.agg)
+    if zc is not wk.zc or coef is not wk.coef:
+        _cuda.check("zc", zc, out.dtype, wk.zc.shape)
+        _cuda.check("coef", coef, out.dtype, wk.coef.shape)
+    _cuda.launch(wk.names[2], "knp_tl_prolong", out.dtype, out.data_ptr(), zc.data_ptr(),
+                 coef.data_ptr(), *wk.fields, m, nd, nc, *wk.prolong_tail)
     return out
 
 

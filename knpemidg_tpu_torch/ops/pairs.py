@@ -278,7 +278,10 @@ def _no_live0(pm, name):
 # ---------------------------------------------------------------------------
 
 def to_pair_plain(pm, x):
-    """(..., nd, 2 npair) -> (..., 2nd, npair), dead halves zeroed."""
+    """(..., nd, 2 npair) -> (..., 2nd, npair), dead halves zeroed; a
+    sequence of same-shaped tensors is converted as their stack."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.stack(list(x))
     _interleaved_only(pm, "to_pair")
     *lead, nd, nc2 = x.shape
     npair = nc2 // 2
@@ -301,24 +304,68 @@ def from_pair_plain(pm, xp):
     return a.reshape(*lead, nd, 2 * npair)
 
 
-def to_pair(pm, x):
-    """Cell -> pair relayout (kernel K4 on a CUDA tensor), any number of
-    leading stacked vectors."""
-    if not x.is_cuda:
-        return to_pair_plain(pm, x)
-    _interleaved_only(pm, "to_pair")
-    _no_live0(pm, "to_pair")
-    *lead, nd, nc2 = x.shape
+TO_PAIR_SOURCES = 4       # tensors the to_pair kernel reads in one launch
+
+
+def to_pair(pm, x, out=None):
+    """Cell -> pair relayout (kernel K4 on CUDA tensors), any number of
+    leading stacked vectors.  ``x`` is one tensor (..., nd, 2 npair) or a
+    sequence of up to TO_PAIR_SOURCES same-shaped ones, converted as their
+    stack (k, ..., 2nd, npair) without forming it.  ``out`` optionally
+    receives the result."""
+    single = isinstance(x, torch.Tensor)
+    xs = (x,) if single else tuple(x)
+    x0 = xs[0]
+    if not x0.is_cuda:
+        res = to_pair_plain(pm, x if single else xs)
+        return res if out is None else out.copy_(res)
+    if "cell_col" in pm or "live0" in pm:
+        _interleaved_only(pm, "to_pair")
+        _no_live0(pm, "to_pair")
+    shape, dt = x0.shape, x0.dtype
+    *lead, nd, nc2 = shape
     npair = nc2 // 2
-    _cuda.check("x", x)
-    _cuda.check("live1", pm["live1"], torch.bool, (npair,))
-    if nc2 != 2 * npair:
-        raise ValueError("to_pair: the interleaved cell axis must be even")
-    out = torch.empty(tuple(lead) + (2 * nd, npair), dtype=x.dtype, device=x.device)
-    _cuda.launch("to_pair", "knp_to_pair", x.dtype, x.data_ptr(),
-                 pm["live1"].data_ptr(), out.data_ptr(), x.numel() // (nd * nc2),
-                 nd, npair)
+    lv = x0.numel() // (nd * nc2) if nc2 else 0
+    live1 = pm["live1"]
+    # one pass over the sources, a plain loop (a call's host time is most
+    # of its cost); the slow path names what is wrong
+    align = 2 * x0.element_size()
+    ptrs = []
+    ok = (not nc2 % 2 and len(xs) <= TO_PAIR_SOURCES and lv * nd <= 65535
+          and live1.is_cuda and live1.dtype == torch.bool and live1.shape == (npair,)
+          and live1.is_contiguous())
+    for t in xs:
+        p = t.data_ptr()
+        ok = (ok and t.is_cuda and t.dtype == dt and t.shape == shape and t.is_contiguous()
+              and not p % align)
+        ptrs.append(p)
+    if not ok:
+        _to_pair_refusal(xs, live1, npair, lv * nd)
+    oshape = (*(() if single else (len(xs),)), *lead, 2 * nd, npair)
+    if out is None:
+        out = torch.empty(oshape, dtype=dt, device=x0.device)
+    elif not (out.is_cuda and out.dtype == dt and out.shape == oshape and out.is_contiguous()):
+        _cuda.check("out", out, dt, oshape)
+    ptrs += [None] * (TO_PAIR_SOURCES - len(xs))
+    _cuda.launch("to_pair", "knp_to_pair", dt, *ptrs, live1.data_ptr(), out.data_ptr(),
+                 len(xs), lv, nd, npair)
     return out
+
+
+def _to_pair_refusal(xs, live1, npair, rows):
+    """Raise the reason to_pair's kernel cannot take these sources."""
+    x0 = xs[0]
+    if x0.shape[-1] % 2:
+        raise ValueError("to_pair: the interleaved cell axis must be even")
+    if len(xs) > TO_PAIR_SOURCES:
+        raise NotImplementedError(f"to_pair: at most {TO_PAIR_SOURCES} source tensors")
+    if rows > 65535:
+        raise NotImplementedError("to_pair: more than 65,535 rows per source")
+    for t in xs:
+        _cuda.check("x", t, x0.dtype, x0.shape)
+        if t.data_ptr() % (2 * t.element_size()):
+            raise ValueError("to_pair: a source must start at an even element (pair loads)")
+    _cuda.check("live1", live1, torch.bool, (npair,))
 
 
 def from_pair(pm, xp):

@@ -48,8 +48,8 @@ TOP = 12                 # operators listed by device time
 HAND_KERNELS = ("bell_matvec_kernel", "bj_inverse_kernel", "bj_apply_kernel",
                 "membrane_rk4_kernel", "pair_matvec_kernel", "to_pair_kernel",
                 "from_pair_kernel", "gather_blocks_pair_kernel",
-                "tl_restrict_kernel", "tl_reduce_kernel", "tl_gemv_kernel",
-                "tl_small_kernel", "tl_prolong_kernel",
+                "tl_restrict_kernel", "tl_reduce_kernel", "tl_solve_kernel",
+                "tl_prolong_kernel",
                 "emi_cell_kernel", "emi_facet_kernel", "emi_emit_cell_kernel",
                 "alpha_sum_kernel", "ion_cell_kernel", "ion_facet_kernel",
                 "ion_membrane_rhs_kernel", "ion_emit_cell_kernel",

@@ -440,8 +440,8 @@ class Solver:
         ``phi_prev`` enables the linear-predictor guess 2 phi_k - phi_{k-1};
         the guess with the smaller initial residual is used.  On the pair
         layout (``blocks`` a (pd, pe) tuple) the vectors convert to pairs in
-        one stacked relayout, the solve runs on pairs with the live mask in
-        the nullspace projection, and the solution converts back."""
+        one relayout into a stack, the solve runs on pairs with the live mask
+        in the nullspace projection, and the solution converts back."""
         pair = isinstance(blocks, tuple)
         mask = None
         if pair:
@@ -449,7 +449,7 @@ class Solver:
             pd_, pe_ = blocks
             mv = lambda v: pair_matvec(pd_, pe_, pm, v.contiguous())
             stackc = [rhs, phi] + ([phi_prev] if phi_prev is not None else [])
-            conv = to_pair(pm, torch.stack(stackc))
+            conv = to_pair(pm, stackc)
             rhs, phi = conv[0], conv[1]
             phi_prev = conv[2] if phi_prev is not None else None
             mask = self._pair_mask
@@ -545,7 +545,7 @@ class Solver:
         pm = self.pairs
         pdK, peK = blocksK
         mv = lambda V: pair_matvec_multi(pdK, peK, pm, V.contiguous())
-        conv = to_pair(pm, torch.stack([rhsK, c]))
+        conv = to_pair(pm, [rhsK, c])
         rhs_p, c_p = conv[0], conv[1]
         lm = self._pair_mask.to(rhs_p.dtype)[None]
         pdK_bj = pdK * self._pair_bj_halves[None] if sp_.pair_bj == "halves" else pdK

@@ -2,9 +2,11 @@
 JAX package in float64: two_level_apply_fn and two_level_apply_batched of
 both packages on the same seeded two-level data -- coarse inv / As / s,
 compartment, moment and Ritz fields -- at a small size with a pad in the
-last chunk, for nd = 4 and nd = 8."""
+last chunk, for nd = 4 and nd = 8; and the per-solve workspace that
+coarse.operands checks and builds once."""
 import numpy as np
 import pytest
+import torch
 import jax.numpy as jnp
 
 from test_torch_parity import N_COMP, NW, NR, rel, t64, two_level_data
@@ -119,3 +121,82 @@ def test_unported_two_level_data_raise():
             P[None], AGG)
     with pytest.raises(NotImplementedError):
         twolevel.np_two_level_apply(dict(d, d1inv=d["s"]), P, AGG)
+
+
+@pytest.mark.parametrize("nd", [4, 8])
+def test_one_apply_closure_serves_many_vectors(nd):
+    """An apply closure (one workspace per solve) applied to two vectors
+    in turn gives the JAX apply of each, K6 and K7."""
+    rng = np.random.default_rng(26)
+    d, dK = _data(rng, nd), _data(rng, nd, ("As",), m=2)
+    P, PK = _P_diag(rng, nd), _P_diag(rng, nd, m=2)
+    fj = jtl.two_level_apply_fn({k: jnp.asarray(v) for k, v in d.items()}, jnp.asarray(P), AGG)
+    ft = twolevel.two_level_apply_fn({k: t64(v) for k, v in d.items()}, t64(P), AGG)
+    gj = jtl.two_level_apply_batched({k: jnp.asarray(v) for k, v in dK.items()},
+                                     jnp.asarray(PK), AGG)
+    gt = twolevel.two_level_apply_batched({k: t64(v) for k, v in dK.items()}, t64(PK), AGG)
+    for _ in range(2):
+        r, rK = rng.standard_normal((nd, NC)), rng.standard_normal((2, nd, NC))
+        assert rel(ft(t64(r)), fj(jnp.asarray(r))) < TOL
+        assert rel(gt(t64(rK)), gj(jnp.asarray(rK))) < TOL
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_operands_build_the_solve_workspace(batched):
+    """coarse.operands checks the frozen data once and builds the solve's
+    workspace: restrict's and solve's output buffers, the refinement's z1
+    and t only with As, the launch counters' names, no launch parameters
+    off the card; restrict and solve through it give the plain results."""
+    rng = np.random.default_rng(27)
+    d = _data(rng, 4, ("As",), m=2) if batched else _data(rng, 4)
+    co = coarse.operands({k: t64(v) for k, v in d.items()}, AGG, batched)
+    wk = co.work
+    m, nf = (2, 0) if batched else (1, N_COMP + NW + NR)
+    assert (wk.m, wk.n, wk.nd, wk.nc) == ((m, 16, None, None) if batched else (m, 16, 4, NC))
+    assert wk.rc.shape == wk.zc.shape == wk.z1.shape == wk.t.shape == (m, 16)
+    assert wk.proj.shape == wk.coef.shape == (m, nf) and wk.partial.shape == (m, nf, 4)
+    assert wk.params is None and wk.ops.work is None and wk.ops.inv is co.inv
+    sfx = "_batched" if batched else ""
+    assert wk.names == tuple(f"two_level_{e}{sfx}" for e in ("restrict", "solve", "prolong"))
+    r = t64(rng.standard_normal((m, 4, NC)))
+    rc, proj = coarse.restrict(co, r)
+    for a, b in zip((rc, proj), coarse.restrict_plain(co, r)):
+        assert torch.equal(a, b)
+    for a, b in zip(coarse.solve(co, rc, proj), coarse.solve_plain(co, rc, proj)):
+        assert torch.equal(a, b)
+    co1 = coarse.operands({k: t64(v) for k, v in _data(rng, 4, ()).items()}, AGG, False)
+    assert co1.work.z1 is None and co1.work.t is None
+
+
+def _drop_mom_inv(d):
+    del d["mom_inv"]
+
+
+def _cut_cells(d):
+    for k in ("comp_onehot", "mom_W", "ritz_W"):
+        d[k] = d[k][..., :-AGG]
+
+
+# frozen data operands() refuses: (change, exception)
+BAD_OPERANDS = {
+    "inv_not_square": (lambda d: d.update(inv=d["inv"][:, :-1]), ValueError),
+    "s_shape": (lambda d: d.update(s=d["s"][:-1]), ValueError),
+    "As_dtype": (lambda d: d.update(As=d["As"].float()), TypeError),
+    "field_cells": (lambda d: d.update(mom_W=d["mom_W"][..., :-1]), ValueError),
+    "chunks": (_cut_cells, ValueError),
+    "group_without_galerkin": (_drop_mom_inv, ValueError),
+    "two_devices": (lambda d: d.update(ritz_W=d["ritz_W"].to("meta")), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_OPERANDS))
+def test_operands_refuse_inconsistent_data(case):
+    """Inconsistent two-level data raises once, when the solve's operands
+    are built, on every device: the CUDA wrappers no longer check the
+    frozen data per call."""
+    rng = np.random.default_rng(28)
+    d = {k: t64(v) for k, v in _data(rng, 4).items()}
+    change, exc = BAD_OPERANDS[case]
+    change(d)
+    with pytest.raises(exc):
+        coarse.operands(d, AGG, batched=False)

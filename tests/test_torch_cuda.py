@@ -5,6 +5,8 @@ runs where jax is not installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -210,6 +212,31 @@ def test_pair_kernels_refuse_unported_maps(pair_maps):
                                        device=dev).t())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_to_pair_list_form_equals_the_stack(pair_maps, dtype):
+    """to_pair of a list of vectors (the solver's EMI 3 and KNP 2) reads
+    them in one launch and equals to_pair of their stack and the plain
+    version exactly; out= receives the result; a source that starts at an
+    odd element (no pair load) raises."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(9)
+    pm = pairs.pair_maps_to_device(pair_maps, dev)
+    nc2 = 2 * pair_maps["int_f"].shape[0]
+    for shape, k in (((4, nc2), 3), ((2, 4, nc2), 2)):
+        xs = [_rand(rng, shape, dtype, dev) for _ in range(k)]
+        n0 = _cuda.LAUNCHES["to_pair"]
+        got = pairs.to_pair(pm, xs)
+        assert _cuda.LAUNCHES["to_pair"] == n0 + 1
+        stack = torch.stack(xs)
+        assert torch.equal(got, pairs.to_pair(pm, stack))
+        assert torch.equal(got, pairs.to_pair_plain(pm, stack))
+        out = torch.full_like(got, float("nan"))
+        assert pairs.to_pair(pm, tuple(xs), out=out) is out and torch.equal(out, got)
+    flat = _rand(rng, (4 * nc2 + 1,), dtype, dev)
+    with pytest.raises(ValueError):
+        pairs.to_pair(pm, [flat[1:].view(4, nc2)])
+
+
 def test_emix_pair_slice_on_cuda_matches_cpu():
     """Two float64 steps of the EMIx fixture on the pair layout: the card
     goes through every pair-path kernel, reproduces the JAX package's
@@ -231,18 +258,27 @@ def test_emix_pair_slice_on_cuda_matches_cpu():
 # K6 (m = 1, the EMI data with or without its deflation groups) and K7
 # (m = 2, the KNP data: no deflation, with or without As)
 TWO_LEVEL_CASES = {"k6_full": (None, ("As", "comp", "mom", "ritz")),
-                   "k6_coarse": (None, ("As",)), "k7": (2, ()), "k7_refined": (2, ("As",))}
+                   "k6_coarse": (None, ("As",)), "k6_refined": (None, ("As", "comp")),
+                   "k7": (2, ()), "k7_refined": (2, ("As",))}
+# the cell layout's main-path coarse size: 1,944 chunks of 64, the last
+# one 24 cells short
+MAIN_NC = 1944 * 64 - 24
 
 
-def _coarse_case(case, nd, dtype, dev, nc=5000, agg=64):
+@functools.lru_cache(maxsize=None)
+def _coarse_numpy(case, nd, nc, agg):
     rng = np.random.default_rng(41)
     m, groups = TWO_LEVEL_CASES[case]
     d = tp.two_level_data(rng, nd, nc, agg, groups, m)
+    return d, rng.standard_normal((2, m or 1, nd, nc))
+
+
+def _coarse_case(case, nd, dtype, dev, nc=5000, agg=64):
+    d, (r, out0) = _coarse_numpy(case, nd, nc, agg)
     data = {k: torch.as_tensor(v, dtype=dtype, device=dev) for k, v in d.items()}
-    co = coarse.operands(data, agg, batched=m is not None)
-    r = _rand(rng, (m or 1, nd, nc), dtype, dev)
-    out0 = _rand(rng, (m or 1, nd, nc), dtype, dev)
-    return co, r, out0
+    co = coarse.operands(data, agg, batched=TWO_LEVEL_CASES[case][0] is not None)
+    return co, torch.as_tensor(r, dtype=dtype, device=dev), torch.as_tensor(
+        out0, dtype=dtype, device=dev)
 
 
 @pytest.mark.parametrize("case", sorted(TWO_LEVEL_CASES))
@@ -255,7 +291,7 @@ def test_two_level_kernels_match_plain(case, nd, dtype, tol):
     dev = cuda_or_skip()
     co, r, out0 = _coarse_case(case, nd, dtype, dev)
     n0 = dict(_cuda.LAUNCHES)
-    rc, proj = coarse.restrict(co, r)
+    rc, proj = (t.clone() for t in coarse.restrict(co, r))     # the workspace's buffers
     rc_p, proj_p = coarse.restrict_plain(co, r)
     assert rel(rc, rc_p) < tol and (proj.numel() == 0 or rel(proj, proj_p) < tol)
     zc, coef = coarse.solve(co, rc_p, proj_p)
@@ -276,15 +312,102 @@ def test_two_level_wrappers_raise_on_what_they_cannot_take():
     co, r, out0 = _coarse_case("k6_full", 4, torch.float64, dev)
     with pytest.raises(ValueError):                      # not contiguous
         coarse.restrict(co, r.transpose(1, 2).contiguous().transpose(1, 2))
-    co_cpu = coarse.Coarse(**{k: (v.cpu() if isinstance(v, torch.Tensor) else v)
-                              for k, v in co._asdict().items()})
+    d, _ = _coarse_numpy("k6_full", 4, 5000, 64)
+    co_cpu = coarse.operands({k: torch.as_tensor(v) for k, v in d.items()}, 64, False)
     with pytest.raises(ValueError):                      # operands on the CPU
         coarse.restrict(co_cpu, r)
+    mixed = {k: torch.as_tensor(v, device=dev) for k, v in d.items()}
+    mixed["mom_W"] = mixed["mom_W"].cpu()
+    with pytest.raises(ValueError):                      # operands on two devices
+        coarse.operands(mixed, 64, False)
     with pytest.raises(TypeError):                       # dtype mismatch
         coarse.prolong_add(co, out0.float(), *coarse.solve(co, *coarse.restrict(co, r)))
     co3, r3, _ = _coarse_case("k7", 4, torch.float64, dev)
     with pytest.raises(NotImplementedError):             # nd = 3
         coarse.restrict(co3, r3[:, :3].contiguous())
+
+
+@pytest.mark.parametrize("case", sorted(TWO_LEVEL_CASES))
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_two_level_solve_at_the_main_path_size(case, dtype, tol):
+    """The one-launch solve at the cell layout's coarse size (n = 1,944)
+    through the workspace, as the apply calls it (on restrict's buffers),
+    against solve_plain; 200 calls repeat the first bit for bit, and the
+    last one writes its outputs (NaN before it)."""
+    dev = cuda_or_skip()
+    co, r, _ = _coarse_case(case, 4, dtype, dev, nc=MAIN_NC)
+    wk = co.work
+    assert wk.n == 1944
+    rc_p, proj_p = coarse.restrict_plain(co, r)
+    wk.rc.copy_(rc_p)
+    wk.proj.copy_(proj_p)
+    n0 = _cuda.LAUNCHES["two_level_solve"], _cuda.LAUNCHES["two_level_solve_batched"]
+    zc, coef = coarse.solve(co, wk.rc, wk.proj)
+    assert zc is wk.zc and coef is wk.coef
+    zc_p, coef_p = coarse.solve_plain(co, rc_p, proj_p)
+    assert rel(zc, zc_p) < 10 * tol and (coef.numel() == 0 or rel(coef, coef_p) < 10 * tol)
+    first = zc.clone(), coef.clone()
+    for _ in range(198):
+        coarse.solve(co, wk.rc, wk.proj)
+    zc.fill_(float("nan"))
+    coef.fill_(float("nan"))
+    coarse.solve(co, wk.rc, wk.proj)
+    torch.cuda.synchronize()
+    assert torch.equal(zc, first[0]) and torch.equal(coef, first[1])
+    n1 = _cuda.LAUNCHES["two_level_solve"], _cuda.LAUNCHES["two_level_solve_batched"]
+    assert (n1[0] - n0[0], n1[1] - n0[1]) == ((0, 200) if co.batched else (200, 0))
+
+
+@pytest.mark.parametrize("case", ["k6_full", "k7"])
+def test_two_level_solve_is_one_launch_and_allocates_nothing(case):
+    """Five solves through the workspace are five device kernels, all of
+    the solve kernel, and no allocation (the caching allocator's count)."""
+    dev = cuda_or_skip()
+    co, r, _ = _coarse_case(case, 4, torch.float64, dev)
+    rc, proj = coarse.restrict(co, r)
+    coarse.solve(co, rc, proj)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            coarse.solve(co, rc, proj)
+        torch.cuda.synchronize()
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 5 and all("tl_solve_kernel" in k for k in kernels), kernels
+
+
+def test_two_level_workspaces_coexist():
+    """Solves of K6 (with deflation groups: shared memory) and K7 (none)
+    workspaces built one after the other and called in turns each equal
+    their plain version: one workspace's launch set-up does not limit
+    another's."""
+    dev = cuda_or_skip()
+    cases = [_coarse_case(c, 4, torch.float64, dev) for c in ("k6_full", "k7", "k6_refined")]
+    for _ in range(2):
+        for co, r, _ in cases:
+            rc, proj = coarse.restrict_plain(co, r)
+            zc, coef = coarse.solve(co, rc, proj)
+            zc_p, coef_p = coarse.solve_plain(co, rc, proj)
+            assert rel(zc, zc_p) < 1e-11 and (coef.numel() == 0 or rel(coef, coef_p) < 1e-11)
+
+
+def test_two_level_wrappers_refuse_operands_without_workspace():
+    """Coarse operands without their workspace (built by hand, not by
+    coarse.operands) raise on the card instead of allocating."""
+    dev = cuda_or_skip()
+    co, r, out0 = _coarse_case("k6_full", 4, torch.float64, dev)
+    rc, proj = coarse.restrict(co, r)
+    bare = co._replace(work=None)
+    n0 = dict(_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="workspace"):
+        coarse.solve(bare, rc, proj)
+    with pytest.raises(ValueError, match="workspace"):
+        coarse.restrict(bare, r)
+    with pytest.raises(ValueError, match="workspace"):
+        coarse.prolong_add(bare, out0, co.work.zc, co.work.coef)
+    assert _cuda.LAUNCHES == n0
 
 
 @pytest.mark.parametrize("host", [False, True])

@@ -103,6 +103,27 @@ def test_relayouts_match_jax(setup, n_shards):
     assert np.array_equal(P.from_pair_host(pmh, to_np(xp_t)), np.asarray(back_j))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [2, 3])
+def test_to_pair_of_a_list_is_the_stack(setup, k, dtype):
+    """to_pair of k same-shaped vectors (as the solver hands them: the KNP
+    solve's 2 of (m, nd, nc), the EMI solve's 3 of (nd, nc)) equals to_pair
+    of their stack and the JAX to_pair of the stack exactly; out= receives
+    the result."""
+    pmj, pmt, pmh, nc = setup[1]
+    rng = np.random.default_rng(5 + k)
+    lead = (2,) if k == 2 else ()
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    xs = [rng.standard_normal(lead + (setup["nd"], nc)).astype(np_dtype) for _ in range(k)]
+    tx = [torch.as_tensor(x) for x in xs]
+    got = P.to_pair(pmt, tx)
+    assert got.dtype == dtype and got.shape == (k,) + lead + (2 * setup["nd"], nc // 2)
+    assert torch.equal(got, P.to_pair(pmt, torch.stack(tx)))
+    assert np.array_equal(to_np(got), np.asarray(jP.to_pair(pmj, jnp.asarray(np.stack(xs)))))
+    out = torch.full_like(got, float("nan"))
+    assert P.to_pair(pmt, tuple(tx), out=out) is out and torch.equal(out, got)
+
+
 def test_index_map_form_is_not_ported(geoms):
     _, _, gt = geoms
     pm = P.pair_maps_to_device(P.build_pair_maps(gt), "cpu")

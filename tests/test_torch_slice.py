@@ -165,10 +165,11 @@ PAIR_WRAPPERS = {"pair_matvec", "pair_matvec_multi", "to_pair", "from_pair",
 
 
 def _tensors(a):
-    """The tensors in an argument, through tuples (the coarse operands)."""
+    """The tensors in an argument, through tuples (the coarse operands and
+    their workspace) and lists (to_pair's sources)."""
     if isinstance(a, torch.Tensor):
         yield a
-    elif isinstance(a, tuple):
+    elif isinstance(a, (tuple, list)):
         for b in a:
             yield from _tensors(b)
 

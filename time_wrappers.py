@@ -1,0 +1,279 @@
+#!/usr/bin/env python3
+"""Time the redesigned kernel wrappers as the solver calls them, in float32
+and float64, beside the library calls chip_smoke.py holds them to:
+
+  k8   K8's reduction entries pcg_dot and pcg_dot2, on one work built once
+       per solve, at the EMI vector shapes (cell (4, 124416), pair
+       (8, 63558)), beside torch.dot and torch.mv on the stacked pair;
+  k6   the coarse solve of K6 (m = 1, with As and the compartment, moment
+       and Ritz groups) and K7 (m = 2, no As, no groups) at the coarse sizes
+       of the cell (1,944 chunks of 64 cells) and pair (1,987 chunks of 32
+       pairs) layouts, on restrict's outputs, beside dense_gemvs (cuBLAS:
+       torch.mv per product, one batched torch.matmul for m systems);
+  k4   to_pair of the EMI solve's 3 vectors (4, 127116) and the KNP solve's
+       2 (2, 4, 127116), beside one torch.mul into a preallocated buffer.
+
+The data is random (seeded) at those shapes: only times are read.  The
+package is imported from ``--root`` (default: this file's directory), so
+the same measurement reads another tree, such as an unpacked parent
+commit, in the same call: run it for parent, change, change, parent.  Each
+entry is called as that tree's solver calls it: a tree whose krylov_ops
+has no ``pcg_work`` gets a work built by hand, a tree whose coarse
+operands carry no workspace gets fresh outputs from its restrict, and a
+tree whose to_pair takes no list gets the torch.stack its solver makes.
+
+Per entry it prints the median of 20 CUDA-event timings of one call
+(``ms``, the yardstick of chip_smoke.py), the host microseconds per call
+to enqueue 200 calls (``host_us``: the wrapper alone), the microseconds
+per call of a loop of 1,000 calls closed by one synchronise (``loop_us``:
+the larger of host and device time), and the
+device microseconds per call of 100 calls replayed as one CUDA graph
+(``graph_us``: the kernels and the gaps between them, no host; "not
+measured" where the call cannot be captured).  It also prints the cost of
+reading the current stream both ways.
+
+Usage:  python3 time_wrappers.py [--root DIR] [--only k8,k6,k4]   (needs a CUDA card)
+"""
+import argparse
+import inspect
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+from chip_smoke import dense_gemvs
+
+SHAPES = {"cell": (4, 124416), "pair": (8, 63558)}
+# coarse sizes: (cells of the layout's r, dofs, chunk size, compartment,
+# moment and Ritz fields) as chip_smoke.py's pcs give them
+COARSE = {"cell": (124416, 4, 64, 5, 45, 24), "pair": (63558, 8, 32, 5, 45, 0)}
+NPAIR, ND, IONS = 63558, 4, 2
+LOOP = 1000
+
+
+def cuda_ms(fn, reps=20):
+    """Median milliseconds of one fn() by CUDA events, warmed up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def loop_us(fn, calls=LOOP):
+    """Host microseconds per call of ``calls`` back-to-back calls closed by
+    one synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / calls
+
+
+def graph_us(fn, calls=100, replays=5):
+    """Device microseconds per call with the host out of the way: ``calls``
+    calls captured in one CUDA graph, its replay timed by CUDA events
+    (median of ``replays``); None where the call cannot be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+    except RuntimeError as exc:
+        print(f"time    not captured: {exc}".splitlines()[0])
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return 1e3 * statistics.median(times) / calls
+
+
+def stream_lookup_us(calls=100000):
+    """Microseconds per read of the current stream's handle: through a
+    stream object, and as the raw handle."""
+    out = {}
+    reads = {"current_stream().cuda_stream": lambda: torch.cuda.current_stream().cuda_stream}
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        reads["_cuda_getCurrentRawStream"] = lambda: raw(torch._C._cuda_getDevice())
+    for name, fn in reads.items():
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[name] = 1e6 * (time.perf_counter() - t0) / calls
+    if raw is not None:
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            same = raw(torch._C._cuda_getDevice()) == s.cuda_stream
+        out["raw handle follows torch.cuda.stream"] = same
+    return out
+
+
+def host_us(fn, calls=200):
+    """Host microseconds per call to enqueue ``calls`` calls, the device
+    idle before them; fewer calls than the launch queue holds, so the host
+    does not wait for the device."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
+
+
+def report(tag, name, fn):
+    g = graph_us(fn)
+    print(f"{tag}  {name:44s} ms {cuda_ms(fn):.4f}  host_us {host_us(fn):.2f}  "
+          f"loop_us {loop_us(fn):.2f}  graph_us " + ("not measured" if g is None else f"{g:.2f}"))
+
+
+def time_dots(ko, dev, gen):
+    factory = hasattr(ko, "pcg_work")
+    print(f"k8time  pcg_work {factory}")
+    for layout, shape in SHAPES.items():
+        for dtype in (torch.float32, torch.float64):
+            r, z, p, Ap = (torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+                           for _ in range(4))
+            n = r.numel()
+            wsum = torch.tensor(float(n), dtype=dtype, device=dev)
+            zero = torch.zeros_like(wsum)
+            sc = torch.stack([(r * z).sum(), (z * z).sum(), zero, zero, zero, wsum])
+            flag = torch.zeros(1, dtype=torch.int32, device=dev)
+            wk = (ko.pcg_work(sc, flag, None, 1, n) if factory
+                  else ko.PcgWork(sc=sc, flag=flag, w=None, mode=1))
+            stack = torch.stack([r.view(-1), z.view(-1)])
+            calls = {"pcg_dot": lambda: ko.pcg_dot(p, Ap, wk),
+                     "pcg_dot2": lambda: ko.pcg_dot2(r, z, wk),
+                     "torch.dot": lambda: torch.dot(p.view(-1), Ap.view(-1)),
+                     "torch.mv": lambda: torch.mv(stack, z.view(-1))}
+            for name, fn in calls.items():
+                report("k8time", f"{layout} {str(dtype):14s} {name}", fn)
+
+
+def coarse_data(layout, batched, dtype, dev, gen):
+    """Random two-level data of the layout's shapes: K6 with As and its
+    deflation groups, K7 for two ions without either."""
+    nc, nd, agg, n_comp, nw, nr = COARSE[layout]
+    n, m = -(-nc // agg), IONS if batched else 1
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    lead = (m,) if batched else ()
+    d = {"inv": rnd(*lead, n, n) / n, "s": 1.0 + rnd(*lead, n).abs()}
+    if not batched:
+        d["As"] = rnd(n, n) / n
+        for key, k in (("comp", n_comp), ("mom", nw), ("ritz", nr)):
+            if k:
+                d[f"{key}_inv"], d[f"{key}_s"] = rnd(k, k) / k, 1.0 + rnd(k).abs()
+        d["comp_As"] = rnd(n_comp, n_comp) / n_comp
+        d["comp_onehot"] = (torch.arange(nc, device=dev) * n_comp // nc == torch.arange(
+            n_comp, device=dev)[:, None]).to(dtype)
+        d["mom_W"] = rnd(nw, nd, nc)
+        if nr:
+            d["ritz_W"] = rnd(nr, nd, nc)
+    return d, agg, rnd(m, nd, nc)
+
+
+def time_coarse(coarse, dev, gen):
+    for layout in COARSE:
+        for batched in (False, True):
+            for dtype in (torch.float32, torch.float64):
+                d, agg, r = coarse_data(layout, batched, dtype, dev, gen)
+                co = coarse.operands(d, agg, batched)
+                rc, proj = coarse.restrict(co, r)
+                x = co.s * rc
+                kind = "K7" if batched else "K6"
+                report("k6time", f"{layout} {kind} {str(dtype):14s} solve",
+                       lambda: coarse.solve(co, rc, proj))
+                report("k6time", f"{layout} {kind} {str(dtype):14s} dense_gemvs",
+                       lambda: dense_gemvs(co, x))
+                del co, d, r, rc, proj, x
+                torch.cuda.empty_cache()
+
+
+def time_to_pair(pairs, dev, gen):
+    list_form = "out" in inspect.signature(pairs.to_pair).parameters
+    print(f"k4time  list form {list_form}")
+    pm = {"live1": torch.rand(NPAIR, generator=gen, device=dev) < 0.98}
+    for dtype in (torch.float32, torch.float64):
+        vecs = [torch.randn((ND, 2 * NPAIR), generator=gen, device=dev, dtype=dtype)
+                for _ in range(3)]
+        vecsK = [torch.randn((IONS, ND, 2 * NPAIR), generator=gen, device=dev, dtype=dtype)
+                 for _ in range(2)]
+        stack, stackK = torch.stack(vecs), torch.stack(vecsK)
+        mask = torch.cat([torch.ones(ND, NPAIR, dtype=dtype, device=dev),
+                          pm["live1"].to(dtype).expand(ND, NPAIR)]).reshape(2, ND, NPAIR)
+        bufs = [torch.empty(t.shape[:-2] + (2 * ND, NPAIR), dtype=dtype, device=dev)
+                for t in (stack, stackK)]
+        if list_form:
+            solver = lambda: [pairs.to_pair(pm, vecs), pairs.to_pair(pm, vecsK)]
+        else:
+            solver = lambda: [pairs.to_pair(pm, torch.stack(vecs)),
+                              pairs.to_pair(pm, torch.stack(vecsK))]
+        calls = {"to_pair (as the solver)": solver,
+                 "torch.mul out= (stacked)": lambda: [
+                     torch.mul(torch.movedim(t.reshape(-1, ND, NPAIR, 2), -1, 1), mask,
+                               out=b.view(-1, 2, ND, NPAIR))
+                     for t, b in zip((stack, stackK), bufs)]}
+        if list_form:
+            calls["to_pair out="] = lambda: [pairs.to_pair(pm, vecs, out=bufs[0]),
+                                             pairs.to_pair(pm, vecsK, out=bufs[1])]
+        for name, fn in calls.items():
+            report("k4time", f"{str(dtype):14s} {name}", fn)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--only", default="k8,k6,k4", help="sections to run, comma-separated")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("time_wrappers.py needs a CUDA card")
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    from knpemidg_tpu_torch import _cuda
+    from knpemidg_tpu_torch.ops import coarse, krylov_ops as ko, pairs
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"time    root {root}  package {os.path.dirname(ko.__file__)}")
+    print(f"time    gpu {card}  torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"time    build {_cuda.build():.2f} s")
+    for name, v in stream_lookup_us().items():
+        print(f"time    stream {name}: {v if isinstance(v, bool) else f'{v:.3f} us'}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2025)
+    sections = {"k8": lambda: time_dots(ko, dev, gen), "k6": lambda: time_coarse(coarse, dev, gen),
+                "k4": lambda: time_to_pair(pairs, dev, gen)}
+    for key in args.only.split(","):
+        sections[key]()
+
+
+if __name__ == "__main__":
+    main()
