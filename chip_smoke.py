@@ -92,8 +92,8 @@ ASSEMBLY_EXACT = ("emi_emit_cell", "knp_emit_cell")
 # The Krylov kernels (K8, K9) are held to 1e-5 / 1e-12 of each value's sum
 # of |terms| (the Givens scalars: of the largest value of each output), the
 # Rush-Larsen step as the RK4 one, the gather probes exactly.
-KRYLOV = {"pcg_dot": ":101", "pcg_update": ":105", "pcg_dot2": ":108",
-          "pcg_direction": ":110", "gmres_start": ":319", "gmres_cgs_dot": ":385",
+KRYLOV = {"pcg_dot": ":101", "pcg_update": ":105", "pcg_dot2_direction": ":108",
+          "gmres_start": ":319", "gmres_cgs_dot": ":385",
           "gmres_cgs_update": ":386", "gmres_next": ":392", "gmres_givens": ":403",
           "gmres_solve_update": ":445"}
 KRYLOV_TOL = {torch.float32: {k + p: 1e-5 for k in KRYLOV for p in ("", "_pair")},
@@ -601,13 +601,30 @@ def pair_kernel_phase(S, state, results):
                                 pairs.to_pair(pm, vecsK, out=bufs[1])], plain_to_pair))
         compare("to_pair", dtype, lambda: [pairs.to_pair(pm, stack), pairs.to_pair(pm, stackK)],
                 plain_to_pair, exact, results, record=False)
-        xp, xpK = pairs.to_pair(pm, stack[1]), pairs.to_pair(pm, stackK[1])
+        # back as the solver converts: the EMI solution with the guess added in
+        # pair form, the KNP one added to c in cell form
+        xp, guess = pairs.to_pair(pm, stack[1]), pairs.to_pair(pm, stack[2])
+        xpK, cK = pairs.to_pair(pm, stackK[1]), vecsK[1]
+        cells = lambda v: torch.movedim(v.reshape(*v.shape[:-2], 2, S.nd, npair), -3, -1)
+        obufs = [torch.empty_like(stack[1]), torch.empty_like(cK)]
+
+        def lib_from_pair():
+            return [torch.add(cells(xp), cells(guess), out=obufs[0].view(S.nd, npair, 2)),
+                    torch.add(cK.view(-1, S.nd, npair, 2), cells(xpK),
+                              out=obufs[1].view(-1, S.nd, npair, 2))]
+
+        plain_from_pair = lambda: [pairs.from_pair_plain(pm, xp, add=guess),
+                                   pairs.from_pair_plain(pm, xpK, base=cK)]
         compare("from_pair", dtype,
-                lambda: [pairs.from_pair(pm, xp), pairs.from_pair(pm, xpK)],
+                lambda: [pairs.from_pair(pm, xp, add=guess), pairs.from_pair(pm, xpK, base=cK)],
+                plain_from_pair, exact, results, inputs=[xp, guess, xpK, cK],
+                flops=xp.numel() + xpK.numel(), library_fn=lib_from_pair,
+                timed=(lambda: [pairs.from_pair(pm, xp, add=guess, out=obufs[0]),
+                                pairs.from_pair(pm, xpK, base=cK, out=obufs[1])],
+                       plain_from_pair))
+        compare("from_pair", dtype, lambda: [pairs.from_pair(pm, xp), pairs.from_pair(pm, xpK)],
                 lambda: [pairs.from_pair_plain(pm, xp), pairs.from_pair_plain(pm, xpK)],
-                exact, results, inputs=[xp, xpK],
-                library_fn=lambda: [torch.movedim(v.reshape(*v.shape[:-2], 2, S.nd, npair),
-                                                  -3, -1).contiguous() for v in (xp, xpK)])
+                exact, results, record=False)
 
         D, E = pd.to(dtype), pe.to(dtype)
         DK, EK = pdK.to(dtype), peK.to(dtype)
@@ -807,70 +824,80 @@ def krylov_phase(S, results, layout):
         rzn = (r * z).sum()
         stack = torch.stack([r.view(-1), z.view(-1)])
 
-        def dot2_out(fn):
-            a = fn(r, z, work())
-            return [a.sc[:4], a.flag]
+        def dot2dir_out(fn):
+            a, pp = work(), p_.clone()
+            fn(r, z, pp, a)
+            return [a.sc[:4], a.flag, pp]
 
-        # rz', zz, alpha (untouched), beta = rz' / rz against their sums of |terms|
-        dot2_scale = torch.stack([rz_abs, (z * z).sum(), torch.zeros_like(rz_abs),
-                                  (rzn / sc0[ko.RZ]).abs() * rz_abs / rzn.abs()])
-        compare(name("pcg_dot2"), dtype, lambda: dot2_out(ko.pcg_dot2),
-                lambda: dot2_out(ko.pcg_dot2_plain),
-                lambda ref: [dot2_scale, torch.ones_like(ref[1])],
-                results, inputs=[r, z], flops=4.0 * r.numel(),
-                library_fn=lambda: torch.mv(stack, z.view(-1)),
-                timed=(lambda: ko.pcg_dot2(r, z, wd[0]),
-                       lambda: ko.pcg_dot2_plain(r, z, wd[1])))
-        for entry, fn, vecs in (("pcg_dot", ko.pcg_dot, (p_, Ap)),
-                                ("pcg_dot2", ko.pcg_dot2, (r, z, z, z))):
-            dots_exact(name(entry), dtype, ko, fn, vecs, sc0, work())
-        pd2 = ko.pcg_dot2_plain(r, z, work())
+        # rz', zz, alpha (untouched), beta = rz' / rz against their sums of
+        # |terms|; p = z + beta p against |z| + (|beta| + beta's scale) |p|
+        beta_scale = rz_abs / sc0[ko.RZ].abs()
+        dot2_scale = torch.stack([rz_abs, (z * z).sum(), torch.zeros_like(rz_abs), beta_scale])
         pb = [p_.clone(), p_.clone()]
-        compare(name("pcg_direction"), dtype,
-                lambda: [ko.pcg_direction(p_.clone(), z, pd2)],
-                lambda: [ko.pcg_direction_plain(p_.clone(), z, pd2)],
-                lambda ref: [z.abs() + pd2.sc[ko.BETA].abs() * p_.abs()], results,
-                inputs=[p_, z], flops=2.0 * p_.numel(),
-                library_fn=lambda: torch.addcmul(z, pd2.sc[ko.BETA], p_),
-                timed=(lambda: ko.pcg_direction(pb[0], z, pd2),
-                       lambda: ko.pcg_direction_plain(pb[1], z, pd2)))
+        lbuf, beta_lib = torch.empty_like(p_), rzn / sc0[ko.RZ]
+        compare(name("pcg_dot2_direction"), dtype, lambda: dot2dir_out(ko.pcg_dot2_direction),
+                lambda: dot2dir_out(ko.pcg_dot2_direction_plain),
+                lambda ref: [dot2_scale, torch.ones_like(ref[1]),
+                             z.abs() + (ref[0][ko.BETA].abs() + beta_scale) * p_.abs()],
+                results, inputs=[r, z, p_], flops=6.0 * r.numel(),
+                library_fn=lambda: (torch.mv(stack, z.view(-1)),
+                                    torch.addcmul(z, beta_lib, p_, out=lbuf)),
+                timed=(lambda: ko.pcg_dot2_direction(r, z, pb[0], wd[0]),
+                       lambda: ko.pcg_dot2_direction_plain(r, z, pb[1], wd[1])))
+        for entry, fn, vecs in (("pcg_dot", ko.pcg_dot, (p_, Ap)),
+                                ("pcg_dot2_direction", ko.pcg_dot2_direction, (r, z, p_))):
+            dots_exact(name(entry), dtype, ko, fn, vecs, sc0, work())
 
 
 def dots_exact(name, dtype, ko, fn, vecs, sc0, wk, calls=1000):
-    """A K8 dot entry against pcg_dots_ordered_plain (the kernels'
+    """A K8 reduction entry against pcg_dots_ordered_plain (the kernels'
     summation order) to the last bit of the scalars and the flag it
-    writes, then ``calls`` back-to-back calls on one work: each writes the
-    same bits (the written slots are NaN and the flag -1 before every
-    call) and the ticket is 0 after them."""
-    sums = ko.pcg_dots_ordered_plain(*vecs)
+    writes -- pcg_dot on (p, Ap); pcg_dot2_direction on (r, z, p), and then
+    also of p = z + beta p with that beta -- then ``calls`` back-to-back
+    calls on one work: each writes the same bits (the written slots are NaN
+    and the flag -1 before every call, p is reset), and the ticket is 0
+    after them."""
+    fused = len(vecs) == 3
+    sums = ko.pcg_dots_ordered_plain(*(vecs[:2] + vecs[1:2] * 2 if fused else vecs))
     sc_in = sc0.clone()
     sc_in[[ko.ZZ, ko.ALPHA, ko.BETA]] = float("nan")
     flag_in = torch.full((1,), -1, dtype=torch.int32, device=sc0.device)
     want, want_flag = sc_in.clone(), flag_in.clone()
-    if len(vecs) == 2:
-        want[ko.ALPHA] = want[ko.RZ] / sums[0]
-    else:
+    if fused:
         want[ko.BETA] = sums[0] / want[ko.RZ]
         want[ko.RZ] = sums[0]
         want[ko.ZZ] = sums[1]
         want_flag.fill_(int(bool(sums[1] > want[ko.TOL2])))
+    else:
+        want[ko.ALPHA] = want[ko.RZ] / sums[0]
+    bits = lambda t: t.view(torch.int64 if dtype == torch.float64 else torch.int32)
     got = torch.empty((calls, 6), dtype=dtype, device=sc0.device)
     got_flag = torch.empty((calls, 1), dtype=torch.int32, device=sc0.device)
+    p = vecs[2].clone() if fused else None
+    want_p = vecs[1] + want[ko.BETA] * vecs[2] if fused else None
+    p_diff = torch.zeros(calls, dtype=torch.int64, device=sc0.device)
     for i in range(calls):
         wk.sc.copy_(sc_in)
         wk.flag.copy_(flag_in)
-        fn(*vecs[:2], wk)
+        if fused:
+            p.copy_(vecs[2])
+            fn(vecs[0], vecs[1], p, wk)
+            p_diff[i] = (bits(p) != bits(want_p)).sum()
+        else:
+            fn(*vecs, wk)
         got[i].copy_(wk.sc)
         got_flag[i].copy_(wk.flag)
     torch.cuda.synchronize()
-    bits = lambda t: t.view(torch.int64 if dtype == torch.float64 else torch.int32)
     first = torch.equal(bits(got[0, :4]), bits(want[:4])) and torch.equal(got_flag[0], want_flag)
     repeat = (torch.equal(bits(got), bits(got[:1]).expand_as(bits(got)))
               and torch.equal(got_flag, got_flag[:1].expand_as(got_flag)))
+    p_ok = int(p_diff.max()) == 0
     ticket = wk.ticket.tolist()
     print(f"exact   {name:30s} {str(dtype):14s} sc[:4] and flag bitwise equal to the ordered "
-          f"sums: {first}; {calls} calls repeat: {repeat}; ticket after them {ticket}")
-    if not (first and repeat and ticket == [0]):
+          f"sums: {first}; {calls} calls repeat: {repeat}; "
+          + (f"p = z + beta p to the last bit in every call: {p_ok}; " if fused else "")
+          + f"ticket after them {ticket}")
+    if not (first and repeat and p_ok and ticket == [0]):
         raise AssertionError(f"{name} differs from the ordered sums or does not repeat")
 
 
@@ -1120,9 +1147,10 @@ def small_reference_phase(layout):
 def window(S, sp, layout):
     """The protocol through the user entry point with the launch counters
     reset; asserts convergence (solve_system_active raises otherwise),
-    finite fields, the step count, every kernel of the path launched and
-    the AUTO Ritz rule (24 fields in the cell pc, none in the pair pc).
-    Returns (launches, median ms/step, median ODE ms)."""
+    finite fields, the step count, every kernel of the path launched, one
+    pcg_dot2_direction launch per EMI iteration and (pairs) one from_pair
+    per solve, and the AUTO Ritz rule (24 fields in the cell pc, none in
+    the pair pc).  Returns (launches, median ms/step, median ODE ms)."""
     state, launches = run_checked(S, sp, layout)
     med, ode = report_window(S, MAIN_DTYPE, layout)
     emi_ref, knp_ref = WINDOW_REF[layout]
@@ -1130,6 +1158,14 @@ def window(S, sp, layout):
     print(f"{layout:7s} float64 counts as the parent tree's: EMI "
           f"{S.stats.emi_niters == emi_ref}"
           + ("" if knp_ref is None else f", KNP total {knp_total} (parent {knp_ref})"))
+    # one fused K8 launch per PCG iteration, one from_pair (carrying its
+    # add) per solve on pairs
+    per_iter = launches["pcg_dot2_direction"] == launches["pcg_dot"] == sum(S.stats.emi_niters)
+    per_solve = layout != "pair" or launches["from_pair"] == 2 * len(S.stats.emi_niters)
+    print(f"{layout:7s} pcg_dot2_direction once per EMI iteration: {per_iter}"
+          + (f"; from_pair once per solve: {per_solve}" if layout == "pair" else ""))
+    if not (per_iter and per_solve):
+        raise AssertionError(f"the {layout} window's K8 / K4 launches do not match its solves")
     n_ritz = ritz_fields(state)
     print(f"{layout:7s} Ritz fields in the pc: {n_ritz}")
     if n_ritz != (24 if layout == "cell" else 0):

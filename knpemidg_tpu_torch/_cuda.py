@@ -56,7 +56,7 @@ LAUNCHES = {"bell_matvec": 0, "block_jacobi_inverse": 0,
             "knp_cell": 0, "knp_facet": 0, "knp_membrane_rhs": 0,
             "knp_emit_cell": 0, "membrane_trace": 0,
             "eliminated_concentration": 0,
-            **{f"pcg_{e}": 0 for e in ("dot", "update", "dot2", "direction")},
+            **{f"pcg_{e}": 0 for e in ("dot", "update", "dot2_direction")},
             **{f"gmres_{e}": 0 for e in ("start", "cgs_dot", "cgs_update", "next",
                                          "givens", "solve_update")},
             "pgather": 0, "pgather2": 0}
@@ -72,7 +72,7 @@ _SIGNATURES = {
     "knp_membrane_rk4": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _P),
     "knp_pair_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "knp_to_pair": (_P,) * 6 + (_I,) * 4 + (_P,),
-    "knp_from_pair": (_P, _P, _I, _I, _I, _P),
+    "knp_from_pair": (_P,) * 4 + (_I,) * 3 + (_P,),
     "knp_gather_blocks_pair": (_P,) * 18 + (_I,) * 6 + (_D, _P),
     "knp_tl_restrict": (_P,) * 7 + (_I,) * 9 + (_P,),
     "knp_tl_solve_prepare": (_P,),
@@ -97,8 +97,8 @@ _SIGNATURES = {
     "knp_gmres_solve_update": (_P,) * 6 + (_I,) * 3 + (_P,),
     "knp_pcg_dot": (_P,) * 5 + (_I,) * 2 + (_P,),
     "knp_pcg_update": (_P,) * 7 + (_I,) * 3 + (_P,),
-    "knp_pcg_dot2": (_P,) * 6 + (_I,) * 2 + (_P,),
-    "knp_pcg_direction": (_P,) * 3 + (_I,) + (_P,),
+    "knp_pcg_dot2_direction_grid": (_I, _I, _P),
+    "knp_pcg_dot2_direction": (_P,) * 6 + (_I,) * 2 + (_P,),
     "knp_pgather": (_P,) * 3 + (_I,) + (_P,),
     "knp_pgather2": (_P,) * 3 + (_I,) * 2 + (_P,),
 }

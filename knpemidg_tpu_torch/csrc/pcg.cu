@@ -7,63 +7,51 @@
 // and the direction update around the matvec and the preconditioner apply.
 // The scalars live in sc = [rz, zz, alpha, beta, tol^2, wsum]:
 //
-//   dot        alpha = rz / (p . Ap)
-//   update     x += alpha p, r -= alpha Ap, then (mode 1) v -= sum(v) / wsum
-//              or (mode 2) v = (v - sum(w v) / wsum) w for v = x, r
-//              (wsum = the entry count in mode 1, sum of the mask in mode 2)
-//   dot2       rz' = r . z, zz = z . z, beta = rz' / rz, rz = rz', and the
-//              flag zz > tol^2 (the while-loop test the host reads)
-//   direction  p = z + beta p
+//   dot             alpha = rz / (p . Ap)
+//   update          x += alpha p, r -= alpha Ap, then (mode 1) v -= sum(v) / wsum
+//                   or (mode 2) v = (v - sum(w v) / wsum) w for v = x, r
+//                   (wsum = the entry count in mode 1, sum of the mask in mode 2)
+//   dot2_direction  rz' = r . z, zz = z . z, beta = rz' / rz, rz = rz', the
+//                   flag zz > tol^2 (the while-loop test the host reads),
+//                   then p = z + beta p
 //
 // Bound: device-memory bandwidth (a few flops per 8 bytes).  Every sum is
-// per-block partials over fixed chunks, block trees, then the chunks in
-// index order: no floating-point atomics, so results and iteration counts
-// repeat from call to call.  The two dot entries are one launch each: the
-// block that finishes last (an int32 ticket, the only atomic) sums the
-// partials and writes the scalars, so the finish pass costs no second launch
-// and no dependency gap.  The projection is a second kernel in
-// which every block sums the update's partials itself (the same sum in the
-// same order in every block) and projects its own chunk.  The source
-// compiles with -fmad=false, so the updates round as the plain versions do.
+// per-block partials over fixed chunks of PCG_CHUNK entries, block trees,
+// then the chunks in index order: no floating-point atomics, so results and
+// iteration counts repeat from call to call.  The dot entry is one launch:
+// the block that finishes last (an int32 ticket, the only atomic) sums the
+// partials and writes alpha, so the finish pass costs no second launch and
+// no dependency gap.  dot2_direction is one cooperative launch: the blocks
+// write their partials, meet at a grid barrier, each sums all partials
+// itself (the same sum in the same order in every block, so beta is the same
+// bits everywhere) and updates the direction over its own chunks, with the
+// z and p of its first chunk still in registers.  The projection is a
+// second kernel in which every block sums the update's partials the same
+// way and projects its own chunk.  The source compiles with -fmad=false, so
+// the updates round as the plain versions do.
+#include <cooperative_groups.h>
 #include <cuda/atomic>
 
 #include "common.cuh"
 
 enum { PCG_RZ = 0, PCG_ZZ, PCG_ALPHA, PCG_BETA, PCG_TOL2, PCG_WSUM };
 
-// entries a thread of the dot kernel sums (RED_CHUNK = 2048 of
-// ops/krylov_ops.py is PCG_PER x KNP_THREADS)
+// entries a thread of the dot kernels sums; a chunk is one block's share
+// (RED_CHUNK = 2048 of ops/krylov_ops.py)
 #define PCG_PER 8
+#define PCG_CHUNK (PCG_PER * KNP_THREADS)
 
-// NV = 1: alpha = rz / (a . b).  NV = 2: rz' = a . b, zz = b . b,
-// beta = rz' / rz, rz = rz', *flag = zz > tol^2.
-//
-// Block q sums chunk q into partial[q NV + v]: thread t adds its entries
-// lo + t + 256 k, k = 0..7, in order, then the block tree.  All of a
+// The block sums of a . b (and, NV = 2, b . b) over the chunk whose first
+// entry is lo - threadIdx.x: thread t adds its entries lo + 256 k, k = 0..7,
+// in order, then the block tree; every thread gets the sums.  All of a
 // thread's loads are issued before its first add (the adds keep their
-// order, so the sum is the same; the loads' latency is paid once, not
-// eight times).  Thread 0 then publishes the partials with a release
-// ticket (an int32 atomic, the only one); the block that draws nblk - 1
-// has acquired every partial, sums them in index order (thread t takes
-// partials t + 256 k, then the block tree), writes the scalars and resets
-// the ticket for the next launch on the stream.  Both sums are in the order
-// of a partial pass followed by a one-block finish pass.
+// order, so the sum is the same; the loads' latency is paid once, not eight
+// times).  vb keeps the thread's entries of b (zero beyond n).
 template <typename T, int NV>
-__global__ void __launch_bounds__(KNP_THREADS)
-    pcg_dot_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ partial,
-                   int* __restrict__ ticket, T* __restrict__ sc, int* __restrict__ flag,
-                   long long n) {
-  __shared__ T red[KNP_WARPS];
-  __shared__ bool last;
-  const int nblk = gridDim.x;
-  // the scalars the finishing block reads, loaded while the chunk streams in
-  T rz = T(0), tol2 = T(0);
-  if (threadIdx.x == 0) {
-    rz = sc[PCG_RZ];
-    if (NV == 2) tol2 = sc[PCG_TOL2];
-  }
-  const long long lo = (long long)blockIdx.x * (PCG_PER * KNP_THREADS) + threadIdx.x;
-  T va[PCG_PER], vb[PCG_PER];
+__device__ __forceinline__ void pcg_chunk_sums(const T* __restrict__ a, const T* __restrict__ b,
+                                               long long lo, long long n, T (&vb)[PCG_PER],
+                                               T* red, T& s0, T& s1) {
+  T va[PCG_PER];
 #pragma unroll
   for (int k = 0; k < PCG_PER; ++k) {
     const long long i = lo + (long long)k * KNP_THREADS;
@@ -78,36 +66,116 @@ __global__ void __launch_bounds__(KNP_THREADS)
       if (NV == 2) acc1 += vb[k] * vb[k];
     }
   }
-  acc0 = knp_block_sum(acc0, red);
-  if (NV == 2) acc1 = knp_block_sum(acc1, red);
+  s0 = knp_block_sum(acc0, red);
+  if (NV == 2) s1 = knp_block_sum(acc1, red);
+}
+
+// The sums of the nchunk partials part[q NV + v] in index order, as one
+// block forms them: thread t takes partials t + 256 k, then the block tree.
+// volatile: read where the other blocks wrote (no L1 copy), and not moved
+// above the barrier that made them visible.
+template <typename T, int NV>
+__device__ __forceinline__ void pcg_finish_sums(const volatile T* part, int nchunk, T* red,
+                                                T& s0, T& s1) {
+  T a0 = T(0), a1 = T(0);
+  for (int q = threadIdx.x; q < nchunk; q += blockDim.x) {
+    a0 += part[(long long)q * NV];
+    if (NV == 2) a1 += part[(long long)q * NV + 1];
+  }
+  s0 = knp_block_sum(a0, red);
+  if (NV == 2) s1 = knp_block_sum(a1, red);
+}
+
+// alpha = rz / (p . Ap).  Block q sums chunk q into partial[q]; thread 0
+// publishes it with a release ticket (an int32 atomic, the only one); the
+// block that draws nblk - 1 has acquired every partial, sums them in index
+// order, writes alpha and resets the ticket for the next launch on the
+// stream.
+template <typename T>
+__global__ void __launch_bounds__(KNP_THREADS)
+    pcg_dot_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ partial,
+                   int* __restrict__ ticket, T* __restrict__ sc, long long n) {
+  __shared__ T red[KNP_WARPS];
+  __shared__ bool last;
+  const int nblk = gridDim.x;
+  // the scalar the finishing block reads, loaded while the chunk streams in
+  const T rz = threadIdx.x == 0 ? sc[PCG_RZ] : T(0);
+  T vb[PCG_PER], s0, s1;
+  pcg_chunk_sums<T, 1>(a, b, (long long)blockIdx.x * PCG_CHUNK + threadIdx.x, n, vb, red, s0,
+                       s1);
   if (threadIdx.x == 0) {
-    partial[(long long)blockIdx.x * NV] = acc0;
-    if (NV == 2) partial[(long long)blockIdx.x * NV + 1] = acc1;
+    partial[blockIdx.x] = s0;
     cuda::atomic_ref<int, cuda::thread_scope_device> done(*ticket);
     last = done.fetch_add(1, cuda::memory_order_acq_rel) == nblk - 1;
   }
   __syncthreads();
   if (!last) return;
-  // volatile: read where the other blocks wrote (no L1 copy), and not
-  // moved above the barrier
-  const volatile T* part = partial;
-  T s0 = T(0), s1 = T(0);
-  for (int q = threadIdx.x; q < nblk; q += blockDim.x) {
-    s0 += part[(long long)q * NV];
-    if (NV == 2) s1 += part[(long long)q * NV + 1];
-  }
-  s0 = knp_block_sum(s0, red);
-  if (NV == 2) s1 = knp_block_sum(s1, red);
+  pcg_finish_sums<T, 1>(partial, nblk, red, s0, s1);
   if (threadIdx.x != 0) return;
-  if (NV == 1) {
-    sc[PCG_ALPHA] = rz / s0;
-  } else {
-    sc[PCG_BETA] = s0 / rz;
+  sc[PCG_ALPHA] = rz / s0;
+  *ticket = 0;
+}
+
+// rz' = r . z, zz = z . z, beta = rz' / rz, rz = rz', *flag = zz > tol^2,
+// then p = z + beta p; one cooperative launch of at most the co-resident
+// blocks, block b taking chunks b, b + gridDim.x, ...
+//   1. each chunk's block sums into partial[2q], partial[2q + 1], as the
+//      dot kernel forms them;
+//   2. grid barrier; every block sums the nchunk partials in index order
+//      (the dot kernel's finish) and forms beta; block 0 writes the scalars;
+//   3. each block updates p over its chunks, z and p of its first chunk
+//      from the registers they were loaded into before the barrier.
+// The old rz is read before the barrier, since block 0 overwrites it after.
+template <typename T>
+__global__ void __launch_bounds__(KNP_THREADS)
+    pcg_dot2_direction_kernel(const T* __restrict__ r, const T* __restrict__ z,
+                              T* __restrict__ p, T* partial, T* sc, int* __restrict__ flag,
+                              long long n, int nchunk) {
+  __shared__ T red[KNP_WARPS];
+  const T rz = sc[PCG_RZ];
+  const T tol2 = sc[PCG_TOL2];
+  const long long lo = (long long)blockIdx.x * PCG_CHUNK + threadIdx.x;
+  T vz[PCG_PER], vp[PCG_PER], s0, s1;
+#pragma unroll
+  for (int k = 0; k < PCG_PER; ++k) {
+    const long long i = lo + (long long)k * KNP_THREADS;
+    vp[k] = i < n ? p[i] : T(0);
+  }
+  pcg_chunk_sums<T, 2>(r, z, lo, n, vz, red, s0, s1);
+  if (threadIdx.x == 0) {
+    partial[2 * (long long)blockIdx.x] = s0;
+    partial[2 * (long long)blockIdx.x + 1] = s1;
+  }
+  for (int q = blockIdx.x + gridDim.x; q < nchunk; q += gridDim.x) {
+    T vb[PCG_PER];
+    pcg_chunk_sums<T, 2>(r, z, (long long)q * PCG_CHUNK + threadIdx.x, n, vb, red, s0, s1);
+    if (threadIdx.x == 0) {
+      partial[2 * (long long)q] = s0;
+      partial[2 * (long long)q + 1] = s1;
+    }
+  }
+  cooperative_groups::this_grid().sync();
+  pcg_finish_sums<T, 2>(partial, nchunk, red, s0, s1);
+  const T beta = s0 / rz;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    sc[PCG_BETA] = beta;
     sc[PCG_RZ] = s0;
     sc[PCG_ZZ] = s1;
     *flag = s1 > tol2;
   }
-  *ticket = 0;
+#pragma unroll
+  for (int k = 0; k < PCG_PER; ++k) {
+    const long long i = lo + (long long)k * KNP_THREADS;
+    if (i < n) p[i] = vz[k] + beta * vp[k];
+  }
+  for (int q = blockIdx.x + gridDim.x; q < nchunk; q += gridDim.x) {
+    const long long lq = (long long)q * PCG_CHUNK + threadIdx.x;
+#pragma unroll
+    for (int k = 0; k < PCG_PER; ++k) {
+      const long long i = lq + (long long)k * KNP_THREADS;
+      if (i < n) p[i] = z[i] + beta * p[i];
+    }
+  }
 }
 
 // x += alpha p, r -= alpha Ap over chunk b, and (mode > 0) the partials of
@@ -172,26 +240,17 @@ __global__ void pcg_project_kernel(T* __restrict__ x, T* __restrict__ r, const T
   }
 }
 
-// p = z + beta p
-template <typename T>
-__global__ void pcg_direction_kernel(T* __restrict__ p, const T* __restrict__ z,
-                                     const T* __restrict__ sc, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  p[i] = z[i] + sc[PCG_BETA] * p[i];
-}
-
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
 // One launch of the dot kernel over n entries; the ticket must be 0
-template <typename T, int NV>
-static int pcg_dot_launch(const T* a, const T* b, T* partial, int* ticket, T* sc, int* flag,
-                          int n, int chunk, void* stream) {
-  if (chunk != PCG_PER * KNP_THREADS || n < 1) return (int)cudaErrorInvalidValue;
-  pcg_dot_kernel<T, NV><<<knp_chunks(n, chunk), KNP_THREADS, 0, (cudaStream_t)stream>>>(
-      a, b, partial, ticket, sc, flag, n);
+template <typename T>
+static int pcg_dot_launch(const T* a, const T* b, T* partial, int* ticket, T* sc, int n,
+                          int chunk, void* stream) {
+  if (chunk != PCG_CHUNK || n < 1) return (int)cudaErrorInvalidValue;
+  pcg_dot_kernel<T><<<knp_chunks(n, chunk), KNP_THREADS, 0, (cudaStream_t)stream>>>(
+      a, b, partial, ticket, sc, n);
   return (int)cudaGetLastError();
 }
 
@@ -210,29 +269,62 @@ static int pcg_update_launch(T* x, T* r, const T* p, const T* Ap, const T* sc, c
   return (int)cudaGetLastError();
 }
 
+// The grid of dot2_direction over n entries on the current device: the
+// chunks, at most the blocks a cooperative launch can hold resident
 template <typename T>
-static int pcg_direction_launch(T* p, const T* z, const T* sc, int n, void* stream) {
-  pcg_direction_kernel<T><<<knp_blocks(n), KNP_THREADS, 0, (cudaStream_t)stream>>>(p, z, sc, n);
-  return (int)cudaGetLastError();
+static int pcg_dot2_direction_grid(int n, int chunk, int* grid) {
+  if (chunk != PCG_CHUNK || n < 1) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pcg_dot2_direction_kernel<T>,
+                                                      KNP_THREADS, 0);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop || per_sm < 1) return (int)cudaErrorNotSupported;
+  const int nchunk = knp_chunks(n, chunk);
+  *grid = per_sm * sms < nchunk ? per_sm * sms : nchunk;
+  return 0;
+}
+
+// One cooperative launch of dot2_direction on ``grid`` blocks (from
+// pcg_dot2_direction_grid); a refused launch returns its error and leaves
+// none behind
+template <typename T>
+static int pcg_dot2_direction_launch(const T* r, const T* z, T* p, T* partial, T* sc, int* flag,
+                                     int n, int grid, void* stream) {
+  const int nchunk = knp_chunks(n, PCG_CHUNK);
+  if (n < 1 || grid < 1 || grid > nchunk) return (int)cudaErrorInvalidValue;
+  long long nn = n;
+  void* args[] = {(void*)&r, (void*)&z, (void*)&p, (void*)&partial,
+                  (void*)&sc, (void*)&flag, (void*)&nn, (void*)&nchunk};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)pcg_dot2_direction_kernel<T>, dim3(grid), dim3(KNP_THREADS), args, 0,
+      (cudaStream_t)stream);
+  // a refused launch also sets the runtime's last error: read it here, or
+  // the next launch of any kernel would report it
+  const cudaError_t last = cudaGetLastError();
+  return e != cudaSuccess ? (int)e : (int)last;
 }
 
 #define PCG_ENTRIES(T, SFX)                                                                  \
   extern "C" int knp_pcg_dot_##SFX(const T* p, const T* Ap, T* partial, int* ticket, T* sc, \
                                    int n, int chunk, void* stream) {                         \
-    return pcg_dot_launch<T, 1>(p, Ap, partial, ticket, sc, nullptr, n, chunk, stream);      \
+    return pcg_dot_launch<T>(p, Ap, partial, ticket, sc, n, chunk, stream);                  \
   }                                                                                          \
   extern "C" int knp_pcg_update_##SFX(T* x, T* r, const T* p, const T* Ap, const T* sc,     \
                                       const T* w, T* partial, int n, int chunk, int mode,    \
                                       void* stream) {                                        \
     return pcg_update_launch<T>(x, r, p, Ap, sc, w, partial, n, chunk, mode, stream);        \
   }                                                                                          \
-  extern "C" int knp_pcg_dot2_##SFX(const T* r, const T* z, T* partial, int* ticket, T* sc, \
-                                    int* flag, int n, int chunk, void* stream) {             \
-    return pcg_dot_launch<T, 2>(r, z, partial, ticket, sc, flag, n, chunk, stream);           \
+  extern "C" int knp_pcg_dot2_direction_grid_##SFX(int n, int chunk, int* grid) {           \
+    return pcg_dot2_direction_grid<T>(n, chunk, grid);                                       \
   }                                                                                          \
-  extern "C" int knp_pcg_direction_##SFX(T* p, const T* z, const T* sc, int n,              \
-                                         void* stream) {                                     \
-    return pcg_direction_launch<T>(p, z, sc, n, stream);                                     \
+  extern "C" int knp_pcg_dot2_direction_##SFX(const T* r, const T* z, T* p, T* partial,     \
+                                              T* sc, int* flag, int n, int grid,             \
+                                              void* stream) {                                \
+    return pcg_dot2_direction_launch<T>(r, z, p, partial, sc, flag, n, grid, stream);        \
   }
 
 PCG_ENTRIES(float, f32)

@@ -546,7 +546,10 @@ static int tl_solve_launch(const TlSolve<T>* p, const T* rc, const T* proj, void
   const cudaError_t e = cudaLaunchCooperativeKernel(
       (const void*)tl_solve_kernel<T>, dim3(prm.grid), dim3(KNP_THREADS), args,
       (size_t)prm.smem, (cudaStream_t)stream);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  // a refused launch also sets the runtime's last error: read it here, or
+  // the next launch of any kernel would report it
+  const cudaError_t last = cudaGetLastError();
+  return e != cudaSuccess ? (int)e : (int)last;
 }
 
 template <typename T>

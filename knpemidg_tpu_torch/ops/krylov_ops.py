@@ -12,9 +12,11 @@ tests hold the populated-rows kernels to the full-basis semantics.
 
 K8 keeps ``sc = [rz, zz, alpha, beta, tol^2, wsum]`` (:data:`RZ` ...) and
 an int32 flag (zz > tol^2) on the device; the host reads the flag once per
-iteration, as the JAX while-loop's test does on the device.  Its two dot
-entries are one launch each into the workspace :func:`pcg_work` allocates
-once per solve, so they allocate nothing and read nothing back.
+iteration, as the JAX while-loop's test does on the device.  Its entries
+work in the workspace :func:`pcg_work` allocates once per solve, so they
+allocate nothing and read nothing back; the second dot and the direction
+update are one cooperative launch (:func:`pcg_dot2_direction`) whose grid
+:func:`pcg_work` sizes once.
 
 Each wrapper runs its plain version for tensors on the CPU and launches its
 kernel for CUDA tensors; there is no fallback between the two.  Every sum
@@ -22,6 +24,7 @@ of the kernels is a fixed-order reduction (no floating-point atomics).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -296,14 +299,17 @@ class PcgWork(NamedTuple):
     flag: torch.Tensor             # (1,) int32: zz > tol^2
     w: "torch.Tensor | None"       # nullspace mask expanded to the vector shape (mode 2)
     mode: int                      # 0 no projection, 1 mean, 2 masked mean
-    partial: "torch.Tensor | None" = None   # (2 ceil(n / RED_CHUNK),) the dots' block sums
+    partial: "torch.Tensor | None" = None   # (2 ceil(n / RED_CHUNK),) the block sums
     ticket: "torch.Tensor | None" = None    # (1,) int32 blocks done, 0 between launches
+    grid: int = 0                  # blocks of the dot2_direction launch (on the card)
 
 
 def pcg_work(sc, flag, w, mode, n) -> PcgWork:
-    """The work of a solve on n-entry vectors, checked once, with the dot
-    kernels' partial sums (``torch.empty``) and their int32 ticket (zero)
-    on the device of ``sc``: the dot entries then allocate nothing."""
+    """The work of a solve on n-entry vectors, checked once, with the
+    kernels' partial sums (``torch.empty``) and the int32 ticket (zero) on
+    the device of ``sc``: the entries then allocate nothing.  On the card it
+    also sizes the dot2_direction grid: the chunks, at most the blocks that
+    can be resident together (a cooperative launch needs them all)."""
     if mode not in (0, 1, 2):
         raise ValueError(f"pcg_work: mode {mode} is not 0, 1 or 2")
     if sc.dtype not in (torch.float32, torch.float64) or tuple(sc.shape) != (6,):
@@ -317,9 +323,14 @@ def pcg_work(sc, flag, w, mode, n) -> PcgWork:
     if any(t.device != sc.device or not t.is_contiguous()
            for t in [sc, flag] + ([w] if mode == 2 else [])):
         raise ValueError("pcg_work: sc, flag and w must be contiguous, on one device")
+    grid = 0
+    if sc.is_cuda:
+        g = ctypes.c_int(0)
+        _cuda.call("knp_pcg_dot2_direction_grid", sc.dtype, n, RED_CHUNK, ctypes.addressof(g))
+        grid = g.value
     return PcgWork(sc=sc, flag=flag, w=w, mode=mode,
                    partial=torch.empty(2 * _nblk(n), dtype=sc.dtype, device=sc.device),
-                   ticket=torch.zeros(1, dtype=torch.int32, device=sc.device))
+                   ticket=torch.zeros(1, dtype=torch.int32, device=sc.device), grid=grid)
 
 
 def _proj_plain(v, wk: PcgWork):
@@ -357,6 +368,13 @@ def pcg_dot2_plain(r, z, wk: PcgWork):
 def pcg_direction_plain(p, z, wk: PcgWork):
     """p = z + beta p, in place."""
     return p.copy_(z + wk.sc[BETA] * p)
+
+
+def pcg_dot2_direction_plain(r, z, p, wk: PcgWork):
+    """:func:`pcg_dot2_plain`, then :func:`pcg_direction_plain`: rz, zz,
+    beta and the flag into wk, p = z + beta p in place; returns wk."""
+    pcg_direction_plain(p, z, pcg_dot2_plain(r, z, wk))
+    return wk
 
 
 def _block_sums(v):
@@ -401,30 +419,32 @@ def pcg_dots_ordered_plain(a, b, c=None, d=None):
     return torch.cat(sums)
 
 
-def _check_pcg(wk: PcgWork, *vecs):
-    v0 = vecs[0]
-    for i, v in enumerate(vecs):
-        _cuda.check(f"vector {i}", v, v0.dtype, v0.shape)
-    _cuda.check("sc", wk.sc, v0.dtype, (6,))
-    _cuda.check("flag", wk.flag, torch.int32, (1,))
-    if wk.mode == 2:
-        _cuda.check("w", wk.w, v0.dtype, v0.shape)
+def _check_vecs(wk: PcgWork, *vecs):
+    """What may change between calls of a K8 entry: the vectors' dtype,
+    size, device and layout against the work, one plain pass (what is
+    frozen for a solve was checked by pcg_work); returns their size.  The
+    slow path names what is wrong."""
+    dt, n = wk.sc.dtype, vecs[0].numel()
+    ok = wk.partial is not None and 2 * _nblk(n) == wk.partial.numel()
+    for v in vecs:
+        ok = ok and v.dtype == dt and v.numel() == n and v.is_cuda and v.is_contiguous()
+    if not ok:
+        _pcg_refusal(wk, vecs)
+    return n
 
 
-def _check_dots(wk: PcgWork, a, b):
-    """What may change between calls of a dot entry: the two vectors'
-    dtype, size, device and layout against the work; returns their size."""
+def _pcg_refusal(wk: PcgWork, vecs):
+    """Raise the reason a K8 kernel cannot take these vectors."""
     if wk.partial is None:
         raise ValueError("pcg: the work has no reduction workspace; build it with pcg_work")
-    if a.dtype != wk.sc.dtype or b.dtype != wk.sc.dtype:
-        raise TypeError(f"pcg: {a.dtype} / {b.dtype} vectors for a {wk.sc.dtype} work")
-    n = a.numel()
-    if b.numel() != n or 2 * _nblk(n) != wk.partial.numel():
-        raise ValueError(f"pcg: vectors of {n} / {b.numel()} entries for a work of "
-                         f"{wk.partial.numel() // 2} chunks")
-    if not (b.is_cuda and a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("pcg: expected contiguous CUDA vectors")
-    return n
+    n = vecs[0].numel()
+    for v in vecs:
+        if v.dtype != wk.sc.dtype:
+            raise TypeError(f"pcg: a {v.dtype} vector for a {wk.sc.dtype} work")
+        if v.numel() != n or 2 * _nblk(n) != wk.partial.numel():
+            raise ValueError(f"pcg: vectors of {n} / {v.numel()} entries for a work of "
+                             f"{wk.partial.numel() // 2} chunks")
+    raise ValueError("pcg: expected contiguous CUDA vectors")
 
 
 def pcg_dot(p, Ap, wk: PcgWork):
@@ -432,7 +452,7 @@ def pcg_dot(p, Ap, wk: PcgWork):
     into the work's workspace)."""
     if not p.is_cuda:
         return pcg_dot_plain(p, Ap, wk)
-    n = _check_dots(wk, p, Ap)
+    n = _check_vecs(wk, p, Ap)
     _cuda.launch("pcg_dot", "knp_pcg_dot", p.dtype, p.data_ptr(), Ap.data_ptr(),
                  wk.partial.data_ptr(), wk.ticket.data_ptr(), wk.sc.data_ptr(), n, RED_CHUNK)
     return wk
@@ -440,36 +460,26 @@ def pcg_dot(p, Ap, wk: PcgWork):
 
 def pcg_update(x, r, p, Ap, wk: PcgWork):
     """x += alpha p, r -= alpha Ap and their nullspace projection, in place
-    (the update and projection kernels on a CUDA tensor)."""
+    (the update and projection kernels on a CUDA tensor, their block sums in
+    the work's workspace)."""
     if not x.is_cuda:
         return pcg_update_plain(x, r, p, Ap, wk)
-    _check_pcg(wk, x, r, p, Ap)
-    n = x.numel()
-    partial = torch.empty(2 * _nblk(n), dtype=x.dtype, device=x.device)
+    n = _check_vecs(wk, x, r, p, Ap)
     _cuda.launch("pcg_update", "knp_pcg_update", x.dtype, x.data_ptr(), r.data_ptr(),
                  p.data_ptr(), Ap.data_ptr(), wk.sc.data_ptr(),
-                 None if wk.w is None else wk.w.data_ptr(), partial.data_ptr(), n,
+                 None if wk.w is None else wk.w.data_ptr(), wk.partial.data_ptr(), n,
                  RED_CHUNK, wk.mode)
     return x, r
 
 
-def pcg_dot2(r, z, wk: PcgWork):
-    """rz, zz, beta and the flag into wk (one kernel launch on a CUDA
-    tensor, into the work's workspace)."""
+def pcg_dot2_direction(r, z, p, wk: PcgWork):
+    """rz, zz, beta and the flag into wk, then p = z + beta p in place (one
+    cooperative kernel launch on a CUDA tensor, into the work's workspace);
+    returns wk."""
     if not r.is_cuda:
-        return pcg_dot2_plain(r, z, wk)
-    n = _check_dots(wk, r, z)
-    _cuda.launch("pcg_dot2", "knp_pcg_dot2", r.dtype, r.data_ptr(), z.data_ptr(),
-                 wk.partial.data_ptr(), wk.ticket.data_ptr(), wk.sc.data_ptr(),
-                 wk.flag.data_ptr(), n, RED_CHUNK)
+        return pcg_dot2_direction_plain(r, z, p, wk)
+    n = _check_vecs(wk, r, z, p)
+    _cuda.launch("pcg_dot2_direction", "knp_pcg_dot2_direction", r.dtype, r.data_ptr(),
+                 z.data_ptr(), p.data_ptr(), wk.partial.data_ptr(), wk.sc.data_ptr(),
+                 wk.flag.data_ptr(), n, wk.grid)
     return wk
-
-
-def pcg_direction(p, z, wk: PcgWork):
-    """p = z + beta p, in place (the direction kernel on a CUDA tensor)."""
-    if not p.is_cuda:
-        return pcg_direction_plain(p, z, wk)
-    _check_pcg(wk, p, z)
-    _cuda.launch("pcg_direction", "knp_pcg_direction", p.dtype, p.data_ptr(), z.data_ptr(),
-                 wk.sc.data_ptr(), p.numel())
-    return p

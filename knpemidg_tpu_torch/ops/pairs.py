@@ -294,14 +294,35 @@ def to_pair_plain(pm, x):
     return out * mask
 
 
-def from_pair_plain(pm, xp):
+def _from_pair_operands(xp, add, base):
+    """The output shape of from_pair(xp); refuses both add and base, or
+    either of another shape than it is added at."""
+    *lead, nd2, npair = xp.shape
+    oshape = (*lead, nd2 // 2, 2 * npair)
+    if add is not None and base is not None:
+        raise ValueError("from_pair: give add (pair form) or base (cell form), not both")
+    if add is not None and tuple(add.shape) != tuple(xp.shape):
+        raise ValueError(f"from_pair: add of shape {tuple(add.shape)} for a pair vector of "
+                         f"shape {tuple(xp.shape)}")
+    if base is not None and tuple(base.shape) != oshape:
+        raise ValueError(f"from_pair: base of shape {tuple(base.shape)} for a cell result of "
+                         f"shape {oshape}")
+    return oshape
+
+
+def from_pair_plain(pm, xp, add=None, base=None):
     """(..., 2nd, npair) -> (..., nd, 2 npair); dead halves land on the pad
-    cells."""
+    cells.  With ``add`` (pair form, xp's shape) the relayout of xp + add;
+    with ``base`` (cell form, the result's shape) base + the relayout of xp."""
     _interleaved_only(pm, "from_pair")
+    _from_pair_operands(xp, add, base)
+    if add is not None:
+        xp = xp + add
     *lead, nd2, npair = xp.shape
     nd = nd2 // 2
     a = torch.movedim(xp.reshape(*lead, 2, nd, npair), -3, -1)
-    return a.reshape(*lead, nd, 2 * npair)
+    out = a.reshape(*lead, nd, 2 * npair)
+    return out if base is None else base + out
 
 
 TO_PAIR_SOURCES = 4       # tensors the to_pair kernel reads in one launch
@@ -368,20 +389,64 @@ def _to_pair_refusal(xs, live1, npair, rows):
     _cuda.check("live1", live1, torch.bool, (npair,))
 
 
-def from_pair(pm, xp):
-    """Pair -> cell relayout (kernel K4 on a CUDA tensor)."""
+def from_pair(pm, xp, add=None, base=None, out=None):
+    """Pair -> cell relayout (kernel K4 on a CUDA tensor), any number of
+    leading stacked vectors, with at most one add in the same pass: ``add``
+    (pair form, xp's shape) converts xp + add, ``base`` (cell form, the
+    result's shape) gives base + the relayout of xp.  ``out`` optionally
+    receives the result (on the card it is used as given, no allocation)."""
     if not xp.is_cuda:
-        return from_pair_plain(pm, xp)
-    _interleaved_only(pm, "from_pair")
-    *lead, nd2, npair = xp.shape
-    if nd2 % 2:
-        raise ValueError("from_pair: expected (..., 2nd, npair)")
-    _cuda.check("xp", xp)
-    out = torch.empty(tuple(lead) + (nd2 // 2, 2 * npair), dtype=xp.dtype,
-                      device=xp.device)
-    _cuda.launch("from_pair", "knp_from_pair", xp.dtype, xp.data_ptr(),
-                 out.data_ptr(), xp.numel() // (nd2 * npair), nd2 // 2, npair)
+        res = from_pair_plain(pm, xp, add=add, base=base)
+        return res if out is None else out.copy_(res)
+    if "cell_col" in pm:
+        _interleaved_only(pm, "from_pair")
+    shape, dt = xp.shape, xp.dtype
+    *lead, nd2, npair = shape
+    nd = nd2 // 2
+    oshape = (*lead, nd, 2 * npair)
+    L = xp.numel() // (nd2 * npair) if nd2 * npair else 0
+    # one pass of checks (a call's host time is most of its cost); the slow
+    # path names what is wrong.  base and out are read and written a pair
+    # (8 or 16 bytes) at a time
+    align = 2 * xp.element_size()
+    ok = (xp.is_contiguous() and not nd2 % 2 and 1 <= L * nd <= 65535
+          and (add is None or base is None))
+    if add is not None:
+        ok = (ok and add.is_cuda and add.dtype == dt and add.shape == shape
+              and add.is_contiguous())
+    if base is not None:
+        ok = (ok and base.is_cuda and base.dtype == dt and base.shape == oshape
+              and base.is_contiguous() and not base.data_ptr() % align)
+    if out is None:
+        if ok:
+            out = torch.empty(oshape, dtype=dt, device=xp.device)
+    else:
+        ok = (ok and out.is_cuda and out.dtype == dt and out.shape == oshape
+              and out.is_contiguous() and not out.data_ptr() % align)
+    if not ok:
+        _from_pair_refusal(xp, add, base, out, oshape, L * nd)
+    _cuda.launch("from_pair", "knp_from_pair", dt, xp.data_ptr(),
+                 None if add is None else add.data_ptr(),
+                 None if base is None else base.data_ptr(), out.data_ptr(), L, nd, npair)
     return out
+
+
+def _from_pair_refusal(xp, add, base, out, oshape, rows):
+    """Raise the reason from_pair's kernel cannot take these operands."""
+    if xp.shape[-2] % 2:
+        raise ValueError("from_pair: expected (..., 2nd, npair)")
+    _from_pair_operands(xp, add, base)
+    _cuda.check("xp", xp)
+    if not 1 <= rows <= 65535:
+        raise NotImplementedError("from_pair: 1 to 65,535 (vector, dof) rows")
+    for name, t, shape in (("add", add, xp.shape), ("base", base, oshape),
+                           ("out", out, oshape)):
+        if t is not None:
+            _cuda.check(name, t, xp.dtype, shape)
+            if name != "add" and t.data_ptr() % (2 * t.element_size()):
+                raise ValueError(f"from_pair: {name} must start at an even element "
+                                 f"(pair stores)")
+    raise ValueError("from_pair: operands the kernel cannot take")
 
 
 def to_pair_host(pmh, x):
@@ -400,14 +465,18 @@ def to_pair_host(pmh, x):
     return out * mask
 
 
-def from_pair_host(pmh, xp):
+def from_pair_host(pmh, xp, add=None, base=None):
     """Numpy mirror of :func:`from_pair` on the host maps."""
     _interleaved_only(pmh, "from_pair_host")
     xp = np.asarray(xp)
+    _from_pair_operands(xp, add, base)
+    if add is not None:
+        xp = xp + np.asarray(add)
     *lead, nd2, npair = xp.shape
     nd = nd2 // 2
     a = np.moveaxis(xp.reshape(*lead, 2, nd, npair), -3, -1)
-    return a.reshape(*lead, nd, 2 * npair)
+    out = a.reshape(*lead, nd, 2 * npair)
+    return out if base is None else np.asarray(base) + out
 
 
 # ---------------------------------------------------------------------------

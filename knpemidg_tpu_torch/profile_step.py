@@ -57,7 +57,7 @@ HAND_KERNELS = ("bell_matvec_kernel", "bj_inverse_kernel", "bj_apply_kernel",
                 "gm_dot_partial_kernel", "gm_dot_finish_kernel", "gm_update_kernel",
                 "gm_scale_kernel", "gm_init_kernel", "gm_givens_kernel",
                 "gm_backsolve_kernel", "gm_xupdate_kernel", "pcg_dot_kernel",
-                "pcg_update_kernel", "pcg_project_kernel", "pcg_direction_kernel")
+                "pcg_update_kernel", "pcg_project_kernel", "pcg_dot2_direction_kernel")
 PHASES = ("_ode_step", "_assemble_emi", "_emi_solve_iterative",
           "_knp_assemble_all", "_knp_solve_all", "_finalize_step")
 

@@ -472,9 +472,8 @@ class Solver:
             rtol=sp_.rtol_emi, atol=sp_.atol_emi, max_it=sp_.max_it_emi,
             project_nullspace=True, b_ref=rhs, nullspace_mask=mask,
         )
-        out = guess + res.x
-        if pair:
-            out = from_pair(self.pairs, out)
+        # on pairs the relayout carries the add (the same bits: a permutation)
+        out = from_pair(self.pairs, res.x, add=guess) if pair else guess + res.x
         # the assembly and trace kernels take contiguous fields
         return out.contiguous(), res.iters, res.converged
 
@@ -562,7 +561,7 @@ class Solver:
             rtol=sp_.rtol_knp, atol=sp_.atol_knp,
             max_it=sp_.max_it_knp, restart=sp_.gmres_restart, b_ref=rhs_p,
         )
-        return (c + from_pair(pm, res.x)).contiguous(), res.iters, res.converged
+        return from_pair(pm, res.x, base=c), res.iters, res.converged
 
     # ------------------------------------------------------------------
     # ODE step (step 0 of the splitting)

@@ -92,8 +92,7 @@ def pcg(
         ko.pcg_dot(p, Ap, wk)                  # alpha = rz / p.Ap
         ko.pcg_update(x, r, p, Ap, wk)         # x += alpha p, r -= alpha Ap, projected
         z = precond(r).contiguous()
-        ko.pcg_dot2(r, z, wk)                  # rz, zz, beta, the flag
-        ko.pcg_direction(p, z, wk)             # p = z + beta p
+        ko.pcg_dot2_direction(r, z, p, wk)     # rz, zz, beta, the flag; p = z + beta p
         k += 1
     rn = torch.sqrt(wk.sc[ko.ZZ])
     return KrylovResult(x=x, iters=k, resnorm=rn, converged=bool(rn <= tol))

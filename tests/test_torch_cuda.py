@@ -33,7 +33,7 @@ TWO_LEVEL_KERNELS = tuple(f"two_level_{e}{b}" for b in ("", "_batched")
 ASSEMBLY_KERNELS = ("emi_cell", "emi_facet", "emi_emit_cell", "alpha_sum", "knp_cell",
                     "knp_facet", "knp_membrane_rhs", "knp_emit_cell", "membrane_trace",
                     "eliminated_concentration")
-KRYLOV_KERNELS = tuple(f"pcg_{e}" for e in ("dot", "update", "dot2", "direction")) + tuple(
+KRYLOV_KERNELS = tuple(f"pcg_{e}" for e in ("dot", "update", "dot2_direction")) + tuple(
     f"gmres_{e}" for e in ("start", "cgs_dot", "cgs_update", "next", "givens", "solve_update"))
 CELL_KERNELS = ("bell_matvec", "block_jacobi_inverse", "block_jacobi_apply",
                 "membrane_rk4") + TWO_LEVEL_KERNELS + ASSEMBLY_KERNELS + KRYLOV_KERNELS
@@ -150,6 +150,21 @@ def _rand(rng, shape, dtype, dev):
     return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
 
 
+def _device_kernels(fn):
+    """Names of the device kernels fn() launches, in order, read by the
+    profiler in its second cycle: the first (fn() too) is a warm-up whose
+    events are dropped, since a profiling session can miss its first
+    launches."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                                acc_events=True) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_pair_kernels_match_plain(pair_maps, dtype, tol):
     """K12 and K4 equal their plain versions exactly (moves, selects and the
@@ -237,6 +252,56 @@ def test_to_pair_list_form_equals_the_stack(pair_maps, dtype):
         pairs.to_pair(pm, [flat[1:].view(4, nc2)])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_from_pair_forms_equal_plain_in_one_launch(pair_maps, dtype):
+    """from_pair in its three forms (the relayout, add in pair form, base in
+    cell form), one vector and a stack: exactly the plain version, one
+    kernel each and no separate add (the profiler), no allocation with out=
+    (the allocator's count); operands it cannot take raise before a
+    launch."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(10)
+    pm = pairs.pair_maps_to_device(pair_maps, dev)
+    npair = pair_maps["int_f"].shape[0]
+    for lead in ((), (2,)):
+        xp, add = (_rand(rng, lead + (8, npair), dtype, dev) for _ in range(2))
+        base = _rand(rng, lead + (4, 2 * npair), dtype, dev)
+        forms = [{}, {"add": add}, {"base": base}]
+        outs = [torch.full_like(base, float("nan")) for _ in forms]
+        for kw in forms:
+            assert torch.equal(pairs.from_pair(pm, xp, **kw),
+                               pairs.from_pair_plain(pm, xp, **kw))
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        n0 = _cuda.LAUNCHES["from_pair"]
+
+        def calls():
+            for kw, out in zip(forms, outs):
+                assert pairs.from_pair(pm, xp, out=out, **kw) is out
+
+        kernels = _device_kernels(calls)
+        assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
+        assert _cuda.LAUNCHES["from_pair"] == n0 + 6
+        assert len(kernels) == 3 and all("from_pair_kernel" in k for k in kernels), kernels
+        for kw, out in zip(forms, outs):
+            assert torch.equal(out, pairs.from_pair_plain(pm, xp, **kw))
+    n0 = _cuda.LAUNCHES["from_pair"]
+    with pytest.raises(ValueError, match="not both"):
+        pairs.from_pair(pm, xp, add=add, base=base)
+    with pytest.raises(ValueError):                      # add that would broadcast
+        pairs.from_pair(pm, xp, add=add[:1])
+    with pytest.raises(ValueError):                      # base on the CPU
+        pairs.from_pair(pm, xp, base=base.cpu())
+    flat = _rand(rng, (base.numel() + 1,), dtype, dev)
+    with pytest.raises(ValueError, match="even element"):
+        pairs.from_pair(pm, xp, base=flat[1:].view(base.shape))
+    with pytest.raises(ValueError, match="even element"):
+        pairs.from_pair(pm, xp, out=flat[1:].view(base.shape))
+    with pytest.raises(TypeError):                       # out of another dtype
+        pairs.from_pair(pm, xp, out=torch.empty(base.shape, dtype=torch.float16, device=dev))
+    assert _cuda.LAUNCHES["from_pair"] == n0
+
+
 def test_emix_pair_slice_on_cuda_matches_cpu():
     """Two float64 steps of the EMIx fixture on the pair layout: the card
     goes through every pair-path kernel, reproduces the JAX package's
@@ -251,6 +316,9 @@ def test_emix_pair_slice_on_cuda_matches_cpu():
     assert _cuda.LAUNCHES["bell_matvec"] == 0
     assert Sg.stats.emi_niters == Sc.stats.emi_niters == [3, 9]
     assert Sg.stats.knp_niters == Sc.stats.knp_niters == [[11, 8], [9, 5]]
+    # one fused K8 launch per PCG iteration; one from_pair (with its add) per solve
+    assert _cuda.LAUNCHES["pcg_dot2_direction"] == _cuda.LAUNCHES["pcg_dot"] == 3 + 9
+    assert _cuda.LAUNCHES["from_pair"] == 2 * 2
     for key in ("phi", "c", "c_elim", "phi_M"):
         assert rel(sg[key], sc[key]) < 1e-8, key
 
@@ -361,20 +429,21 @@ def test_two_level_solve_at_the_main_path_size(case, dtype, tol):
 @pytest.mark.parametrize("case", ["k6_full", "k7"])
 def test_two_level_solve_is_one_launch_and_allocates_nothing(case):
     """Five solves through the workspace are five device kernels, all of
-    the solve kernel, and no allocation (the caching allocator's count)."""
+    the solve kernel (the profiler, after a warm-up cycle of five), and no
+    allocation (the caching allocator's count)."""
     dev = cuda_or_skip()
     co, r, _ = _coarse_case(case, 4, torch.float64, dev)
     rc, proj = coarse.restrict(co, r)
     coarse.solve(co, rc, proj)
     torch.cuda.synchronize()
     allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+
+    def solves():
         for _ in range(5):
             coarse.solve(co, rc, proj)
-        torch.cuda.synchronize()
+
+    kernels = _device_kernels(solves)
     assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(kernels) == 5 and all("tl_solve_kernel" in k for k in kernels), kernels
 
 
@@ -628,7 +697,7 @@ def test_krylov_gmres_kernels_match_plain(j, dtype, tol):
     ko.gmres_start_plain(w, b)
     assert rel(a.beta, b.beta) < tol and rel(a.V[0], b.V[0]) < tol
     assert rel(a.g, b.g) < tol and torch.equal(a.flag, b.flag)
-    for k in KRYLOV_KERNELS[4:]:
+    for k in KRYLOV_KERNELS[3:]:
         assert _cuda.LAUNCHES[k] == n0[k] + 1, k
 
 
@@ -658,22 +727,26 @@ def test_krylov_pcg_kernels_match_plain(mode, dtype, tol):
     xa, ra = ko.pcg_update(x.clone(), r.clone(), p, Ap, a)
     xb, rb = ko.pcg_update_plain(x.clone(), r.clone(), p, Ap, a)
     assert rel(xa, xb) < tol and rel(ra, rb) < tol
-    ko.pcg_dot2(r, z, a)
-    ko.pcg_dot2_plain(r, z, b)
+    pa = p.clone()
+    ko.pcg_dot2_direction(r, z, pa, a)
+    ko.pcg_dot2_direction_plain(r, z, p.clone(), b)
     assert rel(a.sc[:4], b.sc[:4]) < tol and torch.equal(a.flag, b.flag)
-    assert rel(ko.pcg_direction(p.clone(), z, a), ko.pcg_direction_plain(p.clone(), z, a)) < tol
-    for k in KRYLOV_KERNELS[:4]:
+    # the direction with the kernel's beta
+    assert rel(pa, ko.pcg_direction_plain(p.clone(), z, a)) < tol
+    for k in KRYLOV_KERNELS[:3]:
         assert _cuda.LAUNCHES[k] == n0[k] + 1, k
 
 
 @pytest.mark.parametrize("n", [1, 2049, 3 * 2048 + 17, 256 * 2048 + 5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_pcg_dots_equal_the_ordered_plain_bitwise(n, dtype):
-    """pcg_dot and pcg_dot2 (one launch each, the last block finishing)
-    write the scalars and flag that pcg_dots_ordered_plain's sums give, to
-    the last bit, on fewer and more than 256 chunks; 200 calls on one work
-    repeat the bits, each writes them (chip_smoke.dots_exact: the written
-    slots are NaN before every call), and the ticket ends at 0."""
+    """pcg_dot (one launch, the last block finishing) and
+    pcg_dot2_direction (one cooperative launch) write the scalars and flag
+    that pcg_dots_ordered_plain's sums give, to the last bit, on fewer and
+    more than 256 chunks, and the fused entry p = z + beta p with that
+    beta; 200 calls on one work repeat the bits, each writes them
+    (chip_smoke.dots_exact: the written slots are NaN before every call),
+    and the ticket ends at 0."""
     import chip_smoke
 
     dev = cuda_or_skip()
@@ -681,24 +754,134 @@ def test_pcg_dots_equal_the_ordered_plain_bitwise(n, dtype):
     r, z, p, Ap = (_rand(rng, (n,), dtype, dev) for _ in range(4))
     sc0 = torch.as_tensor([1.25, 0.0, 0.0, 0.0, 1e-6, float(n)], dtype=dtype, device=dev)
     for entry, fn, vecs in (("pcg_dot", ko.pcg_dot, (p, Ap)),
-                            ("pcg_dot2", ko.pcg_dot2, (r, z, z, z))):
+                            ("pcg_dot2_direction", ko.pcg_dot2_direction, (r, z, p))):
         wk = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1, n)
         n0 = _cuda.LAUNCHES[entry]
         chip_smoke.dots_exact(entry, dtype, ko, fn, vecs, sc0, wk, calls=200)
         assert _cuda.LAUNCHES[entry] == n0 + 200
 
 
+# the EMI vector's entries on the cell (4 x 124,416) and pair (8 x 63,558)
+# layouts of chip_smoke.py's mesh, and more chunks (1,954) than an H100
+# holds resident blocks of the fused kernel (at most 8 an SM, 1,056)
+MAIN_SIZES = [497664, 508464, 4000001]
+
+
+@pytest.mark.parametrize("n", MAIN_SIZES)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_pcg_dot2_direction_at_the_main_sizes(n, dtype, tol):
+    """The fused entry at the main path's sizes and beyond the resident
+    blocks (each block then walks several chunks): the sums, beta and the
+    flag bitwise pcg_dots_ordered_plain's and p = z + beta p with that beta
+    to the last bit, over 200 repeating calls (chip_smoke.dots_exact); p
+    against the plain version (torch.dot's beta) to tol of |z| + (|beta| +
+    beta's sum of |terms| / |rz|) |p| elementwise."""
+    import chip_smoke
+
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(17)
+    r, z, p = (_rand(rng, (n,), dtype, dev) for _ in range(3))
+    sc0 = torch.as_tensor([1.25, 0.0, 0.0, 0.0, 1e-6, float(n)], dtype=dtype, device=dev)
+    wk = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1, n)
+    nchunk = -(-n // ko.RED_CHUNK)
+    assert 1 <= wk.grid <= nchunk and (n < 4000000 or wk.grid < nchunk), (wk.grid, nchunk)
+    n0 = _cuda.LAUNCHES["pcg_dot2_direction"]
+    chip_smoke.dots_exact("pcg_dot2_direction", dtype, ko, ko.pcg_dot2_direction, (r, z, p),
+                          sc0, wk, calls=200)
+    assert _cuda.LAUNCHES["pcg_dot2_direction"] == n0 + 200
+    a = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1, n)
+    b = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1, n)
+    pa, pb = p.clone(), p.clone()
+    ko.pcg_dot2_direction(r, z, pa, a)
+    ko.pcg_dot2_direction_plain(r, z, pb, b)
+    beta_scale = (r.abs() * z.abs()).sum() / sc0[ko.RZ]
+    scale = z.abs() + (b.sc[ko.BETA].abs() + beta_scale) * p.abs()
+    assert float(((pa.double() - pb.double()).abs() / scale.double()).max()) <= tol
+
+
+def test_pcg_dot2_direction_raises_on_a_refused_launch():
+    """A grid of more blocks than can be resident together (one per chunk
+    at 4,000,001 entries) is refused by the cooperative launch: the wrapper
+    raises, counts no launch, the work is untouched, and the refusal leaves
+    no error behind for the next launch."""
+    dev = cuda_or_skip()
+    n = 4000001
+    v = torch.ones(n, dtype=torch.float64, device=dev)
+    sc0 = torch.as_tensor([1.0, 0.0, 0.0, 0.0, 1e-6, float(n)], dtype=torch.float64,
+                          device=dev)
+    wk = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1, n)
+    nchunk = -(-n // ko.RED_CHUNK)
+    assert wk.grid < nchunk
+    n0 = _cuda.LAUNCHES["pcg_dot2_direction"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ko.pcg_dot2_direction(v, v, v.clone(), wk._replace(grid=nchunk))
+    assert _cuda.LAUNCHES["pcg_dot2_direction"] == n0
+    torch.cuda.synchronize()
+    assert torch.equal(wk.sc, sc0)
+    ko.pcg_dot2_direction(v, v, v.clone(), wk)
+    assert _cuda.LAUNCHES["pcg_dot2_direction"] == n0 + 1
+
+
+def test_pcg_iteration_launches_once_per_entry_and_allocates_nothing():
+    """An iteration's K8 entries on a masked (pair-layout) work: pcg_dot,
+    pcg_update (its update and projection kernels, their block sums in the
+    work's partials) and pcg_dot2_direction are 4 device kernels and no
+    allocation (the caching allocator's count) per iteration; pcg_update
+    gives the same bits with partials another entry has just written as with
+    a fresh work."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(18)
+    shape = (8, 63558)
+    x, r, p, Ap, z = (_rand(rng, shape, torch.float64, dev) for _ in range(5))
+    w = torch.as_tensor(rng.uniform(size=shape) > 0.1, dtype=torch.float64, device=dev)
+    sc = torch.as_tensor([1.5, 2.0, 0.0, 0.0, 1e-6, 0.0], dtype=torch.float64, device=dev)
+    sc[ko.WSUM] = w.sum()
+
+    def work():
+        return ko.pcg_work(sc.clone(), torch.zeros(1, dtype=torch.int32, device=dev), w, 2,
+                           x.numel())
+
+    fresh, wk = work(), work()
+    ko.pcg_dot(p, Ap, fresh)
+    ko.pcg_dot(p, Ap, wk)
+    ko.pcg_dot2_direction(r, z, p.clone(), wk)          # wk's partials now dirty
+    wk.sc.copy_(fresh.sc)
+    xa, ra = ko.pcg_update(x.clone(), r.clone(), p, Ap, fresh)
+    xb, rb = ko.pcg_update(x.clone(), r.clone(), p, Ap, wk)
+    assert torch.equal(xa, xb) and torch.equal(ra, rb)
+
+    xi, ri, pi = x.clone(), r.clone(), p.clone()
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+
+    def iterations():
+        for _ in range(5):
+            ko.pcg_dot(pi, Ap, wk)
+            ko.pcg_update(xi, ri, pi, Ap, wk)
+            ko.pcg_dot2_direction(ri, z, pi, wk)
+
+    kernels = _device_kernels(iterations)
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
+    want = ["pcg_dot_kernel", "pcg_update_kernel", "pcg_project_kernel",
+            "pcg_dot2_direction_kernel"] * 5
+    assert len(kernels) == len(want) and all(k in e for k, e in zip(want, kernels)), kernels
+
+
 def test_pcg_dots_replay_in_a_cuda_graph():
-    """The dot entries allocate nothing, sync nothing and keep fixed
-    workspace pointers, so a captured iteration's dots replay: the same
-    bits as the eager calls, the ticket back at 0."""
+    """The reduction entries allocate nothing, sync nothing and keep fixed
+    workspace pointers (the fused entry a cooperative launch), so a captured
+    iteration's pcg_dot and pcg_dot2_direction replay: the same bits of the
+    scalars, the flag and the direction as the eager calls, the ticket back
+    at 0."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(16)
     p, Ap = (_rand(rng, (4, 9000), torch.float64, dev) for _ in range(2))
     sc0 = torch.as_tensor([1.5, 2.0, 0.0, 0.0, 1e-6, 0.0], dtype=torch.float64, device=dev)
     eager = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1,
                         p.numel())
-    ko.pcg_dot2(p, Ap, ko.pcg_dot(p, Ap, eager))
+    d0 = _rand(rng, (4, 9000), torch.float64, dev)
+    de, dg = d0.clone(), d0.clone()
+    ko.pcg_dot2_direction(p, Ap, de, ko.pcg_dot(p, Ap, eager))
     wk = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1,
                      p.numel())
     side = torch.cuda.Stream()
@@ -709,18 +892,21 @@ def test_pcg_dots_replay_in_a_cuda_graph():
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         ko.pcg_dot(p, Ap, wk)
-        ko.pcg_dot2(p, Ap, wk)
+        ko.pcg_dot2_direction(p, Ap, dg, wk)
     for _ in range(3):
         wk.sc.copy_(sc0)
+        dg.copy_(d0)
         graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(wk.sc, eager.sc) and torch.equal(wk.flag, eager.flag)
+    assert torch.equal(dg, de)
     assert wk.ticket.tolist() == [0]
 
 
 def test_pcg_dots_refuse_a_work_without_workspace():
-    """A PcgWork built by hand has no partials or ticket: the dot entries
-    raise on a CUDA tensor rather than allocate."""
+    """A PcgWork built by hand has no partials, ticket or grid: the K8
+    entries raise on a CUDA tensor rather than allocate; so do vectors of
+    another chunk count, layout or dtype than the work's."""
     dev = cuda_or_skip()
     v = torch.ones(3000, dtype=torch.float64, device=dev)
     bare = ko.PcgWork(sc=torch.ones(6, dtype=torch.float64, device=dev),
@@ -729,17 +915,23 @@ def test_pcg_dots_refuse_a_work_without_workspace():
     with pytest.raises(ValueError, match="pcg_work"):
         ko.pcg_dot(v, v, bare)
     with pytest.raises(ValueError, match="pcg_work"):
-        ko.pcg_dot2(v, v, bare)
+        ko.pcg_dot2_direction(v, v, v.clone(), bare)
+    with pytest.raises(ValueError, match="pcg_work"):
+        ko.pcg_update(v.clone(), v.clone(), v, v, bare)
     wk = ko.pcg_work(bare.sc, bare.flag, None, 1, 3000)
     long = torch.ones(5000, dtype=torch.float64, device=dev)
     with pytest.raises(ValueError):                      # another chunk count
         ko.pcg_dot(long, long, wk)
     with pytest.raises(ValueError):                      # not contiguous
-        ko.pcg_dot2(v, torch.ones((3000, 2), dtype=torch.float64, device=dev)[:, 0], wk)
+        ko.pcg_dot2_direction(v, torch.ones((3000, 2), dtype=torch.float64,
+                                            device=dev)[:, 0], v.clone(), wk)
+    with pytest.raises(ValueError):                      # the direction not contiguous
+        ko.pcg_dot2_direction(v, v, torch.ones((3000, 2), dtype=torch.float64,
+                                               device=dev)[:, 1], wk)
     with pytest.raises(TypeError):                       # another dtype
         ko.pcg_dot(v, v.float(), wk)
-    assert _cuda.LAUNCHES["pcg_dot"] == n0["pcg_dot"]
-    assert _cuda.LAUNCHES["pcg_dot2"] == n0["pcg_dot2"]
+    for k in ("pcg_dot", "pcg_update", "pcg_dot2_direction"):
+        assert _cuda.LAUNCHES[k] == n0[k], k
 
 
 def _dominant_system(rng, nc=3000, K=5, m=2):
@@ -819,7 +1011,7 @@ def test_krylov_wrappers_raise_on_what_they_cannot_take():
     with pytest.raises(TypeError):
         ko.pcg_dot(w, w.float(), pw)
     with pytest.raises(ValueError):
-        ko.pcg_direction(w, w.t().contiguous().t(), pw)
+        ko.pcg_dot2_direction(w, w, w.t().contiguous().t(), pw)
     for over in ({"gmres_orth": "cgs1"}, {"gmres_rot": "carry"}, {"knp_solver": "bicgstab"}):
         with pytest.raises(NotImplementedError):
             _check_supported(SolverParams(**tp.solver_params_kw(**over)))

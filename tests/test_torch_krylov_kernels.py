@@ -13,7 +13,7 @@ import torch
 import jax.numpy as jnp
 import jax.scipy.linalg as jsl
 
-from test_torch_parity import rel, t64
+from test_torch_parity import rel, t64, to_np
 
 from knpemidg_tpu.ops.spmv import bell_matvec as jbm, bell_matvec_multi as jbmm
 from knpemidg_tpu.solvers import krylov as jkry
@@ -175,7 +175,8 @@ def test_gmres_solve_update_matches_jax():
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_pcg_entries_match_the_formulas(mode):
     """alpha, the projected updates (none, the mean, the masked mean),
-    rz / zz / beta / the flag, and the direction (krylov.py:101-111)."""
+    rz / zz / beta / the flag and the direction in one entry
+    (krylov.py:101-111)."""
     rng = np.random.default_rng(24)
     shape = (4, 300)
     x, r, p, Ap, z = (rng.normal(size=shape) for _ in range(5))
@@ -197,12 +198,47 @@ def test_pcg_entries_match_the_formulas(mode):
 
     xt, rt = ko.pcg_update(t64(x), t64(r), t64(p), t64(Ap), wk)
     assert rel(xt, proj(x + alpha * p)) < 1e-14 and rel(rt, proj(r - alpha * Ap)) < 1e-14
-    ko.pcg_dot2(t64(r), t64(z), wk)
+    pt = t64(p)
+    assert ko.pcg_dot2_direction(t64(r), t64(z), pt, wk) is wk
     rz = np.vdot(r, z)
     assert rel(wk.sc[ko.RZ], rz) < 1e-14 and rel(wk.sc[ko.ZZ], np.vdot(z, z)) < 1e-14
     assert rel(wk.sc[ko.BETA], rz / 1.7) < 1e-14 and int(wk.flag) == 1
-    pt = ko.pcg_direction(t64(p), t64(z), wk)
     assert rel(pt, z + (rz / 1.7) * p) < 1e-14
+
+
+@pytest.mark.parametrize("shape,above", [((4, 300), True), ((8, 2049), False),
+                                         ((3 * 2048 + 17,), True)])
+def test_pcg_dot2_direction_plain_matches_the_jax_body(shape, above):
+    """The fused entry's plain version against the JAX loop body
+    (knpemidg_tpu/solvers/krylov.py:107-111): rz_new = r . z, beta =
+    rz_new / rz, p = z + beta p, zz = z . z, and the carried test zz >
+    tol^2 on either side of the tolerance; p is updated in place, alpha,
+    tol^2 and wsum are left as they were.  rz_new and beta are held to
+    1e-14 of the sum of |r z| (the dots add in another order), p to 1e-14
+    of |z| + (|beta| + that bound on beta) |p| elementwise."""
+    rng = np.random.default_rng(30)
+    r, z, p = (rng.normal(size=shape) for _ in range(3))
+    rz = 1.3
+    rj, zj, pj = (jnp.asarray(v) for v in (r, z, p))
+    rz_new = jkry._dot(rj, zj)
+    beta = rz_new / rz
+    p_new = zj + beta * pj
+    zz = jkry._dot(zj, zj)
+    tol2 = float(zz) * (0.5 if above else 2.0)
+    sc = [rz, 0.0, 0.25, 0.0, tol2, float(r.size)]
+    wk = ko.pcg_work(t64(sc), torch.zeros(1, dtype=torch.int32), None, 1, r.size)
+    pt = t64(p)
+    assert ko.pcg_dot2_direction_plain(t64(r), t64(z), pt, wk) is wk
+    # the dots in another order: round-off against their sums of |terms|
+    rz_abs = np.abs(r * z).sum()
+    assert abs(float(wk.sc[ko.RZ]) - float(rz_new)) < 1e-14 * rz_abs
+    assert abs(float(wk.sc[ko.BETA]) - float(beta)) < 1e-14 * rz_abs / rz
+    assert rel(wk.sc[ko.ZZ], zz) < 1e-14
+    # p: its own round-off and beta's, elementwise
+    bound = 1e-14 * (np.abs(z) + (abs(float(beta)) + rz_abs / rz) * np.abs(p))
+    assert np.all(np.abs(to_np(pt) - np.asarray(p_new)) <= bound)
+    assert int(wk.flag) == int(above)
+    assert wk.sc[[ko.ALPHA, ko.TOL2, ko.WSUM]].tolist() == [0.25, tol2, float(r.size)]
 
 
 def _system(rng, nc=240, K=4, m=2, nd=4):

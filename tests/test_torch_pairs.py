@@ -103,6 +103,47 @@ def test_relayouts_match_jax(setup, n_shards):
     assert np.array_equal(P.from_pair_host(pmh, to_np(xp_t)), np.asarray(back_j))
 
 
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_from_pair_carries_the_solvers_add_exactly(setup, n_shards):
+    """from_pair's add form (the EMI solve's guess + x, in pair form) and
+    base form (the KNP solve's c + x, in cell form) equal jP.from_pair of
+    the sum and base + jP.from_pair bitwise, for one vector and a stack;
+    so does from_pair_host; out= receives the result."""
+    pmj, pmt, pmh, nc = setup[n_shards]
+    nd = setup["nd"]
+    rng = np.random.default_rng(6)
+    for lead in ((), (2,)):
+        xp = rng.standard_normal(lead + (2 * nd, nc // 2))
+        add = rng.standard_normal(xp.shape)
+        base = rng.standard_normal(lead + (nd, nc))
+        want_add = np.asarray(jP.from_pair(pmj, jnp.asarray(xp) + jnp.asarray(add)))
+        want_base = np.asarray(jnp.asarray(base) + jP.from_pair(pmj, jnp.asarray(xp)))
+        assert np.array_equal(to_np(P.from_pair(pmt, t64(xp), add=t64(add))), want_add)
+        assert np.array_equal(to_np(P.from_pair(pmt, t64(xp), base=t64(base))), want_base)
+        assert np.array_equal(P.from_pair_host(pmh, xp, add=add), want_add)
+        assert np.array_equal(P.from_pair_host(pmh, xp, base=base), want_base)
+        out = torch.full(base.shape, float("nan"), dtype=torch.float64)
+        assert P.from_pair(pmt, t64(xp), base=t64(base), out=out) is out
+        assert np.array_equal(to_np(out), want_base)
+
+
+# operands from_pair refuses: both adds at once, and an add or base that
+# would broadcast instead of matching
+FROM_PAIR_REFUSALS = {"both": lambda a, b: {"add": a, "base": b},
+                      "add_shape": lambda a, b: {"add": a[:1]},
+                      "base_shape": lambda a, b: {"base": b[:1]}}
+
+
+@pytest.mark.parametrize("case", sorted(FROM_PAIR_REFUSALS))
+def test_from_pair_refuses_what_it_cannot_add(case):
+    xp = np.zeros((2, 8, 5))
+    kw = FROM_PAIR_REFUSALS[case](np.zeros(xp.shape), np.zeros((2, 4, 10)))
+    with pytest.raises(ValueError, match="from_pair"):
+        P.from_pair({}, torch.as_tensor(xp), **{k: torch.as_tensor(v) for k, v in kw.items()})
+    with pytest.raises(ValueError, match="from_pair"):
+        P.from_pair_host({}, xp, **kw)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("k", [2, 3])
 def test_to_pair_of_a_list_is_the_stack(setup, k, dtype):

@@ -2,16 +2,22 @@
 """Time the redesigned kernel wrappers as the solver calls them, in float32
 and float64, beside the library calls chip_smoke.py holds them to:
 
-  k8   K8's reduction entries pcg_dot and pcg_dot2, on one work built once
-       per solve, at the EMI vector shapes (cell (4, 124416), pair
-       (8, 63558)), beside torch.dot and torch.mv on the stacked pair;
+  k8   K8's reduction entries pcg_dot and pcg_dot2_direction (a tree
+       without it: pcg_dot2 alone and pcg_dot2 + pcg_direction), on one work
+       built once per solve, at the EMI vector shapes (cell (4, 124416),
+       pair (8, 63558)), beside torch.dot, torch.mv on the stacked pair, and
+       torch.mv + torch.addcmul into a preallocated buffer;
   k6   the coarse solve of K6 (m = 1, with As and the compartment, moment
        and Ritz groups) and K7 (m = 2, no As, no groups) at the coarse sizes
        of the cell (1,944 chunks of 64 cells) and pair (1,987 chunks of 32
        pairs) layouts, on restrict's outputs, beside dense_gemvs (cuBLAS:
        torch.mv per product, one batched torch.matmul for m systems);
   k4   to_pair of the EMI solve's 3 vectors (4, 127116) and the KNP solve's
-       2 (2, 4, 127116), beside one torch.mul into a preallocated buffer.
+       2 (2, 4, 127116), beside one torch.mul into a preallocated buffer;
+       from_pair back as the solver calls it (the EMI solution with the
+       guess added in pair form, the KNP one added to c in cell form; a
+       tree without the add forms: the relayout and a separate add), beside
+       one torch.add of the relayout views into a preallocated buffer.
 
 The data is random (seeded) at those shapes: only times are read.  The
 package is imported from ``--root`` (default: this file's directory), so
@@ -19,8 +25,10 @@ the same measurement reads another tree, such as an unpacked parent
 commit, in the same call: run it for parent, change, change, parent.  Each
 entry is called as that tree's solver calls it: a tree whose krylov_ops
 has no ``pcg_work`` gets a work built by hand, a tree whose coarse
-operands carry no workspace gets fresh outputs from its restrict, and a
-tree whose to_pair takes no list gets the torch.stack its solver makes.
+operands carry no workspace gets fresh outputs from its restrict, a tree
+whose to_pair takes no list gets the torch.stack its solver makes, and a
+tree without pcg_dot2_direction or from_pair's add forms gets the separate
+calls its solver makes.
 
 Per entry it prints the median of 20 CUDA-event timings of one call
 (``ms``, the yardstick of chip_smoke.py), the host microseconds per call
@@ -156,7 +164,8 @@ def report(tag, name, fn):
 
 def time_dots(ko, dev, gen):
     factory = hasattr(ko, "pcg_work")
-    print(f"k8time  pcg_work {factory}")
+    fused = hasattr(ko, "pcg_dot2_direction")
+    print(f"k8time  pcg_work {factory}  pcg_dot2_direction {fused}")
     for layout, shape in SHAPES.items():
         for dtype in (torch.float32, torch.float64):
             r, z, p, Ap = (torch.randn(shape, generator=gen, device=dev, dtype=dtype)
@@ -169,10 +178,19 @@ def time_dots(ko, dev, gen):
             wk = (ko.pcg_work(sc, flag, None, 1, n) if factory
                   else ko.PcgWork(sc=sc, flag=flag, w=None, mode=1))
             stack = torch.stack([r.view(-1), z.view(-1)])
-            calls = {"pcg_dot": lambda: ko.pcg_dot(p, Ap, wk),
-                     "pcg_dot2": lambda: ko.pcg_dot2(r, z, wk),
-                     "torch.dot": lambda: torch.dot(p.view(-1), Ap.view(-1)),
-                     "torch.mv": lambda: torch.mv(stack, z.view(-1))}
+            beta, buf = sc[0] / sc[1], torch.empty_like(p)
+            calls = {"pcg_dot": lambda: ko.pcg_dot(p, Ap, wk)}
+            if fused:
+                calls["pcg_dot2_direction"] = lambda: ko.pcg_dot2_direction(r, z, p, wk)
+            else:
+                calls["pcg_dot2"] = lambda: ko.pcg_dot2(r, z, wk)
+                calls["pcg_dot2 + pcg_direction"] = lambda: ko.pcg_direction(
+                    p, z, ko.pcg_dot2(r, z, wk))
+            calls.update({"torch.dot": lambda: torch.dot(p.view(-1), Ap.view(-1)),
+                          "torch.mv": lambda: torch.mv(stack, z.view(-1)),
+                          "torch.mv + torch.addcmul out=": lambda: (
+                              torch.mv(stack, z.view(-1)),
+                              torch.addcmul(z, beta, p, out=buf))})
             for name, fn in calls.items():
                 report("k8time", f"{layout} {str(dtype):14s} {name}", fn)
 
@@ -218,7 +236,8 @@ def time_coarse(coarse, dev, gen):
 
 def time_to_pair(pairs, dev, gen):
     list_form = "out" in inspect.signature(pairs.to_pair).parameters
-    print(f"k4time  list form {list_form}")
+    add_forms = "add" in inspect.signature(pairs.from_pair).parameters
+    print(f"k4time  list form {list_form}  from_pair add forms {add_forms}")
     pm = {"live1": torch.rand(NPAIR, generator=gen, device=dev) < 0.98}
     for dtype in (torch.float32, torch.float64):
         vecs = [torch.randn((ND, 2 * NPAIR), generator=gen, device=dev, dtype=dtype)
@@ -243,6 +262,29 @@ def time_to_pair(pairs, dev, gen):
         if list_form:
             calls["to_pair out="] = lambda: [pairs.to_pair(pm, vecs, out=bufs[0]),
                                              pairs.to_pair(pm, vecsK, out=bufs[1])]
+        for name, fn in calls.items():
+            report("k4time", f"{str(dtype):14s} {name}", fn)
+
+        # back: the EMI solution (ND * 2, NPAIR) plus its guess, the KNP one
+        # (IONS, ND * 2, NPAIR) added to c
+        xp, guess = bufs[0][1], bufs[0][2]
+        xpK, cK = bufs[1][1], vecsK[1]
+        cells = lambda v: torch.movedim(v.reshape(*v.shape[:-2], 2, ND, NPAIR), -3, -1)
+        obufs = [torch.empty_like(vecs[0]), torch.empty_like(cK)]
+        if add_forms:
+            solver = lambda: [pairs.from_pair(pm, xp, add=guess),
+                              pairs.from_pair(pm, xpK, base=cK)]
+        else:
+            solver = lambda: [pairs.from_pair(pm, guess + xp), cK + pairs.from_pair(pm, xpK)]
+        calls = {"from_pair (as the solver)": solver,
+                 "torch.add out= (views)": lambda: [
+                     torch.add(cells(xp), cells(guess), out=obufs[0].view(ND, NPAIR, 2)),
+                     torch.add(cK.view(-1, ND, NPAIR, 2), cells(xpK),
+                               out=obufs[1].view(-1, ND, NPAIR, 2))]}
+        if add_forms:
+            calls["from_pair out="] = lambda: [
+                pairs.from_pair(pm, xp, add=guess, out=obufs[0]),
+                pairs.from_pair(pm, xpK, base=cK, out=obufs[1])]
         for name, fn in calls.items():
             report("k4time", f"{str(dtype):14s} {name}", fn)
 
