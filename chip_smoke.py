@@ -263,14 +263,18 @@ def exact(ref):
 
 
 def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results, inputs=(),
-            flops=0.0, library_fn=None, record=True, timed=None):
+            flops=0.0, library_fn=None, record=True, timed=None, extra_bytes=0,
+            whole_bytes=None):
     """Check one kernel against its plain version; when ``record``, time
     the kernel, the plain version and the library call per dtype and store
-    them with the bound (``inputs`` read once, the outputs written once,
-    ``flops`` operations).  kernel_fn/plain_fn return a list of tensors,
-    scale_fn maps the plain outputs to the error scales (see TOL).
-    ``timed`` = (kernel, plain) functions to time instead of the checked
-    ones (an in-place kernel is checked on a copy, timed without one)."""
+    them with the bound (``inputs`` read once plus ``extra_bytes`` of
+    inputs the work reads in part, the outputs written once, ``flops``
+    operations).  kernel_fn/plain_fn return a list of tensors, scale_fn
+    maps the plain outputs to the error scales (see TOL).  ``timed`` =
+    (kernel, plain) functions to time instead of the checked ones (an
+    in-place kernel is checked on a copy, timed without one).
+    ``whole_bytes``: the input bytes counting every input whole, whose
+    bound is printed beside the work's."""
     got, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     errs = [err(a, b, sc) for a, b, sc in zip(got, ref, scale_fn(ref))]
@@ -289,7 +293,7 @@ def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results, inputs=(),
     entry["ms"] = cuda_ms(k_fn)
     entry["plain_ms"] = cuda_ms(p_fn)
     entry["library_ms"] = cuda_ms(library_fn) if library_fn is not None else None
-    byte_ms = 1e3 * (nbytes(inputs) + nbytes(got)) / PEAK_BYTES_S
+    byte_ms = 1e3 * (nbytes(inputs) + extra_bytes + nbytes(got)) / PEAK_BYTES_S
     op_ms = 1e3 * flops / PEAK_FLOPS[dtype]
     entry["bound_ms"] = max(byte_ms, op_ms)
     entry["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
@@ -298,6 +302,10 @@ def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results, inputs=(),
     print(f"time    {name:30s} {str(dtype):14s} kernel {entry['ms']:.4f} ms  "
           f"plain {entry['plain_ms']:.4f} ms{lib}  bound {entry['bound_ms']:.4f} ms "
           f"({entry['bound_by']})")
+    if whole_bytes is not None:
+        print(f"bound   {name:30s} {str(dtype):14s} {byte_ms:.4f} ms the work's bytes, "
+              f"{1e3 * (whole_bytes + nbytes(got)) / PEAK_BYTES_S:.4f} ms counting every "
+              f"input whole")
 
 
 def inv_scale(P, inv):
@@ -323,6 +331,83 @@ def lib_apply(Pinv, r):
     """One batched torch.matmul for the block-Jacobi apply."""
     return torch.matmul(torch.movedim(Pinv, -1, -3),
                         torch.movedim(r, -1, -2)[..., None])
+
+
+def bsr_matrix(rows, cols, vals, n_rows, n_cols):
+    """torch.sparse_bsr_tensor of the square blocks vals (nnz, b, b) at the
+    block positions (rows, cols), duplicates summed: a library call's
+    operand, built once outside its timing."""
+    import warnings
+
+    b = vals.shape[-1]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)     # "beta state", invariant checks
+        coo = torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]), vals,
+                                      (n_rows, n_cols, b, b)).coalesce()
+        r, c = coo.indices()
+        crow = torch.zeros(n_rows + 1, dtype=torch.int32, device=vals.device)
+        crow[1:] = torch.cumsum(torch.bincount(r, minlength=n_rows), 0)
+        return torch.sparse_bsr_tensor(crow, c.int(), coo.values().contiguous(),
+                                       (n_rows * b, n_cols * b), check_invariants=False)
+
+
+def bell_bsr(B, nbr):
+    """One cell-layout system (B (K, nd, nd, nc), nbr (K, nc)) as a BSR
+    matrix of nd x nd blocks on the dof vector ordered (cell, dof)."""
+    K, nd, _, nc = B.shape
+    rows = torch.arange(nc, device=B.device).repeat(K)
+    vals = B.permute(0, 3, 1, 2).reshape(K * nc, nd, nd)
+    return bsr_matrix(rows, nbr.reshape(-1), vals, nc, nc)
+
+
+def pair_bsr(pd, pe, pm):
+    """One pair-layout system as a BSR matrix of nd x nd blocks on the dof
+    vector ordered (half, pair, dof): the pair diagonal's four blocks and
+    each external slot's owner-half block at its gather column."""
+    from knpemidg_tpu_torch.ops import pairs
+
+    nd, npair = pe.shape[2], pe.shape[-1]
+    p = torch.arange(npair, device=pd.device)
+    rows, cols, vals = [], [], []
+    for hr in range(2):
+        for hc in range(2):
+            rows.append(hr * npair + p)
+            cols.append(hc * npair + p)
+            vals.append(pd[hr * nd:(hr + 1) * nd, hc * nd:(hc + 1) * nd].permute(2, 0, 1))
+    own = pairs.owner_half_rows(pm, nd)[:, nd, 0]        # (S, npair): owner is half 1
+    for t in range(pe.shape[0]):
+        h = own[t].long()
+        rows.append(h * npair + p)
+        cols.append(pm["ext_col"][t].long())
+        vals.append(torch.where(own[t][:, None, None], pe[t, nd:].permute(2, 0, 1),
+                                pe[t, :nd].permute(2, 0, 1)))
+    return bsr_matrix(torch.cat(rows), torch.cat(cols), torch.cat(vals), 2 * npair, 2 * npair)
+
+
+def bsr_library(name, dtype, systems):
+    """The library call of a matvec row: one torch.sparse_bsr_tensor product
+    per system, ``systems`` a list of (make the BSR matrix, vector in the
+    matrix's dof order, the plain output in that order).  Returns the
+    function to time, or None with torch's reason printed when torch does
+    not take the product or the product is not the kernel's function."""
+    try:
+        mats = [(make(), u.contiguous()) for make, u, _ in systems]
+        outs = [A @ u for A, u in mats]
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        print(f"library {name:30s} {str(dtype):14s} none (torch: "
+              f"{str(e).strip().splitlines()[0][:160]})")
+        return None
+    diff = max(float((o - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+               for o, (_, _, ref) in zip(outs, systems))
+    print(f"library {name:30s} {str(dtype):14s} torch.sparse_bsr_tensor @ vector, "
+          f"{len(mats)} products, max |bsr - plain| / max |plain| {diff:.1e}")
+    # a sanity check of the conversion (a wrong block is an error of order 1),
+    # not a tolerance of the library's rounding
+    if not diff <= 1e3 * TOL[dtype][name]:
+        print(f"library {name:30s} {str(dtype):14s} none (the BSR product disagrees)")
+        return None
+    return lambda: [A @ u for A, u in mats]
 
 
 def coarse_abs(co):
@@ -473,6 +558,12 @@ def kernel_phase(S, state, results):
         B, x = blocks.to(dtype), rhs.to(dtype)
         BK, xK = blocksK.to(dtype), rhsK.to(dtype)
         P, PK = Pd.to(dtype).contiguous(), BK[:, 0].contiguous()
+        cells = lambda v: v.t().reshape(-1)               # (nd, nc) -> (cell, dof)
+        bell_lib = bsr_library("bell_matvec", dtype, [
+            (lambda B_=B_, nb=nbr: bell_bsr(B_, nb), cells(v), cells(ref))
+            for B_, v, ref in [(B, x, spmv.bell_matvec_plain(B, nbr, x))]
+            + [(BK[k], xK[k], spmv.bell_matvec_plain(BK[k], nbr, xK[k]))
+               for k in range(BK.shape[0])]])
         compare("bell_matvec", dtype,
                 lambda: [spmv.bell_matvec(B, nbr, x), spmv.bell_matvec_multi(BK, nbr, xK)],
                 lambda: [spmv.bell_matvec_plain(B, nbr, x),
@@ -480,7 +571,7 @@ def kernel_phase(S, state, results):
                 lambda ref: [spmv.bell_matvec_plain(B.abs(), nbr, x.abs()),
                              spmv.bell_matvec_multi_plain(BK.abs(), nbr, xK.abs())],
                 results, inputs=[B, nbr, x, BK, nbr, xK],
-                flops=2.0 * (B.numel() + BK.numel()))
+                flops=2.0 * (B.numel() + BK.numel()), library_fn=bell_lib)
         compare("block_jacobi_inverse", dtype,
                 lambda: [spmv.block_jacobi_inverse(P), spmv.block_jacobi_inverse(PK)],
                 lambda: [spmv.block_jacobi_inverse_plain(P),
@@ -559,6 +650,15 @@ def pair_kernel_phase(S, state, results):
     print(f"shapes  pair EMI pd {tuple(pd.shape)} pe {tuple(pe.shape)}  KNP pd "
           f"{tuple(pdK.shape)} pe {tuple(peK.shape)}  padded cells {rhs.shape[-1]}")
     halves = S._pair_bj_halves
+    # the pair matvec kernel reads only the owner half's rows of each
+    # external slot: the operators must be exactly zero in the other half
+    own = pairs.owner_half_rows(pm, S.nd)
+    zero = {k: not bool(blk.masked_select(~own).any()) for k, blk in (("EMI", pe[None]),
+                                                                        ("KNP", peK))}
+    print(f"invariant pe exactly zero outside each slot's owner half: EMI {zero['EMI']}, "
+          f"KNP {zero['KNP']}")
+    if not all(zero.values()):
+        raise AssertionError("a pair operator is not zero outside the owner halves")
 
     for dtype in (torch.float32, torch.float64):
         cast = lambda ts: [t.to(dtype).contiguous() for t in ts]
@@ -629,14 +729,23 @@ def pair_kernel_phase(S, state, results):
         D, E = pd.to(dtype), pe.to(dtype)
         DK, EK = pdK.to(dtype), peK.to(dtype)
         r, rK = pairs.to_pair(pm, rhs.to(dtype)), pairs.to_pair(pm, rhsK.to(dtype))
+        halves_order = lambda v: v.reshape(2, S.nd, npair).transpose(1, 2).reshape(-1)
+        pair_lib = bsr_library("pair_matvec", dtype, [
+            (lambda a=a, b=b: pair_bsr(a, b, pm), halves_order(v),
+             halves_order(pairs.pair_matvec_plain(a, b, pm, v)))
+            for a, b, v in [(D, E, r)] + [(DK[k], EK[k], rK[k]) for k in range(DK.shape[0])]])
+        # the work: pd, the owner-half rows of pe, x, ext_col, the mask, y
+        pe_bytes = (int(own.sum()) * S.nd * (1 + DK.shape[0])) * E.element_size()
         compare("pair_matvec", dtype,
                 lambda: [pairs.pair_matvec(D, E, pm, r), pairs.pair_matvec_multi(DK, EK, pm, rK)],
                 lambda: [pairs.pair_matvec_plain(D, E, pm, r),
                          pairs.pair_matvec_multi_plain(DK, EK, pm, rK)],
                 lambda ref: [pairs.pair_matvec_plain(D.abs(), E.abs(), pm, r.abs()),
                              pairs.pair_matvec_multi_plain(DK.abs(), EK.abs(), pm, rK.abs())],
-                results, inputs=[D, E, r, DK, EK, rK, pm["ext_col"]],
-                flops=2.0 * (D.numel() + E.numel() + DK.numel() + EK.numel()))
+                results, inputs=[D, r, DK, rK, pm["ext_col"], pm["ext_hmask"]],
+                extra_bytes=pe_bytes, whole_bytes=nbytes([D, E, r, DK, EK, rK, pm["ext_col"]]),
+                flops=2.0 * (D.numel() + DK.numel()) + 2.0 * pe_bytes / E.element_size(),
+                library_fn=pair_lib)
 
         # the main path's 'halves' diagonals are timed; the full ones checked
         P_h = (Pd.to(dtype) * halves.to(dtype)).contiguous()
@@ -978,6 +1087,8 @@ def assembly_phase(S, state, results, layout):
     Ich64 = 1e-2 * randn(Ich0)
     Ich64[:, -1] = 0.0
     statics64 = S._knp_static_blocks[-1]
+    n_mem_facets = int(S.masks["f_mem"].sum())
+    facet_tables = [k for k in asm._EMI_FACET_TABLES if not k.startswith("E_")]
     inv_Lp2 = 1.0 / S.Lp ** 2
     z_elim = float(S.ion_list[-1].z)
     print(f"shapes  {layout} assembly: {S.g['G'].shape[-1]} cells, "
@@ -1013,7 +1124,11 @@ def assembly_phase(S, state, results, layout):
                                                      pM.abs(), mema, p.F, p.C_phi, S.tau,
                                                      neg=1.0))),
                 results, inputs=[kappa, flux, pM, mem["inv"], masks["f_sip"],
-                                 masks["f_mem"]] + gt(*asm._EMI_FACET_TABLES))
+                                 masks["f_mem"]] + gt(*facet_tables),
+                # the jump-jump tables at the membrane facets only
+                extra_bytes=4 * S.nd ** 2 * n_mem_facets * kappa.element_size(),
+                whole_bytes=nbytes([kappa, flux, pM, mem["inv"], masks["f_sip"],
+                                    masks["f_mem"]] + gt(*asm._EMI_FACET_TABLES)))
         *M, b_p, b_m = asm.emi_facet_plain(g, masks, kappa, flux, pM, mem, p.F, p.C_phi,
                                            S.tau)
         compare(name("emi_emit_cell"), dtype,

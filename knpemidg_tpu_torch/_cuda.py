@@ -70,7 +70,7 @@ _SIGNATURES = {
     "knp_bj_inverse": (_P, _P, _I, _I, _I, _P),
     "knp_bj_apply": (_P, _P, _P, _I, _I, _I, _P),
     "knp_membrane_rk4": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _P),
-    "knp_pair_matvec": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "knp_pair_matvec": (_P,) * 6 + (_I,) * 4 + (_P,),
     "knp_to_pair": (_P,) * 6 + (_I,) * 4 + (_P,),
     "knp_from_pair": (_P,) * 4 + (_I,) * 3 + (_P,),
     "knp_gather_blocks_pair": (_P,) * 18 + (_I,) * 6 + (_D, _P),

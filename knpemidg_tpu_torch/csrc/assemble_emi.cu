@@ -21,21 +21,35 @@
 //                  gathers.
 //
 // Bound: device-memory bandwidth.  The facet kernel must read the trace
-// tables f_Rp/f_Rm and the four static E tensors once and write four facet
-// block arrays; the emit reads those and writes the operator.  Design: one
-// thread per (block entry (i, j), facet or cell) with the long axis fastest,
-// so every store is a coalesced row and a thread keeps a dozen accumulators
-// (one thread per facet with four nd x nd blocks over the quadrature points
-// would spill).  Each (i, j) thread recomputes its facet's kappa traces from
-// the cached tables.  Masked-out and dummy facets are written with selects,
+// tables f_Rp/f_Rm, the n . grad(basis) rows and the facet scalars once,
+// the static jump-jump tables E_pp..E_mm at the membrane facets only (they
+// are multiplied by zero elsewhere), and write four facet block arrays and
+// the two facet rhs arrays; the emit reads those and writes the operator.
+// Design of the facet kernel: one block per tile of 32 facets and one warp
+// per row i of the blocks, so every store is a coalesced row.  The block
+// stages the tile's trace rows (nq x nd a side), both cells' kappa, the
+// n . grad rows and the flux sums in shared memory with coalesced loads,
+// forms each facet's kappa traces once per quadrature point, and only then
+// does each (row, facet) thread sum, from shared memory, in the plain
+// version's order: its row sums, shared with the other rows through shared
+// memory, then one column j at a time the four penalty sums of entry
+// (i, j) and the entry itself, stored before the next column's sums.  The tables are read from memory
+// once a launch, not once per block entry.  A thread per (row, facet)
+// rather than per (entry, facet) keeps nd times fewer threads a facet,
+// so more facets are in flight on an SM at the registers a thread needs.
+// The cell and emit kernels run one thread per (block entry, cell) with
+// cells fastest.  Masked-out and dummy facets are written with selects,
 // never products, so their blocks are exactly zero whatever their traces.
-// No atomics: results repeat bit for bit.  The emit adds in the plain
-// version's order (A_cell, slot 0..d) and the file is compiled without
-// fused multiply-adds, so the emit equals its plain version exactly.
+// No atomics: results repeat bit for bit.  The file is compiled without
+// fused multiply-adds, so every product and sum of the facet kernel rounds
+// as written, and the emit adds in the plain version's order (A_cell, slot
+// 0..d) and equals its plain version exactly.
 #include "common.cuh"
 
 #define KNP_MAXND 4
 #define KNP_MAXD 3
+#define KNP_MAXNQ 12      // facet quadrature points: every triangle rule of fem/quadrature
+#define EMI_TILE 32       // facets per emi_facet block, one a lane
 
 template <typename T>
 __global__ void emi_cell_kernel(const T* __restrict__ z, const T* __restrict__ D,
@@ -98,8 +112,15 @@ __global__ void emi_cell_kernel(const T* __restrict__ z, const T* __restrict__ D
     }
 }
 
+// One block per tile of EMI_TILE consecutive facets, one warp per row i of
+// the blocks (nd warps): lane l of warp i holds row i of the four blocks of
+// facet f0 + l.  The block stages the tile's tables in shared memory (rows
+// of EMI_TILE facets; dynamic, sized by nq and nd):
+//   f_Rp, f_Rm (q, a); w kp, w km, w pen (q); kappa at cp, at cm (a), the
+//   flux sums fp, fm; gnp, gnm (a); the row sums sPp, sPm, sMp, sMm (a);
+//   the flux average.
 template <typename T>
-__global__ void emi_facet_kernel(
+__global__ void __launch_bounds__(KNP_MAXND * EMI_TILE) emi_facet_kernel(
     const T* __restrict__ kappa, const T* __restrict__ flux, const T* __restrict__ gr,
     const int* __restrict__ inv_mem, const int* __restrict__ f_cp,
     const int* __restrict__ f_cm, const T* __restrict__ f_n, const T* __restrict__ f_area,
@@ -110,86 +131,140 @@ __global__ void emi_facet_kernel(
     const unsigned char* __restrict__ f_mem, T* __restrict__ Mpp, T* __restrict__ Mpm,
     T* __restrict__ Mmp, T* __restrict__ Mmm, T* __restrict__ b_p, T* __restrict__ b_m,
     int nq, int nd, int d, int nc, int nf1, T tau, T C_phi, T F) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)nd * nd * nf1) return;
-  const int f = (int)(idx % nf1);
-  const int ij = (int)(idx / nf1);
-  const int j = ij % nd, i = ij / nd;
+  extern __shared__ __align__(16) unsigned char emi_smem[];
+  const int nqd = nq * nd;
+  T* sRp = reinterpret_cast<T*>(emi_smem);
+  T* sRm = sRp + nqd * EMI_TILE;
+  T* sw = sRm + nqd * EMI_TILE;
+  T* sk = sw + 3 * nq * EMI_TILE;
+  T* sgn = sk + (2 * nd + 2) * EMI_TILE;
+  T* sS = sgn + 2 * nd * EMI_TILE;
+  T* sfavg = sS + 4 * nd * EMI_TILE;
+  const int lane = threadIdx.x % EMI_TILE, i = threadIdx.x / EMI_TILE;
+#define ROW(base, r) (base)[(r) * EMI_TILE + lane]
+  const int f = blockIdx.x * EMI_TILE + lane;
+  const bool live = f < nf1;
   const size_t n1 = (size_t)nf1, n = (size_t)nc;
-  const bool sip = f_sip[f] != 0, mem = f_mem[f] != 0;
-  const int cp = f_cp[f], cm = f_cm[f];
-  const T area = f_area[f];
+  const int cp = live ? f_cp[f] : 0, cm = live ? f_cm[f] : 0;
 
-  T kP[KNP_MAXND], kM[KNP_MAXND];
+  // stage 1: warp i loads column i of the trace tables at every quadrature
+  // point and row i of n . grad, issued back to back, and gathers kappa at
+  // both cells in row i; warps 0 and 1 sum the flux at cp and cm
 #pragma unroll
-  for (int a = 0; a < KNP_MAXND; ++a) {
-    kP[a] = a < nd ? kappa[(size_t)a * n + cp] : T(0);
-    kM[a] = a < nd ? kappa[(size_t)a * n + cm] : T(0);
+  for (int q = 0; q < KNP_MAXNQ; ++q)
+    if (q < nq) {
+      const size_t o = (size_t)(q * nd + i) * n1 + f;
+      ROW(sRp, q * nd + i) = live ? f_Rp[o] : T(0);
+      ROW(sRm, q * nd + i) = live ? f_Rm[o] : T(0);
+    }
+  ROW(sgn, i) = live ? gnp[(size_t)i * n1 + f] : T(0);
+  ROW(sgn, nd + i) = live ? gnm[(size_t)i * n1 + f] : T(0);
+  ROW(sk, i) = live ? kappa[(size_t)i * n + cp] : T(0);
+  ROW(sk, nd + i) = live ? kappa[(size_t)i * n + cm] : T(0);
+  if (i < 2) {
+    const int c = i == 0 ? cp : cm;
+    T v = T(0);
+    if (live) {
+#pragma unroll
+      for (int e = 0; e < KNP_MAXD; ++e)
+        if (e < d) v += flux[(size_t)e * n + c] * f_n[(size_t)e * n1 + f];
+    }
+    ROW(sk, 2 * nd + i) = v;
   }
-  // S(R_v, k_u)[row] = sum_q (w_q k_u[q]) R_v[q, row] at rows i and j; the
-  // penalty sums sum_q (w_q pen_q) (R_v[q, i] R_u[q, j]); sum_q w_q R[q, i]
-  T sPp_i = 0, sPm_i = 0, sMp_i = 0, sMm_i = 0;
-  T sPp_j = 0, sPm_j = 0, sMp_j = 0, sMm_j = 0;
-  T Ppp = 0, Ppm = 0, Pmp = 0, Pmm = 0, wRp = 0, wRm = 0;
-  for (int q = 0; q < nq; ++q) {
-    const T* Rp = f_Rp + (size_t)q * nd * n1 + f;
-    const T* Rm = f_Rm + (size_t)q * nd * n1 + f;
+  __syncthreads();
+  // stage 2: w kp, w km and w pen at each quadrature point and the flux
+  // average, once a facet
+  for (int q = i; q < nq; q += nd) {
     T kp = T(0), km = T(0);
 #pragma unroll
     for (int a = 0; a < KNP_MAXND; ++a)
       if (a < nd) {
-        kp += Rp[(size_t)a * n1] * kP[a];
-        km += Rm[(size_t)a * n1] * kM[a];
+        kp += ROW(sRp, q * nd + a) * ROW(sk, a);
+        km += ROW(sRm, q * nd + a) * ROW(sk, nd + a);
       }
-    const T rp_i = Rp[(size_t)i * n1], rp_j = Rp[(size_t)j * n1];
-    const T rm_i = Rm[(size_t)i * n1], rm_j = Rm[(size_t)j * n1];
     const T w = w_f[q];
-    const T wkp = w * kp, wkm = w * km;
-    sPp_i += wkp * rp_i;  sPp_j += wkp * rp_j;
-    sPm_i += wkm * rp_i;  sPm_j += wkm * rp_j;
-    sMp_i += wkp * rm_i;  sMp_j += wkp * rm_j;
-    sMm_i += wkm * rm_i;  sMm_j += wkm * rm_j;
-    const T wpen = w * (T(0.5) * (kp + km));
-    Ppp += wpen * (rp_i * rp_j);
-    Ppm += wpen * (rp_i * rm_j);
-    Pmp += wpen * (rm_i * rp_j);
-    Pmm += wpen * (rm_i * rm_j);
+    ROW(sw, q) = w * kp;
+    ROW(sw, nq + q) = w * km;
+    ROW(sw, 2 * nq + q) = w * (T(0.5) * (kp + km));
+  }
+  if (i == nd - 1)
+    ROW(sfavg, 0) = live && f_sip[f] != 0
+                        ? (T(0.5) * F) * (ROW(sk, 2 * nd) + ROW(sk, 2 * nd + 1)) : T(0);
+  __syncthreads();
+  // stage 3: row i's sums S(R_v, k_u)[i] = sum_q (w_q k_u[q]) R_v[q, i] and
+  // sum_q w_q R[q, i], shared with the other rows
+  T sPp = 0, sPm = 0, sMp = 0, sMm = 0, wRp = 0, wRm = 0;
+  for (int q = 0; q < nq; ++q) {
+    const T w = w_f[q];
+    const T wkp = ROW(sw, q), wkm = ROW(sw, nq + q);
+    const T rp_i = ROW(sRp, q * nd + i), rm_i = ROW(sRm, q * nd + i);
+    sPp += wkp * rp_i;
+    sPm += wkm * rp_i;
+    sMp += wkp * rm_i;
+    sMm += wkm * rm_i;
     wRp += w * rp_i;
     wRm += w * rm_i;
   }
-  const T gnp_i = gnp[(size_t)i * n1 + f], gnp_j = gnp[(size_t)j * n1 + f];
-  const T gnm_i = gnm[(size_t)i * n1 + f], gnm_j = gnm[(size_t)j * n1 + f];
-  const T hm = T(-0.5) * area, hp = T(0.5) * area;
-  // -<avg(k grad u).n, [v]> and its transposed twin with the sides swapped
-  const T t1_pp = (hm * sPp_i) * gnp_j, t2_pp = (hm * sPp_j) * gnp_i;
-  const T t1_pm = (hm * sPm_i) * gnm_j, t2_pm = (hp * sMp_j) * gnp_i;
-  const T t1_mp = (hp * sMp_i) * gnp_j, t2_mp = (hm * sPm_j) * gnm_i;
-  const T t1_mm = (hp * sMm_i) * gnm_j, t2_mm = (hp * sMm_j) * gnm_i;
-  const T scale = (tau / f_havg[f]) * area;
-  const T cs = mem ? C_phi * area : T(0);
-  const size_t o = (size_t)ij * n1 + f;
-  Mpp[o] = (sip ? (t1_pp + t2_pp) + scale * Ppp : T(0)) + cs * E_pp[o];
-  Mpm[o] = (sip ? (t1_pm + t2_pm) + (-scale) * Ppm : T(0)) + (-cs) * E_pm[o];
-  Mmp[o] = (sip ? (t1_mp + t2_mp) + (-scale) * Pmp : T(0)) + (-cs) * E_mp[o];
-  Mmm[o] = (sip ? (t1_mm + t2_mm) + scale * Pmm : T(0)) + cs * E_mm[o];
+  ROW(sS, i) = sPp;
+  ROW(sS, nd + i) = sPm;
+  ROW(sS, 2 * nd + i) = sMp;
+  ROW(sS, 3 * nd + i) = sMm;
+  __syncthreads();
+  if (!live) return;
 
-  if (j != 0) return;
-  // facet rhs: the flux average on SIP facets, the Robin source on membranes
-  T fp = T(0), fm = T(0);
-#pragma unroll
-  for (int e = 0; e < KNP_MAXD; ++e)
-    if (e < d) {
-      const T ne = f_n[(size_t)e * n1 + f];
-      fp += flux[(size_t)e * n + cp] * ne;
-      fm += flux[(size_t)e * n + cm] * ne;
+  // stage 4: row i of the four blocks, one column j at a time: the penalty
+  // sums sum_q (w_q pen_q) (R_v[q, i] R_u[q, j]), then the entries
+  const bool sip = f_sip[f] != 0, mem = f_mem[f] != 0;
+  const T area = f_area[f];
+  const T hm = T(-0.5) * area, hp = T(0.5) * area;
+  const T scale = (tau / f_havg[f]) * area;
+  const T cs = C_phi * area;
+  const T gnp_i = ROW(sgn, i), gnm_i = ROW(sgn, nd + i);
+#pragma unroll 1   // one column's four penalty sums live at a time
+  for (int j = 0; j < nd; ++j) {
+    T Ppp = 0, Ppm = 0, Pmp = 0, Pmm = 0;
+    for (int q = 0; q < nq; ++q) {
+      const T wpen = ROW(sw, 2 * nq + q);
+      const T rp_i = ROW(sRp, q * nd + i), rm_i = ROW(sRm, q * nd + i);
+      const T rp_j = ROW(sRp, q * nd + j), rm_j = ROW(sRm, q * nd + j);
+      Ppp += wpen * (rp_i * rp_j);
+      Ppm += wpen * (rp_i * rm_j);
+      Pmp += wpen * (rm_i * rp_j);
+      Pmm += wpen * (rm_i * rm_j);
     }
-  const T favg = sip ? (T(0.5) * F) * (fp + fm) : T(0);
+    const T sPp_j = ROW(sS, j), sPm_j = ROW(sS, nd + j);
+    const T sMp_j = ROW(sS, 2 * nd + j), sMm_j = ROW(sS, 3 * nd + j);
+    const T gnp_j = ROW(sgn, j), gnm_j = ROW(sgn, nd + j);
+    // -<avg(k grad u).n, [v]> and its transposed twin with the sides swapped
+    const T t1_pp = (hm * sPp) * gnp_j, t2_pp = (hm * sPp_j) * gnp_i;
+    const T t1_pm = (hm * sPm) * gnm_j, t2_pm = (hp * sMp_j) * gnp_i;
+    const T t1_mp = (hp * sMp) * gnp_j, t2_mp = (hm * sPm_j) * gnm_i;
+    const T t1_mm = (hp * sMm) * gnm_j, t2_mm = (hp * sMm_j) * gnm_i;
+    T vpp = sip ? (t1_pp + t2_pp) + scale * Ppp : T(0);
+    T vpm = sip ? (t1_pm + t2_pm) + (-scale) * Ppm : T(0);
+    T vmp = sip ? (t1_mp + t2_mp) + (-scale) * Pmp : T(0);
+    T vmm = sip ? (t1_mm + t2_mm) + scale * Pmm : T(0);
+    const size_t o = (size_t)(i * nd + j) * n1 + f;
+    if (mem) {
+      // C_phi <[u],[v]>: the static jump-jump tables, read on membrane facets only
+      vpp = vpp + cs * E_pp[o];
+      vpm = vpm + (-cs) * E_pm[o];
+      vmp = vmp + (-cs) * E_mp[o];
+      vmm = vmm + cs * E_mm[o];
+    }
+    Mpp[o] = vpp;
+    Mpm[o] = vpm;
+    Mmp[o] = vmp;
+    Mmm[o] = vmm;
+  }
+  // facet rhs: the flux average on SIP facets, the Robin source on membranes;
   // sum_q (w_q favg) R[q, i] with favg constant over the quadrature points
+  const T favg = ROW(sfavg, 0);
   T bp = T(0), bm = T(0);
   for (int q = 0; q < nq; ++q) {
     const T wf = w_f[q] * favg;
-    bp += wf * f_Rp[((size_t)q * nd + i) * n1 + f];
-    bm += (-wf) * f_Rm[((size_t)q * nd + i) * n1 + f];
+    bp += wf * ROW(sRp, q * nd + i);
+    bm += (-wf) * ROW(sRm, q * nd + i);
   }
   bp = area * bp;
   bm = area * bm;
@@ -201,6 +276,7 @@ __global__ void emi_facet_kernel(
   }
   b_p[(size_t)i * n1 + f] = bp;
   b_m[(size_t)i * n1 + f] = bm;
+#undef ROW
 }
 
 template <typename T>
@@ -262,7 +338,9 @@ __global__ void emi_emit_cell_kernel(
       const unsigned char* f_mem, T* Mpp, T* Mpm, T* Mmp, T* Mmm, T* b_p, T* b_m,        \
       int nq, int nd, int d, int nc, int nf1, double tau, double C_phi, double F,        \
       void* stream) {                                                                    \
-    emi_facet_kernel<T><<<knp_blocks((long long)nd * nd * nf1), KNP_THREADS, 0,          \
+    if (nd < 2 || nd > KNP_MAXND || nq > KNP_MAXNQ) return (int)cudaErrorInvalidValue;   \
+    const size_t smem = (size_t)(2 * nq * nd + 3 * nq + 8 * nd + 3) * EMI_TILE * sizeof(T); \
+    emi_facet_kernel<T><<<(nf1 + EMI_TILE - 1) / EMI_TILE, nd * EMI_TILE, smem,          \
                           (cudaStream_t)stream>>>(                                       \
         kappa, flux, gr, inv_mem, f_cp, f_cm, f_n, f_area, f_havg, f_Rp, f_Rm, gnp, gnm, \
         E_pp, E_pm, E_mp, E_mm, w_f, f_sip, f_mem, Mpp, Mpm, Mmp, Mmm, b_p, b_m, nq, nd, \

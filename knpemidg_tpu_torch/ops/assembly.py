@@ -42,6 +42,7 @@ from .. import _cuda
 from .pairs import gather_blocks_pair, gather_blocks_pair_multi
 
 MAX_ND, MAX_D = 4, 3      # the kernels' register arrays (DG1 in 2D and 3D)
+MAX_NQ = 12               # emi_facet's shared tile: every facet rule of fem/quadrature
 
 
 def _degree1(g):
@@ -329,6 +330,10 @@ def emi_facet(g, masks, kappa, flux, gr, mem_t, F, C_phi, tau):
     if not kappa.is_cuda:
         return emi_facet_plain(g, masks, kappa, flux, gr, mem_t, F, C_phi, tau)
     nq, nd, d, nc, nf1 = _dims(g)
+    if nq > MAX_NQ:
+        raise NotImplementedError(
+            f"emi_facet: CUDA kernel built for nq <= {MAX_NQ} facet quadrature points, "
+            f"got {nq}")
     dt_ = kappa.dtype
     nm = mem_t["cp"].shape[0]
     ins = _inputs(dt_, kappa=(kappa, (nd, nc)), flux=(flux, (d, nc)), gr=(gr, (nm + 1,)))

@@ -246,9 +246,21 @@ def interleave_pair_maps(pm: Dict[str, np.ndarray], nc: int,
     return new, perm
 
 
+def owner_half_mask(ext_h: np.ndarray) -> np.ndarray:
+    """(npair,) uint8 owner halves of the external slots, one bit a slot:
+    bit t of pair p is ext_h[t, p] (S <= 8 slots)."""
+    ext_h = np.asarray(ext_h)
+    if ext_h.shape[0] > 8:
+        raise NotImplementedError("owner_half_mask: more than 8 external slots")
+    bits = ext_h.astype(np.uint8) << np.arange(ext_h.shape[0], dtype=np.uint8)[:, None]
+    return np.bitwise_or.reduce(bits, axis=0).astype(np.uint8)
+
+
 def pair_maps_to_device(pm: Dict[str, np.ndarray], device) -> Dict[str, object]:
     """Torch copies of the host maps on ``device``: bool arrays stay bool,
-    integer arrays become int32, the scalar ``nf`` a Python int."""
+    integer arrays become int32, the scalar ``nf`` a Python int.  Adds
+    ``ext_hmask`` (npair,) uint8, :func:`owner_half_mask` of ``ext_h``,
+    which the pair matvec kernel reads."""
     out = {}
     for k, v in pm.items():
         if np.ndim(v) == 0:
@@ -257,6 +269,7 @@ def pair_maps_to_device(pm: Dict[str, np.ndarray], device) -> Dict[str, object]:
             out[k] = torch.as_tensor(v, device=device)
         else:
             out[k] = torch.as_tensor(np.asarray(v, dtype=np.int32), device=device)
+    out["ext_hmask"] = torch.as_tensor(owner_half_mask(pm["ext_h"]), device=device)
     return out
 
 
@@ -508,20 +521,40 @@ def _pair_matvec_cuda(pd, pe, pm, xp, m):
     nd2, npair = xp.shape[-2], xp.shape[-1]
     nd = nd2 // 2
     S = pm["ext_col"].shape[0]
+    if nd > 4 or S > 8:
+        raise NotImplementedError(
+            f"pair_matvec: CUDA kernel built for nd <= 4 and S <= 8, got nd = {nd}, S = {S}")
     lead = (m,) if xp.dim() == 3 else ()
     _cuda.check("xp", xp)
     _cuda.check("pd", pd, xp.dtype, lead + (nd2, nd2, npair))
     _cuda.check("pe", pe, xp.dtype, lead + (S, nd2, nd, npair))
     _cuda.check("ext_col", pm["ext_col"], torch.int32, (S, npair))
+    _cuda.check("ext_hmask", pm["ext_hmask"], torch.uint8, (npair,))
     y = torch.empty_like(xp)
     _cuda.launch("pair_matvec", "knp_pair_matvec", xp.dtype, pd.data_ptr(),
-                 pe.data_ptr(), pm["ext_col"].data_ptr(), xp.data_ptr(),
-                 y.data_ptr(), m, nd, S, npair)
+                 pe.data_ptr(), pm["ext_col"].data_ptr(), pm["ext_hmask"].data_ptr(),
+                 xp.data_ptr(), y.data_ptr(), m, nd, S, npair)
     return y
 
 
+def owner_half_rows(pm, nd):
+    """(S, 2nd, 1, npair) bool, decoded from ``pm["ext_hmask"]``: the rows
+    of each external slot's block in its owner half, the only rows of
+    ``pe`` that are not zero and the only ones the pair matvec kernel
+    reads."""
+    S = pm["ext_col"].shape[0]
+    bits = pm["ext_hmask"].to(torch.int32)
+    dev = bits.device
+    h = (bits[None, :] >> torch.arange(S, dtype=torch.int32, device=dev)[:, None]) & 1
+    half = torch.arange(2 * nd, dtype=torch.int32, device=dev) // nd
+    return half[None, :, None, None] == h[:, None, None, :]
+
+
 def pair_matvec(pd, pe, pm, xp):
-    """Single-system pair matvec (kernel K3 on a CUDA tensor)."""
+    """Single-system pair matvec (kernel K3 on a CUDA tensor).  The kernel
+    reads only the owner half's rows of each external slot (``pm``'s
+    ``ext_hmask``): ``pe`` must be exactly zero in the other half, as the
+    emitters and :func:`cell_bell_to_pair` write it."""
     if not xp.is_cuda:
         return pair_matvec_plain(pd, pe, pm, xp)
     if xp.dim() != 2:
@@ -531,7 +564,8 @@ def pair_matvec(pd, pe, pm, xp):
 
 def pair_matvec_multi(pd, pe, pm, xp):
     """Ion-batched pair matvec (kernel K3 with m systems on a CUDA tensor):
-    one launch for all m operators sharing ``ext_col``."""
+    one launch for all m operators sharing ``ext_col``; ``pe`` zero outside
+    the owner halves, as for :func:`pair_matvec`."""
     if not xp.is_cuda:
         return pair_matvec_multi_plain(pd, pe, pm, xp)
     if xp.dim() != 3:

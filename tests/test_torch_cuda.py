@@ -573,6 +573,100 @@ def test_pair_emit_optional_parts_match_plain(pair_maps):
         assert len(got) == 3 and all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
+def _facet_case(rng, nd, nf1, nc, membrane, dtype, dev):
+    """emi_facet's inputs on nf1 random facets (the last one the dummy) of
+    nc cells in dimension nd - 1: SIP facets at random, membrane facets
+    none, all (but the dummy) or some."""
+    d, nq = nd - 1, {3: 3, 4: 6}[nd]
+    T = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    I = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int32), device=dev)
+    cp, cm = rng.integers(0, nc, nf1), rng.integers(0, nc, nf1)
+    sip = rng.random(nf1) < 0.7
+    mem = {"none": np.zeros(nf1, bool), "all": np.ones(nf1, bool),
+           "some": rng.random(nf1) < 0.2}[membrane]
+    sip[-1] = mem[-1] = False
+    fidx = np.flatnonzero(mem)
+    inv = np.full(nf1, -1)
+    inv[fidx] = np.arange(len(fidx))
+    Rp, Rm = rng.random((nq, nd, nf1)), rng.random((nq, nd, nf1))
+    Rp[..., -1] = Rm[..., -1] = 0.0
+    g = {"f_cp": I(cp), "f_cm": I(cm), "f_n": T(rng.standard_normal((d, nf1))),
+         "f_area": T(rng.uniform(0.5, 1.5, nf1)), "f_havg": T(rng.uniform(0.5, 1.5, nf1)),
+         "f_Rp": T(Rp), "f_Rm": T(Rm), "w_f": T(rng.uniform(0.1, 1.0, nq)),
+         "G": T(np.zeros((nd, d, nc))),
+         **{k: T(rng.standard_normal((nd, nf1))) for k in ("gnp", "gnm")},
+         **{k: T(rng.standard_normal((nd, nd, nf1))) for k in ("E_pp", "E_pm", "E_mp", "E_mm")}}
+    masks = {"f_sip": torch.as_tensor(sip, device=dev), "f_mem": torch.as_tensor(mem, device=dev)}
+    mem_t = {"fidx": I(fidx), "cp": I(cp[fidx]), "inv": I(inv), "Rp": T(Rp[:, :, fidx]),
+             "Rm": T(Rm[:, :, fidx])}
+    fields = (T(rng.uniform(0.5, 2.0, (nd, nc))), T(rng.standard_normal((d, nc))),
+              T(rng.standard_normal(len(fidx) + 1)))
+    return g, masks, mem_t, fields, ~(sip | mem)
+
+
+@pytest.mark.parametrize("membrane", ["none", "all", "some"])
+@pytest.mark.parametrize("nd", [3, 4])
+def test_emi_facet_tiles_and_membrane_facets(nd, membrane):
+    """emi_facet on a facet count that is not a multiple of its 32-facet
+    tile, with no, all or some membrane facets (the jump-jump tables are
+    read on those only), at nd = 3 (2D) and 4 (3D), in both dtypes: its
+    plain version to round-off, one launch a call, and the facets that are
+    neither SIP nor membrane exactly zero."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(12)
+    nf1, nc = 32 * 37 + 13, 500
+    for dtype, tol in DTYPES:
+        g, masks, mem_t, (kappa, flux, gr), off = _facet_case(rng, nd, nf1, nc, membrane,
+                                                              dtype, dev)
+        n0 = _cuda.LAUNCHES["emi_facet"]
+        got = assembly.emi_facet(g, masks, kappa, flux, gr, mem_t, 96.5, 2.0, 60.0)
+        assert _cuda.LAUNCHES["emi_facet"] == n0 + 1
+        ref = assembly.emi_facet_plain(g, masks, kappa, flux, gr, mem_t, 96.5, 2.0, 60.0)
+        for k, (a, b) in enumerate(zip(got, ref)):
+            assert rel(a, b) < tol, (dtype, k)
+        for M in got[:4]:
+            assert not bool(M[..., off].any())
+
+
+def test_pair_matvec_reads_only_the_owner_halves(pair_maps):
+    """pair_matvec at m = 1 and pair_matvec_multi at m = 2, on maps with
+    self-pairs, dummy slots and a thread count that is not a multiple of
+    the block: the plain version to round-off in both dtypes, and bit for
+    bit the same output when pe holds NaN outside the owner halves (the
+    kernel never reads those rows)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(13)
+    pm = pairs.pair_maps_to_device(pair_maps, dev)
+    S, npair = pair_maps["ext_f"].shape
+    assert (~pair_maps["live1"]).any() and (pair_maps["ext_f"] == pair_maps["nf"]).any()
+    assert npair % 128
+    nf1 = int(pair_maps["nf"]) + 1
+    rows = pairs.owner_half_rows(pm, 4)
+    for dtype, tol in DTYPES:
+        A = _rand(rng, (2, 4, 4, 2 * npair), dtype, dev)
+        Ms = [_rand(rng, (2, 4, 4, nf1), dtype, dev) for _ in range(4)]
+        for M in Ms:
+            M[..., -1] = 0.0
+        static = pairs.cell_bell_to_pair(pm, _rand(rng, (2, S // 2 + 2, 4, 4, 2 * npair),
+                                                    dtype, dev))
+        pd, pe = pairs.gather_blocks_pair_multi(None, pm, A, *Ms,
+                                                add=tuple(t.contiguous() for t in static))
+        xp = _rand(rng, (2, 8, npair), dtype, dev)
+        poisoned = torch.where(rows, pe, float("nan"))
+        n0 = _cuda.LAUNCHES["pair_matvec"]
+        for m in (1, 2):
+            D, E, x, P = (t[:m].contiguous() for t in (pd, pe, xp, poisoned))
+            if m == 1:
+                D, E, x, P = D[0], E[0], x[0], P[0]
+                mv, plain = pairs.pair_matvec, pairs.pair_matvec_plain
+            else:
+                mv, plain = pairs.pair_matvec_multi, pairs.pair_matvec_multi_plain
+            y = mv(D, E, pm, x)
+            assert rel(y, plain(D, E, pm, x)) < tol, (dtype, m)
+            assert torch.equal(mv(D, P, pm, x), y), (dtype, m)
+        assert _cuda.LAUNCHES["pair_matvec"] == n0 + 4
+
+
 def test_assembly_wrappers_raise_on_what_they_cannot_take():
     """Non-contiguous or mistyped inputs and shapes outside the kernels'
     register arrays (nd <= 4, d <= 3) raise on the card instead of running

@@ -238,6 +238,34 @@ def test_pair_matvecs_and_sums_match_jax(setup):
     assert rel(P.pair_v_sums(pdt[0], pet[0]), jP.pair_v_sums(pdK[0], peK[0])) < TOL
 
 
+def test_owner_half_mask_and_the_zero_halves_of_pe(setup):
+    """The pair matvec kernel's invariant: pair_maps_to_device's owner-half
+    mask decodes to the JAX package's ext_h, and the plain emit's pe (the
+    EMI form with its regularisation, the KNP form with a static operator
+    from cell_bell_to_pair added) is exactly zero outside each slot's owner
+    half, which owner_half_rows marks."""
+    pmj, pmt, pmh, nc = setup[1]
+    nd = setup["nd"]
+    S, npair = pmh["ext_h"].shape
+    hmask = pmt["ext_hmask"]
+    assert hmask.dtype == torch.uint8 and tuple(hmask.shape) == (npair,)
+    bits = (to_np(hmask)[None, :].astype(np.int32) >> np.arange(S)[:, None]) & 1
+    assert np.array_equal(bits, np.asarray(pmj["ext_h"]))
+    rows = P.owner_half_rows(pmt, nd)
+    assert np.array_equal(to_np(rows[:, :, 0]),
+                          (np.arange(2 * nd)[None, :, None] // nd) == bits[:, None, :])
+    rng = np.random.default_rng(11)
+    A, Ms = _rand_blocks(rng, nd, nc, int(pmh["nf"]) + 1, m=2)
+    args = [t64(a) for a in (A, Ms[0], Ms[2], Ms[3], Ms[1])]
+    reg = t64(rng.standard_normal((nd, nd, nc)))
+    _, pe, _ = P.gather_blocks_pair_plain(None, pmt, *(a[0] for a in args), reg=reg)
+    static = P.cell_bell_to_pair(pmt, t64(rng.standard_normal((2, S // 2 + 2, nd, nd, nc))))
+    _, peK = P.gather_blocks_pair_multi_plain(None, pmt, *args, add=static)
+    for blocks in (pe[None], peK):
+        assert not bool(blocks.masked_select(~rows).any())
+        assert bool(blocks.masked_select(rows).any())
+
+
 def test_cpu_pair_wrappers_launch_nothing(setup):
     """On CPU tensors the pair wrappers are their plain versions."""
     pmj, pmt, pmh, nc = setup[1]
