@@ -23,9 +23,9 @@ layout).  On the way it:
      (the JAX bench's SolverParams: AUTO Ritz deflation, 24 fields on the
      cell layout, none on the pair layout) with every launch counter reset
      first, and fails unless every solve converged, the fields are finite,
-     every kernel of that path was launched and (cell layout) the
-     preconditioner carries the Ritz fields; then reports the cell layout's
-     emi_ritz=0 window beside it;
+     every kernel of that path was launched, the K14 traces twice a step,
+     and (cell layout) the preconditioner carries the Ritz fields; then
+     reports the cell layout's emi_ritz=0 window beside it;
   6. runs the same protocol in float32 on each layout and reports its
      Krylov counts and whether each solve converged: on the cell layout
      with the device Ritz harvest (three runs, whose counts must repeat),
@@ -1192,19 +1192,43 @@ def assembly_phase(S, state, results, layout):
                 + gt("vol", "phibar", "cf_idx", "cf_is_plus")
                 + ([] if pair else list(MK) + [statics]))
 
-        # --- K14: one call of each mode, as a step's finalize and ODE
-        # inputs make them (per ion and tag on the main path) -----------------
-        coef = p.R * p.temperature / (p.F * float(S.ion_list[0].z))
+        # --- K14: a step's two launches (every ion's ODE-input traces in
+        # one call, the finalize jump in the other), then one call of each
+        # quantity on its own, checked only ---------------------------------
+        fields = list(c) + [ce]
+        coefs = [asm.nernst_coef(float(ion.z), p.F, p.R, p.temperature)
+                 for ion in S.ion_list]
+
+        def ln_scale(u, cf):
+            # ln(p / m): |ln| plus one rounding of each trace and of the ratio
+            tp_, tm_ = asm._mem_trace(g, mem, u, "p"), asm._mem_trace(g, mem, u, "m")
+            return abs(cf) * torch.einsum("q,qm->m", g["w_f"],
+                                          torch.log(tp_ / tm_).abs() + 3.0)
+
+        def jump_scale():
+            return (asm.membrane_avg_m_plain(ga, mema, phi.abs(), "p")
+                    + asm.membrane_avg_m_plain(ga, mema, phi.abs(), "m"))
+
+        def traces_scale(ref):
+            return [torch.stack([
+                torch.stack([asm.membrane_avg_m_plain(ga, mema, u.abs(), "p") for u in fields]),
+                torch.stack([asm.membrane_avg_m_plain(ga, mema, u.abs(), "m") for u in fields]),
+                torch.stack([ln_scale(u, cf) for u, cf in zip(fields, coefs)])]),
+                jump_scale()]
+
+        compare(name("membrane_trace"), dtype,
+                lambda: [asm.membrane_traces_m(g, mem, fields, coefs),
+                         asm.jump_phi_M_m(g, mem, phi)],
+                lambda: [asm.membrane_traces_m_plain(g, mem, fields, coefs),
+                         asm.jump_phi_M_m_plain(g, mem, phi)],
+                floored(traces_scale), results,
+                inputs=[mem["Rp"], mem["Rm"], mem["cp"], mem["cm"], g["w_f"]]
+                + [u[:, mem[side]] for u in fields + [phi] for side in ("cp", "cm")])
 
         def trace_scale(ref):
-            tp_, tm_ = asm._mem_trace(g, mem, c[0], "p"), asm._mem_trace(g, mem, c[0], "m")
-            # ln(p / m): |ln| plus one rounding of each trace and of the ratio
-            ln = abs(coef) * torch.einsum("q,qm->m", g["w_f"],
-                                          torch.log(tp_ / tm_).abs() + 3.0)
-            return [asm.membrane_avg_m_plain(ga, mema, phi.abs(), "p")
-                    + asm.membrane_avg_m_plain(ga, mema, phi.abs(), "m"),
-                    asm.membrane_avg_m_plain(ga, mema, c[0].abs(), "p"),
-                    asm.membrane_avg_m_plain(ga, mema, ce.abs(), "m"), ln]
+            return [jump_scale(), asm.membrane_avg_m_plain(ga, mema, c[0].abs(), "p"),
+                    asm.membrane_avg_m_plain(ga, mema, ce.abs(), "m"),
+                    ln_scale(c[0], coefs[0])]
 
         compare(name("membrane_trace"), dtype,
                 lambda: [asm.jump_phi_M_m(g, mem, phi), asm.membrane_avg_m(g, mem, c[0], "p"),
@@ -1216,10 +1240,7 @@ def assembly_phase(S, state, results, layout):
                          asm.membrane_avg_m_plain(g, mem, ce, "m"),
                          asm.nernst_potential_m_plain(g, mem, c[0], float(S.ion_list[0].z),
                                                       p.F, p.R, p.temperature)],
-                floored(trace_scale), results,
-                inputs=[mem["Rp"], mem["Rm"], mem["cp"], mem["cm"]] * 3
-                + [phi[:, mem["cp"]], phi[:, mem["cm"]], c[0][:, mem["cm"]],
-                   ce[:, mem["cm"]]] + [c[0][:, mem["cp"]]] * 2)
+                floored(trace_scale), results, record=False)
         rho = S.rho.to(dtype)
         compare(name("eliminated_concentration"), dtype,
                 lambda: [asm.eliminated_concentration(c, z, rho, z_elim)],
@@ -1262,10 +1283,11 @@ def small_reference_phase(layout):
 def window(S, sp, layout):
     """The protocol through the user entry point with the launch counters
     reset; asserts convergence (solve_system_active raises otherwise),
-    finite fields, the step count, every kernel of the path launched, one
-    pcg_dot2_direction launch per EMI iteration and (pairs) one from_pair
-    per solve, and the AUTO Ritz rule (24 fields in the cell pc, none in
-    the pair pc).  Returns (launches, median ms/step, median ODE ms)."""
+    finite fields, the step count, every kernel of the path launched, two
+    K14 trace launches a step, one pcg_dot2_direction launch per EMI
+    iteration and (pairs) one from_pair per solve, and the AUTO Ritz rule
+    (24 fields in the cell pc, none in the pair pc).  Returns (launches,
+    median ms/step, median ODE ms)."""
     state, launches = run_checked(S, sp, layout)
     med, ode = report_window(S, MAIN_DTYPE, layout)
     emi_ref, knp_ref = WINDOW_REF[layout]
@@ -1291,8 +1313,9 @@ def window(S, sp, layout):
 def run_checked(S, sp, path):
     """One protocol run through the user entry point with the launch
     counters reset first; asserts convergence (solve_system_active raises
-    otherwise), finite fields, the shapes and step count, and every kernel
-    of ``path`` launched.  Returns (state, launches)."""
+    otherwise), finite fields, the shapes and step count, every kernel of
+    ``path`` launched and two K14 trace launches a step.  Returns (state,
+    launches)."""
     from knpemidg_tpu_torch import _cuda
 
     S.stats.__init__()
@@ -1310,6 +1333,12 @@ def run_checked(S, sp, path):
     missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+    steps = len(S.stats.emi_niters)
+    print(f"{path:7s} membrane_trace {launches['membrane_trace']} launches in {steps} steps "
+          f"({TRACE_LAUNCHES_PER_STEP} a step expected)")
+    if launches["membrane_trace"] != TRACE_LAUNCHES_PER_STEP * steps:
+        raise AssertionError(f"the {path} window's K14 trace launches are not "
+                             f"{TRACE_LAUNCHES_PER_STEP} a step")
     return state, launches
 
 
@@ -1373,13 +1402,15 @@ def f32_window(mesh, layout):
 
 
 # launches of a kernel in one of its timed calls (one per system of the
-# step: EMI and KNP, or the two membrane tags; membrane_trace: its four
-# modes); 1 where not listed
-LAUNCHES_PER_TIMING = {**{k: 2 for k in (
+# step: EMI and KNP, or the two membrane tags; membrane_trace: a step's
+# ODE-input traces and its finalize jump); 1 where not listed
+LAUNCHES_PER_TIMING = {k: 2 for k in (
     "bell_matvec", "block_jacobi_inverse", "block_jacobi_apply", "membrane_rk4",
     "pair_matvec", "to_pair", "from_pair", "gather_blocks_pair",
-    "block_jacobi_inverse_nd8", "block_jacobi_apply_nd8")},
-    "membrane_trace": 4, "membrane_trace_pair": 4}
+    "block_jacobi_inverse_nd8", "block_jacobi_apply_nd8", "membrane_trace",
+    "membrane_trace_pair")}
+# K14 launches a step: every ion's ODE-input traces in one, the jump in one
+TRACE_LAUNCHES_PER_STEP = 2
 
 
 def rank_kernels(results, launches_of=None):

@@ -1,10 +1,17 @@
 #!/usr/bin/env python3
-"""SHA-256 digests of the outputs of kernels K10 emi_facet and K3
-pair_matvec / pair_matvec_multi on the card, at chip_smoke.py's
-configuration (box_3d_axons(1, length_factor=2) in cm, the EMIx solver) in
-float32 and float64: emi_facet on the cell and the pair layout's facet
-tables at a state perturbed with a seeded generator, and the pair matvecs
-on the step's EMI and two-ion KNP operators applied to the step's rhs.
+"""SHA-256 digests of the outputs of kernels K10 emi_facet, K3
+pair_matvec / pair_matvec_multi, K1 bell_matvec / bell_matvec_multi and
+K14 membrane_trace on the card, at chip_smoke.py's configuration
+(box_3d_axons(1, length_factor=2) in cm, the EMIx solver), at a state
+perturbed with a seeded generator: emi_facet on the cell and the pair
+layout's facet tables (float32 and float64); the matvecs (K3 on pairs, K1
+on cells; float32 and float64) on the step's EMI and two-ion KNP operators
+applied to the step's rhs; K14 as the solver pushes it (float64): each
+tag's membrane states and ODE parameters out of Solver._ode_inputs (the
+potential, the Nernst potentials E_* and StandardSolver's K_e / Na_i) and
+the finalize jump, on both layouts, and in both dtypes each ion's plus and
+minus facet averages and Nernst potential through the one-field entry
+points.
 
 The package is imported from ``--root`` (default: this file's directory),
 so two trees, such as an unpacked parent commit and this one, can be held
@@ -37,7 +44,7 @@ def main():
     sys.path.insert(0, os.path.abspath(args.root))
     from knpemidg_tpu_torch import emix
     from knpemidg_tpu_torch.mesh.generators import box_3d_axons
-    from knpemidg_tpu_torch.ops import assembly as asm, pairs
+    from knpemidg_tpu_torch.ops import assembly as asm, pairs, spmv
 
     mesh = box_3d_axons(1, length_factor=2)
     mesh.vertices *= 1e2
@@ -52,6 +59,19 @@ def main():
         call = torch.cat([c, state["c_elim"][None]]).contiguous()
         pM, Ich, Itot = S._pads(state)
         p = S.params
+        # K14: the ODE inputs of a step at the perturbed state, the jump of a
+        # seeded potential
+        phi = 1e-3 * torch.randn(state["phi"].shape, generator=gen, device="cuda",
+                                 dtype=torch.float64)
+        st = dict(state, c=c.contiguous(), phi_M=pM[:-1] * (0.9 + 0.2 * torch.rand(
+            pM[:-1].shape, generator=gen, device="cuda", dtype=torch.float64)))
+        pushed = S._ode_inputs(st, first_step=False)
+        out = [t for tag in sorted(pushed) for t in (pushed[tag].states, pushed[tag].params)]
+        out.append(asm.jump_phi_M_m(S.g, S.mem_dev, phi))
+        torch.cuda.synchronize()
+        print(f"digest  ode_inputs   {layout} {str(torch.float64):14s} {digest(out)}")
+        fields = [(f, float(ion.z)) for f, ion in zip(list(c) + [state["c_elim"]],
+                                                      S.ion_list)]
         for dtype in (torch.float32, torch.float64):
             g = {k: (v.to(dtype) if isinstance(v, torch.Tensor) and v.is_floating_point()
                      else v) for k, v in S.g.items()}
@@ -63,6 +83,25 @@ def main():
                                 S.tau)
             torch.cuda.synchronize()
             print(f"digest  emi_facet    {layout} {str(dtype):14s} {digest(out)}")
+            out = [t for f, z in fields for t in (
+                asm.membrane_avg_m(g, mem, f.to(dtype), "p"),
+                asm.membrane_avg_m(g, mem, f.to(dtype), "m"),
+                asm.nernst_potential_m(g, mem, f.to(dtype), z, p.F, p.R, p.temperature))]
+            out.append(asm.jump_phi_M_m(g, mem, phi.to(dtype)))
+            torch.cuda.synchronize()
+            print(f"digest  traces       {layout} {str(dtype):14s} {digest(out)}")
+        if layout == "cell":
+            (B, rhs, _), (BK, rhsK) = (
+                S._assemble_emi(c, state["c_elim"], pM, Itot, state["t"]),
+                S._knp_assemble_all(c, state["c_elim"], state["phi"], pM, Ich, Itot,
+                                    state["t"], c))
+            nbr = S.g["nbr"]
+            for dtype in (torch.float32, torch.float64):
+                out = [spmv.bell_matvec(B.to(dtype), nbr, rhs.to(dtype)),
+                       spmv.bell_matvec_multi(BK.to(dtype), nbr, rhsK.to(dtype))]
+                torch.cuda.synchronize()
+                print(f"digest  bell_matvec  {layout} {str(dtype):14s} {digest(out)} "
+                      f"(operators {digest([B, BK])})")
         if layout == "pair":
             (pd, pe), rhs, _ = S._assemble_emi(c, state["c_elim"], pM, Itot, state["t"],
                                                pair=True)

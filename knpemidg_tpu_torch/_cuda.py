@@ -86,7 +86,7 @@ _SIGNATURES = {
     "knp_ion_facet": (_P,) * 16 + (_I,) * 5 + (_D, _P),
     "knp_ion_membrane_rhs": (_P,) * 17 + (_I,) * 7 + (_D, _D, _P),
     "knp_ion_emit_cell": (_P,) * 18 + (_I,) * 7 + (_D, _P),
-    "knp_membrane_trace": (_P,) * 7 + (_I,) * 5 + (_D, _P),
+    "knp_membrane_trace": (_P,) * 4 + (_D,) * 4 + (_I,) + (_P,) * 6 + (_I,) * 6 + (_P,),
     "knp_eliminated": (_P,) * 4 + (_I,) * 3 + (_D, _P),
     "knp_membrane_rl": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _P),
     "knp_gmres_dot": (_P,) * 4 + (_I,) * 5 + (_P,),

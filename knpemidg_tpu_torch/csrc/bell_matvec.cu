@@ -8,68 +8,76 @@
 // for m systems sharing one neighbour table (m = 1 for EMI, m = 2 for KNP).
 //
 // Bound: device-memory bandwidth.  Per cell and system the kernel streams
-// K*nd*nd block values (320 B in f32 at K = 5, nd = 4) and gathers K-1
+// K*nd*nd block values (640 B in f64 at K = 5, nd = 4) and gathers K-1
 // neighbour rows of nd values; the arithmetic is 2*K*nd*nd flops, far below
-// the card's flop rate.  Design: one thread per (system, cell) with the
-// cells-last layout, so a warp's block loads are 32 consecutive addresses of
-// each (k, i, j) plane (fully coalesced); only the x reads are a random
-// gather, and Morton-ordered cells keep most neighbours in nearby lines.
-// The sum keeps the JAX order: the diagonal slot 0 first, then slots
-// 1..K-1 accumulated separately and added last.
+// the card's flop rate.  At the main path's size (124,416 cells) one thread
+// per (system, cell) was a single wave of 486 blocks, each thread a chain of
+// K-1 dependent (neighbour index -> gather) loads beside its 80 block loads:
+// half the cells took 73% of the time, and coalesced gathers (every slot
+// the cell itself) took none off (time_wrappers.py --only k1).  Design:
+//   * one thread per (system, row i, cell): a block is 64 cells x nd rows,
+//     warp w serving row w % nd of 32 consecutive cells, so every block
+//     load of a warp is 32 consecutive addresses of one (k, i, j) plane
+//     (coalesced), each thread streams K*nd values, not K*nd*nd, and the
+//     EMI launch is four times the threads in about two waves;
+//   * K is a template parameter (5, the 3D DG1 operator): a thread issues
+//     its K-1 neighbour indices first, then its nd*K gathers and block
+//     loads, so the chain is one index load and one gather deep;
+//   * the blocks are read once, with the streaming (evict-first) cache
+//     hint, so they do not push x and the neighbour table out of L1 / L2:
+//     the four row threads of a cell gather the same x values, in the same
+//     block.
+// The sum keeps the JAX order and the parent kernel's expression forms
+// (whose contractions nvcc makes the same way): the diagonal slot 0 over j
+// in order, then slots 1..K-1, each over j in order, accumulated
+// separately and added last.  No atomics: every output has one writer.
 #include "common.cuh"
 
-template <typename T, int ND>
-__global__ void bell_matvec_kernel(const T* __restrict__ B,
-                                   const int* __restrict__ nbr,
-                                   const T* __restrict__ x,
-                                   T* __restrict__ y, int m, int K, int nc) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)m * nc) return;
-  const int s = (int)(idx / nc);
-  const int c = (int)(idx - (long long)s * nc);
-  const size_t ncz = (size_t)nc;
-  const T* Bs = B + (size_t)s * K * ND * ND * ncz;
-  const T* xs = x + (size_t)s * ND * ncz;
+#define BELL_CELLS 64     // cells of a block: KNP_THREADS / (32 * nd) warps of 32
+static_assert(KNP_THREADS / (32 * 4) * 32 == BELL_CELLS, "a block is 64 cells x 4 rows");
 
-  T xv[ND];
-  T acc0[ND];
-  T acc1[ND];
+template <typename T, int K, int ND>
+__global__ void __launch_bounds__(KNP_THREADS)
+bell_matvec_kernel(const T* __restrict__ B, const int* __restrict__ nbr,
+                   const T* __restrict__ x, T* __restrict__ y, int nc) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = warp % ND;
+  const int c = blockIdx.x * BELL_CELLS + (warp / ND) * 32 + lane;
+  if (c >= nc) return;
+  const int s = blockIdx.y;
+  const size_t n = (size_t)nc;
+  const T* xs = x + (size_t)s * ND * n;
+  const T* Bi = B + ((size_t)s * K * ND * ND + (size_t)i * ND) * n + c;  // B[s,0,i,0,c]
+
+  int nb[K];
 #pragma unroll
-  for (int j = 0; j < ND; ++j) xv[j] = xs[j * ncz + c];
+  for (int k = 1; k < K; ++k) nb[k] = nbr[(size_t)k * n + c];
+  T xv[K][ND];
 #pragma unroll
-  for (int i = 0; i < ND; ++i) {
-    T a = Bs[(size_t)(i * ND) * ncz + c] * xv[0];
+  for (int j = 0; j < ND; ++j) xv[0][j] = xs[j * n + c];
 #pragma unroll
-    for (int j = 1; j < ND; ++j) a += Bs[(size_t)(i * ND + j) * ncz + c] * xv[j];
-    acc0[i] = a;
-    acc1[i] = T(0);
-  }
-  for (int k = 1; k < K; ++k) {
-    const int nb = nbr[(size_t)k * ncz + c];
+  for (int k = 1; k < K; ++k)
 #pragma unroll
-    for (int j = 0; j < ND; ++j) xv[j] = xs[j * ncz + nb];
-    const T* Bk = Bs + (size_t)k * ND * ND * ncz;
+    for (int j = 0; j < ND; ++j) xv[k][j] = xs[j * n + nb[k]];
+
+  T acc0 = __ldcs(Bi) * xv[0][0];
 #pragma unroll
-    for (int i = 0; i < ND; ++i) {
+  for (int j = 1; j < ND; ++j) acc0 += __ldcs(Bi + (size_t)j * n) * xv[0][j];
+  T acc1 = T(0);
 #pragma unroll
-      for (int j = 0; j < ND; ++j) acc1[i] += Bk[(size_t)(i * ND + j) * ncz + c] * xv[j];
-    }
-  }
-  T* ys = y + (size_t)s * ND * ncz;
+  for (int k = 1; k < K; ++k)
 #pragma unroll
-  for (int i = 0; i < ND; ++i) ys[i * ncz + c] = acc0[i] + acc1[i];
+    for (int j = 0; j < ND; ++j) acc1 += __ldcs(Bi + (size_t)(k * ND * ND + j) * n) * xv[k][j];
+  y[((size_t)s * ND + i) * n + c] = acc0 + acc1;
 }
 
 template <typename T>
 static int bell_matvec_launch(const T* B, const int* nbr, const T* x, T* y,
                               int m, int K, int nd, int nc, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const unsigned int grid = knp_blocks((long long)m * nc);
-  if (nd == 4) {
-    bell_matvec_kernel<T, 4><<<grid, KNP_THREADS, 0, st>>>(B, nbr, x, y, m, K, nc);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (nd != 4 || K != 5) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned int)((nc + BELL_CELLS - 1) / BELL_CELLS), (unsigned int)m);
+  bell_matvec_kernel<T, 5, 4><<<grid, KNP_THREADS, 0, (cudaStream_t)stream>>>(B, nbr, x,
+                                                                              y, nc);
   return (int)cudaGetLastError();
 }
 

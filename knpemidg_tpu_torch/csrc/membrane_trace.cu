@@ -5,53 +5,99 @@
 // eliminated_concentration (:941), which XLA lowers to a gather, an einsum
 // and a reduction each on the TPU.
 //
-//   membrane_trace  one thread per membrane facet: gathers the DG1 field at
-//                   the facet's plus and minus cells, forms the traces at
-//                   the quadrature points from the presliced tables Rp, Rm
-//                   (nq, nd, n_mem) and writes the facet average of the plus
-//                   trace (mode 0), the minus trace (1), the jump minus -
-//                   plus (2) or coef * ln(plus / minus) (3, the Nernst
-//                   potential);
+//   membrane_trace  one thread per membrane facet and up to KNP_MAXF fields
+//                   u (nd, nc): gathers each field at the facet's plus and
+//                   minus cells, forms the traces at the quadrature points
+//                   from the presliced tables Rp, Rm (nq, nd, n_mem), each
+//                   table column read once for all the fields, and writes
+//                   the outputs that ``mask`` selects, in this order: the
+//                   facet average of the plus trace (TRACE_PLUS), of the
+//                   minus trace (TRACE_MINUS), of the jump minus - plus
+//                   (TRACE_JUMP) and coef * the facet average of
+//                   ln(plus / minus) (TRACE_NERNST, the Nernst potential);
+//                   output o of field f at out[o * ostride + f * n_mem];
 //   eliminated      per node: -(sum_k z_k c_k + rho) / z_elim.
 //
-// Bound: bytes (the trace tables and one output per facet; the m ion fields
-// and one output per node).  n_mem is a few thousand, so the trace kernel is
-// bound by its launch; it exists so that the step's finalize and ODE-input
-// phases make one launch per quantity instead of a gather, an einsum and a
-// reduction.  No atomics.
+// Bound: bytes (the trace tables once, the gathered fields and one output
+// per facet and quantity; the m ion fields and one output per node).
+// n_mem is a few thousand, so the trace kernel is bound by its launch: one
+// launch serves every field and quantity of a step's ODE inputs, so the
+// step makes two (those and the finalize jump) instead of one per (tag,
+// ion) and per trace.  Every output is summed as the one-quantity kernel
+// before it summed it, in the same expression forms (this source builds
+// with nvcc's default contraction): over q in order, the trace over a in
+// order, acc += w_f[q] * value, and coef * acc for the Nernst potential.
+// Blocks of 64 threads spread the facets over more SMs.  No atomics.
 #include "common.cuh"
 
 #define KNP_MAXND 4
+#define KNP_MAXF 4          // fields of one launch
+#define TRACE_THREADS 64
+
+#define TRACE_PLUS 1
+#define TRACE_MINUS 2
+#define TRACE_JUMP 4
+#define TRACE_NERNST 8
 
 template <typename T>
-__global__ void membrane_trace_kernel(const T* __restrict__ u, const T* __restrict__ Rp,
-                                      const T* __restrict__ Rm, const int* __restrict__ mcp,
-                                      const int* __restrict__ mcm, const T* __restrict__ w_f,
-                                      T* __restrict__ out, int nq, int nd, int nc, int nm,
-                                      int mode, T coef) {
+struct TraceFields {
+  const T* u[KNP_MAXF];
+  T coef[KNP_MAXF];
+};
+
+template <typename T, int NF>
+__global__ void __launch_bounds__(TRACE_THREADS)
+membrane_trace_kernel(TraceFields<T> fl, const T* __restrict__ Rp, const T* __restrict__ Rm,
+                      const int* __restrict__ mcp, const int* __restrict__ mcm,
+                      const T* __restrict__ w_f, T* __restrict__ out, int ostride, int nq,
+                      int nd, int nc, int nm, int mask) {
   const int mm = blockIdx.x * blockDim.x + threadIdx.x;
   if (mm >= nm) return;
   const size_t n = (size_t)nc, nmm = (size_t)nm;
   const int cp = mcp[mm], cm = mcm[mm];
-  T up[KNP_MAXND], um[KNP_MAXND];
+  T up[NF][KNP_MAXND], um[NF][KNP_MAXND];
 #pragma unroll
-  for (int a = 0; a < KNP_MAXND; ++a) {
-    up[a] = (a < nd && mode != 1) ? u[(size_t)a * n + cp] : T(0);
-    um[a] = (a < nd && mode != 0) ? u[(size_t)a * n + cm] : T(0);
-  }
-  T acc = T(0);
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int a = 0; a < KNP_MAXND; ++a) {
+      up[f][a] = a < nd ? fl.u[f][(size_t)a * n + cp] : T(0);
+      um[f][a] = a < nd ? fl.u[f][(size_t)a * n + cm] : T(0);
+    }
+  T accp[NF], accm[NF], accj[NF], accn[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) accp[f] = accm[f] = accj[f] = accn[f] = T(0);
   for (int q = 0; q < nq; ++q) {
-    T tp = T(0), tm = T(0);
+    T rp[KNP_MAXND], rm[KNP_MAXND];
 #pragma unroll
-    for (int a = 0; a < KNP_MAXND; ++a)
-      if (a < nd) {
-        if (mode != 1) tp += Rp[((size_t)q * nd + a) * nmm + mm] * up[a];
-        if (mode != 0) tm += Rm[((size_t)q * nd + a) * nmm + mm] * um[a];
-      }
-    const T v = mode == 0 ? tp : mode == 1 ? tm : mode == 2 ? tm - tp : log(tp / tm);
-    acc += w_f[q] * v;
+    for (int a = 0; a < KNP_MAXND; ++a) {
+      rp[a] = a < nd ? Rp[((size_t)q * nd + a) * nmm + mm] : T(0);
+      rm[a] = a < nd ? Rm[((size_t)q * nd + a) * nmm + mm] : T(0);
+    }
+    const T w = w_f[q];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      T tp = T(0), tm = T(0);
+#pragma unroll
+      for (int a = 0; a < KNP_MAXND; ++a)
+        if (a < nd) {
+          tp += rp[a] * up[f][a];
+          tm += rm[a] * um[f][a];
+        }
+      if (mask & TRACE_PLUS) accp[f] += w * tp;
+      if (mask & TRACE_MINUS) accm[f] += w * tm;
+      if (mask & TRACE_JUMP) accj[f] += w * (tm - tp);
+      if (mask & TRACE_NERNST) accn[f] += w * log(tp / tm);
+    }
   }
-  out[mm] = mode == 3 ? coef * acc : acc;
+  T* o = out + mm;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    T* of = o + (size_t)f * nmm;
+    if (mask & TRACE_PLUS) { *of = accp[f]; of += ostride; }
+    if (mask & TRACE_MINUS) { *of = accm[f]; of += ostride; }
+    if (mask & TRACE_JUMP) { *of = accj[f]; of += ostride; }
+    if (mask & TRACE_NERNST) *of = fl.coef[f] * accn[f];
+  }
 }
 
 template <typename T>
@@ -66,14 +112,40 @@ __global__ void eliminated_kernel(const T* __restrict__ c, const T* __restrict__
   out[idx] = -(acc + rho[idx % nc]) / z_elim;
 }
 
+template <typename T>
+static int membrane_trace_launch(TraceFields<T> fl, int nf, const T* Rp, const T* Rm,
+                                 const int* mcp, const int* mcm, const T* w_f, T* out,
+                                 int ostride, int nq, int nd, int nc, int nm, int mask,
+                                 void* stream) {
+  if (nd > KNP_MAXND || mask <= 0 || mask > 15) return (int)cudaErrorInvalidValue;
+  const unsigned int grid = (unsigned int)((nm + TRACE_THREADS - 1) / TRACE_THREADS);
+  cudaStream_t st = (cudaStream_t)stream;
+#define KNP_TRACE_CASE(NF)                                                                 \
+  case NF:                                                                                 \
+    membrane_trace_kernel<T, NF><<<grid, TRACE_THREADS, 0, st>>>(                          \
+        fl, Rp, Rm, mcp, mcm, w_f, out, ostride, nq, nd, nc, nm, mask);                    \
+    break;
+  switch (nf) {
+    KNP_TRACE_CASE(1)
+    KNP_TRACE_CASE(2)
+    KNP_TRACE_CASE(3)
+    KNP_TRACE_CASE(4)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef KNP_TRACE_CASE
+  return (int)cudaGetLastError();
+}
+
 #define KNP_TRACE_ENTRY(SFX, T)                                                           \
-  extern "C" int knp_membrane_trace##SFX(const T* u, const T* Rp, const T* Rm,            \
-                                         const int* mcp, const int* mcm, const T* w_f,    \
-                                         T* out, int nq, int nd, int nc, int nm,          \
-                                         int mode, double coef, void* stream) {           \
-    membrane_trace_kernel<T><<<knp_blocks(nm), KNP_THREADS, 0, (cudaStream_t)stream>>>(   \
-        u, Rp, Rm, mcp, mcm, w_f, out, nq, nd, nc, nm, mode, (T)coef);                    \
-    return (int)cudaGetLastError();                                                       \
+  extern "C" int knp_membrane_trace##SFX(                                                 \
+      const T* u0, const T* u1, const T* u2, const T* u3, double c0, double c1,           \
+      double c2, double c3, int nf, const T* Rp, const T* Rm, const int* mcp,             \
+      const int* mcm, const T* w_f, T* out, int ostride, int nq, int nd, int nc, int nm,  \
+      int mask, void* stream) {                                                           \
+    TraceFields<T> fl = {{u0, u1, u2, u3}, {(T)c0, (T)c1, (T)c2, (T)c3}};                 \
+    return membrane_trace_launch<T>(fl, nf, Rp, Rm, mcp, mcm, w_f, out, ostride, nq, nd,  \
+                                    nc, nm, mask, stream);                                \
   }                                                                                       \
   extern "C" int knp_eliminated##SFX(const T* c, const T* z, const T* rho, T* out, int m, \
                                      int nd, int nc, double z_elim, void* stream) {       \

@@ -21,9 +21,10 @@ no fallback between the two), for nd <= 4 and d <= 3:
 * K11 ``csrc/assemble_knp.cu``: :func:`alpha_sum`, :func:`knp_cell`,
   :func:`knp_facet`, :func:`knp_membrane_rhs`, :func:`knp_emit_cell`, the
   launches of :func:`assemble_knp_all`;
-* K14 ``csrc/membrane_trace.cu``: :func:`membrane_avg_m`,
-  :func:`nernst_potential_m`, :func:`jump_phi_M_m` (one kernel, four modes)
-  and :func:`eliminated_concentration`.
+* K14 ``csrc/membrane_trace.cu``: :func:`membrane_traces_m` (a step's
+  ODE-input traces of every field in one launch), :func:`membrane_avg_m`,
+  :func:`nernst_potential_m`, :func:`jump_phi_M_m` (one kernel: any fields,
+  any set of quantities) and :func:`eliminated_concentration`.
 
 The plain versions take ``neg``, the sign of every subtracted term (-1.0).
 With +1.0 and absolute-valued inputs they return each output's sum of
@@ -727,23 +728,37 @@ def _mem_trace(g, mem, u, side: str):
     return torch.einsum("qim,im->qm", R, u[:, c])
 
 
-_TRACE_MODES = {"p": 0, "m": 1, "jump": 2, "nernst": 3}
+# output bits of the trace kernel (csrc/membrane_trace.cu), written in this
+# order: the plus and minus facet averages, the jump, the Nernst potential
+TRACE_PLUS, TRACE_MINUS, TRACE_JUMP, TRACE_NERNST = 1, 2, 4, 8
+MAX_TRACE_FIELDS = 4      # fields of one trace launch
 
 
-def _membrane_trace_cuda(g, mem, u, mode, coef=1.0):
-    """Kernel K14 ``membrane_trace``: the facet average over n_mem of the
-    plus trace, the minus trace, the jump or coef * ln(plus / minus)."""
+def _membrane_trace_cuda(g, mem, fields, coefs, mask):
+    """Kernel K14 ``membrane_trace``: the quantities of ``mask`` (in bit
+    order) of every field over n_mem -> (n_quantities, n_fields, n_mem);
+    one launch for up to MAX_TRACE_FIELDS fields, the table columns read
+    once for all of them."""
     nq, nd, nm = mem["Rp"].shape
     if nd > MAX_ND:
         raise NotImplementedError(
             f"membrane_trace: CUDA kernel built for nd <= {MAX_ND}, got nd = {nd}")
-    _cuda.check("u", u, None, (nd, u.shape[-1]))
-    out = torch.empty((nm,), dtype=u.dtype, device=u.device)
-    if nm:
-        _cuda.launch("membrane_trace", "knp_membrane_trace", u.dtype, u.data_ptr(),
-                     *_tables(mem, ("Rp", "Rm", "cp", "cm"), u.dtype),
-                     *_tables(g, ("w_f",), u.dtype), out.data_ptr(), nq, nd,
-                     u.shape[-1], nm, _TRACE_MODES[mode], float(coef))
+    u0 = fields[0]
+    for u in fields:
+        _cuda.check("u", u, u0.dtype, (nd, u0.shape[-1]))
+    nf, nout = len(fields), bin(mask).count("1")
+    out = torch.empty((nout, nf, nm), dtype=u0.dtype, device=u0.device)
+    tables = (*_tables(mem, ("Rp", "Rm", "cp", "cm"), u0.dtype),
+              *_tables(g, ("w_f",), u0.dtype))
+    row = nm * out.element_size()                    # bytes of one field's output
+    for f0 in range(0, nf if nm else 0, MAX_TRACE_FIELDS):
+        part = fields[f0:f0 + MAX_TRACE_FIELDS]
+        pad = MAX_TRACE_FIELDS - len(part)
+        _cuda.launch("membrane_trace", "knp_membrane_trace", u0.dtype,
+                     *[u.data_ptr() for u in part], *[None] * pad,
+                     *[float(c) for c in coefs[f0:f0 + len(part)]], *[0.0] * pad,
+                     len(part), *tables, out.data_ptr() + f0 * row, nf * nm, nq, nd,
+                     u0.shape[-1], nm, mask)
     return out
 
 
@@ -757,14 +772,25 @@ def membrane_avg_m(g, mem, u, side: str):
     tensor)."""
     if not u.is_cuda:
         return membrane_avg_m_plain(g, mem, u, side)
-    return _membrane_trace_cuda(g, mem, u, side)
+    return _membrane_trace_cuda(g, mem, [u], [1.0],
+                                TRACE_PLUS if side == "p" else TRACE_MINUS).view(-1)
+
+
+def _nernst_plain(g, mem, c, coef):
+    """coef * facet-avg ln(c_plus / c_minus)."""
+    cp = _mem_trace(g, mem, c, "p")
+    cm = _mem_trace(g, mem, c, "m")
+    return coef * torch.einsum("q,qm->m", g["w_f"], torch.log(cp / cm))
+
+
+def nernst_coef(z, F, R, T):
+    """RT/(zF), the Nernst potential's factor, as nernst_potential_m forms it."""
+    return R * T / (F * z)
 
 
 def nernst_potential_m_plain(g, mem, c, z, F, R, T):
     """E = RT/(zF) * facet-avg ln(c_plus / c_minus)."""
-    cp = _mem_trace(g, mem, c, "p")
-    cm = _mem_trace(g, mem, c, "m")
-    return R * T / (F * z) * torch.einsum("q,qm->m", g["w_f"], torch.log(cp / cm))
+    return _nernst_plain(g, mem, c, nernst_coef(z, F, R, T))
 
 
 def nernst_potential_m(g, mem, c, z, F, R, T):
@@ -772,7 +798,8 @@ def nernst_potential_m(g, mem, c, z, F, R, T):
     tensor)."""
     if not c.is_cuda:
         return nernst_potential_m_plain(g, mem, c, z, F, R, T)
-    return _membrane_trace_cuda(g, mem, c, "nernst", R * T / (F * z))
+    return _membrane_trace_cuda(g, mem, [c], [nernst_coef(z, F, R, T)],
+                                TRACE_NERNST).view(-1)
 
 
 def jump_phi_M_m_plain(g, mem, phi):
@@ -786,7 +813,28 @@ def jump_phi_M_m(g, mem, phi):
     tensor)."""
     if not phi.is_cuda:
         return jump_phi_M_m_plain(g, mem, phi)
-    return _membrane_trace_cuda(g, mem, phi, "jump")
+    return _membrane_trace_cuda(g, mem, [phi], [1.0], TRACE_JUMP).view(-1)
+
+
+def membrane_traces_m_plain(g, mem, fields, coefs):
+    """The plus and minus facet averages and the Nernst potentials
+    coefs[f] * facet-avg ln(plus / minus) of every field (nd, nc), from the
+    one-field plain functions -> (3, n_fields, n_mem)."""
+    return torch.stack([
+        torch.stack([membrane_avg_m_plain(g, mem, u, "p") for u in fields]),
+        torch.stack([membrane_avg_m_plain(g, mem, u, "m") for u in fields]),
+        torch.stack([_nernst_plain(g, mem, u, cf) for u, cf in zip(fields, coefs)])])
+
+
+def membrane_traces_m(g, mem, fields, coefs):
+    """The plus and minus facet averages and the Nernst potentials of every
+    field -> (3, n_fields, n_mem): a step's ODE inputs in one launch of
+    kernel K14 on CUDA tensors (for up to MAX_TRACE_FIELDS fields), each
+    value bitwise the one-field entry points' (coefs from nernst_coef)."""
+    if not fields[0].is_cuda:
+        return membrane_traces_m_plain(g, mem, fields, coefs)
+    return _membrane_trace_cuda(g, mem, fields, coefs,
+                                TRACE_PLUS | TRACE_MINUS | TRACE_NERNST)
 
 
 def eliminated_concentration_plain(c, z, rho, z_elim):

@@ -9,8 +9,9 @@ Kernel A (``csrc/bell_matvec.cu``) carries :func:`bell_matvec` and
 :func:`block_jacobi_inverse` and :func:`block_jacobi_apply`.  Each wrapper
 runs its plain torch version (``*_plain``) for tensors on the CPU and
 launches its kernel for CUDA tensors; there is no fallback between the two.
-Kernel A is built for the 3D DG1 blocks (nd = 4), kernel B for those and
-the pair layout's 8 x 8 blocks; other block sizes raise on a CUDA tensor.
+Kernel A is built for the 3D DG1 operator (K = 5 slots of nd = 4 blocks),
+kernel B for its blocks and the pair layout's 8 x 8 blocks; other block
+sizes or slot counts raise on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from .. import _cuda
 
 MATVEC_ND = (4,)    # kernel A: 3D DG1 cell blocks
+MATVEC_K = 5        # kernel A's slots: self + the 4 facet neighbours of a tet
 BJ_ND = (4, 8)      # kernel B: cell blocks and 3D pair blocks (2nd = 8)
 
 
@@ -65,6 +67,9 @@ def _bell_cuda(blocks, nbr, x, m):
                 ((m,) if blocks.dim() == 5 else ()) + (K, nd, nd, nc))
     _cuda.check("nbr", nbr, torch.int32, (K, nc))
     _check_nd("bell_matvec", nd, MATVEC_ND)
+    if K != MATVEC_K:
+        raise NotImplementedError(
+            f"bell_matvec: CUDA kernel built for K = {MATVEC_K} slots, got K = {K}")
     y = torch.empty_like(x)
     _cuda.launch("bell_matvec", "knp_bell_matvec", x.dtype, blocks.data_ptr(),
                  nbr.data_ptr(), x.data_ptr(), y.data_ptr(), m, K, nd, nc)

@@ -90,27 +90,23 @@ def _sync(device):
 
 class Traces:
     """Membrane-trace helpers handed to `update_ode`.  Index `k` refers to
-    the full ion list; the last ion is the eliminated one."""
+    the full ion list; the last ion is the eliminated one.  ``tr`` holds
+    the step's facet averages of every ion over all membrane facets
+    (assembly.membrane_traces_m: plus, minus, Nernst), ``sl`` this tag's
+    (start, stop) membrane slice."""
 
-    def __init__(self, solver, c, c_elim, sl):
+    def __init__(self, solver, tr, sl):
         self._s = solver
-        self._c = c
-        self._elim = c_elim
-        self._sl = sl  # (start, stop) membrane slice of this tag
-
-    def _field(self, k):
-        n = len(self._s.ion_list)
-        return self._elim if k == n - 1 else self._c[k]
+        self._tr = tr
+        self._sl = sl
 
     def plus(self, k):
         """ECS-side facet-average trace of ion k on this tag's membranes."""
-        vals = assembly.membrane_avg_m(self._s.g, self._s.mem_dev, self._field(k), "p")
-        return vals[self._sl[0]:self._sl[1]]
+        return self._tr[0, k, self._sl[0]:self._sl[1]]
 
     def minus(self, k):
         """ICS-side facet-average trace of ion k."""
-        vals = assembly.membrane_avg_m(self._s.g, self._s.mem_dev, self._field(k), "m")
-        return vals[self._sl[0]:self._sl[1]]
+        return self._tr[1, k, self._sl[0]:self._sl[1]]
 
     def ion_index(self, name):
         return self._s.ion_names.index(name)
@@ -572,6 +568,12 @@ class Solver:
         integrate."""
         p = self.params
         c, c_elim, phi_M = state["c"], state["c_elim"], state["phi_M"]
+        # every ion's facet averages and Nernst potential over all membrane
+        # facets, in one kernel launch; each tag reads its slice
+        tr = assembly.membrane_traces_m(
+            self.g, self.mem_dev, list(c) + [c_elim],
+            [assembly.nernst_coef(float(ion.z), p.F, p.R, p.temperature)
+             for ion in self.ion_list])
         pushed = {}
         for tag, mm in state["mem"].items():
             s0, s1 = self.tables.slices[tag]
@@ -581,15 +583,10 @@ class Solver:
                 mm = mm.replace_state("V", phi_M[s0:s1])
             # Nernst potentials for every ion
             for k, ion in enumerate(self.ion_list):
-                if not mm.has_param(f"E_{ion.name}"):
-                    continue
-                field = c_elim if k == len(self.ion_list) - 1 else c[k]
-                E = assembly.nernst_potential_m(
-                    self.g, self.mem_dev, field, float(ion.z),
-                    p.F, p.R, p.temperature)[s0:s1]
-                mm = set_param(mm, f"E_{ion.name}", E)
+                if mm.has_param(f"E_{ion.name}"):
+                    mm = set_param(mm, f"E_{ion.name}", tr[2, k, s0:s1])
             # app-specific parameter pushes (subclass hook)
-            upd = self.update_ode(tag, Traces(self, c, c_elim, (s0, s1)))
+            upd = self.update_ode(tag, Traces(self, tr, (s0, s1)))
             for name, vals in upd.items():
                 mm = set_param(mm, name, vals)
             pushed[tag] = mm

@@ -1,9 +1,11 @@
 """ops/assembly of the port against the JAX package in float64: geometry
 tables, EMI and all-ion KNP blocks, rhs and P_diag, and the membrane-trace
-helpers, on the EMIx fixture (3D) and the 2D neuron, at a state perturbed
+helpers (one field, and every ion field at once as the solver's ODE inputs
+take them), on the EMIx fixture (3D) and the 2D neuron, at a state perturbed
 from the initial one with numpy-seeded noise."""
 import numpy as np
 import pytest
+import torch
 import jax.numpy as jnp
 
 import test_torch_parity as tp
@@ -98,3 +100,77 @@ def test_membrane_helpers_match(solvers):
     assert rel(assembly.eliminated_concentration(t64(x["c"]), t64(zj), St.rho, 1.0),
                jasm.eliminated_concentration(jnp.asarray(x["c"]), jnp.asarray(zj),
                                              Sj.rho, 1.0)) < TOL
+
+
+def _ion_fields(St, x):
+    """The solver's ion fields in ion-list order (the solved ions, then the
+    eliminated one) and their Nernst factors RT/(zF)."""
+    p = St.params
+    fields = [t64(f) for f in x["c"]] + [t64(x["c_elim"])]
+    coefs = [assembly.nernst_coef(float(ion.z), p.F, p.R, p.temperature)
+             for ion in St.ion_list]
+    return fields, coefs
+
+
+@pytest.mark.parametrize("quantity", ["plus", "minus", "nernst", "jump"])
+def test_membrane_traces_m_plain_matches_jax(solvers, quantity):
+    """The batched ODE-input traces (plus and minus facet averages and the
+    Nernst potential of every ion field) against the JAX package's
+    one-field helpers; the jump as minus - plus against jump_phi_M_m."""
+    Sj, St, x = solvers
+    gj, mj, p = Sj.g, Sj.mem_dev, Sj.params
+    fields, coefs = _ion_fields(St, x)
+    tr = assembly.membrane_traces_m_plain(St.g, St.mem_dev, fields, coefs)
+    assert tuple(tr.shape) == (3, len(fields), St.n_mem)
+    assert torch.equal(assembly.membrane_traces_m(St.g, St.mem_dev, fields, coefs), tr)
+    for k, (f, ion) in enumerate(zip(fields, Sj.ion_list)):
+        fj = jnp.asarray(f.numpy())
+        if quantity in ("plus", "minus"):
+            ref = jasm.membrane_avg_m(gj, mj, fj, "p" if quantity == "plus" else "m")
+            got = tr[0 if quantity == "plus" else 1, k]
+        elif quantity == "nernst":
+            ref = jasm.nernst_potential_m(gj, mj, fj, float(ion.z), p.F, p.R,
+                                          p.temperature)
+            got = tr[2, k]
+        else:
+            ref, got = jasm.jump_phi_M_m(gj, mj, fj), tr[1, k] - tr[0, k]
+        assert rel(got, ref) < TOL, (quantity, ion.name)
+
+
+@pytest.mark.parametrize("push", ["V", "E", "update_ode"])
+def test_ode_inputs_push_the_one_field_traces(solvers, push):
+    """Solver._ode_inputs computes every ion's traces in one call; each tag
+    gets exactly (bitwise) what a loop over the one-field functions on all
+    membrane facets, sliced to the tag, gives: the membrane potential, the
+    Nernst potentials E_* and StandardSolver's K_e / Na_i."""
+    _, St, x = solvers
+    from knpemidg_tpu_torch.membrane.engine import get_param
+
+    p = St.params
+    state = dict(St._initial_state(0.0), c=t64(x["c"]).contiguous(),
+                 c_elim=t64(x["c_elim"]), phi_M=t64(x["phi_M"]))
+    fields, _ = _ion_fields(St, x)
+    pushed = St._ode_inputs(state, first_step=False)
+    assert sorted(pushed) == sorted(state["mem"])
+    n = 0
+    for tag, mm in pushed.items():
+        s0, s1 = St.tables.slices[tag]
+        if push == "V":
+            want = {"V": state["phi_M"][s0:s1]}
+            got = {"V": mm.get_state("V")}
+        elif push == "E":
+            want = {f"E_{ion.name}": assembly.nernst_potential_m(
+                St.g, St.mem_dev, f, float(ion.z), p.F, p.R, p.temperature)[s0:s1]
+                for f, ion in zip(fields, St.ion_list) if mm.has_param(f"E_{ion.name}")}
+            got = {k: get_param(mm, k) for k in want}
+        else:
+            na = St._na_index if St._na_index is not None else len(St.ion_list) - 1
+            want = {"K_e": assembly.membrane_avg_m(St.g, St.mem_dev, fields[St._k_index],
+                                                   "p")[s0:s1],
+                    "Na_i": assembly.membrane_avg_m(St.g, St.mem_dev, fields[na],
+                                                    "m")[s0:s1]}
+            got = {k: get_param(mm, k) for k in want}
+        for k in want:
+            assert torch.equal(got[k], want[k]), (tag, k)
+            n += 1
+    assert n > 0

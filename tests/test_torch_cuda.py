@@ -74,6 +74,36 @@ def test_matvec_and_block_jacobi_kernels_match_plain(nbr, dtype, tol):
         spmv.bell_matvec(B0, nb, x0.t())
 
 
+@pytest.mark.parametrize("m", [1, 2])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_bell_matvec_off_the_block_matches_plain(m, dtype, tol):
+    """K1 (a thread per (system, row, cell), 64 cells a block) against its
+    plain version elementwise, to each value's sum of |terms|, at 1,000
+    cells (not a multiple of the block) on a random neighbour table: every
+    output written, one launch a call; a table of another slot count than
+    the kernel's K = 5 raises."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(19)
+    K, nc = spmv.MATVEC_K, 1000
+    nbr = rng.integers(0, nc, (K, nc))
+    nbr[0] = np.arange(nc)
+    nb = torch.as_tensor(nbr, dtype=torch.int32, device=dev)
+    B = _rand(rng, (m, K, 4, 4, nc), dtype, dev)
+    x = _rand(rng, (m, 4, nc), dtype, dev)
+    if m == 1:
+        B, x = B[0].contiguous(), x[0].contiguous()
+        kernel, plain = spmv.bell_matvec, spmv.bell_matvec_plain
+    else:
+        kernel, plain = spmv.bell_matvec_multi, spmv.bell_matvec_multi_plain
+    n0 = _cuda.LAUNCHES["bell_matvec"]
+    got = kernel(B, nb, x)
+    assert _cuda.LAUNCHES["bell_matvec"] == n0 + 1
+    scale = plain(B.abs(), nb, x.abs())
+    assert float(((got - plain(B, nb, x)).abs() / scale).max()) < tol
+    with pytest.raises(NotImplementedError):
+        kernel(B[..., :K - 1, :, :, :].contiguous(), nb[:K - 1].contiguous(), x)
+
+
 MODELS = {"hh_mv": hh.HodgkinHuxleyMV, "glial_kir": glial.GlialKir}
 
 
@@ -665,6 +695,64 @@ def test_pair_matvec_reads_only_the_owner_halves(pair_maps):
             assert rel(y, plain(D, E, pm, x)) < tol, (dtype, m)
             assert torch.equal(mv(D, P, pm, x), y), (dtype, m)
         assert _cuda.LAUNCHES["pair_matvec"] == n0 + 4
+
+
+@pytest.mark.parametrize("nf", [1, 2, 3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_membrane_trace_fields_and_quantities_equal_the_one_field_calls(nf, dtype):
+    """K14 with nf fields and every set of quantities (the mask) equals the
+    one-field entry points (membrane_avg_m, jump_phi_M_m,
+    nernst_potential_m) bitwise, in one launch per 4 fields; the solver's
+    batched entry membrane_traces_m is its plus | minus | Nernst call and
+    agrees with its plain version."""
+    dev = cuda_or_skip()
+    S, _ = tp.emix_torch(device="cuda")
+    cast = lambda d: {k: (v.to(dtype) if isinstance(v, torch.Tensor)
+                          and v.is_floating_point() else v) for k, v in d.items()}
+    g, mem, p = cast(S.g), cast(S.mem_dev), S.params
+    rng = np.random.default_rng(20)
+    fields = [torch.as_tensor(rng.uniform(1.0, 100.0, (S.nd, S.n_cells)), dtype=dtype,
+                              device=dev) for _ in range(nf)]
+    zs = [1.0, -1.0, 2.0, 1.0, -1.0][:nf]
+    coefs = [assembly.nernst_coef(z, p.F, p.R, p.temperature) for z in zs]
+    one = {assembly.TRACE_PLUS: lambda f: assembly.membrane_avg_m(g, mem, fields[f], "p"),
+           assembly.TRACE_MINUS: lambda f: assembly.membrane_avg_m(g, mem, fields[f], "m"),
+           assembly.TRACE_JUMP: lambda f: assembly.jump_phi_M_m(g, mem, fields[f]),
+           assembly.TRACE_NERNST: lambda f: assembly.nernst_potential_m(
+               g, mem, fields[f], zs[f], p.F, p.R, p.temperature)}
+    for mask in range(1, 16):
+        bits = [b for b in sorted(one) if mask & b]
+        n0 = _cuda.LAUNCHES["membrane_trace"]
+        out = assembly._membrane_trace_cuda(g, mem, fields, coefs, mask)
+        assert _cuda.LAUNCHES["membrane_trace"] == n0 + -(-nf // assembly.MAX_TRACE_FIELDS)
+        assert tuple(out.shape) == (len(bits), nf, S.n_mem)
+        for o, b in enumerate(bits):
+            for f in range(nf):
+                assert torch.equal(out[o, f], one[b](f)), (mask, b, f)
+    tr = assembly.membrane_traces_m(g, mem, fields, coefs)
+    full = assembly.TRACE_PLUS | assembly.TRACE_MINUS | assembly.TRACE_NERNST
+    assert torch.equal(tr, assembly._membrane_trace_cuda(g, mem, fields, coefs, full))
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert rel(tr, assembly.membrane_traces_m_plain(g, mem, fields, coefs)) < tol
+
+
+def test_membrane_trace_launches_twice_a_step():
+    """A float64 step of the EMIx fixture makes two K14 trace launches:
+    every ion's ODE-input traces in one, the finalize jump in the other
+    (counted by the wrapper and read in the profiler's second cycle)."""
+    cuda_or_skip()
+    S, sp = tp.emix_torch(device="cuda")
+    state = [S.attach_pc(S._initial_state(0.0), sp)]
+
+    def step():
+        state[0], _ = S.run_block(state[0], sp, 1)
+
+    step()
+    n0 = _cuda.LAUNCHES["membrane_trace"]
+    kernels = _device_kernels(step)                      # two steps
+    assert _cuda.LAUNCHES["membrane_trace"] == n0 + 4
+    traces = [k for k in kernels if "membrane_trace_kernel" in k]
+    assert len(traces) == 2, kernels
 
 
 def test_assembly_wrappers_raise_on_what_they_cannot_take():

@@ -82,3 +82,31 @@ def test_cpu_wrappers_run_plain_without_launching(nbr):
     assert torch.equal(spmv.block_jacobi_inverse(P), spmv.block_jacobi_inverse_plain(P))
     assert torch.equal(spmv.block_jacobi_apply(P, x), spmv.block_jacobi_apply_plain(P, x))
     assert _cuda.LAUNCHES == before
+
+
+@pytest.fixture(scope="module")
+def nbr_2d():
+    from test_torch_parity import _neuron_2d
+
+    return _neuron_2d("torch").g["nbr"]                          # (4, nc): K = 4
+
+
+@pytest.mark.parametrize("m", [None, 2])
+def test_bell_matvec_2d_matches_jax(nbr_2d, m):
+    """The 2D operator (K = 4 slots of nd = 3 blocks), which the CUDA kernel
+    (built for the 3D K = 5, nd = 4 operator) refuses on the card, runs its
+    plain version on the CPU and matches the JAX package."""
+    rng = np.random.default_rng(11)
+    K, nc = nbr_2d.shape
+    lead = () if m is None else (m,)
+    B = rng.standard_normal(lead + (K, 3, 3, nc))
+    x = rng.standard_normal(lead + (3, nc))
+    nb = jnp.asarray(nbr_2d.numpy())
+    if m is None:
+        ref = jspmv.bell_matvec(jnp.asarray(B), nb, jnp.asarray(x))
+        got = spmv.bell_matvec(t64(B), nbr_2d, t64(x))
+    else:
+        ref = jspmv.bell_matvec_multi(jnp.asarray(B), nb, jnp.asarray(x))
+        got = spmv.bell_matvec_multi(t64(B), nbr_2d, t64(x))
+    assert K == 4 and K != spmv.MATVEC_K
+    assert rel(got, ref) < TOL

@@ -17,7 +17,23 @@ and float64, beside the library calls chip_smoke.py holds them to:
        from_pair back as the solver calls it (the EMI solution with the
        guess added in pair form, the KNP one added to c in cell form; a
        tree without the add forms: the relayout and a separate add), beside
-       one torch.add of the relayout views into a preallocated buffer.
+       one torch.add of the relayout views into a preallocated buffer;
+  k1   K1 bell_matvec on the EMI system (m = 1) and bell_matvec_multi on
+       the KNP batch (m = 2) with the neighbour table of chip_smoke.py's
+       cell layout (124,416 cells, random blocks and vectors), beside one
+       torch.sparse_bsr_tensor product per system (cuSPARSE, built outside
+       the timing); and two ablations of the EMI call: the table replaced
+       by the cell itself in every slot (the gathers then coalesced), and
+       the first half of the cells alone (half the work at the same depth
+       of dependent loads);
+  k14  K14 as the solver calls it at chip_smoke.py's configuration: a
+       step's ODE-input traces (a tree with membrane_traces_m: that one
+       call; a tree without it: the one-field calls its solver makes, one
+       Nernst potential per (tag, ion) and the plus and minus averages of
+       StandardSolver's update_ode per tag, each over all membrane facets)
+       and the finalize jump, in both dtypes; and Solver._ode_inputs
+       itself in float64 (the traces with every tag's parameter pushes,
+       host time included; no graph).
 
 The data is random (seeded) at those shapes: only times are read.  The
 package is imported from ``--root`` (default: this file's directory), so
@@ -40,7 +56,7 @@ device microseconds per call of 100 calls replayed as one CUDA graph
 measured" where the call cannot be captured).  It also prints the cost of
 reading the current stream both ways.
 
-Usage:  python3 time_wrappers.py [--root DIR] [--only k8,k6,k4]   (needs a CUDA card)
+Usage:  python3 time_wrappers.py [--root DIR] [--only k8,k6,k4,k1,k14]   (needs a CUDA card)
 """
 import argparse
 import inspect
@@ -156,8 +172,8 @@ def host_us(fn, calls=200):
     return 1e6 * (t1 - t0) / calls
 
 
-def report(tag, name, fn):
-    g = graph_us(fn)
+def report(tag, name, fn, graph=True):
+    g = graph_us(fn) if graph else None
     print(f"{tag}  {name:44s} ms {cuda_ms(fn):.4f}  host_us {host_us(fn):.2f}  "
           f"loop_us {loop_us(fn):.2f}  graph_us " + ("not measured" if g is None else f"{g:.2f}"))
 
@@ -289,6 +305,87 @@ def time_to_pair(pairs, dev, gen):
             report("k4time", f"{str(dtype):14s} {name}", fn)
 
 
+def main_solver():
+    """chip_smoke.py's cell-layout solver in float64."""
+    from knpemidg_tpu_torch import emix
+    from knpemidg_tpu_torch.mesh.generators import box_3d_axons
+
+    mesh = box_3d_axons(1, length_factor=2)
+    mesh.vertices *= 1e2
+    t0 = time.perf_counter()
+    S = emix.build_solver(mesh, dtype=torch.float64, device="cuda")
+    print(f"time    solver built in {time.perf_counter() - t0:.1f} s")
+    return S
+
+
+def time_bell(spmv, S, dev, gen):
+    from chip_smoke import bell_bsr
+
+    nbr = S.g["nbr"]
+    K, nc = nbr.shape
+    half = nc // 2
+    ablations = {"nbr = self": torch.arange(nc, dtype=torch.int32, device=dev).expand(
+        K, nc).contiguous(), "first half of the cells": (nbr[:, :half] % half).contiguous()}
+    for dtype in (torch.float32, torch.float64):
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+        B, x, BK, xK = rnd(K, ND, ND, nc), rnd(ND, nc), rnd(IONS, K, ND, ND, nc), rnd(IONS, ND, nc)
+        calls = {"EMI bell_matvec (m = 1)": lambda: spmv.bell_matvec(B, nbr, x),
+                 "KNP bell_matvec_multi (m = 2)": lambda: spmv.bell_matvec_multi(BK, nbr, xK)}
+        try:
+            cells = lambda v: v.t().reshape(-1)
+            mats = [(bell_bsr(B, nbr), cells(x))] + [(bell_bsr(BK[k], nbr), cells(xK[k]))
+                                                     for k in range(IONS)]
+            calls["EMI BSR @ vector"] = lambda: mats[0][0] @ mats[0][1]
+            calls["KNP BSR @ vector (2 products)"] = lambda: [A @ u for A, u in mats[1:]]
+        except (RuntimeError, NotImplementedError, TypeError) as exc:
+            print(f"k1time  {str(dtype):14s} BSR not measured: {str(exc).splitlines()[0][:120]}")
+        Bh, xh = B[..., :half].contiguous(), x[:, :half].contiguous()
+        calls["EMI, nbr = self"] = lambda: spmv.bell_matvec(B, ablations["nbr = self"], x)
+        calls["EMI, first half of the cells"] = lambda: spmv.bell_matvec(
+            Bh, ablations["first half of the cells"], xh)
+        for name, fn in calls.items():
+            report("k1time", f"{str(dtype):14s} {name}", fn)
+        del B, x, BK, xK, Bh, xh, calls
+        torch.cuda.empty_cache()
+
+
+def time_traces(asm, S):
+    p, fused = S.params, hasattr(asm, "membrane_traces_m")
+    print(f"k14time membrane_traces_m {fused}")
+    state = S._initial_state(0.0)
+    c, ce = state["c"], state["c_elim"]
+    phi = 1e-3 * torch.ones_like(state["phi"])
+    zs = [float(ion.z) for ion in S.ion_list]
+    for dtype in (torch.float32, torch.float64):
+        cast = lambda d: {k: (v.to(dtype) if isinstance(v, torch.Tensor)
+                              and v.is_floating_point() else v) for k, v in d.items()}
+        g, mem = cast(S.g), cast(S.mem_dev)
+        fields = [f.to(dtype).contiguous() for f in list(c) + [ce]]
+        ph = phi.to(dtype)
+        if fused:
+            coefs = [asm.nernst_coef(z, p.F, p.R, p.temperature) for z in zs]
+            ode = lambda: asm.membrane_traces_m(g, mem, fields, coefs)
+        else:
+            na, k = len(S.ion_list) - 1, S._k_index
+
+            def ode():
+                out = []
+                for tag, mm in S.mem_models.items():
+                    s0, s1 = S.tables.slices[tag]
+                    out += [asm.nernst_potential_m(g, mem, f, z, p.F, p.R,
+                                                   p.temperature)[s0:s1]
+                            for f, z, ion in zip(fields, zs, S.ion_list)
+                            if mm.has_param(f"E_{ion.name}")]
+                    out += [asm.membrane_avg_m(g, mem, fields[k], "p")[s0:s1],
+                            asm.membrane_avg_m(g, mem, fields[na], "m")[s0:s1]]
+                return out
+        report("k14time", f"{str(dtype):14s} ODE-input traces", ode)
+        report("k14time", f"{str(dtype):14s} finalize jump",
+               lambda: asm.jump_phi_M_m(g, mem, ph))
+    report("k14time", f"{str(torch.float64):14s} Solver._ode_inputs",
+           lambda: S._ode_inputs(state, first_step=False), graph=False)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
@@ -299,7 +396,7 @@ def main():
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     from knpemidg_tpu_torch import _cuda
-    from knpemidg_tpu_torch.ops import coarse, krylov_ops as ko, pairs
+    from knpemidg_tpu_torch.ops import assembly as asm, coarse, krylov_ops as ko, pairs, spmv
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -311,8 +408,17 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2025)
+    built = []
+
+    def solver():
+        if not built:
+            built.append(main_solver())
+        return built[0]
+
     sections = {"k8": lambda: time_dots(ko, dev, gen), "k6": lambda: time_coarse(coarse, dev, gen),
-                "k4": lambda: time_to_pair(pairs, dev, gen)}
+                "k4": lambda: time_to_pair(pairs, dev, gen),
+                "k1": lambda: time_bell(spmv, solver(), dev, gen),
+                "k14": lambda: time_traces(asm, solver())}
     for key in args.only.split(","):
         sections[key]()
 
