@@ -472,11 +472,20 @@ def coarse_phase(layout, co, r, results):
     fields = [t for t in (co.OH, co.W, co.Wr) if t is not None]
     m, nd, nc = r.shape
     n_comp, nw, nr = co.sizes
-    field_flops = 2.0 * m * ((nw + nr) * nd * nc + n_comp * nc)
+    # the work reads each field over its span only (the one-hot's values,
+    # nd values a cell of W and Wr): those bytes, every field whole beside
+    span_cells = [0, 0]
+    if co.work.spans is not None:
+        ln = (co.work.spans[:, 1] - co.work.spans[:, 0]).clamp(min=0).long().cpu()
+        span_cells = [int(ln[:n_comp].sum()), int(ln[n_comp:].sum())]
+    span_bytes = (span_cells[0] + nd * span_cells[1]) * r.element_size()
+    whole = (lambda ts: nbytes(ts + fields)) if fields else (lambda ts: None)
+    field_flops = 2.0 * m * (nd * span_cells[1] + span_cells[0])
     compare(name("restrict"), dtype, lambda: nonempty(coarse.restrict(co, r)),
             lambda: nonempty(coarse.restrict_plain(co, r)),
             lambda ref: nonempty(coarse.restrict_plain(a, r.abs())), results,
-            inputs=[r] + fields, flops=field_flops + r.numel())
+            inputs=[r], extra_bytes=span_bytes, whole_bytes=whole([r]),
+            flops=field_flops + r.numel())
     rc, proj = coarse.restrict_plain(co, r)
     wk = co.work
     wk.rc.copy_(rc)
@@ -500,7 +509,8 @@ def coarse_phase(layout, co, r, results):
             lambda: [coarse.prolong_add(co, out0.clone(), wk.zc, wk.coef)],
             lambda: [coarse.prolong_add_plain(co, out0.clone(), zc, coef)],
             lambda ref: [coarse.prolong_add_plain(a, out0.abs(), zc.abs(), coef.abs())],
-            results, inputs=[out0, zc, coef] + fields, flops=field_flops + 2.0 * r.numel(),
+            results, inputs=[out0, zc, coef], extra_bytes=span_bytes,
+            whole_bytes=whole([out0, zc, coef]), flops=field_flops + 2.0 * r.numel(),
             timed=(lambda: coarse.prolong_add(co, bufs[0], wk.zc, wk.coef),
                    lambda: coarse.prolong_add_plain(co, bufs[1], zc, coef)))
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """SHA-256 digests of the outputs of kernels K10 emi_facet, K3
-pair_matvec / pair_matvec_multi, K1 bell_matvec / bell_matvec_multi and
-K14 membrane_trace on the card, at chip_smoke.py's configuration
+pair_matvec / pair_matvec_multi, K1 bell_matvec / bell_matvec_multi, K14
+membrane_trace and K6's restrict and prolong-add on the card, at
+chip_smoke.py's configuration
 (box_3d_axons(1, length_factor=2) in cm, the EMIx solver), at a state
 perturbed with a seeded generator: emi_facet on the cell and the pair
 layout's facet tables (float32 and float64); the matvecs (K3 on pairs, K1
@@ -11,7 +12,10 @@ tag's membrane states and ODE parameters out of Solver._ode_inputs (the
 potential, the Nernst potentials E_* and StandardSolver's K_e / Na_i) and
 the finalize jump, on both layouts, and in both dtypes each ion's plus and
 minus facet averages and Nernst potential through the one-field entry
-points.
+points; K6 on the EMI preconditioner data of each layout's pc build at
+emix.solver_params() (the cell layout's with its 24 Ritz fields; both
+dtypes) applied to a seeded r: restrict's chunk sums and projections,
+then solve and the prolong-add into a seeded output.
 
 The package is imported from ``--root`` (default: this file's directory),
 so two trees, such as an unpacked parent commit and this one, can be held
@@ -44,7 +48,7 @@ def main():
     sys.path.insert(0, os.path.abspath(args.root))
     from knpemidg_tpu_torch import emix
     from knpemidg_tpu_torch.mesh.generators import box_3d_axons
-    from knpemidg_tpu_torch.ops import assembly as asm, pairs, spmv
+    from knpemidg_tpu_torch.ops import assembly as asm, coarse, pairs, spmv
 
     mesh = box_3d_axons(1, length_factor=2)
     mesh.vertices *= 1e2
@@ -116,6 +120,24 @@ def main():
                 torch.cuda.synchronize()
                 print(f"digest  pair_matvec  {layout} {str(dtype):14s} {digest(out)} "
                       f"(operators {digest([pd, pe, pdK, peK])})")
+        # K6 on the pc build's EMI data (the Ritz harvest runs K6 itself)
+        sp = emix.solver_params(error_if_not_converged=False)
+        pc = S.attach_pc(state, sp)["pc"]["emi"]
+        agg = sp.agg_size // 2 if layout == "pair" else sp.agg_size
+        nd, nc = pc["mom_W"].shape[1:]
+        r64, out64 = torch.randn((2, 1, nd, nc), generator=gen, device="cuda",
+                                 dtype=torch.float64)
+        for dtype in (torch.float32, torch.float64):
+            co = coarse.operands({k: v.to(dtype) for k, v in pc.items()}, agg, batched=False)
+            rc, proj = coarse.restrict(co, r64.to(dtype))
+            torch.cuda.synchronize()
+            print(f"digest  k6_restrict  {layout} {str(dtype):14s} {digest([rc, proj])} "
+                  f"(operands {digest([v.to(dtype) for v in pc.values()])}, "
+                  f"{co.sizes[2]} Ritz fields)")
+            zc, coef = coarse.solve(co, rc, proj)
+            out = coarse.prolong_add(co, out64.to(dtype), zc, coef)
+            torch.cuda.synchronize()
+            print(f"digest  k6_prolong   {layout} {str(dtype):14s} {digest([out])}")
         del S
         torch.cuda.empty_cache()
 

@@ -74,10 +74,11 @@ _SIGNATURES = {
     "knp_to_pair": (_P,) * 6 + (_I,) * 4 + (_P,),
     "knp_from_pair": (_P,) * 4 + (_I,) * 3 + (_P,),
     "knp_gather_blocks_pair": (_P,) * 18 + (_I,) * 6 + (_D, _P),
-    "knp_tl_restrict": (_P,) * 7 + (_I,) * 9 + (_P,),
+    "knp_tl_restrict": (_P,) * 8 + (_I,) * 10 + (_P,),
+    "knp_tl_fields_prepare": (_I,),
     "knp_tl_solve_prepare": (_P,),
     "knp_tl_solve": (_P,) * 4,
-    "knp_tl_prolong": (_P,) * 6 + (_I,) * 8 + (_P,),
+    "knp_tl_prolong": (_P,) * 7 + (_I,) * 8 + (_P,),
     "knp_emi_cell": (_P,) * 10 + (_I,) * 4 + (_D, _D, _P),
     "knp_emi_facet": (_P,) * 26 + (_I,) * 5 + (_D, _D, _D, _P),
     "knp_emi_emit_cell": (_P,) * 16 + (_I,) * 5 + (_D, _P),

@@ -22,22 +22,59 @@
 // own launch).
 //
 // Bound: device-memory bandwidth.  The deflation fields dominate: at the
-// cell layout's main path (124,416 cells, nd = 4, 45 moment and 24 Ritz
-// fields) W and Wr are 179 and 96 MB in float64, the coarse inv and As
-// (1,944^2) 30 MB each, r and out 4-8 MB: about 352 MB, 105 us at
-// 3.35 TB/s (half in float32).  Design: restrict and prolong each stream
-// the fields once (so W is read twice per apply, about 2x the bound); one
-// thread per cell with the cells-last layout keeps every field load
-// coalesced.  A restrict block covers whole chunks, so the chunk sums need
-// no second pass; the field projections are split over the grid's third
-// axis, 8 fields a block, so that enough loads are in flight (one block
-// walking all 74 fields waits on a load round trip per field), and reduced
-// per block (warp shuffles in a fixed tree, then the warps in order) into
-// per-block partials that a second kernel sums in a fixed order.  The
-// prolong loops over the fields unrolled by 4 for the same reason; the
-// unrolling keeps each sum's order.  No floating-point atomics: the
-// results repeat bit for bit from call to call, and so do the Krylov
-// counts.  The solve is one launch per apply (the coarse inv and As are
+// cell layout's main path (124,416 cells, nd = 4, 5 compartments, 45
+// moment and 24 Ritz fields) W and Wr are 179 and 96 MB in float64 when
+// read whole, the coarse inv and As (1,944^2) 30 MB each, r and out 4-8
+// MB.  But a moment field (and a one-hot) is exactly zero outside its
+// compartment, and cells are numbered by compartment, so each is nonzero
+// on one contiguous cell range: its span [lo, hi), the first and
+// one-past-last cell at which any of its nd values is nonzero, computed
+// from the values once per frozen two-level data (ops/coarse.py) and
+// passed as an int32 (nf, 2) table.  Restrict and prolong read each field
+// only in the blocks its span overlaps: 1/5 of W, the Ritz fields (dense)
+// whole; about 136 MB a pass in float64, 41 us at 3.35 TB/s.
+//
+// Design: one thread per cell with the cells-last layout keeps every field
+// load coalesced.  A restrict block covers whole chunks (a tile of 256
+// cells at the main path), so the chunk sums need no second pass; it
+// stages the tile's r and rs = sum_i r in shared memory once, lists the
+// fields live in the tile (span overlapping it; ascending, by warp ballots)
+// and computes its share of them: the grid's x axis is (tile, slice), the
+// slices of a tile adjacent, each slice a contiguous part of the tile's
+// live list, so that enough loads are in flight without slices that idle.
+// A slice's fields go in batches of 32 / nd, each field reduced over the
+// block (warp shuffles in a fixed tree, then the warps in order) into a
+// per-block partial; a second kernel sums a field's partials over the
+// blocks of its span in a fixed order.  The prolong lists each block's
+// live fields the same way and sums them in ascending order, a batch's
+// loads written before its adds.  The batch sizes, the slices (3) and the
+// load order are the fastest of the variants measured on the H100
+// (PERF.md): a thread's round trips to memory, not its bytes, set much of
+// the time, and nvcc's register allocation moves with small changes of
+// the code.  No floating-point atomics: the results repeat bit for bit
+// from call to call, and so do the Krylov counts.
+//
+// Why the bits equal those of dense passes (every field read at every
+// cell).  A (field, block) partial that is computed is computed as the
+// dense pass computes it: every cell of the tile, in the same expression
+// forms (so nvcc contracts them alike), in the same order; the cells of
+// the tile outside the field's span read its zeros.  A skipped term is an
+// exact product with zero, +0 or -0: a skipped block's partial (0 + a sum
+// of such products, per thread, then the shuffle tree) is exactly +0, and
+// the prolong's am / ar accumulators gain only such products over the
+// skipped fields.  Every accumulator that loses terms starts at +0, and in
+// round-to-nearest x + (+-0) = x for x != 0 and +0 + (+-0) = +0, so an
+// accumulator that started at +0 is -0 only if one of its kept terms is
+// (a product that underflows to -0); short of that, removing the terms
+// leaves every sum bitwise equal, signed zeros and the reduce's +0 start
+// included.  The prolong's one-hot loop starts from its first product,
+// not from +0, so it stays dense.  NaN and Inf in r no longer reach the
+// projections of fields that are zero where r is not finite, but they
+// still reach every output through the chunk sums rc and the coarse
+// values zc, which stay dense (PCG's breakdown checks see what they saw
+// before).
+//
+// The solve is one launch per apply (the coarse inv and As are
 // 1,944^2: 30 MB each in float64, 18 us at 3.35 TB/s for one read of
 // each): the dense GEMVs give one warp to a row (coalesced row reads, the
 // loads of a batch issued before its adds, a fixed shuffle tree), the
@@ -56,8 +93,6 @@
 
 #define TL_WARPS (KNP_THREADS / 32)
 #define TL_MAX_TILE 1024   // cells a restrict block covers (whole chunks)
-#define TL_FIELD_BATCH 32  // field sums reduced per block synchronisation
-#define TL_FIELDS_PER_BLOCK 8  // projections a restrict block computes
 #define TL_MAX_SMEM 232448     // dynamic shared memory a block can have (227 KB)
 
 template <typename T>
@@ -85,85 +120,187 @@ __device__ __forceinline__ T block_sum(T v, T* red) {
 // restrict: chunk sums and per-block partial field projections
 // ---------------------------------------------------------------------------
 
-template <typename T, int ND>
-__global__ void tl_restrict_kernel(const T* __restrict__ r, const T* __restrict__ OH,
-                                   const T* __restrict__ W, const T* __restrict__ Wr,
-                                   T* __restrict__ rc, T* __restrict__ partial, int nc,
-                                   int agg, int n_agg, int cpt, int n_comp, int nw,
-                                   int nr) {
-  __shared__ T rs_tile[TL_MAX_TILE];
-  __shared__ T red[TL_FIELD_BATCH][TL_WARPS];
-  const int s = blockIdx.y, b = blockIdx.x, nblk = gridDim.x;
+// The span of field threadIdx.x of the n in ``spans`` ((0, 0) past n): a
+// kernel loads it first, so that its round trip overlaps the kernel's
+// other first loads.
+__device__ __forceinline__ int2 tl_first_span(const int* __restrict__ spans, int n) {
+  return threadIdx.x < n ? make_int2(spans[2 * threadIdx.x], spans[2 * threadIdx.x + 1])
+                         : make_int2(0, 0);
+}
+
+// Lists in ``list``, in ascending order, each of the n fields f whose span
+// (spans[2 f], spans[2 f + 1]) overlaps the cells [c_lo, c_hi); returns the
+// count in every thread, and in n_below how many of them are below
+// ``split``.  An empty span (0, 0) overlaps nothing.  ``first`` is
+// tl_first_span(spans, n).  All threads of the block call it; ``wcnt``
+// holds 2 TL_WARPS ints.
+__device__ __forceinline__ int tl_live_fields(const int* __restrict__ spans, int n, int split,
+                                              int2 first, int c_lo, int c_hi, int* list,
+                                              int* wcnt, int& n_below) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int count = 0;
+  n_below = 0;
+  for (int base = 0; base < n; base += blockDim.x) {
+    const int f = base + threadIdx.x;
+    int2 sp = first;
+    if (base > 0) sp = f < n ? make_int2(spans[2 * f], spans[2 * f + 1]) : make_int2(0, 0);
+    const bool on = sp.x < c_hi && sp.y > c_lo;
+    const unsigned bal = __ballot_sync(0xffffffffu, on);
+    const unsigned below = __ballot_sync(0xffffffffu, on && f < split);
+    if (lane == 0) {
+      wcnt[warp] = __popc(bal);
+      wcnt[TL_WARPS + warp] = __popc(below);
+    }
+    __syncthreads();
+    int off = count;
+    for (int w = 0; w < TL_WARPS; ++w) {
+      off += w < warp ? wcnt[w] : 0;
+      count += wcnt[w];
+      n_below += wcnt[TL_WARPS + w];
+    }
+    if (on) list[off + __popc(bal & ((1u << lane) - 1u))] = f;
+    __syncthreads();
+  }
+  return count;
+}
+
+// Fields a restrict slice reduces per block synchronisation: 32 field
+// values a thread (16 fields of nd = 4 in float32 measured slower)
+template <int ND>
+struct TlBatchFields {
+  static constexpr int F = 32 / ND;
+};
+
+// Block (tile b, slice z) of system s; dynamic shared memory: rs (tile),
+// r (ND x tile) and the live list (nf ints) with fields, rs alone without.
+template <typename T, int ND>
+__global__ void __launch_bounds__(KNP_THREADS)
+tl_restrict_kernel(const T* __restrict__ r, const T* __restrict__ OH,
+                   const T* __restrict__ W, const T* __restrict__ Wr,
+                   const int* __restrict__ spans, T* __restrict__ rc,
+                   T* __restrict__ partial, int nc, int agg, int n_agg, int cpt, int n_comp,
+                   int nw, int nr, int zs) {
+  constexpr int FB = TlBatchFields<ND>::F;
+  extern __shared__ __align__(16) unsigned char tl_smem[];
+  __shared__ T red[FB][TL_WARPS];
+  __shared__ int wcnt[2 * TL_WARPS];
+  const int s = blockIdx.y, b = blockIdx.x / zs, z = blockIdx.x % zs, nblk = gridDim.x / zs;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nf = n_comp + nw + nr;
+  const int tile_max = cpt * agg;
   const int chunk0 = b * cpt;
   const int nchunks = min(cpt, n_agg - chunk0);
   const int c0 = chunk0 * agg;
   const int tile = nchunks * agg;
   const size_t ncz = (size_t)nc;
   const T* rsys = r + (size_t)s * ND * ncz;
+  T* rs_tile = reinterpret_cast<T*>(tl_smem);
+  T* r_tile = rs_tile + tile_max;                 // r[i] of tile cell t at i * tile_max + t
+  int* live = reinterpret_cast<int*>(r_tile + (nf > 0 ? ND * tile_max : 0));
 
   for (int t = threadIdx.x; t < tile; t += blockDim.x) {
     const int c = c0 + t;
     T v = T(0);                                   // pad cells of the last chunk
     if (c < nc) {
       v = rsys[c];
+      if (nf > 0) r_tile[t] = v;
 #pragma unroll
-      for (int i = 1; i < ND; ++i) v += rsys[i * ncz + c];
+      for (int i = 1; i < ND; ++i) {
+        const T x = rsys[i * ncz + c];
+        if (nf > 0) r_tile[i * tile_max + t] = x;
+        v += x;
+      }
     }
     rs_tile[t] = v;
   }
   __syncthreads();
-  if (blockIdx.z == 0 && threadIdx.x < nchunks) {
+  if (z == 0 && threadIdx.x < nchunks) {
     const T* p = rs_tile + threadIdx.x * agg;
     T acc = p[0];
     for (int j = 1; j < agg; ++j) acc += p[j];
     rc[(size_t)s * n_agg + chunk0 + threadIdx.x] = acc;
   }
+  if (nf == 0) return;
 
-  const int nf = n_comp + nw + nr;
-  const int f_hi = min(nf, (int)(blockIdx.z + 1) * TL_FIELDS_PER_BLOCK);
+  // the fields live in the tile: the one-hots first, then W and Wr
   const int t_end = min(tile, nc - c0);
-  for (int f0 = blockIdx.z * TL_FIELDS_PER_BLOCK; f0 < f_hi; f0 += TL_FIELD_BATCH) {
-    const int nb = min(TL_FIELD_BATCH, f_hi - f0);
-    for (int ff = 0; ff < nb; ++ff) {
-      const int f = f0 + ff;
-      T acc = T(0);
-      if (f < n_comp) {
-        const T* oh = OH + (size_t)f * ncz + c0;
-        for (int t = threadIdx.x; t < t_end; t += blockDim.x) acc += oh[t] * rs_tile[t];
-      } else {
-        const T* wf = (f < n_comp + nw) ? W + (size_t)(f - n_comp) * ND * ncz
-                                        : Wr + (size_t)(f - n_comp - nw) * ND * ncz;
-        for (int t = threadIdx.x; t < t_end; t += blockDim.x) {
-          const int c = c0 + t;
-          T a = wf[c] * rsys[c];
+  int n_oh;
+  const int2 first = tl_first_span(spans, nf);
+  const int n_live = tl_live_fields(spans, nf, n_comp, first, c0, c0 + t_end, live, wcnt, n_oh);
+  // this slice's part of the list
+  const int per = (n_live + zs - 1) / zs;
+  const int i_beg = min(n_live, z * per), i_end = min(n_live, i_beg + per);
+  T* part = partial + (size_t)s * nf * nblk + b;
+
+  for (int i = i_beg; i < min(i_end, n_oh); ++i) {
+    const T* oh = OH + (size_t)live[i] * ncz + c0;
+    T acc = T(0);
+    for (int t = threadIdx.x; t < t_end; t += blockDim.x) acc += oh[t] * rs_tile[t];
+    acc = warp_sum(acc);
+    if (lane == 0) red[0][warp] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      T x = red[0][0];
+      for (int w = 1; w < TL_WARPS; ++w) x += red[0][w];
+      part[(size_t)live[i] * nblk] = x;
+    }
+    __syncthreads();
+  }
+
+  for (int i0 = max(i_beg, n_oh); i0 < i_end; i0 += FB) {
+    const int nb = min(FB, i_end - i0);
+    const T* wp[FB];
 #pragma unroll
-          for (int i = 1; i < ND; ++i) a += wf[i * ncz + c] * rsys[i * ncz + c];
-          acc += a;
-        }
+    for (int k = 0; k < FB; ++k) {              // past nb: the batch's last field again
+      const int f = live[min(i0 + k, i_end - 1)];
+      wp[k] = f < n_comp + nw ? W + (size_t)(f - n_comp) * ND * ncz
+                              : Wr + (size_t)(f - n_comp - nw) * ND * ncz;
+    }
+    T acc[FB];
+#pragma unroll
+    for (int k = 0; k < FB; ++k) acc[k] = T(0);
+    for (int t = threadIdx.x; t < t_end; t += blockDim.x) {
+      const int c = c0 + t;
+#pragma unroll
+      for (int k = 0; k < FB; ++k) {
+        T a = wp[k][c] * r_tile[t];
+#pragma unroll
+        for (int i = 1; i < ND; ++i) a += wp[k][i * ncz + c] * r_tile[i * tile_max + t];
+        acc[k] += a;
       }
-      acc = warp_sum(acc);
-      if (lane == 0) red[ff][warp] = acc;
+    }
+#pragma unroll
+    for (int k = 0; k < FB; ++k) {
+      if (k < nb) {
+        const T v = warp_sum(acc[k]);
+        if (lane == 0) red[k][warp] = v;
+      }
     }
     __syncthreads();
     if (threadIdx.x < nb) {
-      T acc = red[threadIdx.x][0];
-      for (int w = 1; w < TL_WARPS; ++w) acc += red[threadIdx.x][w];
-      partial[((size_t)s * nf + f0 + threadIdx.x) * nblk + b] = acc;
+      T x = red[threadIdx.x][0];
+      for (int w = 1; w < TL_WARPS; ++w) x += red[threadIdx.x][w];
+      part[(size_t)live[i0 + threadIdx.x] * nblk] = x;
     }
     __syncthreads();
   }
 }
 
-// proj[s,f] = sum over the restrict blocks of partial[s,f,:], fixed order
+// proj[s,f] = sum of partial[s,f,:] over the restrict blocks of f's span
+// (the others were not written: their partials are exactly +0), in the
+// fixed order of the sum over all blocks: thread x takes the blocks j = x
+// mod blockDim in increasing j, then the block sum.
 template <typename T>
-__global__ void tl_reduce_kernel(const T* __restrict__ partial, T* __restrict__ proj,
-                                 int nf, int nblk) {
+__global__ void tl_reduce_kernel(const T* __restrict__ partial, const int* __restrict__ spans,
+                                 T* __restrict__ proj, int nf, int nblk, int tile_cells) {
   __shared__ T red[TL_WARPS];
   const int f = blockIdx.x, s = blockIdx.y;
   const T* p = partial + ((size_t)s * nf + f) * nblk;
+  const int lo = spans[2 * f], hi = spans[2 * f + 1];
+  const int b_lo = lo / tile_cells, b_hi = hi > lo ? (hi - 1) / tile_cells + 1 : b_lo;
+  const int bd = blockDim.x;
   T acc = T(0);
-  for (int j = threadIdx.x; j < nblk; j += blockDim.x) acc += p[j];
+  for (int j = b_lo + ((int)threadIdx.x - b_lo % bd + bd) % bd; j < b_hi; j += bd) acc += p[j];
   acc = block_sum(acc, red);
   if (threadIdx.x == 0) proj[(size_t)s * nf + f] = acc;
 }
@@ -420,23 +557,75 @@ tl_solve_kernel(const TlSolve<T> p, const T* __restrict__ rc, const T* __restric
 // prolong-add
 // ---------------------------------------------------------------------------
 
+// acc[i] += a_f * F[f, i, c] over the fields f = list[j] - off, j in
+// [j_beg, j_end), in that order, a_f = cf[f]: in batches of 256 bytes of
+// field values a thread (128 measured slower), a batch's loads written
+// before its adds (a batch past j_end repeats its last field and drops
+// it).
+template <typename T, int ND>
+__device__ __forceinline__ void tl_prolong_fields(T (&acc)[ND], const int* list, int j_beg,
+                                                  int j_end, int off, const T* __restrict__ cf,
+                                                  const T* __restrict__ F, size_t ncz, int c) {
+  constexpr int U = 256 / (ND * (int)sizeof(T));
+  for (int j0 = j_beg; j0 < j_end; j0 += U) {
+    T a[U], wv[U][ND];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int f = list[min(j0 + k, j_end - 1)] - off;
+      a[k] = cf[f];
+      const T* wf = F + (size_t)f * ND * ncz + c;
+#pragma unroll
+      for (int i = 0; i < ND; ++i) wv[k][i] = wf[i * ncz];
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      if (j0 + k < j_end) {
+#pragma unroll
+        for (int i = 0; i < ND; ++i) acc[i] += a[k] * wv[k][i];
+      }
+    }
+  }
+}
+
+// One thread a cell.  The block lists the W and Wr fields whose span
+// overlaps its cells (dynamic shared memory: nw + nr ints) and sums only
+// those, in ascending order; the one-hot loop stays dense (see the header).
+// The loads that need no list (out, zc, the one-hots) are issued before
+// the list is built, and the fields go in batches of loads: a thread's
+// dependent round trips to memory, not its bytes, set the time.
 template <typename T, int ND>
 __global__ void tl_prolong_kernel(T* __restrict__ out, const T* __restrict__ zc,
                                   const T* __restrict__ coef, const T* __restrict__ OH,
-                                  const T* __restrict__ W, const T* __restrict__ Wr, int nc,
-                                  int agg, int n_agg, int n_comp, int nw, int nr) {
+                                  const T* __restrict__ W, const T* __restrict__ Wr,
+                                  const int* __restrict__ spans, int nc, int agg, int n_agg,
+                                  int n_comp, int nw, int nr) {
+  extern __shared__ int tl_live[];
+  __shared__ int wcnt[2 * TL_WARPS];
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int s = blockIdx.y;
-  if (c >= nc) return;
+  const int2 first = tl_first_span(spans + 2 * n_comp, nw + nr);
   const size_t ncz = (size_t)nc;
   const int nf = n_comp + nw + nr;
   const T* cf = coef + (size_t)s * nf;
-  T v = zc[(size_t)s * n_agg + c / agg];
-  if (n_comp > 0) {
-    T zp = cf[0] * OH[c];
-    for (int p = 1; p < n_comp; ++p) zp += cf[p] * OH[(size_t)p * ncz + c];
-    v += zp;
+  T* o = out + (size_t)s * ND * ncz + c;
+  T ov[ND];
+  T v = T(0);
+  if (c < nc) {
+#pragma unroll
+    for (int i = 0; i < ND; ++i) ov[i] = o[i * ncz];
+    v = zc[(size_t)s * n_agg + c / agg];
+    if (n_comp > 0) {
+      T zp = cf[0] * OH[c];
+#pragma unroll 8
+      for (int p = 1; p < n_comp; ++p) zp += cf[p] * OH[(size_t)p * ncz + c];
+      v += zp;
+    }
   }
+  const int c_lo = blockIdx.x * blockDim.x, c_hi = min(nc, c_lo + (int)blockDim.x);
+  int n_lw;                                      // the list: W's, then Wr's (+ nw)
+  const int n_live = tl_live_fields(spans + 2 * n_comp, nw + nr, nw, first, c_lo, c_hi, tl_live,
+                                    wcnt, n_lw);
+  if (c >= nc) return;
   T acc[ND];
 #pragma unroll
   for (int i = 0; i < ND; ++i) acc[i] = v;
@@ -444,13 +633,7 @@ __global__ void tl_prolong_kernel(T* __restrict__ out, const T* __restrict__ zc,
     T am[ND];
 #pragma unroll
     for (int i = 0; i < ND; ++i) am[i] = T(0);
-#pragma unroll 4
-    for (int w = 0; w < nw; ++w) {
-      const T a = cf[n_comp + w];
-      const T* wf = W + (size_t)w * ND * ncz + c;
-#pragma unroll
-      for (int i = 0; i < ND; ++i) am[i] += a * wf[i * ncz];
-    }
+    tl_prolong_fields<T, ND>(am, tl_live, 0, n_lw, 0, cf + n_comp, W, ncz, c);
 #pragma unroll
     for (int i = 0; i < ND; ++i) acc[i] += am[i];
   }
@@ -458,48 +641,76 @@ __global__ void tl_prolong_kernel(T* __restrict__ out, const T* __restrict__ zc,
     T ar[ND];
 #pragma unroll
     for (int i = 0; i < ND; ++i) ar[i] = T(0);
-#pragma unroll 4
-    for (int v2 = 0; v2 < nr; ++v2) {
-      const T a = cf[n_comp + nw + v2];
-      const T* wf = Wr + (size_t)v2 * ND * ncz + c;
-#pragma unroll
-      for (int i = 0; i < ND; ++i) ar[i] += a * wf[i * ncz];
-    }
+    tl_prolong_fields<T, ND>(ar, tl_live, n_lw, n_live, nw, cf + n_comp + nw, Wr, ncz, c);
 #pragma unroll
     for (int i = 0; i < ND; ++i) acc[i] += ar[i];
   }
-  T* o = out + (size_t)s * ND * ncz + c;
 #pragma unroll
-  for (int i = 0; i < ND; ++i) o[i * ncz] = o[i * ncz] + acc[i];
+  for (int i = 0; i < ND; ++i) o[i * ncz] = ov[i] + acc[i];
 }
 
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
+// Dynamic shared memory of a restrict block: rs of a tile, and with fields
+// r of the tile and the live list
 template <typename T>
-static int tl_restrict_launch(const T* r, const T* OH, const T* W, const T* Wr, T* rc,
-                              T* proj, T* partial, int m, int nd, int nc, int agg,
-                              int n_agg, int cpt, int n_comp, int nw, int nr,
+static size_t tl_restrict_smem(int nd, int tile, int nf) {
+  return (size_t)tile * sizeof(T) + (nf > 0 ? (size_t)nd * tile * sizeof(T) + nf * sizeof(int) : 0);
+}
+
+template <typename T>
+static int tl_restrict_launch(const T* r, const T* OH, const T* W, const T* Wr, const int* spans,
+                              T* rc, T* proj, T* partial, int m, int nd, int nc, int agg,
+                              int n_agg, int cpt, int n_comp, int nw, int nr, int zs,
                               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (cpt * agg > TL_MAX_TILE || cpt < 1) return (int)cudaErrorInvalidValue;
   const int nf = n_comp + nw + nr;
-  const dim3 grid((n_agg + cpt - 1) / cpt, m,
-                  std::max(1, (nf + TL_FIELDS_PER_BLOCK - 1) / TL_FIELDS_PER_BLOCK));
+  const int tile = cpt * agg;
+  const size_t smem = tl_restrict_smem<T>(nd, tile, nf);
+  if (tile > TL_MAX_TILE || cpt < 1 || zs < 1 || smem > TL_MAX_SMEM || (nf > 0 && !spans))
+    return (int)cudaErrorInvalidValue;
+  const int nblk = (n_agg + cpt - 1) / cpt;
+  const dim3 grid(nblk * zs, m);
   if (nd == 4) {
-    tl_restrict_kernel<T, 4><<<grid, KNP_THREADS, 0, st>>>(r, OH, W, Wr, rc, partial, nc,
-                                                          agg, n_agg, cpt, n_comp, nw, nr);
+    tl_restrict_kernel<T, 4><<<grid, KNP_THREADS, smem, st>>>(
+        r, OH, W, Wr, spans, rc, partial, nc, agg, n_agg, cpt, n_comp, nw, nr, zs);
   } else if (nd == 8) {
-    tl_restrict_kernel<T, 8><<<grid, KNP_THREADS, 0, st>>>(r, OH, W, Wr, rc, partial, nc,
-                                                          agg, n_agg, cpt, n_comp, nw, nr);
+    tl_restrict_kernel<T, 8><<<grid, KNP_THREADS, smem, st>>>(
+        r, OH, W, Wr, spans, rc, partial, nc, agg, n_agg, cpt, n_comp, nw, nr, zs);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   int rc_err = (int)cudaGetLastError();
   if (rc_err != 0 || nf == 0) return rc_err;
-  tl_reduce_kernel<T><<<dim3(nf, m), KNP_THREADS, 0, st>>>(partial, proj, nf, grid.x);
+  tl_reduce_kernel<T><<<dim3(nf, m), KNP_THREADS, 0, st>>>(partial, spans, proj, nf, nblk, tile);
   return (int)cudaGetLastError();
+}
+
+// Lets the restrict and prolong kernels take ``smem`` bytes of dynamic
+// shared memory (above the default 48 KB: chunks of more than 512 cells at
+// nd = 8 in float64, or thousands of fields); called once per workspace
+// that needs it.  Each kernel's limit is raised to smem, never lowered (the
+// limit is the kernel's, shared by every workspace; with the kernel's
+// static shared memory it may not exceed the block's 227 KB).  A refused
+// call clears the runtime's last error, or the next launch of any kernel
+// would report it.
+template <typename T>
+static int tl_fields_prepare(int smem) {
+  const void* fns[] = {(const void*)tl_restrict_kernel<T, 4>, (const void*)tl_restrict_kernel<T, 8>,
+                       (const void*)tl_prolong_kernel<T, 4>, (const void*)tl_prolong_kernel<T, 8>};
+  for (const void* fn : fns) {
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+    if (e == cudaSuccess && attr.maxDynamicSharedSizeBytes < smem)
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return (int)e;
+    }
+  }
+  return 0;
 }
 
 // The grid (the blocks the rows need plus one for each small solve, at most
@@ -554,16 +765,18 @@ static int tl_solve_launch(const TlSolve<T>* p, const T* rc, const T* proj, void
 
 template <typename T>
 static int tl_prolong_launch(T* out, const T* zc, const T* coef, const T* OH, const T* W,
-                             const T* Wr, int m, int nd, int nc, int agg, int n_agg,
-                             int n_comp, int nw, int nr, void* stream) {
+                             const T* Wr, const int* spans, int m, int nd, int nc, int agg,
+                             int n_agg, int n_comp, int nw, int nr, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid(knp_blocks(nc), m);
+  const size_t smem = (size_t)(nw + nr) * sizeof(int);
+  if (smem > TL_MAX_SMEM || (n_comp + nw + nr > 0 && !spans)) return (int)cudaErrorInvalidValue;
   if (nd == 4) {
-    tl_prolong_kernel<T, 4><<<grid, KNP_THREADS, 0, st>>>(out, zc, coef, OH, W, Wr, nc, agg,
-                                                         n_agg, n_comp, nw, nr);
+    tl_prolong_kernel<T, 4><<<grid, KNP_THREADS, smem, st>>>(out, zc, coef, OH, W, Wr, spans, nc,
+                                                            agg, n_agg, n_comp, nw, nr);
   } else if (nd == 8) {
-    tl_prolong_kernel<T, 8><<<grid, KNP_THREADS, 0, st>>>(out, zc, coef, OH, W, Wr, nc, agg,
-                                                         n_agg, n_comp, nw, nr);
+    tl_prolong_kernel<T, 8><<<grid, KNP_THREADS, smem, st>>>(out, zc, coef, OH, W, Wr, spans, nc,
+                                                            agg, n_agg, n_comp, nw, nr);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -572,12 +785,13 @@ static int tl_prolong_launch(T* out, const T* zc, const T* coef, const T* OH, co
 
 #define TL_ENTRIES(T, SFX)                                                               \
   extern "C" int knp_tl_restrict_##SFX(const T* r, const T* OH, const T* W, const T* Wr,  \
-                                       T* rc, T* proj, T* partial, int m, int nd, int nc, \
-                                       int agg, int n_agg, int cpt, int n_comp, int nw,   \
-                                       int nr, void* stream) {                            \
-    return tl_restrict_launch<T>(r, OH, W, Wr, rc, proj, partial, m, nd, nc, agg, n_agg, \
-                                 cpt, n_comp, nw, nr, stream);                            \
+                                       const int* spans, T* rc, T* proj, T* partial,      \
+                                       int m, int nd, int nc, int agg, int n_agg, int cpt, \
+                                       int n_comp, int nw, int nr, int zs, void* stream) {  \
+    return tl_restrict_launch<T>(r, OH, W, Wr, spans, rc, proj, partial, m, nd, nc, agg,  \
+                                 n_agg, cpt, n_comp, nw, nr, zs, stream);                 \
   }                                                                                       \
+  extern "C" int knp_tl_fields_prepare_##SFX(int smem) { return tl_fields_prepare<T>(smem); } \
   extern "C" int knp_tl_solve_prepare_##SFX(void* params) {                              \
     return tl_solve_prepare<T>(static_cast<TlSolve<T>*>(params));                         \
   }                                                                                       \
@@ -586,11 +800,11 @@ static int tl_prolong_launch(T* out, const T* zc, const T* coef, const T* OH, co
     return tl_solve_launch<T>(static_cast<const TlSolve<T>*>(params), rc, proj, stream);  \
   }                                                                                       \
   extern "C" int knp_tl_prolong_##SFX(T* out, const T* zc, const T* coef, const T* OH,    \
-                                      const T* W, const T* Wr, int m, int nd, int nc,     \
-                                      int agg, int n_agg, int n_comp, int nw, int nr,     \
-                                      void* stream) {                                     \
-    return tl_prolong_launch<T>(out, zc, coef, OH, W, Wr, m, nd, nc, agg, n_agg, n_comp,  \
-                                nw, nr, stream);                                          \
+                                      const T* W, const T* Wr, const int* spans, int m,   \
+                                      int nd, int nc, int agg, int n_agg, int n_comp,     \
+                                      int nw, int nr, void* stream) {                     \
+    return tl_prolong_launch<T>(out, zc, coef, OH, W, Wr, spans, m, nd, nc, agg, n_agg,   \
+                                n_comp, nw, nr, stream);                                  \
   }
 
 TL_ENTRIES(float, f32)

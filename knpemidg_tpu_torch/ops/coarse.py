@@ -17,11 +17,20 @@ K6 and K7 count their launches apart (``_batched`` for K7).
 
 The two-level data is frozen for a whole Krylov solve, so :func:`operands`
 checks it once and builds the solve's workspace (:class:`CoarseWork`): the
-buffers that restrict and solve write, and the solve kernel's launch
-parameters.  A CUDA call then checks only the vectors it is handed and
-allocates nothing; the solve is one cooperative launch.  On the card,
-restrict and solve return the workspace's buffers, which the next call of
-the same operands overwrites.
+buffers that restrict and solve write, the solve kernel's launch
+parameters and the fields' span table.  A CUDA call then checks only the
+vectors it is handed and allocates nothing; the solve is one cooperative
+launch.  On the card, restrict and solve return the workspace's buffers,
+which the next call of the same operands overwrites.
+
+A field's span (:func:`field_spans`) is the range of cells [lo, hi) outside
+which all its values are exactly zero: a compartment's one-hot and moment
+fields are zero outside the compartment, whose cells are contiguous.  The
+restrict and prolong kernels read each field only in the blocks its span
+overlaps, with the same sums as a dense pass (``csrc/two_level.cu``).  The
+spans are computed on the device once per field tensor (a cache keyed on
+the tensor), so once per preconditioner build, not per solve.  The plain
+versions stay dense.
 """
 from __future__ import annotations
 
@@ -29,13 +38,18 @@ import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _cuda
 
 COARSE_ND = (4, 8)
 MAX_TILE = 1024       # a restrict block covers whole chunks of at most this many cells
-MAX_SMEM = 232448     # shared memory bytes of a solve block: 3 x the largest
-                      # deflation group
+MAX_SMEM = 232448     # dynamic shared memory bytes a block can have: the
+                      # solve's 3 x the largest deflation group, restrict's
+                      # tile of r and live list, prolong's live list
+DEFAULT_SMEM = 48 * 1024   # above this a kernel's limit is raised once
+RESTRICT_LOADS = 32   # field values a restrict thread loads per batch
+RESTRICT_SLICES = 3   # at most this many restrict blocks share a tile's fields
 
 
 class Coarse(NamedTuple):
@@ -157,6 +171,50 @@ def prolong_add_plain(co: Coarse, out, zc, coef):
 
 
 # ---------------------------------------------------------------------------
+# the fields' spans, once per field tensor
+# ---------------------------------------------------------------------------
+
+def field_spans(F):
+    """int32 (k, 2) [lo, hi) per field of F (k, nc) or (k, nd, nc): the
+    first and one-past-last cell at which any of the field's values is
+    nonzero (NaN counts as nonzero); (0, 0) for an all-zero field.  On F's
+    device, without a host read."""
+    nz = F != 0
+    if nz.dim() == 3:
+        nz = nz.any(dim=1)
+    nc = nz.shape[-1]
+    cells = torch.arange(nc, device=F.device)
+    lo = torch.where(nz, cells, nc).amin(dim=1)
+    hi = torch.where(nz, cells + 1, 0).amax(dim=1)
+    live = hi > lo
+    return torch.stack([torch.where(live, lo, 0), torch.where(live, hi, 0)],
+                       dim=1).to(torch.int32)
+
+
+_SPANS = WeakIdKeyDictionary()     # field tensor -> (its version, its spans)
+_TABLES = WeakIdKeyDictionary()    # first field -> (the fields' spans, their table)
+
+
+def _spans_of(F):
+    """field_spans(F), computed once per tensor and in-place version."""
+    hit = _SPANS.get(F)
+    if hit is None or hit[0] != F._version:
+        hit = _SPANS[F] = (F._version, field_spans(F))
+    return hit[1]
+
+
+def _span_table(fields):
+    """The (nf, 2) span table of the fields in order (one-hots, W, Wr),
+    concatenated once for the same field tensors."""
+    parts = [_spans_of(t) for t in fields]
+    hit = _TABLES.get(fields[0])
+    if hit is None or len(hit[0]) != len(parts) or any(
+            a is not b for a, b in zip(hit[0], parts)):
+        hit = _TABLES[fields[0]] = (parts, torch.cat(parts))
+    return hit[1]
+
+
+# ---------------------------------------------------------------------------
 # the workspace, built once per solve
 # ---------------------------------------------------------------------------
 
@@ -187,9 +245,10 @@ class CoarseWork(NamedTuple):
     coef: torch.Tensor                 # (m, nf)  solve
     z1: Optional[torch.Tensor]         # (m, n)   solve's refinement (with As)
     t: Optional[torch.Tensor]
+    spans: Optional[torch.Tensor]      # (nf, 2) int32 [lo, hi) of OH, W, Wr rows
     names: Tuple[str, str, str]        # launch counters of restrict, solve, prolong
-    fields: tuple                      # addresses of OH, W, Wr (None when absent)
-    restrict_tail: tuple               # agg, n, chunks per block, n_comp, nw, nr
+    fields: tuple                      # addresses of OH, W, Wr, spans (None when absent)
+    restrict_tail: tuple               # agg, n, chunks per block, n_comp, nw, nr, slices
     prolong_tail: tuple                # agg, n, n_comp, nw, nr
     params: Optional[_SolveParams]     # the solve kernel's, on the card only
     params_ptr: Optional[int]
@@ -202,9 +261,10 @@ def _ptr(t):
 def work(co: Coarse) -> CoarseWork:
     """Check the frozen operands once -- one device, one float dtype,
     contiguous, consistent shapes, the deflation groups matching their
-    fields -- and allocate the buffers that restrict and solve write.  On
-    the card also the solve kernel's launch parameters, its grid sized once
-    to the co-resident limit, and the kernels' limits."""
+    fields -- and allocate the buffers that restrict and solve write; take
+    the fields' span table (computed once per field tensor).  On the card
+    also the solve kernel's launch parameters, its grid sized once to the
+    co-resident limit, and the kernels' limits."""
     inv = co.inv
     dt, dev = inv.dtype, inv.device
     if dt not in (torch.float32, torch.float64):
@@ -246,12 +306,26 @@ def work(co: Coarse) -> CoarseWork:
     if inv.is_cuda and co.agg > MAX_TILE:
         raise NotImplementedError(
             f"two_level restrict: chunks above {MAX_TILE} cells are not supported")
-    if inv.is_cuda and 3 * max(n_comp, nw, nr) * inv.element_size() > MAX_SMEM:
-        raise NotImplementedError(
-            "two_level solve: a deflation group too large for a block's shared memory")
-
     nf = n_comp + nw + nr
     cpt = max(1, 256 // co.agg)                  # chunks per restrict block
+    tile, elt = cpt * co.agg, inv.element_size()
+    nd_r = nd or max(COARSE_ND)                  # r's nd is known by then (one-hots only)
+    smem = {"solve": 3 * max(n_comp, nw, nr) * elt,
+            "restrict": tile * elt + ((nd_r * tile * elt + 4 * nf) if nf else 0),
+            "prolong": 4 * (nw + nr)}
+    for entry, need_b in smem.items():
+        if inv.is_cuda and need_b > MAX_SMEM:
+            raise NotImplementedError(
+                f"two_level {entry}: the fields or chunks are too large for a block's "
+                f"shared memory")
+    # restrict slices per tile: the batches of the fields live in a tile of
+    # one compartment (its one-hot, its moment fields, every Ritz field), at
+    # most RESTRICT_SLICES (the fastest of 1-8 at both layouts' main path)
+    per_comp = nw // n_comp if n_comp else nw
+    live = min(n_comp, 1) + per_comp + nr
+    batch = RESTRICT_LOADS // nd_r
+    zs = max(1, min(RESTRICT_SLICES, -(-live // batch))) if nf else 1
+    spans = _span_table([t for t in (co.OH, co.W, co.Wr) if t is not None]) if nf else None
 
     def buf(*shape):
         return torch.empty(shape, dtype=dt, device=dev)
@@ -261,13 +335,16 @@ def work(co: Coarse) -> CoarseWork:
     wk = CoarseWork(
         ops=ops, m=m, n=n, nd=nd, nc=nc, rc=buf(m, n), proj=buf(m, nf),
         partial=buf(m, nf, -(-n // cpt)), zc=buf(m, n), coef=buf(m, nf),
-        z1=buf(m, n) if refine else None, t=buf(m, n) if refine else None,
+        z1=buf(m, n) if refine else None, t=buf(m, n) if refine else None, spans=spans,
         names=tuple(_name(e, co) for e in ("restrict", "solve", "prolong")),
-        fields=(_ptr(co.OH), _ptr(co.W), _ptr(co.Wr)),
-        restrict_tail=(co.agg, n, cpt, n_comp, nw, nr),
+        fields=(_ptr(co.OH), _ptr(co.W), _ptr(co.Wr), _ptr(spans)),
+        restrict_tail=(co.agg, n, cpt, n_comp, nw, nr, zs),
         prolong_tail=(co.agg, n, n_comp, nw, nr), params=None, params_ptr=None)
     if not inv.is_cuda:
         return wk
+    if max(smem["restrict"], smem["prolong"]) > DEFAULT_SMEM:
+        with torch.cuda.device(dev):
+            _cuda.call("knp_tl_fields_prepare", dt, max(smem["restrict"], smem["prolong"]))
     groups = (co.comp or (None,) * 3) + (co.mom or (None,) * 2) + (co.ritz or (None,) * 2)
     params = _SolveParams(*(_ptr(t) for t in (inv, co.s, co.As, wk.z1, wk.t, wk.zc, wk.coef)
                             + groups), m, n, n_comp, nw, nr, 0, 0, 0)
@@ -285,6 +362,9 @@ def _work(co: Coarse, entry: str) -> CoarseWork:
     if wk is None or wk.params is None:
         raise ValueError(f"two_level {entry}: the operands carry no workspace on the card; "
                          f"build them with coarse.operands from CUDA tensors")
+    if wk.proj.shape[1] and (wk.spans is None or not wk.spans.is_cuda):
+        raise ValueError(f"two_level {entry}: the workspace carries no span table on the "
+                         f"card; build it with coarse.operands")
     return wk
 
 

@@ -16,9 +16,11 @@ STEPS steady steps (``run_block``) twice:
    operators with the most device time, each as a share of the busy time
    (an aten operator's row holds the kernels it launched, which also have
    rows of their own, so the shares add up to more than 1), and the
-   device time per launch of each hand-written kernel (csrc/).  The
-   profiler's own cost is in the wall, so the busy share it gives is a
-   lower bound;
+   device time per launch of each hand-written kernel (csrc/), with the
+   two-level restrict, reduce and prolong kernels also split into K6's
+   (the EMI apply, one system) and K7's (the KNP apply, one system per
+   ion) by the grid's y extent in the exported trace.  The profiler's own
+   cost is in the wall, so the busy share it gives is a lower bound;
 3. census: one more step with every aten operator call counted per phase
    (a dispatch mode, so nothing is timed here): the calls a phase makes
    beside its hand-written kernels, how many of them are matrix products
@@ -35,6 +37,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 import time
 
 import torch
@@ -138,6 +142,35 @@ def _union_us(intervals):
     return busy
 
 
+# the two-level kernels whose grid's y extent is the system count m
+SPLIT_KERNELS = ("tl_restrict_kernel", "tl_reduce_kernel", "tl_prolong_kernel")
+
+
+def _coarse_split(prof):
+    """{"K6 <kernel>" or "K7 <kernel>": {"calls", "device_us_per_call"}} of
+    the SPLIT_KERNELS launches in a finished profile, K6 where the grid's y
+    extent is 1 (the EMI apply), K7 otherwise (one system per ion), read
+    from the exported trace's kernel events; None when they carry no
+    grid."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace.get("traceEvents", []) if isinstance(trace, dict) else trace
+    durs = {}
+    for e in events:
+        kern = next((k for k in SPLIT_KERNELS if k in e.get("name", "")), None)
+        if e.get("cat") != "kernel" or kern is None:
+            continue
+        grid = (e.get("args") or {}).get("grid")
+        if not grid:
+            return None
+        durs.setdefault(f"{'K6' if grid[1] == 1 else 'K7'} {kern}", []).append(float(e["dur"]))
+    return {k: {"calls": len(v), "device_us_per_call": sum(v) / len(v)}
+            for k, v in sorted(durs.items())}
+
+
 def _self_device_us(evt):
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
@@ -182,6 +215,7 @@ def profile(dtype=torch.float64, pair=False):
     hand = [{"name": e.key, "calls": e.count,
              "device_us_per_call": _self_device_us(e) / max(e.count, 1)}
             for e in ops if any(k in e.key for k in HAND_KERNELS)]
+    split = _coarse_split(prof)
     return {
         "cells": S.n_cells, "layout": "pair" if pair else "cell",
         "dtype": str(dtype), "warmup": WARMUP, "steps": STEPS, "pc_build_ms": pc_ms,
@@ -201,7 +235,7 @@ def profile(dtype=torch.float64, pair=False):
                                "share": (None if busy_ms is None else
                                          1e-3 * _self_device_us(e) / busy_ms),
                                "calls": e.count} for e in ops[:TOP]],
-                  "hand_kernels": hand},
+                  "hand_kernels": hand, "coarse_split": split},
     }
 
 
@@ -242,6 +276,11 @@ def main():
     print("hand-written kernels, device time per launch in the trace:")
     for k in tr["hand_kernels"]:
         print(f"  {k['device_us_per_call']:9.2f} us {k['calls']:6d}x  {k['name'][:90]}")
+    split = tr["coarse_split"]
+    print("two-level kernels by apply, device time per launch in the trace:"
+          + (" not measured (no grid in the trace)" if split is None else ""))
+    for name, k in (split or {}).items():
+        print(f"  {k['device_us_per_call']:9.2f} us {k['calls']:6d}x  {name}")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)

@@ -2,13 +2,16 @@
 JAX package in float64: two_level_apply_fn and two_level_apply_batched of
 both packages on the same seeded two-level data -- coarse inv / As / s,
 compartment, moment and Ritz fields -- at a small size with a pad in the
-last chunk, for nd = 4 and nd = 8; and the per-solve workspace that
-coarse.operands checks and builds once."""
+last chunk, for nd = 4 and nd = 8; the per-solve workspace that
+coarse.operands checks and builds once; and the fields' spans it carries
+(the cells where each field can be nonzero, which the kernels read) on the
+pc builds of the EMIx fixture (cell and pair layouts) and the 2D neuron."""
 import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
 
+import test_torch_parity as tp
 from test_torch_parity import N_COMP, NW, NR, rel, t64, two_level_data
 
 from knpemidg_tpu.solvers import twolevel as jtl
@@ -200,3 +203,137 @@ def test_operands_refuse_inconsistent_data(case):
     change(d)
     with pytest.raises(exc):
         coarse.operands(d, AGG, batched=False)
+
+
+# ---------------------------------------------------------------------------
+# the fields' spans: where the restrict and prolong kernels read each field
+# ---------------------------------------------------------------------------
+
+SPAN_FIXTURES = {"emix_cell": lambda: tp.emix_torch_auto(),
+                 "emix_pair": lambda: tp.emix_torch_auto(pair=True),
+                 "neuron_2d": lambda: tp.neuron_2d_torch()}
+
+
+@pytest.fixture(scope="module", params=sorted(SPAN_FIXTURES))
+def solver_pc(request):
+    """(the EMI pc data of a pc build at the fixture's solver params, the
+    K6 operands built from it, the fixture's name)."""
+    S, sp = SPAN_FIXTURES[request.param]()
+    pc = S.attach_pc(S._initial_state(0.0), sp)["pc"]["emi"]
+    agg = sp.agg_size // 2 if S.pair_layout else sp.agg_size
+    return pc, coarse.operands(pc, agg, batched=False), request.param
+
+
+def _cell_ranges(rows):
+    """Per row of rows (k, nc) or (k, nd, nc): the cells where it is
+    nonzero, as sorted index arrays."""
+    nz = rows != 0
+    if nz.dim() == 3:
+        nz = nz.any(dim=1)
+    return [torch.nonzero(z).flatten() for z in nz]
+
+
+def test_spans_cover_every_nonzero_of_the_solver_fields(solver_pc):
+    """Each span is the tightest range holding all of its field's nonzero
+    cells: its ends are nonzero cells (an all-zero field: (0, 0))."""
+    pc, co, _ = solver_pc
+    spans = co.work.spans
+    fields = [pc[k] for k in ("comp_onehot", "mom_W", "ritz_W") if k in pc]
+    nz = [c for t in fields for c in _cell_ranges(t)]
+    assert spans.dtype == torch.int32 and spans.shape == (len(nz), 2)
+    for (lo, hi), cells in zip(spans.tolist(), nz):
+        if cells.numel() == 0:
+            assert (lo, hi) == (0, 0)
+        else:
+            assert (lo, hi) == (int(cells[0]), int(cells[-1]) + 1)
+
+
+def test_moment_spans_are_their_compartments(solver_pc):
+    """Cells (pairs) are numbered by compartment, so each compartment is one
+    contiguous range of its one-hot; each moment field's span lies inside
+    its compartment's range and, as every moment field is nonzero
+    throughout its compartment, the spans of a compartment's fields sum to
+    (fields per compartment) x (its cells or pairs).  The Ritz fields
+    (cell layout) are dense: whole spans."""
+    pc, co, name = solver_pc
+    n_comp, nw, nr = co.sizes
+    per = nw // n_comp
+    assert per * n_comp == nw and per == (5 if name == "neuron_2d" else 9)
+    spans = co.work.spans.long()
+    nc = pc["comp_onehot"].shape[1]
+    for p, cells in enumerate(_cell_ranges(pc["comp_onehot"])):
+        lo, hi = int(cells[0]), int(cells[-1]) + 1
+        assert cells.numel() == hi - lo                  # one contiguous range
+        assert spans[p].tolist() == [lo, hi]
+        mom = spans[n_comp + p * per:n_comp + (p + 1) * per]
+        assert bool((mom[:, 0] >= lo).all()) and bool((mom[:, 1] <= hi).all())
+        assert int((mom[:, 1] - mom[:, 0]).sum()) == per * (hi - lo)
+    if name == "emix_cell":
+        assert nr == 24
+    assert spans[n_comp + nw:].tolist() == [[0, nc]] * nr
+
+
+def test_field_spans_of_chosen_fields():
+    """field_spans on fields built to test it: zero outside a range, a
+    single cell, all zero, a NaN, nonzero in one of the nd rows only."""
+    nc = 50
+    F = torch.zeros((5, 3, nc), dtype=torch.float64)
+    F[0, :, 10:20] = 1.0
+    F[1, 2, 7] = -3.0
+    F[3, 1, 0] = float("nan")
+    F[3, 0, 49] = 1e-300
+    F[4, 1, 30:31] = -0.5
+    assert coarse.field_spans(F).tolist() == [[10, 20], [7, 8], [0, 0], [0, 50], [30, 31]]
+    assert coarse.field_spans(F[:, 0]).tolist() == [[10, 20], [0, 0], [0, 0], [49, 50], [0, 0]]
+    assert coarse.field_spans(F[:0]).shape == (0, 2)
+    assert coarse.field_spans(-0.0 * F[:1]).tolist() == [[0, 0]]
+
+
+def test_span_table_is_computed_once_per_field_tensor(monkeypatch):
+    """Operands built again from the same frozen data (every solve of one
+    pc build) reuse the span table: field_spans runs once per field
+    tensor, and again only for a tensor changed in place."""
+    calls = []
+    spans_fn = coarse.field_spans
+    monkeypatch.setattr(coarse, "field_spans", lambda F: calls.append(F) or spans_fn(F))
+    rng = np.random.default_rng(29)
+    d = {k: t64(v) for k, v in _data(rng, 4).items()}
+    co1 = coarse.operands(d, AGG, batched=False)
+    co2 = coarse.operands(d, AGG, batched=False)
+    f = twolevel.two_level_apply_fn(d, t64(_P_diag(rng, 4)), AGG)
+    f(t64(rng.standard_normal((4, NC))))
+    assert len(calls) == 3 and co2.work.spans is co1.work.spans
+    d["mom_W"][0, 0, :3] = 0.0                           # in place: a new version
+    co3 = coarse.operands(d, AGG, batched=False)
+    assert len(calls) == 4 and calls[-1] is d["mom_W"]
+    assert co3.work.spans is not co1.work.spans
+    assert co3.work.spans[N_COMP].tolist() == [0, NC]    # rows 1-3 still start at 0
+
+
+def test_plain_versions_stay_dense():
+    """restrict_plain and prolong_add_plain (the CPU path) read every field
+    whole: a span table that claims every field is empty changes neither,
+    and both equal the dense formulas."""
+    rng = np.random.default_rng(30)
+    nd = 4
+    d = _data(rng, nd)
+    co = coarse.operands({k: t64(v) for k, v in d.items()}, AGG, batched=False)
+    empty = torch.zeros_like(co.work.spans)
+    bare = co._replace(work=co.work._replace(spans=empty))
+    r = t64(rng.standard_normal((1, nd, NC)))
+    rc, proj = coarse.restrict(bare, r)
+    for a, b in zip((rc, proj), coarse.restrict_plain(co, r)):
+        assert torch.equal(a, b)
+    proj_ref = np.concatenate([d["comp_onehot"] @ r[0].numpy().sum(axis=0),
+                               np.einsum("wic,ic->w", d["mom_W"], r[0].numpy()),
+                               np.einsum("vic,ic->v", d["ritz_W"], r[0].numpy())])
+    assert rel(proj[0], proj_ref) < TOL
+    zc, coef = coarse.solve_plain(co, rc, proj)
+    out0 = t64(rng.standard_normal((1, nd, NC)))
+    out = coarse.prolong_add(bare, out0.clone(), zc, coef)
+    assert torch.equal(out, coarse.prolong_add_plain(co, out0.clone(), zc, coef))
+    c = coef[0].numpy()
+    v = np.repeat(zc[0].numpy(), AGG)[:NC] + c[:N_COMP] @ d["comp_onehot"]
+    v = (v[None] + np.einsum("w,wic->ic", c[N_COMP:N_COMP + NW], d["mom_W"])
+         + np.einsum("v,vic->ic", c[N_COMP + NW:], d["ritz_W"]))
+    assert rel(out[0], out0[0].numpy() + v) < TOL

@@ -7,11 +7,17 @@ and float64, beside the library calls chip_smoke.py holds them to:
        built once per solve, at the EMI vector shapes (cell (4, 124416),
        pair (8, 63558)), beside torch.dot, torch.mv on the stacked pair, and
        torch.mv + torch.addcmul into a preallocated buffer;
-  k6   the coarse solve of K6 (m = 1, with As and the compartment, moment
-       and Ritz groups) and K7 (m = 2, no As, no groups) at the coarse sizes
-       of the cell (1,944 chunks of 64 cells) and pair (1,987 chunks of 32
-       pairs) layouts, on restrict's outputs, beside dense_gemvs (cuBLAS:
-       torch.mv per product, one batched torch.matmul for m systems);
+  k6   K6 (m = 1, with As and the compartment, moment and Ritz groups)
+       and K7 (m = 2, no As, no groups) at the coarse sizes of the cell
+       (1,944 chunks of 64 cells) and pair (1,987 chunks of 32 pairs)
+       layouts, each entry as the apply calls it: restrict, the coarse
+       solve on restrict's outputs beside dense_gemvs (cuBLAS: torch.mv per
+       product, one batched torch.matmul for m systems), and prolong_add
+       into a preallocated output on the solve's; for K6 also torch.mv of
+       the (nf, nd nc) field stack (the one-hots repeated over nd) on r, the
+       dense projection a partial yardstick of restrict (no chunk sums).
+       Each moment field is zero outside its compartment (5 compartments
+       of equal cell ranges), as the solver's are;
   k4   to_pair of the EMI solve's 3 vectors (4, 127116) and the KNP solve's
        2 (2, 4, 127116), beside one torch.mul into a preallocated buffer;
        from_pair back as the solver calls it (the EMI solution with the
@@ -225,9 +231,10 @@ def coarse_data(layout, batched, dtype, dev, gen):
             if k:
                 d[f"{key}_inv"], d[f"{key}_s"] = rnd(k, k) / k, 1.0 + rnd(k).abs()
         d["comp_As"] = rnd(n_comp, n_comp) / n_comp
-        d["comp_onehot"] = (torch.arange(nc, device=dev) * n_comp // nc == torch.arange(
-            n_comp, device=dev)[:, None]).to(dtype)
-        d["mom_W"] = rnd(nw, nd, nc)
+        comp = torch.arange(nc, device=dev) * n_comp // nc
+        d["comp_onehot"] = (comp == torch.arange(n_comp, device=dev)[:, None]).to(dtype)
+        owner = torch.arange(nw, device=dev) // (nw // n_comp)
+        d["mom_W"] = rnd(nw, nd, nc) * (comp == owner[:, None, None])
         if nr:
             d["ritz_W"] = rnd(nr, nd, nc)
     return d, agg, rnd(m, nd, nc)
@@ -241,12 +248,24 @@ def time_coarse(coarse, dev, gen):
                 co = coarse.operands(d, agg, batched)
                 rc, proj = coarse.restrict(co, r)
                 x = co.s * rc
+                zc, coef = coarse.solve(co, rc, proj)
+                out = torch.zeros_like(r)
                 kind = "K7" if batched else "K6"
-                report("k6time", f"{layout} {kind} {str(dtype):14s} solve",
-                       lambda: coarse.solve(co, rc, proj))
-                report("k6time", f"{layout} {kind} {str(dtype):14s} dense_gemvs",
-                       lambda: dense_gemvs(co, x))
-                del co, d, r, rc, proj, x
+                tag = f"{layout} {kind} {str(dtype):14s}"
+                report("k6time", f"{tag} restrict", lambda: coarse.restrict(co, r))
+                report("k6time", f"{tag} solve", lambda: coarse.solve(co, rc, proj))
+                report("k6time", f"{tag} dense_gemvs", lambda: dense_gemvs(co, x))
+                report("k6time", f"{tag} prolong_add",
+                       lambda: coarse.prolong_add(co, out, zc, coef))
+                if not batched:
+                    m_, nd, nc = r.shape
+                    stack = torch.cat([co.OH[:, None].expand(-1, nd, nc).reshape(-1, nd * nc)]
+                                      + [t.reshape(t.shape[0], -1) for t in (co.W, co.Wr)
+                                         if t is not None])
+                    report("k6time", f"{tag} torch.mv field stack (partial yardstick)",
+                           lambda: torch.mv(stack, r.view(-1)))
+                    del stack
+                del co, d, r, rc, proj, x, zc, coef, out
                 torch.cuda.empty_cache()
 
 
