@@ -16,7 +16,9 @@ layout).  On the way it:
      plain version and, where one PyTorch call computes the same function,
      that call; computes each kernel's bound from this run's inputs.  The
      assembly kernels (K10, K11, K14) are checked on each layout at a state
-     perturbed from the initial one with a seeded generator;
+     perturbed from the initial one with a seeded generator; K13 as the
+     solver's whole ODE step of both tags at its pushes, under each scheme,
+     with its one-warp latency floor (the same launch on 32 points a tag);
   4. checks each layout on a small input against the reference iteration
      counts of the JAX package and the port's own CPU run;
   5. runs the protocol in float64 on each layout at emix.solver_params()
@@ -24,7 +26,7 @@ layout).  On the way it:
      cell layout, none on the pair layout) with every launch counter reset
      first, and fails unless every solve converged, the fields are finite,
      every kernel of that path was launched, the K14 traces twice a step,
-     and (cell layout) the preconditioner carries the Ritz fields; then
+     K13 once a step, and (cell layout) the preconditioner carries the Ritz fields; then
      reports the cell layout's emi_ritz=0 window beside it;
   6. runs the same protocol in float32 on each layout and reports its
      Krylov counts and whether each solve converged: on the cell layout
@@ -35,7 +37,7 @@ layout).  On the way it:
      on the CPU), so this phase reports and does not assert convergence;
   7. runs the cell layout's float64 protocol once more with
      ode_scheme="rush_larsen" (the neuron's points through the Rush-Larsen
-     kernel) and asserts it as in 5;
+     branch of K13's one launch a step) and asserts it as in 5;
   8. drives the gather probes P1/P2 through knpemidg_tpu_torch.probes.run
      (their own path) and holds them against the plain gathers exactly.
 
@@ -200,11 +202,14 @@ def counter(name):
 
 
 # counters each path's run must launch (membrane_rk4 serves both layouts;
-# the Rush-Larsen window is a cell window whose glial points run RK4)
+# the Rush-Larsen window is a cell window whose one K13 launch a step, the
+# glial points' RK4 included, counts as membrane_rl)
 PATH_KERNELS = {"cell": sorted({counter(k) for k, v in KERNELS.items() if v[2] == "cell"}),
                 "pair": sorted({counter(k) for k, v in KERNELS.items() if v[2] == "pair"}
                                | {"membrane_rk4"})}
-PATH_KERNELS["rl"] = PATH_KERNELS["cell"] + ["membrane_rl"]
+PATH_KERNELS["rl"] = [k for k in PATH_KERNELS["cell"] if k != "membrane_rk4"] + ["membrane_rl"]
+# K13 launches a step of each path's run: (membrane_rk4, membrane_rl)
+ODE_LAUNCHES_PER_STEP = {"cell": (1, 0), "pair": (1, 0), "rl": (0, 1)}
 PATH_KERNELS["probe"] = ["pgather", "pgather2"]
 
 
@@ -241,6 +246,33 @@ def cuda_ms(fn, reps=20):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def graph_ms(fn, calls=20, replays=5):
+    """Device milliseconds of one fn(): ``calls`` calls captured in one CUDA
+    graph, its replay timed by CUDA events (median of ``replays``), so no
+    host time lies between the kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -524,6 +556,56 @@ def coarse_inputs(pc, agg, dtype):
             coarse.operands(cast(pc["knp"]), agg, batched=True))
 
 
+def cast_step_inputs(mem, pushes, dtype):
+    """The step's membrane states (in step order) and pushes in ``dtype``;
+    a source tensor shared by several pushes is cast once."""
+    from knpemidg_tpu_torch.membrane import engine
+
+    cast = {}
+
+    def src(v):
+        t, off = v
+        if id(t) not in cast:
+            cast[id(t)] = t.to(dtype)
+        return cast[id(t)], off
+
+    mms = [engine.MembraneState(mm.states.to(dtype), mm.params.to(dtype), mm.model)
+           for mm in mem.values()]
+    ps = [engine.TagPush(v=None if p.v is None else src(p.v),
+                         params={k: src(v) for k, v in p.params.items()}) for p in pushes]
+    return mms, ps
+
+
+def flat_step(out):
+    """ode_step_tags' (states, phi_M, I_ch) as a list of tensors."""
+    mems, phi_M, I_ch = out
+    return [v for mm in mems for v in (mm.states, mm.params)] + [phi_M, I_ch]
+
+
+def push_bytes(table, pushes):
+    """Bytes of the pushed values the step reads in place of parameters."""
+    return sum(e.n * t.element_size() for e, p in zip(table.entries, pushes)
+               for t, _ in ([p.v] if p.v is not None else []) + list(p.params.values()))
+
+
+LATENCY_POINTS = 32       # points a tag of the latency floor: a warp a lane
+
+
+def latency_floor(table, mms, pushes, args, ion_names):
+    """Device milliseconds (graph replay) of the same launch on the first
+    LATENCY_POINTS points of each tag (one warp for a model with a lane a
+    point, 8 for HH's 8 lanes a point): the chain's latency with the card
+    otherwise idle."""
+    from knpemidg_tpu_torch.membrane import engine
+
+    n = LATENCY_POINTS
+    small = engine.tag_table([(e.model, j * n, n) for j, e in enumerate(table.entries)],
+                             n * len(table.entries), ion_names, table.scheme)
+    sub = [engine.MembraneState(mm.states[:, :n].contiguous(), mm.params[:, :n].contiguous(),
+                                mm.model) for mm in mms]
+    return graph_ms(lambda: engine.ode_step_tags(small, sub, pushes, *args))
+
+
 def kernel_phase(S, state, results):
     """The cell path's kernels at its shapes."""
     from knpemidg_tpu_torch.membrane import engine
@@ -534,33 +616,34 @@ def kernel_phase(S, state, results):
     blocks, rhs, Pd = S._assemble_emi(state["c"], state["c_elim"], pM, Itot, state["t"])
     blocksK, rhsK = S._knp_assemble_all(state["c"], state["c_elim"], state["phi"],
                                         pM, Ich, Itot, state["t"], state["c"])
-    mem = S._ode_inputs(state, first_step=True)
+    table, pushes = S._ode_pushes(state, first_step=True)
     pe = state["pc"]["emi"]
     print(f"shapes  EMI blocks {tuple(blocks.shape)}  KNP blocks "
           f"{tuple(blocksK.shape)}  membrane points "
-          f"{ {tag: mm.states.shape[1] for tag, mm in mem.items()} }  coarse "
+          f"{ {tag: e.n for tag, e in zip(state['mem'], table.entries)} }  coarse "
           f"{tuple(pe['inv'].shape)}  moment {tuple(pe['mom_W'].shape)}  Ritz "
           f"{tuple(pe['ritz_W'].shape) if 'ritz_W' in pe else None}")
-
-    def ode_all(step, mms, t):
-        outs = [step(mm, t, S.params.dt, S.params.n_steps_ODE) for mm in mms.values()]
-        return [v for o in outs for v in (o.states, o.params)]
 
     def ode_scale(mms, ref):
         """Each state row against its own max |plain| (a gating variable is
         not measured against V); each parameter row against its own max
         |plain| floored at the tag's largest leak term g_leak |V - E|: the
         written-back channel currents are sums of such terms that cancel
-        to ~1e-10 at rest."""
-        out = []
-        for mm, ys, ps in zip(mms.values(), ref[0::2], ref[1::2]):
+        to ~1e-10 at rest.  phi_M against its max |plain|, each I_ch row
+        against its max |plain| floored at the largest leak term of any
+        tag."""
+        out, leaks = [], []
+        for mm, ys, ps in zip(mms, ref[0:-2:2], ref[1:-2:2]):
             P, V = mm.model.PARAMS, ys[mm.model.STATES["V"]]
             leak = torch.maximum(
                 (ps[P["g_leak_Na"]] * (V - ps[P["E_Na"]])).abs().max(),
                 (ps[P["g_leak_K"]] * (V - ps[P["E_K"]])).abs().max())
+            leaks.append(leak)
             out += [ys.abs().amax(dim=-1, keepdim=True),
                     torch.maximum(ps.abs().amax(dim=-1, keepdim=True), leak)]
-        return out
+        phi_M, I_ch = ref[-2:]
+        return out + [phi_M.abs().max(), torch.maximum(
+            I_ch.abs().amax(dim=-1, keepdim=True), torch.stack(leaks).max())]
 
     # each timed call is one application per system of the step: the EMI
     # (m = 1) and the KNP (m = 2) operator, both membrane tags
@@ -600,24 +683,29 @@ def kernel_phase(S, state, results):
                 results, inputs=[inv, x, invK, xK],
                 flops=bj_apply_flops(inv) + bj_apply_flops(invK),
                 library_fn=lambda: [lib_apply(inv, x), lib_apply(invK, xK)])
-        mms = {tag: engine.MembraneState(mm.states.to(dtype), mm.params.to(dtype),
-                                         mm.model) for tag, mm in mem.items()}
+        mms, ps = cast_step_inputs(state["mem"], pushes, dtype)
         t = state["t"].to(dtype)
-        rhs_evals = 4 * S.params.n_steps_ODE
-        compare("membrane_rk4", dtype, lambda: ode_all(engine.ode_step, mms, t),
-                lambda: ode_all(engine.ode_step_plain, mms, t),
-                lambda ref: ode_scale(mms, ref), results,
-                inputs=[v for mm in mms.values() for v in (mm.states, mm.params)],
-                flops=sum(rhs_evals * RK4_RHS_OPS[type(mm.model).__name__]
-                          * mm.states.shape[1] for mm in mms.values()))
-        compare("membrane_rl", dtype,
-                lambda: ode_all(lambda *a: engine.ode_step(*a, scheme="rush_larsen"), mms, t),
-                lambda: ode_all(lambda *a: engine.ode_step_plain(*a, scheme="rush_larsen"),
-                                mms, t),
-                lambda ref: ode_scale(mms, ref), results,
-                inputs=[v for mm in mms.values() for v in (mm.states, mm.params)],
-                flops=sum(S.params.n_steps_ODE * RL_SUBSTEP_OPS[type(mm.model).__name__]
-                          * mm.states.shape[1] for mm in mms.values()))
+        args = (t, S.params.dt, S.params.n_steps_ODE)
+        for name, scheme, ops in (
+                ("membrane_rk4", "rk4", lambda mm: 4 * RK4_RHS_OPS[type(mm.model).__name__]),
+                ("membrane_rl", "rush_larsen",
+                 lambda mm: RL_SUBSTEP_OPS[type(mm.model).__name__])):
+            tab = engine.tag_table([(e.model, e.s0, e.n) for e in table.entries],
+                                   table.n_mem, S.ion_names, scheme)
+            step = lambda fn, tab=tab, ps=ps: flat_step(fn(tab, mms, ps, *args))
+            compare(name, dtype, lambda: step(engine.ode_step_tags),
+                    lambda: step(engine.ode_step_tags_plain),
+                    lambda ref: ode_scale(mms, ref), results,
+                    inputs=[v for mm in mms for v in (mm.states, mm.params)],
+                    extra_bytes=push_bytes(table, ps),
+                    flops=sum(S.params.n_steps_ODE * ops(mm) * mm.states.shape[1]
+                              for mm in mms))
+            r = results[name][dtype]
+            r["floor_ms"] = latency_floor(tab, mms, ps, args, S.ion_names)
+            r["graph_ms"] = graph_ms(lambda: engine.ode_step_tags(tab, mms, ps, *args))
+            print(f"floor   {name:30s} {str(dtype):14s} graph replay: {LATENCY_POINTS} "
+                  f"points a tag {r['floor_ms']:.4f} ms, all points {r['graph_ms']:.4f} ms; "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         # K6 with the compartment, moment and Ritz data of the pc build, K7
         # with the two ions' coarse data; the step's EMI and KNP rhs
         co6, co7 = coarse_inputs(state["pc"], AGG, dtype)
@@ -1294,8 +1382,8 @@ def window(S, sp, layout):
     """The protocol through the user entry point with the launch counters
     reset; asserts convergence (solve_system_active raises otherwise),
     finite fields, the step count, every kernel of the path launched, two
-    K14 trace launches a step, one pcg_dot2_direction launch per EMI
-    iteration and (pairs) one from_pair per solve, and the AUTO Ritz rule
+    K14 trace launches and one K13 launch a step, one pcg_dot2_direction
+    launch per EMI iteration and (pairs) one from_pair per solve, and the AUTO Ritz rule
     (24 fields in the cell pc, none in the pair pc).  Returns (launches,
     median ms/step, median ODE ms)."""
     state, launches = run_checked(S, sp, layout)
@@ -1324,8 +1412,8 @@ def run_checked(S, sp, path):
     """One protocol run through the user entry point with the launch
     counters reset first; asserts convergence (solve_system_active raises
     otherwise), finite fields, the shapes and step count, every kernel of
-    ``path`` launched and two K14 trace launches a step.  Returns (state,
-    launches)."""
+    ``path`` launched, two K14 trace launches and one K13 launch a step.
+    Returns (state, launches)."""
     from knpemidg_tpu_torch import _cuda
 
     S.stats.__init__()
@@ -1349,6 +1437,12 @@ def run_checked(S, sp, path):
     if launches["membrane_trace"] != TRACE_LAUNCHES_PER_STEP * steps:
         raise AssertionError(f"the {path} window's K14 trace launches are not "
                              f"{TRACE_LAUNCHES_PER_STEP} a step")
+    ode = (launches["membrane_rk4"], launches["membrane_rl"])
+    want = tuple(steps * k for k in ODE_LAUNCHES_PER_STEP[path])
+    print(f"{path:7s} K13 membrane_rk4 / membrane_rl launches {ode} in {steps} steps "
+          f"({want} expected: one launch a step for every tag)")
+    if ode != want:
+        raise AssertionError(f"the {path} window's K13 launches are {ode}, not {want}")
     return state, launches
 
 
@@ -1412,10 +1506,10 @@ def f32_window(mesh, layout):
 
 
 # launches of a kernel in one of its timed calls (one per system of the
-# step: EMI and KNP, or the two membrane tags; membrane_trace: a step's
-# ODE-input traces and its finalize jump); 1 where not listed
+# step: EMI and KNP; membrane_trace: a step's ODE-input traces and its
+# finalize jump); 1 where not listed (K13: one launch for both tags)
 LAUNCHES_PER_TIMING = {k: 2 for k in (
-    "bell_matvec", "block_jacobi_inverse", "block_jacobi_apply", "membrane_rk4",
+    "bell_matvec", "block_jacobi_inverse", "block_jacobi_apply",
     "pair_matvec", "to_pair", "from_pair", "gather_blocks_pair",
     "block_jacobi_inverse_nd8", "block_jacobi_apply_nd8", "membrane_trace",
     "membrane_trace_pair")}

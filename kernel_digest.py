@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """SHA-256 digests of the outputs of kernels K10 emi_facet, K3
 pair_matvec / pair_matvec_multi, K1 bell_matvec / bell_matvec_multi, K14
-membrane_trace and K6's restrict and prolong-add on the card, at
+membrane_trace, K6's restrict and prolong-add and K13's ODE step on the
+card, at
 chip_smoke.py's configuration
 (box_3d_axons(1, length_factor=2) in cm, the EMIx solver), at a state
 perturbed with a seeded generator: emi_facet on the cell and the pair
@@ -15,7 +16,11 @@ minus facet averages and Nernst potential through the one-field entry
 points; K6 on the EMI preconditioner data of each layout's pc build at
 emix.solver_params() (the cell layout's with its 24 Ritz fields; both
 dtypes) applied to a seeded r: restrict's chunk sums and projections,
-then solve and the prolong-add into a seeded output.
+then solve and the prolong-add into a seeded output; K13 as the solver
+drives it: Solver._ode_step at the perturbed state (membrane states
+perturbed too) on both layouts, in both dtypes (a solver of each), under
+both schemes and with first_step True and False -- every tag's new states
+and parameters, phi_M and I_ch.
 
 The package is imported from ``--root`` (default: this file's directory),
 so two trees, such as an unpacked parent commit and this one, can be held
@@ -138,8 +143,41 @@ def main():
             out = coarse.prolong_add(co, out64.to(dtype), zc, coef)
             torch.cuda.synchronize()
             print(f"digest  k6_prolong   {layout} {str(dtype):14s} {digest([out])}")
+        ode_digests(S, mesh, st, layout, gen)
         del S
         torch.cuda.empty_cache()
+
+
+def ode_digests(S, mesh, st, layout, gen):
+    """K13 through Solver._ode_step: both dtypes (the float32 state on a
+    float32 solver of the same mesh), both schemes, both first_step values."""
+    import dataclasses
+
+    from knpemidg_tpu_torch import emix
+    from knpemidg_tpu_torch.membrane import engine
+
+    mem = {tag: engine.MembraneState(
+        mm.states * (0.98 + 0.04 * torch.rand(mm.states.shape, generator=gen, device="cuda",
+                                              dtype=torch.float64)), mm.params, mm.model)
+        for tag, mm in st["mem"].items()}
+    st = dict(st, mem=mem, t=torch.tensor(0.3, dtype=torch.float64, device="cuda"))
+    params = S.params
+    for dtype in (torch.float32, torch.float64):
+        Sd = S if dtype == torch.float64 else emix.build_solver(
+            mesh, dtype=dtype, device="cuda", pair=layout == "pair")
+        cast = {k: (v.to(dtype) if isinstance(v, torch.Tensor) else v) for k, v in st.items()}
+        cast["mem"] = {tag: engine.MembraneState(mm.states.to(dtype), mm.params.to(dtype),
+                                                 mm.model) for tag, mm in mem.items()}
+        for scheme in ("rk4", "rush_larsen"):
+            Sd.params = dataclasses.replace(params, ode_scheme=scheme)
+            for first in (True, False):
+                new = Sd._ode_step(cast, first_step=first)
+                out = [t for tag in sorted(new["mem"]) for t in (new["mem"][tag].states,
+                                                                   new["mem"][tag].params)]
+                torch.cuda.synchronize()
+                print(f"digest  ode_step     {layout} {str(dtype):14s} {scheme:11s} "
+                      f"first_step={first!s:5s} {digest(out + [new['phi_M'], new['I_ch']])}")
+        Sd.params = params
 
 
 if __name__ == "__main__":

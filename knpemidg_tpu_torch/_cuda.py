@@ -43,8 +43,9 @@ SOURCE_FLAGS = {f: ("-fmad=false",) for f in ("assemble_emi.cu", "assemble_knp.c
 # apart, and the two-level kernels their single EMI (K6) and batched KNP
 # (K7, "_batched") calls.  The assembly kernels (K10 emi_*, K11 alpha_sum and
 # knp_*, K14 membrane_trace and eliminated_concentration), the Krylov
-# kernels (K8 pcg_*, K9 gmres_*) serve both layouts; membrane_rl is K13's
-# Rush-Larsen scheme, pgather / pgather2 the gather probes P1 / P2
+# kernels (K8 pcg_*, K9 gmres_*) serve both layouts; K13's one launch for
+# every tag counts as membrane_rl when a tag of it runs Rush-Larsen, else as
+# membrane_rk4; pgather / pgather2 are the gather probes P1 / P2
 LAUNCHES = {"bell_matvec": 0, "block_jacobi_inverse": 0,
             "block_jacobi_apply": 0, "membrane_rk4": 0, "membrane_rl": 0,
             "pair_matvec": 0, "to_pair": 0, "from_pair": 0,
@@ -69,7 +70,7 @@ _SIGNATURES = {
     "knp_bell_matvec": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "knp_bj_inverse": (_P, _P, _I, _I, _I, _P),
     "knp_bj_apply": (_P, _P, _P, _I, _I, _I, _P),
-    "knp_membrane_rk4": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _P),
+    "knp_membrane_step": (_P, _I, _P, _D, _I, _P),
     "knp_pair_matvec": (_P,) * 6 + (_I,) * 4 + (_P,),
     "knp_to_pair": (_P,) * 6 + (_I,) * 4 + (_P,),
     "knp_from_pair": (_P,) * 4 + (_I,) * 3 + (_P,),
@@ -89,7 +90,6 @@ _SIGNATURES = {
     "knp_ion_emit_cell": (_P,) * 18 + (_I,) * 7 + (_D, _P),
     "knp_membrane_trace": (_P,) * 4 + (_D,) * 4 + (_I,) + (_P,) * 6 + (_I,) * 6 + (_P,),
     "knp_eliminated": (_P,) * 4 + (_I,) * 3 + (_D, _P),
-    "knp_membrane_rl": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _P),
     "knp_gmres_dot": (_P,) * 4 + (_I,) * 5 + (_P,),
     "knp_gmres_update": (_P,) * 3 + (_I,) * 4 + (_P,),
     "knp_gmres_next": (_P,) * 6 + (_I,) * 5 + (_P,),

@@ -12,8 +12,9 @@ STEPS steady steps (``run_block``) twice:
    finalize), in ms per step;
 2. trace: the same number of steps under ``torch.profiler`` with one
    synchronise at the end: the wall, the device busy time (the union of the
-   device kernel intervals), the number of device events, and the
-   operators with the most device time, each as a share of the busy time
+   device kernel intervals), the number of device events and of
+   aten::copy_ calls, and the operators with the most device time, each as
+   a share of the busy time
    (an aten operator's row holds the kernels it launched, which also have
    rows of their own, so the shares add up to more than 1), and the
    device time per launch of each hand-written kernel (csrc/), with the
@@ -50,14 +51,14 @@ WARMUP, STEPS = 3, 3     # steps before the profile, steps per profile
 TOP = 12                 # operators listed by device time
 # the __global__ functions of csrc/, as the profiler names their launches
 HAND_KERNELS = ("bell_matvec_kernel", "bj_inverse_kernel", "bj_apply_kernel",
-                "membrane_rk4_kernel", "pair_matvec_kernel", "to_pair_kernel",
+                "membrane_step_kernel", "pair_matvec_kernel", "to_pair_kernel",
                 "from_pair_kernel", "gather_blocks_pair_kernel",
                 "tl_restrict_kernel", "tl_reduce_kernel", "tl_solve_kernel",
                 "tl_prolong_kernel",
                 "emi_cell_kernel", "emi_facet_kernel", "emi_emit_cell_kernel",
                 "alpha_sum_kernel", "ion_cell_kernel", "ion_facet_kernel",
                 "ion_membrane_rhs_kernel", "ion_emit_cell_kernel",
-                "membrane_trace_kernel", "eliminated_kernel", "membrane_rl_kernel",
+                "membrane_trace_kernel", "eliminated_kernel",
                 "gm_dot_partial_kernel", "gm_dot_finish_kernel", "gm_update_kernel",
                 "gm_scale_kernel", "gm_init_kernel", "gm_givens_kernel",
                 "gm_backsolve_kernel", "gm_xupdate_kernel", "pcg_dot_kernel",
@@ -231,6 +232,7 @@ def profile(dtype=torch.float64, pair=False):
                   "wall_ms": wall_ms, "device_busy_ms": busy_ms,
                   "device_busy_share": None if busy_ms is None else busy_ms / wall_ms,
                   "device_events": len(dev),
+                  "copy_calls": sum(e.count for e in ops if e.key == "aten::copy_"),
                   "top_ops": [{"name": e.key, "self_device_ms": 1e-3 * _self_device_us(e),
                                "share": (None if busy_ms is None else
                                          1e-3 * _self_device_us(e) / busy_ms),
@@ -268,7 +270,8 @@ def main():
             if tr["device_busy_ms"] is None else
             f"device busy {tr['device_busy_ms']:.3f} ms "
             f"({100 * tr['device_busy_share']:.1f}%)")
-    print(f"  wall {tr['wall_ms']:.3f} ms, {busy}, {tr['device_events']} device events")
+    print(f"  wall {tr['wall_ms']:.3f} ms, {busy}, {tr['device_events']} device events, "
+          f"{tr['copy_calls']} aten::copy_ calls")
     for op in tr["top_ops"]:
         share = "" if op["share"] is None else f"{100 * op['share']:5.1f}%"
         print(f"  {op['self_device_ms']:9.3f} ms {share:>6s} {op['calls']:6d}x  "

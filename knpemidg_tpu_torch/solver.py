@@ -39,7 +39,8 @@ from .solvers.twolevel import (_np, build_moment_deflation, build_two_level,
                                ritz_galerkin_host, ritz_lanczos_W,
                                ritz_lanczos_W_host, two_level_apply_batched,
                                two_level_apply_fn)
-from .membrane.engine import MembraneState, make_membrane, ode_step, set_param, get_param
+from .membrane import engine
+from .membrane.engine import MembraneState, make_membrane, set_param, get_param
 from .utils.stats import SolverStats, bcolors
 
 
@@ -138,6 +139,7 @@ class Solver:
         self.splitting_scheme = True
         self.pair_layout = False             # see enable_pair_layout
         self.pairs = None
+        self._ode_tables = {}                # see _ode_table
 
     # ------------------------------------------------------------------
     # setup phases
@@ -562,56 +564,71 @@ class Solver:
     # ------------------------------------------------------------------
     # ODE step (step 0 of the splitting)
     # ------------------------------------------------------------------
+    def _ode_table(self, state):
+        """The static tag table of the ODE step (engine.tag_table) for the
+        state's membrane models under the scheme, built once and cached."""
+        scheme = self.params.ode_scheme
+        key = (scheme, tuple((tag, mm.model) for tag, mm in state["mem"].items()))
+        cache = self._ode_tables
+        if key not in cache:
+            cache[key] = engine.tag_table(
+                [(mm.model, self.tables.slices[tag][0],
+                  self.tables.slices[tag][1] - self.tables.slices[tag][0])
+                 for tag, mm in state["mem"].items()],
+                self.n_mem, [ion.name for ion in self.ion_list], scheme)
+        return cache[key]
+
+    def _ode_pushes(self, state, first_step: bool):
+        """The PDE -> ODE pushes of this step (V, Nernst potentials,
+        update_ode) as sources the ODE step reads in place: (tag table, one
+        engine.TagPush per tag).  V is phi_M at the tag's offset, E_<ion>
+        the Nernst row of the step's trace tensor, update_ode's values the
+        tensors the hook returned."""
+        p = self.params
+        table = self._ode_table(state)
+        phi_M = state["phi_M"].contiguous()
+        # every ion's facet averages and Nernst potential over all membrane
+        # facets, in one kernel launch; each tag reads its slice
+        tr = assembly.membrane_traces_m(
+            self.g, self.mem_dev, list(state["c"]) + [state["c_elim"]],
+            [assembly.nernst_coef(float(ion.z), p.F, p.R, p.temperature)
+             for ion in self.ion_list]).contiguous()
+        # the membrane potential is skipped on the first step with a
+        # constant phi_M init
+        push_v = not (first_step and p.phi_M_init_type == "constant")
+        nernst, row = 2 * tr.stride(0), tr.stride(1)      # tr[2, k, s0] at nernst + k row + s0
+        pushes = []
+        for e, (tag, mm) in zip(table.entries, state["mem"].items()):
+            s0, s1 = e.s0, e.s0 + e.n
+            # the membrane potential, the Nernst potentials for every ion
+            push = engine.TagPush(v=(phi_M, s0) if push_v else None, params={
+                slot: (tr, nernst + k * row + s0)
+                for k, slot in enumerate(e.nernst_slot) if slot >= 0})
+            # app-specific parameter pushes (subclass hook)
+            for name, vals in self.update_ode(tag, Traces(self, tr, (s0, s1))).items():
+                push.params[mm.model.PARAMS[name]] = engine.push_source(
+                    vals, e.n, mm.params)
+            pushes.append(push)
+        return table, pushes
+
     def _ode_inputs(self, state, first_step: bool):
         """The membrane state of every tag with the PDE -> ODE pushes of
         this step applied (V, Nernst potentials, update_ode), ready to
         integrate."""
-        p = self.params
-        c, c_elim, phi_M = state["c"], state["c_elim"], state["phi_M"]
-        # every ion's facet averages and Nernst potential over all membrane
-        # facets, in one kernel launch; each tag reads its slice
-        tr = assembly.membrane_traces_m(
-            self.g, self.mem_dev, list(c) + [c_elim],
-            [assembly.nernst_coef(float(ion.z), p.F, p.R, p.temperature)
-             for ion in self.ion_list])
-        pushed = {}
-        for tag, mm in state["mem"].items():
-            s0, s1 = self.tables.slices[tag]
-            # push PDE -> ODE: membrane potential (skipped on the first
-            # step with a constant phi_M init)
-            if not (first_step and p.phi_M_init_type == "constant"):
-                mm = mm.replace_state("V", phi_M[s0:s1])
-            # Nernst potentials for every ion
-            for k, ion in enumerate(self.ion_list):
-                if mm.has_param(f"E_{ion.name}"):
-                    mm = set_param(mm, f"E_{ion.name}", tr[2, k, s0:s1])
-            # app-specific parameter pushes (subclass hook)
-            upd = self.update_ode(tag, Traces(self, tr, (s0, s1)))
-            for name, vals in upd.items():
-                mm = set_param(mm, name, vals)
-            pushed[tag] = mm
-        return pushed
+        _, pushes = self._ode_pushes(state, first_step)
+        return {tag: engine.apply_push(mm, push)
+                for (tag, mm), push in zip(state["mem"].items(), pushes)}
 
     def _ode_step(self, state, first_step: bool):
+        """Step 0 of the splitting: the pushes, every tag's ODE step and the
+        pulls (phi_M, I_ch) in one engine.ode_step_tags call (one kernel
+        launch on the card)."""
         p = self.params
-        new_mem = {tag: ode_step(mm, state["t"], p.dt, p.n_steps_ODE,
-                                 scheme=p.ode_scheme)
-                   for tag, mm in self._ode_inputs(state, first_step).items()}
-
-        # pull ODE -> PDE: phi_M and channel currents
-        phi_M_new = state["phi_M"].clone()
-        I_ch = torch.zeros((len(self.ion_list), self.n_mem), dtype=self.dtype,
-                           device=self.device)
-        for tag, mm in new_mem.items():
-            s0, s1 = self.tables.slices[tag]
-            phi_M_new[s0:s1] = mm.get_state("V")
-            for k, ion in enumerate(self.ion_list):
-                name = f"I_ch_{ion.name}"
-                if mm.has_param(name):
-                    I_ch[k, s0:s1] = get_param(mm, name)
-
+        table, pushes = self._ode_pushes(state, first_step)
+        mems, phi_M, I_ch = engine.ode_step_tags(
+            table, list(state["mem"].values()), pushes, state["t"], p.dt, p.n_steps_ODE)
         new_state = dict(state)
-        new_state.update(mem=new_mem, phi_M=phi_M_new, I_ch=I_ch)
+        new_state.update(mem=dict(zip(state["mem"], mems)), phi_M=phi_M, I_ch=I_ch)
         return new_state
 
     # ------------------------------------------------------------------

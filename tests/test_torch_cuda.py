@@ -5,6 +5,7 @@ runs where jax is not installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -151,6 +152,93 @@ def test_kernels_raise_outside_the_main_path():
         spmv.block_jacobi_apply(B[0].contiguous(), x)
 
 
+def _ode_case(dtype, scheme, dev, seed=8):
+    """The EMIx fixture's solver on the card under ``scheme`` and a state
+    with perturbed concentrations, potential, time and membrane states."""
+    S, _ = tp.emix_torch(device=dev, dtype=dtype)
+    S.params = dataclasses.replace(S.params, ode_scheme=scheme)
+    rng = np.random.default_rng(seed)
+    noise = lambda a, w: a * torch.as_tensor(rng.uniform(1 - w, 1 + w, tuple(a.shape)),
+                                             dtype=dtype, device=dev)
+    s = S._initial_state(0.0)
+    mem = {tag: engine.MembraneState(noise(mm.states, 0.02), mm.params, mm.model)
+           for tag, mm in s["mem"].items()}
+    return S, dict(s, c=noise(s["c"], 0.01), c_elim=noise(s["c_elim"], 0.01),
+                   phi_M=noise(s["phi_M"], 0.1),
+                   t=torch.tensor(0.3, dtype=dtype, device=dev), mem=mem)
+
+
+K13_DTYPES = [(torch.float32, 1e-4), (torch.float64, 1e-12)]   # chip_smoke.py's K13 tolerances
+
+
+@pytest.mark.parametrize("first_step", [True, False])
+@pytest.mark.parametrize("scheme", ["rk4", "rush_larsen"])
+@pytest.mark.parametrize("dtype,tol", K13_DTYPES)
+def test_ode_step_is_one_launch_equal_to_its_plain_twin(dtype, tol, scheme, first_step):
+    """Solver._ode_step on the card makes one K13 launch for both tags (and
+    one K14 launch, its traces, and nothing else), equals the tag table's
+    plain twin on the same pushes, and leaves the input state's tensors
+    bitwise as they were."""
+    dev = cuda_or_skip()
+    S, state = _ode_case(dtype, scheme, dev)
+    inputs = [state["phi_M"], state["c"], state["c_elim"], state["t"]] + [
+        v for mm in state["mem"].values() for v in (mm.states, mm.params)]
+    before = [v.clone() for v in inputs]
+    table, pushes = S._ode_pushes(state, first_step)
+    ref_mems, ref_phi, ref_ich = engine.ode_step_tags_plain(
+        table, list(state["mem"].values()), pushes, state["t"], S.params.dt,
+        S.params.n_steps_ODE)
+    S._ode_step(state, first_step=first_step)                 # built and warm
+    n0 = dict(_cuda.LAUNCHES)
+    new = S._ode_step(state, first_step=first_step)
+    torch.cuda.synchronize()
+    moved = {k: v - n0[k] for k, v in _cuda.LAUNCHES.items() if v != n0[k]}
+    k13 = "membrane_rl" if scheme == "rush_larsen" else "membrane_rk4"
+    assert moved == {k13: 1, "membrane_trace": 1}, moved
+    for tag, ref in zip(state["mem"], ref_mems):
+        got = new["mem"][tag]
+        for s in range(ref.states.shape[0]):
+            assert rel(got.states[s], ref.states[s]) < tol, (tag, s)
+        assert rel(got.params, ref.params) < tol, tag
+    assert rel(new["phi_M"], ref_phi) < tol
+    for k in range(ref_ich.shape[0]):
+        assert rel(new["I_ch"][k], ref_ich[k]) < tol, k
+    for v, b in zip(inputs, before):
+        assert torch.equal(v, b)
+
+
+def test_ode_step_tags_take_eight_tags_a_launch():
+    """Ten tags of both models (both schemes' blocks in one launch) make
+    two launches, of 8 and 2 tags, equal to the plain twin; a solver whose
+    membrane model has no device function raises on the card."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(9)
+    n, tags = 100, 10
+    models = [glial.GlialKir() if j % 2 else hh.HodgkinHuxleyMV() for j in range(tags)]
+    mems = []
+    for m in models:
+        mm = engine.make_membrane(m, np.zeros((n, 3)), device=dev)
+        for key, val in {"Cm": 2.0, "K_e": 3.3, "Na_i": 12.8, "E_K": -90.0,
+                         "E_Na": 50.0, "stim_amplitude": 5.0}.items():
+            mm = engine.set_param(mm, key, val * rng.uniform(0.9, 1.1, n))
+        mems.append(mm)
+    table = engine.tag_table([(m, n * j, n) for j, m in enumerate(models)], n * tags,
+                             ["Na", "K", "Cl"], "rush_larsen")
+    phi_M = torch.as_tensor(rng.uniform(-80.0, -60.0, n * tags), device=dev)
+    pushes = [engine.TagPush(v=(phi_M, n * j)) for j in range(tags)]
+    t = torch.tensor(0.3, dtype=torch.float64, device=dev)
+    n0 = _cuda.LAUNCHES["membrane_rl"]
+    got = engine.ode_step_tags(table, mems, pushes, t, 0.1, 25)
+    assert _cuda.LAUNCHES["membrane_rl"] == n0 + 2
+    ref = engine.ode_step_tags_plain(table, mems, pushes, t, 0.1, 25)
+    for a, b in zip(got[0], ref[0]):
+        assert rel(a.states, b.states) < 1e-12 and rel(a.params, b.params) < 1e-12
+    assert rel(got[1], ref[1]) < 1e-12 and rel(got[2], ref[2]) < 1e-12
+    S2 = tp._neuron_2d("torch", device=dev)                      # HodgkinHuxleySI
+    with pytest.raises(NotImplementedError):
+        S2._ode_step(S2._initial_state(0.0), first_step=False)
+
+
 def test_emix_slice_on_cuda_matches_cpu():
     """Two float64 steps of the EMIx fixture on the card go through every
     kernel, reproduce the JAX package's Krylov counts and agree with the
@@ -180,16 +268,17 @@ def _rand(rng, shape, dtype, dev):
     return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
 
 
-def _device_kernels(fn, sessions=1, want=0):
+def _device_kernels(fn, sessions=1, want=0, match=""):
     """Names of the device kernels fn() launches, in order, read by the
     profiler in its second cycle: the first (fn() too) is a warm-up whose
     events are dropped, since a profiling session can miss its first
     launches.  A session on the card can also return fewer device events
     than were launched, or none (seen now and then, for calls that another
     session reads in full): with ``sessions`` > 1 a session that returns
-    no event, or fewer than ``want``, is run again, up to that many in all
-    (fn() runs twice more each time).  The caller's assertions on the list
-    are unchanged; only a short reading is taken again."""
+    no event, or fewer than ``want`` whose name holds ``match``, is run
+    again, up to that many in all (fn() runs twice more each time).  The
+    caller's assertions on the list are unchanged; only a short reading is
+    taken again."""
     for _ in range(sessions):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
                                     schedule=torch.profiler.schedule(wait=0, warmup=1,
@@ -201,7 +290,7 @@ def _device_kernels(fn, sessions=1, want=0):
                 prof.step()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names and len(names) >= want:
+        if names and sum(match in k for k in names) >= want:
             return names
     return names
 
@@ -874,14 +963,17 @@ def test_membrane_trace_launches_twice_a_step():
     cuda_or_skip()
     S, sp = tp.emix_torch(device="cuda")
     state = [S.attach_pc(S._initial_state(0.0), sp)]
+    steps = [0]
 
     def step():
         state[0], _ = S.run_block(state[0], sp, 1)
+        steps[0] += 1
 
     step()
-    n0 = _cuda.LAUNCHES["membrane_trace"]
-    kernels = _device_kernels(step)                      # two steps
-    assert _cuda.LAUNCHES["membrane_trace"] == n0 + 4
+    n0, s0 = _cuda.LAUNCHES["membrane_trace"], steps[0]
+    # up to three sessions of two steps each; only a short reading is taken again
+    kernels = _device_kernels(step, sessions=3, want=2, match="membrane_trace_kernel")
+    assert _cuda.LAUNCHES["membrane_trace"] - n0 == 2 * (steps[0] - s0)
     traces = [k for k in kernels if "membrane_trace_kernel" in k]
     assert len(traces) == 2, kernels
 
@@ -1173,10 +1265,10 @@ def test_pcg_iteration_launches_once_per_entry_and_allocates_nothing():
             ko.pcg_update(xi, ri, pi, Ap, wk)
             ko.pcg_dot2_direction(ri, z, pi, wk)
 
-    kernels = _device_kernels(iterations)
-    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
     want = ["pcg_dot_kernel", "pcg_update_kernel", "pcg_project_kernel",
             "pcg_dot2_direction_kernel"] * 5
+    kernels = _device_kernels(iterations, sessions=3, want=len(want))
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
     assert len(kernels) == len(want) and all(k in e for k, e in zip(want, kernels)), kernels
 
 
@@ -1346,8 +1438,9 @@ def test_probe_kernels_match_plain(dtype):
 
 def test_rush_larsen_window_on_cuda_matches_cpu():
     """Two float64 steps of the EMIx fixture with ode_scheme="rush_larsen":
-    the neuron's points go through the Rush-Larsen kernel, the glial ones
-    through RK4, and the counts and fields are the CPU run's."""
+    one K13 launch a step, the neuron's points through its Rush-Larsen
+    branch and the glial ones through its RK4 branch (counted as
+    membrane_rl), and the counts and fields are the CPU run's."""
     import dataclasses
 
     dev = cuda_or_skip()
@@ -1357,7 +1450,7 @@ def test_rush_larsen_window_on_cuda_matches_cpu():
         S.params = dataclasses.replace(S.params, ode_scheme="rush_larsen")
         _cuda.reset_launches()
         runs[str(d)] = (S, S.solve_system_active(0.2, 0.0, sp))
-    assert _cuda.LAUNCHES["membrane_rl"] > 0 and _cuda.LAUNCHES["membrane_rk4"] > 0
+    assert _cuda.LAUNCHES["membrane_rl"] == 2 and _cuda.LAUNCHES["membrane_rk4"] == 0
     (Sc, sc), (Sg, sg) = runs["cpu"], runs[str(dev)]
     assert Sg.stats.emi_niters == Sc.stats.emi_niters
     assert Sg.stats.knp_niters == Sc.stats.knp_niters

@@ -37,9 +37,19 @@ and float64, beside the library calls chip_smoke.py holds them to:
        call; a tree without it: the one-field calls its solver makes, one
        Nernst potential per (tag, ion) and the plus and minus averages of
        StandardSolver's update_ode per tag, each over all membrane facets)
-       and the finalize jump, in both dtypes; and Solver._ode_inputs
-       itself in float64 (the traces with every tag's parameter pushes,
-       host time included; no graph).
+       and the finalize jump, in both dtypes; and the pushes of a step as
+       the solver makes them in float64 (this tree: Solver._ode_pushes, the
+       traces and every tag's push sources; a tree without it:
+       Solver._ode_inputs, the traces with every tag's parameters cloned
+       and set), host time included; no graph;
+  k13  Solver._ode_step itself in float64 under each scheme at
+       chip_smoke.py's configuration: the pushes, every tag's ODE step and
+       the pulls (this tree: one K13 launch; a tree with the per-tag
+       kernels: one launch a tag and the torch pushes and pulls around
+       them), host time and graph replay ("not measured" where the step
+       reads a value back to the host, which a graph cannot capture); and,
+       on a tree with the one launch, each tag's launch alone in both
+       dtypes (its model's chain without the other beside it).
 
 The data is random (seeded) at those shapes: only times are read.  The
 package is imported from ``--root`` (default: this file's directory), so
@@ -62,7 +72,7 @@ device microseconds per call of 100 calls replayed as one CUDA graph
 measured" where the call cannot be captured).  It also prints the cost of
 reading the current stream both ways.
 
-Usage:  python3 time_wrappers.py [--root DIR] [--only k8,k6,k4,k1,k14]   (needs a CUDA card)
+Usage:  python3 time_wrappers.py [--root DIR] [--only k8,k6,k4,k1,k14,k13]   (needs a CUDA card)
 """
 import argparse
 import inspect
@@ -74,7 +84,7 @@ import time
 
 import torch
 
-from chip_smoke import dense_gemvs
+from chip_smoke import dense_gemvs, graph_ms
 
 SHAPES = {"cell": (4, 124416), "pair": (8, 63558)}
 # coarse sizes: (cells of the layout's r, dofs, chunk size, compartment,
@@ -115,32 +125,13 @@ def loop_us(fn, calls=LOOP):
 def graph_us(fn, calls=100, replays=5):
     """Device microseconds per call with the host out of the way: ``calls``
     calls captured in one CUDA graph, its replay timed by CUDA events
-    (median of ``replays``); None where the call cannot be captured."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+    (median of ``replays``; chip_smoke.graph_ms); None where the call
+    cannot be captured."""
     try:
-        with torch.cuda.graph(graph):
-            for _ in range(calls):
-                fn()
+        return 1e3 * graph_ms(fn, calls, replays)
     except RuntimeError as exc:
         print(f"time    not captured: {exc}".splitlines()[0])
         return None
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return 1e3 * statistics.median(times) / calls
 
 
 def stream_lookup_us(calls=100000):
@@ -401,8 +392,43 @@ def time_traces(asm, S):
         report("k14time", f"{str(dtype):14s} ODE-input traces", ode)
         report("k14time", f"{str(dtype):14s} finalize jump",
                lambda: asm.jump_phi_M_m(g, mem, ph))
-    report("k14time", f"{str(torch.float64):14s} Solver._ode_inputs",
-           lambda: S._ode_inputs(state, first_step=False), graph=False)
+    pushes = getattr(S, "_ode_pushes", None)
+    name, fn = ("_ode_pushes", pushes) if pushes else ("_ode_inputs", S._ode_inputs)
+    report("k14time", f"{str(torch.float64):14s} Solver.{name}",
+           lambda: fn(state, first_step=False), graph=False)
+
+
+def time_ode_step(engine, S):
+    import dataclasses
+
+    from chip_smoke import cast_step_inputs
+
+    # a tree without the one-launch step reads the step time back to the
+    # host in every call, which no graph can capture
+    fused = hasattr(engine, "ode_step_tags")
+    print(f"k13time ode_step_tags {fused}")
+    state = S._initial_state(0.0)
+    params = S.params
+    for scheme in ("rk4", "rush_larsen"):
+        S.params = dataclasses.replace(params, ode_scheme=scheme)
+        report("k13time", f"{str(S.dtype):14s} Solver._ode_step {scheme}",
+               lambda: S._ode_step(state, first_step=False), graph=fused)
+        if not fused:
+            continue
+        table, pushes = S._ode_pushes(state, first_step=False)
+        for dtype in (torch.float32, torch.float64):
+            mms, ps = cast_step_inputs(state["mem"], pushes, dtype)
+            args = (state["t"].to(dtype), S.params.dt, S.params.n_steps_ODE)
+            report("k13time", f"{str(dtype):14s} {scheme} every tag",
+                   lambda: engine.ode_step_tags(table, mms, ps, *args))
+            # each tag alone (its model's chain without the other beside it)
+            for j, e in enumerate(table.entries):
+                tab = engine.tag_table([(e.model, 0, e.n)], e.n, S.ion_names, scheme)
+                push = engine.TagPush(v=ps[j].v, params=ps[j].params)
+                report("k13time", f"{str(dtype):14s} {scheme} {type(e.model).__name__} alone",
+                       lambda tab=tab, j=j, push=push: engine.ode_step_tags(
+                           tab, [mms[j]], [push], *args))
+    S.params = params
 
 
 def main():
@@ -415,6 +441,7 @@ def main():
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     from knpemidg_tpu_torch import _cuda
+    from knpemidg_tpu_torch.membrane import engine
     from knpemidg_tpu_torch.ops import assembly as asm, coarse, krylov_ops as ko, pairs, spmv
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -437,7 +464,8 @@ def main():
     sections = {"k8": lambda: time_dots(ko, dev, gen), "k6": lambda: time_coarse(coarse, dev, gen),
                 "k4": lambda: time_to_pair(pairs, dev, gen),
                 "k1": lambda: time_bell(spmv, solver(), dev, gen),
-                "k14": lambda: time_traces(asm, solver())}
+                "k14": lambda: time_traces(asm, solver()),
+                "k13": lambda: time_ode_step(engine, solver())}
     for key in args.only.split(","):
         sections[key]()
 
