@@ -26,8 +26,9 @@ layout).  On the way it:
      cell layout, none on the pair layout) with every launch counter reset
      first, and fails unless every solve converged, the fields are finite,
      every kernel of that path was launched, the K14 traces twice a step,
-     K13 once a step, and (cell layout) the preconditioner carries the Ritz fields; then
-     reports the cell layout's emi_ritz=0 window beside it;
+     K13 once a step, K9 once an Arnoldi step, and (cell layout) the
+     preconditioner carries the Ritz fields; then reports the cell
+     layout's emi_ritz=0 window beside it;
   6. runs the same protocol in float32 on each layout and reports its
      Krylov counts and whether each solve converged: on the cell layout
      with the device Ritz harvest (three runs, whose counts must repeat),
@@ -95,8 +96,7 @@ ASSEMBLY_EXACT = ("emi_emit_cell", "knp_emit_cell")
 # of |terms| (the Givens scalars: of the largest value of each output), the
 # Rush-Larsen step as the RK4 one, the gather probes exactly.
 KRYLOV = {"pcg_dot": ":101", "pcg_update": ":105", "pcg_dot2_direction": ":108",
-          "gmres_start": ":319", "gmres_cgs_dot": ":385",
-          "gmres_cgs_update": ":386", "gmres_next": ":392", "gmres_givens": ":403",
+          "gmres_start": ":319", "gmres_cgs_dot": ":305", "gmres_arnoldi": ":385",
           "gmres_solve_update": ":445"}
 KRYLOV_TOL = {torch.float32: {k + p: 1e-5 for k in KRYLOV for p in ("", "_pair")},
               torch.float64: {k + p: 1e-12 for k in KRYLOV for p in ("", "_pair")}}
@@ -306,7 +306,8 @@ def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results, inputs=(),
     (kernel, plain) functions to time instead of the checked ones (an
     in-place kernel is checked on a copy, timed without one).
     ``whole_bytes``: the input bytes counting every input whole, whose
-    bound is printed beside the work's."""
+    bound is printed beside the work's.  Returns the bound in ms when
+    recorded."""
     got, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     errs = [err(a, b, sc) for a, b, sc in zip(got, ref, scale_fn(ref))]
@@ -338,6 +339,7 @@ def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results, inputs=(),
         print(f"bound   {name:30s} {str(dtype):14s} {byte_ms:.4f} ms the work's bytes, "
               f"{1e3 * (whole_bytes + nbytes(got)) / PEAK_BYTES_S:.4f} ms counting every "
               f"input whole")
+    return entry["bound_ms"]
 
 
 def inv_scale(P, inv):
@@ -879,10 +881,12 @@ def pair_kernel_phase(S, state, results):
 def krylov_phase(S, results, layout):
     """K8 and K9 at one layout's main-path shapes (the EMI vector, the KNP
     batch of S.N_ions systems) on seeded random inputs: each entry point
-    against its plain version, the basis populated in KRYLOV_ROWS rows
-    (zero beyond them, as the plain versions' basis is), timed with its
-    bound; the library calls are the reference's whole-basis products and
-    dots."""
+    against its plain version, the basis populated in KRYLOV_ROWS
+    orthonormal rows (zero beyond them, as the plain versions' basis is),
+    timed with its bound; the library calls are the reference's
+    whole-basis products and dots.  The Arnoldi step (one launch) is also
+    held to its ordered plain version to the last bit over 200 calls and
+    timed in graph replay beside the whole-basis bmm / baddbmm CGS2."""
     from knpemidg_tpu_torch import emix
     from knpemidg_tpu_torch.ops import krylov_ops as ko
 
@@ -904,29 +908,21 @@ def krylov_phase(S, results, layout):
         # --- K9 -------------------------------------------------------------
         wk = ko.gmres_work(mb, n, m, dtype, dev)
         wk.V.zero_()
-        wk.V[:KRYLOV_ROWS] = rnd(KRYLOV_ROWS, mb, n)
+        # an orthonormal basis of KRYLOV_ROWS rows a system, as a cycle's is
+        for s in range(mb):
+            wk.V[:KRYLOV_ROWS, s] = torch.linalg.qr(rnd(n, KRYLOV_ROWS))[0].T
         Vs = wk.V.transpose(0, 1).contiguous()          # the reference's (mb, m+1, n)
         V_live = wk.V[:KRYLOV_ROWS]
         w = rnd(mb, n)
         h = torch.zeros_like(wk.h1)
         rows = KRYLOV_ROWS
         compare(name("gmres_cgs_dot"), dtype,
-                lambda: [ko.gmres_cgs_dot(wk.V, w, rows, h.clone())[:, :rows]],
+                lambda: [ko.gmres_cgs_dot(wk.V, w, rows, h.clone(), wk)[:, :rows]],
                 lambda: [ko.gmres_cgs_dot_plain(wk.V, w, rows, h.clone())[:, :rows]],
                 lambda ref: [ko.gmres_cgs_dot_plain(wk.V.abs(), w.abs(), rows,
                                                     h.clone())[:, :rows]],
                 results, inputs=[V_live, w], flops=2.0 * V_live.numel(),
                 library_fn=lambda: torch.bmm(Vs, w[..., None]))
-        hp = ko.gmres_cgs_dot_plain(wk.V, w, rows, h.clone())
-        wbuf = [w.clone(), w.clone()]
-        compare(name("gmres_cgs_update"), dtype,
-                lambda: [ko.gmres_cgs_update(wk.V, w.clone(), hp, rows)],
-                lambda: [ko.gmres_cgs_update_plain(wk.V, w.clone(), hp, rows)],
-                lambda ref: [ko.gmres_cgs_update_plain(wk.V.abs(), w.abs(), -hp.abs(), rows)],
-                results, inputs=[V_live, w, hp[:, :rows]], flops=2.0 * V_live.numel(),
-                library_fn=lambda: torch.baddbmm(w[:, None], hp[:, None], Vs, alpha=-1.0),
-                timed=(lambda: ko.gmres_cgs_update(wk.V, wbuf[0], hp, rows),
-                       lambda: ko.gmres_cgs_update_plain(wk.V, wbuf[1], hp, rows)))
         # step J's scalars: system 0 live, the others frozen
         wk.tol.copy_(torch.full((mb,), 1e3, dtype=dtype))
         wk.tol[0] = 1e-3
@@ -937,34 +933,45 @@ def krylov_phase(S, results, layout):
         wk.sn.copy_(torch.sin(ang))
         wk.R.copy_(rnd(mb, m + 1, m))
         wk.R[:, range(m), range(m)] += 4.0
-        wk.h1[:, :rows] = rnd(mb, rows)
-        wk.h2[:, :rows] = 1e-3 * rnd(mb, rows)
-        wk.hj1.copy_(torch.rand((mb,), generator=gen, device=dev, dtype=dtype) + 0.5)
         wk.ks.fill_(J)
-        copy = lambda: ko.GmresWork(*(t.clone() for t in wk))
-        outs = lambda a: [a.V[J + 1], a.hj1]
-        wn = [copy(), copy()]
-        compare(name("gmres_next"), dtype,
-                lambda: outs(ko.gmres_next(w, copy(), J)),
-                lambda: outs(ko.gmres_next_plain(w, copy(), J)),
-                lambda ref: [r.abs() for r in ref], results,
-                inputs=[w, wk.g[:, J], wk.tol], flops=3.0 * w.numel(),
-                timed=(lambda: ko.gmres_next(w, wn[0], J),
-                       lambda: ko.gmres_next_plain(w, wn[1], J)))
-        scal = lambda a: [a.R, a.g, a.cs, a.sn, a.ks, a.flag]
-        wg = [copy(), copy()]
-        compare(name("gmres_givens"), dtype,
-                lambda: scal(ko.gmres_givens(copy(), J)),
-                lambda: scal(ko.gmres_givens_plain(copy(), J)),
-                lambda ref: [r.abs().amax().expand_as(r) if r.is_floating_point()
-                             else torch.ones_like(r) for r in ref], results,
-                inputs=[wk.h1[:, :rows], wk.h2[:, :rows], wk.hj1, wk.tol, wk.R, wk.g,
-                        wk.cs[:, :J], wk.sn[:, :J], wk.ks],
-                timed=(lambda: ko.gmres_givens(wg[0], J),
-                       lambda: ko.gmres_givens_plain(wg[1], J)))
-        ws = ko.gmres_givens_plain(copy(), J)           # ks = rows for system 0
+        step_out = lambda a: [a.h1[:, :rows], a.h2[:, :rows], a.hj1, a.V[J + 1], a.R, a.g,
+                              a.cs, a.sn, a.ks, a.flag]
+
+        def step(fn):
+            a = work_copy(wk)
+            fn(w.clone(), a, J)
+            return step_out(a)
+
+        wa, wt = work_copy(wk), [w.clone(), w.clone()]
+        bound = compare(name("gmres_arnoldi"), dtype, lambda: step(ko.gmres_arnoldi),
+                        lambda: step(ko.gmres_arnoldi_plain),
+                        lambda ref: arnoldi_scales(wk, w, J, ref), results,
+                        inputs=[V_live, w, wk.tol, wk.g, wk.cs[:, :J], wk.sn[:, :J], wk.ks],
+                        flops=(8.0 * rows + 3.0) * mb * n,
+                        timed=(lambda: ko.gmres_arnoldi(wt[0], wa, J),
+                               lambda: ko.gmres_arnoldi_plain(wt[1], work_copy(wk), J)))
+        arnoldi_exact(name("gmres_arnoldi"), dtype, ko, w, wk, J)
+        # the step in graph replay (no host between the launches) beside the
+        # reference's whole-basis products (bmm, baddbmm, bmm, baddbmm: the
+        # CGS2 alone, a partial yardstick)
+        step_us = 1e3 * graph_ms(lambda: ko.gmres_arnoldi(wt[0], wa, J))
+        wl = [w[:, None].clone() for _ in range(2)]
+        hl = [torch.empty((mb, m + 1, 1), dtype=dtype, device=dev) for _ in range(2)]
+
+        def bmm_cgs2():
+            torch.bmm(Vs, wl[0].transpose(1, 2), out=hl[0])
+            torch.baddbmm(w[:, None], hl[0].transpose(1, 2), Vs, alpha=-1.0, out=wl[1])
+            torch.bmm(Vs, wl[1].transpose(1, 2), out=hl[1])
+            torch.baddbmm(wl[1], hl[1].transpose(1, 2), Vs, alpha=-1.0, out=wl[0])
+
+        lib_us = 1e3 * graph_ms(bmm_cgs2)
+        print(f"step    {name('gmres_arnoldi'):30s} {str(dtype):14s} graph replay {step_us:.2f} us "
+              f"a step, bound {1e3 * bound:.2f} us ({step_us / (1e3 * bound):.2f}x); whole-basis "
+              f"bmm/baddbmm CGS2 {lib_us:.2f} us; {'staged' if wa.staged else 're-read'} "
+              f"layout, {wa.grid} blocks of {wa.upb} chunks")
+        ws = ko.gmres_arnoldi_plain(w.clone(), work_copy(wk), J)   # ks = rows for system 0
         x = rnd(mb, n)
-        yk = ko.GmresWork(*(t.clone() for t in ws))
+        yk = work_copy(ws)
         ko.gmres_solve_update_plain(yk, x.clone())      # the plain y, for the scale
         xb = [x.clone(), x.clone()]
         nk = int(ws.ks.max())
@@ -979,19 +986,20 @@ def krylov_phase(S, results, layout):
                 timed=(lambda: ko.gmres_solve_update(ws, xb[0]),
                        lambda: ko.gmres_solve_update_plain(ws, xb[1])))
         r0 = rnd(mb, n)
+        wn = [work_copy(wk), work_copy(wk)]
 
         def start_out(fn, a):
             fn(r0, a)
             return [a.V[0], a.beta, a.g]
 
         compare(name("gmres_start"), dtype,
-                lambda: start_out(ko.gmres_start, copy()),
-                lambda: start_out(ko.gmres_start_plain, copy()),
+                lambda: start_out(ko.gmres_start, work_copy(wk)),
+                lambda: start_out(ko.gmres_start_plain, work_copy(wk)),
                 lambda ref: [r.abs() for r in ref], results,
                 inputs=[r0, wk.tol], flops=3.0 * r0.numel(),
                 timed=(lambda: ko.gmres_start(r0, wn[0]),
                        lambda: ko.gmres_start_plain(r0, wn[1])))
-        del wk, ws, yk, Vs, wg, wn
+        del wk, ws, yk, Vs, wa, wn
 
         # --- K8 -------------------------------------------------------------
         x, r, p_, Ap, z = (rnd(*vshape) for _ in range(5))
@@ -1054,6 +1062,67 @@ def krylov_phase(S, results, layout):
         for entry, fn, vecs in (("pcg_dot", ko.pcg_dot, (p_, Ap)),
                                 ("pcg_dot2_direction", ko.pcg_dot2_direction, (r, z, p_))):
             dots_exact(name(entry), dtype, ko, fn, vecs, sc0, work())
+
+
+def work_copy(wk):
+    """A GmresWork with its own copy of every buffer (the launch shape
+    kept)."""
+    return type(wk)(*(t.clone() if isinstance(t, torch.Tensor) else t for t in wk))
+
+
+def arnoldi_scales(wk, w, j, ref):
+    """Error scales of an Arnoldi step's outputs (h1, h2, hj1, V[j+1], R, g,
+    cs, sn, ks, flag) against the whole-basis plain step: each sum's |terms|
+    carried through the chain -- H1 = |V| |w|, W1 = |w| + |h1| |V|, H2 = |V|
+    W1, W2 = W1 + |h2| |V|, ||W2|| for hj1, and W2 / hj1 + |V[j+1]| ||W2|| /
+    hj1 for V[j+1] -- the Givens scalars against the largest value of each
+    output, ks and the flag exactly."""
+    Va = wk.V[:j + 1].abs()
+    W1 = w.abs() + torch.einsum("sk,ksn->sn", ref[0].abs(), Va)
+    W2 = W1 + torch.einsum("sk,ksn->sn", ref[1].abs(), Va)
+    n2 = torch.sqrt((W2 * W2).sum(1))
+    hj1 = torch.where(ref[2] > 0, ref[2], 1.0)[:, None]
+    return ([torch.einsum("ksn,sn->sk", Va, w.abs()), torch.einsum("ksn,sn->sk", Va, W1), n2,
+             (W2 + ref[3].abs() * n2[:, None]) / hj1]
+            + [r.abs().amax().expand_as(r) for r in ref[4:8]]
+            + [torch.ones_like(r) for r in ref[8:]])
+
+
+def arnoldi_exact(name, dtype, ko, w, wk, j, calls=200):
+    """gmres_arnoldi against gmres_arnoldi_ordered_plain (the kernel's
+    summation order) to the last bit of every output -- h1 and h2 over the
+    populated rows, hj1, V[j+1], R, g, cs, sn, ks and the flag -- in
+    ``calls`` back-to-back calls on one work: before each, w and the work's
+    scalars are restored and h1, h2, hj1 and V[j+1] set to NaN, the flag to
+    -1, so each call writes them.  Returns nothing; raises on a difference."""
+    rows = j + 1
+    base = work_copy(wk)
+    want = work_copy(wk)
+    ko.gmres_arnoldi_ordered_plain(w.clone(), want, j)
+    outs = lambda a: [a.h1[:, :rows], a.h2[:, :rows], a.hj1, a.V[j + 1], a.R, a.g, a.cs, a.sn,
+                      a.ks, a.flag]
+    bits = lambda t: t.view(torch.int64) if t.dtype == torch.float64 else t.view(torch.int32)
+    want_bits = [bits(t) for t in outs(want)]
+    diff = torch.zeros(calls, dtype=torch.int64, device=w.device)
+    wc = torch.empty_like(w)
+    for i in range(calls):
+        for key in ("h1", "h2", "R", "g", "cs", "sn", "ks"):
+            getattr(wk, key).copy_(getattr(base, key))
+        wk.h1[:, :rows] = float("nan")
+        wk.h2[:, :rows] = float("nan")
+        wk.hj1.fill_(float("nan"))
+        wk.V[j + 1].fill_(float("nan"))
+        wk.flag.fill_(-1)
+        wc.copy_(w)
+        ko.gmres_arnoldi(wc, wk, j)
+        diff[i] = sum((bits(a) != b).sum() for a, b in zip(outs(wk), want_bits))
+    torch.cuda.synchronize()
+    ok = int(diff.max()) == 0
+    print(f"exact   {name:30s} {str(dtype):14s} every output bitwise the ordered plain's in "
+          f"each of {calls} calls: {ok} ({'staged' if wk.staged else 're-read'} layout, "
+          f"{wk.grid} blocks)")
+    if not ok:
+        raise AssertionError(f"{name} differs from gmres_arnoldi_ordered_plain")
 
 
 def dots_exact(name, dtype, ko, fn, vecs, sc0, wk, calls=1000):
@@ -1412,8 +1481,8 @@ def run_checked(S, sp, path):
     """One protocol run through the user entry point with the launch
     counters reset first; asserts convergence (solve_system_active raises
     otherwise), finite fields, the shapes and step count, every kernel of
-    ``path`` launched, two K14 trace launches and one K13 launch a step.
-    Returns (state, launches)."""
+    ``path`` launched, two K14 trace launches and one K13 launch a step,
+    and one K9 launch per Arnoldi step.  Returns (state, launches)."""
     from knpemidg_tpu_torch import _cuda
 
     S.stats.__init__()
@@ -1443,6 +1512,18 @@ def run_checked(S, sp, path):
           f"({want} expected: one launch a step for every tag)")
     if ode != want:
         raise AssertionError(f"the {path} window's K13 launches are {ode}, not {want}")
+    # K9: one step launch per Arnoldi step.  Each float64 KNP solve of these
+    # windows is one restart cycle (two gmres_start launches: the cycle's
+    # and the final test's; one tolerance dot), and a cycle's steps are its
+    # largest per-system count
+    solves = len(S.stats.knp_niters)
+    arnoldi = sum(max(c) for c in S.stats.knp_niters)
+    k9 = (launches["gmres_start"], launches["gmres_cgs_dot"], launches["gmres_arnoldi"])
+    print(f"{path:7s} K9 gmres_start / gmres_cgs_dot / gmres_arnoldi launches {k9} for {solves} "
+          f"one-cycle solves of {arnoldi} Arnoldi steps ({(2 * solves, solves, arnoldi)} "
+          f"expected: one launch a step)")
+    if k9 != (2 * solves, solves, arnoldi):
+        raise AssertionError(f"the {path} window's K9 launches are {k9}, not one a step")
     return state, launches
 
 

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """SHA-256 digests of the outputs of kernels K10 emi_facet, K3
 pair_matvec / pair_matvec_multi, K1 bell_matvec / bell_matvec_multi, K14
-membrane_trace, K6's restrict and prolong-add and K13's ODE step on the
-card, at
-chip_smoke.py's configuration
+membrane_trace, K6's restrict and prolong-add, K13's ODE step and K9's
+batched GMRES on the card, at chip_smoke.py's configuration
 (box_3d_axons(1, length_factor=2) in cm, the EMIx solver), at a state
 perturbed with a seeded generator: emi_facet on the cell and the pair
 layout's facet tables (float32 and float64); the matvecs (K3 on pairs, K1
 on cells; float32 and float64) on the step's EMI and two-ion KNP operators
-applied to the step's rhs; K14 as the solver pushes it (float64): each
+applied to the step's rhs; K9 as the solver's block-Jacobi KNP solve
+drives it (krylov.gmres_batched on those operators, each layout, both
+dtypes): the correction, the iterations and the residual norms; K14 as
+the solver pushes it (float64): each
 tag's membrane states and ODE parameters out of Solver._ode_inputs (the
 potential, the Nernst potentials E_* and StandardSolver's K_e / Na_i) and
 the finalize jump, on both layouts, and in both dtypes each ion's plus and
@@ -54,6 +56,7 @@ def main():
     from knpemidg_tpu_torch import emix
     from knpemidg_tpu_torch.mesh.generators import box_3d_axons
     from knpemidg_tpu_torch.ops import assembly as asm, coarse, pairs, spmv
+    from knpemidg_tpu_torch.solvers import krylov
 
     mesh = box_3d_axons(1, length_factor=2)
     mesh.vertices *= 1e2
@@ -111,6 +114,13 @@ def main():
                 torch.cuda.synchronize()
                 print(f"digest  bell_matvec  {layout} {str(dtype):14s} {digest(out)} "
                       f"(operators {digest([B, BK])})")
+            for dtype in (torch.float32, torch.float64):
+                Bd = BK.to(dtype)
+                Pinv = spmv.block_jacobi_inverse(Bd[:, 0].contiguous())
+                gmres_digest(krylov, layout, dtype,
+                             lambda V, Bd=Bd: spmv.bell_matvec_multi(Bd, nbr, V.contiguous()),
+                             lambda r, Pinv=Pinv: spmv.block_jacobi_apply(Pinv, r.contiguous()),
+                             rhsK.to(dtype), c.to(dtype))
         if layout == "pair":
             (pd, pe), rhs, _ = S._assemble_emi(c, state["c_elim"], pM, Itot, state["t"],
                                                pair=True)
@@ -125,6 +135,19 @@ def main():
                 torch.cuda.synchronize()
                 print(f"digest  pair_matvec  {layout} {str(dtype):14s} {digest(out)} "
                       f"(operators {digest([pd, pe, pdK, peK])})")
+            for dtype in (torch.float32, torch.float64):
+                # the solver's block-Jacobi pair KNP solve: the pair_bj
+                # halves of the diagonal, the live mask after the apply
+                pdd, ped = pdK.to(dtype), peK.to(dtype)
+                lm = S._pair_mask.to(dtype)[None]
+                Pinv = spmv.block_jacobi_inverse(
+                    (pdd * S._pair_bj_halves[None].to(dtype)).contiguous())
+                gmres_digest(krylov, layout, dtype,
+                             lambda V, pdd=pdd, ped=ped: pairs.pair_matvec_multi(
+                                 pdd, ped, pm, V.contiguous()),
+                             lambda r, Pinv=Pinv, lm=lm: spmv.block_jacobi_apply(
+                                 Pinv, r.contiguous()) * lm,
+                             pairs.to_pair(pm, rhsK.to(dtype)), pairs.to_pair(pm, c.to(dtype)))
         # K6 on the pc build's EMI data (the Ritz harvest runs K6 itself)
         sp = emix.solver_params(error_if_not_converged=False)
         pc = S.attach_pc(state, sp)["pc"]["emi"]
@@ -146,6 +169,27 @@ def main():
         ode_digests(S, mesh, st, layout, gen)
         del S
         torch.cuda.empty_cache()
+
+
+def gmres_digest(krylov, layout, dtype, mv, pc, rhs, c):
+    """K9 through krylov.gmres_batched as the solver's KNP solve calls it
+    (increment form: r0 = rhs - A c from a zero guess, the tolerance from
+    the preconditioned rhs, emix.solver_params()'s rtol / atol / restart /
+    iteration cap) on the step's two-ion system with a block-Jacobi
+    preconditioner (more Arnoldi steps and restarts than the two-level
+    one): the correction x, every system's iterations and the final
+    residual norms."""
+    from knpemidg_tpu_torch import emix
+
+    sp = emix.solver_params()
+    r0 = (rhs - mv(c)).contiguous()
+    res = krylov.gmres_batched(mv, r0, torch.zeros_like(r0), pc, rtol=sp.rtol_knp,
+                               atol=sp.atol_knp, max_it=sp.max_it_knp,
+                               restart=sp.gmres_restart, b_ref=rhs)
+    torch.cuda.synchronize()
+    iters = torch.tensor(res.iters, dtype=torch.int64)
+    print(f"digest  k9_gmres     {layout} {str(dtype):14s} "
+          f"{digest([res.x, iters, res.resnorm])} (iterations {res.iters})")
 
 
 def ode_digests(S, mesh, st, layout, gen):

@@ -43,9 +43,10 @@ SOURCE_FLAGS = {f: ("-fmad=false",) for f in ("assemble_emi.cu", "assemble_knp.c
 # apart, and the two-level kernels their single EMI (K6) and batched KNP
 # (K7, "_batched") calls.  The assembly kernels (K10 emi_*, K11 alpha_sum and
 # knp_*, K14 membrane_trace and eliminated_concentration), the Krylov
-# kernels (K8 pcg_*, K9 gmres_*) serve both layouts; K13's one launch for
-# every tag counts as membrane_rl when a tag of it runs Rush-Larsen, else as
-# membrane_rk4; pgather / pgather2 are the gather probes P1 / P2
+# kernels (K8 pcg_*, K9 gmres_*: gmres_arnoldi is a whole Arnoldi step)
+# serve both layouts; K13's one launch for every tag counts as membrane_rl
+# when a tag of it runs Rush-Larsen, else as membrane_rk4; pgather /
+# pgather2 are the gather probes P1 / P2
 LAUNCHES = {"bell_matvec": 0, "block_jacobi_inverse": 0,
             "block_jacobi_apply": 0, "membrane_rk4": 0, "membrane_rl": 0,
             "pair_matvec": 0, "to_pair": 0, "from_pair": 0,
@@ -58,8 +59,7 @@ LAUNCHES = {"bell_matvec": 0, "block_jacobi_inverse": 0,
             "knp_emit_cell": 0, "membrane_trace": 0,
             "eliminated_concentration": 0,
             **{f"pcg_{e}": 0 for e in ("dot", "update", "dot2_direction")},
-            **{f"gmres_{e}": 0 for e in ("start", "cgs_dot", "cgs_update", "next",
-                                         "givens", "solve_update")},
+            **{f"gmres_{e}": 0 for e in ("start", "cgs_dot", "arnoldi", "solve_update")},
             "pgather": 0, "pgather2": 0}
 
 _P = ctypes.c_void_p
@@ -91,10 +91,9 @@ _SIGNATURES = {
     "knp_membrane_trace": (_P,) * 4 + (_D,) * 4 + (_I,) + (_P,) * 6 + (_I,) * 6 + (_P,),
     "knp_eliminated": (_P,) * 4 + (_I,) * 3 + (_D, _P),
     "knp_gmres_dot": (_P,) * 4 + (_I,) * 5 + (_P,),
-    "knp_gmres_update": (_P,) * 3 + (_I,) * 4 + (_P,),
-    "knp_gmres_next": (_P,) * 6 + (_I,) * 5 + (_P,),
     "knp_gmres_start": (_P,) * 11 + (_I,) * 4 + (_P,),
-    "knp_gmres_givens": (_P,) * 3 + (_I,) + (_P,) * 7 + (_I,) * 3 + (_P,),
+    "knp_gmres_arnoldi_grid": (_I,) * 3 + (_P,),
+    "knp_gmres_arnoldi": (_P,) * 13 + (_I,) * 7 + (_P,),
     "knp_gmres_solve_update": (_P,) * 6 + (_I,) * 3 + (_P,),
     "knp_pcg_dot": (_P,) * 5 + (_I,) * 2 + (_P,),
     "knp_pcg_update": (_P,) * 7 + (_I,) * 3 + (_P,),

@@ -9,36 +9,53 @@
 //
 // The basis is stored rows first, V (m+1, mb, n): V[(k mb + s) n + i], so
 // that row j of all systems is one contiguous (mb, n) slab the matvec takes
-// without a copy.  Per Arnoldi step j (rows 0..j populated):
+// without a copy.  Arnoldi step j (rows 0..j populated) is one cooperative
+// launch, gm_arnoldi_kernel, in four phases split by grid barriers:
 //
-//   dot       h[s,k] = sum_i V[k,s,i] w[s,i] for k <= j: per-block partials
-//             over chunks of the n axis, then a finish that sums them in
-//             index order (two launches);
-//   update    w[s,i] -= sum_{k<=j} h[s,k] V[k,s,i];
-//   next      hj1 = ||w||, V[j+1] = live ? (hj1 > 1e-300 ? w / hj1 : 0) : 0
-//             (norm partials, then every block sums them itself and scales
-//             its elements);
-//   givens    one thread per system on the (mb, m) scalars: h = h1 + h2,
-//             h[j+1] = hj1, the j stored rotations replayed, the new one,
-//             the freeze of systems that are no longer live, ks += live and
-//             the flag any |g[:, j+1]| > tol the host loop reads.
+//   1. w staged in shared memory (cp.async), the dot partials of rows 0..j;
+//   2. h1 = the partials summed, w -= sum_k h1[k] V[k], the second dot's
+//      partials;
+//   3. h2, w -= sum_k h2[k] V[k], the norm partials of w;
+//   4. hj1 = ||w||, V[j+1] = live ? (hj1 > 1e-300 ? w / hj1 : 0) : 0, and in
+//      block 0 the scalar work, one thread per system: h = h1 + h2,
+//      h[j+1] = hj1, the j stored rotations replayed, the new one, the
+//      freeze of systems that are no longer live, ks += live and the flag
+//      any |g[:, j+1]| > tol the host loop reads;
 //
 // and at the cycle's ends start (beta = ||r||, V[0] = r / beta, the scalars
 // zeroed, the flag any beta > tol) and solve_update (back substitution of
-// R[:ks, :ks] y = g[:ks] per system, then x += sum_{k<ks} y_k V[k]).
+// R[:ks, :ks] y = g[:ks] per system, then x += sum_{k<ks} y_k V[k]).  The
+// dot kernels also give the solve's tolerance (||M^-1 b|| per system).
 //
 // Bound: device-memory bandwidth.  The whole-basis einsums read all m+1 = 31
 // rows of V four times a step whatever j is (0.99 GB in float64 at the cell
-// layout's n = 497,664, mb = 2); these kernels read only the j+1 populated
-// rows, about (4(j+1) + 6) vectors of mb n values a step.  No kernel reads
+// layout's n = 497,664, mb = 2); a step must read the j+1 populated rows and
+// w once and write V[j+1] once.  The step kernel reads the rows four times
+// (the two dots and the two updates; the dots from the last row to the
+// first, so that each pass starts on the rows the one before read last,
+// still in the 50 MB L2 or in L1) and w once: each block keeps its chunks
+// of w in shared memory through the four phases and never writes w back.  Where the blocks' chunks do not fit in shared memory beside the
+// co-resident limit (meshes several times chip_smoke.py's), the same kernel
+// reads and updates w in device memory, with the same bits.  No kernel reads
 // a row it has not written, so V needs no zeroing.  Every sum is a
-// fixed-order reduction (block trees, then the blocks in index order): no
+// fixed-order reduction (block trees, then the blocks in index order, the
+// finishing block's order replayed by one warp after a grid barrier): no
 // floating-point atomics, so results and Krylov counts repeat from call to
-// call.  The source compiles with -fmad=false: the Givens arithmetic and the
-// elementwise updates round as the plain versions do.
+// call, and the step's outputs are bitwise those of the earlier nine
+// launches a step.  The source compiles with -fmad=false: the Givens
+// arithmetic and the elementwise updates round as the plain versions do.
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
 #include "common.cuh"
 
 #define GM_MAX_ROWS 64   // restart + 1 at most
+#define GM_MAX_SYS 32    // systems in one batch at most
+// entries a thread of the step kernel takes in a chunk; a chunk is one
+// reduction block's share (RED_CHUNK = 2048 of ops/krylov_ops.py)
+#define GM_PER 8
+#define GM_CHUNK (GM_PER * KNP_THREADS)
 
 // partial[(s rows + k) nblk + b] = sum over chunk b of V[k,s,:] . w[s,:]
 template <typename T>
@@ -70,35 +87,12 @@ __global__ void gm_dot_finish_kernel(const T* __restrict__ partial, T* __restric
   if (threadIdx.x == 0) out[(long long)s * ldo + k] = acc;
 }
 
-// w[s,i] -= sum_{k<rows} h[s,k] V[k,s,i]
+// beta[s] = ||r[s]|| (every block sums the partials itself, in index order;
+// block 0 of each system writes it) and V[0][s] = r[s] / (beta > 0 ? beta : 1)
 template <typename T>
-__global__ void gm_update_kernel(const T* __restrict__ V, T* __restrict__ w,
-                                 const T* __restrict__ h, int mb, long long n, int rows,
-                                 int ldh) {
-  __shared__ T hs[GM_MAX_ROWS];
-  const int s = blockIdx.y;
-  for (int k = threadIdx.x; k < rows; k += blockDim.x) hs[k] = h[(long long)s * ldh + k];
-  __syncthreads();
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long row = (long long)mb * n;
-  const T* v = V + (long long)s * n + i;
-  T acc = hs[0] * v[0];
-  for (int k = 1; k < rows; ++k) acc += hs[k] * v[k * row];
-  T* wi = w + (long long)s * n + i;
-  *wi = *wi - acc;
-}
-
-// The norm of w[s] (every block sums the partials itself, in index order)
-// and the scaled copy into vout[s] (a row slab of V):
-//   start:  vout = w / (nrm > 0 ? nrm : 1)
-//   next:   vout = live ? (nrm > 1e-300 ? w / nrm : 0) : 0, live = |g[s,j]| > tol[s]
-// Block 0 of each system writes nrm[s].
-template <typename T>
-__global__ void gm_scale_kernel(const T* __restrict__ w, T* __restrict__ vout,
+__global__ void gm_scale_kernel(const T* __restrict__ r, T* __restrict__ vout,
                                 const T* __restrict__ partial, int nblk, long long n,
-                                const T* __restrict__ g, const T* __restrict__ tol, int ldg,
-                                int j, T* __restrict__ nrm_out, int start) {
+                                T* __restrict__ nrm_out) {
   __shared__ T red[KNP_WARPS];
   const int s = blockIdx.y;
   T acc = T(0);
@@ -107,16 +101,8 @@ __global__ void gm_scale_kernel(const T* __restrict__ w, T* __restrict__ vout,
   if (blockIdx.x == 0 && threadIdx.x == 0) nrm_out[s] = nrm;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const T wi = w[(long long)s * n + i];
   const T safe = nrm > T(0) ? nrm : T(1);
-  T v;
-  if (start) {
-    v = wi / safe;
-  } else {
-    const bool live = fabs(g[(long long)s * ldg + j]) > tol[s];
-    v = (live && nrm > T(1e-300)) ? wi / safe : T(0);
-  }
-  vout[(long long)s * n + i] = v;
+  vout[(long long)s * n + i] = r[(long long)s * n + i] / safe;
 }
 
 // The cycle's scalars: R, cs, sn zero, g = beta e1, ks = 0, and the flag
@@ -137,61 +123,6 @@ __global__ void gm_init_kernel(const T* __restrict__ beta, const T* __restrict__
   if (threadIdx.x == 0) {
     int any = 0;
     for (int q = 0; q < mb; ++q) any |= beta[q] > tol[q];
-    *flag = any;
-  }
-}
-
-// One Arnoldi step's scalar work, one thread per system, in the operation
-// order of knpemidg_tpu/solvers/krylov.py:397-439
-template <typename T>
-__global__ void gm_givens_kernel(const T* __restrict__ h1, const T* __restrict__ h2,
-                                 const T* __restrict__ hj1, int ldh, T* __restrict__ R,
-                                 T* __restrict__ g, T* __restrict__ cs, T* __restrict__ sn,
-                                 int* __restrict__ ks, const T* __restrict__ tol,
-                                 int* __restrict__ flag, int mb, int m, int j) {
-  const int s = threadIdx.x;
-  const int M1 = m + 1;
-  if (s < mb) {
-    T h[GM_MAX_ROWS];
-    for (int k = 0; k <= j; ++k) h[k] = h1[(long long)s * ldh + k] + h2[(long long)s * ldh + k];
-    h[j + 1] = hj1[s];
-    for (int k = j + 2; k < M1; ++k) h[k] = T(0);
-    T* gs = g + (long long)s * M1;
-    T* css = cs + (long long)s * m;
-    T* sns = sn + (long long)s * m;
-    const T gj = gs[j];
-    const bool live = fabs(gj) > tol[s];
-    for (int i = 0; i < j; ++i) {                  // replay the stored rotations
-      const T c = css[i], sv = sns[i];
-      const T hi = c * h[i] + sv * h[i + 1];
-      const T hi1 = -sv * h[i] + c * h[i + 1];
-      h[i] = hi;
-      h[i + 1] = hi1;
-    }
-    const T hj = h[j], hjp = h[j + 1];
-    const T denom = sqrt(hj * hj + hjp * hjp);
-    const T dsafe = denom > T(0) ? denom : T(1);
-    T c_new = denom > T(0) ? hj / dsafe : T(1);
-    T s_new = denom > T(0) ? hjp / dsafe : T(0);
-    if (!live) {                                   // freeze: identity rotation
-      c_new = T(1);
-      s_new = T(0);
-    }
-    css[j] = c_new;
-    sns[j] = s_new;
-    h[j] = live ? denom : hj;
-    h[j + 1] = T(0);
-    gs[j + 1] = live ? -s_new * gj : T(0);
-    gs[j] = live ? c_new * gj : gj;
-    if (live) {
-      for (int k = 0; k < M1; ++k) R[((long long)s * M1 + k) * m + j] = h[k];
-      ks[s] += 1;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int any = 0;
-    for (int q = 0; q < mb; ++q) any |= fabs(g[(long long)q * M1 + j + 1]) > tol[q];
     *flag = any;
   }
 }
@@ -235,6 +166,383 @@ __global__ void gm_xupdate_kernel(const T* __restrict__ V, const T* __restrict__
 }
 
 // ---------------------------------------------------------------------------
+// the Arnoldi step
+// ---------------------------------------------------------------------------
+
+// One element of w into shared memory, an asynchronous copy of its 4 or 8
+// bytes (any alignment of its type); visible to the issuing thread after
+// cp.async.wait_all.  Each thread copies the elements it reads back, so no
+// block barrier stands between the copy and the use.
+template <typename T>
+__device__ __forceinline__ void gm_cp_async(T* dst, const T* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// The sum gm_dot_finish_kernel forms of p[0..nblk) -- thread t adds p[t],
+// p[t + 256], ... in order from zero, then knp_block_sum's tree -- replayed
+// by one warp: lane l plays thread 32 v + l of each of the eight warps v,
+// the eight butterflies (each leaves every lane the same sum) run side by
+// side, and the eight sums are added in index order.  Every lane gets the
+// sum.  All of a lane's first loads are issued before its first add.  The
+// partials were written by other blocks before a grid barrier: read
+// through L2.
+template <typename T>
+__device__ __forceinline__ T gm_finish_warp(const T* p, int nblk) {
+  const int lane = threadIdx.x & 31;
+  T acc[KNP_WARPS];
+#pragma unroll
+  for (int v = 0; v < KNP_WARPS; ++v) {
+    const int b = 32 * v + lane;
+    acc[v] = b < nblk ? __ldcg(p + b) : T(0);
+  }
+#pragma unroll
+  for (int v = 0; v < KNP_WARPS; ++v) acc[v] = T(0) + acc[v];   // the finish's first add
+  for (int b0 = KNP_THREADS; b0 < nblk; b0 += KNP_THREADS) {
+#pragma unroll
+    for (int v = 0; v < KNP_WARPS; ++v) {
+      const int b = b0 + 32 * v + lane;
+      if (b < nblk) acc[v] += __ldcg(p + b);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int v = 0; v < KNP_WARPS; ++v) acc[v] += __shfl_xor_sync(0xffffffffu, acc[v], o);
+  }
+  T tot = acc[0];
+#pragma unroll
+  for (int v = 1; v < KNP_WARPS; ++v) tot += acc[v];
+  return tot;
+}
+
+// out[k ostride] = the block's sum over its chunk (first entry lo) of
+// V[k,s,:] . w for k < rows, each as gm_dot_partial_kernel forms it: thread
+// t adds its products lo + t + 256 e in order from zero, then the warp's
+// shuffle tree and the eight warps in index order (knp_block_sum), the rows'
+// trees side by side with one block barrier.  Two rows at a time: a
+// thread's 16 loads are issued before its adds.  The rows are read from
+// the last to the first, so the rows an update has just read in order are
+// read first, while they are still in L1 / L2 (each row's sum is its own:
+// the order of the rows changes no bit).  wv holds the thread's entries of
+// w.  red holds rows x KNP_WARPS values.
+template <typename T>
+__device__ __forceinline__ void gm_dot_rows(const T* V, const T (&wv)[GM_PER], int s, int mb,
+                                            long long n, long long lo, int rows, T* red, T* out,
+                                            long long ostride) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long i0 = lo + threadIdx.x;
+  const long long slab = (long long)mb * n;
+  const T* v = V + (long long)s * n + i0;
+  __syncthreads();                       // red is free
+  int k = rows - 1;
+  for (; k >= 1; k -= 2) {               // rows k and k - 1
+    const T* va = v + k * slab;
+    const T* vb = va - slab;
+    T xa[GM_PER], xb[GM_PER];
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e) {
+      const bool in = i0 + e * KNP_THREADS < n;
+      xa[e] = in ? va[e * KNP_THREADS] : T(0);
+      xb[e] = in ? vb[e * KNP_THREADS] : T(0);
+    }
+    T a = T(0), b = T(0);
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e) {
+      if (i0 + e * KNP_THREADS < n) {
+        a += xa[e] * wv[e];
+        b += xb[e] * wv[e];
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, o);
+      b += __shfl_xor_sync(0xffffffffu, b, o);
+    }
+    if (lane == 0) {
+      red[k * KNP_WARPS + warp] = a;
+      red[(k - 1) * KNP_WARPS + warp] = b;
+    }
+  }
+  if (k == 0) {
+    const T* va = v;
+    T xa[GM_PER];
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e) xa[e] = i0 + e * KNP_THREADS < n ? va[e * KNP_THREADS] : T(0);
+    T a = T(0);
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e)
+      if (i0 + e * KNP_THREADS < n) a += xa[e] * wv[e];
+    a = knp_warp_sum(a);
+    if (lane == 0) red[warp] = a;
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < rows; q += KNP_THREADS) {
+    T t = red[q * KNP_WARPS];
+    for (int r = 1; r < KNP_WARPS; ++r) t += red[q * KNP_WARPS + r];
+    out[q * ostride] = t;
+  }
+}
+
+// hs[(s - s_lo) m + k] = h[s, k], the sums of the partials of rows k < rows
+// for the block's systems s_lo..s_hi, one warp a value; the block holding
+// chunk 0 of system s (units u0..u1) also writes them to hout[s (m+1) + k].
+template <typename T>
+__device__ __forceinline__ void gm_finish_h(const T* part, T* hs, T* hout, int s_lo, int s_hi,
+                                            int rows, int m, int nblk, long long u0,
+                                            long long u1) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nq = (s_hi - s_lo + 1) * rows;
+  for (int q = warp; q < nq; q += KNP_WARPS) {
+    const int ss = q / rows, k = q % rows, s = s_lo + ss;
+    const T t = gm_finish_warp(part + ((long long)s * m + k) * nblk, nblk);
+    if (lane == 0) {
+      hs[ss * m + k] = t;
+      const long long first = (long long)s * nblk;
+      if (first >= u0 && first < u1) hout[(long long)s * (m + 1) + k] = t;
+    }
+  }
+  __syncthreads();
+}
+
+// a load, with the streaming (evict-first) hint where it is the last read
+template <typename T, bool LAST>
+__device__ __forceinline__ T gm_ld(const T* p) {
+  return LAST ? __ldcs(p) : *p;
+}
+
+// w -= sum_{k < rows} h[k] V[k] over the thread's entries of one chunk, in
+// the order of the earlier update kernel (acc = h[0] v[0]; acc += h[k] v[k];
+// w = w - acc), two rows' loads issued before their adds; LAST: the rows'
+// last pass of the step
+template <typename T, bool LAST>
+__device__ __forceinline__ void gm_update(const T* V, T (&wv)[GM_PER], const T* h, long long slab,
+                                          long long i0, long long n, int rows) {
+  T acc[GM_PER];
+  const T* v = V + i0;
+  const T h0 = h[0];
+#pragma unroll
+  for (int e = 0; e < GM_PER; ++e) {
+    const T ve = i0 + e * KNP_THREADS < n ? gm_ld<T, LAST>(v + e * KNP_THREADS) : T(0);
+    acc[e] = h0 * ve;
+  }
+  int k = 1;
+  for (; k + 1 < rows; k += 2) {
+    const T* va = v + k * slab;
+    const T* vb = va + slab;
+    const T ha = h[k], hb = h[k + 1];
+    T xa[GM_PER], xb[GM_PER];
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e) {
+      const bool in = i0 + e * KNP_THREADS < n;
+      xa[e] = in ? gm_ld<T, LAST>(va + e * KNP_THREADS) : T(0);
+      xb[e] = in ? gm_ld<T, LAST>(vb + e * KNP_THREADS) : T(0);
+    }
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e) {
+      acc[e] += ha * xa[e];
+      acc[e] += hb * xb[e];
+    }
+  }
+  if (k < rows) {
+    const T* va = v + k * slab;
+    const T ha = h[k];
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e)
+      if (i0 + e * KNP_THREADS < n) acc[e] += ha * gm_ld<T, LAST>(va + e * KNP_THREADS);
+  }
+#pragma unroll
+  for (int e = 0; e < GM_PER; ++e) wv[e] = i0 + e * KNP_THREADS < n ? wv[e] - acc[e] : T(0);
+}
+
+// One system's scalar work of step j, in the operation order of
+// knpemidg_tpu/solvers/krylov.py:397-439 (h1 and h2 written by other blocks
+// before a grid barrier: read through L2)
+template <typename T>
+__device__ void gm_givens(int s, const T* h1, const T* h2, T hj1, int ldh, T* R, T* g, T* cs,
+                          T* sn, int* ks, const T* tol, int m, int j) {
+  const int M1 = m + 1;
+  T h[GM_MAX_ROWS];
+  for (int k = 0; k <= j; ++k)
+    h[k] = __ldcg(h1 + (long long)s * ldh + k) + __ldcg(h2 + (long long)s * ldh + k);
+  h[j + 1] = hj1;
+  for (int k = j + 2; k < M1; ++k) h[k] = T(0);
+  T* gs = g + (long long)s * M1;
+  T* css = cs + (long long)s * m;
+  T* sns = sn + (long long)s * m;
+  const T gj = gs[j];
+  const bool live = fabs(gj) > tol[s];
+  for (int i = 0; i < j; ++i) {                  // replay the stored rotations
+    const T c = css[i], sv = sns[i];
+    const T hi = c * h[i] + sv * h[i + 1];
+    const T hi1 = -sv * h[i] + c * h[i + 1];
+    h[i] = hi;
+    h[i + 1] = hi1;
+  }
+  const T hj = h[j], hjp = h[j + 1];
+  const T denom = sqrt(hj * hj + hjp * hjp);
+  const T dsafe = denom > T(0) ? denom : T(1);
+  T c_new = denom > T(0) ? hj / dsafe : T(1);
+  T s_new = denom > T(0) ? hjp / dsafe : T(0);
+  if (!live) {                                   // freeze: identity rotation
+    c_new = T(1);
+    s_new = T(0);
+  }
+  css[j] = c_new;
+  sns[j] = s_new;
+  h[j] = live ? denom : hj;
+  h[j + 1] = T(0);
+  gs[j + 1] = live ? -s_new * gj : T(0);
+  gs[j] = live ? c_new * gj : gj;
+  if (live) {
+    for (int k = 0; k < M1; ++k) R[((long long)s * M1 + k) * m + j] = h[k];
+    ks[s] += 1;
+  }
+}
+
+// Arnoldi step j of the batch, one cooperative launch of at most the
+// co-resident blocks.  The work is mb nblk units, unit u = chunk u % nblk
+// (GM_CHUNK entries) of system u / nblk; block q takes units q upb ..
+// q upb + upb - 1, so it spans systems s_lo..s_hi (one or two, unless the
+// chunks are few).  ``staged``: the block's chunks of w live in the dynamic
+// shared memory (upb GM_CHUNK values) and w is only read; else w is read
+// and updated in place.  The partials: part[0..) the first dot, part[mb m
+// nblk..) the second, part[2 mb m nblk..) the norm, each (s m + k) nblk + b.
+template <typename T>
+__global__ void __launch_bounds__(KNP_THREADS)
+    gm_arnoldi_kernel(T* V, T* w, T* part, T* h1, T* h2, T* hj1, const T* __restrict__ tol,
+                      T* R, T* g, T* cs, T* sn, int* ks, int* flag, int mb, long long n, int m,
+                      int j, int nblk, int upb, int staged) {
+  extern __shared__ __align__(16) unsigned char gm_dyn[];
+  __shared__ T red[GM_MAX_ROWS * KNP_WARPS];
+  __shared__ T hjs[GM_MAX_SYS];
+  __shared__ int lives[GM_MAX_SYS];
+  T* wst = reinterpret_cast<T*>(gm_dyn);
+  T* hs = wst + (staged ? (long long)upb * GM_CHUNK : 0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rows = j + 1, M1 = m + 1;
+  const long long slab = (long long)mb * n;
+  const long long units = (long long)mb * nblk;
+  const long long u0 = (long long)blockIdx.x * upb;
+  const long long u1 = u0 + upb < units ? u0 + upb : units;
+  const int s_lo = (int)(u0 / nblk), s_hi = (int)((u1 - 1) / nblk);
+  T* const P1 = part;
+  T* const P2 = part + (long long)mb * m * nblk;
+  T* const P3 = part + 2LL * mb * m * nblk;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  // the thread's first entry of unit u's chunk of w: staged, or in place
+  auto wl = [&](long long u) -> T* {
+    return staged ? wst + (u - u0) * GM_CHUNK + tid
+                  : w + (u / nblk) * n + (u % nblk) * GM_CHUNK + tid;
+  };
+
+  if (staged) {
+    for (long long u = u0; u < u1; ++u) {
+      const long long i0 = (u % nblk) * GM_CHUNK + tid;
+      const T* src = w + (u / nblk) * n + i0;
+      T* dst = wl(u);
+#pragma unroll
+      for (int e = 0; e < GM_PER; ++e)
+        if (i0 + e * KNP_THREADS < n) gm_cp_async(dst + e * KNP_THREADS, src + e * KNP_THREADS);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  // the live test of the scale, read before block 0 rewrites g
+  for (int s = tid; s < mb; s += KNP_THREADS) lives[s] = fabs(g[(long long)s * M1 + j]) > tol[s];
+  if (staged) asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  // 1. the first dot's partials
+  for (long long u = u0; u < u1; ++u) {
+    const int s = (int)(u / nblk), b = (int)(u % nblk);
+    const long long lo = (long long)b * GM_CHUNK;
+    const T* wp = wl(u);
+    T wv[GM_PER];
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e) wv[e] = lo + tid + e * KNP_THREADS < n ? wp[e * KNP_THREADS] : T(0);
+    gm_dot_rows(V, wv, s, mb, n, lo, rows, red, P1 + (long long)s * m * nblk + b, nblk);
+  }
+  grid.sync();
+
+  // 2. h1; w -= h1 V; the second dot's partials
+  gm_finish_h(P1, hs, h1, s_lo, s_hi, rows, m, nblk, u0, u1);
+  for (long long u = u0; u < u1; ++u) {
+    const int s = (int)(u / nblk), b = (int)(u % nblk);
+    const long long lo = (long long)b * GM_CHUNK;
+    T* wp = wl(u);
+    T wv[GM_PER];
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e) wv[e] = lo + tid + e * KNP_THREADS < n ? wp[e * KNP_THREADS] : T(0);
+    gm_update<T, false>(V + (long long)s * n, wv, hs + (s - s_lo) * m, slab, lo + tid, n, rows);
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e)
+      if (lo + tid + e * KNP_THREADS < n) wp[e * KNP_THREADS] = wv[e];
+    gm_dot_rows(V, wv, s, mb, n, lo, rows, red, P2 + (long long)s * m * nblk + b, nblk);
+  }
+  grid.sync();
+
+  // 3. h2; w -= h2 V; the norm partials
+  gm_finish_h(P2, hs, h2, s_lo, s_hi, rows, m, nblk, u0, u1);
+  for (long long u = u0; u < u1; ++u) {
+    const int s = (int)(u / nblk), b = (int)(u % nblk);
+    const long long lo = (long long)b * GM_CHUNK;
+    T* wp = wl(u);
+    T wv[GM_PER];
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e) wv[e] = lo + tid + e * KNP_THREADS < n ? wp[e * KNP_THREADS] : T(0);
+    gm_update<T, true>(V + (long long)s * n, wv, hs + (s - s_lo) * m, slab, lo + tid, n, rows);
+    T acc = T(0);
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e) {
+      if (lo + tid + e * KNP_THREADS < n) {
+        wp[e * KNP_THREADS] = wv[e];
+        acc += wv[e] * wv[e];
+      }
+    }
+    acc = knp_block_sum(acc, red);
+    if (tid == 0) P3[(long long)s * nblk + b] = acc;
+  }
+  grid.sync();
+
+  // 4. hj1 (block 0: of every system), block 0's scalar work first (the
+  //    other blocks meanwhile write their rows), then V[j+1]
+  const int sa = blockIdx.x == 0 ? 0 : s_lo, sb = blockIdx.x == 0 ? mb - 1 : s_hi;
+  for (int s = sa + warp; s <= sb; s += KNP_WARPS) {
+    const T t = sqrt(gm_finish_warp(P3 + (long long)s * nblk, nblk));
+    if (lane == 0) hjs[s] = t;
+  }
+  __syncthreads();
+  if (blockIdx.x == 0) {
+    if (tid < mb) {
+      hj1[tid] = hjs[tid];
+      gm_givens(tid, h1, h2, hjs[tid], M1, R, g, cs, sn, ks, tol, m, j);
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int any = 0;
+      for (int q = 0; q < mb; ++q) any |= fabs(g[(long long)q * M1 + j + 1]) > tol[q];
+      *flag = any;
+    }
+  }
+  T* vnext = V + (long long)(j + 1) * slab;
+  for (long long u = u0; u < u1; ++u) {
+    const int s = (int)(u / nblk), b = (int)(u % nblk);
+    const long long i0 = (long long)b * GM_CHUNK + tid;
+    const T* wp = wl(u);
+    const T nrm = hjs[s];
+    const T safe = nrm > T(0) ? nrm : T(1);
+    const bool keep = lives[s] && nrm > T(1e-300);
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e) {
+      const long long i = i0 + e * KNP_THREADS;
+      if (i < n) vnext[(long long)s * n + i] = keep ? wp[e * KNP_THREADS] / safe : T(0);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -253,52 +561,125 @@ static int gm_dot_launch(const T* V, const T* w, T* partial, T* out, int mb, int
 }
 
 template <typename T>
-static int gm_update_launch(const T* V, T* w, const T* h, int mb, int n, int rows, int ldh,
-                            void* stream) {
-  if (rows < 1 || rows > GM_MAX_ROWS || rows > ldh) return (int)cudaErrorInvalidValue;
-  gm_update_kernel<T><<<dim3(knp_blocks(n), mb), KNP_THREADS, 0, (cudaStream_t)stream>>>(
-      V, w, h, mb, n, rows, ldh);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-static int gm_norm_scale_launch(const T* w, T* vout, T* partial, int mb, int n,
-                                const T* g, const T* tol, int ldg, int j, T* nrm, int start,
-                                int chunk, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (chunk < 1) return (int)cudaErrorInvalidValue;
-  const int nblk = knp_chunks(n, chunk);
-  gm_dot_partial_kernel<T><<<dim3(nblk, 1, mb), KNP_THREADS, 0, st>>>(w, w, partial, mb, n, 1,
-                                                                     chunk);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  gm_scale_kernel<T><<<dim3(knp_blocks(n), mb), KNP_THREADS, 0, st>>>(
-      w, vout, partial, nblk, n, g, tol, ldg, j, nrm, start);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 static int gm_start_launch(const T* r, T* V, T* partial, T* beta, const T* tol, T* R, T* g,
                            T* cs, T* sn, int* ks, int* flag, int mb, int n, int m, int chunk,
                            void* stream) {
-  if (m < 1 || m + 1 > GM_MAX_ROWS) return (int)cudaErrorInvalidValue;
-  int err = gm_norm_scale_launch<T>(r, V, partial, mb, n, nullptr, nullptr, 0, 0, beta, 1,
-                                    chunk, stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (m < 1 || m + 1 > GM_MAX_ROWS || chunk < 1) return (int)cudaErrorInvalidValue;
+  const int nblk = knp_chunks(n, chunk);
+  gm_dot_partial_kernel<T><<<dim3(nblk, 1, mb), KNP_THREADS, 0, st>>>(r, r, partial, mb, n, 1,
+                                                                     chunk);
+  int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  gm_init_kernel<T><<<1, KNP_THREADS, 0, (cudaStream_t)stream>>>(beta, tol, R, g, cs, sn, ks,
-                                                                flag, mb, m);
+  gm_scale_kernel<T><<<dim3(knp_blocks(n), mb), KNP_THREADS, 0, st>>>(r, V, partial, nblk, n,
+                                                                     beta);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  gm_init_kernel<T><<<1, KNP_THREADS, 0, st>>>(beta, tol, R, g, cs, sn, ks, flag, mb, m);
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory of a step block taking upb units: the staged chunks
+// of w and the h values of the systems it spans
 template <typename T>
-static int gm_givens_launch(const T* h1, const T* h2, const T* hj1, int ldh, T* R, T* g, T* cs,
-                            T* sn, int* ks, const T* tol, int* flag, int mb, int m, int j,
-                            void* stream) {
-  if (mb > 32 || m + 1 > GM_MAX_ROWS || j < 0 || j >= m || ldh < j + 1)
+static long long gm_arnoldi_smem(int mb, int nblk, int m, long long upb, int staged) {
+  const long long nsys = std::min<long long>(mb, (upb - 1) / nblk + 2);
+  return ((staged ? upb * GM_CHUNK : 0) + nsys * m) * (long long)sizeof(T);
+}
+
+// The step's launch shape for mb systems of n entries at restart m on the
+// current device, once per work: out = {grid, upb, staged}.  The
+// fewest units per block whose grid fits the co-resident limit with the
+// block's chunks of w in shared memory (the kernel's limit raised to that
+// size if needed, never lowered: it is the kernel's, shared by every work);
+// if none fits in a block's 227 KB, the re-read layout (w in device memory)
+// on at most the co-resident blocks.  A refused attribute or query clears
+// the runtime's last error, or the next launch of any kernel would report it.
+template <typename T>
+static int gm_arnoldi_grid(int mb, int n, int m, int* out) {
+  if (mb < 1 || mb > GM_MAX_SYS || n < 1 || m < 1 || m + 1 > GM_MAX_ROWS)
     return (int)cudaErrorInvalidValue;
-  gm_givens_kernel<T><<<1, 32, 0, (cudaStream_t)stream>>>(h1, h2, hj1, ldh, R, g, cs, sn, ks,
-                                                          tol, flag, mb, m, j);
-  return (int)cudaGetLastError();
+  const void* fn = (const void*)gm_arnoldi_kernel<T>;
+  int dev = 0, sms = 0, coop = 0, optin = 0, per_sm = 0;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  if (!coop) return (int)cudaErrorNotSupported;
+  const int nblk = knp_chunks(n, GM_CHUNK);
+  const long long units = (long long)mb * nblk;
+  for (long long upb = 1; upb <= units; ++upb) {
+    const long long smem = gm_arnoldi_smem<T>(mb, nblk, m, upb, 1);
+    if (smem + (long long)attr.sharedSizeBytes > optin) break;
+    if (attr.maxDynamicSharedSizeBytes < smem) {
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) {
+        cudaGetLastError();
+        return (int)e;
+      }
+      attr.maxDynamicSharedSizeBytes = (int)smem;
+    }
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, KNP_THREADS, (size_t)smem);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return (int)e;
+    }
+    const long long grid = (units + upb - 1) / upb;
+    if (per_sm >= 1 && grid <= (long long)per_sm * sms) {
+      out[0] = (int)grid;
+      out[1] = (int)upb;
+      out[2] = 1;
+      return 0;
+    }
+  }
+  const long long smem = gm_arnoldi_smem<T>(mb, nblk, m, units, 0);   // every system's h
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, KNP_THREADS, (size_t)smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  if (per_sm < 1) return (int)cudaErrorNotSupported;
+  const long long most = std::min(units, (long long)per_sm * sms);
+  const long long upb = (units + most - 1) / most;
+  out[0] = (int)((units + upb - 1) / upb);
+  out[1] = (int)upb;
+  out[2] = 0;
+  return 0;
+}
+
+// One cooperative launch of step j on the shape from gm_arnoldi_grid; a
+// refused launch returns its error and leaves none behind
+template <typename T>
+static int gm_arnoldi_launch(T* V, T* w, T* part, T* h1, T* h2, T* hj1, const T* tol, T* R,
+                             T* g, T* cs, T* sn, int* ks, int* flag, int mb, int n, int m,
+                             int j, int grid, int upb, int staged, void* stream) {
+  if (mb < 1 || mb > GM_MAX_SYS || n < 1 || m < 1 || m + 1 > GM_MAX_ROWS || j < 0 || j >= m ||
+      grid < 1 || upb < 1)
+    return (int)cudaErrorInvalidValue;
+  int nblk = knp_chunks(n, GM_CHUNK);
+  const long long units = (long long)mb * nblk;
+  if ((long long)grid * upb < units || (long long)(grid - 1) * upb >= units)
+    return (int)cudaErrorInvalidValue;
+  const long long smem = gm_arnoldi_smem<T>(mb, nblk, m, upb, staged);
+  long long nn = n;
+  void* args[] = {(void*)&V,    (void*)&w,   (void*)&part, (void*)&h1,  (void*)&h2,
+                  (void*)&hj1,  (void*)&tol, (void*)&R,    (void*)&g,   (void*)&cs,
+                  (void*)&sn,   (void*)&ks,  (void*)&flag, (void*)&mb,  (void*)&nn,
+                  (void*)&m,    (void*)&j,   (void*)&nblk, (void*)&upb, (void*)&staged};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)gm_arnoldi_kernel<T>, dim3(grid), dim3(KNP_THREADS), args, (size_t)smem,
+      (cudaStream_t)stream);
+  // a refused launch also sets the runtime's last error: read it here, or
+  // the next launch of any kernel would report it
+  const cudaError_t last = cudaGetLastError();
+  return e != cudaSuccess ? (int)e : (int)last;
 }
 
 template <typename T>
@@ -318,27 +699,21 @@ static int gm_solve_update_launch(const T* R, const T* g, const int* ks, T* y, c
                                      int n, int rows, int ldo, int chunk, void* stream) {     \
     return gm_dot_launch<T>(V, w, partial, out, mb, n, rows, ldo, chunk, stream);            \
   }                                                                                           \
-  extern "C" int knp_gmres_update_##SFX(const T* V, T* w, const T* h, int mb, int n,         \
-                                        int rows, int ldh, void* stream) {                    \
-    return gm_update_launch<T>(V, w, h, mb, n, rows, ldh, stream);                           \
-  }                                                                                           \
-  extern "C" int knp_gmres_next_##SFX(const T* w, T* vnext, T* partial, const T* g,          \
-                                      const T* tol, T* hj1, int mb, int n, int ldg, int j,    \
-                                      int chunk, void* stream) {                              \
-    return gm_norm_scale_launch<T>(w, vnext, partial, mb, n, g, tol, ldg, j, hj1, 0, chunk,  \
-                                   stream);                                                   \
-  }                                                                                           \
   extern "C" int knp_gmres_start_##SFX(const T* r, T* V, T* partial, T* beta, const T* tol,  \
                                        T* R, T* g, T* cs, T* sn, int* ks, int* flag, int mb,  \
                                        int n, int m, int chunk, void* stream) {               \
     return gm_start_launch<T>(r, V, partial, beta, tol, R, g, cs, sn, ks, flag, mb, n, m,    \
                               chunk, stream);                                                 \
   }                                                                                           \
-  extern "C" int knp_gmres_givens_##SFX(const T* h1, const T* h2, const T* hj1, int ldh,     \
-                                        T* R, T* g, T* cs, T* sn, int* ks, const T* tol,      \
-                                        int* flag, int mb, int m, int j, void* stream) {      \
-    return gm_givens_launch<T>(h1, h2, hj1, ldh, R, g, cs, sn, ks, tol, flag, mb, m, j,      \
-                               stream);                                                       \
+  extern "C" int knp_gmres_arnoldi_grid_##SFX(int mb, int n, int m, int* out) {              \
+    return gm_arnoldi_grid<T>(mb, n, m, out);                                                 \
+  }                                                                                           \
+  extern "C" int knp_gmres_arnoldi_##SFX(T* V, T* w, T* part, T* h1, T* h2, T* hj1,          \
+                                         const T* tol, T* R, T* g, T* cs, T* sn, int* ks,     \
+                                         int* flag, int mb, int n, int m, int j, int grid,    \
+                                         int upb, int staged, void* stream) {                 \
+    return gm_arnoldi_launch<T>(V, w, part, h1, h2, hj1, tol, R, g, cs, sn, ks, flag, mb, n, \
+                                m, j, grid, upb, staged, stream);                            \
   }                                                                                           \
   extern "C" int knp_gmres_solve_update_##SFX(const T* R, const T* g, const int* ks, T* y,   \
                                               const T* V, T* x, int mb, int n, int m,         \

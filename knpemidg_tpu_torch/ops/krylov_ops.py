@@ -8,7 +8,12 @@ only the populated rows 0..j; no kernel reads a row it has not written, so
 :func:`gmres_work` allocates V with ``torch.empty`` on the card.  The plain
 versions (``*_plain``) keep the whole-basis einsums of the reference and a
 zeroed basis (:func:`gmres_start_plain` zeroes it every cycle), so the CPU
-tests hold the populated-rows kernels to the full-basis semantics.
+tests hold the populated-rows kernels to the full-basis semantics.  An
+Arnoldi step (CGS2, the next basis row and the Givens work) is one
+cooperative launch (:func:`gmres_arnoldi`); its entries work in the
+workspace and on the launch shape :func:`gmres_work` builds once per solve,
+so they allocate nothing and check only the vectors they are given, and
+:func:`gmres_arnoldi_ordered_plain` replays its summation order in torch.
 
 K8 keeps ``sc = [rz, zz, alpha, beta, tol^2, wsum]`` (:data:`RZ` ...) and
 an int32 flag (zz > tol^2) on the device; the host reads the flag once per
@@ -33,6 +38,7 @@ from .. import _cuda
 
 RED_CHUNK = 2048      # entries a reduction block of the kernels covers
 MAX_RESTART = 63      # csrc/gmres.cu GM_MAX_ROWS - 1
+MAX_SYSTEMS = 32      # csrc/gmres.cu GM_MAX_SYS: systems of a batch on the card
 RZ, ZZ, ALPHA, BETA, TOL2, WSUM = range(6)    # slots of the PCG scalars
 
 
@@ -45,8 +51,9 @@ def _nblk(n):
 # ---------------------------------------------------------------------------
 
 class GmresWork(NamedTuple):
-    """Basis and scalars of one batched GMRES solve (mb systems of n
-    entries, restart m), allocated once per solve."""
+    """Basis, scalars and reduction workspace of one batched GMRES solve (mb
+    systems of n entries, restart m), built once per solve by
+    :func:`gmres_work`."""
     V: torch.Tensor       # (m+1, mb, n) Krylov basis, rows first
     h1: torch.Tensor      # (mb, m+1) first CGS projection
     h2: torch.Tensor      # (mb, m+1) second CGS projection
@@ -60,6 +67,17 @@ class GmresWork(NamedTuple):
     ks: torch.Tensor      # (mb,) int32 steps of each system in the cycle
     y: torch.Tensor       # (mb, m) least-squares coefficients
     flag: torch.Tensor    # (1,) int32: some system is still above its tolerance
+    # the kernels' reduction partials, ((2m + 1) mb ceil(n / RED_CHUNK),):
+    # the Arnoldi step's first dot, second dot and norm; the start and the
+    # tolerance dot use the first part
+    partial: "torch.Tensor | None" = None
+    # the Arnoldi step's cooperative launch (on the card): its blocks, the
+    # RED_CHUNK-entry chunks a block takes, and 1 where the blocks keep their
+    # chunks of w in shared memory (0: w is read and updated in device
+    # memory)
+    grid: int = 0
+    upb: int = 0
+    staged: int = 0
 
     @property
     def m(self):
@@ -67,19 +85,32 @@ class GmresWork(NamedTuple):
 
 
 def gmres_work(mb: int, n: int, m: int, dtype, device) -> GmresWork:
-    """Buffers of a solve.  On the card V is left unwritten (the kernels
-    read only rows they wrote); on the CPU it is zeroed, as the plain
-    versions' whole-basis einsums need."""
+    """Buffers of a solve, with the kernels' partials.  On the card V is
+    left unwritten (the kernels read only rows they wrote) and the Arnoldi
+    step's launch shape is sized once (``knp_gmres_arnoldi_grid``, which
+    also raises the kernel's shared-memory limit where the shape needs
+    more than 48 KB); on the CPU V is zeroed, as the plain versions'
+    whole-basis einsums need.  The entries then allocate nothing and check
+    only the vectors they are given."""
     if m > MAX_RESTART:
         raise NotImplementedError(f"gmres: restart above {MAX_RESTART} is not supported")
     dev = torch.device(device)
+    if dev.type == "cuda" and mb > MAX_SYSTEMS:
+        raise NotImplementedError(f"gmres: more than {MAX_SYSTEMS} systems in one batch")
     new = torch.empty if dev.type == "cuda" else torch.zeros
     z = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
+    shape = (0, 0, 0)
+    if dev.type == "cuda":
+        out = (ctypes.c_int * 3)()
+        _cuda.call("knp_gmres_arnoldi_grid", dtype, mb, n, m, ctypes.addressof(out))
+        shape = tuple(out)
     return GmresWork(V=new((m + 1, mb, n), dtype=dtype, device=dev), h1=z(mb, m + 1),
                      h2=z(mb, m + 1), hj1=z(mb), beta=z(mb), tol=z(mb), R=z(mb, m + 1, m),
                      g=z(mb, m + 1), cs=z(mb, m), sn=z(mb, m),
                      ks=torch.zeros(mb, dtype=torch.int32, device=dev), y=z(mb, m),
-                     flag=torch.zeros(1, dtype=torch.int32, device=dev))
+                     flag=torch.zeros(1, dtype=torch.int32, device=dev),
+                     partial=torch.empty((2 * m + 1) * mb * _nblk(n), dtype=dtype, device=dev),
+                     grid=shape[0], upb=shape[1], staged=shape[2])
 
 
 def gmres_cgs_dot_plain(V, w, rows, out):
@@ -161,6 +192,58 @@ def gmres_givens_plain(wk: GmresWork, j):
     return wk
 
 
+def gmres_arnoldi_plain(w, wk: GmresWork, j):
+    """Arnoldi step j after w = A V[j]: CGS2 over the whole basis (h1, h2;
+    w orthogonalised in place), hj1 and V[j+1], then the scalar work --
+    the composition of the ``*_plain`` steps (knpemidg_tpu/solvers/
+    krylov.py:385-439); returns wk."""
+    rows = j + 1
+    gmres_cgs_dot_plain(wk.V, w, rows, wk.h1)
+    gmres_cgs_update_plain(wk.V, w, wk.h1, rows)
+    gmres_cgs_dot_plain(wk.V, w, rows, wk.h2)
+    gmres_cgs_update_plain(wk.V, w, wk.h2, rows)
+    gmres_next_plain(w, wk, j)
+    return gmres_givens_plain(wk, j)
+
+
+def gmres_arnoldi_ordered_plain(w, wk: GmresWork, j):
+    """:func:`gmres_arnoldi_plain` with the sums in the order of the step
+    kernel, to the last bit: each projection and the norm summed as the dot
+    kernels sum (:func:`_ordered_sums`) over the populated rows 0..j only,
+    each update h[0] V[0] + h[1] V[1] + ... left to right; the written
+    outputs are h1[:, :j+1], h2[:, :j+1], hj1, V[j+1] and the scalar work's
+    (:func:`gmres_givens_plain`).  w ends orthogonalised.  For the tests and
+    chip_smoke.py; the wrapper's CPU path keeps the einsums."""
+    rows = j + 1
+    mb, n = w.shape
+    Vr = wk.V[:rows]
+    Vs = Vr.transpose(0, 1).reshape(mb * rows, n)
+
+    def dots(v):
+        return _ordered_sums(Vs, v[:, None].expand(mb, rows, n).reshape(mb * rows, n)) \
+            .reshape(mb, rows)
+
+    def update(v, h):
+        acc = h[:, :1] * Vr[0]
+        for k in range(1, rows):
+            acc = acc + h[:, k:k + 1] * Vr[k]
+        return v - acc
+
+    h1 = dots(w)
+    w1 = update(w, h1)
+    h2 = dots(w1)
+    w2 = update(w1, h2)
+    hj1 = torch.sqrt(_ordered_sums(w2, w2))
+    wk.h1[:, :rows] = h1
+    wk.h2[:, :rows] = h2
+    wk.hj1.copy_(hj1)
+    keep = (torch.abs(wk.g[:, j]) > wk.tol) & (hj1 > 1e-300)
+    safe = torch.where(hj1 > 0, hj1, torch.ones_like(hj1))
+    wk.V[j + 1] = torch.where(keep[:, None], w2 / safe[:, None], torch.zeros_like(w2))
+    w.copy_(w2)
+    return gmres_givens_plain(wk, j)
+
+
 def gmres_solve_update_plain(wk: GmresWork, x):
     """y solves R[:ks, :ks] y = g[:ks] per system (zero beyond ks); then
     x += y^T V[:m] over the whole basis, in place."""
@@ -172,56 +255,41 @@ def gmres_solve_update_plain(wk: GmresWork, x):
     return x.add_(torch.einsum("sk,ksn->sn", wk.y, wk.V[:wk.m]))
 
 
-def _check_basis(V, w, rows):
+def _check_vec(wk: GmresWork, v):
+    """What may change between calls of a K9 entry: the vector against the
+    work (dtype, shape (mb, n), on the card, contiguous), one plain pass;
+    the work and its workspace were checked by gmres_work.  The slow path
+    names what is wrong."""
+    if not (wk.grid > 0 and v.is_cuda and v.dtype == wk.V.dtype
+            and v.shape == wk.V.shape[1:] and v.is_contiguous()):
+        if wk.grid <= 0 or wk.partial is None:
+            raise ValueError("gmres: the work has no card workspace; build it with gmres_work")
+        _cuda.check("vector", v, wk.V.dtype, wk.V.shape[1:])
+
+
+def gmres_cgs_dot(V, w, rows, out, wk: "GmresWork | None" = None):
+    """out[:, :rows] = V[:rows] . w per system, the basis V (R, mb, n)
+    populated in its first ``rows`` rows (the dot kernels on a CUDA tensor,
+    their partials in the workspace of ``wk``, a work of the same mb and n
+    from :func:`gmres_work`); returns out."""
+    if not V.is_cuda:
+        return gmres_cgs_dot_plain(V, w, rows, out)
     _cuda.check("V", V)
     _cuda.check("w", w, V.dtype, V.shape[1:])
     if not 1 <= rows <= V.shape[0]:
         raise ValueError(f"gmres: {rows} populated rows of a {V.shape[0]}-row basis")
-
-
-def gmres_cgs_dot(V, w, rows, out):
-    """out[:, :rows] = V[:rows] . w per system, the basis V (R, mb, n)
-    populated in its first ``rows`` rows (the dot kernels on a CUDA
-    tensor); returns out."""
-    if not V.is_cuda:
-        return gmres_cgs_dot_plain(V, w, rows, out)
-    _check_basis(V, w, rows)
     _, mb, n = V.shape
     _cuda.check("out", out, V.dtype)
     if out.dim() != 2 or out.shape[0] != mb or out.shape[1] < rows:
         raise ValueError("gmres_cgs_dot: out must be (mb, >= rows)")
-    partial = torch.empty(mb * rows * _nblk(n), dtype=V.dtype, device=V.device)
+    if wk is None or wk.partial is None or wk.grid <= 0:
+        raise ValueError("gmres_cgs_dot: needs the workspace of a work from gmres_work")
+    if wk.partial.dtype != V.dtype or wk.partial.numel() < mb * rows * _nblk(n):
+        raise ValueError(f"gmres_cgs_dot: the work's partials do not hold {rows} rows of "
+                         f"{mb} x {n} entries")
     _cuda.launch("gmres_cgs_dot", "knp_gmres_dot", V.dtype, V.data_ptr(), w.data_ptr(),
-                 partial.data_ptr(), out.data_ptr(), mb, n, rows, out.shape[1], RED_CHUNK)
+                 wk.partial.data_ptr(), out.data_ptr(), mb, n, rows, out.shape[1], RED_CHUNK)
     return out
-
-
-def gmres_cgs_update(V, w, h, rows):
-    """w -= sum_{k < rows} h[:, k] V[k], in place (the update kernel on a
-    CUDA tensor); returns w."""
-    if not V.is_cuda:
-        return gmres_cgs_update_plain(V, w, h, rows)
-    _check_basis(V, w, rows)
-    _, mb, n = V.shape
-    _cuda.check("h", h, V.dtype)
-    if h.dim() != 2 or h.shape[0] != mb or h.shape[1] < rows:
-        raise ValueError("gmres_cgs_update: h must be (mb, >= rows)")
-    _cuda.launch("gmres_cgs_update", "knp_gmres_update", V.dtype, V.data_ptr(),
-                 w.data_ptr(), h.data_ptr(), mb, n, rows, h.shape[1])
-    return w
-
-
-def _check_work(wk: GmresWork, mb, n, dtype):
-    m = wk.m
-    _cuda.check("V", wk.V, dtype, (m + 1, mb, n))
-    for name, shape in (("h1", (mb, m + 1)), ("h2", (mb, m + 1)), ("hj1", (mb,)),
-                        ("beta", (mb,)), ("tol", (mb,)), ("R", (mb, m + 1, m)),
-                        ("g", (mb, m + 1)), ("cs", (mb, m)), ("sn", (mb, m)), ("y", (mb, m))):
-        _cuda.check(name, getattr(wk, name), dtype, shape)
-    _cuda.check("ks", wk.ks, torch.int32, (mb,))
-    _cuda.check("flag", wk.flag, torch.int32, (1,))
-    if mb > 32:
-        raise NotImplementedError("gmres: more than 32 systems in one batch")
 
 
 def gmres_start(r, wk: GmresWork):
@@ -230,47 +298,32 @@ def gmres_start(r, wk: GmresWork):
     tensor); returns wk."""
     if not r.is_cuda:
         return gmres_start_plain(r, wk)
+    _check_vec(wk, r)
     mb, n = r.shape
-    _cuda.check("r", r)
-    _check_work(wk, mb, n, r.dtype)
-    partial = torch.empty(mb * _nblk(n), dtype=r.dtype, device=r.device)
     _cuda.launch("gmres_start", "knp_gmres_start", r.dtype, r.data_ptr(), wk.V.data_ptr(),
-                 partial.data_ptr(), wk.beta.data_ptr(), wk.tol.data_ptr(), wk.R.data_ptr(),
+                 wk.partial.data_ptr(), wk.beta.data_ptr(), wk.tol.data_ptr(), wk.R.data_ptr(),
                  wk.g.data_ptr(), wk.cs.data_ptr(), wk.sn.data_ptr(), wk.ks.data_ptr(),
                  wk.flag.data_ptr(), mb, n, wk.m, RED_CHUNK)
     return wk
 
 
-def gmres_next(w, wk: GmresWork, j):
-    """hj1 = ||w|| and V[j+1] (the norm and scale kernels on a CUDA
-    tensor); returns wk."""
+def gmres_arnoldi(w, wk: GmresWork, j):
+    """Arnoldi step j after w = A V[j] (mb, n): h1, h2, hj1, V[j+1], the
+    rotations, the freeze, ks and the flag into wk (one cooperative kernel
+    launch on a CUDA tensor; its outputs bitwise those of
+    :func:`gmres_arnoldi_ordered_plain`).  On the card w is consumed: its
+    contents afterwards are unspecified.  Returns wk."""
     if not w.is_cuda:
-        return gmres_next_plain(w, wk, j)
+        return gmres_arnoldi_plain(w, wk, j)
+    _check_vec(wk, w)
+    if not 0 <= j < wk.m:
+        raise ValueError(f"gmres_arnoldi: step {j} outside the restart {wk.m}")
     mb, n = w.shape
-    _cuda.check("w", w)
-    _check_work(wk, mb, n, w.dtype)
-    if not 0 <= j < wk.m:
-        raise ValueError(f"gmres_next: step {j} outside the restart {wk.m}")
-    partial = torch.empty(mb * _nblk(n), dtype=w.dtype, device=w.device)
-    _cuda.launch("gmres_next", "knp_gmres_next", w.dtype, w.data_ptr(), wk.V[j + 1].data_ptr(),
-                 partial.data_ptr(), wk.g.data_ptr(), wk.tol.data_ptr(), wk.hj1.data_ptr(),
-                 mb, n, wk.m + 1, j, RED_CHUNK)
-    return wk
-
-
-def gmres_givens(wk: GmresWork, j):
-    """One Arnoldi step's scalar work on the device (the Givens kernel on
-    CUDA tensors); returns wk."""
-    if not wk.g.is_cuda:
-        return gmres_givens_plain(wk, j)
-    _, mb, n = wk.V.shape
-    _check_work(wk, mb, n, wk.g.dtype)
-    if not 0 <= j < wk.m:
-        raise ValueError(f"gmres_givens: step {j} outside the restart {wk.m}")
-    _cuda.launch("gmres_givens", "knp_gmres_givens", wk.g.dtype, wk.h1.data_ptr(),
-                 wk.h2.data_ptr(), wk.hj1.data_ptr(), wk.m + 1, wk.R.data_ptr(),
-                 wk.g.data_ptr(), wk.cs.data_ptr(), wk.sn.data_ptr(), wk.ks.data_ptr(),
-                 wk.tol.data_ptr(), wk.flag.data_ptr(), mb, wk.m, j)
+    _cuda.launch("gmres_arnoldi", "knp_gmres_arnoldi", w.dtype, wk.V.data_ptr(), w.data_ptr(),
+                 wk.partial.data_ptr(), wk.h1.data_ptr(), wk.h2.data_ptr(), wk.hj1.data_ptr(),
+                 wk.tol.data_ptr(), wk.R.data_ptr(), wk.g.data_ptr(), wk.cs.data_ptr(),
+                 wk.sn.data_ptr(), wk.ks.data_ptr(), wk.flag.data_ptr(), mb, n, wk.m, j,
+                 wk.grid, wk.upb, wk.staged)
     return wk
 
 
@@ -279,9 +332,8 @@ def gmres_solve_update(wk: GmresWork, x):
     and update kernels on a CUDA tensor); returns x."""
     if not x.is_cuda:
         return gmres_solve_update_plain(wk, x)
+    _check_vec(wk, x)
     mb, n = x.shape
-    _cuda.check("x", x)
-    _check_work(wk, mb, n, x.dtype)
     _cuda.launch("gmres_solve_update", "knp_gmres_solve_update", x.dtype, wk.R.data_ptr(),
                  wk.g.data_ptr(), wk.ks.data_ptr(), wk.y.data_ptr(), wk.V.data_ptr(),
                  x.data_ptr(), mb, n, wk.m)
@@ -401,22 +453,26 @@ def _thread_sums(v, rows):
     return acc
 
 
+def _ordered_sums(a, b):
+    """sum_i a[r, i] b[r, i] for each row r of a, b (R, n), in the order of
+    the dot kernels, to the last bit: RED_CHUNK-entry chunks, thread t of a
+    chunk's block adding its products t + 256 k in order, the block tree,
+    then the chunk sums the same way in one block.  Returns (R,)."""
+    rows, n = a.shape
+    nblk = _nblk(n)
+    prod = torch.zeros((rows, nblk * RED_CHUNK), dtype=a.dtype, device=a.device)
+    prod[:, :n] = a * b
+    part = torch.zeros((rows, -(-nblk // 256) * 256), dtype=a.dtype, device=a.device)
+    part[:, :nblk] = _block_sums(_thread_sums(prod, rows * nblk)).reshape(rows, nblk)
+    return _block_sums(_thread_sums(part, rows))
+
+
 def pcg_dots_ordered_plain(a, b, c=None, d=None):
     """a . b (and c . d) summed in the order of the dot kernels, to the last
-    bit: RED_CHUNK-entry chunks, thread t of a chunk's block adding its
-    products t + 256 k in order, the block tree, then the chunk sums the
-    same way in one block.  Returns a (1,) or (2,) tensor.  For the tests
-    and chip_smoke.py; the wrappers' CPU path keeps torch.dot."""
-    n = a.numel()
-    nblk = _nblk(n)
-    sums = []
-    for u, v in [(a, b)] + ([] if c is None else [(c, d)]):
-        prod = torch.zeros(nblk * RED_CHUNK, dtype=u.dtype, device=u.device)
-        prod[:n] = u.reshape(-1) * v.reshape(-1)
-        part = torch.zeros(-(-nblk // 256) * 256, dtype=u.dtype, device=u.device)
-        part[:nblk] = _block_sums(_thread_sums(prod, nblk))
-        sums.append(_block_sums(_thread_sums(part, 1)))
-    return torch.cat(sums)
+    bit (:func:`_ordered_sums`).  Returns a (1,) or (2,) tensor.  For the
+    tests and chip_smoke.py; the wrappers' CPU path keeps torch.dot."""
+    return torch.cat([_ordered_sums(u.reshape(1, -1), v.reshape(1, -1))
+                      for u, v in [(a, b)] + ([] if c is None else [(c, d)])])
 
 
 def _check_vecs(wk: PcgWork, *vecs):

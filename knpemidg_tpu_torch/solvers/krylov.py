@@ -8,7 +8,8 @@ the EMI system weights the small membrane-jump modes by 1/lambda.
 The JAX ``lax.while_loop``s become Python loops around the vector and
 scalar work of ``ops/krylov_ops.py`` (kernels K8 and K9 on the card), which
 keeps the loops' scalars on the device: per PCG iteration or Arnoldi step
-the host reads one convergence flag and copies nothing else across.
+the host reads one convergence flag and copies nothing else across.  An
+Arnoldi step after the matvec is one call (one kernel launch on the card).
 """
 from __future__ import annotations
 
@@ -135,7 +136,7 @@ def gmres_batched(
     wk = ko.gmres_work(mb, n, m, b.dtype, b.device)
     bz = precond((bv if b_ref is None else b_ref.reshape(mb, n))
                  .reshape(shape)).reshape(mb, n).contiguous()
-    ko.gmres_cgs_dot(bz[None], bz, 1, wk.h1)
+    ko.gmres_cgs_dot(bz[None], bz, 1, wk.h1, wk)
     wk.tol.copy_(torch.clamp(rtol * torch.sqrt(wk.h1[:, 0]), min=atol))
     max_cycles = -(-max_it // restart)
 
@@ -150,14 +151,10 @@ def gmres_batched(
         j = 0
         while True:
             w = Aop(wk.V[j])
-            # classical Gram-Schmidt with reorthogonalisation (CGS2) over
-            # the populated rows 0..j
-            ko.gmres_cgs_dot(wk.V, w, j + 1, wk.h1)
-            ko.gmres_cgs_update(wk.V, w, wk.h1, j + 1)
-            ko.gmres_cgs_dot(wk.V, w, j + 1, wk.h2)
-            ko.gmres_cgs_update(wk.V, w, wk.h2, j + 1)
-            ko.gmres_next(w, wk, j)            # hj1, V[j+1]
-            ko.gmres_givens(wk, j)             # rotations, freeze, ks, flag
+            # classical Gram-Schmidt with reorthogonalisation (CGS2) over the
+            # populated rows 0..j, hj1, V[j+1], the rotations, the freeze,
+            # ks and the flag
+            ko.gmres_arnoldi(w, wk, j)
             j += 1
             if j >= m or not bool(wk.flag):
                 break

@@ -35,7 +35,7 @@ ASSEMBLY_KERNELS = ("emi_cell", "emi_facet", "emi_emit_cell", "alpha_sum", "knp_
                     "knp_facet", "knp_membrane_rhs", "knp_emit_cell", "membrane_trace",
                     "eliminated_concentration")
 KRYLOV_KERNELS = tuple(f"pcg_{e}" for e in ("dot", "update", "dot2_direction")) + tuple(
-    f"gmres_{e}" for e in ("start", "cgs_dot", "cgs_update", "next", "givens", "solve_update"))
+    f"gmres_{e}" for e in ("start", "cgs_dot", "arnoldi", "solve_update"))
 CELL_KERNELS = ("bell_matvec", "block_jacobi_inverse", "block_jacobi_apply",
                 "membrane_rk4") + TWO_LEVEL_KERNELS + ASSEMBLY_KERNELS + KRYLOV_KERNELS
 PAIR_KERNELS = ("pair_matvec", "to_pair", "from_pair", "gather_blocks_pair",
@@ -1041,14 +1041,16 @@ def test_assembly_kernels_take_the_2d_shapes():
 # ---------------------------------------------------------------------------
 
 def _gmres_case(rng, dtype, dev, j, mb=2, n=5000, m=8):
-    """A GMRES work with rows 0..j of a random basis written (the rest zero,
-    as the plain versions' basis is), a random new vector w, and scalars
-    of step j: system 0 live, system 1 frozen."""
+    """A GMRES work with rows 0..j of an orthonormal basis written (the rest
+    zero, as the plain versions' basis is), a random new vector w, and
+    scalars of step j: system 0 live, the others frozen."""
     wk = ko.gmres_work(mb, n, m, dtype, dev)
     wk.V.zero_()
-    wk.V[:j + 1] = _rand(rng, (j + 1, mb, n), dtype, dev)
+    for s in range(mb):
+        wk.V[:j + 1, s] = torch.linalg.qr(_rand(rng, (n, j + 1), dtype, dev))[0].T
     w = _rand(rng, (mb, n), dtype, dev)
-    wk.tol.copy_(torch.as_tensor([1e-3, 1e3], dtype=dtype))
+    wk.tol.fill_(1e3)
+    wk.tol[0] = 1e-3
     wk.g[:, :j + 1] = _rand(rng, (mb, j + 1), dtype, dev)
     wk.g[0, j] = 5.0
     ang = torch.as_tensor(rng.uniform(0, 2 * np.pi, (mb, m)), dtype=dtype, device=dev)
@@ -1057,41 +1059,49 @@ def _gmres_case(rng, dtype, dev, j, mb=2, n=5000, m=8):
     wk.R[:, range(m), range(m)] += 4.0                   # well conditioned
     wk.h1[:, :j + 1] = _rand(rng, (mb, j + 1), dtype, dev)
     wk.h2[:, :j + 1] = 1e-3 * _rand(rng, (mb, j + 1), dtype, dev)
-    wk.hj1.copy_(torch.as_tensor([2.0, 0.5], dtype=dtype))
-    wk.ks.copy_(torch.as_tensor([j, j - 1 if j else 0], dtype=torch.int32))
+    wk.hj1.fill_(0.5)
+    wk.hj1[0] = 2.0
+    wk.ks.fill_(max(j - 1, 0))
+    wk.ks[0] = j
     return wk, w
 
 
 def _clone_work(wk):
-    return ko.GmresWork(*(t.clone() for t in wk))
+    import chip_smoke
+
+    return chip_smoke.work_copy(wk)
+
+
+def _step_outputs(wk, j):
+    return [wk.h1[:, :j + 1], wk.h2[:, :j + 1], wk.hj1, wk.V[j + 1], wk.R, wk.g, wk.cs, wk.sn,
+            wk.ks, wk.flag]
 
 
 @pytest.mark.parametrize("j", [0, 3])
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_krylov_gmres_kernels_match_plain(j, dtype, tol):
     """Each K9 entry point against its whole-basis plain version on the
-    same CUDA tensors (the kernels read only rows 0..j), one launch each."""
+    same CUDA tensors (the kernels read only rows 0..j), one launch each:
+    the Arnoldi step's outputs against chip_smoke.arnoldi_scales (each sum's
+    |terms| carried through CGS2; the Givens scalars against each output's
+    largest value; ks and the flag exactly)."""
+    import chip_smoke
+
     dev = cuda_or_skip()
     rng = np.random.default_rng(11)
     wk, w = _gmres_case(rng, dtype, dev, j)
     rows = j + 1
     n0 = dict(_cuda.LAUNCHES)
-    h = ko.gmres_cgs_dot(wk.V, w, rows, torch.zeros_like(wk.h1))
+    h = ko.gmres_cgs_dot(wk.V, w, rows, torch.zeros_like(wk.h1), wk)
     h_p = ko.gmres_cgs_dot_plain(wk.V, w, rows, torch.zeros_like(wk.h1))
     assert rel(h[:, :rows], h_p[:, :rows]) < tol
-    w1 = ko.gmres_cgs_update(wk.V, w.clone(), h_p, rows)
-    assert rel(w1, ko.gmres_cgs_update_plain(wk.V, w.clone(), h_p, rows)) < tol
     a, b = _clone_work(wk), _clone_work(wk)
-    ko.gmres_next(w, a, j)
-    ko.gmres_next_plain(w, b, j)
-    assert rel(a.hj1, b.hj1) < tol and rel(a.V[:j + 2], b.V[:j + 2]) < tol
-    assert not bool(a.V[j + 1, 1].any())                  # the frozen system
-    a, b = _clone_work(wk), _clone_work(wk)
-    ko.gmres_givens(a, j)
-    ko.gmres_givens_plain(b, j)
-    for name in ("R", "g", "cs", "sn"):
-        assert rel(getattr(a, name), getattr(b, name)) < tol, name
-    assert torch.equal(a.ks, b.ks) and torch.equal(a.flag, b.flag)
+    ko.gmres_arnoldi(w.clone(), a, j)
+    ko.gmres_arnoldi_plain(w.clone(), b, j)
+    got, ref = _step_outputs(a, j), _step_outputs(b, j)
+    for k, (x, y, sc) in enumerate(zip(got, ref, chip_smoke.arnoldi_scales(wk, w, j, ref))):
+        assert chip_smoke.err(x, y, sc)[1] < tol, k
+    assert not bool(a.V[j + 1, 1:].any())                  # the frozen systems
     a, b = _clone_work(b), _clone_work(b)
     x = _rand(rng, (2, w.shape[1]), dtype, dev)
     xa = ko.gmres_solve_update(a, x.clone())
@@ -1104,6 +1114,143 @@ def test_krylov_gmres_kernels_match_plain(j, dtype, tol):
     assert rel(a.g, b.g) < tol and torch.equal(a.flag, b.flag)
     for k in KRYLOV_KERNELS[3:]:
         assert _cuda.LAUNCHES[k] == n0[k] + 1, k
+
+
+# (entries a system, step j, systems): the main path's sizes at chip_smoke's
+# KRYLOV_ROWS (cell layout 4 x 124,416 entries a system, a larger mesh's,
+# and 4,000,001, whose chunks of w do not fit in shared memory beside the
+# co-resident blocks: the re-read layout), a late step of three systems
+# whose blocks span two systems, and one entry each of 32 systems
+ARNOLDI_SIZES = [(497664, 3, 2), (1016928, 3, 2), (4000001, 3, 2), (3 * 2048 + 17, 29, 3),
+                 (1, 0, 32)]
+
+
+@pytest.mark.parametrize("n,j,mb", ARNOLDI_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gmres_arnoldi_equals_the_ordered_plain_bitwise(n, j, mb, dtype):
+    """gmres_arnoldi writes h1, h2, hj1, V[j+1], R, g, cs, sn, ks and the
+    flag to the last bit of gmres_arnoldi_ordered_plain's, in each of 200
+    calls on one work (chip_smoke.arnoldi_exact: the outputs NaN before
+    every call), staged in shared memory at the main sizes and re-read at
+    4,000,001 entries; the grid at most the chunks."""
+    import chip_smoke
+
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(19)
+    wk, w = _gmres_case(rng, dtype, dev, j, mb=mb, n=n, m=30)
+    units = mb * -(-n // ko.RED_CHUNK)
+    assert 1 <= wk.grid <= units and (wk.grid - 1) * wk.upb < units <= wk.grid * wk.upb
+    assert wk.staged == int(n < 4000000), (wk.grid, wk.upb, wk.staged)
+    n0 = _cuda.LAUNCHES["gmres_arnoldi"]
+    chip_smoke.arnoldi_exact("gmres_arnoldi", dtype, ko, w, wk, j, calls=200)
+    assert _cuda.LAUNCHES["gmres_arnoldi"] == n0 + 200
+
+
+def test_gmres_arnoldi_is_one_launch_and_allocates_nothing():
+    """Five Arnoldi steps of a pair-layout KNP batch (2 x 8 x 63,558) are
+    five gm_arnoldi_kernel launches, nothing else on the device, and no
+    allocation (the caching allocator's count)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(21)
+    wk, w = _gmres_case(rng, torch.float64, dev, 5, n=8 * 63558, m=30)
+    base = _clone_work(wk)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+
+    def steps():
+        for j in range(5):
+            ko.gmres_arnoldi(w, wk, j)
+
+    kernels = _device_kernels(steps, sessions=3, want=5, match="gm_arnoldi_kernel")
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
+    assert len(kernels) == 5 and all("gm_arnoldi_kernel" in k for k in kernels), kernels
+    assert torch.equal(wk.V[0], base.V[0])               # a row it only reads
+
+
+def test_gmres_arnoldi_replays_in_a_cuda_graph():
+    """The step allocates nothing, syncs nothing and keeps fixed pointers,
+    so three captured steps (one cooperative launch each) replay: every
+    output the eager steps' to the last bit."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(22)
+    wk, w = _gmres_case(rng, torch.float64, dev, 0, n=20000, m=12)
+    ws = [_rand(rng, w.shape, torch.float64, dev) for _ in range(3)]
+    base, eager = _clone_work(wk), _clone_work(wk)
+    for j in range(3):
+        ko.gmres_arnoldi(ws[j].clone(), eager, j)
+    wg = [v.clone() for v in ws]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ko.gmres_arnoldi(wg[0].clone(), _clone_work(wk), 0)   # warm: the library loaded
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for j in range(3):
+            ko.gmres_arnoldi(wg[j], wk, j)
+    for _ in range(3):
+        for name in ko.GmresWork._fields[:13]:
+            getattr(wk, name).copy_(getattr(base, name))
+        for a, b in zip(wg, ws):
+            a.copy_(b)
+        graph.replay()
+    torch.cuda.synchronize()
+    for name in ("V", "h1", "h2", "hj1", "R", "g", "cs", "sn", "ks", "flag"):
+        assert torch.equal(getattr(wk, name), getattr(eager, name)), name
+
+
+def test_gmres_entries_refuse_a_work_without_workspace():
+    """A GmresWork built by hand has no partials and no launch shape: the
+    K9 entries raise on CUDA tensors rather than allocate; so do vectors of
+    another shape, layout or dtype than the work's, and a step outside the
+    restart.  No launch is counted."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(23)
+    wk, w = _gmres_case(rng, torch.float64, dev, 2)
+    bare = ko.GmresWork(*wk[:13])
+    n0 = dict(_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="gmres_work"):
+        ko.gmres_arnoldi(w, bare, 2)
+    with pytest.raises(ValueError, match="gmres_work"):
+        ko.gmres_start(w, bare)
+    with pytest.raises(ValueError, match="gmres_work"):
+        ko.gmres_solve_update(bare, w.clone())
+    with pytest.raises(ValueError, match="gmres_work"):
+        ko.gmres_cgs_dot(wk.V, w, 3, wk.h1)
+    with pytest.raises(ValueError, match="gmres_work"):
+        ko.gmres_cgs_dot(wk.V, w, 3, wk.h1, bare)
+    with pytest.raises(ValueError):                      # another shape
+        ko.gmres_arnoldi(w[:, :-1].contiguous(), wk, 2)
+    with pytest.raises(ValueError):                      # not contiguous
+        ko.gmres_arnoldi(torch.ones((w.shape[1], 2), dtype=w.dtype, device=dev).t(), wk, 2)
+    with pytest.raises(TypeError):                       # another dtype
+        ko.gmres_arnoldi(w.float(), wk, 2)
+    with pytest.raises(ValueError):                      # beyond the restart
+        ko.gmres_arnoldi(w, wk, wk.m)
+    for k in KRYLOV_KERNELS[3:]:
+        assert _cuda.LAUNCHES[k] == n0[k], k
+
+
+def test_gmres_arnoldi_raises_on_a_refused_launch():
+    """A grid of more blocks than can be resident together (one a chunk at
+    4,000,001 entries a system) is refused by the cooperative launch: the
+    wrapper raises, counts no launch, the work is untouched, and the
+    refusal leaves no error behind for the next launch."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(24)
+    wk, w = _gmres_case(rng, torch.float64, dev, 1, n=4000001, m=8)
+    units = 2 * -(-4000001 // ko.RED_CHUNK)
+    assert wk.grid < units
+    base = _clone_work(wk)
+    n0 = _cuda.LAUNCHES["gmres_arnoldi"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ko.gmres_arnoldi(w, wk._replace(grid=units, upb=1), 1)
+    assert _cuda.LAUNCHES["gmres_arnoldi"] == n0
+    torch.cuda.synchronize()
+    for name in ("h1", "h2", "hj1", "R", "g", "cs", "sn", "ks", "flag"):
+        assert torch.equal(getattr(wk, name), getattr(base, name)), name
+    ko.gmres_arnoldi(w, wk, 1)
+    assert _cuda.LAUNCHES["gmres_arnoldi"] == n0 + 1
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2])
@@ -1394,7 +1541,8 @@ def test_krylov_solvers_on_cuda_match_cpu():
 
 def test_krylov_wrappers_raise_on_what_they_cannot_take():
     """Mixed devices, non-contiguous or mistyped tensors, a restart beyond
-    the kernel's rows, and the GMRES variants the port does not carry."""
+    the kernel's rows, more than 32 systems, and the GMRES variants the
+    port does not carry."""
     from knpemidg_tpu_torch.config import SolverParams
     from knpemidg_tpu_torch.solver import _check_supported
 
@@ -1402,15 +1550,17 @@ def test_krylov_wrappers_raise_on_what_they_cannot_take():
     rng = np.random.default_rng(14)
     wk, w = _gmres_case(rng, torch.float64, dev, 2)
     with pytest.raises(ValueError):                      # w on the CPU
-        ko.gmres_cgs_dot(wk.V, w.cpu(), 3, wk.h1)
+        ko.gmres_cgs_dot(wk.V, w.cpu(), 3, wk.h1, wk)
     with pytest.raises(ValueError):                      # not contiguous
-        ko.gmres_cgs_update(wk.V, w.t().contiguous().t(), wk.h1, 3)
+        ko.gmres_arnoldi(w.t().contiguous().t(), wk, 2)
     with pytest.raises(TypeError):                       # dtype mismatch
-        ko.gmres_next(w.float(), wk, 2)
+        ko.gmres_arnoldi(w.float(), wk, 2)
     with pytest.raises(ValueError):                      # rows beyond the basis
-        ko.gmres_cgs_dot(wk.V, w, wk.V.shape[0] + 1, wk.h1)
-    with pytest.raises(NotImplementedError):
+        ko.gmres_cgs_dot(wk.V, w, wk.V.shape[0] + 1, wk.h1, wk)
+    with pytest.raises(NotImplementedError):             # restart beyond the kernel's rows
         ko.gmres_work(2, 10, ko.MAX_RESTART + 1, torch.float64, dev)
+    with pytest.raises(NotImplementedError):             # more than 32 systems
+        ko.gmres_work(ko.MAX_SYSTEMS + 1, 10, 8, torch.float64, dev)
     pw = ko.pcg_work(torch.zeros(6, dtype=torch.float64, device=dev),
                      torch.zeros(1, dtype=torch.int32, device=dev), None, 1, w.numel())
     with pytest.raises(TypeError):

@@ -54,9 +54,9 @@ def test_cgs2_pass_matches_jax_whole_basis(j):
     wk = _work(V)
     wt = t64(w)
     ko.gmres_cgs_dot(wk.V, wt, j + 1, wk.h1)
-    ko.gmres_cgs_update(wk.V, wt, wk.h1, j + 1)
+    ko.gmres_cgs_update_plain(wk.V, wt, wk.h1, j + 1)
     ko.gmres_cgs_dot(wk.V, wt, j + 1, wk.h2)
-    ko.gmres_cgs_update(wk.V, wt, wk.h2, j + 1)
+    ko.gmres_cgs_update_plain(wk.V, wt, wk.h2, j + 1)
     assert rel(wk.h1, h1j) < 1e-14 and rel(wk.h2, h2j) < 1e-14
     assert rel(wt, w2j) < 1e-14
     # the populated rows alone (what the kernels read)
@@ -84,7 +84,7 @@ def test_gmres_start_and_next_match_the_formulas():
     assert int(wk.flag) == 1 and not wk.ks.any() and not wk.R.any()
     wk.g[:, 2] = t64([5.0, 5.0])                      # system 0 live, system 1 frozen
     w = rng.normal(size=(MB, N))
-    ko.gmres_next(t64(w), wk, 2)
+    ko.gmres_next_plain(t64(w), wk, 2)
     hj1 = np.sqrt(np.einsum("sn,sn->s", w, w))
     assert rel(wk.hj1, hj1) < 1e-15
     assert rel(wk.V[3, 0], w[0] / hj1[0]) < 1e-15 and not wk.V[3, 1].any()
@@ -142,7 +142,7 @@ def test_gmres_givens_matches_the_reference_step(j):
                     ("sn", sn), ("tol", tol)):
         getattr(wk, name).copy_(t64(v))
     wk.ks.copy_(torch.as_tensor(ks, dtype=torch.int32))
-    ko.gmres_givens(wk, j)
+    ko.gmres_givens_plain(wk, j)
     for got, want in zip((wk.R, wk.g, wk.cs, wk.sn), ref[:4]):
         assert np.array_equal(got.numpy(), want)
     assert wk.ks.tolist() == ref[4].tolist() == [j + 1, max(j - 1, 0)]
@@ -170,6 +170,116 @@ def test_gmres_solve_update_matches_jax():
                   for a, b in zip(Rm, gm)])
     assert rel(wk.y, y) < 1e-14
     assert rel(got, x + np.einsum("sk,skn->sn", y, V[:, :M])) < 1e-14
+
+
+def _step_case(rng, mb, n, j, frozen):
+    """Arnoldi step j's inputs in the JAX layout: a (mb, m+1, n) basis with
+    rows 0..j populated, the matvec's w, and the cycle's scalars after j
+    steps (system 1, or system 0 when mb = 1, frozen: |g[:, j]| below its
+    tolerance)."""
+    V = np.zeros((mb, M + 1, n))
+    V[:, :j + 1] = rng.normal(size=(mb, j + 1, n))
+    w = rng.normal(size=(mb, n))
+    ang = rng.uniform(0, 2 * np.pi, (mb, M))
+    cs, sn = np.cos(ang), np.sin(ang)
+    cs[:, j:], sn[:, j:] = 0.0, 0.0
+    R = rng.normal(size=(mb, M + 1, M))
+    g = np.zeros((mb, M + 1))
+    g[:, :j + 1] = rng.normal(size=(mb, j + 1))
+    g[:, j] = 4.0
+    tol = np.full(mb, 1e-2)
+    if frozen:
+        tol[min(1, mb - 1)] = 1e2
+    ks = np.full(mb, j)
+    return V, w, R, g, cs, sn, tol, ks
+
+
+def _step_work(V, R, g, cs, sn, tol, ks):
+    mb, _, n = V.shape
+    wk = ko.gmres_work(mb, n, M, torch.float64, "cpu")
+    wk.V.copy_(t64(np.swapaxes(V, 0, 1)))
+    for name, v in (("R", R), ("g", g), ("cs", cs), ("sn", sn), ("tol", tol)):
+        getattr(wk, name).copy_(t64(v))
+    wk.ks.copy_(torch.as_tensor(ks, dtype=torch.int32))
+    return wk
+
+
+# (mb, a frozen system): one live system, one frozen, three with one frozen
+STEP_CASES = {"mb1": (1, False), "mb1_frozen": (1, True), "mb3_frozen": (3, True)}
+
+
+@pytest.mark.parametrize("case", sorted(STEP_CASES))
+@pytest.mark.parametrize("j", [0, 3, M - 1])
+def test_gmres_arnoldi_plain_matches_jax(case, j):
+    """One Arnoldi step's plain version against the JAX body
+    (knpemidg_tpu/solvers/krylov.py:385-439): CGS2 over the whole basis,
+    hj1, V[j+1] (zero for a frozen system), the replayed and new rotations,
+    g, R and ks with the freeze, and the flag; float64 to rel 1e-13."""
+    mb, frozen = STEP_CASES[case]
+    rng = np.random.default_rng(40 + j + 10 * mb + frozen)
+    V, w, R, g, cs, sn, tol, ks = _step_case(rng, mb, N, j, frozen)
+    Vj, wj = jnp.asarray(V), jnp.asarray(w)
+    h1j = jnp.einsum("skn,sn->sk", Vj, wj)
+    wj = wj - jnp.einsum("sk,skn->sn", h1j, Vj)
+    h2j = jnp.einsum("skn,sn->sk", Vj, wj)
+    wj = wj - jnp.einsum("sk,skn->sn", h2j, Vj)
+    hj1 = jnp.sqrt(jnp.einsum("sn,sn->s", wj, wj))
+    vnext = jnp.where((hj1 > 1e-300)[:, None], wj / jnp.where(hj1 > 0, hj1, 1.0)[:, None], 0.0)
+    live = np.abs(g[:, j]) > tol
+    vnext = np.where(live[:, None], np.asarray(vnext), 0.0)
+    ref = _reference_step(np.asarray(h1j), np.asarray(h2j), np.asarray(hj1), R, g, cs, sn, ks,
+                          tol, j)
+
+    wk = _step_work(V, R, g, cs, sn, tol, ks)
+    assert ko.gmres_arnoldi_plain(t64(w), wk, j) is wk
+    assert rel(wk.h1, h1j) < 1e-13 and rel(wk.h2, h2j) < 1e-13
+    assert rel(wk.hj1, hj1) < 1e-13 and rel(wk.V[j + 1], vnext) < 1e-13
+    assert bool(live.all()) == bool(wk.V[j + 1].any(dim=1).all())
+    for got, want in zip((wk.R, wk.g, wk.cs, wk.sn), ref[:4]):
+        assert rel(got, want) < 1e-13
+    assert wk.ks.tolist() == ref[4].tolist() and bool(wk.flag) == ref[5]
+
+
+@pytest.mark.parametrize("n,j", [(N, 0), (2049, 3), (3 * 2048 + 17, M - 1)])
+def test_gmres_arnoldi_ordered_plain_matches_plain(n, j):
+    """The kernel's summation order (the projections and the norm as the
+    dot kernels sum, the updates left to right over the populated rows)
+    against the whole-basis plain step, float64, to 1e-14, on one and on
+    several chunks; the wrapper's CPU path is the plain step, bit for
+    bit."""
+    rng = np.random.default_rng(50 + j)
+    V, w, R, g, cs, sn, tol, ks = _step_case(rng, 3, n, j, True)
+    a, b, c = (_step_work(V, R, g, cs, sn, tol, ks) for _ in range(3))
+    wa, wb, wc = t64(w), t64(w), t64(w)
+    ko.gmres_arnoldi_ordered_plain(wa, a, j)
+    ko.gmres_arnoldi_plain(wb, b, j)
+    ko.gmres_arnoldi(wc, c, j)
+    rows = j + 1
+    assert rel(a.h1[:, :rows], b.h1[:, :rows]) < 1e-14
+    assert rel(a.h2[:, :rows], b.h2[:, :rows]) < 1e-14
+    assert rel(a.hj1, b.hj1) < 1e-14 and rel(a.V[j + 1], b.V[j + 1]) < 1e-14
+    assert rel(wa, wb) < 1e-14
+    for name in ("R", "g", "cs", "sn"):
+        assert rel(getattr(a, name), getattr(b, name)) < 1e-14, name
+    assert torch.equal(a.ks, b.ks) and torch.equal(a.flag, b.flag)
+    for name in ko.GmresWork._fields[:13]:                 # the buffers, not the partials
+        assert torch.equal(getattr(b, name), getattr(c, name)), name
+    assert torch.equal(wb, wc)
+
+
+@pytest.mark.parametrize("n", [1, 2048, 2049, 497664])
+def test_gmres_work_sizes_the_workspace(n):
+    """The partials of the step's three sums, (2m + 1) mb per RED_CHUNK-entry
+    chunk in the work's dtype; no launch shape on the CPU (the card's is
+    sized by the kernel's grid entry); a restart beyond the kernel's rows
+    refused."""
+    wk = ko.gmres_work(3, n, M, torch.float32, "cpu")
+    assert wk.partial.shape == ((2 * M + 1) * 3 * -(-n // 2048),)
+    assert wk.partial.dtype == torch.float32
+    assert (wk.grid, wk.upb, wk.staged) == (0, 0, 0)
+    assert wk.V.shape == (M + 1, 3, n) and not wk.V.any()
+    with pytest.raises(NotImplementedError):
+        ko.gmres_work(3, n, ko.MAX_RESTART + 1, torch.float32, "cpu")
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2])

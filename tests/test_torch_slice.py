@@ -155,8 +155,7 @@ ASSEMBLY_WRAPPERS = {"emi_cell", "emi_facet", "emi_emit_cell", "alpha_sum", "knp
 CELL_WRAPPERS = {"bell_matvec", "bell_matvec_multi", "block_jacobi_inverse",
                  "block_jacobi_apply"} | COARSE_WRAPPERS | ASSEMBLY_WRAPPERS
 KRYLOV_WRAPPERS = {"pcg_dot", "pcg_update", "pcg_dot2_direction", "gmres_start",
-                   "gmres_cgs_dot", "gmres_cgs_update", "gmres_next", "gmres_givens",
-                   "gmres_solve_update"}
+                   "gmres_cgs_dot", "gmres_arnoldi", "gmres_solve_update"}
 CELL_WRAPPERS |= KRYLOV_WRAPPERS
 PAIR_WRAPPERS = {"pair_matvec", "pair_matvec_multi", "to_pair", "from_pair",
                  "gather_blocks_pair", "gather_blocks_pair_multi",

@@ -7,6 +7,13 @@ and float64, beside the library calls chip_smoke.py holds them to:
        built once per solve, at the EMI vector shapes (cell (4, 124416),
        pair (8, 63558)), beside torch.dot, torch.mv on the stacked pair, and
        torch.mv + torch.addcmul into a preallocated buffer;
+  k9   K9's work of one Arnoldi step after the matvec, as the solver makes
+       it, on the KNP batch (two ions) of the cell (4 x 124,416 entries a
+       system) and pair (8 x 63,558) layouts at 1, 4 and 16 populated basis
+       rows, on one work built once per solve: this tree's one
+       gmres_arnoldi call; a tree without it the six calls its solver
+       makes (gmres_cgs_dot, gmres_cgs_update twice each, gmres_next,
+       gmres_givens);
   k6   K6 (m = 1, with As and the compartment, moment and Ritz groups)
        and K7 (m = 2, no As, no groups) at the coarse sizes of the cell
        (1,944 chunks of 64 cells) and pair (1,987 chunks of 32 pairs)
@@ -59,8 +66,8 @@ entry is called as that tree's solver calls it: a tree whose krylov_ops
 has no ``pcg_work`` gets a work built by hand, a tree whose coarse
 operands carry no workspace gets fresh outputs from its restrict, a tree
 whose to_pair takes no list gets the torch.stack its solver makes, and a
-tree without pcg_dot2_direction or from_pair's add forms gets the separate
-calls its solver makes.
+tree without pcg_dot2_direction, gmres_arnoldi or from_pair's add forms
+gets the separate calls its solver makes.
 
 Per entry it prints the median of 20 CUDA-event timings of one call
 (``ms``, the yardstick of chip_smoke.py), the host microseconds per call
@@ -72,7 +79,8 @@ device microseconds per call of 100 calls replayed as one CUDA graph
 measured" where the call cannot be captured).  It also prints the cost of
 reading the current stream both ways.
 
-Usage:  python3 time_wrappers.py [--root DIR] [--only k8,k6,k4,k1,k14,k13]   (needs a CUDA card)
+Usage:  python3 time_wrappers.py [--root DIR] [--only k8,k9,k6,k4,k1,k14,k13]
+        (needs a CUDA card)
 """
 import argparse
 import inspect
@@ -206,6 +214,36 @@ def time_dots(ko, dev, gen):
                               torch.addcmul(z, beta, p, out=buf))})
             for name, fn in calls.items():
                 report("k8time", f"{layout} {str(dtype):14s} {name}", fn)
+
+
+def time_arnoldi(ko, dev, gen):
+    fused = hasattr(ko, "gmres_arnoldi")
+    print(f"k9time  gmres_arnoldi {fused}")
+    for layout, (nd, nc) in (("cell", (4, 124416)), ("pair", (8, NPAIR))):
+        n = nd * nc
+        for dtype in (torch.float32, torch.float64):
+            wk = ko.gmres_work(IONS, n, 30, dtype, dev)
+            w = torch.randn((IONS, n), generator=gen, device=dev, dtype=dtype)
+            for rows in (1, 4, 16):
+                j = rows - 1
+                wk.V[:rows] = torch.randn((rows, IONS, n), generator=gen, device=dev,
+                                          dtype=dtype) / n ** 0.5
+                wk.tol.fill_(1e-30)                      # every system live
+                wk.g[:, j] = 1.0
+                if fused:
+                    name = "gmres_arnoldi"
+                    fn = lambda j=j: ko.gmres_arnoldi(w, wk, j)
+                else:
+                    name = "the six calls"
+
+                    def fn(j=j, rows=rows):
+                        ko.gmres_cgs_dot(wk.V, w, rows, wk.h1)
+                        ko.gmres_cgs_update(wk.V, w, wk.h1, rows)
+                        ko.gmres_cgs_dot(wk.V, w, rows, wk.h2)
+                        ko.gmres_cgs_update(wk.V, w, wk.h2, rows)
+                        ko.gmres_next(w, wk, j)
+                        ko.gmres_givens(wk, j)
+                report("k9time", f"{layout} {str(dtype):14s} {rows:2d} rows {name}", fn)
 
 
 def coarse_data(layout, batched, dtype, dev, gen):
@@ -461,7 +499,8 @@ def main():
             built.append(main_solver())
         return built[0]
 
-    sections = {"k8": lambda: time_dots(ko, dev, gen), "k6": lambda: time_coarse(coarse, dev, gen),
+    sections = {"k8": lambda: time_dots(ko, dev, gen), "k9": lambda: time_arnoldi(ko, dev, gen),
+                "k6": lambda: time_coarse(coarse, dev, gen),
                 "k4": lambda: time_to_pair(pairs, dev, gen),
                 "k1": lambda: time_bell(spmv, solver(), dev, gen),
                 "k14": lambda: time_traces(asm, solver()),
