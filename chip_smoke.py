@@ -675,9 +675,11 @@ def kernel_phase(S, state, results):
                 inputs=[P, PK], flops=bj_inv_flops(P) + bj_inv_flops(PK),
                 library_fn=lambda: [lib_inv(P), lib_inv(PK)])
         inv, invK = spmv.block_jacobi_inverse(P), spmv.block_jacobi_inverse(PK)
+        # as the two-level apply calls it: operands checked once, a new z
+        op, opK = spmv.block_jacobi_operands(inv), spmv.block_jacobi_operands(invK)
         compare("block_jacobi_apply", dtype,
-                lambda: [spmv.block_jacobi_apply(inv, x),
-                         spmv.block_jacobi_apply(invK, xK)],
+                lambda: [spmv.block_jacobi_apply(op, x),
+                         spmv.block_jacobi_apply(opK, xK)],
                 lambda: [spmv.block_jacobi_apply_plain(inv, x),
                          spmv.block_jacobi_apply_plain(invK, xK)],
                 lambda ref: [spmv.block_jacobi_apply_plain(inv.abs(), x.abs()),
@@ -847,7 +849,10 @@ def pair_kernel_phase(S, state, results):
                 flops=2.0 * (D.numel() + DK.numel()) + 2.0 * pe_bytes / E.element_size(),
                 library_fn=pair_lib)
 
-        # the main path's 'halves' diagonals are timed; the full ones checked
+        # the main path's 'halves' diagonals are timed; the full ones checked.
+        # The main path applies the halves inverse in the halves form, as the
+        # masked two-level apply calls it (operands checked once, one output
+        # buffer); its work reads the two diagonal sub-blocks of the inverse
         P_h = (Pd.to(dtype) * halves.to(dtype)).contiguous()
         PK_h = (DK * halves.to(dtype)[None]).contiguous()
         P_f, PK_f = Pd.to(dtype).contiguous(), DK.contiguous()
@@ -860,6 +865,22 @@ def pair_kernel_phase(S, state, results):
                     inputs=[P, PK], flops=bj_inv_flops(P) + bj_inv_flops(PK),
                     library_fn=lambda: [lib_inv(P), lib_inv(PK)], record=record)
             inv, invK = spmv.block_jacobi_inverse(P), spmv.block_jacobi_inverse(PK)
+            if record:
+                ops = [spmv.block_jacobi_operands(t, halves=True, buffer=True)
+                       for t in (inv, invK)]
+                half_bytes = (inv.numel() + invK.numel()) // 2 * inv.element_size()
+                compare("block_jacobi_apply_nd8", dtype,
+                        lambda: [spmv.block_jacobi_apply(ops[0], r),
+                                 spmv.block_jacobi_apply(ops[1], rK)],
+                        lambda: [spmv.block_jacobi_apply_plain(inv, r, halves=True),
+                                 spmv.block_jacobi_apply_plain(invK, rK, halves=True)],
+                        lambda ref: [spmv.block_jacobi_apply_plain(inv.abs(), r.abs(), True),
+                                     spmv.block_jacobi_apply_plain(invK.abs(), rK.abs(),
+                                                                   True)],
+                        results, inputs=[r, rK], extra_bytes=half_bytes,
+                        whole_bytes=nbytes([inv, r, invK, rK]),
+                        flops=bj_apply_flops(inv) / 2 + bj_apply_flops(invK) / 2,
+                        library_fn=lambda: [lib_apply(inv, r), lib_apply(invK, rK)])
             compare("block_jacobi_apply_nd8", dtype,
                     lambda: [spmv.block_jacobi_apply(inv, r),
                              spmv.block_jacobi_apply(invK, rK)],
@@ -867,10 +888,7 @@ def pair_kernel_phase(S, state, results):
                              spmv.block_jacobi_apply_plain(invK, rK)],
                     lambda ref: [spmv.block_jacobi_apply_plain(inv.abs(), r.abs()),
                                  spmv.block_jacobi_apply_plain(invK.abs(), rK.abs())],
-                    results, inputs=[inv, r, invK, rK],
-                    flops=bj_apply_flops(inv) + bj_apply_flops(invK),
-                    library_fn=lambda: [lib_apply(inv, r), lib_apply(invK, rK)],
-                    record=record)
+                    results, record=False)
         # K6 with the compartment and moment data (AUTO: no Ritz on pairs),
         # K7 with the two ions' coarse data, on the pair rhs
         co6, co7 = coarse_inputs(state["pc"], AGG // 2, dtype)
@@ -1588,7 +1606,9 @@ def f32_window(mesh, layout):
 
 # launches of a kernel in one of its timed calls (one per system of the
 # step: EMI and KNP; membrane_trace: a step's ODE-input traces and its
-# finalize jump); 1 where not listed (K13: one launch for both tags)
+# finalize jump); 1 where not listed (K13: one launch for both tags).  A
+# launch here and in the rank lines is a counted wrapper call: knp_facet's
+# one is its two kernels, the scalars and the sweep
 LAUNCHES_PER_TIMING = {k: 2 for k in (
     "bell_matvec", "block_jacobi_inverse", "block_jacobi_apply",
     "pair_matvec", "to_pair", "from_pair", "gather_blocks_pair",

@@ -9,7 +9,11 @@ layout's facet tables (float32 and float64); the matvecs (K3 on pairs, K1
 on cells; float32 and float64) on the step's EMI and two-ion KNP operators
 applied to the step's rhs; K9 as the solver's block-Jacobi KNP solve
 drives it (krylov.gmres_batched on those operators, each layout, both
-dtypes): the correction, the iterations and the residual norms; K14 as
+dtypes): the correction, the iterations and the residual norms; K5's
+apply on the step's diagonals (cell: nd = 4; pair: the pair_bj halves
+inverse in the halves form, or the full form in a tree without it) and
+the pair GMRES above with the solver's halves form; K11 knp_facet on each
+layout's facet tables (both dtypes); K14 as
 the solver pushes it (float64): each
 tag's membrane states and ODE parameters out of Solver._ode_inputs (the
 potential, the Nernst potentials E_* and StandardSolver's K_e / Na_i) and
@@ -87,6 +91,13 @@ def main():
         for dtype in (torch.float32, torch.float64):
             g = {k: (v.to(dtype) if isinstance(v, torch.Tensor) and v.is_floating_point()
                      else v) for k, v in S.g.items()}
+            # K11's facet blocks at the perturbed state's gradient
+            gphi = asm.knp_cell(g, phi.to(dtype), c.to(dtype), p.dt)[0]
+            m = S.N_ions
+            out = asm.knp_facet(g, S.masks, S.z[:m].to(dtype).contiguous(),
+                                S.D[:m].to(dtype).contiguous(), gphi, p.psi)
+            torch.cuda.synchronize()
+            print(f"digest  knp_facet    {layout} {str(dtype):14s} {digest(out)}")
             mem = {k: (v.to(dtype) if isinstance(v, torch.Tensor) and v.is_floating_point()
                        else v) for k, v in S.mem_dev.items()}
             kappa, _, flux, _ = asm.emi_cell_plain(g, S.z.to(dtype), S.D.to(dtype),
@@ -103,11 +114,20 @@ def main():
             torch.cuda.synchronize()
             print(f"digest  traces       {layout} {str(dtype):14s} {digest(out)}")
         if layout == "cell":
-            (B, rhs, _), (BK, rhsK) = (
+            (B, rhs, Pd), (BK, rhsK) = (
                 S._assemble_emi(c, state["c_elim"], pM, Itot, state["t"]),
                 S._knp_assemble_all(c, state["c_elim"], state["phi"], pM, Ich, Itot,
                                     state["t"], c))
             nbr = S.g["nbr"]
+            for dtype in (torch.float32, torch.float64):
+                # K5 at nd = 4 on the step's EMI and KNP diagonals and rhs
+                invs = [spmv.block_jacobi_inverse(Pd.to(dtype).contiguous()),
+                        spmv.block_jacobi_inverse(BK[:, 0].to(dtype).contiguous())]
+                out = [spmv.block_jacobi_apply(P, r.to(dtype).contiguous())
+                       for P, r in zip(invs, (rhs, rhsK))]
+                torch.cuda.synchronize()
+                print(f"digest  k5_apply     {layout} {str(dtype):14s} {digest(out)} "
+                      f"(inverses {digest(invs)})")
             for dtype in (torch.float32, torch.float64):
                 out = [spmv.bell_matvec(B.to(dtype), nbr, rhs.to(dtype)),
                        spmv.bell_matvec_multi(BK.to(dtype), nbr, rhsK.to(dtype))]
@@ -136,12 +156,28 @@ def main():
                 print(f"digest  pair_matvec  {layout} {str(dtype):14s} {digest(out)} "
                       f"(operators {digest([pd, pe, pdK, peK])})")
             for dtype in (torch.float32, torch.float64):
+                # K5 on the pair_bj halves of the step's EMI and KNP pair
+                # diagonals: the halves form (a tree without it: the full
+                # form on the same inverse) on the step's rhs
+                hv = S._pair_bj_halves.to(dtype)
+                invs = [spmv.block_jacobi_inverse((pd.to(dtype) * hv).contiguous()),
+                        spmv.block_jacobi_inverse((pdK.to(dtype) * hv[None]).contiguous())]
+                rs = [pairs.to_pair(pm, rhs.to(dtype)), pairs.to_pair(pm, rhsK.to(dtype))]
+                out = [bj_apply(spmv, P, r) for P, r in zip(invs, rs)]
+                torch.cuda.synchronize()
+                print(f"digest  k5_halves    {layout} {str(dtype):14s} {digest(out)} "
+                      f"(inverses {digest(invs)})")
+            print(f"k5      halves form in this tree: {halves_form(spmv)}")
+            for dtype in (torch.float32, torch.float64):
                 # the solver's block-Jacobi pair KNP solve: the pair_bj
-                # halves of the diagonal, the live mask after the apply
+                # halves of the diagonal, its halves form (full form in a
+                # tree without it), the live mask after the apply
                 pdd, ped = pdK.to(dtype), peK.to(dtype)
                 lm = S._pair_mask.to(dtype)[None]
                 Pinv = spmv.block_jacobi_inverse(
                     (pdd * S._pair_bj_halves[None].to(dtype)).contiguous())
+                if halves_form(spmv):
+                    Pinv = spmv.block_jacobi_operands(Pinv, halves=True, buffer=True)
                 gmres_digest(krylov, layout, dtype,
                              lambda V, pdd=pdd, ped=ped: pairs.pair_matvec_multi(
                                  pdd, ped, pm, V.contiguous()),
@@ -169,6 +205,20 @@ def main():
         ode_digests(S, mesh, st, layout, gen)
         del S
         torch.cuda.empty_cache()
+
+
+def halves_form(spmv):
+    """Whether a tree's K5 apply has the halves form (and its operands)."""
+    return hasattr(spmv, "block_jacobi_operands")
+
+
+def bj_apply(spmv, Pinv, r):
+    """K5's apply of a halves inverse as the tree's solver applies it on the
+    pair layout: the halves form through its operands where the tree has
+    it, else the full form."""
+    if halves_form(spmv):
+        return spmv.block_jacobi_apply(spmv.block_jacobi_operands(Pinv, halves=True), r)
+    return spmv.block_jacobi_apply(Pinv, r)
 
 
 def gmres_digest(krylov, layout, dtype, mv, pc, rhs, c):

@@ -38,7 +38,9 @@ COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 SOURCE_FLAGS = {f: ("-fmad=false",) for f in ("assemble_emi.cu", "assemble_knp.cu",
                                                "gmres.cu", "pcg.cu")}
 
-# kernel name -> launches counted by its wrapper; the block-Jacobi kernels
+# kernel name -> launches counted by its wrapper: one a wrapper call that
+# launches on the card, however many kernels the call runs (knp_facet's
+# call is two: its scalars and its sweep); the block-Jacobi kernels
 # count their cell-layout (nd = 4) and pair-layout (nd = 8) instantiations
 # apart, and the two-level kernels their single EMI (K6) and batched KNP
 # (K7, "_batched") calls.  The assembly kernels (K10 emi_*, K11 alpha_sum and
@@ -69,7 +71,7 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "knp_bell_matvec": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "knp_bj_inverse": (_P, _P, _I, _I, _I, _P),
-    "knp_bj_apply": (_P, _P, _P, _I, _I, _I, _P),
+    "knp_bj_apply": (_P, _P, _P, _I, _I, _I, _I, _P),
     "knp_membrane_step": (_P, _I, _P, _D, _I, _P),
     "knp_pair_matvec": (_P,) * 6 + (_I,) * 4 + (_P,),
     "knp_to_pair": (_P,) * 6 + (_I,) * 4 + (_P,),
@@ -85,7 +87,7 @@ _SIGNATURES = {
     "knp_emi_emit_cell": (_P,) * 16 + (_I,) * 5 + (_D, _P),
     "knp_alpha_sum": (_P,) * 4 + (_I,) * 3 + (_P,),
     "knp_ion_cell": (_P,) * 8 + (_I,) * 4 + (_D, _P),
-    "knp_ion_facet": (_P,) * 16 + (_I,) * 5 + (_D, _P),
+    "knp_ion_facet": (_P,) * 17 + (_I,) * 5 + (_D, _P),
     "knp_ion_membrane_rhs": (_P,) * 17 + (_I,) * 7 + (_D, _D, _P),
     "knp_ion_emit_cell": (_P,) * 18 + (_I,) * 7 + (_D, _P),
     "knp_membrane_trace": (_P,) * 4 + (_D,) * 4 + (_I,) + (_P,) * 6 + (_I,) * 6 + (_P,),

@@ -9,7 +9,8 @@
 //                     mass part of the rhs (vol/dt) M0 c_n;
 //   ion_facet         per facet: the upwind switch u_p, u_m shared by the
 //                     ions (max(D un, 0) = D max(un, 0) since D > 0) and the
-//                     m ions' four upwind blocks (m, nd, nd, nf+1);
+//                     m ions' four upwind blocks (m, nd, nd, nf+1): a
+//                     facet's scalars, then the sweep over its entries;
 //   ion_membrane_rhs  on the membrane-facet axis: the ion fractions alpha at
 //                     both cells, the phi jump, the capacitive and channel
 //                     sources and their quadrature sums -> b_p, b_m
@@ -28,7 +29,8 @@
 // (entry (i, j), facet or cell) with the long axis fastest, selects for the
 // masks, no atomics, the plain version's order of additions in the emit and
 // no fused multiply-adds in this file, so the emit equals its plain version
-// exactly.
+// exactly.  ion_facet computes a facet's scalars once (a thread a facet)
+// before the sweep over its entries.
 #include "common.cuh"
 
 #define KNP_MAXND 4
@@ -101,42 +103,81 @@ __global__ void ion_cell_kernel(const T* __restrict__ phi, const T* __restrict__
   }
 }
 
+// ion_facet, two kernels a call.  ion_facet_scalars_kernel computes each
+// facet's scalars once, a thread a facet: the tables' loads (f_cp, f_cm,
+// f_n, f_area, f_sip) issued together, then the gphi and D gathers at both
+// cells together, then u_p, u_m, the base and the m ions' sp_k =
+// (scale_k D_k+) u_p and sm_k = (scale_k D_k-) u_m, written to S (2m, nf+1:
+// rows 2k and 2k + 1; a few MB, which stay in L2).  ion_facet_kernel then
+// sweeps the nd x nd x (nf+1) entries (a thread an entry, the facet
+// fastest), reading E_pp .. E_mm once with the streaming hint and writing
+// the 4 m rows of M with streaming stores.  The sweep keeps the device's
+// traffic on a dozen arrays at nearby offsets; streaming a 32-facet tile
+// through all nd x nd rows at once (as emi_facet does) spreads it over 192
+// short runs and measured slower on the H100 than this sweep, and no faster
+// than a sweep that recomputes the scalars for every entry.  The products
+// are in the plain version's order and without contraction (this file's
+// -fmad=false): unp += gphi ne over e from 0, (negpsi z_k) base, (scale D)
+// u, sp E, (-sm) E, (-sp) E, sm E, so every output equals knp_facet_plain's
+// exactly.
 template <typename T>
-__global__ void ion_facet_kernel(
+__global__ void ion_facet_scalars_kernel(
     const T* __restrict__ gphi, const T* __restrict__ D, const T* __restrict__ z,
     const int* __restrict__ f_cp, const int* __restrict__ f_cm, const T* __restrict__ f_n,
-    const T* __restrict__ f_area, const unsigned char* __restrict__ f_sip,
-    const T* __restrict__ E_pp, const T* __restrict__ E_pm, const T* __restrict__ E_mp,
-    const T* __restrict__ E_mm, T* __restrict__ Mpp, T* __restrict__ Mpm,
-    T* __restrict__ Mmp, T* __restrict__ Mmm, int m, int nd, int d, int nc, int nf1,
-    T negpsi) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long per = (long long)nd * nd * nf1;
-  if (idx >= per) return;
-  const int f = (int)(idx % nf1);
+    const T* __restrict__ f_area, const unsigned char* __restrict__ f_sip, T* __restrict__ S,
+    int m, int d, int nc, int nf1, T negpsi) {
+  const int f = blockIdx.x * blockDim.x + threadIdx.x;
+  if (f >= nf1) return;
   const size_t n = (size_t)nc, n1 = (size_t)nf1;
   const int cp = f_cp[f], cm = f_cm[f];
+  const bool sip = f_sip[f] != 0;
+  const T area = f_area[f];
+  T ne[KNP_MAXD], gp[KNP_MAXD], gm[KNP_MAXD];
+#pragma unroll
+  for (int e = 0; e < KNP_MAXD; ++e) ne[e] = e < d ? f_n[(size_t)e * n1 + f] : T(0);
+#pragma unroll
+  for (int e = 0; e < KNP_MAXD; ++e) {
+    gp[e] = e < d ? gphi[(size_t)e * n + cp] : T(0);
+    gm[e] = e < d ? gphi[(size_t)e * n + cm] : T(0);
+  }
   T unp = T(0), unm = T(0);
 #pragma unroll
   for (int e = 0; e < KNP_MAXD; ++e)
     if (e < d) {
-      const T ne = f_n[(size_t)e * n1 + f];
-      unp += gphi[(size_t)e * n + cp] * ne;
-      unm += gphi[(size_t)e * n + cm] * ne;
+      unp += gp[e] * ne[e];
+      unm += gm[e] * ne[e];
     }
   const T u_p = unp > T(0) ? unp : T(0);
   const T u_m = -unm > T(0) ? -unm : T(0);
-  const T base = f_sip[f] ? f_area[f] : T(0);
-  const T epp = E_pp[idx], epm = E_pm[idx], emp = E_mp[idx], emm = E_mm[idx];
+  const T base = sip ? area : T(0);
   for (int k = 0; k < m; ++k) {
+    const T Dp = D[(size_t)k * n + cp], Dm = D[(size_t)k * n + cm];
     const T scale = (negpsi * z[k]) * base;
-    const T sp = (scale * D[(size_t)k * n + cp]) * u_p;
-    const T sm = (scale * D[(size_t)k * n + cm]) * u_m;
+    S[(size_t)(2 * k) * n1 + f] = (scale * Dp) * u_p;
+    S[(size_t)(2 * k + 1) * n1 + f] = (scale * Dm) * u_m;
+  }
+}
+
+template <typename T>
+__global__ void ion_facet_kernel(const T* __restrict__ S, const T* __restrict__ E_pp,
+                                 const T* __restrict__ E_pm, const T* __restrict__ E_mp,
+                                 const T* __restrict__ E_mm, T* __restrict__ Mpp,
+                                 T* __restrict__ Mpm, T* __restrict__ Mmp, T* __restrict__ Mmm,
+                                 int m, int nd, int nf1) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long per = (long long)nd * nd * nf1;
+  if (idx >= per) return;
+  const int f = (int)(idx % nf1);
+  const size_t n1 = (size_t)nf1;
+  const T epp = __ldcs(E_pp + idx), epm = __ldcs(E_pm + idx);
+  const T emp = __ldcs(E_mp + idx), emm = __ldcs(E_mm + idx);
+  for (int k = 0; k < m; ++k) {
+    const T sp = S[(size_t)(2 * k) * n1 + f], sm = S[(size_t)(2 * k + 1) * n1 + f];
     const size_t o = (size_t)k * per + idx;
-    Mpp[o] = sp * epp;
-    Mpm[o] = (-sm) * epm;
-    Mmp[o] = (-sp) * emp;
-    Mmm[o] = sm * emm;
+    __stcs(Mpp + o, sp * epp);
+    __stcs(Mpm + o, (-sm) * epm);
+    __stcs(Mmp + o, (-sp) * emp);
+    __stcs(Mmm + o, sm * emm);
   }
 }
 
@@ -279,12 +320,13 @@ __global__ void ion_emit_cell_kernel(
   extern "C" int knp_ion_facet##SFX(                                                       \
       const T* gphi, const T* D, const T* z, const int* f_cp, const int* f_cm,             \
       const T* f_n, const T* f_area, const unsigned char* f_sip, const T* E_pp,            \
-      const T* E_pm, const T* E_mp, const T* E_mm, T* Mpp, T* Mpm, T* Mmp, T* Mmm, int m,  \
-      int nd, int d, int nc, int nf1, double negpsi, void* stream) {                       \
-    ion_facet_kernel<T><<<knp_blocks((long long)nd * nd * nf1), KNP_THREADS, 0,            \
-                          (cudaStream_t)stream>>>(                                         \
-        gphi, D, z, f_cp, f_cm, f_n, f_area, f_sip, E_pp, E_pm, E_mp, E_mm, Mpp, Mpm, Mmp, \
-        Mmm, m, nd, d, nc, nf1, (T)negpsi);                                                \
+      const T* E_pm, const T* E_mp, const T* E_mm, T* Mpp, T* Mpm, T* Mmp, T* Mmm, T* S,   \
+      int m, int nd, int d, int nc, int nf1, double negpsi, void* stream) {                \
+    cudaStream_t st = (cudaStream_t)stream;                                                \
+    ion_facet_scalars_kernel<T><<<knp_blocks(nf1), KNP_THREADS, 0, st>>>(                  \
+        gphi, D, z, f_cp, f_cm, f_n, f_area, f_sip, S, m, d, nc, nf1, (T)negpsi);          \
+    ion_facet_kernel<T><<<knp_blocks((long long)nd * nd * nf1), KNP_THREADS, 0, st>>>(     \
+        S, E_pp, E_pm, E_mp, E_mm, Mpp, Mpm, Mmp, Mmm, m, nd, nf1);                        \
     return (int)cudaGetLastError();                                                        \
   }                                                                                        \
   extern "C" int knp_ion_membrane_rhs##SFX(                                                \

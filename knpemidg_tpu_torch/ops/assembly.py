@@ -515,6 +515,25 @@ def knp_facet_plain(g, masks, z, D, gphi, psi, neg=-1.0):
         neg * sp_ * g["E_mp"][None], sm_ * g["E_mm"][None]))
 
 
+def knp_facet_ordered_plain(g, masks, z, D, gphi, psi):
+    """:func:`knp_facet_plain` with each facet's normal products summed in
+    kernel K11's order (from zero, e ascending), so the kernel equals it to
+    the last bit; the card tests hold it so."""
+    d = gphi.shape[0]
+    SP, SM = gphi[:, g["f_cp"]], gphi[:, g["f_cm"]]
+    unp, unm = torch.zeros_like(g["f_area"]), torch.zeros_like(g["f_area"])
+    for e in range(d):
+        unp = unp + SP[e] * g["f_n"][e]
+        unm = unm + SM[e] * g["f_n"][e]
+    u_p, u_m = torch.clamp(unp, min=0.0), torch.clamp(-unm, min=0.0)
+    scale = -psi * z[:, None] * (g["f_area"] * masks["f_sip"])[None, :]
+    sp_ = (scale * D[:, g["f_cp"]] * u_p[None, :])[:, None, None, :]
+    sm_ = (scale * D[:, g["f_cm"]] * u_m[None, :])[:, None, None, :]
+    return tuple(M.contiguous() for M in (
+        sp_ * g["E_pp"][None], -sm_ * g["E_pm"][None],
+        -sp_ * g["E_mp"][None], sm_ * g["E_mm"][None]))
+
+
 def knp_facet(g, masks, z, D, gphi, psi):
     """:func:`knp_facet_plain`, kernel K11 ``knp_facet`` on a CUDA tensor."""
     if not gphi.is_cuda:
@@ -524,11 +543,15 @@ def knp_facet(g, masks, z, D, gphi, psi):
     dt_ = gphi.dtype
     ins = _inputs(dt_, gphi=(gphi, (d, nc)), D=(D, (m, nc)), z=(z, (m,)))
     blocks = _facet_blocks((m,), nd, nf1, gphi)
+    # each facet's 2m upwind scalars, computed once a facet by the first
+    # of the launch's two kernels and read by the second
+    scalars = torch.empty((2 * m, nf1), dtype=dt_, device=gphi.device)
     _cuda.launch("knp_facet", "knp_ion_facet", dt_, *ins,
                  *_tables(g, ("f_cp", "f_cm", "f_n", "f_area"), dt_),
                  masks["f_sip"].data_ptr(),
                  *_tables(g, ("E_pp", "E_pm", "E_mp", "E_mm"), dt_),
-                 *(M.data_ptr() for M in blocks), m, nd, d, nc, nf1, float(-psi))
+                 *(M.data_ptr() for M in blocks), scalars.data_ptr(), m, nd, d, nc, nf1,
+                 float(-psi))
     return tuple(blocks)
 
 

@@ -11,9 +11,14 @@ runs its plain torch version (``*_plain``) for tensors on the CPU and
 launches its kernel for CUDA tensors; there is no fallback between the two.
 Kernel A is built for the 3D DG1 operator (K = 5 slots of nd = 4 blocks),
 kernel B for its blocks and the pair layout's 8 x 8 blocks; other block
-sizes or slot counts raise on a CUDA tensor.
+sizes or slot counts raise on a CUDA tensor.  The apply takes the pair
+layout's 'halves' form (pair_bj = 'halves': the inverse's off-diagonal
+nd/2 x nd/2 blocks are zero and are not read), and its inverse once
+checked by :func:`block_jacobi_operands`, so an apply checks only r.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -130,11 +135,16 @@ def block_jacobi_inverse_plain(diag_blocks):
     return torch.stack([torch.stack(row, dim=-2) for row in I], dim=-3)
 
 
-def block_jacobi_apply_plain(Pinv, r):
+def block_jacobi_apply_plain(Pinv, r, halves=False):
     """Per-cell GEMV: (..., nd, nd, nc) x (..., nd, nc) -> (..., nd, nc),
     contiguous like the kernel's output (the two-level apply adds into it
-    in place)."""
-    return torch.einsum("...ijc,...jc->...ic", Pinv, r).contiguous()
+    in place).  ``halves``: the two diagonal nd/2 x nd/2 sub-blocks only
+    (the pair layout's pair_bj = 'halves', whose inverse is zero off them)."""
+    if not halves:
+        return torch.einsum("...ijc,...jc->...ic", Pinv, r).contiguous()
+    h = Pinv.shape[-2] // 2
+    return torch.cat([torch.einsum("...ijc,...jc->...ic", Pinv[..., s, s, :], r[..., s, :])
+                      for s in (slice(None, h), slice(h, None))], dim=-2)
 
 
 def _batch(t, core_dims):
@@ -159,19 +169,58 @@ def block_jacobi_inverse(diag_blocks):
     return out
 
 
+class BjOperands(NamedTuple):
+    """A block-Jacobi inverse checked once for its applies (on the card: its
+    dtype, shape and form), with the apply's output buffer where the caller
+    asked for one."""
+    Pinv: torch.Tensor
+    halves: bool
+    rshape: tuple              # the shape of r (and z): (m,) nd, nc
+    name: str                  # the launch counter ("" on the CPU)
+    buf: Optional[torch.Tensor]
+    tail: tuple                # m, nd, nc, halves
+
+
+def block_jacobi_operands(Pinv, halves=False, buffer=False) -> BjOperands:
+    """Check the inverse blocks (nd, nd, nc) or (m, nd, nd, nc) once for
+    :func:`block_jacobi_apply`.  ``halves``: apply the two diagonal
+    sub-blocks only (pair blocks, nd = 6 or 8; kernel B takes nd = 8).
+    ``buffer``: every apply writes into one output allocated here, for a
+    caller that makes a new tensor of the result before the next apply
+    (the pair layout's live mask); without it each apply returns a new
+    tensor."""
+    if Pinv.dim() not in (3, 4) or Pinv.shape[-3] != Pinv.shape[-2]:
+        raise ValueError("block_jacobi_apply: expected (m,) nd, nd, nc blocks")
+    nd, nc = Pinv.shape[-2], Pinv.shape[-1]
+    if halves and nd not in (6, 8):
+        raise ValueError(f"block_jacobi_apply: the halves form takes pair blocks "
+                         f"(nd = 6 or 8), got nd = {nd}")
+    rshape = tuple(Pinv.shape[:-3]) + (nd, nc)
+    buf = (torch.empty(rshape, dtype=Pinv.dtype, device=Pinv.device) if buffer else None)
+    if not Pinv.is_cuda:
+        return BjOperands(Pinv, bool(halves), rshape, "", buf, ())
+    _cuda.check("Pinv", Pinv)
+    _check_nd("block_jacobi_apply", nd, (8,) if halves else BJ_ND)
+    return BjOperands(Pinv, bool(halves), rshape, _bj_name("block_jacobi_apply", nd), buf,
+                      (_batch(Pinv, 3), nd, nc, int(bool(halves))))
+
+
 def block_jacobi_apply(Pinv, r):
     """(nd, nd, nc) x (nd, nc), or batched over m systems, -> (.., nd, nc)
-    (kernel B on a CUDA tensor)."""
+    (kernel B on a CUDA tensor).  ``Pinv``: the inverse blocks, checked
+    here and applied in the full form, or their :func:`block_jacobi_operands`,
+    which carry the form and the output buffer; with those an apply checks
+    only r."""
+    op = Pinv if isinstance(Pinv, BjOperands) else block_jacobi_operands(Pinv)
     if not r.is_cuda:
-        return block_jacobi_apply_plain(Pinv, r)
-    nd, nc = r.shape[-2], r.shape[-1]
-    if r.dim() not in (2, 3):
-        raise ValueError("block_jacobi_apply: expected (m,) nd, nc vectors")
-    m = _batch(r, 2)
-    _cuda.check("r", r)
-    _cuda.check("Pinv", Pinv, r.dtype, r.shape[:-2] + (nd, nd, nc))
-    _check_nd("block_jacobi_apply", nd, BJ_ND)
-    z = torch.empty_like(r)
-    _cuda.launch(_bj_name("block_jacobi_apply", nd), "knp_bj_apply", r.dtype, Pinv.data_ptr(),
-                 r.data_ptr(), z.data_ptr(), m, nd, nc)
+        z = block_jacobi_apply_plain(op.Pinv, r, op.halves)
+        return z if op.buf is None else op.buf.copy_(z)
+    if not op.Pinv.is_cuda:
+        raise ValueError("block_jacobi_apply: the operands were built from CPU tensors")
+    if r.shape != op.rshape or r.dtype != op.Pinv.dtype or not r.is_contiguous():
+        raise ValueError(f"block_jacobi_apply: expected a contiguous {op.Pinv.dtype} r of "
+                         f"shape {op.rshape}, got {r.dtype} {tuple(r.shape)}")
+    z = torch.empty_like(r) if op.buf is None else op.buf
+    _cuda.launch(op.name, "knp_bj_apply", r.dtype, op.Pinv.data_ptr(), r.data_ptr(),
+                 z.data_ptr(), *op.tail)
     return z

@@ -32,7 +32,7 @@ from .ops.pairs import (build_pair_maps, cell_bell_to_pair, from_pair,
                         pair_matvec_multi, pair_nbr, pair_v_sums, to_pair,
                         to_pair_host)
 from .ops.spmv import (bell_matvec, bell_matvec_fan, bell_matvec_multi,
-                       block_jacobi_apply, block_jacobi_inverse)
+                       block_jacobi_apply, block_jacobi_inverse, block_jacobi_operands)
 from .solvers.krylov import gmres_batched, pcg
 from .solvers.twolevel import (_np, build_moment_deflation, build_two_level,
                                compartment_ids, make_two_level, moment_vectors,
@@ -523,8 +523,8 @@ class Solver:
             data = pcK if pcK is not None else self._build_knp_pc(blocksK, sp_)
             pcf = two_level_apply_batched(data, P_diag, sp_.agg_size)
         else:
-            Pinv = block_jacobi_inverse(P_diag)
-            pcf = lambda r: block_jacobi_apply(Pinv, r.contiguous())
+            bj = block_jacobi_operands(block_jacobi_inverse(P_diag))
+            pcf = lambda r: block_jacobi_apply(bj, r.contiguous())
         r0 = rhsK - mv(c)
         res = gmres_batched(
             mv, r0, torch.zeros_like(r0), pcf,
@@ -545,14 +545,18 @@ class Solver:
         conv = to_pair(pm, [rhsK, c])
         rhs_p, c_p = conv[0], conv[1]
         lm = self._pair_mask.to(rhs_p.dtype)[None]
-        pdK_bj = pdK * self._pair_bj_halves[None] if sp_.pair_bj == "halves" else pdK
+        halves = sp_.pair_bj == "halves"
+        pdK_bj = pdK * self._pair_bj_halves[None] if halves else pdK
         if kind == "two_level":
             data = pcK if pcK is not None else self._build_knp_pc(blocksK, sp_)
-            pcf0 = two_level_apply_batched(data, pdK_bj, sp_.agg_size // 2)
+            # the masked product is the result: the applies reuse one buffer
+            pcf0 = two_level_apply_batched(data, pdK_bj, sp_.agg_size // 2, halves=halves,
+                                           buffer=True)
             pcf = lambda r: pcf0(r) * lm
         else:
-            Pinv = block_jacobi_inverse(pdK_bj.contiguous())
-            pcf = lambda r: block_jacobi_apply(Pinv, r.contiguous()) * lm
+            bj = block_jacobi_operands(block_jacobi_inverse(pdK_bj.contiguous()), halves,
+                                       buffer=True)
+            pcf = lambda r: block_jacobi_apply(bj, r.contiguous()) * lm
         r0 = rhs_p - mv(c_p)
         res = gmres_batched(
             mv, r0, torch.zeros_like(r0), pcf,
@@ -769,8 +773,8 @@ class Solver:
                 blocks, P_diag, self.g["nbr"], sp_.agg_size, sym=True,
                 comp_onehot=comp_onehot, comp_ids=comp_ids,
                 extra_diag=P_diag - blocks[0], ridge=sp_.coarse_ridge)
-        Pinv = block_jacobi_inverse(P_diag.contiguous())
-        return lambda r: block_jacobi_apply(Pinv, r.contiguous())
+        bj = block_jacobi_operands(block_jacobi_inverse(P_diag.contiguous()))
+        return lambda r: block_jacobi_apply(bj, r.contiguous())
 
     def _make_precond_pair(self, blocks, P_diag, sp_: SolverParams, pc):
         """Two-level EMI apply on the pair layout: chunks of agg_size // 2
@@ -783,7 +787,8 @@ class Solver:
         pd_, pe_ = blocks
         agg_p = sp_.agg_size // 2
         lm = self._pair_mask.to(P_diag.dtype)
-        if sp_.pair_bj == "halves":
+        halves = sp_.pair_bj == "halves"
+        if halves:
             P_diag = P_diag * self._pair_bj_halves
         if pc is None:
             oh, ids = self._comp_arrays()
@@ -794,7 +799,7 @@ class Solver:
                 comp_onehot=oh[:, cop0], comp_ids=ids[cop0],
                 extra_diag=P_diag - pd_, v=pair_v_sums(pd_, pe_),
                 ridge=sp_.coarse_ridge)
-        fn = two_level_apply_fn(pc, P_diag, agg_p)
+        fn = two_level_apply_fn(pc, P_diag, agg_p, halves=halves, buffer=True)
         return lambda r: fn(r) * lm
 
     def _build_knp_pc(self, blocksK, sp_: SolverParams):
@@ -881,8 +886,10 @@ class Solver:
             ritz = ritz_galerkin_host(blocks_c, nbr, W_h, project_mean=True)
         elif pair:
             pd_, pe_ = blocks
-            Pd_b = Pd * self._pair_bj_halves if sp_.pair_bj == "halves" else Pd
-            fn = two_level_apply_fn(data, Pd_b, sp_.agg_size // 2)
+            halves = sp_.pair_bj == "halves"
+            Pd_b = Pd * self._pair_bj_halves if halves else Pd
+            fn = two_level_apply_fn(data, Pd_b, sp_.agg_size // 2, halves=halves,
+                                    buffer=True)
             lm = self._pair_mask.to(Pd.dtype)
             W_pair = ritz_lanczos_W(
                 None, None, lambda v: fn(v) * lm, to_pair(self.pairs, rhs),

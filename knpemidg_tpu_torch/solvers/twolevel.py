@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from ..ops import coarse
-from ..ops.spmv import bell_matvec, block_jacobi_apply, block_jacobi_inverse
+from ..ops.spmv import (bell_matvec, block_jacobi_apply, block_jacobi_inverse,
+                        block_jacobi_operands)
 
 
 def compartment_ids(mesh) -> np.ndarray:
@@ -183,42 +184,50 @@ def build_two_level(blocks, nbr, agg_size: int, sym: bool = True,
     return data
 
 
-def two_level_apply_fn(data, P_diag, agg_size: int) -> Callable:
+def two_level_apply_fn(data, P_diag, agg_size: int, halves: bool = False,
+                       buffer: bool = False) -> Callable:
     """Per-solve additive preconditioner apply from frozen coarse ``data``
     (see build_two_level) and the current block-Jacobi diagonal: BJ +
     chunk coarse (with one refinement sweep when ``As`` is present) +
     compartment deflation + moment deflation + Ritz deflation (each when
-    its entries are in ``data``).  The BJ apply is kernel B; the rest is
-    K6's restrict, solve and prolong-add, added in place into it."""
+    its entries are in ``data``).  The BJ apply is kernel B (``halves``:
+    the pair diagonal's two diagonal sub-blocks only, pair_bj = 'halves');
+    the rest is K6's restrict, solve and prolong-add, added in place into
+    it.  ``buffer``: every apply returns the same tensor, overwritten, for
+    a caller that makes a new tensor of it before the next apply (the pair
+    layout's live mask); without it each apply returns a new tensor (the
+    PCG keeps it as z until its direction update)."""
     for key in ("d1inv", "momb_W"):
         if key in data:
             raise NotImplementedError(f"two-level data {key!r} is not ported")
-    Pinv = block_jacobi_inverse(P_diag.contiguous())
+    bj = block_jacobi_operands(block_jacobi_inverse(P_diag.contiguous()), halves, buffer)
     co = coarse.operands(data, agg_size, batched=False)
 
     def apply(r):                      # additive: BJ + coarse (+ deflation)
         r = r.contiguous()
-        out = block_jacobi_apply(Pinv, r)
+        out = block_jacobi_apply(bj, r)
         coarse.coarse_add(co, out[None], r[None])
         return out
 
     return apply
 
 
-def two_level_apply_batched(data, P_diag, agg_size: int) -> Callable:
+def two_level_apply_batched(data, P_diag, agg_size: int, halves: bool = False,
+                            buffer: bool = False) -> Callable:
     """Batched additive two-level apply: ``data`` leaves and ``P_diag``
     carry a leading system axis m; the returned apply maps (m, nd, nc) ->
     (m, nd, nc).  The block-Jacobi inverses are computed once here, not per
-    apply; the chunk coarse is K7 (the K6 kernels over m systems)."""
+    apply; the chunk coarse is K7 (the K6 kernels over m systems).
+    ``halves`` and ``buffer`` as in :func:`two_level_apply_fn`."""
     for key in ("d1inv", "ritz_W"):
         if key in data:
             raise NotImplementedError(f"two-level data {key!r} is not ported")
-    Pinv = block_jacobi_inverse(P_diag.contiguous())
+    bj = block_jacobi_operands(block_jacobi_inverse(P_diag.contiguous()), halves, buffer)
     co = coarse.operands(data, agg_size, batched=True)
 
     def apply(r):
         r = r.contiguous()
-        return coarse.coarse_add(co, block_jacobi_apply(Pinv, r), r)
+        return coarse.coarse_add(co, block_jacobi_apply(bj, r), r)
 
     return apply
 

@@ -162,6 +162,23 @@ def _knp_parts(St, x, static_blocks=None):
     return z, D, asum, drift, M, b_cell, b_p, b_m
 
 
+def test_knp_facet_ordered_plain_matches_the_plain(solvers):
+    """knp_facet_ordered_plain (the normal products summed in the kernel's
+    order, the card tests' exact reference for K11) against knp_facet_plain
+    on the fixture's facets at the state's potential gradient."""
+    Sj, St, x = solvers
+    p = St.params
+    m = St.N_ions
+    z, D = St.z[:m], St.D[:m]
+    gphi = assembly.knp_cell_plain(St.g, t64(x["phi"]), t64(x["c"]), p.dt)[0]
+    got = assembly.knp_facet_ordered_plain(St.g, St.masks, z, D, gphi, p.psi)
+    ref = assembly.knp_facet_plain(St.g, St.masks, z, D, gphi, p.psi)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.is_contiguous()
+        assert rel(a, b) < 1e-14
+    assert float(sum(M.abs().sum() for M in ref)) > 0.0
+
+
 def test_knp_upwind_blocks_and_membrane_rhs_match_jax(solvers):
     """The port's four KNP steps without the static operator against the
     JAX all-ion assembly without it: the upwind blocks, the drift cell

@@ -340,6 +340,104 @@ def test_pair_kernels_match_plain(pair_maps, dtype, tol):
         assert _cuda.LAUNCHES[k] == n0[k] + n, k
 
 
+# (systems, pairs) of the halves apply: the EMI and KNP solves' sizes and a
+# small odd one in three systems
+BJ_HALVES_SIZES = [(1, 63558), (2, 63558), (3, 1001)]
+
+
+def _halves_inverse(rng, m, npair, dtype, dev):
+    """A pair-layout inverse as the solver makes it: dominant 8 x 8 blocks
+    times the halves mask, a tenth of the pairs self-pairs whose second
+    half is an identity block, through kernel B's inverse (its zeros carry
+    the elimination's signs); and r, zero on the dead halves, with the live
+    entries' mask.  m = 1: the unbatched form."""
+    eye = torch.eye(8, dtype=dtype, device=dev)[None, :, :, None]
+    halves = torch.as_tensor(np.kron(np.eye(2), np.ones((4, 4)))[:, :, None], dtype=dtype,
+                             device=dev)
+    P = (0.3 * _rand(rng, (m, 8, 8, npair), dtype, dev) + 4.0 * eye) * halves
+    dead = torch.as_tensor(rng.random(npair) < 0.1, device=dev)
+    P[:, 4:, 4:, dead] = torch.eye(4, dtype=dtype, device=dev)[None, :, :, None]
+    live = torch.ones((m, 8, npair), dtype=torch.bool, device=dev)
+    live[:, 4:, dead] = False
+    r = _rand(rng, (m, 8, npair), dtype, dev) * live
+    if m == 1:
+        P, r, live = P[0], r[0], live[0]
+    return spmv.block_jacobi_inverse(P.contiguous()), r.contiguous(), live
+
+
+@pytest.mark.parametrize("m,npair", BJ_HALVES_SIZES)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_block_jacobi_halves_equals_the_full_form_bitwise(m, npair, dtype, tol):
+    """K5's halves apply (a thread per system, half and pair, reading the
+    diagonal sub-blocks only) equals the full-form apply on the same halves
+    inverse bit for bit on the live entries and in value everywhere, one
+    launch a call, through the operands with and without their buffer; the
+    full form against its plain version to round-off."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(22)
+    inv, r, live = _halves_inverse(rng, m, npair, dtype, dev)
+    n0 = _cuda.LAUNCHES["block_jacobi_apply_nd8"]
+    got = spmv.block_jacobi_apply(spmv.block_jacobi_operands(inv, halves=True), r)
+    full = spmv.block_jacobi_apply(inv, r)
+    assert _cuda.LAUNCHES["block_jacobi_apply_nd8"] == n0 + 2
+    assert torch.equal(got, full)
+    assert torch.equal(_bits(got)[live], _bits(full)[live])
+    assert rel(full, spmv.block_jacobi_apply_plain(inv, r)) < tol
+    assert rel(got, spmv.block_jacobi_apply_plain(inv, r, halves=True)) < tol
+    for buffer in (False, True):
+        op = spmv.block_jacobi_operands(inv, halves=True, buffer=buffer)
+        for _ in range(3):
+            z = spmv.block_jacobi_apply(op, r)
+            assert torch.equal(_bits(z), _bits(got)) and (z is op.buf) == buffer
+
+
+def test_block_jacobi_apply_is_one_launch_and_allocates_nothing_with_its_buffer():
+    """Five applies of the pair KNP solve's halves operands with their
+    buffer are five bj_apply_kernel launches, nothing else on the device,
+    and no allocation (the caching allocator's count); the cell form
+    without a buffer is one launch a call too."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(24)
+    inv, r, _ = _halves_inverse(rng, 2, 63558, torch.float64, dev)
+    op = spmv.block_jacobi_operands(inv, halves=True, buffer=True)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+
+    def applies():
+        for _ in range(5):
+            spmv.block_jacobi_apply(op, r)
+
+    kernels = _device_kernels(applies, sessions=3, want=5, match="bj_apply_kernel")
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
+    assert len(kernels) == 5 and all("bj_apply_kernel" in k for k in kernels), kernels
+    P = (_rand(rng, (4, 4, 1000), torch.float64, dev)
+         + 8.0 * torch.eye(4, dtype=torch.float64, device=dev)[:, :, None])
+    cell = spmv.block_jacobi_operands(spmv.block_jacobi_inverse(P.contiguous()))
+    x = _rand(rng, (4, 1000), torch.float64, dev)
+    kernels = _device_kernels(lambda: spmv.block_jacobi_apply(cell, x), sessions=3, want=1,
+                              match="bj_apply_kernel")
+    assert len(kernels) == 1 and "bj_apply_kernel" in kernels[0], kernels
+
+
+def test_block_jacobi_operands_refuse_what_the_kernel_cannot_take():
+    """Halves at nd = 4 (ValueError) and nd = 6 (no kernel), operands of CPU
+    tensors on a CUDA r, and an r of another shape, dtype or layout raise."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(25)
+    P4 = _rand(rng, (4, 4, 64), torch.float64, dev)
+    with pytest.raises(ValueError):
+        spmv.block_jacobi_operands(P4, halves=True)
+    with pytest.raises(NotImplementedError):
+        spmv.block_jacobi_operands(_rand(rng, (6, 6, 64), torch.float64, dev), halves=True)
+    inv, r, _ = _halves_inverse(rng, 2, 101, torch.float64, dev)
+    op = spmv.block_jacobi_operands(inv, halves=True)
+    with pytest.raises(ValueError):
+        spmv.block_jacobi_apply(spmv.block_jacobi_operands(inv.cpu(), halves=True), r)
+    for bad in (r[:1].contiguous(), r.float(), r.transpose(1, 2).contiguous().transpose(1, 2)):
+        with pytest.raises(ValueError):
+            spmv.block_jacobi_apply(op, bad)
+
+
 def test_pair_kernels_refuse_unported_maps(pair_maps):
     """Sharded maps (live0) and index-map (cell_col) maps raise on the
     card instead of running plain."""
@@ -876,6 +974,44 @@ def test_emi_facet_tiles_and_membrane_facets(nd, membrane):
             assert rel(a, b) < tol, (dtype, k)
         for M in got[:4]:
             assert not bool(M[..., off].any())
+
+
+# facet counts of the K11 facet case: one facet, a warp and a 256-thread
+# block +- 1, many
+KNP_FACET_COUNTS = (1, 31, 33, 255, 257, 1197)
+
+
+@pytest.mark.parametrize("sip", ["none", "all", "some"])
+@pytest.mark.parametrize("nd", [3, 4])
+def test_knp_facet_equals_the_ordered_plain_exactly(nd, sip):
+    """K11 knp_facet (each facet's scalars once, then the sweep over its
+    entries) equals knp_facet_ordered_plain exactly and knp_facet_plain to
+    round-off, in both dtypes, at nd = 3 (2D) and 4 (3D), m = 1, 2, 3 ions,
+    on facet counts on and off the warp and block sizes, with no, all or
+    some SIP facets: one counted launch a call, and the facets that are not
+    SIP exactly zero."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(23)
+    nc, psi = 500, 1.3
+    for dtype, tol in DTYPES:
+        for nf1 in KNP_FACET_COUNTS:
+            g = _facet_case(rng, nd, nf1, nc, "none", dtype, dev)[0]
+            on = {"none": np.zeros(nf1, bool), "all": np.ones(nf1, bool),
+                  "some": rng.random(nf1) < 0.5}[sip]
+            masks = {"f_sip": torch.as_tensor(on, device=dev)}
+            gphi = _rand(rng, (nd - 1, nc), dtype, dev)
+            for m in (1, 2, 3):
+                z = torch.as_tensor(rng.choice([-1.0, 1.0, 2.0], m), dtype=dtype, device=dev)
+                D = torch.as_tensor(rng.uniform(0.5, 2.0, (m, nc)), dtype=dtype, device=dev)
+                n0 = _cuda.LAUNCHES["knp_facet"]
+                got = assembly.knp_facet(g, masks, z, D, gphi, psi)
+                assert _cuda.LAUNCHES["knp_facet"] == n0 + 1
+                ref = assembly.knp_facet_ordered_plain(g, masks, z, D, gphi, psi)
+                plain = assembly.knp_facet_plain(g, masks, z, D, gphi, psi)
+                for k, (a, b, c) in enumerate(zip(got, ref, plain)):
+                    assert a.shape == (m, nd, nd, nf1) and torch.equal(a, b), (dtype, nf1, m, k)
+                    assert rel(a, c) < tol, (dtype, nf1, m, k)
+                    assert not bool(a[..., ~masks["f_sip"]].any())
 
 
 def test_pair_matvec_reads_only_the_owner_halves(pair_maps):

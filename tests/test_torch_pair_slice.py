@@ -79,7 +79,9 @@ def test_pair_preconditioner_data_match_jax(pc_setup):
 
 def test_pair_preconditioner_applies_match_jax(pc_setup):
     """The live-masked two-level applies on (2nd, 2nd, npair) diagonals
-    with agg_size // 2 pair chunks, both pair_bj variants."""
+    with agg_size // 2 pair chunks, both pair_bj variants; the batched KNP
+    apply unmasked in the full form and as the solver makes it (halves,
+    masked)."""
     Sj, spj, sj, St, spt, st = pc_setup
     pMj, Ichj, Itj = Sj._pads(sj)
     blocks, rhs, Pd = Sj._assemble_emi(sj["c"], sj["c_elim"], pMj, Itj, sj["t"],
@@ -100,6 +102,12 @@ def test_pair_preconditioner_applies_match_jax(pc_setup):
     pdK_bj = bK[0] * Sj._pair_bj_halves[None]
     R = rng.standard_normal(bK[0].shape[:2] + bK[0].shape[-1:])
     gj = jtl.two_level_apply_batched(sj["pc"]["knp"], pdK_bj, agg)
-    gt = twolevel.two_level_apply_batched(
-        {k: t64(v) for k, v in sj["pc"]["knp"].items()}, t64(pdK_bj), agg)
-    assert rel(gt(t64(R)), gj(jnp.asarray(R))) < 1e-10
+    data = {k: t64(v) for k, v in sj["pc"]["knp"].items()}
+    gt = twolevel.two_level_apply_batched(data, t64(pdK_bj), agg)
+    ref = gj(jnp.asarray(R))
+    assert rel(gt(t64(R)), ref) < 1e-10
+    # the solver's form: the halves flag on the halves diagonal, the live
+    # mask applied to the result
+    lm = np.asarray(Sj._pair_mask, dtype=np.float64)[None]
+    gh = twolevel.two_level_apply_batched(data, t64(pdK_bj), agg, halves=True, buffer=True)
+    assert rel(gh(t64(R)) * t64(lm), np.asarray(ref) * lm) < 1e-10

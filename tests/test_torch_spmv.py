@@ -110,3 +110,51 @@ def test_bell_matvec_2d_matches_jax(nbr_2d, m):
         got = spmv.bell_matvec_multi(t64(B), nbr_2d, t64(x))
     assert K == 4 and K != spmv.MATVEC_K
     assert rel(got, ref) < TOL
+
+
+def _halves_case(rng, m, nc=613):
+    """A halves-masked 8 x 8 inverse (the pair layout's pair_bj = 'halves')
+    and r, (m,) leading: random blocks, zero off the two 4 x 4 diagonal
+    sub-blocks."""
+    lead = () if m is None else (m,)
+    mask = np.kron(np.eye(2), np.ones((4, 4)))[:, :, None]
+    return (rng.standard_normal(lead + (8, 8, nc)) * mask,
+            rng.standard_normal(lead + (8, nc)))
+
+
+@pytest.mark.parametrize("m", [None, 2])
+def test_block_jacobi_halves_matches_jax(m):
+    """The halves form (the two diagonal sub-blocks only) against the JAX
+    package's full apply on a halves-masked inverse, to round-off, and equal
+    to the port's own full form on it; through the operands, with and
+    without the output buffer."""
+    rng = np.random.default_rng(13)
+    P, r = _halves_case(rng, m)
+    ref = (jspmv.block_jacobi_apply(jnp.asarray(P), jnp.asarray(r)) if m is None else
+           jnp.stack([jspmv.block_jacobi_apply(jnp.asarray(P[s]), jnp.asarray(r[s]))
+                      for s in range(m)]))
+    Pt, rt = t64(P), t64(r)
+    got = spmv.block_jacobi_apply_plain(Pt, rt, halves=True)
+    assert got.shape == rt.shape and got.is_contiguous()
+    assert rel(got, ref) < 1e-14
+    assert torch.equal(got, spmv.block_jacobi_apply_plain(Pt, rt))
+    for buffer in (False, True):
+        op = spmv.block_jacobi_operands(Pt, halves=True, buffer=buffer)
+        z = spmv.block_jacobi_apply(op, rt)
+        assert torch.equal(z, got)
+        assert (z is op.buf) == buffer
+
+
+def test_block_jacobi_halves_takes_pair_blocks_only():
+    """The halves form is the pair layout's: 8 x 8 blocks (3D) and 6 x 6
+    (2D) on the CPU; cell blocks (nd = 4) and odd sizes raise."""
+    rng = np.random.default_rng(14)
+    P6 = t64(rng.standard_normal((6, 6, 50)) * np.kron(np.eye(2), np.ones((3, 3)))[:, :, None])
+    r6 = t64(rng.standard_normal((6, 50)))
+    assert torch.equal(spmv.block_jacobi_apply(spmv.block_jacobi_operands(P6, halves=True), r6),
+                       spmv.block_jacobi_apply_plain(P6, r6))
+    for nd in (4, 5):
+        with pytest.raises(ValueError):
+            spmv.block_jacobi_operands(t64(rng.standard_normal((nd, nd, 50))), halves=True)
+    with pytest.raises(ValueError):
+        spmv.block_jacobi_operands(t64(rng.standard_normal((8, 4, 50))))

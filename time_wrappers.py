@@ -49,6 +49,17 @@ and float64, beside the library calls chip_smoke.py holds them to:
        traces and every tag's push sources; a tree without it:
        Solver._ode_inputs, the traces with every tag's parameters cloned
        and set), host time included; no graph;
+  k5   K5's block-Jacobi apply as the two-level apply calls it, on the
+       EMI (m = 1) and KNP (m = 2) systems of the cell layout (nd = 4,
+       124,416 cells) and the pair layout (2nd = 8, 63,558 pairs, the
+       inverse zero off its two diagonal 4 x 4 blocks): this tree's
+       operands checked once (the pair layout's halves form writing into
+       its buffer), and on the pair layout also its full form; a tree
+       without them its block_jacobi_apply(Pinv, r), the full form; beside
+       chip_smoke.lib_apply (one batched torch.matmul);
+  k11  K11 knp_facet on chip_smoke.py's cell-layout facet tables at a
+       seeded potential's gradient, both dtypes, with a digest of its
+       outputs;
   k13  Solver._ode_step itself in float64 under each scheme at
        chip_smoke.py's configuration: the pushes, every tag's ODE step and
        the pulls (this tree: one K13 launch; a tree with the per-tag
@@ -79,7 +90,7 @@ device microseconds per call of 100 calls replayed as one CUDA graph
 measured" where the call cannot be captured).  It also prints the cost of
 reading the current stream both ways.
 
-Usage:  python3 time_wrappers.py [--root DIR] [--only k8,k9,k6,k4,k1,k14,k13]
+Usage:  python3 time_wrappers.py [--root DIR] [--only k8,k9,k6,k4,k1,k14,k13,k5,k11]
         (needs a CUDA card)
 """
 import argparse
@@ -92,7 +103,7 @@ import time
 
 import torch
 
-from chip_smoke import dense_gemvs, graph_ms
+from chip_smoke import dense_gemvs, graph_ms, lib_apply
 
 SHAPES = {"cell": (4, 124416), "pair": (8, 63558)}
 # coarse sizes: (cells of the layout's r, dofs, chunk size, compartment,
@@ -353,6 +364,36 @@ def time_to_pair(pairs, dev, gen):
             report("k4time", f"{str(dtype):14s} {name}", fn)
 
 
+def time_bj(spmv, dev, gen):
+    operands = hasattr(spmv, "block_jacobi_operands")
+    print(f"k5time  operands and halves form {operands}")
+    for layout, (nd, nc) in SHAPES.items():
+        pair = layout == "pair"
+        for dtype in (torch.float32, torch.float64):
+            for m in (1, IONS):
+                lead = () if m == 1 else (m,)
+                Pinv = torch.randn(lead + (nd, nd, nc), generator=gen, device=dev, dtype=dtype)
+                if pair:
+                    Pinv = Pinv * torch.kron(torch.eye(2, device=dev, dtype=dtype),
+                                             torch.ones(4, 4, device=dev, dtype=dtype))[..., None]
+                r = torch.randn(lead + (nd, nc), generator=gen, device=dev, dtype=dtype)
+                calls = {}
+                if operands:
+                    op = spmv.block_jacobi_operands(Pinv, halves=pair, buffer=pair)
+                    calls["block_jacobi_apply (as the two-level apply)"] = (
+                        lambda op=op, r=r: spmv.block_jacobi_apply(op, r))
+                    if pair:
+                        full = spmv.block_jacobi_operands(Pinv, buffer=True)
+                        calls["block_jacobi_apply full form, buffer"] = (
+                            lambda full=full, r=r: spmv.block_jacobi_apply(full, r))
+                else:
+                    calls["block_jacobi_apply (as the two-level apply)"] = (
+                        lambda Pinv=Pinv, r=r: spmv.block_jacobi_apply(Pinv, r))
+                calls["lib_apply (torch.matmul)"] = lambda Pinv=Pinv, r=r: lib_apply(Pinv, r)
+                for name, fn in calls.items():
+                    report("k5time", f"{layout} m={m} {str(dtype):14s} {name}", fn)
+
+
 def main_solver():
     """chip_smoke.py's cell-layout solver in float64."""
     from knpemidg_tpu_torch import emix
@@ -395,6 +436,29 @@ def time_bell(spmv, S, dev, gen):
             report("k1time", f"{str(dtype):14s} {name}", fn)
         del B, x, BK, xK, Bh, xh, calls
         torch.cuda.empty_cache()
+
+
+def time_knp_facet(asm, S, gen):
+    """K11's facet blocks on the cell layout's facet tables at a seeded
+    potential's gradient, both dtypes, with the bits' digest (equal digests
+    across trees: equal outputs)."""
+    import hashlib
+
+    state = S._initial_state(0.0)
+    m = S.N_ions
+    phi = 1e-3 * torch.randn(state["phi"].shape, generator=gen, device=state["phi"].device,
+                             dtype=torch.float64)
+    for dtype in (torch.float32, torch.float64):
+        g = {k: (v.to(dtype) if isinstance(v, torch.Tensor) and v.is_floating_point() else v)
+             for k, v in S.g.items()}
+        gphi = asm.knp_cell(g, phi.to(dtype), state["c"].to(dtype), S.params.dt)[0]
+        z, D = S.z[:m].to(dtype).contiguous(), S.D[:m].to(dtype).contiguous()
+        fn = lambda: asm.knp_facet(g, S.masks, z, D, gphi, S.params.psi)
+        h = hashlib.sha256()
+        for t in fn():
+            h.update(t.cpu().numpy().tobytes())
+        report("k11time", f"{str(dtype):14s} knp_facet ({g['f_area'].shape[0]} facets, "
+               f"m = {m}) digest {h.hexdigest()[:16]}", fn)
 
 
 def time_traces(asm, S):
@@ -504,7 +568,9 @@ def main():
                 "k4": lambda: time_to_pair(pairs, dev, gen),
                 "k1": lambda: time_bell(spmv, solver(), dev, gen),
                 "k14": lambda: time_traces(asm, solver()),
-                "k13": lambda: time_ode_step(engine, solver())}
+                "k13": lambda: time_ode_step(engine, solver()),
+                "k5": lambda: time_bj(spmv, dev, gen),
+                "k11": lambda: time_knp_facet(asm, solver(), gen)}
     for key in args.only.split(","):
         sections[key]()
 
