@@ -36,6 +36,8 @@ layout).  On the way it:
      production tolerances the float32 EMI solve can stall at the
      iteration cap on this mesh (so can the JAX package's float32 program
      on the CPU), so this phase reports and does not assert convergence;
+     every window's Krylov counts, float64 and float32, must equal the
+     reference counts measured on the card (WINDOW_COUNTS, PERF.md);
   7. runs the cell layout's float64 protocol once more with
      ode_scheme="rush_larsen" (the neuron's points through the Rush-Larsen
      branch of K13's one launch a step) and asserts it as in 5;
@@ -71,9 +73,12 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 # The two-level kernels (K6, K7) are held to the same 1e-5 / 1e-12 against
 # their componentwise scales: the sums of |terms| of each restricted,
 # solved (through the refinement) or prolonged value (coarse_abs,
-# solve_scale).
+# solve_scale); K7's one-launch apply (two_level_coarse_batched) the same
+# against the three plain steps, and bit for bit against its three
+# launches.
 TWO_LEVEL = [f"two_level_{e}{b}{p}" for b in ("", "_batched") for p in ("", "_pair")
-             for e in ("restrict", "solve", "prolong")]
+             for e in ("restrict", "solve", "prolong")] + [
+    f"two_level_coarse_batched{p}" for p in ("", "_pair")]
 # The assembly kernels (K10, K11, K14): the cell, facet, membrane and trace
 # kernels do arithmetic and are held to 1e-5 / 1e-12 of each value's sum of
 # |terms| (the plain version with neg = +1 on absolute-valued inputs); the
@@ -141,9 +146,29 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # updates of 45 operations each (GlialKir runs RK4 under that scheme)
 RK4_RHS_OPS = {"HodgkinHuxleyMV": 85, "GlialKir": 40}
 RL_SUBSTEP_OPS = {"HodgkinHuxleyMV": 2 * 85 + 2 * 45, "GlialKir": 4 * 40}
-# the float64 counts of the 10-step windows (the parent tree's, PERF.md)
-WINDOW_REF = {"cell": ([5, 3, 3, 3, 3, 3, 1, 3, 3, 1], 21),
-              "pair": ([9, 8, 2, 3, 2, 2, 2, 1, 2, 2], None)}
+# the Krylov counts of every 10-step window, EMI a step and KNP a step and
+# ion (float64: 28 / 22 / 28 / 33 EMI iterations; float32: 2,742 x 3, 418,
+# 2,631, 363), as measured on the card (PERF.md): every kernel
+# redesign keeps the bits, so report_window fails a window that moves
+WINDOW_COUNTS = {
+    "cell64": ([5, 3, 3, 3, 3, 3, 1, 3, 3, 1], [[1, 1]] * 7 + [[2, 1], [1, 1], [1, 1]]),
+    "cell64-r0": ([4, 4, 2, 2, 2, 1, 2, 2, 2, 1],
+                  [[3, 1], [2, 2]] + [[1, 1]] * 4 + [[2, 2]] + [[1, 1]] * 3),
+    "cell64-rl": ([5, 3, 3, 3, 3, 3, 1, 3, 3, 1], [[1, 1]] * 7 + [[2, 1], [1, 1], [1, 1]]),
+    "pair64": ([9, 8, 2, 3, 2, 2, 2, 1, 2, 2],
+               [[9, 4], [6, 2], [3, 2], [1, 1], [3, 2], [1, 1], [2, 2], [2, 1], [3, 1], [1, 1]]),
+    "cell32-r24": ([110, 822, 133, 102, 63, 86, 1000, 102, 109, 215],
+                   [[5, 5], [5, 5], [10, 8], [9, 6], [14, 9], [11, 6], [9, 6], [14, 9],
+                    [15, 9], [16, 10]]),
+    "cell32-host": ([83, 56, 33, 38, 4, 5, 47, 5, 89, 58],
+                    [[5, 5], [10, 7], [11, 7], [10, 6], [12, 8], [9, 6], [14, 6], [10, 6],
+                     [13, 7], [14, 6]]),
+    "cell32-r0": ([25, 309, 167, 432, 301, 347, 181, 207, 343, 319],
+                  [[5, 6], [10, 10], [13, 7], [12, 10], [14, 6], [11, 6], [15, 7], [11, 6],
+                   [15, 10], [12, 6]]),
+    "pair32": ([26, 20, 44, 6, 86, 6, 86, 44, 6, 39],
+               [[21, 10], [12, 16], [16, 8], [17, 10], [15, 6], [11, 11], [14, 8], [16, 6],
+                [17, 7], [14, 6]])}
 KRYLOV_ROWS = 4           # populated basis rows at which K9 is checked and timed
 
 # kernel -> (source, the TPU-side function it replaces, the path it serves
@@ -170,13 +195,19 @@ KERNELS = {
     "block_jacobi_apply_nd8": ("knpemidg_tpu_torch/csrc/block_jacobi.cu",
                                "knpemidg_tpu/ops/spmv.py:131", "pair"),
     # K6 (the EMI apply) and K7 (the batched KNP apply) at each layout's
-    # shapes; one launch counter per entry point serves both layouts
+    # shapes; one launch counter per entry point serves both layouts.  The
+    # main path's K7 is the one-launch apply (two_level_coarse_batched);
+    # K7's three entry points stay rows of their own (the route of
+    # operands with As), off the main path (OFF_PATH)
     **{f"two_level_{e}{b}{'_pair' if p == 'pair' else ''}": (
         "knpemidg_tpu_torch/csrc/two_level.cu",
         "knpemidg_tpu/solvers/twolevel.py:" + ("907" if b else "784"), p,
         f"two_level_{e}{b}")
        for b in ("", "_batched") for p in ("cell", "pair")
        for e in ("restrict", "solve", "prolong")},
+    **{f"two_level_coarse_batched{'_pair' if p == 'pair' else ''}": (
+        "knpemidg_tpu_torch/csrc/two_level.cu", "knpemidg_tpu/solvers/twolevel.py:907", p,
+        "two_level_coarse_batched") for p in ("cell", "pair")},
     # K10, K11, K14 at each layout's cell axis; one counter serves both
     **{f"{k}{'_pair' if p == 'pair' else ''}": (
         "knpemidg_tpu_torch/csrc/" + src, repl, p, k)
@@ -203,10 +234,15 @@ def counter(name):
 
 # counters each path's run must launch (membrane_rk4 serves both layouts;
 # the Rush-Larsen window is a cell window whose one K13 launch a step, the
-# glial points' RK4 included, counts as membrane_rl)
-PATH_KERNELS = {"cell": sorted({counter(k) for k, v in KERNELS.items() if v[2] == "cell"}),
-                "pair": sorted({counter(k) for k, v in KERNELS.items() if v[2] == "pair"}
-                               | {"membrane_rk4"})}
+# glial points' RK4 included, counts as membrane_rl).  K7's three entry
+# points are checked and timed at the main path's shapes, but the main
+# path's K7 operands (no fields, no As) take the one-launch apply: their
+# window launches are 0
+OFF_PATH = {f"two_level_{e}_batched" for e in ("restrict", "solve", "prolong")}
+PATH_KERNELS = {"cell": sorted({counter(k) for k, v in KERNELS.items() if v[2] == "cell"}
+                               - OFF_PATH),
+                "pair": sorted(({counter(k) for k, v in KERNELS.items() if v[2] == "pair"}
+                                | {"membrane_rk4"}) - OFF_PATH)}
 PATH_KERNELS["rl"] = [k for k in PATH_KERNELS["cell"] if k != "membrane_rk4"] + ["membrane_rl"]
 # K13 launches a step of each path's run: (membrane_rk4, membrane_rl)
 ODE_LAUNCHES_PER_STEP = {"cell": (1, 0), "pair": (1, 0), "rl": (0, 1)}
@@ -223,6 +259,10 @@ def report_window(S, dtype, layout, variant=""):
     print(f"{tag:7s} {dtype} knp iters {S.stats.knp_niters}")
     print(f"{tag:7s} {dtype} ms/step {[round(v, 2) for v in steps_ms]}")
     print(f"{tag:7s} {dtype} median {med:.2f} ms/step (ODE median {ode:.2f} ms)")
+    same = (S.stats.emi_niters, S.stats.knp_niters) == WINDOW_COUNTS[tag]
+    print(f"{tag:7s} {dtype} Krylov counts equal the reference counts: {same}")
+    if not same:
+        raise AssertionError(f"the {tag} window's Krylov counts moved")
     return med, ode
 
 
@@ -296,7 +336,7 @@ def exact(ref):
 
 def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results, inputs=(),
             flops=0.0, library_fn=None, record=True, timed=None, extra_bytes=0,
-            whole_bytes=None):
+            whole_bytes=None, out_bytes=None):
     """Check one kernel against its plain version; when ``record``, time
     the kernel, the plain version and the library call per dtype and store
     them with the bound (``inputs`` read once plus ``extra_bytes`` of
@@ -306,8 +346,10 @@ def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results, inputs=(),
     (kernel, plain) functions to time instead of the checked ones (an
     in-place kernel is checked on a copy, timed without one).
     ``whole_bytes``: the input bytes counting every input whole, whose
-    bound is printed beside the work's.  Returns the bound in ms when
-    recorded."""
+    bound is printed beside the work's (with every output whole).
+    ``out_bytes``: the bytes the work writes where it writes part of its
+    outputs (K12: the owner halves of pe), else every output whole.
+    Returns the bound in ms when recorded."""
     got, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     errs = [err(a, b, sc) for a, b, sc in zip(got, ref, scale_fn(ref))]
@@ -326,7 +368,8 @@ def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results, inputs=(),
     entry["ms"] = cuda_ms(k_fn)
     entry["plain_ms"] = cuda_ms(p_fn)
     entry["library_ms"] = cuda_ms(library_fn) if library_fn is not None else None
-    byte_ms = 1e3 * (nbytes(inputs) + extra_bytes + nbytes(got)) / PEAK_BYTES_S
+    wrote = nbytes(got) if out_bytes is None else out_bytes
+    byte_ms = 1e3 * (nbytes(inputs) + extra_bytes + wrote) / PEAK_BYTES_S
     op_ms = 1e3 * flops / PEAK_FLOPS[dtype]
     entry["bound_ms"] = max(byte_ms, op_ms)
     entry["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
@@ -491,12 +534,20 @@ def dense_gemvs(co, x):
     return [torch.matmul(A, x[..., None]) for A in mats]
 
 
-def coarse_phase(layout, co, r, results):
+def bits(t):
+    """t's bytes as integers (torch.equal takes -0 for +0)."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def coarse_phase(layout, co, r, results, mask=None):
     """K6 (co.batched False) or K7 at one layout's shapes: restrict, solve
     and prolong_add against their plain versions on the same inputs, timed
     with their bounds.  solve and prolong_add run as the apply calls them:
     on the workspace's buffers (restrict's and solve's outputs, here loaded
-    with the plain versions' values)."""
+    with the plain versions' values), the prolong-add with the pair
+    layout's live ``mask``.  K7's operands (no fields, no As) also take the
+    one-launch apply, as the KNP solve calls it: held bit for bit to the
+    three launches and to the three plain steps to round-off, and timed."""
     from knpemidg_tpu_torch.ops import coarse
 
     dtype = r.dtype
@@ -539,14 +590,36 @@ def coarse_phase(layout, co, r, results):
     wk.coef.copy_(coef)
     out0 = r.clone()                   # stands in for the block-Jacobi output
     bufs = [out0.clone(), out0.clone()]
+    masks = [] if mask is None else [mask]
     compare(name("prolong"), dtype,
-            lambda: [coarse.prolong_add(co, out0.clone(), wk.zc, wk.coef)],
-            lambda: [coarse.prolong_add_plain(co, out0.clone(), zc, coef)],
-            lambda ref: [coarse.prolong_add_plain(a, out0.abs(), zc.abs(), coef.abs())],
-            results, inputs=[out0, zc, coef], extra_bytes=span_bytes,
-            whole_bytes=whole([out0, zc, coef]), flops=field_flops + 2.0 * r.numel(),
-            timed=(lambda: coarse.prolong_add(co, bufs[0], wk.zc, wk.coef),
-                   lambda: coarse.prolong_add_plain(co, bufs[1], zc, coef)))
+            lambda: [coarse.prolong_add(co, out0.clone(), wk.zc, wk.coef, mask)],
+            lambda: [coarse.prolong_add_plain(co, out0.clone(), zc, coef, mask)],
+            lambda ref: [coarse.prolong_add_plain(a, out0.abs(), zc.abs(), coef.abs(), mask)],
+            results, inputs=[out0, zc, coef] + masks, extra_bytes=span_bytes,
+            whole_bytes=whole([out0, zc, coef] + masks),
+            flops=field_flops + (3.0 if masks else 2.0) * r.numel(),
+            timed=(lambda: coarse.prolong_add(co, bufs[0], wk.zc, wk.coef, mask),
+                   lambda: coarse.prolong_add_plain(co, bufs[1], zc, coef, mask)))
+    if co.work.fused is None:
+        return
+    fused = "two_level_coarse_batched" + ("_pair" if layout == "pair" else "")
+    three = coarse.prolong_add(co, out0.clone(), *coarse.solve(co, *coarse.restrict(co, r)),
+                               mask)
+    one = coarse.coarse_add(co, out0.clone(), r, mask)
+    torch.cuda.synchronize()
+    same = torch.equal(bits(one), bits(three))
+    print(f"exact   {fused:30s} {str(dtype):14s} one launch = restrict, solve, prolong_add "
+          f"bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"{fused} differs from the three launches in {dtype}")
+    bufs = [out0.clone(), out0.clone()]
+    compare(fused, dtype, lambda: [coarse.coarse_add(co, out0.clone(), r, mask)],
+            lambda: [coarse.coarse_apply_plain(co, out0.clone(), r, mask)],
+            lambda ref: [coarse.coarse_apply_plain(a, out0.abs(), r.abs(), mask)],
+            results, inputs=[r, out0, co.inv, co.s] + masks,
+            flops=2.0 * m * n * n + r.numel() + (3.0 if masks else 2.0) * r.numel(),
+            timed=(lambda: coarse.coarse_add(co, bufs[0], r, mask),
+                   lambda: coarse.coarse_apply_plain(co, bufs[1], r, mask)))
 
 
 def coarse_inputs(pc, agg, dtype):
@@ -771,14 +844,32 @@ def pair_kernel_phase(S, state, results):
             emits["gather_blocks_pair_multi"][0])
         reg = emits["gather_blocks_pair"][1]["reg"].to(dtype)
         add = tuple(cast(emits["gather_blocks_pair_multi"][1]["add"]))
+        # as the step calls it: into buffers made once, whose pe keeps its
+        # zero halves; the work writes pd, pdiag and the owner halves of
+        # pe, and reads add_pe's owner halves and the packed map table
+        m = k_args[0].shape[0]
+        bufE = pairs.emit_buffers(pm, S.nd, dtype, reg.device, diag=True)
+        bufK = pairs.emit_buffers(pm, S.nd, dtype, reg.device, m=m)
+        own_vals = int(own.sum()) * S.nd
+        elt = reg.element_size()
         compare("gather_blocks_pair", dtype,
-                lambda: [*pairs.gather_blocks_pair(None, pm, *e_args, reg=reg),
-                         *pairs.gather_blocks_pair_multi(None, pm, *k_args, add=add)],
+                lambda: [*pairs.gather_blocks_pair(None, pm, *e_args, reg=reg, out=bufE),
+                         *pairs.gather_blocks_pair_multi(None, pm, *k_args, add=add,
+                                                         out=bufK)],
                 lambda: [*pairs.gather_blocks_pair_plain(None, pm, *e_args, reg=reg),
                          *pairs.gather_blocks_pair_multi_plain(None, pm, *k_args, add=add)],
                 exact, results,
-                inputs=e_args + k_args + [reg, *add] + [pm[k] for k in (
-                    "cop", "live1", "int_f", "int_p0", "ext_f", "ext_isp", "ext_h")])
+                inputs=e_args + k_args + [reg, add[0], pairs.emit_table(pm)],
+                extra_bytes=m * own_vals * elt,
+                out_bytes=((2 + m) * bufE[0].numel() + (1 + m) * own_vals) * elt,
+                whole_bytes=nbytes(e_args + k_args + [reg, *add] + [pm[k] for k in (
+                    "cop", "live1", "int_f", "int_p0", "ext_f", "ext_isp", "ext_h")]))
+        zero = all(not bool(bits(pe).masked_select(~own).any()) for pe in (bufE[1][None],
+                                                                            bufK[1]))
+        print(f"exact   gather_blocks_pair             {str(dtype):14s} the buffers' pe "
+              f"+0 outside the owner halves after the timed emits: {zero}")
+        if not zero:
+            raise AssertionError("the pair emit wrote outside the owner halves")
 
         # the solver's vectors (EMI: rhs, iterate, predictor base; KNP: rhs,
         # iterate), converted as the solver converts them: the list form
@@ -892,8 +983,9 @@ def pair_kernel_phase(S, state, results):
         # K6 with the compartment and moment data (AUTO: no Ritz on pairs),
         # K7 with the two ions' coarse data, on the pair rhs
         co6, co7 = coarse_inputs(state["pc"], AGG // 2, dtype)
-        coarse_phase("pair", co6, r[None], results)
-        coarse_phase("pair", co7, rK, results)
+        lm = S._live_mask(dtype)
+        coarse_phase("pair", co6, r[None], results, lm)
+        coarse_phase("pair", co7, rK, results, lm)
 
 
 def krylov_phase(S, results, layout):
@@ -1475,11 +1567,6 @@ def window(S, sp, layout):
     median ms/step, median ODE ms)."""
     state, launches = run_checked(S, sp, layout)
     med, ode = report_window(S, MAIN_DTYPE, layout)
-    emi_ref, knp_ref = WINDOW_REF[layout]
-    knp_total = sum(map(sum, S.stats.knp_niters))
-    print(f"{layout:7s} float64 counts as the parent tree's: EMI "
-          f"{S.stats.emi_niters == emi_ref}"
-          + ("" if knp_ref is None else f", KNP total {knp_total} (parent {knp_ref})"))
     # one fused K8 launch per PCG iteration, one from_pair (carrying its
     # add) per solve on pairs
     per_iter = launches["pcg_dot2_direction"] == launches["pcg_dot"] == sum(S.stats.emi_niters)

@@ -22,7 +22,10 @@ minus facet averages and Nernst potential through the one-field entry
 points; K6 on the EMI preconditioner data of each layout's pc build at
 emix.solver_params() (the cell layout's with its 24 Ritz fields; both
 dtypes) applied to a seeded r: restrict's chunk sums and projections,
-then solve and the prolong-add into a seeded output; K13 as the solver
+then solve and the prolong-add into a seeded output (on pairs also with
+the live mask, k6_prolong_m); K7's apply (k7_coarse) on each layout's KNP
+pc data, two calls, masked on pairs; K12 (k12_emit) on the inputs of the
+step's pair EMI and KNP emits, both dtypes; K13 as the solver
 drives it: Solver._ode_step at the perturbed state (membrane states
 perturbed too) on both layouts, in both dtypes (a solver of each), under
 both schemes and with first_step True and False -- every tag's new states
@@ -37,6 +40,7 @@ Usage:  python3 kernel_digest.py [--root DIR]   (needs a CUDA card)
 """
 import argparse
 import hashlib
+import inspect
 import os
 import sys
 
@@ -184,13 +188,17 @@ def main():
                              lambda r, Pinv=Pinv, lm=lm: spmv.block_jacobi_apply(
                                  Pinv, r.contiguous()) * lm,
                              pairs.to_pair(pm, rhsK.to(dtype)), pairs.to_pair(pm, c.to(dtype)))
+        if layout == "pair":
+            k12_digests(S, asm, pairs, c, state, pM, Ich, Itot)
         # K6 on the pc build's EMI data (the Ritz harvest runs K6 itself)
         sp = emix.solver_params(error_if_not_converged=False)
-        pc = S.attach_pc(state, sp)["pc"]["emi"]
+        pcs = S.attach_pc(state, sp)["pc"]
+        pc = pcs["emi"]
         agg = sp.agg_size // 2 if layout == "pair" else sp.agg_size
         nd, nc = pc["mom_W"].shape[1:]
         r64, out64 = torch.randn((2, 1, nd, nc), generator=gen, device="cuda",
                                  dtype=torch.float64)
+        masked = "mask" in inspect.signature(coarse.coarse_add).parameters
         for dtype in (torch.float32, torch.float64):
             co = coarse.operands({k: v.to(dtype) for k, v in pc.items()}, agg, batched=False)
             rc, proj = coarse.restrict(co, r64.to(dtype))
@@ -202,9 +210,84 @@ def main():
             out = coarse.prolong_add(co, out64.to(dtype), zc, coef)
             torch.cuda.synchronize()
             print(f"digest  k6_prolong   {layout} {str(dtype):14s} {digest([out])}")
+            if layout == "pair":
+                # the solver's masked EMI apply: the mask in the prolong-add
+                # (a tree without it: the product after it)
+                lm = S._pair_mask.to(dtype)
+                base = out64.to(dtype, copy=True)
+                out = (coarse.prolong_add(co, base, zc, coef, lm) if masked
+                       else coarse.prolong_add(co, base, zc, coef) * lm)
+                torch.cuda.synchronize()
+                print(f"digest  k6_prolong_m {layout} {str(dtype):14s} {digest([out])}")
+        # K7's apply on the pc build's KNP data, as the KNP solve calls it
+        # (on pairs masked: in the apply, or a tree without it after)
+        pk = pcs["knp"]
+        nd, nc = (S.nd, S.n_cells) if layout == "cell" else (2 * S.nd, S.pairs["int_f"].shape[0])
+        m = pk["inv"].shape[0]
+        r64, out64 = torch.randn((2, m, nd, nc), generator=gen, device="cuda",
+                                 dtype=torch.float64)
+        print(f"k7      mask in the apply in this tree: {masked}")
+        for dtype in (torch.float32, torch.float64):
+            co = coarse.operands({k: v.to(dtype) for k, v in pk.items()}, agg, batched=True)
+            lm = S._pair_mask.to(dtype) if layout == "pair" else None
+            outs = []
+            for _ in range(2):
+                base = out64.to(dtype, copy=True)
+                if masked:
+                    out = coarse.coarse_add(co, base, r64.to(dtype), lm)
+                else:
+                    out = coarse.coarse_add(co, base, r64.to(dtype))
+                    out = out if lm is None else out * lm
+                outs.append(out)
+            torch.cuda.synchronize()
+            print(f"digest  k7_coarse    {layout} {str(dtype):14s} {digest(outs)} "
+                  f"(operands {digest([v.to(dtype) for v in pk.values()])})")
         ode_digests(S, mesh, st, layout, gen)
         del S
         torch.cuda.empty_cache()
+
+
+def k12_digests(S, asm, pairs, c, state, pM, Ich, Itot):
+    """K12 on the inputs the step's two pair assemblies hand it (the EMI
+    emit with reg, the KNP emit with the static operator), both dtypes; a
+    tree with emit_buffers emits as its step does, twice into the same
+    buffers (the second emit's outputs digested)."""
+    names = ("gather_blocks_pair", "gather_blocks_pair_multi")
+    originals = {n: getattr(asm, n) for n in names}
+    emits = {}
+
+    def capture(name):
+        def wrapped(*args, **kw):
+            emits[name] = (args[2:], kw)
+            return originals[name](*args, **kw)
+        return wrapped
+
+    try:
+        for n in names:
+            setattr(asm, n, capture(n))
+        S._assemble_emi(c, state["c_elim"], pM, Itot, state["t"], pair=True)
+        S._knp_assemble_all(c, state["c_elim"], state["phi"], pM, Ich, Itot, state["t"], c)
+    finally:
+        for n, fn in originals.items():
+            setattr(asm, n, fn)
+    pm = S.pairs
+    buffered = hasattr(pairs, "emit_buffers")
+    print(f"k12     emit into buffers in this tree: {buffered}")
+    for dtype in (torch.float32, torch.float64):
+        cast = lambda ts: [t.to(dtype).contiguous() for t in ts]
+        e_args, k_args = cast(emits[names[0]][0]), cast(emits[names[1]][0])
+        reg = emits[names[0]][1]["reg"].to(dtype)
+        add = tuple(cast(emits[names[1]][1]["add"]))
+        kw_e, kw_k = {}, {}
+        if buffered:
+            kw_e["out"] = pairs.emit_buffers(pm, S.nd, dtype, "cuda", diag=True)
+            kw_k["out"] = pairs.emit_buffers(pm, S.nd, dtype, "cuda", m=k_args[0].shape[0])
+        for _ in range(2 if buffered else 1):
+            out = [*pairs.gather_blocks_pair(None, pm, *e_args, reg=reg, **kw_e),
+                   *pairs.gather_blocks_pair_multi(None, pm, *k_args, add=add, **kw_k)]
+        torch.cuda.synchronize()
+        print(f"digest  k12_emit     pair {str(dtype):14s} {digest(out)} "
+              f"(inputs {digest(e_args + k_args + [reg, *add])})")
 
 
 def halves_form(spmv):

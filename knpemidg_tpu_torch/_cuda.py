@@ -43,7 +43,9 @@ SOURCE_FLAGS = {f: ("-fmad=false",) for f in ("assemble_emi.cu", "assemble_knp.c
 # call is two: its scalars and its sweep); the block-Jacobi kernels
 # count their cell-layout (nd = 4) and pair-layout (nd = 8) instantiations
 # apart, and the two-level kernels their single EMI (K6) and batched KNP
-# (K7, "_batched") calls.  The assembly kernels (K10 emi_*, K11 alpha_sum and
+# (K7, "_batched") calls ("coarse": the one-launch apply of operands
+# without deflation fields or As, K7's on the main path).  The assembly
+# kernels (K10 emi_*, K11 alpha_sum and
 # knp_*, K14 membrane_trace and eliminated_concentration), the Krylov
 # kernels (K8 pcg_*, K9 gmres_*: gmres_arnoldi is a whole Arnoldi step)
 # serve both layouts; K13's one launch for every tag counts as membrane_rl
@@ -55,7 +57,7 @@ LAUNCHES = {"bell_matvec": 0, "block_jacobi_inverse": 0,
             "gather_blocks_pair": 0, "block_jacobi_inverse_nd8": 0,
             "block_jacobi_apply_nd8": 0,
             **{f"two_level_{e}{b}": 0 for b in ("", "_batched")
-               for e in ("restrict", "solve", "prolong")},
+               for e in ("restrict", "solve", "prolong", "coarse")},
             "emi_cell": 0, "emi_facet": 0, "emi_emit_cell": 0, "alpha_sum": 0,
             "knp_cell": 0, "knp_facet": 0, "knp_membrane_rhs": 0,
             "knp_emit_cell": 0, "membrane_trace": 0,
@@ -76,12 +78,14 @@ _SIGNATURES = {
     "knp_pair_matvec": (_P,) * 6 + (_I,) * 4 + (_P,),
     "knp_to_pair": (_P,) * 6 + (_I,) * 4 + (_P,),
     "knp_from_pair": (_P,) * 4 + (_I,) * 3 + (_P,),
-    "knp_gather_blocks_pair": (_P,) * 18 + (_I,) * 6 + (_D, _P),
+    "knp_pair_emit": (_P,) * 12 + (_I,) * 5 + (_D, _P),
     "knp_tl_restrict": (_P,) * 8 + (_I,) * 10 + (_P,),
     "knp_tl_fields_prepare": (_I,),
     "knp_tl_solve_prepare": (_P,),
     "knp_tl_solve": (_P,) * 4,
-    "knp_tl_prolong": (_P,) * 7 + (_I,) * 8 + (_P,),
+    "knp_tl_prolong": (_P,) * 8 + (_I,) * 8 + (_P,),
+    "knp_tl_coarse_prepare": (_P, _I, _I, _P),
+    "knp_tl_coarse": (_P,) * 5 + (_I,) * 5 + (_P,),
     "knp_emi_cell": (_P,) * 10 + (_I,) * 4 + (_D, _D, _P),
     "knp_emi_facet": (_P,) * 26 + (_I,) * 5 + (_D, _D, _D, _P),
     "knp_emi_emit_cell": (_P,) * 16 + (_I,) * 5 + (_D, _P),

@@ -19,7 +19,9 @@
 //                            + sum_w coef_w W[w,i,c] + sum_v coef_v Wr[v,i,c]
 //
 // added in place into the block-Jacobi apply's output (kernel B stays its
-// own launch).
+// own launch), times the pair layout's live mask where the caller gives
+// one.  Operands without deflation fields or As (the KNP apply, K7) take
+// the three steps in one cooperative launch instead (tl_coarse_kernel).
 //
 // Bound: device-memory bandwidth.  The deflation fields dominate: at the
 // cell layout's main path (124,416 cells, nd = 4, 5 compartments, 45
@@ -590,6 +592,8 @@ __device__ __forceinline__ void tl_prolong_fields(T (&acc)[ND], const int* list,
 // One thread a cell.  The block lists the W and Wr fields whose span
 // overlaps its cells (dynamic shared memory: nw + nr ints) and sums only
 // those, in ascending order; the one-hot loop stays dense (see the header).
+// With a live mask (nd, nc), shared by the systems, each output is the sum
+// times its mask value: the pair layout's masked apply, in one pass.
 // The loads that need no list (out, zc, the one-hots) are issued before
 // the list is built, and the fields go in batches of loads: a thread's
 // dependent round trips to memory, not its bytes, set the time.
@@ -597,8 +601,8 @@ template <typename T, int ND>
 __global__ void tl_prolong_kernel(T* __restrict__ out, const T* __restrict__ zc,
                                   const T* __restrict__ coef, const T* __restrict__ OH,
                                   const T* __restrict__ W, const T* __restrict__ Wr,
-                                  const int* __restrict__ spans, int nc, int agg, int n_agg,
-                                  int n_comp, int nw, int nr) {
+                                  const int* __restrict__ spans, const T* __restrict__ mask,
+                                  int nc, int agg, int n_agg, int n_comp, int nw, int nr) {
   extern __shared__ int tl_live[];
   __shared__ int wcnt[2 * TL_WARPS];
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -645,8 +649,108 @@ __global__ void tl_prolong_kernel(T* __restrict__ out, const T* __restrict__ zc,
 #pragma unroll
     for (int i = 0; i < ND; ++i) acc[i] += ar[i];
   }
+  if (mask) {
 #pragma unroll
-  for (int i = 0; i < ND; ++i) o[i * ncz] = ov[i] + acc[i];
+    for (int i = 0; i < ND; ++i) o[i * ncz] = (ov[i] + acc[i]) * mask[i * ncz + c];
+  } else {
+#pragma unroll
+    for (int i = 0; i < ND; ++i) o[i * ncz] = ov[i] + acc[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the one-launch coarse apply: operands without deflation fields or As (K7)
+// ---------------------------------------------------------------------------
+
+// Phase 1: the chunk sums rc of tiles of cpt chunks over the grid (tile b
+// of system s = b / tiles a system), as tl_restrict_kernel computes them
+// without fields: each cell's sum over i in order, then each chunk's sum
+// in cell order, the last chunk's pad cells adding +0.
+template <typename T, int ND>
+__device__ __forceinline__ void tl_chunk_sums(const T* __restrict__ r, T* __restrict__ rc,
+                                              T* rs_tile, int m, int nc, int agg, int n_agg,
+                                              int cpt) {
+  const int nblk = (n_agg + cpt - 1) / cpt;
+  const size_t ncz = (size_t)nc;
+  for (int b = blockIdx.x; b < m * nblk; b += gridDim.x) {
+    const int s = b / nblk, chunk0 = (b % nblk) * cpt;
+    const int nchunks = min(cpt, n_agg - chunk0);
+    const int c0 = chunk0 * agg, tile = nchunks * agg;
+    const T* rsys = r + (size_t)s * ND * ncz;
+    for (int t = threadIdx.x; t < tile; t += blockDim.x) {
+      const int c = c0 + t;
+      T v = T(0);                                 // pad cells of the last chunk
+      if (c < nc) {
+        v = rsys[c];
+#pragma unroll
+        for (int i = 1; i < ND; ++i) {
+          const T x = rsys[i * ncz + c];
+          v += x;
+        }
+      }
+      rs_tile[t] = v;
+    }
+    __syncthreads();
+    if (threadIdx.x < nchunks) {
+      const T* q = rs_tile + threadIdx.x * agg;
+      T acc = q[0];
+      for (int j = 1; j < agg; ++j) acc += q[j];
+      rc[(size_t)s * n_agg + chunk0 + threadIdx.x] = acc;
+    }
+    __syncthreads();                              // rs_tile is reused by the next tile
+  }
+}
+
+// restrict, solve and prolong-add of the KNP apply in one cooperative
+// launch, out = (out + zc[c / agg]) (* mask):
+//   1. rc, the chunk sums of r (restrict without fields);
+//   2. after a grid barrier, zc = s (inv (s rc)), a warp a coarse row:
+//      the solve kernel's row product (tl_row) unchanged, its first matrix
+//      loads issued before the barrier and each next row's before the
+//      current row's epilogue, as tl_phase does;
+//   3. in the same warp, right after its row: the prolong-add of that
+//      row's chunk (its agg cells, nd values each) into out in place, each
+//      value times the live mask (nd, nc) where one is given.  A chunk's
+//      cells need only their own row, so no second barrier.
+// Each phase computes its values as the separate kernels do (the same
+// expressions, the same orders; the xor shuffle tree leaves every lane the
+// same row sum), so the outputs equal theirs bit for bit; rc and zc go
+// through the workspace's buffers.
+template <typename T, int ND>
+__global__ void __launch_bounds__(KNP_THREADS)
+tl_coarse_kernel(const TlSolve<T> p, const T* __restrict__ r, T* __restrict__ out,
+                 const T* __restrict__ mask, T* __restrict__ rc, int nc, int agg, int cpt) {
+  __shared__ T rs_tile[TL_MAX_TILE];
+  constexpr int U = TlBatch<T>::U;
+  constexpr bool hint = sizeof(T) == 4;           // as tl_solve_kernel without As
+  const int n = p.n, rows = p.m * p.n;
+  const int q0 = blockIdx.x * TL_WARPS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  const int warps = gridDim.x * TL_WARPS;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  tl_chunk_sums<T, ND>(r, rc, rs_tile, p.m, nc, agg, n, cpt);
+  T v[U];
+  const unsigned long long keep = tl_policy_keep();
+  if (q0 < rows) tl_fetch<hint>(p.inv + (size_t)q0 * n, n, lane, keep, v);
+  grid.sync();
+  const size_t ncz = (size_t)nc;
+  for (int q = q0; q < rows; q += warps) {
+    const int s = q / n, a = q % n;
+    const size_t off = (size_t)s * n;
+    const T acc = tl_row<T, true, hint>(p.inv + (size_t)q * n, rc + off, p.s + off, n, lane,
+                                        keep, v);
+    if (q + warps < rows) tl_fetch<hint>(p.inv + (size_t)(q + warps) * n, n, lane, keep, v);
+    const T z = p.s[q] * acc;
+    if (lane == 0) p.zc[q] = z;
+    const int c0 = a * agg, c1 = min(nc, c0 + agg);
+    T* o = out + (size_t)s * ND * ncz;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      for (int c = c0 + lane; c < c1; c += 32) {
+        const T ov = o[i * ncz + c];
+        o[i * ncz + c] = mask ? (ov + z) * mask[i * ncz + c] : ov + z;
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -765,22 +869,70 @@ static int tl_solve_launch(const TlSolve<T>* p, const T* rc, const T* proj, void
 
 template <typename T>
 static int tl_prolong_launch(T* out, const T* zc, const T* coef, const T* OH, const T* W,
-                             const T* Wr, const int* spans, int m, int nd, int nc, int agg,
-                             int n_agg, int n_comp, int nw, int nr, void* stream) {
+                             const T* Wr, const int* spans, const T* mask, int m, int nd, int nc,
+                             int agg, int n_agg, int n_comp, int nw, int nr, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid(knp_blocks(nc), m);
   const size_t smem = (size_t)(nw + nr) * sizeof(int);
   if (smem > TL_MAX_SMEM || (n_comp + nw + nr > 0 && !spans)) return (int)cudaErrorInvalidValue;
   if (nd == 4) {
-    tl_prolong_kernel<T, 4><<<grid, KNP_THREADS, smem, st>>>(out, zc, coef, OH, W, Wr, spans, nc,
-                                                            agg, n_agg, n_comp, nw, nr);
+    tl_prolong_kernel<T, 4><<<grid, KNP_THREADS, smem, st>>>(out, zc, coef, OH, W, Wr, spans, mask,
+                                                            nc, agg, n_agg, n_comp, nw, nr);
   } else if (nd == 8) {
-    tl_prolong_kernel<T, 8><<<grid, KNP_THREADS, smem, st>>>(out, zc, coef, OH, W, Wr, spans, nc,
-                                                            agg, n_agg, n_comp, nw, nr);
+    tl_prolong_kernel<T, 8><<<grid, KNP_THREADS, smem, st>>>(out, zc, coef, OH, W, Wr, spans, mask,
+                                                            nc, agg, n_agg, n_comp, nw, nr);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The one-launch apply's grids for nd = 4 (grids[0]) and nd = 8
+// (grids[1]): the blocks its phases can use (the chunk-sum tiles, a warp a
+// coarse row), at most the co-resident limit that a cooperative launch
+// requires.  Once per workspace; a refused query clears the runtime's last
+// error.
+template <typename T>
+static int tl_coarse_prepare(const TlSolve<T>* p, int agg, int cpt, int* grids) {
+  if (p->As != nullptr || p->n_comp + p->nw + p->nr > 0 || p->m < 1 || p->n < 1 || cpt < 1 ||
+      agg < 1 || (long long)cpt * agg > TL_MAX_TILE)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  const void* fns[] = {(const void*)tl_coarse_kernel<T, 4>, (const void*)tl_coarse_kernel<T, 8>};
+  const long long tiles = (long long)p->m * ((p->n + cpt - 1) / cpt);
+  const long long rows = ((long long)p->m * p->n + TL_WARPS - 1) / TL_WARPS;
+  const long long need = std::max(tiles, rows);
+  for (int k = 0; k < 2 && e == cudaSuccess; ++k) {
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fns[k], KNP_THREADS, 0);
+    if (e == cudaSuccess && (!coop || per_sm < 1)) e = cudaErrorNotSupported;
+    if (e == cudaSuccess) grids[k] = (int)std::min((long long)per_sm * sms, need);
+  }
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+
+template <typename T>
+static int tl_coarse_launch(const TlSolve<T>* p, const T* r, T* out, const T* mask, T* rc,
+                            int nd, int nc, int agg, int cpt, int grid, void* stream) {
+  if ((nd != 4 && nd != 8) || grid < 1 || cpt < 1 || (long long)cpt * agg > TL_MAX_TILE ||
+      p->As != nullptr || p->n_comp + p->nw + p->nr > 0 || nc > p->n * agg ||
+      nc <= (p->n - 1) * agg)
+    return (int)cudaErrorInvalidValue;
+  TlSolve<T> prm = *p;
+  void* args[] = {(void*)&prm, (void*)&r, (void*)&out, (void*)&mask, (void*)&rc,
+                  (void*)&nc, (void*)&agg, (void*)&cpt};
+  const void* fn = nd == 4 ? (const void*)tl_coarse_kernel<T, 4>
+                           : (const void*)tl_coarse_kernel<T, 8>;
+  const cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(KNP_THREADS), args, 0,
+                                                    (cudaStream_t)stream);
+  // a refused launch also sets the runtime's last error: read it here, or
+  // the next launch of any kernel would report it
+  const cudaError_t last = cudaGetLastError();
+  return e != cudaSuccess ? (int)e : (int)last;
 }
 
 #define TL_ENTRIES(T, SFX)                                                               \
@@ -800,11 +952,22 @@ static int tl_prolong_launch(T* out, const T* zc, const T* coef, const T* OH, co
     return tl_solve_launch<T>(static_cast<const TlSolve<T>*>(params), rc, proj, stream);  \
   }                                                                                       \
   extern "C" int knp_tl_prolong_##SFX(T* out, const T* zc, const T* coef, const T* OH,    \
-                                      const T* W, const T* Wr, const int* spans, int m,   \
-                                      int nd, int nc, int agg, int n_agg, int n_comp,     \
-                                      int nw, int nr, void* stream) {                     \
-    return tl_prolong_launch<T>(out, zc, coef, OH, W, Wr, spans, m, nd, nc, agg, n_agg,   \
-                                n_comp, nw, nr, stream);                                  \
+                                      const T* W, const T* Wr, const int* spans,          \
+                                      const T* mask, int m, int nd, int nc, int agg,      \
+                                      int n_agg, int n_comp, int nw, int nr,              \
+                                      void* stream) {                                     \
+    return tl_prolong_launch<T>(out, zc, coef, OH, W, Wr, spans, mask, m, nd, nc, agg,    \
+                                n_agg, n_comp, nw, nr, stream);                           \
+  }                                                                                       \
+  extern "C" int knp_tl_coarse_prepare_##SFX(const void* params, int agg, int cpt,        \
+                                             int* grids) {                                \
+    return tl_coarse_prepare<T>(static_cast<const TlSolve<T>*>(params), agg, cpt, grids); \
+  }                                                                                       \
+  extern "C" int knp_tl_coarse_##SFX(const void* params, const T* r, T* out,              \
+                                     const T* mask, T* rc, int nd, int nc, int agg,       \
+                                     int cpt, int grid, void* stream) {                   \
+    return tl_coarse_launch<T>(static_cast<const TlSolve<T>*>(params), r, out, mask, rc,  \
+                               nd, nc, agg, cpt, grid, stream);                           \
   }
 
 TL_ENTRIES(float, f32)

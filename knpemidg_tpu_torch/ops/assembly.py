@@ -401,6 +401,7 @@ def assemble_emi(
     splitting: bool = True,
     mms=None,
     pm: Optional[Dict[str, Any]] = None,
+    out=None,
 ):
     """EMI block-ELL operator, rhs and block-Jacobi preconditioner diagonal
     (the regularised B operator), in three steps (kernel K10 on the card):
@@ -410,7 +411,9 @@ def assemble_emi(
 
     Returns (blocks (K,nd,nd,nc), rhs (nd,nc), P_diag (nd,nd,nc)); with
     pair maps ``pm``, ((pd, pe), rhs, P_diag_pair), where the pair
-    diagonal of P_diag includes the intra-pair coupling."""
+    diagonal of P_diag includes the intra-pair coupling; ``out`` (pairs
+    only): the pair emit's (pd, pe, P_diag_pair) buffers
+    (ops.pairs.emit_buffers), written and returned."""
     _degree1(g)
     if mms is not None:
         raise NotImplementedError("MMS verification is not ported yet")
@@ -426,7 +429,7 @@ def assemble_emi(
     if pm is not None:
         A_cell, rhs, reg = emi_emit_cell(g, kbar, *M, b_cell, b_p, b_m, inv_Lp2,
                                          pair=True)
-        pd, pe, P_diag = gather_blocks_pair(g, pm, A_cell, *M, reg=reg)
+        pd, pe, P_diag = gather_blocks_pair(g, pm, A_cell, *M, reg=reg, out=out)
         return (pd, pe), rhs, P_diag
     return emi_emit_cell(g, kbar, *M, b_cell, b_p, b_m, inv_Lp2)
 
@@ -712,6 +715,7 @@ def assemble_knp_all(
     static_blocks: Optional[torch.Tensor] = None,   # (m, K, nd, nd, nc)
     splitting: bool = True,
     pm: Optional[Dict[str, Any]] = None,
+    out=None,
 ):
     """All solved ions' KNP operators + rhs in one pass with shared facet
     and membrane gathers, in four steps (kernel K11 on the card):
@@ -722,7 +726,8 @@ def assemble_knp_all(
 
     Returns (blocks (m,K,nd,nd,nc), rhs (m,nd,nc)); with pair maps ``pm``
     ((pdK, peK), rhs), and ``static_blocks`` must be in pair form too
-    (ops.pairs.cell_bell_to_pair)."""
+    (ops.pairs.cell_bell_to_pair); ``out`` (pairs only): the pair emit's
+    (pdK, peK) buffers (ops.pairs.emit_buffers), written and returned."""
     _degree1(g)
     z, D = ions["z"], ions["D"]                      # (m,), (m, nc)
     c_n, c_k = ions["c_n"], ions["c_k"]              # (m, nd, nc)
@@ -735,7 +740,7 @@ def assemble_knp_all(
     if pm is not None:
         A_cell, rhs = knp_emit_cell(g, mem_t, z, D, psi, drift, *M, b_cell, b_p, b_m,
                                     pair=True)
-        return gather_blocks_pair_multi(g, pm, A_cell, *M, add=static_blocks), rhs
+        return gather_blocks_pair_multi(g, pm, A_cell, *M, add=static_blocks, out=out), rhs
     return knp_emit_cell(g, mem_t, z, D, psi, drift, *M, b_cell, b_p, b_m,
                          static_blocks)
 

@@ -8,7 +8,14 @@ in three steps over m systems (``csrc/two_level.cu``):
   solve         the equilibrated dense coarse solve (one refinement sweep
                 when the data has ``As``) and the small deflation solves:
                 zc (m, n_agg), coef (m, nf);
-  prolong_add   out += broadcast zc + coef^T [OH; W; Wr], in place.
+  prolong_add   out += broadcast zc + coef^T [OH; W; Wr], in place, then
+                out *= the live mask (nd, nc) where one is given (the pair
+                layout's masked apply).
+
+:func:`coarse_add` runs the three in turn; on the card, operands without
+deflation fields or ``As`` (the KNP apply, K7) take them in one cooperative
+launch instead (``two_level_coarse``, ``two_level_coarse_batched``), with
+the same bits.
 
 Each wrapper runs its plain torch version (``*_plain``) for tensors on the
 CPU and launches its kernel for CUDA tensors; there is no fallback between
@@ -154,9 +161,9 @@ def solve_plain(co: Coarse, rc, proj):
     return zc, coef
 
 
-def prolong_add_plain(co: Coarse, out, zc, coef):
+def prolong_add_plain(co: Coarse, out, zc, coef, mask=None):
     """out (m, nd, nc) += the prolonged coarse and deflation corrections, in
-    place; returns out."""
+    place, then out *= ``mask`` (nd, nc) where given; returns out."""
     m, nd, nc = out.shape
     n_comp, nw, nr = co.sizes
     z = zc[:, :, None].expand(m, zc.shape[1], co.agg).reshape(m, -1)[:, :nc]
@@ -167,7 +174,14 @@ def prolong_add_plain(co: Coarse, out, zc, coef):
         v = v + torch.einsum("mw,wic->mic", coef[:, n_comp:n_comp + nw], co.W)
     if co.Wr is not None:
         v = v + torch.einsum("mv,vic->mic", coef[:, n_comp + nw:], co.Wr)
-    return out.add_(v)
+    out.add_(v)
+    return out if mask is None else out.mul_(mask)
+
+
+def coarse_apply_plain(co: Coarse, out, r, mask=None):
+    """The plain versions in turn: restrict, solve, prolong_add (masked
+    where ``mask`` is given), into ``out`` in place; returns out."""
+    return prolong_add_plain(co, out, *solve_plain(co, *restrict_plain(co, r)), mask)
 
 
 # ---------------------------------------------------------------------------
@@ -252,6 +266,10 @@ class CoarseWork(NamedTuple):
     prolong_tail: tuple                # agg, n, n_comp, nw, nr
     params: Optional[_SolveParams]     # the solve kernel's, on the card only
     params_ptr: Optional[int]
+    cpt: int                           # chunks a restrict tile
+    fused: Optional[Tuple[str, int, int]]  # the one-launch apply's launch counter and
+                                           # grids (nd = 4, 8), on the card without
+                                           # fields or As
 
 
 def _ptr(t):
@@ -339,7 +357,8 @@ def work(co: Coarse) -> CoarseWork:
         names=tuple(_name(e, co) for e in ("restrict", "solve", "prolong")),
         fields=(_ptr(co.OH), _ptr(co.W), _ptr(co.Wr), _ptr(spans)),
         restrict_tail=(co.agg, n, cpt, n_comp, nw, nr, zs),
-        prolong_tail=(co.agg, n, n_comp, nw, nr), params=None, params_ptr=None)
+        prolong_tail=(co.agg, n, n_comp, nw, nr), params=None, params_ptr=None, cpt=cpt,
+        fused=None)
     if not inv.is_cuda:
         return wk
     if max(smem["restrict"], smem["prolong"]) > DEFAULT_SMEM:
@@ -348,9 +367,15 @@ def work(co: Coarse) -> CoarseWork:
     groups = (co.comp or (None,) * 3) + (co.mom or (None,) * 2) + (co.ritz or (None,) * 2)
     params = _SolveParams(*(_ptr(t) for t in (inv, co.s, co.As, wk.z1, wk.t, wk.zc, wk.coef)
                             + groups), m, n, n_comp, nw, nr, 0, 0, 0)
+    fused = None
     with torch.cuda.device(dev):
         _cuda.call("knp_tl_solve_prepare", dt, ctypes.addressof(params))
-    return wk._replace(params=params, params_ptr=ctypes.addressof(params))
+        if nf == 0 and not refine:
+            grids = (ctypes.c_int * 2)()
+            _cuda.call("knp_tl_coarse_prepare", dt, ctypes.addressof(params), co.agg, cpt,
+                       grids)
+            fused = (_name("coarse", co), grids[0], grids[1])
+    return wk._replace(params=params, params_ptr=ctypes.addressof(params), fused=fused)
 
 
 # ---------------------------------------------------------------------------
@@ -415,24 +440,56 @@ def solve(co: Coarse, rc, proj):
     return wk.zc, wk.coef
 
 
-def prolong_add(co: Coarse, out, zc, coef):
-    """out += the prolonged corrections, in place (the prolong kernel on a
-    CUDA tensor); returns out."""
+_MASKS = WeakIdKeyDictionary()     # live mask -> (dtype, nd, nc) it was checked for
+
+
+def _mask_ptr(mask, dtype, nd, nc):
+    """The live mask's address (None without one), the mask checked once per
+    tensor: on the card, contiguous, of the output's dtype, (nd, nc)."""
+    if mask is None:
+        return None
+    if _MASKS.get(mask) != (dtype, nd, nc):
+        _cuda.check("mask", mask, dtype, (nd, nc))
+        _MASKS[mask] = (dtype, nd, nc)
+    return mask.data_ptr()
+
+
+def prolong_add(co: Coarse, out, zc, coef, mask=None):
+    """out += the prolonged corrections, in place, then out *= ``mask``
+    (nd, nc) where given (the prolong kernel on a CUDA tensor); returns
+    out."""
     if not out.is_cuda:
-        return prolong_add_plain(co, out, zc, coef)
+        return prolong_add_plain(co, out, zc, coef, mask)
     wk = _work(co, "prolong_add")
     m, nd, nc = _check_cells("prolong_add", wk, "out", out, co.agg)
     if zc is not wk.zc or coef is not wk.coef:
         _cuda.check("zc", zc, out.dtype, wk.zc.shape)
         _cuda.check("coef", coef, out.dtype, wk.coef.shape)
     _cuda.launch(wk.names[2], "knp_tl_prolong", out.dtype, out.data_ptr(), zc.data_ptr(),
-                 coef.data_ptr(), *wk.fields, m, nd, nc, *wk.prolong_tail)
+                 coef.data_ptr(), *wk.fields, _mask_ptr(mask, out.dtype, nd, nc), m, nd, nc,
+                 *wk.prolong_tail)
     return out
 
 
-def coarse_add(co: Coarse, out, r):
+def coarse_add(co: Coarse, out, r, mask=None):
     """out (m, nd, nc) += the coarse and deflation part of the two-level
-    apply to r (m, nd, nc), in place: restrict, solve, prolong_add."""
+    apply to r (m, nd, nc), in place, then out *= ``mask`` (nd, nc) where
+    given; returns out.  Dispatched by operand: on the card, operands
+    without deflation fields or As (the KNP apply, K7) take one
+    cooperative launch of the chunk sums, the coarse solve and the
+    prolong-add (with the mask), a grid barrier between each; the others
+    (K6) restrict, solve and prolong_add, three launches.  On the CPU the
+    three plain versions in turn."""
+    if r.is_cuda:
+        wk = _work(co, "coarse_add")
+        if wk.fused is not None:
+            m, nd, nc = _check_cells("coarse_add", wk, "r", r, co.agg)
+            if out is not r:
+                _cuda.check("out", out, r.dtype, r.shape)
+            _cuda.launch(wk.fused[0], "knp_tl_coarse", r.dtype, wk.params_ptr, r.data_ptr(),
+                         out.data_ptr(), _mask_ptr(mask, r.dtype, nd, nc), wk.rc.data_ptr(),
+                         nd, nc, co.agg, wk.cpt, wk.fused[1 + (nd == 8)])
+            return out
     rc, proj = restrict(co, r)
     zc, coef = solve(co, rc, proj)
-    return prolong_add(co, out, zc, coef)
+    return prolong_add(co, out, zc, coef, mask)

@@ -19,7 +19,10 @@ fallback between the two):
 * K4 ``csrc/pair_relayout.cu``: :func:`to_pair`, :func:`from_pair`;
 * K12 ``csrc/pair_emit.cu``: :func:`gather_blocks_pair` (with ``reg`` also
   the EMI preconditioner diagonal), :func:`gather_blocks_pair_multi` (with
-  ``add`` the static KNP operator added in the same launch).
+  ``add`` the static KNP operator added in the same launch); the maps as
+  one packed table (:func:`emit_table`, built once per maps), only the
+  owner halves of ``pe`` written (``out=`` buffers of :func:`emit_buffers`
+  keep their zero halves from call to call).
 
 The setup-only helpers (fan matvec, value sums, the pair neighbour table,
 the cell-ELL conversion) and the block embedding are plain torch on every
@@ -31,6 +34,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _cuda
 
@@ -657,75 +661,184 @@ def gather_blocks_pair_plain(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
     return pd[0], pe[0], pd[0] + pair_block_diag_embed(pm, reg)
 
 
-def _gather_blocks_pair_cuda(pm, A_cell, Mpp, Mpm, Mmp, Mmm, dead_identity,
-                             add=None, reg=None):
-    """A_cell (m, nd, nd, nc), M** (m, nd, nd, nf+1) on the card; ``add``
-    a (pd, pe) pair operator added last, ``reg`` (m, nd, nd, nc) for the
-    third output pd + embedded reg."""
-    _no_live0(pm, "gather_blocks_pair")
-    m, nd, _, nc = A_cell.shape
-    nf1 = Mpp.shape[-1]
+# the pair emit kernel's build: nd = 4 blocks, S = 2 d = 6 external slots
+EMIT_ND, EMIT_S = 4, 6
+_EMIT_F_BITS = 30         # facet index bits of a packed word; bits 30, 31 the flags
+_EMIT_MAPS = ("cop", "live1", "int_f", "int_p0", "ext_f", "ext_isp", "ext_h")
+_EMIT_TABLES = WeakIdKeyDictionary()   # pm["ext_f"] -> (the other maps, the table)
+_ZERO_HALVES = WeakIdKeyDictionary()   # pe (or its base) -> (version, address, size)
+
+
+def _pack(low, bit30, bit31):
+    """int32 words low | bit30 << 30 | bit31 << 31 (two's complement)."""
+    w = low.to(torch.int64) | (bit30.to(torch.int64) << 30) | (bit31.to(torch.int64) << 31)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def emit_table(pm):
+    """The pair emit's maps packed into one int32 table (S + 1, npair),
+    pairs fastest, on the maps' device: row 0 the interior word (int_f,
+    live1 in bit 30, int_p0 in bit 31), row 1 + t slot t's word (ext_f,
+    ext_isp in bit 30, ext_h in bit 31).  The interleaved maps put pair p
+    at cells (2p, 2p + 1), so cop is not stored.  Built once per maps (a
+    cache keyed on the map tensors): the maps are checked here, not per
+    emit (on the card: contiguous, int32 / bool, their shapes; the facet
+    indices within 30 bits; cop the interleaved one).  The words are
+    unsigned 32-bit in the kernel: read back in int64, w & (2**32 - 1)."""
+    src = tuple(pm[k] for k in _EMIT_MAPS if k != "ext_f")
+    hit = _EMIT_TABLES.get(pm["ext_f"])
+    if hit is not None and all(a is b for a, b in zip(hit[0], src)):
+        return hit[1]
     S, npair = pm["ext_f"].shape
-    _cuda.check("A_cell", A_cell)
+    shapes = {"cop": (torch.int32, (2, npair)), "live1": (torch.bool, (npair,)),
+              "int_f": (torch.int32, (npair,)), "int_p0": (torch.bool, (npair,)),
+              "ext_f": (torch.int32, (S, npair)), "ext_isp": (torch.bool, (S, npair)),
+              "ext_h": (torch.int32, (S, npair))}
+    for key, (dt, shape) in shapes.items():
+        t = pm[key]
+        if t.is_cuda:
+            _cuda.check(key, t, dt, shape)
+        elif t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"emit_table: {key} must be {dt} of shape {shape}")
+    pairs_ = torch.arange(npair, dtype=torch.int32, device=pm["cop"].device)
+    if not bool((pm["cop"] == torch.stack([2 * pairs_, 2 * pairs_ + 1])).all()):
+        raise NotImplementedError(
+            "emit_table: the pair emit takes the interleaved maps (pair p at cells 2p, 2p + 1)")
+    facets = torch.cat([pm["int_f"][None], pm["ext_f"]])
+    if not bool(((facets >= 0) & (facets < 2 ** _EMIT_F_BITS)).all()):
+        raise ValueError("emit_table: facet indices outside [0, 2**30)")
+    if not bool(((pm["ext_h"] == 0) | (pm["ext_h"] == 1)).all()):
+        raise ValueError("emit_table: ext_h must be 0 or 1")
+    tab = torch.cat([_pack(pm["int_f"], pm["live1"], pm["int_p0"])[None],
+                     _pack(pm["ext_f"], pm["ext_isp"], pm["ext_h"])]).contiguous()
+    _EMIT_TABLES[pm["ext_f"]] = (src, tab)
+    return tab
+
+
+def _zero_halves(pm, pe, name):
+    """Raise unless ``pe`` (..., S, 2nd, nd, npair) is exactly zero outside
+    each slot's owner half; checked once per tensor (its base for a view)
+    and in-place version, then taken from the cache."""
+    base = pe if pe._base is None else pe._base
+    key = (pe._version, pe.data_ptr(), pe.numel())
+    if _ZERO_HALVES.get(base) == key:
+        return
+    own = owner_half_rows(pm, pe.shape[-2])
+    if bool(((pe != 0) & ~own).any()):
+        raise ValueError(f"gather_blocks_pair: {name} is not zero outside the owner halves")
+    _ZERO_HALVES[base] = key
+
+
+def emit_buffers(pm, nd, dtype, device, m=None, diag=False):
+    """Output buffers of the pair emit for a caller that emits into the same
+    operator again and again (the solver's step): pd, pe and with ``diag``
+    pdiag, shaped as :func:`gather_blocks_pair` (``m`` None) or
+    :func:`gather_blocks_pair_multi` (``m`` systems) returns them.  pe is
+    made zero here, once: the emit writes only the owner halves, so the
+    other halves stay zero from call to call."""
+    S, npair = pm["ext_f"].shape
+    lead = () if m is None else (m,)
+    pd = torch.empty(lead + (2 * nd, 2 * nd, npair), dtype=dtype, device=device)
+    pe = torch.zeros(lead + (S, 2 * nd, nd, npair), dtype=dtype, device=device)
+    _ZERO_HALVES[pe] = (pe._version, pe.data_ptr(), pe.numel())
+    return (pd, pe, torch.empty_like(pd)) if diag else (pd, pe)
+
+
+def _copy_out(res, out):
+    """The plain path with ``out``: the results copied into the buffers."""
+    if out is None:
+        return res
+    for dst, src in zip(out, res):
+        dst.copy_(src)
+    return tuple(out[:len(res)])
+
+
+def _gather_blocks_pair_cuda(pm, A_cell, Mpp, Mpm, Mmp, Mmm, dead_identity,
+                             add=None, reg=None, out=None):
+    """A_cell (m, nd, nd, nc), M** (m, nd, nd, nf+1) on the card, or one
+    system's without the leading axis (then so are the outputs); ``add``
+    a (pd, pe) pair operator added last (its pe zero outside the owner
+    halves), ``reg`` shaped as A_cell for the third output pd + embedded
+    reg; ``out`` the (pd, pe[, pdiag]) buffers to write (pe zero outside
+    the owner halves, as :func:`emit_buffers` makes it), else new ones."""
+    _no_live0(pm, "gather_blocks_pair")
+    tab = emit_table(pm)
+    lead = tuple(A_cell.shape[:-3])
+    m, (nd, _, nc) = (lead[0] if lead else 1), A_cell.shape[-3:]
+    S, npair = tab.shape[0] - 1, tab.shape[1]
+    if nd != EMIT_ND or S != EMIT_S:
+        raise NotImplementedError(
+            f"gather_blocks_pair: CUDA kernel built for nd = {EMIT_ND}, S = {EMIT_S}, got "
+            f"nd = {nd}, S = {S}")
+    dt, nf1 = A_cell.dtype, Mpp.shape[-1]
+    if "nf" in pm and nf1 != int(pm["nf"]) + 1:
+        raise ValueError(f"gather_blocks_pair: {nf1} facet blocks for maps of "
+                         f"{int(pm['nf']) + 1} facets")
+    _cuda.check("A_cell", A_cell, None, lead + (nd, nd, 2 * npair))
     for name, M in (("Mpp", Mpp), ("Mpm", Mpm), ("Mmp", Mmp), ("Mmm", Mmm)):
-        _cuda.check(name, M, A_cell.dtype, (m, nd, nd, nf1))
-    maps = {"cop": (torch.int32, (2, npair)), "live1": (torch.bool, (npair,)),
-            "int_f": (torch.int32, (npair,)), "int_p0": (torch.bool, (npair,)),
-            "ext_f": (torch.int32, (S, npair)), "ext_isp": (torch.bool, (S, npair)),
-            "ext_h": (torch.int32, (S, npair))}
-    for key, (dt, shape) in maps.items():
-        _cuda.check(key, pm[key], dt, shape)
-    pd = torch.empty((m, 2 * nd, 2 * nd, npair), dtype=A_cell.dtype,
-                     device=A_cell.device)
-    pe = torch.empty((m, S, 2 * nd, nd, npair), dtype=A_cell.dtype,
-                     device=A_cell.device)
+        _cuda.check(name, M, dt, lead + (nd, nd, nf1))
+    pair_vec = 2 * A_cell.element_size()      # a pair's two cells are one vector load
+    shape_d, shape_e = lead + (2 * nd, 2 * nd, npair), lead + (S, 2 * nd, nd, npair)
+    if out is None:
+        pd = torch.empty(shape_d, dtype=dt, device=A_cell.device)
+        pe = torch.zeros(shape_e, dtype=dt, device=A_cell.device)
+        pdiag = None if reg is None else torch.empty_like(pd)
+    else:
+        pd, pe = out[0], out[1]
+        pdiag = None if reg is None else out[2]
+        _cuda.check("out pd", pd, dt, shape_d)
+        _cuda.check("out pe", pe, dt, shape_e)
+        if pdiag is not None:
+            _cuda.check("out pdiag", pdiag, dt, shape_d)
+        _zero_halves(pm, pe, "out pe")
     add_ptrs = (None, None)
     if add is not None:
-        _cuda.check("add pd", add[0], A_cell.dtype, pd.shape)
-        _cuda.check("add pe", add[1], A_cell.dtype, pe.shape)
+        _cuda.check("add pd", add[0], dt, shape_d)
+        _cuda.check("add pe", add[1], dt, shape_e)
+        _zero_halves(pm, add[1], "add pe")
         add_ptrs = (add[0].data_ptr(), add[1].data_ptr())
-    pdiag = None
     if reg is not None:
-        _cuda.check("reg", reg, A_cell.dtype, A_cell.shape)
-        pdiag = torch.empty_like(pd)
-    _cuda.launch("gather_blocks_pair", "knp_gather_blocks_pair", A_cell.dtype,
+        _cuda.check("reg", reg, dt, A_cell.shape)
+    if A_cell.data_ptr() % pair_vec or (reg is not None and reg.data_ptr() % pair_vec):
+        raise ValueError("gather_blocks_pair: A_cell and reg must start at an even element")
+    _cuda.launch("gather_blocks_pair", "knp_pair_emit", dt,
                  A_cell.data_ptr(), Mpp.data_ptr(), Mpm.data_ptr(),
-                 Mmp.data_ptr(), Mmm.data_ptr(),
-                 *(pm[key].data_ptr() for key in maps),
+                 Mmp.data_ptr(), Mmm.data_ptr(), tab.data_ptr(),
                  pd.data_ptr(), pe.data_ptr(), *add_ptrs,
                  None if reg is None else reg.data_ptr(),
                  None if reg is None else pdiag.data_ptr(),
-                 m, nd, nc, nf1, S, npair, float(dead_identity))
+                 m, nd, S, nf1, npair, float(dead_identity))
     return pd, pe, pdiag
 
 
 def gather_blocks_pair(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
-                       dead_identity: float = 1.0, reg=None):
+                       dead_identity: float = 1.0, reg=None, out=None):
     """Pair-block operator from per-facet blocks (kernel K12 on a CUDA
     tensor): (pd (2nd, 2nd, npair), pe (S, 2nd, nd, npair)); with ``reg``
     (nd, nd, nc) also pd + the pair-diagonal embedding of reg, from the same
-    launch."""
+    launch.  ``out``: buffers of :func:`emit_buffers` to write and return
+    (on the CPU the plain results are copied into them); without it new
+    tensors."""
     if not A_cell.is_cuda:
-        return gather_blocks_pair_plain(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
-                                        dead_identity, reg)
-    pd, pe, pdiag = _gather_blocks_pair_cuda(
-        pm, A_cell[None], Mpp[None], Mpm[None], Mmp[None], Mmm[None],
-        dead_identity, reg=None if reg is None else reg[None])
-    if reg is None:
-        return pd[0], pe[0]
-    return pd[0], pe[0], pdiag[0]
+        return _copy_out(gather_blocks_pair_plain(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
+                                                  dead_identity, reg), out)
+    pd, pe, pdiag = _gather_blocks_pair_cuda(pm, A_cell, Mpp, Mpm, Mmp, Mmm, dead_identity,
+                                             reg=reg, out=out)
+    return (pd, pe) if reg is None else (pd, pe, pdiag)
 
 
 def gather_blocks_pair_multi(g, pm, A_cell, Mpp, Mpm, Mmp, Mmm,
-                             dead_identity: float = 1.0, add=None):
+                             dead_identity: float = 1.0, add=None, out=None):
     """Batched emitter, one launch for all m systems (kernel K12 on a CUDA
     tensor): pd (m, 2nd, 2nd, npair), pe (m, S, 2nd, nd, npair).  ``add``:
-    a static pair operator (pd, pe) added last, in the same launch."""
+    a static pair operator (pd, pe) added last, in the same launch; on the
+    card its pe must be zero outside the owner halves (checked once per
+    tensor).  ``out`` as for :func:`gather_blocks_pair`."""
     if not A_cell.is_cuda:
-        return gather_blocks_pair_multi_plain(g, pm, A_cell, Mpp, Mpm, Mmp,
-                                              Mmm, dead_identity, add)
+        return _copy_out(gather_blocks_pair_multi_plain(g, pm, A_cell, Mpp, Mpm, Mmp,
+                                                        Mmm, dead_identity, add), out)
     return _gather_blocks_pair_cuda(pm, A_cell, Mpp, Mpm, Mmp, Mmm,
-                                    dead_identity, add=add)[:2]
+                                    dead_identity, add=add, out=out)[:2]
 
 
 # ---------------------------------------------------------------------------

@@ -186,9 +186,10 @@ def block_jacobi_operands(Pinv, halves=False, buffer=False) -> BjOperands:
     :func:`block_jacobi_apply`.  ``halves``: apply the two diagonal
     sub-blocks only (pair blocks, nd = 6 or 8; kernel B takes nd = 8).
     ``buffer``: every apply writes into one output allocated here, for a
-    caller that makes a new tensor of the result before the next apply
-    (the pair layout's live mask); without it each apply returns a new
-    tensor."""
+    caller that is done with the result before the next apply (the pair
+    layout's solves: the masked two-level applies, whose prolong-add
+    writes into it, and the block-Jacobi KNP apply, which multiplies it by
+    the mask); without it each apply returns a new tensor."""
     if Pinv.dim() not in (3, 4) or Pinv.shape[-3] != Pinv.shape[-2]:
         raise ValueError("block_jacobi_apply: expected (m,) nd, nd, nc blocks")
     nd, nc = Pinv.shape[-2], Pinv.shape[-1]

@@ -25,9 +25,11 @@ STEPS steady steps (``run_block``) twice:
 3. census: one more step with every aten operator call counted per phase
    (a dispatch mode, so nothing is timed here): the calls a phase makes
    beside its hand-written kernels, how many of them are matrix products
-   (bmm / mm, which is what an einsum lowers to), and how many read a
+   (bmm / mm, which is what an einsum lowers to), how many read a
    value back to the host (``_local_scalar_dense``: ``bool``, ``int``,
-   ``float`` or ``item`` of a device tensor).
+   ``float`` or ``item`` of a device tensor), and how many are
+   ``aten::mul`` (the pair layout's live mask is applied inside the
+   two-level prolong kernels, not by a multiplication).
 
 Usage (needs a CUDA card):
 
@@ -52,9 +54,9 @@ TOP = 12                 # operators listed by device time
 # the __global__ functions of csrc/, as the profiler names their launches
 HAND_KERNELS = ("bell_matvec_kernel", "bj_inverse_kernel", "bj_apply_kernel",
                 "membrane_step_kernel", "pair_matvec_kernel", "to_pair_kernel",
-                "from_pair_kernel", "gather_blocks_pair_kernel",
+                "from_pair_kernel", "pair_emit_kernel",
                 "tl_restrict_kernel", "tl_reduce_kernel", "tl_solve_kernel",
-                "tl_prolong_kernel",
+                "tl_prolong_kernel", "tl_coarse_kernel",
                 "emi_cell_kernel", "emi_facet_kernel", "emi_emit_cell_kernel",
                 "alpha_sum_kernel", "ion_cell_kernel", "ion_facet_scalars_kernel",
                 "ion_facet_kernel",
@@ -92,10 +94,11 @@ def _untimed(S):
 
 def _op_census(S, state, sp):
     """One step with the aten operator calls of each phase counted:
-    {phase: {"aten_ops": n, "matrix_products": n, "host_reads": n}}."""
+    {phase: {"aten_ops": n, "matrix_products": n, "host_reads": n,
+    "muls": n}}."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    counts = {name: {"aten_ops": 0, "matrix_products": 0, "host_reads": 0}
+    counts = {name: {"aten_ops": 0, "matrix_products": 0, "host_reads": 0, "muls": 0}
               for name in PHASES}
 
     class Count(TorchDispatchMode):
@@ -110,6 +113,8 @@ def _op_census(S, state, sp):
                 self.slot["matrix_products"] += 1
             elif op == "_local_scalar_dense":
                 self.slot["host_reads"] += 1
+            elif op == "mul":
+                self.slot["muls"] += 1
             return func(*args, **(kwargs or {}))
 
     for name in PHASES:
@@ -261,10 +266,10 @@ def main():
         print(f"  {name:22s} " + " ".join(f"{v:8.3f}" for v in ms) + "  ms")
     print(f"aten operator calls per phase in one step (EMI iters "
           f"{out['census_iters']['emi_iters']}, KNP iters {out['census_iters']['knp_iters']}; "
-          f"matrix products, host reads among them):")
+          f"matrix products, host reads, aten::mul among them):")
     for name, cnt in out["census"].items():
         print(f"  {name:22s} {cnt['aten_ops']:6d} ({cnt['matrix_products']}, "
-              f"{cnt['host_reads']})")
+              f"{cnt['host_reads']}, {cnt['muls']})")
     tr = out["trace"]
     print(f"trace   EMI iters {tr['emi_iters']}  KNP iters {tr['knp_iters']}")
     busy = ("device busy not measured (no device events in the trace)"

@@ -26,7 +26,7 @@ from .config import Ion, SolverParams, StimParams, ion_from_dict
 from .mesh.core import Mesh
 from .fem.tabulation import build_geometry, build_membrane_tables
 from .ops import assembly
-from .ops.pairs import (build_pair_maps, cell_bell_to_pair, from_pair,
+from .ops.pairs import (build_pair_maps, cell_bell_to_pair, emit_buffers, from_pair,
                         from_pair_host, interleave_pair_maps,
                         pair_maps_to_device, pair_matvec, pair_matvec_fan,
                         pair_matvec_multi, pair_nbr, pair_v_sums, to_pair,
@@ -281,7 +281,8 @@ class Solver:
     def _invalidate_caches(self):
         """Drop the cached static operators and compartment arrays bound to
         the previous mesh, physics or cell numbering."""
-        for attr in ("_knp_static_blocks", "_comp_onehot", "_comp_ids"):
+        for attr in ("_knp_static_blocks", "_comp_onehot", "_comp_ids", "_emit_bufs",
+                     "_live_masks"):
             if hasattr(self, attr):
                 delattr(self, attr)
 
@@ -369,15 +370,38 @@ class Solver:
         return torch.cat([c, c_elim[None]], dim=0)
 
     def _assemble_emi(self, c, c_elim, phi_M_pad, I_ch_tot_pad, t,
-                      pair: bool = False):
+                      pair: bool = False, out=None):
         """EMI blocks (the pair operator with ``pair``), rhs and P_diag.
         ``t`` (read by the JAX package's MMS sources only) keeps the JAX
-        signature."""
+        signature; ``out``: the pair emit's buffers (see _emit_out)."""
         ions = {"z": self.z, "D": self.D, "c": self._all_c(c, c_elim)}
         return assembly.assemble_emi(
             self.g, self.masks, ions, self._phys_emi(), phi_M_pad, I_ch_tot_pad,
             mem_t=self.mem_dev, splitting=self.splitting_scheme,
-            pm=self.pairs if pair else None)
+            pm=self.pairs if pair else None, out=out)
+
+    def _live_mask(self, dtype):
+        """The pair layout's (2nd, npair) live mask in ``dtype``, made once
+        per dtype (the masked preconditioner applies read it)."""
+        masks = self.__dict__.setdefault("_live_masks", {})
+        if dtype not in masks:
+            masks[dtype] = self._pair_mask.to(dtype)
+        return masks[dtype]
+
+    def _emit_out(self, kind: str):
+        """The pair emit's output buffers of the step's EMI (``kind`` "emi":
+        pd, pe, P_diag) or KNP ("knp": pdK, peK) operator, made once per
+        dtype (pe zero outside its owner halves, which the emit never
+        writes).  Only _pde_step passes them: each step's emit overwrites
+        the previous step's operator, which nothing holds past its solve
+        (the pc builds, the harvest and the tests emit into new tensors)."""
+        bufs = self.__dict__.setdefault("_emit_bufs", {})
+        key = (kind, self.dtype)
+        if key not in bufs:
+            m = None if kind == "emi" else self.N_ions
+            bufs[key] = emit_buffers(self.pairs, self.nd, self.dtype, self.device, m=m,
+                                     diag=kind == "emi")
+        return bufs[key]
 
     def _knp_static(self, k):
         """The time-independent KNP operator of ion k (mass + stiffness +
@@ -410,14 +434,17 @@ class Solver:
         phi_M_pad, I_ch_pad, I_ch_tot_pad = self._pads(state)
 
         stats = {}
+        pair = self.pair_layout
         blocks, rhs, Pd = self._assemble_emi(c, c_elim, phi_M_pad, I_ch_tot_pad, t,
-                                             pair=self.pair_layout)
+                                             pair=pair,
+                                             out=self._emit_out("emi") if pair else None)
         phi, stats["emi_iters"], stats["emi_converged"] = self._emi_solve_iterative(
             blocks, Pd, rhs, phi, sp_, pc=pc.get("emi") if pc else None,
             phi_prev=state.get("phi_prev"))
 
         blocksK, rhsK = self._knp_assemble_all(
-            c, c_elim, phi, phi_M_pad, I_ch_pad, I_ch_tot_pad, t, c)
+            c, c_elim, phi, phi_M_pad, I_ch_pad, I_ch_tot_pad, t, c,
+            out=self._emit_out("knp") if pair else None)
         c, stats["knp_iters"], stats["knp_converged"] = self._knp_solve_all(
             blocksK, rhsK, c, sp_, pcK=pc.get("knp") if pc else None)
         return self._finalize_step(state, stats, c, phi, t)
@@ -488,10 +515,11 @@ class Solver:
         return new_state, stats
 
     def _knp_assemble_all(self, c, c_elim, phi, phi_M_pad, I_ch_pad,
-                          I_ch_tot_pad, t, c_n):
+                          I_ch_tot_pad, t, c_n, out=None):
         """KNP assembly for all solved ions in one pass:
         (blocks (m, K, nd, nd, nc), rhs (m, nd, nc)), or ((pdK, peK), rhs)
-        on the pair layout.  ``t`` is unused; it keeps the JAX signature."""
+        on the pair layout (``out``: the pair emit's buffers, see
+        _emit_out).  ``t`` is unused; it keeps the JAX signature."""
         call = self._all_c(c, c_elim)
         alpha_sum = assembly.alpha_sum(self.z, self.D, call)
         # the ion-stacked static operator (-1), in pair form (-2) on the
@@ -509,7 +537,7 @@ class Solver:
             phi_M_pad, I_ch_pad[:self.N_ions], I_ch_tot_pad,
             mem_t=self.mem_dev, static_blocks=statics,
             splitting=self.splitting_scheme,
-            pm=self.pairs if self.pair_layout else None)
+            pm=self.pairs if self.pair_layout else None, out=out)
 
     def _knp_solve_all(self, blocksK, rhsK, c, sp_: SolverParams, pcK=None):
         """Batched increment-form GMRES over the ion axis: all solved ions
@@ -544,19 +572,19 @@ class Solver:
         mv = lambda V: pair_matvec_multi(pdK, peK, pm, V.contiguous())
         conv = to_pair(pm, [rhsK, c])
         rhs_p, c_p = conv[0], conv[1]
-        lm = self._pair_mask.to(rhs_p.dtype)[None]
+        lm = self._live_mask(rhs_p.dtype)
         halves = sp_.pair_bj == "halves"
         pdK_bj = pdK * self._pair_bj_halves[None] if halves else pdK
         if kind == "two_level":
             data = pcK if pcK is not None else self._build_knp_pc(blocksK, sp_)
-            # the masked product is the result: the applies reuse one buffer
-            pcf0 = two_level_apply_batched(data, pdK_bj, sp_.agg_size // 2, halves=halves,
-                                           buffer=True)
-            pcf = lambda r: pcf0(r) * lm
+            # the prolong-add applies the mask; GMRES consumes each result
+            # before the next apply, so the applies reuse one buffer
+            pcf = two_level_apply_batched(data, pdK_bj, sp_.agg_size // 2, halves=halves,
+                                          buffer=True, mask=lm)
         else:
             bj = block_jacobi_operands(block_jacobi_inverse(pdK_bj.contiguous()), halves,
                                        buffer=True)
-            pcf = lambda r: block_jacobi_apply(bj, r.contiguous()) * lm
+            pcf = lambda r: block_jacobi_apply(bj, r.contiguous()) * lm[None]
         r0 = rhs_p - mv(c_p)
         res = gmres_batched(
             mv, r0, torch.zeros_like(r0), pcf,
@@ -786,7 +814,6 @@ class Solver:
         components stay exactly zero."""
         pd_, pe_ = blocks
         agg_p = sp_.agg_size // 2
-        lm = self._pair_mask.to(P_diag.dtype)
         halves = sp_.pair_bj == "halves"
         if halves:
             P_diag = P_diag * self._pair_bj_halves
@@ -799,8 +826,10 @@ class Solver:
                 comp_onehot=oh[:, cop0], comp_ids=ids[cop0],
                 extra_diag=P_diag - pd_, v=pair_v_sums(pd_, pe_),
                 ridge=sp_.coarse_ridge)
-        fn = two_level_apply_fn(pc, P_diag, agg_p, halves=halves, buffer=True)
-        return lambda r: fn(r) * lm
+        # the prolong-add applies the mask; PCG consumes each result before
+        # the next apply, so the applies reuse one buffer
+        return two_level_apply_fn(pc, P_diag, agg_p, halves=halves, buffer=True,
+                                  mask=self._live_mask(P_diag.dtype))
 
     def _build_knp_pc(self, blocksK, sp_: SolverParams):
         """Per-ion two-level coarse data stacked over the ion axis (pairs:
@@ -889,10 +918,9 @@ class Solver:
             halves = sp_.pair_bj == "halves"
             Pd_b = Pd * self._pair_bj_halves if halves else Pd
             fn = two_level_apply_fn(data, Pd_b, sp_.agg_size // 2, halves=halves,
-                                    buffer=True)
-            lm = self._pair_mask.to(Pd.dtype)
+                                    buffer=True, mask=self._live_mask(Pd.dtype))
             W_pair = ritz_lanczos_W(
-                None, None, lambda v: fn(v) * lm, to_pair(self.pairs, rhs),
+                None, None, fn, to_pair(self.pairs, rhs),
                 k=k, n_ritz=n_ritz,
                 matvec=lambda v: pair_matvec(pd_, pe_, self.pairs, v.contiguous()),
                 mask=self._pair_mask)

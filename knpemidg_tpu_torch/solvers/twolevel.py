@@ -185,7 +185,7 @@ def build_two_level(blocks, nbr, agg_size: int, sym: bool = True,
 
 
 def two_level_apply_fn(data, P_diag, agg_size: int, halves: bool = False,
-                       buffer: bool = False) -> Callable:
+                       buffer: bool = False, mask=None) -> Callable:
     """Per-solve additive preconditioner apply from frozen coarse ``data``
     (see build_two_level) and the current block-Jacobi diagonal: BJ +
     chunk coarse (with one refinement sweep when ``As`` is present) +
@@ -193,10 +193,12 @@ def two_level_apply_fn(data, P_diag, agg_size: int, halves: bool = False,
     its entries are in ``data``).  The BJ apply is kernel B (``halves``:
     the pair diagonal's two diagonal sub-blocks only, pair_bj = 'halves');
     the rest is K6's restrict, solve and prolong-add, added in place into
-    it.  ``buffer``: every apply returns the same tensor, overwritten, for
-    a caller that makes a new tensor of it before the next apply (the pair
-    layout's live mask); without it each apply returns a new tensor (the
-    PCG keeps it as z until its direction update)."""
+    it.  ``mask`` (nd, nc): the pair layout's live mask, applied by the
+    prolong-add in the same pass (the apply's result is the masked sum).
+    ``buffer``: every apply returns the same tensor, overwritten, for a
+    caller that is done with it before the next apply (PCG's z is consumed
+    by its direction update, GMRES's w by its Arnoldi step); without it
+    each apply returns a new tensor."""
     for key in ("d1inv", "momb_W"):
         if key in data:
             raise NotImplementedError(f"two-level data {key!r} is not ported")
@@ -206,19 +208,21 @@ def two_level_apply_fn(data, P_diag, agg_size: int, halves: bool = False,
     def apply(r):                      # additive: BJ + coarse (+ deflation)
         r = r.contiguous()
         out = block_jacobi_apply(bj, r)
-        coarse.coarse_add(co, out[None], r[None])
+        coarse.coarse_add(co, out[None], r[None], mask)
         return out
 
     return apply
 
 
 def two_level_apply_batched(data, P_diag, agg_size: int, halves: bool = False,
-                            buffer: bool = False) -> Callable:
+                            buffer: bool = False, mask=None) -> Callable:
     """Batched additive two-level apply: ``data`` leaves and ``P_diag``
     carry a leading system axis m; the returned apply maps (m, nd, nc) ->
     (m, nd, nc).  The block-Jacobi inverses are computed once here, not per
-    apply; the chunk coarse is K7 (the K6 kernels over m systems).
-    ``halves`` and ``buffer`` as in :func:`two_level_apply_fn`."""
+    apply; the chunk coarse is K7 (on the card one launch, the chunk sums,
+    the coarse solve and the prolong-add: no deflation, no As).
+    ``halves``, ``buffer`` and ``mask`` (nd, nc, shared by the systems) as
+    in :func:`two_level_apply_fn`."""
     for key in ("d1inv", "ritz_W"):
         if key in data:
             raise NotImplementedError(f"two-level data {key!r} is not ported")
@@ -227,7 +231,7 @@ def two_level_apply_batched(data, P_diag, agg_size: int, halves: bool = False,
 
     def apply(r):
         r = r.contiguous()
-        return coarse.coarse_add(co, block_jacobi_apply(bj, r), r)
+        return coarse.coarse_add(co, block_jacobi_apply(bj, r), r, mask)
 
     return apply
 

@@ -100,6 +100,54 @@ def test_coarse_steps_match_the_reference_formulas():
     assert rel(out[0], out0[0] + v) < TOL
 
 
+@pytest.mark.parametrize("groups", ["full", "coarse", "refined"])
+@pytest.mark.parametrize("nd", [4, 8])
+def test_masked_coarse_apply_equals_the_plain_steps_bitwise(nd, groups):
+    """coarse_add with the live mask (K6 with its groups, K7 without) and
+    coarse_apply_plain equal restrict_plain -> solve_plain ->
+    prolong_add_plain -> * mask bit for bit, -0 included; without the mask
+    they equal the unmasked steps."""
+    rng = np.random.default_rng(27)
+    batched = groups == "coarse"
+    d = _data(rng, nd, GROUPS[groups], m=2 if batched else None)
+    co = coarse.operands({k: t64(v) for k, v in d.items()}, AGG, batched)
+    m = 2 if batched else 1
+    r = t64(rng.standard_normal((m, nd, NC)))
+    out0 = t64(rng.standard_normal((m, nd, NC)))
+    mask = t64((rng.uniform(size=(nd, NC)) < 0.8).astype(np.float64))
+    ref = coarse.prolong_add_plain(co, out0.clone(), *coarse.solve_plain(
+        co, *coarse.restrict_plain(co, r))) * mask
+    bits = lambda t: t.view(torch.int64)
+    for got in (coarse.coarse_add(co, out0.clone(), r, mask),
+                coarse.coarse_apply_plain(co, out0.clone(), r, mask)):
+        assert torch.equal(bits(got), bits(ref))
+    assert bool((bits(ref) == bits(torch.tensor(-0.0, dtype=torch.float64))).any())
+    plain = coarse.prolong_add_plain(co, out0.clone(), *coarse.solve_plain(
+        co, *coarse.restrict_plain(co, r)))
+    assert torch.equal(bits(coarse.coarse_add(co, out0.clone(), r)), bits(plain))
+
+
+def test_masked_applies_equal_the_product_with_the_mask():
+    """two_level_apply_fn / two_level_apply_batched with ``mask`` (and the
+    output buffer of the pair solves) equal the unmasked apply times the
+    mask bit for bit, apply after apply."""
+    rng = np.random.default_rng(28)
+    nd = 8
+    d, dK = _data(rng, nd), _data(rng, nd, (), m=2)
+    P, PK = t64(_P_diag(rng, nd)), t64(_P_diag(rng, nd, m=2))
+    mask = t64((rng.uniform(size=(nd, NC)) < 0.8).astype(np.float64))
+    pairs_ = [(twolevel.two_level_apply_fn({k: t64(v) for k, v in d.items()}, P, AGG),
+               twolevel.two_level_apply_fn({k: t64(v) for k, v in d.items()}, P, AGG,
+                                           buffer=True, mask=mask), (nd, NC)),
+              (twolevel.two_level_apply_batched({k: t64(v) for k, v in dK.items()}, PK, AGG),
+               twolevel.two_level_apply_batched({k: t64(v) for k, v in dK.items()}, PK, AGG,
+                                                buffer=True, mask=mask), (2, nd, NC))]
+    for f, g, shape in pairs_:
+        for _ in range(2):
+            r = t64(rng.standard_normal(shape))
+            assert torch.equal((f(r) * mask).view(torch.int64), g(r).view(torch.int64))
+
+
 def test_operands_count_k6_and_k7_apart():
     rng = np.random.default_rng(24)
     co6 = coarse.operands({k: t64(v) for k, v in _data(rng, 4).items()}, AGG, False)

@@ -29,8 +29,8 @@ pytestmark = pytest.mark.cuda
 # float32: sums in another order and fused multiply-adds; float64 round-off
 DTYPES = [(torch.float32, 1e-5), (torch.float64, 1e-12)]
 # the kernels each layout's step goes through
-TWO_LEVEL_KERNELS = tuple(f"two_level_{e}{b}" for b in ("", "_batched")
-                          for e in ("restrict", "solve", "prolong"))
+TWO_LEVEL_KERNELS = tuple(f"two_level_{e}" for e in ("restrict", "solve", "prolong")) + (
+    "two_level_coarse_batched",)
 ASSEMBLY_KERNELS = ("emi_cell", "emi_facet", "emi_emit_cell", "alpha_sum", "knp_cell",
                     "knp_facet", "knp_membrane_rhs", "knp_emit_cell", "membrane_trace",
                     "eliminated_concentration")
@@ -895,7 +895,8 @@ def test_assembly_kernels_match_plain(layout):
 
 
 def test_pair_emit_optional_parts_match_plain(pair_maps):
-    """K12 with the static operator added last (the KNP emit) and with the
+    """K12 with the static operator added last (the KNP emit; its pe zero
+    outside the owner halves, as every pair operator's) and with the
     regularisation blocks (the EMI emit's third output): exact."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(9)
@@ -909,8 +910,10 @@ def test_pair_emit_optional_parts_match_plain(pair_maps):
             M = _rand(rng, (2, 4, 4, nf1), dtype, dev)
             M[..., -1] = 0.0
             Ms.append(M)
+        # a static operator is zero outside each slot's owner half
+        own = pairs.owner_half_rows(pm, 4)
         add = (_rand(rng, (2, 8, 8, npair), dtype, dev),
-               _rand(rng, (2, 6, 8, 4, npair), dtype, dev))
+               (_rand(rng, (2, 6, 8, 4, npair), dtype, dev) * own).contiguous())
         got = pairs.gather_blocks_pair_multi(None, pm, A, *Ms, add=add)
         ref = pairs.gather_blocks_pair_multi_plain(None, pm, A, *Ms, add=add)
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
@@ -919,6 +922,194 @@ def test_pair_emit_optional_parts_match_plain(pair_maps):
         got = pairs.gather_blocks_pair(None, pm, *one, reg=reg)
         ref = pairs.gather_blocks_pair_plain(None, pm, *one, reg=reg)
         assert len(got) == 3 and all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.fixture(scope="module")
+def main_pair_maps():
+    """The interleaved pair maps of chip_smoke.py's mesh (63,558 pairs) on
+    the card, and its facet count."""
+    dev = cuda_or_skip()
+    from knpemidg_tpu_torch.mesh.generators import box_3d_axons
+
+    mesh = box_3d_axons(1, length_factor=2)
+    geom = build_geometry(mesh, 2, 2)
+    pmi, _ = pairs.interleave_pair_maps(pairs.build_pair_maps(geom), geom.vol.shape[0])
+    return pairs.pair_maps_to_device(pmi, dev), int(pmi["nf"]) + 1
+
+
+def _emit_inputs(rng, pm, nf1, dtype, dev):
+    """Random K12 inputs of both emits (the EMI one with reg, the KNP one
+    with a static operator zero outside the owner halves), the dummy facet
+    zero."""
+    npair = pm["int_f"].shape[0]
+    A = _rand(rng, (2, 4, 4, 2 * npair), dtype, dev)
+    Ms = []
+    for _ in range(4):
+        M = _rand(rng, (2, 4, 4, nf1), dtype, dev)
+        M[..., -1] = 0.0
+        Ms.append(M)
+    own = pairs.owner_half_rows(pm, 4)
+    add = (_rand(rng, (2, 8, 8, npair), dtype, dev),
+           (_rand(rng, (2, 6, 8, 4, npair), dtype, dev) * own).contiguous())
+    reg = _rand(rng, (4, 4, 2 * npair), dtype, dev)
+    one = [A[0].contiguous()] + [M[0].contiguous() for M in Ms]
+    return A, Ms, add, reg, one
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pair_emit_into_its_buffers_at_the_main_size(main_pair_maps, dtype):
+    """K12 at the main path's 63,558 pairs as the step calls it: two emits
+    with other inputs into the same buffers (emit_buffers), the EMI one
+    with reg and the KNP one with the static operator, each equal to the
+    plain version bit for bit; the rows outside the owner halves stay +0;
+    one launch an emit."""
+    dev = cuda_or_skip()
+    pm, nf1 = main_pair_maps
+    assert pm["int_f"].shape[0] == 63558
+    rng = np.random.default_rng(31)
+    bufK = pairs.emit_buffers(pm, 4, dtype, dev, m=2)
+    bufE = pairs.emit_buffers(pm, 4, dtype, dev, diag=True)
+    own = pairs.owner_half_rows(pm, 4)
+    for _ in range(2):
+        A, Ms, add, reg, one = _emit_inputs(rng, pm, nf1, dtype, dev)
+        n0 = _cuda.LAUNCHES["gather_blocks_pair"]
+        got = pairs.gather_blocks_pair_multi(None, pm, A, *Ms, add=add, out=bufK)
+        gotE = pairs.gather_blocks_pair(None, pm, *one, reg=reg, out=bufE)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["gather_blocks_pair"] == n0 + 2
+        assert got[0].data_ptr() == bufK[0].data_ptr() and gotE[2].data_ptr() == bufE[2].data_ptr()
+        ref = pairs.gather_blocks_pair_multi_plain(None, pm, A, *Ms, add=add)
+        refE = pairs.gather_blocks_pair_plain(None, pm, *one, reg=reg)
+        for a, b in zip(list(got) + list(gotE), list(ref) + list(refE)):
+            assert torch.equal(_bits(a), _bits(b))
+        for pe in (bufK[1], bufE[1][None]):
+            assert not bool(_bits(pe).masked_select(~own).any())
+
+
+def test_pair_emit_refuses_what_it_cannot_take(main_pair_maps):
+    """A static operator with a value outside the owner halves raises
+    before any launch (the emit would not read it); so do maps of another
+    slot count than the kernel's S = 6 and blocks of another nd."""
+    dev = cuda_or_skip()
+    pm, nf1 = main_pair_maps
+    rng = np.random.default_rng(32)
+    A, Ms, add, reg, one = _emit_inputs(rng, pm, nf1, torch.float64, dev)
+    own = pairs.owner_half_rows(pm, 4)
+    bad = add[1].masked_fill(~own, 1e-300)
+    n0 = dict(_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="owner halves"):
+        pairs.gather_blocks_pair_multi(None, pm, A, *Ms, add=(add[0], bad))
+    four = {k: (v[:4].contiguous() if k.startswith("ext_") and k != "ext_hmask" else v)
+            for k, v in pm.items()}
+    with pytest.raises(NotImplementedError):
+        pairs.gather_blocks_pair_multi(None, four, A, *Ms)
+    with pytest.raises(NotImplementedError):
+        pairs.gather_blocks_pair(None, pm, A[0, :3, :3].contiguous(),
+                                 *(M[0, :3, :3].contiguous() for M in Ms))
+    assert _cuda.LAUNCHES == n0
+
+
+def _k7_main(layout, dtype, dev):
+    """K7 operands at a layout's main-path coarse size (cell: 124,416
+    cells of nd = 4 in chunks of 64; pair: 63,558 pairs of 2nd = 8 in
+    chunks of 32), two systems, r, a block-Jacobi output and the live mask
+    (a quarter of the cells dead)."""
+    nd, nc, agg = (4, 124416, 64) if layout == "cell" else (8, 63558, 32)
+    rng = np.random.default_rng(43)
+    d = tp.two_level_data(rng, nd, nc, agg, (), 2)
+    co = coarse.operands({k: torch.as_tensor(v, dtype=dtype, device=dev)
+                          for k, v in d.items()}, agg, batched=True)
+    r, out0 = (torch.as_tensor(rng.standard_normal((2, nd, nc)), dtype=dtype, device=dev)
+               for _ in range(2))
+    mask = torch.as_tensor((rng.uniform(size=(nd, nc)) < 0.75).astype(np.float64),
+                           dtype=dtype, device=dev)
+    return co, r, out0, mask
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("layout", ["cell", "pair"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_coarse_apply_equals_the_three_launches_bitwise(layout, dtype, masked):
+    """K7's one-launch apply (coarse_add on operands without fields or As)
+    at the main path's sizes equals restrict, solve and prolong_add (with
+    the mask in the prolong kernel) bit for bit, 50 calls in a row; one
+    launch of the one-launch counter a call, none of the three."""
+    dev = cuda_or_skip()
+    co, r, out0, mask = _k7_main(layout, dtype, dev)
+    mk = mask if masked else None
+    assert co.work.fused is not None
+    ref = coarse.prolong_add(co, out0.clone(), *coarse.solve(co, *coarse.restrict(co, r)), mk)
+    plain = coarse.coarse_apply_plain(co, out0.clone(), r, mk)
+    names = ("two_level_coarse_batched",) + co.work.names
+    n0 = {k: _cuda.LAUNCHES[k] for k in names}
+    outs = [coarse.coarse_add(co, out0.clone(), r, mk) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["two_level_coarse_batched"] == n0[names[0]] + 50
+    assert all(_cuda.LAUNCHES[k] == n0[k] for k in names[1:])
+    for got in outs:
+        assert torch.equal(_bits(got), _bits(ref))
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert rel(ref, plain) < tol
+
+
+def test_prolong_mask_is_the_product_bitwise():
+    """K6's prolong-add with the live mask (every deflation group) equals
+    the unmasked prolong-add times the mask bit for bit, at nd = 8."""
+    dev = cuda_or_skip()
+    co, r, out0 = _coarse_case("k6_full", 8, torch.float64, dev)
+    rng = np.random.default_rng(44)
+    mask = torch.as_tensor((rng.uniform(size=tuple(out0.shape[1:])) < 0.75).astype(
+        np.float64), device=dev)
+    zc, coef = (t.clone() for t in coarse.solve(co, *coarse.restrict(co, r)))
+    got = coarse.prolong_add(co, out0.clone(), zc, coef, mask)
+    ref = coarse.prolong_add(co, out0.clone(), zc, coef) * mask
+    assert torch.equal(_bits(got), _bits(ref))
+    got = coarse.coarse_add(co, out0.clone(), r, mask)
+    assert torch.equal(_bits(got), _bits(coarse.coarse_add(co, out0.clone(), r) * mask))
+
+
+@pytest.mark.parametrize("layout", ["cell", "pair"])
+def test_coarse_apply_is_one_launch_and_allocates_nothing(layout):
+    """Ten K7 applies (masked on pairs) in one profiler session are ten
+    wrapper launches and at most ten device kernels, every one of them the
+    one-launch apply, at least the last five read (a session on the card
+    can miss its first launches; the scheduled sessions of _device_kernels
+    read none of this kernel's in some processes), and no allocation (the
+    caching allocator's count)."""
+    dev = cuda_or_skip()
+    co, r, out0, mask = _k7_main(layout, torch.float64, dev)
+    mk = mask if layout == "pair" else None
+    coarse.coarse_add(co, out0, r, mk)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    n0 = _cuda.LAUNCHES["two_level_coarse_batched"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            for _ in range(5):
+                coarse.coarse_add(co, out0, r, mk)
+            torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
+    assert _cuda.LAUNCHES["two_level_coarse_batched"] == n0 + 10
+    assert 5 <= len(kernels) <= 10, kernels
+    assert all("tl_coarse_kernel" in k for k in kernels), kernels
+
+
+def test_coarse_apply_raises_on_a_refused_launch():
+    """A grid of more blocks than can be resident together is refused by
+    the cooperative launch: the wrapper raises, counts no launch, and the
+    refusal leaves no error behind for the next launch."""
+    dev = cuda_or_skip()
+    co, r, out0, _ = _k7_main("cell", torch.float64, dev)
+    big = co._replace(work=co.work._replace(fused=(co.work.fused[0], 10 ** 6, 10 ** 6)))
+    n0 = _cuda.LAUNCHES["two_level_coarse_batched"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        coarse.coarse_add(big, out0.clone(), r)
+    assert _cuda.LAUNCHES["two_level_coarse_batched"] == n0
+    got = coarse.coarse_add(co, out0.clone(), r)
+    assert _cuda.LAUNCHES["two_level_coarse_batched"] == n0 + 1
+    assert torch.equal(_bits(got), _bits(coarse.prolong_add(
+        co, out0.clone(), *coarse.solve(co, *coarse.restrict(co, r)))))
 
 
 def _facet_case(rng, nd, nf1, nc, membrane, dtype, dev):

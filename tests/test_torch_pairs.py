@@ -266,6 +266,90 @@ def test_owner_half_mask_and_the_zero_halves_of_pe(setup):
         assert bool(blocks.masked_select(rows).any())
 
 
+def _emit_table_maps(tab):
+    """The maps a packed pairs.emit_table holds, decoded: the interior word
+    (int_f, live1 in bit 30, int_p0 in bit 31) and a word a slot (ext_f,
+    ext_isp in bit 30, ext_h in bit 31); cop is the interleaved (2p, 2p + 1)."""
+    w = tab.to(torch.int64) & (2 ** 32 - 1)
+    low, b30, b31 = w & (2 ** 30 - 1), (w >> 30) & 1, w >> 31
+    pairs_ = torch.arange(tab.shape[1], dtype=torch.int32)
+    return {"cop": torch.stack([2 * pairs_, 2 * pairs_ + 1]), "live1": b30[0].bool(),
+            "int_f": low[0].to(torch.int32), "int_p0": b31[0].bool(),
+            "ext_f": low[1:].to(torch.int32), "ext_isp": b30[1:].bool(),
+            "ext_h": b31[1:].to(torch.int32)}
+
+
+def test_emit_table_decodes_to_the_maps_and_is_cached(setup):
+    """The pair emit's packed table holds int_f, int_p0, live1 and each
+    slot's ext_f, ext_isp, ext_h bit for bit (cop is the interleaved
+    (2p, 2p + 1)); it is built once per maps and again for other maps."""
+    pmj, pmt, pmh, nc = setup[1]
+    S, npair = pmh["ext_f"].shape
+    tab = P.emit_table(pmt)
+    assert tab.dtype == torch.int32 and tuple(tab.shape) == (S + 1, npair)
+    assert tab.is_contiguous()
+    got = _emit_table_maps(tab)
+    for key in ("cop", "live1", "int_f", "int_p0", "ext_f", "ext_isp", "ext_h"):
+        assert got[key].dtype == pmt[key].dtype, key
+        assert torch.equal(got[key], pmt[key]), key
+        assert np.array_equal(to_np(got[key]), np.asarray(pmj[key])), key
+    assert P.emit_table(pmt) is tab
+    assert P.emit_table(dict(pmt)) is tab                     # the same map tensors
+    other = dict(pmt, ext_h=pmt["ext_h"].clone())
+    assert P.emit_table(other) is not tab
+    assert torch.equal(P.emit_table(other), tab)
+
+
+def test_emit_table_refuses_maps_it_cannot_pack(setup):
+    """The table takes the interleaved single-device maps: a pair whose
+    cells are not (2p, 2p + 1) raises, as does a facet index beyond 30
+    bits."""
+    _, pmt, _, _ = setup[1]
+    cop = pmt["cop"].clone()
+    cop[:, [0, 1]] = cop[:, [1, 0]]
+    with pytest.raises(NotImplementedError):
+        P.emit_table(dict(pmt, cop=cop))
+    far = pmt["ext_f"].clone()
+    far[0, 0] = 2 ** 30
+    with pytest.raises(ValueError):
+        P.emit_table(dict(pmt, ext_f=far))
+
+
+def test_emit_out_buffers_and_the_zero_half_check(setup):
+    """emit_buffers' pe is zero and known to be: an emit into the buffers
+    (the step's form) equals the emit into new tensors, twice with other
+    inputs; the check of a pe or add_pe outside its owner halves accepts
+    zeros (+0 or -0) and raises on anything else, NaN included."""
+    pmj, pmt, pmh, nc = setup[1]
+    nd = setup["nd"]
+    rng = np.random.default_rng(12)
+    bufs = P.emit_buffers(pmt, nd, torch.float64, "cpu", m=2)
+    one = P.emit_buffers(pmt, nd, torch.float64, "cpu", diag=True)
+    assert len(one) == 3 and one[1].shape == bufs[1].shape[1:]
+    assert not bool(bufs[1].any()) and not bool(one[1].any())
+    for _ in range(2):
+        A, Ms = _rand_blocks(rng, nd, nc, int(pmh["nf"]) + 1, m=2)
+        args = [t64(a) for a in (A, Ms[0], Ms[2], Ms[3], Ms[1])]
+        got = P.gather_blocks_pair_multi(None, pmt, *args, out=bufs)
+        ref = P.gather_blocks_pair_multi(None, pmt, *args)
+        assert got[0] is bufs[0] and got[1] is bufs[1]
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        reg = t64(rng.standard_normal((nd, nd, nc)))
+        got = P.gather_blocks_pair(None, pmt, *(a[0] for a in args), reg=reg, out=one)
+        ref = P.gather_blocks_pair(None, pmt, *(a[0] for a in args), reg=reg)
+        assert all(a is b for a, b in zip(got, one))
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    own = P.owner_half_rows(pmt, nd)
+    pe = torch.where(own, 1.0, -0.0).to(torch.float64).expand(2, *own.shape[:2], nd,
+                                                              own.shape[-1]).contiguous()
+    P._zero_halves(pmt, pe, "add pe")
+    for bad in (1e-300, float("nan")):
+        pe2 = pe.clone()
+        pe2.masked_fill_(~own[None].expand_as(pe2), bad)
+        with pytest.raises(ValueError, match="owner halves"):
+            P._zero_halves(pmt, pe2, "add pe")
+
+
 def test_cpu_pair_wrappers_launch_nothing(setup):
     """On CPU tensors the pair wrappers are their plain versions."""
     pmj, pmt, pmh, nc = setup[1]

@@ -60,6 +60,16 @@ and float64, beside the library calls chip_smoke.py holds them to:
   k11  K11 knp_facet on chip_smoke.py's cell-layout facet tables at a
        seeded potential's gradient, both dtypes, with a digest of its
        outputs;
+  k12  K12 as the step calls it on chip_smoke.py's pair maps: the EMI
+       emit with reg (m = 1) and the KNP emit with the static operator
+       (m = 2, zero outside the owner halves), random inputs; this tree
+       into buffers made once (emit_buffers), a tree without them
+       allocating its outputs;
+  k7   K7's coarse apply as the KNP solve calls it (two ions, no As, no
+       deflation) at the cell and pair coarse sizes, into an output in
+       place, on pairs with a live mask: this tree's one call (one launch)
+       beside its three entry points composed; a tree without the mask
+       argument its three calls and, on pairs, the product with the mask;
   k13  Solver._ode_step itself in float64 under each scheme at
        chip_smoke.py's configuration: the pushes, every tag's ODE step and
        the pulls (this tree: one K13 launch; a tree with the per-tag
@@ -90,7 +100,7 @@ device microseconds per call of 100 calls replayed as one CUDA graph
 measured" where the call cannot be captured).  It also prints the cost of
 reading the current stream both ways.
 
-Usage:  python3 time_wrappers.py [--root DIR] [--only k8,k9,k6,k4,k1,k14,k13,k5,k11]
+Usage:  python3 time_wrappers.py [--root DIR] [--only k8,k9,k6,k4,k1,k14,k13,k5,k11,k12,k7]
         (needs a CUDA card)
 """
 import argparse
@@ -307,6 +317,127 @@ def time_coarse(coarse, dev, gen):
                     del stack
                 del co, d, r, rc, proj, x, zc, coef, out
                 torch.cuda.empty_cache()
+
+
+def time_emit(pairs, dev, gen):
+    """K12 as the step calls it on chip_smoke.py's pair maps (63,558
+    pairs): the EMI emit (m = 1, with reg) and the KNP emit (m = 2, with
+    the static operator, zero outside the owner halves), random inputs;
+    a tree with emit_buffers writes into buffers made once, a tree without
+    it allocates its outputs each call."""
+    from knpemidg_tpu_torch import emix
+    from knpemidg_tpu_torch.mesh.generators import box_3d_axons
+
+    mesh = box_3d_axons(1, length_factor=2)
+    mesh.vertices *= 1e2
+    S = emix.build_solver(mesh, dtype=torch.float64, device="cuda", pair=True)
+    pm, nd, nc = S.pairs, S.nd, S.n_cells_pad
+    nf1 = S.g["f_area"].shape[0]
+    npair = pm["int_f"].shape[0]
+    buffered = hasattr(pairs, "emit_buffers")
+    print(f"k12time emit into buffers {buffered}  ({npair} pairs, {nf1} facets)")
+    for elt in (8, 4):
+        fr, two, one = sector_census(S.pairs_host, elt)
+        print(f"k12census {elt}-byte values: facet gathers fetch {fr:.2f}x the bytes they "
+              f"use in 32-byte sectors; the cell gathers {two:.2f}x as two loads, "
+              f"{one:.2f}x as one load a pair")
+    own = pairs.owner_half_rows(pm, nd)
+    for dtype in (torch.float32, torch.float64):
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+        A, Ms = rnd(IONS, nd, nd, nc), [rnd(IONS, nd, nd, nf1) for _ in range(4)]
+        add = (rnd(IONS, 2 * nd, 2 * nd, npair), (rnd(IONS, 6, 2 * nd, nd, npair) * own))
+        reg = rnd(nd, nd, nc)
+        one = [A[0].contiguous()] + [M[0].contiguous() for M in Ms]
+        kw_e, kw_k = {}, {}
+        if buffered:
+            kw_e["out"] = pairs.emit_buffers(pm, nd, dtype, dev, diag=True)
+            kw_k["out"] = pairs.emit_buffers(pm, nd, dtype, dev, m=IONS)
+        emi = lambda: pairs.gather_blocks_pair(None, pm, *one, reg=reg, **kw_e)
+        knp = lambda: pairs.gather_blocks_pair_multi(None, pm, A, *Ms, add=add, **kw_k)
+        for name, fn in (("EMI emit (m = 1, reg)", emi), ("KNP emit (m = 2, add)", knp),
+                         ("EMI + KNP emit", lambda: (emi(), knp()))):
+            report("k12time", f"{str(dtype):14s} {name}", fn)
+        del A, Ms, add, reg, one, kw_e, kw_k
+        torch.cuda.empty_cache()
+
+
+def sector_census(pmh, elt):
+    """32-byte sectors a warp's facet-block gathers fetch, over the bytes
+    its lanes use, for one (i, j) plane of one system (the arrays' bases
+    sector-aligned), warps of 32 consecutive pairs on the host maps: the
+    four interior loads (int_f) and the two loads a slot (ext_f, the array
+    chosen by ext_isp; the arrays apart), and the cell gathers at cop done
+    as two loads (cop[0], then cop[1]) or as one load of the pair's two
+    adjacent cells.  Returns (facet ratio, two-load cell ratio, one-load
+    cell ratio)."""
+    import numpy as np
+
+    npair = pmh["int_f"].shape[0]
+    fetched = used = 0
+
+    def count(idx, arr):               # one load instruction over the warps
+        nonlocal fetched, used
+        for w in range(0, npair, 32):
+            sec = set(zip(arr[w:w + 32].tolist(), (idx[w:w + 32] * elt // 32).tolist()))
+            fetched += 32 * len(sec)
+            used += elt * len(idx[w:w + 32])
+
+    zero = np.zeros(npair, dtype=np.int64)
+    for a in range(4):
+        count(np.asarray(pmh["int_f"], dtype=np.int64), zero + a)
+    for t in range(pmh["ext_f"].shape[0]):
+        f = np.asarray(pmh["ext_f"][t], dtype=np.int64)
+        isp = np.asarray(pmh["ext_isp"][t], dtype=np.int64)
+        count(f, isp)                   # Mpp or Mmm
+        count(f, 2 + isp)               # Mpm or Mmp
+    facet = fetched / used
+    fetched = used = 0
+    for h in range(2):
+        count(np.asarray(pmh["cop"][h], dtype=np.int64), zero)
+    two = fetched / used
+    fetched = used = 0
+    for w in range(0, npair, 32):       # cells 2p, 2p + 1: one vector a lane
+        n = min(32, npair - w)
+        lo, hi = 2 * w * elt // 32, (2 * (w + n) * elt - 1) // 32
+        fetched += 32 * (hi - lo + 1)
+        used += 2 * elt * n
+    return facet, two, fetched / used
+
+
+def time_coarse_apply(coarse, dev, gen):
+    """K7's coarse apply as the KNP solve calls it, on random K7 data (two
+    ions, no As, no deflation) at the cell and pair layouts' coarse sizes,
+    into a block-Jacobi output in place (on pairs with a live mask): a tree
+    whose coarse_add takes the mask makes one call (the one-launch apply);
+    a tree without it its three calls and, on pairs, the product with the
+    mask.  This tree also times its three entry points composed (restrict,
+    solve, prolong_add with the mask) beside the one launch."""
+    masked = "mask" in inspect.signature(coarse.coarse_add).parameters
+    print(f"k7time  mask in the apply {masked}")
+    for layout in COARSE:
+        for dtype in (torch.float32, torch.float64):
+            d, agg, r = coarse_data(layout, True, dtype, dev, gen)
+            co = coarse.operands(d, agg, True)
+            out = torch.zeros_like(r)
+            lm = None
+            if layout == "pair":
+                lm = (torch.rand(r.shape[1:], generator=gen, device=dev) < 0.98).to(dtype)
+            tag = f"{layout} K7 {str(dtype):14s}"
+            if masked:
+                one = lambda: coarse.coarse_add(co, out, r, lm)
+                report("k7time", f"{tag} coarse_add (one launch{', masked' if lm is not None else ''})",
+                       one)
+                three = lambda: coarse.prolong_add(co, out, *coarse.solve(
+                    co, *coarse.restrict(co, r)), lm)
+                report("k7time", f"{tag} restrict + solve + prolong_add", three)
+            elif lm is None:
+                report("k7time", f"{tag} coarse_add (three calls)",
+                       lambda: coarse.coarse_add(co, out, r))
+            else:
+                report("k7time", f"{tag} coarse_add (three calls) * mask",
+                       lambda: coarse.coarse_add(co, out, r) * lm)
+            del co, d, r, out
+            torch.cuda.empty_cache()
 
 
 def time_to_pair(pairs, dev, gen):
@@ -570,7 +701,9 @@ def main():
                 "k14": lambda: time_traces(asm, solver()),
                 "k13": lambda: time_ode_step(engine, solver()),
                 "k5": lambda: time_bj(spmv, dev, gen),
-                "k11": lambda: time_knp_facet(asm, solver(), gen)}
+                "k11": lambda: time_knp_facet(asm, solver(), gen),
+                "k12": lambda: time_emit(pairs, dev, gen),
+                "k7": lambda: time_coarse_apply(coarse, dev, gen)}
     for key in args.only.split(","):
         sections[key]()
 
