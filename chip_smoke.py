@@ -82,8 +82,11 @@ TWO_LEVEL = [f"two_level_{e}{b}{p}" for b in ("", "_batched") for p in ("", "_pa
 # The assembly kernels (K10, K11, K14): the cell, facet, membrane and trace
 # kernels do arithmetic and are held to 1e-5 / 1e-12 of each value's sum of
 # |terms| (the plain version with neg = +1 on absolute-valued inputs); the
-# two emit kernels add in the plain version's order, without fused
-# multiply-adds: exact.
+# EMI emit adds in the plain version's order, without fused multiply-adds:
+# exact.  knp_membrane_emit (K11's membrane rhs and emit in one call) is
+# held to 1e-5 / 1e-12 on b_p, b_m and exactly (zero error scales) on the
+# blocks and the rhs, that rhs against the plain emit of the launch's own
+# b_p, b_m.
 _ASM = "knpemidg_tpu/ops/assembly.py:"
 # kernel -> (source under csrc/, the TPU-side function it replaces)
 ASSEMBLY = {"emi_cell": ("assemble_emi.cu", _ASM + "289"),
@@ -92,11 +95,10 @@ ASSEMBLY = {"emi_cell": ("assemble_emi.cu", _ASM + "289"),
             "alpha_sum": ("assemble_knp.cu", "knpemidg_tpu/solver.py:750"),
             "knp_cell": ("assemble_knp.cu", _ASM + "678"),
             "knp_facet": ("assemble_knp.cu", _ASM + "678"),
-            "knp_membrane_rhs": ("assemble_knp.cu", _ASM + "678"),
-            "knp_emit_cell": ("assemble_knp.cu", _ASM + "678"),
+            "knp_membrane_emit": ("assemble_knp.cu", _ASM + "678"),
             "membrane_trace": ("membrane_trace.cu", _ASM + "888"),
             "eliminated_concentration": ("membrane_trace.cu", _ASM + "941")}
-ASSEMBLY_EXACT = ("emi_emit_cell", "knp_emit_cell")
+ASSEMBLY_EXACT = ("emi_emit_cell",)
 # The Krylov kernels (K8, K9) are held to 1e-5 / 1e-12 of each value's sum
 # of |terms| (the Givens scalars: of the largest value of each output), the
 # Rush-Larsen step as the RK4 one, the gather probes exactly.
@@ -1443,31 +1445,12 @@ def assembly_phase(S, state, results, layout):
                     "f_cp", "f_cm", "f_n", "f_area", "E_pp", "E_pm", "E_mp", "E_mm"))
         MK = asm.knp_facet_plain(g, masks, z, D, gphi, p.psi)
         mem_args = (z, D, c, asum, phi, pM, IchK, Itot)
-        compare(name("knp_membrane_rhs"), dtype,
-                lambda: list(asm.knp_membrane_rhs(g, mem, *mem_args, p.F, p.C_M, p.dt)),
-                lambda: list(asm.knp_membrane_rhs_plain(g, mem, *mem_args, p.F, p.C_M,
-                                                        p.dt)),
-                floored(lambda ref: list(asm.knp_membrane_rhs_plain(
-                    ga, mema, z.abs(), D, c.abs(), asum, phi.abs(), pM.abs(), IchK.abs(),
-                    Itot.abs(), p.F, p.C_M, p.dt, neg=1.0))),
-                results, inputs=[mem[k] for k in ("Rp", "Rm", "cp", "cm", "fidx")]
-                + [pM, IchK, Itot]
-                # the fields' values at the membrane cells (a gather)
-                + [t[..., mem[side]] for t in (c, asum, phi, D) for side in ("cp", "cm")])
-        bK_p, bK_m = asm.knp_membrane_rhs_plain(g, mem, *mem_args, p.F, p.C_M, p.dt)
+        bK_p, _ = asm.knp_membrane_rhs_plain(g, mem, *mem_args, p.F, p.C_M, p.dt)
         if not float(bK_p.abs().max()) > 0.0:
             raise AssertionError("the perturbed state has a zero membrane rhs")
         statics = None if pair else statics64.to(dtype)
-        compare(name("knp_emit_cell"), dtype,
-                lambda: list(asm.knp_emit_cell(g, mem, z, D, p.psi, drift, *MK, b_cellK,
-                                               bK_p, bK_m, statics, pair=pair)),
-                lambda: list(asm.knp_emit_cell_plain(g, mem, z, D, p.psi, drift, *MK,
-                                                     b_cellK, bK_p, bK_m, statics,
-                                                     pair=pair)),
-                exact, results,
-                inputs=[z, D, drift, b_cellK, bK_p, bK_m, mem["inv"]]
-                + gt("vol", "phibar", "cf_idx", "cf_is_plus")
-                + ([] if pair else list(MK) + [statics]))
+        membrane_emit_phase(S, g, mem, ga, mema, mem_args, drift, MK, b_cellK, statics, pair,
+                            dtype, results, floored)
 
         # --- K14: a step's two launches (every ion's ODE-input traces in
         # one call, the finalize jump in the other), then one call of each
@@ -1526,6 +1509,51 @@ def assembly_phase(S, state, results, layout):
                     c.abs(), z.abs(), rho.abs(), abs(z_elim)).abs()]),
                 results, inputs=[c, z, rho],
                 library_fn=lambda: -(torch.einsum("k,kic->ic", z, c) + rho[None, :]) / z_elim)
+
+
+def membrane_emit_phase(S, g, mem, ga, mema, mem_args, drift, MK, b_cellK, statics, pair,
+                        dtype, results, floored):
+    """K11's one-call membrane rhs and emit (knp_membrane_emit) as the
+    step calls it, with static tables built once and into buffers made
+    once: the blocks and the rhs exactly the plain emit's (the rhs on the
+    launch's own b_p, b_m), b_p and b_m to the plain membrane rhs (1e-5 /
+    1e-12 of each value's sum of |terms|); timed beside the plain pair of
+    functions, its bound from the bytes the launch reads (the static
+    tables, the fields at the membrane cells) and writes."""
+    from knpemidg_tpu_torch.ops import assembly as asm
+
+    p = S.params
+    z, D = mem_args[0], mem_args[1]
+    M = None if pair else MK
+    tab = asm.knp_emit_tables(g, mem)
+    out = asm.knp_emit_buffers(g, mem, z.shape[0], dtype, z.device, pair)
+    args = (g, mem, *mem_args, p.F, p.C_M, p.dt, p.psi, drift, M, b_cellK, statics)
+    kernel = lambda: list(asm.knp_membrane_emit(*args, pair=pair, out=out, tables=tab))
+    got = [t.clone() for t in kernel()]
+
+    def plain():
+        b_p, b_m = asm.knp_membrane_rhs_plain(g, mem, *mem_args, p.F, p.C_M, p.dt)
+        return list(asm.knp_emit_cell_plain(g, mem, z, D, p.psi, drift, *(M or (None,) * 4),
+                                            b_cellK, got[2], got[3], statics, pair=pair)
+                    ) + [b_p, b_m]
+
+    def scales(ref):
+        abs_b = asm.knp_membrane_rhs_plain(
+            ga, mema, z.abs(), D, mem_args[2].abs(), mem_args[3], mem_args[4].abs(),
+            mem_args[5].abs(), mem_args[6].abs(), mem_args[7].abs(), p.F, p.C_M, p.dt,
+            neg=1.0)
+        return [torch.zeros_like(ref[0]), torch.zeros_like(ref[1])] + floored(
+            lambda _: list(abs_b))(ref)
+
+    c, asum, phi = mem_args[2], mem_args[3], mem_args[4]
+    compare("knp_membrane_emit" + ("_pair" if pair else ""), dtype, kernel, plain, scales,
+            results,
+            inputs=[mem["Rp"], mem["Rm"], tab.mcell, tab.area, tab.slots, tab.cells, g["w_f"],
+                    g["vol"], g["phibar"], z, D, drift, b_cellK] + list(mem_args[5:])
+            # the fields' values at the membrane cells (a gather; D is read whole)
+            + [t[..., mem[side]] for t in (c, asum, phi) for side in ("cp", "cm")]
+            + ([] if pair else list(MK) + [statics]),
+            timed=(kernel, lambda: asm.knp_membrane_emit_plain(*args, pair=pair)))
 
 
 def small_reference_phase(layout):

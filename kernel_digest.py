@@ -24,7 +24,9 @@ emix.solver_params() (the cell layout's with its 24 Ritz fields; both
 dtypes) applied to a seeded r: restrict's chunk sums and projections,
 then solve and the prolong-add into a seeded output (on pairs also with
 the live mask, k6_prolong_m); K7's apply (k7_coarse) on each layout's KNP
-pc data, two calls, masked on pairs; K12 (k12_emit) on the inputs of the
+pc data, two calls, masked on pairs; K11's membrane rhs and emit
+(k11_emit: b_p, b_m, the blocks and the rhs) at the perturbed state, each
+layout, both dtypes; K12 (k12_emit) on the inputs of the
 step's pair EMI and KNP emits, both dtypes; K13 as the solver
 drives it: Solver._ode_step at the perturbed state (membrane states
 perturbed too) on both layouts, in both dtypes (a solver of each), under
@@ -45,6 +47,9 @@ import os
 import sys
 
 import torch
+
+
+TESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
 
 
 def digest(tensors):
@@ -190,6 +195,7 @@ def main():
                              pairs.to_pair(pm, rhsK.to(dtype)), pairs.to_pair(pm, c.to(dtype)))
         if layout == "pair":
             k12_digests(S, asm, pairs, c, state, pM, Ich, Itot)
+        k11_digests(S, asm, layout, c, call, phi, st)
         # K6 on the pc build's EMI data (the Ritz harvest runs K6 itself)
         sp = emix.solver_params(error_if_not_converged=False)
         pcs = S.attach_pc(state, sp)["pc"]
@@ -288,6 +294,47 @@ def k12_digests(S, asm, pairs, c, state, pM, Ich, Itot):
         torch.cuda.synchronize()
         print(f"digest  k12_emit     pair {str(dtype):14s} {digest(out)} "
               f"(inputs {digest(e_args + k_args + [reg, *add])})")
+
+
+def k11_digests(S, asm, layout, c, call, phi, st):
+    """K11's membrane rhs and emit (k11_emit) at the perturbed state with
+    seeded channel currents, both dtypes: b_p, b_m, the blocks (the drift
+    blocks on pairs, the operator with the static part on cells) and the
+    rhs; a tree with knp_membrane_emit from its one call (its static
+    tables built once), twice into the same buffers (the second call's
+    outputs digested), a tree without it
+    from knp_membrane_rhs and knp_emit_cell."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2026)
+    p, m, pair = S.params, S.N_ions, layout == "pair"
+    pM = torch.cat([st["phi_M"], st["phi_M"].new_zeros(1)])
+    Ich = 1e-2 * torch.randn((len(S.ion_list), pM.shape[0]), generator=gen, device="cuda",
+                             dtype=torch.float64)
+    Ich[:, -1] = 0.0
+    sys.path.insert(0, TESTS)
+    from torch_k11_inputs import k11_inputs
+
+    one = hasattr(asm, "knp_membrane_emit")
+    print(f"k11     one membrane emit call in this tree: {one}")
+    for dtype in (torch.float32, torch.float64):
+        g, mem, mem_args, drift, M, b_cell, statics = k11_inputs(S, asm, dtype, c, call, phi,
+                                                                 pM, Ich)
+        z, D = mem_args[:2]
+        if one:
+            out = asm.knp_emit_buffers(g, mem, m, dtype, "cuda", pair)
+            tab = asm.knp_emit_tables(g, mem)
+            for _ in range(2):
+                blocks, rhs, b_p, b_m = asm.knp_membrane_emit(
+                    g, mem, *mem_args, p.F, p.C_M, p.dt, p.psi, drift, None if pair else M,
+                    b_cell, statics, pair=pair, out=out, tables=tab)
+        else:
+            b_p, b_m = asm.knp_membrane_rhs(g, mem, *mem_args, p.F, p.C_M, p.dt)
+            blocks, rhs = asm.knp_emit_cell(g, mem, z, D, p.psi, drift, *M, b_cell, b_p, b_m,
+                                            statics, pair=pair)
+        torch.cuda.synchronize()
+        print(f"digest  k11_emit     {layout} {str(dtype):14s} "
+              f"{digest([b_p, b_m, blocks, rhs])} "
+              f"(inputs {digest(list(mem_args) + [drift, b_cell])})")
 
 
 def halves_form(spmv):

@@ -40,10 +40,11 @@ SOURCE_FLAGS = {f: ("-fmad=false",) for f in ("assemble_emi.cu", "assemble_knp.c
 
 # kernel name -> launches counted by its wrapper: one a wrapper call that
 # launches on the card, however many kernels the call runs (knp_facet's
-# call is two: its scalars and its sweep); the block-Jacobi kernels
-# count their cell-layout (nd = 4) and pair-layout (nd = 8) instantiations
-# apart, and the two-level kernels their single EMI (K6) and batched KNP
-# (K7, "_batched") calls ("coarse": the one-launch apply of operands
+# call is two: its scalars and its sweep; knp_membrane_emit's, the KNP
+# assembly's membrane rhs and emit, is two: the sweep and the membrane
+# cells' rhs rows); the block-Jacobi kernels count their cell-layout
+# (nd = 4) and pair-layout (nd = 8) instantiations apart, and the two-level
+# kernels their single EMI (K6) and batched KNP (K7, "_batched") calls ("coarse": the one-launch apply of operands
 # without deflation fields or As, K7's on the main path).  The assembly
 # kernels (K10 emi_*, K11 alpha_sum and
 # knp_*, K14 membrane_trace and eliminated_concentration), the Krylov
@@ -59,8 +60,7 @@ LAUNCHES = {"bell_matvec": 0, "block_jacobi_inverse": 0,
             **{f"two_level_{e}{b}": 0 for b in ("", "_batched")
                for e in ("restrict", "solve", "prolong", "coarse")},
             "emi_cell": 0, "emi_facet": 0, "emi_emit_cell": 0, "alpha_sum": 0,
-            "knp_cell": 0, "knp_facet": 0, "knp_membrane_rhs": 0,
-            "knp_emit_cell": 0, "membrane_trace": 0,
+            "knp_cell": 0, "knp_facet": 0, "knp_membrane_emit": 0, "membrane_trace": 0,
             "eliminated_concentration": 0,
             **{f"pcg_{e}": 0 for e in ("dot", "update", "dot2_direction")},
             **{f"gmres_{e}": 0 for e in ("start", "cgs_dot", "arnoldi", "solve_update")},
@@ -92,8 +92,7 @@ _SIGNATURES = {
     "knp_alpha_sum": (_P,) * 4 + (_I,) * 3 + (_P,),
     "knp_ion_cell": (_P,) * 8 + (_I,) * 4 + (_D, _P),
     "knp_ion_facet": (_P,) * 17 + (_I,) * 5 + (_D, _P),
-    "knp_ion_membrane_rhs": (_P,) * 17 + (_I,) * 7 + (_D, _D, _P),
-    "knp_ion_emit_cell": (_P,) * 18 + (_I,) * 7 + (_D, _P),
+    "knp_membrane_emit": (_P,) * 20 + (_I,) * 3 + (_D,) * 3 + (_P,),
     "knp_membrane_trace": (_P,) * 4 + (_D,) * 4 + (_I,) + (_P,) * 6 + (_I,) * 6 + (_P,),
     "knp_eliminated": (_P,) * 4 + (_I,) * 3 + (_D, _P),
     "knp_gmres_dot": (_P,) * 4 + (_I,) * 5 + (_P,),

@@ -11,14 +11,15 @@
 //                     ions (max(D un, 0) = D max(un, 0) since D > 0) and the
 //                     m ions' four upwind blocks (m, nd, nd, nf+1): a
 //                     facet's scalars, then the sweep over its entries;
-//   ion_membrane_rhs  on the membrane-facet axis: the ion fractions alpha at
-//                     both cells, the phi jump, the capacitive and channel
-//                     sources and their quadrature sums -> b_p, b_m
-//                     (m, nd, n_mem);
-//   ion_emit_cell     per cell and ion: the drift block, the d+1 gathered
-//                     upwind blocks, the static operator added last ->
+//   ion_membrane_emit the membrane rhs and the emit in one call of two
+//                     launches (see its note below): on the membrane-facet
+//                     axis the ion fractions alpha at both cells, the phi
+//                     jump, the capacitive and channel sources and their
+//                     quadrature sums -> b_p, b_m (m, nd, n_mem); per cell
+//                     and ion the drift block, the d+1 gathered upwind
+//                     blocks, the static operator added last ->
 //                     (m, K, nd, nd, nc), and the rhs with the membrane parts
-//                     read through the inverse membrane map (no zero-filled
+//                     read through the packed membrane slots (no zero-filled
 //                     scatter target); for the pair layout it writes the
 //                     drift blocks and the rhs, and the pair emit
 //                     (csrc/pair_emit.cu) gathers and adds the static part.
@@ -35,6 +36,7 @@
 
 #define KNP_MAXND 4
 #define KNP_MAXD 3
+#define KNP_MAXQ 12           // facet quadrature points of ion_membrane_emit
 
 template <typename T>
 __global__ void alpha_sum_kernel(const T* __restrict__ z, const T* __restrict__ D,
@@ -181,129 +183,291 @@ __global__ void ion_facet_kernel(const T* __restrict__ S, const T* __restrict__ 
   }
 }
 
+// ion_membrane_emit: the membrane rhs and the emit of one KNP assembly in
+// one call of two launches.  Static tables, built and checked once per
+// solver (ops/assembly.knp_emit_tables), read through KnpEmitTables:
+//   slots  (nfac, nc) a word per cell-facet slot: the facet index (bits
+//          0-29), "the facet is a membrane facet" (bit 30), cf_is_plus
+//          (bit 31) -- one load in place of cf_idx and cf_is_plus;
+//   cells  (1 + nfac, ncm) the cells with a membrane slot: row 0 the cell,
+//          row 1 + l slot l's word: the membrane slot mi (bits 0-29),
+//          "membrane" (bit 30), cf_is_plus (bit 31) -- one load in place of
+//          cf_idx -> inv_mem[cf_idx];
+//   mcell  (2, nm) the membrane facets' cells cp, cm; area (nm,) =
+//          f_area[fidx], so no fidx -> f_area chain.
+// ion_membrane_emit_kernel, a thread an item over nm + m nd nc items:
+//   * a membrane facet: its cells and the ion-independent part (the phi
+//     gathers, jphi at each quadrature point) once, then each ion's
+//     fractions, sources and quadrature sums -> b_p, b_m (the step's
+//     buffers), within round-off of the plain version;
+//   * a (k, i, cell) row: the slot words loaded first, the drift factor
+//     once, then the nd entries of the row: the drift blocks (pair layout),
+//     or the gathered upwind blocks plus the static operator (cell layout),
+//     in the plain version's order; and the rhs row of a cell with no
+//     membrane slot (b_cell plus its zero slot terms).
+// ion_membrane_emit_rows_kernel then writes only the rhs rows of the ncm
+// membrane cells, each slot reading b through its one word.  The membrane
+// facets' dependent chains run beside the emit rows instead of on a grid of
+// their own.  A cooperative design (the rows after a grid barrier in one
+// launch, the grid at the co-resident limit) measured slower on the pair
+// layout: 35.7-37.3 / 59.0-60.0 us a call against 22.9-23.5 / 38.4-45.1
+// (float32 / float64, graph replay, time_wrappers.py --only k11e; PERF.md).
+// The cell layout's instantiation asks for 4 resident blocks an SM (64
+// registers: its emit rows are bound by device-memory bytes and need the
+// warps), the pair layout's for none (its rows are light; the membrane
+// facets' chains run faster unspilled).  With this file's -fmad=false the
+// blocks and the rhs equal the plain emit's bit for bit.
+struct KnpEmitTables {
+  const void* Rp;        // (nq, nd, nm) membrane-presliced traces
+  const void* Rm;
+  const void* w_f;       // (nq,)
+  const void* vol;       // (nc,)
+  const void* phibar;    // (nd,)
+  const void* area;      // (nm,)
+  const int* slots;
+  const int* cells;
+  const int* mcell;
+  int nq, nd, nfac, nc, nf1, nm, ncm;
+};
+
 template <typename T>
-__global__ void ion_membrane_rhs_kernel(
-    const T* __restrict__ z, const T* __restrict__ D, const T* __restrict__ c_k,
-    const T* __restrict__ alpha_sum, const T* __restrict__ phi, const T* __restrict__ phi_M,
-    const T* __restrict__ I_ch, const T* __restrict__ I_tot, const T* __restrict__ Rp,
-    const T* __restrict__ Rm, const int* __restrict__ mcp, const int* __restrict__ mcm,
-    const int* __restrict__ fidx, const T* __restrict__ f_area, const T* __restrict__ w_f,
-    T* __restrict__ b_p, T* __restrict__ b_m, int m, int nq, int nd, int nc, int nm,
-    int ich_stride, int splitting, T F, T Cfac0) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= m * nm) return;
-  const int mm = idx % nm, k = idx / nm;
-  const size_t n = (size_t)nc, nmm = (size_t)nm;
-  const int cp = mcp[mm], cm = mcm[mm];
-  const T zk = z[k];
-  const T Dzz_p = D[(size_t)k * n + cp] * (zk * zk);
-  const T Dzz_m = D[(size_t)k * n + cm] * (zk * zk);
-  T aup[KNP_MAXND], aum[KNP_MAXND], php[KNP_MAXND], phm[KNP_MAXND];
-#pragma unroll
-  for (int a = 0; a < KNP_MAXND; ++a) {
-    const bool on = a < nd;
-    const size_t op = (size_t)a * n + cp, om = (size_t)a * n + cm;
-    aup[a] = on ? (Dzz_p * c_k[(size_t)k * nd * n + op]) / alpha_sum[op] : T(0);
-    aum[a] = on ? (Dzz_m * c_k[(size_t)k * nd * n + om]) / alpha_sum[om] : T(0);
-    php[a] = on ? phi[op] : T(0);
-    phm[a] = on ? phi[om] : T(0);
-  }
-  const T Cfac = Cfac0 / zk;              // C_M / (F dt) / z
-  const T invFz = T(1) / (F * zk);
+struct KnpEmitArgs {
+  const T *z, *D, *c_k, *alpha_sum, *phi, *phi_M, *I_ch, *I_tot, *drift, *Mpp, *Mpm, *Mmp,
+      *Mmm, *bcell, *statics;
+  T *b_p, *b_m, *blocks, *rhs;
+  KnpEmitTables t;
+  int m, splitting;
+  T F, Cfac0, psi;
+};
+
+#define KNP_IDX_MASK 0x3fffffffu
+
+// A membrane facet: its pointers restrict-qualified, so each ion's loads
+// may be issued before the previous ion's stores.
+template <typename T>
+__device__ __forceinline__ void knp_emit_membrane_facet(
+    const KnpEmitArgs<T>& a, int mm, const int* __restrict__ mcell,
+    const T* __restrict__ area_m, const T* __restrict__ Rp, const T* __restrict__ Rm,
+    const T* __restrict__ w_f, const T* __restrict__ z, const T* __restrict__ D,
+    const T* __restrict__ c_k, const T* __restrict__ alpha_sum, const T* __restrict__ phi,
+    const T* __restrict__ phi_M, const T* __restrict__ I_ch, const T* __restrict__ I_tot,
+    T* __restrict__ b_p, T* __restrict__ b_m) {
+  const KnpEmitTables& t = a.t;
+  const int nd = t.nd, nq = t.nq, nm = t.nm;
+  const size_t n = (size_t)t.nc, nmm = (size_t)nm;
+  const int cp = mcell[mm], cm = mcell[nm + mm];
+  const T area = area_m[mm];
   const T phiM = phi_M[mm], Itot = I_tot[mm];
-  const T Ikz = I_ch[(size_t)k * ich_stride + mm] * invFz;
-  T accp[KNP_MAXND], accm[KNP_MAXND];
+  T php[KNP_MAXND], phm[KNP_MAXND];
 #pragma unroll
-  for (int a = 0; a < KNP_MAXND; ++a) accp[a] = accm[a] = T(0);
+  for (int e = 0; e < KNP_MAXND; ++e) {
+    const bool on = e < nd;
+    php[e] = on ? phi[(size_t)e * n + cp] : T(0);
+    phm[e] = on ? phi[(size_t)e * n + cm] : T(0);
+  }
+  T jq[KNP_MAXQ];
   for (int q = 0; q < nq; ++q) {
-    T rp[KNP_MAXND], rm[KNP_MAXND];
-    T tp = T(0), tm = T(0), ap = T(0), am = T(0);
+    T tp = T(0), tm = T(0);
 #pragma unroll
-    for (int a = 0; a < KNP_MAXND; ++a) {
-      rp[a] = a < nd ? Rp[((size_t)q * nd + a) * nmm + mm] : T(0);
-      rm[a] = a < nd ? Rm[((size_t)q * nd + a) * nmm + mm] : T(0);
-      tp += rp[a] * php[a];
-      tm += rm[a] * phm[a];
-      ap += rp[a] * aup[a];
-      am += rm[a] * aum[a];
+    for (int e = 0; e < KNP_MAXND; ++e) {
+      const T rp = e < nd ? Rp[((size_t)q * nd + e) * nmm + mm] : T(0);
+      const T rm = e < nd ? Rm[((size_t)q * nd + e) * nmm + mm] : T(0);
+      tp += rp * php[e];
+      tm += rm * phm[e];
     }
-    const T jphi = tp - tm;
-    const T Cp = ap * Cfac, Cm = am * Cfac;
-    const T sxp = splitting ? (ap * Itot) * invFz : T(0);
-    const T sxm = splitting ? (am * Itot) * invFz : T(0);
-    const T se = (Cp * phiM - Ikz) + sxp;
-    const T si = (Cm * phiM - Ikz) + sxm;
-    const T jC = Cp - Cm, aC = T(0.5) * (Cp + Cm);
-    const T half = ((-jphi) * jC) * T(0.5);
-    const T vp = -se + (half - jphi * aC);
-    const T vm = si + (half + jphi * aC);
-    const T w = w_f[q];
+    jq[q] = tp - tm;
+  }
+  for (int k = 0; k < a.m; ++k) {
+    const T zk = z[k];
+    const T Dzz_p = D[(size_t)k * n + cp] * (zk * zk);
+    const T Dzz_m = D[(size_t)k * n + cm] * (zk * zk);
+    T aup[KNP_MAXND], aum[KNP_MAXND];
 #pragma unroll
-    for (int a = 0; a < KNP_MAXND; ++a) {
-      accp[a] += (w * vp) * rp[a];
-      accm[a] += (w * vm) * rm[a];
+    for (int e = 0; e < KNP_MAXND; ++e) {
+      const bool on = e < nd;
+      const size_t op = (size_t)e * n + cp, om = (size_t)e * n + cm;
+      aup[e] = on ? (Dzz_p * c_k[(size_t)k * nd * n + op]) / alpha_sum[op] : T(0);
+      aum[e] = on ? (Dzz_m * c_k[(size_t)k * nd * n + om]) / alpha_sum[om] : T(0);
+    }
+    const T Cfac = a.Cfac0 / zk;            // C_M / (F dt) / z
+    const T invFz = T(1) / (a.F * zk);
+    const T Ikz = I_ch[(size_t)k * (nmm + 1) + mm] * invFz;
+    // first pass: each point's weighted sources w vp, w vm; second pass:
+    // their products with the traces summed over the points
+    T wvp[KNP_MAXQ], wvm[KNP_MAXQ];
+    for (int q = 0; q < nq; ++q) {
+      T ap = T(0), am = T(0);
+#pragma unroll
+      for (int e = 0; e < KNP_MAXND; ++e) {
+        const T rp = e < nd ? Rp[((size_t)q * nd + e) * nmm + mm] : T(0);
+        const T rm = e < nd ? Rm[((size_t)q * nd + e) * nmm + mm] : T(0);
+        ap += rp * aup[e];
+        am += rm * aum[e];
+      }
+      const T jphi = jq[q];
+      const T Cp = ap * Cfac, Cm = am * Cfac;
+      const T sxp = a.splitting ? (ap * Itot) * invFz : T(0);
+      const T sxm = a.splitting ? (am * Itot) * invFz : T(0);
+      const T se = (Cp * phiM - Ikz) + sxp;
+      const T si = (Cm * phiM - Ikz) + sxm;
+      const T jC = Cp - Cm, aC = T(0.5) * (Cp + Cm);
+      const T half = ((-jphi) * jC) * T(0.5);
+      const T vp = -se + (half - jphi * aC);
+      const T vm = si + (half + jphi * aC);
+      const T w = w_f[q];
+      wvp[q] = w * vp;
+      wvm[q] = w * vm;
+    }
+    T accp[KNP_MAXND], accm[KNP_MAXND];
+#pragma unroll
+    for (int e = 0; e < KNP_MAXND; ++e) accp[e] = accm[e] = T(0);
+    for (int q = 0; q < nq; ++q) {
+#pragma unroll
+      for (int e = 0; e < KNP_MAXND; ++e) {
+        const T rp = e < nd ? Rp[((size_t)q * nd + e) * nmm + mm] : T(0);
+        const T rm = e < nd ? Rm[((size_t)q * nd + e) * nmm + mm] : T(0);
+        accp[e] += wvp[q] * rp;
+        accm[e] += wvm[q] * rm;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < KNP_MAXND; ++e)
+      if (e < nd) {
+        b_p[((size_t)k * nd + e) * nmm + mm] = area * accp[e];
+        b_m[((size_t)k * nd + e) * nmm + mm] = area * accm[e];
+      }
+  }
+}
+
+// A (k, i, cell) row: its pointers restrict-qualified, so the loads of the
+// row's later entries may be issued before the stores of its earlier ones.
+template <typename T, bool PAIR>
+__device__ __forceinline__ void knp_emit_row(
+    const KnpEmitArgs<T>& a, long long idx, const int* __restrict__ slots,
+    const T* __restrict__ vol, const T* __restrict__ phibar, const T* __restrict__ z,
+    const T* __restrict__ D, const T* __restrict__ drift, const T* __restrict__ bcell,
+    const T* __restrict__ Mpp, const T* __restrict__ Mpm, const T* __restrict__ Mmp,
+    const T* __restrict__ Mmm, const T* __restrict__ statics, T* __restrict__ blocks,
+    T* __restrict__ rhs) {
+  const KnpEmitTables& t = a.t;
+  const int nd = t.nd, nfac = t.nfac, nc = t.nc;
+  const int cell = (int)(idx % nc);
+  const int ki = (int)(idx / nc);               // k * nd + i
+  const int k = ki / nd, i = ki % nd;
+  const size_t n = (size_t)nc;
+  unsigned sw[KNP_MAXD + 1];
+#pragma unroll
+  for (int l = 0; l < KNP_MAXD + 1; ++l)
+    sw[l] = l < nfac ? (unsigned)slots[(size_t)l * n + cell] : 0u;
+  const T b0 = bcell[(size_t)ki * n + cell];
+  const T pre = ((z[k] * a.psi) * (vol[cell] * D[(size_t)k * n + cell]))
+                * drift[(size_t)i * n + cell];
+  if (PAIR) {
+#pragma unroll
+    for (int j = 0; j < KNP_MAXND; ++j)
+      if (j < nd) blocks[((size_t)ki * nd + j) * n + cell] = pre * phibar[j];
+  } else {
+    const int nn = nd * nd;
+    const size_t n1 = (size_t)t.nf1;
+    const size_t bo = (size_t)k * (nfac + 1) * nn;         // slot 0 of ion k
+#pragma unroll
+    for (int j = 0; j < KNP_MAXND; ++j) {
+      if (j >= nd) break;
+      const int ij = i * nd + j;
+      const size_t mo = ((size_t)ki * nd + j) * n1;
+      T diag = pre * phibar[j];
+#pragma unroll
+      for (int l = 0; l < KNP_MAXD + 1; ++l) {
+        if (l >= nfac) break;
+        const size_t f = sw[l] & KNP_IDX_MASK;
+        const bool sel = (sw[l] >> 31) != 0u;
+        diag = diag + (sel ? Mpp[mo + f] : Mmm[mo + f]);
+        T off = sel ? Mpm[mo + f] : Mmp[mo + f];
+        const size_t o = (bo + (size_t)(l + 1) * nn + ij) * n + cell;
+        if (statics) off = off + statics[o];
+        blocks[o] = off;
+      }
+      const size_t o = (bo + ij) * n + cell;
+      if (statics) diag = diag + statics[o];
+      blocks[o] = diag;
     }
   }
-  const T area = f_area[fidx[mm]];
+  unsigned mem = 0u;
 #pragma unroll
-  for (int a = 0; a < KNP_MAXND; ++a)
-    if (a < nd) {
-      b_p[((size_t)k * nd + a) * nmm + mm] = area * accp[a];
-      b_m[((size_t)k * nd + a) * nmm + mm] = area * accm[a];
-    }
+  for (int l = 0; l < KNP_MAXD + 1; ++l) mem |= sw[l] & (1u << 30);
+  if (mem) return;                              // ion_membrane_emit_rows_kernel's
+  T r = b0;
+  for (int l = 0; l < nfac; ++l) r = r + T(0);   // the zero terms of its slots
+  rhs[(size_t)ki * n + cell] = r;
 }
 
 template <typename T>
-__global__ void ion_emit_cell_kernel(
-    const T* __restrict__ z, const T* __restrict__ D, const T* __restrict__ vol,
-    const T* __restrict__ drift, const T* __restrict__ phibar, const T* __restrict__ Mpp,
-    const T* __restrict__ Mpm, const T* __restrict__ Mmp, const T* __restrict__ Mmm,
-    const T* __restrict__ bcell, const T* __restrict__ b_p, const T* __restrict__ b_m,
-    const int* __restrict__ inv_mem, const int* __restrict__ cf_idx,
-    const unsigned char* __restrict__ cf_isp, const T* __restrict__ statics,
-    T* __restrict__ blocks, T* __restrict__ rhs, int m, int nd, int nfac, int nc, int nf1,
-    int nm, int pair, T psi) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)m * nd * nd * nc) return;
-  const int cell = (int)(idx % nc);
-  const long long kij = idx / nc;               // (k * nd + i) * nd + j
-  const int ij = (int)(kij % (nd * nd));
-  const int j = ij % nd, i = ij / nd;
-  const int k = (int)(kij / (nd * nd));
-  const size_t n = (size_t)nc, n1 = (size_t)nf1;
-  T diag = (((z[k] * psi) * (vol[cell] * D[(size_t)k * n + cell]))
-            * drift[(size_t)i * n + cell]) * phibar[j];
-  if (pair) {
-    blocks[(size_t)kij * n + cell] = diag;
-  } else {
-    const size_t mo = (size_t)kij * n1;
-    const size_t bo = (size_t)k * (nfac + 1) * nd * nd;    // slot 0 of ion k
-    for (int l = 0; l < nfac; ++l) {
-      const int f = cf_idx[(size_t)l * n + cell];
-      const bool sel = cf_isp[(size_t)l * n + cell] != 0;
-      diag = diag + (sel ? Mpp[mo + f] : Mmm[mo + f]);
-      T off = sel ? Mpm[mo + f] : Mmp[mo + f];
-      const size_t o = (bo + (size_t)(l + 1) * nd * nd + ij) * n + cell;
-      if (statics) off = off + statics[o];
-      blocks[o] = off;
-    }
-    const size_t o = (bo + ij) * n + cell;
-    if (statics) diag = diag + statics[o];
-    blocks[o] = diag;
-  }
-  if (j != 0) return;
-  const size_t ki = (size_t)k * nd + i;
-  T r = bcell[ki * n + cell];
-  for (int l = 0; l < nfac; ++l) {
-    const int mi = inv_mem[cf_idx[(size_t)l * n + cell]];
-    const bool sel = cf_isp[(size_t)l * n + cell] != 0;
-    const T got = mi >= 0 ? (sel ? b_p[ki * nm + mi] : b_m[ki * nm + mi]) : T(0);
+__device__ __forceinline__ void knp_emit_membrane_row(const KnpEmitArgs<T>& a, long long idx) {
+  const KnpEmitTables& t = a.t;
+  const int ncm = t.ncm, nfac = t.nfac;
+  const int tc = (int)(idx % ncm);
+  const int ki = (int)(idx / ncm);
+  const int cell = t.cells[tc];
+  unsigned mw[KNP_MAXD + 1];
+#pragma unroll
+  for (int l = 0; l < KNP_MAXD + 1; ++l)
+    mw[l] = l < nfac ? (unsigned)t.cells[(size_t)(l + 1) * ncm + tc] : 0u;
+  const size_t n = (size_t)t.nc, bo = (size_t)ki * t.nm;
+  T r = a.bcell[(size_t)ki * n + cell];
+#pragma unroll
+  for (int l = 0; l < KNP_MAXD + 1; ++l) {
+    if (l >= nfac) break;
+    const size_t mi = mw[l] & KNP_IDX_MASK;
+    const T got = (mw[l] & (1u << 30)) ? ((mw[l] >> 31) ? a.b_p[bo + mi] : a.b_m[bo + mi])
+                                       : T(0);
     r = r + got;
   }
-  rhs[ki * n + cell] = r;
+  a.rhs[(size_t)ki * n + cell] = r;
 }
 
-#define KNP_ION_ENTRY(SFX, T)                                                              \
+template <typename T, bool PAIR>
+__global__ void __launch_bounds__(KNP_THREADS, PAIR ? 1 : 4)
+ion_membrane_emit_kernel(const KnpEmitArgs<T> a) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nm = a.t.nm;
+  if (idx >= nm + (long long)a.m * a.t.nd * a.t.nc) return;
+  if (idx < nm)
+    knp_emit_membrane_facet(a, (int)idx, a.t.mcell, (const T*)a.t.area, (const T*)a.t.Rp,
+                            (const T*)a.t.Rm, (const T*)a.t.w_f, a.z, a.D, a.c_k, a.alpha_sum,
+                            a.phi, a.phi_M, a.I_ch, a.I_tot, a.b_p, a.b_m);
+  else
+    knp_emit_row<T, PAIR>(a, idx - nm, a.t.slots, (const T*)a.t.vol, (const T*)a.t.phibar,
+                          a.z, a.D, a.drift, a.bcell, a.Mpp, a.Mpm, a.Mmp, a.Mmm, a.statics,
+                          a.blocks, a.rhs);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(KNP_THREADS)
+ion_membrane_emit_rows_kernel(const KnpEmitArgs<T> a) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < (long long)a.t.ncm * a.m * a.t.nd) knp_emit_membrane_row(a, idx);
+}
+
+template <typename T>
+static int membrane_emit_launch(const KnpEmitArgs<T>& a, bool pair, void* stream) {
+  const KnpEmitTables& t = a.t;
+  if (t.nd < 1 || t.nd > KNP_MAXND || t.nfac < 1 || t.nfac > KNP_MAXD + 1 || t.nq < 0 ||
+      t.nq > KNP_MAXQ || a.m < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned items = knp_blocks(t.nm + (long long)a.m * t.nd * t.nc);
+  const long long rows = (long long)t.ncm * a.m * t.nd;
+  if (pair)
+    ion_membrane_emit_kernel<T, true><<<items, KNP_THREADS, 0, st>>>(a);
+  else
+    ion_membrane_emit_kernel<T, false><<<items, KNP_THREADS, 0, st>>>(a);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0 || rows == 0) return rc;
+  ion_membrane_emit_rows_kernel<T><<<knp_blocks(rows), KNP_THREADS, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+#define KNP_ION_ENTRY(SFX, T)                                                            \
   extern "C" int knp_alpha_sum##SFX(const T* z, const T* D, const T* c, T* out,            \
                                     int n_ions, int nd, int nc, void* stream) {            \
     alpha_sum_kernel<T><<<knp_blocks((long long)nd * nc), KNP_THREADS, 0,                  \
@@ -329,29 +493,21 @@ __global__ void ion_emit_cell_kernel(
         S, E_pp, E_pm, E_mp, E_mm, Mpp, Mpm, Mmp, Mmm, m, nd, nf1);                        \
     return (int)cudaGetLastError();                                                        \
   }                                                                                        \
-  extern "C" int knp_ion_membrane_rhs##SFX(                                                \
+  extern "C" int knp_membrane_emit##SFX(                                                   \
       const T* z, const T* D, const T* c_k, const T* alpha_sum, const T* phi,              \
-      const T* phi_M, const T* I_ch, const T* I_tot, const T* Rp, const T* Rm,             \
-      const int* mcp, const int* mcm, const int* fidx, const T* f_area, const T* w_f,      \
-      T* b_p, T* b_m, int m, int nq, int nd, int nc, int nm, int ich_stride,               \
-      int splitting, double F, double Cfac0, void* stream) {                               \
-    ion_membrane_rhs_kernel<T><<<knp_blocks((long long)m * nm), KNP_THREADS, 0,            \
-                                 (cudaStream_t)stream>>>(                                  \
-        z, D, c_k, alpha_sum, phi, phi_M, I_ch, I_tot, Rp, Rm, mcp, mcm, fidx, f_area,     \
-        w_f, b_p, b_m, m, nq, nd, nc, nm, ich_stride, splitting, (T)F, (T)Cfac0);          \
-    return (int)cudaGetLastError();                                                        \
-  }                                                                                        \
-  extern "C" int knp_ion_emit_cell##SFX(                                                   \
-      const T* z, const T* D, const T* vol, const T* drift, const T* phibar,               \
-      const T* Mpp, const T* Mpm, const T* Mmp, const T* Mmm, const T* bcell,              \
-      const T* b_p, const T* b_m, const int* inv_mem, const int* cf_idx,                   \
-      const unsigned char* cf_isp, const T* statics, T* blocks, T* rhs, int m, int nd,     \
-      int nfac, int nc, int nf1, int nm, int pair, double psi, void* stream) {             \
-    ion_emit_cell_kernel<T><<<knp_blocks((long long)m * nd * nd * nc), KNP_THREADS, 0,     \
-                              (cudaStream_t)stream>>>(                                     \
-        z, D, vol, drift, phibar, Mpp, Mpm, Mmp, Mmm, bcell, b_p, b_m, inv_mem, cf_idx,    \
-        cf_isp, statics, blocks, rhs, m, nd, nfac, nc, nf1, nm, pair, (T)psi);             \
-    return (int)cudaGetLastError();                                                        \
+      const T* phi_M, const T* I_ch, const T* I_tot, const T* drift, const T* Mpp,         \
+      const T* Mpm, const T* Mmp, const T* Mmm, const T* bcell, const T* statics, T* b_p,  \
+      T* b_m, T* blocks, T* rhs, const void* tables, int m, int splitting, int pair,       \
+      double F, double Cfac0, double psi, void* stream) {                                  \
+    KnpEmitArgs<T> a;                                                                      \
+    a.z = z; a.D = D; a.c_k = c_k; a.alpha_sum = alpha_sum; a.phi = phi; a.phi_M = phi_M;  \
+    a.I_ch = I_ch; a.I_tot = I_tot; a.drift = drift; a.Mpp = Mpp; a.Mpm = Mpm;             \
+    a.Mmp = Mmp; a.Mmm = Mmm; a.bcell = bcell; a.statics = statics; a.b_p = b_p;           \
+    a.b_m = b_m; a.blocks = blocks; a.rhs = rhs;                                           \
+    a.t = *static_cast<const KnpEmitTables*>(tables);                                      \
+    a.m = m; a.splitting = splitting;                                                      \
+    a.F = (T)F; a.Cfac0 = (T)Cfac0; a.psi = (T)psi;                                        \
+    return membrane_emit_launch<T>(a, pair != 0, stream);                                  \
   }
 
 KNP_ION_ENTRY(_f32, float)

@@ -19,8 +19,9 @@ no fallback between the two), for nd <= 4 and d <= 3:
 * K10 ``csrc/assemble_emi.cu``: :func:`emi_cell`, :func:`emi_facet`,
   :func:`emi_emit_cell`, the three launches of :func:`assemble_emi`;
 * K11 ``csrc/assemble_knp.cu``: :func:`alpha_sum`, :func:`knp_cell`,
-  :func:`knp_facet`, :func:`knp_membrane_rhs`, :func:`knp_emit_cell`, the
-  launches of :func:`assemble_knp_all`;
+  :func:`knp_facet`, :func:`knp_membrane_emit` (the membrane rhs
+  :func:`knp_membrane_rhs_plain` and the emit :func:`knp_emit_cell_plain`
+  in one call), the launches of :func:`assemble_knp_all`;
 * K14 ``csrc/membrane_trace.cu``: :func:`membrane_traces_m` (a step's
   ODE-input traces of every field in one launch), :func:`membrane_avg_m`,
   :func:`nernst_potential_m`, :func:`jump_phi_M_m` (one kernel: any fields,
@@ -35,15 +36,17 @@ The setup-only functions (:func:`precompute_static`,
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import ctypes
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from .. import _cuda
-from .pairs import gather_blocks_pair, gather_blocks_pair_multi
+from .pairs import _pack, gather_blocks_pair, gather_blocks_pair_multi
 
 MAX_ND, MAX_D = 4, 3      # the kernels' register arrays (DG1 in 2D and 3D)
-MAX_NQ = 12               # emi_facet's shared tile: every facet rule of fem/quadrature
+MAX_NQ = 12               # emi_facet's shared tile, knp_membrane_emit's per-point jump:
+                          # every facet rule of fem/quadrature
 
 
 def _degree1(g):
@@ -242,10 +245,12 @@ def _tables(src, keys, dtype):
 
 
 def _inputs(dtype, **tensors):
-    """Device pointers of per-call inputs, each checked with its shape."""
+    """Device pointers of per-call inputs, each checked with its shape (a
+    contiguous CUDA tensor of ``dtype``; else _cuda.check raises why)."""
     out = []
     for name, (t, shape) in tensors.items():
-        _cuda.check(name, t, dtype, shape)
+        if not (t.is_cuda and t.dtype == dtype and t.shape == shape and t.is_contiguous()):
+            _cuda.check(name, t, dtype, shape)
         out.append(t.data_ptr())
     return out
 
@@ -600,32 +605,6 @@ def knp_membrane_rhs_plain(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch, I_c
     return b_p.contiguous(), b_m.contiguous()
 
 
-def knp_membrane_rhs(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch, I_ch_tot,
-                     F, C_M, dt, splitting=True):
-    """:func:`knp_membrane_rhs_plain`, kernel K11 ``knp_membrane_rhs`` on a
-    CUDA tensor.  ``I_ch`` may be the leading rows of a longer array."""
-    if not c_k.is_cuda:
-        return knp_membrane_rhs_plain(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch,
-                                      I_ch_tot, F, C_M, dt, splitting)
-    nq, nd, _, nc, _ = _dims(g)
-    m = c_k.shape[0]
-    dt_ = c_k.dtype
-    nm = mem_t["cp"].shape[0]
-    ins = _inputs(dt_, z=(z, (m,)), D=(D, (m, nc)), c_k=(c_k, (m, nd, nc)),
-                  alpha_sum=(alpha_sum, (nd, nc)), phi=(phi, (nd, nc)),
-                  phi_M=(phi_M, (nm + 1,)), I_ch=(I_ch, (m, nm + 1)),
-                  I_ch_tot=(I_ch_tot, (nm + 1,)))
-    b_p = torch.empty((m, nd, nm), dtype=dt_, device=c_k.device)
-    b_m = torch.empty_like(b_p)
-    if nm:
-        _cuda.launch("knp_membrane_rhs", "knp_ion_membrane_rhs", dt_, *ins,
-                     *_tables(mem_t, ("Rp", "Rm", "cp", "cm", "fidx"), dt_),
-                     *_tables(g, ("f_area", "w_f"), dt_), b_p.data_ptr(), b_m.data_ptr(),
-                     m, nq, nd, nc, nm, nm + 1, int(bool(splitting)), float(F),
-                     float(C_M / (F * dt)))
-    return b_p, b_m
-
-
 def knp_emit_cell_plain(g, mem_t, z, D, psi, drift, Mpp, Mpm, Mmp, Mmm, b_cell, b_p,
                         b_m, static_blocks=None, pair=False):
     """Per-cell emit of the KNP assembly: the drift cell block, the
@@ -666,38 +645,164 @@ def knp_emit_cell_plain(g, mem_t, z, D, psi, drift, Mpp, Mpm, Mmp, Mmm, b_cell, 
     return blocks, rhs.contiguous()
 
 
-def knp_emit_cell(g, mem_t, z, D, psi, drift, Mpp, Mpm, Mmp, Mmm, b_cell, b_p, b_m,
-                  static_blocks=None, pair=False):
-    """:func:`knp_emit_cell_plain`, kernel K11 ``knp_emit_cell`` on a CUDA
-    tensor (equal to it exactly); the membrane parts are read through the
-    inverse membrane map ``mem_t["inv"]``."""
+# ---------------------------------------------------------------------------
+# K11's membrane rhs and emit in one call: static tables made once, the
+# step's buffers
+# ---------------------------------------------------------------------------
+
+_IDX_BITS = 30            # index bits of a packed word; bit 30 "membrane", bit 31 cf_is_plus
+
+
+class _TablesC(ctypes.Structure):
+    """The C struct KnpEmitTables of csrc/assemble_knp.cu (same order)."""
+    _fields_ = [(k, ctypes.c_void_p) for k in ("Rp", "Rm", "w_f", "vol", "phibar", "area",
+                                               "slots", "cells", "mcell")] + [
+        (k, ctypes.c_int) for k in ("nq", "nd", "nfac", "nc", "nf1", "nm", "ncm")]
+
+
+class KnpEmitTables(NamedTuple):
+    """The static tables of :func:`knp_membrane_emit`, on the geometry's
+    device.  The words are unsigned 32-bit in the kernel (read back in
+    int64: w & (2**32 - 1)): index in bits 0-29, bit 30 "membrane", bit 31
+    cf_is_plus."""
+    slots: torch.Tensor        # int32 (nfac, nc): the facet cf_idx[l, c] | membrane | isp
+    cells: torch.Tensor        # int32 (1 + nfac, ncm): row 0 the cells with a membrane
+                               # slot (ascending), row 1 + l: inv[cf_idx[l, c]] | membrane | isp
+    mcell: torch.Tensor        # int32 (2, nm): the membrane facets' cells cp, cm
+    area: torch.Tensor         # (nm,) f_area[fidx]
+    dims: tuple                # nq, nd, nfac, nc, nf1, nm, ncm
+    c_struct: Optional[_TablesC]   # on the card: the kernels' table of pointers
+    sources: tuple             # the other tensors c_struct points to: Rp, Rm, w_f, vol,
+                               # phibar (held here, so the pointers outlive no tensor)
+
+
+def knp_emit_tables(g, mem_t) -> KnpEmitTables:
+    """The membrane emit's static tables of a geometry and its membrane
+    tables: the per-cell slot words, the compact list of the cells with a
+    membrane slot with their words, the membrane facets' cells and areas.
+    The sources are checked here, not per call (on the card: contiguous,
+    their dtypes and shapes; the indices within 30 bits).  A caller that
+    emits again and again builds them once (Solver._membrane_emit_tables)
+    and passes them to :func:`knp_membrane_emit`."""
+    f_area, cf, isp, inv = g["f_area"], g["cf_idx"], g["cf_is_plus"], mem_t["inv"]
+    nq, nd, nm = mem_t["Rp"].shape
+    nfac, nc = cf.shape
+    nf1 = f_area.shape[0]
+    fdt = f_area.dtype
+    if f_area.is_cuda and (nd > MAX_ND or nfac > MAX_D + 1 or nq > MAX_NQ):
+        raise NotImplementedError(
+            f"knp_membrane_emit: CUDA kernel built for nd <= {MAX_ND}, {MAX_D + 1} cell "
+            f"facets and nq <= {MAX_NQ}, got nd = {nd}, {nfac} facets, nq = {nq}")
+    shapes = {"cf_idx": (torch.int32, (nfac, nc)), "cf_is_plus": (torch.bool, (nfac, nc)),
+              "vol": (fdt, (nc,)), "phibar": (fdt, (nd,)), "w_f": (fdt, (nq,)),
+              "inv": (torch.int32, (nf1,)), "fidx": (torch.int32, (nm,)),
+              "cp": (torch.int32, (nm,)), "cm": (torch.int32, (nm,)),
+              "Rp": (fdt, (nq, nd, nm)), "Rm": (fdt, (nq, nd, nm)), "f_area": (fdt, (nf1,))}
+    for key, (dt, shape) in shapes.items():
+        t = mem_t[key] if key in mem_t else g[key]
+        if t.is_cuda:
+            _cuda.check(key, t, dt, shape)
+        elif t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"knp_emit_tables: {key} must be {dt} of shape {shape}")
+    if max(nf1, nm + 1) > 2 ** _IDX_BITS:
+        raise ValueError("knp_emit_tables: facet or membrane indices outside [0, 2**30)")
+    if nc and not bool(((cf >= 0) & (cf < nf1)).all()):
+        raise ValueError("knp_emit_tables: cf_idx outside the facets")
+    mi = inv[cf.long()]                                  # (nfac, nc), -1 off the membranes
+    mem = mi >= 0
+    slots = _pack(cf, mem, isp).contiguous()
+    cells = mem.any(dim=0).nonzero().flatten().to(torch.int32)
+    words = _pack(torch.where(mem, mi, 0)[:, cells], mem[:, cells], isp[:, cells])
+    cells = torch.cat([cells[None], words]).contiguous()
+    mcell = torch.stack([mem_t["cp"], mem_t["cm"]]).contiguous()
+    area = f_area[mem_t["fidx"].long()].contiguous()
+    dims = (nq, nd, nfac, nc, nf1, nm, cells.shape[1])
+    sources = (mem_t["Rp"], mem_t["Rm"], g["w_f"], g["vol"], g["phibar"])
+    c_struct = None
+    if f_area.is_cuda:
+        if fdt not in (torch.float32, torch.float64):
+            raise TypeError(f"knp_emit_tables: float32/float64 tables, got {fdt}")
+        c_struct = _TablesC(*(t.data_ptr() for t in sources + (area, slots, cells, mcell)),
+                            *dims)
+    return KnpEmitTables(slots, cells, mcell, area, dims, c_struct, sources)
+
+
+class KnpEmitOut(NamedTuple):
+    """The buffers :func:`knp_membrane_emit` writes."""
+    blocks: torch.Tensor       # (m, K, nd, nd, nc); pair layout: the drift blocks (m, nd, nd, nc)
+    rhs: torch.Tensor          # (m, nd, nc)
+    b_p: torch.Tensor          # (m, nd, n_mem) the membrane rhs
+    b_m: torch.Tensor
+
+
+def knp_emit_buffers(g, mem_t, m, dtype, device, pair=False) -> KnpEmitOut:
+    """Output buffers of :func:`knp_membrane_emit` for a caller that emits
+    into the same operator again and again (the solver's step)."""
+    nd, nc, nm = mem_t["Rp"].shape[1], g["cf_idx"].shape[1], mem_t["Rp"].shape[2]
+    K = g["cf_idx"].shape[0] + 1
+    new = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
+    return KnpEmitOut(new(m, nd, nd, nc) if pair else new(m, K, nd, nd, nc), new(m, nd, nc),
+                      new(m, nd, nm), new(m, nd, nm))
+
+
+def knp_membrane_emit_plain(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch, I_ch_tot, F,
+                            C_M, dt, psi, drift, M, b_cell, static_blocks=None,
+                            splitting=True, pair=False):
+    """:func:`knp_membrane_rhs_plain`, then :func:`knp_emit_cell_plain` on
+    its b_p, b_m -> (blocks, rhs, b_p, b_m).  ``M`` (Mpp, Mpm, Mmp, Mmm),
+    unused on the pair layout (None there)."""
+    b_p, b_m = knp_membrane_rhs_plain(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch,
+                                      I_ch_tot, F, C_M, dt, splitting)
+    blocks, rhs = knp_emit_cell_plain(g, mem_t, z, D, psi, drift, *(M or (None,) * 4),
+                                      b_cell, b_p, b_m, static_blocks, pair)
+    return blocks, rhs, b_p, b_m
+
+
+def knp_membrane_emit(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch, I_ch_tot, F, C_M,
+                      dt, psi, drift, M, b_cell, static_blocks=None, splitting=True,
+                      pair=False, out=None, tables=None):
+    """:func:`knp_membrane_emit_plain`, kernel K11 ``knp_membrane_emit`` on a
+    CUDA tensor: the membrane rhs and the emit in one call of two launches
+    (the membrane facets beside the emit rows, then the membrane cells' rhs
+    rows), the emit equal to :func:`knp_emit_cell_plain` exactly and b_p,
+    b_m within round-off of :func:`knp_membrane_rhs_plain`'s.  ``tables``:
+    the static tables of :func:`knp_emit_tables` (checked when they were
+    built); without them they are built here.  ``out``: buffers of
+    :func:`knp_emit_buffers` to write and return (on the CPU the plain
+    results are copied into them); without it new tensors."""
     if not drift.is_cuda:
-        return knp_emit_cell_plain(g, mem_t, z, D, psi, drift, Mpp, Mpm, Mmp, Mmm,
-                                   b_cell, b_p, b_m, static_blocks, pair)
-    _, nd, d, nc, nf1 = _dims(g)
-    m = z.shape[0]
-    dt_ = drift.dtype
-    nm = mem_t["cp"].shape[0]
-    K = d + 2
-    head = _inputs(dt_, z=(z, (m,)), D=(D, (m, nc)))
-    ins = _inputs(dt_, drift=(drift, (nd, nc)), Mpp=(Mpp, (m, nd, nd, nf1)),
-                  Mpm=(Mpm, (m, nd, nd, nf1)), Mmp=(Mmp, (m, nd, nd, nf1)),
-                  Mmm=(Mmm, (m, nd, nd, nf1)), b_cell=(b_cell, (m, nd, nc)),
-                  b_p=(b_p, (m, nd, nm)), b_m=(b_m, (m, nd, nm)))
-    _cuda.check("inv", mem_t["inv"], torch.int32, (nf1,))
-    statics = None
-    if static_blocks is not None and not pair:
-        _cuda.check("static_blocks", static_blocks, dt_, (m, K, nd, nd, nc))
-        statics = static_blocks.data_ptr()
-    blocks = torch.empty((m, nd, nd, nc) if pair else (m, K, nd, nd, nc), dtype=dt_,
-                         device=drift.device)
-    rhs = torch.empty((m, nd, nc), dtype=dt_, device=drift.device)
-    vol, phibar = _tables(g, ("vol", "phibar"), dt_)
-    _cuda.launch("knp_emit_cell", "knp_ion_emit_cell", dt_, *head, vol, ins[0], phibar,
-                 *ins[1:], mem_t["inv"].data_ptr(),
-                 *_tables(g, ("cf_idx", "cf_is_plus"), dt_), statics, blocks.data_ptr(),
-                 rhs.data_ptr(), m, nd, d + 1, nc, nf1, nm, int(pair), float(psi))
-    return blocks, rhs
+        res = knp_membrane_emit_plain(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch,
+                                      I_ch_tot, F, C_M, dt, psi, drift, M, b_cell,
+                                      static_blocks, splitting, pair)
+        if out is None:
+            return res
+        for dst, src in zip(out, res):
+            dst.copy_(src)
+        return tuple(out)
+    tab = tables if tables is not None else knp_emit_tables(g, mem_t)
+    _, nd, nfac, nc, nf1, nm, _ = tab.dims
+    m, dt_ = z.shape[0], drift.dtype
+    if tab.area.dtype != dt_:
+        raise TypeError(f"knp_membrane_emit: tables in {tab.area.dtype}, inputs in {dt_}")
+    blk = (m, nd, nd, nc) if pair else (m, nfac + 1, nd, nd, nc)
+    if out is None:
+        out = knp_emit_buffers(g, mem_t, m, dt_, drift.device, pair)
+    ins = _inputs(dt_, z=(z, (m,)), D=(D, (m, nc)), c_k=(c_k, (m, nd, nc)),
+                  alpha_sum=(alpha_sum, (nd, nc)), phi=(phi, (nd, nc)),
+                  phi_M=(phi_M, (nm + 1,)), I_ch=(I_ch, (m, nm + 1)),
+                  I_ch_tot=(I_ch_tot, (nm + 1,)), drift=(drift, (nd, nc)))
+    # the facet blocks and the static operator: the cell layout's emit only
+    Ms = [None] * 4 if pair else _inputs(
+        dt_, **{k: (t, (m, nd, nd, nf1)) for k, t in zip(("Mpp", "Mpm", "Mmp", "Mmm"), M)})
+    bc = _inputs(dt_, b_cell=(b_cell, (m, nd, nc)))
+    st = [None] if pair or static_blocks is None else _inputs(
+        dt_, static_blocks=(static_blocks, blk))
+    outs = _inputs(dt_, out_b_p=(out.b_p, (m, nd, nm)), out_b_m=(out.b_m, (m, nd, nm)),
+                   out_blocks=(out.blocks, blk), out_rhs=(out.rhs, (m, nd, nc)))
+    _cuda.launch("knp_membrane_emit", "knp_membrane_emit", dt_, *ins, *Ms, *bc, *st, *outs,
+                 ctypes.addressof(tab.c_struct), m, int(bool(splitting)), int(pair),
+                 float(F), float(C_M / (F * dt)), float(psi))
+    return tuple(out)
 
 
 def assemble_knp_all(
@@ -716,18 +821,25 @@ def assemble_knp_all(
     splitting: bool = True,
     pm: Optional[Dict[str, Any]] = None,
     out=None,
+    buffers=None,
+    tables=None,
 ):
     """All solved ions' KNP operators + rhs in one pass with shared facet
-    and membrane gathers, in four steps (kernel K11 on the card):
-    :func:`knp_cell`, :func:`knp_facet`, :func:`knp_membrane_rhs`,
-    :func:`knp_emit_cell`.  ``max(D*un, 0) == D*max(un, 0)`` since D > 0, so
-    the upwind switch is shared by the ions.  ``mem_t``: membrane-presliced
-    tables; the whole membrane rhs is computed on the n_mem facet axis.
+    and membrane gathers, in three steps (kernel K11 on the card):
+    :func:`knp_cell`, :func:`knp_facet`, :func:`knp_membrane_emit` (the
+    membrane rhs and the emit in one call).  ``max(D*un, 0) ==
+    D*max(un, 0)`` since D > 0, so the upwind switch is shared by the ions.
+    ``mem_t``: membrane-presliced tables; the whole membrane rhs is computed
+    on the n_mem facet axis.
 
     Returns (blocks (m,K,nd,nd,nc), rhs (m,nd,nc)); with pair maps ``pm``
     ((pdK, peK), rhs), and ``static_blocks`` must be in pair form too
     (ops.pairs.cell_bell_to_pair); ``out`` (pairs only): the pair emit's
-    (pdK, peK) buffers (ops.pairs.emit_buffers), written and returned."""
+    (pdK, peK) buffers (ops.pairs.emit_buffers), written and returned;
+    ``buffers``: the membrane emit's (:func:`knp_emit_buffers`, made for
+    this layout), written, its blocks (the drift blocks on pairs) and rhs
+    returned; ``tables``: its static tables (:func:`knp_emit_tables`),
+    built in the call without them."""
     _degree1(g)
     z, D = ions["z"], ions["D"]                      # (m,), (m, nc)
     c_n, c_k = ions["c_n"], ions["c_k"]              # (m, nd, nc)
@@ -735,14 +847,14 @@ def assemble_knp_all(
 
     gphi, drift, b_cell = knp_cell(g, phi, c_n, dt)
     M = knp_facet(g, masks, z, D, gphi, psi)
-    b_p, b_m = knp_membrane_rhs(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch,
-                                I_ch_tot, F, C_M, dt, splitting)
-    if pm is not None:
-        A_cell, rhs = knp_emit_cell(g, mem_t, z, D, psi, drift, *M, b_cell, b_p, b_m,
-                                    pair=True)
-        return gather_blocks_pair_multi(g, pm, A_cell, *M, add=static_blocks, out=out), rhs
-    return knp_emit_cell(g, mem_t, z, D, psi, drift, *M, b_cell, b_p, b_m,
-                         static_blocks)
+    pair = pm is not None
+    blocks, rhs, _, _ = knp_membrane_emit(
+        g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch, I_ch_tot, F, C_M, dt, psi, drift,
+        None if pair else M, b_cell, None if pair else static_blocks, splitting, pair,
+        out=buffers, tables=tables)
+    if pair:
+        return gather_blocks_pair_multi(g, pm, blocks, *M, add=static_blocks, out=out), rhs
+    return blocks, rhs
 
 
 # ---------------------------------------------------------------------------

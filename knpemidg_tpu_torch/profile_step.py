@@ -59,8 +59,7 @@ HAND_KERNELS = ("bell_matvec_kernel", "bj_inverse_kernel", "bj_apply_kernel",
                 "tl_prolong_kernel", "tl_coarse_kernel",
                 "emi_cell_kernel", "emi_facet_kernel", "emi_emit_cell_kernel",
                 "alpha_sum_kernel", "ion_cell_kernel", "ion_facet_scalars_kernel",
-                "ion_facet_kernel",
-                "ion_membrane_rhs_kernel", "ion_emit_cell_kernel",
+                "ion_facet_kernel", "ion_membrane_emit_kernel", "ion_membrane_emit_rows_kernel",
                 "membrane_trace_kernel", "eliminated_kernel",
                 "gm_dot_partial_kernel", "gm_dot_finish_kernel", "gm_arnoldi_kernel",
                 "gm_scale_kernel", "gm_init_kernel", "gm_backsolve_kernel",

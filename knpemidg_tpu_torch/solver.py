@@ -249,6 +249,7 @@ class Solver:
             setattr(self, name, getattr(self, name)[..., src_t].contiguous())
 
     def _set_membrane_tags(self, tags):
+        self.__dict__.pop("_emit_bufs", None)     # the membrane emit's are n_mem wide
         self.tables = build_membrane_tables(self.mesh, tags)
         self.mem_dev = self.tables.to_device(self.dtype, device=self.device)
         # membrane-presliced trace tensors: gathers over n_mem instead of
@@ -392,15 +393,35 @@ class Solver:
         """The pair emit's output buffers of the step's EMI (``kind`` "emi":
         pd, pe, P_diag) or KNP ("knp": pdK, peK) operator, made once per
         dtype (pe zero outside its owner halves, which the emit never
-        writes).  Only _pde_step passes them: each step's emit overwrites
-        the previous step's operator, which nothing holds past its solve
-        (the pc builds, the harvest and the tests emit into new tensors)."""
+        writes); "membrane_emit": the KNP membrane emit's (the cell
+        layout's operator and rhs, the pair layout's drift blocks and rhs,
+        b_p, b_m; assembly.knp_emit_buffers).  Only _pde_step passes them:
+        each step's emit overwrites the previous step's operator, which
+        nothing holds past its solve (the pc builds, the harvest and the
+        tests emit into new tensors)."""
         bufs = self.__dict__.setdefault("_emit_bufs", {})
         key = (kind, self.dtype)
         if key not in bufs:
-            m = None if kind == "emi" else self.N_ions
-            bufs[key] = emit_buffers(self.pairs, self.nd, self.dtype, self.device, m=m,
-                                     diag=kind == "emi")
+            if kind == "membrane_emit":
+                bufs[key] = assembly.knp_emit_buffers(self.g, self.mem_dev, self.N_ions,
+                                                      self.dtype, self.device,
+                                                      pair=self.pair_layout)
+            else:
+                m = None if kind == "emi" else self.N_ions
+                bufs[key] = emit_buffers(self.pairs, self.nd, self.dtype, self.device, m=m,
+                                         diag=kind == "emi")
+        return bufs[key]
+
+    def _membrane_emit_tables(self):
+        """The KNP membrane emit's static tables (assembly.knp_emit_tables:
+        the packed cell-facet slots, the membrane cells, the membrane
+        facets' cells and areas), built and checked once per dtype and kept
+        with the emit buffers: a new membrane map (_set_membrane_tags) or
+        cell numbering (_invalidate_caches) drops them with those."""
+        bufs = self.__dict__.setdefault("_emit_bufs", {})
+        key = ("membrane_emit_tables", self.dtype)
+        if key not in bufs:
+            bufs[key] = assembly.knp_emit_tables(self.g, self.mem_dev)
         return bufs[key]
 
     def _knp_static(self, k):
@@ -444,7 +465,8 @@ class Solver:
 
         blocksK, rhsK = self._knp_assemble_all(
             c, c_elim, phi, phi_M_pad, I_ch_pad, I_ch_tot_pad, t, c,
-            out=self._emit_out("knp") if pair else None)
+            out=self._emit_out("knp") if pair else None,
+            buffers=self._emit_out("membrane_emit"))
         c, stats["knp_iters"], stats["knp_converged"] = self._knp_solve_all(
             blocksK, rhsK, c, sp_, pcK=pc.get("knp") if pc else None)
         return self._finalize_step(state, stats, c, phi, t)
@@ -515,11 +537,12 @@ class Solver:
         return new_state, stats
 
     def _knp_assemble_all(self, c, c_elim, phi, phi_M_pad, I_ch_pad,
-                          I_ch_tot_pad, t, c_n, out=None):
+                          I_ch_tot_pad, t, c_n, out=None, buffers=None):
         """KNP assembly for all solved ions in one pass:
         (blocks (m, K, nd, nd, nc), rhs (m, nd, nc)), or ((pdK, peK), rhs)
-        on the pair layout (``out``: the pair emit's buffers, see
-        _emit_out).  ``t`` is unused; it keeps the JAX signature."""
+        on the pair layout (``out``: the pair emit's buffers, ``buffers``
+        the membrane emit's, see _emit_out).  ``t`` is unused; it keeps the
+        JAX signature."""
         call = self._all_c(c, c_elim)
         alpha_sum = assembly.alpha_sum(self.z, self.D, call)
         # the ion-stacked static operator (-1), in pair form (-2) on the
@@ -537,7 +560,8 @@ class Solver:
             phi_M_pad, I_ch_pad[:self.N_ions], I_ch_tot_pad,
             mem_t=self.mem_dev, static_blocks=statics,
             splitting=self.splitting_scheme,
-            pm=self.pairs if self.pair_layout else None, out=out)
+            pm=self.pairs if self.pair_layout else None, out=out, buffers=buffers,
+            tables=self._membrane_emit_tables())
 
     def _knp_solve_all(self, blocksK, rhsK, c, sp_: SolverParams, pcK=None):
         """Batched increment-form GMRES over the ion axis: all solved ions

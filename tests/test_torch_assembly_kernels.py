@@ -236,6 +236,107 @@ def test_knp_emit_cell_adds_static_last(solvers):
     assert torch.equal(rt_pair, rt)
 
 
+def _decode(words):
+    """A packed table's words -> (index, membrane bit, cf_is_plus bit)."""
+    w = words.to(torch.int64) & (2 ** 32 - 1)
+    return w & (2 ** 30 - 1), (w >> 30) & 1, (w >> 31) & 1
+
+
+def _check_emit_tables(St):
+    """The membrane emit's static tables decode to the maps they pack: the
+    slot words to cf_idx, inv[cf_idx] >= 0 and cf_is_plus; the compact list
+    to exactly the cells with a membrane slot, its words to inv[cf_idx] and
+    cf_is_plus; the membrane table to cp, cm and f_area[fidx].  The
+    solver builds them once and they hold every tensor they point to."""
+    g, mem = St.g, St.mem_dev
+    tab = St._membrane_emit_tables()
+    assert St._membrane_emit_tables() is tab                  # made once
+    assert all(a is b for a, b in zip(tab.sources, (mem["Rp"], mem["Rm"], g["w_f"], g["vol"],
+                                                    g["phibar"])))
+    cf, isp = g["cf_idx"].long(), g["cf_is_plus"].long()
+    mi = mem["inv"].long()[cf]
+    f, on, sp = _decode(tab.slots)
+    assert tab.slots.dtype == torch.int32 and tab.slots.is_contiguous()
+    assert torch.equal(f, cf) and torch.equal(sp, isp) and torch.equal(on, (mi >= 0).long())
+    has = (mi >= 0).any(dim=0)
+    cells = tab.cells[0].long()
+    assert torch.equal(cells, torch.nonzero(has).flatten())
+    assert int(has.sum()) > 0 and tab.cells.shape == (cf.shape[0] + 1, cells.shape[0])
+    j, on_c, sp_c = _decode(tab.cells[1:])
+    assert torch.equal(on_c, (mi[:, cells] >= 0).long())
+    assert torch.equal(sp_c, isp[:, cells])
+    assert torch.equal(j, torch.where(mi[:, cells] >= 0, mi[:, cells], 0))
+    assert torch.equal(tab.mcell, torch.stack([mem["cp"], mem["cm"]]))
+    assert torch.equal(tab.area, g["f_area"][mem["fidx"].long()])
+    nq, nd, nm = mem["Rp"].shape
+    assert tab.dims == (nq, nd, cf.shape[0], cf.shape[1], g["f_area"].shape[0], nm,
+                        cells.shape[0])
+    return tab
+
+
+def test_knp_emit_tables_decode_to_the_maps(solvers):
+    _check_emit_tables(solvers[1])
+
+
+def test_solver_drops_the_emit_tables_with_its_caches(solvers):
+    """A new cell numbering or membrane map drops the solver's membrane
+    emit tables with its emit buffers (_invalidate_caches); the next step
+    builds them anew from its current maps."""
+    St = solvers[1]
+    tab, out = St._membrane_emit_tables(), St._emit_out("membrane_emit")
+    St._invalidate_caches()
+    new = St._membrane_emit_tables()
+    assert new is not tab and St._emit_out("membrane_emit") is not out
+    assert torch.equal(new.slots, tab.slots) and torch.equal(new.cells, tab.cells)
+    assert new.dims == tab.dims
+
+
+def test_knp_membrane_emit_writes_the_plain_results_into_its_buffers(solvers):
+    """knp_membrane_emit on the CPU is the plain membrane rhs and emit, and
+    with ``out`` it writes them into the step's buffers (Solver._emit_out)
+    and returns those; the buffers are made once per dtype."""
+    Sj, St, x = solvers
+    p = St.params
+    z, D, asum, drift, M, b_cell, b_p, b_m = _knp_parts(St, x)
+    statics = torch.stack([St._knp_static(k) for k in range(St.N_ions)])
+    args = (St.g, St.mem_dev, z, D, t64(x["c"]), asum, t64(x["phi"]), t64(x["phi_M"]),
+            t64(x["I_ch"][:St.N_ions]), t64(x["I_tot"]), p.F, p.C_M, p.dt, p.psi, drift, M,
+            b_cell, statics)
+    ref = assembly.knp_membrane_emit_plain(*args)
+    assert torch.equal(ref[2], b_p) and torch.equal(ref[3], b_m)
+    blocks, rhs = assembly.knp_emit_cell_plain(St.g, St.mem_dev, z, D, p.psi, drift, *M,
+                                               b_cell, b_p, b_m, statics)
+    assert torch.equal(ref[0], blocks) and torch.equal(ref[1], rhs)
+    out = St._emit_out("membrane_emit")
+    assert St._emit_out("membrane_emit") is out
+    got = assembly.knp_membrane_emit(*args, out=out)
+    assert all(a is b for a, b in zip(got, out))
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def test_knp_membrane_emit_without_membrane_facets(solvers):
+    """With no membrane facet (n_mem = 0) the tables hold no membrane cell
+    and the membrane emit's rhs is b_cell, its blocks the emit's."""
+    _, St, x = solvers
+    p, m = St.params, St.N_ions
+    z, D, asum, drift, M, b_cell, _, _ = _knp_parts(St, x)
+    none = torch.zeros(0, dtype=torch.int32)
+    mem0 = dict(St.mem_dev, fidx=none, cp=none, cm=none,
+                inv=torch.full_like(St.mem_dev["inv"], -1),
+                Rp=St.mem_dev["Rp"][..., :0].contiguous(),
+                Rm=St.mem_dev["Rm"][..., :0].contiguous())
+    tab = assembly.knp_emit_tables(St.g, mem0)
+    assert tab.dims[5:] == (0, 0) and tab.cells.shape == (St.g["cf_idx"].shape[0] + 1, 0)
+    blocks, rhs, b_p, b_m = assembly.knp_membrane_emit(
+        St.g, mem0, z, D, t64(x["c"]), asum, t64(x["phi"]), torch.zeros(1),
+        torch.zeros((m, 1)), torch.zeros(1), p.F, p.C_M, p.dt, p.psi, drift, M, b_cell)
+    assert b_p.shape == b_m.shape == (m, St.nd, 0)
+    assert torch.equal(rhs, b_cell)
+    ref = assembly.knp_emit_cell_plain(St.g, St.mem_dev, z, D, p.psi, drift, *M, b_cell,
+                                       *_knp_parts(St, x)[6:])[0]
+    assert torch.equal(blocks, ref)
+
+
 def test_membrane_trace_helpers_match_jax(solvers):
     """The K14 plain versions against the JAX helpers, every ion and side."""
     Sj, St, x = solvers
@@ -321,6 +422,18 @@ def test_pair_kernel_tables_are_contiguous(pair_solvers):
     _check_tables(St)
     assert St.g["G"].shape[-1] == St.n_cells_pad == St.D.shape[-1]
     assert St.D.is_contiguous() and St.rho.is_contiguous()
+
+
+def test_pair_knp_emit_tables_decode_to_the_maps(pair_solvers):
+    """The membrane emit's tables on the pair layout's padded, renumbered
+    cell axis: the pad cells' slots hold the dummy facet, no membrane."""
+    St = pair_solvers[1]
+    tab = _check_emit_tables(St)
+    pads = ~St._pad_mask
+    assert bool(pads.any())
+    f, on, _ = _decode(tab.slots[:, pads])
+    assert bool((f == St.g["f_area"].shape[0] - 1).all()) and not bool(on.any())
+    assert not bool(pads[tab.cells[0].long()].any())
 
 
 def test_pair_emi_assembly_matches_jax(pair_solvers):

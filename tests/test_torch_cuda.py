@@ -32,7 +32,7 @@ DTYPES = [(torch.float32, 1e-5), (torch.float64, 1e-12)]
 TWO_LEVEL_KERNELS = tuple(f"two_level_{e}" for e in ("restrict", "solve", "prolong")) + (
     "two_level_coarse_batched",)
 ASSEMBLY_KERNELS = ("emi_cell", "emi_facet", "emi_emit_cell", "alpha_sum", "knp_cell",
-                    "knp_facet", "knp_membrane_rhs", "knp_emit_cell", "membrane_trace",
+                    "knp_facet", "knp_membrane_emit", "membrane_trace",
                     "eliminated_concentration")
 KRYLOV_KERNELS = tuple(f"pcg_{e}" for e in ("dot", "update", "dot2_direction")) + tuple(
     f"gmres_{e}" for e in ("start", "cgs_dot", "arnoldi", "solve_update"))
@@ -1203,6 +1203,151 @@ def test_knp_facet_equals_the_ordered_plain_exactly(nd, sip):
                     assert a.shape == (m, nd, nd, nf1) and torch.equal(a, b), (dtype, nf1, m, k)
                     assert rel(a, c) < tol, (dtype, nf1, m, k)
                     assert not bool(a[..., ~masks["f_sip"]].any())
+
+
+def _k11_case(S, dtype, seed):
+    """The inputs of K11's membrane emit on solver S's tables in ``dtype``
+    at a state perturbed with numpy-seeded noise (torch_k11_inputs on
+    them): (g, mem, the arguments of knp_membrane_emit, the facet
+    blocks)."""
+    from torch_k11_inputs import k11_inputs
+
+    rng = np.random.default_rng(seed)
+    dev, p = S.device, S.params
+    st = S._initial_state(0.0)
+    to = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    c = (st["c"] * to(rng.uniform(0.99, 1.01, tuple(st["c"].shape)))).contiguous()
+    call = torch.cat([c, st["c_elim"][None]]).contiguous()
+    pM, Ich, _ = S._pads(st)
+    phi = to(0.1 * float(pM.abs().max()) * rng.standard_normal(tuple(st["phi"].shape)))
+    pM = pM * to(rng.uniform(0.9, 1.1, tuple(pM.shape)))
+    Ich = to(1e-2 * rng.standard_normal(tuple(Ich.shape)))
+    Ich[:, -1] = 0.0
+    g, mem, margs, drift, M, b_cell, statics = k11_inputs(S, assembly, dtype, c, call, phi,
+                                                          pM, Ich)
+    args = (g, mem, *margs, p.F, p.C_M, p.dt, p.psi, drift, None if S.pair_layout else M,
+            b_cell, statics)
+    return g, mem, args, M
+
+
+@pytest.fixture(scope="module", params=["cell", "pair"])
+def k11_solver(request):
+    cuda_or_skip()
+    return tp.emix_torch(device="cuda", pair=request.param == "pair")[0]
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_knp_membrane_emit_matches_plain(k11_solver, dtype, tol):
+    """K11's one call (knp_membrane_emit) on the EMIx fixture's tables,
+    two states emitted into the same buffers with tables built once: the
+    blocks and the rhs equal knp_emit_cell_plain's (on the launch's own
+    b_p, b_m) bit for bit, b_p and b_m equal knp_membrane_rhs_plain's to
+    round-off, and a call that builds its own tables gives the same bits;
+    one counted launch a call."""
+    S = k11_solver
+    pair = S.pair_layout
+    out = assembly.knp_emit_buffers(S.g, S.mem_dev, S.N_ions, dtype, S.device, pair)
+    for seed in (51, 52):
+        g, mem, args, M = _k11_case(S, dtype, seed)
+        (_, _, z, D, c, asum, phi, pM, Ich, Itot, F, C_M, dt, psi, drift, _, b_cell,
+         statics) = args
+        tab = assembly.knp_emit_tables(g, mem)
+        n0 = _cuda.LAUNCHES["knp_membrane_emit"]
+        got = assembly.knp_membrane_emit(*args, pair=pair, out=out, tables=tab)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["knp_membrane_emit"] == n0 + 1
+        assert all(a is b for a, b in zip(got, out))
+        plain = assembly.knp_emit_cell_plain(g, mem, z, D, psi, drift, *M, b_cell, got[2],
+                                             got[3], statics, pair=pair)
+        for a, b in zip(got[:2], plain):
+            assert torch.equal(_bits(a), _bits(b))
+        ref = assembly.knp_membrane_rhs_plain(g, mem, z, D, c, asum, phi, pM, Ich, Itot, F,
+                                              C_M, dt)
+        assert rel(got[2], ref[0]) < tol and rel(got[3], ref[1]) < tol
+        assert float(got[2].abs().max()) > 0.0
+        own = assembly.knp_membrane_emit(*args, pair=pair)
+        for a, b in zip(own, got):
+            assert torch.equal(_bits(a), _bits(b))
+
+
+def test_knp_membrane_emit_is_one_call_and_allocates_nothing(k11_solver):
+    """Ten K11 membrane emits into the step's buffers with the solver's
+    tables in one profiler session are ten wrapper calls (one count each)
+    and at most twenty device kernels, each the sweep
+    (ion_membrane_emit_kernel) or the membrane cells' rows
+    (ion_membrane_emit_rows_kernel), the last five calls' read in full (a
+    session can miss its first launches), and no allocation."""
+    S = k11_solver
+    g, mem, args, _ = _k11_case(S, torch.float64, 53)
+    out, tab = S._emit_out("membrane_emit"), S._membrane_emit_tables()
+    call = lambda: assembly.knp_membrane_emit(*args, pair=S.pair_layout, out=out, tables=tab)
+    call()
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(S.device)["allocation.all.allocated"]
+    n0 = _cuda.LAUNCHES["knp_membrane_emit"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert torch.cuda.memory_stats(S.device)["allocation.all.allocated"] == allocs
+    assert _cuda.LAUNCHES["knp_membrane_emit"] == n0 + 10
+    assert 10 <= len(kernels) <= 20, kernels
+    sweeps = sum("ion_membrane_emit_kernel" in k for k in kernels)
+    rows = sum("ion_membrane_emit_rows_kernel" in k for k in kernels)
+    assert sweeps + rows == len(kernels) and sweeps >= 5 and rows >= 5, kernels
+
+
+def test_knp_membrane_emit_without_membrane_facets(k11_solver):
+    """With no membrane facet (n_mem = 0, every cell-facet slot off the
+    membranes) the call (its sweep alone) writes the emit, the rhs b_cell
+    plus zero slot terms, bit for bit the plain version's."""
+    S = k11_solver
+    g, mem, args, M = _k11_case(S, torch.float64, 54)
+    dev, m = S.device, S.N_ions
+    nd = mem["Rp"].shape[1]
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    mem0 = dict(mem, fidx=none, cp=none, cm=none, inv=torch.full_like(mem["inv"], -1),
+                Rp=mem["Rp"][..., :0].contiguous(), Rm=mem["Rm"][..., :0].contiguous())
+    tab = assembly.knp_emit_tables(g, mem0)
+    assert tab.dims[5] == tab.dims[6] == 0
+    f64 = dict(dtype=torch.float64, device=dev)
+    args0 = (g, mem0) + args[2:7] + (torch.zeros(1, **f64), torch.zeros((m, 1), **f64),
+                                      torch.zeros(1, **f64)) + args[10:]
+    got = assembly.knp_membrane_emit(*args0, pair=S.pair_layout, tables=tab)
+    ref = assembly.knp_membrane_emit_plain(*args0, pair=S.pair_layout)
+    assert got[2].shape == (m, nd, 0)
+    for a, b in zip(got[:2], ref[:2]):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_knp_membrane_emit_refuses_what_it_cannot_take(k11_solver):
+    """A fifth basis function (nd > 4) raises NotImplementedError, a
+    mistyped input TypeError, a wrong shape or a non-contiguous input
+    ValueError, all before any launch."""
+    S = k11_solver
+    g, mem, args, _ = _k11_case(S, torch.float64, 55)
+    dev = S.device
+    nq, nd, nm = mem["Rp"].shape
+    nc = g["cf_idx"].shape[1]
+    n0 = dict(_cuda.LAUNCHES)
+    g5 = dict(g, phibar=torch.zeros(5, dtype=torch.float64, device=dev))
+    mem5 = dict(mem, Rp=torch.zeros((nq, 5, nm), dtype=torch.float64, device=dev),
+                Rm=torch.zeros((nq, 5, nm), dtype=torch.float64, device=dev))
+    with pytest.raises(NotImplementedError):
+        assembly.knp_membrane_emit(g5, mem5, *args[2:], pair=S.pair_layout)
+    bad = list(args)
+    bad[4] = args[4].float()                                     # c_k in float32
+    with pytest.raises(TypeError):
+        assembly.knp_membrane_emit(*bad, pair=S.pair_layout)
+    bad[4] = args[4][:, :, : nc - 1].contiguous()                # one cell short
+    with pytest.raises(ValueError):
+        assembly.knp_membrane_emit(*bad, pair=S.pair_layout)
+    bad[4] = args[4].transpose(1, 2).contiguous().transpose(1, 2)    # not contiguous
+    with pytest.raises(ValueError):
+        assembly.knp_membrane_emit(*bad, pair=S.pair_layout)
+    assert _cuda.LAUNCHES == n0
 
 
 def test_pair_matvec_reads_only_the_owner_halves(pair_maps):

@@ -150,7 +150,7 @@ def test_port_imports_no_jax():
 
 COARSE_WRAPPERS = {"restrict", "solve", "prolong_add"}
 ASSEMBLY_WRAPPERS = {"emi_cell", "emi_facet", "emi_emit_cell", "alpha_sum", "knp_cell",
-                     "knp_facet", "knp_membrane_rhs", "knp_emit_cell", "membrane_traces_m",
+                     "knp_facet", "knp_membrane_emit", "membrane_traces_m",
                      "jump_phi_M_m", "eliminated_concentration"}
 CELL_WRAPPERS = {"bell_matvec", "bell_matvec_multi", "block_jacobi_inverse",
                  "block_jacobi_apply"} | COARSE_WRAPPERS | ASSEMBLY_WRAPPERS

@@ -60,6 +60,11 @@ and float64, beside the library calls chip_smoke.py holds them to:
   k11  K11 knp_facet on chip_smoke.py's cell-layout facet tables at a
        seeded potential's gradient, both dtypes, with a digest of its
        outputs;
+  k11e K11's membrane rhs and emit as the step calls them at a seeded
+       state, on chip_smoke.py's cell tables and pair maps, both dtypes:
+       this tree's one knp_membrane_emit call into buffers made once, or
+       in a tree without it the separate knp_membrane_rhs + knp_emit_cell
+       calls;
   k12  K12 as the step calls it on chip_smoke.py's pair maps: the EMI
        emit with reg (m = 1) and the KNP emit with the static operator
        (m = 2, zero outside the owner halves), random inputs; this tree
@@ -100,7 +105,7 @@ device microseconds per call of 100 calls replayed as one CUDA graph
 measured" where the call cannot be captured).  It also prints the cost of
 reading the current stream both ways.
 
-Usage:  python3 time_wrappers.py [--root DIR] [--only k8,k9,k6,k4,k1,k14,k13,k5,k11,k12,k7]
+Usage:  python3 time_wrappers.py [--root DIR] [--only k8,k9,k6,k4,k1,k14,k13,k5,k11,k11e,k12,k7]
         (needs a CUDA card)
 """
 import argparse
@@ -592,6 +597,58 @@ def time_knp_facet(asm, S, gen):
                f"m = {m}) digest {h.hexdigest()[:16]}", fn)
 
 
+def time_membrane_emit(asm, S_cell, gen):
+    """K11's membrane rhs and emit as the step calls them, at a state
+    perturbed with a seeded generator, on chip_smoke.py's cell tables
+    (124,416 cells) and pair maps (127,116 padded cells), both dtypes: this
+    tree's one call (knp_membrane_emit with its static tables built once,
+    into buffers made once), or in a tree without it the separate
+    knp_membrane_rhs + knp_emit_cell calls."""
+    from knpemidg_tpu_torch import emix
+    from knpemidg_tpu_torch.mesh.generators import box_3d_axons
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_k11_inputs import k11_inputs
+
+    one = hasattr(asm, "knp_membrane_emit")
+    print(f"k11etime one membrane emit call {one}")
+    mesh = box_3d_axons(1, length_factor=2)
+    mesh.vertices *= 1e2
+    S_pair = emix.build_solver(mesh, dtype=torch.float64, device="cuda", pair=True)
+    for layout, S in (("cell", S_cell), ("pair", S_pair)):
+        pair, p, m = layout == "pair", S.params, S.N_ions
+        st = S._initial_state(0.0)
+        rnd = lambda t, a, b: a + (b - a) * torch.rand(t.shape, generator=gen, device=t.device,
+                                                       dtype=t.dtype)
+        c = (st["c"] * rnd(st["c"], 0.99, 1.01)).contiguous()
+        call = torch.cat([c, st["c_elim"][None]]).contiguous()
+        pM, Ich, _ = S._pads(st)
+        phi = 0.1 * float(pM.abs().max()) * torch.randn(
+            st["phi"].shape, generator=gen, device=c.device, dtype=torch.float64)
+        pM = pM * rnd(pM, 0.9, 1.1)
+        Ich = 1e-2 * torch.randn(Ich.shape, generator=gen, device=c.device, dtype=torch.float64)
+        Ich[:, -1] = 0.0
+        for dtype in (torch.float32, torch.float64):
+            g, mem, margs, drift, M, b_cell, statics = k11_inputs(S, asm, dtype, c, call, phi,
+                                                                  pM, Ich)
+            if one:
+                out = asm.knp_emit_buffers(g, mem, m, dtype, "cuda", pair)
+                tab = asm.knp_emit_tables(g, mem)
+                name = "knp_membrane_emit (one call, buffers)"
+                fn = lambda: asm.knp_membrane_emit(
+                    g, mem, *margs, p.F, p.C_M, p.dt, p.psi, drift, None if pair else M,
+                    b_cell, statics, pair=pair, out=out, tables=tab)
+            else:
+                def fn():
+                    b_p, b_m = asm.knp_membrane_rhs(g, mem, *margs, p.F, p.C_M, p.dt)
+                    return asm.knp_emit_cell(g, mem, margs[0], margs[1], p.psi, drift, *M,
+                                             b_cell, b_p, b_m, statics, pair=pair)
+                name = "knp_membrane_rhs + knp_emit_cell"
+            report("k11etime", f"{layout} {str(dtype):14s} {name}", fn)
+    del S_pair
+    torch.cuda.empty_cache()
+
+
 def time_traces(asm, S):
     p, fused = S.params, hasattr(asm, "membrane_traces_m")
     print(f"k14time membrane_traces_m {fused}")
@@ -702,6 +759,7 @@ def main():
                 "k13": lambda: time_ode_step(engine, solver()),
                 "k5": lambda: time_bj(spmv, dev, gen),
                 "k11": lambda: time_knp_facet(asm, solver(), gen),
+                "k11e": lambda: time_membrane_emit(asm, solver(), gen),
                 "k12": lambda: time_emit(pairs, dev, gen),
                 "k7": lambda: time_coarse_apply(coarse, dev, gen)}
     for key in args.only.split(","):
