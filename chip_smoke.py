@@ -338,7 +338,7 @@ def exact(ref):
 
 def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results, inputs=(),
             flops=0.0, library_fn=None, record=True, timed=None, extra_bytes=0,
-            whole_bytes=None, out_bytes=None):
+            whole_bytes=None, out_bytes=None, graph=False):
     """Check one kernel against its plain version; when ``record``, time
     the kernel, the plain version and the library call per dtype and store
     them with the bound (``inputs`` read once plus ``extra_bytes`` of
@@ -351,6 +351,8 @@ def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results, inputs=(),
     bound is printed beside the work's (with every output whole).
     ``out_bytes``: the bytes the work writes where it writes part of its
     outputs (K12: the owner halves of pe), else every output whole.
+    ``graph``: also the kernel's device microseconds a call, 20 calls
+    replayed as one CUDA graph (graph_ms: no host time between them).
     Returns the bound in ms when recorded."""
     got, ref = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
@@ -370,6 +372,7 @@ def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results, inputs=(),
     entry["ms"] = cuda_ms(k_fn)
     entry["plain_ms"] = cuda_ms(p_fn)
     entry["library_ms"] = cuda_ms(library_fn) if library_fn is not None else None
+    entry["device_us"] = 1e3 * graph_ms(k_fn) if graph else None
     wrote = nbytes(got) if out_bytes is None else out_bytes
     byte_ms = 1e3 * (nbytes(inputs) + extra_bytes + wrote) / PEAK_BYTES_S
     op_ms = 1e3 * flops / PEAK_FLOPS[dtype]
@@ -377,6 +380,7 @@ def compare(name, dtype, kernel_fn, plain_fn, scale_fn, results, inputs=(),
     entry["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
     lib = ("" if entry["library_ms"] is None
            else f"  library {entry['library_ms']:.4f} ms")
+    lib += "" if entry["device_us"] is None else f"  graph replay {entry['device_us']:.2f} us"
     print(f"time    {name:30s} {str(dtype):14s} kernel {entry['ms']:.4f} ms  "
           f"plain {entry['plain_ms']:.4f} ms{lib}  bound {entry['bound_ms']:.4f} ms "
           f"({entry['bound_by']})")
@@ -1110,7 +1114,8 @@ def krylov_phase(S, results, layout):
                 lambda ref: [r.abs() for r in ref], results,
                 inputs=[r0, wk.tol], flops=3.0 * r0.numel(),
                 timed=(lambda: ko.gmres_start(r0, wn[0]),
-                       lambda: ko.gmres_start_plain(r0, wn[1])))
+                       lambda: ko.gmres_start_plain(r0, wn[1])), graph=True)
+        start_exact(name("gmres_start"), dtype, ko, r0, wk)
         del wk, ws, yk, Vs, wa, wn
 
         # --- K8 -------------------------------------------------------------
@@ -1235,6 +1240,33 @@ def arnoldi_exact(name, dtype, ko, w, wk, j, calls=200):
           f"{wk.grid} blocks)")
     if not ok:
         raise AssertionError(f"{name} differs from gmres_arnoldi_ordered_plain")
+
+
+def start_exact(name, dtype, ko, r, wk, calls=200):
+    """gmres_start against gmres_start_ordered_plain (the kernel's summation
+    order) to the last bit of every output -- V[0], beta, R, g, cs, sn, ks
+    and the flag -- in ``calls`` back-to-back calls on one work: before
+    each, V[0], beta, R, g, cs and sn are set to NaN, ks and the flag to -1,
+    so each call writes them.  Returns nothing; raises on a difference."""
+    want = work_copy(wk)
+    ko.gmres_start_ordered_plain(r, want)
+    outs = lambda a: [a.V[0], a.beta, a.R, a.g, a.cs, a.sn, a.ks, a.flag]
+    bits = lambda t: t.view(torch.int64) if t.dtype == torch.float64 else t.view(torch.int32)
+    want_bits = [bits(t) for t in outs(want)]
+    a = work_copy(wk)
+    diff = torch.zeros(calls, dtype=torch.int64, device=r.device)
+    for i in range(calls):
+        for t in outs(a):
+            t.fill_(-1 if t.dtype == torch.int32 else float("nan"))
+        ko.gmres_start(r, a)
+        diff[i] = sum((bits(x) != y).sum() for x, y in zip(outs(a), want_bits))
+    torch.cuda.synchronize()
+    ok = int(diff.max()) == 0
+    print(f"exact   {name:30s} {str(dtype):14s} every output bitwise the ordered plain's in "
+          f"each of {calls} calls: {ok} ({'staged' if wk.staged else 're-read'} layout, "
+          f"{wk.grid} blocks of {wk.upb} chunks)")
+    if not ok:
+        raise AssertionError(f"{name} differs from gmres_start_ordered_plain")
 
 
 def dots_exact(name, dtype, ko, fn, vecs, sc0, wk, calls=1000):
@@ -1410,15 +1442,23 @@ def assembly_phase(S, state, results, layout):
                                     masks["f_mem"]] + gt(*asm._EMI_FACET_TABLES)))
         *M, b_p, b_m = asm.emi_facet_plain(g, masks, kappa, flux, pM, mem, p.F, p.C_phi,
                                            S.tau)
+        # the emit as the step calls it: the packed slot words of the tables
+        # the KNP membrane emit reads, built once, into buffers made once
+        tab = asm.knp_emit_tables(g, mem)
+        ebuf = asm.emi_emit_buffers(g, dtype, kbar.device, pair)
         compare(name("emi_emit_cell"), dtype,
-                lambda: list(asm.emi_emit_cell(g, kbar, *M, b_cell, b_p, b_m, inv_Lp2,
-                                               pair=pair)),
+                lambda: [t.clone() for t in asm.emi_emit_cell(
+                    g, kbar, *M, b_cell, b_p, b_m, inv_Lp2, pair=pair, out=ebuf, tables=tab)],
                 lambda: list(asm.emi_emit_cell_plain(g, kbar, *M, b_cell, b_p, b_m,
                                                      inv_Lp2, pair=pair)),
                 exact, results,
-                inputs=[kbar, b_cell, b_p, b_m] + gt("vol", "GG", "M0", "cf_idx",
-                                                     "cf_is_plus")
-                + ([] if pair else M))
+                inputs=[kbar, b_cell, b_p, b_m, tab.slots] + gt("vol", "GG", "M0")
+                + ([] if pair else M),
+                timed=(lambda: asm.emi_emit_cell(g, kbar, *M, b_cell, b_p, b_m, inv_Lp2,
+                                                 pair=pair, out=ebuf, tables=tab),
+                       lambda: asm.emi_emit_cell_plain(g, kbar, *M, b_cell, b_p, b_m,
+                                                       inv_Lp2, pair=pair)),
+                graph=True)
 
         # --- K11 -----------------------------------------------------------
         compare(name("alpha_sum"), dtype, lambda: [asm.alpha_sum(zall, Dall, call)],
@@ -1814,7 +1854,8 @@ def main():
                         "replaces": repl, "launches": launches[path][counter(name)],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "device_us": r["device_us"]})
     rank_kernels(results, launches_of)
     print(f"total   {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

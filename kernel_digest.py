@@ -31,7 +31,10 @@ step's pair EMI and KNP emits, both dtypes; K13 as the solver
 drives it: Solver._ode_step at the perturbed state (membrane states
 perturbed too) on both layouts, in both dtypes (a solver of each), under
 both schemes and with first_step True and False -- every tag's new states
-and parameters, phi_M and I_ch.
+and parameters, phi_M and I_ch; K10's emit (k10_emit: the operator, rhs
+and P_diag on cells, A_cell, rhs and reg on pairs) on the step's facet
+blocks at the perturbed state, and K9's cycle start (k9_start) on a
+seeded residual of each layout's KNP batch, both dtypes.
 
 The package is imported from ``--root`` (default: this file's directory),
 so two trees, such as an unpacked parent commit and this one, can be held
@@ -196,6 +199,8 @@ def main():
         if layout == "pair":
             k12_digests(S, asm, pairs, c, state, pM, Ich, Itot)
         k11_digests(S, asm, layout, c, call, phi, st)
+        k10_digests(S, asm, layout, call, pM)
+        k9_start_digests(S, layout)
         # K6 on the pc build's EMI data (the Ritz harvest runs K6 itself)
         sp = emix.solver_params(error_if_not_converged=False)
         pcs = S.attach_pc(state, sp)["pc"]
@@ -335,6 +340,58 @@ def k11_digests(S, asm, layout, c, call, phi, st):
         print(f"digest  k11_emit     {layout} {str(dtype):14s} "
               f"{digest([b_p, b_m, blocks, rhs])} "
               f"(inputs {digest(list(mem_args) + [drift, b_cell])})")
+
+
+def k10_digests(S, asm, layout, call, pM):
+    """K10's emit (k10_emit) on the step's facet blocks and rhs parts at the
+    perturbed state, both dtypes: the operator, rhs and P_diag on cells,
+    A_cell, rhs and reg on pairs; a tree whose emit reads the solver's
+    packed slot words (``tables``) emits as its step does, twice into the
+    same buffers (the second emit's outputs digested), a tree without them
+    through its one call."""
+    p, pair = S.params, layout == "pair"
+    shared = "tables" in inspect.signature(asm.emi_emit_cell).parameters
+    print(f"k10     emit from the shared slot words in this tree: {shared}")
+    for dtype in (torch.float32, torch.float64):
+        cast = lambda d: {k: (v.to(dtype) if isinstance(v, torch.Tensor)
+                              and v.is_floating_point() else v) for k, v in d.items()}
+        g, mem = cast(S.g), cast(S.mem_dev)
+        kappa, kbar, flux, b_cell = asm.emi_cell_plain(g, S.z.to(dtype), S.D.to(dtype),
+                                                       call.to(dtype), p.F, p.psi)
+        *M, b_p, b_m = asm.emi_facet_plain(g, S.masks, kappa, flux, pM.to(dtype), mem, p.F,
+                                           p.C_phi, S.tau)
+        args = (g, kbar, *M, b_cell, b_p, b_m, 1.0 / S.Lp ** 2)
+        if shared:
+            out = asm.emi_emit_buffers(g, dtype, "cuda", pair)
+            tab = asm.knp_emit_tables(g, mem)
+            for _ in range(2):
+                got = asm.emi_emit_cell(*args, pair=pair, out=out, tables=tab)
+        else:
+            got = asm.emi_emit_cell(*args, pair=pair)
+        torch.cuda.synchronize()
+        print(f"digest  k10_emit     {layout} {str(dtype):14s} {digest(got)} "
+              f"(inputs {digest(list(args[1:-1]))})")
+
+
+def k9_start_digests(S, layout):
+    """K9's cycle start (k9_start) on a seeded residual of the layout's KNP
+    batch (2 systems of nd x cells, restart 30), both dtypes, twice on one
+    work: V[0], beta, R, g, cs, sn, ks and the flag of the second call."""
+    from knpemidg_tpu_torch.ops import krylov_ops as ko
+
+    n = (2 * S.nd * S.pairs["int_f"].shape[0] if layout == "pair" else S.nd * S.n_cells)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2027)
+    r64 = torch.randn((2, n), generator=gen, device="cuda", dtype=torch.float64)
+    for dtype in (torch.float32, torch.float64):
+        r = r64.to(dtype)
+        wk = ko.gmres_work(2, n, 30, dtype, "cuda")
+        wk.tol.copy_(torch.tensor([1e-3, 1e6], dtype=dtype))
+        for _ in range(2):
+            ko.gmres_start(r, wk)
+        torch.cuda.synchronize()
+        print(f"digest  k9_start     {layout} {str(dtype):14s} "
+              f"{digest([wk.V[0], wk.beta, wk.R, wk.g, wk.cs, wk.sn, wk.ks, wk.flag])}")
 
 
 def halves_form(spmv):

@@ -88,7 +88,7 @@ _SIGNATURES = {
     "knp_tl_coarse": (_P,) * 5 + (_I,) * 5 + (_P,),
     "knp_emi_cell": (_P,) * 10 + (_I,) * 4 + (_D, _D, _P),
     "knp_emi_facet": (_P,) * 26 + (_I,) * 5 + (_D, _D, _D, _P),
-    "knp_emi_emit_cell": (_P,) * 16 + (_I,) * 5 + (_D, _P),
+    "knp_emi_emit_cell": (_P,) * 15 + (_I,) * 5 + (_D, _P),
     "knp_alpha_sum": (_P,) * 4 + (_I,) * 3 + (_P,),
     "knp_ion_cell": (_P,) * 8 + (_I,) * 4 + (_D, _P),
     "knp_ion_facet": (_P,) * 17 + (_I,) * 5 + (_D, _P),
@@ -96,7 +96,7 @@ _SIGNATURES = {
     "knp_membrane_trace": (_P,) * 4 + (_D,) * 4 + (_I,) + (_P,) * 6 + (_I,) * 6 + (_P,),
     "knp_eliminated": (_P,) * 4 + (_I,) * 3 + (_D, _P),
     "knp_gmres_dot": (_P,) * 4 + (_I,) * 5 + (_P,),
-    "knp_gmres_start": (_P,) * 11 + (_I,) * 4 + (_P,),
+    "knp_gmres_start": (_P,) * 11 + (_I,) * 6 + (_P,),
     "knp_gmres_arnoldi_grid": (_I,) * 3 + (_P,),
     "knp_gmres_arnoldi": (_P,) * 13 + (_I,) * 7 + (_P,),
     "knp_gmres_solve_update": (_P,) * 6 + (_I,) * 3 + (_P,),

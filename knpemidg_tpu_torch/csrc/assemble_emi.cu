@@ -18,7 +18,8 @@
 //                  (nd, nc) and P_diag = diagonal + vol kbar / Lp^2 M0; for
 //                  the pair layout it writes A_cell, the regularisation and
 //                  the rhs, and the pair emit (csrc/pair_emit.cu) does the
-//                  gathers.
+//                  gathers.  The cell-facet slots come from the packed slot
+//                  words K11's membrane emit reads (one table, built once).
 //
 // Bound: device-memory bandwidth.  The facet kernel must read the trace
 // tables f_Rp/f_Rm, the n . grad(basis) rows and the facet scalars once,
@@ -38,8 +39,11 @@
 // rather than per (entry, facet) keeps nd times fewer threads a facet,
 // so more facets are in flight on an SM at the registers a thread needs.
 // The cell and emit kernels run one thread per (block entry, cell) with
-// cells fastest.  Masked-out and dummy facets are written with selects,
-// never products, so their blocks are exactly zero whatever their traces.
+// cells fastest; a thread per (row, cell) or per cell emits slower (each
+// thread gathers from nd rows of the facet blocks at once, likely more
+// than L2 keeps for the other cells of their sectors; PERF.md §6).
+// Masked-out and dummy facets are written with selects, never products,
+// so their blocks are exactly zero whatever their traces.
 // No atomics: results repeat bit for bit.  The file is compiled without
 // fused multiply-adds, so every product and sum of the facet kernel rounds
 // as written, and the emit adds in the plain version's order (A_cell, slot
@@ -279,45 +283,117 @@ __global__ void __launch_bounds__(KNP_MAXND * EMI_TILE) emi_facet_kernel(
 #undef ROW
 }
 
-template <typename T>
-__global__ void emi_emit_cell_kernel(
-    const T* __restrict__ kbar, const T* __restrict__ vol, const T* __restrict__ GG,
-    const T* __restrict__ M0, const T* __restrict__ Mpp, const T* __restrict__ Mpm,
-    const T* __restrict__ Mmp, const T* __restrict__ Mmm, const T* __restrict__ bcell,
-    const T* __restrict__ b_p, const T* __restrict__ b_m, const int* __restrict__ cf_idx,
-    const unsigned char* __restrict__ cf_isp, T* __restrict__ blocks, T* __restrict__ rhs,
-    T* __restrict__ pdiag, int nd, int nfac, int nc, int nf1, int pair, T inv_Lp2) {
+// Row i of one cell's emit: the d + 1 = ND cell-facet slots' words (the
+// facet index and cf_is_plus) given, all of the row's gathers are issued
+// before its first store -- the ND diagonal-side and ND off-diagonal
+// entries of each slot and the slot's b_p / b_m entry -- then the row's
+// blocks, P_diag entries and rhs entry are written in the plain version's
+// order of additions (diag = vk GG + slot 0 + ... + slot d, P_diag = diag +
+// reg, rhs = b_cell + slot 0 + ... + slot d).  The pointers are
+// restrict-qualified, so the row's loads may pass its stores.  PAIR: the
+// pair emit's A_cell = vk GG and reg instead of the blocks and P_diag.
+// The emit, a thread a block entry (i, j) and cell, cells fastest in a warp
+// (every store coalesced) and the entries slowest, so the threads in flight
+// gather from one or two rows (i, j) of the facet blocks at a time, which
+// stay in L2 for the other cells of their 32-byte sectors.  A thread loads
+// its cell's d + 1 = ND packed slot words (the table K11's membrane emit
+// reads: the facet index in bits 0-29, cf_is_plus in bit 31) first, then
+// issues all of its gathers -- the diagonal-side and off-diagonal entry of
+// each slot, and in the j = 0 threads the rhs row's b_p / b_m entries --
+// before its first store, and writes in the plain version's order of
+// additions (diag = vk GG + slot 0 + ... + slot d, P_diag = diag + reg, rhs
+// = b_cell + slot 0 + ... + slot d).  PAIR: the pair emit's A_cell = vk GG
+// and reg instead of the blocks and P_diag.
+template <typename T, int ND, bool PAIR>
+__global__ void __launch_bounds__(KNP_THREADS)
+    emi_emit_cell_kernel(const T* __restrict__ kbar, const T* __restrict__ vol,
+                         const T* __restrict__ GG, const T* __restrict__ M0,
+                         const T* __restrict__ Mpp, const T* __restrict__ Mpm,
+                         const T* __restrict__ Mmp, const T* __restrict__ Mmm,
+                         const T* __restrict__ bcell, const T* __restrict__ b_p,
+                         const T* __restrict__ b_m, const int* __restrict__ slots,
+                         T* __restrict__ blocks, T* __restrict__ rhs, T* __restrict__ pdiag,
+                         int nc, int nf1, T inv_Lp2) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)nd * nd * nc) return;
+  if (idx >= (long long)ND * ND * nc) return;
   const int cell = (int)(idx % nc);
   const int ij = (int)(idx / nc);
-  const int j = ij % nd, i = ij / nd;
+  const int i = ij / ND, j = ij % ND;
   const size_t n = (size_t)nc, n1 = (size_t)nf1;
+  int f[ND];
+  bool sel[ND];
+#pragma unroll
+  for (int l = 0; l < ND; ++l) {
+    const unsigned w = (unsigned)slots[(size_t)l * n + cell];
+    f[l] = (int)(w & KNP_IDX_MASK);
+    sel[l] = (w >> 31) != 0u;
+  }
   const T vk = vol[cell] * kbar[cell];
-  T diag = vk * GG[(size_t)ij * n + cell];
+  const T gg = GG[(size_t)ij * n + cell];
+  T dg[ND], og[ND], bs[ND], b0 = T(0);
+  if (!PAIR) {
+#pragma unroll
+    for (int l = 0; l < ND; ++l) {
+      const size_t o = (size_t)ij * n1 + f[l];
+      dg[l] = (sel[l] ? Mpp : Mmm)[o];
+      og[l] = (sel[l] ? Mpm : Mmp)[o];
+    }
+  }
+  if (j == 0) {
+    b0 = bcell[(size_t)i * n + cell];
+#pragma unroll
+    for (int l = 0; l < ND; ++l) bs[l] = (sel[l] ? b_p : b_m)[(size_t)i * n1 + f[l]];
+  }
+  T diag = vk * gg;
   const T reg = (vk * inv_Lp2) * M0[ij];
-  if (pair) {
+  if (PAIR) {
     blocks[(size_t)ij * n + cell] = diag;
     pdiag[(size_t)ij * n + cell] = reg;
   } else {
-    const size_t mo = (size_t)ij * n1;
-    for (int l = 0; l < nfac; ++l) {
-      const int f = cf_idx[(size_t)l * n + cell];
-      const bool sel = cf_isp[(size_t)l * n + cell] != 0;
-      diag = diag + (sel ? Mpp[mo + f] : Mmm[mo + f]);
-      blocks[((size_t)(l + 1) * nd * nd + ij) * n + cell] = sel ? Mpm[mo + f] : Mmp[mo + f];
+#pragma unroll
+    for (int l = 0; l < ND; ++l) {
+      diag = diag + dg[l];
+      blocks[((size_t)(l + 1) * ND * ND + ij) * n + cell] = og[l];
     }
     blocks[(size_t)ij * n + cell] = diag;
     pdiag[(size_t)ij * n + cell] = diag + reg;
   }
-  if (j != 0) return;
-  T r = bcell[(size_t)i * n + cell];
-  for (int l = 0; l < nfac; ++l) {
-    const int f = cf_idx[(size_t)l * n + cell];
-    const bool sel = cf_isp[(size_t)l * n + cell] != 0;
-    r = r + (sel ? b_p[(size_t)i * n1 + f] : b_m[(size_t)i * n1 + f]);
+  if (j == 0) {
+    T r = b0;
+#pragma unroll
+    for (int l = 0; l < ND; ++l) r = r + bs[l];
+    rhs[(size_t)i * n + cell] = r;
   }
-  rhs[(size_t)i * n + cell] = r;
+}
+
+// nd = d + 1 basis functions and cell facets (degree 1 on simplices)
+template <typename T>
+static int emi_emit_launch(const T* kbar, const T* vol, const T* GG, const T* M0,
+                           const T* Mpp, const T* Mpm, const T* Mmp, const T* Mmm,
+                           const T* bcell, const T* b_p, const T* b_m, const int* slots,
+                           T* blocks, T* rhs, T* pdiag, int nd, int nfac, int nc, int nf1,
+                           int pair, T inv_Lp2, void* stream) {
+  if (nfac != nd || nc < 0) return (int)cudaErrorInvalidValue;
+  if (nc == 0) return 0;
+  const unsigned grid = knp_blocks((long long)nd * nd * nc);
+  cudaStream_t st = (cudaStream_t)stream;
+#define EMI_EMIT_ND(ND)                                                                     \
+  if (nd == ND) {                                                                           \
+    if (pair)                                                                               \
+      emi_emit_cell_kernel<T, ND, true><<<grid, KNP_THREADS, 0, st>>>(                      \
+          kbar, vol, GG, M0, Mpp, Mpm, Mmp, Mmm, bcell, b_p, b_m, slots, blocks, rhs, pdiag, \
+          nc, nf1, inv_Lp2);                                                                \
+    else                                                                                    \
+      emi_emit_cell_kernel<T, ND, false><<<grid, KNP_THREADS, 0, st>>>(                     \
+          kbar, vol, GG, M0, Mpp, Mpm, Mmp, Mmm, bcell, b_p, b_m, slots, blocks, rhs, pdiag, \
+          nc, nf1, inv_Lp2);                                                                \
+    return (int)cudaGetLastError();                                                         \
+  }
+  EMI_EMIT_ND(2)
+  EMI_EMIT_ND(3)
+  EMI_EMIT_ND(4)
+#undef EMI_EMIT_ND
+  return (int)cudaErrorInvalidValue;
 }
 
 #define KNP_EMI_ENTRY(SFX, T)                                                            \
@@ -350,13 +426,11 @@ __global__ void emi_emit_cell_kernel(
   extern "C" int knp_emi_emit_cell##SFX(                                                 \
       const T* kbar, const T* vol, const T* GG, const T* M0, const T* Mpp, const T* Mpm, \
       const T* Mmp, const T* Mmm, const T* bcell, const T* b_p, const T* b_m,            \
-      const int* cf_idx, const unsigned char* cf_isp, T* blocks, T* rhs, T* pdiag,       \
-      int nd, int nfac, int nc, int nf1, int pair, double inv_Lp2, void* stream) {       \
-    emi_emit_cell_kernel<T><<<knp_blocks((long long)nd * nd * nc), KNP_THREADS, 0,       \
-                              (cudaStream_t)stream>>>(                                   \
-        kbar, vol, GG, M0, Mpp, Mpm, Mmp, Mmm, bcell, b_p, b_m, cf_idx, cf_isp, blocks,  \
-        rhs, pdiag, nd, nfac, nc, nf1, pair, (T)inv_Lp2);                                \
-    return (int)cudaGetLastError();                                                      \
+      const int* slots, T* blocks, T* rhs, T* pdiag, int nd, int nfac, int nc, int nf1,  \
+      int pair, double inv_Lp2, void* stream) {                                          \
+    return emi_emit_launch<T>(kbar, vol, GG, M0, Mpp, Mpm, Mmp, Mmm, bcell, b_p, b_m,    \
+                              slots, blocks, rhs, pdiag, nd, nfac, nc, nf1, pair,        \
+                              (T)inv_Lp2, stream);                                       \
   }
 
 KNP_EMI_ENTRY(_f32, float)

@@ -240,8 +240,6 @@ struct KnpEmitArgs {
   T F, Cfac0, psi;
 };
 
-#define KNP_IDX_MASK 0x3fffffffu
-
 // A membrane facet: its pointers restrict-qualified, so each ion's loads
 // may be issued before the previous ion's stores.
 template <typename T>

@@ -12,6 +12,10 @@
 
 #define KNP_WARPS (KNP_THREADS / 32)
 
+// the index bits of a packed cell-facet slot word (ops/assembly.py
+// slot_words): bit 30 marks a membrane facet, bit 31 cf_is_plus
+#define KNP_IDX_MASK 0x3fffffffu
+
 static inline unsigned int knp_blocks(long long n) {
   return (unsigned int)((n + KNP_THREADS - 1) / KNP_THREADS);
 }

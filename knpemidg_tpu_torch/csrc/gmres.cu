@@ -23,9 +23,12 @@
 //      any |g[:, j+1]| > tol the host loop reads;
 //
 // and at the cycle's ends start (beta = ||r||, V[0] = r / beta, the scalars
-// zeroed, the flag any beta > tol) and solve_update (back substitution of
-// R[:ks, :ks] y = g[:ks] per system, then x += sum_{k<ks} y_k V[k]).  The
-// dot kernels also give the solve's tolerance (||M^-1 b|| per system).
+// zeroed, the flag any beta > tol: one cooperative launch on the step's
+// shape, r read once and kept in shared memory across its grid barrier,
+// bitwise the earlier partial, scale and init launches) and solve_update
+// (back substitution of R[:ks, :ks] y = g[:ks] per system, then x +=
+// sum_{k<ks} y_k V[k]).  The dot kernels also give the solve's tolerance
+// (||M^-1 b|| per system).
 //
 // Bound: device-memory bandwidth.  The whole-basis einsums read all m+1 = 31
 // rows of V four times a step whatever j is (0.99 GB in float64 at the cell
@@ -85,46 +88,6 @@ __global__ void gm_dot_finish_kernel(const T* __restrict__ partial, T* __restric
   for (int b = threadIdx.x; b < nblk; b += blockDim.x) acc += p[b];
   acc = knp_block_sum(acc, red);
   if (threadIdx.x == 0) out[(long long)s * ldo + k] = acc;
-}
-
-// beta[s] = ||r[s]|| (every block sums the partials itself, in index order;
-// block 0 of each system writes it) and V[0][s] = r[s] / (beta > 0 ? beta : 1)
-template <typename T>
-__global__ void gm_scale_kernel(const T* __restrict__ r, T* __restrict__ vout,
-                                const T* __restrict__ partial, int nblk, long long n,
-                                T* __restrict__ nrm_out) {
-  __shared__ T red[KNP_WARPS];
-  const int s = blockIdx.y;
-  T acc = T(0);
-  for (int b = threadIdx.x; b < nblk; b += blockDim.x) acc += partial[(long long)s * nblk + b];
-  const T nrm = sqrt(knp_block_sum(acc, red));
-  if (blockIdx.x == 0 && threadIdx.x == 0) nrm_out[s] = nrm;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const T safe = nrm > T(0) ? nrm : T(1);
-  vout[(long long)s * n + i] = r[(long long)s * n + i] / safe;
-}
-
-// The cycle's scalars: R, cs, sn zero, g = beta e1, ks = 0, and the flag
-// any beta > tol (the outer loop's test).  One block.
-template <typename T>
-__global__ void gm_init_kernel(const T* __restrict__ beta, const T* __restrict__ tol,
-                               T* __restrict__ R, T* __restrict__ g, T* __restrict__ cs,
-                               T* __restrict__ sn, int* __restrict__ ks,
-                               int* __restrict__ flag, int mb, int m) {
-  const int M1 = m + 1;
-  for (int q = threadIdx.x; q < mb * M1 * m; q += blockDim.x) R[q] = T(0);
-  for (int q = threadIdx.x; q < mb * M1; q += blockDim.x) g[q] = q % M1 == 0 ? beta[q / M1] : T(0);
-  for (int q = threadIdx.x; q < mb * m; q += blockDim.x) {
-    cs[q] = T(0);
-    sn[q] = T(0);
-  }
-  for (int q = threadIdx.x; q < mb; q += blockDim.x) ks[q] = 0;
-  if (threadIdx.x == 0) {
-    int any = 0;
-    for (int q = 0; q < mb; ++q) any |= beta[q] > tol[q];
-    *flag = any;
-  }
 }
 
 // y[s, :ks] solves R[s, :ks, :ks] y = g[s, :ks] (back substitution, rows
@@ -403,6 +366,95 @@ __device__ void gm_givens(int s, const T* h1, const T* h2, T hj1, int ldh, T* R,
   }
 }
 
+// The cycle's start in one cooperative launch on the Arnoldi step's shape
+// (grid, upb, staged of gm_arnoldi_grid), bitwise the earlier three
+// launches (the partials, the scale, the scalars):
+//   1. each unit's partial of r . r summed as gm_dot_partial_kernel sums it
+//      (thread t adds its squares lo + t + 256 e from zero, then the block's
+//      tree), the unit's chunk of r kept in shared memory (staged) or read
+//      again after the barrier (not);
+//   2. a grid barrier; each block's systems' norms (block 0: every system's)
+//      the square root of the partials summed in gm_dot_finish_kernel's
+//      order (gm_finish_warp, one warp a system);
+//   3. block 0: beta, R, cs, sn zero, g = beta e1, ks = 0 and the flag any
+//      beta > tol; every block: V[0] = r / (beta > 0 ? beta : 1) over its
+//      units.
+template <typename T>
+__global__ void __launch_bounds__(KNP_THREADS)
+    gm_start_kernel(const T* __restrict__ r, T* V, T* part, T* beta, const T* __restrict__ tol,
+                    T* R, T* g, T* cs, T* sn, int* ks, int* flag, int mb, long long n, int m,
+                    int nblk, int upb, int staged) {
+  extern __shared__ __align__(16) unsigned char gm_dyn[];
+  __shared__ T red[KNP_WARPS];
+  __shared__ T nrm[GM_MAX_SYS];
+  T* rst = reinterpret_cast<T*>(gm_dyn);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int M1 = m + 1;
+  const long long units = (long long)mb * nblk;
+  const long long u0 = (long long)blockIdx.x * upb;
+  const long long u1 = u0 + upb < units ? u0 + upb : units;
+  // the thread's entries of unit u's chunk: in shared memory, or in r
+  auto rl = [&](long long u, int e) -> T {
+    const long long i = (u % nblk) * GM_CHUNK + tid + e * KNP_THREADS;
+    if (staged) return rst[(u - u0) * GM_CHUNK + tid + e * KNP_THREADS];
+    return i < n ? r[(u / nblk) * n + i] : T(0);
+  };
+
+  for (long long u = u0; u < u1; ++u) {
+    const long long i0 = (u % nblk) * GM_CHUNK + tid;
+    const T* src = r + (u / nblk) * n + i0;
+    T rv[GM_PER];
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e) rv[e] = i0 + e * KNP_THREADS < n ? src[e * KNP_THREADS] : T(0);
+    T acc = T(0);
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e)
+      if (i0 + e * KNP_THREADS < n) acc += rv[e] * rv[e];
+    if (staged) {
+#pragma unroll
+      for (int e = 0; e < GM_PER; ++e) rst[(u - u0) * GM_CHUNK + tid + e * KNP_THREADS] = rv[e];
+    }
+    acc = knp_block_sum(acc, red);
+    if (tid == 0) part[u] = acc;                 // (s nblk + b) = u
+  }
+  cooperative_groups::this_grid().sync();
+
+  const int sa = blockIdx.x == 0 ? 0 : (int)(u0 / nblk);
+  const int sb = blockIdx.x == 0 ? mb - 1 : (int)((u1 - 1) / nblk);
+  for (int s = sa + warp; s <= sb; s += KNP_WARPS) {
+    const T t = sqrt(gm_finish_warp(part + (long long)s * nblk, nblk));
+    if (lane == 0) nrm[s] = t;
+  }
+  __syncthreads();
+  if (blockIdx.x == 0) {
+    for (int q = tid; q < mb * M1 * m; q += KNP_THREADS) R[q] = T(0);
+    for (int q = tid; q < mb * M1; q += KNP_THREADS) g[q] = q % M1 == 0 ? nrm[q / M1] : T(0);
+    for (int q = tid; q < mb * m; q += KNP_THREADS) {
+      cs[q] = T(0);
+      sn[q] = T(0);
+    }
+    for (int q = tid; q < mb; q += KNP_THREADS) {
+      ks[q] = 0;
+      beta[q] = nrm[q];
+    }
+    if (tid == 0) {
+      int any = 0;
+      for (int q = 0; q < mb; ++q) any |= nrm[q] > tol[q];
+      *flag = any;
+    }
+  }
+  for (long long u = u0; u < u1; ++u) {
+    const int s = (int)(u / nblk);
+    const long long i0 = (u % nblk) * GM_CHUNK + tid;
+    const T safe = nrm[s] > T(0) ? nrm[s] : T(1);
+#pragma unroll
+    for (int e = 0; e < GM_PER; ++e) {
+      const long long i = i0 + e * KNP_THREADS;
+      if (i < n) V[(long long)s * n + i] = rl(u, e) / safe;
+    }
+  }
+}
+
 // Arnoldi step j of the batch, one cooperative launch of at most the
 // co-resident blocks.  The work is mb nblk units, unit u = chunk u % nblk
 // (GM_CHUNK entries) of system u / nblk; block q takes units q upb ..
@@ -560,31 +612,33 @@ static int gm_dot_launch(const T* V, const T* w, T* partial, T* out, int mb, int
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int gm_start_launch(const T* r, T* V, T* partial, T* beta, const T* tol, T* R, T* g,
-                           T* cs, T* sn, int* ks, int* flag, int mb, int n, int m, int chunk,
-                           void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (m < 1 || m + 1 > GM_MAX_ROWS || chunk < 1) return (int)cudaErrorInvalidValue;
-  const int nblk = knp_chunks(n, chunk);
-  gm_dot_partial_kernel<T><<<dim3(nblk, 1, mb), KNP_THREADS, 0, st>>>(r, r, partial, mb, n, 1,
-                                                                     chunk);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  gm_scale_kernel<T><<<dim3(knp_blocks(n), mb), KNP_THREADS, 0, st>>>(r, V, partial, nblk, n,
-                                                                     beta);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  gm_init_kernel<T><<<1, KNP_THREADS, 0, st>>>(beta, tol, R, g, cs, sn, ks, flag, mb, m);
-  return (int)cudaGetLastError();
-}
-
 // Dynamic shared memory of a step block taking upb units: the staged chunks
 // of w and the h values of the systems it spans
 template <typename T>
 static long long gm_arnoldi_smem(int mb, int nblk, int m, long long upb, int staged) {
   const long long nsys = std::min<long long>(mb, (upb - 1) / nblk + 2);
   return ((staged ? upb * GM_CHUNK : 0) + nsys * m) * (long long)sizeof(T);
+}
+
+// The cycle's start runs on the step's shape out = {grid, upb, staged}: its
+// kernel's shared-memory limit raised to the staged chunks of r if needed
+// (never lowered), and the grid checked to be co-resident for it too.
+template <typename T>
+static int gm_start_fits(const int* out, int sms) {
+  const void* fn = (const void*)gm_start_kernel<T>;
+  const long long smem = out[2] ? (long long)out[1] * GM_CHUNK * sizeof(T) : 0;
+  cudaFuncAttributes attr;
+  int per_sm = 0;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e == cudaSuccess && attr.maxDynamicSharedSizeBytes < smem)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, KNP_THREADS, (size_t)smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  return (long long)per_sm * sms >= out[0] ? 0 : (int)cudaErrorNotSupported;
 }
 
 // The step's launch shape for mb systems of n entries at restart m on the
@@ -636,7 +690,7 @@ static int gm_arnoldi_grid(int mb, int n, int m, int* out) {
       out[0] = (int)grid;
       out[1] = (int)upb;
       out[2] = 1;
-      return 0;
+      return gm_start_fits<T>(out, sms);
     }
   }
   const long long smem = gm_arnoldi_smem<T>(mb, nblk, m, units, 0);   // every system's h
@@ -651,7 +705,7 @@ static int gm_arnoldi_grid(int mb, int n, int m, int* out) {
   out[0] = (int)((units + upb - 1) / upb);
   out[1] = (int)upb;
   out[2] = 0;
-  return 0;
+  return gm_start_fits<T>(out, sms);
 }
 
 // One cooperative launch of step j on the shape from gm_arnoldi_grid; a
@@ -682,6 +736,31 @@ static int gm_arnoldi_launch(T* V, T* w, T* part, T* h1, T* h2, T* hj1, const T*
   return e != cudaSuccess ? (int)e : (int)last;
 }
 
+// The cycle's start: one cooperative launch on the step's launch shape from
+// gm_arnoldi_grid; a refused launch returns its error and leaves none behind
+template <typename T>
+static int gm_start_launch(const T* r, T* V, T* part, T* beta, const T* tol, T* R, T* g, T* cs,
+                           T* sn, int* ks, int* flag, int mb, int n, int m, int grid, int upb,
+                           int staged, void* stream) {
+  if (mb < 1 || mb > GM_MAX_SYS || n < 1 || m < 1 || m + 1 > GM_MAX_ROWS || grid < 1 || upb < 1)
+    return (int)cudaErrorInvalidValue;
+  int nblk = knp_chunks(n, GM_CHUNK);
+  const long long units = (long long)mb * nblk;
+  if ((long long)grid * upb < units || (long long)(grid - 1) * upb >= units)
+    return (int)cudaErrorInvalidValue;
+  long long nn = n;
+  const size_t smem = staged ? (size_t)upb * GM_CHUNK * sizeof(T) : 0;
+  void* args[] = {(void*)&r,  (void*)&V,  (void*)&part, (void*)&beta, (void*)&tol,
+                  (void*)&R,  (void*)&g,  (void*)&cs,   (void*)&sn,   (void*)&ks,
+                  (void*)&flag, (void*)&mb, (void*)&nn, (void*)&m,    (void*)&nblk,
+                  (void*)&upb, (void*)&staged};
+  const cudaError_t e =
+      cudaLaunchCooperativeKernel((const void*)gm_start_kernel<T>, dim3(grid), dim3(KNP_THREADS),
+                                  args, smem, (cudaStream_t)stream);
+  const cudaError_t last = cudaGetLastError();
+  return e != cudaSuccess ? (int)e : (int)last;
+}
+
 template <typename T>
 static int gm_solve_update_launch(const T* R, const T* g, const int* ks, T* y, const T* V, T* x,
                                   int mb, int n, int m, void* stream) {
@@ -701,9 +780,10 @@ static int gm_solve_update_launch(const T* R, const T* g, const int* ks, T* y, c
   }                                                                                           \
   extern "C" int knp_gmres_start_##SFX(const T* r, T* V, T* partial, T* beta, const T* tol,  \
                                        T* R, T* g, T* cs, T* sn, int* ks, int* flag, int mb,  \
-                                       int n, int m, int chunk, void* stream) {               \
+                                       int n, int m, int grid, int upb, int staged,           \
+                                       void* stream) {                                        \
     return gm_start_launch<T>(r, V, partial, beta, tol, R, g, cs, sn, ks, flag, mb, n, m,    \
-                              chunk, stream);                                                 \
+                              grid, upb, staged, stream);                                     \
   }                                                                                           \
   extern "C" int knp_gmres_arnoldi_grid_##SFX(int mb, int n, int m, int* out) {              \
     return gm_arnoldi_grid<T>(mb, n, m, out);                                                 \

@@ -371,27 +371,67 @@ def emi_emit_cell_plain(g, kbar, Mpp, Mpm, Mmp, Mmm, b_cell, b_p, b_m, inv_Lp2,
     return blocks, rhs, (blocks[0] + reg).contiguous()
 
 
-def emi_emit_cell(g, kbar, Mpp, Mpm, Mmp, Mmm, b_cell, b_p, b_m, inv_Lp2, pair=False):
+class EmiEmitOut(NamedTuple):
+    """The buffers :func:`emi_emit_cell` writes."""
+    blocks: torch.Tensor       # (K, nd, nd, nc); pair layout: A_cell (nd, nd, nc)
+    rhs: torch.Tensor          # (nd, nc)
+    second: torch.Tensor       # P_diag (nd, nd, nc); pair layout: reg (nd, nd, nc)
+
+
+def emi_emit_buffers(g, dtype, device, pair=False) -> EmiEmitOut:
+    """Output buffers of :func:`emi_emit_cell` for a caller that emits into
+    the same operator again and again (the solver's step)."""
+    nfac, nc = g["cf_idx"].shape
+    nd = g["GG"].shape[0]
+    new = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
+    return EmiEmitOut(new(nd, nd, nc) if pair else new(nfac + 1, nd, nd, nc), new(nd, nc),
+                      new(nd, nd, nc))
+
+
+def emi_emit_cell(g, kbar, Mpp, Mpm, Mmp, Mmm, b_cell, b_p, b_m, inv_Lp2, pair=False,
+                  out=None, tables=None):
     """:func:`emi_emit_cell_plain`, kernel K10 ``emi_emit_cell`` on a CUDA
-    tensor (equal to it exactly)."""
+    tensor (equal to it exactly): one launch, a thread a block entry and
+    cell.  The cell-facet slots are read from the packed slot words that
+    K11's membrane emit reads too: ``tables`` (:func:`knp_emit_tables`,
+    built once by the solver; only its ``slots`` are read), else the words
+    are packed in the call (:func:`slot_words`).  ``out``: buffers of
+    :func:`emi_emit_buffers` to write and return (on the CPU the plain
+    results are copied into them); without it new tensors."""
     if not kbar.is_cuda:
-        return emi_emit_cell_plain(g, kbar, Mpp, Mpm, Mmp, Mmm, b_cell, b_p, b_m,
-                                   inv_Lp2, pair)
+        res = emi_emit_cell_plain(g, kbar, Mpp, Mpm, Mmp, Mmm, b_cell, b_p, b_m, inv_Lp2,
+                                  pair)
+        if out is None:
+            return res
+        for dst, src in zip(out, res):
+            dst.copy_(src)
+        return tuple(out)
     _, nd, d, nc, nf1 = _dims(g)
+    if nd != d + 1:
+        raise NotImplementedError(
+            f"emi_emit_cell: CUDA kernel built for nd = d + 1 (degree 1 on simplices), "
+            f"got nd = {nd}, d = {d}")
+    if tables is None:
+        slots = slot_words(g)
+    elif tables.dims[2:5] == (d + 1, nc, nf1) and tables.slots.device == kbar.device:
+        slots = tables.slots
+    else:
+        raise ValueError(f"emi_emit_cell: tables of {tables.dims[2:5]} (cell facets, cells, "
+                         f"facets) on {tables.slots.device}, the geometry has "
+                         f"{(d + 1, nc, nf1)} on {kbar.device}")
     dt_ = kbar.dtype
-    _cuda.check("kbar", kbar, dt_, (nc,))
-    ins = _inputs(dt_, Mpp=(Mpp, (nd, nd, nf1)), Mpm=(Mpm, (nd, nd, nf1)),
-                  Mmp=(Mmp, (nd, nd, nf1)), Mmm=(Mmm, (nd, nd, nf1)),
-                  b_cell=(b_cell, (nd, nc)), b_p=(b_p, (nd, nf1)), b_m=(b_m, (nd, nf1)))
-    new = lambda *shape: torch.empty(shape, dtype=dt_, device=kbar.device)
-    blocks = new(nd, nd, nc) if pair else new(d + 2, nd, nd, nc)
-    rhs, second = new(nd, nc), new(nd, nd, nc)
-    _cuda.launch("emi_emit_cell", "knp_emi_emit_cell", dt_, kbar.data_ptr(),
-                 *_tables(g, ("vol", "GG", "M0"), dt_), *ins,
-                 *_tables(g, ("cf_idx", "cf_is_plus"), dt_), blocks.data_ptr(),
-                 rhs.data_ptr(), second.data_ptr(), nd, d + 1, nc, nf1, int(pair),
-                 float(inv_Lp2))
-    return blocks, rhs, second
+    if out is None:
+        out = emi_emit_buffers(g, dt_, kbar.device, pair)
+    fb, sq = (nd, nd, nf1), (nd, nd, nc)
+    ins = _inputs(dt_, kbar=(kbar, (nc,)), vol=(g["vol"], (nc,)), GG=(g["GG"], sq),
+                  M0=(g["M0"], (nd, nd)), Mpp=(Mpp, fb), Mpm=(Mpm, fb), Mmp=(Mmp, fb),
+                  Mmm=(Mmm, fb), b_cell=(b_cell, (nd, nc)), b_p=(b_p, (nd, nf1)),
+                  b_m=(b_m, (nd, nf1)))
+    outs = _inputs(dt_, out_blocks=(out.blocks, sq if pair else (d + 2,) + sq),
+                   out_rhs=(out.rhs, (nd, nc)), out_second=(out.second, sq))
+    _cuda.launch("emi_emit_cell", "knp_emi_emit_cell", dt_, *ins, slots.data_ptr(), *outs, nd,
+                 d + 1, nc, nf1, int(pair), float(inv_Lp2))
+    return tuple(out)
 
 
 def assemble_emi(
@@ -407,6 +447,8 @@ def assemble_emi(
     mms=None,
     pm: Optional[Dict[str, Any]] = None,
     out=None,
+    buffers=None,
+    tables=None,
 ):
     """EMI block-ELL operator, rhs and block-Jacobi preconditioner diagonal
     (the regularised B operator), in three steps (kernel K10 on the card):
@@ -418,7 +460,10 @@ def assemble_emi(
     pair maps ``pm``, ((pd, pe), rhs, P_diag_pair), where the pair
     diagonal of P_diag includes the intra-pair coupling; ``out`` (pairs
     only): the pair emit's (pd, pe, P_diag_pair) buffers
-    (ops.pairs.emit_buffers), written and returned."""
+    (ops.pairs.emit_buffers), written and returned; ``buffers``: the EMI
+    emit's (:func:`emi_emit_buffers`, made for this layout), written (on the
+    cell layout returned); ``tables``: the packed slot words' tables
+    (:func:`knp_emit_tables`), packed in the call without them."""
     _degree1(g)
     if mms is not None:
         raise NotImplementedError("MMS verification is not ported yet")
@@ -432,11 +477,11 @@ def assemble_emi(
     # preconditioner: diag blocks of B = A + kappa/Lp^2 mass
     inv_Lp2 = 1.0 / phys["Lp"] ** 2
     if pm is not None:
-        A_cell, rhs, reg = emi_emit_cell(g, kbar, *M, b_cell, b_p, b_m, inv_Lp2,
-                                         pair=True)
+        A_cell, rhs, reg = emi_emit_cell(g, kbar, *M, b_cell, b_p, b_m, inv_Lp2, pair=True,
+                                         out=buffers, tables=tables)
         pd, pe, P_diag = gather_blocks_pair(g, pm, A_cell, *M, reg=reg, out=out)
         return (pd, pe), rhs, P_diag
-    return emi_emit_cell(g, kbar, *M, b_cell, b_p, b_m, inv_Lp2)
+    return emi_emit_cell(g, kbar, *M, b_cell, b_p, b_m, inv_Lp2, out=buffers, tables=tables)
 
 
 # ---------------------------------------------------------------------------
@@ -676,14 +721,41 @@ class KnpEmitTables(NamedTuple):
                                # phibar (held here, so the pointers outlive no tensor)
 
 
+def slot_words(g, inv=None):
+    """The packed cell-facet slot words of a geometry, int32 (nfac, nc): the
+    facet cf_idx[l, c] in bits 0-29, bit 30 "a membrane facet" (from the
+    inverse membrane map ``inv`` (nf+1,), -1 off the membranes; 0 without
+    it), bit 31 cf_is_plus -- one load in place of cf_idx and cf_is_plus.
+    The one packing both emits read (K10's :func:`emi_emit_cell`, K11's
+    :func:`knp_membrane_emit`, which reads the membrane bit); the solver
+    builds it once, in :func:`knp_emit_tables`.  cf_idx and cf_is_plus are
+    checked here (on the card: contiguous, int32 / bool, their shapes; the
+    indices within the facets and 30 bits)."""
+    cf, isp = g["cf_idx"], g["cf_is_plus"]
+    nfac, nc = cf.shape
+    nf1 = g["f_area"].shape[0]
+    for key, t, dt in (("cf_idx", cf, torch.int32), ("cf_is_plus", isp, torch.bool)):
+        if t.is_cuda:
+            _cuda.check(key, t, dt, (nfac, nc))
+        elif t.dtype != dt or tuple(t.shape) != (nfac, nc):
+            raise ValueError(f"slot_words: {key} must be {dt} of shape {(nfac, nc)}")
+    if nf1 > 2 ** _IDX_BITS:
+        raise ValueError("slot_words: facet indices outside [0, 2**30)")
+    if nc and not bool(((cf >= 0) & (cf < nf1)).all()):
+        raise ValueError("slot_words: cf_idx outside the facets")
+    mem = torch.zeros_like(isp) if inv is None else inv[cf.long()] >= 0
+    return _pack(cf, mem, isp).contiguous()
+
+
 def knp_emit_tables(g, mem_t) -> KnpEmitTables:
     """The membrane emit's static tables of a geometry and its membrane
-    tables: the per-cell slot words, the compact list of the cells with a
-    membrane slot with their words, the membrane facets' cells and areas.
-    The sources are checked here, not per call (on the card: contiguous,
-    their dtypes and shapes; the indices within 30 bits).  A caller that
-    emits again and again builds them once (Solver._membrane_emit_tables)
-    and passes them to :func:`knp_membrane_emit`."""
+    tables: the per-cell slot words (:func:`slot_words`, which the EMI emit
+    reads too), the compact list of the cells with a membrane slot with
+    their words, the membrane facets' cells and areas.  The sources are
+    checked here, not per call (on the card: contiguous, their dtypes and
+    shapes; the indices within 30 bits).  A caller that emits again and
+    again builds them once (Solver._membrane_emit_tables) and passes them
+    to :func:`knp_membrane_emit` and :func:`emi_emit_cell`."""
     f_area, cf, isp, inv = g["f_area"], g["cf_idx"], g["cf_is_plus"], mem_t["inv"]
     nq, nd, nm = mem_t["Rp"].shape
     nfac, nc = cf.shape
@@ -693,8 +765,7 @@ def knp_emit_tables(g, mem_t) -> KnpEmitTables:
         raise NotImplementedError(
             f"knp_membrane_emit: CUDA kernel built for nd <= {MAX_ND}, {MAX_D + 1} cell "
             f"facets and nq <= {MAX_NQ}, got nd = {nd}, {nfac} facets, nq = {nq}")
-    shapes = {"cf_idx": (torch.int32, (nfac, nc)), "cf_is_plus": (torch.bool, (nfac, nc)),
-              "vol": (fdt, (nc,)), "phibar": (fdt, (nd,)), "w_f": (fdt, (nq,)),
+    shapes = {"vol": (fdt, (nc,)), "phibar": (fdt, (nd,)), "w_f": (fdt, (nq,)),
               "inv": (torch.int32, (nf1,)), "fidx": (torch.int32, (nm,)),
               "cp": (torch.int32, (nm,)), "cm": (torch.int32, (nm,)),
               "Rp": (fdt, (nq, nd, nm)), "Rm": (fdt, (nq, nd, nm)), "f_area": (fdt, (nf1,))}
@@ -704,13 +775,11 @@ def knp_emit_tables(g, mem_t) -> KnpEmitTables:
             _cuda.check(key, t, dt, shape)
         elif t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f"knp_emit_tables: {key} must be {dt} of shape {shape}")
-    if max(nf1, nm + 1) > 2 ** _IDX_BITS:
-        raise ValueError("knp_emit_tables: facet or membrane indices outside [0, 2**30)")
-    if nc and not bool(((cf >= 0) & (cf < nf1)).all()):
-        raise ValueError("knp_emit_tables: cf_idx outside the facets")
+    if nm + 1 > 2 ** _IDX_BITS:
+        raise ValueError("knp_emit_tables: membrane indices outside [0, 2**30)")
+    slots = slot_words(g, inv)
     mi = inv[cf.long()]                                  # (nfac, nc), -1 off the membranes
     mem = mi >= 0
-    slots = _pack(cf, mem, isp).contiguous()
     cells = mem.any(dim=0).nonzero().flatten().to(torch.int32)
     words = _pack(torch.where(mem, mi, 0)[:, cells], mem[:, cells], isp[:, cells])
     cells = torch.cat([cells[None], words]).contiguous()

@@ -10,10 +10,12 @@ versions (``*_plain``) keep the whole-basis einsums of the reference and a
 zeroed basis (:func:`gmres_start_plain` zeroes it every cycle), so the CPU
 tests hold the populated-rows kernels to the full-basis semantics.  An
 Arnoldi step (CGS2, the next basis row and the Givens work) is one
-cooperative launch (:func:`gmres_arnoldi`); its entries work in the
-workspace and on the launch shape :func:`gmres_work` builds once per solve,
-so they allocate nothing and check only the vectors they are given, and
-:func:`gmres_arnoldi_ordered_plain` replays its summation order in torch.
+cooperative launch (:func:`gmres_arnoldi`), and so is the cycle's start
+(:func:`gmres_start`); its entries work in the workspace and on the launch
+shape :func:`gmres_work` builds once per solve, so they allocate nothing
+and check only the vectors they are given, and
+:func:`gmres_arnoldi_ordered_plain` and :func:`gmres_start_ordered_plain`
+replay their summation orders in torch.
 
 K8 keeps ``sc = [rz, zz, alpha, beta, tol^2, wsum]`` (:data:`RZ` ...) and
 an int32 flag (zz > tol^2) on the device; the host reads the flag once per
@@ -71,10 +73,10 @@ class GmresWork(NamedTuple):
     # the Arnoldi step's first dot, second dot and norm; the start and the
     # tolerance dot use the first part
     partial: "torch.Tensor | None" = None
-    # the Arnoldi step's cooperative launch (on the card): its blocks, the
-    # RED_CHUNK-entry chunks a block takes, and 1 where the blocks keep their
-    # chunks of w in shared memory (0: w is read and updated in device
-    # memory)
+    # the cooperative launch of the Arnoldi step and of the cycle's start
+    # (on the card): its blocks, the RED_CHUNK-entry chunks a block takes,
+    # and 1 where the blocks keep their chunks of w (the start's: of r) in
+    # shared memory (0: they are read again from device memory)
     grid: int = 0
     upb: int = 0
     staged: int = 0
@@ -86,12 +88,13 @@ class GmresWork(NamedTuple):
 
 def gmres_work(mb: int, n: int, m: int, dtype, device) -> GmresWork:
     """Buffers of a solve, with the kernels' partials.  On the card V is
-    left unwritten (the kernels read only rows they wrote) and the Arnoldi
-    step's launch shape is sized once (``knp_gmres_arnoldi_grid``, which
-    also raises the kernel's shared-memory limit where the shape needs
-    more than 48 KB); on the CPU V is zeroed, as the plain versions'
-    whole-basis einsums need.  The entries then allocate nothing and check
-    only the vectors they are given."""
+    left unwritten (the kernels read only rows they wrote) and the launch
+    shape of the Arnoldi step and the cycle's start is sized once
+    (``knp_gmres_arnoldi_grid``, which also raises both kernels'
+    shared-memory limits where the shape needs more than 48 KB); on the
+    CPU V is zeroed, as the plain versions' whole-basis einsums need.  The
+    entries then allocate nothing and check only the vectors they are
+    given."""
     if m > MAX_RESTART:
         raise NotImplementedError(f"gmres: restart above {MAX_RESTART} is not supported")
     dev = torch.device(device)
@@ -135,6 +138,22 @@ def gmres_start_plain(r, wk: GmresWork):
     beta = _norms(r)
     wk.beta.copy_(beta)
     wk.V.zero_()
+    wk.V[0] = r / torch.where(beta > 0, beta, torch.ones_like(beta))[:, None]
+    for t in (wk.R, wk.g, wk.cs, wk.sn, wk.ks):
+        t.zero_()
+    wk.g[:, 0] = beta
+    wk.flag.fill_(int(bool(torch.any(beta > wk.tol))))
+    return wk
+
+
+def gmres_start_ordered_plain(r, wk: GmresWork):
+    """:func:`gmres_start_plain` with beta summed in the start kernel's
+    order (:func:`_ordered_sums`), so the kernel equals it to the last bit;
+    V[0] written, the other rows of V left as they are (the kernel writes
+    only row 0).  For the tests and chip_smoke.py; the wrapper's CPU path
+    keeps the einsum."""
+    beta = torch.sqrt(_ordered_sums(r, r))
+    wk.beta.copy_(beta)
     wk.V[0] = r / torch.where(beta > 0, beta, torch.ones_like(beta))[:, None]
     for t in (wk.R, wk.g, wk.cs, wk.sn, wk.ks):
         t.zero_()
@@ -294,8 +313,9 @@ def gmres_cgs_dot(V, w, rows, out, wk: "GmresWork | None" = None):
 
 def gmres_start(r, wk: GmresWork):
     """The cycle's start from the preconditioned residual r (mb, n): beta,
-    V[0], the zeroed scalars and the flag (the start kernels on a CUDA
-    tensor); returns wk."""
+    V[0], the zeroed scalars and the flag (one cooperative kernel launch on
+    a CUDA tensor, on the Arnoldi step's launch shape; its outputs bitwise
+    those of :func:`gmres_start_ordered_plain`); returns wk."""
     if not r.is_cuda:
         return gmres_start_plain(r, wk)
     _check_vec(wk, r)
@@ -303,7 +323,7 @@ def gmres_start(r, wk: GmresWork):
     _cuda.launch("gmres_start", "knp_gmres_start", r.dtype, r.data_ptr(), wk.V.data_ptr(),
                  wk.partial.data_ptr(), wk.beta.data_ptr(), wk.tol.data_ptr(), wk.R.data_ptr(),
                  wk.g.data_ptr(), wk.cs.data_ptr(), wk.sn.data_ptr(), wk.ks.data_ptr(),
-                 wk.flag.data_ptr(), mb, n, wk.m, RED_CHUNK)
+                 wk.flag.data_ptr(), mb, n, wk.m, wk.grid, wk.upb, wk.staged)
     return wk
 
 

@@ -371,15 +371,18 @@ class Solver:
         return torch.cat([c, c_elim[None]], dim=0)
 
     def _assemble_emi(self, c, c_elim, phi_M_pad, I_ch_tot_pad, t,
-                      pair: bool = False, out=None):
+                      pair: bool = False, out=None, buffers=None):
         """EMI blocks (the pair operator with ``pair``), rhs and P_diag.
         ``t`` (read by the JAX package's MMS sources only) keeps the JAX
-        signature; ``out``: the pair emit's buffers (see _emit_out)."""
+        signature; ``out``: the pair emit's buffers, ``buffers`` the EMI
+        emit's (see _emit_out).  The emit reads the cell-facet slots from
+        the tables the KNP membrane emit reads (_membrane_emit_tables)."""
         ions = {"z": self.z, "D": self.D, "c": self._all_c(c, c_elim)}
         return assembly.assemble_emi(
             self.g, self.masks, ions, self._phys_emi(), phi_M_pad, I_ch_tot_pad,
             mem_t=self.mem_dev, splitting=self.splitting_scheme,
-            pm=self.pairs if pair else None, out=out)
+            pm=self.pairs if pair else None, out=out, buffers=buffers,
+            tables=self._membrane_emit_tables())
 
     def _live_mask(self, dtype):
         """The pair layout's (2nd, npair) live mask in ``dtype``, made once
@@ -393,16 +396,22 @@ class Solver:
         """The pair emit's output buffers of the step's EMI (``kind`` "emi":
         pd, pe, P_diag) or KNP ("knp": pdK, peK) operator, made once per
         dtype (pe zero outside its owner halves, which the emit never
-        writes); "membrane_emit": the KNP membrane emit's (the cell
-        layout's operator and rhs, the pair layout's drift blocks and rhs,
-        b_p, b_m; assembly.knp_emit_buffers).  Only _pde_step passes them:
-        each step's emit overwrites the previous step's operator, which
-        nothing holds past its solve (the pc builds, the harvest and the
-        tests emit into new tensors)."""
+        writes); "emi_emit": the EMI emit's (the cell layout's operator,
+        rhs and P_diag, the pair layout's A_cell, rhs and reg;
+        assembly.emi_emit_buffers); "membrane_emit": the KNP membrane
+        emit's (the cell layout's operator and rhs, the pair layout's drift
+        blocks and rhs, b_p, b_m; assembly.knp_emit_buffers).  Only
+        _pde_step passes them: each step's emit overwrites the previous
+        step's operator, which nothing holds past its solve (the
+        predictor's guess is a new tensor; the pc builds, the Ritz harvest
+        and the tests emit into new tensors)."""
         bufs = self.__dict__.setdefault("_emit_bufs", {})
         key = (kind, self.dtype)
         if key not in bufs:
-            if kind == "membrane_emit":
+            if kind == "emi_emit":
+                bufs[key] = assembly.emi_emit_buffers(self.g, self.dtype, self.device,
+                                                      pair=self.pair_layout)
+            elif kind == "membrane_emit":
                 bufs[key] = assembly.knp_emit_buffers(self.g, self.mem_dev, self.N_ions,
                                                       self.dtype, self.device,
                                                       pair=self.pair_layout)
@@ -414,8 +423,9 @@ class Solver:
 
     def _membrane_emit_tables(self):
         """The KNP membrane emit's static tables (assembly.knp_emit_tables:
-        the packed cell-facet slots, the membrane cells, the membrane
-        facets' cells and areas), built and checked once per dtype and kept
+        the packed cell-facet slots, which the EMI emit reads too, the
+        membrane cells, the membrane facets' cells and areas), built and
+        checked once per dtype and kept
         with the emit buffers: a new membrane map (_set_membrane_tags) or
         cell numbering (_invalidate_caches) drops them with those."""
         bufs = self.__dict__.setdefault("_emit_bufs", {})
@@ -458,7 +468,8 @@ class Solver:
         pair = self.pair_layout
         blocks, rhs, Pd = self._assemble_emi(c, c_elim, phi_M_pad, I_ch_tot_pad, t,
                                              pair=pair,
-                                             out=self._emit_out("emi") if pair else None)
+                                             out=self._emit_out("emi") if pair else None,
+                                             buffers=self._emit_out("emi_emit"))
         phi, stats["emi_iters"], stats["emi_converged"] = self._emi_solve_iterative(
             blocks, Pd, rhs, phi, sp_, pc=pc.get("emi") if pc else None,
             phi_prev=state.get("phi_prev"))

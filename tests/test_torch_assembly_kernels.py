@@ -274,6 +274,79 @@ def _check_emit_tables(St):
     return tab
 
 
+def _emit_through_the_slot_words(Sj, St, pair, seed):
+    """The EMI emit reading its cell-facet slots from the solver's packed
+    slot words (the KNP membrane emit's table): on a geometry whose cf_idx
+    and cf_is_plus are those words decoded, into the solver's buffers, it
+    equals emi_emit_cell_plain on the solver's maps exactly and the JAX
+    gather_blocks / gather_rhs (and the regularised diagonal) to round-off;
+    the words packed without the membrane map are the same words without
+    the membrane bit."""
+    rng = np.random.default_rng(seed)
+    g, nd = St.g, St.nd
+    nfac, nc = g["cf_idx"].shape
+    nf1 = g["f_area"].shape[0]
+    tab = St._membrane_emit_tables()
+    f, on, sp = _decode(tab.slots)
+    assert torch.equal(assembly.slot_words(g), (tab.slots.to(torch.int64)
+                                                & ~(1 << 30)).to(torch.int32))
+    gs = dict(g, cf_idx=f.to(torch.int32), cf_is_plus=sp.bool())
+    Ms = _facet_blocks(rng, (), nd, nf1)
+    bs = rng.standard_normal((3, nd, max(nc, nf1)))
+    b_cell, b_p, b_m = bs[0][:, :nc], bs[1][:, :nf1], bs[2][:, :nf1]
+    kbar = rng.uniform(0.5, 2.0, nc)
+    inv_Lp2 = 1.0 / St.Lp ** 2
+    args = (t64(kbar), *(t64(M) for M in Ms), t64(b_cell), t64(b_p), t64(b_m), inv_Lp2)
+    out = St._emit_out("emi_emit")
+    assert St._emit_out("emi_emit") is out                    # made once
+    assert out.blocks.shape == ((nd, nd, nc) if pair else (nfac + 1, nd, nd, nc))
+    got = assembly.emi_emit_cell(gs, *args, pair=pair, out=out, tables=tab)
+    assert all(a is b for a, b in zip(got, out))
+    ref = assembly.emi_emit_cell_plain(g, *args, pair=pair)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    gj = Sj.g
+    A_cell = (gj["vol"] * jnp.asarray(kbar)) * jasm._GG(gj)
+    rj = jasm.gather_rhs(gj, jnp.asarray(b_cell), jnp.asarray(b_p), jnp.asarray(b_m))
+    reg = (gj["vol"] * jnp.asarray(kbar) / Sj.Lp ** 2) * jasm._M0(gj)[:, :, None]
+    assert rel(got[1], rj) < TOL
+    if pair:
+        assert rel(got[0], A_cell) < TOL and rel(got[2], reg) < TOL
+    else:
+        bj = jasm.gather_blocks(gj, A_cell, *(jnp.asarray(M) for M in Ms))
+        assert rel(got[0], bj) < TOL and rel(got[2], bj[0] + reg) < TOL
+
+
+def test_emi_emit_reads_the_shared_slot_words(solvers):
+    Sj, St, _ = solvers
+    _emit_through_the_slot_words(Sj, St, False, 16)
+
+
+def test_solver_owns_the_emi_emit_buffers(monkeypatch):
+    """Two steps of the 2D neuron: the pc build and every step's EMI emit
+    read the solver's one slot table, only _pde_step's emits write into
+    the EMI emit buffers (made once, the same in both steps; the pc build
+    emits into new tensors), and a new cell numbering or membrane map
+    drops them with the other emit buffers."""
+    seen = []
+    emit = assembly.emi_emit_cell
+
+    def spy(*args, out=None, tables=None, **kw):
+        seen.append((out, tables))
+        return emit(*args, out=out, tables=tables, **kw)
+
+    monkeypatch.setattr(assembly, "emi_emit_cell", spy)
+    S, sp = tp.neuron_2d_torch()
+    S.solve_system_active(2e-4, 0.0, sp)
+    out, tab = S._emit_out("emi_emit"), S._membrane_emit_tables()
+    assert len(seen) == 3 and all(t is tab for _, t in seen)
+    assert seen[0][0] is None and seen[1][0] is out and seen[2][0] is out
+    S._invalidate_caches()
+    new = S._emit_out("emi_emit")
+    assert new is not out and S._membrane_emit_tables() is not tab
+    S._set_membrane_tags(sorted(S.mem_models))
+    assert S._emit_out("emi_emit") is not new
+
+
 def test_knp_emit_tables_decode_to_the_maps(solvers):
     _check_emit_tables(solvers[1])
 
@@ -434,6 +507,13 @@ def test_pair_knp_emit_tables_decode_to_the_maps(pair_solvers):
     f, on, _ = _decode(tab.slots[:, pads])
     assert bool((f == St.g["f_area"].shape[0] - 1).all()) and not bool(on.any())
     assert not bool(pads[tab.cells[0].long()].any())
+
+
+def test_pair_emi_emit_reads_the_shared_slot_words(pair_solvers):
+    """The pair layout's EMI emit (A_cell, rhs, reg) through the packed slot
+    words on the padded, renumbered cell axis, into the solver's buffers."""
+    Sj, St, _ = pair_solvers
+    _emit_through_the_slot_words(Sj, St, True, 17)
 
 
 def test_pair_emi_assembly_matches_jax(pair_solvers):

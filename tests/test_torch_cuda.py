@@ -1350,6 +1350,116 @@ def test_knp_membrane_emit_refuses_what_it_cannot_take(k11_solver):
     assert _cuda.LAUNCHES == n0
 
 
+@pytest.fixture(scope="module")
+def main_solver():
+    """chip_smoke.py's cell-layout solver (124,416 cells) on the card."""
+    cuda_or_skip()
+    from knpemidg_tpu_torch import emix
+    from knpemidg_tpu_torch.mesh.generators import box_3d_axons
+
+    mesh = box_3d_axons(1, length_factor=2)
+    mesh.vertices *= 1e2
+    return emix.build_solver(mesh, dtype=torch.float64, device="cuda")
+
+
+def _emi_emit_case(S, dtype, seed):
+    """Seeded inputs of K10's emit on solver S's tables in ``dtype``: (g,
+    the emit's arguments up to inv_Lp2, the solver's slot tables), the
+    dummy facet's blocks and rhs parts zero."""
+    import chip_smoke
+
+    rng = np.random.default_rng(seed)
+    g, dev = chip_smoke.cast_tables(S.g, dtype), S.device
+    nd, (nfac, nc) = S.nd, g["cf_idx"].shape
+    nf1 = g["f_area"].shape[0]
+    Ms = [_rand(rng, (nd, nd, nf1), dtype, dev) for _ in range(4)]
+    bs = [_rand(rng, (nd, k), dtype, dev) for k in (nc, nf1, nf1)]
+    for t in Ms + bs[1:]:
+        t[..., -1] = 0.0
+    kbar = torch.as_tensor(rng.uniform(0.5, 2.0, nc), dtype=dtype, device=dev)
+    return g, (kbar, *Ms, *bs, 1.0 / S.Lp ** 2), S._membrane_emit_tables()
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_emi_emit_equals_plain_exactly_at_the_main_size(main_solver, dtype, pair):
+    """K10's emit at the main path's 124,416 cells as the step calls it: two
+    emits with other inputs into the same buffers, the slots from the
+    solver's packed slot words, each output (the operator, rhs and P_diag;
+    on pairs A_cell, rhs and reg) bit for bit emi_emit_cell_plain's; a call
+    that packs its own slot words gives the same bits; one launch an
+    emit."""
+    S = main_solver
+    out = assembly.emi_emit_buffers(S.g, dtype, S.device, pair)
+    for seed in (41, 42):
+        g, args, tab = _emi_emit_case(S, dtype, seed)
+        n0 = _cuda.LAUNCHES["emi_emit_cell"]
+        got = assembly.emi_emit_cell(g, *args, pair=pair, out=out, tables=tab)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["emi_emit_cell"] == n0 + 1
+        assert all(a is b for a, b in zip(got, out))
+        ref = assembly.emi_emit_cell_plain(g, *args, pair=pair)
+        for a, b in zip(got, ref):
+            assert torch.equal(_bits(a), _bits(b))
+        own = assembly.emi_emit_cell(g, *args, pair=pair)
+        for a, b in zip(own, ref):
+            assert torch.equal(_bits(a), _bits(b))
+
+
+def test_emi_emit_is_one_launch_and_allocates_nothing(main_solver):
+    """Ten EMI emits into the step's buffers with the solver's slot tables
+    in one plain profiler session: ten counted calls, ten
+    emi_emit_cell_kernel launches and nothing else on the device, and no
+    allocation."""
+    S = main_solver
+    g, args, tab = _emi_emit_case(S, torch.float64, 43)
+    out = S._emit_out("emi_emit")
+    call = lambda: assembly.emi_emit_cell(g, *args, out=out, tables=tab)
+    call()
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(S.device)["allocation.all.allocated"]
+    n0 = _cuda.LAUNCHES["emi_emit_cell"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert torch.cuda.memory_stats(S.device)["allocation.all.allocated"] == allocs
+    assert _cuda.LAUNCHES["emi_emit_cell"] == n0 + 10
+    assert 5 <= len(kernels) <= 10 and all("emi_emit_cell_kernel" in k for k in kernels), kernels
+
+
+def test_emi_emit_refuses_what_it_cannot_take(main_solver):
+    """Slot tables of another geometry, a mistyped or misshapen input or
+    output buffer, a non-contiguous input and a non-simplex geometry
+    (nd != d + 1) raise before any launch."""
+    S = main_solver
+    g, args, tab = _emi_emit_case(S, torch.float64, 44)
+    dev = S.device
+    n0 = dict(_cuda.LAUNCHES)
+    small = tp.emix_torch(device="cuda")[0]._membrane_emit_tables()
+    with pytest.raises(ValueError, match="tables"):
+        assembly.emi_emit_cell(g, *args, tables=small)
+    bad = list(args)
+    bad[0] = args[0].float()                                     # kbar in float32
+    with pytest.raises(TypeError):
+        assembly.emi_emit_cell(g, *bad, tables=tab)
+    bad[0] = args[0][:-1].contiguous()                           # one cell short
+    with pytest.raises(ValueError):
+        assembly.emi_emit_cell(g, *bad, tables=tab)
+    bad = list(args)
+    bad[1] = args[1].transpose(0, 1).contiguous().transpose(0, 1)    # not contiguous
+    with pytest.raises(ValueError):
+        assembly.emi_emit_cell(g, *bad, tables=tab)
+    out = assembly.emi_emit_buffers(S.g, torch.float64, dev, pair=True)
+    with pytest.raises(ValueError):                              # the pair buffers
+        assembly.emi_emit_cell(g, *args, out=out, tables=tab)
+    g3 = dict(g, G=g["G"][:, :2].contiguous())                   # d = 2 with nd = 4
+    with pytest.raises(NotImplementedError):
+        assembly.emi_emit_cell(g3, *args, tables=tab)
+    assert _cuda.LAUNCHES == n0
+
+
 def test_pair_matvec_reads_only_the_owner_halves(pair_maps):
     """pair_matvec at m = 1 and pair_matvec_multi at m = 2, on maps with
     self-pairs, dummy slots and a thread count that is not a multiple of
@@ -1616,6 +1726,109 @@ def test_gmres_arnoldi_equals_the_ordered_plain_bitwise(n, j, mb, dtype):
     n0 = _cuda.LAUNCHES["gmres_arnoldi"]
     chip_smoke.arnoldi_exact("gmres_arnoldi", dtype, ko, w, wk, j, calls=200)
     assert _cuda.LAUNCHES["gmres_arnoldi"] == n0 + 200
+
+
+# (entries a system, systems): the cell layout's KNP batch size (4 x
+# 124,416) and a larger mesh's, staged in shared memory where the Arnoldi
+# step stages, and 4,000,001, read again; with 1, 2 and 32 systems
+START_SIZES = [(n, mb) for n in (497664, 1016928, 4000001) for mb in (1, 2, 32)]
+
+
+@pytest.mark.parametrize("n,mb", START_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gmres_start_equals_the_ordered_plain_bitwise(n, mb, dtype):
+    """gmres_start writes V[0], beta, R, g, cs, sn, ks and the flag to the
+    last bit of gmres_start_ordered_plain's (the earlier three kernels'
+    order), in each of 200 calls on one work (chip_smoke.start_exact: the
+    outputs NaN / -1 before every call), one system's residual zero; the
+    flag set where some beta exceeds its tolerance."""
+    import chip_smoke
+
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(25)
+    wk = ko.gmres_work(mb, n, 4, dtype, dev)
+    r = _rand(rng, (mb, n), dtype, dev)
+    if mb > 1:
+        r[-1] = 0.0
+    wk.tol.copy_(torch.as_tensor(rng.uniform(0.5, 1.5, mb) * n ** 0.5, dtype=dtype))
+    n0 = _cuda.LAUNCHES["gmres_start"]
+    chip_smoke.start_exact("gmres_start", dtype, ko, r, wk, calls=200)
+    assert _cuda.LAUNCHES["gmres_start"] == n0 + 200
+
+
+def test_gmres_start_is_one_launch_and_allocates_nothing():
+    """Five cycle starts of a cell-layout KNP batch (2 x 4 x 124,416) are
+    five gm_start_kernel launches, nothing else on the device, and no
+    allocation (the caching allocator's count)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(26)
+    wk = ko.gmres_work(2, 497664, 30, torch.float64, dev)
+    r = _rand(rng, (2, 497664), torch.float64, dev)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+
+    def starts():
+        for _ in range(5):
+            ko.gmres_start(r, wk)
+
+    kernels = _device_kernels(starts, sessions=3, want=5, match="gm_start")
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
+    assert len(kernels) == 5 and all("gm_start_kernel" in k for k in kernels), kernels
+
+
+def test_gmres_start_replays_in_a_cuda_graph():
+    """The start allocates nothing, syncs nothing and keeps fixed pointers,
+    so a captured start and Arnoldi step replay: every output the eager
+    calls' to the last bit."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(27)
+    wk, w = _gmres_case(rng, torch.float64, dev, 0, n=20000, m=12)
+    r = _rand(rng, w.shape, torch.float64, dev)
+    base, eager = _clone_work(wk), _clone_work(wk)
+    ko.gmres_start(r, eager)
+    ko.gmres_arnoldi(w.clone(), eager, 0)
+    wg = w.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ko.gmres_start(r, _clone_work(wk))                   # warm: the library loaded
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ko.gmres_start(r, wk)
+        ko.gmres_arnoldi(wg, wk, 0)
+    for _ in range(3):
+        for name in ko.GmresWork._fields[:13]:
+            getattr(wk, name).copy_(getattr(base, name))
+        wg.copy_(w)
+        graph.replay()
+    torch.cuda.synchronize()
+    for name in ("h1", "h2", "hj1", "beta", "R", "g", "cs", "sn", "ks", "flag"):
+        assert torch.equal(getattr(wk, name), getattr(eager, name)), name
+    assert torch.equal(wk.V[:2], eager.V[:2])
+
+
+def test_gmres_start_raises_on_a_refused_launch():
+    """A grid of more blocks than can be resident together (one a chunk at
+    4,000,001 entries a system) is refused by the cooperative launch: the
+    wrapper raises, counts no launch, the work is untouched, and the
+    refusal leaves no error behind for the next launch."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(28)
+    wk = ko.gmres_work(2, 4000001, 8, torch.float64, dev)
+    r = _rand(rng, (2, 4000001), torch.float64, dev)
+    units = 2 * -(-4000001 // ko.RED_CHUNK)
+    assert wk.grid < units
+    base = _clone_work(wk)
+    n0 = _cuda.LAUNCHES["gmres_start"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ko.gmres_start(r, wk._replace(grid=units, upb=1))
+    assert _cuda.LAUNCHES["gmres_start"] == n0
+    torch.cuda.synchronize()
+    for name in ("beta", "R", "g", "cs", "sn", "ks", "flag"):
+        assert torch.equal(getattr(wk, name), getattr(base, name)), name
+    ko.gmres_start(r, wk)
+    assert _cuda.LAUNCHES["gmres_start"] == n0 + 1
 
 
 def test_gmres_arnoldi_is_one_launch_and_allocates_nothing():

@@ -267,6 +267,37 @@ def test_gmres_arnoldi_ordered_plain_matches_plain(n, j):
     assert torch.equal(wb, wc)
 
 
+@pytest.mark.parametrize("n,mb", [(1, 32), (N, 2), (2049, 3), (3 * 2048 + 17, 2)])
+def test_gmres_start_ordered_plain_matches_plain(n, mb):
+    """The start kernel's summation order (beta as the dot kernels sum)
+    against gmres_start_plain, float64, to 1e-14, on one and on several
+    chunks, with a system at zero (beta 0, V[0] zero): beta, V[0], g = beta
+    e1 and the flag; the scalars zeroed; the rows of V after the first
+    left as they were (the kernel writes only row 0).  The wrapper's CPU
+    path is the plain start, bit for bit."""
+    rng = np.random.default_rng(60 + mb)
+    r = t64(rng.normal(size=(mb, n)))
+    r[-1] = 0.0
+    a, b, c = (ko.gmres_work(mb, n, M, torch.float64, "cpu") for _ in range(3))
+    tol = t64(rng.uniform(0.0, 2.0, mb) * np.sqrt(n))
+    for wk in (a, b, c):
+        wk.tol.copy_(tol)
+        for name in ("R", "g", "cs", "sn", "ks"):
+            getattr(wk, name).fill_(7)
+    a.V.fill_(3.0)
+    ko.gmres_start_ordered_plain(r, a)
+    ko.gmres_start_plain(r, b)
+    ko.gmres_start(r, c)
+    assert rel(a.beta, b.beta) < 1e-14 and float(a.beta[-1]) == 0.0
+    assert rel(a.V[0], b.V[0]) < 1e-14 and not a.V[0, -1].any()
+    assert bool((a.V[1:] == 3.0).all())
+    assert rel(a.g, b.g) < 1e-14 and torch.equal(a.flag, b.flag)
+    for name in ("R", "cs", "sn", "ks"):
+        assert not getattr(a, name).any(), name
+    for name in ko.GmresWork._fields[:13]:
+        assert torch.equal(getattr(b, name), getattr(c, name)), name
+
+
 @pytest.mark.parametrize("n", [1, 2048, 2049, 497664])
 def test_gmres_work_sizes_the_workspace(n):
     """The partials of the step's three sums, (2m + 1) mb per RED_CHUNK-entry

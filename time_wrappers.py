@@ -75,6 +75,14 @@ and float64, beside the library calls chip_smoke.py holds them to:
        place, on pairs with a live mask: this tree's one call (one launch)
        beside its three entry points composed; a tree without the mask
        argument its three calls and, on pairs, the product with the mask;
+  k10e K10's EMI emit as the step calls it on seeded facet blocks and rhs
+       parts, on chip_smoke.py's cell tables (124,416 cells) and pair
+       layout (127,116 padded cells), both dtypes: this tree's call with
+       the solver's packed slot words into buffers made once, or in a tree
+       without them its one call;
+  k9s  K9's cycle start on the KNP batch (two ions) of the cell (4 x
+       124,416 entries a system) and pair (8 x 63,558) layouts, both
+       dtypes, on one work built once per solve;
   k13  Solver._ode_step itself in float64 under each scheme at
        chip_smoke.py's configuration: the pushes, every tag's ODE step and
        the pulls (this tree: one K13 launch; a tree with the per-tag
@@ -105,7 +113,8 @@ device microseconds per call of 100 calls replayed as one CUDA graph
 measured" where the call cannot be captured).  It also prints the cost of
 reading the current stream both ways.
 
-Usage:  python3 time_wrappers.py [--root DIR] [--only k8,k9,k6,k4,k1,k14,k13,k5,k11,k11e,k12,k7]
+Usage:  python3 time_wrappers.py [--root DIR]
+            [--only k8,k9,k9s,k6,k4,k1,k14,k13,k5,k11,k11e,k10e,k12,k7]
         (needs a CUDA card)
 """
 import argparse
@@ -649,6 +658,55 @@ def time_membrane_emit(asm, S_cell, gen):
     torch.cuda.empty_cache()
 
 
+def time_emi_emit(asm, S_cell, gen):
+    """K10's emit as the step calls it on seeded facet blocks and rhs parts
+    (the dummy facet zero), on the cell layout's tables and the pair
+    layout's padded, renumbered ones, both dtypes."""
+    from knpemidg_tpu_torch import emix
+    from knpemidg_tpu_torch.mesh.generators import box_3d_axons
+
+    shared = "tables" in inspect.signature(asm.emi_emit_cell).parameters
+    print(f"k10etime emit from the shared slot words {shared}")
+    mesh = box_3d_axons(1, length_factor=2)
+    mesh.vertices *= 1e2
+    S_pair = emix.build_solver(mesh, dtype=torch.float64, device="cuda", pair=True)
+    for layout, S in (("cell", S_cell), ("pair", S_pair)):
+        pair = layout == "pair"
+        for dtype in (torch.float32, torch.float64):
+            g = {k: (v.to(dtype) if isinstance(v, torch.Tensor) and v.is_floating_point()
+                     else v) for k, v in S.g.items()}
+            nd, nc, nf1 = S.nd, g["cf_idx"].shape[1], g["f_area"].shape[0]
+            rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+            Ms, bs = [rnd(nd, nd, nf1) for _ in range(4)], [rnd(nd, k) for k in (nc, nf1, nf1)]
+            for t in Ms + bs[1:]:
+                t[..., -1] = 0.0
+            kbar = 1.0 + torch.rand(nc, generator=gen, device="cuda", dtype=dtype)
+            args = (g, kbar, *Ms, *bs, 1.0 / S.Lp ** 2)
+            if shared:
+                mem = {k: (v.to(dtype) if isinstance(v, torch.Tensor) and v.is_floating_point()
+                           else v) for k, v in S.mem_dev.items()}
+                out = asm.emi_emit_buffers(g, dtype, "cuda", pair)
+                tab = asm.knp_emit_tables(g, mem)
+                fn = lambda: asm.emi_emit_cell(*args, pair=pair, out=out, tables=tab)
+            else:
+                fn = lambda: asm.emi_emit_cell(*args, pair=pair)
+            report("k10etime", f"{layout} {str(dtype):14s} emi_emit_cell", fn)
+    del S_pair
+    torch.cuda.empty_cache()
+
+
+def time_start(ko, dev, gen):
+    """K9's cycle start on one work of each layout's KNP batch."""
+    for layout, (nd, nc) in (("cell", (4, 124416)), ("pair", (8, NPAIR))):
+        n = nd * nc
+        for dtype in (torch.float32, torch.float64):
+            wk = ko.gmres_work(IONS, n, 30, dtype, dev)
+            r = torch.randn((IONS, n), generator=gen, device=dev, dtype=dtype)
+            wk.tol.fill_(1e-30)
+            report("k9stime", f"{layout} {str(dtype):14s} gmres_start",
+                   lambda: ko.gmres_start(r, wk))
+
+
 def time_traces(asm, S):
     p, fused = S.params, hasattr(asm, "membrane_traces_m")
     print(f"k14time membrane_traces_m {fused}")
@@ -760,6 +818,8 @@ def main():
                 "k5": lambda: time_bj(spmv, dev, gen),
                 "k11": lambda: time_knp_facet(asm, solver(), gen),
                 "k11e": lambda: time_membrane_emit(asm, solver(), gen),
+                "k10e": lambda: time_emi_emit(asm, solver(), gen),
+                "k9s": lambda: time_start(ko, dev, gen),
                 "k12": lambda: time_emit(pairs, dev, gen),
                 "k7": lambda: time_coarse_apply(coarse, dev, gen)}
     for key in args.only.split(","):
