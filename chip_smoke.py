@@ -42,7 +42,21 @@ layout).  On the way it:
      ode_scheme="rush_larsen" (the neuron's points through the Rush-Larsen
      branch of K13's one launch a step) and asserts it as in 5;
   8. drives the gather probes P1/P2 through knpemidg_tpu_torch.probes.run
-     (their own path) and holds them against the plain gathers exactly.
+     (their own path) and holds them against the plain gathers exactly;
+  9. drives the MMS verification path (2D DG1 on mms_square, passive,
+     float64) through Solver(..., mms=...) and solve_system_passive: the
+     2D instantiations of K1, K5 and K6 (nd = 3), and K8-K11 and K14 at
+     their 2D shapes (K9 one system a solve), against their plain versions
+     at the largest mesh's shapes (mms_square(7), 32,768 triangles); the
+     space table (res 2-7, direct solves) and the time
+     table (res 4, seven dt halvings, direct) against the JAX package's
+     nightly gates and, at res 2-5 and every dt, its CPU errors
+     (MMS_SPACE_ERRORS, MMS_TIME_ERRORS, rel 1e-6); and the iterative
+     solves at res 3 and 5 (tests/test_mms_iterative.py's parameters, the
+     launch counters reset first) against the direct ones, their Krylov
+     counts printed beside the JAX package's CPU counts and asserted equal
+     to the card's recorded ones (MMS_COUNTS), every kernel of the path
+     launched.
 
 Usage:  python3 chip_smoke.py      (exits non-zero on any failure)
 The last line is {"ok": true, "device": {...}}; the line before it the
@@ -76,7 +90,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 # solve_scale); K7's one-launch apply (two_level_coarse_batched) the same
 # against the three plain steps, and bit for bit against its three
 # launches.
-TWO_LEVEL = [f"two_level_{e}{b}{p}" for b in ("", "_batched") for p in ("", "_pair")
+TWO_LEVEL = [f"two_level_{e}{b}{p}" for b in ("", "_batched") for p in ("", "_pair", "_nd3")
              for e in ("restrict", "solve", "prolong")] + [
     f"two_level_coarse_batched{p}" for p in ("", "_pair")]
 # The assembly kernels (K10, K11, K14): the cell, facet, membrane and trace
@@ -105,28 +119,34 @@ ASSEMBLY_EXACT = ("emi_emit_cell",)
 KRYLOV = {"pcg_dot": ":101", "pcg_update": ":105", "pcg_dot2_direction": ":108",
           "gmres_start": ":319", "gmres_cgs_dot": ":305", "gmres_arnoldi": ":385",
           "gmres_solve_update": ":445"}
-KRYLOV_TOL = {torch.float32: {k + p: 1e-5 for k in KRYLOV for p in ("", "_pair")},
-              torch.float64: {k + p: 1e-12 for k in KRYLOV for p in ("", "_pair")}}
+# the suffix of a layout's rows: the MMS path's 2D shapes are the "_nd3" rows
+SUFFIX = {"cell": "", "pair": "_pair", "mms": "_nd3"}
+KRYLOV_TOL = {torch.float32: {k + p: 1e-5 for k in KRYLOV for p in SUFFIX.values()},
+              torch.float64: {k + p: 1e-12 for k in KRYLOV for p in SUFFIX.values()}}
 TOL = {torch.float32: {"bell_matvec": 1e-5, "block_jacobi_apply": 1e-5,
                        "block_jacobi_inverse": 1e-5, "membrane_rk4": 1e-4,
                        "membrane_rl": 1e-4, "pgather": 0.0, "pgather2": 0.0,
                        **KRYLOV_TOL[torch.float32],
                        "pair_matvec": 1e-5, "block_jacobi_inverse_nd8": 1e-5,
                        "block_jacobi_apply_nd8": 1e-5, "to_pair": 0.0,
+                       "bell_matvec_nd3": 1e-5, "block_jacobi_inverse_nd3": 1e-5,
+                       "block_jacobi_apply_nd3": 1e-5,
                        "from_pair": 0.0, "gather_blocks_pair": 0.0,
                        **{k: 1e-5 for k in TWO_LEVEL},
                        **{k + p: 0.0 if k in ASSEMBLY_EXACT else 1e-5
-                          for k in ASSEMBLY for p in ("", "_pair")}},
+                          for k in ASSEMBLY for p in SUFFIX.values()}},
        torch.float64: {"bell_matvec": 1e-12, "block_jacobi_apply": 1e-12,
                        "block_jacobi_inverse": 1e-12, "membrane_rk4": 1e-12,
                        "membrane_rl": 1e-12, "pgather": 0.0, "pgather2": 0.0,
                        **KRYLOV_TOL[torch.float64],
                        "pair_matvec": 1e-12, "block_jacobi_inverse_nd8": 1e-12,
                        "block_jacobi_apply_nd8": 1e-12, "to_pair": 0.0,
+                       "bell_matvec_nd3": 1e-12, "block_jacobi_inverse_nd3": 1e-12,
+                       "block_jacobi_apply_nd3": 1e-12,
                        "from_pair": 0.0, "gather_blocks_pair": 0.0,
                        **{k: 1e-12 for k in TWO_LEVEL},
                        **{k + p: 0.0 if k in ASSEMBLY_EXACT else 1e-12
-                          for k in ASSEMBLY for p in ("", "_pair")}}}
+                          for k in ASSEMBLY for p in SUFFIX.values()}}}
 # dtype of the asserted protocol runs: float64 converges in a few Krylov
 # iterations per step; float32 at the same tolerances can stall
 MAIN_DTYPE = torch.float64
@@ -173,6 +193,56 @@ WINDOW_COUNTS = {
                 [17, 7], [14, 6]])}
 KRYLOV_ROWS = 4           # populated basis rows at which K9 is checked and timed
 
+# The MMS verification path: the JAX package's nightly protocol
+# (tests/test_mms_space.py, tests/test_mms_time.py,
+# tests/test_mms_iterative.py), float64 on the card
+MMS_D_SUB = {"a": {1: 6.0, 0: 5.0}, "b": {1: 3.0, 0: 4.0}, "c": {1: 1.0, 0: 2.0}}
+MMS_C_SUB = {"a": {1: 1.0, 0: 2.0}, "b": {1: 2.0, 0: 4.0}, "c": {1: 3.0, 0: 2.0}}
+MMS_Z = {"a": 1.0, "b": -1.0, "c": 1.0}
+MMS_DT_SPACE = 1e-10      # two steps: C_phi = 1 / dt = 1e10
+MMS_TSTOP = 2.0e-2        # the time table's final time
+MMS_SPACE_RES = (2, 3, 4, 5, 6, 7)
+MMS_TIME_RES, MMS_TIME_HALVINGS = 4, 7
+MMS_ITER_RES = (3, 5)
+# the L2 errors of a, b, c and the mean-shifted phi of the JAX package's
+# nightly runs on the CPU in float64 (tests/test_mms_space.py
+# run_resolution at res 2-5, tests/test_mms_time.py run_dt at res 4 and
+# dt = 1e-2 / 2^i): the card's must agree to rel 1e-6
+MMS_SPACE_ERRORS = {
+    2: {"a": 0.04169368245180822, "b": 0.06254052344451493, "c": 0.07516435688737634,
+        "phi": 0.11561453796144025},
+    3: {"a": 0.012010742810881865, "b": 0.01801611207693895, "c": 0.021652676757950184,
+        "phi": 0.04605370240235351},
+    4: {"a": 0.0031109307180738873, "b": 0.0046663929508508695, "c": 0.005608312172387485,
+        "phi": 0.013703528328414268},
+    5: {"a": 0.0007846445293795882, "b": 0.001176963244944192, "c": 0.0014145400020589068,
+        "phi": 0.003618437519942686}}
+MMS_TIME_ERRORS = {
+    1: {"a": 0.003364086128941288, "b": 0.0034344013520871564, "c": 0.006730935338706914,
+        "phi": 0.0008393023663013415},
+    2: {"a": 0.0018298407391779197, "b": 0.0018520329039482298, "c": 0.0036480808741679136,
+        "phi": 0.0005081698697028704},
+    3: {"a": 0.0009515211277065133, "b": 0.0009586840562121026, "c": 0.0018931871098276636,
+        "phi": 0.0002713403695774523},
+    4: {"a": 0.0004841392377948614, "b": 0.0004866170468787458, "c": 0.0009621991418316762,
+        "phi": 0.00013935686952712165},
+    5: {"a": 0.0002440354460437987, "b": 0.0002449771919857959, "c": 0.00048472022199108156,
+        "phi": 7.053356876454283e-05},
+    6: {"a": 0.00012249461528960197, "b": 0.00012288802899625625, "c": 0.00024323276853664913,
+        "phi": 3.547057941652979e-05},
+    7: {"a": 6.136522781447516e-05, "b": 6.154207352309794e-05, "c": 0.00012183141092018841,
+        "phi": 1.7784812808966076e-05}}
+MMS_ERROR_TOL = 1e-6
+# the iterative runs' Krylov counts (EMI a step, KNP a step and ion): the
+# JAX package's on the CPU (tests/test_mms_iterative.py's run), printed
+# beside the card's, and the card's as measured (PERF.md); the EMI PCG
+# stagnates at rtol 1e-13 with C_phi = 1e10, so round-off moves its counts:
+# a change to a kernel of this path that moves its output bits re-records
+# MMS_COUNTS (the check that decides correctness is iterative against
+# direct)
+MMS_JAX_COUNTS = {3: ([3645, 1166], [[2, 2], [2, 2]]), 5: ([28236, 8528], [[3, 2], [3, 2]])}
+MMS_COUNTS = {3: ([3719, 1535], [[2, 2], [2, 2]]), 5: ([28105, 8193], [[3, 2], [3, 2]])}
+
 # kernel -> (source, the TPU-side function it replaces, the path it serves
 # [, the launch counter when it is not the kernel's name])
 KERNELS = {
@@ -210,18 +280,32 @@ KERNELS = {
     **{f"two_level_coarse_batched{'_pair' if p == 'pair' else ''}": (
         "knpemidg_tpu_torch/csrc/two_level.cu", "knpemidg_tpu/solvers/twolevel.py:907", p,
         "two_level_coarse_batched") for p in ("cell", "pair")},
-    # K10, K11, K14 at each layout's cell axis; one counter serves both
-    **{f"{k}{'_pair' if p == 'pair' else ''}": (
-        "knpemidg_tpu_torch/csrc/" + src, repl, p, k)
-       for p in ("cell", "pair") for k, (src, repl) in ASSEMBLY.items()},
-    # K8 (the EMI PCG) and K9 (the KNP batched GMRES) at each layout's shapes
-    **{f"{k}{'_pair' if p == 'pair' else ''}": (
+    # K10, K11, K14 at each layout's cell axis, and at the MMS path's 2D
+    # shapes (alpha_sum is not on that path); one counter serves all three
+    **{k + SUFFIX[p]: ("knpemidg_tpu_torch/csrc/" + src, repl, p, k)
+       for p in ("cell", "pair", "mms") for k, (src, repl) in ASSEMBLY.items()
+       if not (p == "mms" and k == "alpha_sum")},
+    # K8 (the EMI PCG) and K9 (the KNP GMRES: the ion batch on the 3D
+    # layouts, one system a solve on the MMS path) at each layout's shapes
+    **{k + SUFFIX[p]: (
         "knpemidg_tpu_torch/csrc/" + ("pcg.cu" if k.startswith("pcg") else "gmres.cu"),
         "knpemidg_tpu/solvers/krylov.py" + line, p, k)
-       for p in ("cell", "pair") for k, line in KRYLOV.items()},
+       for p in ("cell", "pair", "mms") for k, line in KRYLOV.items()},
     # K13's Rush-Larsen scheme: its own window; the probes: their own run
     "membrane_rl": ("knpemidg_tpu_torch/csrc/membrane_rk4.cu",
                     "knpemidg_tpu/membrane/engine.py:129", "rl"),
+    # the 2D instantiations (nd = 3: K1 at K = 4, K5, K6's restrict and
+    # prolong-add; the solve is nd-free) at the MMS path's shapes
+    "bell_matvec_nd3": ("knpemidg_tpu_torch/csrc/bell_matvec.cu",
+                        "knpemidg_tpu/ops/spmv.py:17", "mms"),
+    "block_jacobi_inverse_nd3": ("knpemidg_tpu_torch/csrc/block_jacobi.cu",
+                                 "knpemidg_tpu/ops/spmv.py:102", "mms"),
+    "block_jacobi_apply_nd3": ("knpemidg_tpu_torch/csrc/block_jacobi.cu",
+                               "knpemidg_tpu/ops/spmv.py:131", "mms"),
+    **{f"two_level_{e}_nd3": ("knpemidg_tpu_torch/csrc/two_level.cu",
+                              "knpemidg_tpu/solvers/twolevel.py:784", "mms",
+                              "two_level_solve" if e == "solve" else f"two_level_{e}_nd3")
+       for e in ("restrict", "solve", "prolong")},
     "pgather": ("knpemidg_tpu_torch/csrc/gather_probe.cu", "tools/profile_shapes.py:74",
                 "probe"),
     "pgather2": ("knpemidg_tpu_torch/csrc/gather_probe.cu", "tools/profile_shapes.py:103",
@@ -249,6 +333,9 @@ PATH_KERNELS["rl"] = [k for k in PATH_KERNELS["cell"] if k != "membrane_rk4"] + 
 # K13 launches a step of each path's run: (membrane_rk4, membrane_rl)
 ODE_LAUNCHES_PER_STEP = {"cell": (1, 0), "pair": (1, 0), "rl": (0, 1)}
 PATH_KERNELS["probe"] = ["pgather", "pgather2"]
+# the MMS path's iterative runs: the 2D rows, K8, K9 (one system a solve),
+# K10, K11 without alpha_sum (the MMS membrane data replace alpha's), K14
+PATH_KERNELS["mms"] = sorted({counter(k) for k, v in KERNELS.items() if v[2] == "mms"})
 
 
 def report_window(S, dtype, layout, variant=""):
@@ -545,10 +632,11 @@ def bits(t):
     return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
 
 
-def coarse_phase(layout, co, r, results, mask=None):
-    """K6 (co.batched False) or K7 at one layout's shapes: restrict, solve
-    and prolong_add against their plain versions on the same inputs, timed
-    with their bounds.  solve and prolong_add run as the apply calls them:
+def coarse_phase(layout, co, r, results, mask=None, record=True):
+    """K6 (co.batched False) or K7 at one layout's shapes (layout "mms":
+    the 2D rows, nd = 3): restrict, solve and prolong_add against their
+    plain versions on the same inputs, timed with their bounds (checked
+    only without ``record``).  solve and prolong_add run as the apply calls them:
     on the workspace's buffers (restrict's and solve's outputs, here loaded
     with the plain versions' values), the prolong-add with the pair
     layout's live ``mask``.  K7's operands (no fields, no As) also take the
@@ -557,7 +645,7 @@ def coarse_phase(layout, co, r, results, mask=None):
     from knpemidg_tpu_torch.ops import coarse
 
     dtype = r.dtype
-    sfx = ("_batched" if co.batched else "") + ("_pair" if layout == "pair" else "")
+    sfx = ("_batched" if co.batched else "") + {"pair": "_pair", "mms": "_nd3"}.get(layout, "")
     name = lambda e: f"two_level_{e}{sfx}"
     a = coarse_abs(co)
     fields = [t for t in (co.OH, co.W, co.Wr) if t is not None]
@@ -576,7 +664,7 @@ def coarse_phase(layout, co, r, results, mask=None):
             lambda: nonempty(coarse.restrict_plain(co, r)),
             lambda ref: nonempty(coarse.restrict_plain(a, r.abs())), results,
             inputs=[r], extra_bytes=span_bytes, whole_bytes=whole([r]),
-            flops=field_flops + r.numel())
+            flops=field_flops + r.numel(), record=record, graph=layout == "mms")
     rc, proj = coarse.restrict_plain(co, r)
     wk = co.work
     wk.rc.copy_(rc)
@@ -590,7 +678,7 @@ def coarse_phase(layout, co, r, results, mask=None):
             lambda ref: solve_scale(co, rc, proj), results,
             inputs=[rc, proj] + mats,
             flops=2.0 * m * n * n * (3 if co.As is not None else 1),
-            library_fn=lambda: dense_gemvs(co, x))
+            library_fn=lambda: dense_gemvs(co, x), record=record, graph=layout == "mms")
     zc, coef = coarse.solve_plain(co, rc, proj)
     wk.zc.copy_(zc)
     wk.coef.copy_(coef)
@@ -605,8 +693,9 @@ def coarse_phase(layout, co, r, results, mask=None):
             whole_bytes=whole([out0, zc, coef] + masks),
             flops=field_flops + (3.0 if masks else 2.0) * r.numel(),
             timed=(lambda: coarse.prolong_add(co, bufs[0], wk.zc, wk.coef, mask),
-                   lambda: coarse.prolong_add_plain(co, bufs[1], zc, coef, mask)))
-    if co.work.fused is None:
+                   lambda: coarse.prolong_add_plain(co, bufs[1], zc, coef, mask)),
+            record=record, graph=layout == "mms")
+    if co.work.fused is None or nd not in coarse.FUSED_ND:
         return
     fused = "two_level_coarse_batched" + ("_pair" if layout == "pair" else "")
     three = coarse.prolong_add(co, out0.clone(), *coarse.solve(co, *coarse.restrict(co, r)),
@@ -996,7 +1085,8 @@ def pair_kernel_phase(S, state, results):
 
 def krylov_phase(S, results, layout):
     """K8 and K9 at one layout's main-path shapes (the EMI vector, the KNP
-    batch of S.N_ions systems) on seeded random inputs: each entry point
+    batch of S.N_ions systems; on the MMS path one system a solve at its
+    restart) on seeded random inputs: each entry point
     against its plain version, the basis populated in KRYLOV_ROWS
     orthonormal rows (zero beyond them, as the plain versions' basis is),
     timed with its bound; the library calls are the reference's
@@ -1007,11 +1097,14 @@ def krylov_phase(S, results, layout):
     from knpemidg_tpu_torch.ops import krylov_ops as ko
 
     pair = layout == "pair"
-    name = lambda k: k + ("_pair" if pair else "")
+    name = lambda k: k + SUFFIX[layout]
     nd, dev = S.nd, S.c_init.device
     ncol = S.pairs["int_f"].shape[0] if pair else S.n_cells
     vshape = (2 * nd if pair else nd, ncol)
-    mb, m = S.N_ions, emix.solver_params().gmres_restart
+    if layout == "mms":
+        mb, m = 1, mms_params_iterative().gmres_restart
+    else:
+        mb, m = S.N_ions, emix.solver_params().gmres_restart
     n = vshape[0] * ncol
     J = KRYLOV_ROWS - 1
     gen = torch.Generator(device=dev)
@@ -1363,16 +1456,17 @@ def cast_tables(d, dtype):
 
 
 def assembly_phase(S, state, results, layout):
-    """The assembly kernels (K10, K11, K14) on one layout's cell axis: each
-    entry point against its plain version on the same inputs, at a state
-    perturbed from the initial one with a seeded generator (so the upwind
-    switch takes both signs and the membrane terms are nonzero), timed with
-    its bound.  The emit kernels must equal their plain versions exactly;
-    the others are measured against each value's sum of |terms|."""
+    """The assembly kernels (K10, K11, K14) on one layout's cell axis (the
+    MMS path's: its 2D shapes, alpha_sum not on it): each entry point
+    against its plain version on the same inputs, at a state perturbed from
+    the initial one with a seeded generator (so the upwind switch takes
+    both signs and the membrane terms are nonzero), timed with its bound.
+    The emit kernels must equal their plain versions exactly; the others
+    are measured against each value's sum of |terms|."""
     from knpemidg_tpu_torch.ops import assembly as asm
 
     pair = layout == "pair"
-    name = lambda k: k + ("_pair" if pair else "")
+    name = lambda k: k + SUFFIX[layout]
     p, m = S.params, S.N_ions
     def floored(scale_fn):
         """Error scales with the dtype's smallest normal number added where
@@ -1390,6 +1484,11 @@ def assembly_phase(S, state, results, layout):
     rand = lambda t: torch.rand(t.shape, generator=gen, device=t.device, dtype=t.dtype)
     randn = lambda t: torch.randn(t.shape, generator=gen, device=t.device, dtype=t.dtype)
     pM0, Ich0, _ = S._pads(state)
+    if not float(pM0.abs().max()) > 0.0:
+        # the MMS problems start from phi_M = 0: perturb around 1 (the pad
+        # entry stays 0)
+        pM0 = torch.ones_like(pM0)
+        pM0[-1] = 0.0
     vscale = float(pM0.abs().max())
     c64 = (state["c"] * (0.99 + 0.02 * rand(state["c"]))).contiguous()
     ce64 = (state["c_elim"] * (0.99 + 0.02 * rand(state["c_elim"]))).contiguous()
@@ -1461,12 +1560,13 @@ def assembly_phase(S, state, results, layout):
                 graph=True)
 
         # --- K11 -----------------------------------------------------------
-        compare(name("alpha_sum"), dtype, lambda: [asm.alpha_sum(zall, Dall, call)],
-                lambda: [asm.alpha_sum_plain(zall, Dall, call)],
-                floored(lambda ref: [asm.alpha_sum_plain(zall.abs(), Dall, call.abs())]),
-                results,
-                inputs=[zall, Dall, call],
-                library_fn=lambda: torch.einsum("k,kc,kic->ic", zall * zall, Dall, call))
+        if layout != "mms":
+            compare(name("alpha_sum"), dtype, lambda: [asm.alpha_sum(zall, Dall, call)],
+                    lambda: [asm.alpha_sum_plain(zall, Dall, call)],
+                    floored(lambda ref: [asm.alpha_sum_plain(zall.abs(), Dall, call.abs())]),
+                    results,
+                    inputs=[zall, Dall, call],
+                    library_fn=lambda: torch.einsum("k,kc,kic->ic", zall * zall, Dall, call))
         asum = asm.alpha_sum_plain(zall, Dall, call)
         compare(name("knp_cell"), dtype, lambda: list(asm.knp_cell(g, phi, c, p.dt)),
                 lambda: list(asm.knp_cell_plain(g, phi, c, p.dt)),
@@ -1490,7 +1590,7 @@ def assembly_phase(S, state, results, layout):
             raise AssertionError("the perturbed state has a zero membrane rhs")
         statics = None if pair else statics64.to(dtype)
         membrane_emit_phase(S, g, mem, ga, mema, mem_args, drift, MK, b_cellK, statics, pair,
-                            dtype, results, floored)
+                            dtype, results, floored, name("knp_membrane_emit"))
 
         # --- K14: a step's two launches (every ion's ODE-input traces in
         # one call, the finalize jump in the other), then one call of each
@@ -1552,7 +1652,7 @@ def assembly_phase(S, state, results, layout):
 
 
 def membrane_emit_phase(S, g, mem, ga, mema, mem_args, drift, MK, b_cellK, statics, pair,
-                        dtype, results, floored):
+                        dtype, results, floored, row):
     """K11's one-call membrane rhs and emit (knp_membrane_emit) as the
     step calls it, with static tables built once and into buffers made
     once: the blocks and the rhs exactly the plain emit's (the rhs on the
@@ -1586,7 +1686,7 @@ def membrane_emit_phase(S, g, mem, ga, mema, mem_args, drift, MK, b_cellK, stati
             lambda _: list(abs_b))(ref)
 
     c, asum, phi = mem_args[2], mem_args[3], mem_args[4]
-    compare("knp_membrane_emit" + ("_pair" if pair else ""), dtype, kernel, plain, scales,
+    compare(row, dtype, kernel, plain, scales,
             results,
             inputs=[mem["Rp"], mem["Rm"], tab.mcell, tab.area, tab.slots, tab.cells, g["w_f"],
                     g["vol"], g["phibar"], z, D, drift, b_cellK] + list(mem_args[5:])
@@ -1760,17 +1860,287 @@ def f32_window(mesh, layout):
 
 
 # launches of a kernel in one of its timed calls (one per system of the
-# step: EMI and KNP; membrane_trace: a step's ODE-input traces and its
-# finalize jump); 1 where not listed (K13: one launch for both tags).  A
+# step: EMI and KNP; the 2D rows: EMI and each of the two ions;
+# membrane_trace: a step's ODE-input traces and its finalize jump); 1
+# where not listed (K13: one launch for both tags).  A
 # launch here and in the rank lines is a counted wrapper call: knp_facet's
 # one is its two kernels, the scalars and the sweep
 LAUNCHES_PER_TIMING = {k: 2 for k in (
     "bell_matvec", "block_jacobi_inverse", "block_jacobi_apply",
     "pair_matvec", "to_pair", "from_pair", "gather_blocks_pair",
     "block_jacobi_inverse_nd8", "block_jacobi_apply_nd8", "membrane_trace",
-    "membrane_trace_pair")}
+    "membrane_trace_pair", "membrane_trace_nd3")}
+LAUNCHES_PER_TIMING.update({k: 3 for k in (
+    "bell_matvec_nd3", "block_jacobi_inverse_nd3", "block_jacobi_apply_nd3")})
 # K14 launches a step: every ion's ODE-input traces in one, the jump in one
 TRACE_LAUNCHES_PER_STEP = 2
+
+
+# ---------------------------------------------------------------------------
+# the MMS verification path
+# ---------------------------------------------------------------------------
+
+def mms_solver(res, dt, kind, device="cuda"):
+    """An MMS solver on mms_square(res) through the user entry points (the
+    card unless ``device`` names another), set up for solve_system_passive,
+    and its problem: the space (``kind`` "space") or time manufactured
+    solution of the JAX package's nightly tests."""
+    from knpemidg_tpu_torch.config import Ion, PhysicalParams
+    from knpemidg_tpu_torch.mesh.generators import mms_square
+    from knpemidg_tpu_torch.mms.problems import setup_mms_space, setup_mms_time
+    from knpemidg_tpu_torch.solver import Solver
+
+    import sympy  # noqa: F401  (the MMS problems are derived with sympy: fail here without it)
+
+    C_phi = 1.0 / dt
+    mms = (setup_mms_space if kind == "space" else setup_mms_time)({
+        "F": 1.0, "R": 1.0, "temperature": 1.0, "C_phi": C_phi,
+        "z": [MMS_Z[n] for n in "abc"], "D": [MMS_D_SUB[n] for n in "abc"],
+        "C": [MMS_C_SUB[n] for n in "abc"]})
+    params = PhysicalParams(dt=dt, F=1.0, R=1.0, temperature=1.0, C_M=1.0, C_phi=C_phi,
+                            phi_M_init=0.0, phi_M_init_type="constant",
+                            rho_sub={0: 0.0, 1: 0.0})
+    ions = [Ion(name=n, z=MMS_Z[n], D_sub=MMS_D_SUB[n],
+                c_init_sub={s: mms.init_c[k][s] for s in (0, 1)},
+                c_init_sub_type="expression", C_sub=MMS_C_SUB[n])
+            for k, n in enumerate("abc")]
+    kw = {} if device == "cuda" else {"device": device}
+    S = Solver(params, ions, mms=mms, **kw)
+    S.setup_domain(mms_square(res))
+    S.setup_parameters()
+    S.setup_FEM_spaces()
+    return S, mms
+
+
+def mms_params_direct():
+    from knpemidg_tpu_torch.config import SolverParams
+
+    return SolverParams(direct_emi=True, direct_knp=True)
+
+
+def mms_params_iterative():
+    """tests/test_mms_iterative.py's SolverParams."""
+    from knpemidg_tpu_torch.config import SolverParams
+
+    return SolverParams(direct_emi=False, direct_knp=False, rtol_emi=1e-13, atol_emi=0.0,
+                        rtol_knp=1e-12, atol_knp=0.0, max_it_emi=50000, max_it_knp=5000,
+                        gmres_restart=40)
+
+
+def mms_errors(S, mms, state, T=None):
+    """The L2 errors of a, b, c and the mean-shifted phi (the nightly tests'
+    norms, on the host)."""
+    from knpemidg_tpu_torch.fem.norms import integral, l2_error
+
+    mesh = S.mesh
+    ex = (lambda f: f) if T is None else (lambda f: (lambda x: f(x, T)))
+    c = state["c"].cpu().numpy().transpose(0, 2, 1)
+    fields = [c[0], c[1], state["c_elim"].cpu().numpy().T]
+    errs = {}
+    for k, (name, u) in enumerate(zip("abc", fields)):
+        errs[name] = float(np.sqrt(sum(
+            l2_error(mesh, u, ex(mms.exact_c[k][s]), subdomain=s) ** 2 for s in (0, 1))))
+    phi = state["phi"].cpu().numpy().T
+    shift = sum(integral(mesh, ex(mms.exact_phi[s]), subdomain=s)
+                for s in (0, 1)) - integral(mesh, phi)
+    errs["phi"] = float(np.sqrt(sum(
+        l2_error(mesh, phi, ex(mms.exact_phi[s]), subdomain=s, shift=-shift) ** 2
+        for s in (0, 1))))
+    return errs
+
+
+def mms_rates(xs, errs, key):
+    es = np.array([e[key] for e in errs])
+    return np.log(es[1:] / es[:-1]) / np.log(np.array(xs[1:]) / np.array(xs[:-1]))
+
+
+def mms_check_errors(label, errs, ref):
+    """The card's errors against the JAX package's CPU ones, rel MMS_ERROR_TOL."""
+    worst = max(abs(errs[k] - ref[k]) / ref[k] for k in ref)
+    print(f"mms     {label}: max rel diff of the errors from the JAX package's "
+          f"{worst:.3e} (tol {MMS_ERROR_TOL:.0e}) {'ok' if worst <= MMS_ERROR_TOL else 'FAIL'}")
+    if not worst <= MMS_ERROR_TOL:
+        raise AssertionError(f"MMS {label}: errors differ from the JAX package's")
+
+
+def mms_kernel_phase(results):
+    """The 2D rows at the MMS path's largest shapes, mms_square(7)'s (32,768
+    triangles): K1 at nd = 3, K = 4, K5 and K6 at nd = 3 on the EMI operator
+    and each ion's KNP operator of the space problem at the initial state,
+    their rhs, the EMI apply's two-level operands (As, compartment
+    one-hots) as make_two_level builds them, K6 also checked on a KNP ion's
+    operands (no fields, no As); then K10, K11 and K14 (assembly_phase) on
+    that solver's cell axis, and K8 and K9 (krylov_phase) at its EMI vector
+    and one KNP system of n = 3 x 32,768."""
+    from knpemidg_tpu_torch.ops import coarse, spmv
+    from knpemidg_tpu_torch.solvers.twolevel import build_two_level
+
+    S, _ = mms_solver(MMS_SPACE_RES[-1], MMS_DT_SPACE, "space")
+    S.splitting_scheme = False
+    sp = mms_params_direct()
+    st = S.attach_pc(S._initial_state(0.0), sp)
+    pM, _, It = S._pads(st)
+    blocks, rhs, Pd = S._assemble_emi(st["c"], st["c_elim"], pM, It, st["t"])
+    blocksK, rhsK = S._knp_assemble_mms(st["c"], st["phi"], st["t"])
+    nbr = S.g["nbr"]
+    oh, ids = S._comp_arrays()
+    print(f"shapes  mms: EMI blocks {tuple(blocks.shape)}  KNP blocks {tuple(blocksK.shape)}  "
+          f"{S.n_mem} membrane facets")
+    for dtype in (torch.float32, torch.float64):
+        B, x = blocks.to(dtype), rhs.to(dtype)
+        BK, xK = blocksK.to(dtype), rhsK.to(dtype)
+        systems = [(B, x)] + [(BK[k], xK[k]) for k in range(BK.shape[0])]
+        cells = lambda v: v.t().reshape(-1)
+        lib = bsr_library("bell_matvec_nd3", dtype, [
+            (lambda B_=B_: bell_bsr(B_, nbr), cells(v), cells(spmv.bell_matvec_plain(B_, nbr, v)))
+            for B_, v in systems])
+        compare("bell_matvec_nd3", dtype,
+                lambda: [spmv.bell_matvec(B_, nbr, v) for B_, v in systems],
+                lambda: [spmv.bell_matvec_plain(B_, nbr, v) for B_, v in systems],
+                lambda ref: [spmv.bell_matvec_plain(B_.abs(), nbr, v.abs())
+                             for B_, v in systems], results,
+                inputs=[t for B_, v in systems for t in (B_, nbr, v)],
+                flops=sum(2.0 * B_.numel() for B_, _ in systems), library_fn=lib, graph=True)
+        Ps = [Pd.to(dtype).contiguous()] + [BK[k, 0].contiguous() for k in range(BK.shape[0])]
+        compare("block_jacobi_inverse_nd3", dtype,
+                lambda: [spmv.block_jacobi_inverse(P) for P in Ps],
+                lambda: [spmv.block_jacobi_inverse_plain(P) for P in Ps],
+                lambda ref: [inv_scale(P, i) for P, i in zip(Ps, ref)], results, inputs=Ps,
+                flops=sum(bj_inv_flops(P) for P in Ps),
+                library_fn=lambda: [lib_inv(P) for P in Ps], graph=True)
+        invs = [spmv.block_jacobi_inverse(P) for P in Ps]
+        ops = [spmv.block_jacobi_operands(i) for i in invs]
+        vs = [v for _, v in systems]
+        compare("block_jacobi_apply_nd3", dtype,
+                lambda: [spmv.block_jacobi_apply(op, v) for op, v in zip(ops, vs)],
+                lambda: [spmv.block_jacobi_apply_plain(i, v) for i, v in zip(invs, vs)],
+                lambda ref: [spmv.block_jacobi_apply_plain(i.abs(), v.abs())
+                             for i, v in zip(invs, vs)], results,
+                inputs=invs + vs, flops=sum(bj_apply_flops(i) for i in invs),
+                library_fn=lambda: [lib_apply(i, v) for i, v in zip(invs, vs)], graph=True)
+        emi = build_two_level(B, nbr, AGG, sym=True, comp_onehot=oh.to(dtype), comp_ids=ids,
+                              extra_diag=Ps[0] - B[0], ridge=1e-5)
+        coarse_phase("mms", coarse.operands(emi, AGG, batched=False), x[None], results)
+        knp = build_two_level(BK[0], nbr, AGG, sym=False,
+                              mass_diag=(S.g["vol"] / S.params.dt).to(dtype), ridge=1e-5)
+        coarse_phase("mms", coarse.operands(knp, AGG, batched=False), xK[0][None].contiguous(),
+                     results, record=False)
+    assembly_phase(S, st, results, "mms")
+    krylov_phase(S, results, "mms")
+
+
+def mms_space_phase():
+    """The space table: res 2-7, two direct steps of dt 1e-10; the
+    nightly gate (the mean of the last three rates of a, b, c and phi above
+    1.85) and the errors at res 2-5 against the JAX package's."""
+    hs, errs = [], []
+    for res in MMS_SPACE_RES:
+        t0 = time.perf_counter()
+        S, mms = mms_solver(res, MMS_DT_SPACE, "space")
+        st = S.solve_system_passive(2 * MMS_DT_SPACE, 0.0, mms_params_direct())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hs.append(S.mesh.hmin())
+        errs.append(mms_errors(S, mms, st))
+        print(f"mms     space res {res}: {S.n_cells} cells, " + "  ".join(
+            f"{k} {v:.6e}" for k, v in errs[-1].items()) + f"  ({wall:.2f} s)")
+        if res in MMS_SPACE_ERRORS:
+            mms_check_errors(f"space res {res}", errs[-1], MMS_SPACE_ERRORS[res])
+    for key in ("a", "b", "c", "phi"):
+        rs = mms_rates(hs, errs, key)
+        gate = float(rs[-3:].mean())
+        print(f"mms     space rates {key}: {np.array2string(rs, precision=4)}  mean of the "
+              f"last three {gate:.4f} (gate > 1.85)")
+        if not gate > 1.85:
+            raise AssertionError(f"MMS space rates of {key} fail the gate")
+
+
+def mms_time_phase():
+    """The time table: res 4, dt = 1e-2 / 2^i for i = 1..7 to Tstop 2e-2,
+    direct; the nightly gate (the mean of the first four rates of a, b, c
+    above 0.9) and every dt's errors against the JAX package's."""
+    dts, errs = [], []
+    for i in range(1, MMS_TIME_HALVINGS + 1):
+        dt = 1e-2 / 2 ** i
+        t0 = time.perf_counter()
+        S, mms = mms_solver(MMS_TIME_RES, dt, "time")
+        st = S.solve_system_passive(MMS_TSTOP, 0.0, mms_params_direct())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        T = float(st["t"])
+        if abs(T - MMS_TSTOP) > 1e-12:
+            raise AssertionError(f"MMS time run ended at t = {T}")
+        dts.append(dt)
+        errs.append(mms_errors(S, mms, st, T))
+        print(f"mms     time dt {dt:.4e} ({len(S.stats.emi_niters)} steps): " + "  ".join(
+            f"{k} {v:.6e}" for k, v in errs[-1].items()) + f"  ({wall:.2f} s)")
+        mms_check_errors(f"time dt 1e-2/2^{i}", errs[-1], MMS_TIME_ERRORS[i])
+    for key in ("a", "b", "c"):
+        rs = mms_rates(dts, errs, key)
+        gate = float(rs[:4].mean())
+        print(f"mms     time rates {key}: {np.array2string(rs, precision=4)}  mean of the "
+              f"first four {gate:.4f} (gate > 0.9)")
+        if not gate > 0.9:
+            raise AssertionError(f"MMS time rates of {key} fail the gate")
+
+
+def mms_iterative_phase():
+    """The iterative path at res 3 and 5 (the launch counters reset before
+    the first iterative run, read after the last): each against its direct
+    run (c to atol 1e-8, the mean-shifted phi to 1e-4), its counts beside
+    the JAX package's and equal to the card's recorded ones, every kernel
+    of the path launched.  Returns the launches."""
+    from knpemidg_tpu_torch import _cuda
+
+    direct = {}
+    for res in MMS_ITER_RES:
+        S, _ = mms_solver(res, MMS_DT_SPACE, "space")
+        direct[res] = S.solve_system_passive(2 * MMS_DT_SPACE, 0.0, mms_params_direct())
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    counts = {}
+    for res in MMS_ITER_RES:
+        t0 = time.perf_counter()
+        S, _ = mms_solver(res, MMS_DT_SPACE, "space")
+        st = S.solve_system_passive(2 * MMS_DT_SPACE, 0.0, mms_params_iterative())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ref = direct[res]
+        dc = float((st["c"] - ref["c"]).abs().max())
+        dphi = float(((st["phi"] - st["phi"].mean()) - (ref["phi"] - ref["phi"].mean()))
+                     .abs().max())
+        counts[res] = (S.stats.emi_niters, S.stats.knp_niters)
+        print(f"mms     iterative res {res}: {S.n_cells} cells, EMI {counts[res][0]} KNP "
+              f"{counts[res][1]} (the JAX package on the CPU: EMI {MMS_JAX_COUNTS[res][0]} "
+              f"KNP {MMS_JAX_COUNTS[res][1]}), {wall:.2f} s, {sum(counts[res][0])} PCG "
+              f"iterations: {1e3 * wall / max(1, sum(counts[res][0])):.4f} ms an iteration "
+              f"with the set-up and the assemblies; |c - direct| {dc:.3e} (tol 1e-8), "
+              f"|phi - direct| {dphi:.3e} (tol 1e-4)")
+        if not (dc < 1e-8 and dphi < 1e-4):
+            raise AssertionError(f"MMS iterative res {res} disagrees with the direct solve")
+        if counts[res] != MMS_COUNTS[res]:
+            raise AssertionError(f"MMS iterative res {res} counts {counts[res]} differ from "
+                                 f"the recorded {MMS_COUNTS[res]}")
+    launches = dict(_cuda.LAUNCHES)
+    print(f"mms     launches {launches}")
+    missing = [k for k in PATH_KERNELS["mms"] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the mms path: {missing}")
+    if launches["alpha_sum"] or launches["bell_matvec"] or launches["two_level_coarse"]:
+        raise AssertionError("the mms path launched a kernel of the 3D paths")
+    return launches
+
+
+def mms_phase(results):
+    """The MMS verification path: its 2D kernel rows, the space and time
+    tables and the iterative runs.  Returns the iterative runs' launches."""
+    t0 = time.perf_counter()
+    mms_kernel_phase(results)
+    mms_space_phase()
+    mms_time_phase()
+    launches = mms_iterative_phase()
+    print(f"mms     phase {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def rank_kernels(results, launches_of=None):
@@ -1842,6 +2212,7 @@ def main():
         f32_window(mesh, layout)
         torch.cuda.empty_cache()
     probe_phase(results, launches)
+    launches["mms"] = mms_phase(results)
     print(f"layouts float64 median ms/step: cell {walls['cell'][0]:.2f}, pair "
           f"{walls['pair'][0]:.2f}; ODE {walls['cell'][1]:.2f} / {walls['pair'][1]:.2f}")
 

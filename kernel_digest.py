@@ -34,7 +34,16 @@ both schemes and with first_step True and False -- every tag's new states
 and parameters, phi_M and I_ch; K10's emit (k10_emit: the operator, rhs
 and P_diag on cells, A_cell, rhs and reg on pairs) on the step's facet
 blocks at the perturbed state, and K9's cycle start (k9_start) on a
-seeded residual of each layout's KNP batch, both dtypes.
+seeded residual of each layout's KNP batch, both dtypes.  The 2D
+instantiations (nd3 lines, a tree with the MMS path only) at the MMS
+path's largest mesh (mms_square(7), the space problem's initial state, as
+chip_smoke.py builds it): K1 at nd = 3, K = 4 on the EMI and each ion's
+KNP operator applied to their rhs (k1_nd3), K5's inverse and apply on
+their diagonals (k5_nd3), K6's restrict, solve and prolong-add on the
+EMI apply's two-level operands (As, compartment one-hots) and on ion 0's
+(neither) (k6_nd3), and K9 at one system: krylov.gmres on ion 0's system
+with its two-level preconditioner (k9_gmres1: the correction, the
+iterations, the residual norm).
 
 The package is imported from ``--root`` (default: this file's directory),
 so two trees, such as an unpacked parent commit and this one, can be held
@@ -256,6 +265,70 @@ def main():
         ode_digests(S, mesh, st, layout, gen)
         del S
         torch.cuda.empty_cache()
+    nd3_digests()
+
+
+def nd3_digests():
+    """The nd3 lines (see the module docstring); a tree without the MMS
+    path prints that it has none."""
+    try:
+        import chip_smoke
+        from knpemidg_tpu_torch.mms import problems  # noqa: F401
+    except ImportError:
+        print("nd3     no MMS path in this tree")
+        return
+    from knpemidg_tpu_torch.ops import coarse, spmv
+    from knpemidg_tpu_torch.solvers import krylov
+    from knpemidg_tpu_torch.solvers.twolevel import build_two_level, make_two_level
+
+    S, _ = chip_smoke.mms_solver(chip_smoke.MMS_SPACE_RES[-1], chip_smoke.MMS_DT_SPACE,
+                                 "space")
+    S.splitting_scheme = False
+    st = S.attach_pc(S._initial_state(0.0), chip_smoke.mms_params_direct())
+    pM, _, It = S._pads(st)
+    B, rhs, Pd = S._assemble_emi(st["c"], st["c_elim"], pM, It, st["t"])
+    BK, rhsK = S._knp_assemble_mms(st["c"], st["phi"], st["t"])
+    nbr, agg = S.g["nbr"], chip_smoke.AGG
+    oh, ids = S._comp_arrays()
+    inputs = digest([B, rhs, Pd, BK, rhsK])
+    for dtype in (torch.float32, torch.float64):
+        systems = [(B.to(dtype), rhs.to(dtype))] + [(BK[k].to(dtype), rhsK[k].to(dtype))
+                                                     for k in range(BK.shape[0])]
+        out = [spmv.bell_matvec(b, nbr, x) for b, x in systems]
+        torch.cuda.synchronize()
+        print(f"digest  k1_nd3       mms {str(dtype):14s} {digest(out)} (operators {inputs})")
+        Ps = [Pd.to(dtype).contiguous()] + [b[0].contiguous() for b, _ in systems[1:]]
+        invs = [spmv.block_jacobi_inverse(P) for P in Ps]
+        out = [spmv.block_jacobi_apply(i, x) for i, (_, x) in zip(invs, systems)]
+        torch.cuda.synchronize()
+        print(f"digest  k5_nd3       mms {str(dtype):14s} {digest(out)} (inverses "
+              f"{digest(invs)})")
+        b0, x0 = systems[0]
+        datas = [build_two_level(b0, nbr, agg, sym=True, comp_onehot=oh.to(dtype),
+                                 comp_ids=ids, extra_diag=Ps[0] - b0[0], ridge=1e-5),
+                 build_two_level(systems[1][0], nbr, agg, sym=False,
+                                 mass_diag=(S.g["vol"] / S.params.dt).to(dtype), ridge=1e-5)]
+        out = []
+        for data, (_, x) in zip(datas, systems):
+            co = coarse.operands(data, agg, batched=False)
+            rc, proj = (t.clone() for t in coarse.restrict(co, x[None].contiguous()))
+            zc, coef = (t.clone() for t in coarse.solve(co, rc, proj))
+            out += [rc, proj, zc, coef, coarse.prolong_add(co, x[None].clone(), zc, coef)]
+        torch.cuda.synchronize()
+        print(f"digest  k6_nd3       mms {str(dtype):14s} {digest(out)} (operands "
+              f"{digest([v for d in datas for v in d.values()])})")
+        bK, xK = systems[1]
+        pc = make_two_level(bK, bK[0], nbr, agg, sym=False,
+                            mass_diag=(S.g["vol"] / S.params.dt).to(dtype), ridge=1e-5)
+        c0 = st["c"][0].to(dtype)
+        mv = lambda v, bK=bK: spmv.bell_matvec(bK, nbr, v.contiguous())
+        r0 = (xK - mv(c0)).contiguous()
+        res = krylov.gmres(mv, r0, torch.zeros_like(r0), pc, rtol=1e-12, atol=0.0, max_it=5000,
+                           restart=40, b_ref=xK)
+        torch.cuda.synchronize()
+        print(f"digest  k9_gmres1    mms {str(dtype):14s} "
+              f"{digest([res.x, torch.tensor([res.iters]), res.resnorm])} "
+              f"(iterations {res.iters})")
 
 
 def k12_digests(S, asm, pairs, c, state, pM, Ich, Itot):

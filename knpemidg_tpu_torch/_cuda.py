@@ -43,8 +43,9 @@ SOURCE_FLAGS = {f: ("-fmad=false",) for f in ("assemble_emi.cu", "assemble_knp.c
 # call is two: its scalars and its sweep; knp_membrane_emit's, the KNP
 # assembly's membrane rhs and emit, is two: the sweep and the membrane
 # cells' rhs rows); the block-Jacobi kernels count their cell-layout
-# (nd = 4) and pair-layout (nd = 8) instantiations apart, and the two-level
-# kernels their single EMI (K6) and batched KNP (K7, "_batched") calls ("coarse": the one-launch apply of operands
+# (nd = 4), 2D (nd = 3) and pair-layout (nd = 8) instantiations apart, the
+# matvec and the two-level restrict and prolong their 2D ones ("_nd3"),
+# and the two-level kernels their single EMI (K6) and batched KNP (K7, "_batched") calls ("coarse": the one-launch apply of operands
 # without deflation fields or As, K7's on the main path).  The assembly
 # kernels (K10 emi_*, K11 alpha_sum and
 # knp_*, K14 membrane_trace and eliminated_concentration), the Krylov
@@ -56,9 +57,11 @@ LAUNCHES = {"bell_matvec": 0, "block_jacobi_inverse": 0,
             "block_jacobi_apply": 0, "membrane_rk4": 0, "membrane_rl": 0,
             "pair_matvec": 0, "to_pair": 0, "from_pair": 0,
             "gather_blocks_pair": 0, "block_jacobi_inverse_nd8": 0,
-            "block_jacobi_apply_nd8": 0,
+            "block_jacobi_apply_nd8": 0, "bell_matvec_nd3": 0,
+            "block_jacobi_inverse_nd3": 0, "block_jacobi_apply_nd3": 0,
             **{f"two_level_{e}{b}": 0 for b in ("", "_batched")
                for e in ("restrict", "solve", "prolong", "coarse")},
+            "two_level_restrict_nd3": 0, "two_level_prolong_nd3": 0,
             "emi_cell": 0, "emi_facet": 0, "emi_emit_cell": 0, "alpha_sum": 0,
             "knp_cell": 0, "knp_facet": 0, "knp_membrane_emit": 0, "membrane_trace": 0,
             "eliminated_concentration": 0,

@@ -1,4 +1,5 @@
-// Kernel A: block-ELL matvec, single and ion-batched.
+// Kernel A: block-ELL matvec, single and ion-batched, for the 3D (nd = 4,
+// K = 5) and the 2D (nd = 3, K = 4) DG1 operators.
 //
 // Replaces knpemidg_tpu/ops/spmv.py:17 bell_matvec and :37 bell_matvec_multi
 // (XLA-lowered einsum + neighbour gather on the TPU):
@@ -20,9 +21,11 @@
 //     load of a warp is 32 consecutive addresses of one (k, i, j) plane
 //     (coalesced), each thread streams K*nd values, not K*nd*nd, and the
 //     EMI launch is four times the threads in about two waves;
-//   * K is a template parameter (5, the 3D DG1 operator): a thread issues
-//     its K-1 neighbour indices first, then its nd*K gathers and block
-//     loads, so the chain is one index load and one gather deep;
+//   * K and nd are template parameters (K = 5, nd = 4: the 3D DG1
+//     operator; K = 4, nd = 3: the 2D one, triangles, whose block is 64
+//     cells x 3 rows, 6 warps): a thread issues its K-1 neighbour indices
+//     first, then its nd*K gathers and block loads, so the chain is one
+//     index load and one gather deep;
 //   * the blocks are read once, with the streaming (evict-first) cache
 //     hint, so they do not push x and the neighbour table out of L1 / L2:
 //     the four row threads of a cell gather the same x values, in the same
@@ -33,8 +36,8 @@
 // separately and added last.  No atomics: every output has one writer.
 #include "common.cuh"
 
-#define BELL_CELLS 64     // cells of a block: KNP_THREADS / (32 * nd) warps of 32
-static_assert(KNP_THREADS / (32 * 4) * 32 == BELL_CELLS, "a block is 64 cells x 4 rows");
+#define BELL_CELLS 64     // cells of a block: BELL_CELLS / 32 warps of 32 for each of nd rows
+static_assert(KNP_THREADS / (32 * 4) * 32 == BELL_CELLS, "a 3D block is 64 cells x 4 rows");
 
 template <typename T, int K, int ND>
 __global__ void __launch_bounds__(KNP_THREADS)
@@ -74,10 +77,15 @@ bell_matvec_kernel(const T* __restrict__ B, const int* __restrict__ nbr,
 template <typename T>
 static int bell_matvec_launch(const T* B, const int* nbr, const T* x, T* y,
                               int m, int K, int nd, int nc, void* stream) {
-  if (nd != 4 || K != 5) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned int)((nc + BELL_CELLS - 1) / BELL_CELLS), (unsigned int)m);
-  bell_matvec_kernel<T, 5, 4><<<grid, KNP_THREADS, 0, (cudaStream_t)stream>>>(B, nbr, x,
-                                                                              y, nc);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nd == 4 && K == 5) {
+    bell_matvec_kernel<T, 5, 4><<<grid, KNP_THREADS, 0, st>>>(B, nbr, x, y, nc);
+  } else if (nd == 3 && K == 4) {
+    bell_matvec_kernel<T, 4, 3><<<grid, BELL_CELLS * 3, 0, st>>>(B, nbr, x, y, nc);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

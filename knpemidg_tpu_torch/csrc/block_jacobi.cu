@@ -3,7 +3,8 @@
 // Replaces knpemidg_tpu/ops/spmv.py:102 block_jacobi_inverse (unrolled
 // Gauss-Jordan over the cell axis, elementwise XLA on the TPU) and :131
 // block_jacobi_apply (per-cell nd x nd GEMV), for one or m systems, at the
-// cell layout's nd = 4 and the pair layout's 2nd = 8.
+// cell layout's nd = 4 (3D) and nd = 3 (2D) and the 3D pair layout's
+// 2nd = 8.
 //
 // Bound: device-memory bandwidth.  The inverse reads and writes nd*nd values
 // per block with ~nd^3 flops in between; the apply, called in every
@@ -148,7 +149,9 @@ template <typename T>
 static int bj_inverse_launch(const T* P, T* Pinv, int m, int nd, int nc, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned int grid = knp_blocks((long long)m * nc);
-  if (nd == 4) {
+  if (nd == 3) {
+    bj_inverse_kernel<T, 3><<<grid, KNP_THREADS, 0, st>>>(P, Pinv, m, nc);
+  } else if (nd == 4) {
     bj_inverse_kernel<T, 4><<<grid, KNP_THREADS, 0, st>>>(P, Pinv, m, nc);
   } else if (nd == 8) {
     bj_inverse_kernel<T, 8><<<grid, KNP_THREADS, 0, st>>>(P, Pinv, m, nc);
@@ -166,6 +169,8 @@ static int bj_apply_launch(const T* Pinv, const T* r, T* z, int m, int nd, int n
   if (halves) {
     if (nd != 8) return (int)cudaErrorInvalidValue;
     bj_apply_kernel<T, 8, true><<<dim3(grid, 2), KNP_THREADS, 0, st>>>(Pinv, r, z, m, nc);
+  } else if (nd == 3) {
+    bj_apply_kernel<T, 3, false><<<grid, KNP_THREADS, 0, st>>>(Pinv, r, z, m, nc);
   } else if (nd == 4) {
     bj_apply_kernel<T, 4, false><<<grid, KNP_THREADS, 0, st>>>(Pinv, r, z, m, nc);
   } else if (nd == 8) {

@@ -21,7 +21,10 @@
 // added in place into the block-Jacobi apply's output (kernel B stays its
 // own launch), times the pair layout's live mask where the caller gives
 // one.  Operands without deflation fields or As (the KNP apply, K7) take
-// the three steps in one cooperative launch instead (tl_coarse_kernel).
+// the three steps in one cooperative launch instead (tl_coarse_kernel,
+// built for nd = 4 and 8).  Restrict and prolong take nd = 3 (the 2D DG1
+// cells, the MMS verification path) besides 4 and 8; at nd = 3 every
+// apply takes the three steps.
 //
 // Bound: device-memory bandwidth.  The deflation fields dominate: at the
 // cell layout's main path (124,416 cells, nd = 4, 5 compartments, 45
@@ -777,7 +780,10 @@ static int tl_restrict_launch(const T* r, const T* OH, const T* W, const T* Wr, 
     return (int)cudaErrorInvalidValue;
   const int nblk = (n_agg + cpt - 1) / cpt;
   const dim3 grid(nblk * zs, m);
-  if (nd == 4) {
+  if (nd == 3) {
+    tl_restrict_kernel<T, 3><<<grid, KNP_THREADS, smem, st>>>(
+        r, OH, W, Wr, spans, rc, partial, nc, agg, n_agg, cpt, n_comp, nw, nr, zs);
+  } else if (nd == 4) {
     tl_restrict_kernel<T, 4><<<grid, KNP_THREADS, smem, st>>>(
         r, OH, W, Wr, spans, rc, partial, nc, agg, n_agg, cpt, n_comp, nw, nr, zs);
   } else if (nd == 8) {
@@ -802,7 +808,8 @@ static int tl_restrict_launch(const T* r, const T* OH, const T* W, const T* Wr, 
 // would report it.
 template <typename T>
 static int tl_fields_prepare(int smem) {
-  const void* fns[] = {(const void*)tl_restrict_kernel<T, 4>, (const void*)tl_restrict_kernel<T, 8>,
+  const void* fns[] = {(const void*)tl_restrict_kernel<T, 3>, (const void*)tl_restrict_kernel<T, 4>,
+                       (const void*)tl_restrict_kernel<T, 8>, (const void*)tl_prolong_kernel<T, 3>,
                        (const void*)tl_prolong_kernel<T, 4>, (const void*)tl_prolong_kernel<T, 8>};
   for (const void* fn : fns) {
     cudaFuncAttributes attr;
@@ -875,7 +882,10 @@ static int tl_prolong_launch(T* out, const T* zc, const T* coef, const T* OH, co
   const dim3 grid(knp_blocks(nc), m);
   const size_t smem = (size_t)(nw + nr) * sizeof(int);
   if (smem > TL_MAX_SMEM || (n_comp + nw + nr > 0 && !spans)) return (int)cudaErrorInvalidValue;
-  if (nd == 4) {
+  if (nd == 3) {
+    tl_prolong_kernel<T, 3><<<grid, KNP_THREADS, smem, st>>>(out, zc, coef, OH, W, Wr, spans, mask,
+                                                            nc, agg, n_agg, n_comp, nw, nr);
+  } else if (nd == 4) {
     tl_prolong_kernel<T, 4><<<grid, KNP_THREADS, smem, st>>>(out, zc, coef, OH, W, Wr, spans, mask,
                                                             nc, agg, n_agg, n_comp, nw, nr);
   } else if (nd == 8) {

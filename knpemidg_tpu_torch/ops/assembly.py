@@ -445,6 +445,7 @@ def assemble_emi(
     mem_t: Dict[str, Any],
     splitting: bool = True,
     mms=None,
+    t=None,
     pm: Optional[Dict[str, Any]] = None,
     out=None,
     buffers=None,
@@ -463,17 +464,28 @@ def assemble_emi(
     (ops.pairs.emit_buffers), written and returned; ``buffers``: the EMI
     emit's (:func:`emi_emit_buffers`, made for this layout), written (on the
     cell layout returned); ``tables``: the packed slot words' tables
-    (:func:`knp_emit_tables`), packed in the call without them."""
+    (:func:`knp_emit_tables`), packed in the call without them.
+
+    ``mms`` (an MMSProblem, cell layout only): the manufactured problem's
+    interface data on the membrane (wall) facets replace the Robin source,
+    and its volume source and exterior Neumann flux at time ``t`` are added
+    to the rhs (:func:`emi_mms_facet`, :func:`emi_mms_rhs`)."""
     _degree1(g)
-    if mms is not None:
-        raise NotImplementedError("MMS verification is not ported yet")
+    if mms is not None and pm is not None:
+        raise NotImplementedError("MMS verification runs on the cell layout only")
     F, psi, C_phi, tau = phys["F"], phys["psi"], phys["C_phi"], phys["tau_emi"]
 
     kappa, kbar, flux, b_cell = emi_cell(g, ions["z"], ions["D"], ions["c"], F, psi)
-    # Robin data: splitting -> phi_M; passive -> phi_M - I_ch/C_phi.
+    # Robin data: splitting -> phi_M; passive -> phi_M - I_ch/C_phi; MMS ->
+    # none here (a zero source), its interface data below.
     # Term: + C_phi g JUMP(v) = g C_phi (v_i - v_e)
-    gr = phi_M if splitting else phi_M - I_ch_tot / C_phi
+    if mms is not None:
+        gr = torch.zeros_like(phi_M)
+    else:
+        gr = phi_M if splitting else phi_M - I_ch_tot / C_phi
     *M, b_p, b_m = emi_facet(g, masks, kappa, flux, gr, mem_t, F, C_phi, tau)
+    if mms is not None:
+        b_p, b_m = emi_mms_facet(g, masks, mms, t, C_phi, b_p, b_m)
     # preconditioner: diag blocks of B = A + kappa/Lp^2 mass
     inv_Lp2 = 1.0 / phys["Lp"] ** 2
     if pm is not None:
@@ -481,7 +493,88 @@ def assemble_emi(
                                          out=buffers, tables=tables)
         pd, pe, P_diag = gather_blocks_pair(g, pm, A_cell, *M, reg=reg, out=out)
         return (pd, pe), rhs, P_diag
-    return emi_emit_cell(g, kbar, *M, b_cell, b_p, b_m, inv_Lp2, out=buffers, tables=tables)
+    blocks, rhs, P_diag = emi_emit_cell(g, kbar, *M, b_cell, b_p, b_m, inv_Lp2, out=buffers,
+                                        tables=tables)
+    if mms is not None:
+        rhs = emi_mms_rhs(g, mms, ions["z"], F, t, rhs)
+    return blocks, rhs, P_diag
+
+
+# ---------------------------------------------------------------------------
+# MMS verification terms: torch ops outside the kernels, as the JAX package
+# computes them with jnp outside its kernels
+# ---------------------------------------------------------------------------
+
+def _wall_data(g, funcs, wall_tags, t):
+    """sum over the walls of (f_stag == wall) funcs[wall](f_qp, t) -> (nq, nf+1)."""
+    xq, stag = g["f_qp"], g["f_stag"]
+    out = torch.zeros_like(xq[:, 0, :])
+    for wall in wall_tags:
+        out = out + (stag == wall)[None, :] * funcs[wall](xq, t)
+    return out
+
+
+def _volume_source(g, f_sub, t):
+    """int_cell f v with f = f_sub[cell tag](x, t), tags 0 and 1 -> (nd, nc)."""
+    xq = g["cell_qp"]                                          # (nq, d, nc)
+    fsrc = torch.where(g["cell_tag"][None, :] == 1, f_sub[1](xq, t), f_sub[0](xq, t))
+    return g["vol"] * torch.einsum("q,qc,qi->ic", g["w_c"], fsrc, g["Phi_c"])
+
+
+def _add_exterior(g, rhs, bdry, scale):
+    """rhs + scale int_ds bdry v over the exterior facets, bdry (nq, ne)."""
+    be = scale * g["e_area"] * torch.einsum("q,qf,qif->if", g["w_f"], bdry, g["e_R"])
+    return rhs.index_add(1, g["e_c"], be)
+
+
+def emi_mms_facet(g, masks, mms, t, C_phi, b_p, b_m):
+    """The EMI facet rhs parts b_p, b_m (nd, nf+1) plus the MMS interface
+    data on the membrane facets: the Robin data C_phi g_phi JUMP(v) and the
+    flux-jump defect g_J_phi on the plus side."""
+    gphi = _wall_data(g, mms.g_phi, mms.wall_tags, t)
+    gJ = _wall_data(g, mms.g_J_phi, mms.wall_tags, t)
+    mem = masks["f_mem"][None, :]
+    bg_p, bg_m = _test_integrals(g, -C_phi * gphi, C_phi * gphi)
+    bj_p, _ = _test_integrals(g, gJ, torch.zeros_like(gJ))
+    return b_p + (bg_p + bj_p) * mem, b_m + bg_m * mem
+
+
+def emi_mms_rhs(g, mms, z, F, t, rhs):
+    """The EMI rhs (nd, nc) plus the MMS volume source f_phi and the
+    exterior Neumann term -F sum_k z_k (J_k . n) v."""
+    rhs = rhs + _volume_source(g, mms.f_phi, t)
+    bdry = torch.zeros_like(g["e_qp"][:, 0, :])
+    for k in range(len(mms.neumann)):
+        Jk = mms.neumann[k](g["e_qp"], t)                     # (nq, d, ne)
+        bdry = bdry + z[k] * torch.einsum("qdf,df->qf", Jk, g["e_n"])
+    return _add_exterior(g, rhs, bdry, -F)
+
+
+def knp_mms_facet(g, masks, mms, k, t, phi, C_e, C_i):
+    """The MMS membrane rhs parts b_p, b_m (nd, nf+1) of solved ion k: the
+    Robin data C_i g_1 v_i - C_e g_2 v_e with the constant couplings C_sub
+    and the coupling -[phi][C] avg(v) - [phi] avg(C) [v]."""
+    g1 = _wall_data(g, mms.g_robin_1[k], mms.wall_tags, t)
+    g2 = _wall_data(g, mms.g_robin_2[k], mms.wall_tags, t)
+    mem = masks["f_mem"][None, :]
+    br_p, br_m = _test_integrals(g, -C_e * g2 * mem, C_i * g1 * mem)
+    jphi = facet_trace(g, phi, "p") - facet_trace(g, phi, "m")
+    jC = C_e - C_i                # [C] = C_plus - C_minus
+    aC = 0.5 * (C_e + C_i)
+    val_p = (-jphi * jC * 0.5 - jphi * aC) * mem
+    val_m = (-jphi * jC * 0.5 + jphi * aC) * mem
+    bc_p, bc_m = _test_integrals(g, val_p, val_m)
+    return br_p + bc_p, br_m + bc_m
+
+
+def knp_mms_rhs(g, masks, mms, k, t, phi, C_e, C_i, rhs):
+    """The KNP rhs of solved ion k from its cell part ``rhs`` (nd, nc): the
+    MMS membrane parts gathered in, the volume source f_c[k] and the
+    exterior Neumann term -(J_k . n) v."""
+    b_p, b_m = knp_mms_facet(g, masks, mms, k, t, phi, C_e, C_i)
+    rhs = gather_rhs(g, rhs, b_p, b_m) + _volume_source(g, mms.f_c[k], t)
+    bdry = torch.einsum("qdf,df->qf", mms.neumann[k](g["e_qp"], t), g["e_n"])
+    return _add_exterior(g, rhs, bdry, -1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -924,6 +1017,73 @@ def assemble_knp_all(
     if pair:
         return gather_blocks_pair_multi(g, pm, blocks, *M, add=static_blocks, out=out), rhs
     return blocks, rhs
+
+
+def assemble_knp_mms(
+    g: Dict[str, Any],
+    masks: Dict[str, Any],
+    ions: Dict[str, Any],       # z (m,), D (m,nc), c_n (m,nd,nc), c_k (m,nd,nc), C_sub
+    phys: Dict[str, Any],
+    phi: torch.Tensor,          # (nd, nc)
+    *,
+    mem_t: Dict[str, Any],
+    mms,
+    t,
+    static_blocks: torch.Tensor,  # (m, K, nd, nd, nc)
+    sources: Optional[torch.Tensor] = None,   # (m, nd, nc) ion source rows, or None
+    tables=None,
+):
+    """The m solved ions' KNP operators and rhs of an MMS problem (cell
+    layout): the operator as :func:`assemble_knp_all` builds it (kernel K11
+    on the card); the rhs the mass term (vol/dt) M0 c_n, the ion
+    ``sources``, and per ion k (:func:`knp_mms_rhs`) the MMS membrane data
+    with the constant couplings ``ions["C_sub"][k]`` = (C_e, C_i), the
+    volume source and the exterior Neumann flux at time ``t``.
+
+    The MMS membrane rhs replaces the alpha-based one, so the membrane emit
+    (:func:`knp_membrane_emit`, one call with the operator's emit) runs on
+    zero membrane data -- phi, phi_M and the channel currents zero, alpha's
+    denominator one -- which makes its membrane part exactly zero; the MMS
+    parts go in through the (linear) rhs gather afterwards.
+
+    Returns (blocks (m,K,nd,nd,nc), rhs (m,nd,nc))."""
+    _degree1(g)
+    z, D = ions["z"], ions["D"]
+    c_n, c_k = ions["c_n"], ions["c_k"]
+    F, psi, C_M, dt = phys["F"], phys["psi"], phys["C_M"], phys["dt"]
+    m, nd, nc = c_k.shape
+    nm = mem_t["cp"].shape[0]
+    new = lambda fill, *shape: torch.full(shape, fill, dtype=phi.dtype, device=phi.device)
+
+    gphi, drift, b_cell = knp_cell(g, phi, c_n, dt)
+    if sources is not None:
+        b_cell = (b_cell + sources).contiguous()
+    M = knp_facet(g, masks, z, D, gphi, psi)
+    blocks, rhs, _, _ = knp_membrane_emit(
+        g, mem_t, z, D, c_k, new(1.0, nd, nc), new(0.0, nd, nc), new(0.0, nm + 1),
+        new(0.0, m, nm + 1), new(0.0, nm + 1), F, C_M, dt, psi, drift, M, b_cell,
+        static_blocks, False, tables=tables)
+    rhs = torch.stack([knp_mms_rhs(g, masks, mms, k, t, phi, *ions["C_sub"][k], rhs[k])
+                       for k in range(m)])
+    return blocks, rhs
+
+
+def ion_source_rows(g, f_sources, t):
+    """int_ECS f_k v of the solved ions' sources ``f_sources`` (callables
+    f(x, t) -> (nq, nc) at the cells-last quadrature points, or None) ->
+    (m, nd, nc), or None when no ion has one."""
+    if all(f is None for f in f_sources):
+        return None
+    ecs = (g["cell_tag"] == 0)[None, :]
+    rows = []
+    for f in f_sources:
+        if f is None:
+            rows.append(torch.zeros_like(g["G"][:, 0, :]))
+        else:
+            fq = f(g["cell_qp"], t)
+            rows.append(g["vol"] * torch.einsum("q,qc,qi->ic", g["w_c"], fq * ecs,
+                                                g["Phi_c"]))
+    return torch.stack(rows).contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -19,8 +19,11 @@ the same bits.
 
 Each wrapper runs its plain torch version (``*_plain``) for tensors on the
 CPU and launches its kernel for CUDA tensors; there is no fallback between
-the two.  The kernels take nd = 4 (cell layout) and 2nd = 8 (pair layout).
-K6 and K7 count their launches apart (``_batched`` for K7).
+the two.  The kernels take nd = 4 (cell layout) and 2nd = 8 (pair layout),
+and restrict and prolong_add nd = 3 (2D cells, the MMS verification path),
+where every apply takes the three launches (the one-launch apply is built
+for nd = 4 and 8).  K6 and K7 count their launches apart (``_batched`` for
+K7), and restrict and prolong_add their nd = 3 launches apart (``_nd3``).
 
 The two-level data is frozen for a whole Krylov solve, so :func:`operands`
 checks it once and builds the solve's workspace (:class:`CoarseWork`): the
@@ -49,7 +52,8 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _cuda
 
-COARSE_ND = (4, 8)
+COARSE_ND = (3, 4, 8)     # restrict and prolong_add
+FUSED_ND = (4, 8)         # the one-launch apply (tl_coarse_kernel)
 MAX_TILE = 1024       # a restrict block covers whole chunks of at most this many cells
 MAX_SMEM = 232448     # dynamic shared memory bytes a block can have: the
                       # solve's 3 x the largest deflation group, restrict's
@@ -106,6 +110,11 @@ def operands(data, agg: int, batched: bool) -> Coarse:
 
 def _name(entry, co: Coarse):
     return f"two_level_{entry}" + ("_batched" if co.batched else "")
+
+
+def _nd_name(name, nd):
+    """The launch counter of restrict or prolong_add at r's nd."""
+    return name if nd != 3 else name + "_nd3"
 
 
 # ---------------------------------------------------------------------------
@@ -419,9 +428,9 @@ def restrict(co: Coarse, r):
         return restrict_plain(co, r)
     wk = _work(co, "restrict")
     m, nd, nc = _check_cells("restrict", wk, "r", r, co.agg)
-    _cuda.launch(wk.names[0], "knp_tl_restrict", r.dtype, r.data_ptr(), *wk.fields,
-                 wk.rc.data_ptr(), wk.proj.data_ptr(), wk.partial.data_ptr(), m, nd, nc,
-                 *wk.restrict_tail)
+    _cuda.launch(_nd_name(wk.names[0], nd), "knp_tl_restrict", r.dtype, r.data_ptr(),
+                 *wk.fields, wk.rc.data_ptr(), wk.proj.data_ptr(), wk.partial.data_ptr(), m,
+                 nd, nc, *wk.restrict_tail)
     return wk.rc, wk.proj
 
 
@@ -465,9 +474,9 @@ def prolong_add(co: Coarse, out, zc, coef, mask=None):
     if zc is not wk.zc or coef is not wk.coef:
         _cuda.check("zc", zc, out.dtype, wk.zc.shape)
         _cuda.check("coef", coef, out.dtype, wk.coef.shape)
-    _cuda.launch(wk.names[2], "knp_tl_prolong", out.dtype, out.data_ptr(), zc.data_ptr(),
-                 coef.data_ptr(), *wk.fields, _mask_ptr(mask, out.dtype, nd, nc), m, nd, nc,
-                 *wk.prolong_tail)
+    _cuda.launch(_nd_name(wk.names[2], nd), "knp_tl_prolong", out.dtype, out.data_ptr(),
+                 zc.data_ptr(), coef.data_ptr(), *wk.fields, _mask_ptr(mask, out.dtype, nd, nc),
+                 m, nd, nc, *wk.prolong_tail)
     return out
 
 
@@ -477,12 +486,13 @@ def coarse_add(co: Coarse, out, r, mask=None):
     given; returns out.  Dispatched by operand: on the card, operands
     without deflation fields or As (the KNP apply, K7) take one
     cooperative launch of the chunk sums, the coarse solve and the
-    prolong-add (with the mask), a grid barrier between each; the others
-    (K6) restrict, solve and prolong_add, three launches.  On the CPU the
-    three plain versions in turn."""
+    prolong-add (with the mask), a grid barrier between each, at nd = 4
+    and 8; the others (K6), and every apply at nd = 3, restrict, solve and
+    prolong_add, three launches.  On the CPU the three plain versions in
+    turn."""
     if r.is_cuda:
         wk = _work(co, "coarse_add")
-        if wk.fused is not None:
+        if wk.fused is not None and r.dim() == 3 and r.shape[1] in FUSED_ND:
             m, nd, nc = _check_cells("coarse_add", wk, "r", r, co.agg)
             if out is not r:
                 _cuda.check("out", out, r.dtype, r.shape)

@@ -9,9 +9,11 @@ Kernel A (``csrc/bell_matvec.cu``) carries :func:`bell_matvec` and
 :func:`block_jacobi_inverse` and :func:`block_jacobi_apply`.  Each wrapper
 runs its plain torch version (``*_plain``) for tensors on the CPU and
 launches its kernel for CUDA tensors; there is no fallback between the two.
-Kernel A is built for the 3D DG1 operator (K = 5 slots of nd = 4 blocks),
-kernel B for its blocks and the pair layout's 8 x 8 blocks; other block
-sizes or slot counts raise on a CUDA tensor.  The apply takes the pair
+Kernel A is built for the 3D DG1 operator (K = 5 slots of nd = 4 blocks)
+and the 2D one (K = 4 slots of nd = 3 blocks), kernel B for their blocks
+and the 3D pair layout's 8 x 8 blocks; other block sizes or slot counts
+raise on a CUDA tensor.  The 2D instantiations count their launches apart
+(``_nd3``).  The apply takes the pair
 layout's 'halves' form (pair_bj = 'halves': the inverse's off-diagonal
 nd/2 x nd/2 blocks are zero and are not read), and its inverse once
 checked by :func:`block_jacobi_operands`, so an apply checks only r.
@@ -24,9 +26,9 @@ import torch
 
 from .. import _cuda
 
-MATVEC_ND = (4,)    # kernel A: 3D DG1 cell blocks
-MATVEC_K = 5        # kernel A's slots: self + the 4 facet neighbours of a tet
-BJ_ND = (4, 8)      # kernel B: cell blocks and 3D pair blocks (2nd = 8)
+MATVEC_BUILT = {4: 5, 3: 4}   # kernel A: nd -> slots K (self + the facet neighbours
+                              # of a tet, of a triangle)
+BJ_ND = (3, 4, 8)   # kernel B: 2D and 3D cell blocks and 3D pair blocks (2nd = 8)
 
 
 def _check_nd(name, nd, built):
@@ -36,7 +38,7 @@ def _check_nd(name, nd, built):
 
 
 def _bj_name(name, nd):
-    """Launch-counter name of a kernel-B instantiation."""
+    """Launch-counter name of a kernel-A or kernel-B instantiation."""
     return name if nd == 4 else f"{name}_nd{nd}"
 
 
@@ -71,12 +73,13 @@ def _bell_cuda(blocks, nbr, x, m):
     _cuda.check("blocks", blocks, x.dtype,
                 ((m,) if blocks.dim() == 5 else ()) + (K, nd, nd, nc))
     _cuda.check("nbr", nbr, torch.int32, (K, nc))
-    _check_nd("bell_matvec", nd, MATVEC_ND)
-    if K != MATVEC_K:
+    _check_nd("bell_matvec", nd, tuple(MATVEC_BUILT))
+    if K != MATVEC_BUILT[nd]:
         raise NotImplementedError(
-            f"bell_matvec: CUDA kernel built for K = {MATVEC_K} slots, got K = {K}")
+            f"bell_matvec: CUDA kernel built for K = {MATVEC_BUILT[nd]} slots at nd = {nd}, "
+            f"got K = {K}")
     y = torch.empty_like(x)
-    _cuda.launch("bell_matvec", "knp_bell_matvec", x.dtype, blocks.data_ptr(),
+    _cuda.launch(_bj_name("bell_matvec", nd), "knp_bell_matvec", x.dtype, blocks.data_ptr(),
                  nbr.data_ptr(), x.data_ptr(), y.data_ptr(), m, K, nd, nc)
     return y
 

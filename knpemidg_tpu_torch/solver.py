@@ -9,6 +9,10 @@ Per time step (the splitting scheme):
   step II (KNP): DG solves for all solved ions at once by batched GMRES,
 then phi_M = JUMP(phi) and the eliminated ion are updated.
 
+The MMS verification path (``mms``, solve_system_passive, cell layout) and
+the direct solves take the eager step of the JAX package: EMI by a host
+direct solve or PCG, then one KNP solve per ion (host direct, or GMRES).
+
 PyTorch runs eagerly, so there is no jit layer: the Krylov loops are
 Python loops and every function below works on device tensors directly.
 The solver runs on the CUDA card unless the caller names another device.
@@ -33,7 +37,8 @@ from .ops.pairs import (build_pair_maps, cell_bell_to_pair, emit_buffers, from_p
                         to_pair_host)
 from .ops.spmv import (bell_matvec, bell_matvec_fan, bell_matvec_multi,
                        block_jacobi_apply, block_jacobi_inverse, block_jacobi_operands)
-from .solvers.krylov import gmres_batched, pcg
+from .solvers.direct import solve_direct
+from .solvers.krylov import gmres, gmres_batched, pcg
 from .solvers.twolevel import (_np, build_moment_deflation, build_two_level,
                                compartment_ids, make_two_level, moment_vectors,
                                ritz_galerkin_host, ritz_lanczos_W,
@@ -47,8 +52,6 @@ from .utils.stats import SolverStats, bcolors
 def _check_supported(sp: SolverParams):
     """Raise for every solver option the port does not carry yet."""
     unsupported = []
-    if sp.direct_emi or sp.direct_knp:
-        unsupported.append("direct solves")
     if sp.emi_moment_order > 2:
         unsupported.append("emi_moment_order > 2")
     for name in ("emi_moment_host", "emi_moment_blocked",
@@ -115,21 +118,19 @@ class Traces:
 
 class Solver:
     """construct, then setup_domain -> setup_parameters -> setup_FEM_spaces
-    -> setup_membrane_model -> solve_system_active."""
+    -> setup_membrane_model -> solve_system_active; or, for an MMS problem
+    (``mms``, knpemidg_tpu_torch.mms.problems), setup_domain ->
+    setup_parameters -> setup_FEM_spaces -> solve_system_passive."""
 
     def __init__(self, params, ion_list, degree_emi=1, degree_knp=1, mms=None,
                  dtype=None, device="cuda"):
         if degree_emi != 1 or degree_knp != 1:
             raise NotImplementedError("knpemidg_tpu_torch supports DG degree 1 only")
-        if mms is not None:
-            raise NotImplementedError("MMS verification is not ported yet")
         self.params = params
         self.ion_list = [
             i if isinstance(i, Ion) else ion_from_dict(i) for i in ion_list
         ]
-        for ion in self.ion_list:
-            if callable(ion.f_source) or float(ion.f_source) != 0.0:
-                raise NotImplementedError("ion source terms are not ported yet")
+        self.mms = mms
         self.ion_names = [i.name for i in self.ion_list]
         self.N_ions = len(ion_list) - 1      # number of *solved* ions
         self.dtype = dtype or torch.float64
@@ -167,6 +168,9 @@ class Solver:
         self.nd = self.geom.nd
         ext = mesh.vertices.max(axis=0) - mesh.vertices.min(axis=0)
         self.Lp = float(ext.max())
+        if self.mms is not None:
+            # the MMS interface walls are the membrane facets
+            self._set_membrane_tags(list(self.mms.wall_tags))
         return self
 
     def enable_pair_layout(self, interleave: bool = True):
@@ -186,6 +190,11 @@ class Solver:
         Call after setup_membrane_model (the renumbering must see the
         membrane cell maps) and before attach_pc.  ``interleave=False``
         (the index-map form) is not ported."""
+        if self.mms is not None:
+            raise ValueError("enable_pair_layout: the pair layout is not for MMS verification")
+        if any(self._f_source_callable(ion) is not None for ion in self.ion_list):
+            raise NotImplementedError("enable_pair_layout: ion source terms on the pair "
+                                      "layout are not ported")
         if not interleave:
             raise NotImplementedError(
                 "enable_pair_layout(interleave=False): the non-interleaved "
@@ -373,16 +382,35 @@ class Solver:
     def _assemble_emi(self, c, c_elim, phi_M_pad, I_ch_tot_pad, t,
                       pair: bool = False, out=None, buffers=None):
         """EMI blocks (the pair operator with ``pair``), rhs and P_diag.
-        ``t`` (read by the JAX package's MMS sources only) keeps the JAX
-        signature; ``out``: the pair emit's buffers, ``buffers`` the EMI
-        emit's (see _emit_out).  The emit reads the cell-facet slots from
-        the tables the KNP membrane emit reads (_membrane_emit_tables)."""
+        ``t``: the time of the MMS data (read only with ``mms``); ``out``:
+        the pair emit's buffers, ``buffers`` the EMI emit's (see
+        _emit_out).  The emit reads the cell-facet slots from the tables
+        the KNP membrane emit reads (_membrane_emit_tables)."""
         ions = {"z": self.z, "D": self.D, "c": self._all_c(c, c_elim)}
         return assembly.assemble_emi(
             self.g, self.masks, ions, self._phys_emi(), phi_M_pad, I_ch_tot_pad,
-            mem_t=self.mem_dev, splitting=self.splitting_scheme,
+            mem_t=self.mem_dev, splitting=self.splitting_scheme, mms=self.mms, t=t,
             pm=self.pairs if pair else None, out=out, buffers=buffers,
             tables=self._membrane_emit_tables())
+
+    @staticmethod
+    def _f_source_callable(ion):
+        """``Ion.f_source`` as a callable(x_qp, t) -> (q, nc), or None: a
+        nonzero number becomes a constant source (integrated over the ECS,
+        dx(0))."""
+        fs = ion.f_source
+        if callable(fs):
+            return fs
+        val = float(fs)
+        if val == 0.0:
+            return None
+        return lambda x, t: torch.full((x.shape[0], x.shape[-1]), val, dtype=x.dtype,
+                                       device=x.device)
+
+    def _ion_sources(self, t):
+        """The solved ions' source rows (m, nd, nc), or None without sources."""
+        return assembly.ion_source_rows(
+            self.g, [self._f_source_callable(ion) for ion in self.ion_list[:self.N_ions]], t)
 
     def _live_mask(self, dtype):
         """The pair layout's (2nd, npair) live mask in ``dtype``, made once
@@ -460,6 +488,8 @@ class Solver:
     def _pde_step(self, state, solver_params: SolverParams):
         """EMI solve -> KNP solves -> state updates."""
         sp_ = solver_params
+        if self.mms is not None or sp_.direct_emi or sp_.direct_knp:
+            return self._pde_step_eager(state, sp_)
         c, c_elim, phi, t = state["c"], state["c_elim"], state["phi"], state["t"]
         pc = state.get("pc")
         phi_M_pad, I_ch_pad, I_ch_tot_pad = self._pads(state)
@@ -481,6 +511,93 @@ class Solver:
         c, stats["knp_iters"], stats["knp_converged"] = self._knp_solve_all(
             blocksK, rhsK, c, sp_, pcK=pc.get("knp") if pc else None)
         return self._finalize_step(state, stats, c, phi, t)
+
+    def _pde_step_eager(self, state, sp_: SolverParams):
+        """The step of the MMS path and the direct solves (the JAX
+        package's eager branch): EMI by the host direct solve (the constant
+        nullspace bordered) or PCG, then the KNP solves -- batched GMRES as
+        on the main path for a non-MMS problem with iterative KNP, else one
+        ion at a time, by the host direct solve or GMRES.  Each phase's
+        wall, a device synchronise at its end, goes into stats["phases"]."""
+        if self.pair_layout:
+            raise NotImplementedError("direct solves on the pair layout are not ported")
+        c, c_elim, phi, t = state["c"], state["c_elim"], state["phi"], state["t"]
+        pc = state.get("pc")
+        phi_M_pad, I_ch_pad, I_ch_tot_pad = self._pads(state)
+        phases = {}
+        mark = [_time.perf_counter()]
+
+        def phase(name):
+            _sync(self.device)
+            now = _time.perf_counter()
+            phases[name] = phases.get(name, 0.0) + now - mark[0]
+            mark[0] = now
+
+        stats = {"phases": phases}
+        blocks, rhs, Pd = self._assemble_emi(c, c_elim, phi_M_pad, I_ch_tot_pad, t)
+        phase("emi_assem")
+        if sp_.direct_emi:
+            phi = self._tensor(solve_direct(blocks, self.g["nbr"], rhs,
+                                            nullspace_constant=True)).contiguous()
+            stats["emi_iters"], stats["emi_converged"] = 0, True
+        else:
+            phi, stats["emi_iters"], stats["emi_converged"] = self._emi_solve_iterative(
+                blocks, Pd, rhs, phi, sp_, pc=pc.get("emi") if pc else None,
+                phi_prev=state.get("phi_prev"))
+        phase("emi_solve")
+
+        if self.mms is not None:
+            blocksK, rhsK = self._knp_assemble_mms(c, phi, t)
+        else:
+            blocksK, rhsK = self._knp_assemble_all(c, c_elim, phi, phi_M_pad, I_ch_pad,
+                                                   I_ch_tot_pad, t, c)
+        phase("knp_assem")
+        if self.mms is None and not sp_.direct_knp:
+            c, stats["knp_iters"], stats["knp_converged"] = self._knp_solve_all(
+                blocksK, rhsK, c, sp_, pcK=pc.get("knp") if pc else None)
+        else:
+            c, stats["knp_iters"], stats["knp_converged"] = self._knp_solve_per_ion(
+                blocksK, rhsK, c, sp_)
+        phase("knp_solve")
+        return self._finalize_step(state, stats, c, phi, t)
+
+    def _knp_solve_per_ion(self, blocksK, rhsK, c, sp_: SolverParams):
+        """One KNP solve per solved ion: the host direct solve, or
+        increment-form GMRES (krylov.gmres) with a preconditioner built
+        for the solve (_make_precond)."""
+        new_c, iters, conv = [], [], []
+        for k in range(self.N_ions):
+            B, b = blocksK[k], rhsK[k]
+            if sp_.direct_knp:
+                new_c.append(self._tensor(solve_direct(B, self.g["nbr"], b)).contiguous())
+                iters.append(0)
+                conv.append(True)
+                continue
+            mv = lambda v, B=B: self._matvec(B, v)
+            r0 = b - mv(c[k])
+            res = gmres(mv, r0, torch.zeros_like(r0), self._make_precond(B, B[0], sp_, sym=False),
+                        rtol=sp_.rtol_knp, atol=sp_.atol_knp, max_it=sp_.max_it_knp,
+                        restart=sp_.gmres_restart, b_ref=b)
+            new_c.append((c[k] + res.x).contiguous())
+            iters.append(res.iters)
+            conv.append(res.converged)
+        return torch.stack(new_c), iters, all(conv)
+
+    def _knp_assemble_mms(self, c, phi, t):
+        """The MMS KNP operators and rhs of all solved ions
+        (assembly.assemble_knp_mms): the static operator cached by
+        attach_pc, the constant couplings C_sub of each ion."""
+        cache = getattr(self, "_knp_static_blocks", {})
+        statics = cache.get(-1)
+        if statics is None:
+            statics = torch.stack([self._knp_static(k) for k in range(self.N_ions)])
+        ionsd = {"z": self.z[:self.N_ions], "D": self.D[:self.N_ions], "c_n": c, "c_k": c,
+                 "C_sub": [(float(ion.C_sub[0]), float(ion.C_sub[1]))
+                           for ion in self.ion_list[:self.N_ions]]}
+        return assembly.assemble_knp_mms(
+            self.g, self.masks, ionsd, self._phys_knp(), phi, mem_t=self.mem_dev,
+            mms=self.mms, t=t, static_blocks=statics, sources=self._ion_sources(t),
+            tables=self._membrane_emit_tables())
 
     def _matvec(self, blocks, v):
         """Block-ELL operator apply (kernel A on the card), single systems
@@ -552,8 +669,8 @@ class Solver:
         """KNP assembly for all solved ions in one pass:
         (blocks (m, K, nd, nd, nc), rhs (m, nd, nc)), or ((pdK, peK), rhs)
         on the pair layout (``out``: the pair emit's buffers, ``buffers``
-        the membrane emit's, see _emit_out).  ``t`` is unused; it keeps the
-        JAX signature."""
+        the membrane emit's, see _emit_out).  ``t``: the time of the ion
+        sources (f_source), added to the rhs."""
         call = self._all_c(c, c_elim)
         alpha_sum = assembly.alpha_sum(self.z, self.D, call)
         # the ion-stacked static operator (-1), in pair form (-2) on the
@@ -566,13 +683,15 @@ class Solver:
                 statics = cell_bell_to_pair(self.pairs, statics)
         ionsd = {"z": self.z[:self.N_ions], "D": self.D[:self.N_ions],
                  "c_n": c_n, "c_k": c}
-        return assembly.assemble_knp_all(
+        blocksK, rhsK = assembly.assemble_knp_all(
             self.g, self.masks, ionsd, self._phys_knp(), phi, alpha_sum,
             phi_M_pad, I_ch_pad[:self.N_ions], I_ch_tot_pad,
             mem_t=self.mem_dev, static_blocks=statics,
             splitting=self.splitting_scheme,
             pm=self.pairs if self.pair_layout else None, out=out, buffers=buffers,
             tables=self._membrane_emit_tables())
+        src = self._ion_sources(t)
+        return blocksK, rhsK if src is None else (rhsK + src).contiguous()
 
     def _knp_solve_all(self, blocksK, rhsK, c, sp_: SolverParams, pcK=None):
         """Batched increment-form GMRES over the ion axis: all solved ions
@@ -762,6 +881,25 @@ class Solver:
         self.state = state
         return state
 
+    def solve_system_passive(self, Tstop, t, solver_params: SolverParams, filename=None,
+                             save_fields=False, save_solver_stats=False, picard=False):
+        """No splitting and no ODE stepping, one PDE step at a time: the MMS
+        verification drivers' loop (no field or stats files: H5 output is
+        not ported; nor are Picard iterations).  Per-step walls end in a
+        device synchronise (``self.stats.step_walls``)."""
+        if filename is not None or save_fields or save_solver_stats:
+            raise NotImplementedError("H5 field and solver-stats output are not ported")
+        if picard:
+            raise NotImplementedError("Picard iterations are not ported")
+        _check_supported(solver_params)
+        self.splitting_scheme = False
+        state = self.attach_pc(self._initial_state(float(t)), solver_params)
+        n_steps = int(round(Tstop / self.params.dt))
+        for k in range(n_steps):
+            state = self._timed_pde_step(state, solver_params, k)
+        self.state = state
+        return state
+
     def run_block(self, state, solver_params: SolverParams, n_steps: int):
         """``n_steps`` full splitting steps (ODE + PDE) from ``state``; the
         counterpart of the JAX package's fused_block.  Returns
@@ -822,20 +960,26 @@ class Solver:
                                              device=self.device)
         return self._comp_onehot, self._comp_ids
 
-    def _make_precond(self, blocks, P_diag, sp_: SolverParams, pc=None):
-        """EMI preconditioner apply: two-level (from the frozen ``pc`` data,
-        or built on the spot) or plain block-Jacobi.  The KNP solve builds
-        its batched apply in _knp_solve_all."""
-        if sp_.precond == "two_level" and isinstance(blocks, tuple):
+    def _make_precond(self, blocks, P_diag, sp_: SolverParams, pc=None, sym=True):
+        """Preconditioner apply of the EMI operator (``sym``) or of one
+        ion's KNP operator (the per-ion solves): two-level (from the frozen
+        ``pc`` data, or built on the spot: the EMI one with exact
+        compartment deflation, the KNP one with the exact mass diagonal
+        vol/dt) or plain block-Jacobi.  The batched KNP solve builds its
+        apply in _knp_solve_all."""
+        kind = sp_.precond if sym else (sp_.precond_knp or sp_.precond)
+        if kind == "two_level" and isinstance(blocks, tuple):
             return self._make_precond_pair(blocks, P_diag, sp_, pc)
-        if sp_.precond == "two_level":
+        if kind == "two_level":
             if pc is not None:
                 return two_level_apply_fn(pc, P_diag, sp_.agg_size)
-            comp_onehot, comp_ids = self._comp_arrays()
+            comp_onehot, comp_ids = self._comp_arrays() if sym else (None, None)
             return make_two_level(
-                blocks, P_diag, self.g["nbr"], sp_.agg_size, sym=True,
+                blocks, P_diag, self.g["nbr"], sp_.agg_size, sym=sym,
                 comp_onehot=comp_onehot, comp_ids=comp_ids,
-                extra_diag=P_diag - blocks[0], ridge=sp_.coarse_ridge)
+                extra_diag=P_diag - blocks[0] if sym else None,
+                mass_diag=None if sym else self.g["vol"] / self.params.dt,
+                ridge=sp_.coarse_ridge)
         bj = block_jacobi_operands(block_jacobi_inverse(P_diag.contiguous()))
         return lambda r: block_jacobi_apply(bj, r.contiguous())
 
@@ -978,16 +1122,20 @@ class Solver:
     def _build_pc(self, state, sp_: SolverParams, reuse_ritz=None):
         """Frozen two-level coarse data for the EMI and the per-ion KNP
         operators at the given state: {'emi': data, 'knp': stacked data},
-        or None when neither uses the two-level preconditioner.
+        or None when neither uses the two-level preconditioner, for an MMS
+        problem (whose solves build theirs, _make_precond) and when both
+        solves are direct.
 
         The EMI data takes the Ritz deflation entries ``reuse_ritz`` when
         given (a refresh), else harvests ``emi_ritz`` fields; -1 (AUTO) is
         24 on the cell layout and 0 on the pair layout."""
+        if self.mms is not None or (sp_.direct_emi and sp_.direct_knp):
+            return None
         n_ritz = (sp_.emi_ritz if sp_.emi_ritz >= 0
                   else (0 if self.pair_layout else 24))
         pc = {}
         phi_M_pad, I_ch_pad, I_ch_tot_pad = self._pads(state)
-        if sp_.precond == "two_level":
+        if sp_.precond == "two_level" and not sp_.direct_emi:
             blocks, rhs, Pd = self._assemble_emi(state["c"], state["c_elim"],
                                                  phi_M_pad, I_ch_tot_pad, state["t"],
                                                  pair=self.pair_layout)
@@ -1020,7 +1168,7 @@ class Solver:
                 else:
                     print(f"{bcolors.WARNING} emi_ritz harvest non-finite; "
                           f"disabled for this pc build {bcolors.ENDC}")
-        if (sp_.precond_knp or sp_.precond) == "two_level":
+        if (sp_.precond_knp or sp_.precond) == "two_level" and not sp_.direct_knp:
             blocksK, _ = self._knp_assemble_all(
                 state["c"], state["c_elim"], state["phi"], phi_M_pad, I_ch_pad,
                 I_ch_tot_pad, state["t"], state["c"])

@@ -1,5 +1,5 @@
-"""Krylov solvers: preconditioned CG and batched restarted GMRES (torch
-port of knpemidg_tpu/solvers/krylov.py).
+"""Krylov solvers: preconditioned CG, restarted GMRES and its batched
+form (torch port of knpemidg_tpu/solvers/krylov.py).
 
 Convergence test: ||M^-1 r||_2 <= max(rtol * ||M^-1 b||_2, atol) -- the
 preconditioned residual norm (PETSc's KSP_NORM_PRECONDITIONED), which for
@@ -99,6 +99,37 @@ def pcg(
     return KrylovResult(x=x, iters=k, resnorm=rn, converged=bool(rn <= tol))
 
 
+def gmres(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    precond: Callable,
+    rtol: float,
+    atol: float,
+    max_it: int,
+    restart: int = 20,
+    matvec_hi: Optional[Callable] = None,
+    b_ref: Optional[torch.Tensor] = None,
+) -> KrylovResult:
+    """Left-preconditioned restarted GMRES(restart) of one system, with
+    CGS2 orthogonalisation and Givens-rotation residual estimates: the
+    batched loop of :func:`gmres_batched` with one system (kernel K9 at
+    mb = 1 on the card), whose semantics per system are the JAX package's
+    ``gmres``.  ``iters`` counts the Arnoldi steps (an int).
+
+    ``matvec_hi``: a higher-precision matvec used only for each restart's
+    residual, b - A x computed in its dtype and rounded back to b's (mixed
+    precision iterative refinement)."""
+    def one(f):
+        return lambda v: f(v[0])[None]
+
+    res = gmres_batched(one(matvec), b[None], x0[None], one(precond), rtol, atol, max_it,
+                        restart, None if b_ref is None else b_ref[None],
+                        matvec_hi=None if matvec_hi is None else one(matvec_hi))
+    return KrylovResult(x=res.x[0], iters=res.iters[0], resnorm=res.resnorm[0],
+                        converged=res.converged)
+
+
 def gmres_batched(
     matvec: Callable,
     b: torch.Tensor,
@@ -109,6 +140,7 @@ def gmres_batched(
     max_it: int,
     restart: int = 20,
     b_ref: Optional[torch.Tensor] = None,
+    matvec_hi: Optional[Callable] = None,
 ) -> KrylovResult:
     """m independent left-preconditioned GMRES(restart) solves sharing one
     Krylov loop (CGS2 orthogonalisation, Givens rotations replayed per
@@ -119,7 +151,8 @@ def gmres_batched(
     tolerance; a system that has converged freezes (identity rotation, no
     Hessenberg update, zero basis vector), so the extra shared steps cannot
     perturb its solution, and its ``iters`` count only its own steps.  Each
-    restart recomputes the preconditioned residual from scratch."""
+    restart recomputes the preconditioned residual from scratch, with
+    ``matvec_hi`` where given (see :func:`gmres`)."""
     mb = b.shape[0]
     shape = b.shape
     n = b.numel() // mb
@@ -129,8 +162,12 @@ def gmres_batched(
         return precond(matvec(v.reshape(shape))).reshape(mb, n).contiguous()
 
     def res_of(x):
-        return precond((bv - matvec(x.reshape(shape)).reshape(mb, n))
-                       .reshape(shape)).reshape(mb, n).contiguous()
+        if matvec_hi is None:
+            r = bv - matvec(x.reshape(shape)).reshape(mb, n)
+        else:
+            Ax = matvec_hi(x.reshape(shape)).reshape(mb, n)
+            r = (bv.to(Ax.dtype) - Ax).to(b.dtype)
+        return precond(r.reshape(shape)).reshape(mb, n).contiguous()
 
     m = restart
     wk = ko.gmres_work(mb, n, m, b.dtype, b.device)

@@ -85,7 +85,7 @@ def test_bell_matvec_off_the_block_matches_plain(m, dtype, tol):
     the kernel's K = 5 raises."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(19)
-    K, nc = spmv.MATVEC_K, 1000
+    K, nc = spmv.MATVEC_BUILT[4], 1000
     nbr = rng.integers(0, nc, (K, nc))
     nbr[0] = np.arange(nc)
     nb = torch.as_tensor(nbr, dtype=torch.int32, device=dev)
@@ -132,8 +132,10 @@ def test_membrane_rk4_kernel_matches_plain(name, dtype, tol):
 
 
 def test_kernels_raise_outside_the_main_path():
-    """The kernels exist for the 3D DG1 blocks (nd = 4) and the EMIx models;
-    anything else raises on a CUDA tensor instead of running plain."""
+    """The kernels exist for the 3D and 2D DG1 blocks (nd = 4, 3) and the
+    EMIx models; anything else (here 1D blocks, nd = 2 with K = 3 slots,
+    and the HH-SI model) raises on a CUDA tensor instead of running
+    plain."""
     dev = cuda_or_skip()
     mm = engine.make_membrane(hh.HodgkinHuxleySI(), np.zeros((8, 3)), device=dev)
     t = torch.tensor(0.0, dtype=torch.float64, device=dev)
@@ -141,9 +143,9 @@ def test_kernels_raise_outside_the_main_path():
         with pytest.raises(NotImplementedError):
             engine.ode_step(mm, t, 1e-4, 25, scheme=scheme)
     nc = 16
-    nbr = torch.zeros((4, nc), dtype=torch.int32, device=dev)
-    B = torch.ones((4, 3, 3, nc), dtype=torch.float64, device=dev)
-    x = torch.ones((3, nc), dtype=torch.float64, device=dev)
+    nbr = torch.zeros((3, nc), dtype=torch.int32, device=dev)
+    B = torch.ones((3, 2, 2, nc), dtype=torch.float64, device=dev)
+    x = torch.ones((2, nc), dtype=torch.float64, device=dev)
     with pytest.raises(NotImplementedError):
         spmv.bell_matvec(B, nbr, x)
     with pytest.raises(NotImplementedError):
@@ -622,8 +624,8 @@ def test_two_level_wrappers_raise_on_what_they_cannot_take():
     with pytest.raises(TypeError):                       # dtype mismatch
         coarse.prolong_add(co, out0.float(), *coarse.solve(co, *coarse.restrict(co, r)))
     co3, r3, _ = _coarse_case("k7", 4, torch.float64, dev)
-    with pytest.raises(NotImplementedError):             # nd = 3
-        coarse.restrict(co3, r3[:, :3].contiguous())
+    with pytest.raises(NotImplementedError):             # nd = 2
+        coarse.restrict(co3, r3[:, :2].contiguous())
 
 
 @pytest.mark.parametrize("case", sorted(TWO_LEVEL_CASES))
@@ -676,6 +678,159 @@ def test_two_level_solve_is_one_launch_and_allocates_nothing(case):
     kernels = _device_kernels(solves, sessions=3, want=5)
     assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
     assert len(kernels) == 5 and all("tl_solve_kernel" in k for k in kernels), kernels
+
+
+# the MMS path's largest mesh, mms_square(7): 32,768 triangles, 512 chunks
+MMS_NC = 32768
+
+
+def _nd3_system(rng, m, dtype, dev, nc=MMS_NC):
+    """A 2D block system at the MMS path's largest size: K = 4 slots of
+    3 x 3 blocks (dominant diagonal), a random neighbour table, x."""
+    nbr = rng.integers(0, nc, (4, nc))
+    nbr[0] = np.arange(nc)
+    B = rng.standard_normal((m, 4, 3, 3, nc))
+    B[:, 0, range(3), range(3), :] += 4.0
+    return (torch.as_tensor(B, dtype=dtype, device=dev),
+            torch.as_tensor(nbr, dtype=torch.int32, device=dev),
+            _rand(rng, (m, 3, nc), dtype, dev))
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_nd3_kernels_match_plain_at_the_mms_size(dtype, tol):
+    """The 2D instantiations at the MMS path's largest shapes (32,768
+    cells): K1 at nd = 3, K = 4 (one system and two), K5's inverse and
+    apply at nd = 3, and K6's restrict, solve and prolong-add at nd = 3 on
+    the EMI apply's operands (As and compartment one-hots) and on a KNP
+    ion's (neither), each against its plain version elementwise to each
+    value's sum of |terms| (the solve and the inverse: 10 x tol
+    relative); each call one launch of its _nd3 counter (the solve's:
+    two_level_solve)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(29)
+    B, nb, x = _nd3_system(rng, 2, dtype, dev)
+    n0 = dict(_cuda.LAUNCHES)
+    got = spmv.bell_matvec_multi(B, nb, x)
+    scale = spmv.bell_matvec_multi_plain(B.abs(), nb, x.abs())
+    assert float(((got - spmv.bell_matvec_multi_plain(B, nb, x)).abs() / scale).max()) < tol
+    B0, x0 = B[0].contiguous(), x[0].contiguous()
+    got = spmv.bell_matvec(B0, nb, x0)
+    scale = spmv.bell_matvec_plain(B0.abs(), nb, x0.abs())
+    assert float(((got - spmv.bell_matvec_plain(B0, nb, x0)).abs() / scale).max()) < tol
+    assert _cuda.LAUNCHES["bell_matvec_nd3"] == n0["bell_matvec_nd3"] + 2
+    assert _cuda.LAUNCHES["bell_matvec"] == n0["bell_matvec"]
+    P = B[:, 0].contiguous()
+    inv = spmv.block_jacobi_inverse(P)
+    assert rel(inv, spmv.block_jacobi_inverse_plain(P)) < 10 * tol
+    op = spmv.block_jacobi_operands(inv[0].contiguous())
+    z = spmv.block_jacobi_apply(op, x0)
+    scale = spmv.block_jacobi_apply_plain(op.Pinv.abs(), x0.abs())
+    assert float(((z - spmv.block_jacobi_apply_plain(op.Pinv, x0)).abs() / scale).max()) < tol
+    for name in ("block_jacobi_inverse_nd3", "block_jacobi_apply_nd3"):
+        assert _cuda.LAUNCHES[name] == n0[name] + 1, name
+    for groups in (("As", "comp"), ()):
+        d = tp.two_level_data(rng, 3, MMS_NC, 64, groups)
+        co = coarse.operands({k: torch.as_tensor(v, dtype=dtype, device=dev)
+                              for k, v in d.items()}, 64, batched=False)
+        assert co.work.n == 512
+        r = x0[None].contiguous()
+        n1 = dict(_cuda.LAUNCHES)
+        rc, proj = (t.clone() for t in coarse.restrict(co, r))
+        rc_p, proj_p = coarse.restrict_plain(co, r)
+        rc_s, proj_s = coarse.restrict_plain(co._replace(
+            OH=None if co.OH is None else co.OH.abs()), r.abs())
+        assert float(((rc - rc_p).abs() / rc_s).max()) < tol
+        assert proj.numel() == 0 or float(((proj - proj_p).abs() / proj_s).max()) < tol
+        zc, coef = coarse.solve(co, rc_p, proj_p)
+        zc_p, coef_p = coarse.solve_plain(co, rc_p, proj_p)
+        assert rel(zc, zc_p) < 10 * tol and (coef.numel() == 0 or rel(coef, coef_p) < 10 * tol)
+        out = coarse.prolong_add(co, x0[None].clone(), zc_p, coef_p)
+        assert rel(out, coarse.prolong_add_plain(co, x0[None].clone(), zc_p, coef_p)) < tol
+        # at nd = 3 even the KNP operands (no fields, no As) take the three
+        # launches: the one-launch apply is built for nd = 4 and 8
+        again = coarse.coarse_add(co, x0[None].clone(), r)
+        assert torch.equal(again, coarse.prolong_add(
+            co, x0[None].clone(), *coarse.solve(co, *coarse.restrict(co, r))))
+        for name in ("two_level_restrict_nd3", "two_level_solve", "two_level_prolong_nd3"):
+            assert _cuda.LAUNCHES[name] == n1[name] + 3, name
+        for name in ("two_level_restrict", "two_level_prolong", "two_level_coarse"):
+            assert _cuda.LAUNCHES[name] == n1[name], name
+
+
+def test_nd3_kernels_are_one_launch_and_allocate_nothing():
+    """At the MMS path's largest size, five K1 matvecs at nd = 3 are five
+    bell_matvec_kernel launches; five K5 applies through operands with
+    their buffer five bj_apply_kernel launches and no allocation; five K6
+    solves through the workspace of nd = 3 operands five tl_solve_kernel
+    launches and no allocation (the profiler, the caching allocator's
+    count)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(31)
+    B, nb, x = _nd3_system(rng, 1, torch.float64, dev)
+    B0, x0 = B[0].contiguous(), x[0].contiguous()
+
+    def matvecs():
+        for _ in range(5):
+            spmv.bell_matvec(B0, nb, x0)
+
+    kernels = _device_kernels(matvecs, sessions=3, want=5, match="bell_matvec_kernel")
+    assert len(kernels) == 5 and all("bell_matvec_kernel" in k for k in kernels), kernels
+    op = spmv.block_jacobi_operands(spmv.block_jacobi_inverse(B0[0].contiguous()),
+                                    buffer=True)
+    d = tp.two_level_data(rng, 3, MMS_NC, 64, ("As", "comp"))
+    co = coarse.operands({k: torch.as_tensor(v, device=dev) for k, v in d.items()}, 64,
+                         batched=False)
+    rc, proj = coarse.restrict(co, x0[None].contiguous())
+    spmv.block_jacobi_apply(op, x0)
+    coarse.solve(co, rc, proj)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+
+    def applies():
+        for _ in range(5):
+            spmv.block_jacobi_apply(op, x0)
+
+    def solves():
+        for _ in range(5):
+            coarse.solve(co, rc, proj)
+
+    kernels = _device_kernels(applies, sessions=3, want=5, match="bj_apply_kernel")
+    assert len(kernels) == 5 and all("bj_apply_kernel" in k for k in kernels), kernels
+    kernels = _device_kernels(solves, sessions=3, want=5)
+    assert len(kernels) == 5 and all("tl_solve_kernel" in k for k in kernels), kernels
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
+
+
+def test_mms_path_on_the_card_matches_the_cpu():
+    """The MMS path through the entry points at res 3 (128 triangles), the
+    solver on the card by default: the direct run's fields
+    equal the CPU's to rel 1e-10 (c, c_elim; the mean-shifted phi to
+    1e-6, its solve amplifying round-off at C_phi = 1e10); the iterative
+    run (tests/test_mms_iterative.py's parameters) matches the card's
+    direct one (c to atol 1e-8, phi to 1e-4) and goes through K1, K5 and
+    K6 at nd = 3, K8, K9 at one system, K10, K11 and K14."""
+    cuda_or_skip()
+    import chip_smoke
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        S, _ = chip_smoke.mms_solver(3, chip_smoke.MMS_DT_SPACE, "space", device=dev)
+        runs[dev] = S.solve_system_passive(2 * chip_smoke.MMS_DT_SPACE, 0.0,
+                                           chip_smoke.mms_params_direct())
+    mean_shifted = lambda p: (p - p.mean()).cpu()
+    for key in ("c", "c_elim"):
+        assert rel(runs["cuda"][key].cpu(), runs["cpu"][key]) < 1e-10, key
+    assert rel(mean_shifted(runs["cuda"]["phi"]), mean_shifted(runs["cpu"]["phi"])) < 1e-6
+    S, _ = chip_smoke.mms_solver(3, chip_smoke.MMS_DT_SPACE, "space")
+    assert S.device.type == "cuda"
+    _cuda.reset_launches()
+    it = S.solve_system_passive(2 * chip_smoke.MMS_DT_SPACE, 0.0,
+                                chip_smoke.mms_params_iterative())
+    torch.cuda.synchronize()
+    missing = [k for k in chip_smoke.PATH_KERNELS["mms"] if _cuda.LAUNCHES[k] == 0]
+    assert not missing, missing
+    assert float((it["c"] - runs["cuda"]["c"]).abs().max()) < 1e-8
+    assert float((mean_shifted(it["phi"]) - mean_shifted(runs["cuda"]["phi"])).abs().max()) < 1e-4
 
 
 def test_two_level_workspaces_coexist():
