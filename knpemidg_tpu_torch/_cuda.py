@@ -51,17 +51,20 @@ SOURCE_FLAGS = {f: ("-fmad=false",) for f in ("assemble_emi.cu", "assemble_knp.c
 # knp_*, K14 membrane_trace and eliminated_concentration), the Krylov
 # kernels (K8 pcg_*, K9 gmres_*: gmres_arnoldi is a whole Arnoldi step)
 # serve both layouts; K13's one launch for every tag counts as membrane_rl
-# when a tag of it runs Rush-Larsen, else as membrane_rk4; pgather /
+# when a tag of it runs Rush-Larsen, else as membrane_rk4, and its ode_run
+# launch (many steps of one tag) as membrane_run; pgather /
 # pgather2 are the gather probes P1 / P2
 LAUNCHES = {"bell_matvec": 0, "block_jacobi_inverse": 0,
             "block_jacobi_apply": 0, "membrane_rk4": 0, "membrane_rl": 0,
+            "membrane_run": 0,
             "pair_matvec": 0, "to_pair": 0, "from_pair": 0,
             "gather_blocks_pair": 0, "block_jacobi_inverse_nd8": 0,
             "block_jacobi_apply_nd8": 0, "bell_matvec_nd3": 0,
             "block_jacobi_inverse_nd3": 0, "block_jacobi_apply_nd3": 0,
             **{f"two_level_{e}{b}": 0 for b in ("", "_batched")
                for e in ("restrict", "solve", "prolong", "coarse")},
-            "two_level_restrict_nd3": 0, "two_level_prolong_nd3": 0,
+            **{f"two_level_{e}{b}_nd3": 0 for b in ("", "_batched")
+               for e in ("restrict", "prolong")},
             "emi_cell": 0, "emi_facet": 0, "emi_emit_cell": 0, "alpha_sum": 0,
             "knp_cell": 0, "knp_facet": 0, "knp_membrane_emit": 0, "membrane_trace": 0,
             "eliminated_concentration": 0,
@@ -78,6 +81,7 @@ _SIGNATURES = {
     "knp_bj_inverse": (_P, _P, _I, _I, _I, _P),
     "knp_bj_apply": (_P, _P, _P, _I, _I, _I, _I, _P),
     "knp_membrane_step": (_P, _I, _P, _D, _I, _P),
+    "knp_membrane_run": (_P, _I, _D, _D, _I, ctypes.c_longlong, _P),
     "knp_pair_matvec": (_P,) * 6 + (_I,) * 4 + (_P,),
     "knp_to_pair": (_P,) * 6 + (_I,) * 4 + (_P,),
     "knp_from_pair": (_P,) * 4 + (_I,) * 3 + (_P,),

@@ -3,13 +3,15 @@
 Fixed-substep integration of the per-point membrane ODEs, all points at
 once.  Kernel C (``csrc/membrane_rk4.cu``) carries a step on CUDA tensors:
 one launch for every membrane tag of a :class:`TagTable`, every substep in
-registers, a lane a point (the Hodgkin-Huxley model: a group of 8 lanes a
+registers, a lane a point (the Hodgkin-Huxley models: a group of 8 lanes a
 point, its six gating rates on six of them).  It reads the solver's pushes
 (V, the Nernst potentials, ``update_ode``'s values) where they lie and
 writes the new states and parameters, V into the new ``phi_M`` and the
 channel currents into ``I_ch``.  A model without gating states runs RK4
-under ``"rush_larsen"``, the gated Hodgkin-Huxley model Rush-Larsen.  The
-plain torch versions (:func:`ode_step_plain`, :func:`ode_step_tags_plain`)
+under ``"rush_larsen"``, the gated Hodgkin-Huxley models Rush-Larsen.
+:func:`ode_run` integrates many steps of one tag in one launch of the same
+kernel (the calibration pipeline).  The plain torch versions
+(:func:`ode_step_plain`, :func:`ode_step_tags_plain`, :func:`ode_run_plain`)
 are what runs for CPU tensors.
 """
 from __future__ import annotations
@@ -23,10 +25,47 @@ import torch
 
 from .. import _cuda
 
-# parameter names of the CUDA model slots (csrc/membrane_rk4.cu P_* enum)
-CUDA_PARAMS = ("g_Na_bar", "g_K_bar", "g_leak_Na", "g_leak_K", "E_Na", "E_K",
-               "E_Cl", "Cm", "stim_amplitude", "I_ch_Na", "I_ch_K", "I_ch_Cl",
-               "K_e", "Na_i", "m_K", "m_Na", "I_max", "K_e_init", "K_i_init")
+# csrc/membrane_rk4.cu's block kinds: a device function under a scheme
+# (0: none; the calibration kinds run only under ode_run)
+(KIND_HH_RK4, KIND_HH_RL, KIND_GLIAL_RK4, KIND_HHSI_RK4, KIND_HHSI_RL, KIND_LEAK_RK4,
+ KIND_GLIAL_ASTRO_RK4, KIND_CAL_EMIX_RK4, KIND_CAL_ASTRO_RK4) = range(1, 10)
+
+
+@dataclasses.dataclass(frozen=True)
+class CudaModel:
+    """A device function of the ODE kernel: the state and parameter names
+    in the order it reads them (csrc/membrane_rk4.cu's P_*, L_* and C_*
+    enums), its RK4 and Rush-Larsen block kinds (0: none) and whether a
+    membrane tag may carry it (a V to pull)."""
+
+    states: Tuple[str, ...]
+    params: Tuple[str, ...]
+    rk4: int
+    rl: int = 0
+    tag: bool = True
+
+
+_HH_STATES = ("m", "h", "n", "V")
+_HH_PARAMS = ("g_Na_bar", "g_K_bar", "g_leak_Na", "g_leak_K", "E_Na", "E_K", "E_Cl", "Cm",
+              "stim_amplitude", "I_ch_Na", "I_ch_K", "I_ch_Cl", "K_e", "Na_i", "m_K",
+              "m_Na", "I_max")
+_GLIAL_PARAMS = _HH_PARAMS + ("K_e_init", "K_i_init")
+_CAL_STATES = ("m", "h", "n", "V_n", "V_g", "K_e", "K_n", "K_g", "Na_e", "Na_n", "Na_g")
+_CAL_PARAMS = ("g_Na_bar", "g_K_bar", "g_leak_Na_n", "g_leak_K_n", "g_leak_Na_g",
+               "g_leak_K_g", "Cm", "stim_amplitude", "m_K", "m_Na", "I_max_n", "I_max_g")
+# cuda_model_id -> its device function (models/: HodgkinHuxleyMV and
+# HodgkinHuxleyAstro 1, GlialKir 2, HodgkinHuxleySI 3, LeakSI 4,
+# GlialKirAstro 5, CalibrationEMIx 6, CalibrationAstro 7)
+CUDA_MODELS = {
+    1: CudaModel(_HH_STATES, _HH_PARAMS, KIND_HH_RK4, KIND_HH_RL),
+    2: CudaModel(("V",), _GLIAL_PARAMS, KIND_GLIAL_RK4),
+    3: CudaModel(_HH_STATES, _HH_PARAMS, KIND_HHSI_RK4, KIND_HHSI_RL),
+    4: CudaModel(("V",), _HH_PARAMS[2:], KIND_LEAK_RK4),
+    5: CudaModel(("V",), _GLIAL_PARAMS + ("g_leak_Cl",), KIND_GLIAL_ASTRO_RK4),
+    6: CudaModel(_CAL_STATES, _CAL_PARAMS, KIND_CAL_EMIX_RK4, tag=False),
+    7: CudaModel(_CAL_STATES + ("Cl_e", "Cl_n", "Cl_g"), _CAL_PARAMS + ("g_leak_Cl_g",),
+                 KIND_CAL_ASTRO_RK4, tag=False),
+}
 
 
 @dataclasses.dataclass
@@ -139,10 +178,12 @@ def ode_step_plain(mm: MembraneState, t, dt: float, n_sub: int,
 # the tag table: every tag of a step in one launch
 # ---------------------------------------------------------------------------
 
-# csrc/membrane_rk4.cu: tags a launch takes, parameter slots, ions and the
-# block kinds (0: no device function); the launcher lays out the blocks
-MAX_TAGS, MAX_PARAMS, MAX_IONS = 8, len(CUDA_PARAMS), 4
-KIND_HH_RK4, KIND_HH_RL, KIND_GLIAL_RK4 = 1, 2, 3
+# csrc/membrane_rk4.cu: tags a launch takes, parameter slots and ions; the
+# launcher lays out the blocks
+MAX_TAGS, MAX_IONS = 8, 4
+MAX_PARAMS = max(len(m.params) for m in CUDA_MODELS.values())
+# the Rush-Larsen kinds (a launch with one counts as membrane_rl)
+RL_KINDS = {m.rl for m in CUDA_MODELS.values() if m.rl}
 
 
 class _Tag(ctypes.Structure):
@@ -203,19 +244,27 @@ class TagPush:
     params: Dict[int, Tuple[torch.Tensor, int]] = dataclasses.field(default_factory=dict)
 
 
-def _kind(model, scheme):
-    """(block kind, refusal) of a model under a scheme."""
-    mid = getattr(model, "cuda_model_id", 0)
-    names = tuple(model.PARAMS)
-    states = tuple(model.STATES)
-    if mid == 0 or names != CUDA_PARAMS[:len(names)] or states[-1:] != ("V",):
+def _kind(model, scheme, tag=True):
+    """(block kind, refusal) of a model under a scheme, as a membrane tag's
+    (``tag``) or ode_run's: its device function (cuda_model_id) must read
+    the model's states and parameters in the model's own order."""
+    cm = CUDA_MODELS.get(getattr(model, "cuda_model_id", 0))
+    if (cm is None or tuple(model.PARAMS) != cm.params
+            or tuple(model.STATES) != cm.states):
         return 0, f"{model.name}: no CUDA right-hand side for this membrane model"
+    if tag and not cm.tag:
+        return 0, f"{model.name}: a membrane tag's model needs V as its last state"
     gating = model.gating_indices() if scheme == "rush_larsen" else ()
     if gating and gating != (0, 1, 2):
         return 0, f"{model.name}: the Rush-Larsen kernel gates states 0-2 (m, h, n)"
-    kind = {(1, False): KIND_HH_RK4, (1, True): KIND_HH_RL,
-            (2, False): KIND_GLIAL_RK4}.get((mid, bool(gating)), 0)
+    kind = cm.rl if gating else cm.rk4
     return kind, "" if kind else f"{model.name}: no CUDA kernel for scheme {scheme!r}"
+
+
+def _stimulus(model) -> int:
+    """The tag's stimulus flag (the HH kinds read it; LeakSI's stimulus has
+    no flag and is always on)."""
+    return int(bool(getattr(model, "stimulus", False)))
 
 
 def tag_table(models: Sequence[Tuple[Any, int, int]], n_mem: int,
@@ -240,7 +289,7 @@ def tag_table(models: Sequence[Tuple[Any, int, int]], n_mem: int,
             for j, e in enumerate(entries[c:c + MAX_TAGS]):
                 tag = tab.tag[j]
                 tag.kind, tag.n, tag.s0 = e.kind, e.n, e.s0
-                tag.stim = int(bool(getattr(e.model, "stimulus", False)))
+                tag.stim = _stimulus(e.model)
                 tag.n_states, tag.n_params = len(e.model.STATES), len(e.model.PARAMS)
                 tag.ich_slot[:len(ion_names)] = e.ich_slot
                 tab.n_tags = j + 1
@@ -337,7 +386,7 @@ def _step_tags_cuda(table: TagTable, mems, pushes, t, dt, n_sub):
                 src = push.params.get(k)
                 tag.src[k] = None if src is None else _ptr(src, item)
             out.append(MembraneState(y_out, p_out, mm.model))
-            rl = rl or e.kind == KIND_HH_RL
+            rl = rl or e.kind in RL_KINDS
         _cuda.launch("membrane_rl" if rl else "membrane_rk4", "knp_membrane_step", dtype,
                      ctypes.addressof(tab), size, t_dev.data_ptr(), float(dt), int(n_sub))
     return out, phi_M, I_ch
@@ -380,3 +429,39 @@ def ode_step(mm: MembraneState, t, dt: float, n_sub: int,
     n = mm.states.shape[1]
     table = tag_table([(mm.model, 0, n)], n, scheme=scheme)
     return _step_tags_cuda(table, [mm], [TagPush()], t, dt, n_sub)[0][0]
+
+
+def ode_run_plain(mm: MembraneState, t0: float, dt: float, n_steps: int,
+                  n_sub: int = 1) -> MembraneState:
+    """``n_steps`` RK4 steps of :func:`ode_step_plain`, step k at
+    ``t0 + k * dt`` (the JAX package's lax.scan over an integer k)."""
+    for k in range(n_steps):
+        mm = ode_step_plain(mm, t0 + k * dt, dt, n_sub)
+    return mm
+
+
+def ode_run(mm: MembraneState, t0: float, dt: float, n_steps: int,
+            n_sub: int = 1) -> MembraneState:
+    """Integrate ``n_steps`` PDE steps of one tag's membrane ODEs (RK4, step
+    k at ``t0 + k * dt``), as the calibration pipeline does: one launch of
+    kernel C on CUDA tensors, the state in registers for every step; the
+    plain loop on CPU tensors.  The input state is left as it was."""
+    if not mm.states.is_cuda or n_steps == 0:
+        return ode_run_plain(mm, t0, dt, n_steps, n_sub)
+    kind, refusal = _kind(mm.model, "rk4", tag=False)
+    if not kind:
+        raise NotImplementedError(refusal)
+    y, p = mm.states, mm.params
+    n = y.shape[1]
+    _cuda.check("states", y, None, (len(mm.model.STATES), n))
+    _cuda.check("params", p, y.dtype, (len(mm.model.PARAMS), n))
+    y_out, p_out = torch.empty_like(y), torch.empty_like(p)
+    tab = _Table(n_tags=1, n_ions=0, n_mem=n)
+    tag = tab.tag[0]
+    tag.kind, tag.stim, tag.n, tag.s0 = kind, _stimulus(mm.model), n, 0
+    tag.n_states, tag.n_params = len(mm.model.STATES), len(mm.model.PARAMS)
+    tag.states, tag.params = y.data_ptr(), p.data_ptr()
+    tag.states_out, tag.params_out = y_out.data_ptr(), p_out.data_ptr()
+    _cuda.launch("membrane_run", "knp_membrane_run", y.dtype, ctypes.addressof(tab),
+                 ctypes.sizeof(_Table), float(t0), float(dt), int(n_sub), int(n_steps))
+    return MembraneState(y_out, p_out, mm.model)

@@ -69,6 +69,16 @@ def sodium_potassium_pump_saturating(I_max, m_K, K_e, m_Na, Na_i):
     return I_max / ((1 + m_K / K_e) ** 2 * (1 + m_Na / Na_i) ** 3)
 
 
+def sodium_potassium_pump_michaelis(I_max, m_K, K_e, m_Na, Na_i):
+    """The astrocyte glial model's pump law:
+    I_max K_e / (K_e + m_K) * Na_i^1.5 / (Na_i^1.5 + m_Na^1.5)."""
+    return (
+        I_max
+        * (K_e / (K_e + m_K))
+        * (Na_i**1.5 / (Na_i**1.5 + m_Na**1.5))
+    )
+
+
 def vtrap(x, y):
     """x / (1 - exp(-x/y)) with the removable singularity at x = 0 handled
     by the series y * (1 + u/2 + u^2/12), u = x/y."""

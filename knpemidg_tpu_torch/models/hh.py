@@ -4,6 +4,9 @@
   ``stim_amplitude * exp(-mod(t, 0.03)/0.002) * (t < 0.125)``.
 * :class:`HodgkinHuxleyMV` -- mV/ms/cgs units (emix-simulations), stimulus
   ``stim_amplitude * exp(-mod(t, 20)/2)``.
+* :class:`HodgkinHuxleyAstro` -- the mV/ms model without a stimulus term
+  and with a rebalanced pump (local-astrocyte-depolarization); its device
+  function is HH-MV's.
 """
 from __future__ import annotations
 
@@ -101,6 +104,7 @@ class HodgkinHuxleySI(_HodgkinHuxley):
         "m_Na": 7.7,
         "I_max": 0.449,         # A/m^2
     }
+    cuda_model_id = 3
     _STIM_PERIOD = 0.03
     _STIM_DECAY = 0.002
     _STIM_END = 125e-3
@@ -135,3 +139,21 @@ class HodgkinHuxleyMV(_HodgkinHuxley):
     }
     cuda_model_id = 1
     _rates = staticmethod(hh_gating_rates_mV)
+
+
+class HodgkinHuxleyAstro(HodgkinHuxleyMV):
+    """Astrocyte-depolarization HH neuron: no stimulus term, pump m_K = 1.5,
+    m_Na = 10, I_max = 58 (HH-MV's parameter names with other values)."""
+
+    STATE_INIT = (
+        0.01365600905697864,
+        0.8804834256821714,
+        0.17041625484928405,
+        -75.93151471235473,
+    )
+    PARAM_DEFAULTS = dict(
+        HodgkinHuxleyMV.PARAM_DEFAULTS, m_K=1.5, m_Na=10.0, I_max=58.0
+    )
+
+    def __init__(self, **overrides):
+        super().__init__(stimulus=False, **overrides)

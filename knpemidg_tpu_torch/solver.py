@@ -854,10 +854,12 @@ class Solver:
     # ------------------------------------------------------------------
     def solve_system_active(self, Tstop, t, solver_params: SolverParams,
                             filename=None, save_fields=False,
-                            save_solver_stats=False, scan_steps: int = 0):
+                            save_solver_stats=False, scan_steps: int = 0, on_step=None):
         """Full splitting scheme with membrane ODEs, one step at a time
-        (no field or stats files: H5 output is not ported).  Per-step walls
-        end in a device synchronise: ``self.ode_walls`` for the ODE,
+        (no field or stats files: H5 output is not ported; ``on_step``, a
+        callable(k, state) called after each step k, reads what a caller
+        wants of the fields and must leave the state as it is).  Per-step
+        walls end in a device synchronise: ``self.ode_walls`` for the ODE,
         ``self.stats.step_walls`` for the PDE part."""
         if filename is not None or save_fields or save_solver_stats:
             raise NotImplementedError("H5 field and solver-stats output are not ported")
@@ -878,6 +880,8 @@ class Solver:
             self.ode_walls.append(_time.perf_counter() - ts)
             self.stats.ode_solve_timer += self.ode_walls[-1]
             state = self._timed_pde_step(state, solver_params, k)
+            if on_step is not None:
+                on_step(k, state)
         self.state = state
         return state
 

@@ -18,7 +18,7 @@ from test_torch_parity import cuda_or_skip, rel
 from knpemidg_tpu_torch import _cuda
 from knpemidg_tpu_torch.fem.tabulation import build_geometry
 from knpemidg_tpu_torch.membrane import engine
-from knpemidg_tpu_torch.models import glial, hh
+from knpemidg_tpu_torch.models import calibration, glial, hh, leak
 from knpemidg_tpu_torch import probes
 from knpemidg_tpu_torch.ops import assembly, coarse, krylov_ops as ko, pairs, spmv
 from knpemidg_tpu_torch.parallel.sharding import unpad_state
@@ -105,7 +105,28 @@ def test_bell_matvec_off_the_block_matches_plain(m, dtype, tol):
         kernel(B[..., :K - 1, :, :, :].contiguous(), nb[:K - 1].contiguous(), x)
 
 
-MODELS = {"hh_mv": hh.HodgkinHuxleyMV, "glial_kir": glial.GlialKir}
+# a model's parameters scaled per point (mV/ms and SI units)
+MV_SCALES = {"Cm": 2.0, "K_e": 3.3, "Na_i": 12.8, "E_K": -90.0, "E_Na": 50.0,
+             "stim_amplitude": 5.0}
+SI_SCALES = {"Cm": 0.02, "K_e": 4.0, "Na_i": 12.8, "E_K": -0.09, "E_Na": 0.05,
+             "stim_amplitude": 10.0}
+# name -> (model, dt, step time, parameter scales): the SI step crosses the
+# HH-SI stimulus's t = 0.125 s cut-off four stimulus periods in
+MODELS = {"hh_mv": (hh.HodgkinHuxleyMV, 0.1, 0.3, MV_SCALES),
+          "glial_kir": (glial.GlialKir, 0.1, 0.3, MV_SCALES),
+          "hh_si": (hh.HodgkinHuxleySI, 1e-4, 0.12495, SI_SCALES),
+          "hh_astro": (hh.HodgkinHuxleyAstro, 0.05, 0.3, MV_SCALES),
+          "leak_si": (leak.LeakSI, 1e-4, 0.12495, SI_SCALES),
+          "glial_astro": (glial.GlialKirAstro, 0.05, 0.3, dict(MV_SCALES, E_Cl=-80.0))}
+
+
+def _membrane(name, n, dtype, dev, rng):
+    """n points of model ``name`` with its parameters scaled per point."""
+    model, _, _, scales = MODELS[name]
+    mm = engine.make_membrane(model(), np.zeros((n, 3)), dtype=dtype, device=dev)
+    for key, val in scales.items():
+        mm = engine.set_param(mm, key, val * rng.uniform(0.9, 1.1, n))
+    return mm
 
 
 @pytest.mark.parametrize("name", sorted(MODELS))
@@ -114,34 +135,44 @@ def test_membrane_rk4_kernel_matches_plain(name, dtype, tol):
     dev = cuda_or_skip()
     rng = np.random.default_rng(6)
     n = 4000
-    mm = engine.make_membrane(MODELS[name](), np.zeros((n, 3)), dtype=dtype, device=dev)
-    for key, val in {"Cm": 2.0, "K_e": 3.3, "Na_i": 12.8, "E_K": -90.0,
-                     "E_Na": 50.0, "stim_amplitude": 5.0}.items():
-        mm = engine.set_param(mm, key, val * rng.uniform(0.9, 1.1, n))
-    t = torch.tensor(0.3, dtype=dtype, device=dev)
+    mm = _membrane(name, n, dtype, dev, rng)
+    _, dt, t0, _ = MODELS[name]
+    t = torch.tensor(t0, dtype=dtype, device=dev)
     for scheme in ("rk4", "rush_larsen"):
-        # GlialKir has no gating states: Rush-Larsen runs the RK4 kernel
-        kernel = "membrane_rl" if scheme == "rush_larsen" and name == "hh_mv" else "membrane_rk4"
+        # a model without gating states: Rush-Larsen runs the RK4 kernel
+        gated = scheme == "rush_larsen" and mm.model.gating_indices()
+        kernel = "membrane_rl" if gated else "membrane_rk4"
         n0 = _cuda.LAUNCHES[kernel]
-        got = engine.ode_step(mm, t, 0.1, 25, scheme=scheme)
-        ref = engine.ode_step_plain(mm, t, 0.1, 25, scheme=scheme)
+        got = engine.ode_step(mm, t, dt, 25, scheme=scheme)
+        ref = engine.ode_step_plain(mm, t, dt, 25, scheme=scheme)
         assert _cuda.LAUNCHES[kernel] == n0 + 1, scheme
         for s in range(ref.states.shape[0]):
             assert rel(got.states[s], ref.states[s]) < 10 * tol, (scheme, s)
         assert rel(got.params, ref.params) < 10 * tol, scheme
 
 
+class _NoDeviceModel(hh.HodgkinHuxleySI):
+    """A membrane model the ODE kernel has no device function for."""
+
+    cuda_model_id = 0
+
+
 def test_kernels_raise_outside_the_main_path():
     """The kernels exist for the 3D and 2D DG1 blocks (nd = 4, 3) and the
-    EMIx models; anything else (here 1D blocks, nd = 2 with K = 3 slots,
-    and the HH-SI model) raises on a CUDA tensor instead of running
-    plain."""
+    models with a device function; anything else (here 1D blocks, nd = 2
+    with K = 3 slots, and a model without a device function, in a step and
+    in ode_run) raises on a CUDA tensor instead of running plain."""
     dev = cuda_or_skip()
-    mm = engine.make_membrane(hh.HodgkinHuxleySI(), np.zeros((8, 3)), device=dev)
+    mm = engine.make_membrane(_NoDeviceModel(), np.zeros((8, 3)), device=dev)
     t = torch.tensor(0.0, dtype=torch.float64, device=dev)
     for scheme in ("rk4", "rush_larsen"):
         with pytest.raises(NotImplementedError):
             engine.ode_step(mm, t, 1e-4, 25, scheme=scheme)
+    with pytest.raises(NotImplementedError):
+        engine.ode_run(mm, 0.0, 1e-4, 10)
+    cal = engine.make_membrane(calibration.CalibrationEMIx(), np.zeros((1, 2)), device=dev)
+    with pytest.raises(NotImplementedError):          # no V: not a membrane tag
+        engine.ode_step(cal, t, 0.1, 2)
     nc = 16
     nbr = torch.zeros((3, nc), dtype=torch.int32, device=dev)
     B = torch.ones((3, 2, 2, nc), dtype=torch.float64, device=dev)
@@ -211,8 +242,8 @@ def test_ode_step_is_one_launch_equal_to_its_plain_twin(dtype, tol, scheme, firs
 
 def test_ode_step_tags_take_eight_tags_a_launch():
     """Ten tags of both models (both schemes' blocks in one launch) make
-    two launches, of 8 and 2 tags, equal to the plain twin; a solver whose
-    membrane model has no device function raises on the card."""
+    two launches, of 8 and 2 tags, equal to the plain twin; the 2D neuron's
+    HH-SI step is one launch equal to its plain twin."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(9)
     n, tags = 100, 10
@@ -237,8 +268,81 @@ def test_ode_step_tags_take_eight_tags_a_launch():
         assert rel(a.states, b.states) < 1e-12 and rel(a.params, b.params) < 1e-12
     assert rel(got[1], ref[1]) < 1e-12 and rel(got[2], ref[2]) < 1e-12
     S2 = tp._neuron_2d("torch", device=dev)                      # HodgkinHuxleySI
-    with pytest.raises(NotImplementedError):
-        S2._ode_step(S2._initial_state(0.0), first_step=False)
+    st = S2._initial_state(0.0)
+    tab2, pushes2 = S2._ode_pushes(st, first_step=False)
+    ref2 = engine.ode_step_tags_plain(tab2, list(st["mem"].values()), pushes2, st["t"],
+                                      S2.params.dt, S2.params.n_steps_ODE)
+    n0 = _cuda.LAUNCHES["membrane_rk4"]
+    new2 = S2._ode_step(st, first_step=False)
+    assert _cuda.LAUNCHES["membrane_rk4"] == n0 + 1
+    (mm2,) = new2["mem"].values()
+    assert rel(mm2.states, ref2[0][0].states) < 1e-12
+    assert rel(mm2.params, ref2[0][0].params) < 1e-12
+    assert rel(new2["phi_M"], ref2[1]) < 1e-12 and rel(new2["I_ch"], ref2[2]) < 1e-12
+
+
+@pytest.mark.parametrize("scheme", ["rk4", "rush_larsen"])
+@pytest.mark.parametrize("dtype,tol", K13_DTYPES)
+def test_mixed_leak_and_hh_si_tags_are_one_launch(dtype, tol, scheme):
+    """The rat neuron's tags, LeakSI (a lane a point) beside HH-SI (8 lanes a
+    point, Rush-Larsen under that scheme while LeakSI runs RK4), and the
+    astrocyte app's, GlialKirAstro beside HH-Astro: one launch each, equal
+    to the plain twin, the pulls into phi_M and every ion's I_ch."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(10)
+    kernel = "membrane_rl" if scheme == "rush_larsen" else "membrane_rk4"
+    for names, ions, t0, dt, v in (
+            (("leak_si", "hh_si"), ["K", "Cl", "Na"], 0.12495, 1e-4, (-0.08, -0.06)),
+            (("glial_astro", "hh_astro"), ["K", "Na", "Cl"], 0.3, 0.05, (-80.0, -60.0))):
+        sizes = (700, 300)
+        mems = [_membrane(nm, n, dtype, dev, rng) for nm, n in zip(names, sizes)]
+        table = engine.tag_table([(mm.model, sum(sizes[:j]), n)
+                                  for j, (mm, n) in enumerate(zip(mems, sizes))],
+                                 sum(sizes), ions, scheme)
+        phi_M = torch.as_tensor(rng.uniform(*v, sum(sizes)), dtype=dtype, device=dev)
+        pushes = [engine.TagPush(v=(phi_M, sum(sizes[:j]))) for j in range(2)]
+        t = torch.tensor(t0, dtype=dtype, device=dev)
+        n0 = dict(_cuda.LAUNCHES)
+        got = engine.ode_step_tags(table, mems, pushes, t, dt, 25)
+        moved = {k: c - n0[k] for k, c in _cuda.LAUNCHES.items() if c != n0[k]}
+        assert moved == {kernel: 1}, (names, moved)
+        ref = engine.ode_step_tags_plain(table, mems, pushes, t, dt, 25)
+        for a, b in zip(got[0], ref[0]):
+            for s in range(b.states.shape[0]):
+                assert rel(a.states[s], b.states[s]) < tol, (names, s)
+            assert rel(a.params, b.params) < tol, names
+        assert rel(got[1], ref[1]) < tol, names
+        for k in range(len(ions)):
+            assert rel(got[2][k], ref[2][k]) < tol, (names, k)
+
+
+@pytest.mark.parametrize("name", ["emix", "astro", "hh_si"])
+@pytest.mark.parametrize("dtype,tol", K13_DTYPES)
+def test_ode_run_is_one_launch_equal_to_its_plain_loop(name, dtype, tol):
+    """ode_run integrates 200 steps (the calibration systems at one point,
+    n_sub = 2, as apps.run_calibration calls it; HH-SI at 100 points on 8
+    lanes a point) in one membrane_run launch, equal to the plain loop of
+    ode_step_plain, and leaves its input state as it was."""
+    dev = cuda_or_skip()
+    if name == "hh_si":
+        mm = _membrane(name, 100, dtype, dev, np.random.default_rng(11))
+        t0, dt, n_sub = 0.12, 1e-4, 25
+    else:
+        model = (calibration.CalibrationEMIx() if name == "emix"
+                 else calibration.CalibrationAstro())
+        mm = engine.make_membrane(model, np.zeros((1, 2)), dtype=dtype, device=dev)
+        t0, dt, n_sub = 0.0, 0.1, 2
+    before = mm.states.clone()
+    n0 = dict(_cuda.LAUNCHES)
+    got = engine.ode_run(mm, t0, dt, 200, n_sub=n_sub)
+    moved = {k: c - n0[k] for k, c in _cuda.LAUNCHES.items() if c != n0[k]}
+    assert moved == {"membrane_run": 1}, moved
+    assert torch.equal(mm.states, before)
+    ref = engine.ode_run_plain(engine.MembraneState(mm.states.cpu(), mm.params.cpu(),
+                                                    mm.model), t0, dt, 200, n_sub)
+    for s in range(ref.states.shape[0]):
+        assert rel(got.states[s], ref.states[s]) < tol, s
+    assert rel(got.params, ref.params) < tol
 
 
 def test_emix_slice_on_cuda_matches_cpu():

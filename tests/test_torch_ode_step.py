@@ -117,6 +117,12 @@ def test_update_ode_values_of_any_form_match_jax(scheme):
         assert torch.all(engine.get_param(mm, "m_K") == 2.5)
 
 
+class _NoDeviceModel(hh.HodgkinHuxleySI):
+    """A membrane model the ODE kernel has no device function for."""
+
+    cuda_model_id = 0
+
+
 def test_tag_table_of_the_emix_models():
     """Slots and block kinds of the EMIx models' table: the I_ch slots per
     ion (-1 for an ion the model has no current of), a refusal for a model
@@ -144,8 +150,10 @@ def test_tag_table_of_the_emix_models():
     t = engine.tag_table([(hh.HodgkinHuxleyMV(), 0, 40)], 40, ["K", "Ca"])
     assert t.entries[0].ich_slot == (10, -1)
     si = engine.tag_table([(hh.HodgkinHuxleySI(), 0, 8)], 8)
-    assert si.entries[0].kind == 0 and si.chunks == () and "HodgkinHuxleySI" in \
-        si.entries[0].refusal
+    assert si.entries[0].kind == engine.KIND_HHSI_RK4 and len(si.chunks) == 1
+    no_device = engine.tag_table([(_NoDeviceModel(), 0, 8)], 8)
+    assert no_device.entries[0].kind == 0 and no_device.chunks == () and \
+        "_NoDeviceModel" in no_device.entries[0].refusal
     many = engine.tag_table([(glial.GlialKir(), 100 * j, 100) for j in range(10)], 1000)
     assert [c.n_tags for c in many.chunks] == [8, 2]
     assert [many.chunks[1].tag[j].s0 for j in range(2)] == [800, 900]
