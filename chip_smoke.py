@@ -71,7 +71,22 @@ layout).  On the way it:
      their plain versions at the apps' shapes, and K1, K5, K8-K11 and K14
      at the 2D neuron's (nd = 3) and the rat neuron's; each app row
      reports the launches of its own windows, which must have launched
-     its kernel.
+     its kernel;
+ 11. drives the other solve paths (variants_phase, float64 unless
+     stated): K15 (the batched BiCGStab entries) against its einsum plain
+     versions and bit for bit against its kernel-ordered ones at each
+     layout's KNP batch, both dtypes; on each layout the GMRES window,
+     then the BiCGStab window (knp_solver="bicgstab": K15 launched, K9
+     not, its counts asserted, its final c and phi_M within BICG_GAP of
+     the GMRES window's) and a Picard step from the GMRES window's final
+     state with each KNP solver; the float32 BiCGStab windows, reported;
+     the EMI-only solver (StandardSolverEMI with the EMIx parameters, cell
+     layout, 10 steps: c unchanged bit for bit, no K2, K7, K9, K11 or K15
+     launch, step 1 equal to the full solver's bit for bit); the
+     EMI-only protocol of tests/test_solver_emi.py with its stats files
+     and gates, and its one-iteration Picard step; and
+     tests/test_picard.py's MMS checks at res 3 (direct against iterative
+     Picard, and against the plain step).
 
 Usage:  python3 chip_smoke.py      (exits non-zero on any failure)
 The last line is {"ok": true, "device": {...}}; the line before it the
@@ -148,6 +163,16 @@ SPMV = {"bell_matvec": ("bell_matvec.cu", "knpemidg_tpu/ops/spmv.py:17"),
         "block_jacobi_apply": ("block_jacobi.cu", "knpemidg_tpu/ops/spmv.py:131")}
 KRYLOV_TOL = {torch.float32: {k + p: 1e-5 for k in KRYLOV for p in SUFFIX.values()},
               torch.float64: {k + p: 1e-12 for k in KRYLOV for p in SUFFIX.values()}}
+# K15, the batched BiCGStab KNP solve (knp_solver="bicgstab"): its three
+# entries at each layout's KNP batch, held to 1e-5 / 1e-12 of each output's
+# largest value against the einsum plain versions, and bit for bit against
+# the kernel-ordered plain versions (variants_phase)
+BICG = {"bicgstab_start": ":510", "bicgstab_alpha": ":539", "bicgstab_omega": ":544"}
+# the largest relative gap of a BiCGStab window's final c and phi_M to the
+# same layout's GMRES window (both solve to rtol_knp 1e-7)
+BICG_GAP = 1e-5
+BICG_TOL = {torch.float32: {k + p: 1e-5 for k in BICG for p in ("", "_pair")},
+            torch.float64: {k + p: 1e-12 for k in BICG for p in ("", "_pair")}}
 # K13's rows at the applications' shapes (apps_phase) and ode_run: the
 # tolerances of its main-path rows
 APP_K13 = [f"membrane_{s}_{a}" for s in ("rk4", "rl") for a in ("hhsi", "rat", "astro")] + [
@@ -156,7 +181,7 @@ TOL = {torch.float32: {"bell_matvec": 1e-5, "block_jacobi_apply": 1e-5,
                        "block_jacobi_inverse": 1e-5, "membrane_rk4": 1e-4,
                        "membrane_rl": 1e-4, "pgather": 0.0, "pgather2": 0.0,
                        **{k: 1e-4 for k in APP_K13},
-                       **KRYLOV_TOL[torch.float32],
+                       **KRYLOV_TOL[torch.float32], **BICG_TOL[torch.float32],
                        "pair_matvec": 1e-5, "block_jacobi_inverse_nd8": 1e-5,
                        "block_jacobi_apply_nd8": 1e-5, "to_pair": 0.0,
                        "bell_matvec_nd3": 1e-5, "block_jacobi_inverse_nd3": 1e-5,
@@ -170,7 +195,7 @@ TOL = {torch.float32: {"bell_matvec": 1e-5, "block_jacobi_apply": 1e-5,
                        "block_jacobi_inverse": 1e-12, "membrane_rk4": 1e-12,
                        "membrane_rl": 1e-12, "pgather": 0.0, "pgather2": 0.0,
                        **{k: 1e-12 for k in APP_K13},
-                       **KRYLOV_TOL[torch.float64],
+                       **KRYLOV_TOL[torch.float64], **BICG_TOL[torch.float64],
                        "pair_matvec": 1e-12, "block_jacobi_inverse_nd8": 1e-12,
                        "block_jacobi_apply_nd8": 1e-12, "to_pair": 0.0,
                        "bell_matvec_nd3": 1e-12, "block_jacobi_inverse_nd3": 1e-12,
@@ -210,7 +235,8 @@ RL_SUBSTEP_OPS = {"HodgkinHuxleyMV": 2 * 85 + 2 * 45, "GlialKir": 4 * 40,
                   "LeakSI": 4 * 26, "GlialKirAstro": 4 * 43}
 # the Krylov counts of every 10-step window, EMI a step and KNP a step and
 # ion (float64: 28 / 22 / 28 / 33 EMI iterations; float32: 2,742 x 3, 418,
-# 2,631, 363), as measured on the card (PERF.md): every kernel
+# 2,631, 363; phase 11's float64 BiCGStab and EMI-only windows 28 / 33 /
+# 28), as measured on the card (PERF.md): every kernel
 # redesign keeps the bits, so report_window fails a window that moves
 WINDOW_COUNTS = {
     "cell64": ([5, 3, 3, 3, 3, 3, 1, 3, 3, 1], [[1, 1]] * 7 + [[2, 1], [1, 1], [1, 1]]),
@@ -230,7 +256,14 @@ WINDOW_COUNTS = {
                    [15, 10], [12, 6]]),
     "pair32": ([26, 20, 44, 6, 86, 6, 86, 44, 6, 39],
                [[21, 10], [12, 16], [16, 8], [17, 10], [15, 6], [11, 11], [14, 8], [16, 6],
-                [17, 7], [14, 6]])}
+                [17, 7], [14, 6]]),
+    # phase 11 (variants_phase): the BiCGStab KNP windows and the EMI-only
+    # window, float64
+    "cell64-bicg": ([5, 3, 3, 3, 3, 3, 1, 3, 3, 1], [[1, 1]] * 10),
+    "pair64-bicg": ([9, 8, 2, 3, 2, 2, 2, 1, 2, 2],
+                    [[7, 3], [5, 2], [1, 1], [3, 2], [1, 1], [1, 1], [2, 1], [1, 2], [2, 1],
+                     [1, 1]]),
+    "cell64-emi": ([5, 3, 3, 3, 3, 3, 1, 3, 3, 1], [[0, 0]] * 10)}
 KRYLOV_ROWS = 4           # populated basis rows at which K9 is checked and timed
 
 # The MMS verification path: the JAX package's nightly protocol
@@ -374,6 +407,11 @@ KERNELS = {
     **{k + SUFFIX[p]: ("knpemidg_tpu_torch/csrc/" + src, repl, ROW_PATH[p],
                        k + ("_nd3" if p == "2d" else ""))
        for p in ("2d", "rat") for k, (src, repl) in SPMV.items()},
+    # K15 at each layout's KNP batch; the launches of that layout's
+    # BiCGStab window (variants_phase)
+    **{k + SUFFIX[p]: ("knpemidg_tpu_torch/csrc/bicgstab.cu",
+                       "knpemidg_tpu/solvers/krylov.py" + line, "bicg-" + p, k)
+       for p in ("cell", "pair") for k, line in BICG.items()},
     "pgather": ("knpemidg_tpu_torch/csrc/gather_probe.cu", "tools/profile_shapes.py:74",
                 "probe"),
     "pgather2": ("knpemidg_tpu_torch/csrc/gather_probe.cu", "tools/profile_shapes.py:103",
@@ -404,6 +442,21 @@ PATH_KERNELS["probe"] = ["pgather", "pgather2"]
 # the MMS path's iterative runs: the 2D rows, K8, K9 (one system a solve),
 # K10, K11 without alpha_sum (the MMS membrane data replace alpha's), K14
 PATH_KERNELS["mms"] = sorted({counter(k) for k, v in KERNELS.items() if v[2] == "mms"})
+# the BiCGStab windows: each layout's kernels with K15 in K9's place
+for _p in ("cell", "pair"):
+    PATH_KERNELS["bicg-" + _p] = [k for k in PATH_KERNELS[_p] if not k.startswith("gmres_")] + \
+        list(BICG)
+    ODE_LAUNCHES_PER_STEP["bicg-" + _p] = (1, 0)
+# what the EMI-only window must not launch: K7 (the batched KNP two-level
+# apply), K9, K11 and K15 (K2, the ion-batched matvec, shares K1's counter
+# and is counted by wrapping the solver's calls)
+EMI_ONLY_FORBIDDEN = ([k for k in PATH_KERNELS["cell"] if k.startswith(("gmres_", "knp_"))]
+                      + ["alpha_sum", "two_level_coarse_batched"] + sorted(OFF_PATH)
+                      + list(BICG))
+# what it must launch: the EMI step's kernels (K1, K5, K6, K8, K10, K14's
+# traces and jump) and K13; c is frozen, so no eliminated-ion update
+EMI_ONLY_PATH = [k for k in PATH_KERNELS["cell"]
+                 if k not in EMI_ONLY_FORBIDDEN and k != "eliminated_concentration"]
 
 
 def launches_on(launches, name):
@@ -415,9 +468,10 @@ def launches_on(launches, name):
     return sum(launches[p][counter(name)] for p in paths)
 
 
-def report_window(S, dtype, layout, variant=""):
+def report_window(S, dtype, layout, variant="", assert_counts=True):
     """Print the per-step Krylov counts and walls of a finished
-    solve_system_active run; return (median ms/step, median ODE ms)."""
+    solve_system_active run and (``assert_counts``) fail unless its counts
+    equal WINDOW_COUNTS'; return (median ms/step, median ODE ms)."""
     steps_ms = [1e3 * (a + b) for a, b in zip(S.ode_walls, S.stats.step_walls)]
     tag = f"{layout}{'64' if dtype == MAIN_DTYPE else '32'}{variant}"
     med, ode = statistics.median(steps_ms), 1e3 * statistics.median(S.ode_walls)
@@ -425,6 +479,8 @@ def report_window(S, dtype, layout, variant=""):
     print(f"{tag:7s} {dtype} knp iters {S.stats.knp_niters}")
     print(f"{tag:7s} {dtype} ms/step {[round(v, 2) for v in steps_ms]}")
     print(f"{tag:7s} {dtype} median {med:.2f} ms/step (ODE median {ode:.2f} ms)")
+    if not assert_counts:
+        return med, ode
     same = (S.stats.emi_niters, S.stats.knp_niters) == WINDOW_COUNTS[tag]
     print(f"{tag:7s} {dtype} Krylov counts equal the reference counts: {same}")
     if not same:
@@ -1857,7 +1913,8 @@ def run_checked(S, sp, path):
     counters reset first; asserts convergence (solve_system_active raises
     otherwise), finite fields, the shapes and step count, every kernel of
     ``path`` launched, two K14 trace launches and one K13 launch a step,
-    and one K9 launch per Arnoldi step.  Returns (state, launches)."""
+    and one K9 launch per Arnoldi step (a "bicg-*" path: one K15 alpha and
+    omega launch per iteration and no K9).  Returns (state, launches)."""
     from knpemidg_tpu_torch import _cuda
 
     S.stats.__init__()
@@ -1887,11 +1944,26 @@ def run_checked(S, sp, path):
           f"({want} expected: one launch a step for every tag)")
     if ode != want:
         raise AssertionError(f"the {path} window's K13 launches are {ode}, not {want}")
+    solves = len(S.stats.knp_niters)
+    if path.startswith("bicg"):
+        # K15: one start a solve, one alpha and one omega launch an
+        # iteration (a solve's iterations are its largest per-system
+        # count); no K9 launch
+        iters = sum(max(c) for c in S.stats.knp_niters)
+        k15 = tuple(launches[k] for k in BICG)
+        k9 = sum(v for k, v in launches.items() if k.startswith("gmres_"))
+        print(f"{path:7s} K15 bicgstab_start / _alpha / _omega launches {k15} for {solves} "
+              f"solves of {iters} iterations ({(solves, iters, iters)} expected), K9 "
+              f"launches {k9} (0 expected)")
+        if k15 != (solves, iters, iters) or k9:
+            raise AssertionError(f"the {path} window's K15 / K9 launches are {k15} / {k9}")
+        return state, launches
+    if any(launches[k] for k in BICG):
+        raise AssertionError(f"the {path} window launched K15")
     # K9: one step launch per Arnoldi step.  Each float64 KNP solve of these
     # windows is one restart cycle (two gmres_start launches: the cycle's
     # and the final test's; one tolerance dot), and a cycle's steps are its
     # largest per-system count
-    solves = len(S.stats.knp_niters)
     arnoldi = sum(max(c) for c in S.stats.knp_niters)
     k9 = (launches["gmres_start"], launches["gmres_cgs_dot"], launches["gmres_arnoldi"])
     print(f"{path:7s} K9 gmres_start / gmres_cgs_dot / gmres_arnoldi launches {k9} for {solves} "
@@ -1922,16 +1994,17 @@ def ritz_fields(state):
     return int(pe["ritz_W"].shape[0]) if "ritz_W" in pe else 0
 
 
-def report_run(S, sp, dtype, layout, variant):
-    """One more protocol run on solver S, reported only: Krylov counts,
-    ms/step, the Ritz fields and the set-up time before the first step
-    (the pc build with any harvest)."""
+def report_run(S, sp, dtype, layout, variant, assert_counts=True):
+    """One more protocol run on solver S, reported: Krylov counts (equal to
+    WINDOW_COUNTS' unless not ``assert_counts``), ms/step, the Ritz fields
+    and the set-up time before the first step (the pc build with any
+    harvest)."""
     S.stats.__init__()
     t0 = time.perf_counter()
     state = S.solve_system_active(1.0, 0.0, sp)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    report_window(S, dtype, layout, variant)
+    report_window(S, dtype, layout, variant, assert_counts)
     setup_s = total - sum(S.ode_walls) - sum(S.stats.step_walls)
     finite = all(bool(torch.isfinite(state[k]).all()) for k in ("c", "phi", "phi_M"))
     label = f"{layout}{'64' if dtype == MAIN_DTYPE else '32'}{variant}"
@@ -2585,6 +2658,358 @@ def apps_phase(results):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the other solve paths: BiCGStab KNP solves, the EMI-only solver, Picard
+# ---------------------------------------------------------------------------
+
+def bicg_copy(wk):
+    """A BicgWork with its own copy of every buffer (the launch grid kept)."""
+    return wk._replace(**{f: getattr(wk, f).clone() for f in wk._fields
+                          if isinstance(getattr(wk, f), torch.Tensor)})
+
+
+def bicg_out(entry, wk, x=None):
+    """The outputs an entry of K15 writes: the start's r, rhat, p, v and
+    every scalar; alpha's s, v, scalars and ks; omega's x, r, p, scalars,
+    live and the flag."""
+    if entry == "bicgstab_start":
+        return [wk.r, wk.rhat, wk.p, wk.v, wk.sc, wk.ks, wk.live, wk.flag]
+    if entry == "bicgstab_alpha":
+        return [wk.s, wk.v, wk.sc, wk.ks]
+    return [x, wk.r, wk.p, wk.sc, wk.live, wk.flag]
+
+
+def bicg_scales(ref, rhat):
+    """Error scales of K15's outputs: each vector's largest value (rounding
+    is measured normwise), each scalar its own size, except rhat . r, whose
+    sum cancels: the Cauchy-Schwarz bound ||rhat|| ||r|| of its sum of
+    |terms| (``rhat`` the entry's shadow residual); the counters exact."""
+    from knpemidg_tpu_torch.ops import krylov_ops as ko
+
+    out = []
+    for t in ref:
+        if not t.is_floating_point():
+            out.append(torch.ones_like(t, dtype=torch.float64))
+        elif t.dim() == 2 and t.shape[1] == ko.BI_NSC:   # the (mb, BI_NSC) scalars
+            sc = t.double().abs()
+            sc[:, ko.BI_RHON] = torch.sqrt((rhat.double() ** 2).sum(1) * sc[:, ko.BI_RR])
+            out.append(sc)
+        else:
+            out.append(t.abs().max().expand_as(t))
+    return out
+
+
+def bicg_kernel_phase(S, results, layout):
+    """K15 at a layout's main-path KNP batch (S.N_ions systems of the
+    solver's KNP vector) on seeded inputs shaped as a solve makes them (the
+    shadow residual r0, v and t correlated with it), in two batches: one
+    with the systems after the first frozen by their tolerance (checked),
+    and one with every system live through the omega entry (checked and
+    timed, so every pass the bound counts is made).  Each entry against its
+    einsum plain version (BICG_TOL) and bit for bit against its
+    kernel-ordered plain version, twice; the bound counts each vector the
+    entry reads once and each it writes once (omega: t, x, rhat, p, v, s
+    read, x, r, p written; the old r is not read).  The library call is
+    the entry's batched dots in one torch.linalg.vecdot."""
+    from knpemidg_tpu_torch.ops import krylov_ops as ko
+
+    pair = layout == "pair"
+    ncol = S.pairs["int_f"].shape[0] if pair else S.n_cells
+    mb, n, dev = S.N_ions, (2 if pair else 1) * S.nd * ncol, S.c_init.device
+    rtol, atol = 1e-7, 2e-40
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2026)
+    print(f"shapes  {layout} K15: KNP batch ({mb}, {n})")
+    for dtype in (torch.float32, torch.float64):
+        for frozen in (True, False):
+            rnd = lambda: torch.randn((mb, n), generator=gen, device=dev, dtype=dtype)
+            r0 = rnd()
+            bz = 3.0 * r0 + 0.1 * rnd()
+            if frozen:
+                bz[1:] *= 1e8             # tol above ||r0||: the other systems frozen
+            v = r0 + 0.3 * rnd()
+            x = rnd()
+            base = ko.bicgstab_work(mb, n, dtype, dev)
+            ko.bicgstab_start_plain(r0, bz, base, rtol, atol, ordered=True)
+            after_alpha = ko.bicgstab_alpha_plain(v, bicg_copy(base), ordered=True)
+            t = 0.9 * after_alpha.s + 0.2 * rnd()
+            wk0s = {"bicgstab_start": base, "bicgstab_alpha": base,
+                    "bicgstab_omega": after_alpha}
+            inputs = {"bicgstab_start": [r0, bz], "bicgstab_alpha": [v, base.r, base.rhat],
+                      "bicgstab_omega": [t, x] + [getattr(after_alpha, f)
+                                                  for f in ("rhat", "p", "v", "s")]}
+            flops = {"bicgstab_start": 8.0, "bicgstab_alpha": 4.0, "bicgstab_omega": 18.0}
+            lib = {"bicgstab_start": (torch.stack([r0, bz]), torch.stack([r0, bz])),
+                   "bicgstab_alpha": (base.rhat, v),
+                   "bicgstab_omega": (torch.stack([t, t, after_alpha.r, after_alpha.rhat]),
+                                      torch.stack([t, after_alpha.s, after_alpha.r,
+                                                   after_alpha.r]))}
+            batch = "frozen" if frozen else "all live"
+
+            def apply(entry, f, wk, xs, **kw):
+                if entry == "bicgstab_start":
+                    return f(r0, bz, wk, rtol, atol, **kw)
+                if entry == "bicgstab_alpha":
+                    return f(v, wk, **kw)
+                return f(t, xs, wk, **kw)
+
+            for entry in BICG:
+                kern, plain = getattr(ko, entry), getattr(ko, entry + "_plain")
+
+                def run(f, entry=entry, **kw):
+                    wk, xs = bicg_copy(wk0s[entry]), x.clone()
+                    apply(entry, f, wk, xs, **kw)
+                    return [o.clone() for o in bicg_out(entry, wk, xs)]
+
+                got, again = run(kern), run(kern)
+                want = run(plain, ordered=True)
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+                print(f"exact   {entry + SUFFIX[layout]:30s} {str(dtype):14s} {batch:8s} equals "
+                      f"the ordered plain version bit for bit: {same}; repeats: {repeat}")
+                if not (same and repeat):
+                    raise AssertionError(f"{entry}: not bitwise its ordered plain version")
+                if not frozen and entry == "bicgstab_omega" and int(got[4].sum()) != mb:
+                    raise AssertionError("the all-live batch froze a system in omega")
+                wt = [bicg_copy(wk0s[entry]) for _ in range(2)]
+                xt = [x.clone(), x.clone()]
+                A, B = lib[entry]
+                compare(entry + SUFFIX[layout], dtype, lambda: run(kern), lambda: run(plain),
+                        lambda ref: bicg_scales(ref, wk0s[entry].rhat
+                                                if entry != "bicgstab_start" else r0),
+                        results, inputs=inputs[entry], flops=flops[entry] * mb * n,
+                        library_fn=lambda A=A, B=B: torch.linalg.vecdot(A, B),
+                        record=not frozen,
+                        timed=(lambda e=entry, k=kern: apply(e, k, wt[0], xt[0]),
+                               lambda e=entry, f=plain: apply(e, f, wt[1], xt[1])), graph=True)
+
+
+def rel_gap(a, b):
+    return float(torch.linalg.norm((a - b).double()) / torch.linalg.norm(b.double()))
+
+
+def bicg_windows(mesh, results, launches):
+    """Per layout, float64: a solver through emix.build_solver, K15 against
+    its plain versions at its KNP batch, the GMRES window at
+    emix.solver_params() (its counts asserted, its first step kept), the
+    BiCGStab window (knp_solver="bicgstab": every solve converged, every
+    kernel of the path launched, K15 and no K9, its counts asserted) whose
+    final c and phi_M must agree with the GMRES window's to rel 1e-5, and a
+    Picard step from the GMRES window's final state.  Then the float32
+    BiCGStab windows, reported.  Returns the cell layout's GMRES step 1
+    (phi, phi_M)."""
+    from knpemidg_tpu_torch import emix
+
+    first = {}
+    for layout in ("cell", "pair"):
+        S = emix.build_solver(mesh, dtype=MAIN_DTYPE, device="cuda", pair=layout == "pair")
+        bicg_kernel_phase(S, results, layout)
+        kept = {}
+        S.stats.__init__()
+        gm = S.solve_system_active(
+            1.0, 0.0, emix.solver_params(),
+            on_step=lambda k, st: kept.update(phi=st["phi"].clone(), phi_M=st["phi_M"].clone())
+            if k == 0 else None)
+        report_window(S, MAIN_DTYPE, layout)
+        if layout == "cell":
+            first = kept
+        state, launches["bicg-" + layout] = run_checked(
+            S, emix.solver_params(knp_solver="bicgstab"), "bicg-" + layout)
+        report_window(S, MAIN_DTYPE, layout, "-bicg")
+        gaps = {k: rel_gap(state[k], gm[k]) for k in ("c", "phi_M")}
+        print(f"bicg    {layout} final c / phi_M rel gap to the GMRES window "
+              f"{gaps['c']:.3e} / {gaps['phi_M']:.3e} ({BICG_GAP:.0e} allowed)")
+        if not max(gaps.values()) < BICG_GAP:
+            raise AssertionError(f"the {layout} BiCGStab window is {gaps} off the GMRES one")
+        for solver in ("gmres", "bicgstab"):
+            sp = emix.solver_params(knp_solver=solver)
+            t0 = time.perf_counter()
+            st, stats, it = S.solve_for_time_step_picard(gm, sp)
+            torch.cuda.synchronize()
+            print(f"picard  {layout} {solver:8s} from the window's final state: {it} "
+                  f"iterations, last inner EMI {stats['emi_iters']} KNP {stats['knp_iters']}, "
+                  f"converged, {time.perf_counter() - t0:.3f} s")
+        del S, gm, state
+        torch.cuda.empty_cache()
+    for layout in ("cell", "pair"):
+        S = emix.build_solver(mesh, dtype=torch.float32, device="cuda", pair=layout == "pair")
+        report_run(S, emix.solver_params(knp_solver="bicgstab", error_if_not_converged=False),
+                   torch.float32, layout, "-bicg", assert_counts=False)
+        del S
+    return first
+
+
+class CallCount:
+    """Count the calls of ``module.name`` inside the block (the function
+    wrapped, then put back)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.fn(*a, **k)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def emi_only_window(mesh, first):
+    """StandardSolverEMI with the EMIx parameters (taken from
+    emix.build_solver's solver) on the cell layout, float64, the 10-step
+    protocol at emix.solver_params(): c unchanged bit for bit, no K2, K7,
+    K9, K11 or K15 launch, step 1's phi and phi_M equal to the full
+    solver's step 1 (``first``).  Returns the window's launches."""
+    from knpemidg_tpu_torch import StandardSolverEMI, _cuda, emix
+    from knpemidg_tpu_torch import solver as solver_mod
+
+    ref = emix.build_solver(mesh, dtype=MAIN_DTYPE, device="cuda")
+    S = StandardSolverEMI(ref.params, ref.ion_list, dtype=MAIN_DTYPE, device="cuda")
+    S.setup_domain(mesh, quad_degree=2)
+    S.setup_parameters()
+    S.setup_FEM_spaces()
+    S.setup_membrane_model(ref.stim_params, {tag: mm.model for tag, mm in ref.mem_models.items()})
+    del ref
+    kept = {}
+    _cuda.reset_launches()
+    with CallCount(solver_mod, "bell_matvec_multi") as k2:
+        state = S.solve_system_active(
+            1.0, 0.0, emix.solver_params(),
+            on_step=lambda k, st: kept.update(phi=st["phi"].clone(), phi_M=st["phi_M"].clone())
+            if k == 0 else None)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    report_window(S, MAIN_DTYPE, "cell", "-emi")
+    frozen = torch.equal(state["c"], S.c_init) and torch.equal(state["c_elim"], S.c_elim_init)
+    bad = {k: launches[k] for k in EMI_ONLY_FORBIDDEN if launches[k]}
+    if k2.calls:
+        bad["bell_matvec_multi (K2)"] = k2.calls
+    same = {k: torch.equal(kept[k], first[k]) for k in ("phi", "phi_M")}
+    gap = {k: float((kept[k] - first[k]).abs().max()) for k in ("phi", "phi_M")}
+    print(f"emi     EMI-only: c unchanged bit for bit {frozen}; K2/K7/K9/K11/K15 launches "
+          f"{bad or 'none'}; step 1 phi / phi_M equal to the full solver's bit for bit "
+          f"{same['phi']} / {same['phi_M']} (max |diff| {gap['phi']:.3e} / {gap['phi_M']:.3e})")
+    if not (frozen and not bad and all(same.values())):
+        raise AssertionError("the EMI-only window failed its checks")
+    missing = [k for k in EMI_ONLY_PATH if not launches[k]]
+    if missing:
+        raise AssertionError(f"the EMI-only window did not launch {missing}")
+    return launches
+
+
+def emi_2d_solver(device="cuda"):
+    """tests/test_solver_emi.py's build_emi_solver: StandardSolverEMI on
+    box_2d_neuron(0), HH-SI, float64, on the card unless ``device`` names
+    another."""
+    from knpemidg_tpu_torch import Ion, PhysicalParams, StandardSolverEMI, StimParams
+    from knpemidg_tpu_torch.mesh.generators import box_2d_neuron
+    from knpemidg_tpu_torch.models.hh import HodgkinHuxleySI
+
+    params = PhysicalParams(dt=1.0e-4, n_steps_ODE=25, C_M=0.02, temperature=300.0,
+                            F=96485.0, R=8.314, phi_M_init=V_REST_SI,
+                            phi_M_init_type="constant", rho_sub={0: 0.0, 1: 0.0})
+    Na_i, Na_e = 12.838513108648856, 100.71925900027354
+    K_i, K_e = 124.15397583491901, 3.3236967382705265
+    ions = [Ion(name="K", z=1.0, D_sub={0: 1.96e-9, 1: 1.96e-9}, c_init_sub={0: K_e, 1: K_i}),
+            Ion(name="Cl", z=-1.0, D_sub={0: 2.03e-9, 1: 2.03e-9},
+                c_init_sub={0: Na_e + K_e, 1: Na_i + K_i}),
+            Ion(name="Na", z=1.0, D_sub={0: 1.33e-9, 1: 1.33e-9}, c_init_sub={0: Na_e, 1: Na_i})]
+    stim = StimParams(stimulus={"stim_amplitude": 10.0}, stimulus_locator=lambda x: x[0] < 20e-6)
+    S = StandardSolverEMI(params, ions, dtype=MAIN_DTYPE, device=device)
+    S.setup_domain(box_2d_neuron(0))
+    S.setup_parameters()
+    S.setup_FEM_spaces()
+    S.setup_membrane_model(stim, {1: HodgkinHuxleySI(stimulus=True)})
+    return S
+
+
+def emi_only_2d():
+    """tests/test_solver_emi.py's protocol on the card: 10 steps with the
+    stats files written into a temporary directory (EMI phases only), its
+    gates; then the EMI-only Picard step: one iteration, equal to the plain
+    EMI step to 1e-12."""
+    import tempfile
+
+    from knpemidg_tpu_torch.config import SolverParams
+
+    sp = SolverParams(direct_emi=False, direct_knp=False, rtol_emi=1e-5, atol_emi=1e-40)
+    S = emi_2d_solver()
+    with tempfile.TemporaryDirectory() as tmp:
+        state = S.solve_system_active(10 * S.params.dt, 0.0, sp, filename=tmp + "/",
+                                      save_solver_stats=True)
+        files = sorted(os.listdir(os.path.join(tmp, "solver")))
+        lines = open(os.path.join(tmp, "solver", "emi_niter_0.txt")).read().splitlines()
+    phi_M = state["phi_M"].cpu().numpy()
+    stim = S.tables.midpoints[:, 0] < 20e-6
+    phases = set().union(*(p.keys() for p in S.stats.phase_records))
+    gate = {"phi_M in (-0.2, 0.1) V": bool(np.all(phi_M > -0.2) and np.all(phi_M < 0.1)),
+            "stimulated max > rest + 2 mV": bool(phi_M[stim].max() > -0.0743 + 2e-3),
+            "c unchanged": torch.equal(state["c"], S.c_init),
+            "KNP never ran": all(sum(k) == 0 for k in S.stats.knp_niters),
+            "EMI phases only": phases == {"emi_assem", "emi_solve"},
+            "stats files": "emi_solve_0.txt" in files and len(lines) == 12}
+    app_gate("emi-2d", gate, f"stimulated max {phi_M[stim].max():.6f} V, EMI iters "
+             f"{S.stats.emi_niters}, files {files}")
+    sp = SolverParams(direct_emi=False, direct_knp=False, rtol_emi=1e-10, atol_emi=1e-40,
+                      max_it_emi=50000)
+    S = emi_2d_solver()
+    st_pic, stats, it = S.solve_for_time_step_picard(S._initial_state(0.0), sp)
+    S2 = emi_2d_solver()
+    st_plain, _ = S2._pde_step(S2.attach_pc(S2._initial_state(0.0), sp), sp)
+    d = max(float((st_pic[k] - st_plain[k]).abs().max()) for k in ("phi", "phi_M"))
+    gate = {"one iteration": it == 1, "equal to the plain EMI step": d < 1e-12,
+            "c unchanged": torch.equal(st_pic["c"], S.c_init)}
+    app_gate("picard-emi", gate, f"{it} iteration, EMI {stats['emi_iters']}, max |diff| {d:.3e}")
+
+
+def picard_mms():
+    """tests/test_picard.py on mms_square(3) on the card: the direct Picard
+    step (tol 1e-8) against the iterative one (c 1e-8, mean-shifted phi
+    1e-4) and against the plain direct step (c 5e-2)."""
+    runs = {}
+    for kind, sp in (("direct", mms_params_direct()), ("iterative", mms_params_iterative())):
+        S, _ = mms_solver(3, MMS_DT_SPACE, "space")
+        S.splitting_scheme = False
+        t0 = time.perf_counter()
+        runs[kind] = S.solve_for_time_step_picard(S._initial_state(0.0), sp, tol=1e-8)
+        torch.cuda.synchronize()
+        print(f"picard  mms res 3 {kind:9s}: {runs[kind][2]} iterations, last inner EMI "
+              f"{runs[kind][1]['emi_iters']} KNP {runs[kind][1]['knp_iters']}, "
+              f"{time.perf_counter() - t0:.2f} s")
+    S, _ = mms_solver(3, MMS_DT_SPACE, "space")
+    plain = S.solve_system_passive(MMS_DT_SPACE, 0.0, mms_params_direct())
+    sd, si = runs["direct"][0], runs["iterative"][0]
+    shifted = lambda p: p - p.mean()
+    dc = float((si["c"] - sd["c"]).abs().max())
+    dphi = float((shifted(si["phi"]) - shifted(sd["phi"])).abs().max())
+    dplain = float((sd["c"] - plain["c"]).abs().max())
+    gate = {"iterative c within 1e-8": dc < 1e-8, "iterative phi within 1e-4": dphi < 1e-4,
+            "plain step c within 5e-2": dplain < 5e-2,
+            "t advanced": abs(float(sd["t"]) - MMS_DT_SPACE) < 1e-20}
+    app_gate("picard-mms", gate, f"c {dc:.3e}, phi {dphi:.3e}, plain c {dplain:.3e}")
+
+
+def variants_phase(mesh, results, launches):
+    """Phase 11: the other solve paths at full width, float64 unless
+    stated -- K15 and the BiCGStab windows on both layouts (bicg_windows),
+    the EMI-only solver on the EMIx cell layout (emi_only_window) and on
+    the 2D neuron with its stats files and its Picard step (emi_only_2d),
+    and the MMS Picard checks (picard_mms).  Adds the windows' launches to
+    ``launches``."""
+    t0 = time.perf_counter()
+    first = bicg_windows(mesh, results, launches)
+    launches["emi-only"] = emi_only_window(mesh, first)
+    emi_only_2d()
+    picard_mms()
+    print(f"variants phase {time.perf_counter() - t0:.1f} s")
+
+
 def rank_kernels(results, launches_of=None):
     """The redesign order: first every kernel slower than its library call
     in either dtype, the largest ratio first; then the rest by launches in
@@ -2656,6 +3081,7 @@ def main():
     probe_phase(results, launches)
     launches["mms"] = mms_phase(results)
     launches.update(apps_phase(results))
+    variants_phase(mesh, results, launches)
     print(f"layouts float64 median ms/step: cell {walls['cell'][0]:.2f}, pair "
           f"{walls['pair'][0]:.2f}; ODE {walls['cell'][1]:.2f} / {walls['pair'][1]:.2f}")
 

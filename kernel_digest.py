@@ -9,7 +9,9 @@ layout's facet tables (float32 and float64); the matvecs (K3 on pairs, K1
 on cells; float32 and float64) on the step's EMI and two-ion KNP operators
 applied to the step's rhs; K9 as the solver's block-Jacobi KNP solve
 drives it (krylov.gmres_batched on those operators, each layout, both
-dtypes): the correction, the iterations and the residual norms; K5's
+dtypes): the correction, the iterations and the residual norms, and K15
+as its BiCGStab solve drives it on the same systems (k15_bicg:
+krylov.bicgstab_batched, the same three outputs); K5's
 apply on the step's diagonals (cell: nd = 4; pair: the pair_bj halves
 inverse in the halves form, or the full form in a tree without it) and
 the pair GMRES above with the solver's halves form; K11 knp_facet on each
@@ -165,10 +167,11 @@ def main():
             for dtype in (torch.float32, torch.float64):
                 Bd = BK.to(dtype)
                 Pinv = spmv.block_jacobi_inverse(Bd[:, 0].contiguous())
-                gmres_digest(krylov, layout, dtype,
-                             lambda V, Bd=Bd: spmv.bell_matvec_multi(Bd, nbr, V.contiguous()),
-                             lambda r, Pinv=Pinv: spmv.block_jacobi_apply(Pinv, r.contiguous()),
-                             rhsK.to(dtype), c.to(dtype))
+                for fn in (gmres_digest, bicgstab_digest):
+                    fn(krylov, layout, dtype,
+                       lambda V, Bd=Bd: spmv.bell_matvec_multi(Bd, nbr, V.contiguous()),
+                       lambda r, Pinv=Pinv: spmv.block_jacobi_apply(Pinv, r.contiguous()),
+                       rhsK.to(dtype), c.to(dtype))
         if layout == "pair":
             (pd, pe), rhs, _ = S._assemble_emi(c, state["c_elim"], pM, Itot, state["t"],
                                                pair=True)
@@ -206,12 +209,13 @@ def main():
                     (pdd * S._pair_bj_halves[None].to(dtype)).contiguous())
                 if halves_form(spmv):
                     Pinv = spmv.block_jacobi_operands(Pinv, halves=True, buffer=True)
-                gmres_digest(krylov, layout, dtype,
-                             lambda V, pdd=pdd, ped=ped: pairs.pair_matvec_multi(
-                                 pdd, ped, pm, V.contiguous()),
-                             lambda r, Pinv=Pinv, lm=lm: spmv.block_jacobi_apply(
-                                 Pinv, r.contiguous()) * lm,
-                             pairs.to_pair(pm, rhsK.to(dtype)), pairs.to_pair(pm, c.to(dtype)))
+                for fn in (gmres_digest, bicgstab_digest):
+                    fn(krylov, layout, dtype,
+                       lambda V, pdd=pdd, ped=ped: pairs.pair_matvec_multi(
+                           pdd, ped, pm, V.contiguous()),
+                       lambda r, Pinv=Pinv, lm=lm: spmv.block_jacobi_apply(
+                           Pinv, r.contiguous()) * lm,
+                       pairs.to_pair(pm, rhsK.to(dtype)), pairs.to_pair(pm, c.to(dtype)))
         if layout == "pair":
             k12_digests(S, asm, pairs, c, state, pM, Ich, Itot)
         k11_digests(S, asm, layout, c, call, phi, st)
@@ -558,6 +562,27 @@ def gmres_digest(krylov, layout, dtype, mv, pc, rhs, c):
     torch.cuda.synchronize()
     iters = torch.tensor(res.iters, dtype=torch.int64)
     print(f"digest  k9_gmres     {layout} {str(dtype):14s} "
+          f"{digest([res.x, iters, res.resnorm])} (iterations {res.iters})")
+
+
+def bicgstab_digest(krylov, layout, dtype, mv, pc, rhs, c):
+    """K15 through krylov.bicgstab_batched as the solver's KNP solve calls
+    it with ``knp_solver="bicgstab"`` (as gmres_digest: increment form,
+    emix.solver_params()'s rtol / atol / iteration cap) on the same
+    block-Jacobi systems: the correction x, every system's iterations and
+    the final residual norms; a tree without K15 prints that it has none."""
+    from knpemidg_tpu_torch import emix
+
+    if not hasattr(krylov, "bicgstab_batched"):
+        print(f"k15     {layout} {str(dtype):14s} no bicgstab_batched in this tree")
+        return
+    sp = emix.solver_params()
+    r0 = (rhs - mv(c)).contiguous()
+    res = krylov.bicgstab_batched(mv, r0, torch.zeros_like(r0), pc, rtol=sp.rtol_knp,
+                                  atol=sp.atol_knp, max_it=sp.max_it_knp, b_ref=rhs)
+    torch.cuda.synchronize()
+    iters = torch.tensor(res.iters, dtype=torch.int64)
+    print(f"digest  k15_bicg     {layout} {str(dtype):14s} "
           f"{digest([res.x, iters, res.resnorm])} (iterations {res.iters})")
 
 

@@ -14,13 +14,15 @@ _torch.backends.cudnn.allow_tf32 = False
 from .config import Ion, PhysicalParams, SolverParams, StimParams, ion_from_dict
 from .solver import (Solver, StandardSolver, Traces, state_from_numpy,
                      state_to_numpy)
+from .solver_emi import SolverEMI, StandardSolverEMI
 from .membrane.engine import (MembraneState, get_param, make_membrane,
                               ode_step, set_param)
 from .mesh.core import Mesh, build_mesh, morton_order
 
 __all__ = [
     "Ion", "PhysicalParams", "SolverParams", "StimParams", "ion_from_dict",
-    "Solver", "StandardSolver", "Traces", "state_from_numpy", "state_to_numpy",
+    "Solver", "StandardSolver", "SolverEMI", "StandardSolverEMI", "Traces",
+    "state_from_numpy", "state_to_numpy",
     "MembraneState", "make_membrane", "ode_step", "set_param", "get_param",
     "Mesh", "build_mesh", "morton_order",
 ]

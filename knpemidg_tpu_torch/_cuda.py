@@ -26,7 +26,7 @@ _CSRC = os.path.join(_HERE, "csrc")
 SOURCES = ("bell_matvec.cu", "block_jacobi.cu", "membrane_rk4.cu",
            "pair_matvec.cu", "pair_relayout.cu", "pair_emit.cu", "two_level.cu",
            "assemble_emi.cu", "assemble_knp.cu", "membrane_trace.cu", "gmres.cu",
-           "pcg.cu", "gather_probe.cu")
+           "pcg.cu", "bicgstab.cu", "gather_probe.cu")
 BUILD_DIR = os.path.join(_HERE, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libknpemidg_kernels.so")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -36,7 +36,7 @@ COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # Krylov kernels round their updates and Givens arithmetic as the plain
 # versions do
 SOURCE_FLAGS = {f: ("-fmad=false",) for f in ("assemble_emi.cu", "assemble_knp.cu",
-                                               "gmres.cu", "pcg.cu")}
+                                               "gmres.cu", "pcg.cu", "bicgstab.cu")}
 
 # kernel name -> launches counted by its wrapper: one a wrapper call that
 # launches on the card, however many kernels the call runs (knp_facet's
@@ -49,7 +49,8 @@ SOURCE_FLAGS = {f: ("-fmad=false",) for f in ("assemble_emi.cu", "assemble_knp.c
 # without deflation fields or As, K7's on the main path).  The assembly
 # kernels (K10 emi_*, K11 alpha_sum and
 # knp_*, K14 membrane_trace and eliminated_concentration), the Krylov
-# kernels (K8 pcg_*, K9 gmres_*: gmres_arnoldi is a whole Arnoldi step)
+# kernels (K8 pcg_*, K9 gmres_*: gmres_arnoldi is a whole Arnoldi step;
+# K15 bicgstab_*: an iteration is one bicgstab_alpha and one bicgstab_omega)
 # serve both layouts; K13's one launch for every tag counts as membrane_rl
 # when a tag of it runs Rush-Larsen, else as membrane_rk4, and its ode_run
 # launch (many steps of one tag) as membrane_run; pgather /
@@ -70,6 +71,7 @@ LAUNCHES = {"bell_matvec": 0, "block_jacobi_inverse": 0,
             "eliminated_concentration": 0,
             **{f"pcg_{e}": 0 for e in ("dot", "update", "dot2_direction")},
             **{f"gmres_{e}": 0 for e in ("start", "cgs_dot", "arnoldi", "solve_update")},
+            **{f"bicgstab_{e}": 0 for e in ("start", "alpha", "omega")},
             "pgather": 0, "pgather2": 0}
 
 _P = ctypes.c_void_p
@@ -111,6 +113,10 @@ _SIGNATURES = {
     "knp_pcg_update": (_P,) * 7 + (_I,) * 3 + (_P,),
     "knp_pcg_dot2_direction_grid": (_I, _I, _P),
     "knp_pcg_dot2_direction": (_P,) * 6 + (_I,) * 2 + (_P,),
+    "knp_bicgstab_grid": (_I, _I, _P),
+    "knp_bicgstab_start": (_P,) * 11 + (_I,) * 3 + (_D, _D, _P),
+    "knp_bicgstab_alpha": (_P,) * 9 + (_I,) * 3 + (_P,),
+    "knp_bicgstab_omega": (_P,) * 11 + (_I,) * 3 + (_P,),
     "knp_pgather": (_P,) * 3 + (_I,) + (_P,),
     "knp_pgather2": (_P,) * 3 + (_I,) * 2 + (_P,),
 }

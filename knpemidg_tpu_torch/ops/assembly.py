@@ -39,6 +39,7 @@ from __future__ import annotations
 import ctypes
 from typing import Any, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .. import _cuda
@@ -85,6 +86,7 @@ def precompute_static(g):
       gnp/gnm (nd, nf+1) n . grad(basis) per facet side
       E_pp/E_pm/E_mp/E_mm (nd, nd, nf+1) = sum_q w_q R_v[q,i] R_u[q,j]
       M0 (nd, nd), phibar (nd,) reference-cell mass factors
+      e_groups  the exterior facets in groups that repeat no cell
     """
     _degree1(g)
     g = dict(g)
@@ -98,6 +100,7 @@ def precompute_static(g):
     g["E_mm"] = _wsum_outer(w, None, Rm, Rm)
     g["M0"] = torch.einsum("q,qi,qj->ij", g["w_c"], g["Phi_c"], g["Phi_c"])
     g["phibar"] = torch.einsum("q,qj->j", g["w_c"], g["Phi_c"])
+    g["e_groups"] = exterior_groups(g["e_c"])
     # an einsum may return a permuted memory order; the kernels read rows
     for key in ("GG", "gnp", "gnm", "E_pp", "E_pm", "E_mp", "E_mm", "M0", "phibar"):
         g[key] = g[key].contiguous()
@@ -521,10 +524,29 @@ def _volume_source(g, f_sub, t):
     return g["vol"] * torch.einsum("q,qc,qi->ic", g["w_c"], fsrc, g["Phi_c"])
 
 
+def exterior_groups(e_c):
+    """The exterior facets in groups that repeat no cell, as facet index
+    tensors: a cell's k-th exterior facet (in facet order) in group k.  A
+    renumbering of the cells keeps the groups."""
+    ec = e_c.cpu().numpy()
+    order = np.argsort(ec, kind="stable")
+    first = np.searchsorted(ec[order], ec[order])      # the cell's first slot
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order)) - first
+    return tuple(torch.as_tensor(np.flatnonzero(rank == k), device=e_c.device)
+                 for k in range(int(rank.max()) + 1 if len(rank) else 0))
+
+
 def _add_exterior(g, rhs, bdry, scale):
-    """rhs + scale int_ds bdry v over the exterior facets, bdry (nq, ne)."""
+    """rhs + scale int_ds bdry v over the exterior facets, bdry (nq, ne).
+    A cell with several exterior facets (a corner) adds them in facet
+    order, one index_add per group of g["e_groups"] (:func:`exterior_groups`):
+    a card's index_add adds repeated indices by atomics, in no fixed order,
+    so one index_add over all facets would not repeat to the last bit."""
     be = scale * g["e_area"] * torch.einsum("q,qf,qif->if", g["w_f"], bdry, g["e_R"])
-    return rhs.index_add(1, g["e_c"], be)
+    for sel in g["e_groups"]:
+        rhs = rhs.index_add(1, g["e_c"][sel], be[:, sel])
+    return rhs
 
 
 def emi_mms_facet(g, masks, mms, t, C_phi, b_p, b_m):

@@ -559,3 +559,204 @@ def pcg_dot2_direction(r, z, p, wk: PcgWork):
                  z.data_ptr(), p.data_ptr(), wk.partial.data_ptr(), wk.sc.data_ptr(),
                  wk.flag.data_ptr(), n, wk.grid)
     return wk
+
+
+# ---------------------------------------------------------------------------
+# K15: batched BiCGStab
+# ---------------------------------------------------------------------------
+
+# slots of a system's row of the BiCGStab scalars (csrc/bicgstab.cu BI_*):
+# the carried rho, alpha, omega; the tolerance; r . r and rhat . r of the
+# current residual; the iteration's alpha
+BI_RHO, BI_ALPHA, BI_OMEGA, BI_TOL, BI_RR, BI_RHON, BI_ALPHAN = range(7)
+BI_NSC = 8
+
+
+class BicgWork(NamedTuple):
+    """Vectors, scalars and reduction workspace of one batched BiCGStab
+    solve (mb systems of n entries), built once per solve by
+    :func:`bicgstab_work`."""
+    r: torch.Tensor       # (mb, n) preconditioned residual
+    rhat: torch.Tensor    # (mb, n) shadow residual
+    p: torch.Tensor       # (mb, n) search direction
+    v: torch.Tensor       # (mb, n) A p of the last iteration
+    s: torch.Tensor       # (mb, n) r - alpha v of the iteration
+    sc: torch.Tensor      # (mb, BI_NSC) the scalars of each system (BI_*)
+    ks: torch.Tensor      # (mb,) int32 iterations each system was live in
+    live: torch.Tensor    # (mb,) int32 sqrt(r . r) > tol
+    flag: torch.Tensor    # (1,) int32: some system is live
+    # the kernels' reduction partials, (4 mb ceil(n / RED_CHUNK),)
+    partial: "torch.Tensor | None" = None
+    grid: int = 0         # blocks of the cooperative launches (on the card)
+
+
+def bicgstab_work(mb: int, n: int, dtype, device) -> BicgWork:
+    """Buffers of a solve, with the kernels' partials; on the card the
+    launches' grid is sized once (``knp_bicgstab_grid``: the units, at most
+    the blocks all three kernels can hold resident).  The entries then
+    allocate nothing and check only the vectors they are given.  On the
+    card more than MAX_SYSTEMS systems or a dtype other than float32 /
+    float64 raise NotImplementedError."""
+    dev = torch.device(device)
+    grid = 0
+    if dev.type == "cuda":
+        if mb > MAX_SYSTEMS:
+            raise NotImplementedError(f"bicgstab: more than {MAX_SYSTEMS} systems in one batch")
+        if dtype not in (torch.float32, torch.float64):
+            raise NotImplementedError(f"bicgstab: the kernel takes float32/float64, got {dtype}")
+        g = ctypes.c_int(0)
+        _cuda.call("knp_bicgstab_grid", dtype, mb, n, ctypes.addressof(g))
+        grid = g.value
+    vec = lambda: torch.zeros((mb, n), dtype=dtype, device=dev)
+    return BicgWork(r=vec(), rhat=vec(), p=vec(), v=vec(), s=vec(),
+                    sc=torch.zeros((mb, BI_NSC), dtype=dtype, device=dev),
+                    ks=torch.zeros(mb, dtype=torch.int32, device=dev),
+                    live=torch.zeros(mb, dtype=torch.int32, device=dev),
+                    flag=torch.zeros(1, dtype=torch.int32, device=dev),
+                    partial=torch.empty(4 * mb * _nblk(n), dtype=dtype, device=dev), grid=grid)
+
+
+def _rowdots(a, b, ordered):
+    """Per-row a . b of (mb, n) arrays: the einsum, or (``ordered``) summed
+    in the kernels' order to the last bit (:func:`_ordered_sums`)."""
+    return _ordered_sums(a, b) if ordered else torch.einsum("sn,sn->s", a, b)
+
+
+def _bicgstab_direction(wk: BicgWork, ordered):
+    """rr and rho' of the current r, live (sqrt(rr) > tol), the flag, and
+    the direction p = live ? r + beta (p - omega v) : p with the breakdown
+    guard beta = 0 unless |rho| > 0, |omega| > 0 and live (krylov.py:531-537
+    of the JAX package, the first half of its loop body)."""
+    sc = wk.sc
+    rr = _rowdots(wk.r, wk.r, ordered)
+    rhon = _rowdots(wk.rhat, wk.r, ordered)
+    live = torch.sqrt(rr) > sc[:, BI_TOL]
+    rho, alpha, omega = sc[:, BI_RHO], sc[:, BI_ALPHA], sc[:, BI_OMEGA]
+    safe = (torch.abs(rho) > 0) & (torch.abs(omega) > 0) & live
+    beta = torch.where(safe, (rhon / rho) * (alpha / omega), torch.zeros_like(rho))
+    wk.p.copy_(torch.where(live[:, None], wk.r + beta[:, None] * (wk.p - omega[:, None] * wk.v),
+                           wk.p))
+    sc[:, BI_RR] = rr
+    sc[:, BI_RHON] = rhon
+    wk.live.copy_(live.to(torch.int32))
+    wk.flag.fill_(int(bool(torch.any(live))))
+    return wk
+
+
+def bicgstab_start_plain(r0, bz, wk: BicgWork, rtol, atol, ordered=False):
+    """The solve's start from the preconditioned residual r0 and the
+    preconditioned reference rhs bz (mb, n): tol = max(rtol ||bz||, atol),
+    r = rhat = r0, v = p = 0, rho = alpha = omega = 1, ks = 0, then
+    :func:`_bicgstab_direction` (rr, rho', live, the flag, the first p);
+    ``ordered`` sums in the kernel's order.  Returns wk."""
+    bb = _rowdots(bz, bz, ordered)
+    wk.sc.zero_()
+    wk.sc[:, BI_TOL] = torch.clamp(rtol * torch.sqrt(bb), min=atol)
+    for k in (BI_RHO, BI_ALPHA, BI_OMEGA):
+        wk.sc[:, k] = 1.0
+    wk.r.copy_(r0)
+    wk.rhat.copy_(r0)
+    wk.p.zero_()
+    wk.v.zero_()
+    wk.ks.zero_()
+    return _bicgstab_direction(wk, ordered)
+
+
+def bicgstab_alpha_plain(v, wk: BicgWork, ordered=False):
+    """After v = A p: ks += live, alpha' = rho' / (rhat . v) (0 where the
+    dot is 0 or the system is frozen), s = r - alpha' v, and v kept in
+    wk.v.  Returns wk."""
+    sc = wk.sc
+    live = wk.live.bool()
+    wk.ks.add_(wk.live)
+    denom = _rowdots(wk.rhat, v, ordered)
+    zero = torch.zeros_like(denom)
+    an = torch.where(torch.abs(denom) > 0, sc[:, BI_RHON] / denom, zero)
+    an = torch.where(live, an, zero)
+    sc[:, BI_ALPHAN] = an
+    wk.s.copy_(wk.r - an[:, None] * v)
+    wk.v.copy_(v)
+    return wk
+
+
+def bicgstab_omega_plain(t, x, wk: BicgWork, ordered=False):
+    """After t = A s: omega' = (t . s) / (t . t) (0 where t . t is 0, the
+    carried omega where frozen), x += alpha' p + omega' s (in place; omega'
+    0 where frozen), r = live ? s - omega' t : r, the carried rho = live ?
+    rho' : rho, alpha = alpha' + (not live) alpha, omega = omega', then
+    :func:`_bicgstab_direction` for the next iteration.  Returns wk."""
+    sc = wk.sc
+    live = wk.live.bool()
+    tt = _rowdots(t, t, ordered)
+    ts = _rowdots(t, wk.s, ordered)
+    zero = torch.zeros_like(tt)
+    om = torch.where(tt > 0, ts / tt, zero)
+    om = torch.where(live, om, sc[:, BI_OMEGA])
+    an = sc[:, BI_ALPHAN]
+    x.copy_(x + an[:, None] * wk.p + torch.where(live, om, zero)[:, None] * wk.s)
+    wk.r.copy_(torch.where(live[:, None], wk.s - om[:, None] * t, wk.r))
+    sc[:, BI_RHO] = torch.where(live, sc[:, BI_RHON], sc[:, BI_RHO])
+    sc[:, BI_ALPHA] = an + (~live).to(sc.dtype) * sc[:, BI_ALPHA]
+    sc[:, BI_OMEGA] = om
+    return _bicgstab_direction(wk, ordered)
+
+
+def _check_bicg(wk: BicgWork, *vecs):
+    """What may change between calls of a K15 entry: the vectors against
+    the work (dtype, shape (mb, n), on the card, contiguous), one plain
+    pass; the work was checked by bicgstab_work.  The slow path names what
+    is wrong."""
+    ok = wk.grid > 0 and wk.partial is not None
+    for v in vecs:
+        ok = ok and (v.is_cuda and v.dtype == wk.r.dtype and v.shape == wk.r.shape
+                     and v.is_contiguous())
+    if not ok:
+        if wk.grid <= 0 or wk.partial is None:
+            raise ValueError("bicgstab: the work has no card workspace; build it with "
+                             "bicgstab_work")
+        for v in vecs:
+            _cuda.check("vector", v, wk.r.dtype, wk.r.shape)
+
+
+def bicgstab_start(r0, bz, wk: BicgWork, rtol, atol):
+    """The solve's start (:func:`bicgstab_start_plain`; one cooperative
+    kernel launch on CUDA tensors, its outputs bitwise those of the plain
+    version with ``ordered=True``).  r0 and bz are read only.  Returns wk."""
+    if not r0.is_cuda:
+        return bicgstab_start_plain(r0, bz, wk, rtol, atol)
+    _check_bicg(wk, r0, bz)
+    mb, n = r0.shape
+    _cuda.launch("bicgstab_start", "knp_bicgstab_start", r0.dtype, r0.data_ptr(), bz.data_ptr(),
+                 wk.r.data_ptr(), wk.rhat.data_ptr(), wk.p.data_ptr(), wk.v.data_ptr(),
+                 wk.partial.data_ptr(), wk.sc.data_ptr(), wk.ks.data_ptr(), wk.live.data_ptr(),
+                 wk.flag.data_ptr(), mb, n, wk.grid, float(rtol), float(atol))
+    return wk
+
+
+def bicgstab_alpha(v, wk: BicgWork):
+    """After v = A p (:func:`bicgstab_alpha_plain`; one cooperative kernel
+    launch on a CUDA tensor).  v is read only and copied into wk.v, so the
+    apply may hand back a buffer it reuses.  Returns wk."""
+    if not v.is_cuda:
+        return bicgstab_alpha_plain(v, wk)
+    _check_bicg(wk, v)
+    mb, n = v.shape
+    _cuda.launch("bicgstab_alpha", "knp_bicgstab_alpha", v.dtype, v.data_ptr(), wk.r.data_ptr(),
+                 wk.rhat.data_ptr(), wk.v.data_ptr(), wk.s.data_ptr(), wk.partial.data_ptr(),
+                 wk.sc.data_ptr(), wk.ks.data_ptr(), wk.live.data_ptr(), mb, n, wk.grid)
+    return wk
+
+
+def bicgstab_omega(t, x, wk: BicgWork):
+    """After t = A s (:func:`bicgstab_omega_plain`; one cooperative kernel
+    launch on CUDA tensors): x (mb, n) updated in place, the next iteration's
+    direction, scalars and flag.  Returns wk."""
+    if not t.is_cuda:
+        return bicgstab_omega_plain(t, x, wk)
+    _check_bicg(wk, t, x)
+    mb, n = t.shape
+    _cuda.launch("bicgstab_omega", "knp_bicgstab_omega", t.dtype, t.data_ptr(), x.data_ptr(),
+                 wk.r.data_ptr(), wk.rhat.data_ptr(), wk.p.data_ptr(), wk.v.data_ptr(),
+                 wk.s.data_ptr(), wk.partial.data_ptr(), wk.sc.data_ptr(), wk.live.data_ptr(),
+                 wk.flag.data_ptr(), mb, n, wk.grid)
+    return wk

@@ -6,8 +6,11 @@ Per time step (the splitting scheme):
   step 0 (ODE):  advance the membrane ODEs (kernel C on the card),
   step I (EMI):  DG solve for phi by increment-form PCG with a linear
                  predictor and the two-level + deflation preconditioner,
-  step II (KNP): DG solves for all solved ions at once by batched GMRES,
-then phi_M = JUMP(phi) and the eliminated ion are updated.
+  step II (KNP): DG solves for all solved ions at once by batched GMRES
+                 (or batched BiCGStab, ``knp_solver="bicgstab"``),
+then phi_M = JUMP(phi) and the eliminated ion are updated.  A Picard step
+(solve_for_time_step_picard) repeats steps I + II at a fixed time level
+until the concentrations stop changing.
 
 The MMS verification path (``mms``, solve_system_passive, cell layout) and
 the direct solves take the eager step of the JAX package: EMI by a host
@@ -16,7 +19,10 @@ direct solve or PCG, then one KNP solve per ion (host direct, or GMRES).
 PyTorch runs eagerly, so there is no jit layer: the Krylov loops are
 Python loops and every function below works on device tensors directly.
 The solver runs on the CUDA card unless the caller names another device.
-Options the port does not carry yet raise NotImplementedError.
+``save_solver_stats`` writes the reference's per-phase stats files
+(utils/stats.py) and times each phase with a device synchronise; H5 field
+output and the other options the port does not carry yet raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ from .ops.pairs import (build_pair_maps, cell_bell_to_pair, emit_buffers, from_p
 from .ops.spmv import (bell_matvec, bell_matvec_fan, bell_matvec_multi,
                        block_jacobi_apply, block_jacobi_inverse, block_jacobi_operands)
 from .solvers.direct import solve_direct
-from .solvers.krylov import gmres, gmres_batched, pcg
+from .solvers.krylov import bicgstab_batched, gmres, gmres_batched, pcg
 from .solvers.twolevel import (_np, build_moment_deflation, build_two_level,
                                compartment_ids, make_two_level, moment_vectors,
                                ritz_galerkin_host, ritz_lanczos_W,
@@ -58,7 +64,7 @@ def _check_supported(sp: SolverParams):
                  "emi_moment_axial", "emi_moment_order_ics", "knp_ritz"):
         if getattr(sp, name):
             unsupported.append(name)
-    if sp.knp_solver != "gmres":
+    if sp.knp_solver not in ("gmres", "bicgstab"):
         unsupported.append(f"knp_solver={sp.knp_solver!r}")
     if sp.gmres_orth != "cgs2" or sp.gmres_rot != "replay":
         unsupported.append("gmres_orth/gmres_rot other than cgs2/replay")
@@ -122,6 +128,8 @@ class Solver:
     (``mms``, knpemidg_tpu_torch.mms.problems), setup_domain ->
     setup_parameters -> setup_FEM_spaces -> solve_system_passive."""
 
+    _emi_only = False         # SolverEMI: no KNP solve, static operator or pc
+
     def __init__(self, params, ion_list, degree_emi=1, degree_knp=1, mms=None,
                  dtype=None, device="cuda"):
         if degree_emi != 1 or degree_knp != 1:
@@ -141,6 +149,7 @@ class Solver:
         self.pair_layout = False             # see enable_pair_layout
         self.pairs = None
         self._ode_tables = {}                # see _ode_table
+        self.save_solver_stats = False       # see _io_setup
 
     # ------------------------------------------------------------------
     # setup phases
@@ -485,34 +494,52 @@ class Solver:
         I_ch_pad = torch.cat([I_ch, I_ch.new_zeros((I_ch.shape[0], 1))], dim=1)
         return phi_M_pad, I_ch_pad, I_ch_pad.sum(dim=0)
 
-    def _pde_step(self, state, solver_params: SolverParams):
-        """EMI solve -> KNP solves -> state updates."""
+    def _pde_step(self, state, solver_params: SolverParams, c_n=None,
+                  advance_time: bool = True):
+        """EMI solve -> KNP solves -> state updates.  ``c_n``: the time
+        level's concentrations (the mass term of the KNP rhs), the state's
+        by default; a Picard iteration passes the frozen level while the
+        state carries the latest iterate.  ``advance_time=False`` keeps t."""
         sp_ = solver_params
         if self.mms is not None or sp_.direct_emi or sp_.direct_knp:
-            return self._pde_step_eager(state, sp_)
-        c, c_elim, phi, t = state["c"], state["c_elim"], state["phi"], state["t"]
+            return self._pde_step_eager(state, sp_, c_n, advance_time)
+        c, c_elim, t = state["c"], state["c_elim"], state["t"]
+        c_n = c if c_n is None else c_n
         pc = state.get("pc")
-        phi_M_pad, I_ch_pad, I_ch_tot_pad = self._pads(state)
+        pads = self._pads(state)
 
         stats = {}
-        pair = self.pair_layout
-        blocks, rhs, Pd = self._assemble_emi(c, c_elim, phi_M_pad, I_ch_tot_pad, t,
-                                             pair=pair,
-                                             out=self._emit_out("emi") if pair else None,
-                                             buffers=self._emit_out("emi_emit"))
+        blocks, rhs, Pd = self._emi_assemble_step(state, pads)
         phi, stats["emi_iters"], stats["emi_converged"] = self._emi_solve_iterative(
-            blocks, Pd, rhs, phi, sp_, pc=pc.get("emi") if pc else None,
+            blocks, Pd, rhs, state["phi"], sp_, pc=pc.get("emi") if pc else None,
             phi_prev=state.get("phi_prev"))
 
-        blocksK, rhsK = self._knp_assemble_all(
-            c, c_elim, phi, phi_M_pad, I_ch_pad, I_ch_tot_pad, t, c,
-            out=self._emit_out("knp") if pair else None,
-            buffers=self._emit_out("membrane_emit"))
+        blocksK, rhsK = self._knp_assemble_step(state, phi, pads, c_n)
         c, stats["knp_iters"], stats["knp_converged"] = self._knp_solve_all(
             blocksK, rhsK, c, sp_, pcK=pc.get("knp") if pc else None)
-        return self._finalize_step(state, stats, c, phi, t)
+        return self._finalize_step(state, stats, c, phi, t, advance_time)
 
-    def _pde_step_eager(self, state, sp_: SolverParams):
+    def _emi_assemble_step(self, state, pads):
+        """The step's EMI blocks (the pair operator on the pair layout), rhs
+        and P_diag at ``state``, emitted into the step's buffers
+        (_emit_out); ``pads`` = _pads(state)."""
+        phi_M_pad, _, I_ch_tot_pad = pads
+        pair = self.pair_layout
+        return self._assemble_emi(state["c"], state["c_elim"], phi_M_pad, I_ch_tot_pad,
+                                  state["t"], pair=pair,
+                                  out=self._emit_out("emi") if pair else None,
+                                  buffers=self._emit_out("emi_emit"))
+
+    def _knp_assemble_step(self, state, phi, pads, c_n):
+        """The step's KNP operators and rhs of all solved ions at ``state``
+        and the new ``phi``, emitted into the step's buffers."""
+        phi_M_pad, I_ch_pad, I_ch_tot_pad = pads
+        return self._knp_assemble_all(
+            state["c"], state["c_elim"], phi, phi_M_pad, I_ch_pad, I_ch_tot_pad, state["t"],
+            c_n, out=self._emit_out("knp") if self.pair_layout else None,
+            buffers=self._emit_out("membrane_emit"))
+
+    def _pde_step_eager(self, state, sp_: SolverParams, c_n=None, advance_time=True):
         """The step of the MMS path and the direct solves (the JAX
         package's eager branch): EMI by the host direct solve (the constant
         nullspace bordered) or PCG, then the KNP solves -- batched GMRES as
@@ -522,17 +549,10 @@ class Solver:
         if self.pair_layout:
             raise NotImplementedError("direct solves on the pair layout are not ported")
         c, c_elim, phi, t = state["c"], state["c_elim"], state["phi"], state["t"]
+        c_n = c if c_n is None else c_n
         pc = state.get("pc")
         phi_M_pad, I_ch_pad, I_ch_tot_pad = self._pads(state)
-        phases = {}
-        mark = [_time.perf_counter()]
-
-        def phase(name):
-            _sync(self.device)
-            now = _time.perf_counter()
-            phases[name] = phases.get(name, 0.0) + now - mark[0]
-            mark[0] = now
-
+        phases, phase = self._phase_timer()
         stats = {"phases": phases}
         blocks, rhs, Pd = self._assemble_emi(c, c_elim, phi_M_pad, I_ch_tot_pad, t)
         phase("emi_assem")
@@ -547,10 +567,10 @@ class Solver:
         phase("emi_solve")
 
         if self.mms is not None:
-            blocksK, rhsK = self._knp_assemble_mms(c, phi, t)
+            blocksK, rhsK = self._knp_assemble_mms(c, phi, t, c_n)
         else:
             blocksK, rhsK = self._knp_assemble_all(c, c_elim, phi, phi_M_pad, I_ch_pad,
-                                                   I_ch_tot_pad, t, c)
+                                                   I_ch_tot_pad, t, c_n)
         phase("knp_assem")
         if self.mms is None and not sp_.direct_knp:
             c, stats["knp_iters"], stats["knp_converged"] = self._knp_solve_all(
@@ -559,7 +579,7 @@ class Solver:
             c, stats["knp_iters"], stats["knp_converged"] = self._knp_solve_per_ion(
                 blocksK, rhsK, c, sp_)
         phase("knp_solve")
-        return self._finalize_step(state, stats, c, phi, t)
+        return self._finalize_step(state, stats, c, phi, t, advance_time)
 
     def _knp_solve_per_ion(self, blocksK, rhsK, c, sp_: SolverParams):
         """One KNP solve per solved ion: the host direct solve, or
@@ -583,15 +603,17 @@ class Solver:
             conv.append(res.converged)
         return torch.stack(new_c), iters, all(conv)
 
-    def _knp_assemble_mms(self, c, phi, t):
+    def _knp_assemble_mms(self, c, phi, t, c_n=None):
         """The MMS KNP operators and rhs of all solved ions
         (assembly.assemble_knp_mms): the static operator cached by
-        attach_pc, the constant couplings C_sub of each ion."""
+        attach_pc, the constant couplings C_sub of each ion; ``c_n`` the
+        time level of the mass term (``c`` by default)."""
         cache = getattr(self, "_knp_static_blocks", {})
         statics = cache.get(-1)
         if statics is None:
             statics = torch.stack([self._knp_static(k) for k in range(self.N_ions)])
-        ionsd = {"z": self.z[:self.N_ions], "D": self.D[:self.N_ions], "c_n": c, "c_k": c,
+        ionsd = {"z": self.z[:self.N_ions], "D": self.D[:self.N_ions],
+                 "c_n": c if c_n is None else c_n, "c_k": c,
                  "C_sub": [(float(ion.C_sub[0]), float(ion.C_sub[1]))
                            for ion in self.ion_list[:self.N_ions]]}
         return assembly.assemble_knp_mms(
@@ -652,14 +674,16 @@ class Solver:
         # the assembly and trace kernels take contiguous fields
         return out.contiguous(), res.iters, res.converged
 
-    def _finalize_step(self, state, stats, c, phi, t):
-        """Post-solve updates: phi_M jump, eliminated ion, time."""
+    def _finalize_step(self, state, stats, c, phi, t, advance_time=True):
+        """Post-solve updates: phi_M jump, eliminated ion (kept by the
+        EMI-only solver, whose c is frozen), time (kept with
+        ``advance_time=False``)."""
         phi_M = assembly.jump_phi_M_m(self.g, self.mem_dev, phi)
-        c_elim = assembly.eliminated_concentration(
+        c_elim = state["c_elim"] if self._emi_only else assembly.eliminated_concentration(
             c, self.z[:-1], self.rho, float(self.ion_list[-1].z))
         new_state = dict(state)
         new_state.update(c=c, c_elim=c_elim, phi=phi, phi_M=phi_M,
-                         t=t + self.params.dt)
+                         t=t + self.params.dt if advance_time else t)
         if "phi_prev" in state:        # predictor base for the next step
             new_state["phi_prev"] = state["phi"]
         return new_state, stats
@@ -693,9 +717,20 @@ class Solver:
         src = self._ion_sources(t)
         return blocksK, rhsK if src is None else (rhsK + src).contiguous()
 
+    @staticmethod
+    def _knp_krylov(mv, r0, pcf, b_ref, sp_: SolverParams):
+        """The batched KNP solve for the increment from zero, the tolerance
+        relative to the full rhs ``b_ref``: GMRES, or BiCGStab (kernel K15
+        on the card) with ``knp_solver="bicgstab"``."""
+        kw = dict(rtol=sp_.rtol_knp, atol=sp_.atol_knp, max_it=sp_.max_it_knp, b_ref=b_ref)
+        if sp_.knp_solver == "bicgstab":
+            return bicgstab_batched(mv, r0, torch.zeros_like(r0), pcf, **kw)
+        return gmres_batched(mv, r0, torch.zeros_like(r0), pcf, restart=sp_.gmres_restart, **kw)
+
     def _knp_solve_all(self, blocksK, rhsK, c, sp_: SolverParams, pcK=None):
-        """Batched increment-form GMRES over the ion axis: all solved ions
-        share one Krylov loop whose matvec is one kernel launch."""
+        """Batched increment-form GMRES (or BiCGStab) over the ion axis:
+        all solved ions share one Krylov loop whose matvec is one kernel
+        launch."""
         if isinstance(blocksK, tuple):
             return self._knp_solve_all_pair(blocksK, rhsK, c, sp_, pcK)
         kind = sp_.precond_knp or sp_.precond
@@ -707,12 +742,7 @@ class Solver:
         else:
             bj = block_jacobi_operands(block_jacobi_inverse(P_diag))
             pcf = lambda r: block_jacobi_apply(bj, r.contiguous())
-        r0 = rhsK - mv(c)
-        res = gmres_batched(
-            mv, r0, torch.zeros_like(r0), pcf,
-            rtol=sp_.rtol_knp, atol=sp_.atol_knp,
-            max_it=sp_.max_it_knp, restart=sp_.gmres_restart, b_ref=rhsK,
-        )
+        res = self._knp_krylov(mv, rhsK - mv(c), pcf, rhsK, sp_)
         return (c + res.x).contiguous(), res.iters, res.converged
 
     def _knp_solve_all_pair(self, blocksK, rhsK, c, sp_: SolverParams, pcK):
@@ -731,20 +761,16 @@ class Solver:
         pdK_bj = pdK * self._pair_bj_halves[None] if halves else pdK
         if kind == "two_level":
             data = pcK if pcK is not None else self._build_knp_pc(blocksK, sp_)
-            # the prolong-add applies the mask; GMRES consumes each result
-            # before the next apply, so the applies reuse one buffer
+            # the prolong-add applies the mask; GMRES and BiCGStab consume
+            # (or copy) each result before the next apply, so the applies
+            # reuse one buffer
             pcf = two_level_apply_batched(data, pdK_bj, sp_.agg_size // 2, halves=halves,
                                           buffer=True, mask=lm)
         else:
             bj = block_jacobi_operands(block_jacobi_inverse(pdK_bj.contiguous()), halves,
                                        buffer=True)
             pcf = lambda r: block_jacobi_apply(bj, r.contiguous()) * lm[None]
-        r0 = rhs_p - mv(c_p)
-        res = gmres_batched(
-            mv, r0, torch.zeros_like(r0), pcf,
-            rtol=sp_.rtol_knp, atol=sp_.atol_knp,
-            max_it=sp_.max_it_knp, restart=sp_.gmres_restart, b_ref=rhs_p,
-        )
+        res = self._knp_krylov(mv, rhs_p - mv(c_p), pcf, rhs_p, sp_)
         return from_pair(pm, res.x, base=c), res.iters, res.converged
 
     # ------------------------------------------------------------------
@@ -834,7 +860,7 @@ class Solver:
                 [p.phi_M_init(x) for x in self.tables.midpoints]
                 if callable(p.phi_M_init) else np.zeros(self.n_mem))
         elif p.phi_M_init_type == "function":
-            phi_M = self._tensor(p.phi_M_init)
+            phi_M = self._phi_M_function()
         else:
             raise ValueError(f"unknown phi_M_init_type {p.phi_M_init_type!r}")
         return {
@@ -849,6 +875,10 @@ class Solver:
             "mem": dict(self.mem_models),
         }
 
+    def _phi_M_function(self):
+        """phi_M of a function-type init: the given per-facet values."""
+        return self._tensor(self.params.phi_M_init)
+
     # ------------------------------------------------------------------
     # time loops
     # ------------------------------------------------------------------
@@ -856,16 +886,17 @@ class Solver:
                             filename=None, save_fields=False,
                             save_solver_stats=False, scan_steps: int = 0, on_step=None):
         """Full splitting scheme with membrane ODEs, one step at a time
-        (no field or stats files: H5 output is not ported; ``on_step``, a
-        callable(k, state) called after each step k, reads what a caller
+        (``save_solver_stats``: the per-phase stats files under
+        ``filename + "solver/"``, each phase timed with a device
+        synchronise; no field files: H5 output is not ported; ``on_step``,
+        a callable(k, state) called after each step k, reads what a caller
         wants of the fields and must leave the state as it is).  Per-step
         walls end in a device synchronise: ``self.ode_walls`` for the ODE,
         ``self.stats.step_walls`` for the PDE part."""
-        if filename is not None or save_fields or save_solver_stats:
-            raise NotImplementedError("H5 field and solver-stats output are not ported")
         if scan_steps:
             raise NotImplementedError("scan_steps: use run_block")
         _check_supported(solver_params)
+        self._io_setup(filename, save_fields, save_solver_stats, solver_params)
         self.splitting_scheme = True
         state = self.attach_pc(self._initial_state(float(t)), solver_params)
         n_steps = int(round(Tstop / self.params.dt))
@@ -882,27 +913,78 @@ class Solver:
             state = self._timed_pde_step(state, solver_params, k)
             if on_step is not None:
                 on_step(k, state)
+        self.stats.close_files()
         self.state = state
         return state
 
     def solve_system_passive(self, Tstop, t, solver_params: SolverParams, filename=None,
                              save_fields=False, save_solver_stats=False, picard=False):
         """No splitting and no ODE stepping, one PDE step at a time: the MMS
-        verification drivers' loop (no field or stats files: H5 output is
-        not ported; nor are Picard iterations).  Per-step walls end in a
-        device synchronise (``self.stats.step_walls``)."""
-        if filename is not None or save_fields or save_solver_stats:
-            raise NotImplementedError("H5 field and solver-stats output are not ported")
-        if picard:
-            raise NotImplementedError("Picard iterations are not ported")
+        verification runs' loop; ``picard`` makes each step a Picard step
+        (solve_for_time_step_picard, recorded with a zero wall);
+        ``save_solver_stats`` as in solve_system_active (no field files: H5
+        output is not ported).  Per-step walls end in a device synchronise
+        (``self.stats.step_walls``)."""
         _check_supported(solver_params)
+        self._io_setup(filename, save_fields, save_solver_stats, solver_params)
         self.splitting_scheme = False
         state = self.attach_pc(self._initial_state(float(t)), solver_params)
         n_steps = int(round(Tstop / self.params.dt))
         for k in range(n_steps):
-            state = self._timed_pde_step(state, solver_params, k)
+            if picard:
+                state, st, _ = self.solve_for_time_step_picard(state, solver_params)
+                self.stats.record_step(st, 0.0)
+            else:
+                state = self._timed_pde_step(state, solver_params, k)
+        self.stats.close_files()
         self.state = state
         return state
+
+    def solve_for_time_step_picard(self, state, solver_params: SolverParams,
+                                   tol: float = 1e-4, max_iter: int = 25):
+        """One time step by inner Picard iterations over steps I + II at the
+        frozen time level c_n = state["c"]: t advanced first, then PDE steps
+        from the latest iterate until the sup-norm change of c is at most
+        ``tol``.  Raises RuntimeError when the change grows (divergence) or
+        after ``max_iter`` iterations, and on an unconverged inner solve.
+        Returns (state, the last inner step's stats, iterations)."""
+        c_n = state["c"]
+        s = dict(self.attach_pc(state, solver_params))
+        s["t"] = state["t"] + self.params.dt
+        eps, it, stats = float("inf"), 0, None
+        while eps > tol:
+            if it >= max_iter:
+                raise RuntimeError(f"Picard solver: max iterations ({max_iter}) reached "
+                                   f"(eps={eps})")
+            it += 1
+            prev_eps, prev = eps, s["c"]
+            s, stats = self._pde_step(s, solver_params, c_n=c_n, advance_time=False)
+            eps = float(torch.max(torch.abs(prev - s["c"])))
+            if eps > prev_eps:
+                raise RuntimeError(f"Picard solver diverged (eps increased {prev_eps} -> {eps})")
+            self._check_convergence(stats, solver_params)
+        if solver_params.verbose:
+            print(f"{bcolors.OKCYAN} Summary Picard: eps = {eps}, #iters = {it} {bcolors.ENDC}")
+        return s, stats, it
+
+    # ------------------------------------------------------------------
+    # solver-stats files (the reference's protocol, utils/stats.py)
+    # ------------------------------------------------------------------
+    def _io_setup(self, filename, save_fields, save_solver_stats, sp_: SolverParams):
+        """Open the stats files under ``filename + "solver/"`` when
+        ``save_solver_stats``; H5 field output is not ported."""
+        if save_fields:
+            raise NotImplementedError("save_fields: H5 field output (io/checkpoint.py, h5py) "
+                                      "is not ported")
+        if save_solver_stats and filename is None:
+            raise ValueError("specify filename when saving fields/solver stats")
+        self.filename = filename
+        self.save_solver_stats = bool(save_solver_stats)
+        if save_solver_stats:
+            self.stats.open_files(filename + "solver/", self.mesh,
+                                  self.N_ions * self.n_cells * self.nd,
+                                  self.n_cells * self.nd, sp_)
+
 
     def run_block(self, state, solver_params: SolverParams, n_steps: int):
         """``n_steps`` full splitting steps (ODE + PDE) from ``state``; the
@@ -921,6 +1003,9 @@ class Solver:
         return state, out
 
     def _timed_pde_step(self, state, solver_params, k):
+        if (self.save_solver_stats and self.mms is None and not solver_params.direct_emi
+                and not solver_params.direct_knp):
+            return self._timed_pde_step_phased(state, solver_params, k)
         ts = _time.perf_counter()
         state, st = self._pde_step(state, solver_params)
         _sync(self.device)
@@ -933,6 +1018,61 @@ class Solver:
                   f"knp iters: {st['knp_iters']}, "
                   f"step wall: {dt_wall:.4f}s {bcolors.ENDC}")
         return state
+
+    def _phase_timer(self):
+        """(phases dict, phase(name)): phase(name) synchronises the device
+        and adds the wall since the previous mark to phases[name]."""
+        phases, mark = {}, [_time.perf_counter()]
+
+        def phase(name):
+            _sync(self.device)
+            now = _time.perf_counter()
+            phases[name] = phases.get(name, 0.0) + now - mark[0]
+            mark[0] = now
+
+        return phases, phase
+
+    def _record_phased(self, state, st, sp_: SolverParams, k, wall):
+        """Check, record and print a phased step's stats."""
+        self._check_convergence(st, sp_)
+        self.stats.record_step(st, wall)
+        if sp_.verbose:
+            print(f"{bcolors.WARNING} t = {float(state['t']):.6g}  k = {k} {bcolors.ENDC}")
+            print(f"{bcolors.OKGREEN} emi iters: {st['emi_iters']}, "
+                  f"knp iters: {st['knp_iters']}, "
+                  f"phases: { {p: round(v, 4) for p, v in st['phases'].items()} } "
+                  f"{bcolors.ENDC}")
+
+    def _timed_pde_step_phased(self, state, sp_: SolverParams, k):
+        """The iterative step in four timed phases (EMI and KNP, assembly
+        and solve, each ending in a device synchronise) for the stats files,
+        the EMI phases only on the EMI-only solver.  As the JAX package's
+        phase functions, the full step's EMI solve starts from phi without
+        the linear predictor, the EMI-only step's with it."""
+        phases, phase = self._phase_timer()
+        t0 = _time.perf_counter()
+        pc = state.get("pc")
+        pads = self._pads(state)
+        blocks, rhs, Pd = self._emi_assemble_step(state, pads)
+        phase("emi_assem")
+        phi, emi_iters, emi_conv = self._emi_solve_iterative(
+            blocks, Pd, rhs, state["phi"], sp_, pc=pc.get("emi") if pc else None,
+            phi_prev=state.get("phi_prev") if self._emi_only else None)
+        phase("emi_solve")
+        if self._emi_only:
+            c, knp_iters, knp_conv = state["c"], [0] * self.N_ions, True
+        else:
+            blocksK, rhsK = self._knp_assemble_step(state, phi, pads, state["c"])
+            phase("knp_assem")
+            c, knp_iters, knp_conv = self._knp_solve_all(blocksK, rhsK, state["c"], sp_,
+                                                         pcK=pc.get("knp") if pc else None)
+            phase("knp_solve")
+        new_state = self._finalize_step(state, {}, c, phi, state["t"])[0]
+        _sync(self.device)
+        st = {"emi_iters": emi_iters, "knp_iters": knp_iters, "emi_converged": emi_conv,
+              "knp_converged": knp_conv, "phases": phases}
+        self._record_phased(new_state, st, sp_, k, _time.perf_counter() - t0)
+        return new_state
 
     def _check_convergence(self, st, sp_: SolverParams):
         """Fail loudly when a Krylov solve hit max_it without converging."""
@@ -1172,7 +1312,8 @@ class Solver:
                 else:
                     print(f"{bcolors.WARNING} emi_ritz harvest non-finite; "
                           f"disabled for this pc build {bcolors.ENDC}")
-        if (sp_.precond_knp or sp_.precond) == "two_level" and not sp_.direct_knp:
+        if ((sp_.precond_knp or sp_.precond) == "two_level" and not sp_.direct_knp
+                and not self._emi_only):
             blocksK, _ = self._knp_assemble_all(
                 state["c"], state["c_elim"], state["phi"], phi_M_pad, I_ch_pad,
                 I_ch_tot_pad, state["t"], state["c"])
@@ -1195,14 +1336,15 @@ class Solver:
         Also caches the ion-stacked KNP static operator eagerly, so the
         static assembly never reruns inside a step."""
         _check_supported(sp_)
-        for k in range(self.N_ions):
-            self._knp_static(k)
-        cache = self._knp_static_blocks
-        if -1 not in cache:
-            cache[-1] = torch.stack([cache[k] for k in range(self.N_ions)])
-        if self.pair_layout and -2 not in cache:
-            # key -2: the pair-converted static operator, one conversion
-            cache[-2] = cell_bell_to_pair(self.pairs, cache[-1])
+        if not self._emi_only:
+            for k in range(self.N_ions):
+                self._knp_static(k)
+            cache = self._knp_static_blocks
+            if -1 not in cache:
+                cache[-1] = torch.stack([cache[k] for k in range(self.N_ions)])
+            if self.pair_layout and -2 not in cache:
+                # key -2: the pair-converted static operator, one conversion
+                cache[-2] = cell_bell_to_pair(self.pairs, cache[-1])
         if "pc" in state:
             return state
         pc = self._build_pc(state, sp_, reuse_ritz=reuse_ritz)

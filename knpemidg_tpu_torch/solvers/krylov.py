@@ -1,14 +1,15 @@
 """Krylov solvers: preconditioned CG, restarted GMRES and its batched
-form (torch port of knpemidg_tpu/solvers/krylov.py).
+form, batched BiCGStab (torch port of knpemidg_tpu/solvers/krylov.py).
 
 Convergence test: ||M^-1 r||_2 <= max(rtol * ||M^-1 b||_2, atol) -- the
 preconditioned residual norm (PETSc's KSP_NORM_PRECONDITIONED), which for
 the EMI system weights the small membrane-jump modes by 1/lambda.
 
 The JAX ``lax.while_loop``s become Python loops around the vector and
-scalar work of ``ops/krylov_ops.py`` (kernels K8 and K9 on the card), which
-keeps the loops' scalars on the device: per PCG iteration or Arnoldi step
-the host reads one convergence flag and copies nothing else across.  An
+scalar work of ``ops/krylov_ops.py`` (kernels K8, K9 and K15 on the card),
+which keeps the loops' scalars on the device: per PCG iteration, Arnoldi
+step or BiCGStab iteration the host reads one convergence flag and copies
+nothing else across.  An
 Arnoldi step after the matvec is one call (one kernel launch on the card).
 """
 from __future__ import annotations
@@ -201,3 +202,52 @@ def gmres_batched(
     converged = bool(torch.all(wk.beta <= wk.tol))
     return KrylovResult(x=x.reshape(shape), iters=[int(v) for v in it.tolist()],
                         resnorm=wk.beta.clone(), converged=converged)
+
+
+def bicgstab_batched(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    precond: Callable,
+    rtol: float,
+    atol: float,
+    max_it: int,
+    b_ref: Optional[torch.Tensor] = None,
+) -> KrylovResult:
+    """m independent left-preconditioned BiCGStab solves sharing one loop,
+    with the batching contract of :func:`gmres_batched`: ``matvec`` /
+    ``precond`` act on the full batch (m, ...), the tolerance is
+    max(rtol ||M^-1 b_ref||, atol) in the preconditioned residual norm, and
+    a system that is no longer live freezes (its x, r and p kept).  Two
+    applies of M^-1 A an iteration; ``iters`` counts each system's live
+    iterations (PETSc's bcgs convention), a list of ints.
+
+    The loop body's vector and scalar work is kernel K15 on the card
+    (``ko.bicgstab_alpha`` after the first apply, ``ko.bicgstab_omega``
+    after the second, which also forms the next direction and the flag the
+    host reads once an iteration).  The applies may return a buffer they
+    reuse: each result is consumed, or copied into the work, before the
+    next apply."""
+    mb = b.shape[0]
+    shape = b.shape
+    n = b.numel() // mb
+    bv = b.reshape(mb, n)
+
+    def Aop(v):
+        return precond(matvec(v.reshape(shape))).reshape(mb, n).contiguous()
+
+    bz = precond((bv if b_ref is None else b_ref.reshape(mb, n))
+                 .reshape(shape)).reshape(mb, n).clone(memory_format=torch.contiguous_format)
+    r0 = precond((bv - matvec(x0).reshape(mb, n)).reshape(shape)).reshape(mb, n).contiguous()
+    wk = ko.bicgstab_work(mb, n, b.dtype, b.device)
+    ko.bicgstab_start(r0, bz, wk, rtol, atol)
+    x = x0.reshape(mb, n).clone(memory_format=torch.contiguous_format)
+    k = 0
+    while k < max_it and bool(wk.flag):
+        ko.bicgstab_alpha(Aop(wk.p), wk)       # ks, alpha, s = r - alpha v
+        ko.bicgstab_omega(Aop(wk.s), x, wk)    # omega, x, r, the next p and the flag
+        k += 1
+    rn = torch.sqrt(wk.sc[:, ko.BI_RR])
+    tol = wk.sc[:, ko.BI_TOL]
+    return KrylovResult(x=x.reshape(shape), iters=[int(v) for v in wk.ks.tolist()],
+                        resnorm=rn, converged=bool(torch.all(rn <= tol)))

@@ -2511,7 +2511,7 @@ def test_krylov_wrappers_raise_on_what_they_cannot_take():
         ko.pcg_dot(w, w.float(), pw)
     with pytest.raises(ValueError):
         ko.pcg_dot2_direction(w, w, w.t().contiguous().t(), pw)
-    for over in ({"gmres_orth": "cgs1"}, {"gmres_rot": "carry"}, {"knp_solver": "bicgstab"}):
+    for over in ({"gmres_orth": "cgs1"}, {"gmres_rot": "carry"}, {"knp_solver": "cg"}):
         with pytest.raises(NotImplementedError):
             _check_supported(SolverParams(**tp.solver_params_kw(**over)))
 
@@ -2550,3 +2550,153 @@ def test_rush_larsen_window_on_cuda_matches_cpu():
     assert Sg.stats.knp_niters == Sc.stats.knp_niters
     for key in ("phi", "c", "c_elim", "phi_M"):
         assert rel(sg[key], sc[key]) < 1e-8, key
+
+
+# ---------------------------------------------------------------------------
+# K15: the batched BiCGStab entries
+# ---------------------------------------------------------------------------
+
+def _bicg_inputs(dev, dtype, mb, n, seed=7):
+    """A start's inputs shaped as a solve makes them (bz correlated with r0;
+    systems beyond the first frozen by their tolerance), a v and a t."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    rnd = lambda: torch.randn((mb, n), generator=gen, device=dev, dtype=dtype)
+    r0 = rnd()
+    bz = 3.0 * r0 + 0.1 * rnd()
+    bz[1:] *= 1e8
+    return r0, bz, r0 + 0.3 * rnd(), rnd(), rnd()
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("mb,n", [(2, 497_664), (2, 508_464), (1, 1_001), (32, 2_049)])
+def test_bicgstab_entries_match_plain(dtype, tol, mb, n):
+    """bicgstab_start, _alpha and _omega (one launch each), each from the
+    same work as its plain versions, equal the kernel-ordered plain versions
+    bit for bit and the einsum plain versions to ``tol`` of each vector's
+    largest value and of each scalar (chip_smoke.bicg_scales), at the main
+    path's KNP batches (cells, pairs), one system and 32 systems of odd
+    lengths; the systems beyond the first frozen by their tolerance."""
+    import chip_smoke
+
+    dev = cuda_or_skip()
+    r0, bz, v, x, noise = _bicg_inputs(dev, dtype, mb, n)
+    base = ko.bicgstab_work(mb, n, dtype, dev)
+    ko.bicgstab_start_plain(r0, bz, base, 1e-7, 2e-40, ordered=True)
+    mid = ko.bicgstab_alpha_plain(v, chip_smoke.bicg_copy(base), ordered=True)
+    t = 0.9 * mid.s + 0.2 * noise
+    calls = {"bicgstab_start": (base, lambda f, wk, xs, **kw: f(r0, bz, wk, 1e-7, 2e-40, **kw)),
+             "bicgstab_alpha": (base, lambda f, wk, xs, **kw: f(v, wk, **kw)),
+             "bicgstab_omega": (mid, lambda f, wk, xs, **kw: f(t, xs, wk, **kw))}
+    for entry, (wk0, call) in calls.items():
+        def run(f, **kw):
+            wk, xs = chip_smoke.bicg_copy(wk0), x.clone()
+            call(f, wk, xs, **kw)
+            return [o.clone() for o in chip_smoke.bicg_out(entry, wk, xs)]
+
+        n0 = _cuda.LAUNCHES[entry]
+        got = run(getattr(ko, entry))
+        assert _cuda.LAUNCHES[entry] == n0 + 1, entry
+        plain = getattr(ko, entry + "_plain")
+        for a, b in zip(got, run(plain, ordered=True)):
+            assert torch.equal(a, b), entry
+        ref = run(plain)
+        rhat = r0 if entry == "bicgstab_start" else wk0.rhat
+        for a, b, sc in zip(got, ref, chip_smoke.bicg_scales(ref, rhat)):
+            assert bool(((a.double() - b.double()).abs() <= tol * sc).all()), entry
+    assert int(base.live[0]) == 1 and int(base.live[1:].sum()) == 0
+
+
+def test_bicgstab_kernels_raise_on_what_they_cannot_take():
+    """K15 refuses more than MAX_SYSTEMS systems and other dtypes at
+    bicgstab_work, vectors off the card, of another dtype or shape, not
+    contiguous, and a work built by hand; it never runs the plain version
+    on CUDA tensors."""
+    dev = cuda_or_skip()
+    with pytest.raises(NotImplementedError):
+        ko.bicgstab_work(ko.MAX_SYSTEMS + 1, 100, torch.float64, dev)
+    with pytest.raises(NotImplementedError):
+        ko.bicgstab_work(2, 100, torch.float16, dev)
+    wk = ko.bicgstab_work(2, 100, torch.float64, dev)
+    r0, bz, v, _, _ = _bicg_inputs(dev, torch.float64, 2, 100)
+    with pytest.raises(ValueError):
+        ko.bicgstab_start(r0, bz.cpu(), wk, 1e-7, 0.0)
+    with pytest.raises(TypeError):
+        ko.bicgstab_alpha(v.float(), wk)
+    with pytest.raises(ValueError):
+        ko.bicgstab_alpha(v[:, :50].contiguous(), wk)
+    with pytest.raises(ValueError):
+        ko.bicgstab_alpha(v.t().contiguous().t(), wk)
+    with pytest.raises(ValueError):
+        ko.bicgstab_alpha(v, wk._replace(grid=0))
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_bicgstab_slice_on_cuda_matches_cpu(pair, monkeypatch):
+    """Two float64 steps of the EMIx fixture with knp_solver="bicgstab" on
+    the card against the CPU: K15 launched (one start a solve, one alpha
+    and one omega an iteration) and K9 not; on the cell layout equal
+    Krylov counts and fields to rel 1e-8.  The same two steps on the card
+    with K15's kernel-ordered plain twins in its place give the K15 run's
+    counts and fields bit for bit, so K15 acts on the path as its twin
+    does.  On the pair layout the KNP solve converges slowly and rounding
+    moves its exit (the card's second step takes [7, 7] iterations, the
+    CPU's [7, 8]; on the CPU the summation order of the dots alone moves
+    that solve's residuals by more than 10%, see
+    test_torch_bicgstab_pair.py): equal EMI counts, KNP counts within one
+    iteration a solve, phi and phi_M to rel 1e-7, c and c_elim to 1e-6
+    (measured on an H100: 2.4e-8 / 1.7e-8 and 1.5e-7 / 1.6e-7)."""
+    dev = cuda_or_skip()
+    runs = {}
+    for d in ("cpu", "cuda", "twins"):
+        if d == "twins":
+            for e in ("bicgstab_start", "bicgstab_alpha", "bicgstab_omega"):
+                monkeypatch.setattr(ko, e, functools.partial(getattr(ko, e + "_plain"),
+                                                             ordered=True))
+        S, sp = tp.emix_torch(device="cpu" if d == "cpu" else dev, pair=pair,
+                              knp_solver="bicgstab")
+        _cuda.reset_launches()
+        st = S.solve_system_active(0.2, 0.0, sp)
+        runs[d] = (S, unpad_state(S, st), dict(_cuda.LAUNCHES))
+    (Sc, sc, _), (Sg, sg, launches), (St, stw, _) = runs["cpu"], runs["cuda"], runs["twins"]
+    assert St.stats.knp_niters == Sg.stats.knp_niters
+    assert St.stats.emi_niters == Sg.stats.emi_niters
+    assert all(torch.equal(stw[key], sg[key]) for key in ("phi", "c", "c_elim", "phi_M"))
+    gaps = {key: rel(sg[key].cpu(), sc[key]) for key in ("phi", "c", "c_elim", "phi_M")}
+    print(f"pair {pair}: card KNP {Sg.stats.knp_niters}, CPU {Sc.stats.knp_niters}, gaps {gaps}")
+    assert Sg.stats.emi_niters == Sc.stats.emi_niters
+    if pair:
+        assert all(abs(a - b) <= 1 for ga, ca in zip(Sg.stats.knp_niters, Sc.stats.knp_niters)
+                   for a, b in zip(ga, ca))
+    else:
+        assert Sg.stats.knp_niters == Sc.stats.knp_niters
+    for key, gap in gaps.items():
+        assert gap < ((1e-6 if key.startswith("c") else 1e-7) if pair else 1e-8), key
+    assert launches["bicgstab_start"] == 2
+    assert launches["bicgstab_alpha"] == launches["bicgstab_omega"] == sum(
+        max(k) for k in Sg.stats.knp_niters)
+    assert not any(v for k, v in launches.items() if k.startswith("gmres_"))
+
+
+def test_emi_only_slice_on_cuda_matches_cpu():
+    """Three float64 steps of the EMI-only solver on the 2D neuron
+    (chip_smoke.emi_2d_solver) on the card against the CPU: equal EMI
+    counts, phi_M to rel 1e-10, c unchanged, no KNP kernel launched."""
+    import chip_smoke
+    from knpemidg_tpu_torch.config import SolverParams
+
+    cuda_or_skip()
+    sp = SolverParams(direct_emi=False, direct_knp=False, rtol_emi=1e-5, atol_emi=1e-40)
+    out = {}
+    for d in ("cpu", "cuda"):
+        S = chip_smoke.emi_2d_solver(device=d)
+        _cuda.reset_launches()
+        st = S.solve_system_active(3e-4, 0.0, sp)
+        out[d] = (S, st, dict(_cuda.LAUNCHES))
+    (Sc, sc, _), (Sg, sg, launches) = out["cpu"], out["cuda"]
+    assert Sg.stats.emi_niters == Sc.stats.emi_niters
+    assert rel(sg["phi_M"].cpu(), sc["phi_M"]) < 1e-10
+    assert torch.equal(sg["c"], Sg.c_init)
+    assert not any(launches[k] for k in ("knp_cell", "knp_facet", "knp_membrane_emit",
+                                         "alpha_sum", "gmres_start", "bicgstab_start"))
+    assert launches["pcg_dot"] > 0

@@ -465,18 +465,73 @@ def test_mms_modules_import_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_mms_rhs_repeats_across_hash_seeds():
+    """The port's MMS EMI and KNP operators and rhs at res 2 (the
+    sympy-derived terms evaluated on the mesh; chip_smoke.py's MMS setup,
+    this file's constants) are bitwise equal when built in two processes
+    with different PYTHONHASHSEED values."""
+    import hashlib
+    import os
+    import subprocess
+    import sys
+
+    code = ("import hashlib; import chip_smoke as cs; "
+            "S, _ = cs.mms_solver(2, cs.MMS_DT_SPACE, 'space', device='cpu'); "
+            "S.splitting_scheme = False; "
+            "st = S.attach_pc(S._initial_state(0.0), cs.mms_params_direct()); "
+            "pM, _, It = S._pads(st); "
+            "out = S._assemble_emi(st['c'], st['c_elim'], pM, It, st['t']) "
+            "+ S._knp_assemble_mms(st['c'], st['phi'], st['t']); "
+            "h = hashlib.sha256(); [h.update(t.contiguous().numpy().tobytes()) for t in out]; "
+            "print(h.hexdigest())")
+    root = os.path.join(os.path.dirname(__file__), "..")
+    digests = []
+    for seed in ("1", "2"):
+        env = dict(os.environ, PYTHONHASHSEED=seed)
+        proc = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                              text=True, timeout=300, env=env)
+        assert proc.returncode == 0, proc.stderr
+        digests.append(proc.stdout.strip().splitlines()[-1])
+    assert digests[0] == digests[1] and len(digests[0]) == 64
+
+
+def test_exterior_terms_add_in_facet_order(res2):
+    """The exterior Neumann term adds a cell's exterior facets one group at
+    a time in facet order (a card's index_add would add a corner cell's
+    two facets by atomics, in no fixed order): on the CPU, bitwise one
+    index_add over all facets; mms_square(2) has cells with two exterior
+    facets."""
+    from knpemidg_tpu_torch.ops import assembly
+
+    _, _, St, _, _ = res2
+    g = St.g
+    ne = g["e_c"].shape[0]
+    assert ne > len(set(g["e_c"].tolist()))                # a cell repeats
+    rng = np.random.default_rng(3)
+    rhs = t64(rng.standard_normal((St.nd, St.n_cells)))
+    bdry = t64(rng.standard_normal((g["w_f"].shape[0], ne)))
+    got = assembly._add_exterior(g, rhs, bdry, -1.0)
+    be = -1.0 * g["e_area"] * torch.einsum("q,qf,qif->if", g["w_f"], bdry, g["e_R"])
+    assert torch.equal(got, rhs.index_add(1, g["e_c"], be))
+    groups = g["e_groups"]
+    assert len(groups) == 2
+    assert sorted(torch.cat(groups).tolist()) == list(range(ne))
+    assert all(len(set(g["e_c"][sel].tolist())) == len(sel) for sel in groups)
+
+
 def test_mms_refusals():
     """What the MMS path does not carry raises: the pair layout with an
-    MMS problem (ValueError), H5 output and Picard iterations of the
-    passive loop (NotImplementedError)."""
+    MMS problem (ValueError), H5 field output of the passive loop
+    (NotImplementedError), and stats files without a filename
+    (ValueError)."""
     S, _ = build("torch", 2, DT_SPACE)
     with pytest.raises(ValueError):
         S.enable_pair_layout()
     sp = tcfg.SolverParams(**DIRECT)
     with pytest.raises(NotImplementedError):
-        S.solve_system_passive(2 * DT_SPACE, 0.0, sp, filename="out/")
-    with pytest.raises(NotImplementedError):
-        S.solve_system_passive(2 * DT_SPACE, 0.0, sp, picard=True)
+        S.solve_system_passive(2 * DT_SPACE, 0.0, sp, filename="out/", save_fields=True)
+    with pytest.raises(ValueError):
+        S.solve_system_passive(2 * DT_SPACE, 0.0, sp, save_solver_stats=True)
 
 
 def test_direct_solves_on_the_active_path():

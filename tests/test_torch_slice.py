@@ -95,7 +95,7 @@ def test_state_numpy_round_trip(emix_run):
 
 
 @pytest.mark.parametrize("override", [
-    {"knp_ritz": 8}, {"emi_moment_order": 3}, {"knp_solver": "bicgstab"},
+    {"knp_ritz": 8}, {"emi_moment_order": 3}, {"knp_solver": "cg"},
     {"emi_moment_host": True}, {"emi_moment_blocked": True},
     {"emi_moment_axial": 6}, {"pc_refresh_factor": 2.0}, {"precond": "two_level_mult"},
     {"coarse_ridge": 1e-7},
