@@ -1283,13 +1283,25 @@ def krylov_phase(S, results, layout):
         w = rnd(mb, n)
         h = torch.zeros_like(wk.h1)
         rows = KRYLOV_ROWS
-        compare(name("gmres_cgs_dot"), dtype,
-                lambda: [ko.gmres_cgs_dot(wk.V, w, rows, h.clone(), wk)[:, :rows]],
-                lambda: [ko.gmres_cgs_dot_plain(wk.V, w, rows, h.clone())[:, :rows]],
-                lambda ref: [ko.gmres_cgs_dot_plain(wk.V.abs(), w.abs(), rows,
-                                                    h.clone())[:, :rows]],
-                results, inputs=[V_live, w], flops=2.0 * V_live.numel(),
-                library_fn=lambda: torch.bmm(Vs, w[..., None]))
+        # the yardstick: one bmm over the populated rows in the reference's
+        # (mb, rows, n) layout, into a preallocated output
+        Vr, hb = Vs[:, :rows].contiguous(), torch.empty((mb, rows, 1), dtype=dtype, device=dev)
+        hk = [h.clone(), h.clone()]
+        bound = compare(name("gmres_cgs_dot"), dtype,
+                        lambda: [ko.gmres_cgs_dot(wk.V, w, rows, h.clone(), wk)[:, :rows]],
+                        lambda: [ko.gmres_cgs_dot_plain(wk.V, w, rows, h.clone())[:, :rows]],
+                        lambda ref: [ko.gmres_cgs_dot_plain(wk.V.abs(), w.abs(), rows,
+                                                            h.clone())[:, :rows]],
+                        results, inputs=[V_live, w], flops=2.0 * V_live.numel(),
+                        library_fn=lambda: torch.bmm(Vr, w[..., None], out=hb),
+                        timed=(lambda: ko.gmres_cgs_dot(wk.V, w, rows, hk[0], wk),
+                               lambda: ko.gmres_cgs_dot_plain(wk.V, w, rows, hk[1])),
+                        graph=True)
+        lib_us = 1e3 * graph_ms(lambda: torch.bmm(Vr, w[..., None], out=hb))
+        dot_us = results[name("gmres_cgs_dot")][dtype]["device_us"]
+        print(f"graph   {name('gmres_cgs_dot'):30s} {str(dtype):14s} kernel {dot_us:.2f} us, "
+              f"bmm {lib_us:.2f} us, bound {1e3 * bound:.2f} us ({dot_us / (1e3 * bound):.2f}x)")
+        cgs_dot_exact(name("gmres_cgs_dot"), dtype, ko, wk, w, rows)
         # step J's scalars: system 0 live, the others frozen
         wk.tol.copy_(torch.full((mb,), 1e3, dtype=dtype))
         wk.tol[0] = 1e-3
@@ -1378,7 +1390,8 @@ def krylov_phase(S, results, layout):
             wmask, wsum, mode = None, torch.tensor(float(x.numel()), dtype=dtype, device=dev), 1
         sc0 = torch.stack([(r * z).sum(), (z * z).sum(), torch.zeros_like(wsum),
                            torch.zeros_like(wsum), torch.zeros_like(wsum), wsum])
-        work = lambda: ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev),
+        # live works (flag 1), as the loop's are until its exit
+        work = lambda: ko.pcg_work(sc0.clone(), torch.ones(1, dtype=torch.int32, device=dev),
                                    wmask, mode, n)
         pa = work()
         pap = (p_ * Ap).sum()
@@ -1396,13 +1409,19 @@ def krylov_phase(S, results, layout):
         alpha = pa.sc[ko.ALPHA]
         ax, ar = x.abs() + alpha.abs() * p_.abs(), r.abs() + alpha.abs() * Ap.abs()
         ub = [(x.clone(), r.clone()), (x.clone(), r.clone())]
-        compare(name("pcg_update"), dtype,
-                lambda: list(ko.pcg_update(x.clone(), r.clone(), p_, Ap, pa)),
-                lambda: list(ko.pcg_update_plain(x.clone(), r.clone(), p_, Ap, pa)),
-                lambda ref: [ax + ax.mean(), ar + ar.mean()], results,
-                inputs=[x, r, p_, Ap] + ([wmask] if pair else []), flops=8.0 * x.numel(),
-                timed=(lambda: ko.pcg_update(*ub[0], p_, Ap, pa),
-                       lambda: ko.pcg_update_plain(*ub[1], p_, Ap, pa)))
+        bound = compare(name("pcg_update"), dtype,
+                        lambda: list(ko.pcg_update(x.clone(), r.clone(), p_, Ap, pa)),
+                        lambda: list(ko.pcg_update_plain(x.clone(), r.clone(), p_, Ap, pa)),
+                        lambda ref: [ax + ax.mean(), ar + ar.mean()], results,
+                        inputs=[x, r, p_, Ap] + ([wmask] if pair else []),
+                        flops=8.0 * x.numel(),
+                        timed=(lambda: ko.pcg_update(*ub[0], p_, Ap, pa),
+                               lambda: ko.pcg_update_plain(*ub[1], p_, Ap, pa)), graph=True)
+        upd_us = results[name("pcg_update")][dtype]["device_us"]
+        print(f"graph   {name('pcg_update'):30s} {str(dtype):14s} kernel {upd_us:.2f} us, "
+              f"bound {1e3 * bound:.2f} us ({upd_us / (1e3 * bound):.2f}x), grid {pa.grid} "
+              f"blocks for {-(-n // ko.RED_CHUNK)} chunks")
+        update_exact(name("pcg_update"), dtype, ko, (x, r, p_, Ap), pa)
         rz_abs = (r.abs() * z.abs()).sum()
         rzn = (r * z).sum()
         stack = torch.stack([r.view(-1), z.view(-1)])
@@ -1430,6 +1449,7 @@ def krylov_phase(S, results, layout):
         for entry, fn, vecs in (("pcg_dot", ko.pcg_dot, (p_, Ap)),
                                 ("pcg_dot2_direction", ko.pcg_dot2_direction, (r, z, p_))):
             dots_exact(name(entry), dtype, ko, fn, vecs, sc0, work())
+        frozen_exact(layout, dtype, ko, (x, r, p_, Ap, z), work())
 
 
 def work_copy(wk):
@@ -1520,14 +1540,79 @@ def start_exact(name, dtype, ko, r, wk, calls=200):
         raise AssertionError(f"{name} differs from gmres_start_ordered_plain")
 
 
+def cgs_dot_exact(name, dtype, ko, wk, w, rows, calls=200):
+    """gmres_cgs_dot against gmres_cgs_dot_ordered_plain (the kernel's
+    summation order) to the last bit of out[:, :rows], in ``calls``
+    back-to-back calls on one work (out NaN before each); every ticket 0
+    after them.  Raises on a difference."""
+    want = ko.gmres_cgs_dot_ordered_plain(wk.V, w, rows, torch.zeros_like(wk.h1))[:, :rows]
+    out = torch.empty_like(wk.h1)
+    diff = torch.zeros(calls, dtype=torch.int64, device=w.device)
+    for i in range(calls):
+        out.fill_(float("nan"))
+        ko.gmres_cgs_dot(wk.V, w, rows, out, wk)
+        diff[i] = (bits(out[:, :rows]) != bits(want)).sum()
+    torch.cuda.synchronize()
+    ok = int(diff.max()) == 0 and not bool(wk.ticket.any())
+    print(f"exact   {name:30s} {str(dtype):14s} out bitwise the ordered plain's in each of "
+          f"{calls} calls, the tickets 0 after them: {ok}")
+    if not ok:
+        raise AssertionError(f"{name} differs from gmres_cgs_dot_ordered_plain")
+
+
+def update_exact(name, dtype, ko, vecs, wk, calls=200):
+    """pcg_update against pcg_update_ordered_plain (the update kernel's
+    summation order for the projection's means) to the last bit of x and
+    r, in ``calls`` back-to-back calls on restored inputs.  Raises on a
+    difference."""
+    x, r, p, Ap = vecs
+    want = ko.pcg_update_ordered_plain(x.clone(), r.clone(), p, Ap, wk)
+    xg, rg = x.clone(), r.clone()
+    diff = torch.zeros(calls, dtype=torch.int64, device=x.device)
+    for i in range(calls):
+        xg.copy_(x)
+        rg.copy_(r)
+        ko.pcg_update(xg, rg, p, Ap, wk)
+        diff[i] = sum((bits(a) != bits(b)).sum() for a, b in zip((xg, rg), want))
+    torch.cuda.synchronize()
+    ok = int(diff.max()) == 0
+    print(f"exact   {name:30s} {str(dtype):14s} x and r bitwise the ordered plain's in each of "
+          f"{calls} calls: {ok} (mode {wk.mode}, {wk.grid} blocks)")
+    if not ok:
+        raise AssertionError(f"{name} differs from pcg_update_ordered_plain")
+
+
+def frozen_exact(layout, dtype, ko, vecs, wk):
+    """The freeze: on a work whose flag is 0 each K8 entry leaves x, r, p,
+    the scalars, the count, the flag, the partials and the ticket to the
+    last bit (one launch each, counted).  Raises on a write."""
+    x, r, p, Ap, z = (v.clone() for v in vecs)
+    ko.pcg_dot2_direction(r, z, p.clone(), wk)         # partials written
+    wk.flag.zero_()
+    keep = [x, r, p, wk.sc, wk.flag, wk.iters, wk.partial, wk.ticket]
+    before = [t.clone() for t in keep]
+    ko.pcg_dot(p, Ap, wk)
+    ko.pcg_update(x, r, p, Ap, wk)
+    ko.pcg_dot2_direction(r, z, p, wk)
+    torch.cuda.synchronize()
+    same = lambda a, b: torch.equal(a, b) if a.dtype == torch.int32 else torch.equal(bits(a),
+                                                                                   bits(b))
+    ok = all(same(a, b) for a, b in zip(keep, before))
+    print(f"frozen  {'pcg_*' + SUFFIX[layout]:30s} {str(dtype):14s} a frozen pcg_dot, "
+          f"pcg_update and pcg_dot2_direction write nothing: {ok}")
+    if not ok:
+        raise AssertionError(f"a frozen K8 entry wrote on the {layout} shapes")
+
+
 def dots_exact(name, dtype, ko, fn, vecs, sc0, wk, calls=1000):
     """A K8 reduction entry against pcg_dots_ordered_plain (the kernels'
     summation order) to the last bit of the scalars and the flag it
     writes -- pcg_dot on (p, Ap); pcg_dot2_direction on (r, z, p), and then
     also of p = z + beta p with that beta -- then ``calls`` back-to-back
-    calls on one work: each writes the same bits (the written slots are NaN
-    and the flag -1 before every call, p is reset), and the ticket is 0
-    after them."""
+    calls on one work: each writes the same bits (the written slots are NaN,
+    the flag -1 (live) and the count 0 before every call, p is reset), the
+    fused entry counts one iteration in each, and the ticket is 0 after
+    them."""
     fused = len(vecs) == 3
     sums = ko.pcg_dots_ordered_plain(*(vecs[:2] + vecs[1:2] * 2 if fused else vecs))
     sc_in = sc0.clone()
@@ -1538,7 +1623,7 @@ def dots_exact(name, dtype, ko, fn, vecs, sc0, wk, calls=1000):
         want[ko.BETA] = sums[0] / want[ko.RZ]
         want[ko.RZ] = sums[0]
         want[ko.ZZ] = sums[1]
-        want_flag.fill_(int(bool(sums[1] > want[ko.TOL2])))
+        want_flag.fill_(int(bool(sums[1] > want[ko.TOL2]) and 1 < wk.max_it))
     else:
         want[ko.ALPHA] = want[ko.RZ] / sums[0]
     bits = lambda t: t.view(torch.int64 if dtype == torch.float64 else torch.int32)
@@ -1547,9 +1632,11 @@ def dots_exact(name, dtype, ko, fn, vecs, sc0, wk, calls=1000):
     p = vecs[2].clone() if fused else None
     want_p = vecs[1] + want[ko.BETA] * vecs[2] if fused else None
     p_diff = torch.zeros(calls, dtype=torch.int64, device=sc0.device)
+    got_iters = torch.empty((calls, 1), dtype=torch.int32, device=sc0.device)
     for i in range(calls):
         wk.sc.copy_(sc_in)
         wk.flag.copy_(flag_in)
+        wk.iters.zero_()
         if fused:
             p.copy_(vecs[2])
             fn(vecs[0], vecs[1], p, wk)
@@ -1558,15 +1645,17 @@ def dots_exact(name, dtype, ko, fn, vecs, sc0, wk, calls=1000):
             fn(*vecs, wk)
         got[i].copy_(wk.sc)
         got_flag[i].copy_(wk.flag)
+        got_iters[i].copy_(wk.iters)
     torch.cuda.synchronize()
     first = torch.equal(bits(got[0, :4]), bits(want[:4])) and torch.equal(got_flag[0], want_flag)
     repeat = (torch.equal(bits(got), bits(got[:1]).expand_as(bits(got)))
               and torch.equal(got_flag, got_flag[:1].expand_as(got_flag)))
-    p_ok = int(p_diff.max()) == 0
+    p_ok = int(p_diff.max()) == 0 and bool((got_iters == int(fused)).all())
     ticket = wk.ticket.tolist()
     print(f"exact   {name:30s} {str(dtype):14s} sc[:4] and flag bitwise equal to the ordered "
           f"sums: {first}; {calls} calls repeat: {repeat}; "
-          + (f"p = z + beta p to the last bit in every call: {p_ok}; " if fused else "")
+          + (f"p = z + beta p to the last bit and one iteration counted in every call: "
+             f"{p_ok}; " if fused else f"no iteration counted: {p_ok}; ")
           + f"ticket after them {ticket}")
     if not (first and repeat and p_ok and ticket == [0]):
         raise AssertionError(f"{name} differs from the ordered sums or does not repeat")
@@ -1887,20 +1976,21 @@ def window(S, sp, layout):
     """The protocol through the user entry point with the launch counters
     reset; asserts convergence (solve_system_active raises otherwise),
     finite fields, the step count, every kernel of the path launched, two
-    K14 trace launches and one K13 launch a step, one pcg_dot2_direction
-    launch per EMI iteration and (pairs) one from_pair per solve, and the AUTO Ritz rule
-    (24 fields in the cell pc, none in the pair pc).  Returns (launches,
+    K14 trace launches and one K13 launch a step, each K8 entry once per
+    EMI iteration (live: the iterations; frozen: at most one after each
+    solve's exit, run_checked), (pairs) one from_pair per solve, and the AUTO Ritz
+    rule (24 fields in the cell pc, none in the pair pc); reports the
+    blocking host reads of one more step's EMI solve.  Returns (launches,
     median ms/step, median ODE ms)."""
     state, launches = run_checked(S, sp, layout)
     med, ode = report_window(S, MAIN_DTYPE, layout)
-    # one fused K8 launch per PCG iteration, one from_pair (carrying its
-    # add) per solve on pairs
-    per_iter = launches["pcg_dot2_direction"] == launches["pcg_dot"] == sum(S.stats.emi_niters)
+    # one from_pair (carrying its add) per solve on pairs
     per_solve = layout != "pair" or launches["from_pair"] == 2 * len(S.stats.emi_niters)
-    print(f"{layout:7s} pcg_dot2_direction once per EMI iteration: {per_iter}"
-          + (f"; from_pair once per solve: {per_solve}" if layout == "pair" else ""))
-    if not (per_iter and per_solve):
-        raise AssertionError(f"the {layout} window's K8 / K4 launches do not match its solves")
+    if layout == "pair":
+        print(f"{layout:7s} from_pair once per solve: {per_solve}")
+    if not per_solve:
+        raise AssertionError(f"the {layout} window's K4 launches do not match its solves")
+    emi_host_reads(S, state, sp, f"{layout}64")
     n_ritz = ritz_fields(state)
     print(f"{layout:7s} Ritz fields in the pc: {n_ritz}")
     if n_ritz != (24 if layout == "cell" else 0):
@@ -1919,10 +2009,12 @@ def run_checked(S, sp, path):
 
     S.stats.__init__()
     _cuda.reset_launches()
+    look = dict(krylov_lookahead())
     state = S.solve_system_active(1.0, 0.0, sp)
     torch.cuda.synchronize()
     launches = dict(_cuda.LAUNCHES)
     print(f"{path:7s} launches {launches}")
+    k8_split(S, launches, look, path)
     for key in ("c", "c_elim", "phi", "phi_M", "I_ch"):
         if not bool(torch.isfinite(state[key]).all()):
             raise AssertionError(f"non-finite values in {key}")
@@ -1974,6 +2066,47 @@ def run_checked(S, sp, path):
     return state, launches
 
 
+def krylov_lookahead():
+    """The PCG loop's look-ahead counts (solves, frozen iterations)."""
+    from knpemidg_tpu_torch.solvers import krylov
+
+    return krylov.PCG_LOOKAHEAD
+
+
+def k8_split(S, launches, before, tag):
+    """Each K8 entry's launches in a run, split into live ones (the EMI
+    iterations) and frozen ones (an iteration the look-ahead loop queued
+    after a solve's exit before its flag reached the host; ``before``: the
+    look-ahead counts before the run).  Fails unless every entry launched
+    live + frozen times, with at most one frozen iteration a solve.
+    Returns (live, frozen)."""
+    now = krylov_lookahead()
+    solves, frozen = (now[k] - before[k] for k in ("solves", "frozen"))
+    live = sum(S.stats.emi_niters)
+    k8 = tuple(launches[k] for k in ("pcg_dot", "pcg_update", "pcg_dot2_direction"))
+    ok = k8 == (live + frozen,) * 3 and frozen <= solves
+    print(f"{tag:7s} K8 pcg_dot / pcg_update / pcg_dot2_direction launches {k8}: {live} live "
+          f"(the EMI iterations) + {frozen} frozen (after the exit of {solves} PCG solves): "
+          f"{ok}")
+    if not ok:
+        raise AssertionError(f"the {tag} window's K8 launches are not its iterations plus "
+                             f"at most one frozen iteration a solve")
+    return live, frozen
+
+
+def emi_host_reads(S, state, sp, tag):
+    """The blocking host reads (profile_step's census: _local_scalar_dense
+    calls) of one more step's EMI solve from ``state``, untimed; returns
+    them."""
+    from knpemidg_tpu_torch.profile_step import _op_census
+
+    census, iters = _op_census(S, state, sp)
+    reads = census["_emi_solve_iterative"]["host_reads"]
+    print(f"{tag:7s} census of one more step: {reads} blocking host reads in its EMI solve "
+          f"of {iters['emi_iters'][0]} PCG iterations")
+    return reads
+
+
 def rl_window(S, sp):
     """The cell layout's float64 protocol with ode_scheme="rush_larsen":
     the neuron's points through the Rush-Larsen kernel, the glial ones
@@ -1999,15 +2132,21 @@ def report_run(S, sp, dtype, layout, variant, assert_counts=True):
     WINDOW_COUNTS' unless not ``assert_counts``), ms/step, the Ritz fields
     and the set-up time before the first step (the pc build with any
     harvest)."""
+    from knpemidg_tpu_torch import _cuda
+
     S.stats.__init__()
+    _cuda.reset_launches()
+    look = dict(krylov_lookahead())
     t0 = time.perf_counter()
     state = S.solve_system_active(1.0, 0.0, sp)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     report_window(S, dtype, layout, variant, assert_counts)
+    label = f"{layout}{'64' if dtype == MAIN_DTYPE else '32'}{variant}"
+    k8_split(S, dict(_cuda.LAUNCHES), look, label)
+    emi_host_reads(S, state, sp, label)
     setup_s = total - sum(S.ode_walls) - sum(S.stats.step_walls)
     finite = all(bool(torch.isfinite(state[k]).all()) for k in ("c", "phi", "phi_M"))
-    label = f"{layout}{'64' if dtype == MAIN_DTYPE else '32'}{variant}"
     print(f"{label:7s} {dtype} Ritz fields {ritz_fields(state)}, set-up before the first "
           f"step {setup_s:.3f} s, window total {1e3 * total:.1f} ms, fields finite: {finite}")
     return S.stats.emi_niters, S.stats.knp_niters

@@ -2,7 +2,7 @@
 """SHA-256 digests of the outputs of kernels K10 emi_facet, K3
 pair_matvec / pair_matvec_multi, K1 bell_matvec / bell_matvec_multi, K14
 membrane_trace, K6's restrict and prolong-add, K13's ODE step and K9's
-batched GMRES on the card, at chip_smoke.py's configuration
+batched GMRES and K8's PCG on the card, at chip_smoke.py's configuration
 (box_3d_axons(1, length_factor=2) in cm, the EMIx solver), at a state
 perturbed with a seeded generator: emi_facet on the cell and the pair
 layout's facet tables (float32 and float64); the matvecs (K3 on pairs, K1
@@ -11,7 +11,12 @@ applied to the step's rhs; K9 as the solver's block-Jacobi KNP solve
 drives it (krylov.gmres_batched on those operators, each layout, both
 dtypes): the correction, the iterations and the residual norms, and K15
 as its BiCGStab solve drives it on the same systems (k15_bicg:
-krylov.bicgstab_batched, the same three outputs); K5's
+krylov.bicgstab_batched, the same three outputs); K8 as the solver's EMI
+solve drives it (k8_pcg: krylov.pcg on each layout's step EMI operator
+with block Jacobi and the nullspace projection, the mean on cells, the
+masked mean on pairs, both dtypes: a solve that converges and one stopped
+by its iteration cap, x, the iterations and the residual norm of each);
+K5's
 apply on the step's diagonals (cell: nd = 4; pair: the pair_bj halves
 inverse in the halves form, or the full form in a tree without it) and
 the pair GMRES above with the solver's halves form; K11 knp_facet on each
@@ -165,6 +170,12 @@ def main():
                 print(f"digest  bell_matvec  {layout} {str(dtype):14s} {digest(out)} "
                       f"(operators {digest([B, BK])})")
             for dtype in (torch.float32, torch.float64):
+                Pinv = spmv.block_jacobi_inverse(Pd.to(dtype).contiguous())
+                pcg_digest(krylov, layout, dtype,
+                           lambda v, Bd=B.to(dtype): spmv.bell_matvec(Bd, nbr, v.contiguous()),
+                           lambda r, Pinv=Pinv: spmv.block_jacobi_apply(Pinv, r.contiguous()),
+                           rhs.to(dtype), None)
+            for dtype in (torch.float32, torch.float64):
                 Bd = BK.to(dtype)
                 Pinv = spmv.block_jacobi_inverse(Bd[:, 0].contiguous())
                 for fn in (gmres_digest, bicgstab_digest):
@@ -199,6 +210,17 @@ def main():
                 print(f"digest  k5_halves    {layout} {str(dtype):14s} {digest(out)} "
                       f"(inverses {digest(invs)})")
             print(f"k5      halves form in this tree: {halves_form(spmv)}")
+            for dtype in (torch.float32, torch.float64):
+                # the EMI solve on pairs: the pair_bj halves of the diagonal,
+                # the live mask after the apply and in the projection
+                pdd, ped = pd.to(dtype), pe.to(dtype)
+                lm = S._pair_mask.to(dtype)
+                Pinv = spmv.block_jacobi_inverse((pdd * S._pair_bj_halves.to(dtype)).contiguous())
+                pcg_digest(krylov, layout, dtype,
+                           lambda v, pdd=pdd, ped=ped: pairs.pair_matvec(pdd, ped, pm,
+                                                                         v.contiguous()),
+                           lambda r, Pinv=Pinv, lm=lm: bj_apply(spmv, Pinv, r.contiguous()) * lm,
+                           pairs.to_pair(pm, rhs.to(dtype)), S._pair_mask)
             for dtype in (torch.float32, torch.float64):
                 # the solver's block-Jacobi pair KNP solve: the pair_bj
                 # halves of the diagonal, its halves form (full form in a
@@ -542,6 +564,24 @@ def bj_apply(spmv, Pinv, r):
     if halves_form(spmv):
         return spmv.block_jacobi_apply(spmv.block_jacobi_operands(Pinv, halves=True), r)
     return spmv.block_jacobi_apply(Pinv, r)
+
+
+def pcg_digest(krylov, layout, dtype, mv, pc, rhs, mask):
+    """K8 through krylov.pcg as the solver's EMI solve calls it (the
+    nullspace projection, the tolerance anchored at rhs, ``mask`` the pair
+    layout's live cells) on the step's EMI system from a zero guess, with a
+    block-Jacobi preconditioner: at rtol 1e-3 (it converges, so the loop
+    runs its frozen iteration) and at rtol 1e-9 with a cap of 60 iterations
+    (stopped by the cap): x, the iterations and the residual norm of each."""
+    out, its = [], []
+    for rtol, cap in ((1e-3, 5000), (1e-9, 60)):
+        res = krylov.pcg(mv, rhs, torch.zeros_like(rhs), pc, rtol=rtol, atol=0.0, max_it=cap,
+                         project_nullspace=True, b_ref=rhs, nullspace_mask=mask)
+        out += [res.x, torch.tensor([res.iters], dtype=torch.int64), res.resnorm]
+        its.append((res.iters, res.converged))
+    torch.cuda.synchronize()
+    print(f"digest  k8_pcg       {layout} {str(dtype):14s} {digest(out)} "
+          f"(iterations, converged {its})")
 
 
 def gmres_digest(krylov, layout, dtype, mv, pc, rhs, c):

@@ -104,15 +104,15 @@ _SIGNATURES = {
     "knp_membrane_emit": (_P,) * 20 + (_I,) * 3 + (_D,) * 3 + (_P,),
     "knp_membrane_trace": (_P,) * 4 + (_D,) * 4 + (_I,) + (_P,) * 6 + (_I,) * 6 + (_P,),
     "knp_eliminated": (_P,) * 4 + (_I,) * 3 + (_D, _P),
-    "knp_gmres_dot": (_P,) * 4 + (_I,) * 5 + (_P,),
+    "knp_gmres_dot": (_P,) * 5 + (_I,) * 4 + (_P,),
     "knp_gmres_start": (_P,) * 11 + (_I,) * 6 + (_P,),
     "knp_gmres_arnoldi_grid": (_I,) * 3 + (_P,),
     "knp_gmres_arnoldi": (_P,) * 13 + (_I,) * 7 + (_P,),
     "knp_gmres_solve_update": (_P,) * 6 + (_I,) * 3 + (_P,),
-    "knp_pcg_dot": (_P,) * 5 + (_I,) * 2 + (_P,),
-    "knp_pcg_update": (_P,) * 7 + (_I,) * 3 + (_P,),
-    "knp_pcg_dot2_direction_grid": (_I, _I, _P),
-    "knp_pcg_dot2_direction": (_P,) * 6 + (_I,) * 2 + (_P,),
+    "knp_pcg_dot": (_P,) * 6 + (_I,) * 2 + (_P,),
+    "knp_pcg_update": (_P,) * 8 + (_I,) * 3 + (_P,),
+    "knp_pcg_grid": (_I, _I, _P),
+    "knp_pcg_dot2_direction": (_P,) * 7 + (_I,) * 3 + (_P,),
     "knp_bicgstab_grid": (_I, _I, _P),
     "knp_bicgstab_start": (_P,) * 11 + (_I,) * 3 + (_D, _D, _P),
     "knp_bicgstab_alpha": (_P,) * 9 + (_I,) * 3 + (_P,),

@@ -27,8 +27,10 @@
 // shape, r read once and kept in shared memory across its grid barrier,
 // bitwise the earlier partial, scale and init launches) and solve_update
 // (back substitution of R[:ks, :ks] y = g[:ks] per system, then x +=
-// sum_{k<ks} y_k V[k]).  The dot kernels also give the solve's tolerance
-// (||M^-1 b|| per system).
+// sum_{k<ks} y_k V[k]).  The dot kernel gives the solve's tolerance
+// (||M^-1 b|| per system) in one launch: its partials, then the block that
+// finishes each sum last (an int32 ticket, no floating-point atomics) adds
+// them in index order, so no second launch waits on the first.
 //
 // Bound: device-memory bandwidth.  The whole-basis einsums read all m+1 = 31
 // rows of V four times a step whatever j is (0.99 GB in float64 at the cell
@@ -48,6 +50,7 @@
 // launches a step.  The source compiles with -fmad=false: the Givens
 // arithmetic and the elementwise updates round as the plain versions do.
 #include <cooperative_groups.h>
+#include <cuda/atomic>
 
 #include <algorithm>
 
@@ -60,34 +63,58 @@
 #define GM_PER 8
 #define GM_CHUNK (GM_PER * KNP_THREADS)
 
-// partial[(s rows + k) nblk + b] = sum over chunk b of V[k,s,:] . w[s,:]
+// out[s ldo + k] = V[k,s,:] . w[s,:] for k < rows in one launch, a block a
+// chunk b, row k and system s (grid (nblk, rows, mb)): thread t adds its
+// products b chunk + t + 256 e, e = 0..7, in order from zero (all its
+// loads issued before its first add), then the block tree, into
+// partial[(s rows + k) nblk + b]; thread 0 publishes the partial with a
+// release ticket of its (s, k) (an int32 atomic, the only one).  The block
+// that draws nblk - 1 has acquired the row's partials, sums them in index
+// order (thread t adds partials t, t + 256, ... from zero, then the block
+// tree), writes out and resets the ticket for the next launch on the
+// stream.  A system of one chunk takes no ticket.
 template <typename T>
-__global__ void gm_dot_partial_kernel(const T* __restrict__ V, const T* __restrict__ w,
-                                      T* __restrict__ partial, int mb, long long n, int rows,
-                                      int chunk) {
+__global__ void __launch_bounds__(KNP_THREADS)
+    gm_dot_kernel(const T* __restrict__ V, const T* __restrict__ w, T* __restrict__ partial,
+                  int* __restrict__ ticket, T* __restrict__ out, int mb, long long n, int ldo) {
   __shared__ T red[KNP_WARPS];
-  const int b = blockIdx.x, k = blockIdx.y, s = blockIdx.z;
-  const long long lo = (long long)b * chunk;
-  const long long hi = lo + chunk < n ? lo + chunk : n;
+  __shared__ bool last;
+  const int b = blockIdx.x, k = blockIdx.y, s = blockIdx.z, nblk = gridDim.x;
+  const long long lo = (long long)b * GM_CHUNK + threadIdx.x;
   const T* v = V + ((long long)k * mb + s) * n;
   const T* ws = w + (long long)s * n;
+  T va[GM_PER], vb[GM_PER];
+#pragma unroll
+  for (int e = 0; e < GM_PER; ++e) {
+    const long long i = lo + (long long)e * KNP_THREADS;
+    va[e] = i < n ? v[i] : T(0);
+    vb[e] = i < n ? ws[i] : T(0);
+  }
   T acc = T(0);
-  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) acc += v[i] * ws[i];
+#pragma unroll
+  for (int e = 0; e < GM_PER; ++e)
+    if (lo + (long long)e * KNP_THREADS < n) acc += va[e] * vb[e];
   acc = knp_block_sum(acc, red);
-  if (threadIdx.x == 0) partial[((long long)s * rows + k) * gridDim.x + b] = acc;
-}
-
-// out[s ldo + k] = sum_b partial[(s rows + k) nblk + b], in index order
-template <typename T>
-__global__ void gm_dot_finish_kernel(const T* __restrict__ partial, T* __restrict__ out,
-                                     int ldo, int rows, int nblk) {
-  __shared__ T red[KNP_WARPS];
-  const int k = blockIdx.x, s = blockIdx.y;
-  const T* p = partial + ((long long)s * rows + k) * nblk;
-  T acc = T(0);
-  for (int b = threadIdx.x; b < nblk; b += blockDim.x) acc += p[b];
-  acc = knp_block_sum(acc, red);
-  if (threadIdx.x == 0) out[(long long)s * ldo + k] = acc;
+  const long long row = (long long)s * gridDim.y + k;
+  if (threadIdx.x == 0) {
+    partial[row * nblk + b] = acc;
+    if (nblk == 1) {
+      last = true;
+    } else {
+      cuda::atomic_ref<int, cuda::thread_scope_device> done(ticket[row]);
+      last = done.fetch_add(1, cuda::memory_order_acq_rel) == nblk - 1;
+    }
+  }
+  __syncthreads();
+  if (!last) return;
+  // volatile: the partials the other blocks wrote, read where they wrote
+  const volatile T* p = partial + row * nblk;
+  T tot = T(0);
+  for (int q = threadIdx.x; q < nblk; q += blockDim.x) tot += p[q];
+  tot = knp_block_sum(tot, red);
+  if (threadIdx.x != 0) return;
+  out[(long long)s * ldo + k] = tot;
+  if (nblk > 1) ticket[row] = 0;
 }
 
 // y[s, :ks] solves R[s, :ks, :ks] y = g[s, :ks] (back substitution, rows
@@ -145,7 +172,7 @@ __device__ __forceinline__ void gm_cp_async(T* dst, const T* src) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
 
-// The sum gm_dot_finish_kernel forms of p[0..nblk) -- thread t adds p[t],
+// The sum gm_dot_kernel's finishing block forms of p[0..nblk) -- thread t adds p[t],
 // p[t + 256], ... in order from zero, then knp_block_sum's tree -- replayed
 // by one warp: lane l plays thread 32 v + l of each of the eight warps v,
 // the eight butterflies (each leaves every lane the same sum) run side by
@@ -183,7 +210,7 @@ __device__ __forceinline__ T gm_finish_warp(const T* p, int nblk) {
 }
 
 // out[k ostride] = the block's sum over its chunk (first entry lo) of
-// V[k,s,:] . w for k < rows, each as gm_dot_partial_kernel forms it: thread
+// V[k,s,:] . w for k < rows, each as gm_dot_kernel forms its partial: thread
 // t adds its products lo + t + 256 e in order from zero, then the warp's
 // shuffle tree and the eight warps in index order (knp_block_sum), the rows'
 // trees side by side with one block barrier.  Two rows at a time: a
@@ -369,12 +396,12 @@ __device__ void gm_givens(int s, const T* h1, const T* h2, T hj1, int ldh, T* R,
 // The cycle's start in one cooperative launch on the Arnoldi step's shape
 // (grid, upb, staged of gm_arnoldi_grid), bitwise the earlier three
 // launches (the partials, the scale, the scalars):
-//   1. each unit's partial of r . r summed as gm_dot_partial_kernel sums it
+//   1. each unit's partial of r . r summed as gm_dot_kernel sums its chunk
 //      (thread t adds its squares lo + t + 256 e from zero, then the block's
 //      tree), the unit's chunk of r kept in shared memory (staged) or read
 //      again after the barrier (not);
 //   2. a grid barrier; each block's systems' norms (block 0: every system's)
-//      the square root of the partials summed in gm_dot_finish_kernel's
+//      the square root of the partials summed in gm_dot_kernel's finishing
 //      order (gm_finish_warp, one warp a system);
 //   3. block 0: beta, R, cs, sn zero, g = beta e1, ks = 0 and the flag any
 //      beta > tol; every block: V[0] = r / (beta > 0 ? beta : 1) over its
@@ -598,17 +625,14 @@ __global__ void __launch_bounds__(KNP_THREADS)
 // launchers
 // ---------------------------------------------------------------------------
 
+// One launch of the dot kernel; the tickets of the rows x mb sums must be 0
 template <typename T>
-static int gm_dot_launch(const T* V, const T* w, T* partial, T* out, int mb, int n, int rows,
-                         int ldo, int chunk, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (rows < 1 || rows > ldo || chunk < 1) return (int)cudaErrorInvalidValue;
-  const int nblk = knp_chunks(n, chunk);
-  gm_dot_partial_kernel<T><<<dim3(nblk, rows, mb), KNP_THREADS, 0, st>>>(V, w, partial, mb, n,
-                                                                        rows, chunk);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  gm_dot_finish_kernel<T><<<dim3(rows, mb), KNP_THREADS, 0, st>>>(partial, out, ldo, rows, nblk);
+static int gm_dot_launch(const T* V, const T* w, T* partial, int* ticket, T* out, int mb, int n,
+                         int rows, int ldo, void* stream) {
+  if (mb < 1 || mb > GM_MAX_SYS || n < 1 || rows < 1 || rows > GM_MAX_ROWS || rows > ldo)
+    return (int)cudaErrorInvalidValue;
+  gm_dot_kernel<T><<<dim3(knp_chunks(n, GM_CHUNK), rows, mb), KNP_THREADS, 0,
+                     (cudaStream_t)stream>>>(V, w, partial, ticket, out, mb, n, ldo);
   return (int)cudaGetLastError();
 }
 
@@ -774,9 +798,10 @@ static int gm_solve_update_launch(const T* R, const T* g, const int* ks, T* y, c
 }
 
 #define GM_ENTRIES(T, SFX)                                                                   \
-  extern "C" int knp_gmres_dot_##SFX(const T* V, const T* w, T* partial, T* out, int mb,     \
-                                     int n, int rows, int ldo, int chunk, void* stream) {     \
-    return gm_dot_launch<T>(V, w, partial, out, mb, n, rows, ldo, chunk, stream);            \
+  extern "C" int knp_gmres_dot_##SFX(const T* V, const T* w, T* partial, int* ticket,      \
+                                     T* out, int mb, int n, int rows, int ldo,                \
+                                     void* stream) {                                          \
+    return gm_dot_launch<T>(V, w, partial, ticket, out, mb, n, rows, ldo, stream);           \
   }                                                                                           \
   extern "C" int knp_gmres_start_##SFX(const T* r, T* V, T* partial, T* beta, const T* tol,  \
                                        T* R, T* g, T* cs, T* sn, int* ks, int* flag, int mb,  \

@@ -17,12 +17,15 @@ and check only the vectors they are given, and
 :func:`gmres_arnoldi_ordered_plain` and :func:`gmres_start_ordered_plain`
 replay their summation orders in torch.
 
-K8 keeps ``sc = [rz, zz, alpha, beta, tol^2, wsum]`` (:data:`RZ` ...) and
-an int32 flag (zz > tol^2) on the device; the host reads the flag once per
-iteration, as the JAX while-loop's test does on the device.  Its entries
+K8 keeps ``sc = [rz, zz, alpha, beta, tol^2, wsum]`` (:data:`RZ` ...), the
+iteration count and an int32 flag (zz > tol^2 and count < max_it: the JAX
+while-loop's test) on the device.  Every K8 entry reads the flag first and
+writes nothing where it is 0, so the loop may queue an iteration before it
+has read the flag of the one before (``solvers/krylov.pcg``).  Its entries
 work in the workspace :func:`pcg_work` allocates once per solve, so they
-allocate nothing and read nothing back; the second dot and the direction
-update are one cooperative launch (:func:`pcg_dot2_direction`) whose grid
+allocate nothing and read nothing back; the update with its projection,
+and the second dot with the direction update, are one cooperative launch
+each (:func:`pcg_update`, :func:`pcg_dot2_direction`) on a grid that
 :func:`pcg_work` sizes once.
 
 Each wrapper runs its plain version for tensors on the CPU and launches its
@@ -42,6 +45,7 @@ RED_CHUNK = 2048      # entries a reduction block of the kernels covers
 MAX_RESTART = 63      # csrc/gmres.cu GM_MAX_ROWS - 1
 MAX_SYSTEMS = 32      # csrc/gmres.cu GM_MAX_SYS: systems of a batch on the card
 RZ, ZZ, ALPHA, BETA, TOL2, WSUM = range(6)    # slots of the PCG scalars
+MAX_ITERS = 2 ** 31 - 1   # the int32 count's cap: a PCG without an iteration cap
 
 
 def _nblk(n):
@@ -73,6 +77,9 @@ class GmresWork(NamedTuple):
     # the Arnoldi step's first dot, second dot and norm; the start and the
     # tolerance dot use the first part
     partial: "torch.Tensor | None" = None
+    # ((m+1) mb,) int32 release tickets of the tolerance dot's sums, one a
+    # row and system, 0 between launches
+    ticket: "torch.Tensor | None" = None
     # the cooperative launch of the Arnoldi step and of the cycle's start
     # (on the card): its blocks, the RED_CHUNK-entry chunks a block takes,
     # and 1 where the blocks keep their chunks of w (the start's: of r) in
@@ -113,6 +120,7 @@ def gmres_work(mb: int, n: int, m: int, dtype, device) -> GmresWork:
                      ks=torch.zeros(mb, dtype=torch.int32, device=dev), y=z(mb, m),
                      flag=torch.zeros(1, dtype=torch.int32, device=dev),
                      partial=torch.empty((2 * m + 1) * mb * _nblk(n), dtype=dtype, device=dev),
+                     ticket=torch.zeros((m + 1) * mb, dtype=torch.int32, device=dev),
                      grid=shape[0], upb=shape[1], staged=shape[2])
 
 
@@ -120,6 +128,18 @@ def gmres_cgs_dot_plain(V, w, rows, out):
     """out[:, :R] = the projections of w (mb, n) on every basis row of V
     (R, mb, n); rows beyond the populated ``rows`` are zero rows of V."""
     out[:, :V.shape[0]] = torch.einsum("ksn,sn->sk", V, w)
+    return out
+
+
+def gmres_cgs_dot_ordered_plain(V, w, rows, out):
+    """:func:`gmres_cgs_dot_plain` over the populated rows with each sum in
+    the dot kernel's order (:func:`_ordered_sums`), so the kernel equals it
+    to the last bit; out beyond ``rows`` is left as it is.  For the tests
+    and chip_smoke.py; the wrapper's CPU path keeps the einsum."""
+    mb, n = w.shape
+    Vs = V[:rows].transpose(0, 1).reshape(mb * rows, n)
+    ws = w[:, None].expand(mb, rows, n).reshape(mb * rows, n)
+    out[:, :rows] = _ordered_sums(Vs, ws).reshape(mb, rows)
     return out
 
 
@@ -288,27 +308,41 @@ def _check_vec(wk: GmresWork, v):
 
 def gmres_cgs_dot(V, w, rows, out, wk: "GmresWork | None" = None):
     """out[:, :rows] = V[:rows] . w per system, the basis V (R, mb, n)
-    populated in its first ``rows`` rows (the dot kernels on a CUDA tensor,
-    their partials in the workspace of ``wk``, a work of the same mb and n
-    from :func:`gmres_work`); returns out."""
+    populated in its first ``rows`` rows (one kernel launch on a CUDA
+    tensor, its partials and tickets in the workspace of ``wk``, a work of
+    the same mb and n from :func:`gmres_work`, which checked them; its
+    outputs bitwise those of :func:`gmres_cgs_dot_ordered_plain`); returns
+    out.  The vectors are checked against the work in one plain pass."""
     if not V.is_cuda:
         return gmres_cgs_dot_plain(V, w, rows, out)
-    _cuda.check("V", V)
-    _cuda.check("w", w, V.dtype, V.shape[1:])
-    if not 1 <= rows <= V.shape[0]:
-        raise ValueError(f"gmres: {rows} populated rows of a {V.shape[0]}-row basis")
-    _, mb, n = V.shape
-    _cuda.check("out", out, V.dtype)
-    if out.dim() != 2 or out.shape[0] != mb or out.shape[1] < rows:
-        raise ValueError("gmres_cgs_dot: out must be (mb, >= rows)")
-    if wk is None or wk.partial is None or wk.grid <= 0:
-        raise ValueError("gmres_cgs_dot: needs the workspace of a work from gmres_work")
-    if wk.partial.dtype != V.dtype or wk.partial.numel() < mb * rows * _nblk(n):
-        raise ValueError(f"gmres_cgs_dot: the work's partials do not hold {rows} rows of "
-                         f"{mb} x {n} entries")
+    if not (wk is not None and wk.grid > 0 and wk.ticket is not None
+            and V.dtype == w.dtype == out.dtype == wk.V.dtype and w.is_cuda and out.is_cuda
+            and V.shape[1:] == w.shape == wk.V.shape[1:]
+            and 1 <= rows <= min(V.shape[0], wk.V.shape[0])
+            and out.dim() == 2 and out.shape[0] == w.shape[0] and out.shape[1] >= rows
+            and V.is_contiguous() and w.is_contiguous() and out.is_contiguous()):
+        _cgs_dot_refusal(V, w, rows, out, wk)
+    mb, n = w.shape
     _cuda.launch("gmres_cgs_dot", "knp_gmres_dot", V.dtype, V.data_ptr(), w.data_ptr(),
-                 wk.partial.data_ptr(), out.data_ptr(), mb, n, rows, out.shape[1], RED_CHUNK)
+                 wk.partial.data_ptr(), wk.ticket.data_ptr(), out.data_ptr(), mb, n, rows,
+                 out.shape[1])
     return out
+
+
+def _cgs_dot_refusal(V, w, rows, out, wk):
+    """Raise the reason the dot kernel cannot take these operands."""
+    if wk is None or wk.partial is None or wk.ticket is None or wk.grid <= 0:
+        raise ValueError("gmres_cgs_dot: needs the workspace of a work from gmres_work")
+    _cuda.check("V", V, wk.V.dtype)
+    _cuda.check("w", w, wk.V.dtype, wk.V.shape[1:])
+    if V.shape[1:] != w.shape:
+        raise ValueError(f"gmres_cgs_dot: a basis of {tuple(V.shape[1:])} rows for w "
+                         f"{tuple(w.shape)}")
+    if not 1 <= rows <= min(V.shape[0], wk.V.shape[0]):
+        raise ValueError(f"gmres: {rows} populated rows of a {V.shape[0]}-row basis "
+                         f"(the work holds {wk.V.shape[0]})")
+    _cuda.check("out", out, wk.V.dtype)
+    raise ValueError("gmres_cgs_dot: out must be (mb, >= rows)")
 
 
 def gmres_start(r, wk: GmresWork):
@@ -365,23 +399,29 @@ def gmres_solve_update(wk: GmresWork, x):
 # ---------------------------------------------------------------------------
 
 class PcgWork(NamedTuple):
-    """Scalars, projection data and reduction workspace of one PCG solve
-    (build it with :func:`pcg_work`)."""
+    """Scalars, count, projection data and reduction workspace of one PCG
+    solve (build it with :func:`pcg_work`)."""
     sc: torch.Tensor               # (6,) rz, zz, alpha, beta, tol^2, wsum
-    flag: torch.Tensor             # (1,) int32: zz > tol^2
+    flag: torch.Tensor             # (1,) int32: zz > tol^2 and iters < max_it
     w: "torch.Tensor | None"       # nullspace mask expanded to the vector shape (mode 2)
     mode: int                      # 0 no projection, 1 mean, 2 masked mean
     partial: "torch.Tensor | None" = None   # (2 ceil(n / RED_CHUNK),) the block sums
     ticket: "torch.Tensor | None" = None    # (1,) int32 blocks done, 0 between launches
-    grid: int = 0                  # blocks of the dot2_direction launch (on the card)
+    grid: int = 0                  # blocks of the cooperative launches (on the card)
+    iters: "torch.Tensor | None" = None     # (1,) int32 live iterations so far
+    max_it: int = MAX_ITERS        # the cap the flag holds the count to
 
 
-def pcg_work(sc, flag, w, mode, n) -> PcgWork:
+def pcg_work(sc, flag, w, mode, n, max_it=None) -> PcgWork:
     """The work of a solve on n-entry vectors, checked once, with the
-    kernels' partial sums (``torch.empty``) and the int32 ticket (zero) on
-    the device of ``sc``: the entries then allocate nothing.  On the card it
-    also sizes the dot2_direction grid: the chunks, at most the blocks that
-    can be resident together (a cooperative launch needs them all)."""
+    kernels' partial sums (``torch.empty``), the int32 ticket and the
+    iteration count (zero) on the device of ``sc``: the entries then
+    allocate nothing.  ``flag`` is the loop's test before the first
+    iteration (nonzero: live); ``max_it`` (default: no cap) is the cap the
+    flag also holds the count to.  On the card it also sizes the grid of
+    the cooperative update and dot2_direction launches: the chunks, at most
+    the blocks that can be resident together (a cooperative launch needs
+    them all)."""
     if mode not in (0, 1, 2):
         raise ValueError(f"pcg_work: mode {mode} is not 0, 1 or 2")
     if sc.dtype not in (torch.float32, torch.float64) or tuple(sc.shape) != (6,):
@@ -395,14 +435,23 @@ def pcg_work(sc, flag, w, mode, n) -> PcgWork:
     if any(t.device != sc.device or not t.is_contiguous()
            for t in [sc, flag] + ([w] if mode == 2 else [])):
         raise ValueError("pcg_work: sc, flag and w must be contiguous, on one device")
+    max_it = MAX_ITERS if max_it is None else int(max_it)
+    if not 0 <= max_it <= MAX_ITERS:
+        raise ValueError(f"pcg_work: max_it {max_it} outside 0..{MAX_ITERS}")
     grid = 0
     if sc.is_cuda:
         g = ctypes.c_int(0)
-        _cuda.call("knp_pcg_dot2_direction_grid", sc.dtype, n, RED_CHUNK, ctypes.addressof(g))
+        _cuda.call("knp_pcg_grid", sc.dtype, n, RED_CHUNK, ctypes.addressof(g))
         grid = g.value
     return PcgWork(sc=sc, flag=flag, w=w, mode=mode,
                    partial=torch.empty(2 * _nblk(n), dtype=sc.dtype, device=sc.device),
-                   ticket=torch.zeros(1, dtype=torch.int32, device=sc.device), grid=grid)
+                   ticket=torch.zeros(1, dtype=torch.int32, device=sc.device), grid=grid,
+                   iters=torch.zeros(1, dtype=torch.int32, device=sc.device), max_it=max_it)
+
+
+def _frozen(wk: PcgWork):
+    """The plain entries' freeze: the loop has exited (flag 0)."""
+    return not bool(wk.flag)
 
 
 def _proj_plain(v, wk: PcgWork):
@@ -414,26 +463,33 @@ def _proj_plain(v, wk: PcgWork):
 
 
 def pcg_dot_plain(p, Ap, wk: PcgWork):
-    """alpha = rz / (p . Ap)."""
-    wk.sc[ALPHA] = wk.sc[RZ] / torch.dot(p.reshape(-1), Ap.reshape(-1))
+    """alpha = rz / (p . Ap); nothing written where the flag is 0."""
+    if not _frozen(wk):
+        wk.sc[ALPHA] = wk.sc[RZ] / torch.dot(p.reshape(-1), Ap.reshape(-1))
     return wk
 
 
 def pcg_update_plain(x, r, p, Ap, wk: PcgWork):
-    """x = proj(x + alpha p), r = proj(r - alpha Ap), in place."""
-    alpha = wk.sc[ALPHA]
-    x.copy_(_proj_plain(x + alpha * p, wk))
-    r.copy_(_proj_plain(r - alpha * Ap, wk))
+    """x = proj(x + alpha p), r = proj(r - alpha Ap), in place; nothing
+    written where the flag is 0."""
+    if not _frozen(wk):
+        alpha = wk.sc[ALPHA]
+        x.copy_(_proj_plain(x + alpha * p, wk))
+        r.copy_(_proj_plain(r - alpha * Ap, wk))
     return x, r
 
 
 def pcg_dot2_plain(r, z, wk: PcgWork):
-    """rz' = r . z, zz = z . z, beta = rz' / rz, rz = rz', flag = zz > tol^2."""
+    """rz' = r . z, zz = z . z, beta = rz' / rz, rz = rz', iters += 1, and
+    flag = zz > tol^2 and iters < max_it (the JAX while-loop's test)."""
     rz_new = torch.dot(r.reshape(-1), z.reshape(-1))
     wk.sc[BETA] = rz_new / wk.sc[RZ]
     wk.sc[RZ] = rz_new
     wk.sc[ZZ] = torch.dot(z.reshape(-1), z.reshape(-1))
-    wk.flag.fill_(int(bool(wk.sc[ZZ] > wk.sc[TOL2])))
+    if wk.iters is not None:
+        wk.iters.add_(1)
+    live = bool(wk.sc[ZZ] > wk.sc[TOL2]) and (wk.iters is None or int(wk.iters) < wk.max_it)
+    wk.flag.fill_(int(live))
     return wk
 
 
@@ -444,8 +500,10 @@ def pcg_direction_plain(p, z, wk: PcgWork):
 
 def pcg_dot2_direction_plain(r, z, p, wk: PcgWork):
     """:func:`pcg_dot2_plain`, then :func:`pcg_direction_plain`: rz, zz,
-    beta and the flag into wk, p = z + beta p in place; returns wk."""
-    pcg_direction_plain(p, z, pcg_dot2_plain(r, z, wk))
+    beta, the count and the flag into wk, p = z + beta p in place; nothing
+    written where the flag is 0.  Returns wk."""
+    if not _frozen(wk):
+        pcg_direction_plain(p, z, pcg_dot2_plain(r, z, wk))
     return wk
 
 
@@ -495,13 +553,34 @@ def pcg_dots_ordered_plain(a, b, c=None, d=None):
                       for u, v in [(a, b)] + ([] if c is None else [(c, d)])])
 
 
+def pcg_update_ordered_plain(x, r, p, Ap, wk: PcgWork):
+    """:func:`pcg_update_plain` with the projection's sums in the update
+    kernel's order (:func:`_ordered_sums` of each updated vector against the
+    mask, or against ones in mode 1), so the kernel equals it to the last
+    bit; nothing written where the flag is 0.  For the tests and
+    chip_smoke.py; the wrapper's CPU path keeps torch.mean / torch.sum."""
+    if _frozen(wk):
+        return x, r
+    alpha = wk.sc[ALPHA]
+    xn, rn = x + alpha * p, r - alpha * Ap
+    if wk.mode:
+        w = (wk.w if wk.mode == 2 else torch.ones_like(xn)).reshape(1, -1)
+        mx, mr = (_ordered_sums(v.reshape(1, -1), w)[0] / wk.sc[WSUM] for v in (xn, rn))
+        xn, rn = xn - mx, rn - mr
+        if wk.mode == 2:
+            xn, rn = xn * wk.w, rn * wk.w
+    x.copy_(xn)
+    r.copy_(rn)
+    return x, r
+
+
 def _check_vecs(wk: PcgWork, *vecs):
     """What may change between calls of a K8 entry: the vectors' dtype,
     size, device and layout against the work, one plain pass (what is
     frozen for a solve was checked by pcg_work); returns their size.  The
     slow path names what is wrong."""
     dt, n = wk.sc.dtype, vecs[0].numel()
-    ok = wk.partial is not None and 2 * _nblk(n) == wk.partial.numel()
+    ok = wk.iters is not None and wk.grid > 0 and 2 * _nblk(n) == wk.partial.numel()
     for v in vecs:
         ok = ok and v.dtype == dt and v.numel() == n and v.is_cuda and v.is_contiguous()
     if not ok:
@@ -511,8 +590,8 @@ def _check_vecs(wk: PcgWork, *vecs):
 
 def _pcg_refusal(wk: PcgWork, vecs):
     """Raise the reason a K8 kernel cannot take these vectors."""
-    if wk.partial is None:
-        raise ValueError("pcg: the work has no reduction workspace; build it with pcg_work")
+    if wk.partial is None or wk.iters is None or wk.grid <= 0:
+        raise ValueError("pcg: the work has no card workspace; build it with pcg_work")
     n = vecs[0].numel()
     for v in vecs:
         if v.dtype != wk.sc.dtype:
@@ -525,39 +604,40 @@ def _pcg_refusal(wk: PcgWork, vecs):
 
 def pcg_dot(p, Ap, wk: PcgWork):
     """alpha = rz / (p . Ap) into wk.sc (one kernel launch on a CUDA tensor,
-    into the work's workspace)."""
+    into the work's workspace; nothing written where the flag is 0)."""
     if not p.is_cuda:
         return pcg_dot_plain(p, Ap, wk)
     n = _check_vecs(wk, p, Ap)
     _cuda.launch("pcg_dot", "knp_pcg_dot", p.dtype, p.data_ptr(), Ap.data_ptr(),
-                 wk.partial.data_ptr(), wk.ticket.data_ptr(), wk.sc.data_ptr(), n, RED_CHUNK)
+                 wk.partial.data_ptr(), wk.ticket.data_ptr(), wk.sc.data_ptr(),
+                 wk.flag.data_ptr(), n, RED_CHUNK)
     return wk
 
 
 def pcg_update(x, r, p, Ap, wk: PcgWork):
     """x += alpha p, r -= alpha Ap and their nullspace projection, in place
-    (the update and projection kernels on a CUDA tensor, their block sums in
-    the work's workspace)."""
+    (one cooperative kernel launch on a CUDA tensor, its block sums in the
+    work's workspace; nothing written where the flag is 0)."""
     if not x.is_cuda:
         return pcg_update_plain(x, r, p, Ap, wk)
     n = _check_vecs(wk, x, r, p, Ap)
     _cuda.launch("pcg_update", "knp_pcg_update", x.dtype, x.data_ptr(), r.data_ptr(),
                  p.data_ptr(), Ap.data_ptr(), wk.sc.data_ptr(),
-                 None if wk.w is None else wk.w.data_ptr(), wk.partial.data_ptr(), n,
-                 RED_CHUNK, wk.mode)
+                 None if wk.w is None else wk.w.data_ptr(), wk.partial.data_ptr(),
+                 wk.flag.data_ptr(), n, wk.grid, wk.mode)
     return x, r
 
 
 def pcg_dot2_direction(r, z, p, wk: PcgWork):
-    """rz, zz, beta and the flag into wk, then p = z + beta p in place (one
-    cooperative kernel launch on a CUDA tensor, into the work's workspace);
-    returns wk."""
+    """rz, zz, beta, the count and the flag into wk, then p = z + beta p in
+    place (one cooperative kernel launch on a CUDA tensor, into the work's
+    workspace; nothing written where the flag is 0); returns wk."""
     if not r.is_cuda:
         return pcg_dot2_direction_plain(r, z, p, wk)
     n = _check_vecs(wk, r, z, p)
     _cuda.launch("pcg_dot2_direction", "knp_pcg_dot2_direction", r.dtype, r.data_ptr(),
                  z.data_ptr(), p.data_ptr(), wk.partial.data_ptr(), wk.sc.data_ptr(),
-                 wk.flag.data_ptr(), n, wk.grid)
+                 wk.flag.data_ptr(), wk.iters.data_ptr(), wk.max_it, n, wk.grid)
     return wk
 
 

@@ -61,10 +61,10 @@ HAND_KERNELS = ("bell_matvec_kernel", "bj_inverse_kernel", "bj_apply_kernel",
                 "alpha_sum_kernel", "ion_cell_kernel", "ion_facet_scalars_kernel",
                 "ion_facet_kernel", "ion_membrane_emit_kernel", "ion_membrane_emit_rows_kernel",
                 "membrane_trace_kernel", "eliminated_kernel",
-                "gm_dot_partial_kernel", "gm_dot_finish_kernel", "gm_arnoldi_kernel",
+                "gm_dot_kernel", "gm_arnoldi_kernel",
                 "gm_start_kernel", "gm_backsolve_kernel",
                 "gm_xupdate_kernel", "pcg_dot_kernel",
-                "pcg_update_kernel", "pcg_project_kernel", "pcg_dot2_direction_kernel",
+                "pcg_update_kernel", "pcg_dot2_direction_kernel",
                 "bi_start_kernel", "bi_alpha_kernel", "bi_omega_kernel")
 PHASES = ("_ode_step", "_assemble_emi", "_emi_solve_iterative",
           "_knp_assemble_all", "_knp_solve_all", "_finalize_step")

@@ -7,9 +7,15 @@ the EMI system weights the small membrane-jump modes by 1/lambda.
 
 The JAX ``lax.while_loop``s become Python loops around the vector and
 scalar work of ``ops/krylov_ops.py`` (kernels K8, K9 and K15 on the card),
-which keeps the loops' scalars on the device: per PCG iteration, Arnoldi
-step or BiCGStab iteration the host reads one convergence flag and copies
-nothing else across.  An
+which keeps the loops' scalars on the device.  The PCG loop keeps its test
+on the device as well: K8 writes the flag (the JAX loop's ``cond``) and the
+iteration count, and writes nothing once the flag is 0.  So the host queues
+iteration j before it looks at the flag of iteration j - 1, which reaches
+it through pinned memory behind a CUDA event (:class:`_FlagLookahead`):
+the device always has an iteration queued, at most one iteration runs
+frozen after the exit, and a solve makes two blocking reads (the count and
+the convergence test at its end).  Per Arnoldi step or BiCGStab iteration
+the host reads one convergence flag and copies nothing else across.  An
 Arnoldi step after the matvec is one call (one kernel launch on the card).
 """
 from __future__ import annotations
@@ -26,6 +32,53 @@ class KrylovResult(NamedTuple):
     iters: object             # int (pcg) or list of ints (gmres_batched)
     resnorm: torch.Tensor
     converged: bool
+
+
+# the PCG loop's look-ahead, summed over solves for the scripts that report
+# it: solves, and iterations queued after the loop's exit (every K8 entry of
+# such an iteration wrote nothing; at most one a solve)
+PCG_LOOKAHEAD = {"solves": 0, "frozen": 0}
+_PINNED = {}              # device -> (pinned int32 (2,), its two slots, two events)
+
+
+class _FlagLookahead:
+    """The PCG loop's flag, read one iteration behind.  ``record(j)`` copies
+    the flag after iteration j (j = -1: before the first) into slot j % 2:
+    on the card asynchronously, into pinned host memory behind a CUDA event
+    on the stream current when the solve began; on the CPU by value.
+    ``done(j)`` says, without waiting, whether that copy has landed (always
+    on the CPU); ``read(j)`` returns it, on the card after waiting on its
+    event only.  The two slots alternate, so a slot is read before it is
+    written again."""
+
+    def __init__(self, flag):
+        self.flag = flag
+        if flag.is_cuda:
+            if flag.device not in _PINNED:
+                host = torch.zeros(2, dtype=torch.int32, pin_memory=True)
+                _PINNED[flag.device] = (host.numpy(), (host[0:1], host[1:2]),
+                                        (torch.cuda.Event(), torch.cuda.Event()))
+            self.values, self.slots, self.events = _PINNED[flag.device]
+            self.stream = torch.cuda.current_stream(flag.device)
+        else:
+            self.values = [0, 0]
+
+    def record(self, j):
+        s = j % 2
+        if self.flag.is_cuda:
+            self.slots[s].copy_(self.flag, non_blocking=True)
+            self.events[s].record(self.stream)
+        else:
+            self.values[s] = int(self.flag)
+
+    def done(self, j):
+        return not self.flag.is_cuda or self.events[j % 2].query()
+
+    def read(self, j):
+        s = j % 2
+        if self.flag.is_cuda:
+            self.events[s].synchronize()
+        return int(self.values[s])
 
 
 def _dot(a, b):
@@ -50,6 +103,17 @@ def pcg(
     nullspace_mask: Optional[torch.Tensor] = None,
 ) -> KrylovResult:
     """Preconditioned conjugate gradients.
+
+    The loop's test (the carried ||z||^2 above tol^2, fewer than ``max_it``
+    iterations) and its count stay on the device; the host queues each
+    iteration before it reads the flag of the one before, and stops at the
+    first flag it reads 0.  Where that flag has already reached the host
+    after the next matvec is queued (a loop whose host work outlasts the
+    device's), the loop stops there; otherwise the iteration queued after
+    the exit runs frozen: its matvec and preconditioner apply recompute
+    from the unchanged r and p, and every K8 entry writes nothing.  Either
+    way the outputs are the same bits.  ``iters`` is the device's count of
+    live iterations.
 
     ``b_ref``: the vector whose preconditioned norm anchors the relative
     tolerance instead of ``b`` (increment-form solves, where ``b`` is the
@@ -85,19 +149,27 @@ def pcg(
     tol = torch.clamp(rtol * bnorm, min=atol)
     zero = torch.zeros_like(rz)
     wk = ko.pcg_work(torch.stack([rz, zz, zero, zero, tol * tol, wsum]),
-                     (zz > tol * tol).to(torch.int32).reshape(1), w, mode, b.numel())
+                     (zz > tol * tol).to(torch.int32).reshape(1), w, mode, b.numel(),
+                     max_it)
 
-    k = 0
-    # the convergence test reads the carried ||z||^2 of the last iteration
-    while k < max_it and bool(wk.flag):
+    # the test reads the carried ||z||^2 and the count of the last iteration
+    look = _FlagLookahead(wk.flag)
+    look.record(-1)
+    PCG_LOOKAHEAD["solves"] += 1
+    for j in range(max_it):
         Ap = matvec(p).contiguous()
+        if look.done(j - 1) and not look.read(j - 1):
+            break                              # the exit seen without a wait
         ko.pcg_dot(p, Ap, wk)                  # alpha = rz / p.Ap
         ko.pcg_update(x, r, p, Ap, wk)         # x += alpha p, r -= alpha Ap, projected
         z = precond(r).contiguous()
-        ko.pcg_dot2_direction(r, z, p, wk)     # rz, zz, beta, the flag; p = z + beta p
-        k += 1
+        ko.pcg_dot2_direction(r, z, p, wk)     # rz, zz, beta, count, flag; p = z + beta p
+        look.record(j)
+        if not look.read(j - 1):               # iteration j ran frozen
+            PCG_LOOKAHEAD["frozen"] += 1
+            break
     rn = torch.sqrt(wk.sc[ko.ZZ])
-    return KrylovResult(x=x, iters=k, resnorm=rn, converged=bool(rn <= tol))
+    return KrylovResult(x=x, iters=int(wk.iters), resnorm=rn, converged=bool(rn <= tol))
 
 
 def gmres(

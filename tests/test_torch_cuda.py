@@ -648,13 +648,19 @@ def test_emix_pair_slice_on_cuda_matches_cpu():
     sc = unpad_state(Sc, Sc.solve_system_active(0.2, 0.0, sp))
     Sg, _ = tp.emix_torch(device=dev, pair=True)
     _cuda.reset_launches()
+    f0 = krylov.PCG_LOOKAHEAD["frozen"]
     sg = unpad_state(Sg, Sg.solve_system_active(0.2, 0.0, sp))
+    frozen = krylov.PCG_LOOKAHEAD["frozen"] - f0
     assert all(_cuda.LAUNCHES[k] > 0 for k in PAIR_KERNELS), _cuda.LAUNCHES
     assert _cuda.LAUNCHES["bell_matvec"] == 0
     assert Sg.stats.emi_niters == Sc.stats.emi_niters == [3, 9]
     assert Sg.stats.knp_niters == Sc.stats.knp_niters == [[11, 8], [9, 5]]
-    # one fused K8 launch per PCG iteration; one from_pair (with its add) per solve
-    assert _cuda.LAUNCHES["pcg_dot2_direction"] == _cuda.LAUNCHES["pcg_dot"] == 3 + 9
+    # one launch of each K8 entry per PCG iteration, live or frozen (at
+    # most one frozen iteration after each solve's exit); one from_pair
+    # (with its add) per solve
+    assert frozen <= 2
+    assert _cuda.LAUNCHES["pcg_dot2_direction"] == _cuda.LAUNCHES["pcg_dot"] == \
+        _cuda.LAUNCHES["pcg_update"] == 3 + 9 + frozen
     assert _cuda.LAUNCHES["from_pair"] == 2 * 2
     for key in ("phi", "c", "c_elim", "phi_M"):
         assert rel(sg[key], sc[key]) < 1e-8, key
@@ -2200,8 +2206,9 @@ def test_gmres_arnoldi_raises_on_a_refused_launch():
 @pytest.mark.parametrize("mode", [0, 1, 2])
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_krylov_pcg_kernels_match_plain(mode, dtype, tol):
-    """Each K8 entry point against its plain version: no projection, the
-    mean (cell layout) and the masked mean (pair layout)."""
+    """Each K8 entry point against its plain version on a live work (flag
+    1): no projection, the mean (cell layout) and the masked mean (pair
+    layout); the count and the flag equal."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(12)
     shape = (8, 3001)
@@ -2212,7 +2219,7 @@ def test_krylov_pcg_kernels_match_plain(mode, dtype, tol):
     sc[ko.WSUM] = wsum
 
     def work():
-        return ko.pcg_work(sc.clone(), torch.zeros(1, dtype=torch.int32, device=dev),
+        return ko.pcg_work(sc.clone(), torch.ones(1, dtype=torch.int32, device=dev),
                            w if mode == 2 else None, mode, x.numel())
 
     a, b = work(), work()
@@ -2227,6 +2234,7 @@ def test_krylov_pcg_kernels_match_plain(mode, dtype, tol):
     ko.pcg_dot2_direction(r, z, pa, a)
     ko.pcg_dot2_direction_plain(r, z, p.clone(), b)
     assert rel(a.sc[:4], b.sc[:4]) < tol and torch.equal(a.flag, b.flag)
+    assert a.iters.tolist() == b.iters.tolist() == [1]
     # the direction with the kernel's beta
     assert rel(pa, ko.pcg_direction_plain(p.clone(), z, a)) < tol
     for k in KRYLOV_KERNELS[:3]:
@@ -2251,7 +2259,7 @@ def test_pcg_dots_equal_the_ordered_plain_bitwise(n, dtype):
     sc0 = torch.as_tensor([1.25, 0.0, 0.0, 0.0, 1e-6, float(n)], dtype=dtype, device=dev)
     for entry, fn, vecs in (("pcg_dot", ko.pcg_dot, (p, Ap)),
                             ("pcg_dot2_direction", ko.pcg_dot2_direction, (r, z, p))):
-        wk = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1, n)
+        wk = ko.pcg_work(sc0.clone(), torch.ones(1, dtype=torch.int32, device=dev), None, 1, n)
         n0 = _cuda.LAUNCHES[entry]
         chip_smoke.dots_exact(entry, dtype, ko, fn, vecs, sc0, wk, calls=200)
         assert _cuda.LAUNCHES[entry] == n0 + 200
@@ -2285,8 +2293,8 @@ def test_pcg_dot2_direction_at_the_main_sizes(n, dtype, tol):
     chip_smoke.dots_exact("pcg_dot2_direction", dtype, ko, ko.pcg_dot2_direction, (r, z, p),
                           sc0, wk, calls=200)
     assert _cuda.LAUNCHES["pcg_dot2_direction"] == n0 + 200
-    a = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1, n)
-    b = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1, n)
+    a = ko.pcg_work(sc0.clone(), torch.ones(1, dtype=torch.int32, device=dev), None, 1, n)
+    b = ko.pcg_work(sc0.clone(), torch.ones(1, dtype=torch.int32, device=dev), None, 1, n)
     pa, pb = p.clone(), p.clone()
     ko.pcg_dot2_direction(r, z, pa, a)
     ko.pcg_dot2_direction_plain(r, z, pb, b)
@@ -2305,7 +2313,7 @@ def test_pcg_dot2_direction_raises_on_a_refused_launch():
     v = torch.ones(n, dtype=torch.float64, device=dev)
     sc0 = torch.as_tensor([1.0, 0.0, 0.0, 0.0, 1e-6, float(n)], dtype=torch.float64,
                           device=dev)
-    wk = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1, n)
+    wk = ko.pcg_work(sc0.clone(), torch.ones(1, dtype=torch.int32, device=dev), None, 1, n)
     nchunk = -(-n // ko.RED_CHUNK)
     assert wk.grid < nchunk
     n0 = _cuda.LAUNCHES["pcg_dot2_direction"]
@@ -2319,12 +2327,12 @@ def test_pcg_dot2_direction_raises_on_a_refused_launch():
 
 
 def test_pcg_iteration_launches_once_per_entry_and_allocates_nothing():
-    """An iteration's K8 entries on a masked (pair-layout) work: pcg_dot,
-    pcg_update (its update and projection kernels, their block sums in the
-    work's partials) and pcg_dot2_direction are 4 device kernels and no
-    allocation (the caching allocator's count) per iteration; pcg_update
-    gives the same bits with partials another entry has just written as with
-    a fresh work."""
+    """An iteration's K8 entries on a masked (pair-layout) live work:
+    pcg_dot, pcg_update (one cooperative kernel: the update, its block sums
+    in the work's partials, the projection) and pcg_dot2_direction are 3
+    device kernels and no allocation (the caching allocator's count) per
+    iteration; pcg_update gives the same bits with partials another entry
+    has just written as with a fresh work."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(18)
     shape = (8, 63558)
@@ -2334,7 +2342,7 @@ def test_pcg_iteration_launches_once_per_entry_and_allocates_nothing():
     sc[ko.WSUM] = w.sum()
 
     def work():
-        return ko.pcg_work(sc.clone(), torch.zeros(1, dtype=torch.int32, device=dev), w, 2,
+        return ko.pcg_work(sc.clone(), torch.ones(1, dtype=torch.int32, device=dev), w, 2,
                            x.numel())
 
     fresh, wk = work(), work()
@@ -2356,29 +2364,32 @@ def test_pcg_iteration_launches_once_per_entry_and_allocates_nothing():
             ko.pcg_update(xi, ri, pi, Ap, wk)
             ko.pcg_dot2_direction(ri, z, pi, wk)
 
-    want = ["pcg_dot_kernel", "pcg_update_kernel", "pcg_project_kernel",
-            "pcg_dot2_direction_kernel"] * 5
+    want = ["pcg_dot_kernel", "pcg_update_kernel", "pcg_dot2_direction_kernel"] * 5
     kernels = _device_kernels(iterations, sessions=3, want=len(want))
     assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
     assert len(kernels) == len(want) and all(k in e for k, e in zip(want, kernels)), kernels
 
 
 def test_pcg_dots_replay_in_a_cuda_graph():
-    """The reduction entries allocate nothing, sync nothing and keep fixed
-    workspace pointers (the fused entry a cooperative launch), so a captured
-    iteration's pcg_dot and pcg_dot2_direction replay: the same bits of the
-    scalars, the flag and the direction as the eager calls, the ticket back
-    at 0."""
+    """The K8 entries allocate nothing, sync nothing and keep fixed
+    workspace pointers (the update and the fused entry cooperative
+    launches), so a captured iteration's pcg_dot, pcg_update and
+    pcg_dot2_direction replay: the same bits of the scalars, the count, the
+    flag, x, r and the direction as the eager calls, the ticket back at
+    0."""
     dev = cuda_or_skip()
     rng = np.random.default_rng(16)
     p, Ap = (_rand(rng, (4, 9000), torch.float64, dev) for _ in range(2))
-    sc0 = torch.as_tensor([1.5, 2.0, 0.0, 0.0, 1e-6, 0.0], dtype=torch.float64, device=dev)
-    eager = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1,
+    sc0 = torch.as_tensor([1.5, 2.0, 0.0, 0.0, 1e-6, float(p.numel())], dtype=torch.float64,
+                          device=dev)
+    eager = ko.pcg_work(sc0.clone(), torch.ones(1, dtype=torch.int32, device=dev), None, 1,
                         p.numel())
-    d0 = _rand(rng, (4, 9000), torch.float64, dev)
+    d0, x0, r0 = (_rand(rng, (4, 9000), torch.float64, dev) for _ in range(3))
     de, dg = d0.clone(), d0.clone()
-    ko.pcg_dot2_direction(p, Ap, de, ko.pcg_dot(p, Ap, eager))
-    wk = ko.pcg_work(sc0.clone(), torch.zeros(1, dtype=torch.int32, device=dev), None, 1,
+    xe, re_, xg, rg = x0.clone(), r0.clone(), x0.clone(), r0.clone()
+    ko.pcg_update(xe, re_, p, Ap, ko.pcg_dot(p, Ap, eager))
+    ko.pcg_dot2_direction(p, Ap, de, eager)
+    wk = ko.pcg_work(sc0.clone(), torch.ones(1, dtype=torch.int32, device=dev), None, 1,
                      p.numel())
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -2388,14 +2399,19 @@ def test_pcg_dots_replay_in_a_cuda_graph():
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         ko.pcg_dot(p, Ap, wk)
+        ko.pcg_update(xg, rg, p, Ap, wk)
         ko.pcg_dot2_direction(p, Ap, dg, wk)
     for _ in range(3):
         wk.sc.copy_(sc0)
-        dg.copy_(d0)
+        wk.iters.zero_()
+        wk.flag.fill_(1)
+        for t, t0 in ((dg, d0), (xg, x0), (rg, r0)):
+            t.copy_(t0)
         graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(wk.sc, eager.sc) and torch.equal(wk.flag, eager.flag)
-    assert torch.equal(dg, de)
+    assert torch.equal(wk.iters, eager.iters)
+    assert torch.equal(dg, de) and torch.equal(xg, xe) and torch.equal(rg, re_)
     assert wk.ticket.tolist() == [0]
 
 
@@ -2428,6 +2444,165 @@ def test_pcg_dots_refuse_a_work_without_workspace():
         ko.pcg_dot(v, v.float(), wk)
     for k in ("pcg_dot", "pcg_update", "pcg_dot2_direction"):
         assert _cuda.LAUNCHES[k] == n0[k], k
+
+
+@pytest.mark.parametrize("n", MAIN_SIZES)
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pcg_update_equals_the_ordered_plain_bitwise(n, mode, dtype):
+    """pcg_update (one cooperative launch: the update, a grid barrier, the
+    projection from registers) writes x and r to the last bit of
+    pcg_update_ordered_plain's (the earlier update and projection kernels'
+    order) at the main path's sizes and beyond the resident blocks (chunks
+    past each block's first re-read after the barrier), in each of 50
+    calls on restored inputs, one launch a call."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(30 + mode)
+    x, r, p, Ap = (_rand(rng, (n,), dtype, dev) for _ in range(4))
+    w = torch.as_tensor(rng.uniform(size=n) > 0.1, dtype=dtype, device=dev)
+    wsum = w.sum() if mode == 2 else torch.tensor(float(n), dtype=dtype, device=dev)
+    sc = torch.as_tensor([1.5, 2.0, 0.37, 0.0, 1e-6, 0.0], dtype=dtype, device=dev)
+    sc[ko.WSUM] = wsum
+    wk = ko.pcg_work(sc, torch.ones(1, dtype=torch.int32, device=dev),
+                     w if mode == 2 else None, mode, n)
+    nchunk = -(-n // ko.RED_CHUNK)
+    assert 1 <= wk.grid <= nchunk and (n < 4000000 or wk.grid < nchunk), (wk.grid, nchunk)
+    want = ko.pcg_update_ordered_plain(x.clone(), r.clone(), p, Ap, wk)
+    xg, rg = x.clone(), r.clone()
+    n0 = _cuda.LAUNCHES["pcg_update"]
+    diff = torch.zeros(50, dtype=torch.int64, device=dev)
+    for i in range(50):
+        xg.copy_(x)
+        rg.copy_(r)
+        ko.pcg_update(xg, rg, p, Ap, wk)
+        diff[i] = sum((_bits(a) != _bits(b)).sum() for a, b in zip((xg, rg), want))
+    assert int(diff.max()) == 0
+    assert _cuda.LAUNCHES["pcg_update"] == n0 + 50
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_frozen_pcg_entries_write_nothing_on_the_card(dtype):
+    """With the work's flag 0 (the loop has exited) each K8 entry launches
+    (one count) and writes nothing: x, r, p, the scalars, the count, the
+    flag, the partials and the ticket keep their bits, on a masked work
+    whose partials another entry has just written."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(33)
+    shape = (8, 63558)
+    x, r, p, Ap, z = (_rand(rng, shape, dtype, dev) for _ in range(5))
+    w = torch.as_tensor(rng.uniform(size=shape) > 0.1, dtype=dtype, device=dev)
+    sc = torch.as_tensor([1.5, 2.0, 0.37, 0.5, 1e-6, 0.0], dtype=dtype, device=dev)
+    sc[ko.WSUM] = w.sum()
+    wk = ko.pcg_work(sc, torch.ones(1, dtype=torch.int32, device=dev), w, 2, x.numel())
+    ko.pcg_dot2_direction(r, z, p.clone(), wk)            # partials written, count 1
+    wk.flag.zero_()
+    wk.iters.fill_(7)
+    keep = [x, r, p, wk.sc, wk.flag, wk.iters, wk.partial, wk.ticket]
+    before = [t.clone() for t in keep]
+    n0 = dict(_cuda.LAUNCHES)
+    ko.pcg_dot(p, Ap, wk)
+    ko.pcg_update(x, r, p, Ap, wk)
+    ko.pcg_dot2_direction(r, z, p, wk)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(keep, before)):
+        assert torch.equal(a, b) if a.dtype == torch.int32 else torch.equal(_bits(a), _bits(b)), k
+    for k in KRYLOV_KERNELS[:3]:
+        assert _cuda.LAUNCHES[k] == n0[k] + 1, k
+
+
+def test_pcg_lookahead_on_the_card_matches_the_cpu():
+    """krylov.pcg on the card (the flag read one iteration behind through
+    pinned memory) against the CPU's look-ahead loop on a projected SPD
+    system: equal counts, x to 1e-10; max_it binding gives max_it live
+    launches and no frozen one; a converged solve at most one frozen
+    iteration (K8 launches = iterations + frozen)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(34)
+    B, nbr = _dominant_system(rng)
+    P = B[1, 0] + np.swapaxes(B[1, 0], 0, 1)
+    rhs = rng.normal(size=(4, B.shape[-1]))
+    for max_it in (200, 5):
+        res = {}
+        for d in ("cpu", dev):
+            Pt = torch.as_tensor(P, device=d)
+            mv = lambda v: torch.einsum("ijc,jc->ic", Pt, v)
+            n0 = dict(_cuda.LAUNCHES)
+            f0 = krylov.PCG_LOOKAHEAD["frozen"]
+            res[str(d)] = krylov.pcg(mv, torch.as_tensor(rhs, device=d),
+                                     torch.zeros(4, P.shape[-1], dtype=torch.float64, device=d),
+                                     lambda r: r / 6.0, rtol=1e-10, atol=0.0, max_it=max_it,
+                                     project_nullspace=True)
+            frozen = krylov.PCG_LOOKAHEAD["frozen"] - f0
+        rc, rg = res["cpu"], res[str(dev)]
+        assert rg.iters == rc.iters and rg.converged == rc.converged == (max_it == 200)
+        assert rel(rg.x, rc.x) < 1e-10
+        assert frozen <= (1 if rg.converged else 0)
+        for k in KRYLOV_KERNELS[:3]:
+            assert _cuda.LAUNCHES[k] == n0[k] + rg.iters + frozen, k
+
+
+# (entries a system, populated rows, systems): the 3D KNP batches of the
+# cell and pair layouts at chip_smoke's KRYLOV_ROWS and at one row (the
+# solve's tolerance), the MMS path's one system (48 chunks), the 2D app's
+# two ions (744 entries: one chunk each), and beyond 1,024 chunks
+CGS_DOT_SIZES = [(497664, 4, 2), (508464, 1, 2), (98304, 1, 1), (744, 1, 2),
+                 (4000001, 2, 2), (3 * 2048 + 17, 31, 3)]
+
+
+@pytest.mark.parametrize("n,rows,mb", CGS_DOT_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gmres_cgs_dot_equals_the_ordered_plain_bitwise(n, rows, mb, dtype):
+    """gmres_cgs_dot (one launch: the partials, then the last block of each
+    row and system sums them) writes out[:, :rows] to the last bit of
+    gmres_cgs_dot_ordered_plain's (the earlier partial and finish kernels'
+    order) in each of 100 calls on one work (out NaN before every call),
+    leaves out beyond the rows alone, and ends with every ticket at 0."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(35)
+    wk = ko.gmres_work(mb, n, max(rows, 4), dtype, dev)
+    V = _rand(rng, (rows, mb, n), dtype, dev)
+    w = _rand(rng, (mb, n), dtype, dev)
+    want = ko.gmres_cgs_dot_ordered_plain(V, w, rows, torch.zeros((mb, rows), dtype=dtype,
+                                                                  device=dev))
+    out = torch.empty((mb, rows + 2), dtype=dtype, device=dev)
+    n0 = _cuda.LAUNCHES["gmres_cgs_dot"]
+    diff = torch.zeros(100, dtype=torch.int64, device=dev)
+    for i in range(100):
+        out.fill_(float("nan"))
+        ko.gmres_cgs_dot(V, w, rows, out, wk)
+        diff[i] = (_bits(out[:, :rows]) != _bits(want)).sum()
+    assert int(diff.max()) == 0
+    assert bool(out[:, rows:].isnan().all())
+    assert _cuda.LAUNCHES["gmres_cgs_dot"] == n0 + 100
+    assert not wk.ticket.any()
+
+
+def test_gmres_cgs_dot_is_one_launch_and_replays():
+    """The solver's tolerance dot (one row, the cell layout's KNP batch) is
+    one gm_dot_kernel launch a call and no allocation; captured in a CUDA
+    graph it replays to the eager bits."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(36)
+    wk = ko.gmres_work(2, 497664, 30, torch.float64, dev)
+    bz = _rand(rng, (2, 497664), torch.float64, dev)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+
+    def dots():
+        for _ in range(5):
+            ko.gmres_cgs_dot(bz[None], bz, 1, wk.h1, wk)
+
+    kernels = _device_kernels(dots, sessions=3, want=5, match="gm_dot")
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
+    assert len(kernels) == 5 and all("gm_dot_kernel" in k for k in kernels), kernels
+    eager = wk.h1.clone()
+    wk.h1.zero_()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ko.gmres_cgs_dot(bz[None], bz, 1, wk.h1, wk)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(wk.h1, eager) and not wk.ticket.any()
 
 
 def _dominant_system(rng, nc=3000, K=5, m=2):
@@ -2676,6 +2851,54 @@ def test_bicgstab_slice_on_cuda_matches_cpu(pair, monkeypatch):
     assert launches["bicgstab_alpha"] == launches["bicgstab_omega"] == sum(
         max(k) for k in Sg.stats.knp_niters)
     assert not any(v for k, v in launches.items() if k.startswith("gmres_"))
+
+
+def test_bicgstab_pair_slice_with_plain_pair_kernels(monkeypatch):
+    """The diagnostic of the pair slice's BiCGStab exit (the card takes KNP
+    [7, 7] in step 2, the CPU [7, 8]): the same two float64 steps on the
+    card with K3 (pair_matvec, pair_matvec_multi), K5's apply and K7 (the
+    batched coarse apply) replaced by their plain twins on the card's
+    tensors, so that the pair applies round as the CPU's plain path does
+    while the rest of the step stays on the kernels.  Prints the KNP counts
+    beside the CPU's and the K15 run's and the fields' gaps (run with -s);
+    asserts that no K3, K5 apply or K7 kernel ran, that every solve
+    converged (solve_system_active raises otherwise) with the CPU's EMI
+    counts, and the fields within 1e-5 of the CPU's: the spread of
+    converged solutions at rtol_knp 1e-7 (chip_smoke.BICG_GAP, the
+    BiCGStab window's allowed gap to the GMRES one)."""
+    from knpemidg_tpu_torch import solver as tsolver
+    from knpemidg_tpu_torch.solvers import twolevel
+
+    dev = cuda_or_skip()
+    Sc, sp = tp.emix_torch(pair=True, knp_solver="bicgstab")
+    sc = unpad_state(Sc, Sc.solve_system_active(0.2, 0.0, sp))
+    Sk, _ = tp.emix_torch(device=dev, pair=True, knp_solver="bicgstab")
+    Sk.solve_system_active(0.2, 0.0, sp)
+
+    def bj_plain(op, r):
+        op = op if isinstance(op, spmv.BjOperands) else spmv.block_jacobi_operands(op)
+        return spmv.block_jacobi_apply_plain(op.Pinv, r, op.halves)
+
+    coarse_add = coarse.coarse_add
+    monkeypatch.setattr(tsolver, "pair_matvec", pairs.pair_matvec_plain)
+    monkeypatch.setattr(tsolver, "pair_matvec_multi", pairs.pair_matvec_multi_plain)
+    monkeypatch.setattr(tsolver, "block_jacobi_apply", bj_plain)
+    monkeypatch.setattr(twolevel, "block_jacobi_apply", bj_plain)
+    monkeypatch.setattr(coarse, "coarse_add", lambda co, out, r, mask=None: (
+        coarse.coarse_apply_plain(co, out, r, mask) if co.batched
+        else coarse_add(co, out, r, mask)))
+    Sg, _ = tp.emix_torch(device=dev, pair=True, knp_solver="bicgstab")
+    _cuda.reset_launches()
+    sg = unpad_state(Sg, Sg.solve_system_active(0.2, 0.0, sp))
+    launches = dict(_cuda.LAUNCHES)
+    gaps = {key: rel(sg[key].cpu(), sc[key]) for key in ("phi", "c", "c_elim", "phi_M")}
+    print(f"pair BiCGStab KNP counts: card with plain K3, K5, K7 {Sg.stats.knp_niters}, "
+          f"card with the kernels {Sk.stats.knp_niters}, CPU {Sc.stats.knp_niters}; "
+          f"gaps to the CPU {gaps}")
+    assert not any(launches[k] for k in ("pair_matvec", "block_jacobi_apply_nd8",
+                                         "two_level_coarse_batched"))
+    assert Sg.stats.emi_niters == Sc.stats.emi_niters
+    assert max(gaps.values()) < 1e-5, gaps
 
 
 def test_emi_only_slice_on_cuda_matches_cpu():

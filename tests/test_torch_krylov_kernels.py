@@ -317,14 +317,14 @@ def test_gmres_work_sizes_the_workspace(n):
 def test_pcg_entries_match_the_formulas(mode):
     """alpha, the projected updates (none, the mean, the masked mean),
     rz / zz / beta / the flag and the direction in one entry
-    (krylov.py:101-111)."""
+    (krylov.py:101-111), on a live work (flag 1)."""
     rng = np.random.default_rng(24)
     shape = (4, 300)
     x, r, p, Ap, z = (rng.normal(size=shape) for _ in range(5))
     w = (rng.uniform(size=shape) > 0.3).astype(np.float64)
     wsum = w.sum() if mode == 2 else float(x.size)
     wk = ko.PcgWork(sc=t64([1.7, 2.0, 0.0, 0.0, 1e-30, wsum]),
-                    flag=torch.zeros(1, dtype=torch.int32), w=t64(w) if mode == 2 else None,
+                    flag=torch.ones(1, dtype=torch.int32), w=t64(w) if mode == 2 else None,
                     mode=mode)
     ko.pcg_dot(t64(p), t64(Ap), wk)
     alpha = 1.7 / np.vdot(p, Ap)
@@ -356,7 +356,9 @@ def test_pcg_dot2_direction_plain_matches_the_jax_body(shape, above):
     tol^2 on either side of the tolerance; p is updated in place, alpha,
     tol^2 and wsum are left as they were.  rz_new and beta are held to
     1e-14 of the sum of |r z| (the dots add in another order), p to 1e-14
-    of |z| + (|beta| + that bound on beta) |p| elementwise."""
+    of |z| + (|beta| + that bound on beta) |p| elementwise.  The work is
+    live (flag 1) with no iteration cap, so the flag is the tolerance test
+    alone and the count goes to 1."""
     rng = np.random.default_rng(30)
     r, z, p = (rng.normal(size=shape) for _ in range(3))
     rz = 1.3
@@ -367,9 +369,10 @@ def test_pcg_dot2_direction_plain_matches_the_jax_body(shape, above):
     zz = jkry._dot(zj, zj)
     tol2 = float(zz) * (0.5 if above else 2.0)
     sc = [rz, 0.0, 0.25, 0.0, tol2, float(r.size)]
-    wk = ko.pcg_work(t64(sc), torch.zeros(1, dtype=torch.int32), None, 1, r.size)
+    wk = ko.pcg_work(t64(sc), torch.ones(1, dtype=torch.int32), None, 1, r.size)
     pt = t64(p)
     assert ko.pcg_dot2_direction_plain(t64(r), t64(z), pt, wk) is wk
+    assert wk.iters.tolist() == [1]
     # the dots in another order: round-off against their sums of |terms|
     rz_abs = np.abs(r * z).sum()
     assert abs(float(wk.sc[ko.RZ]) - float(rz_new)) < 1e-14 * rz_abs
@@ -530,12 +533,16 @@ def test_pcg_dots_ordered_plain_is_exact_on_integers():
 
 @pytest.mark.parametrize("n", [1, 2048, 2049, 497664])
 def test_pcg_work_sizes_the_workspace(n):
-    """Two block sums per RED_CHUNK-entry chunk, in sc's dtype, and a zero
-    int32 ticket."""
+    """Two block sums per RED_CHUNK-entry chunk, in sc's dtype, a zero
+    int32 ticket and a zero int32 iteration count; no iteration cap unless
+    one is given."""
     sc = torch.zeros(6, dtype=torch.float32)
     wk = ko.pcg_work(sc, torch.zeros(1, dtype=torch.int32), None, 1, n)
     assert wk.partial.shape == (2 * -(-n // 2048),) and wk.partial.dtype == torch.float32
     assert wk.ticket.dtype == torch.int32 and wk.ticket.tolist() == [0]
+    assert wk.iters.dtype == torch.int32 and wk.iters.tolist() == [0]
+    assert wk.max_it == ko.MAX_ITERS
+    assert ko.pcg_work(sc, torch.zeros(1, dtype=torch.int32), None, 1, n, 7).max_it == 7
     assert wk.sc is sc and wk.mode == 1 and wk.w is None
 
 

@@ -20,11 +20,26 @@ import knpemidg_tpu_torch as kt
 EMI_KW = dict(direct_emi=False, direct_knp=False, rtol_emi=1e-5, atol_emi=1e-40)
 
 
-def test_emi_only_three_steps_match_jax():
+@pytest.fixture(scope="module")
+def jax_emi():
+    """The JAX package's EMI-only solver of tests/test_solver_emi.py, built
+    once for this file's protocols (its jitted steps compile once); each
+    protocol starts it from a new stats record (_fresh)."""
+    return build_emi_solver()
+
+
+def _fresh(S):
+    """S with its stats record reset, as a new solver's: a protocol's
+    counts and stats files are its own."""
+    S.stats.__init__()
+    return S
+
+
+def test_emi_only_three_steps_match_jax(jax_emi):
     """Three steps of the EMI-only solver: the EMI counts equal the JAX
     package's, phi_M and phi to rel 1e-10, c unchanged bit for bit, the
     KNP counts zero."""
-    Sj, St = build_emi_solver(), chip_smoke.emi_2d_solver(device="cpu")
+    Sj, St = _fresh(jax_emi), chip_smoke.emi_2d_solver(device="cpu")
     sj = Sj.solve_system_active(3 * Sj.params.dt, 0.0, JSolverParams(**EMI_KW))
     st = St.solve_system_active(3 * St.params.dt, 0.0, kt.SolverParams(**EMI_KW))
     assert St.stats.emi_niters == Sj.stats.emi_niters
@@ -85,11 +100,11 @@ def _check_stats_match(Sj, St, dj, dt_, phases):
         assert all(v > 0.0 for v in rec.values())
 
 
-def test_emi_only_stats_files_match_jax(tmp_path):
+def test_emi_only_stats_files_match_jax(tmp_path, jax_emi):
     """save_solver_stats on the EMI-only solver: the phased step times the
     EMI phases only; the stats files' names, header lines and line counts
     equal the JAX package's, the iteration files line for line."""
-    Sj, St = build_emi_solver(), chip_smoke.emi_2d_solver(device="cpu")
+    Sj, St = _fresh(jax_emi), chip_smoke.emi_2d_solver(device="cpu")
     dj, dt_ = str(tmp_path / "jax") + "/", str(tmp_path / "torch") + "/"
     Sj.solve_system_active(3 * Sj.params.dt, 0.0, JSolverParams(**EMI_KW), filename=dj,
                            save_solver_stats=True)

@@ -2,18 +2,24 @@
 """Time the redesigned kernel wrappers as the solver calls them, in float32
 and float64, beside the library calls chip_smoke.py holds them to:
 
-  k8   K8's reduction entries pcg_dot and pcg_dot2_direction (a tree
-       without it: pcg_dot2 alone and pcg_dot2 + pcg_direction), on one work
+  k8   K8's entries pcg_dot, pcg_update (the cell layout's mean projection,
+       the pair layout's masked one) and pcg_dot2_direction (a tree without
+       it: pcg_dot2 alone and pcg_dot2 + pcg_direction), on one live work
        built once per solve, at the EMI vector shapes (cell (4, 124416),
        pair (8, 63558)), beside torch.dot, torch.mv on the stacked pair, and
-       torch.mv + torch.addcmul into a preallocated buffer;
+       torch.mv + torch.addcmul into a preallocated buffer; pcg_update's
+       bound (x, r, p, Ap and the mask read once, x and r written once) is
+       printed beside it;
   k9   K9's work of one Arnoldi step after the matvec, as the solver makes
        it, on the KNP batch (two ions) of the cell (4 x 124,416 entries a
        system) and pair (8 x 63,558) layouts at 1, 4 and 16 populated basis
        rows, on one work built once per solve: this tree's one
        gmres_arnoldi call; a tree without it the six calls its solver
        makes (gmres_cgs_dot, gmres_cgs_update twice each, gmres_next,
-       gmres_givens);
+       gmres_givens); and the dot gmres_cgs_dot at 1 populated row (the
+       solve's tolerance, as the solver calls it on bz[None]) and at 4,
+       beside one torch.bmm of the populated rows into a preallocated
+       output, with its bound (the rows and w read once);
   k6   K6 (m = 1, with As and the compartment, moment and Ritz groups)
        and K7 (m = 2, no As, no groups) at the coarse sizes of the cell
        (1,944 chunks of 64 cells) and pair (1,987 chunks of 32 pairs)
@@ -230,12 +236,19 @@ def time_dots(ko, dev, gen):
             wsum = torch.tensor(float(n), dtype=dtype, device=dev)
             zero = torch.zeros_like(wsum)
             sc = torch.stack([(r * z).sum(), (z * z).sum(), zero, zero, zero, wsum])
-            flag = torch.zeros(1, dtype=torch.int32, device=dev)
-            wk = (ko.pcg_work(sc, flag, None, 1, n) if factory
-                  else ko.PcgWork(sc=sc, flag=flag, w=None, mode=1))
+            # a live work: this tree's entries write nothing once the flag is 0
+            flag = torch.ones(1, dtype=torch.int32, device=dev)
+            mode = 2 if layout == "pair" else 1
+            mask = (torch.rand(shape, generator=gen, device=dev) > 0.1).to(dtype)
+            if mode == 2:
+                sc[-1] = mask.sum()
+            wk = (ko.pcg_work(sc, flag, mask if mode == 2 else None, mode, n) if factory
+                  else ko.PcgWork(sc=sc, flag=flag, w=mask if mode == 2 else None, mode=mode))
+            x, res = torch.randn_like(p), torch.randn_like(p)
             stack = torch.stack([r.view(-1), z.view(-1)])
             beta, buf = sc[0] / sc[1], torch.empty_like(p)
-            calls = {"pcg_dot": lambda: ko.pcg_dot(p, Ap, wk)}
+            calls = {"pcg_dot": lambda: ko.pcg_dot(p, Ap, wk),
+                     "pcg_update": lambda: ko.pcg_update(x, res, p, Ap, wk)}
             if fused:
                 calls["pcg_dot2_direction"] = lambda: ko.pcg_dot2_direction(r, z, p, wk)
             else:
@@ -249,6 +262,9 @@ def time_dots(ko, dev, gen):
                               torch.addcmul(z, beta, p, out=buf))})
             for name, fn in calls.items():
                 report("k8time", f"{layout} {str(dtype):14s} {name}", fn)
+            vec = n * p.element_size()
+            print(f"k8time  {layout} {str(dtype):14s} pcg_update bound "
+                  f"{bound_us((6 + (mode == 2)) * vec):.2f} us (bytes)")
 
 
 def time_arnoldi(ko, dev, gen):
@@ -279,6 +295,29 @@ def time_arnoldi(ko, dev, gen):
                         ko.gmres_next(w, wk, j)
                         ko.gmres_givens(wk, j)
                 report("k9time", f"{layout} {str(dtype):14s} {rows:2d} rows {name}", fn)
+            time_cgs_dot(ko, wk, w, layout, dtype)
+
+
+def bound_us(nbytes):
+    """Microseconds to move ``nbytes`` at the H100's 3.35 TB/s."""
+    return 1e6 * nbytes / 3.35e12
+
+
+def time_cgs_dot(ko, wk, w, layout, dtype):
+    """K9's tolerance dot as the solver calls it (1 row: bz[None], out the
+    work's h1) and at 4 rows of the work's basis, beside one torch.bmm of
+    the populated rows in the reference's (mb, rows, n) layout."""
+    mb, n = w.shape
+    for rows in (1, 4):
+        V = w[None] if rows == 1 else wk.V
+        Vr = V[:rows].transpose(0, 1).contiguous()
+        out = torch.empty((mb, rows, 1), dtype=dtype, device=w.device)
+        report("k9time", f"{layout} {str(dtype):14s} {rows:2d} rows gmres_cgs_dot",
+               lambda: ko.gmres_cgs_dot(V, w, rows, wk.h1, wk))
+        report("k9time", f"{layout} {str(dtype):14s} {rows:2d} rows torch.bmm",
+               lambda: torch.bmm(Vr, w[..., None], out=out))
+        print(f"k9time  {layout} {str(dtype):14s} {rows:2d} rows gmres_cgs_dot bound "
+              f"{bound_us((rows + 1) * mb * n * w.element_size()):.2f} us (bytes)")
 
 
 def coarse_data(layout, batched, dtype, dev, gen):
