@@ -1765,12 +1765,18 @@ def assembly_phase(S, state, results, layout):
         gt = lambda *keys: [g[k] for k in keys]
 
         # --- K10 -----------------------------------------------------------
-        compare(name("emi_cell"), dtype,
-                lambda: list(asm.emi_cell(g, zall, Dall, call, p.F, p.psi)),
+        # the cell part as the step calls it: the cell tables built once,
+        # into the step's buffers (z, phibar and the constants by value)
+        ctab = asm.cell_tables(g, zall)
+        cbuf = asm.emi_emit_buffers(g, dtype, zall.device, pair)
+        emi_cell = lambda: asm.emi_cell(g, zall, Dall, call, p.F, p.psi, out=cbuf, tables=ctab)
+        compare(name("emi_cell"), dtype, lambda: [t.clone() for t in emi_cell()],
                 lambda: list(asm.emi_cell_plain(g, zall, Dall, call, p.F, p.psi)),
                 floored(lambda ref: list(asm.emi_cell_plain(ga, zall.abs(), Dall, call.abs(), p.F,
                                                     p.psi, neg=1.0))),
-                results, inputs=[zall, Dall, call] + gt("G", "vol", "phibar"))
+                results, inputs=[Dall, call] + gt("G", "vol"),
+                timed=(emi_cell, lambda: asm.emi_cell_plain(g, zall, Dall, call, p.F, p.psi)),
+                graph=True)
         kappa, kbar, flux, b_cell = asm.emi_cell_plain(g, zall, Dall, call, p.F, p.psi)
         compare(name("emi_facet"), dtype,
                 lambda: list(asm.emi_facet(g, masks, kappa, flux, pM, mem, p.F, p.C_phi,
@@ -1815,10 +1821,13 @@ def assembly_phase(S, state, results, layout):
                     inputs=[zall, Dall, call],
                     library_fn=lambda: torch.einsum("k,kc,kic->ic", zall * zall, Dall, call))
         asum = asm.alpha_sum_plain(zall, Dall, call)
-        compare(name("knp_cell"), dtype, lambda: list(asm.knp_cell(g, phi, c, p.dt)),
+        kbuf = asm.knp_emit_buffers(g, mem, m, dtype, c.device, pair)
+        knp_cell = lambda: asm.knp_cell(g, phi, c, p.dt, out=kbuf, tables=ctab)
+        compare(name("knp_cell"), dtype, lambda: [t.clone() for t in knp_cell()],
                 lambda: list(asm.knp_cell_plain(g, phi, c, p.dt)),
                 floored(lambda ref: list(asm.knp_cell_plain(ga, phi.abs(), c.abs(), p.dt))),
-                results, inputs=[phi, c] + gt("G", "vol", "M0"))
+                results, inputs=[phi, c] + gt("G", "vol"),
+                timed=(knp_cell, lambda: asm.knp_cell_plain(g, phi, c, p.dt)), graph=True)
         gphi, drift, b_cellK = asm.knp_cell_plain(g, phi, c, p.dt)
         un = torch.einsum("df,df->f", gphi[:, g["f_cp"]], g["f_n"])
         if not (bool((un > 0).any()) and bool((un < 0).any())):

@@ -40,7 +40,10 @@ perturbed too) on both layouts, in both dtypes (a solver of each), under
 both schemes and with first_step True and False -- every tag's new states
 and parameters, phi_M and I_ch; K10's emit (k10_emit: the operator, rhs
 and P_diag on cells, A_cell, rhs and reg on pairs) on the step's facet
-blocks at the perturbed state, and K9's cycle start (k9_start) on a
+blocks at the perturbed state; K10's emi_cell (k10_cell: kappa, kbar,
+flux, b_cell) and K11's knp_cell (k11_cell: gphi, drift, b_cell) at the
+perturbed state and a seeded potential, each layout, both dtypes; and
+K9's cycle start (k9_start) on a
 seeded residual of each layout's KNP batch, both dtypes.  The 2D
 instantiations (nd3 lines, a tree with the MMS path only) at the MMS
 path's largest mesh (mms_square(7), the space problem's initial state, as
@@ -242,6 +245,7 @@ def main():
             k12_digests(S, asm, pairs, c, state, pM, Ich, Itot)
         k11_digests(S, asm, layout, c, call, phi, st)
         k10_digests(S, asm, layout, call, pM)
+        cell_digests(S, asm, layout, c, call, phi)
         k9_start_digests(S, layout)
         # K6 on the pc build's EMI data (the Ritz harvest runs K6 itself)
         sp = emix.solver_params(error_if_not_converged=False)
@@ -529,6 +533,38 @@ def k10_digests(S, asm, layout, call, pM):
         torch.cuda.synchronize()
         print(f"digest  k10_emit     {layout} {str(dtype):14s} {digest(got)} "
               f"(inputs {digest(list(args[1:-1]))})")
+
+
+def cell_digests(S, asm, layout, c, call, phi):
+    """K10's emi_cell (k10_cell) and K11's knp_cell (k11_cell) at the
+    perturbed state and the seeded potential, both dtypes; a tree with the
+    cell tables calls them as its step does (the tables built once, into
+    the step's buffers, twice: the second call's outputs digested), a tree
+    without them through its public calls."""
+    p, pair = S.params, layout == "pair"
+    routed = "tables" in inspect.signature(asm.emi_cell).parameters
+    print(f"cell    tables built once and the step's buffers in this tree: {routed}")
+    for dtype in (torch.float32, torch.float64):
+        cast = lambda d: {k: (v.to(dtype) if isinstance(v, torch.Tensor)
+                              and v.is_floating_point() else v) for k, v in d.items()}
+        g = cast(S.g)
+        z, D = S.z.to(dtype), S.D.to(dtype)
+        cd, calld, phid = c.to(dtype).contiguous(), call.to(dtype), phi.to(dtype)
+        if routed:
+            tab = asm.cell_tables(g, z)
+            ebuf = asm.emi_emit_buffers(g, dtype, "cuda", pair)
+            kbuf = asm.knp_emit_buffers(g, cast(S.mem_dev), S.N_ions, dtype, "cuda", pair)
+            for _ in range(2):
+                emi = asm.emi_cell(g, z, D, calld, p.F, p.psi, out=ebuf, tables=tab)
+                knp = asm.knp_cell(g, phid, cd, p.dt, out=kbuf, tables=tab)
+        else:
+            emi = asm.emi_cell(g, z, D, calld, p.F, p.psi)
+            knp = asm.knp_cell(g, phid, cd, p.dt)
+        torch.cuda.synchronize()
+        print(f"digest  k10_cell     {layout} {str(dtype):14s} {digest(emi)} "
+              f"(inputs {digest([D, calld])})")
+        print(f"digest  k11_cell     {layout} {str(dtype):14s} {digest(knp)} "
+              f"(inputs {digest([phid, cd])})")
 
 
 def k9_start_digests(S, layout):

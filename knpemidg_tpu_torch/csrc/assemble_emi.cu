@@ -38,8 +38,8 @@
 // once a launch, not once per block entry.  A thread per (row, facet)
 // rather than per (entry, facet) keeps nd times fewer threads a facet,
 // so more facets are in flight on an SM at the registers a thread needs.
-// The cell and emit kernels run one thread per (block entry, cell) with
-// cells fastest; a thread per (row, cell) or per cell emits slower (each
+// The emit kernel runs one thread per (block entry, cell) with cells
+// fastest; a thread per (row, cell) or per cell emits slower (each
 // thread gathers from nd rows of the facet blocks at once, likely more
 // than L2 keeps for the other cells of their sectors; PERF.md §6).
 // Masked-out and dummy facets are written with selects, never products,
@@ -55,65 +55,158 @@
 #define KNP_MAXNQ 12      // facet quadrature points: every triangle rule of fem/quadrature
 #define EMI_TILE 32       // facets per emi_facet block, one a lane
 
-template <typename T>
-__global__ void emi_cell_kernel(const T* __restrict__ z, const T* __restrict__ D,
-                                const T* __restrict__ c, const T* __restrict__ G,
-                                const T* __restrict__ vol, const T* __restrict__ phibar,
-                                T* __restrict__ kappa, T* __restrict__ kbar,
-                                T* __restrict__ flux, T* __restrict__ bcell, int n_ions,
-                                int nd, int d, int nc, T Fpsi, T negF) {
-  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= nc) return;
-  const size_t n = (size_t)nc;
-  T g[KNP_MAXND][KNP_MAXD];
+// emi_cell: two cells a thread (CPT = 2: 16-byte double or 8-byte float
+// vector accesses) where every row can be read in pairs, else one, the
+// shapes (ND basis functions, D = ND - 1 directions, NI ions) known at
+// compile time.  Two cells a thread measured 1-3% slower for emi_cell on
+// the cell layout and 3-17% faster on the pair layout and for ion_cell
+// (time_wrappers.py --only k10c,k11c; PERF.md §6).  Each cell's 28 values (at nd = 4, three ions: G, every
+// ion's c and D, vol) are loaded before its first arithmetic, so they are
+// in flight together; z, z * z, phibar, F psi and -F come by value.  The
+// kernel reads each value once and writes each output once: it is bound by
+// device-memory bytes, and at 124,416 cells a single wave, so what sets its
+// pace is how many of a cell's loads are in flight at once.  The sums run
+// in the order of the earlier runtime-shaped kernel (from zero, ions in
+// order, then the basis functions) and without contraction (-fmad=false),
+// so every output keeps its bits: the padded terms that kernel added were
+// +0, which leaves a sum that starts from +0 unchanged.
+template <typename T, int NI>
+struct EmiCellArgs {
+  const T *G, *vol, *D, *c;
+  T *kappa, *kbar, *flux, *bcell;
+  T z[NI], zz[NI], phibar[KNP_MAXND];
+  T Fpsi, negF;
+  int nc;
+};
+
+template <typename T, int ND, int NI, int CPT>
+__global__ void __launch_bounds__(KNP_THREADS) emi_cell_kernel(const EmiCellArgs<T, NI> p) {
+  constexpr int D = ND - 1;
+  const int cell = (blockIdx.x * blockDim.x + threadIdx.x) * CPT;
+  if (cell >= p.nc) return;
+  const size_t n = (size_t)p.nc;
+  T g[ND][D][CPT], ck[NI][ND][CPT], Dk[NI][CPT], vol[CPT];
 #pragma unroll
-  for (int a = 0; a < KNP_MAXND; ++a)
+  for (int a = 0; a < ND; ++a)
 #pragma unroll
-    for (int e = 0; e < KNP_MAXD; ++e)
-      g[a][e] = (a < nd && e < d) ? G[((size_t)a * d + e) * n + cell] : T(0);
-  T kap[KNP_MAXND], fl[KNP_MAXD];
+    for (int e = 0; e < D; ++e) knp_ld<T, CPT>(p.G + ((size_t)a * D + e) * n + cell, g[a][e]);
 #pragma unroll
-  for (int a = 0; a < KNP_MAXND; ++a) kap[a] = T(0);
+  for (int k = 0; k < NI; ++k) {
+    knp_ld<T, CPT>(p.D + (size_t)k * n + cell, Dk[k]);
 #pragma unroll
-  for (int e = 0; e < KNP_MAXD; ++e) fl[e] = T(0);
-  for (int k = 0; k < n_ions; ++k) {
-    const T zk = z[k], Dk = D[(size_t)k * n + cell];
-    T ck[KNP_MAXND];
-#pragma unroll
-    for (int a = 0; a < KNP_MAXND; ++a)
-      ck[a] = a < nd ? c[((size_t)k * nd + a) * n + cell] : T(0);
-    const T zzD = (zk * zk) * Dk, zD = zk * Dk;
-#pragma unroll
-    for (int a = 0; a < KNP_MAXND; ++a) kap[a] += zzD * ck[a];
-#pragma unroll
-    for (int e = 0; e < KNP_MAXD; ++e) {
-      T gk = T(0);
-#pragma unroll
-      for (int a = 0; a < KNP_MAXND; ++a) gk += g[a][e] * ck[a];
-      fl[e] += zD * gk;
-    }
+    for (int a = 0; a < ND; ++a) knp_ld<T, CPT>(p.c + ((size_t)k * ND + a) * n + cell, ck[k][a]);
   }
-  T kb = T(0);
+  knp_ld<T, CPT>(p.vol + cell, vol);
+  T kap_o[ND][CPT], kb_o[CPT], fl_o[D][CPT], bc_o[ND][CPT];
 #pragma unroll
-  for (int a = 0; a < KNP_MAXND; ++a)
-    if (a < nd) {
-      const T kv = Fpsi * kap[a];
-      kappa[(size_t)a * n + cell] = kv;
-      kb += phibar[a] * kv;
+  for (int q = 0; q < CPT; ++q) {
+    T kap[ND], fl[D];
+#pragma unroll
+    for (int a = 0; a < ND; ++a) kap[a] = T(0);
+#pragma unroll
+    for (int e = 0; e < D; ++e) fl[e] = T(0);
+#pragma unroll
+    for (int k = 0; k < NI; ++k) {
+      const T zzD = p.zz[k] * Dk[k][q], zD = p.z[k] * Dk[k][q];
+#pragma unroll
+      for (int a = 0; a < ND; ++a) kap[a] += zzD * ck[k][a][q];
+#pragma unroll
+      for (int e = 0; e < D; ++e) {
+        T gk = T(0);
+#pragma unroll
+        for (int a = 0; a < ND; ++a) gk += g[a][e][q] * ck[k][a][q];
+        fl[e] += zD * gk;
+      }
     }
-  kbar[cell] = kb;
+    T kb = T(0);
 #pragma unroll
-  for (int e = 0; e < KNP_MAXD; ++e)
-    if (e < d) flux[(size_t)e * n + cell] = fl[e];
-  const T s = negF * vol[cell];
+    for (int a = 0; a < ND; ++a) {
+      const T kv = p.Fpsi * kap[a];
+      kap_o[a][q] = kv;
+      kb += p.phibar[a] * kv;
+    }
+    kb_o[q] = kb;
 #pragma unroll
-  for (int a = 0; a < KNP_MAXND; ++a)
-    if (a < nd) {
+    for (int e = 0; e < D; ++e) fl_o[e][q] = fl[e];
+    const T s = p.negF * vol[q];
+#pragma unroll
+    for (int a = 0; a < ND; ++a) {
       T acc = T(0);
 #pragma unroll
-      for (int e = 0; e < KNP_MAXD; ++e) acc += fl[e] * g[a][e];
-      bcell[(size_t)a * n + cell] = s * acc;
+      for (int e = 0; e < D; ++e) acc += fl[e] * g[a][e][q];
+      bc_o[a][q] = s * acc;
     }
+  }
+#pragma unroll
+  for (int a = 0; a < ND; ++a) knp_st<T, CPT>(p.kappa + (size_t)a * n + cell, kap_o[a]);
+  knp_st<T, CPT>(p.kbar + cell, kb_o);
+#pragma unroll
+  for (int e = 0; e < D; ++e) knp_st<T, CPT>(p.flux + (size_t)e * n + cell, fl_o[e]);
+#pragma unroll
+  for (int a = 0; a < ND; ++a) knp_st<T, CPT>(p.bcell + (size_t)a * n + cell, bc_o[a]);
+}
+
+template <typename T, int ND, int NI>
+static int emi_cell_run(const KnpCellTables& t, const T* D, const T* c, T* kappa, T* kbar,
+                        T* flux, T* bcell, double Fpsi, double negF, bool two,
+                        cudaStream_t st) {
+  EmiCellArgs<T, NI> p;
+  p.G = static_cast<const T*>(t.G);
+  p.vol = static_cast<const T*>(t.vol);
+  p.D = D;
+  p.c = c;
+  p.kappa = kappa;
+  p.kbar = kbar;
+  p.flux = flux;
+  p.bcell = bcell;
+  for (int k = 0; k < NI; ++k) {
+    p.z[k] = (T)t.z[k];
+    p.zz[k] = (T)t.zz[k];
+  }
+  for (int a = 0; a < KNP_MAXND; ++a) p.phibar[a] = (T)t.phibar[a];
+  p.Fpsi = (T)Fpsi;
+  p.negF = (T)negF;
+  p.nc = t.nc;
+  if (two)
+    emi_cell_kernel<T, ND, NI, 2><<<knp_blocks((t.nc + 1) / 2), KNP_THREADS, 0, st>>>(p);
+  else
+    emi_cell_kernel<T, ND, NI, 1><<<knp_blocks(t.nc), KNP_THREADS, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// the ND and ion-count instantiations: nd = d + 1 in 2..4 (degree 1 on
+// simplices), 1..KNP_CELL_MAXI ions; two cells a thread where every row
+// can be read in pairs (nc even, the pointers aligned to two elements)
+template <typename T>
+static int emi_cell_launch(const KnpCellTables* t, const T* D, const T* c, T* kappa,
+                           T* kbar, T* flux, T* bcell, double Fpsi, double negF,
+                           void* stream) {
+  if (t->d != t->nd - 1 || t->nc < 0) return (int)cudaErrorInvalidValue;
+  if (t->nc == 0) return 0;
+  const size_t v = 2 * sizeof(T);
+  const bool two = t->nc % 2 == 0 && knp_aligned(t->G, v) &&
+                   knp_aligned(t->vol, v) && knp_aligned(D, v) && knp_aligned(c, v) &&
+                   knp_aligned(kappa, v) && knp_aligned(kbar, v) && knp_aligned(flux, v) &&
+                   knp_aligned(bcell, v);
+  cudaStream_t st = (cudaStream_t)stream;
+#define EMI_CELL_NI(ND, NI)                                                                 \
+  case NI:                                                                                  \
+    return emi_cell_run<T, ND, NI>(*t, D, c, kappa, kbar, flux, bcell, Fpsi, negF, two, st);
+#define EMI_CELL_ND(ND)                                                                     \
+  case ND:                                                                                  \
+    switch (t->n_ions) {                                                                    \
+      EMI_CELL_NI(ND, 1) EMI_CELL_NI(ND, 2) EMI_CELL_NI(ND, 3)                              \
+      EMI_CELL_NI(ND, 4) EMI_CELL_NI(ND, 5) EMI_CELL_NI(ND, 6)                              \
+    }                                                                                       \
+    return (int)cudaErrorInvalidValue;
+  switch (t->nd) {
+    EMI_CELL_ND(2)
+    EMI_CELL_ND(3)
+    EMI_CELL_ND(4)
+  }
+#undef EMI_CELL_ND
+#undef EMI_CELL_NI
+  return (int)cudaErrorInvalidValue;
 }
 
 // One block per tile of EMI_TILE consecutive facets, one warp per row i of
@@ -397,14 +490,11 @@ static int emi_emit_launch(const T* kbar, const T* vol, const T* GG, const T* M0
 }
 
 #define KNP_EMI_ENTRY(SFX, T)                                                            \
-  extern "C" int knp_emi_cell##SFX(const T* z, const T* D, const T* c, const T* G,       \
-                                   const T* vol, const T* phibar, T* kappa, T* kbar,     \
-                                   T* flux, T* bcell, int n_ions, int nd, int d, int nc, \
-                                   double Fpsi, double negF, void* stream) {             \
-    emi_cell_kernel<T><<<knp_blocks(nc), KNP_THREADS, 0, (cudaStream_t)stream>>>(        \
-        z, D, c, G, vol, phibar, kappa, kbar, flux, bcell, n_ions, nd, d, nc, (T)Fpsi,   \
-        (T)negF);                                                                        \
-    return (int)cudaGetLastError();                                                      \
+  extern "C" int knp_emi_cell##SFX(const void* tables, const T* D, const T* c, T* kappa,   \
+                                   T* kbar, T* flux, T* bcell, double Fpsi, double negF, \
+                                   void* stream) {                                       \
+    return emi_cell_launch<T>(static_cast<const KnpCellTables*>(tables), D, c, kappa,    \
+                              kbar, flux, bcell, Fpsi, negF, stream);                    \
   }                                                                                      \
   extern "C" int knp_emi_facet##SFX(                                                     \
       const T* kappa, const T* flux, const T* gr, const int* inv_mem, const int* f_cp,   \

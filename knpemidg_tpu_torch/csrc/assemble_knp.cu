@@ -52,57 +52,130 @@ __global__ void alpha_sum_kernel(const T* __restrict__ z, const T* __restrict__ 
   out[idx] = acc;
 }
 
+// ion_cell: two cells a thread where every row can be read in pairs, else
+// one, ND, D = ND - 1 and the solved ions NM known at compile time, as
+// csrc/assemble_emi.cu's emi_cell: each cell's values (G, phi, every
+// ion's c_n, vol) are loaded before its first arithmetic, M0 and dt come
+// by value, and the sums run in the order of the earlier runtime-shaped
+// kernel without contraction, so every output keeps its bits.
 template <typename T>
-__global__ void ion_cell_kernel(const T* __restrict__ phi, const T* __restrict__ c_n,
-                                const T* __restrict__ G, const T* __restrict__ vol,
-                                const T* __restrict__ M0, T* __restrict__ gphi,
-                                T* __restrict__ drift, T* __restrict__ bcell, int m, int nd,
-                                int d, int nc, T dt) {
-  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= nc) return;
-  const size_t n = (size_t)nc;
-  T g[KNP_MAXND][KNP_MAXD], gp[KNP_MAXD];
+struct IonCellArgs {
+  const T *G, *vol, *phi, *c_n;
+  T *gphi, *drift, *bcell;
+  T M0[KNP_MAXND * KNP_MAXND];   // (ND, ND) row by row
+  T dt;
+  int nc;
+};
+
+template <typename T, int ND, int NM, int CPT>
+__global__ void __launch_bounds__(KNP_THREADS) ion_cell_kernel(const IonCellArgs<T> p) {
+  constexpr int D = ND - 1;
+  const int cell = (blockIdx.x * blockDim.x + threadIdx.x) * CPT;
+  if (cell >= p.nc) return;
+  const size_t n = (size_t)p.nc;
+  T g[ND][D][CPT], ph[ND][CPT], ck[NM][ND][CPT], vol[CPT];
 #pragma unroll
-  for (int a = 0; a < KNP_MAXND; ++a)
+  for (int a = 0; a < ND; ++a) {
 #pragma unroll
-    for (int e = 0; e < KNP_MAXD; ++e)
-      g[a][e] = (a < nd && e < d) ? G[((size_t)a * d + e) * n + cell] : T(0);
+    for (int e = 0; e < D; ++e) knp_ld<T, CPT>(p.G + ((size_t)a * D + e) * n + cell, g[a][e]);
+    knp_ld<T, CPT>(p.phi + (size_t)a * n + cell, ph[a]);
+  }
 #pragma unroll
-  for (int e = 0; e < KNP_MAXD; ++e) gp[e] = T(0);
+  for (int k = 0; k < NM; ++k)
 #pragma unroll
-  for (int a = 0; a < KNP_MAXND; ++a)
-    if (a < nd) {
-      const T pa = phi[(size_t)a * n + cell];
+    for (int a = 0; a < ND; ++a) knp_ld<T, CPT>(p.c_n + ((size_t)k * ND + a) * n + cell, ck[k][a]);
+  knp_ld<T, CPT>(p.vol + cell, vol);
+  T gp_o[D][CPT], dr_o[ND][CPT], bc_o[NM][ND][CPT];
 #pragma unroll
-      for (int e = 0; e < KNP_MAXD; ++e) gp[e] += g[a][e] * pa;
-    }
+  for (int q = 0; q < CPT; ++q) {
+    T gp[D];
 #pragma unroll
-  for (int e = 0; e < KNP_MAXD; ++e)
-    if (e < d) gphi[(size_t)e * n + cell] = gp[e];
+    for (int e = 0; e < D; ++e) gp[e] = T(0);
 #pragma unroll
-  for (int a = 0; a < KNP_MAXND; ++a)
-    if (a < nd) {
+    for (int a = 0; a < ND; ++a)
+#pragma unroll
+      for (int e = 0; e < D; ++e) gp[e] += g[a][e][q] * ph[a][q];
+#pragma unroll
+    for (int e = 0; e < D; ++e) gp_o[e][q] = gp[e];
+#pragma unroll
+    for (int a = 0; a < ND; ++a) {
       T acc = T(0);
 #pragma unroll
-      for (int e = 0; e < KNP_MAXD; ++e) acc += g[a][e] * gp[e];
-      drift[(size_t)a * n + cell] = acc;
+      for (int e = 0; e < D; ++e) acc += g[a][e][q] * gp[e];
+      dr_o[a][q] = acc;
     }
-  const T vdt = vol[cell] / dt;
-  for (int k = 0; k < m; ++k) {
-    T ck[KNP_MAXND];
+    const T vdt = vol[q] / p.dt;
 #pragma unroll
-    for (int a = 0; a < KNP_MAXND; ++a)
-      ck[a] = a < nd ? c_n[((size_t)k * nd + a) * n + cell] : T(0);
+    for (int k = 0; k < NM; ++k)
 #pragma unroll
-    for (int a = 0; a < KNP_MAXND; ++a)
-      if (a < nd) {
+      for (int a = 0; a < ND; ++a) {
         T acc = T(0);
 #pragma unroll
-        for (int b = 0; b < KNP_MAXND; ++b)
-          if (b < nd) acc += M0[a * nd + b] * ck[b];
-        bcell[((size_t)k * nd + a) * n + cell] = vdt * acc;
+        for (int b = 0; b < ND; ++b) acc += p.M0[a * ND + b] * ck[k][b][q];
+        bc_o[k][a][q] = vdt * acc;
       }
   }
+#pragma unroll
+  for (int e = 0; e < D; ++e) knp_st<T, CPT>(p.gphi + (size_t)e * n + cell, gp_o[e]);
+#pragma unroll
+  for (int a = 0; a < ND; ++a) knp_st<T, CPT>(p.drift + (size_t)a * n + cell, dr_o[a]);
+#pragma unroll
+  for (int k = 0; k < NM; ++k)
+#pragma unroll
+    for (int a = 0; a < ND; ++a)
+      knp_st<T, CPT>(p.bcell + ((size_t)k * ND + a) * n + cell, bc_o[k][a]);
+}
+
+template <typename T, int ND, int NM>
+static int ion_cell_run(const IonCellArgs<T>& p, bool two, cudaStream_t st) {
+  if (two)
+    ion_cell_kernel<T, ND, NM, 2><<<knp_blocks((p.nc + 1) / 2), KNP_THREADS, 0, st>>>(p);
+  else
+    ion_cell_kernel<T, ND, NM, 1><<<knp_blocks(p.nc), KNP_THREADS, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// the ND and ion-count instantiations: nd = d + 1 in 2..4, 1..KNP_CELL_MAXI
+// solved ions; two cells a thread where every row can be read in pairs
+template <typename T>
+static int ion_cell_launch(const KnpCellTables* t, const T* phi, const T* c_n, T* gphi,
+                           T* drift, T* bcell, int m, double dt, void* stream) {
+  if (t->d != t->nd - 1 || t->nc < 0) return (int)cudaErrorInvalidValue;
+  if (t->nc == 0) return 0;
+  IonCellArgs<T> p;
+  p.G = static_cast<const T*>(t->G);
+  p.vol = static_cast<const T*>(t->vol);
+  p.phi = phi;
+  p.c_n = c_n;
+  p.gphi = gphi;
+  p.drift = drift;
+  p.bcell = bcell;
+  for (int i = 0; i < KNP_MAXND * KNP_MAXND; ++i) p.M0[i] = (T)t->M0[i];
+  p.dt = (T)dt;
+  p.nc = t->nc;
+  const size_t v = 2 * sizeof(T);
+  const bool two = t->nc % 2 == 0 && knp_aligned(t->G, v) &&
+                   knp_aligned(t->vol, v) && knp_aligned(phi, v) && knp_aligned(c_n, v) &&
+                   knp_aligned(gphi, v) && knp_aligned(drift, v) && knp_aligned(bcell, v);
+  cudaStream_t st = (cudaStream_t)stream;
+#define ION_CELL_NM(ND, NM) \
+  case NM:                  \
+    return ion_cell_run<T, ND, NM>(p, two, st);
+#define ION_CELL_ND(ND)                                                                     \
+  case ND:                                                                                  \
+    switch (m) {                                                                            \
+      ION_CELL_NM(ND, 1) ION_CELL_NM(ND, 2) ION_CELL_NM(ND, 3)                              \
+      ION_CELL_NM(ND, 4) ION_CELL_NM(ND, 5) ION_CELL_NM(ND, 6)                              \
+    }                                                                                       \
+    return (int)cudaErrorInvalidValue;
+  switch (t->nd) {
+    ION_CELL_ND(2)
+    ION_CELL_ND(3)
+    ION_CELL_ND(4)
+  }
+#undef ION_CELL_ND
+#undef ION_CELL_NM
+  return (int)cudaErrorInvalidValue;
 }
 
 // ion_facet, two kernels a call.  ion_facet_scalars_kernel computes each
@@ -472,12 +545,11 @@ static int membrane_emit_launch(const KnpEmitArgs<T>& a, bool pair, void* stream
                           (cudaStream_t)stream>>>(z, D, c, out, n_ions, nd, nc);           \
     return (int)cudaGetLastError();                                                        \
   }                                                                                        \
-  extern "C" int knp_ion_cell##SFX(const T* phi, const T* c_n, const T* G, const T* vol,   \
-                                   const T* M0, T* gphi, T* drift, T* bcell, int m,        \
-                                   int nd, int d, int nc, double dt, void* stream) {       \
-    ion_cell_kernel<T><<<knp_blocks(nc), KNP_THREADS, 0, (cudaStream_t)stream>>>(          \
-        phi, c_n, G, vol, M0, gphi, drift, bcell, m, nd, d, nc, (T)dt);                    \
-    return (int)cudaGetLastError();                                                        \
+  extern "C" int knp_ion_cell##SFX(const void* tables, const T* phi, const T* c_n,        \
+                                   T* gphi, T* drift, T* bcell, int m, double dt,          \
+                                   void* stream) {                                         \
+    return ion_cell_launch<T>(static_cast<const KnpCellTables*>(tables), phi, c_n, gphi,   \
+                              drift, bcell, m, dt, stream);                                \
   }                                                                                        \
   extern "C" int knp_ion_facet##SFX(                                                       \
       const T* gphi, const T* D, const T* z, const int* f_cp, const int* f_cm,             \

@@ -20,6 +20,54 @@ static inline unsigned int knp_blocks(long long n) {
   return (unsigned int)((n + KNP_THREADS - 1) / KNP_THREADS);
 }
 
+// The static tables of the per-cell assembly kernels (K10 emi_cell, K11
+// ion_cell), built and checked once per solver (ops/assembly.cell_tables)
+// and read by their launchers through a pointer; each kernel gets what it
+// uses by value.  z and zz = z * z are rounded in the tables' dtype, as the
+// kernels computed them from a table in device memory before.
+#define KNP_CELL_MAXI 6       // the ion counts the cell kernels are built for: 1..6
+struct KnpCellTables {
+  const void* G;              // (nd, d, nc)
+  const void* vol;            // (nc,)
+  int nd, d, nc, n_ions;
+  double z[KNP_CELL_MAXI], zz[KNP_CELL_MAXI];
+  double phibar[4], M0[16];   // phibar (nd,), M0 (nd, nd) row by row
+};
+
+// CPT (1 or 2) consecutive cells of a row in one load or store: two cells
+// are one 16-byte (double) or 8-byte (float) vector access, so the row
+// offset must be even and the pointer aligned to two elements
+template <typename T> struct KnpVec2;
+template <> struct KnpVec2<float> { typedef float2 V; };
+template <> struct KnpVec2<double> { typedef double2 V; };
+
+template <typename T, int CPT>
+__device__ __forceinline__ void knp_ld(const T* __restrict__ p, T (&v)[CPT]) {
+  if constexpr (CPT == 2) {
+    const typename KnpVec2<T>::V w = *reinterpret_cast<const typename KnpVec2<T>::V*>(p);
+    v[0] = w.x;
+    v[1] = w.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <typename T, int CPT>
+__device__ __forceinline__ void knp_st(T* __restrict__ p, const T (&v)[CPT]) {
+  if constexpr (CPT == 2) {
+    typename KnpVec2<T>::V w;
+    w.x = v[0];
+    w.y = v[1];
+    *reinterpret_cast<typename KnpVec2<T>::V*>(p) = w;
+  } else {
+    *p = v[0];
+  }
+}
+
+static inline bool knp_aligned(const void* p, size_t bytes) {
+  return ((size_t)p % bytes) == 0;
+}
+
 // chunks of ``chunk`` entries covering n (the reduction kernels' blocks)
 static inline int knp_chunks(long long n, int chunk) { return (int)((n + chunk - 1) / chunk); }
 

@@ -247,20 +247,102 @@ def _tables(src, keys, dtype):
     return out
 
 
-def _inputs(dtype, **tensors):
-    """Device pointers of per-call inputs, each checked with its shape (a
+def _ptr(name, t, dtype, shape):
+    """The device pointer of a per-call input, checked with its shape (a
     contiguous CUDA tensor of ``dtype``; else _cuda.check raises why)."""
-    out = []
-    for name, (t, shape) in tensors.items():
-        if not (t.is_cuda and t.dtype == dtype and t.shape == shape and t.is_contiguous()):
-            _cuda.check(name, t, dtype, shape)
-        out.append(t.data_ptr())
-    return out
+    if not (t.is_cuda and t.dtype == dtype and t.shape == shape and t.is_contiguous()):
+        _cuda.check(name, t, dtype, shape)
+    return t.data_ptr()
+
+
+def _inputs(dtype, **tensors):
+    """Device pointers of per-call inputs, each checked by :func:`_ptr`."""
+    return [_ptr(name, t, dtype, shape) for name, (t, shape) in tensors.items()]
 
 
 def _facet_blocks(lead, nd, nf1, like):
     return [torch.empty(lead + (nd, nd, nf1), dtype=like.dtype, device=like.device)
             for _ in range(4)]
+
+
+# ---------------------------------------------------------------------------
+# the per-cell kernels' static tables (K10 emi_cell, K11 knp_cell)
+# ---------------------------------------------------------------------------
+
+CELL_MAX_IONS = 6         # the ion counts the cell kernels are built for: 1..6
+
+
+class _CellTablesC(ctypes.Structure):
+    """The C struct KnpCellTables of csrc/common.cuh (same order)."""
+    _fields_ = [("G", ctypes.c_void_p), ("vol", ctypes.c_void_p)] + [
+        (k, ctypes.c_int) for k in ("nd", "d", "nc", "n_ions")] + [
+        ("z", ctypes.c_double * CELL_MAX_IONS), ("zz", ctypes.c_double * CELL_MAX_IONS),
+        ("phibar", ctypes.c_double * MAX_ND), ("M0", ctypes.c_double * (MAX_ND * MAX_ND))]
+
+
+class CellTables(NamedTuple):
+    """The static tables of :func:`emi_cell` and :func:`knp_cell`."""
+    dims: tuple                  # nd, d, nc, n_ions (0 without z)
+    dtype: torch.dtype
+    z: Optional[torch.Tensor]    # the charges the tables hold (emi_cell's), or None
+    c_struct: Optional[_CellTablesC]   # on the card: the kernels' tables and constants
+    ptr: int                     # its address (0 on the CPU)
+    sources: tuple               # G, vol: the tensors c_struct points to
+    buffers: dict                # (id(out), rows) -> (out, the pointers of its cell part):
+                                 # the step's buffers checked once (_buffer_ptrs)
+
+
+def _buffer_ptrs(tables, out, rows, named):
+    """The pointers of the buffers ``named`` {name: (tensor, shape)}, fields
+    of the step's buffers ``out`` holding ``rows`` ions, checked against the
+    tables' dtype and the shapes, kept in the tables under (id(out), rows)
+    with ``out`` (whose id stays its own while it is kept): the step's
+    route checks its buffers the first time they meet the tables, and
+    later calls read the pointers from there."""
+    ptrs = _inputs(tables.dtype, **named)
+    tables.buffers[(id(out), rows)] = (out, ptrs)
+    return ptrs
+
+
+def cell_tables(g, z=None) -> CellTables:
+    """The per-cell kernels' static tables of a geometry and the ions'
+    charges ``z`` (n_ions,), which emi_cell reads (knp_cell none).  On the
+    card G, vol, phibar, M0 and z are checked here, not per call (contiguous,
+    G's dtype, their shapes), the shapes against the built kernels (nd =
+    d + 1 <= 4, at most CELL_MAX_IONS ions: NotImplementedError), and z,
+    z * z (rounded in that dtype), phibar and M0 are read to the host once:
+    the launches pass them by value.  A caller that assembles again and
+    again builds them once (Solver._cell_tables) and passes them as
+    ``tables=``; a call without them builds its own."""
+    G, vol = g["G"], g["vol"]
+    fdt, n_ions = G.dtype, 0 if z is None else z.shape[0]
+    if not G.is_cuda:
+        return CellTables(tuple(G.shape) + (n_ions,), fdt, z, None, 0, (G, vol), {})
+    _, nd, d, nc, _ = _dims(g)
+    if nd != d + 1 or n_ions > CELL_MAX_IONS:
+        raise NotImplementedError(
+            f"emi_cell / knp_cell: CUDA kernels built for nd = d + 1 and at most "
+            f"{CELL_MAX_IONS} ions, got nd = {nd}, d = {d}, {n_ions} ions")
+    if fdt not in (torch.float32, torch.float64):
+        raise TypeError(f"cell_tables: float32/float64 tables, got {fdt}")
+    named = {"G": (G, (nd, d, nc)), "vol": (vol, (nc,)), "phibar": (g["phibar"], (nd,)),
+             "M0": (g["M0"], (nd, nd))}
+    if z is not None:
+        named["z"] = (z, (n_ions,))
+    for key, (t, shape) in named.items():
+        _cuda.check(key, t, fdt, shape)
+    host = torch.cat([g["phibar"], g["M0"].reshape(-1)]
+                     + ([] if z is None else [z])).tolist()      # one read
+    phibar, M0, zs = host[:nd], host[nd:nd + nd * nd], host[nd + nd * nd:]
+    rnd = np.float32 if fdt == torch.float32 else np.float64
+    zz = [float(rnd(v) * rnd(v)) for v in zs]
+    pad = lambda v, n: v + [0.0] * (n - len(v))
+    st = _CellTablesC(G.data_ptr(), vol.data_ptr(), nd, d, nc, n_ions,
+                      (ctypes.c_double * CELL_MAX_IONS)(*pad(zs, CELL_MAX_IONS)),
+                      (ctypes.c_double * CELL_MAX_IONS)(*pad(zz, CELL_MAX_IONS)),
+                      (ctypes.c_double * MAX_ND)(*pad(phibar, MAX_ND)),
+                      (ctypes.c_double * (MAX_ND * MAX_ND))(*pad(M0, MAX_ND * MAX_ND)))
+    return CellTables((nd, d, nc, n_ions), fdt, z, st, ctypes.addressof(st), (G, vol), {})
 
 
 # ---------------------------------------------------------------------------
@@ -280,20 +362,42 @@ def emi_cell_plain(g, z, D, c, F, psi, neg=-1.0):
     return tuple(t.contiguous() for t in (kappa, kbar, flux, b_cell))
 
 
-def emi_cell(g, z, D, c, F, psi):
-    """:func:`emi_cell_plain`, kernel K10 ``emi_cell`` on a CUDA tensor."""
+def emi_cell(g, z, D, c, F, psi, out=None, tables=None):
+    """:func:`emi_cell_plain`, kernel K10 ``emi_cell`` on a CUDA tensor: one
+    launch, a thread a cell.  ``tables``: :func:`cell_tables` of ``g`` and
+    this ``z`` (checked when they were built); without them they are built
+    here.  ``out``: buffers of :func:`emi_emit_buffers` (checked the first
+    time they meet the tables), whose kappa, kbar, flux and b_cell are
+    written and returned (on the CPU the plain results are copied into
+    them); without it new tensors."""
     if not c.is_cuda:
-        return emi_cell_plain(g, z, D, c, F, psi)
-    _, nd, d, nc, _ = _dims(g)
-    n_ions = c.shape[0]
-    ins = _inputs(c.dtype, z=(z, (n_ions,)), D=(D, (n_ions, nc)), c=(c, (n_ions, nd, nc)))
-    new = lambda *shape: torch.empty(shape, dtype=c.dtype, device=c.device)
-    kappa, kbar, flux, b_cell = new(nd, nc), new(nc), new(d, nc), new(nd, nc)
-    _cuda.launch("emi_cell", "knp_emi_cell", c.dtype, *ins,
-                 *_tables(g, ("G", "vol", "phibar"), c.dtype), kappa.data_ptr(),
-                 kbar.data_ptr(), flux.data_ptr(), b_cell.data_ptr(), n_ions, nd, d,
-                 nc, float(F * psi), float(-F))
-    return kappa, kbar, flux, b_cell
+        res = emi_cell_plain(g, z, D, c, F, psi)
+        if out is None:
+            return res
+        dst = (out.kappa, out.kbar, out.flux, out.b_cell)
+        for a, b in zip(dst, res):
+            a.copy_(b)
+        return dst
+    if tables is None:
+        tables = cell_tables(g, z)
+    elif tables.z is not z:
+        raise ValueError("emi_cell: tables built for other charges z")
+    nd, d, nc, n_ions = tables.dims
+    dt_ = tables.dtype
+    ins = (_ptr("D", D, dt_, (n_ions, nc)), _ptr("c", c, dt_, (n_ions, nd, nc)))
+    if out is None:
+        new = lambda *shape: torch.empty(shape, dtype=dt_, device=c.device)
+        res = (new(nd, nc), new(nc), new(d, nc), new(nd, nc))
+        outs = [t.data_ptr() for t in res]
+    else:
+        res = (out.kappa, out.kbar, out.flux, out.b_cell)
+        hit = tables.buffers.get((id(out), n_ions))
+        outs = hit[1] if hit else _buffer_ptrs(tables, out, n_ions, {
+            "out_kappa": (res[0], (nd, nc)), "out_kbar": (res[1], (nc,)),
+            "out_flux": (res[2], (d, nc)), "out_b_cell": (res[3], (nd, nc))})
+    _cuda.launch("emi_cell", "knp_emi_cell", dt_, tables.ptr, *ins, *outs, float(F * psi),
+                 float(-F))
+    return res
 
 
 _EMI_FACET_TABLES = ("f_cp", "f_cm", "f_n", "f_area", "f_havg", "f_Rp", "f_Rm", "gnp",
@@ -375,20 +479,26 @@ def emi_emit_cell_plain(g, kbar, Mpp, Mpm, Mmp, Mmm, b_cell, b_p, b_m, inv_Lp2,
 
 
 class EmiEmitOut(NamedTuple):
-    """The buffers :func:`emi_emit_cell` writes."""
+    """The buffers of the step's EMI assembly: what :func:`emi_emit_cell`
+    writes, then what :func:`emi_cell` writes."""
     blocks: torch.Tensor       # (K, nd, nd, nc); pair layout: A_cell (nd, nd, nc)
     rhs: torch.Tensor          # (nd, nc)
     second: torch.Tensor       # P_diag (nd, nd, nc); pair layout: reg (nd, nd, nc)
+    kappa: torch.Tensor        # (nd, nc)
+    kbar: torch.Tensor         # (nc,)
+    flux: torch.Tensor         # (d, nc)
+    b_cell: torch.Tensor       # (nd, nc)
 
 
 def emi_emit_buffers(g, dtype, device, pair=False) -> EmiEmitOut:
-    """Output buffers of :func:`emi_emit_cell` for a caller that emits into
-    the same operator again and again (the solver's step)."""
+    """Output buffers of :func:`emi_emit_cell` and :func:`emi_cell` for a
+    caller that assembles the same operator again and again (the solver's
+    step)."""
     nfac, nc = g["cf_idx"].shape
-    nd = g["GG"].shape[0]
+    nd, d = g["GG"].shape[0], g["G"].shape[1]
     new = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
     return EmiEmitOut(new(nd, nd, nc) if pair else new(nfac + 1, nd, nd, nc), new(nd, nc),
-                      new(nd, nd, nc))
+                      new(nd, nd, nc), new(nd, nc), new(nc), new(d, nc), new(nd, nc))
 
 
 def emi_emit_cell(g, kbar, Mpp, Mpm, Mmp, Mmm, b_cell, b_p, b_m, inv_Lp2, pair=False,
@@ -406,9 +516,9 @@ def emi_emit_cell(g, kbar, Mpp, Mpm, Mmp, Mmm, b_cell, b_p, b_m, inv_Lp2, pair=F
                                   pair)
         if out is None:
             return res
-        for dst, src in zip(out, res):
+        for dst, src in zip(out[:3], res):
             dst.copy_(src)
-        return tuple(out)
+        return tuple(out[:3])
     _, nd, d, nc, nf1 = _dims(g)
     if nd != d + 1:
         raise NotImplementedError(
@@ -434,7 +544,7 @@ def emi_emit_cell(g, kbar, Mpp, Mpm, Mmp, Mmm, b_cell, b_p, b_m, inv_Lp2, pair=F
                    out_rhs=(out.rhs, (nd, nc)), out_second=(out.second, sq))
     _cuda.launch("emi_emit_cell", "knp_emi_emit_cell", dt_, *ins, slots.data_ptr(), *outs, nd,
                  d + 1, nc, nf1, int(pair), float(inv_Lp2))
-    return tuple(out)
+    return tuple(out[:3])
 
 
 def assemble_emi(
@@ -453,6 +563,7 @@ def assemble_emi(
     out=None,
     buffers=None,
     tables=None,
+    cell_tables=None,
 ):
     """EMI block-ELL operator, rhs and block-Jacobi preconditioner diagonal
     (the regularised B operator), in three steps (kernel K10 on the card):
@@ -465,9 +576,12 @@ def assemble_emi(
     diagonal of P_diag includes the intra-pair coupling; ``out`` (pairs
     only): the pair emit's (pd, pe, P_diag_pair) buffers
     (ops.pairs.emit_buffers), written and returned; ``buffers``: the EMI
-    emit's (:func:`emi_emit_buffers`, made for this layout), written (on the
-    cell layout returned); ``tables``: the packed slot words' tables
-    (:func:`knp_emit_tables`), packed in the call without them.
+    emit's and the cell part's (:func:`emi_emit_buffers`, made for this
+    layout), written (on the cell layout the emit's returned); ``tables``:
+    the packed slot words' tables (:func:`knp_emit_tables`), packed in the
+    call without them; ``cell_tables``: :func:`emi_cell`'s
+    (:func:`cell_tables` of ``g`` and ``ions["z"]``), built in the call
+    without them.
 
     ``mms`` (an MMSProblem, cell layout only): the manufactured problem's
     interface data on the membrane (wall) facets replace the Robin source,
@@ -478,7 +592,8 @@ def assemble_emi(
         raise NotImplementedError("MMS verification runs on the cell layout only")
     F, psi, C_phi, tau = phys["F"], phys["psi"], phys["C_phi"], phys["tau_emi"]
 
-    kappa, kbar, flux, b_cell = emi_cell(g, ions["z"], ions["D"], ions["c"], F, psi)
+    kappa, kbar, flux, b_cell = emi_cell(g, ions["z"], ions["D"], ions["c"], F, psi,
+                                         out=buffers, tables=cell_tables)
     # Robin data: splitting -> phi_M; passive -> phi_M - I_ch/C_phi; MMS ->
     # none here (a zero source), its interface data below.
     # Term: + C_phi g JUMP(v) = g C_phi (v_i - v_e)
@@ -647,19 +762,41 @@ def knp_cell_plain(g, phi, c_n, dt):
     return gphi.contiguous(), drift.contiguous(), b_cell.contiguous()
 
 
-def knp_cell(g, phi, c_n, dt):
-    """:func:`knp_cell_plain`, kernel K11 ``knp_cell`` on a CUDA tensor."""
+def knp_cell(g, phi, c_n, dt, out=None, tables=None):
+    """:func:`knp_cell_plain`, kernel K11 ``knp_cell`` on a CUDA tensor: one
+    launch, a thread a cell.  ``tables``: :func:`cell_tables` of ``g``
+    (checked when they were built); without them they are built here.
+    ``out``: buffers of :func:`knp_emit_buffers` (checked the first time
+    they meet the tables for this many ions), whose gphi, drift and b_cell
+    are written and returned (on the CPU the plain results are copied into
+    them); without it new tensors."""
     if not phi.is_cuda:
-        return knp_cell_plain(g, phi, c_n, dt)
-    _, nd, d, nc, _ = _dims(g)
-    m = c_n.shape[0]
-    ins = _inputs(phi.dtype, phi=(phi, (nd, nc)), c_n=(c_n, (m, nd, nc)))
-    new = lambda *shape: torch.empty(shape, dtype=phi.dtype, device=phi.device)
-    gphi, drift, b_cell = new(d, nc), new(nd, nc), new(m, nd, nc)
-    _cuda.launch("knp_cell", "knp_ion_cell", phi.dtype, *ins,
-                 *_tables(g, ("G", "vol", "M0"), phi.dtype), gphi.data_ptr(),
-                 drift.data_ptr(), b_cell.data_ptr(), m, nd, d, nc, float(dt))
-    return gphi, drift, b_cell
+        res = knp_cell_plain(g, phi, c_n, dt)
+        if out is None:
+            return res
+        dst = (out.gphi, out.drift, out.b_cell)
+        for a, b in zip(dst, res):
+            a.copy_(b)
+        return dst
+    tab = tables if tables is not None else cell_tables(g)
+    nd, d, nc, _ = tab.dims
+    m, dt_ = c_n.shape[0], tab.dtype
+    if not 1 <= m <= CELL_MAX_IONS:
+        raise NotImplementedError(
+            f"knp_cell: CUDA kernel built for 1 to {CELL_MAX_IONS} solved ions, got {m}")
+    ins = (_ptr("phi", phi, dt_, (nd, nc)), _ptr("c_n", c_n, dt_, (m, nd, nc)))
+    if out is None:
+        new = lambda *shape: torch.empty(shape, dtype=dt_, device=phi.device)
+        res = (new(d, nc), new(nd, nc), new(m, nd, nc))
+        outs = [t.data_ptr() for t in res]
+    else:
+        res = (out.gphi, out.drift, out.b_cell)
+        hit = tab.buffers.get((id(out), m))
+        outs = hit[1] if hit else _buffer_ptrs(tab, out, m, {
+            "out_gphi": (res[0], (d, nc)), "out_drift": (res[1], (nd, nc)),
+            "out_b_cell": (res[2], (m, nd, nc))})
+    _cuda.launch("knp_cell", "knp_ion_cell", dt_, tab.ptr, *ins, *outs, m, float(dt))
+    return res
 
 
 def knp_facet_plain(g, masks, z, D, gphi, psi, neg=-1.0):
@@ -912,21 +1049,27 @@ def knp_emit_tables(g, mem_t) -> KnpEmitTables:
 
 
 class KnpEmitOut(NamedTuple):
-    """The buffers :func:`knp_membrane_emit` writes."""
+    """The buffers of the step's KNP assembly: what
+    :func:`knp_membrane_emit` writes, then what :func:`knp_cell` writes."""
     blocks: torch.Tensor       # (m, K, nd, nd, nc); pair layout: the drift blocks (m, nd, nd, nc)
     rhs: torch.Tensor          # (m, nd, nc)
     b_p: torch.Tensor          # (m, nd, n_mem) the membrane rhs
     b_m: torch.Tensor
+    gphi: torch.Tensor         # (d, nc)
+    drift: torch.Tensor        # (nd, nc)
+    b_cell: torch.Tensor       # (m, nd, nc)
 
 
 def knp_emit_buffers(g, mem_t, m, dtype, device, pair=False) -> KnpEmitOut:
-    """Output buffers of :func:`knp_membrane_emit` for a caller that emits
-    into the same operator again and again (the solver's step)."""
+    """Output buffers of :func:`knp_membrane_emit` and :func:`knp_cell` for
+    a caller that assembles the same operators again and again (the
+    solver's step)."""
     nd, nc, nm = mem_t["Rp"].shape[1], g["cf_idx"].shape[1], mem_t["Rp"].shape[2]
-    K = g["cf_idx"].shape[0] + 1
+    K, d = g["cf_idx"].shape[0] + 1, g["G"].shape[1]
     new = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
     return KnpEmitOut(new(m, nd, nd, nc) if pair else new(m, K, nd, nd, nc), new(m, nd, nc),
-                      new(m, nd, nm), new(m, nd, nm))
+                      new(m, nd, nm), new(m, nd, nm), new(d, nc), new(nd, nc),
+                      new(m, nd, nc))
 
 
 def knp_membrane_emit_plain(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch, I_ch_tot, F,
@@ -960,9 +1103,9 @@ def knp_membrane_emit(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch, I_ch_tot
                                       static_blocks, splitting, pair)
         if out is None:
             return res
-        for dst, src in zip(out, res):
+        for dst, src in zip(out[:4], res):
             dst.copy_(src)
-        return tuple(out)
+        return tuple(out[:4])
     tab = tables if tables is not None else knp_emit_tables(g, mem_t)
     _, nd, nfac, nc, nf1, nm, _ = tab.dims
     m, dt_ = z.shape[0], drift.dtype
@@ -986,7 +1129,7 @@ def knp_membrane_emit(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch, I_ch_tot
     _cuda.launch("knp_membrane_emit", "knp_membrane_emit", dt_, *ins, *Ms, *bc, *st, *outs,
                  ctypes.addressof(tab.c_struct), m, int(bool(splitting)), int(pair),
                  float(F), float(C_M / (F * dt)), float(psi))
-    return tuple(out)
+    return tuple(out[:4])
 
 
 def assemble_knp_all(
@@ -1007,6 +1150,7 @@ def assemble_knp_all(
     out=None,
     buffers=None,
     tables=None,
+    cell_tables=None,
 ):
     """All solved ions' KNP operators + rhs in one pass with shared facet
     and membrane gathers, in three steps (kernel K11 on the card):
@@ -1020,16 +1164,18 @@ def assemble_knp_all(
     ((pdK, peK), rhs), and ``static_blocks`` must be in pair form too
     (ops.pairs.cell_bell_to_pair); ``out`` (pairs only): the pair emit's
     (pdK, peK) buffers (ops.pairs.emit_buffers), written and returned;
-    ``buffers``: the membrane emit's (:func:`knp_emit_buffers`, made for
-    this layout), written, its blocks (the drift blocks on pairs) and rhs
-    returned; ``tables``: its static tables (:func:`knp_emit_tables`),
-    built in the call without them."""
+    ``buffers``: the membrane emit's and the cell part's
+    (:func:`knp_emit_buffers`, made for this layout), written, the emit's
+    blocks (the drift blocks on pairs) and rhs returned; ``tables``: its
+    static tables (:func:`knp_emit_tables`), ``cell_tables``
+    :func:`knp_cell`'s (:func:`cell_tables`), each built in the call
+    without them."""
     _degree1(g)
     z, D = ions["z"], ions["D"]                      # (m,), (m, nc)
     c_n, c_k = ions["c_n"], ions["c_k"]              # (m, nd, nc)
     F, psi, C_M, dt = phys["F"], phys["psi"], phys["C_M"], phys["dt"]
 
-    gphi, drift, b_cell = knp_cell(g, phi, c_n, dt)
+    gphi, drift, b_cell = knp_cell(g, phi, c_n, dt, out=buffers, tables=cell_tables)
     M = knp_facet(g, masks, z, D, gphi, psi)
     pair = pm is not None
     blocks, rhs, _, _ = knp_membrane_emit(
@@ -1054,6 +1200,7 @@ def assemble_knp_mms(
     static_blocks: torch.Tensor,  # (m, K, nd, nd, nc)
     sources: Optional[torch.Tensor] = None,   # (m, nd, nc) ion source rows, or None
     tables=None,
+    cell_tables=None,
 ):
     """The m solved ions' KNP operators and rhs of an MMS problem (cell
     layout): the operator as :func:`assemble_knp_all` builds it (kernel K11
@@ -1077,7 +1224,7 @@ def assemble_knp_mms(
     nm = mem_t["cp"].shape[0]
     new = lambda fill, *shape: torch.full(shape, fill, dtype=phi.dtype, device=phi.device)
 
-    gphi, drift, b_cell = knp_cell(g, phi, c_n, dt)
+    gphi, drift, b_cell = knp_cell(g, phi, c_n, dt, tables=cell_tables)
     if sources is not None:
         b_cell = (b_cell + sources).contiguous()
     M = knp_facet(g, masks, z, D, gphi, psi)

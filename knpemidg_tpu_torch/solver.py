@@ -394,13 +394,14 @@ class Solver:
         ``t``: the time of the MMS data (read only with ``mms``); ``out``:
         the pair emit's buffers, ``buffers`` the EMI emit's (see
         _emit_out).  The emit reads the cell-facet slots from the tables
-        the KNP membrane emit reads (_membrane_emit_tables)."""
+        the KNP membrane emit reads (_membrane_emit_tables), the cell part
+        the solver's cell tables (_cell_tables)."""
         ions = {"z": self.z, "D": self.D, "c": self._all_c(c, c_elim)}
         return assembly.assemble_emi(
             self.g, self.masks, ions, self._phys_emi(), phi_M_pad, I_ch_tot_pad,
             mem_t=self.mem_dev, splitting=self.splitting_scheme, mms=self.mms, t=t,
             pm=self.pairs if pair else None, out=out, buffers=buffers,
-            tables=self._membrane_emit_tables())
+            tables=self._membrane_emit_tables(), cell_tables=self._cell_tables())
 
     @staticmethod
     def _f_source_callable(ion):
@@ -438,8 +439,10 @@ class Solver:
         assembly.emi_emit_buffers); "membrane_emit": the KNP membrane
         emit's (the cell layout's operator and rhs, the pair layout's drift
         blocks and rhs, b_p, b_m; assembly.knp_emit_buffers).  Only
-        _pde_step passes them: each step's emit overwrites the previous
-        step's operator, which nothing holds past its solve (the
+        _pde_step passes them (the "emi_emit" and "membrane_emit" buffers
+        also hold the step's cell parts, assembly.emi_cell's and
+        knp_cell's): each step's emit overwrites the previous step's
+        operator, which nothing holds past its solve (the
         predictor's guess is a new tensor; the pc builds, the Ritz harvest
         and the tests emit into new tensors)."""
         bufs = self.__dict__.setdefault("_emit_bufs", {})
@@ -469,6 +472,17 @@ class Solver:
         key = ("membrane_emit_tables", self.dtype)
         if key not in bufs:
             bufs[key] = assembly.knp_emit_tables(self.g, self.mem_dev)
+        return bufs[key]
+
+    def _cell_tables(self):
+        """The per-cell assembly kernels' static tables (assembly.cell_tables:
+        G, vol, phibar, M0 and the charges z), built and checked once per
+        dtype and kept with the emit buffers: a new cell numbering or
+        physics (_invalidate_caches) drops them with those."""
+        bufs = self.__dict__.setdefault("_emit_bufs", {})
+        key = ("cell_tables", self.dtype)
+        if key not in bufs:
+            bufs[key] = assembly.cell_tables(self.g, self.z)
         return bufs[key]
 
     def _knp_static(self, k):
@@ -619,7 +633,7 @@ class Solver:
         return assembly.assemble_knp_mms(
             self.g, self.masks, ionsd, self._phys_knp(), phi, mem_t=self.mem_dev,
             mms=self.mms, t=t, static_blocks=statics, sources=self._ion_sources(t),
-            tables=self._membrane_emit_tables())
+            tables=self._membrane_emit_tables(), cell_tables=self._cell_tables())
 
     def _matvec(self, blocks, v):
         """Block-ELL operator apply (kernel A on the card), single systems
@@ -713,7 +727,7 @@ class Solver:
             mem_t=self.mem_dev, static_blocks=statics,
             splitting=self.splitting_scheme,
             pm=self.pairs if self.pair_layout else None, out=out, buffers=buffers,
-            tables=self._membrane_emit_tables())
+            tables=self._membrane_emit_tables(), cell_tables=self._cell_tables())
         src = self._ion_sources(t)
         return blocksK, rhsK if src is None else (rhsK + src).contiguous()
 

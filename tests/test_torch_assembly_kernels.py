@@ -97,6 +97,70 @@ def test_emi_cell_matches_reference_formulas(solvers):
     assert all(t.is_contiguous() for t in (kappa, kbar, flux, b_cell))
 
 
+def _cell_parts_through_the_step_route(Sj, St, x):
+    """K10's emi_cell and K11's knp_cell as the step calls them (the
+    solver's cell tables, the step's buffers): on the CPU the plain
+    results, copied into the buffers and returned, exactly; and the cell
+    parts of the JAX assemble_emi (kappa, kbar, the ion flux, the rhs cell
+    term) and assemble_knp_all (grad phi, the drift, the mass rhs) to
+    float64 round-off."""
+    p = St.params
+    tab = St._cell_tables()
+    assert St._cell_tables() is tab                           # built once
+    eo, ko_ = St._emit_out("emi_emit"), St._emit_out("membrane_emit")
+    call, c, phi = t64(x["call"]), t64(x["c"]), t64(x["phi"])
+    emi = assembly.emi_cell(St.g, St.z, St.D, call, p.F, p.psi, out=eo, tables=tab)
+    knp = assembly.knp_cell(St.g, phi, c, p.dt, out=ko_, tables=tab)
+    assert [a is b for a, b in zip(emi, (eo.kappa, eo.kbar, eo.flux, eo.b_cell))] == [True] * 4
+    assert [a is b for a, b in zip(knp, (ko_.gphi, ko_.drift, ko_.b_cell))] == [True] * 3
+    for got, ref in ((emi, assembly.emi_cell_plain(St.g, St.z, St.D, call, p.F, p.psi)),
+                     (knp, assembly.knp_cell_plain(St.g, phi, c, p.dt))):
+        assert len(got) == len(ref) and all(torch.equal(a, b) for a, b in zip(got, ref))
+    gj, cj, phij = Sj.g, jnp.asarray(x["call"]), jnp.asarray(x["phi"])
+    kj = p.F * p.psi * jnp.einsum("k,kc,kic->ic", Sj.z * Sj.z, Sj.D, cj)
+    fj = jnp.einsum("k,kc,kdc->dc", Sj.z, Sj.D, jnp.einsum("idc,kic->kdc", gj["G"], cj))
+    want = (kj, jnp.einsum("i,ic->c", gj["phibar"], kj), fj,
+            -p.F * gj["vol"] * jnp.einsum("dc,idc->ic", fj, gj["G"]))
+    assert all(rel(a, b) < TOL for a, b in zip(emi, want))
+    gphi = jasm.cell_grad(gj, phij)
+    want = (gphi, jnp.einsum("idc,dc->ic", gj["G"], gphi),
+            (gj["vol"] / p.dt) * jnp.einsum("ij,kjc->kic", jasm._M0(gj),
+                                            jnp.asarray(x["c"])))
+    assert all(rel(a, b) < TOL for a, b in zip(knp, want))
+
+
+def test_cell_parts_through_the_step_route(solvers):
+    _cell_parts_through_the_step_route(*solvers)
+
+
+def test_solver_passes_its_cell_tables_and_step_buffers(monkeypatch):
+    """Two steps of the 2D neuron: every EMI and KNP cell part reads the
+    solver's one cell table (the pc build's too), and only _pde_step's
+    write into the step's buffers (the pc build's EMI and KNP assemblies
+    get new tensors); a new cell numbering drops the tables with the emit
+    buffers."""
+    seen = {"emi_cell": [], "knp_cell": []}
+    for name in seen:
+        fn = getattr(assembly, name)
+
+        def spy(*args, out=None, tables=None, _fn=fn, _name=name, **kw):
+            seen[_name].append((out, tables))
+            return _fn(*args, out=out, tables=tables, **kw)
+
+        monkeypatch.setattr(assembly, name, spy)
+    S, sp = tp.neuron_2d_torch()
+    S.solve_system_active(2e-4, 0.0, sp)
+    tab = S._cell_tables()
+    eo, ko_ = S._emit_out("emi_emit"), S._emit_out("membrane_emit")
+    assert len(seen["emi_cell"]) == len(seen["knp_cell"]) == 3
+    assert all(t is tab for calls in seen.values() for _, t in calls)
+    assert seen["emi_cell"][0][0] is None and seen["knp_cell"][0][0] is None
+    assert all(o is eo for o, _ in seen["emi_cell"][1:])
+    assert all(o is ko_ for o, _ in seen["knp_cell"][1:])
+    S._invalidate_caches()
+    assert S._cell_tables() is not tab
+
+
 def test_emi_facet_blocks_match_jax(solvers):
     """The facet blocks against _sip_blocks + _jump_jump_blocks; the dummy
     facet's blocks are exactly zero."""
@@ -514,6 +578,12 @@ def test_pair_emi_emit_reads_the_shared_slot_words(pair_solvers):
     words on the padded, renumbered cell axis, into the solver's buffers."""
     Sj, St, _ = pair_solvers
     _emit_through_the_slot_words(Sj, St, True, 17)
+
+
+def test_pair_cell_parts_through_the_step_route(pair_solvers):
+    """The step's route of the cell parts on the pair layout's padded,
+    renumbered cell axis (the pair layout's buffers)."""
+    _cell_parts_through_the_step_route(*pair_solvers)
 
 
 def test_pair_emi_assembly_matches_jax(pair_solvers):

@@ -1725,6 +1725,147 @@ def test_emi_emit_refuses_what_it_cannot_take(main_solver):
     assert _cuda.LAUNCHES == n0
 
 
+def _cell_case(S, seed):
+    """Seeded inputs of K10's emi_cell and K11's knp_cell on solver S in
+    float64 (c perturbed around the initial state, a seeded potential)
+    and the two calls as the step makes them: the solver's cell tables,
+    the step's buffers (S._emit_out)."""
+    rng = np.random.default_rng(seed)
+    st, p, dev = S._initial_state(0.0), S.params, S.device
+    to = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    c = (st["c"] * to(rng.uniform(0.99, 1.01, tuple(st["c"].shape)))).contiguous()
+    call = torch.cat([c, st["c_elim"][None]]).contiguous()
+    phi = to(1e-3 * rng.standard_normal(tuple(st["phi"].shape)))
+    tab = S._cell_tables()
+    emi_out, knp_out = S._emit_out("emi_emit"), S._emit_out("membrane_emit")
+    calls = {"emi_cell": lambda: assembly.emi_cell(S.g, S.z, S.D, call, p.F, p.psi,
+                                                   out=emi_out, tables=tab),
+             "knp_cell": lambda: assembly.knp_cell(S.g, phi, c, p.dt, out=knp_out,
+                                                   tables=tab)}
+    public = {"emi_cell": lambda: assembly.emi_cell(S.g, S.z, S.D, call, p.F, p.psi),
+              "knp_cell": lambda: assembly.knp_cell(S.g, phi, c, p.dt)}
+    fields = {"emi_cell": (emi_out.kappa, emi_out.kbar, emi_out.flux, emi_out.b_cell),
+              "knp_cell": (knp_out.gphi, knp_out.drift, knp_out.b_cell)}
+    return calls, public, fields
+
+
+@pytest.mark.parametrize("name,kernel", [("emi_cell", "emi_cell_kernel"),
+                                         ("knp_cell", "ion_cell_kernel")])
+def test_cell_kernel_is_one_launch_and_allocates_nothing(main_solver, name, kernel):
+    """K10's emi_cell and K11's knp_cell as the step calls them (the
+    solver's cell tables, the step's buffers) at the main path's 124,416
+    cells: the outputs are the step's buffers, bit for bit the public
+    wrapper's (which checks its tables and allocates); ten calls in one
+    plain profiler session are ten counted calls, ten launches of the
+    kernel and nothing else on the device, and no allocation."""
+    S = main_solver
+    calls, public, fields = _cell_case(S, 61)
+    call = calls[name]
+    got = call()
+    torch.cuda.synchronize()
+    assert all(a is b for a, b in zip(got, fields[name])) and len(got) == len(fields[name])
+    for a, b in zip(got, public[name]()):
+        assert torch.equal(_bits(a), _bits(b))
+    for _ in range(3):
+        # a profiler session on the card can return fewer device events
+        # than were launched: up to three sessions, until one reads five
+        allocs = torch.cuda.memory_stats(S.device)["allocation.all.allocated"]
+        n0 = _cuda.LAUNCHES[name]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert torch.cuda.memory_stats(S.device)["allocation.all.allocated"] == allocs
+        assert _cuda.LAUNCHES[name] == n0 + 10
+        if len(kernels) >= 5:
+            break
+    assert 5 <= len(kernels) <= 10 and all(kernel in k for k in kernels), kernels
+
+
+@pytest.mark.parametrize("nd", [3, 4])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cell_kernels_take_every_built_ion_count(nd, dtype, tol):
+    """emi_cell at 1-6 ions and knp_cell at 1-6 solved ions, nd = 3 (the 2D
+    neuron's tables) and 4 (the EMIx fixture's), against the plain
+    versions to each value's sum of |terms|, with tables built in the call
+    and built once; at an even cell count (two cells a thread) the inputs
+    one element off the two-element alignment (one cell a thread) give the
+    same bits, and an odd cell count (one cell a thread) is checked too;
+    seven ions raise NotImplementedError before any launch."""
+    dev = cuda_or_skip()
+    S = tp.emix_torch(device=dev)[0] if nd == 4 else tp._neuron_2d("torch", device=dev)
+    rng = np.random.default_rng(62)
+    cast = lambda d: {k: (v.to(dtype) if isinstance(v, torch.Tensor)
+                          and v.is_floating_point() else v) for k, v in d.items()}
+    p = S.params
+    for odd in (False, True):
+        g = cast(S.g)
+        nc = g["G"].shape[-1] - (1 if odd == (g["G"].shape[-1] % 2 == 0) else 0)
+        g = dict(g, G=g["G"][..., :nc].contiguous(), vol=g["vol"][:nc].contiguous())
+        assert (nc % 2 == 1) == odd
+        ga = {k: (v.abs() if isinstance(v, torch.Tensor) and v.is_floating_point() else v)
+              for k, v in g.items()}
+        for n in range(1, assembly.CELL_MAX_IONS + 1):
+            z = torch.as_tensor(rng.choice([-2.0, -1.0, 1.0, 2.0], n), dtype=dtype, device=dev)
+            D = torch.as_tensor(rng.uniform(1e-9, 2e-9, (n, nc)), dtype=dtype, device=dev)
+            c = torch.as_tensor(rng.uniform(1.0, 100.0, (n, nd, nc)), dtype=dtype, device=dev)
+            phi = torch.as_tensor(rng.standard_normal((nd, nc)), dtype=dtype, device=dev)
+            tab = assembly.cell_tables(g, z)
+            sc = assembly.emi_cell_plain(ga, z.abs(), D, c, p.F, p.psi, neg=1.0)
+            for got in (assembly.emi_cell(g, z, D, c, p.F, p.psi),
+                        assembly.emi_cell(g, z, D, c, p.F, p.psi, tables=tab)):
+                for a, b, s_ in zip(got, assembly.emi_cell_plain(g, z, D, c, p.F, p.psi), sc):
+                    assert float(((a - b).abs() / (s_ + 1e-300)).max()) < tol, (n, odd)
+            sc = assembly.knp_cell_plain(ga, phi.abs(), c, p.dt)
+            for got in (assembly.knp_cell(g, phi, c, p.dt),
+                        assembly.knp_cell(g, phi, c, p.dt, tables=tab)):
+                for a, b, s_ in zip(got, assembly.knp_cell_plain(g, phi, c, p.dt), sc):
+                    assert float(((a - b).abs() / (s_ + 1e-300)).max()) < tol, (n, odd)
+            if not odd:
+                off = lambda t: torch.empty(t.numel() + 1, dtype=dtype, device=dev)[1:].view(
+                    t.shape).copy_(t)
+                for a, b in zip(assembly.emi_cell(g, z, off(D), off(c), p.F, p.psi, tables=tab),
+                                assembly.emi_cell(g, z, D, c, p.F, p.psi, tables=tab)):
+                    assert torch.equal(_bits(a), _bits(b)), n
+                for a, b in zip(assembly.knp_cell(g, off(phi), off(c), p.dt, tables=tab),
+                                assembly.knp_cell(g, phi, c, p.dt, tables=tab)):
+                    assert torch.equal(_bits(a), _bits(b)), n
+    n0 = dict(_cuda.LAUNCHES)
+    seven = torch.ones(7, dtype=dtype, device=dev)
+    with pytest.raises(NotImplementedError):
+        assembly.emi_cell(g, seven, D[:1].expand(7, nc).contiguous(),
+                          c[:1].expand(7, nd, nc).contiguous(), p.F, p.psi)
+    with pytest.raises(NotImplementedError):
+        assembly.knp_cell(g, phi, c[:1].expand(7, nd, nc).contiguous(), p.dt)
+    assert _cuda.LAUNCHES == n0
+
+
+def test_cell_kernels_refuse_tables_of_other_charges(main_solver):
+    """The step's route trusts the tables it is given: tables built for
+    other charges z, inputs or buffers of another dtype or shape, and a
+    non-contiguous input raise before any launch."""
+    S = main_solver
+    p = S.params
+    st = S._initial_state(0.0)
+    call = torch.cat([st["c"], st["c_elim"][None]]).contiguous()
+    tab = S._cell_tables()
+    n0 = dict(_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="charges"):
+        assembly.emi_cell(S.g, S.z.clone(), S.D, call, p.F, p.psi, tables=tab)
+    with pytest.raises(TypeError):
+        assembly.emi_cell(S.g, S.z, S.D, call.float(), p.F, p.psi, tables=tab)
+    with pytest.raises(ValueError):
+        assembly.knp_cell(S.g, st["phi"], call[:, :, :-1].contiguous(), p.dt, tables=tab)
+    with pytest.raises(ValueError):
+        assembly.knp_cell(S.g, st["phi"].t().contiguous().t(), st["c"], p.dt, tables=tab)
+    out3 = assembly.knp_emit_buffers(S.g, S.mem_dev, S.N_ions + 1, torch.float64, S.device)
+    with pytest.raises(ValueError):                              # b_cell of 3 ions
+        assembly.knp_cell(S.g, st["phi"], st["c"], p.dt, out=out3, tables=tab)
+    assert _cuda.LAUNCHES == n0
+
+
 def test_pair_matvec_reads_only_the_owner_halves(pair_maps):
     """pair_matvec at m = 1 and pair_matvec_multi at m = 2, on maps with
     self-pairs, dummy slots and a thread count that is not a multiple of
@@ -2899,6 +3040,74 @@ def test_bicgstab_pair_slice_with_plain_pair_kernels(monkeypatch):
                                          "two_level_coarse_batched"))
     assert Sg.stats.emi_niters == Sc.stats.emi_niters
     assert max(gaps.values()) < 1e-5, gaps
+
+
+def test_bicgstab_pair_step2_solve_on_swapped_inputs(monkeypatch):
+    """The split diagnostic of the pair slice's BiCGStab exit (the card
+    takes KNP [7, 7] in step 2, the CPU [7, 8]): the same two float64 steps
+    on the CPU and on the card with each run's KNP solves recorded (the
+    pair operator, rhs and c handed to Solver._knp_solve_all_pair, its
+    frozen preconditioner, the counts and the new c).  Then each step's
+    card solve runs on the CPU's operator, rhs and c copied to the card,
+    and the step-2 CPU solve on the card's copied to the CPU, each with
+    its own solver's preconditioner.  Prints the inputs' gaps, the counts
+    and the solutions' gaps (run with -s).  Asserts that each run's solve,
+    run again on its own recorded inputs, repeats its counts (so the
+    recorded inputs are what the solve saw), and that the swapped step-2
+    solves stay within one iteration of the CPU's counts and their new c
+    within 1e-6 of the CPU's.  Measured on an H100: step 1's inputs agree
+    to rounding (rhs 3.1e-15, c equal) and both runs take [7, 10], yet the
+    card's solve on the CPU's step-1 inputs takes [7, 7], and the two
+    runs' new c differ by 1.4e-7, which step 2's rhs and c carry; in step
+    2 the card's solve on the CPU's inputs and the CPU's on the card's
+    both take [7, 8].  The exit moves with rounding-level changes of the
+    solve's inputs: rounding sets it, not one side's operation."""
+    from knpemidg_tpu_torch import solver as tsolver
+
+    dev = cuda_or_skip()
+    solve = tsolver.Solver._knp_solve_all_pair
+    rec = {}
+
+    def spy(self, blocksK, rhsK, c, sp_, pcK):
+        res = solve(self, blocksK, rhsK, c, sp_, pcK)
+        rec.setdefault(id(self), []).append(
+            (tuple(t.clone() for t in blocksK), rhsK.clone(), c.clone(), sp_, pcK, res[1],
+             res[0].clone()))
+        return res
+
+    monkeypatch.setattr(tsolver.Solver, "_knp_solve_all_pair", spy)
+    runs = {}
+    for d in ("cpu", "cuda"):
+        S, sp = tp.emix_torch(device="cpu" if d == "cpu" else dev, pair=True,
+                              knp_solver="bicgstab")
+        S.solve_system_active(0.2, 0.0, sp)
+        runs[d] = (S, rec[id(S)])
+    (Sc, rc), (Sg, rg) = runs["cpu"], runs["cuda"]
+    assert len(rc) == len(rg) == 2
+    gap = lambda a, b: rel(a.cpu(), b.cpu())
+    report, swapped = [], None
+    for step in (0, 1):
+        (bc, rhc, cc, spc, pcc, itc, xc), (bg, rhg, cg, spg, pcg_, itg, xg) = rc[step], rg[step]
+        assert solve(Sg, bg, rhg, cg, spg, pcg_)[1] == itg
+        assert solve(Sc, bc, rhc, cc, spc, pcc)[1] == itc
+        card_on_cpu = solve(Sg, tuple(t.to(dev) for t in bc), rhc.to(dev), cc.to(dev), spg,
+                            pcg_)
+        report.append(
+            f"step {step + 1}: counts card {itg}, CPU {itc}, card's solve on the CPU's inputs "
+            f"{card_on_cpu[1]}; input gaps card / CPU pd {gap(bg[0], bc[0]):.1e} pe "
+            f"{gap(bg[1], bc[1]):.1e} rhs {gap(rhg, rhc):.1e} c {gap(cg, cc):.1e}; new c "
+            f"card / CPU {gap(xg, xc):.1e}, card's solve on the CPU's inputs / CPU "
+            f"{gap(card_on_cpu[0], xc):.1e}")
+        if step == 1:
+            cpu_on_card = solve(Sc, tuple(t.cpu() for t in bg), rhg.cpu(), cg.cpu(), spc, pcc)
+            report.append(f"step 2: the CPU's solve on the card's inputs {cpu_on_card[1]}, new "
+                          f"c / the card's {gap(cpu_on_card[0], xg):.1e}")
+            swapped = (card_on_cpu, cpu_on_card, itc, xc)
+    print("pair BiCGStab split: " + "; ".join(report))
+    card_on_cpu, cpu_on_card, itc, xc = swapped
+    for res in (card_on_cpu, cpu_on_card):
+        assert all(abs(a - b) <= 1 for a, b in zip(res[1], itc)), res[1]
+        assert gap(res[0], xc) < 1e-6
 
 
 def test_emi_only_slice_on_cuda_matches_cpu():

@@ -86,6 +86,15 @@ and float64, beside the library calls chip_smoke.py holds them to:
        layout (127,116 padded cells), both dtypes: this tree's call with
        the solver's packed slot words into buffers made once, or in a tree
        without them its one call;
+  k10c K10's emi_cell (k10c) and K11's knp_cell (k11c) as the step calls
+  k11c them at a seeded state (c perturbed, a seeded potential), on
+       chip_smoke.py's cell tables (124,416 cells) and pair layout (127,116
+       padded cells), both dtypes: this tree's calls with the cell tables
+       built once (assembly.cell_tables) into the step's buffers (made
+       once); or in a tree without them its public call, which checks its
+       tables and allocates its outputs; each with its bound (every input
+       read once, every output written once) and its device microseconds
+       a launch read by the profiler over 20 calls (``dev_us``);
   k9s  K9's cycle start on the KNP batch (two ions) of the cell (4 x
        124,416 entries a system) and pair (8 x 63,558) layouts, both
        dtypes, on one work built once per solve;
@@ -120,7 +129,7 @@ measured" where the call cannot be captured).  It also prints the cost of
 reading the current stream both ways.
 
 Usage:  python3 time_wrappers.py [--root DIR]
-            [--only k8,k9,k9s,k6,k4,k1,k14,k13,k5,k11,k11e,k10e,k12,k7]
+            [--only k8,k9,k9s,k6,k4,k1,k14,k13,k5,k11,k11e,k10e,k10c,k11c,k12,k7]
         (needs a CUDA card)
 """
 import argparse
@@ -734,6 +743,78 @@ def time_emi_emit(asm, S_cell, gen):
     torch.cuda.empty_cache()
 
 
+def device_us(fn, match, calls=20):
+    """Device microseconds a launch of the kernels whose name holds
+    ``match``, read by the profiler over ``calls`` calls after a warm-up
+    call; None where the profiler saw none."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
+    return sum(us) / len(us) if us else None
+
+
+def time_cells(asm, S_cell, gen, which):
+    """K10's emi_cell (``which`` "k10c") or K11's knp_cell ("k11c") as the
+    step calls it, at a seeded state on the cell layout's tables and the
+    pair layout's padded, renumbered ones, both dtypes."""
+    from knpemidg_tpu_torch import emix
+    from knpemidg_tpu_torch.mesh.generators import box_3d_axons
+
+    routed = "tables" in inspect.signature(asm.emi_cell).parameters
+    tag, name, kernel = (("k10ctime", "emi_cell", "emi_cell_kernel") if which == "k10c"
+                         else ("k11ctime", "knp_cell", "ion_cell_kernel"))
+    print(f"{tag} tables built once and the step's buffers in this tree: {routed}")
+    mesh = box_3d_axons(1, length_factor=2)
+    mesh.vertices *= 1e2
+    S_pair = emix.build_solver(mesh, dtype=torch.float64, device="cuda", pair=True)
+    for layout, S in (("cell", S_cell), ("pair", S_pair)):
+        pair, p, m = layout == "pair", S.params, S.N_ions
+        st = S._initial_state(0.0)
+        c64 = st["c"] * (0.99 + 0.02 * torch.rand(st["c"].shape, generator=gen, device="cuda",
+                                                  dtype=torch.float64))
+        phi64 = 1e-3 * torch.randn(st["phi"].shape, generator=gen, device="cuda",
+                                   dtype=torch.float64)
+        for dtype in (torch.float32, torch.float64):
+            cast = lambda d: {k: (v.to(dtype) if isinstance(v, torch.Tensor)
+                                  and v.is_floating_point() else v) for k, v in d.items()}
+            g = cast(S.g)
+            z, D = S.z.to(dtype), S.D.to(dtype)
+            c, phi = c64.to(dtype).contiguous(), phi64.to(dtype).contiguous()
+            call = torch.cat([c, st["c_elim"].to(dtype)[None]]).contiguous()
+            nc = call.shape[-1]
+            if which == "k10c":
+                # G, c and D of every ion, vol read; kappa, kbar, flux, b_cell written
+                nbytes = (S.nd * (S.nd - 1) + call.shape[0] * (S.nd + 1) + 1
+                          + 2 * S.nd + S.nd) * nc * c.element_size()
+            else:
+                # G, phi, every solved ion's c_n, vol read; gphi, drift, b_cell written
+                nbytes = (S.nd * (S.nd - 1) + S.nd + m * S.nd + 1
+                          + (S.nd - 1) + S.nd + m * S.nd) * nc * c.element_size()
+            if routed:
+                tab = asm.cell_tables(g, z)
+                if which == "k10c":
+                    out = asm.emi_emit_buffers(g, dtype, "cuda", pair)
+                    fn = lambda: asm.emi_cell(g, z, D, call, p.F, p.psi, out=out, tables=tab)
+                else:
+                    out = asm.knp_emit_buffers(g, cast(S.mem_dev), m, dtype, "cuda", pair)
+                    fn = lambda: asm.knp_cell(g, phi, c, p.dt, out=out, tables=tab)
+            else:
+                fn = ((lambda: asm.emi_cell(g, z, D, call, p.F, p.psi)) if which == "k10c"
+                      else (lambda: asm.knp_cell(g, phi, c, p.dt)))
+            label = f"{layout} {str(dtype):14s} {name}"
+            report(tag, label, fn)
+            dus = device_us(fn, kernel)
+            print(f"{tag} {label} dev_us " + ("not measured" if dus is None else f"{dus:.2f}")
+                  + f"  bound {bound_us(nbytes):.2f} us (bytes)")
+    del S_pair
+    torch.cuda.empty_cache()
+
+
 def time_start(ko, dev, gen):
     """K9's cycle start on one work of each layout's KNP batch."""
     for layout, (nd, nc) in (("cell", (4, 124416)), ("pair", (8, NPAIR))):
@@ -858,6 +939,8 @@ def main():
                 "k11": lambda: time_knp_facet(asm, solver(), gen),
                 "k11e": lambda: time_membrane_emit(asm, solver(), gen),
                 "k10e": lambda: time_emi_emit(asm, solver(), gen),
+                "k10c": lambda: time_cells(asm, solver(), gen, "k10c"),
+                "k11c": lambda: time_cells(asm, solver(), gen, "k11c"),
                 "k9s": lambda: time_start(ko, dev, gen),
                 "k12": lambda: time_emit(pairs, dev, gen),
                 "k7": lambda: time_coarse_apply(coarse, dev, gen)}
