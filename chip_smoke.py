@@ -1766,8 +1766,10 @@ def assembly_phase(S, state, results, layout):
 
         # --- K10 -----------------------------------------------------------
         # the cell part as the step calls it: the cell tables built once,
-        # into the step's buffers (z, phibar and the constants by value)
-        ctab = asm.cell_tables(g, zall)
+        # into the step's buffers (z, phibar and the constants by value; D
+        # and rho for alpha_sum and eliminated_concentration)
+        rho = S.rho.to(dtype)
+        ctab = asm.cell_tables(g, zall, D=Dall, rho=rho)
         cbuf = asm.emi_emit_buffers(g, dtype, zall.device, pair)
         emi_cell = lambda: asm.emi_cell(g, zall, Dall, call, p.F, p.psi, out=cbuf, tables=ctab)
         compare(name("emi_cell"), dtype, lambda: [t.clone() for t in emi_cell()],
@@ -1813,15 +1815,21 @@ def assembly_phase(S, state, results, layout):
                 graph=True)
 
         # --- K11 -----------------------------------------------------------
+        kbuf = asm.knp_emit_buffers(g, mem, m, dtype, c.device, pair)
         if layout != "mms":
-            compare(name("alpha_sum"), dtype, lambda: [asm.alpha_sum(zall, Dall, call)],
+            # as the step calls it: z * z by value from the cell tables, c
+            # and c_elim read apart (no concatenation), into the step's
+            # buffer; bit for bit its ordered twin
+            alpha = lambda: asm.alpha_sum(zall, Dall, c, ce, out=kbuf, tables=ctab)
+            compare(name("alpha_sum"), dtype, lambda: [alpha().clone()],
                     lambda: [asm.alpha_sum_plain(zall, Dall, call)],
                     floored(lambda ref: [asm.alpha_sum_plain(zall.abs(), Dall, call.abs())]),
-                    results,
-                    inputs=[zall, Dall, call],
-                    library_fn=lambda: torch.einsum("k,kc,kic->ic", zall * zall, Dall, call))
+                    results, inputs=[Dall, c, ce],
+                    library_fn=lambda: torch.einsum("k,kc,kic->ic", zall * zall, Dall, call),
+                    timed=(alpha, lambda: asm.alpha_sum_plain(zall, Dall, call)), graph=True)
+            twin_exact(name("alpha_sum"), dtype, alpha(),
+                       asm.alpha_sum_ordered_plain(zall, Dall, c, ce))
         asum = asm.alpha_sum_plain(zall, Dall, call)
-        kbuf = asm.knp_emit_buffers(g, mem, m, dtype, c.device, pair)
         knp_cell = lambda: asm.knp_cell(g, phi, c, p.dt, out=kbuf, tables=ctab)
         compare(name("knp_cell"), dtype, lambda: [t.clone() for t in knp_cell()],
                 lambda: list(asm.knp_cell_plain(g, phi, c, p.dt)),
@@ -1897,14 +1905,30 @@ def assembly_phase(S, state, results, layout):
                          asm.nernst_potential_m_plain(g, mem, c[0], float(S.ion_list[0].z),
                                                       p.F, p.R, p.temperature)],
                 floored(trace_scale), results, record=False)
-        rho = S.rho.to(dtype)
-        compare(name("eliminated_concentration"), dtype,
-                lambda: [asm.eliminated_concentration(c, z, rho, z_elim)],
+        # as the step calls it: z, z_elim and rho from the cell tables; bit
+        # for bit its ordered twin (the fused multiply-adds emulated exactly)
+        elim = lambda: asm.eliminated_concentration(c, tables=ctab)
+        compare(name("eliminated_concentration"), dtype, lambda: [elim()],
                 lambda: [asm.eliminated_concentration_plain(c, z, rho, z_elim)],
                 floored(lambda ref: [asm.eliminated_concentration_plain(
                     c.abs(), z.abs(), rho.abs(), abs(z_elim)).abs()]),
-                results, inputs=[c, z, rho],
-                library_fn=lambda: -(torch.einsum("k,kic->ic", z, c) + rho[None, :]) / z_elim)
+                results, inputs=[c, rho],
+                library_fn=lambda: -(torch.einsum("k,kic->ic", z, c) + rho[None, :]) / z_elim,
+                timed=(elim, lambda: asm.eliminated_concentration_plain(c, z, rho, z_elim)),
+                graph=True)
+        twin_exact(name("eliminated_concentration"), dtype, elim(),
+                   asm.eliminated_concentration_ordered_plain(c, z, rho, z_elim))
+
+
+def twin_exact(name, dtype, got, ref):
+    """Fail unless a kernel's output equals its ordered plain twin to the
+    last bit (a zero's sign included)."""
+    torch.cuda.synchronize()
+    same = got.shape == ref.shape and bool((bits(got) == bits(ref)).all())
+    print(f"exact   {name:30s} {str(dtype):14s} "
+          f"{'bitwise its ordered twin' if same else 'FAIL: differs from its ordered twin'}")
+    if not same:
+        raise AssertionError(f"{name} differs from its ordered twin in {dtype}")
 
 
 def membrane_emit_phase(S, g, mem, ga, mema, mem_args, drift, MK, b_cellK, statics, pair,
@@ -3158,28 +3182,66 @@ def variants_phase(mesh, results, launches):
     print(f"variants phase {time.perf_counter() - t0:.1f} s")
 
 
+# the launch counters of the kernels already redesigned for the card after
+# their first port, which the porting rule leaves alone: the one list the
+# rank's marks read (PERF.md's kernel table says by which change)
+REDESIGNED = frozenset({
+    "bell_matvec", "bell_matvec_nd3", "pair_matvec", "to_pair", "from_pair",
+    "gather_blocks_pair", "block_jacobi_apply_nd8", "membrane_rk4", "membrane_rl",
+    "two_level_restrict", "two_level_prolong", "two_level_solve", "two_level_solve_batched",
+    "two_level_coarse_batched", "emi_cell", "emi_facet", "emi_emit_cell", "knp_cell",
+    "knp_facet", "knp_membrane_emit", "membrane_trace", "pcg_dot", "pcg_update",
+    "pcg_dot2_direction", "gmres_start", "gmres_cgs_dot", "gmres_arnoldi", "alpha_sum",
+    "eliminated_concentration"})
+# a kernel at this share of its bound or more in each dtype, no slower than
+# its library call, is left alone by the porting rule
+LEFT_ALONE_SHARE = 0.5
+
+
 def rank_kernels(results, launches_of=None):
     """The redesign order: first every kernel slower than its library call
     in either dtype, the largest ratio first; then the rest by launches in
-    their window times (ms - bound ms) per launch, float64."""
-    slower, rest = [], []
+    their window times (ms - bound ms) per launch, float64.  Each line
+    carries the kernel's share of its bound (bound ms / ms of its timing,
+    float64 / float32) and the porting rule's marks: ``left alone`` (at
+    least LEFT_ALONE_SHARE of its bound in each dtype and no slower than
+    its library call in either) or ``redesigned`` (REDESIGNED).  The last
+    two lines list the unmarked kernels with launches in that order: those
+    of the main path (the cell and pair windows), the next to redesign,
+    and those that only the other paths launch."""
+    on_main = lambda name: (KERNELS[name][2] in ("cell", "pair")
+                            and counter(name) not in OFF_PATH)
+    slower, rest, order, other = [], [], [], []
     for name in KERNELS:
         ratios = [(r["ms"] / r["library_ms"], dt) for dt, r in results[name].items()
                   if r["library_ms"]]
-        worst = max(ratios, default=(0.0, None))
+        worst = max(ratios, key=lambda t: t[0], default=(0.0, None))
+        r = results[name][MAIN_DTYPE]
+        shares = [results[name][dt]["bound_ms"] / results[name][dt]["ms"]
+                  for dt in (MAIN_DTYPE, torch.float32) if dt in results[name]]
+        share = " / ".join(f"{v:.2f}" for v in shares)
+        mark = ("redesigned" if counter(name) in REDESIGNED else
+                "left alone" if min(shares) >= LEFT_ALONE_SHARE and worst[0] <= 1.0 else "")
+        n = (launches_of or {}).get(name, 0)
         if worst[0] > 1.0:
-            slower.append((worst[0], name, worst[1]))
+            slower.append((worst[0], name, worst[1], share, mark, n))
         else:
-            r = results[name][MAIN_DTYPE]
-            n = (launches_of or {}).get(name, 0)
             per = LAUNCHES_PER_TIMING.get(name, 1)
-            rest.append((n * (r["ms"] - r["bound_ms"]) / per, name, n))
-    for ratio, name, dt in sorted(slower, reverse=True):
+            rest.append((n * (r["ms"] - r["bound_ms"]) / per, name, n, share, mark))
+    for ratio, name, dt, share, mark, n in sorted(slower, reverse=True):
         r = results[name][dt]
         print(f"rank    slower than library: {name:32s} {str(dt):14s} kernel {r['ms']:.4f} ms "
-              f"library {r['library_ms']:.4f} ms ({ratio:.2f}x)")
-    for cost, name, n in sorted(rest, reverse=True):
-        print(f"rank    launches x (ms - bound): {name:32s} {n:4d} x -> {cost:.3f} ms")
+              f"library {r['library_ms']:.4f} ms ({ratio:.2f}x)  share {share}"
+              + (f"  {mark}" if mark else ""))
+        if not mark and n:
+            (order if on_main(name) else other).append(name)
+    for cost, name, n, share, mark in sorted(rest, reverse=True):
+        print(f"rank    launches x (ms - bound): {name:32s} {n:4d} x -> {cost:.3f} ms  "
+              f"share {share}" + (f"  {mark}" if mark else ""))
+        if not mark and n:
+            (order if on_main(name) else other).append(name)
+    print("rank    next by the porting rule: " + (", ".join(order[:8]) or "none"))
+    print("rank    unmarked off the main path: " + (", ".join(other[:8]) or "none"))
 
 
 def main():

@@ -42,7 +42,9 @@ and parameters, phi_M and I_ch; K10's emit (k10_emit: the operator, rhs
 and P_diag on cells, A_cell, rhs and reg on pairs) on the step's facet
 blocks at the perturbed state; K10's emi_cell (k10_cell: kappa, kbar,
 flux, b_cell) and K11's knp_cell (k11_cell: gphi, drift, b_cell) at the
-perturbed state and a seeded potential, each layout, both dtypes; and
+perturbed state and a seeded potential, each layout, both dtypes; K11's
+alpha_sum (k11_alpha) and K14's eliminated_concentration (k14_elim) as
+the step calls them at the perturbed state, each layout, both dtypes; and
 K9's cycle start (k9_start) on a
 seeded residual of each layout's KNP batch, both dtypes.  The 2D
 instantiations (nd3 lines, a tree with the MMS path only) at the MMS
@@ -246,6 +248,7 @@ def main():
         k11_digests(S, asm, layout, c, call, phi, st)
         k10_digests(S, asm, layout, call, pM)
         cell_digests(S, asm, layout, c, call, phi)
+        ion_sum_digests(S, asm, layout, c, state["c_elim"])
         k9_start_digests(S, layout)
         # K6 on the pc build's EMI data (the Ritz harvest runs K6 itself)
         sp = emix.solver_params(error_if_not_converged=False)
@@ -565,6 +568,40 @@ def cell_digests(S, asm, layout, c, call, phi):
               f"(inputs {digest([D, calld])})")
         print(f"digest  k11_cell     {layout} {str(dtype):14s} {digest(knp)} "
               f"(inputs {digest([phid, cd])})")
+
+
+def ion_sum_digests(S, asm, layout, c, c_elim):
+    """K11's alpha_sum (k11_alpha) and K14's eliminated_concentration
+    (k14_elim) at the perturbed state, both dtypes; a tree with the step's
+    route calls them as its step does (the cell tables with z, D and rho
+    built once; alpha from c and c_elim apart into the step's buffer, twice:
+    the second call digested), a tree without it as its step did (alpha_sum
+    on the concatenation of c and c_elim, eliminated_concentration on
+    z[:-1])."""
+    routed = "c_elim" in inspect.signature(asm.alpha_sum).parameters
+    print(f"ionsum  the step's route in this tree: {routed}")
+    z_elim = float(S.ion_list[-1].z)
+    for dtype in (torch.float32, torch.float64):
+        cast = lambda d: {k: (v.to(dtype) if isinstance(v, torch.Tensor)
+                              and v.is_floating_point() else v) for k, v in d.items()}
+        z, D, rho = S.z.to(dtype), S.D.to(dtype), S.rho.to(dtype)
+        cd, ced = c.to(dtype).contiguous(), c_elim.to(dtype).contiguous()
+        if routed:
+            g = cast(S.g)
+            tab = asm.cell_tables(g, z, D=D, rho=rho)
+            out = asm.knp_emit_buffers(g, cast(S.mem_dev), S.N_ions, dtype, "cuda",
+                                       layout == "pair")
+            for _ in range(2):
+                alpha = asm.alpha_sum(z, D, cd, ced, out=out, tables=tab)
+            elim = asm.eliminated_concentration(cd, tables=tab)
+        else:
+            alpha = asm.alpha_sum(z, D, torch.cat([cd, ced[None]]))
+            elim = asm.eliminated_concentration(cd, z[:-1], rho, z_elim)
+        torch.cuda.synchronize()
+        print(f"digest  k11_alpha    {layout} {str(dtype):14s} {digest([alpha])} "
+              f"(inputs {digest([D, cd, ced])})")
+        print(f"digest  k14_elim     {layout} {str(dtype):14s} {digest([elim])} "
+              f"(inputs {digest([cd, rho])})")
 
 
 def k9_start_digests(S, layout):

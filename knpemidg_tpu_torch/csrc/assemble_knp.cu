@@ -4,7 +4,9 @@
 // alpha_sum einsum of its caller), which XLA lowers to einsums, stacked
 // gathers, selects and one scatter on the TPU.  Launches per assembly:
 //
-//   alpha_sum         per node: sum_k z_k^2 D_k c_k over all ions;
+//   alpha_sum         per node: sum_k z_k^2 D_k c_k over all ions, the
+//                     solved ions' c and the eliminated ion's c_elim read
+//                     in place through two pointers (see its note below);
 //   ion_cell          per cell: grad(phi), the drift G . grad(phi) and the
 //                     mass part of the rhs (vol/dt) M0 c_n;
 //   ion_facet         per facet: the upwind switch u_p, u_m shared by the
@@ -38,18 +40,73 @@
 #define KNP_MAXD 3
 #define KNP_MAXQ 12           // facet quadrature points of ion_membrane_emit
 
+// alpha_sum: a thread one node, the row from the grid's y index; ND and
+// the ion count NI known at compile time.  Bound: bytes (D (NI, nc) and the
+// NI ions' c read, alpha (ND, nc) written; D's rows are read again by each
+// row's blocks, from L2).  Two nodes a thread with vector accesses measured
+// no faster on the H100 (0-1% in float, one node 2-4% faster in double).  A
+// node's loads (D, the NI - 1 solved ions' c, then c_elim) are issued
+// before its first product, and the sum runs over k = 0..NI-1 in the
+// earlier kernel's order, c_elim last, without contraction (this file's
+// -fmad=false): acc += (zz_k D_k) c_k from zero, so alpha keeps its bits.
+// zz = z * z rounded in T comes by value from the tables
+// (ops/assembly.py: the solver's cell tables on the step's route, tables
+// made for the call on the public route).
 template <typename T>
-__global__ void alpha_sum_kernel(const T* __restrict__ z, const T* __restrict__ D,
-                                 const T* __restrict__ c, T* __restrict__ out, int n_ions,
-                                 int nd, int nc) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)nd * nc) return;
-  const int cell = (int)(idx % nc);
-  const size_t n = (size_t)nc;
+struct AlphaArgs {
+  const T *D, *c, *ce;       // D (NI, nc), c (NI - 1, ND, nc), ce (ND, nc)
+  T* out;
+  T zz[KNP_CELL_MAXI];
+  int nc;
+};
+
+template <typename T, int ND, int NI>
+__global__ void __launch_bounds__(KNP_THREADS) alpha_sum_kernel(const AlphaArgs<T> p) {
+  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
+  if (cell >= p.nc) return;
+  const int a = blockIdx.y;
+  const size_t n = (size_t)p.nc;
+  T d[NI], ck[NI];
+#pragma unroll
+  for (int k = 0; k < NI; ++k) d[k] = p.D[(size_t)k * n + cell];
+#pragma unroll
+  for (int k = 0; k < NI - 1; ++k) ck[k] = p.c[((size_t)k * ND + a) * n + cell];
+  ck[NI - 1] = p.ce[(size_t)a * n + cell];
   T acc = T(0);
-  for (int k = 0; k < n_ions; ++k)
-    acc += ((z[k] * z[k]) * D[(size_t)k * n + cell]) * c[(size_t)k * nd * n + idx];
-  out[idx] = acc;
+#pragma unroll
+  for (int k = 0; k < NI; ++k) acc += (p.zz[k] * d[k]) * ck[k];
+  p.out[(size_t)a * n + cell] = acc;
+}
+
+// the nd and ion-count instantiations: nd in 2..4, 1..KNP_CELL_MAXI ions
+template <typename T>
+static int alpha_sum_launch(const KnpCellTables* t, const T* c, const T* ce, T* out,
+                            void* stream) {
+  if (t->nc < 0) return (int)cudaErrorInvalidValue;
+  if (t->nc == 0) return 0;
+  AlphaArgs<T> p = {static_cast<const T*>(t->D), c, ce, out, {}, t->nc};
+  for (int k = 0; k < KNP_CELL_MAXI; ++k) p.zz[k] = (T)t->zz[k];
+  const dim3 grid(knp_blocks(t->nc), t->nd);
+  cudaStream_t st = (cudaStream_t)stream;
+#define ALPHA_NI(ND, NI)                                                    \
+  case NI:                                                                  \
+    alpha_sum_kernel<T, ND, NI><<<grid, KNP_THREADS, 0, st>>>(p);           \
+    return (int)cudaGetLastError();
+#define ALPHA_ND(ND)                                                                        \
+  case ND:                                                                                  \
+    switch (t->n_ions) {                                                                    \
+      ALPHA_NI(ND, 1) ALPHA_NI(ND, 2) ALPHA_NI(ND, 3)                                       \
+      ALPHA_NI(ND, 4) ALPHA_NI(ND, 5) ALPHA_NI(ND, 6)                                       \
+    }                                                                                       \
+    return (int)cudaErrorInvalidValue;
+  switch (t->nd) {
+    ALPHA_ND(2)
+    ALPHA_ND(3)
+    ALPHA_ND(4)
+  }
+#undef ALPHA_ND
+#undef ALPHA_NI
+  return (int)cudaErrorInvalidValue;
 }
 
 // ion_cell: two cells a thread where every row can be read in pairs, else
@@ -539,11 +596,10 @@ static int membrane_emit_launch(const KnpEmitArgs<T>& a, bool pair, void* stream
 }
 
 #define KNP_ION_ENTRY(SFX, T)                                                            \
-  extern "C" int knp_alpha_sum##SFX(const T* z, const T* D, const T* c, T* out,            \
-                                    int n_ions, int nd, int nc, void* stream) {            \
-    alpha_sum_kernel<T><<<knp_blocks((long long)nd * nc), KNP_THREADS, 0,                  \
-                          (cudaStream_t)stream>>>(z, D, c, out, n_ions, nd, nc);           \
-    return (int)cudaGetLastError();                                                        \
+  extern "C" int knp_alpha_sum##SFX(const void* tables, const T* c, const T* ce, T* out,   \
+                                    void* stream) {                                        \
+    return alpha_sum_launch<T>(static_cast<const KnpCellTables*>(tables), c, ce, out,      \
+                               stream);                                                    \
   }                                                                                        \
   extern "C" int knp_ion_cell##SFX(const void* tables, const T* phi, const T* c_n,        \
                                    T* gphi, T* drift, T* bcell, int m, double dt,          \

@@ -20,15 +20,18 @@ static inline unsigned int knp_blocks(long long n) {
   return (unsigned int)((n + KNP_THREADS - 1) / KNP_THREADS);
 }
 
-// The static tables of the per-cell assembly kernels (K10 emi_cell, K11
-// ion_cell), built and checked once per solver (ops/assembly.cell_tables)
-// and read by their launchers through a pointer; each kernel gets what it
-// uses by value.  z and zz = z * z are rounded in the tables' dtype, as the
+// The static tables of the per-cell and per-node assembly kernels (K10
+// emi_cell, K11 ion_cell and alpha_sum, K14 eliminated), built and checked
+// once per solver (ops/assembly.cell_tables; the public routes of alpha_sum
+// and eliminated build theirs for the call) and read by their launchers
+// through a pointer; each kernel gets what it uses by value.  z and zz = z * z are rounded in the tables' dtype, as the
 // kernels computed them from a table in device memory before.
 #define KNP_CELL_MAXI 6       // the ion counts the cell kernels are built for: 1..6
 struct KnpCellTables {
   const void* G;              // (nd, d, nc)
   const void* vol;            // (nc,)
+  const void* D;              // (n_ions, nc), alpha_sum's, or null
+  const void* rho;            // (nc,), eliminated's, or null
   int nd, d, nc, n_ions;
   double z[KNP_CELL_MAXI], zz[KNP_CELL_MAXI];
   double phibar[4], M0[16];   // phibar (nd,), M0 (nd, nd) row by row

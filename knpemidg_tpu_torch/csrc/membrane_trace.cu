@@ -16,10 +16,11 @@
 //                   (TRACE_JUMP) and coef * the facet average of
 //                   ln(plus / minus) (TRACE_NERNST, the Nernst potential);
 //                   output o of field f at out[o * ostride + f * n_mem];
-//   eliminated      per node: -(sum_k z_k c_k + rho) / z_elim.
+//   eliminated      per node: -(sum_k z_k c_k + rho) / z_elim (see its
+//                   note below).
 //
 // Bound: bytes (the trace tables once, the gathered fields and one output
-// per facet and quantity; the m ion fields and one output per node).
+// per facet and quantity; the m ion fields, rho and one output per node).
 // n_mem is a few thousand, so the trace kernel is bound by its launch: one
 // launch serves every field and quantity of a step's ODE inputs, so the
 // step makes two (those and the finalize jump) instead of one per (tag,
@@ -100,16 +101,98 @@ membrane_trace_kernel(TraceFields<T> fl, const T* __restrict__ Rp, const T* __re
   }
 }
 
+// eliminated: a thread one node, or in float two consecutive cells of a
+// row (CPT = 2, one 8-byte access a row, where nc is even and every
+// pointer aligned to two elements: on the H100 14-16% faster than one node
+// in float, while one node a thread is 3-10% faster than two in double),
+// the row from the grid's y index and rho read at the cell in place; ND
+// and the solved-ion count M known at compile time.  A node's loads (the M
+// ions' c, rho) are issued before its first product.  The sum is the
+// earlier kernel's: this file builds with nvcc's default contraction,
+// which made its acc += z_k c_k a fused multiply-add, written out here as
+// one (knp_fma) so the bits do not rest on the flags: acc = fma(z_k, c_k, acc) over k from zero, then
+// -(acc + rho) / z_elim.  z = the tables' z[:M] and z_elim = z[M] come by
+// value (ops/assembly.py: the solver's cell tables on the step's route,
+// tables made for the call on the public route).
 template <typename T>
-__global__ void eliminated_kernel(const T* __restrict__ c, const T* __restrict__ z,
-                                  const T* __restrict__ rho, T* __restrict__ out, int m,
-                                  int nd, int nc, T z_elim) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long per = (long long)nd * nc;
-  if (idx >= per) return;
-  T acc = T(0);
-  for (int k = 0; k < m; ++k) acc += z[k] * c[(size_t)k * per + idx];
-  out[idx] = -(acc + rho[idx % nc]) / z_elim;
+struct ElimArgs {
+  const T *c, *rho;          // c (M, ND, nc), rho (nc,)
+  T* out;
+  T zk[KNP_CELL_MAXI - 1];
+  T z_elim;
+  int nc;
+};
+
+__device__ __forceinline__ float knp_fma(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double knp_fma(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+template <typename T, int ND, int M, int CPT>
+__global__ void __launch_bounds__(KNP_THREADS) eliminated_kernel(const ElimArgs<T> p) {
+  const int cell = (blockIdx.x * blockDim.x + threadIdx.x) * CPT;
+  if (cell >= p.nc) return;
+  const int a = blockIdx.y;
+  const size_t n = (size_t)p.nc;
+  T ck[M][CPT], r[CPT];
+#pragma unroll
+  for (int k = 0; k < M; ++k) knp_ld<T, CPT>(p.c + ((size_t)k * ND + a) * n + cell, ck[k]);
+  knp_ld<T, CPT>(p.rho + cell, r);
+  T o[CPT];
+#pragma unroll
+  for (int q = 0; q < CPT; ++q) {
+    T acc = T(0);
+#pragma unroll
+    for (int k = 0; k < M; ++k) acc = knp_fma(p.zk[k], ck[k][q], acc);
+    o[q] = -(acc + r[q]) / p.z_elim;
+  }
+  knp_st<T, CPT>(p.out + (size_t)a * n + cell, o);
+}
+
+template <typename T, int ND, int M>
+static int eliminated_run(const ElimArgs<T>& p, bool two, cudaStream_t st) {
+  // two nodes a thread in float only: one is faster in double
+  if constexpr (sizeof(T) == sizeof(float)) {
+    if (two) {
+      eliminated_kernel<T, ND, M, 2><<<dim3(knp_blocks((p.nc + 1) / 2), ND), KNP_THREADS, 0,
+                                       st>>>(p);
+      return (int)cudaGetLastError();
+    }
+  }
+  eliminated_kernel<T, ND, M, 1><<<dim3(knp_blocks(p.nc), ND), KNP_THREADS, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// the nd and ion-count instantiations: nd in 2..4, 1..KNP_CELL_MAXI - 1
+// solved ions
+template <typename T>
+static int eliminated_launch(const KnpCellTables* t, const T* c, T* out, void* stream) {
+  const int m = t->n_ions - 1;
+  if (t->nc < 0 || m < 1) return (int)cudaErrorInvalidValue;
+  if (t->nc == 0) return 0;
+  ElimArgs<T> p = {c, static_cast<const T*>(t->rho), out, {}, (T)t->z[m], t->nc};
+  for (int k = 0; k < m; ++k) p.zk[k] = (T)t->z[k];
+  const size_t v = 2 * sizeof(T);
+  const bool two = p.nc % 2 == 0 && knp_aligned(p.c, v) && knp_aligned(p.rho, v) &&
+                   knp_aligned(p.out, v);
+  cudaStream_t st = (cudaStream_t)stream;
+#define ELIM_M(ND, M) \
+  case M:             \
+    return eliminated_run<T, ND, M>(p, two, st);
+#define ELIM_ND(ND)                                                                          \
+  case ND:                                                                                   \
+    switch (m) { ELIM_M(ND, 1) ELIM_M(ND, 2) ELIM_M(ND, 3) ELIM_M(ND, 4) ELIM_M(ND, 5) }     \
+    return (int)cudaErrorInvalidValue;
+  switch (t->nd) {
+    ELIM_ND(2)
+    ELIM_ND(3)
+    ELIM_ND(4)
+  }
+#undef ELIM_ND
+#undef ELIM_M
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -147,11 +230,10 @@ static int membrane_trace_launch(TraceFields<T> fl, int nf, const T* Rp, const T
     return membrane_trace_launch<T>(fl, nf, Rp, Rm, mcp, mcm, w_f, out, ostride, nq, nd,  \
                                     nc, nm, mask, stream);                                \
   }                                                                                       \
-  extern "C" int knp_eliminated##SFX(const T* c, const T* z, const T* rho, T* out, int m, \
-                                     int nd, int nc, double z_elim, void* stream) {       \
-    eliminated_kernel<T><<<knp_blocks((long long)nd * nc), KNP_THREADS, 0,                \
-                           (cudaStream_t)stream>>>(c, z, rho, out, m, nd, nc, (T)z_elim); \
-    return (int)cudaGetLastError();                                                       \
+  extern "C" int knp_eliminated##SFX(const void* tables, const T* c, T* out,              \
+                                     void* stream) {                                      \
+    const KnpCellTables* t = static_cast<const KnpCellTables*>(tables);                   \
+    return eliminated_launch<T>(t, c, out, stream);                                       \
   }
 
 KNP_TRACE_ENTRY(_f32, float)

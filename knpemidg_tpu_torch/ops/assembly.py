@@ -266,25 +266,30 @@ def _facet_blocks(lead, nd, nf1, like):
 
 
 # ---------------------------------------------------------------------------
-# the per-cell kernels' static tables (K10 emi_cell, K11 knp_cell)
+# the per-cell kernels' static tables (K10 emi_cell, K11 knp_cell and
+# alpha_sum, K14 eliminated_concentration)
 # ---------------------------------------------------------------------------
 
 CELL_MAX_IONS = 6         # the ion counts the cell kernels are built for: 1..6
+NODE_ND = (2, 3, 4)       # the nd alpha_sum and eliminated_concentration are built for
 
 
 class _CellTablesC(ctypes.Structure):
     """The C struct KnpCellTables of csrc/common.cuh (same order)."""
-    _fields_ = [("G", ctypes.c_void_p), ("vol", ctypes.c_void_p)] + [
+    _fields_ = [(k, ctypes.c_void_p) for k in ("G", "vol", "D", "rho")] + [
         (k, ctypes.c_int) for k in ("nd", "d", "nc", "n_ions")] + [
         ("z", ctypes.c_double * CELL_MAX_IONS), ("zz", ctypes.c_double * CELL_MAX_IONS),
         ("phibar", ctypes.c_double * MAX_ND), ("M0", ctypes.c_double * (MAX_ND * MAX_ND))]
 
 
 class CellTables(NamedTuple):
-    """The static tables of :func:`emi_cell` and :func:`knp_cell`."""
+    """The static tables of :func:`emi_cell`, :func:`knp_cell` and the
+    step's routes of :func:`alpha_sum` and :func:`eliminated_concentration`."""
     dims: tuple                  # nd, d, nc, n_ions (0 without z)
     dtype: torch.dtype
     z: Optional[torch.Tensor]    # the charges the tables hold (emi_cell's), or None
+    D: Optional[torch.Tensor]    # the diffusion fields (n_ions, nc) alpha_sum reads, or None
+    rho: Optional[torch.Tensor]  # the background charge (nc,) eliminated_concentration reads
     c_struct: Optional[_CellTablesC]   # on the card: the kernels' tables and constants
     ptr: int                     # its address (0 on the CPU)
     sources: tuple               # G, vol: the tensors c_struct points to
@@ -294,8 +299,9 @@ class CellTables(NamedTuple):
 
 def _buffer_ptrs(tables, out, rows, named):
     """The pointers of the buffers ``named`` {name: (tensor, shape)}, fields
-    of the step's buffers ``out`` holding ``rows`` ions, checked against the
-    tables' dtype and the shapes, kept in the tables under (id(out), rows)
+    of the step's buffers ``out`` holding ``rows`` ions ("alpha": alpha_sum's
+    buffer), checked against the tables' dtype and the shapes, kept in the
+    tables under (id(out), rows)
     with ``out`` (whose id stays its own while it is kept): the step's
     route checks its buffers the first time they meet the tables, and
     later calls read the pointers from there."""
@@ -304,20 +310,26 @@ def _buffer_ptrs(tables, out, rows, named):
     return ptrs
 
 
-def cell_tables(g, z=None) -> CellTables:
+def cell_tables(g, z=None, D=None, rho=None) -> CellTables:
     """The per-cell kernels' static tables of a geometry and the ions'
-    charges ``z`` (n_ions,), which emi_cell reads (knp_cell none).  On the
-    card G, vol, phibar, M0 and z are checked here, not per call (contiguous,
-    G's dtype, their shapes), the shapes against the built kernels (nd =
-    d + 1 <= 4, at most CELL_MAX_IONS ions: NotImplementedError), and z,
-    z * z (rounded in that dtype), phibar and M0 are read to the host once:
-    the launches pass them by value.  A caller that assembles again and
-    again builds them once (Solver._cell_tables) and passes them as
-    ``tables=``; a call without them builds its own."""
+    charges ``z`` (n_ions,), which emi_cell reads (knp_cell none), and, for
+    the step's routes of alpha_sum and eliminated_concentration, the
+    solver's diffusion fields ``D`` (n_ions, nc) and background charge
+    ``rho`` (nc,) (both need z).  On the card G, vol, phibar, M0, z, D and
+    rho are checked here, not per call (contiguous, G's dtype, their
+    shapes), the shapes against the built kernels (nd = d + 1 <= 4, at most
+    CELL_MAX_IONS ions: NotImplementedError), and z, z * z (rounded in that
+    dtype), phibar and M0 are read to the host once: the launches pass them
+    by value.  A caller that assembles again and again builds them once
+    (Solver._cell_tables) and passes them as ``tables=``; a call without
+    them builds its own."""
     G, vol = g["G"], g["vol"]
     fdt, n_ions = G.dtype, 0 if z is None else z.shape[0]
+    if z is None and (D is not None or rho is not None):
+        raise ValueError("cell_tables: D and rho need the charges z")
     if not G.is_cuda:
-        return CellTables(tuple(G.shape) + (n_ions,), fdt, z, None, 0, (G, vol), {})
+        return CellTables(tuple(G.shape) + (n_ions,), fdt, z, D, rho, None, 0,
+                          (G, vol, D, rho), {})
     _, nd, d, nc, _ = _dims(g)
     if nd != d + 1 or n_ions > CELL_MAX_IONS:
         raise NotImplementedError(
@@ -329,20 +341,34 @@ def cell_tables(g, z=None) -> CellTables:
              "M0": (g["M0"], (nd, nd))}
     if z is not None:
         named["z"] = (z, (n_ions,))
+    if D is not None:
+        named["D"] = (D, (n_ions, nc))
+    if rho is not None:
+        named["rho"] = (rho, (nc,))
     for key, (t, shape) in named.items():
         _cuda.check(key, t, fdt, shape)
     host = torch.cat([g["phibar"], g["M0"].reshape(-1)]
                      + ([] if z is None else [z])).tolist()      # one read
     phibar, M0, zs = host[:nd], host[nd:nd + nd * nd], host[nd + nd * nd:]
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    st = _cell_tables_c(fdt, (G.data_ptr(), vol.data_ptr(), ptr(D), ptr(rho)),
+                        (nd, d, nc), zs, phibar, M0)
+    return CellTables((nd, d, nc, n_ions), fdt, z, D, rho, st, ctypes.addressof(st),
+                      (G, vol, D, rho), {})
+
+
+def _cell_tables_c(fdt, ptrs, dims, zs, phibar=(), M0=()):
+    """The C struct of :func:`cell_tables` from the pointers (G, vol, D,
+    rho; 0 for none), (nd, d, nc), the charges ``zs`` (host floats) with
+    their squares rounded in ``fdt``, phibar and M0 (host floats)."""
     rnd = np.float32 if fdt == torch.float32 else np.float64
     zz = [float(rnd(v) * rnd(v)) for v in zs]
-    pad = lambda v, n: v + [0.0] * (n - len(v))
-    st = _CellTablesC(G.data_ptr(), vol.data_ptr(), nd, d, nc, n_ions,
-                      (ctypes.c_double * CELL_MAX_IONS)(*pad(zs, CELL_MAX_IONS)),
-                      (ctypes.c_double * CELL_MAX_IONS)(*pad(zz, CELL_MAX_IONS)),
-                      (ctypes.c_double * MAX_ND)(*pad(phibar, MAX_ND)),
-                      (ctypes.c_double * (MAX_ND * MAX_ND))(*pad(M0, MAX_ND * MAX_ND)))
-    return CellTables((nd, d, nc, n_ions), fdt, z, st, ctypes.addressof(st), (G, vol), {})
+    pad = lambda v, n: list(v) + [0.0] * (n - len(v))
+    return _CellTablesC(*ptrs, *dims, len(zs),
+                        (ctypes.c_double * CELL_MAX_IONS)(*pad(zs, CELL_MAX_IONS)),
+                        (ctypes.c_double * CELL_MAX_IONS)(*pad(zz, CELL_MAX_IONS)),
+                        (ctypes.c_double * MAX_ND)(*pad(phibar, MAX_ND)),
+                        (ctypes.c_double * (MAX_ND * MAX_ND))(*pad(M0, MAX_ND * MAX_ND)))
 
 
 # ---------------------------------------------------------------------------
@@ -742,15 +768,79 @@ def alpha_sum_plain(z, D, c):
     return torch.einsum("k,kc,kic->ic", z * z, D, c).contiguous()
 
 
-def alpha_sum(z, D, c):
-    """:func:`alpha_sum_plain`, kernel K11 ``alpha_sum`` on a CUDA tensor."""
+def alpha_sum_ordered_plain(z, D, c, c_elim):
+    """:func:`alpha_sum_plain` summed in the kernel's order, from ``c`` the
+    solved ions' (n - 1, nd, nc) and ``c_elim`` (nd, nc), the last term:
+    acc = acc + (zz_k D_k) c_k from zero, zz = z * z in the dtype, each
+    product and sum rounded apart (the kernel builds without contraction),
+    so on the card the kernel equals it to the last bit."""
+    zz = z * z
+    acc = torch.zeros_like(c_elim)
+    for k, ck in enumerate(list(c) + [c_elim]):
+        acc = acc + (zz[k] * D[k]) * ck
+    return acc
+
+
+def alpha_sum(z, D, c, c_elim=None, out=None, tables=None):
+    """:func:`alpha_sum_plain`, kernel K11 ``alpha_sum`` on a CUDA tensor:
+    one launch, a thread one node, for nd in NODE_ND and 1 to
+    CELL_MAX_IONS ions (NotImplementedError otherwise).  Two routes:
+
+    * the public one, ``alpha_sum(z, D, c)``: z, D and c (n, nd, nc) checked
+      each call, z read to the host (z * z comes by value), a new tensor;
+    * the step's, ``alpha_sum(z, D, c, c_elim, out=None, tables=)``:
+      ``tables`` :func:`cell_tables` of these ``z`` and ``D`` (checked when
+      they were built), ``c`` the solved ions' (n - 1, nd, nc) and
+      ``c_elim`` the eliminated ion's (nd, nc), the last ion, read in place
+      with no concatenation (on the CPU the plain version runs on their
+      concatenation); only c, c_elim and, the first time they meet the
+      tables, the buffers are checked.  ``out``: buffers of
+      :func:`knp_emit_buffers` whose alpha is written and returned (on the
+      CPU the plain result is copied into it); without it a new tensor.
+
+    ``c_elim`` and ``out`` go only with ``tables`` (ValueError)."""
+    if (tables is None) != (c_elim is None) or (out is not None and tables is None):
+        raise ValueError("alpha_sum: c_elim and out go with tables (the step's route), "
+                         "which reads c_elim apart")
+    if tables is not None and (tables.D is None or tables.z is not z or tables.D is not D):
+        raise ValueError("alpha_sum: tables built without D, or for other charges z "
+                         "or fields D")
     if not c.is_cuda:
-        return alpha_sum_plain(z, D, c)
-    n, nd, nc = c.shape
-    ins = _inputs(c.dtype, z=(z, (n,)), D=(D, (n, nc)), c=(c, (n, nd, nc)))
-    out = torch.empty((nd, nc), dtype=c.dtype, device=c.device)
-    _cuda.launch("alpha_sum", "knp_alpha_sum", c.dtype, *ins, out.data_ptr(), n, nd, nc)
-    return out
+        res = alpha_sum_plain(z, D, c if c_elim is None else torch.cat([c, c_elim[None]]))
+        if out is None:
+            return res
+        out.alpha.copy_(res)
+        return out.alpha
+    if tables is None:
+        n, nd, nc = c.shape
+        dt_ = c.dtype
+    else:
+        nd, _, nc, n = tables.dims
+        dt_ = tables.dtype
+    if not (1 <= n <= CELL_MAX_IONS and nd in NODE_ND):
+        raise NotImplementedError(
+            f"alpha_sum: CUDA kernel built for nd in {NODE_ND} and 1 to {CELL_MAX_IONS} "
+            f"ions, got nd = {nd}, {n} ions")
+    if tables is None:
+        cp = _ptr("c", c, dt_, (n, nd, nc))
+        ce = cp + (n - 1) * nd * nc * c.element_size()
+        _, dp = _inputs(dt_, z=(z, (n,)), D=(D, (n, nc)))
+        st = _cell_tables_c(dt_, (0, 0, dp, 0), (nd, nd - 1, nc), z.tolist())
+        res = torch.empty((nd, nc), dtype=dt_, device=c.device)
+        _cuda.launch("alpha_sum", "knp_alpha_sum", dt_, ctypes.addressof(st), cp, ce,
+                     res.data_ptr())
+        return res
+    cp, ce = _ptr("c", c, dt_, (n - 1, nd, nc)), _ptr("c_elim", c_elim, dt_, (nd, nc))
+    if out is None:
+        res = torch.empty((nd, nc), dtype=dt_, device=c.device)
+        optr = res.data_ptr()
+    else:
+        res = out.alpha
+        hit = tables.buffers.get((id(out), "alpha"))
+        optr = hit[1][0] if hit else _buffer_ptrs(tables, out, "alpha", {
+            "out_alpha": (res, (nd, nc))})[0]
+    _cuda.launch("alpha_sum", "knp_alpha_sum", dt_, tables.ptr, cp, ce, optr)
+    return res
 
 
 def knp_cell_plain(g, phi, c_n, dt):
@@ -1050,7 +1140,8 @@ def knp_emit_tables(g, mem_t) -> KnpEmitTables:
 
 class KnpEmitOut(NamedTuple):
     """The buffers of the step's KNP assembly: what
-    :func:`knp_membrane_emit` writes, then what :func:`knp_cell` writes."""
+    :func:`knp_membrane_emit` writes, then what :func:`knp_cell` and
+    :func:`alpha_sum` write."""
     blocks: torch.Tensor       # (m, K, nd, nd, nc); pair layout: the drift blocks (m, nd, nd, nc)
     rhs: torch.Tensor          # (m, nd, nc)
     b_p: torch.Tensor          # (m, nd, n_mem) the membrane rhs
@@ -1058,18 +1149,19 @@ class KnpEmitOut(NamedTuple):
     gphi: torch.Tensor         # (d, nc)
     drift: torch.Tensor        # (nd, nc)
     b_cell: torch.Tensor       # (m, nd, nc)
+    alpha: torch.Tensor        # (nd, nc) alpha_sum, which the membrane emit reads
 
 
 def knp_emit_buffers(g, mem_t, m, dtype, device, pair=False) -> KnpEmitOut:
-    """Output buffers of :func:`knp_membrane_emit` and :func:`knp_cell` for
-    a caller that assembles the same operators again and again (the
-    solver's step)."""
+    """Output buffers of :func:`knp_membrane_emit`, :func:`knp_cell` and
+    :func:`alpha_sum` for a caller that assembles the same operators again
+    and again (the solver's step)."""
     nd, nc, nm = mem_t["Rp"].shape[1], g["cf_idx"].shape[1], mem_t["Rp"].shape[2]
     K, d = g["cf_idx"].shape[0] + 1, g["G"].shape[1]
     new = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
     return KnpEmitOut(new(m, nd, nd, nc) if pair else new(m, K, nd, nd, nc), new(m, nd, nc),
                       new(m, nd, nm), new(m, nd, nm), new(d, nc), new(nd, nc),
-                      new(m, nd, nc))
+                      new(m, nd, nc), new(nd, nc))
 
 
 def knp_membrane_emit_plain(g, mem_t, z, D, c_k, alpha_sum, phi, phi_M, I_ch, I_ch_tot, F,
@@ -1382,14 +1474,93 @@ def eliminated_concentration_plain(c, z, rho, z_elim):
     return (-(acc + rho[None, :]) / z_elim).contiguous()
 
 
-def eliminated_concentration(c, z, rho, z_elim):
+def _fma(a, b, c):
+    """a * b + c rounded once, as a fused multiply-add, from torch's
+    correctly rounded operations (Boldo and Melquiond, "Emulation of FMA
+    and correctly rounded sums: proved algorithms using rounding to odd",
+    IEEE Trans. Computers 57(4), 2008): Dekker's exact product a b = uh +
+    ul (Veltkamp's split), the exact sum c + uh = th + tl, tl + ul rounded
+    to odd, then th plus that rounded to nearest.  Tensors of one float
+    dtype, far from overflow and underflow."""
+    # Veltkamp's factor 2^ceil(p/2) + 1 (p = 24, 53 significand bits)
+    split, ibits = {torch.float32: (4097.0, torch.int32),
+                    torch.float64: (134217729.0, torch.int64)}[a.dtype]
+
+    def halves(x):
+        t = split * x
+        hi = t - (t - x)
+        return hi, x - hi
+
+    def two_sum(x, y):
+        s = x + y
+        yy = s - x
+        return s, (x - (s - yy)) + (y - yy)
+
+    uh = a * b
+    ah, al = halves(a)
+    bh, bl = halves(b)
+    ul = al * bl - (((uh - ah * bh) - al * bh) - ah * bl)
+    th, tl = two_sum(c, uh)
+    v, e = two_sum(tl, ul)
+    even = (v.view(ibits) & 1) == 0
+    inf = torch.full_like(v, float("inf"))
+    v = torch.where((e != 0) & even, torch.nextafter(v, torch.where(e > 0, inf, -inf)), v)
+    return th + v
+
+
+def eliminated_concentration_ordered_plain(c, z, rho, z_elim):
+    """:func:`eliminated_concentration_plain` in the kernel's arithmetic: acc
+    = fma(z_k, c_k, acc) from zero over k (the fused multiply-add that
+    nvcc's default contraction made of the earlier kernel's acc += z_k c_k,
+    which the kernel writes out), then -(acc + rho) / z_elim, the division
+    by a tensor (a CUDA division by a host scalar multiplies by its
+    reciprocal), so on the card the kernel equals it to the last bit."""
+    acc = torch.zeros_like(c[0])
+    for k in range(c.shape[0]):
+        acc = _fma(z[k].expand_as(acc), c[k], acc)
+    return torch.div(-(acc + rho[None, :]), torch.full_like(acc, z_elim))
+
+
+def eliminated_concentration(c, z=None, rho=None, z_elim=None, tables=None):
     """c_N = -(1/z_N)(sum_k z_k c_k + rho) (kernel K14 ``eliminated`` on a
-    CUDA tensor)."""
+    CUDA tensor: one launch, a thread one node (or, in float32, two cells of
+    a row), for nd in NODE_ND and 1 to CELL_MAX_IONS - 1 solved ions;
+    NotImplementedError otherwise).  The public route checks c, z and rho
+    each call and reads z to the host (z and z_elim come by value).
+    ``tables``: :func:`cell_tables` of the solver's charges and ``rho``
+    (checked when they were built): the step's route, on which z = the
+    tables' z[:-1], z_elim = z[-1] and rho come from the tables (pass none
+    of them) and only c is checked.  The result is a new tensor on every
+    route: the caller's state holds it and the next step reads it, so a
+    buffer owned by the step would alias a state the caller may still
+    hold."""
+    if tables is not None:
+        if z is not None or rho is not None or z_elim is not None:
+            raise ValueError("eliminated_concentration: with tables, z, rho and z_elim "
+                             "come from the tables")
+        if tables.rho is None:
+            raise ValueError("eliminated_concentration: tables built without rho")
     if not c.is_cuda:
+        if tables is not None:
+            z, rho, z_elim = tables.z[:-1], tables.rho, float(tables.z[-1])
         return eliminated_concentration_plain(c, z, rho, z_elim)
-    m, nd, nc = c.shape
-    ins = _inputs(c.dtype, c=(c, (m, nd, nc)), z=(z, (m,)), rho=(rho, (nc,)))
-    out = torch.empty((nd, nc), dtype=c.dtype, device=c.device)
-    _cuda.launch("eliminated_concentration", "knp_eliminated", c.dtype, *ins,
-                 out.data_ptr(), m, nd, nc, float(z_elim))
+    if tables is not None:
+        nd, _, nc, n = tables.dims
+        m, dt_ = n - 1, tables.dtype
+    else:
+        m, nd, nc = c.shape
+        dt_ = c.dtype
+    if not (1 <= m < CELL_MAX_IONS and nd in NODE_ND):
+        raise NotImplementedError(
+            f"eliminated_concentration: CUDA kernel built for nd in {NODE_ND} and 1 to "
+            f"{CELL_MAX_IONS - 1} solved ions, got nd = {nd}, {m} ions")
+    cp = _ptr("c", c, dt_, (m, nd, nc))
+    out = c.new_empty((nd, nc))               # c's dtype and device, checked above
+    if tables is None:
+        _, rp = _inputs(dt_, z=(z, (m,)), rho=(rho, (nc,)))
+        st = _cell_tables_c(dt_, (0, 0, 0, rp), (nd, nd - 1, nc), z.tolist() + [float(z_elim)])
+        ptr = ctypes.addressof(st)
+    else:
+        ptr = tables.ptr
+    _cuda.launch("eliminated_concentration", "knp_eliminated", dt_, ptr, cp, out.data_ptr())
     return out

@@ -55,6 +55,7 @@ def permute_cells(S, perm: np.ndarray):
             S.mem_dev[k] = inv_t[S.mem_dev[k].long()].to(S.mem_dev[k].dtype)
     S.D = S.D[:, perm_t].contiguous()
     S.rho = S.rho[perm_t].contiguous()
+    S.__dict__.pop("_emit_bufs", None)     # the cell tables point at the old arrays
     S._comp_np = S._comp_np[perm]
     S._cell_perm = perm
     S._cell_perm_inv = inv
@@ -103,6 +104,7 @@ def pad_cell_axis(S, extra: int):
                          dtype=S.D.dtype, device=S.D.device)
     S.D = torch.cat([S.D, Dm], dim=1)
     S.rho = _pad_last(S.rho, extra, 0.0)
+    S.__dict__.pop("_emit_bufs", None)     # the cell tables point at the old arrays
     oh, ids = S._comp_arrays()                    # built at the real size
     S._comp_onehot = torch.nn.functional.pad(oh, (0, extra))   # zero columns:
     S._comp_ids = torch.nn.functional.pad(ids, (0, extra))     # pads invisible

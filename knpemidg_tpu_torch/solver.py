@@ -441,8 +441,9 @@ class Solver:
         blocks and rhs, b_p, b_m; assembly.knp_emit_buffers).  Only
         _pde_step passes them (the "emi_emit" and "membrane_emit" buffers
         also hold the step's cell parts, assembly.emi_cell's and
-        knp_cell's): each step's emit overwrites the previous step's
-        operator, which nothing holds past its solve (the
+        knp_cell's, and the latter alpha_sum's alpha, which the membrane
+        emit reads in the same assembly): each step's emit overwrites the
+        previous step's operator, which nothing holds past its solve (the
         predictor's guess is a new tensor; the pc builds, the Ritz harvest
         and the tests emit into new tensors)."""
         bufs = self.__dict__.setdefault("_emit_bufs", {})
@@ -476,13 +477,14 @@ class Solver:
 
     def _cell_tables(self):
         """The per-cell assembly kernels' static tables (assembly.cell_tables:
-        G, vol, phibar, M0 and the charges z), built and checked once per
+        G, vol, phibar, M0, the charges z and, for alpha_sum and
+        eliminated_concentration, D and rho), built and checked once per
         dtype and kept with the emit buffers: a new cell numbering or
         physics (_invalidate_caches) drops them with those."""
         bufs = self.__dict__.setdefault("_emit_bufs", {})
         key = ("cell_tables", self.dtype)
         if key not in bufs:
-            bufs[key] = assembly.cell_tables(self.g, self.z)
+            bufs[key] = assembly.cell_tables(self.g, self.z, D=self.D, rho=self.rho)
         return bufs[key]
 
     def _knp_static(self, k):
@@ -693,8 +695,10 @@ class Solver:
         EMI-only solver, whose c is frozen), time (kept with
         ``advance_time=False``)."""
         phi_M = assembly.jump_phi_M_m(self.g, self.mem_dev, phi)
+        # the solver's z, rho and z_elim = z[-1] from its cell tables (checked
+        # once); c_elim is a new tensor each step (the state holds it)
         c_elim = state["c_elim"] if self._emi_only else assembly.eliminated_concentration(
-            c, self.z[:-1], self.rho, float(self.ion_list[-1].z))
+            c, tables=self._cell_tables())
         new_state = dict(state)
         new_state.update(c=c, c_elim=c_elim, phi=phi, phi_M=phi_M,
                          t=t + self.params.dt if advance_time else t)
@@ -707,10 +711,11 @@ class Solver:
         """KNP assembly for all solved ions in one pass:
         (blocks (m, K, nd, nd, nc), rhs (m, nd, nc)), or ((pdK, peK), rhs)
         on the pair layout (``out``: the pair emit's buffers, ``buffers``
-        the membrane emit's, see _emit_out).  ``t``: the time of the ion
-        sources (f_source), added to the rhs."""
-        call = self._all_c(c, c_elim)
-        alpha_sum = assembly.alpha_sum(self.z, self.D, call)
+        the membrane emit's, see _emit_out; alpha_sum writes their alpha).
+        ``t``: the time of the ion sources (f_source), added to the rhs."""
+        tab = self._cell_tables()
+        # c and c_elim read in place (no concatenation)
+        alpha_sum = assembly.alpha_sum(self.z, self.D, c, c_elim, out=buffers, tables=tab)
         # the ion-stacked static operator (-1), in pair form (-2) on the
         # pair layout, both cached by attach_pc
         cache = getattr(self, "_knp_static_blocks", {})
@@ -727,7 +732,7 @@ class Solver:
             mem_t=self.mem_dev, static_blocks=statics,
             splitting=self.splitting_scheme,
             pm=self.pairs if self.pair_layout else None, out=out, buffers=buffers,
-            tables=self._membrane_emit_tables(), cell_tables=self._cell_tables())
+            tables=self._membrane_emit_tables(), cell_tables=tab)
         src = self._ion_sources(t)
         return blocksK, rhsK if src is None else (rhsK + src).contiguous()
 

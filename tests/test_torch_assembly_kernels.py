@@ -161,6 +161,96 @@ def test_solver_passes_its_cell_tables_and_step_buffers(monkeypatch):
     assert S._cell_tables() is not tab
 
 
+def _ion_sums_through_the_step_route(Sj, St, x):
+    """K11's alpha_sum and K14's eliminated_concentration as the step calls
+    them (the solver's cell tables: z, D and rho; c and c_elim apart; alpha
+    into the step's buffer): on the CPU the plain results on the
+    concatenation exactly, alpha_sum against the JAX step's einsum over the
+    concatenation (knpemidg_tpu/solver.py) and eliminated_concentration
+    against the JAX function, both to 1e-14; and the kernels' ordered twins
+    (the card's arithmetic) to round-off."""
+    tab, ko_ = St._cell_tables(), St._emit_out("membrane_emit")
+    assert tab.z is St.z and tab.D is St.D and tab.rho is St.rho
+    c, ce, call = t64(x["c"]), t64(x["c_elim"]), t64(x["call"])
+    got = assembly.alpha_sum(St.z, St.D, c, ce, out=ko_, tables=tab)
+    assert got is ko_.alpha and got.is_contiguous()
+    assert torch.equal(got, assembly.alpha_sum_plain(St.z, St.D, call))
+    want = jnp.einsum("k,kc,kic->ic", Sj.z ** 2, Sj.D, jnp.asarray(x["call"]))
+    assert rel(got, want) < 1e-14
+    assert rel(assembly.alpha_sum_ordered_plain(St.z, St.D, c, ce), want) < 1e-14
+    el = assembly.eliminated_concentration(c, tables=tab)
+    z_elim = float(Sj.ion_list[-1].z)
+    want = jasm.eliminated_concentration(jnp.asarray(x["c"]), Sj.z[:-1], Sj.rho, z_elim)
+    assert el.is_contiguous() and rel(el, want) < 1e-14
+    assert torch.equal(el, assembly.eliminated_concentration_plain(c, St.z[:-1], St.rho,
+                                                                   z_elim))
+    assert rel(assembly.eliminated_concentration_ordered_plain(c, St.z[:-1], St.rho, z_elim),
+               want) < 1e-14
+    with pytest.raises(ValueError):          # the tables carry z, rho and z_elim
+        assembly.eliminated_concentration(c, St.z[:-1], St.rho, z_elim, tables=tab)
+    for kw in ({}, {"out": ko_}):            # c_elim and out go with the tables
+        with pytest.raises(ValueError):
+            assembly.alpha_sum(St.z, St.D, c, ce, **kw)
+    with pytest.raises(ValueError):
+        assembly.alpha_sum(St.z, St.D, call, out=ko_)
+
+
+def test_ion_sums_through_the_step_route(solvers):
+    _ion_sums_through_the_step_route(*solvers)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fma_emulation_rounds_once(dtype):
+    """assembly._fma (the eliminated kernel's ordered twin) equals a * b + c
+    rounded once, from exact rational arithmetic, on seeded inputs with
+    heavy cancellation, a zero addend and the kernel's magnitudes."""
+    from fractions import Fraction
+    rng = np.random.default_rng(23)
+    n = 3000
+    a = rng.standard_normal(n) * 3
+    b = rng.uniform(0.5, 150.0, n)
+    c = rng.standard_normal(n) * 100
+    c[: n // 2] = -(a[: n // 2] * b[: n // 2]) * (1 + 1e-6 * rng.standard_normal(n // 2))
+    c[n // 2: n // 2 + 50] = 0.0
+    a, b, c = (torch.as_tensor(v).to(dtype) for v in (a, b, c))
+    got = assembly._fma(a, b, c)
+    tiny = np.float32 if dtype == torch.float32 else np.float64
+    for ga, aa, bb, cc in zip(got.tolist(), a.tolist(), b.tolist(), c.tolist()):
+        v = Fraction(aa) * Fraction(bb) + Fraction(cc)
+        r = tiny(float(v))                # nearest double, then the dtype's neighbours
+        cands = (np.nextafter(r, tiny(-np.inf)), r, np.nextafter(r, tiny(np.inf)))
+        best = min(cands, key=lambda q: (abs(Fraction(float(q)) - v),
+                                         int(np.array(q).view(f"i{np.dtype(tiny).itemsize}"))
+                                         & 1))
+        assert ga == float(best)
+
+
+def test_solver_routes_its_ion_sums_through_its_tables(monkeypatch):
+    """Two steps of the 2D neuron: every alpha_sum reads the solver's cell
+    tables (the pc build's KNP assembly too) and writes the step's alpha
+    buffer only from _pde_step; every eliminated_concentration reads the
+    tables and returns a new tensor (the state keeps it)."""
+    seen = {"alpha_sum": [], "eliminated_concentration": []}
+    for name in seen:
+        fn = getattr(assembly, name)
+
+        def spy(*args, _fn=fn, _name=name, **kw):
+            res = _fn(*args, **kw)
+            seen[_name].append((kw.get("out"), kw.get("tables"), res))
+            return res
+
+        monkeypatch.setattr(assembly, name, spy)
+    S, sp = tp.neuron_2d_torch()
+    S.solve_system_active(2e-4, 0.0, sp)
+    tab, ko_ = S._cell_tables(), S._emit_out("membrane_emit")
+    assert len(seen["alpha_sum"]) == 3 and len(seen["eliminated_concentration"]) == 2
+    assert all(t is tab for calls in seen.values() for _, t, _ in calls)
+    assert seen["alpha_sum"][0][0] is None
+    assert all(o is ko_ and r is ko_.alpha for o, _, r in seen["alpha_sum"][1:])
+    outs = [r for _, _, r in seen["eliminated_concentration"]]
+    assert outs[0] is not outs[1] and not any(r is ko_.alpha for r in outs)
+
+
 def test_emi_facet_blocks_match_jax(solvers):
     """The facet blocks against _sip_blocks + _jump_jump_blocks; the dummy
     facet's blocks are exactly zero."""
@@ -584,6 +674,12 @@ def test_pair_cell_parts_through_the_step_route(pair_solvers):
     """The step's route of the cell parts on the pair layout's padded,
     renumbered cell axis (the pair layout's buffers)."""
     _cell_parts_through_the_step_route(*pair_solvers)
+
+
+def test_pair_ion_sums_through_the_step_route(pair_solvers):
+    """alpha_sum and eliminated_concentration through the step's route on
+    the pair layout's padded, renumbered cell axis."""
+    _ion_sums_through_the_step_route(*pair_solvers)
 
 
 def test_pair_emi_assembly_matches_jax(pair_solvers):

@@ -1866,6 +1866,196 @@ def test_cell_kernels_refuse_tables_of_other_charges(main_solver):
     assert _cuda.LAUNCHES == n0
 
 
+def _node_tables(nd, nc, n, dtype, dev, rng):
+    """Seeded cell tables of nd = d + 1 basis functions on nc cells with n
+    ions' charges, diffusion fields and a background charge (the step's
+    route of alpha_sum and eliminated_concentration reads z, D and rho)."""
+    to = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    g = {"G": to(rng.standard_normal((nd, nd - 1, nc))), "vol": to(rng.uniform(1, 2, nc)),
+         "phibar": to(np.full(nd, 1.0 / nd)), "M0": to(np.eye(nd)),
+         "f_Rp": to(np.zeros((1, nd, 1)))}
+    z = to(rng.choice([-2.0, -1.0, 1.0, 2.0], n))
+    D = to(rng.uniform(1e-9, 2e-9, (n, nc)))
+    rho = to(rng.standard_normal(nc))
+    return g, z, D, rho
+
+
+def _off(t):
+    """A copy of t one element off the two-element alignment."""
+    return torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(
+        t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("nd", [2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ion_sum_kernels_equal_their_ordered_twins(nd, dtype):
+    """K11's alpha_sum at 1-6 ions and K14's eliminated_concentration at 1-5
+    solved ions, nd 2-4, on both routes (the public call, z read to the
+    host; the step's, z by value from the cell tables, c and c_elim apart)
+    and, for eliminated_concentration, both shapes of a thread (in float32
+    two nodes at an even cell count; one at an odd count, on inputs one
+    element off the alignment and in float64): each output equals the
+    kernel-order plain twin to the last bit (alpha_sum_ordered_plain;
+    eliminated_concentration_ordered_plain, the fused multiply-adds
+    emulated exactly), and one counted launch a call."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(71)
+    for nc in (2000, 1001):
+        for n in range(1, assembly.CELL_MAX_IONS + 1):
+            g, z, D, rho = _node_tables(nd, nc, n, dtype, dev, rng)
+            tab = assembly.cell_tables(g, z, D=D, rho=rho)
+            c = torch.as_tensor(rng.uniform(1.0, 100.0, (n, nd, nc)), dtype=dtype, device=dev)
+            cs, ce = c[:-1].contiguous(), c[-1].contiguous()
+            out = assembly.KnpEmitOut(*[None] * 7, torch.empty((nd, nc), dtype=dtype,
+                                                               device=dev))
+            want = assembly.alpha_sum_ordered_plain(z, D, cs, ce)
+            n0 = _cuda.LAUNCHES["alpha_sum"]
+            runs = [assembly.alpha_sum(z, D, c), assembly.alpha_sum(z, D, cs, ce, tables=tab),
+                    assembly.alpha_sum(z, D, cs, ce, out=out, tables=tab).clone()]
+            assert _cuda.LAUNCHES["alpha_sum"] == n0 + len(runs)
+            for i, got in enumerate(runs):
+                assert torch.equal(_bits(got), _bits(want)), (n, nc, i)
+            if n == 1:
+                continue
+            m = n - 1
+            want = assembly.eliminated_concentration_ordered_plain(cs, z[:m], rho,
+                                                                   float(z[m]))
+            n0 = _cuda.LAUNCHES["eliminated_concentration"]
+            zs = z[:m].contiguous()
+            runs = [assembly.eliminated_concentration(cs, zs, rho, float(z[m])),
+                    assembly.eliminated_concentration(cs, tables=tab)]
+            if nc % 2 == 0:
+                runs += [assembly.eliminated_concentration(_off(cs), tables=tab),
+                         assembly.eliminated_concentration(cs, zs, _off(rho), float(z[m]))]
+            assert _cuda.LAUNCHES["eliminated_concentration"] == n0 + len(runs)
+            for i, got in enumerate(runs):
+                assert torch.equal(_bits(got), _bits(want)), (m, nc, i)
+
+
+@pytest.fixture(scope="module")
+def main_pair_solver():
+    """chip_smoke.py's pair-layout solver (127,116 padded cells) on the card."""
+    cuda_or_skip()
+    from knpemidg_tpu_torch import emix
+    from knpemidg_tpu_torch.mesh.generators import box_3d_axons
+
+    mesh = box_3d_axons(1, length_factor=2)
+    mesh.vertices *= 1e2
+    return emix.build_solver(mesh, dtype=torch.float64, device="cuda", pair=True)
+
+
+@pytest.mark.parametrize("layout", ["cell", "pair"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ion_sums_on_the_step_route_at_the_main_shapes(request, layout, dtype):
+    """The step's route at the main path's shapes (124,416 cells; the pair
+    layout's 127,116 padded ones): alpha_sum from c and c_elim apart into
+    the step's buffer and eliminated_concentration from the cell tables,
+    each bit for bit its ordered twin and the public call on the
+    concatenation (the route the step took before)."""
+    cuda_or_skip()
+    S = request.getfixturevalue("main_solver" if layout == "cell" else "main_pair_solver")
+    rng = np.random.default_rng(72)
+    st = S._initial_state(0.0)
+    to = lambda a: torch.as_tensor(a, dtype=dtype, device=S.device)
+    c = (st["c"].to(dtype) * to(rng.uniform(0.99, 1.01, tuple(st["c"].shape)))).contiguous()
+    ce = (st["c_elim"].to(dtype) * to(rng.uniform(0.99, 1.01, tuple(st["c_elim"].shape))))
+    cast = lambda d: {k: (v.to(dtype) if isinstance(v, torch.Tensor)
+                          and v.is_floating_point() else v) for k, v in d.items()}
+    g, mem = cast(S.g), cast(S.mem_dev)
+    z, D, rho = S.z.to(dtype), S.D.to(dtype), S.rho.to(dtype)
+    tab = assembly.cell_tables(g, z, D=D, rho=rho)
+    out = assembly.knp_emit_buffers(g, mem, S.N_ions, dtype, S.device, layout == "pair")
+    got = assembly.alpha_sum(z, D, c, ce, out=out, tables=tab)
+    assert got is out.alpha
+    call = torch.cat([c, ce[None]])
+    for ref in (assembly.alpha_sum_ordered_plain(z, D, c, ce), assembly.alpha_sum(z, D, call)):
+        assert torch.equal(_bits(got), _bits(ref))
+    el = assembly.eliminated_concentration(c, tables=tab)
+    z_elim = float(S.ion_list[-1].z)
+    for ref in (assembly.eliminated_concentration_ordered_plain(c, z[:-1], rho, z_elim),
+                assembly.eliminated_concentration(c, z[:-1].contiguous(), rho, z_elim)):
+        assert torch.equal(_bits(el), _bits(ref))
+
+
+@pytest.mark.parametrize("name,kernel", [("alpha_sum", "alpha_sum_kernel"),
+                                         ("eliminated_concentration", "eliminated_kernel")])
+def test_ion_sum_is_one_launch_on_the_step_route(main_solver, name, kernel):
+    """alpha_sum and eliminated_concentration as the solver's step calls
+    them at the main path's 124,416 cells: ten calls in one profiler
+    session are ten counted calls and ten launches of the kernel and
+    nothing else on the device; alpha_sum's allocates nothing (the step's
+    buffer), eliminated_concentration's one new tensor a call (the state
+    keeps c_elim)."""
+    S = main_solver
+    st = S._initial_state(0.0)
+    tab, out = S._cell_tables(), S._emit_out("membrane_emit")
+    c, ce = st["c"], st["c_elim"]
+    call = ((lambda: assembly.alpha_sum(S.z, S.D, c, ce, out=out, tables=tab))
+            if name == "alpha_sum" else (lambda: assembly.eliminated_concentration(
+                c, tables=tab)))
+    call()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        # a profiler session on the card can return fewer device events
+        # than were launched: up to three sessions, until one reads five
+        allocs = torch.cuda.memory_stats(S.device)["allocation.all.allocated"]
+        n0 = _cuda.LAUNCHES[name]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        made = torch.cuda.memory_stats(S.device)["allocation.all.allocated"] - allocs
+        assert made == (0 if name == "alpha_sum" else 10)
+        assert _cuda.LAUNCHES[name] == n0 + 10
+        if len(kernels) >= 5:
+            break
+    assert 5 <= len(kernels) <= 10 and all(kernel in k for k in kernels), kernels
+
+
+def test_ion_sums_refuse_what_they_were_not_built_for(main_solver):
+    """Seven ions (alpha_sum), six solved ions (eliminated_concentration)
+    and nd = 5 raise NotImplementedError on the card, and tables without D
+    or rho, or of other charges or fields, and alpha_sum's c_elim or out
+    without tables, ValueError, before any launch."""
+    dev = cuda_or_skip()
+    S = main_solver
+    rng = np.random.default_rng(73)
+    n0 = dict(_cuda.LAUNCHES)
+    g, z, D, rho = _node_tables(4, 64, 7, torch.float64, dev, rng)
+    c = torch.ones((7, 4, 64), dtype=torch.float64, device=dev)
+    with pytest.raises(NotImplementedError):
+        assembly.alpha_sum(z, D, c)
+    with pytest.raises(NotImplementedError):
+        assembly.eliminated_concentration(c[:6].contiguous(), z[:6].contiguous(), rho, 1.0)
+    c5 = torch.ones((2, 5, 64), dtype=torch.float64, device=dev)
+    with pytest.raises(NotImplementedError):
+        assembly.alpha_sum(z[:2].contiguous(), D[:2].contiguous(), c5)
+    with pytest.raises(NotImplementedError):
+        assembly.eliminated_concentration(c5, z[:2].contiguous(), rho, 1.0)
+    st = S._initial_state(0.0)
+    bare = assembly.cell_tables(S.g, S.z)
+    with pytest.raises(ValueError):
+        assembly.alpha_sum(S.z, S.D, st["c"], st["c_elim"], tables=bare)
+    with pytest.raises(ValueError):
+        assembly.eliminated_concentration(st["c"], tables=bare)
+    tab = S._cell_tables()
+    with pytest.raises(ValueError):
+        assembly.alpha_sum(S.z, S.D.clone(), st["c"], st["c_elim"], tables=tab)
+    with pytest.raises(ValueError):
+        assembly.eliminated_concentration(st["c"], S.z[:-1], tables=tab)
+    with pytest.raises(ValueError):
+        assembly.alpha_sum(S.z, S.D, st["c"], st["c_elim"])
+    with pytest.raises(ValueError):
+        assembly.alpha_sum(S.z, S.D, st["c"], st["c_elim"], out=S._emit_out("membrane_emit"))
+    with pytest.raises(TypeError):
+        assembly.alpha_sum(S.z, S.D, st["c"].float(), st["c_elim"], tables=tab)
+    with pytest.raises(ValueError):
+        assembly.eliminated_concentration(st["c"][:, :, :-1].contiguous(), tables=tab)
+    assert _cuda.LAUNCHES == n0
+
+
 def test_pair_matvec_reads_only_the_owner_halves(pair_maps):
     """pair_matvec at m = 1 and pair_matvec_multi at m = 2, on maps with
     self-pairs, dummy slots and a thread count that is not a multiple of

@@ -95,6 +95,21 @@ and float64, beside the library calls chip_smoke.py holds them to:
        tables and allocates its outputs; each with its bound (every input
        read once, every output written once) and its device microseconds
        a launch read by the profiler over 20 calls (``dev_us``);
+  k11a K11's alpha_sum (k11a) and K14's eliminated_concentration (k14z)
+  k14z as the step calls them at a seeded state (c and c_elim perturbed)
+       on chip_smoke.py's cell tables (124,416 cells) and pair layout
+       (127,116 padded cells), both dtypes: this tree's step route (the
+       solver's z, D and rho checked once in assembly.cell_tables; alpha
+       read from c and c_elim apart into the step's buffer, made once; a
+       new c_elim each call), and eliminated_concentration's route on
+       inputs one element off their alignment (``one``: one node a thread,
+       as float64 always runs) beside it; in a tree
+       without the route, the calls its step makes (the torch.cat of c and
+       c_elim, then the public alpha_sum; the public
+       eliminated_concentration on z[:-1]); in every tree also the public
+       call on ready inputs; each with its bound (every input read once,
+       every output written once) and its device microseconds a launch
+       (``dev_us``, the profiler over 20 calls);
   k9s  K9's cycle start on the KNP batch (two ions) of the cell (4 x
        124,416 entries a system) and pair (8 x 63,558) layouts, both
        dtypes, on one work built once per solve;
@@ -129,7 +144,7 @@ measured" where the call cannot be captured).  It also prints the cost of
 reading the current stream both ways.
 
 Usage:  python3 time_wrappers.py [--root DIR]
-            [--only k8,k9,k9s,k6,k4,k1,k14,k13,k5,k11,k11e,k10e,k10c,k11c,k12,k7]
+            [--only k8,k9,k9s,k6,k4,k1,k14,k13,k5,k11,k11e,k10e,k10c,k11c,k11a,k14z,k12,k7]
         (needs a CUDA card)
 """
 import argparse
@@ -815,6 +830,83 @@ def time_cells(asm, S_cell, gen, which):
     torch.cuda.empty_cache()
 
 
+def misaligned(t):
+    """A copy of ``t`` starting one element past an allocation's start: no
+    pair of its elements is one vector access, so a kernel that reads it
+    runs one node a thread."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def time_ion_sums(asm, S_cell, gen, which):
+    """K11's alpha_sum (``which`` "k11a") or K14's eliminated_concentration
+    ("k14z") as the step calls it, at a seeded state on the cell layout and
+    the pair layout's padded, renumbered cell axis, both dtypes."""
+    from knpemidg_tpu_torch import emix
+    from knpemidg_tpu_torch.mesh.generators import box_3d_axons
+
+    routed = "c_elim" in inspect.signature(asm.alpha_sum).parameters
+    tag, name, kernel = (("k11atime", "alpha_sum", "alpha_sum_kernel") if which == "k11a"
+                         else ("k14ztime", "eliminated_concentration", "eliminated_kernel"))
+    print(f"{tag} the step's route (tables, c and c_elim apart) in this tree: {routed}")
+    mesh = box_3d_axons(1, length_factor=2)
+    mesh.vertices *= 1e2
+    S_pair = emix.build_solver(mesh, dtype=torch.float64, device="cuda", pair=True)
+    for layout, S in (("cell", S_cell), ("pair", S_pair)):
+        pair, m = layout == "pair", S.N_ions
+        st = S._initial_state(0.0)
+        rnd = lambda t: t * (0.99 + 0.02 * torch.rand(t.shape, generator=gen, device="cuda",
+                                                      dtype=torch.float64))
+        c64, ce64 = rnd(st["c"]), rnd(st["c_elim"])
+        z_elim = float(S.ion_list[-1].z)
+        for dtype in (torch.float32, torch.float64):
+            c, ce = c64.to(dtype).contiguous(), ce64.to(dtype).contiguous()
+            z, D, rho = S.z.to(dtype), S.D.to(dtype), S.rho.to(dtype)
+            call = torch.cat([c, ce[None]]).contiguous()
+            n, nd, nc = call.shape
+            es = c.element_size()
+            if which == "k11a":
+                # D and every ion's c read; alpha written
+                nbytes = (n + n * nd + nd) * nc * es
+                calls = {"public": lambda: asm.alpha_sum(z, D, call)}
+                if routed:
+                    g = {k: (v.to(dtype) if isinstance(v, torch.Tensor)
+                             and v.is_floating_point() else v) for k, v in S.g.items()}
+                    mem = {k: (v.to(dtype) if isinstance(v, torch.Tensor)
+                               and v.is_floating_point() else v) for k, v in S.mem_dev.items()}
+                    tab = asm.cell_tables(g, z, D=D, rho=rho)
+                    out = asm.knp_emit_buffers(g, mem, m, dtype, "cuda", pair)
+                    calls["step"] = lambda: asm.alpha_sum(z, D, c, ce, out=out, tables=tab)
+                else:
+                    calls["step"] = lambda: asm.alpha_sum(z, D, torch.cat([c, ce[None]]))
+            else:
+                # the solved ions' c and rho read; c_elim written
+                nbytes = (m * nd + 1 + nd) * nc * es
+                zs = z[:-1].contiguous()
+                calls = {"public": lambda: asm.eliminated_concentration(c, zs, rho, z_elim)}
+                if routed:
+                    g = {k: (v.to(dtype) if isinstance(v, torch.Tensor)
+                             and v.is_floating_point() else v) for k, v in S.g.items()}
+                    tab = asm.cell_tables(g, z, D=D, rho=rho)
+                    c1 = misaligned(c)
+                    calls["step"] = lambda: asm.eliminated_concentration(c, tables=tab)
+                    calls["step one"] = lambda: asm.eliminated_concentration(c1, tables=tab)
+                else:
+                    calls["step"] = lambda: asm.eliminated_concentration(c, z[:-1], rho,
+                                                                          z_elim)
+            for route, fn in calls.items():
+                label = f"{layout} {str(dtype):14s} {name} {route}"
+                report(tag, label, fn)
+                dus = device_us(fn, kernel)
+                print(f"{tag} {label} dev_us "
+                      + ("not measured" if dus is None else f"{dus:.2f}")
+                      + f"  bound {bound_us(nbytes):.2f} us (bytes)")
+    del S_pair
+    torch.cuda.empty_cache()
+
+
 def time_start(ko, dev, gen):
     """K9's cycle start on one work of each layout's KNP batch."""
     for layout, (nd, nc) in (("cell", (4, 124416)), ("pair", (8, NPAIR))):
@@ -941,6 +1033,8 @@ def main():
                 "k10e": lambda: time_emi_emit(asm, solver(), gen),
                 "k10c": lambda: time_cells(asm, solver(), gen, "k10c"),
                 "k11c": lambda: time_cells(asm, solver(), gen, "k11c"),
+                "k11a": lambda: time_ion_sums(asm, solver(), gen, "k11a"),
+                "k14z": lambda: time_ion_sums(asm, solver(), gen, "k14z"),
                 "k9s": lambda: time_start(ko, dev, gen),
                 "k12": lambda: time_emit(pairs, dev, gen),
                 "k7": lambda: time_coarse_apply(coarse, dev, gen)}
