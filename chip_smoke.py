@@ -27,8 +27,14 @@ layout).  On the way it:
      first, and fails unless every solve converged, the fields are finite,
      every kernel of that path was launched, the K14 traces twice a step,
      K13 once a step, K9 once an Arnoldi step, and (cell layout) the
-     preconditioner carries the Ritz fields; then reports the cell
-     layout's emi_ritz=0 window beside it;
+     preconditioner carries the Ritz fields and K5's nd = 4 apply was
+     launched no time (the two-level applies fold it into K6's
+     prolong-add and K7's one-launch apply, whose rows time the folded
+     form, held bit for bit to kernel B's apply followed by the unfolded
+     kernel; K5's inverse rows time the step's routes: slot 0 of the KNP
+     operator read in place, and on pairs the halves form of the unmasked
+     diagonal, held bit for bit to the full form on the masked one); then
+     reports the cell layout's emi_ritz=0 window beside it;
   6. runs the same protocol in float32 on each layout and reports its
      Krylov counts and whether each solve converged: on the cell layout
      with the device Ritz harvest (three runs, whose counts must repeat),
@@ -429,8 +435,15 @@ def counter(name):
 # glial points' RK4 included, counts as membrane_rl).  K7's three entry
 # points are checked and timed at the main path's shapes, but the main
 # path's K7 operands (no fields, no As) take the one-launch apply: their
-# window launches are 0
-OFF_PATH = {f"two_level_{e}_batched" for e in ("restrict", "solve", "prolong")}
+# window launches are 0.  So are K5's nd = 4 apply's: the cell layout's
+# two-level applies fold it into K6's prolong-add and K7's one-launch
+# apply (FOLDED_WINDOWS); its row is checked and timed (the
+# block-Jacobi-only preconditioner's apply)
+OFF_PATH = {f"two_level_{e}_batched" for e in ("restrict", "solve", "prolong")} | {
+    "block_jacobi_apply"}
+# the windows of the cell layout's (nd = 4) solver, which launch K5's nd = 4
+# apply no time (run_checked)
+FOLDED_WINDOWS = ("cell", "rl", "bicg-cell")
 PATH_KERNELS = {"cell": sorted({counter(k) for k, v in KERNELS.items() if v[2] == "cell"}
                                - OFF_PATH),
                 "pair": sorted(({counter(k) for k, v in KERNELS.items() if v[2] == "pair"}
@@ -766,7 +779,7 @@ def bits(t):
     return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
 
 
-def coarse_phase(layout, co, r, results, mask=None, record=True):
+def coarse_phase(layout, co, r, results, mask=None, record=True, bj=None):
     """K6 (co.batched False) or K7 at one layout's shapes (layout "mms":
     the 2D rows, nd = 3): restrict, solve and prolong_add against their
     plain versions on the same inputs, timed with their bounds (checked
@@ -775,8 +788,13 @@ def coarse_phase(layout, co, r, results, mask=None, record=True):
     with the plain versions' values), the prolong-add with the pair
     layout's live ``mask``.  K7's operands (no fields, no As) also take the
     one-launch apply, as the KNP solve calls it: held bit for bit to the
-    three launches and to the three plain steps to round-off, and timed."""
-    from knpemidg_tpu_torch.ops import coarse
+    three launches and to the three plain steps to round-off, and timed.
+    ``bj``: the block-Jacobi operands of the step's inverse (the cell
+    layout), whose apply the main path folds into K6's prolong-add and
+    K7's one-launch apply: those rows time the folded form (out written,
+    not read; the bound counts Pinv and r in place of out), held bit for
+    bit to kernel B's apply followed by the unfolded kernel."""
+    from knpemidg_tpu_torch.ops import coarse, spmv
 
     dtype = r.dtype
     sfx = ("_batched" if co.batched else "") + {"pair": "_pair", "mms": "_nd3"}.get(layout, "")
@@ -816,20 +834,55 @@ def coarse_phase(layout, co, r, results, mask=None, record=True):
     zc, coef = coarse.solve_plain(co, rc, proj)
     wk.zc.copy_(zc)
     wk.coef.copy_(coef)
+    masks = [] if mask is None else [mask]
+    fused_ok = co.work.fused is not None and nd in coarse.FUSED_ND
+    if bj is not None:
+        # the block-Jacobi output the folded kernels never write to memory:
+        # kernel B's (the unfolded route's), the plain one and its scale
+        Pinv = bj.Pinv if bj.Pinv.dim() == 4 else bj.Pinv[None]
+        zk = spmv.block_jacobi_apply(bj, r if co.batched else r[0])
+        zk = zk if co.batched else zk[None]
+        z0 = spmv.block_jacobi_apply_plain(Pinv, r)
+        z_abs = spmv.block_jacobi_apply_plain(Pinv.abs(), r.abs())
+        bj_flops = 2.0 * Pinv.numel()
     out0 = r.clone()                   # stands in for the block-Jacobi output
     bufs = [out0.clone(), out0.clone()]
-    masks = [] if mask is None else [mask]
-    compare(name("prolong"), dtype,
-            lambda: [coarse.prolong_add(co, out0.clone(), wk.zc, wk.coef, mask)],
-            lambda: [coarse.prolong_add_plain(co, out0.clone(), zc, coef, mask)],
-            lambda ref: [coarse.prolong_add_plain(a, out0.abs(), zc.abs(), coef.abs(), mask)],
-            results, inputs=[out0, zc, coef] + masks, extra_bytes=span_bytes,
-            whole_bytes=whole([out0, zc, coef] + masks),
-            flops=field_flops + (3.0 if masks else 2.0) * r.numel(),
-            timed=(lambda: coarse.prolong_add(co, bufs[0], wk.zc, wk.coef, mask),
-                   lambda: coarse.prolong_add_plain(co, bufs[1], zc, coef, mask)),
-            record=record, graph=layout == "mms")
-    if co.work.fused is None or nd not in coarse.FUSED_ND:
+    if bj is not None and not fused_ok:
+        # K6's prolong-add as the main path calls it: folded
+        compare(name("prolong"), dtype,
+                lambda: [coarse.prolong_add(co, torch.empty_like(r), wk.zc, wk.coef, mask,
+                                            bj=bj, r=r)],
+                lambda: [coarse.prolong_add_plain(co, z0.clone(), zc, coef, mask)],
+                lambda ref: [coarse.prolong_add_plain(a, z_abs.clone(), zc.abs(), coef.abs(),
+                                                      mask)],
+                results, inputs=[Pinv, r, zc, coef] + masks, extra_bytes=span_bytes,
+                whole_bytes=whole([Pinv, r, zc, coef] + masks),
+                flops=field_flops + bj_flops + (3.0 if masks else 2.0) * r.numel(),
+                timed=(lambda: coarse.prolong_add(co, bufs[0], wk.zc, wk.coef, mask, bj=bj,
+                                                  r=r),
+                       lambda: coarse.prolong_add_plain(co, z0.clone(), zc, coef, mask)),
+                record=record)
+        folded = coarse.prolong_add(co, torch.empty_like(r), wk.zc, wk.coef, mask, bj=bj, r=r)
+        two = coarse.prolong_add(co, zk.clone(), wk.zc, wk.coef, mask)
+        torch.cuda.synchronize()
+        same = torch.equal(bits(folded), bits(two))
+        print(f"exact   {name('prolong'):30s} {str(dtype):14s} folded = kernel B's apply, "
+              f"then prolong_add, bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"{name('prolong')}'s folded form differs in {dtype}")
+    else:
+        compare(name("prolong"), dtype,
+                lambda: [coarse.prolong_add(co, out0.clone(), wk.zc, wk.coef, mask)],
+                lambda: [coarse.prolong_add_plain(co, out0.clone(), zc, coef, mask)],
+                lambda ref: [coarse.prolong_add_plain(a, out0.abs(), zc.abs(), coef.abs(),
+                                                      mask)],
+                results, inputs=[out0, zc, coef] + masks, extra_bytes=span_bytes,
+                whole_bytes=whole([out0, zc, coef] + masks),
+                flops=field_flops + (3.0 if masks else 2.0) * r.numel(),
+                timed=(lambda: coarse.prolong_add(co, bufs[0], wk.zc, wk.coef, mask),
+                       lambda: coarse.prolong_add_plain(co, bufs[1], zc, coef, mask)),
+                record=record, graph=layout == "mms")
+    if not fused_ok:
         return
     fused = "two_level_coarse_batched" + ("_pair" if layout == "pair" else "")
     three = coarse.prolong_add(co, out0.clone(), *coarse.solve(co, *coarse.restrict(co, r)),
@@ -842,13 +895,31 @@ def coarse_phase(layout, co, r, results, mask=None, record=True):
     if not same:
         raise AssertionError(f"{fused} differs from the three launches in {dtype}")
     bufs = [out0.clone(), out0.clone()]
-    compare(fused, dtype, lambda: [coarse.coarse_add(co, out0.clone(), r, mask)],
-            lambda: [coarse.coarse_apply_plain(co, out0.clone(), r, mask)],
-            lambda ref: [coarse.coarse_apply_plain(a, out0.abs(), r.abs(), mask)],
-            results, inputs=[r, out0, co.inv, co.s] + masks,
-            flops=2.0 * m * n * n + r.numel() + (3.0 if masks else 2.0) * r.numel(),
-            timed=(lambda: coarse.coarse_add(co, bufs[0], r, mask),
-                   lambda: coarse.coarse_apply_plain(co, bufs[1], r, mask)))
+    if bj is None:
+        compare(fused, dtype, lambda: [coarse.coarse_add(co, out0.clone(), r, mask)],
+                lambda: [coarse.coarse_apply_plain(co, out0.clone(), r, mask)],
+                lambda ref: [coarse.coarse_apply_plain(a, out0.abs(), r.abs(), mask)],
+                results, inputs=[r, out0, co.inv, co.s] + masks,
+                flops=2.0 * m * n * n + r.numel() + (3.0 if masks else 2.0) * r.numel(),
+                timed=(lambda: coarse.coarse_add(co, bufs[0], r, mask),
+                       lambda: coarse.coarse_apply_plain(co, bufs[1], r, mask)))
+        return
+    # the main path's K7 on the cell layout: kernel B's apply folded in
+    folded = coarse.coarse_add(co, torch.empty_like(r), r, mask, bj)
+    two = coarse.coarse_add(co, zk.clone(), r, mask)
+    torch.cuda.synchronize()
+    same = torch.equal(bits(folded), bits(two))
+    print(f"exact   {fused:30s} {str(dtype):14s} folded = kernel B's apply, then the one "
+          f"launch, bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"{fused}'s folded form differs in {dtype}")
+    compare(fused, dtype, lambda: [coarse.coarse_add(co, torch.empty_like(r), r, mask, bj)],
+            lambda: [coarse.coarse_apply_plain(co, z0.clone(), r, mask)],
+            lambda ref: [coarse.coarse_apply_plain(a, z_abs.clone(), r.abs(), mask)],
+            results, inputs=[r, Pinv, co.inv, co.s] + masks,
+            flops=2.0 * m * n * n + r.numel() + bj_flops + (3.0 if masks else 2.0) * r.numel(),
+            timed=(lambda: coarse.coarse_add(co, bufs[0], r, mask, bj),
+                   lambda: coarse.coarse_apply_plain(co, z0.clone(), r, mask)))
 
 
 def coarse_inputs(pc, agg, dtype):
@@ -974,7 +1045,7 @@ def spmv_rows(nbr, B, x, P, BK, xK, dtype, results, suffix=""):
     from knpemidg_tpu_torch.ops import spmv
 
     name = lambda k: k + suffix
-    PK = BK[:, 0].contiguous()
+    PK = BK[:, 0]                   # the step reads slot 0 of the operator in place
     cells = lambda v: v.t().reshape(-1)               # (nd, nc) -> (cell, dof)
     bell_lib = bsr_library(name("bell_matvec"), dtype, [
         (lambda B_=B_, nb=nbr: bell_bsr(B_, nb), cells(v), cells(ref))
@@ -989,13 +1060,17 @@ def spmv_rows(nbr, B, x, P, BK, xK, dtype, results, suffix=""):
                          spmv.bell_matvec_multi_plain(BK.abs(), nbr, xK.abs())],
             results, inputs=[B, nbr, x, BK, nbr, xK],
             flops=2.0 * (B.numel() + BK.numel()), library_fn=bell_lib)
+    # timed as the step calls it: into the step's buffers, made once
+    outs = [torch.empty_like(P), torch.empty(PK.shape, dtype=dtype, device=PK.device)]
+    inv_plain = lambda: [spmv.block_jacobi_inverse_plain(P),
+                         spmv.block_jacobi_inverse_plain(PK)]
     compare(name("block_jacobi_inverse"), dtype,
-            lambda: [spmv.block_jacobi_inverse(P), spmv.block_jacobi_inverse(PK)],
-            lambda: [spmv.block_jacobi_inverse_plain(P),
-                     spmv.block_jacobi_inverse_plain(PK)],
+            lambda: [spmv.block_jacobi_inverse(P), spmv.block_jacobi_inverse(PK)], inv_plain,
             lambda ref: [inv_scale(P, ref[0]), inv_scale(PK, ref[1])], results,
             inputs=[P, PK], flops=bj_inv_flops(P) + bj_inv_flops(PK),
-            library_fn=lambda: [lib_inv(P), lib_inv(PK)])
+            library_fn=lambda: [lib_inv(P), lib_inv(PK)],
+            timed=(lambda: [spmv.block_jacobi_inverse(P, out=outs[0]),
+                            spmv.block_jacobi_inverse(PK, out=outs[1])], inv_plain))
     inv, invK = spmv.block_jacobi_inverse(P), spmv.block_jacobi_inverse(PK)
     # as the two-level apply calls it: operands checked once, a new z
     op, opK = spmv.block_jacobi_operands(inv), spmv.block_jacobi_operands(invK)
@@ -1039,8 +1114,14 @@ def kernel_phase(S, state, results):
         co6, co7 = coarse_inputs(state["pc"], AGG, dtype)
         if co6.Wr is None:
             raise AssertionError("the cell pc carries no Ritz fields")
-        coarse_phase("cell", co6, x[None], results)
-        coarse_phase("cell", co7, xK.contiguous(), results)
+        # the cell layout's applies fold kernel B's apply in: its operands
+        # of the step's EMI and KNP inverses
+        from knpemidg_tpu_torch.ops import spmv
+
+        bj6 = spmv.block_jacobi_operands(spmv.block_jacobi_inverse(Pd.to(dtype).contiguous()))
+        bj7 = spmv.block_jacobi_operands(spmv.block_jacobi_inverse(BK[:, 0]))
+        coarse_phase("cell", co6, x[None], results, bj=bj6)
+        coarse_phase("cell", co7, xK.contiguous(), results, bj=bj7)
 
 
 def pair_kernel_phase(S, state, results):
@@ -1191,45 +1272,70 @@ def pair_kernel_phase(S, state, results):
                 flops=2.0 * (D.numel() + DK.numel()) + 2.0 * pe_bytes / E.element_size(),
                 library_fn=pair_lib)
 
-        # the main path's 'halves' diagonals are timed; the full ones checked.
-        # The main path applies the halves inverse in the halves form, as the
-        # masked two-level apply calls it (operands checked once, one output
-        # buffer); its work reads the two diagonal sub-blocks of the inverse
-        P_h = (Pd.to(dtype) * halves.to(dtype)).contiguous()
-        PK_h = (DK * halves.to(dtype)[None]).contiguous()
-        P_f, PK_f = Pd.to(dtype).contiguous(), DK.contiguous()
-        for P, PK, record in ((P_h, PK_h, True), (P_f, PK_f, False)):
-            compare("block_jacobi_inverse_nd8", dtype,
-                    lambda: [spmv.block_jacobi_inverse(P), spmv.block_jacobi_inverse(PK)],
-                    lambda: [spmv.block_jacobi_inverse_plain(P),
-                             spmv.block_jacobi_inverse_plain(PK)],
-                    lambda ref: [inv_scale(P, ref[0]), inv_scale(PK, ref[1])], results,
-                    inputs=[P, PK], flops=bj_inv_flops(P) + bj_inv_flops(PK),
-                    library_fn=lambda: [lib_inv(P), lib_inv(PK)], record=record)
-            inv, invK = spmv.block_jacobi_inverse(P), spmv.block_jacobi_inverse(PK)
-            if record:
-                ops = [spmv.block_jacobi_operands(t, halves=True, buffer=True)
-                       for t in (inv, invK)]
-                half_bytes = (inv.numel() + invK.numel()) // 2 * inv.element_size()
-                compare("block_jacobi_apply_nd8", dtype,
-                        lambda: [spmv.block_jacobi_apply(ops[0], r),
-                                 spmv.block_jacobi_apply(ops[1], rK)],
-                        lambda: [spmv.block_jacobi_apply_plain(inv, r, halves=True),
-                                 spmv.block_jacobi_apply_plain(invK, rK, halves=True)],
-                        lambda ref: [spmv.block_jacobi_apply_plain(inv.abs(), r.abs(), True),
-                                     spmv.block_jacobi_apply_plain(invK.abs(), rK.abs(),
-                                                                   True)],
-                        results, inputs=[r, rK], extra_bytes=half_bytes,
-                        whole_bytes=nbytes([inv, r, invK, rK]),
-                        flops=bj_apply_flops(inv) / 2 + bj_apply_flops(invK) / 2,
-                        library_fn=lambda: [lib_apply(inv, r), lib_apply(invK, rK)])
+        # the main path inverts the unmasked diagonals in the halves form
+        # (the two diagonal 4 x 4 sub-blocks read, inverted and written;
+        # the step's buffers zero elsewhere), timed as the step calls it;
+        # held bit for bit to the full form on the masked diagonals (the
+        # parent's route).  The main path applies the halves inverse in
+        # the halves form, as the masked two-level apply calls it (operands
+        # checked once, one output buffer); its work reads the two diagonal
+        # sub-blocks of the inverse.  The full forms are checked.
+        P_u, PK_u = Pd.to(dtype).contiguous(), DK.contiguous()
+        P_h = (P_u * halves.to(dtype)).contiguous()
+        PK_h = (PK_u * halves.to(dtype)[None]).contiguous()
+        outs = [torch.zeros_like(P_u), torch.zeros_like(PK_u)]
+        half_in = nbytes([P_u, PK_u]) // 2
+        inv_plain = lambda: [spmv.block_jacobi_inverse_plain(P_u, halves=True),
+                             spmv.block_jacobi_inverse_plain(PK_u, halves=True)]
+        compare("block_jacobi_inverse_nd8", dtype,
+                lambda: [spmv.block_jacobi_inverse(P_u, halves=True),
+                         spmv.block_jacobi_inverse(PK_u, halves=True)], inv_plain,
+                lambda ref: [inv_scale(P_h, ref[0]), inv_scale(PK_h, ref[1])], results,
+                extra_bytes=half_in, out_bytes=half_in, whole_bytes=nbytes([P_u, PK_u]),
+                flops=(bj_inv_flops(P_u) + bj_inv_flops(PK_u)) / 4,
+                library_fn=lambda: [lib_inv(P_h), lib_inv(PK_h)],
+                timed=(lambda: [spmv.block_jacobi_inverse(P_u, halves=True, out=outs[0]),
+                                spmv.block_jacobi_inverse(PK_u, halves=True, out=outs[1])],
+                       inv_plain))
+        inv, invK = (spmv.block_jacobi_inverse(t, halves=True) for t in (P_u, PK_u))
+        fulls = [spmv.block_jacobi_inverse(t) for t in (P_h, PK_h)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(h, f) and torch.equal(bits(h)[f != 0], bits(f)[f != 0])
+                   and not bits(h[..., :S.nd, S.nd:, :]).any()
+                   and not bits(h[..., S.nd:, :S.nd, :]).any()
+                   for h, f in zip((inv, invK), fulls))
+        print(f"exact   block_jacobi_inverse_nd8       {str(dtype):14s} halves form = the "
+              f"full form on the masked diagonal, bit for bit on every nonzero value, +0 off "
+              f"the halves: {same}")
+        if not same:
+            raise AssertionError(f"the halves inverse differs from the full form in {dtype}")
+        compare("block_jacobi_inverse_nd8", dtype,
+                lambda: [spmv.block_jacobi_inverse(P_u), spmv.block_jacobi_inverse(PK_u)],
+                lambda: [spmv.block_jacobi_inverse_plain(P_u),
+                         spmv.block_jacobi_inverse_plain(PK_u)],
+                lambda ref: [inv_scale(P_u, ref[0]), inv_scale(PK_u, ref[1])], results,
+                record=False)
+        ops = [spmv.block_jacobi_operands(t, halves=True, buffer=True) for t in (inv, invK)]
+        half_bytes = (inv.numel() + invK.numel()) // 2 * inv.element_size()
+        compare("block_jacobi_apply_nd8", dtype,
+                lambda: [spmv.block_jacobi_apply(ops[0], r),
+                         spmv.block_jacobi_apply(ops[1], rK)],
+                lambda: [spmv.block_jacobi_apply_plain(inv, r, halves=True),
+                         spmv.block_jacobi_apply_plain(invK, rK, halves=True)],
+                lambda ref: [spmv.block_jacobi_apply_plain(inv.abs(), r.abs(), True),
+                             spmv.block_jacobi_apply_plain(invK.abs(), rK.abs(), True)],
+                results, inputs=[r, rK], extra_bytes=half_bytes,
+                whole_bytes=nbytes([inv, r, invK, rK]),
+                flops=bj_apply_flops(inv) / 2 + bj_apply_flops(invK) / 2,
+                library_fn=lambda: [lib_apply(inv, r), lib_apply(invK, rK)])
+        for P, PK in ((inv, invK), fulls):
             compare("block_jacobi_apply_nd8", dtype,
-                    lambda: [spmv.block_jacobi_apply(inv, r),
-                             spmv.block_jacobi_apply(invK, rK)],
-                    lambda: [spmv.block_jacobi_apply_plain(inv, r),
-                             spmv.block_jacobi_apply_plain(invK, rK)],
-                    lambda ref: [spmv.block_jacobi_apply_plain(inv.abs(), r.abs()),
-                                 spmv.block_jacobi_apply_plain(invK.abs(), rK.abs())],
+                    lambda: [spmv.block_jacobi_apply(P, r),
+                             spmv.block_jacobi_apply(PK, rK)],
+                    lambda: [spmv.block_jacobi_apply_plain(P, r),
+                             spmv.block_jacobi_apply_plain(PK, rK)],
+                    lambda ref: [spmv.block_jacobi_apply_plain(P.abs(), r.abs()),
+                                 spmv.block_jacobi_apply_plain(PK.abs(), rK.abs())],
                     results, record=False)
         # K6 with the compartment and moment data (AUTO: no Ritz on pairs),
         # K7 with the two ions' coarse data, on the pair rhs
@@ -2057,6 +2163,11 @@ def run_checked(S, sp, path):
     missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+    if path in FOLDED_WINDOWS:
+        print(f"{path:7s} block_jacobi_apply (nd = 4) launches {launches['block_jacobi_apply']} "
+              f"(0 expected: folded into the two-level applies)")
+        if launches["block_jacobi_apply"]:
+            raise AssertionError(f"the {path} window launched K5's nd = 4 apply")
     steps = len(S.stats.emi_niters)
     print(f"{path:7s} membrane_trace {launches['membrane_trace']} launches in {steps} steps "
           f"({TRACE_LAUNCHES_PER_STEP} a step expected)")
@@ -2823,7 +2934,7 @@ def apps_phase(results):
     app_check_calibration(launches)
     app_calibration(results, launches)
     missing = [k for k, v in KERNELS.items() if isinstance(v[2], tuple)
-               and not launches_on(launches, k)]
+               and counter(k) not in OFF_PATH and not launches_on(launches, k)]
     if missing:
         raise AssertionError(f"app rows whose kernel its windows did not launch: {missing}")
     print(f"apps    phase {time.perf_counter() - t0:.1f} s")
@@ -3187,7 +3298,8 @@ def variants_phase(mesh, results, launches):
 # rank's marks read (PERF.md's kernel table says by which change)
 REDESIGNED = frozenset({
     "bell_matvec", "bell_matvec_nd3", "pair_matvec", "to_pair", "from_pair",
-    "gather_blocks_pair", "block_jacobi_apply_nd8", "membrane_rk4", "membrane_rl",
+    "gather_blocks_pair", "block_jacobi_apply_nd8", "block_jacobi_inverse",
+    "block_jacobi_inverse_nd8", "membrane_rk4", "membrane_rl",
     "two_level_restrict", "two_level_prolong", "two_level_solve", "two_level_solve_batched",
     "two_level_coarse_batched", "emi_cell", "emi_facet", "emi_emit_cell", "knp_cell",
     "knp_facet", "knp_membrane_emit", "membrane_trace", "pcg_dot", "pcg_update",

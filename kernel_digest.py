@@ -17,9 +17,11 @@ with block Jacobi and the nullspace projection, the mean on cells, the
 masked mean on pairs, both dtypes: a solve that converges and one stopped
 by its iteration cap, x, the iterations and the residual norm of each);
 K5's
-apply on the step's diagonals (cell: nd = 4; pair: the pair_bj halves
-inverse in the halves form, or the full form in a tree without it) and
-the pair GMRES above with the solver's halves form; K11 knp_facet on each
+inverse and apply on the step's diagonals as the tree's step computes
+them (cell: nd = 4, the KNP diagonal slot 0 of the operator read in place;
+pair: the halves inverse of the unmasked diagonal, or in a tree without it
+the full form of the masked one, applied in the halves form) and the
+pair GMRES above with the solver's halves form; K11 knp_facet on each
 layout's facet tables (both dtypes); K14 as
 the solver pushes it (float64): each
 tag's membrane states and ODE parameters out of Solver._ode_inputs (the
@@ -30,8 +32,11 @@ points; K6 on the EMI preconditioner data of each layout's pc build at
 emix.solver_params() (the cell layout's with its 24 Ritz fields; both
 dtypes) applied to a seeded r: restrict's chunk sums and projections,
 then solve and the prolong-add into a seeded output (on pairs also with
-the live mask, k6_prolong_m); K7's apply (k7_coarse) on each layout's KNP
-pc data, two calls, masked on pairs; K11's membrane rhs and emit
+the live mask, k6_prolong_m; on cells also with kernel B's apply of the
+step's EMI inverse folded in, k6_prolong_bj, or in a tree without the
+fold kernel B's apply and then the prolong-add on its output); K7's apply
+(k7_coarse) on each layout's KNP pc data, two calls, masked on pairs (on
+cells also k7_coarse_bj, with the step's KNP inverse, folded or not); K11's membrane rhs and emit
 (k11_emit: b_p, b_m, the blocks and the rhs) at the perturbed state, each
 layout, both dtypes; K12 (k12_emit) on the inputs of the
 step's pair EMI and KNP emits, both dtypes; K13 as the solver
@@ -159,10 +164,13 @@ def main():
                 S._knp_assemble_all(c, state["c_elim"], state["phi"], pM, Ich, Itot,
                                     state["t"], c))
             nbr = S.g["nbr"]
+            step_invs = {}
             for dtype in (torch.float32, torch.float64):
-                # K5 at nd = 4 on the step's EMI and KNP diagonals and rhs
-                invs = [spmv.block_jacobi_inverse(Pd.to(dtype).contiguous()),
-                        spmv.block_jacobi_inverse(BK[:, 0].to(dtype).contiguous())]
+                # K5 at nd = 4 on the step's EMI and KNP diagonals (slot 0
+                # of the operator, in place where the tree reads it so) and
+                # rhs
+                invs = step_invs[dtype] = [step_inverse(spmv, Pd.to(dtype).contiguous()),
+                                           step_inverse(spmv, BK.to(dtype)[:, 0])]
                 out = [spmv.block_jacobi_apply(P, r.to(dtype).contiguous())
                        for P, r in zip(invs, (rhs, rhsK))]
                 torch.cuda.synchronize()
@@ -182,7 +190,7 @@ def main():
                            rhs.to(dtype), None)
             for dtype in (torch.float32, torch.float64):
                 Bd = BK.to(dtype)
-                Pinv = spmv.block_jacobi_inverse(Bd[:, 0].contiguous())
+                Pinv = step_inverse(spmv, Bd[:, 0])
                 for fn in (gmres_digest, bicgstab_digest):
                     fn(krylov, layout, dtype,
                        lambda V, Bd=Bd: spmv.bell_matvec_multi(Bd, nbr, V.contiguous()),
@@ -207,8 +215,8 @@ def main():
                 # diagonals: the halves form (a tree without it: the full
                 # form on the same inverse) on the step's rhs
                 hv = S._pair_bj_halves.to(dtype)
-                invs = [spmv.block_jacobi_inverse((pd.to(dtype) * hv).contiguous()),
-                        spmv.block_jacobi_inverse((pdK.to(dtype) * hv[None]).contiguous())]
+                invs = [step_inverse(spmv, pd.to(dtype).contiguous(), hv),
+                        step_inverse(spmv, pdK.to(dtype).contiguous(), hv)]
                 rs = [pairs.to_pair(pm, rhs.to(dtype)), pairs.to_pair(pm, rhsK.to(dtype))]
                 out = [bj_apply(spmv, P, r) for P, r in zip(invs, rs)]
                 torch.cuda.synchronize()
@@ -220,7 +228,7 @@ def main():
                 # the live mask after the apply and in the projection
                 pdd, ped = pd.to(dtype), pe.to(dtype)
                 lm = S._pair_mask.to(dtype)
-                Pinv = spmv.block_jacobi_inverse((pdd * S._pair_bj_halves.to(dtype)).contiguous())
+                Pinv = step_inverse(spmv, pdd.contiguous(), S._pair_bj_halves.to(dtype))
                 pcg_digest(krylov, layout, dtype,
                            lambda v, pdd=pdd, ped=ped: pairs.pair_matvec(pdd, ped, pm,
                                                                          v.contiguous()),
@@ -232,8 +240,7 @@ def main():
                 # tree without it), the live mask after the apply
                 pdd, ped = pdK.to(dtype), peK.to(dtype)
                 lm = S._pair_mask.to(dtype)[None]
-                Pinv = spmv.block_jacobi_inverse(
-                    (pdd * S._pair_bj_halves[None].to(dtype)).contiguous())
+                Pinv = step_inverse(spmv, pdd.contiguous(), S._pair_bj_halves.to(dtype))
                 if halves_form(spmv):
                     Pinv = spmv.block_jacobi_operands(Pinv, halves=True, buffer=True)
                 for fn in (gmres_digest, bicgstab_digest):
@@ -270,6 +277,16 @@ def main():
             out = coarse.prolong_add(co, out64.to(dtype), zc, coef)
             torch.cuda.synchronize()
             print(f"digest  k6_prolong   {layout} {str(dtype):14s} {digest([out])}")
+            if layout == "cell":
+                # the step's apply: the prolong-add with kernel B's apply of
+                # the step's EMI inverse folded in (a tree without the fold:
+                # kernel B's apply, then the prolong-add on its output)
+                r = r64.to(dtype)
+                out = bj_then(spmv, coarse, step_invs[dtype][0], r,
+                              lambda o, bj=None: coarse.prolong_add(co, o, zc, coef, bj=bj, r=r)
+                              if bj is not None else coarse.prolong_add(co, o, zc, coef))
+                torch.cuda.synchronize()
+                print(f"digest  k6_prolong_bj {layout} {str(dtype):14s} {digest([out])}")
             if layout == "pair":
                 # the solver's masked EMI apply: the mask in the prolong-add
                 # (a tree without it: the product after it)
@@ -302,6 +319,16 @@ def main():
             torch.cuda.synchronize()
             print(f"digest  k7_coarse    {layout} {str(dtype):14s} {digest(outs)} "
                   f"(operands {digest([v.to(dtype) for v in pk.values()])})")
+            if layout == "cell":
+                # the step's KNP apply with kernel B's apply of the step's
+                # KNP inverse folded in (a tree without it: kernel B, then
+                # the one launch)
+                r = r64.to(dtype)
+                out = bj_then(spmv, coarse, step_invs[dtype][1], r,
+                              lambda o, bj=None: coarse.coarse_add(co, o, r, None, bj)
+                              if bj is not None else coarse.coarse_add(co, o, r))
+                torch.cuda.synchronize()
+                print(f"digest  k7_coarse_bj {layout} {str(dtype):14s} {digest([out])}")
         ode_digests(S, mesh, st, layout, gen)
         del S
         torch.cuda.empty_cache()
@@ -625,9 +652,36 @@ def k9_start_digests(S, layout):
               f"{digest([wk.V[0], wk.beta, wk.R, wk.g, wk.cs, wk.sn, wk.ks, wk.flag])}")
 
 
+def bj_then(spmv, coarse, Pinv, r, fn):
+    """fn(out, bj) with the block-Jacobi operands of ``Pinv`` folded in
+    where the tree folds (out not read), else fn(kernel B's apply to r)."""
+    bj = spmv.block_jacobi_operands(Pinv)
+    if folded_form(coarse):
+        return fn(torch.empty_like(r), bj)
+    z = spmv.block_jacobi_apply(bj, r if Pinv.dim() == 4 else r[0])
+    return fn(z.view(r.shape))
+
+
 def halves_form(spmv):
     """Whether a tree's K5 apply has the halves form (and its operands)."""
     return hasattr(spmv, "block_jacobi_operands")
+
+
+def step_inverse(spmv, P, halves=None):
+    """K5's inverse as the tree's step computes it: where the tree reads
+    the diagonal in place (and has the halves form), from P as it is (the
+    cell layout's KNP slot 0 a view; on the pair layout, with the halves
+    mask ``halves``, the unmasked diagonal in the halves form); else as its
+    solver did: the mask product, a contiguous copy, the full form."""
+    if "halves" in inspect.signature(spmv.block_jacobi_inverse).parameters:
+        return spmv.block_jacobi_inverse(P, halves is not None)
+    return spmv.block_jacobi_inverse((P if halves is None else P * halves).contiguous())
+
+
+def folded_form(coarse):
+    """Whether a tree's two-level apply takes the block-Jacobi operands
+    (the cell layout's folded apply)."""
+    return "bj" in inspect.signature(coarse.coarse_add).parameters
 
 
 def bj_apply(spmv, Pinv, r):

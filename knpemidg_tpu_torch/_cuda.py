@@ -43,10 +43,14 @@ SOURCE_FLAGS = {f: ("-fmad=false",) for f in ("assemble_emi.cu", "assemble_knp.c
 # call is two: its scalars and its sweep; knp_membrane_emit's, the KNP
 # assembly's membrane rhs and emit, is two: the sweep and the membrane
 # cells' rhs rows); the block-Jacobi kernels count their cell-layout
-# (nd = 4), 2D (nd = 3) and pair-layout (nd = 8) instantiations apart, the
+# (nd = 4), 2D (nd = 3) and pair-layout (nd = 8, the halves inverse too)
+# instantiations apart, the
 # matvec and the two-level restrict and prolong their 2D ones ("_nd3"),
 # and the two-level kernels their single EMI (K6) and batched KNP (K7, "_batched") calls ("coarse": the one-launch apply of operands
-# without deflation fields or As, K7's on the main path).  The assembly
+# without deflation fields or As, K7's on the main path).  The cell
+# layout's two-level applies fold the block-Jacobi apply into the
+# prolong-add or the one-launch apply, whose counter counts the call: they
+# launch no block_jacobi_apply.  The assembly
 # kernels (K10 emi_*, K11 alpha_sum and
 # knp_*, K14 membrane_trace and eliminated_concentration), the Krylov
 # kernels (K8 pcg_*, K9 gmres_*: gmres_arnoldi is a whole Arnoldi step;
@@ -80,7 +84,7 @@ _D = ctypes.c_double
 # C entry point (without the _f32/_f64 suffix) -> argument types
 _SIGNATURES = {
     "knp_bell_matvec": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "knp_bj_inverse": (_P, _P, _I, _I, _I, _P),
+    "knp_bj_inverse": (_P, _P, _I, _I, _I, ctypes.c_longlong, _I, _P),
     "knp_bj_apply": (_P, _P, _P, _I, _I, _I, _I, _P),
     "knp_membrane_step": (_P, _I, _P, _D, _I, _P),
     "knp_membrane_run": (_P, _I, _D, _D, _I, ctypes.c_longlong, _P),
@@ -92,9 +96,9 @@ _SIGNATURES = {
     "knp_tl_fields_prepare": (_I,),
     "knp_tl_solve_prepare": (_P,),
     "knp_tl_solve": (_P,) * 4,
-    "knp_tl_prolong": (_P,) * 8 + (_I,) * 8 + (_P,),
+    "knp_tl_prolong": (_P,) * 10 + (_I,) * 8 + (_P,),
     "knp_tl_coarse_prepare": (_P, _I, _I, _P),
-    "knp_tl_coarse": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "knp_tl_coarse": (_P,) * 6 + (_I,) * 5 + (_P,),
     "knp_emi_cell": (_P,) * 7 + (_D, _D, _P),
     "knp_emi_facet": (_P,) * 26 + (_I,) * 5 + (_D, _D, _D, _P),
     "knp_emi_emit_cell": (_P,) * 15 + (_I,) * 5 + (_D, _P),

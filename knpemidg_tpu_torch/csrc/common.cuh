@@ -97,3 +97,24 @@ __device__ __forceinline__ T knp_block_sum(T v, T* red) {
   for (int w = 1; w < KNP_WARPS; ++w) acc += red[w];
   return acc;
 }
+
+// z[i] = sum_j P[i][j] r[j] for one cell c of an ND x ND block-Jacobi
+// inverse (P's entry (i, j) at (i ND + j) ncz + c, r's j at j ncz + c): the
+// row starts from its first product and adds the others in order.  K5's
+// full-form apply and the two-level kernels' folded prolong-add
+// (two_level.cu) both compute it here, so that nvcc contracts the sums alike
+// and the two give the same bits.
+template <typename T, int ND>
+__device__ __forceinline__ void bj_block_apply(const T* __restrict__ P, const T* __restrict__ r,
+                                               T (&z)[ND], int c, size_t ncz) {
+  T rv[ND];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) rv[j] = r[j * ncz + c];
+#pragma unroll
+  for (int i = 0; i < ND; ++i) {
+    T a = P[(size_t)(i * ND) * ncz + c] * rv[0];
+#pragma unroll
+    for (int j = 1; j < ND; ++j) a += P[(size_t)(i * ND + j) * ncz + c] * rv[j];
+    z[i] = a;
+  }
+}

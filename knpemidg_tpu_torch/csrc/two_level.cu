@@ -18,13 +18,22 @@
 //   prolong:   out[s,i,c] += zc[s, c / agg] + sum_p coef_p OH[p,c]
 //                            + sum_w coef_w W[w,i,c] + sum_v coef_v Wr[v,i,c]
 //
-// added in place into the block-Jacobi apply's output (kernel B stays its
-// own launch), times the pair layout's live mask where the caller gives
-// one.  Operands without deflation fields or As (the KNP apply, K7) take
-// the three steps in one cooperative launch instead (tl_coarse_kernel,
-// built for nd = 4 and 8).  Restrict and prolong take nd = 3 (the 2D DG1
-// cells, the MMS verification path) besides 4 and 8; at nd = 3 every
-// apply takes the three steps.
+// added in place into the block-Jacobi apply's output, times the pair
+// layout's live mask where the caller gives one.  Operands without
+// deflation fields or As (the KNP apply, K7) take the three steps in one
+// cooperative launch instead (tl_coarse_kernel, built for nd = 4 and 8).
+// Restrict and prolong take nd = 3 (the 2D DG1 cells, the MMS
+// verification path) besides 4 and 8; at nd = 3 every apply takes the
+// three steps.
+//
+// The folded apply (the cell layout, nd = 4; instantiations BJ = true):
+// kernel B's apply does not run; the prolong-add and the one-launch
+// apply compute each cell's block-Jacobi values Pinv r themselves
+// (bj_block_apply, common.cuh: kernel B's expression and order, so the
+// same bits) where they would load out, and write out = Pinv r + the
+// corrections.  That drops kernel B's launch and z's write and re-read (8
+// values a cell and system); the two-level apply reads Pinv (16 values a
+// cell and system) and r once more instead of z.
 //
 // Bound: device-memory bandwidth.  The deflation fields dominate: at the
 // cell layout's main path (124,416 cells, nd = 4, 5 compartments, 45
@@ -599,12 +608,16 @@ __device__ __forceinline__ void tl_prolong_fields(T (&acc)[ND], const int* list,
 // times its mask value: the pair layout's masked apply, in one pass.
 // The loads that need no list (out, zc, the one-hots) are issued before
 // the list is built, and the fields go in batches of loads: a thread's
-// dependent round trips to memory, not its bytes, set the time.
-template <typename T, int ND>
+// dependent round trips to memory, not its bytes, set the time.  BJ (the
+// folded apply, nd = 4): out is not read; the cell's block-Jacobi values
+// Pinv r (bj_block_apply, K5's arithmetic) take its place, so z never goes
+// through memory.
+template <typename T, int ND, bool BJ>
 __global__ void tl_prolong_kernel(T* __restrict__ out, const T* __restrict__ zc,
                                   const T* __restrict__ coef, const T* __restrict__ OH,
                                   const T* __restrict__ W, const T* __restrict__ Wr,
                                   const int* __restrict__ spans, const T* __restrict__ mask,
+                                  const T* __restrict__ Pinv, const T* __restrict__ r,
                                   int nc, int agg, int n_agg, int n_comp, int nw, int nr) {
   extern __shared__ int tl_live[];
   __shared__ int wcnt[2 * TL_WARPS];
@@ -618,8 +631,13 @@ __global__ void tl_prolong_kernel(T* __restrict__ out, const T* __restrict__ zc,
   T ov[ND];
   T v = T(0);
   if (c < nc) {
+    if constexpr (BJ) {
+      bj_block_apply<T, ND>(Pinv + (size_t)s * ND * ND * ncz, r + (size_t)s * ND * ncz, ov, c,
+                            ncz);
+    } else {
 #pragma unroll
-    for (int i = 0; i < ND; ++i) ov[i] = o[i * ncz];
+      for (int i = 0; i < ND; ++i) ov[i] = o[i * ncz];
+    }
     v = zc[(size_t)s * n_agg + c / agg];
     if (n_comp > 0) {
       T zp = cf[0] * OH[c];
@@ -714,15 +732,21 @@ __device__ __forceinline__ void tl_chunk_sums(const T* __restrict__ r, T* __rest
 //   3. in the same warp, right after its row: the prolong-add of that
 //      row's chunk (its agg cells, nd values each) into out in place, each
 //      value times the live mask (nd, nc) where one is given.  A chunk's
-//      cells need only their own row, so no second barrier.
+//      cells need only their own row, so no second barrier.  BJ (the
+//      folded apply, nd = 4): out is not read; each lane computes its
+//      cells' block-Jacobi values Pinv r (bj_block_apply, K5's arithmetic;
+//      r is still in L2 from phase 1), a cell's nd rows in the lane's inner
+//      loop so that Pinv's nd^2 rows load coalesced across the warp, and
+//      writes them + zc.
 // Each phase computes its values as the separate kernels do (the same
 // expressions, the same orders; the xor shuffle tree leaves every lane the
 // same row sum), so the outputs equal theirs bit for bit; rc and zc go
 // through the workspace's buffers.
-template <typename T, int ND>
+template <typename T, int ND, bool BJ>
 __global__ void __launch_bounds__(KNP_THREADS)
 tl_coarse_kernel(const TlSolve<T> p, const T* __restrict__ r, T* __restrict__ out,
-                 const T* __restrict__ mask, T* __restrict__ rc, int nc, int agg, int cpt) {
+                 const T* __restrict__ mask, T* __restrict__ rc, const T* __restrict__ Pinv,
+                 int nc, int agg, int cpt) {
   __shared__ T rs_tile[TL_MAX_TILE];
   constexpr int U = TlBatch<T>::U;
   constexpr bool hint = sizeof(T) == 4;           // as tl_solve_kernel without As
@@ -742,15 +766,28 @@ tl_coarse_kernel(const TlSolve<T> p, const T* __restrict__ r, T* __restrict__ ou
     const T acc = tl_row<T, true, hint>(p.inv + (size_t)q * n, rc + off, p.s + off, n, lane,
                                         keep, v);
     if (q + warps < rows) tl_fetch<hint>(p.inv + (size_t)(q + warps) * n, n, lane, keep, v);
-    const T z = p.s[q] * acc;
+    // rounded as the solve kernel stores zc, never contracted into the adds
+    const T z = mul_rn(p.s[q], acc);
     if (lane == 0) p.zc[q] = z;
     const int c0 = a * agg, c1 = min(nc, c0 + agg);
     T* o = out + (size_t)s * ND * ncz;
-#pragma unroll
-    for (int i = 0; i < ND; ++i) {
+    if constexpr (BJ) {
+      const T* Ps = Pinv + (size_t)s * ND * ND * ncz;
+      const T* rsys = r + (size_t)s * ND * ncz;
       for (int c = c0 + lane; c < c1; c += 32) {
-        const T ov = o[i * ncz + c];
-        o[i * ncz + c] = mask ? (ov + z) * mask[i * ncz + c] : ov + z;
+        T zv[ND];
+        bj_block_apply<T, ND>(Ps, rsys, zv, c, ncz);
+#pragma unroll
+        for (int i = 0; i < ND; ++i)
+          o[i * ncz + c] = mask ? (zv[i] + z) * mask[i * ncz + c] : zv[i] + z;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        for (int c = c0 + lane; c < c1; c += 32) {
+          const T ov = o[i * ncz + c];
+          o[i * ncz + c] = mask ? (ov + z) * mask[i * ncz + c] : ov + z;
+        }
       }
     }
   }
@@ -808,9 +845,13 @@ static int tl_restrict_launch(const T* r, const T* OH, const T* W, const T* Wr, 
 // would report it.
 template <typename T>
 static int tl_fields_prepare(int smem) {
-  const void* fns[] = {(const void*)tl_restrict_kernel<T, 3>, (const void*)tl_restrict_kernel<T, 4>,
-                       (const void*)tl_restrict_kernel<T, 8>, (const void*)tl_prolong_kernel<T, 3>,
-                       (const void*)tl_prolong_kernel<T, 4>, (const void*)tl_prolong_kernel<T, 8>};
+  const void* fns[] = {(const void*)tl_restrict_kernel<T, 3>,
+                       (const void*)tl_restrict_kernel<T, 4>,
+                       (const void*)tl_restrict_kernel<T, 8>,
+                       (const void*)tl_prolong_kernel<T, 3, false>,
+                       (const void*)tl_prolong_kernel<T, 4, false>,
+                       (const void*)tl_prolong_kernel<T, 8, false>,
+                       (const void*)tl_prolong_kernel<T, 4, true>};
   for (const void* fn : fns) {
     cudaFuncAttributes attr;
     cudaError_t e = cudaFuncGetAttributes(&attr, fn);
@@ -874,34 +915,42 @@ static int tl_solve_launch(const TlSolve<T>* p, const T* rc, const T* proj, void
   return e != cudaSuccess ? (int)e : (int)last;
 }
 
+// With Pinv and r (nd = 4 only) the folded apply: out = Pinv r + the
+// corrections, out not read.
 template <typename T>
 static int tl_prolong_launch(T* out, const T* zc, const T* coef, const T* OH, const T* W,
-                             const T* Wr, const int* spans, const T* mask, int m, int nd, int nc,
-                             int agg, int n_agg, int n_comp, int nw, int nr, void* stream) {
+                             const T* Wr, const int* spans, const T* mask, const T* Pinv,
+                             const T* r, int m, int nd, int nc, int agg, int n_agg, int n_comp,
+                             int nw, int nr, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid(knp_blocks(nc), m);
   const size_t smem = (size_t)(nw + nr) * sizeof(int);
-  if (smem > TL_MAX_SMEM || (n_comp + nw + nr > 0 && !spans)) return (int)cudaErrorInvalidValue;
-  if (nd == 3) {
-    tl_prolong_kernel<T, 3><<<grid, KNP_THREADS, smem, st>>>(out, zc, coef, OH, W, Wr, spans, mask,
-                                                            nc, agg, n_agg, n_comp, nw, nr);
+  if (smem > TL_MAX_SMEM || (n_comp + nw + nr > 0 && !spans) || (!Pinv != !r) ||
+      (Pinv && nd != 4))
+    return (int)cudaErrorInvalidValue;
+#define TL_PROLONG(ND, BJ)                                                               \
+  tl_prolong_kernel<T, ND, BJ><<<grid, KNP_THREADS, smem, st>>>(                         \
+      out, zc, coef, OH, W, Wr, spans, mask, Pinv, r, nc, agg, n_agg, n_comp, nw, nr)
+  if (Pinv) {
+    TL_PROLONG(4, true);
+  } else if (nd == 3) {
+    TL_PROLONG(3, false);
   } else if (nd == 4) {
-    tl_prolong_kernel<T, 4><<<grid, KNP_THREADS, smem, st>>>(out, zc, coef, OH, W, Wr, spans, mask,
-                                                            nc, agg, n_agg, n_comp, nw, nr);
+    TL_PROLONG(4, false);
   } else if (nd == 8) {
-    tl_prolong_kernel<T, 8><<<grid, KNP_THREADS, smem, st>>>(out, zc, coef, OH, W, Wr, spans, mask,
-                                                            nc, agg, n_agg, n_comp, nw, nr);
+    TL_PROLONG(8, false);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+#undef TL_PROLONG
   return (int)cudaGetLastError();
 }
 
-// The one-launch apply's grids for nd = 4 (grids[0]) and nd = 8
-// (grids[1]): the blocks its phases can use (the chunk-sum tiles, a warp a
-// coarse row), at most the co-resident limit that a cooperative launch
-// requires.  Once per workspace; a refused query clears the runtime's last
-// error.
+// The one-launch apply's grids for nd = 4 (grids[0]), nd = 8 (grids[1])
+// and the folded apply at nd = 4 (grids[2]): the blocks its phases can use
+// (the chunk-sum tiles, a warp a coarse row), at most the co-resident limit
+// that a cooperative launch requires.  Once per workspace; a refused query
+// clears the runtime's last error.
 template <typename T>
 static int tl_coarse_prepare(const TlSolve<T>* p, int agg, int cpt, int* grids) {
   if (p->As != nullptr || p->n_comp + p->nw + p->nr > 0 || p->m < 1 || p->n < 1 || cpt < 1 ||
@@ -911,11 +960,13 @@ static int tl_coarse_prepare(const TlSolve<T>* p, int agg, int cpt, int* grids) 
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  const void* fns[] = {(const void*)tl_coarse_kernel<T, 4>, (const void*)tl_coarse_kernel<T, 8>};
+  const void* fns[] = {(const void*)tl_coarse_kernel<T, 4, false>,
+                       (const void*)tl_coarse_kernel<T, 8, false>,
+                       (const void*)tl_coarse_kernel<T, 4, true>};
   const long long tiles = (long long)p->m * ((p->n + cpt - 1) / cpt);
   const long long rows = ((long long)p->m * p->n + TL_WARPS - 1) / TL_WARPS;
   const long long need = std::max(tiles, rows);
-  for (int k = 0; k < 2 && e == cudaSuccess; ++k) {
+  for (int k = 0; k < 3 && e == cudaSuccess; ++k) {
     int per_sm = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fns[k], KNP_THREADS, 0);
     if (e == cudaSuccess && (!coop || per_sm < 1)) e = cudaErrorNotSupported;
@@ -925,18 +976,21 @@ static int tl_coarse_prepare(const TlSolve<T>* p, int agg, int cpt, int* grids) 
   return (int)e;
 }
 
+// With Pinv (nd = 4 only) the folded apply: out = Pinv r + zc, out not read.
 template <typename T>
 static int tl_coarse_launch(const TlSolve<T>* p, const T* r, T* out, const T* mask, T* rc,
-                            int nd, int nc, int agg, int cpt, int grid, void* stream) {
-  if ((nd != 4 && nd != 8) || grid < 1 || cpt < 1 || (long long)cpt * agg > TL_MAX_TILE ||
-      p->As != nullptr || p->n_comp + p->nw + p->nr > 0 || nc > p->n * agg ||
-      nc <= (p->n - 1) * agg)
+                            const T* Pinv, int nd, int nc, int agg, int cpt, int grid,
+                            void* stream) {
+  if ((nd != 4 && nd != 8) || (Pinv && nd != 4) || grid < 1 || cpt < 1 ||
+      (long long)cpt * agg > TL_MAX_TILE || p->As != nullptr || p->n_comp + p->nw + p->nr > 0 ||
+      nc > p->n * agg || nc <= (p->n - 1) * agg)
     return (int)cudaErrorInvalidValue;
   TlSolve<T> prm = *p;
   void* args[] = {(void*)&prm, (void*)&r, (void*)&out, (void*)&mask, (void*)&rc,
-                  (void*)&nc, (void*)&agg, (void*)&cpt};
-  const void* fn = nd == 4 ? (const void*)tl_coarse_kernel<T, 4>
-                           : (const void*)tl_coarse_kernel<T, 8>;
+                  (void*)&Pinv, (void*)&nc, (void*)&agg, (void*)&cpt};
+  const void* fn = Pinv      ? (const void*)tl_coarse_kernel<T, 4, true>
+                   : nd == 4 ? (const void*)tl_coarse_kernel<T, 4, false>
+                             : (const void*)tl_coarse_kernel<T, 8, false>;
   const cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(KNP_THREADS), args, 0,
                                                     (cudaStream_t)stream);
   // a refused launch also sets the runtime's last error: read it here, or
@@ -963,21 +1017,21 @@ static int tl_coarse_launch(const TlSolve<T>* p, const T* r, T* out, const T* ma
   }                                                                                       \
   extern "C" int knp_tl_prolong_##SFX(T* out, const T* zc, const T* coef, const T* OH,    \
                                       const T* W, const T* Wr, const int* spans,          \
-                                      const T* mask, int m, int nd, int nc, int agg,      \
-                                      int n_agg, int n_comp, int nw, int nr,              \
-                                      void* stream) {                                     \
-    return tl_prolong_launch<T>(out, zc, coef, OH, W, Wr, spans, mask, m, nd, nc, agg,    \
-                                n_agg, n_comp, nw, nr, stream);                           \
+                                      const T* mask, const T* Pinv, const T* r, int m,    \
+                                      int nd, int nc, int agg, int n_agg, int n_comp,     \
+                                      int nw, int nr, void* stream) {                     \
+    return tl_prolong_launch<T>(out, zc, coef, OH, W, Wr, spans, mask, Pinv, r, m, nd, nc, \
+                                agg, n_agg, n_comp, nw, nr, stream);                      \
   }                                                                                       \
   extern "C" int knp_tl_coarse_prepare_##SFX(const void* params, int agg, int cpt,        \
                                              int* grids) {                                \
     return tl_coarse_prepare<T>(static_cast<const TlSolve<T>*>(params), agg, cpt, grids); \
   }                                                                                       \
   extern "C" int knp_tl_coarse_##SFX(const void* params, const T* r, T* out,              \
-                                     const T* mask, T* rc, int nd, int nc, int agg,       \
-                                     int cpt, int grid, void* stream) {                   \
+                                     const T* mask, T* rc, const T* Pinv, int nd, int nc, \
+                                     int agg, int cpt, int grid, void* stream) {          \
     return tl_coarse_launch<T>(static_cast<const TlSolve<T>*>(params), r, out, mask, rc,  \
-                               nd, nc, agg, cpt, grid, stream);                           \
+                               Pinv, nd, nc, agg, cpt, grid, stream);                     \
   }
 
 TL_ENTRIES(float, f32)

@@ -15,7 +15,13 @@ in three steps over m systems (``csrc/two_level.cu``):
 :func:`coarse_add` runs the three in turn; on the card, operands without
 deflation fields or ``As`` (the KNP apply, K7) take them in one cooperative
 launch instead (``two_level_coarse``, ``two_level_coarse_batched``), with
-the same bits.
+the same bits.  Given the block-Jacobi operands of the apply's smoother
+(``bj``, spmv.block_jacobi_operands), :func:`coarse_add` computes the whole
+additive apply, out = P^-1 r + the coarse part: on the card at nd = 4 (the
+cell layout, the full form) the block-Jacobi values are computed inside
+the prolong-add or the one-launch apply (the folded apply: no kernel-B
+launch, z never in memory, the same bits); elsewhere kernel B's apply
+writes out first and the coarse part adds into it.
 
 Each wrapper runs its plain torch version (``*_plain``) for tensors on the
 CPU and launches its kernel for CUDA tensors; there is no fallback between
@@ -51,9 +57,12 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _cuda
+from .spmv import block_jacobi_apply
 
 COARSE_ND = (3, 4, 8)     # restrict and prolong_add
 FUSED_ND = (4, 8)         # the one-launch apply (tl_coarse_kernel)
+FOLD_ND = (4,)            # the block-Jacobi apply folded into the prolong-add or
+                          # the one-launch apply (the full form, the cell layout)
 MAX_TILE = 1024       # a restrict block covers whole chunks of at most this many cells
 MAX_SMEM = 232448     # dynamic shared memory bytes a block can have: the
                       # solve's 3 x the largest deflation group, restrict's
@@ -276,9 +285,10 @@ class CoarseWork(NamedTuple):
     params: Optional[_SolveParams]     # the solve kernel's, on the card only
     params_ptr: Optional[int]
     cpt: int                           # chunks a restrict tile
-    fused: Optional[Tuple[str, int, int]]  # the one-launch apply's launch counter and
-                                           # grids (nd = 4, 8), on the card without
-                                           # fields or As
+    fused: Optional[Tuple[str, int, int, int]]  # the one-launch apply's launch counter
+                                                # and grids (nd = 4, nd = 8, nd = 4 with
+                                                # the block-Jacobi apply folded in), on
+                                                # the card without fields or As
 
 
 def _ptr(t):
@@ -380,10 +390,10 @@ def work(co: Coarse) -> CoarseWork:
     with torch.cuda.device(dev):
         _cuda.call("knp_tl_solve_prepare", dt, ctypes.addressof(params))
         if nf == 0 and not refine:
-            grids = (ctypes.c_int * 2)()
+            grids = (ctypes.c_int * 3)()
             _cuda.call("knp_tl_coarse_prepare", dt, ctypes.addressof(params), co.agg, cpt,
                        grids)
-            fused = (_name("coarse", co), grids[0], grids[1])
+            fused = (_name("coarse", co), *grids)
     return wk._replace(params=params, params_ptr=ctypes.addressof(params), fused=fused)
 
 
@@ -463,43 +473,80 @@ def _mask_ptr(mask, dtype, nd, nc):
     return mask.data_ptr()
 
 
-def prolong_add(co: Coarse, out, zc, coef, mask=None):
+def _bj_ptrs(bj, r, m, nd, nc):
+    """(Pinv, r) addresses of the folded apply, the operands checked
+    against r (m, nd, nc): the full form of m systems' (nd, nd, nc) blocks
+    (one system's without a leading axis) in r's dtype on the card."""
+    if bj.halves or bj.tail[:3] != (m, nd, nc) or bj.Pinv.dtype != r.dtype:
+        raise ValueError(f"two_level: block-Jacobi operands of shape {tuple(bj.Pinv.shape)} "
+                         f"and form halves={bj.halves} do not fold into an apply to r of "
+                         f"shape {tuple(r.shape)}, {r.dtype}")
+    return bj.Pinv.data_ptr(), r.data_ptr()
+
+
+def prolong_add(co: Coarse, out, zc, coef, mask=None, bj=None, r=None):
     """out += the prolonged corrections, in place, then out *= ``mask``
     (nd, nc) where given (the prolong kernel on a CUDA tensor); returns
-    out."""
+    out.  With the block-Jacobi operands ``bj`` and r: out is not read but
+    set to bj's apply to r plus the corrections (on the card the folded
+    kernel, nd = 4 and the full form only)."""
     if not out.is_cuda:
+        if bj is not None:
+            block_jacobi_apply(bj, r, out=out)
         return prolong_add_plain(co, out, zc, coef, mask)
     wk = _work(co, "prolong_add")
     m, nd, nc = _check_cells("prolong_add", wk, "out", out, co.agg)
     if zc is not wk.zc or coef is not wk.coef:
         _cuda.check("zc", zc, out.dtype, wk.zc.shape)
         _cuda.check("coef", coef, out.dtype, wk.coef.shape)
+    fold = (None, None)
+    if bj is not None:
+        if nd not in FOLD_ND:
+            raise NotImplementedError(f"two_level prolong_add: the folded block-Jacobi "
+                                      f"apply is built for nd in {FOLD_ND}, got nd = {nd}")
+        _cuda.check("r", r, out.dtype, out.shape)
+        fold = _bj_ptrs(bj, r, m, nd, nc)
     _cuda.launch(_nd_name(wk.names[2], nd), "knp_tl_prolong", out.dtype, out.data_ptr(),
                  zc.data_ptr(), coef.data_ptr(), *wk.fields, _mask_ptr(mask, out.dtype, nd, nc),
-                 m, nd, nc, *wk.prolong_tail)
+                 *fold, m, nd, nc, *wk.prolong_tail)
     return out
 
 
-def coarse_add(co: Coarse, out, r, mask=None):
+def coarse_add(co: Coarse, out, r, mask=None, bj=None):
     """out (m, nd, nc) += the coarse and deflation part of the two-level
     apply to r (m, nd, nc), in place, then out *= ``mask`` (nd, nc) where
-    given; returns out.  Dispatched by operand: on the card, operands
-    without deflation fields or As (the KNP apply, K7) take one
-    cooperative launch of the chunk sums, the coarse solve and the
+    given; returns out.  With the block-Jacobi operands ``bj`` of the
+    apply's smoother (one system's without a leading axis, or m systems'):
+    out is not read but set to the whole additive apply, bj's apply to r
+    plus the coarse part (times the mask).  Dispatched by operand: on the
+    card, operands without deflation fields or As (the KNP apply, K7) take
+    one cooperative launch of the chunk sums, the coarse solve and the
     prolong-add (with the mask), a grid barrier between each, at nd = 4
     and 8; the others (K6), and every apply at nd = 3, restrict, solve and
-    prolong_add, three launches.  On the CPU the three plain versions in
-    turn."""
+    prolong_add, three launches.  At nd = 4 a full-form ``bj`` folds into
+    the one-launch apply or the prolong-add (no launch of its own); other
+    forms and sizes launch kernel B's apply into out first.  On the CPU
+    the plain versions in turn."""
     if r.is_cuda:
         wk = _work(co, "coarse_add")
+        fold = bj is not None and r.dim() == 3 and r.shape[1] in FOLD_ND
         if wk.fused is not None and r.dim() == 3 and r.shape[1] in FUSED_ND:
             m, nd, nc = _check_cells("coarse_add", wk, "r", r, co.agg)
             if out is not r:
                 _cuda.check("out", out, r.dtype, r.shape)
+            pinv = None
+            if fold:
+                pinv = _bj_ptrs(bj, r, m, nd, nc)[0]
+            elif bj is not None:
+                block_jacobi_apply(bj, r, out=out)
             _cuda.launch(wk.fused[0], "knp_tl_coarse", r.dtype, wk.params_ptr, r.data_ptr(),
                          out.data_ptr(), _mask_ptr(mask, r.dtype, nd, nc), wk.rc.data_ptr(),
-                         nd, nc, co.agg, wk.cpt, wk.fused[1 + (nd == 8)])
+                         pinv, nd, nc, co.agg, wk.cpt,
+                         wk.fused[3] if fold else wk.fused[1 + (nd == 8)])
             return out
+        if bj is not None and not fold:
+            block_jacobi_apply(bj, r, out=out)
+            bj = None
     rc, proj = restrict(co, r)
     zc, coef = solve(co, rc, proj)
-    return prolong_add(co, out, zc, coef, mask)
+    return prolong_add(co, out, zc, coef, mask, bj, r)

@@ -13,10 +13,14 @@ Kernel A is built for the 3D DG1 operator (K = 5 slots of nd = 4 blocks)
 and the 2D one (K = 4 slots of nd = 3 blocks), kernel B for their blocks
 and the 3D pair layout's 8 x 8 blocks; other block sizes or slot counts
 raise on a CUDA tensor.  The 2D instantiations count their launches apart
-(``_nd3``).  The apply takes the pair
-layout's 'halves' form (pair_bj = 'halves': the inverse's off-diagonal
-nd/2 x nd/2 blocks are zero and are not read), and its inverse once
-checked by :func:`block_jacobi_operands`, so an apply checks only r.
+(``_nd3``).  The inverse reads the diagonal blocks in place (a view whose
+systems lie apart, such as slot 0 of an (m, K, nd, nd, nc) operator) and
+takes the pair layout's 'halves' form (pair_bj = 'halves': the two
+diagonal nd/2 x nd/2 sub-blocks inverted apart, the off-diagonal blocks of
+the output zero and not written), into a caller's buffer where one is
+given.  The apply takes the halves form too (the inverse's off-diagonal
+blocks are not read), and its inverse once checked by
+:func:`block_jacobi_operands`, so an apply checks only r.
 """
 from __future__ import annotations
 
@@ -116,11 +120,21 @@ def bell_matvec_fan(blocks, nbr, x):
 # kernel B: block-Jacobi inverse and apply
 # ---------------------------------------------------------------------------
 
-def block_jacobi_inverse_plain(diag_blocks):
+def block_jacobi_inverse_plain(diag_blocks, halves=False):
     """Unpivoted Gauss-Jordan inverse of the (nd x nd) diagonal blocks over
     the trailing cell axis: (..., nd, nd, nc) -> same.  The DG diagonal
-    blocks are mass-regularised SPD, so the pivots stay positive."""
+    blocks are mass-regularised SPD, so the pivots stay positive.
+    ``halves``: the two diagonal nd/2 x nd/2 sub-blocks inverted apart and
+    placed in a zero nd x nd block (the pair layout's pair_bj = 'halves':
+    the JAX package inverts the diagonal times the halves mask, whose
+    eliminations across the halves multiply by exact zeros)."""
     nd = diag_blocks.shape[-3]
+    if halves:
+        h = nd // 2
+        out = diag_blocks.new_zeros(diag_blocks.shape)
+        for s in (slice(None, h), slice(h, None)):
+            out[..., s, s, :] = block_jacobi_inverse_plain(diag_blocks[..., s, s, :])
+        return out
     A = [[diag_blocks[..., i, j, :] for j in range(nd)] for i in range(nd)]
     one = torch.ones_like(diag_blocks[..., 0, 0, :])
     zero = torch.zeros_like(one)
@@ -155,20 +169,55 @@ def _batch(t, core_dims):
     return t.shape[0] if t.dim() == core_dims + 1 else 1
 
 
-def block_jacobi_inverse(diag_blocks):
+def _check_halves_out(out, nd):
+    """A halves inverse's buffer must be zero off its two diagonal
+    sub-blocks, which the kernel never writes: checked once per tensor and
+    in-place version (the kernel's writes do not bump it), the checked
+    version kept on the tensor."""
+    if getattr(out, "_zero_off_halves", None) == out._version:
+        return
+    h = nd // 2
+    if bool(out[..., :h, h:, :].any()) or bool(out[..., h:, :h, :].any()):
+        raise ValueError("block_jacobi_inverse: the halves form's buffer must be zero off "
+                         "its two diagonal sub-blocks")
+    out._zero_off_halves = out._version
+
+
+def block_jacobi_inverse(diag_blocks, halves=False, out=None):
     """(nd, nd, nc) or (m, nd, nd, nc) -> inverse blocks (kernel B on a
-    CUDA tensor)."""
-    if not diag_blocks.is_cuda:
-        return block_jacobi_inverse_plain(diag_blocks)
+    CUDA tensor).  ``diag_blocks`` is read in place: each system's
+    (nd, nd, nc) must be cells-last and contiguous, the systems may lie
+    any distance apart (slot 0 of an (m, K, nd, nd, nc) operator).
+    ``halves``: the pair layout's halves form (2nd = 8 on the card; 6 or 8
+    on the CPU), which reads only the two diagonal sub-blocks (the caller
+    need not mask the diagonal) and writes only those; its output is zero
+    elsewhere.  ``out``: the buffer to write (contiguous, the diagonal's
+    shape; for the halves form zero off the two sub-blocks, checked once
+    per tensor); without it a new tensor (zeroed for the halves form)."""
     nd, nc = diag_blocks.shape[-2], diag_blocks.shape[-1]
     if diag_blocks.dim() not in (3, 4) or diag_blocks.shape[-3] != nd:
         raise ValueError("block_jacobi_inverse: expected (m,) nd, nd, nc blocks")
+    if halves and nd not in (6, 8):
+        raise ValueError(f"block_jacobi_inverse: the halves form takes pair blocks "
+                         f"(nd = 6 or 8), got nd = {nd}")
+    if not diag_blocks.is_cuda:
+        inv = block_jacobi_inverse_plain(diag_blocks, halves)
+        return inv if out is None else out.copy_(inv)
+    if diag_blocks.stride()[-3:] != (nd * nc, nc, 1):
+        raise ValueError("block_jacobi_inverse: each system's blocks must be cells-last "
+                         "and contiguous")
+    _check_nd("block_jacobi_inverse", nd, (8,) if halves else BJ_ND)
     m = _batch(diag_blocks, 3)
-    _cuda.check("diag_blocks", diag_blocks)
-    _check_nd("block_jacobi_inverse", nd, BJ_ND)
-    out = torch.empty_like(diag_blocks)
+    if out is None:
+        out = (torch.zeros if halves else torch.empty)(
+            diag_blocks.shape, dtype=diag_blocks.dtype, device=diag_blocks.device)
+    else:
+        _cuda.check("out", out, diag_blocks.dtype, diag_blocks.shape)
+        if halves:
+            _check_halves_out(out, nd)
+    sys_stride = diag_blocks.stride(0) if diag_blocks.dim() == 4 else nd * nd * nc
     _cuda.launch(_bj_name("block_jacobi_inverse", nd), "knp_bj_inverse", diag_blocks.dtype,
-                 diag_blocks.data_ptr(), out.data_ptr(), m, nd, nc)
+                 diag_blocks.data_ptr(), out.data_ptr(), m, nd, nc, sys_stride, int(halves))
     return out
 
 
@@ -209,22 +258,34 @@ def block_jacobi_operands(Pinv, halves=False, buffer=False) -> BjOperands:
                       (_batch(Pinv, 3), nd, nc, int(bool(halves))))
 
 
-def block_jacobi_apply(Pinv, r):
+def _check_vector(op, name, v):
+    """r or out of an apply: the operands' shape (one system's also with a
+    leading axis of 1), dtype and device, contiguous."""
+    if ((v.shape != op.rshape and (v.dim() != 3 or v.shape[0] != 1 or v.shape[1:] != op.rshape))
+            or v.dtype != op.Pinv.dtype or not v.is_cuda or not v.is_contiguous()):
+        raise ValueError(f"block_jacobi_apply: expected a contiguous {op.Pinv.dtype} {name} "
+                         f"of shape {op.rshape}, got {v.dtype} {tuple(v.shape)}")
+
+
+def block_jacobi_apply(Pinv, r, out=None):
     """(nd, nd, nc) x (nd, nc), or batched over m systems, -> (.., nd, nc)
     (kernel B on a CUDA tensor).  ``Pinv``: the inverse blocks, checked
     here and applied in the full form, or their :func:`block_jacobi_operands`,
     which carry the form and the output buffer; with those an apply checks
-    only r."""
+    only r (and ``out``, the tensor to write in place of the operands'
+    buffer or a new one).  One system's r and out may carry a leading axis
+    of 1."""
     op = Pinv if isinstance(Pinv, BjOperands) else block_jacobi_operands(Pinv)
+    dst = op.buf if out is None else out
     if not r.is_cuda:
         z = block_jacobi_apply_plain(op.Pinv, r, op.halves)
-        return z if op.buf is None else op.buf.copy_(z)
+        return z if dst is None else dst.copy_(z)
     if not op.Pinv.is_cuda:
         raise ValueError("block_jacobi_apply: the operands were built from CPU tensors")
-    if r.shape != op.rshape or r.dtype != op.Pinv.dtype or not r.is_contiguous():
-        raise ValueError(f"block_jacobi_apply: expected a contiguous {op.Pinv.dtype} r of "
-                         f"shape {op.rshape}, got {r.dtype} {tuple(r.shape)}")
-    z = torch.empty_like(r) if op.buf is None else op.buf
+    _check_vector(op, "r", r)
+    if out is not None and out is not op.buf:
+        _check_vector(op, "out", out)
+    z = torch.empty_like(r) if dst is None else dst
     _cuda.launch(op.name, "knp_bj_apply", r.dtype, op.Pinv.data_ptr(), r.data_ptr(),
                  z.data_ptr(), *op.tail)
     return z

@@ -52,7 +52,8 @@ from .mesh.generators import box_3d_axons
 WARMUP, STEPS = 3, 3     # steps before the profile, steps per profile
 TOP = 12                 # operators listed by device time
 # the __global__ functions of csrc/, as the profiler names their launches
-HAND_KERNELS = ("bell_matvec_kernel", "bj_inverse_kernel", "bj_apply_kernel",
+HAND_KERNELS = ("bell_matvec_kernel", "bj_inverse_kernel", "bj_inverse_halves_kernel",
+                "bj_apply_kernel",
                 "membrane_step_kernel", "pair_matvec_kernel", "to_pair_kernel",
                 "from_pair_kernel", "pair_emit_kernel",
                 "tl_restrict_kernel", "tl_reduce_kernel", "tl_solve_kernel",

@@ -462,6 +462,23 @@ class Solver:
                                          diag=kind == "emi")
         return bufs[key]
 
+    def _bj_out(self, step: bool, kind: str, diag, halves: bool = False):
+        """The step's block-Jacobi inverse buffer of its EMI (``kind``
+        "emi") or KNP ("knp") solve, shaped as the diagonal blocks ``diag``
+        it inverts, made once per dtype and form and kept with the emit
+        buffers; zero, as the halves form needs it (it never writes the
+        off-diagonal blocks).  None unless ``step``: only the step's solves
+        use it, under the emit buffers' ownership rule (each step's inverse
+        overwrites the previous step's, which nothing holds past its
+        solve); every other caller's inverse is a new tensor."""
+        if not step:
+            return None
+        bufs = self.__dict__.setdefault("_emit_bufs", {})
+        key = ("bj_" + kind, halves, diag.dtype, tuple(diag.shape))
+        if key not in bufs:
+            bufs[key] = torch.zeros(diag.shape, dtype=diag.dtype, device=diag.device)
+        return bufs[key]
+
     def _membrane_emit_tables(self):
         """The KNP membrane emit's static tables (assembly.knp_emit_tables:
         the packed cell-facet slots, which the EMI emit reads too, the
@@ -528,11 +545,11 @@ class Solver:
         blocks, rhs, Pd = self._emi_assemble_step(state, pads)
         phi, stats["emi_iters"], stats["emi_converged"] = self._emi_solve_iterative(
             blocks, Pd, rhs, state["phi"], sp_, pc=pc.get("emi") if pc else None,
-            phi_prev=state.get("phi_prev"))
+            phi_prev=state.get("phi_prev"), step=True)
 
         blocksK, rhsK = self._knp_assemble_step(state, phi, pads, c_n)
         c, stats["knp_iters"], stats["knp_converged"] = self._knp_solve_all(
-            blocksK, rhsK, c, sp_, pcK=pc.get("knp") if pc else None)
+            blocksK, rhsK, c, sp_, pcK=pc.get("knp") if pc else None, step=True)
         return self._finalize_step(state, stats, c, phi, t, advance_time)
 
     def _emi_assemble_step(self, state, pads):
@@ -646,7 +663,7 @@ class Solver:
         return bell_matvec(blocks, self.g["nbr"], v)
 
     def _emi_solve_iterative(self, blocks, Pd, rhs, phi, sp_: SolverParams,
-                             pc=None, phi_prev=None):
+                             pc=None, phi_prev=None, step=False):
         """Increment-form PCG for the EMI system: solve A d = b - A phi_0
         around zero, the tolerance relative to the full rhs (b_ref).
 
@@ -654,7 +671,9 @@ class Solver:
         the guess with the smaller initial residual is used.  On the pair
         layout (``blocks`` a (pd, pe) tuple) the vectors convert to pairs in
         one relayout into a stack, the solve runs on pairs with the live mask
-        in the nullspace projection, and the solution converts back."""
+        in the nullspace projection, and the solution converts back.
+        ``step``: the preconditioner's block-Jacobi inverse goes into the
+        step's buffer (_bj_out)."""
         pair = isinstance(blocks, tuple)
         mask = None
         if pair:
@@ -681,7 +700,7 @@ class Solver:
             r0 = rhs - mv(phi)
         res = pcg(
             mv, r0, torch.zeros_like(phi),
-            self._make_precond(blocks, Pd, sp_, pc=pc),
+            self._make_precond(blocks, Pd, sp_, pc=pc, step=step),
             rtol=sp_.rtol_emi, atol=sp_.atol_emi, max_it=sp_.max_it_emi,
             project_nullspace=True, b_ref=rhs, nullspace_mask=mask,
         )
@@ -746,29 +765,35 @@ class Solver:
             return bicgstab_batched(mv, r0, torch.zeros_like(r0), pcf, **kw)
         return gmres_batched(mv, r0, torch.zeros_like(r0), pcf, restart=sp_.gmres_restart, **kw)
 
-    def _knp_solve_all(self, blocksK, rhsK, c, sp_: SolverParams, pcK=None):
+    def _knp_solve_all(self, blocksK, rhsK, c, sp_: SolverParams, pcK=None, step=False):
         """Batched increment-form GMRES (or BiCGStab) over the ion axis:
         all solved ions share one Krylov loop whose matvec is one kernel
-        launch."""
+        launch.  The block-Jacobi inverse reads slot 0 of the operator in
+        place; ``step``: into the step's buffer (_bj_out)."""
         if isinstance(blocksK, tuple):
-            return self._knp_solve_all_pair(blocksK, rhsK, c, sp_, pcK)
+            return self._knp_solve_all_pair(blocksK, rhsK, c, sp_, pcK, step)
         kind = sp_.precond_knp or sp_.precond
         mv = lambda V: self._matvec(blocksK, V)
-        P_diag = blocksK[:, 0].contiguous()
+        P_diag = blocksK[:, 0]
+        inv_out = self._bj_out(step, "knp", P_diag)
         if kind == "two_level":
             data = pcK if pcK is not None else self._build_knp_pc(blocksK, sp_)
-            pcf = two_level_apply_batched(data, P_diag, sp_.agg_size)
+            # GMRES and BiCGStab consume (or copy) each result before the
+            # next apply, so the applies reuse one buffer
+            pcf = two_level_apply_batched(data, P_diag, sp_.agg_size, buffer=True,
+                                          inv_out=inv_out)
         else:
-            bj = block_jacobi_operands(block_jacobi_inverse(P_diag))
+            bj = block_jacobi_operands(block_jacobi_inverse(P_diag, out=inv_out))
             pcf = lambda r: block_jacobi_apply(bj, r.contiguous())
         res = self._knp_krylov(mv, rhsK - mv(c), pcf, rhsK, sp_)
         return (c + res.x).contiguous(), res.iters, res.converged
 
-    def _knp_solve_all_pair(self, blocksK, rhsK, c, sp_: SolverParams, pcK):
+    def _knp_solve_all_pair(self, blocksK, rhsK, c, sp_: SolverParams, pcK, step=False):
         """_knp_solve_all on the pair layout: the rhs and the iterate
         convert once, the preconditioner is live-masked (its chunk prolong
         writes into the dead self-pair halves) and uses the pair_bj variant
-        of the pair diagonal."""
+        of the pair diagonal (the halves form inverts the two diagonal
+        sub-blocks of the unmasked diagonal)."""
         kind = sp_.precond_knp or sp_.precond
         pm = self.pairs
         pdK, peK = blocksK
@@ -777,16 +802,16 @@ class Solver:
         rhs_p, c_p = conv[0], conv[1]
         lm = self._live_mask(rhs_p.dtype)
         halves = sp_.pair_bj == "halves"
-        pdK_bj = pdK * self._pair_bj_halves[None] if halves else pdK
+        inv_out = self._bj_out(step, "knp", pdK, halves)
         if kind == "two_level":
             data = pcK if pcK is not None else self._build_knp_pc(blocksK, sp_)
             # the prolong-add applies the mask; GMRES and BiCGStab consume
             # (or copy) each result before the next apply, so the applies
             # reuse one buffer
-            pcf = two_level_apply_batched(data, pdK_bj, sp_.agg_size // 2, halves=halves,
-                                          buffer=True, mask=lm)
+            pcf = two_level_apply_batched(data, pdK, sp_.agg_size // 2, halves=halves,
+                                          buffer=True, mask=lm, inv_out=inv_out)
         else:
-            bj = block_jacobi_operands(block_jacobi_inverse(pdK_bj.contiguous()), halves,
+            bj = block_jacobi_operands(block_jacobi_inverse(pdK, halves, inv_out), halves,
                                        buffer=True)
             pcf = lambda r: block_jacobi_apply(bj, r.contiguous()) * lm[None]
         res = self._knp_krylov(mv, rhs_p - mv(c_p), pcf, rhs_p, sp_)
@@ -1123,19 +1148,23 @@ class Solver:
                                              device=self.device)
         return self._comp_onehot, self._comp_ids
 
-    def _make_precond(self, blocks, P_diag, sp_: SolverParams, pc=None, sym=True):
+    def _make_precond(self, blocks, P_diag, sp_: SolverParams, pc=None, sym=True,
+                      step=False):
         """Preconditioner apply of the EMI operator (``sym``) or of one
         ion's KNP operator (the per-ion solves): two-level (from the frozen
         ``pc`` data, or built on the spot: the EMI one with exact
         compartment deflation, the KNP one with the exact mass diagonal
         vol/dt) or plain block-Jacobi.  The batched KNP solve builds its
-        apply in _knp_solve_all."""
+        apply in _knp_solve_all.  ``step``: the step's EMI solve, whose
+        block-Jacobi inverse goes into the step's buffer (_bj_out)."""
         kind = sp_.precond if sym else (sp_.precond_knp or sp_.precond)
         if kind == "two_level" and isinstance(blocks, tuple):
-            return self._make_precond_pair(blocks, P_diag, sp_, pc)
+            return self._make_precond_pair(blocks, P_diag, sp_, pc, step)
         if kind == "two_level":
             if pc is not None:
-                return two_level_apply_fn(pc, P_diag, sp_.agg_size)
+                # PCG consumes each result before the next apply: one buffer
+                return two_level_apply_fn(pc, P_diag, sp_.agg_size, buffer=True,
+                                          inv_out=self._bj_out(step, "emi", P_diag))
             comp_onehot, comp_ids = self._comp_arrays() if sym else (None, None)
             return make_two_level(
                 blocks, P_diag, self.g["nbr"], sp_.agg_size, sym=sym,
@@ -1143,35 +1172,37 @@ class Solver:
                 extra_diag=P_diag - blocks[0] if sym else None,
                 mass_diag=None if sym else self.g["vol"] / self.params.dt,
                 ridge=sp_.coarse_ridge)
-        bj = block_jacobi_operands(block_jacobi_inverse(P_diag.contiguous()))
+        bj = block_jacobi_operands(block_jacobi_inverse(P_diag,
+                                                        out=self._bj_out(step, "emi", P_diag)))
         return lambda r: block_jacobi_apply(bj, r.contiguous())
 
-    def _make_precond_pair(self, blocks, P_diag, sp_: SolverParams, pc):
+    def _make_precond_pair(self, blocks, P_diag, sp_: SolverParams, pc, step=False):
         """Two-level EMI apply on the pair layout: chunks of agg_size // 2
         pairs (agg_size cells).  The apply is live-masked: the chunk-coarse
         prolong broadcasts into the dead self-pair halves, and left
         unmasked those pollute <p, A p> through the dead-identity rows and
         CG stalls at the iteration cap.  Masked, it is the preconditioner
         restricted to the live subspace, SPD there, and the dead Krylov
-        components stay exactly zero."""
+        components stay exactly zero.  The halves form inverts the two
+        diagonal sub-blocks of the unmasked diagonal."""
         pd_, pe_ = blocks
         agg_p = sp_.agg_size // 2
         halves = sp_.pair_bj == "halves"
-        if halves:
-            P_diag = P_diag * self._pair_bj_halves
         if pc is None:
             oh, ids = self._comp_arrays()
             cop0 = self.pairs["cop"][0]
             # the JAX package forms extra_diag from the masked diagonal here
+            P_b = P_diag * self._pair_bj_halves if halves else P_diag
             pc = build_two_level(
                 None, pair_nbr(self.pairs), agg_p, sym=True,
                 comp_onehot=oh[:, cop0], comp_ids=ids[cop0],
-                extra_diag=P_diag - pd_, v=pair_v_sums(pd_, pe_),
+                extra_diag=P_b - pd_, v=pair_v_sums(pd_, pe_),
                 ridge=sp_.coarse_ridge)
         # the prolong-add applies the mask; PCG consumes each result before
         # the next apply, so the applies reuse one buffer
         return two_level_apply_fn(pc, P_diag, agg_p, halves=halves, buffer=True,
-                                  mask=self._live_mask(P_diag.dtype))
+                                  mask=self._live_mask(P_diag.dtype),
+                                  inv_out=self._bj_out(step, "emi", P_diag, halves))
 
     def _build_knp_pc(self, blocksK, sp_: SolverParams):
         """Per-ion two-level coarse data stacked over the ion axis (pairs:

@@ -46,7 +46,7 @@ class SolverEMI(Solver):
             blocks, rhs, Pd = self._emi_assemble_step(state, pads)
             phi, stats["emi_iters"], stats["emi_converged"] = self._emi_solve_iterative(
                 blocks, Pd, rhs, state["phi"], sp_, pc=pc.get("emi") if pc else None,
-                phi_prev=state.get("phi_prev"))
+                phi_prev=state.get("phi_prev"), step=True)
         stats["knp_iters"] = [0] * self.N_ions
         stats["knp_converged"] = True
         return self._finalize_step(state, stats, state["c"], phi, state["t"],

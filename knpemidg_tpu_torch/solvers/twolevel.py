@@ -21,8 +21,7 @@ import numpy as np
 import torch
 
 from ..ops import coarse
-from ..ops.spmv import (bell_matvec, block_jacobi_apply, block_jacobi_inverse,
-                        block_jacobi_operands)
+from ..ops.spmv import bell_matvec, block_jacobi_inverse, block_jacobi_operands
 
 
 def compartment_ids(mesh) -> np.ndarray:
@@ -185,53 +184,60 @@ def build_two_level(blocks, nbr, agg_size: int, sym: bool = True,
 
 
 def two_level_apply_fn(data, P_diag, agg_size: int, halves: bool = False,
-                       buffer: bool = False, mask=None) -> Callable:
+                       buffer: bool = False, mask=None, inv_out=None) -> Callable:
     """Per-solve additive preconditioner apply from frozen coarse ``data``
     (see build_two_level) and the current block-Jacobi diagonal: BJ +
     chunk coarse (with one refinement sweep when ``As`` is present) +
     compartment deflation + moment deflation + Ritz deflation (each when
-    its entries are in ``data``).  The BJ apply is kernel B (``halves``:
-    the pair diagonal's two diagonal sub-blocks only, pair_bj = 'halves');
-    the rest is K6's restrict, solve and prolong-add, added in place into
-    it.  ``mask`` (nd, nc): the pair layout's live mask, applied by the
-    prolong-add in the same pass (the apply's result is the masked sum).
-    ``buffer``: every apply returns the same tensor, overwritten, for a
-    caller that is done with it before the next apply (PCG's z is consumed
-    by its direction update, GMRES's w by its Arnoldi step); without it
-    each apply returns a new tensor."""
+    its entries are in ``data``).  The BJ inverse is kernel B's, read from
+    ``P_diag`` in place (``halves``: the pair diagonal's two diagonal
+    sub-blocks only, pair_bj = 'halves', the diagonal unmasked or masked
+    alike), into ``inv_out`` where given (the step's buffer).  The apply is
+    one coarse.coarse_add: on the card at nd = 4 the BJ apply folds into
+    K6's prolong-add; elsewhere kernel B's apply, then K6's restrict,
+    solve and prolong-add added in place into it.  ``mask`` (nd, nc): the
+    pair layout's live mask, applied by the prolong-add in the same pass
+    (the apply's result is the masked sum).  ``buffer``: every apply
+    returns the same tensor, overwritten, for a caller that is done with
+    it before the next apply (PCG's z is consumed by its direction update,
+    GMRES's w by its Arnoldi step); without it each apply returns a new
+    tensor."""
     for key in ("d1inv", "momb_W"):
         if key in data:
             raise NotImplementedError(f"two-level data {key!r} is not ported")
-    bj = block_jacobi_operands(block_jacobi_inverse(P_diag.contiguous()), halves, buffer)
+    bj = block_jacobi_operands(block_jacobi_inverse(P_diag, halves, inv_out), halves, buffer)
     co = coarse.operands(data, agg_size, batched=False)
 
     def apply(r):                      # additive: BJ + coarse (+ deflation)
         r = r.contiguous()
-        out = block_jacobi_apply(bj, r)
-        coarse.coarse_add(co, out[None], r[None], mask)
+        out = torch.empty_like(r) if bj.buf is None else bj.buf
+        coarse.coarse_add(co, out[None], r[None], mask, bj)
         return out
 
     return apply
 
 
 def two_level_apply_batched(data, P_diag, agg_size: int, halves: bool = False,
-                            buffer: bool = False, mask=None) -> Callable:
+                            buffer: bool = False, mask=None, inv_out=None) -> Callable:
     """Batched additive two-level apply: ``data`` leaves and ``P_diag``
-    carry a leading system axis m; the returned apply maps (m, nd, nc) ->
-    (m, nd, nc).  The block-Jacobi inverses are computed once here, not per
-    apply; the chunk coarse is K7 (on the card one launch, the chunk sums,
-    the coarse solve and the prolong-add: no deflation, no As).
-    ``halves``, ``buffer`` and ``mask`` (nd, nc, shared by the systems) as
-    in :func:`two_level_apply_fn`."""
+    carry a leading system axis m (``P_diag`` may be a view whose systems
+    lie apart: slot 0 of the (m, K, nd, nd, nc) operator); the returned
+    apply maps (m, nd, nc) -> (m, nd, nc).  The block-Jacobi inverses are
+    computed once here, not per apply; the chunk coarse is K7 (on the card
+    one launch, the chunk sums, the coarse solve and the prolong-add: no
+    deflation, no As; at nd = 4 with the BJ apply folded in).  ``halves``,
+    ``buffer``, ``mask`` (nd, nc, shared by the systems) and ``inv_out``
+    as in :func:`two_level_apply_fn`."""
     for key in ("d1inv", "ritz_W"):
         if key in data:
             raise NotImplementedError(f"two-level data {key!r} is not ported")
-    bj = block_jacobi_operands(block_jacobi_inverse(P_diag.contiguous()), halves, buffer)
+    bj = block_jacobi_operands(block_jacobi_inverse(P_diag, halves, inv_out), halves, buffer)
     co = coarse.operands(data, agg_size, batched=True)
 
     def apply(r):
         r = r.contiguous()
-        return coarse.coarse_add(co, block_jacobi_apply(bj, r), r, mask)
+        out = torch.empty_like(r) if bj.buf is None else bj.buf
+        return coarse.coarse_add(co, out, r, mask, bj)
 
     return apply
 

@@ -36,7 +36,9 @@ ASSEMBLY_KERNELS = ("emi_cell", "emi_facet", "emi_emit_cell", "alpha_sum", "knp_
                     "eliminated_concentration")
 KRYLOV_KERNELS = tuple(f"pcg_{e}" for e in ("dot", "update", "dot2_direction")) + tuple(
     f"gmres_{e}" for e in ("start", "cgs_dot", "arnoldi", "solve_update"))
-CELL_KERNELS = ("bell_matvec", "block_jacobi_inverse", "block_jacobi_apply",
+# (the cell layout's two-level applies fold kernel B's apply into the
+# prolong-add and the one-launch apply: no block_jacobi_apply launch)
+CELL_KERNELS = ("bell_matvec", "block_jacobi_inverse",
                 "membrane_rk4") + TWO_LEVEL_KERNELS + ASSEMBLY_KERNELS + KRYLOV_KERNELS
 PAIR_KERNELS = ("pair_matvec", "to_pair", "from_pair", "gather_blocks_pair",
                 "block_jacobi_inverse_nd8", "block_jacobi_apply_nd8",
@@ -356,6 +358,7 @@ def test_emix_slice_on_cuda_matches_cpu():
     _cuda.reset_launches()
     sg = Sg.solve_system_active(0.2, 0.0, sp)
     assert all(_cuda.LAUNCHES[k] > 0 for k in CELL_KERNELS), _cuda.LAUNCHES
+    assert _cuda.LAUNCHES["block_jacobi_apply"] == 0
     assert Sg.stats.emi_niters == Sc.stats.emi_niters == [7, 4]
     assert Sg.stats.knp_niters == Sc.stats.knp_niters == [[4, 3], [2, 2]]
     for key in ("phi", "c", "c_elim", "phi_M"):
@@ -542,6 +545,88 @@ def test_block_jacobi_operands_refuse_what_the_kernel_cannot_take():
     for bad in (r[:1].contiguous(), r.float(), r.transpose(1, 2).contiguous().transpose(1, 2)):
         with pytest.raises(ValueError):
             spmv.block_jacobi_apply(op, bad)
+
+
+def _pair_diagonal(rng, m, npair, dtype, dev):
+    """An unmasked pair diagonal as the step hands it to the inverse:
+    dominant 8 x 8 blocks, a tenth of the pairs self-pairs whose second
+    half is an identity block (their cross blocks are zero in the emit);
+    m = 1: the unbatched form."""
+    eye = torch.eye(8, dtype=dtype, device=dev)[None, :, :, None]
+    P = 0.3 * _rand(rng, (m, 8, 8, npair), dtype, dev) + 4.0 * eye
+    dead = torch.as_tensor(rng.random(npair) < 0.1, device=dev)
+    P[:, 4:, 4:, dead] = torch.eye(4, dtype=dtype, device=dev)[None, :, :, None]
+    P[:, :4, 4:, dead] = 0.0
+    P[:, 4:, :4, dead] = 0.0
+    return (P[0] if m == 1 else P).contiguous()
+
+
+HALVES = torch.as_tensor(np.kron(np.eye(2), np.ones((4, 4)))[:, :, None])
+
+
+@pytest.mark.parametrize("m,npair", BJ_HALVES_SIZES)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_block_jacobi_halves_inverse_equals_the_full_form_bitwise(m, npair, dtype, tol):
+    """K5's halves inverse (a thread per system, half and pair, reading the
+    unmasked diagonal's two 4 x 4 sub-blocks) equals the full-form kernel
+    on the masked diagonal (the parent's route) bit for bit on every
+    nonzero value and in value everywhere, its off-diagonal blocks +0; its
+    plain twin to round-off (the kernel's elimination contracts into fused
+    multiply-adds, as the full form's does); one launch a call; into a
+    zeroed buffer, and from a view whose systems lie apart, the same bits;
+    a buffer with values off the halves raises."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(26)
+    P = _pair_diagonal(rng, m, npair, dtype, dev)
+    n0 = _cuda.LAUNCHES["block_jacobi_inverse_nd8"]
+    got = spmv.block_jacobi_inverse(P, halves=True)
+    full = spmv.block_jacobi_inverse((P * HALVES.to(dev, dtype)).contiguous())
+    assert _cuda.LAUNCHES["block_jacobi_inverse_nd8"] == n0 + 2
+    nz = full != 0
+    assert torch.equal(got, full) and torch.equal(_bits(got)[nz], _bits(full)[nz])
+    for a, b in ((slice(0, 4), slice(4, 8)), (slice(4, 8), slice(0, 4))):
+        assert not _bits(got[..., a, b, :]).any()
+    assert rel(got, spmv.block_jacobi_inverse_plain(P, halves=True)) < 10 * tol
+    out = torch.zeros_like(P)
+    for _ in range(3):
+        assert spmv.block_jacobi_inverse(P, halves=True, out=out) is out
+        assert torch.equal(_bits(out), _bits(got))
+    if m > 1:
+        big = torch.zeros((m, 3) + tuple(P.shape[1:]), dtype=dtype, device=dev)
+        big[:, 1] = P
+        assert torch.equal(_bits(spmv.block_jacobi_inverse(big[:, 1], halves=True)), _bits(got))
+    out[..., 0, 5, 0] = 1.0
+    with pytest.raises(ValueError):
+        spmv.block_jacobi_inverse(P, halves=True, out=out)
+
+
+@pytest.mark.parametrize("nd", [3, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_jacobi_inverse_of_a_strided_view_equals_the_contiguous_bitwise(nd, dtype):
+    """The inverse of slot 0 of an (m, K, nd, nd, nc) operator read in
+    place equals the inverse of its contiguous copy bit for bit, into a
+    new tensor or a buffer (no allocation a call with the buffer, one
+    kernel a call); a view not cells-last raises."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(27)
+    nc = 124416 if nd == 4 else 5001
+    B = _rand(rng, (2, 5, nd, nd, nc), dtype, dev) * 0.3
+    B[:, 0] += 4.0 * torch.eye(nd, dtype=dtype, device=dev)[:, :, None]
+    view = B[:, 0]
+    assert not view.is_contiguous()
+    ref = spmv.block_jacobi_inverse(view.contiguous())
+    assert torch.equal(_bits(spmv.block_jacobi_inverse(view)), _bits(ref))
+    out = torch.empty_like(ref)
+    spmv.block_jacobi_inverse(view, out=out)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    kernels = _device_kernels(lambda: spmv.block_jacobi_inverse(view, out=out), sessions=3,
+                              want=1, match="bj_inverse_kernel")
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
+    assert len(kernels) == 1 and "bj_inverse_kernel" in kernels[0], kernels
+    assert torch.equal(_bits(out), _bits(ref))
+    with pytest.raises(ValueError):
+        spmv.block_jacobi_inverse(B.transpose(-2, -3)[:, 0])
 
 
 def test_pair_kernels_refuse_unported_maps(pair_maps):
@@ -1366,7 +1451,7 @@ def test_coarse_apply_raises_on_a_refused_launch():
     refusal leaves no error behind for the next launch."""
     dev = cuda_or_skip()
     co, r, out0, _ = _k7_main("cell", torch.float64, dev)
-    big = co._replace(work=co.work._replace(fused=(co.work.fused[0], 10 ** 6, 10 ** 6)))
+    big = co._replace(work=co.work._replace(fused=(co.work.fused[0],) + (10 ** 6,) * 3))
     n0 = _cuda.LAUNCHES["two_level_coarse_batched"]
     with pytest.raises(RuntimeError, match="launch failed"):
         coarse.coarse_add(big, out0.clone(), r)
@@ -1375,6 +1460,135 @@ def test_coarse_apply_raises_on_a_refused_launch():
     assert _cuda.LAUNCHES["two_level_coarse_batched"] == n0 + 1
     assert torch.equal(_bits(got), _bits(coarse.prolong_add(
         co, out0.clone(), *coarse.solve(co, *coarse.restrict(co, r)))))
+
+
+def _cell_inverse(rng, m, nc, dtype, dev):
+    """Kernel B's inverse of dominant nd = 4 cell blocks: (4, 4, nc) for
+    m = None, else (m, 4, 4, nc)."""
+    lead = () if m is None else (m,)
+    P = 0.3 * _rand(rng, lead + (4, 4, nc), dtype, dev) + 4.0 * torch.eye(
+        4, dtype=dtype, device=dev)[:, :, None]
+    return spmv.block_jacobi_inverse(P.contiguous())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("case", ["k6_full", "k6_refined", "k7"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_folded_apply_equals_kernel_b_then_coarse_add_bitwise(case, dtype, masked):
+    """The cell layout's folded two-level apply at its main size (124,416
+    cells, nd = 4): coarse_add with the block-Jacobi operands (K6: the
+    prolong-add computing Pinv r in place of loading out; K7: the
+    one-launch apply computing it in its phase 3) equals kernel B's apply
+    followed by coarse_add (the parent's two launches) bit for bit, with
+    and without a mask, 20 calls in a row; no block_jacobi_apply launch;
+    prolong_add with the operands and r the same bits as prolong_add on
+    kernel B's output."""
+    dev = cuda_or_skip()
+    co, r, _ = _coarse_case(case, 4, dtype, dev, nc=MAIN_NC)
+    m = r.shape[0]
+    rng = np.random.default_rng(45)
+    bj = spmv.block_jacobi_operands(_cell_inverse(rng, m if co.batched else None, MAIN_NC,
+                                                  dtype, dev))
+    mask = (torch.as_tensor((rng.uniform(size=(4, MAIN_NC)) < 0.75).astype(np.float64),
+                            dtype=dtype, device=dev) if masked else None)
+    z = spmv.block_jacobi_apply(bj, r if co.batched else r[0])
+    z = z if co.batched else z[None]
+    ref = coarse.coarse_add(co, z.clone(), r, mask)
+    n0 = dict(_cuda.LAUNCHES)
+    outs = [coarse.coarse_add(co, torch.full_like(r, float("nan")), r, mask, bj)
+            for _ in range(20)]
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["block_jacobi_apply"] == n0["block_jacobi_apply"]
+    if co.work.fused is not None:
+        assert _cuda.LAUNCHES["two_level_coarse_batched"] == n0["two_level_coarse_batched"] + 20
+    else:
+        for name in co.work.names:
+            assert _cuda.LAUNCHES[name] == n0[name] + 20, name
+    for got in outs:
+        assert torch.equal(_bits(got), _bits(ref))
+    if co.work.fused is None:
+        zc, coef = (t.clone() for t in coarse.solve(co, *coarse.restrict(co, r)))
+        ref = coarse.prolong_add(co, z.clone(), zc, coef, mask)
+        got = coarse.prolong_add(co, torch.empty_like(r), zc, coef, mask, bj=bj, r=r)
+        assert torch.equal(_bits(got), _bits(ref))
+
+
+def test_cell_two_level_applies_launch_no_kernel_b_and_allocate_nothing():
+    """The cell layout's EMI (K6, every deflation group) and KNP (K7)
+    two-level applies with their buffer: five applies each launch no
+    bj_apply_kernel (K6: restrict, its reduce, the solve and the
+    prolong-add; K7: the one-launch apply), no block_jacobi_apply counted,
+    and allocate nothing (the caching allocator's count); each returns the
+    buffer."""
+    from knpemidg_tpu_torch.solvers import twolevel
+
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(46)
+    for case, per_apply in (("k6_full", 4), ("k7", 1)):
+        m, groups = TWO_LEVEL_CASES[case]
+        d, (r, _) = _coarse_numpy(case, 4, MAIN_NC, 64)
+        data = {k: torch.as_tensor(v, device=dev) for k, v in d.items()}
+        P = (0.3 * _rand(rng, ((m,) if m else ()) + (4, 4, MAIN_NC), torch.float64, dev)
+             + 4.0 * torch.eye(4, dtype=torch.float64, device=dev)[:, :, None]).contiguous()
+        make = twolevel.two_level_apply_batched if m else twolevel.two_level_apply_fn
+        apply = make(data, P, 64, buffer=True)
+        rv = torch.as_tensor(r if m else r[0], device=dev)
+        z = apply(rv)
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        n0 = _cuda.LAUNCHES["block_jacobi_apply"]
+
+        def applies():
+            for _ in range(5):
+                assert apply(rv) is z
+
+        kernels = _device_kernels(applies, sessions=3, want=5 * per_apply)
+        assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
+        assert _cuda.LAUNCHES["block_jacobi_apply"] == n0
+        assert len(kernels) == 5 * per_apply, (case, kernels)
+        assert not any("bj_apply_kernel" in k for k in kernels), kernels
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_step_route_forms_no_masked_or_copied_diagonal(pair):
+    """One step of the EMIx fixture on the card with every aten call of
+    its EMI and KNP solves recorded (profile_step's census, with the
+    shapes): no product with the halves mask (the pair layout's inverse
+    reads the unmasked diagonal in its halves form) and no copy of slot 0
+    of the KNP operator (the cell layout's inverse reads it in place): no
+    mul, clone or copy_ touches a tensor of a diagonal's or the mask's
+    shape.  The step's inverses go into the step's buffers."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    dev = cuda_or_skip()
+    S, sp = tp.emix_torch(device=dev, pair=pair)
+    state = S.attach_pc(S._initial_state(0.0), sp)
+    D, n = (2 * S.nd, S.pairs["int_f"].shape[0]) if pair else (S.nd, S.n_cells)
+    shapes = {(D, D, n), (S.N_ions, D, D, n), (D, D, 1)}
+    seen = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            op = func.__name__.split(".")[0]
+            dims = [tuple(a.shape) for a in list(args) + list((kwargs or {}).values())
+                    if isinstance(a, torch.Tensor)]
+            seen.append((op, dims))
+            return func(*args, **(kwargs or {}))
+
+    for name in ("_emi_solve_iterative", "_knp_solve_all"):
+        fn = getattr(S, name)
+
+        def wrapped(*args, _fn=fn, **kw):
+            with Record():
+                return _fn(*args, **kw)
+
+        setattr(S, name, wrapped)
+    S.run_block(state, sp, 2)
+    bad = [(op, dims) for op, dims in seen
+           if op in ("mul", "clone", "copy_", "_to_copy") and shapes & set(dims)]
+    assert seen and not bad, bad
+    bufs = [k for k in S._emit_bufs if k[0] in ("bj_emi", "bj_knp")]
+    assert len(bufs) == 2, bufs
 
 
 def _facet_case(rng, nd, nf1, nc, membrane, dtype, dev):
@@ -3198,7 +3412,6 @@ def test_bicgstab_pair_slice_with_plain_pair_kernels(monkeypatch):
     converged solutions at rtol_knp 1e-7 (chip_smoke.BICG_GAP, the
     BiCGStab window's allowed gap to the GMRES one)."""
     from knpemidg_tpu_torch import solver as tsolver
-    from knpemidg_tpu_torch.solvers import twolevel
 
     dev = cuda_or_skip()
     Sc, sp = tp.emix_torch(pair=True, knp_solver="bicgstab")
@@ -3206,18 +3419,25 @@ def test_bicgstab_pair_slice_with_plain_pair_kernels(monkeypatch):
     Sk, _ = tp.emix_torch(device=dev, pair=True, knp_solver="bicgstab")
     Sk.solve_system_active(0.2, 0.0, sp)
 
-    def bj_plain(op, r):
+    def bj_plain(op, r, out=None):
         op = op if isinstance(op, spmv.BjOperands) else spmv.block_jacobi_operands(op)
-        return spmv.block_jacobi_apply_plain(op.Pinv, r, op.halves)
+        z = spmv.block_jacobi_apply_plain(op.Pinv, r, op.halves)
+        return z if out is None else out.copy_(z)
 
     coarse_add = coarse.coarse_add
+
+    def k7_plain(co, out, r, mask=None, bj=None):
+        if not co.batched:
+            return coarse_add(co, out, r, mask, bj)
+        if bj is not None:
+            bj_plain(bj, r, out)
+        return coarse.coarse_apply_plain(co, out, r, mask)
+
     monkeypatch.setattr(tsolver, "pair_matvec", pairs.pair_matvec_plain)
     monkeypatch.setattr(tsolver, "pair_matvec_multi", pairs.pair_matvec_multi_plain)
     monkeypatch.setattr(tsolver, "block_jacobi_apply", bj_plain)
-    monkeypatch.setattr(twolevel, "block_jacobi_apply", bj_plain)
-    monkeypatch.setattr(coarse, "coarse_add", lambda co, out, r, mask=None: (
-        coarse.coarse_apply_plain(co, out, r, mask) if co.batched
-        else coarse_add(co, out, r, mask)))
+    monkeypatch.setattr(coarse, "block_jacobi_apply", bj_plain)
+    monkeypatch.setattr(coarse, "coarse_add", k7_plain)
     Sg, _ = tp.emix_torch(device=dev, pair=True, knp_solver="bicgstab")
     _cuda.reset_launches()
     sg = unpad_state(Sg, Sg.solve_system_active(0.2, 0.0, sp))
@@ -3258,8 +3478,8 @@ def test_bicgstab_pair_step2_solve_on_swapped_inputs(monkeypatch):
     solve = tsolver.Solver._knp_solve_all_pair
     rec = {}
 
-    def spy(self, blocksK, rhsK, c, sp_, pcK):
-        res = solve(self, blocksK, rhsK, c, sp_, pcK)
+    def spy(self, blocksK, rhsK, c, sp_, pcK, step=False):
+        res = solve(self, blocksK, rhsK, c, sp_, pcK, step)
         rec.setdefault(id(self), []).append(
             (tuple(t.clone() for t in blocksK), rhsK.clone(), c.clone(), sp_, pcK, res[1],
              res[0].clone()))

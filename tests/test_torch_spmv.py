@@ -158,3 +158,62 @@ def test_block_jacobi_halves_takes_pair_blocks_only():
             spmv.block_jacobi_operands(t64(rng.standard_normal((nd, nd, 50))), halves=True)
     with pytest.raises(ValueError):
         spmv.block_jacobi_operands(t64(rng.standard_normal((8, 4, 50))))
+
+
+@pytest.mark.parametrize("m", [None, 2])
+def test_block_jacobi_halves_inverse_matches_jax(m):
+    """The halves inverse (the pair layout's pair_bj = 'halves') of the
+    unmasked 8 x 8 pair diagonal against the JAX package's inverse of the
+    masked diagonal: each half equal (==, so the sign of an exact zero
+    aside), the off-diagonal blocks exactly +0; the same into a zeroed
+    buffer, and from the masked diagonal."""
+    rng = np.random.default_rng(15)
+    nc = 613
+    lead = () if m is None else (m,)
+    P = rng.standard_normal(lead + (8, 8, nc)) * 0.3 + 4.0 * np.eye(8)[..., None]
+    mask = np.kron(np.eye(2), np.ones((4, 4)))[..., None]
+    ref = (jspmv.block_jacobi_inverse(jnp.asarray(P * mask)) if m is None else
+           jnp.stack([jspmv.block_jacobi_inverse(jnp.asarray(P[s] * mask)) for s in range(m)]))
+    ref = np.asarray(ref)
+    got = spmv.block_jacobi_inverse(t64(P), halves=True)
+    assert got.shape == P.shape
+    for h in (slice(0, 4), slice(4, 8)):
+        assert (got[..., h, h, :].numpy() == ref[..., h, h, :]).all()
+    for a, b in ((slice(0, 4), slice(4, 8)), (slice(4, 8), slice(0, 4))):
+        cross = got[..., a, b, :]
+        assert (cross == 0).all() and not torch.signbit(cross).any()
+    out = torch.zeros_like(got)
+    assert spmv.block_jacobi_inverse(t64(P), halves=True, out=out) is out
+    assert torch.equal(out, got)
+    assert torch.equal(spmv.block_jacobi_inverse(t64(P * mask), halves=True), got)
+    assert torch.equal(spmv.block_jacobi_inverse_plain(t64(P), halves=True), got)
+
+
+@pytest.mark.parametrize("m", [1, 2])
+def test_block_jacobi_inverse_reads_the_slot0_view(m):
+    """The inverse of slot 0 of an (m, 5, 4, 4, nc) operator, read as a
+    view (for m > 1 not contiguous: its systems lie 5 blocks apart), against the JAX
+    package on blocks[:, 0]; into a buffer too."""
+    rng = np.random.default_rng(16)
+    nc = 500
+    B = rng.standard_normal((m, 5, 4, 4, nc)) * 0.3
+    B[:, 0] += 4.0 * np.eye(4)[..., None]
+    ref = jnp.stack([jspmv.block_jacobi_inverse(jnp.asarray(B[s, 0])) for s in range(m)])
+    view = t64(B)[:, 0]
+    assert view.stride()[-3:] == (4 * nc, nc, 1) and view.is_contiguous() == (m == 1)
+    got = spmv.block_jacobi_inverse(view)
+    assert got.is_contiguous() and rel(got, ref) < TOL
+    out = torch.empty_like(got)
+    assert spmv.block_jacobi_inverse(view, out=out) is out and torch.equal(out, got)
+
+
+def test_block_jacobi_inverse_halves_takes_pair_blocks_only():
+    """The halves inverse takes pair blocks (8 x 8, and 6 x 6 on the CPU);
+    cell blocks raise."""
+    rng = np.random.default_rng(17)
+    P6 = rng.standard_normal((6, 6, 40)) * 0.3 + 4.0 * np.eye(6)[..., None]
+    mask6 = np.kron(np.eye(2), np.ones((3, 3)))[..., None]
+    assert torch.equal(spmv.block_jacobi_inverse(t64(P6), halves=True),
+                       spmv.block_jacobi_inverse(t64(P6 * mask6)) * t64(mask6))
+    with pytest.raises(ValueError):
+        spmv.block_jacobi_inverse(t64(rng.standard_normal((4, 4, 40))), halves=True)

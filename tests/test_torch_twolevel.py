@@ -71,6 +71,37 @@ def test_two_level_applies_match(setup):
     assert rel(gt(t64(R)), gj(jnp.asarray(R))) < TOL
 
 
+def test_cell_two_level_applies_into_buffers_match(setup):
+    """The cell layout's applies as the step makes them (on the card the
+    block-Jacobi apply folded into K6's prolong-add and K7's one-launch
+    apply): the inverse into a buffer, the KNP one from the slot-0 view of
+    the operator in place, every apply into one output (buffer=True); two
+    consecutive applies each against the JAX package's to 1e-12, the
+    second overwriting the first."""
+    pc = setup["pc"]
+    agg = setup["spt"].agg_size
+    rng = np.random.default_rng(12)
+    Pd, bK = setup["Pd"], setup["blocksK"]
+    fj = jtl.two_level_apply_fn(pc["emi"], Pd, agg)
+    gj = jtl.two_level_apply_batched(pc["knp"], bK[:, 0], agg)
+    view = t64(bK)[:, 0]
+    assert not view.is_contiguous()
+    ft = twolevel.two_level_apply_fn({k: t64(v) for k, v in pc["emi"].items()}, t64(Pd), agg,
+                                     buffer=True, inv_out=torch.zeros(Pd.shape,
+                                                                      dtype=torch.float64))
+    gt = twolevel.two_level_apply_batched({k: t64(v) for k, v in pc["knp"].items()}, view, agg,
+                                          buffer=True, inv_out=torch.empty(view.shape,
+                                                                           dtype=torch.float64))
+    for f_t, f_j, shape in ((ft, fj, Pd.shape[1:]), (gt, gj, (bK.shape[0],) + Pd.shape[1:])):
+        outs = []
+        for _ in range(2):
+            r = rng.standard_normal(shape)
+            z = f_t(t64(r))
+            assert rel(z, f_j(jnp.asarray(r))) < 1e-12
+            outs.append(z)
+        assert outs[0] is outs[1]
+
+
 def test_moment_vectors_match(setup):
     Sj, St, spt = setup["Sj"], setup["St"], setup["spt"]
     assert rel(St._emi_moment_W(spt), Sj._emi_moment_W(setup["spj"])) < 1e-14

@@ -26,7 +26,9 @@ and float64, beside the library calls chip_smoke.py holds them to:
        layouts, each entry as the apply calls it: restrict, the coarse
        solve on restrict's outputs beside dense_gemvs (cuBLAS: torch.mv per
        product, one batched torch.matmul for m systems), and prolong_add
-       into a preallocated output on the solve's; for K6 also torch.mv of
+       into a preallocated output on the solve's; on the cell layout K6's
+       prolong-add with kernel B's apply folded in (a tree with the fold)
+       beside kernel B's apply followed by prolong_add; for K6 also torch.mv of
        the (nf, nd nc) field stack (the one-hots repeated over nd) on r, the
        dense projection a partial yardstick of restrict (no chunk sums).
        Each moment field is zero outside its compartment (5 compartments
@@ -55,7 +57,14 @@ and float64, beside the library calls chip_smoke.py holds them to:
        traces and every tag's push sources; a tree without it:
        Solver._ode_inputs, the traces with every tag's parameters cloned
        and set), host time included; no graph;
-  k5   K5's block-Jacobi apply as the two-level apply calls it, on the
+  k5   K5's block-Jacobi inverse as the step calls it, on the EMI (m = 1)
+       and KNP (m = 2) diagonals of the cell layout (the KNP one slot 0 of
+       the (2, 5, 4, 4, nc) operator) and the pair layout (unmasked): this
+       tree into the step's buffer, the KNP cell diagonal read in place,
+       the pair layout's in the halves form; a tree without that route
+       the solver's slot-0 copy or mask product, then the inverse; beside
+       chip_smoke.lib_inv, with the bound of the work's bytes.  Then K5's
+       block-Jacobi apply as the two-level apply calls it, on the
        EMI (m = 1) and KNP (m = 2) systems of the cell layout (nd = 4,
        124,416 cells) and the pair layout (2nd = 8, 63,558 pairs, the
        inverse zero off its two diagonal 4 x 4 blocks): this tree's
@@ -81,6 +90,9 @@ and float64, beside the library calls chip_smoke.py holds them to:
        place, on pairs with a live mask: this tree's one call (one launch)
        beside its three entry points composed; a tree without the mask
        argument its three calls and, on pairs, the product with the mask;
+       on the cell layout also the one call with kernel B's apply folded
+       in (a tree with the fold) beside kernel B's apply followed by the
+       one call;
   k10e K10's EMI emit as the step calls it on seeded facet blocks and rhs
        parts, on chip_smoke.py's cell tables (124,416 cells) and pair
        layout (127,116 padded cells), both dtypes: this tree's call with
@@ -367,7 +379,36 @@ def coarse_data(layout, batched, dtype, dev, gen):
     return d, agg, rnd(m, nd, nc)
 
 
+def cell_bj(spmv, r, gen):
+    """Block-Jacobi operands of a random dominant nd = 4 inverse for r
+    (m, 4, nc): one system's without a leading axis, m systems' with."""
+    m, nd, nc = r.shape
+    Pinv = 0.3 * torch.randn((m, nd, nd, nc), generator=gen, device=r.device, dtype=r.dtype)
+    Pinv += 4.0 * torch.eye(nd, device=r.device, dtype=r.dtype)[:, :, None]
+    return spmv.block_jacobi_operands(Pinv if m > 1 else Pinv[0])
+
+
+def fold_calls(coarse, spmv, co, r, out, gen, zc=None, coef=None):
+    """The cell layout's apply with kernel B's apply: this tree's folded
+    call (coarse_add with the operands, or with ``zc`` and ``coef``
+    prolong_add with them) and in every tree kernel B's apply, then the
+    unfolded call (the two launches of a tree without the fold)."""
+    bj = cell_bj(spmv, r, gen)
+    rb = r if r.shape[0] > 1 else r[0]
+    fold = "bj" in inspect.signature(coarse.coarse_add).parameters
+    if zc is None:
+        two = lambda: coarse.coarse_add(co, spmv.block_jacobi_apply(bj, rb).view(r.shape), r)
+        one = lambda: coarse.coarse_add(co, out, r, None, bj)
+    else:
+        two = lambda: coarse.prolong_add(co, spmv.block_jacobi_apply(bj, rb).view(r.shape), zc,
+                                         coef)
+        one = lambda: coarse.prolong_add(co, out, zc, coef, bj=bj, r=r)
+    return ({"folded (one call)": one} if fold else {}) | {"block_jacobi_apply, then": two}
+
+
 def time_coarse(coarse, dev, gen):
+    from knpemidg_tpu_torch.ops import spmv
+
     for layout in COARSE:
         for batched in (False, True):
             for dtype in (torch.float32, torch.float64):
@@ -384,6 +425,10 @@ def time_coarse(coarse, dev, gen):
                 report("k6time", f"{tag} dense_gemvs", lambda: dense_gemvs(co, x))
                 report("k6time", f"{tag} prolong_add",
                        lambda: coarse.prolong_add(co, out, zc, coef))
+                if layout == "cell" and not batched:
+                    for name, fn in fold_calls(coarse, spmv, co, r, out, gen, zc,
+                                               coef).items():
+                        report("k6time", f"{tag} prolong_add {name}", fn)
                 if not batched:
                     m_, nd, nc = r.shape
                     stack = torch.cat([co.OH[:, None].expand(-1, nd, nc).reshape(-1, nd * nc)]
@@ -489,6 +534,8 @@ def time_coarse_apply(coarse, dev, gen):
     a tree without it its three calls and, on pairs, the product with the
     mask.  This tree also times its three entry points composed (restrict,
     solve, prolong_add with the mask) beside the one launch."""
+    from knpemidg_tpu_torch.ops import spmv
+
     masked = "mask" in inspect.signature(coarse.coarse_add).parameters
     print(f"k7time  mask in the apply {masked}")
     for layout in COARSE:
@@ -507,6 +554,9 @@ def time_coarse_apply(coarse, dev, gen):
                 three = lambda: coarse.prolong_add(co, out, *coarse.solve(
                     co, *coarse.restrict(co, r)), lm)
                 report("k7time", f"{tag} restrict + solve + prolong_add", three)
+                if layout == "cell":
+                    for name, fn in fold_calls(coarse, spmv, co, r, out, gen).items():
+                        report("k7time", f"{tag} coarse_add {name}", fn)
             elif lm is None:
                 report("k7time", f"{tag} coarse_add (three calls)",
                        lambda: coarse.coarse_add(co, out, r))
@@ -572,18 +622,67 @@ def time_to_pair(pairs, dev, gen):
             report("k4time", f"{str(dtype):14s} {name}", fn)
 
 
+def bj_diagonals(layout, m, dtype, dev, gen):
+    """The diagonal blocks a step hands K5's inverse, random and dominant:
+    cell, the EMI's (4, 4, nc) or slot 0 of the KNP operator (m, 5, 4, 4,
+    nc) as a view; pair, the unmasked (m,) 8 x 8 pair diagonals."""
+    nd, nc = SHAPES[layout]
+    lead = () if m == 1 else (m,)
+    eye = torch.eye(nd, device=dev, dtype=dtype)[:, :, None]
+    if layout == "cell" and m > 1:
+        B = 0.3 * torch.randn((m, 5, nd, nd, nc), generator=gen, device=dev, dtype=dtype)
+        B[:, 0] += 4.0 * eye
+        return B[:, 0]
+    return 0.3 * torch.randn(lead + (nd, nd, nc), generator=gen, device=dev, dtype=dtype) + \
+        4.0 * eye
+
+
 def time_bj(spmv, dev, gen):
+    """K5: the inverse as the step calls it (this tree: into the step's
+    buffer, from slot 0 of the KNP operator in place, the pair layout's
+    halves form on the unmasked diagonal; a tree without that route: the
+    solver's slot-0 copy or mask product, then the inverse into a new
+    tensor), beside chip_smoke.lib_inv and with its bound; then the apply
+    as the two-level apply calls it (see the module's docstring)."""
+    from chip_smoke import lib_inv
+
     operands = hasattr(spmv, "block_jacobi_operands")
-    print(f"k5time  operands and halves form {operands}")
+    route = "halves" in inspect.signature(spmv.block_jacobi_inverse).parameters
+    print(f"k5time  operands and halves form {operands}  the step's inverse route {route}")
+    halves_mask = lambda dtype: torch.kron(torch.eye(2, device=dev, dtype=dtype),
+                                           torch.ones(4, 4, device=dev, dtype=dtype))[..., None]
     for layout, (nd, nc) in SHAPES.items():
         pair = layout == "pair"
         for dtype in (torch.float32, torch.float64):
             for m in (1, IONS):
+                P = bj_diagonals(layout, m, dtype, dev, gen)
+                calls = {}
+                if route:
+                    out = torch.zeros(P.shape, device=dev, dtype=dtype)
+                    calls["block_jacobi_inverse (the step's route)"] = (
+                        lambda P=P, out=out: spmv.block_jacobi_inverse(P, pair, out))
+                elif pair:
+                    calls["block_jacobi_inverse (the step's route)"] = (
+                        lambda P=P: spmv.block_jacobi_inverse(
+                            (P * halves_mask(dtype)).contiguous()))
+                else:
+                    calls["block_jacobi_inverse (the step's route)"] = (
+                        lambda P=P: spmv.block_jacobi_inverse(P.contiguous()))
+                Pc = (P * halves_mask(dtype)).contiguous() if pair else P.contiguous()
+                calls["lib_inv (torch.linalg.inv)"] = lambda Pc=Pc: lib_inv(Pc)
+                elt = P.element_size()
+                full = 2 * P.numel() * elt
+                print(f"k5time  {layout} m={m} {str(dtype):14s} inverse bound "
+                      f"{bound_us(full // 2 if pair else full):.2f} us the work's bytes"
+                      + (f", {bound_us(full):.2f} us the whole blocks" if pair else ""))
+                for name, fn in calls.items():
+                    report("k5time", f"{layout} m={m} {str(dtype):14s} {name}", fn)
+                del P, Pc, calls
+            for m in (1, IONS):
                 lead = () if m == 1 else (m,)
                 Pinv = torch.randn(lead + (nd, nd, nc), generator=gen, device=dev, dtype=dtype)
                 if pair:
-                    Pinv = Pinv * torch.kron(torch.eye(2, device=dev, dtype=dtype),
-                                             torch.ones(4, 4, device=dev, dtype=dtype))[..., None]
+                    Pinv = Pinv * halves_mask(dtype)
                 r = torch.randn(lead + (nd, nc), generator=gen, device=dev, dtype=dtype)
                 calls = {}
                 if operands:
