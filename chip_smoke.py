@@ -26,7 +26,10 @@ layout).  On the way it:
      cell layout, none on the pair layout) with every launch counter reset
      first, and fails unless every solve converged, the fields are finite,
      every kernel of that path was launched, the K14 traces twice a step,
-     K13 once a step, K9 once an Arnoldi step, and (cell layout) the
+     K13 once a step, K9 once an Arnoldi step (live, or frozen: at most
+     one queued after each cycle's exit), at most the cycle starts' and
+     the convergence test's blocking host reads in a KNP solve, and (cell
+     layout) the
      preconditioner carries the Ritz fields and K5's nd = 4 apply was
      launched no time (the two-level applies fold it into K6's
      prolong-add and K7's one-launch apply, whose rows time the folded
@@ -1428,6 +1431,9 @@ def krylov_phase(S, results, layout):
             return step_out(a)
 
         wa, wt = work_copy(wk), [w.clone(), w.clone()]
+        # the timed work keeps every system live in every call (tol below
+        # any |g|): a step launched with the flag 0 would return at once
+        wa.tol.fill_(-1.0)
         bound = compare(name("gmres_arnoldi"), dtype, lambda: step(ko.gmres_arnoldi),
                         lambda: step(ko.gmres_arnoldi_plain),
                         lambda ref: arnoldi_scales(wk, w, J, ref), results,
@@ -1454,22 +1460,9 @@ def krylov_phase(S, results, layout):
               f"a step, bound {1e3 * bound:.2f} us ({step_us / (1e3 * bound):.2f}x); whole-basis "
               f"bmm/baddbmm CGS2 {lib_us:.2f} us; {'staged' if wa.staged else 're-read'} "
               f"layout, {wa.grid} blocks of {wa.upb} chunks")
-        ws = ko.gmres_arnoldi_plain(w.clone(), work_copy(wk), J)   # ks = rows for system 0
-        x = rnd(mb, n)
-        yk = work_copy(ws)
-        ko.gmres_solve_update_plain(yk, x.clone())      # the plain y, for the scale
-        xb = [x.clone(), x.clone()]
-        nk = int(ws.ks.max())
-        compare(name("gmres_solve_update"), dtype,
-                lambda: [ko.gmres_solve_update(ws, x.clone())],
-                lambda: [ko.gmres_solve_update_plain(ws, x.clone())],
-                lambda ref: [x.abs() + torch.einsum("sk,ksn->sn", yk.y.abs(),
-                                                    ws.V[:m].abs())],
-                results, inputs=[ws.R, ws.g, ws.ks, ws.V[:nk], x],
-                flops=2.0 * nk * mb * n,
-                library_fn=lambda: torch.baddbmm(x[:, None], yk.y[:, None], Vs[:, :m]),
-                timed=(lambda: ko.gmres_solve_update(ws, xb[0]),
-                       lambda: ko.gmres_solve_update_plain(ws, xb[1])))
+        ws = ko.gmres_arnoldi_plain(w.clone(), work_copy(wk), J)
+        ws.ks.fill_(KRYLOV_ROWS)                        # every system's rows populated
+        solve_update_phase(name("gmres_solve_update"), dtype, ko, ws, Vs, rnd, results)
         r0 = rnd(mb, n)
         wn = [work_copy(wk), work_copy(wk)]
 
@@ -1485,7 +1478,7 @@ def krylov_phase(S, results, layout):
                 timed=(lambda: ko.gmres_start(r0, wn[0]),
                        lambda: ko.gmres_start_plain(r0, wn[1])), graph=True)
         start_exact(name("gmres_start"), dtype, ko, r0, wk)
-        del wk, ws, yk, Vs, wa, wn
+        del wk, ws, Vs, wa, wn
 
         # --- K8 -------------------------------------------------------------
         x, r, p_, Ap, z = (rnd(*vshape) for _ in range(5))
@@ -1556,6 +1549,82 @@ def krylov_phase(S, results, layout):
                                 ("pcg_dot2_direction", ko.pcg_dot2_direction, (r, z, p_))):
             dots_exact(name(entry), dtype, ko, fn, vecs, sc0, work())
         frozen_exact(layout, dtype, ko, (x, r, p_, Ap, z), work())
+
+
+def solve_update_phase(name, dtype, ko, ws, Vs, rnd, results, rows16=16):
+    """K9's cycle end (the triangular solve and x += sum_k y_k V[k]) at
+    ws.ks populated rows a system: against its plain version (the
+    triangular solve and the whole-basis einsum), timed with its bound and
+    in graph replay beside the library yardstick, one baddbmm over the
+    populated rows into a preallocated output (partial: it has no
+    triangular solve); bitwise its ordered twin in 200 calls; then timed
+    again at ``rows16`` rows (the float32 windows' steps a cycle) where the
+    restart holds them."""
+    mb, n = ws.V.shape[1:]
+    nk = int(ws.ks.max())
+    x = rnd(mb, n)
+    yk = work_copy(ws)
+    ko.gmres_solve_update_plain(yk, x.clone())      # the plain y, for the scale and baddbmm
+    xb = [x.clone(), x.clone()]
+    lbuf = torch.empty((mb, 1, n), dtype=dtype, device=x.device)
+    compare(name, dtype,
+            lambda: [ko.gmres_solve_update(ws, x.clone())],
+            lambda: [ko.gmres_solve_update_plain(ws, x.clone())],
+            lambda ref: [x.abs() + torch.einsum("sk,ksn->sn", yk.y.abs(), ws.V[:ws.m].abs())],
+            results, inputs=[ws.R, ws.g, ws.ks, ws.V[:nk], x],
+            flops=2.0 * nk * mb * n,
+            library_fn=lambda: torch.baddbmm(x[:, None], yk.y[:, None, :nk], Vs[:, :nk],
+                                             out=lbuf),
+            timed=(lambda: ko.gmres_solve_update(ws, xb[0]),
+                   lambda: ko.gmres_solve_update_plain(ws, xb[1])), graph=True)
+    r = results[name][dtype]
+    lib_us = 1e3 * graph_ms(lambda: torch.baddbmm(x[:, None], yk.y[:, None, :nk], Vs[:, :nk],
+                                                  out=lbuf))
+    print(f"graph   {name:30s} {str(dtype):14s} kernel {r['device_us']:.2f} us at {nk} rows, "
+          f"bound {1e3 * r['bound_ms']:.2f} us ({r['device_us'] / (1e3 * r['bound_ms']):.2f}x); "
+          f"baddbmm over the populated rows {lib_us:.2f} us (partial: no triangular solve)")
+    solve_update_exact(name, dtype, ko, ws, x)
+    if rows16 > ws.m:
+        return
+    w16 = work_copy(ws)
+    w16.V[nk:rows16] = rnd(rows16 - nk, mb, n) / n ** 0.5
+    w16.ks.fill_(rows16)
+    V16 = w16.V.transpose(0, 1).contiguous()      # the reference's (mb, m+1, n)
+    y16 = work_copy(w16)
+    ko.gmres_solve_update_plain(y16, x.clone())
+    us = 1e3 * graph_ms(lambda: ko.gmres_solve_update(w16, xb[0]))
+    ms = cuda_ms(lambda: ko.gmres_solve_update(w16, xb[0]))
+    lib_us = 1e3 * graph_ms(lambda: torch.baddbmm(x[:, None], y16.y[:, None, :rows16],
+                                                  V16[:, :rows16], out=lbuf))
+    bound_us = 1e6 * (rows16 + 2) * mb * n * x.element_size() / PEAK_BYTES_S
+    print(f"time    {name:30s} {str(dtype):14s} at {rows16} rows: kernel {ms:.4f} ms, graph "
+          f"replay {us:.2f} us, bound {bound_us:.2f} us ({us / bound_us:.2f}x, bytes); baddbmm "
+          f"over the populated rows {lib_us:.2f} us (partial)")
+
+
+def solve_update_exact(name, dtype, ko, ws, x, calls=200):
+    """gmres_solve_update against gmres_solve_update_ordered_plain (the
+    kernel's order) to the last bit of x and y, in ``calls`` back-to-back
+    calls: before each, x is restored and y set to NaN, so each call writes
+    them.  Returns nothing; raises on a difference."""
+    want = work_copy(ws)
+    xw = ko.gmres_solve_update_ordered_plain(want, x.clone())
+    bits = lambda t: t.view(torch.int64) if t.dtype == torch.float64 else t.view(torch.int32)
+    want_bits = [bits(xw), bits(want.y)]
+    a = work_copy(ws)
+    xa = torch.empty_like(x)
+    diff = torch.zeros(calls, dtype=torch.int64, device=x.device)
+    for i in range(calls):
+        xa.copy_(x)
+        a.y.fill_(float("nan"))
+        ko.gmres_solve_update(a, xa)
+        diff[i] = sum((bits(u) != v).sum() for u, v in zip((xa, a.y), want_bits))
+    torch.cuda.synchronize()
+    ok = int(diff.max()) == 0
+    print(f"exact   {name:30s} {str(dtype):14s} x and y bitwise the ordered plain's in each of "
+          f"{calls} calls: {ok} (ks {ws.ks.tolist()})")
+    if not ok:
+        raise AssertionError(f"{name} differs from gmres_solve_update_ordered_plain")
 
 
 def work_copy(wk):
@@ -2119,8 +2188,8 @@ def window(S, sp, layout):
     EMI iteration (live: the iterations; frozen: at most one after each
     solve's exit, run_checked), (pairs) one from_pair per solve, and the AUTO Ritz
     rule (24 fields in the cell pc, none in the pair pc); reports the
-    blocking host reads of one more step's EMI solve.  Returns (launches,
-    median ms/step, median ODE ms)."""
+    blocking host reads of one more step's EMI and KNP solves.  Returns
+    (launches, median ms/step, median ODE ms)."""
     state, launches = run_checked(S, sp, layout)
     med, ode = report_window(S, MAIN_DTYPE, layout)
     # one from_pair (carrying its add) per solve on pairs
@@ -2129,7 +2198,7 @@ def window(S, sp, layout):
         print(f"{layout:7s} from_pair once per solve: {per_solve}")
     if not per_solve:
         raise AssertionError(f"the {layout} window's K4 launches do not match its solves")
-    emi_host_reads(S, state, sp, f"{layout}64")
+    solve_host_reads(S, state, sp, f"{layout}64")
     n_ritz = ritz_fields(state)
     print(f"{layout:7s} Ritz fields in the pc: {n_ritz}")
     if n_ritz != (24 if layout == "cell" else 0):
@@ -2142,13 +2211,14 @@ def run_checked(S, sp, path):
     counters reset first; asserts convergence (solve_system_active raises
     otherwise), finite fields, the shapes and step count, every kernel of
     ``path`` launched, two K14 trace launches and one K13 launch a step,
-    and one K9 launch per Arnoldi step (a "bicg-*" path: one K15 alpha and
-    omega launch per iteration and no K9).  Returns (state, launches)."""
+    and one K9 step launch per Arnoldi step, live or frozen (k9_split; a
+    "bicg-*" path: one K15 alpha and omega launch per iteration and no
+    K9).  Returns (state, launches)."""
     from knpemidg_tpu_torch import _cuda
 
     S.stats.__init__()
     _cuda.reset_launches()
-    look = dict(krylov_lookahead())
+    look, look9 = dict(krylov_lookahead()), dict(gmres_lookahead())
     state = S.solve_system_active(1.0, 0.0, sp)
     torch.cuda.synchronize()
     launches = dict(_cuda.LAUNCHES)
@@ -2196,17 +2266,16 @@ def run_checked(S, sp, path):
         return state, launches
     if any(launches[k] for k in BICG):
         raise AssertionError(f"the {path} window launched K15")
-    # K9: one step launch per Arnoldi step.  Each float64 KNP solve of these
-    # windows is one restart cycle (two gmres_start launches: the cycle's
-    # and the final test's; one tolerance dot), and a cycle's steps are its
-    # largest per-system count
-    arnoldi = sum(max(c) for c in S.stats.knp_niters)
-    k9 = (launches["gmres_start"], launches["gmres_cgs_dot"], launches["gmres_arnoldi"])
-    print(f"{path:7s} K9 gmres_start / gmres_cgs_dot / gmres_arnoldi launches {k9} for {solves} "
-          f"one-cycle solves of {arnoldi} Arnoldi steps ({(2 * solves, solves, arnoldi)} "
-          f"expected: one launch a step)")
-    if k9 != (2 * solves, solves, arnoldi):
-        raise AssertionError(f"the {path} window's K9 launches are {k9}, not one a step")
+    # K9: one step launch per Arnoldi step queued.  Each float64 KNP solve
+    # of these windows is one restart cycle (two gmres_start launches: the
+    # cycle's and the final test's; one tolerance dot); a cycle's live steps
+    # are its largest per-system count, and at most one frozen step follows
+    live, frozen = k9_split(S, launches, look9, path, one_cycle=True)
+    k9 = (launches["gmres_start"], launches["gmres_cgs_dot"])
+    print(f"{path:7s} K9 gmres_start / gmres_cgs_dot launches {k9} for {solves} one-cycle "
+          f"solves ({(2 * solves, solves)} expected)")
+    if k9 != (2 * solves, solves):
+        raise AssertionError(f"the {path} window's K9 start / dot launches are {k9}")
     return state, launches
 
 
@@ -2215,6 +2284,41 @@ def krylov_lookahead():
     from knpemidg_tpu_torch.solvers import krylov
 
     return krylov.PCG_LOOKAHEAD
+
+
+def gmres_lookahead():
+    """The batched GMRES loop's look-ahead counts (solves, cycles, steps
+    queued, frozen steps)."""
+    from knpemidg_tpu_torch.solvers import krylov
+
+    return krylov.GMRES_LOOKAHEAD
+
+
+def k9_split(S, launches, before, tag, one_cycle=False):
+    """K9's Arnoldi step launches in a run, split into live steps and
+    frozen ones (a step the look-ahead loop queued after a cycle's exit
+    before its flag reached the host; ``before``: the look-ahead counts
+    before the run).  Fails unless the launches are the steps queued, with
+    at most one frozen step a cycle, and (``one_cycle``: the float64
+    windows, whose KNP solves are one cycle each) the live steps each
+    solve's largest per-system count.  Returns (live, frozen)."""
+    now = gmres_lookahead()
+    solves, cycles, steps, frozen = (now[k] - before[k]
+                                     for k in ("solves", "cycles", "steps", "frozen"))
+    live = steps - frozen
+    ok = launches["gmres_arnoldi"] == steps and frozen <= cycles
+    want = ""
+    if one_cycle:
+        arnoldi = sum(max(c) for c in S.stats.knp_niters)
+        ok = ok and cycles == solves == len(S.stats.knp_niters) and live == arnoldi
+        want = f" ({arnoldi} live expected: one launch a step)"
+    print(f"{tag:7s} K9 gmres_arnoldi launches {launches['gmres_arnoldi']}: {live} live "
+          f"(the Arnoldi steps) + {frozen} frozen (after the exit of {cycles} cycles in "
+          f"{solves} GMRES solves){want}: {ok}")
+    if not ok:
+        raise AssertionError(f"the {tag} window's K9 step launches are not its Arnoldi steps "
+                             f"plus at most one frozen step a cycle")
+    return live, frozen
 
 
 def k8_split(S, launches, before, tag):
@@ -2238,16 +2342,27 @@ def k8_split(S, launches, before, tag):
     return live, frozen
 
 
-def emi_host_reads(S, state, sp, tag):
+def solve_host_reads(S, state, sp, tag):
     """The blocking host reads (profile_step's census: _local_scalar_dense
-    calls) of one more step's EMI solve from ``state``, untimed; returns
-    them."""
+    calls) of one more step's EMI solve from ``state``, untimed, and of its
+    KNP solve, which fails the run above the cycle starts' flags plus the
+    convergence test (the loop reads the Arnoldi steps' flags one step
+    behind, through pinned memory); returns the EMI solve's."""
     from knpemidg_tpu_torch.profile_step import _op_census
 
+    before = dict(gmres_lookahead())
     census, iters = _op_census(S, state, sp)
+    cycles = gmres_lookahead()["cycles"] - before["cycles"]
+    solves = gmres_lookahead()["solves"] - before["solves"]
     reads = census["_emi_solve_iterative"]["host_reads"]
+    knp = census["_knp_solve_all"]["host_reads"]
+    gm = (f"; {knp} in its KNP solve of {iters['knp_iters'][0]} GMRES iterations in {cycles} "
+          f"cycles (at most {cycles + 2 * solves}: the starts and the convergence test)"
+          if solves else "")
     print(f"{tag:7s} census of one more step: {reads} blocking host reads in its EMI solve "
-          f"of {iters['emi_iters'][0]} PCG iterations")
+          f"of {iters['emi_iters'][0]} PCG iterations{gm}")
+    if solves and knp > cycles + 2 * solves:
+        raise AssertionError(f"the {tag} KNP solve made {knp} blocking host reads")
     return reads
 
 
@@ -2280,7 +2395,7 @@ def report_run(S, sp, dtype, layout, variant, assert_counts=True):
 
     S.stats.__init__()
     _cuda.reset_launches()
-    look = dict(krylov_lookahead())
+    look, look9 = dict(krylov_lookahead()), dict(gmres_lookahead())
     t0 = time.perf_counter()
     state = S.solve_system_active(1.0, 0.0, sp)
     torch.cuda.synchronize()
@@ -2288,7 +2403,8 @@ def report_run(S, sp, dtype, layout, variant, assert_counts=True):
     report_window(S, dtype, layout, variant, assert_counts)
     label = f"{layout}{'64' if dtype == MAIN_DTYPE else '32'}{variant}"
     k8_split(S, dict(_cuda.LAUNCHES), look, label)
-    emi_host_reads(S, state, sp, label)
+    k9_split(S, dict(_cuda.LAUNCHES), look9, label)
+    solve_host_reads(S, state, sp, label)
     setup_s = total - sum(S.ode_walls) - sum(S.stats.step_walls)
     finite = all(bool(torch.isfinite(state[k]).all()) for k in ("c", "phi", "phi_M"))
     print(f"{label:7s} {dtype} Ritz fields {ritz_fields(state)}, set-up before the first "
@@ -3303,8 +3419,8 @@ REDESIGNED = frozenset({
     "two_level_restrict", "two_level_prolong", "two_level_solve", "two_level_solve_batched",
     "two_level_coarse_batched", "emi_cell", "emi_facet", "emi_emit_cell", "knp_cell",
     "knp_facet", "knp_membrane_emit", "membrane_trace", "pcg_dot", "pcg_update",
-    "pcg_dot2_direction", "gmres_start", "gmres_cgs_dot", "gmres_arnoldi", "alpha_sum",
-    "eliminated_concentration"})
+    "pcg_dot2_direction", "gmres_start", "gmres_cgs_dot", "gmres_arnoldi",
+    "gmres_solve_update", "alpha_sum", "eliminated_concentration"})
 # a kernel at this share of its bound or more in each dtype, no slower than
 # its library call, is left alone by the porting rule
 LEFT_ALONE_SHARE = 0.5

@@ -20,14 +20,18 @@
 //      block 0 the scalar work, one thread per system: h = h1 + h2,
 //      h[j+1] = hj1, the j stored rotations replayed, the new one, the
 //      freeze of systems that are no longer live, ks += live and the flag
-//      any |g[:, j+1]| > tol the host loop reads;
+//      any |g[:, j+1]| > tol the host loop reads (one step behind: a step
+//      launched with the flag 0 returns before it writes anything);
 //
 // and at the cycle's ends start (beta = ||r||, V[0] = r / beta, the scalars
 // zeroed, the flag any beta > tol: one cooperative launch on the step's
 // shape, r read once and kept in shared memory across its grid barrier,
 // bitwise the earlier partial, scale and init launches) and solve_update
-// (back substitution of R[:ks, :ks] y = g[:ks] per system, then x +=
-// sum_{k<ks} y_k V[k]).  The dot kernel gives the solve's tolerance
+// (one launch: each block issues the 16-byte loads of its chunk of x and
+// of the first basis rows, and meanwhile one warp back-substitutes R[:ks,
+// :ks] y = g[:ks] in shared memory; then x += sum_{k<ks} y_k V[k], bitwise
+// the earlier back-substitution and update launches; bound: the ks rows and
+// x read once, x written once).  The dot kernel gives the solve's tolerance
 // (||M^-1 b|| per system) in one launch: its partials, then the block that
 // finishes each sum last (an int32 ticket, no floating-point atomics) adds
 // them in index order, so no second launch waits on the first.
@@ -117,42 +121,196 @@ __global__ void __launch_bounds__(KNP_THREADS)
   if (nblk > 1) ticket[row] = 0;
 }
 
-// y[s, :ks] solves R[s, :ks, :ks] y = g[s, :ks] (back substitution, rows
-// from the last), y[s, ks:] = 0.  One block per system, one thread.
-template <typename T>
-__global__ void gm_backsolve_kernel(const T* __restrict__ R, const T* __restrict__ g,
-                                    const int* __restrict__ ks, T* __restrict__ y, int m) {
-  if (threadIdx.x != 0) return;
-  const int s = blockIdx.x, M1 = m + 1, k = ks[s];
-  const T* Rs = R + (long long)s * M1 * m;
-  const T* gs = g + (long long)s * M1;
-  T* ys = y + (long long)s * m;
-  for (int l = k; l < m; ++l) ys[l] = T(0);
-  for (int r = k - 1; r >= 0; --r) {
-    T acc = gs[r];
-    for (int l = r + 1; l < k; ++l) acc -= Rs[r * m + l] * ys[l];
-    ys[r] = acc / Rs[r * m + r];
+// ---------------------------------------------------------------------------
+// the cycle's end: y and the update x += sum_{k < ks} y_k V[k], one launch
+// ---------------------------------------------------------------------------
+
+// bytes of a basis row a thread of the update takes in a unit: two 16-byte
+// vectors (4 doubles or 8 floats)
+#define GMU_BYTES 32
+// rows of V whose loads a thread has in flight together
+#define GMU_ROWS 4
+
+template <typename T> struct GmVec16;
+template <> struct GmVec16<float> { typedef float4 V; };
+template <> struct GmVec16<double> { typedef double2 V; };
+
+__device__ __forceinline__ void gm_unpack(const double2& w, double (&v)[2]) {
+  v[0] = w.x;
+  v[1] = w.y;
+}
+__device__ __forceinline__ void gm_unpack(const float4& w, float (&v)[4]) {
+  v[0] = w.x;
+  v[1] = w.y;
+  v[2] = w.z;
+  v[3] = w.w;
+}
+__device__ __forceinline__ double2 gm_pack(const double (&v)[2]) { return make_double2(v[0], v[1]); }
+__device__ __forceinline__ float4 gm_pack(const float (&v)[4]) {
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// VEC consecutive entries at p: one 16-byte access (VEC = 16 / sizeof(T), p
+// aligned to 16 bytes) or one entry; STREAM: the evict-first hint (a basis
+// row read for the last time)
+template <typename T, int VEC, bool STREAM>
+__device__ __forceinline__ void gm_ldv(const T* p, T (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    v[0] = STREAM ? __ldcs(p) : *p;
+  } else {
+    typedef typename GmVec16<T>::V V;
+    const V* q = reinterpret_cast<const V*>(p);
+    gm_unpack(STREAM ? __ldcs(q) : *q, v);
   }
 }
 
-// x[s,i] += sum_{k < ks[s]} y[s,k] V[k,s,i]
+template <typename T, int VEC>
+__device__ __forceinline__ void gm_stv(T* p, const T (&v)[VEC]) {
+  if constexpr (VEC == 1)
+    *p = v[0];
+  else
+    *reinterpret_cast<typename GmVec16<T>::V*>(p) = gm_pack(v);
+}
+
+// One unit of the update: chunk c (CHUNK entries) of one system.  Thread
+// t's vectors q < NV start at entry c CHUNK + (q KNP_THREADS + t) VEC, so a
+// warp's accesses are consecutive; with VEC > 1, n is a multiple of VEC and
+// a vector lies wholly inside or outside the system.  The registers hold x
+// and GMU_ROWS rows of V.
+template <typename T, int VEC>
+struct GmUnit {
+  static constexpr int EPT = GMU_BYTES / sizeof(T);
+  static constexpr int NV = EPT / VEC;
+  static constexpr int CHUNK = EPT * KNP_THREADS;
+  T xv[NV][VEC];
+  T vv[GMU_ROWS][NV][VEC];
+  long long i0;   // the thread's first entry
+
+  __device__ __forceinline__ long long at(int q) const { return i0 + (long long)q * KNP_THREADS * VEC; }
+
+  // the loads of rows l0 .. l0 + GMU_ROWS - 1 below k
+  __device__ __forceinline__ void rows(const T* v, long long slab, long long n, int l0, int k) {
+#pragma unroll
+    for (int r = 0; r < GMU_ROWS; ++r) {
+      if (l0 + r < k) {
+#pragma unroll
+        for (int q = 0; q < NV; ++q)
+          if (at(q) < n) gm_ldv<T, VEC, true>(v + (l0 + r) * slab + at(q), vv[r][q]);
+      }
+    }
+  }
+
+  // chunk c of system s: the loads of x and of its first GMU_ROWS rows
+  __device__ __forceinline__ void load(const T* V, const T* x, int s, long long c, long long slab,
+                                       long long n, int k) {
+    i0 = c * CHUNK + (long long)threadIdx.x * VEC;
+    const T* xs = x + (long long)s * n;
+#pragma unroll
+    for (int q = 0; q < NV; ++q)
+      if (at(q) < n) gm_ldv<T, VEC, false>(xs + at(q), xv[q]);
+    rows(V + (long long)s * n, slab, n, 0, k);
+  }
+
+  // x = x + acc, acc = y_0 v_0 then += y_l v_l for l = 1 .. k - 1 in order
+  // (the earlier update kernel's order), the later rows loaded GMU_ROWS at
+  // a time; ys holds y in shared memory
+  __device__ __forceinline__ void finish(const T* V, T* x, const T* ys, int s, long long slab,
+                                         long long n, int k) {
+    const T* v = V + (long long)s * n;
+    T acc[NV][VEC];
+    const T y0 = ys[0];
+#pragma unroll
+    for (int q = 0; q < NV; ++q)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[q][e] = y0 * vv[0][q][e];
+#pragma unroll
+    for (int r = 1; r < GMU_ROWS; ++r) {
+      if (r < k) {
+        const T yl = ys[r];
+#pragma unroll
+        for (int q = 0; q < NV; ++q)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[q][e] += yl * vv[r][q][e];
+      }
+    }
+    for (int l0 = GMU_ROWS; l0 < k; l0 += GMU_ROWS) {
+      rows(v, slab, n, l0, k);
+#pragma unroll
+      for (int r = 0; r < GMU_ROWS; ++r) {
+        if (l0 + r < k) {
+          const T yl = ys[l0 + r];
+#pragma unroll
+          for (int q = 0; q < NV; ++q)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[q][e] += yl * vv[r][q][e];
+        }
+      }
+    }
+    T* xs = x + (long long)s * n;
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      if (at(q) < n) {
+        T out[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) out[e] = xv[q][e] + acc[q][e];
+        gm_stv<T, VEC>(xs + at(q), out);
+      }
+    }
+  }
+};
+
+// ys[:k] = y of system s, R[s, :k, :k] y = g[s, :k], by one warp: the
+// lanes stage the rows' upper triangles (Rs, k x k) and g (into ys), then
+// lane 0 back-substitutes in the earlier kernel's order -- row r from the
+// last, acc = g_r, acc -= R[r, l] y_l for l ascending, y_r = acc / R[r, r]
+// -- over shared memory.  Called by the 32 threads of one warp.
 template <typename T>
-__global__ void gm_xupdate_kernel(const T* __restrict__ V, const T* __restrict__ y,
-                                  const int* __restrict__ ks, T* __restrict__ x, int mb,
-                                  long long n, int m) {
+__device__ __forceinline__ void gm_backsolve(const T* __restrict__ R, const T* __restrict__ g,
+                                             int s, int k, int m, T* Rs, T* ys) {
+  const int lane = threadIdx.x & 31, M1 = m + 1;
+  const T* Rg = R + (long long)s * M1 * m;
+  for (int r = 0; r < k; ++r)
+    for (int l = r + lane; l < k; l += 32) Rs[r * k + l] = Rg[r * m + l];
+  for (int r = lane; r < k; r += 32) ys[r] = g[(long long)s * M1 + r];
+  __syncwarp();
+  if (lane == 0) {
+    for (int r = k - 1; r >= 0; --r) {
+      T acc = ys[r];
+      for (int l = r + 1; l < k; ++l) acc -= Rs[r * k + l] * ys[l];
+      ys[r] = acc / Rs[r * k + r];
+    }
+  }
+  __syncwarp();
+}
+
+// The cycle's end, a block a unit (grid (chunks, mb)): the block reads
+// ks[s], issues the loads of x and of its first GMU_ROWS rows, and while
+// they are in flight its warp 0 solves system s's triangle in shared
+// memory (every block of the system redoes that small solve: no grid
+// barrier to wait at); then the sum and the store.  The blocks of chunk 0 write y[s]
+// (zero beyond ks).  Nothing else is written for a system with ks = 0.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(KNP_THREADS)
+    gm_solve_update_kernel(const T* __restrict__ R, const T* __restrict__ g,
+                           const int* __restrict__ ks, T* __restrict__ y,
+                           const T* __restrict__ V, T* __restrict__ x, int mb, long long n,
+                           int m) {
+  extern __shared__ __align__(16) unsigned char gm_dyn[];
   __shared__ T ys[GM_MAX_ROWS];
-  const int s = blockIdx.y;
-  for (int l = threadIdx.x; l < m; l += blockDim.x) ys[l] = y[(long long)s * m + l];
+  const int s = blockIdx.y, k = ks[s];
+  if (k == 0) {
+    if (blockIdx.x == 0)
+      for (int l = threadIdx.x; l < m; l += KNP_THREADS) y[(long long)s * m + l] = T(0);
+    return;
+  }
+  const long long slab = (long long)mb * n;
+  GmUnit<T, VEC> u;
+  u.load(V, x, s, blockIdx.x, slab, n, k);
+  if (threadIdx.x < 32) gm_backsolve(R, g, s, k, m, reinterpret_cast<T*>(gm_dyn), ys);
   __syncthreads();
-  const int k = ks[s];
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || k == 0) return;
-  const long long row = (long long)mb * n;
-  const T* v = V + (long long)s * n + i;
-  T acc = ys[0] * v[0];
-  for (int l = 1; l < k; ++l) acc += ys[l] * v[l * row];
-  T* xi = x + (long long)s * n + i;
-  *xi = *xi + acc;
+  if (blockIdx.x == 0)
+    for (int l = threadIdx.x; l < m; l += KNP_THREADS) y[(long long)s * m + l] = l < k ? ys[l] : T(0);
+  u.finish(V, x, ys, s, slab, n, k);
 }
 
 // ---------------------------------------------------------------------------
@@ -495,6 +653,10 @@ __global__ void __launch_bounds__(KNP_THREADS)
     gm_arnoldi_kernel(T* V, T* w, T* part, T* h1, T* h2, T* hj1, const T* __restrict__ tol,
                       T* R, T* g, T* cs, T* sn, int* ks, int* flag, int mb, long long n, int m,
                       int j, int nblk, int upb, int staged) {
+  // the loop's exit: a step queued after the flag went 0 writes nothing.
+  // Every block reads the flag here, before its first grid barrier; block
+  // 0 writes it after the last, so all blocks return or none.
+  if (*flag == 0) return;
   extern __shared__ __align__(16) unsigned char gm_dyn[];
   __shared__ T red[GM_MAX_ROWS * KNP_WARPS];
   __shared__ T hjs[GM_MAX_SYS];
@@ -785,15 +947,26 @@ static int gm_start_launch(const T* r, T* V, T* part, T* beta, const T* tol, T* 
   return e != cudaSuccess ? (int)e : (int)last;
 }
 
+// The cycle's end in one launch, a block a chunk and system (grid (chunks,
+// mb)), each block solving its system's triangle (block s solving it once
+// behind a grid barrier, a cooperative launch, measured no faster at 4 rows
+// in float64 and slower in float32: PERF.md).  16-byte accesses where n is
+// a multiple of 16 / sizeof(T) and V and x are aligned to 16 bytes, else
+// one entry an access.
 template <typename T>
 static int gm_solve_update_launch(const T* R, const T* g, const int* ks, T* y, const T* V, T* x,
                                   int mb, int n, int m, void* stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (mb < 1 || mb > GM_MAX_SYS || n < 1 || m < 1 || m + 1 > GM_MAX_ROWS)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = n % VEC == 0 && knp_aligned(V, 16) && knp_aligned(x, 16);
+  const dim3 grid(knp_chunks(n, GmUnit<T, 1>::CHUNK), mb);
+  const size_t smem = (size_t)m * m * sizeof(T);
   cudaStream_t st = (cudaStream_t)stream;
-  if (m + 1 > GM_MAX_ROWS) return (int)cudaErrorInvalidValue;
-  gm_backsolve_kernel<T><<<mb, 32, 0, st>>>(R, g, ks, y, m);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  gm_xupdate_kernel<T><<<dim3(knp_blocks(n), mb), KNP_THREADS, 0, st>>>(V, y, ks, x, mb, n, m);
+  if (vec)
+    gm_solve_update_kernel<T, VEC><<<grid, KNP_THREADS, smem, st>>>(R, g, ks, y, V, x, mb, n, m);
+  else
+    gm_solve_update_kernel<T, 1><<<grid, KNP_THREADS, smem, st>>>(R, g, ks, y, V, x, mb, n, m);
   return (int)cudaGetLastError();
 }
 

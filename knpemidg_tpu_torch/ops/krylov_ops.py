@@ -15,7 +15,12 @@ cooperative launch (:func:`gmres_arnoldi`), and so is the cycle's start
 shape :func:`gmres_work` builds once per solve, so they allocate nothing
 and check only the vectors they are given, and
 :func:`gmres_arnoldi_ordered_plain` and :func:`gmres_start_ordered_plain`
-replay their summation orders in torch.
+replay their summation orders in torch.  The Arnoldi step (kernel and
+plain twins) reads the work's flag first and writes nothing where it is 0,
+so the loop may queue a step before it has read the flag of the one
+before.  The cycle's end (:func:`gmres_solve_update`: the triangular solve
+and the update) is one launch, bitwise
+:func:`gmres_solve_update_ordered_plain`.
 
 K8 keeps ``sc = [rz, zz, alpha, beta, tol^2, wsum]`` (:data:`RZ` ...), the
 iteration count and an int32 flag (zz > tol^2 and count < max_it: the JAX
@@ -101,7 +106,7 @@ def gmres_work(mb: int, n: int, m: int, dtype, device) -> GmresWork:
     shared-memory limits where the shape needs more than 48 KB); on the
     CPU V is zeroed, as the plain versions' whole-basis einsums need.  The
     entries then allocate nothing and check only the vectors they are
-    given."""
+    given.  The flag starts live (1); :func:`gmres_start` writes it."""
     if m > MAX_RESTART:
         raise NotImplementedError(f"gmres: restart above {MAX_RESTART} is not supported")
     dev = torch.device(device)
@@ -118,7 +123,7 @@ def gmres_work(mb: int, n: int, m: int, dtype, device) -> GmresWork:
                      h2=z(mb, m + 1), hj1=z(mb), beta=z(mb), tol=z(mb), R=z(mb, m + 1, m),
                      g=z(mb, m + 1), cs=z(mb, m), sn=z(mb, m),
                      ks=torch.zeros(mb, dtype=torch.int32, device=dev), y=z(mb, m),
-                     flag=torch.zeros(1, dtype=torch.int32, device=dev),
+                     flag=torch.ones(1, dtype=torch.int32, device=dev),
                      partial=torch.empty((2 * m + 1) * mb * _nblk(n), dtype=dtype, device=dev),
                      ticket=torch.zeros((m + 1) * mb, dtype=torch.int32, device=dev),
                      grid=shape[0], upb=shape[1], staged=shape[2])
@@ -235,7 +240,10 @@ def gmres_arnoldi_plain(w, wk: GmresWork, j):
     """Arnoldi step j after w = A V[j]: CGS2 over the whole basis (h1, h2;
     w orthogonalised in place), hj1 and V[j+1], then the scalar work --
     the composition of the ``*_plain`` steps (knpemidg_tpu/solvers/
-    krylov.py:385-439); returns wk."""
+    krylov.py:385-439); nothing written where the flag is 0 (a step queued
+    after the loop's exit); returns wk."""
+    if not bool(wk.flag):
+        return wk
     rows = j + 1
     gmres_cgs_dot_plain(wk.V, w, rows, wk.h1)
     gmres_cgs_update_plain(wk.V, w, wk.h1, rows)
@@ -251,8 +259,11 @@ def gmres_arnoldi_ordered_plain(w, wk: GmresWork, j):
     kernels sum (:func:`_ordered_sums`) over the populated rows 0..j only,
     each update h[0] V[0] + h[1] V[1] + ... left to right; the written
     outputs are h1[:, :j+1], h2[:, :j+1], hj1, V[j+1] and the scalar work's
-    (:func:`gmres_givens_plain`).  w ends orthogonalised.  For the tests and
-    chip_smoke.py; the wrapper's CPU path keeps the einsums."""
+    (:func:`gmres_givens_plain`).  w ends orthogonalised; nothing is written
+    where the flag is 0.  For the tests and chip_smoke.py; the wrapper's
+    CPU path keeps the einsums."""
+    if not bool(wk.flag):
+        return wk
     rows = j + 1
     mb, n = w.shape
     Vr = wk.V[:rows]
@@ -292,6 +303,30 @@ def gmres_solve_update_plain(wk: GmresWork, x):
             wk.y[s, :k] = torch.linalg.solve_triangular(
                 wk.R[s, :k, :k], wk.g[s, :k, None], upper=True)[:, 0]
     return x.add_(torch.einsum("sk,ksn->sn", wk.y, wk.V[:wk.m]))
+
+
+def gmres_solve_update_ordered_plain(wk: GmresWork, x):
+    """:func:`gmres_solve_update_plain` in the kernel's order, to the last
+    bit: per system of ks = k, y by back substitution (row r from the last,
+    acc = g_r, acc -= R[r, l] y_l for l ascending, y_r = acc / R[r, r]),
+    zero beyond k; then x = x + acc, acc = y_0 V[0] and += y_l V[l] for l =
+    1 .. k - 1 in order over the populated rows; x untouched where k = 0.
+    For the tests and chip_smoke.py; the wrapper's CPU path keeps the
+    triangular solve and the einsum."""
+    wk.y.zero_()
+    for s, k in enumerate(wk.ks.tolist()):
+        y = wk.y[s]
+        for r in range(k - 1, -1, -1):
+            acc = wk.g[s, r]
+            for l in range(r + 1, k):
+                acc = acc - wk.R[s, r, l] * y[l]
+            y[r] = acc / wk.R[s, r, r]
+        if k:
+            acc = y[0] * wk.V[0, s]
+            for l in range(1, k):
+                acc = acc + y[l] * wk.V[l, s]
+            x[s] = x[s] + acc
+    return x
 
 
 def _check_vec(wk: GmresWork, v):
@@ -382,8 +417,9 @@ def gmres_arnoldi(w, wk: GmresWork, j):
 
 
 def gmres_solve_update(wk: GmresWork, x):
-    """x (mb, n) += the cycle's correction, in place (the back-substitution
-    and update kernels on a CUDA tensor); returns x."""
+    """x (mb, n) += the cycle's correction, in place, and y into wk (one
+    kernel launch on a CUDA tensor; its outputs bitwise those of
+    :func:`gmres_solve_update_ordered_plain`); returns x."""
     if not x.is_cuda:
         return gmres_solve_update_plain(wk, x)
     _check_vec(wk, x)

@@ -14,7 +14,10 @@ iteration j before it looks at the flag of iteration j - 1, which reaches
 it through pinned memory behind a CUDA event (:class:`_FlagLookahead`):
 the device always has an iteration queued, at most one iteration runs
 frozen after the exit, and a solve makes two blocking reads (the count and
-the convergence test at its end).  Per Arnoldi step or BiCGStab iteration
+the convergence test at its end).  The batched GMRES loop reads its
+Arnoldi steps' flag the same way, one step behind (K9's step writes
+nothing once the flag is 0); its blocking reads are the cycle starts' flags
+and the counts and convergence test at its end.  Per BiCGStab iteration
 the host reads one convergence flag and copies nothing else across.  An
 Arnoldi step after the matvec is one call (one kernel launch on the card).
 """
@@ -38,12 +41,17 @@ class KrylovResult(NamedTuple):
 # it: solves, and iterations queued after the loop's exit (every K8 entry of
 # such an iteration wrote nothing; at most one a solve)
 PCG_LOOKAHEAD = {"solves": 0, "frozen": 0}
+# the batched GMRES loop's: solves, restart cycles, Arnoldi steps queued
+# (live and frozen) and steps queued after a cycle's exit (every K9 step
+# entry of such a step wrote nothing; at most one a cycle)
+GMRES_LOOKAHEAD = {"solves": 0, "cycles": 0, "steps": 0, "frozen": 0}
 _PINNED = {}              # device -> (pinned int32 (2,), its two slots, two events)
 
 
 class _FlagLookahead:
-    """The PCG loop's flag, read one iteration behind.  ``record(j)`` copies
-    the flag after iteration j (j = -1: before the first) into slot j % 2:
+    """A Krylov loop's flag (PCG's, or batched GMRES's within a cycle),
+    read one iteration behind.  ``record(j)`` copies the flag after
+    iteration j (j = -1: before the first) into slot j % 2:
     on the card asynchronously, into pinned host memory behind a CUDA event
     on the stream current when the solve began; on the CPU by value.
     ``done(j)`` says, without waiting, whether that copy has landed (always
@@ -225,7 +233,16 @@ def gmres_batched(
     Hessenberg update, zero basis vector), so the extra shared steps cannot
     perturb its solution, and its ``iters`` count only its own steps.  Each
     restart recomputes the preconditioned residual from scratch, with
-    ``matvec_hi`` where given (see :func:`gmres`)."""
+    ``matvec_hi`` where given (see :func:`gmres`).
+
+    Within a cycle the host queues step j before it reads the flag of step
+    j - 1 (:class:`_FlagLookahead`), and stops at the first it reads 0:
+    where that flag is already home before step j's matvec is queued, the
+    cycle ends there; otherwise step j runs frozen (its matvec and
+    preconditioner apply recompute from V[j], which live step j - 1 wrote,
+    and K9's step writes nothing).  Either way the outputs are the same
+    bits.  Step m is never queued; each cycle start's flag is a blocking
+    read."""
     mb = b.shape[0]
     shape = b.shape
     n = b.numel() // mb
@@ -252,21 +269,27 @@ def gmres_batched(
 
     x = x0.reshape(mb, n).clone()
     it = torch.zeros(mb, dtype=torch.int32, device=b.device)
+    look = _FlagLookahead(wk.flag)
+    GMRES_LOOKAHEAD["solves"] += 1
     k = 0
     while True:
         # beta = ||r||, V[0] = r / beta, g = beta e1; the flag: any beta > tol
         ko.gmres_start(res_of(x), wk)
         if not (k < max_cycles and bool(wk.flag)):
             break
-        j = 0
-        while True:
+        GMRES_LOOKAHEAD["cycles"] += 1
+        for j in range(m):
+            if j and look.done(j - 1) and not look.read(j - 1):
+                break                          # step j - 1 ended the cycle, seen without a wait
             w = Aop(wk.V[j])
             # classical Gram-Schmidt with reorthogonalisation (CGS2) over the
             # populated rows 0..j, hj1, V[j+1], the rotations, the freeze,
             # ks and the flag
             ko.gmres_arnoldi(w, wk, j)
-            j += 1
-            if j >= m or not bool(wk.flag):
+            GMRES_LOOKAHEAD["steps"] += 1
+            look.record(j)
+            if j and not look.read(j - 1):     # step j ran frozen
+                GMRES_LOOKAHEAD["frozen"] += 1
                 break
         ko.gmres_solve_update(wk, x)           # x += V^T y
         it += wk.ks

@@ -2748,6 +2748,158 @@ def test_gmres_arnoldi_raises_on_a_refused_launch():
     assert _cuda.LAUNCHES["gmres_arnoldi"] == n0 + 1
 
 
+def _bytes(t):
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.parametrize("n", [497664, 4000001], ids=["staged", "re-read"])
+def test_gmres_arnoldi_with_the_flag_0_writes_nothing(n):
+    """An Arnoldi step launched with the work's flag 0 (a step the
+    look-ahead loop queued after a cycle's exit) leaves w and every tensor
+    of the work, partials and tickets included, byte for byte as they were,
+    in both launch layouts; with the flag 1 the same step writes."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(29)
+    for flag in (0, 1):
+        wk, w = _gmres_case(rng, torch.float64, dev, 3, n=n, m=30)
+        wk.flag.fill_(flag)
+        tensors = [w] + [t for t in wk if isinstance(t, torch.Tensor)]
+        before = [t.clone() for t in tensors]
+        n0 = _cuda.LAUNCHES["gmres_arnoldi"]
+        ko.gmres_arnoldi(w, wk, 3)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["gmres_arnoldi"] == n0 + 1
+        same = all(torch.equal(_bytes(a), _bytes(b)) for a, b in zip(tensors, before))
+        assert same == (flag == 0), flag
+
+
+# (entries a system, ks a system): the main path's KNP batches (cell 4 x
+# 124,416, pair 8 x 63,558 entries a system: 16-byte accesses) at the
+# float64 and float32 windows' rows, an odd length (one entry an access),
+# a length of whole 16-byte vectors in float64 but not in float32, a
+# multiple of the chunks; ks from {0, 1, 4, 16, 30} with 1, 2, 3 and 32
+# systems
+SOLVE_KS = (0, 1, 4, 16, 30)
+SOLVE_SIZES = [(497664, (4, 4)), (508464, (16, 4)), (6161, (30,)), (6161, (0, 1, 30)),
+               (4002, (4, 16)), (4002, (0, 1, 30)), (8192, (16,)),
+               (2052, tuple(SOLVE_KS[i % 5] for i in range(32)))]
+
+
+def _solve_case(rng, dtype, dev, n, ks, m=30):
+    """A work at the end of a cycle of ks[s] steps a system: random basis
+    rows, a well-conditioned R, random g; and a random x."""
+    mb = len(ks)
+    wk = ko.gmres_work(mb, n, m, dtype, dev)
+    wk.V[:m] = _rand(rng, (m, mb, n), dtype, dev) / n ** 0.5
+    R = 0.3 * _rand(rng, (mb, m + 1, m), dtype, dev)
+    R[:, range(m), range(m)] += 2.0
+    wk.R.copy_(R)
+    wk.g.copy_(_rand(rng, (mb, m + 1), dtype, dev))
+    wk.ks.copy_(torch.tensor(ks, dtype=torch.int32))
+    return wk, _rand(rng, (mb, n), dtype, dev)
+
+
+@pytest.mark.parametrize("n,ks", SOLVE_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gmres_solve_update_equals_the_ordered_plain_bitwise(n, ks, dtype):
+    """gmres_solve_update writes x and y to the last bit of
+    gmres_solve_update_ordered_plain's (the earlier back-substitution and
+    update kernels' order) in each of 50 calls (chip_smoke.
+    solve_update_exact: x restored and y NaN before every call), a system
+    with ks = 0 untouched but for its zero y; one launch counted a call."""
+    import chip_smoke
+
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(30 + len(ks))
+    wk, x = _solve_case(rng, dtype, dev, n, ks)
+    n0 = _cuda.LAUNCHES["gmres_solve_update"]
+    chip_smoke.solve_update_exact("gmres_solve_update", dtype, ko, wk, x, calls=50)
+    assert _cuda.LAUNCHES["gmres_solve_update"] == n0 + 50
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gmres_solve_update_takes_an_unaligned_x(dtype):
+    """x starting one entry past a 16-byte boundary (a contiguous view) is
+    updated one entry an access, to the same bits as an aligned copy."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(31)
+    wk, x = _solve_case(rng, dtype, dev, 8192, (16, 4))
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+    xu = buf[1:].view(x.shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 and xu.is_contiguous()
+    want = ko.gmres_solve_update_ordered_plain(_clone_work(wk), x.clone())
+    ko.gmres_solve_update(wk, xu)
+    ko.gmres_solve_update(_clone_work(wk), x)
+    torch.cuda.synchronize()
+    assert torch.equal(_bytes(xu), _bytes(want)) and torch.equal(_bytes(x), _bytes(want))
+
+
+def test_gmres_solve_update_is_one_launch_and_replays():
+    """Five cycle ends of a cell-layout KNP batch (2 x 4 x 124,416 at 4
+    rows) are five gm_solve_update_kernel launches, nothing else on the
+    device, and no allocation; a captured call replays to the eager call's
+    bits."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(32)
+    wk, x = _solve_case(rng, torch.float64, dev, 497664, (4, 4))
+    eager = ko.gmres_solve_update(_clone_work(wk), x.clone())
+    xg = x.clone()
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+
+    def ends():
+        for _ in range(5):
+            ko.gmres_solve_update(wk, xg)
+
+    kernels = _device_kernels(ends, sessions=3, want=5, match="gm_solve_update")
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
+    assert len(kernels) == 5 and all("gm_solve_update_kernel" in k for k in kernels), kernels
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ko.gmres_solve_update(_clone_work(wk), x.clone())
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ko.gmres_solve_update(wk, xg)
+    for _ in range(3):
+        xg.copy_(x)
+        wk.y.fill_(float("nan"))
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_bytes(xg), _bytes(eager))
+
+
+@pytest.mark.parametrize("lag", [False, True])
+@pytest.mark.parametrize("case", ["early", "restarts"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lookahead_gmres_on_the_card_equals_the_stepwise_loop(dtype, case, lag, monkeypatch):
+    """krylov.gmres_batched on the card returns the x bits, the counts and
+    the residual-norm bits of the stepwise loop (the flag read after every
+    step) on the same kernels: one cycle with a system converging early,
+    and restarts; with the flag forced late, one frozen step in each cycle
+    that ended on the flag; with it home, at most one a cycle."""
+    dev = cuda_or_skip()
+    if lag:
+        monkeypatch.setattr(krylov._FlagLookahead, "done", lambda self, j: False)
+    restart, easy = (20, (0,)) if case == "early" else (3, (1,))
+    rtol = 1e-10 if dtype == torch.float64 else 1e-5
+    rng = np.random.default_rng(33)
+    mv, pc = tp.gmres_torch_ops(tp.gmres_operators(rng, 2, 2048, easy), dtype, dev)
+    b = torch.as_tensor(rng.normal(size=(2, 4, 512)), dtype=dtype, device=dev)
+    x_s, it_s, rn_s, conv_s, early = tp.gmres_stepwise(mv, b, pc, rtol, 0.0, 300, restart)
+    before = dict(krylov.GMRES_LOOKAHEAD)
+    res = krylov.gmres_batched(mv, b, torch.zeros_like(b), pc, rtol, 0.0, 300, restart)
+    count = {k: krylov.GMRES_LOOKAHEAD[k] - before[k] for k in before}
+    assert torch.equal(_bytes(res.x), _bytes(x_s))
+    assert res.iters == it_s and res.converged == conv_s
+    assert torch.equal(_bytes(res.resnorm), _bytes(rn_s))
+    assert count["frozen"] == early if lag else count["frozen"] <= count["cycles"]
+    if case == "restarts":
+        assert count["cycles"] > 1
+
+
 @pytest.mark.parametrize("mode", [0, 1, 2])
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_krylov_pcg_kernels_match_plain(mode, dtype, tol):

@@ -218,3 +218,70 @@ def cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA (kernels run on the card only)")
     return torch.device("cuda")
+
+
+def gmres_operators(rng, mb, n, easy=()):
+    """mb nonsymmetric, diagonally dominant dense operators (n x n), the
+    systems in ``easy`` close to the identity (they converge first)."""
+    A = np.empty((mb, n, n))
+    for s in range(mb):
+        scale = 0.02 if s in easy else 0.6
+        A[s] = (np.eye(n) * (2.0 + rng.uniform(size=n))
+                + scale * rng.normal(size=(n, n)) / np.sqrt(n))
+    return A
+
+
+def gmres_torch_ops(A, dtype=F64, device="cpu"):
+    """The batched matvec of operators A (mb, n, n) and its Jacobi
+    preconditioner, on vectors of any shape (mb, ...) of n entries a
+    system."""
+    At = torch.as_tensor(A, dtype=dtype, device=device)
+    dinv = 1.0 / torch.diagonal(At, dim1=1, dim2=2)
+
+    def mv(v):
+        return torch.einsum("sij,sj->si", At, v.reshape(v.shape[0], -1)).reshape(v.shape)
+
+    def pc(v):
+        return (dinv * v.reshape(v.shape[0], -1)).reshape(v.shape)
+
+    return mv, pc
+
+
+def gmres_stepwise(matvec, b, precond, rtol, atol, max_it, restart):
+    """krylov.gmres_batched from a zero guess as it was before the
+    look-ahead: the flag read after every Arnoldi step; the same K9
+    entries.  Returns (x, iters, resnorm, converged, cycles ended by the
+    flag before the restart)."""
+    from knpemidg_tpu_torch.ops import krylov_ops as ko
+
+    mb, shape = b.shape[0], b.shape
+    n = b.numel() // mb
+    bv = b.reshape(mb, n)
+    Aop = lambda v: precond(matvec(v.reshape(shape))).reshape(mb, n).contiguous()
+    res_of = lambda x: precond((bv - matvec(x.reshape(shape)).reshape(mb, n))
+                               .reshape(shape)).reshape(mb, n).contiguous()
+    m = restart
+    wk = ko.gmres_work(mb, n, m, b.dtype, b.device)
+    bz = precond(bv.reshape(shape)).reshape(mb, n).contiguous()
+    ko.gmres_cgs_dot(bz[None], bz, 1, wk.h1, wk)
+    wk.tol.copy_(torch.clamp(rtol * torch.sqrt(wk.h1[:, 0]), min=atol))
+    max_cycles = -(-max_it // restart)
+    x = torch.zeros_like(bv)
+    it = torch.zeros(mb, dtype=torch.int32, device=b.device)
+    k = early = 0
+    while True:
+        ko.gmres_start(res_of(x), wk)
+        if not (k < max_cycles and bool(wk.flag)):
+            break
+        j = 0
+        while True:
+            ko.gmres_arnoldi(Aop(wk.V[j]), wk, j)
+            j += 1
+            if j >= m or not bool(wk.flag):
+                break
+        early += j < m
+        ko.gmres_solve_update(wk, x)
+        it += wk.ks
+        k += 1
+    return (x.reshape(shape), it.tolist(), wk.beta.clone(),
+            bool(torch.all(wk.beta <= wk.tol)), early)

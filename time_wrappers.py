@@ -125,6 +125,11 @@ and float64, beside the library calls chip_smoke.py holds them to:
   k9s  K9's cycle start on the KNP batch (two ions) of the cell (4 x
        124,416 entries a system) and pair (8 x 63,558) layouts, both
        dtypes, on one work built once per solve;
+  k9u  K9's cycle end (triangular solve and update) on the same batches at
+       4 and 16 populated rows a system: this tree's one launch, a
+       parent's two launches, beside one
+       torch.baddbmm over the populated rows (partial: no triangular
+       solve), with the bound;
   k13  Solver._ode_step itself in float64 under each scheme at
        chip_smoke.py's configuration: the pushes, every tag's ODE step and
        the pulls (this tree: one K13 launch; a tree with the per-tag
@@ -156,7 +161,7 @@ measured" where the call cannot be captured).  It also prints the cost of
 reading the current stream both ways.
 
 Usage:  python3 time_wrappers.py [--root DIR]
-            [--only k8,k9,k9s,k6,k4,k1,k14,k13,k5,k11,k11e,k10e,k10c,k11c,k11a,k14z,k12,k7]
+            [--only k8,k9,k9s,k9u,k6,k4,k1,k14,k13,k5,k11,k11e,k10e,k10c,k11c,k11a,k14z,k12,k7]
         (needs a CUDA card)
 """
 import argparse
@@ -315,7 +320,10 @@ def time_arnoldi(ko, dev, gen):
                 j = rows - 1
                 wk.V[:rows] = torch.randn((rows, IONS, n), generator=gen, device=dev,
                                           dtype=dtype) / n ** 0.5
-                wk.tol.fill_(1e-30)                      # every system live
+                # every system live in every call (tol below any |g|): a
+                # tree whose step writes nothing once the flag is 0 would
+                # otherwise time frozen steps
+                wk.tol.fill_(-1.0)
                 wk.g[:, j] = 1.0
                 if fused:
                     name = "gmres_arnoldi"
@@ -332,6 +340,38 @@ def time_arnoldi(ko, dev, gen):
                         ko.gmres_givens(wk, j)
                 report("k9time", f"{layout} {str(dtype):14s} {rows:2d} rows {name}", fn)
             time_cgs_dot(ko, wk, w, layout, dtype)
+
+
+def time_solve_update(ko, dev, gen):
+    """K9's cycle end (the triangular solve and x += sum_k y_k V[k]) on one
+    work of each layout's KNP batch at 4 and 16 populated rows a system:
+    this tree's one launch (a block a chunk, each solving its system); a
+    parent's two launches (the back substitution, then the update); beside one torch.baddbmm over the
+    populated rows into a preallocated output (partial: no triangular
+    solve), with the bound (the rows and x read once, x written once)."""
+    for layout, (nd, nc) in (("cell", (4, 124416)), ("pair", (8, NPAIR))):
+        n = nd * nc
+        for dtype in (torch.float32, torch.float64):
+            rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+            wk = ko.gmres_work(IONS, n, 30, dtype, dev)
+            R = rnd(IONS, 31, 30)
+            R[:, range(30), range(30)] += 4.0
+            g, x = rnd(IONS, 31), rnd(IONS, n)
+            out = torch.empty((IONS, 1, n), dtype=dtype, device=dev)
+            for rows in (4, 16):
+                V = rnd(rows, IONS, n) / n ** 0.5
+                wk.V[:rows] = V
+                wk.R.copy_(R)
+                wk.g.copy_(g)
+                wk.ks.fill_(rows)
+                report("k9utime", f"{layout} {str(dtype):14s} {rows:2d} rows gmres_solve_update",
+                       lambda: ko.gmres_solve_update(wk, x))
+                Vr, y = V.transpose(0, 1).contiguous(), rnd(IONS, 1, rows)
+                report("k9utime", f"{layout} {str(dtype):14s} {rows:2d} rows torch.baddbmm "
+                       f"(partial)", lambda: torch.baddbmm(x[:, None], y, Vr, out=out))
+                print(f"k9utime {layout} {str(dtype):14s} {rows:2d} rows gmres_solve_update bound "
+                      f"{bound_us((rows + 2) * IONS * n * x.element_size()):.2f} us (bytes)")
+                del V, Vr
 
 
 def bound_us(nbytes):
@@ -1135,6 +1175,7 @@ def main():
                 "k11a": lambda: time_ion_sums(asm, solver(), gen, "k11a"),
                 "k14z": lambda: time_ion_sums(asm, solver(), gen, "k14z"),
                 "k9s": lambda: time_start(ko, dev, gen),
+                "k9u": lambda: time_solve_update(ko, dev, gen),
                 "k12": lambda: time_emit(pairs, dev, gen),
                 "k7": lambda: time_coarse_apply(coarse, dev, gen)}
     for key in args.only.split(","):
