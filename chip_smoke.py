@@ -95,12 +95,33 @@ layout).  On the way it:
      EMI-only protocol of tests/test_solver_emi.py with its stats files
      and gates, and its one-iteration Picard step; and
      tests/test_picard.py's MMS checks at res 3 (direct against iterative
-     Picard, and against the plain step).
+     Picard, and against the plain step);
+ 12. drives the scale path (scale_phase): the README's 995,328-tet mesh,
+     box_3d_axons(2, length_factor=2), at emix.solver_params(
+     emi_moment_axial=12, emi_moment_host=True), whose 15,552 chunks take
+     the three-level coarse: the pair layout for 10 steps in float64 and
+     in float32, the cell layout (Ritz-24 AUTO) for 3 in float64, each
+     through emix.build_solver and solve_system_active with the launch
+     counters reset first; prints the levels the build chose (n_agg, k2,
+     n2) and the moment rows, the set-up and pc build seconds with the
+     host moment Galerkin apart, the counts, ms/step and peak device
+     memory; fails unless the fields are finite, the layout's kernels were
+     launched with the three-level solve and one-launch apply in the
+     two-level ones' place (which launch no time), and the counts equal the
+     card's recorded ones (SCALE_COUNTS); at each float64 window's pc the
+     three-level K6 solve and K7 one-launch apply are held to their plain
+     versions, to their ordered twins bit for bit, and timed beside their
+     yardstick and bound.
 
 Usage:  python3 chip_smoke.py      (exits non-zero on any failure)
 The last line is {"ok": true, "device": {...}}; the line before it the
 card's name and power limit, and the line before that the per-kernel JSON
 summary.
+
+        python3 chip_smoke.py --scale [THREADS]
+runs phase 12 alone (with torch.set_num_threads(THREADS) when given: the
+scale windows' counts held to SCALE_COUNTS at another host thread count,
+the host moment Galerkin running on the host).
 """
 import dataclasses
 import json
@@ -131,7 +152,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 # launches.
 TWO_LEVEL = [f"two_level_{e}{b}{p}" for b in ("", "_batched") for p in ("", "_pair", "_nd3")
              for e in ("restrict", "solve", "prolong")] + [
-    f"two_level_coarse_batched{p}" for p in ("", "_pair")]
+    f"two_level_coarse_batched{p}" for p in ("", "_pair")] + [
+    f"two_level_{e}{p}" for e in ("solve_three", "coarse_three_batched") for p in ("", "_pair")]
 # The assembly kernels (K10, K11, K14): the cell, facet, membrane and trace
 # kernels do arithmetic and are held to 1e-5 / 1e-12 of each value's sum of
 # |terms| (the plain version with neg = +1 on absolute-valued inputs); the
@@ -325,6 +347,30 @@ MMS_ERROR_TOL = 1e-6
 MMS_JAX_COUNTS = {3: ([3645, 1166], [[2, 2], [2, 2]]), 5: ([28236, 8528], [[3, 2], [3, 2]])}
 MMS_COUNTS = {3: ([3719, 1535], [[2, 2], [2, 2]]), 5: ([28105, 8193], [[3, 2], [3, 2]])}
 
+# The scale path: the README's 995,328-tet mesh, box_3d_axons(2,
+# length_factor=2) in cm, with its "axial-12" configuration (the axial
+# moment rows of order 12 on the host float64 moment Galerkin); at agg 64
+# its 15,552 chunks exceed the dense coarse's 4,096 and take the
+# three-level coarse (3,888 super-chunks of 4).  Windows (layout, dtype,
+# steps): the pair layout (the bench's) in both dtypes, the cell layout
+# (Ritz-24 AUTO) in float64, shorter
+SCALE_MESH = (2, 2)
+SCALE_KW = dict(emi_moment_axial=12, emi_moment_host=True)
+SCALE_WINDOWS = (("pair", torch.float64, 10), ("pair", torch.float32, 10),
+                 ("cell", torch.float64, 3))
+# the windows whose launches each layout's three-level rows report
+SCALE_PATHS = {"cell": ("scale-cell64",), "pair": ("scale-pair64", "scale-pair32")}
+# the scale windows' Krylov counts (EMI a step, KNP a step and ion) as
+# measured on the card (PERF.md): they repeat (no atomics), so scale_window
+# fails a window that moves
+SCALE_COUNTS = {
+    "pair64": ([8, 12, 3, 3, 2, 3, 3, 2, 3, 2],
+               [[16, 9], [9, 2], [4, 3], [3, 3], [3, 2], [3, 4], [4, 1], [4, 2], [2, 2], [3, 2]]),
+    "pair32": ([147, 61, 1000, 927, 124, 4, 130, 64, 12, 35],
+               [[53, 16], [44, 15], [656, 237], [213, 50], [119, 33], [86, 21], [68, 22],
+                [55, 18], [65, 20], [58, 17]]),
+    "cell64": ([5, 3, 3], [[1, 1], [1, 1], [1, 1]])}
+
 # kernel -> (source, the TPU-side function it replaces, the path whose
 # launches it reports (a tuple of app windows: their sum; None: a row that
 # no run of the script launches on a path) [, the launch counter when it is
@@ -364,6 +410,15 @@ KERNELS = {
     **{f"two_level_coarse_batched{'_pair' if p == 'pair' else ''}": (
         "knpemidg_tpu_torch/csrc/two_level.cu", "knpemidg_tpu/solvers/twolevel.py:907", p,
         "two_level_coarse_batched") for p in ("cell", "pair")},
+    # the three-level forms (the scale phase, three-level data: d1inv) at
+    # the 995,328-tet mesh's shapes: K6's solve and K7's one-launch apply,
+    # each layout's row with the launches of that layout's scale windows
+    # (the restrict and prolong-add are the two-level kernels, unchanged)
+    **{f"two_level_{e}{'_pair' if p == 'pair' else ''}": (
+        "knpemidg_tpu_torch/csrc/two_level.cu",
+        "knpemidg_tpu/solvers/twolevel.py:" + ("947" if "coarse" in e else "810"),
+        SCALE_PATHS[p], f"two_level_{e}")
+       for e in ("solve_three", "coarse_three_batched") for p in ("cell", "pair")},
     # K10, K11, K14 at each layout's cell axis, at the MMS path's 2D shapes
     # (alpha_sum is not on that path) and at the 2D and rat neurons'; one
     # counter serves them all
@@ -463,6 +518,12 @@ for _p in ("cell", "pair"):
     PATH_KERNELS["bicg-" + _p] = [k for k in PATH_KERNELS[_p] if not k.startswith("gmres_")] + \
         list(BICG)
     ODE_LAUNCHES_PER_STEP["bicg-" + _p] = (1, 0)
+# the scale windows: each layout's kernels with the three-level solve and
+# one-launch apply in the two-level ones' place (which they launch no time)
+THREE_LEVEL_SWAP = {"two_level_solve": "two_level_solve_three",
+                    "two_level_coarse_batched": "two_level_coarse_three_batched"}
+for _p in ("cell", "pair"):
+    PATH_KERNELS["scale-" + _p] = [THREE_LEVEL_SWAP.get(k, k) for k in PATH_KERNELS[_p]]
 # what the EMI-only window must not launch: K7 (the batched KNP two-level
 # apply), K9, K11 and K15 (K2, the ion-batched matvec, shares K1's counter
 # and is counted by wrapping the solver's calls)
@@ -744,14 +805,19 @@ def solve_scale(co, rc, proj):
     """Componentwise scale of the solve: every product and sum of the dense
     solve (through its refinement) and of the small solves in absolute
     values."""
-    from knpemidg_tpu_torch.ops.coarse import _mv
+    from knpemidg_tpu_torch.ops.coarse import _mv, _super_sums
 
     a = coarse_abs(co)
-    x = (co.s * rc).abs()
+    three = co.d1inv is not None
+    x = (co.s * (_super_sums(a, rc.abs()) if three else rc)).abs()
     z = _mv(a.inv, x)
     if co.As is not None:
         z = z + _mv(a.inv, x + _mv(a.As, z))
-    out = [a.s * z]
+    z = a.s * z
+    if three:      # the level-1 sweep plus each chunk's super-chunk value
+        n_agg, _, k2 = co.levels
+        z = rc.abs() * a.d1inv + z.repeat_interleave(k2, dim=1)[:, :n_agg]
+    out = [z]
     n_comp, nw, nr = co.sizes
     if co.comp is not None:
         invc, sc, Asc = a.comp
@@ -3050,7 +3116,8 @@ def apps_phase(results):
     app_check_calibration(launches)
     app_calibration(results, launches)
     missing = [k for k, v in KERNELS.items() if isinstance(v[2], tuple)
-               and counter(k) not in OFF_PATH and not launches_on(launches, k)]
+               and set(v[2]) <= launches.keys() and counter(k) not in OFF_PATH
+               and not launches_on(launches, k)]
     if missing:
         raise AssertionError(f"app rows whose kernel its windows did not launch: {missing}")
     print(f"apps    phase {time.perf_counter() - t0:.1f} s")
@@ -3409,6 +3476,210 @@ def variants_phase(mesh, results, launches):
     print(f"variants phase {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the scale path: the 995,328-tet mesh, the three-level coarse
+# ---------------------------------------------------------------------------
+
+def three_gemvs(co, rc):
+    """The three-level solve's dense GEMVs as cuBLAS calls on the
+    super-chunk sums (a pad, a view and a sum, then torch.mv or one batched
+    torch.matmul): the yardstick of the three-level forms."""
+    from knpemidg_tpu_torch.ops.coarse import _super_sums
+
+    return dense_gemvs(co, co.s * _super_sums(co, rc))
+
+
+def exact_line(name, dtype, what, got, ref):
+    """Print and assert that ``got`` equals ``ref`` (lists of tensors) to
+    the last bit."""
+    torch.cuda.synchronize()
+    same = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, ref))
+    print(f"exact   {name:30s} {str(dtype):14s} {what}, bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"{name} differs from {what} in {dtype}")
+
+
+def three_level_rows(S, state, layout, results):
+    """The three-level forms at a scale window's shapes, both dtypes (its
+    pc cast): K6's solve on the EMI data (As, the compartment and moment
+    groups, the cell layout's Ritz fields) as the apply calls it, on the
+    workspace's buffers; K7's one-launch apply of the two ions' data, on
+    cells with kernel B's apply folded in (the step's KNP diagonal), on
+    pairs with the live mask; the residuals seeded (masked on pairs).  Each
+    against its plain version, bit for bit against its ordered twin
+    (coarse.solve_ordered_plain, coarse_apply_ordered_plain; the folded
+    form against kernel B's apply then the twin; the one launch against the
+    three), timed beside its yardstick and bound."""
+    from knpemidg_tpu_torch.ops import coarse, spmv
+
+    pair = layout == "pair"
+    sfx = "_pair" if pair else ""
+    pM, Ich, Itot = S._pads(state)
+    blocksK, _ = S._knp_assemble_all(state["c"], state["c_elim"], state["phi"], pM, Ich, Itot,
+                                     state["t"], state["c"])
+    for dtype in (torch.float32, torch.float64):
+        co6, co7 = coarse_inputs(state["pc"], AGG // 2 if pair else AGG, dtype)
+        nd, nc = co6.W.shape[1:]
+        gen = torch.Generator(S.device).manual_seed(27)
+        r6 = torch.randn((1, nd, nc), generator=gen, device=S.device, dtype=dtype)
+        rK = torch.randn((2, nd, nc), generator=gen, device=S.device, dtype=dtype)
+        mask = S._live_mask(dtype) if pair else None
+        if pair:
+            r6.mul_(mask)
+            rK.mul_(mask)
+        # K6: the solve on restrict's buffers (loaded with the plain values)
+        name = "two_level_solve_three" + sfx
+        rc, proj = coarse.restrict_plain(co6, r6)
+        wk = co6.work
+        wk.rc.copy_(rc)
+        wk.proj.copy_(proj)
+        n_agg, n2, k2 = co6.levels
+        mats = [co6.inv, co6.s, co6.d1inv] + ([co6.As] if co6.As is not None else []) + [
+            t for grp in (co6.comp, co6.mom, co6.ritz) if grp is not None for t in grp]
+        got = [t.clone() for t in coarse.solve(co6, wk.rc, wk.proj)]
+        exact_line(name, dtype, "coarse.solve_ordered_plain", got,
+                   coarse.solve_ordered_plain(co6, rc, proj))
+        compare(name, dtype, lambda: nonempty(coarse.solve(co6, wk.rc, wk.proj)),
+                lambda: nonempty(coarse.solve_plain(co6, rc, proj)),
+                lambda ref: solve_scale(co6, rc, proj), results,
+                inputs=[rc, proj] + mats,
+                flops=2.0 * n2 * n2 * (3 if co6.As is not None else 1) + 3.0 * n_agg,
+                library_fn=lambda: three_gemvs(co6, rc), graph=True)
+        # K7: the one-launch apply as the KNP solve calls it
+        name = "two_level_coarse_three_batched" + sfx
+        if co7.work.fused is None and rK.is_cuda:
+            raise AssertionError(f"{name}: the KNP operands take no one-launch apply")
+        masks = [] if mask is None else [mask]
+        out0 = rK.clone()                  # stands in for kernel B's output (pairs)
+        one = coarse.coarse_add(co7, out0.clone(), rK, mask)
+        exact_line(name, dtype, "restrict, the three-level solve, prolong_add", [one],
+                   [coarse.prolong_add(co7, out0.clone(),
+                                       *coarse.solve(co7, *coarse.restrict(co7, rK)), mask)])
+        exact_line(name, dtype, "coarse.coarse_apply_ordered_plain", [one],
+                   [coarse.coarse_apply_ordered_plain(co7, out0.clone(), rK, mask)])
+        flops = 2.0 * 2 * n2 * n2 + 3.0 * rK.numel() + (1.0 if masks else 0.0) * rK.numel()
+        bufs = [out0.clone(), out0.clone()]
+        if pair:
+            compare(name, dtype, lambda: [coarse.coarse_add(co7, out0.clone(), rK, mask)],
+                    lambda: [coarse.coarse_apply_plain(co7, out0.clone(), rK, mask)],
+                    lambda ref: [coarse.coarse_apply_plain(coarse_abs(co7), out0.abs(),
+                                                           rK.abs(), mask)],
+                    results, inputs=[rK, out0, co7.inv, co7.s, co7.d1inv] + masks,
+                    flops=flops, library_fn=lambda: three_gemvs(co7, coarse.restrict_plain(
+                        co7, rK)[0]),
+                    timed=(lambda: coarse.coarse_add(co7, bufs[0], rK, mask),
+                           lambda: coarse.coarse_apply_plain(co7, bufs[1], rK, mask)),
+                    graph=True)
+            continue
+        bj = spmv.block_jacobi_operands(spmv.block_jacobi_inverse(blocksK[:, 0].to(dtype)))
+        zk = spmv.block_jacobi_apply(bj, rK)
+        z0 = spmv.block_jacobi_apply_plain(bj.Pinv, rK)
+        z_abs = spmv.block_jacobi_apply_plain(bj.Pinv.abs(), rK.abs())
+        folded = coarse.coarse_add(co7, torch.empty_like(rK), rK, None, bj)
+        exact_line(name, dtype, "kernel B's apply, then coarse.coarse_apply_ordered_plain",
+                   [folded], [coarse.coarse_apply_ordered_plain(co7, zk.clone(), rK)])
+        compare(name, dtype, lambda: [coarse.coarse_add(co7, torch.empty_like(rK), rK, None, bj)],
+                lambda: [coarse.coarse_apply_plain(co7, z0.clone(), rK)],
+                lambda ref: [coarse.coarse_apply_plain(coarse_abs(co7), z_abs.clone(),
+                                                       rK.abs())],
+                results, inputs=[rK, bj.Pinv, co7.inv, co7.s, co7.d1inv],
+                flops=flops + 2.0 * bj.Pinv.numel(),
+                library_fn=lambda: three_gemvs(co7, coarse.restrict_plain(co7, rK)[0]),
+                timed=(lambda: coarse.coarse_add(co7, bufs[0], rK, None, bj),
+                       lambda: coarse.coarse_apply_plain(co7, z0.clone(), rK)),
+                graph=True)
+
+
+def scale_window(mesh, layout, dtype, steps, results, launches):
+    """One scale window through the user entry points: emix.build_solver on
+    the 995,328-tet mesh, solve_system_active for ``steps`` steps at
+    emix.solver_params(**SCALE_KW) with the launch counters reset first
+    (float32: convergence reported, not asserted).  Prints the levels the
+    build chose (n_agg, k2, n2 of the EMI and KNP data) and nw, the set-up
+    and pc build seconds with the host moment Galerkin apart, the counts
+    and median ms/step, the peak device memory and whether every field is
+    finite; fails unless the fields are finite, every kernel of the
+    layout's scale path was launched and the two-level solve and
+    one-launch apply no time, and the counts equal SCALE_COUNTS'.  The float64 windows then check and time the
+    three-level rows at their pc (three_level_rows)."""
+    from knpemidg_tpu_torch import _cuda, emix
+
+    tag = f"{layout}{'64' if dtype == MAIN_DTYPE else '32'}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    S = emix.build_solver(mesh, dtype=dtype, device="cuda", pair=layout == "pair")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    galerkin = []
+    host_galerkin = S._emi_moment_data_host
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        out = host_galerkin(*a, **k)
+        torch.cuda.synchronize()
+        galerkin.append(time.perf_counter() - t)
+        return out
+
+    S._emi_moment_data_host = timed
+    sp = emix.solver_params(error_if_not_converged=dtype == MAIN_DTYPE, **SCALE_KW)
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    state = S.solve_system_active(steps * S.params.dt, 0.0, sp)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches["scale-" + tag] = got = dict(_cuda.LAUNCHES)
+    pc = state["pc"]
+    levels = {part: (pc[part]["d1inv"].shape[-1], pc[part]["inv"].shape[-1])
+              for part in ("emi", "knp") if "d1inv" in pc[part]}
+    lv = {part: f"n_agg {a}, k2 {-(-a // b)}, n2 {b}" for part, (a, b) in levels.items()}
+    extra = f", {S.pairs['int_f'].shape[0]} pairs" if layout == "pair" else ""
+    print(f"scale   {tag} {S.n_cells} cells{extra}; EMI {lv.get('emi')}, KNP {lv.get('knp')}; "
+          f"nw {pc['emi']['mom_W'].shape[0]} moment rows, {ritz_fields(state)} Ritz fields")
+    pc_s = total - sum(S.ode_walls) - sum(S.stats.step_walls)
+    print(f"scale   {tag} set-up {setup_s:.1f} s; pc build {pc_s:.2f} s, of which the host "
+          f"moment Galerkin {sum(galerkin):.2f} s")
+    steps_ms = [1e3 * (a + b) for a, b in zip(S.ode_walls, S.stats.step_walls)]
+    counts = (S.stats.emi_niters, S.stats.knp_niters)
+    print(f"scale   {tag} {dtype} emi iters {counts[0]}")
+    print(f"scale   {tag} {dtype} knp iters {counts[1]}")
+    print(f"scale   {tag} {dtype} ms/step {[round(v, 2) for v in steps_ms]}, median "
+          f"{statistics.median(steps_ms):.2f}")
+    finite = all(bool(torch.isfinite(state[k]).all())
+                 for k in ("c", "c_elim", "phi", "phi_M", "I_ch"))
+    print(f"scale   {tag} max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; fields finite: {finite}")
+    if set(levels) != {"emi", "knp"} or not finite or len(steps_ms) != steps:
+        raise AssertionError(f"the scale {tag} window is not three-level, finite and "
+                             f"{steps} steps long")
+    missing = [k for k in PATH_KERNELS["scale-" + layout] if not got[k]]
+    two = {k: got[k] for k in THREE_LEVEL_SWAP if got[k]}
+    if missing or two:
+        raise AssertionError(f"the scale {tag} window did not launch {missing} or launched "
+                             f"the two-level forms {two}")
+    same = counts == SCALE_COUNTS[tag]
+    print(f"scale   {tag} Krylov counts equal the recorded ones: {same}")
+    if not same:
+        raise AssertionError(f"the scale {tag} window's Krylov counts moved")
+    if dtype == MAIN_DTYPE:
+        three_level_rows(S, state, layout, results)
+
+
+def scale_phase(results, launches):
+    """Phase 12: the scale path, the windows of SCALE_WINDOWS on the
+    995,328-tet mesh (scale_window); adds their launches to ``launches``."""
+    from knpemidg_tpu_torch.mesh.generators import box_3d_axons
+
+    t0 = time.perf_counter()
+    mesh = box_3d_axons(*SCALE_MESH)
+    mesh.vertices *= 1e2
+    print(f"scale   mesh box_3d_axons{SCALE_MESH}: {mesh.num_cells} tets, "
+          f"{time.perf_counter() - t0:.1f} s")
+    for layout, dtype, steps in SCALE_WINDOWS:
+        scale_window(mesh, layout, dtype, steps, results, launches)
+    print(f"scale phase {time.perf_counter() - t0:.1f} s")
+
+
 # the launch counters of the kernels already redesigned for the card after
 # their first port, which the porting rule leaves alone: the one list the
 # rank's marks read (PERF.md's kernel table says by which change)
@@ -3520,6 +3791,7 @@ def main():
     launches["mms"] = mms_phase(results)
     launches.update(apps_phase(results))
     variants_phase(mesh, results, launches)
+    scale_phase(results, launches)
     print(f"layouts float64 median ms/step: cell {walls['cell'][0]:.2f}, pair "
           f"{walls['pair'][0]:.2f}; ODE {walls['cell'][1]:.2f} / {walls['pair'][1]:.2f}")
 
@@ -3542,5 +3814,24 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def scale_only(threads=None):
+    """Phase 12 alone (the host on ``threads`` threads when given)."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA GPU; torch.cuda.is_available() is False")
+    from knpemidg_tpu_torch import _cuda
+
+    print(f"gpu     {gpu_line()}")
+    print(f"build   {_cuda.build():.2f} s compiling")
+    _cuda.lib()
+    if threads:
+        torch.set_num_threads(threads)
+    print(f"scale   host threads {torch.get_num_threads()}")
+    scale_phase({}, {})
+    print("scale   every window's counts equal SCALE_COUNTS")
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--scale"]:
+        scale_only(int(sys.argv[2]) if len(sys.argv) > 2 else None)
+    else:
+        main()

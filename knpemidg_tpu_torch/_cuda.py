@@ -47,7 +47,8 @@ SOURCE_FLAGS = {f: ("-fmad=false",) for f in ("assemble_emi.cu", "assemble_knp.c
 # instantiations apart, the
 # matvec and the two-level restrict and prolong their 2D ones ("_nd3"),
 # and the two-level kernels their single EMI (K6) and batched KNP (K7, "_batched") calls ("coarse": the one-launch apply of operands
-# without deflation fields or As, K7's on the main path).  The cell
+# without deflation fields or As, K7's on the main path; "_three": the
+# solve and the one-launch apply of three-level data).  The cell
 # layout's two-level applies fold the block-Jacobi apply into the
 # prolong-add or the one-launch apply, whose counter counts the call: they
 # launch no block_jacobi_apply.  The assembly
@@ -70,6 +71,8 @@ LAUNCHES = {"bell_matvec": 0, "block_jacobi_inverse": 0,
                for e in ("restrict", "solve", "prolong", "coarse")},
             **{f"two_level_{e}{b}_nd3": 0 for b in ("", "_batched")
                for e in ("restrict", "prolong")},
+            **{f"two_level_{e}_three{b}": 0 for b in ("", "_batched")
+               for e in ("solve", "coarse")},
             "emi_cell": 0, "emi_facet": 0, "emi_emit_cell": 0, "alpha_sum": 0,
             "knp_cell": 0, "knp_facet": 0, "knp_membrane_emit": 0, "membrane_trace": 0,
             "eliminated_concentration": 0,

@@ -129,7 +129,7 @@ class SolverParams:
     # AP upstrokes (200 -> 12 iters on the EMIx mesh at order 2)
     emi_moment_order: int = 2
     # compute the moment-deflation Galerkin in HOST float64
-    # (twolevel.ritz_galerkin_host on the moment fields) instead of device
+    # (twolevel.moment_galerkin_host on the moment fields) instead of device
     # f32 matvecs.  The round-3 "order 3/4 DOUBLES counts" burial was an
     # f32-Galerkin-noise artifact of the device path; the f64 Galerkin
     # lifts that ceiling, which matters at ~1M tets where the order-2

@@ -26,6 +26,18 @@
 // verification path) besides 4 and 8; at nd = 3 every apply takes the
 // three steps.
 //
+// Three-level data (twolevel.py:810-829 and :947-959, build_two_level
+// above max_dense: d1inv on the n1 = n_agg level-1 chunks, the dense inv,
+// s, As on n2 super-chunks of k2 chunks): restrict and prolong-add are
+// unchanged (level-1 chunks); the solve and the one-launch apply stage
+// x2 = s rc2, rc2[q] the k2-sum of rc over super-chunk q, in each block's
+// shared memory, run the dense products on n2 rows with x2 in place of
+// s rc, and end each row with zc[a] = rc[a] d1inv[a] + z2[q] for its k2
+// chunks (the one-launch apply prolongs them in the row's warp).  Their
+// products and sums are rounded apart (mul_rn, add_rn: this file is built
+// with nvcc's default contraction), so ops/coarse.py's ordered twins
+// equal them to the last bit.
+//
 // The folded apply (the cell layout, nd = 4; instantiations BJ = true):
 // kernel B's apply does not run; the prolong-add and the one-launch
 // apply compute each cell's block-Jacobi values Pinv r themselves
@@ -344,9 +356,12 @@ struct TlSolve {
   const T* s_m;
   const T* inv_r;
   const T* s_r;
-  int m, n, n_comp, nw, nr;
+  const T* d1inv;  // (m, n1) the three-level data's level-1 Jacobi sweep, else null
+  int m, n, n_comp, nw, nr;   // n: the dense system's rows (n2 when three-level)
   int grid;        // blocks, at most the co-resident limit
-  int smem;        // dynamic shared memory bytes (the small solves)
+  int smem;        // dynamic shared memory bytes (the small solves, x2)
+  int n1;          // chunks (n_agg; n when two-level)
+  int k2;          // chunks a dense row sums (1 when two-level)
   int pad;
 };
 
@@ -370,6 +385,8 @@ __device__ __forceinline__ unsigned long long tl_policy_stream() {
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 // a matrix load under L2 policy pol (HINT), or a plain one
 template <bool HINT>
@@ -411,7 +428,7 @@ __device__ __forceinline__ void tl_fetch(const T* a, int n, int lane, unsigned l
 // that many below n, their loads issued before the adds; then the same
 // for B / 2, ..., 1: the lane's last (fewer than U) entries in increasing
 // j, in a handful of round trips instead of one per entry.
-template <typename T, bool XS, bool HINT, int B>
+template <typename T, bool XS, bool HINT, bool EX, int B>
 __device__ __forceinline__ void tl_tail(T& acc, const T* a, const T* x, const T* xs, int& j,
                                         int n, unsigned long long pol) {
   if (j + 32 * (B - 1) < n) {
@@ -422,10 +439,16 @@ __device__ __forceinline__ void tl_tail(T& acc, const T* a, const T* x, const T*
       w[u] = XS ? xs[j + 32 * u] * x[j + 32 * u] : x[j + 32 * u];
     }
 #pragma unroll
-    for (int u = 0; u < B; ++u) acc += v[u] * w[u];
+    for (int u = 0; u < B; ++u) {
+      if constexpr (EX) {
+        acc = add_rn(acc, mul_rn(v[u], w[u]));
+      } else {
+        acc += v[u] * w[u];
+      }
+    }
     j += 32 * B;
   }
-  if constexpr (B > 1) tl_tail<T, XS, HINT, B / 2>(acc, a, x, xs, j, n, pol);
+  if constexpr (B > 1) tl_tail<T, XS, HINT, EX, B / 2>(acc, a, x, xs, j, n, pol);
 }
 
 // One warp's row product sum_j a[j] (xs[j] x[j]) (XS) or sum_j a[j] x[j],
@@ -433,8 +456,10 @@ __device__ __forceinline__ void tl_tail(T& acc, const T* a, const T* x, const T*
 // tree (every lane gets the sum); v holds the row's first batch.  The
 // loads of a batch of U entries are all issued before its adds, which keep
 // the order.  x and xs may have been written earlier in this launch, so
-// they are read with plain loads.
-template <typename T, bool XS, bool HINT, int U>
+// they are read with plain loads.  EX: each product and sum rounded apart
+// (never a fused multiply-add), the three-level forms' arithmetic, which
+// their ordered twins reproduce bit for bit.
+template <typename T, bool XS, bool HINT, bool EX = false, int U>
 __device__ __forceinline__ T tl_row(const T* a, const T* x, const T* xs, int n, int lane,
                                     unsigned long long pol, T (&v)[U]) {
   T acc = T(0);
@@ -447,39 +472,87 @@ __device__ __forceinline__ T tl_row(const T* a, const T* x, const T* xs, int n, 
       w[u] = XS ? xs[j + 32 * u] * x[j + 32 * u] : x[j + 32 * u];
     }
 #pragma unroll
-    for (int u = 0; u < U; ++u) acc += v[u] * w[u];
+    for (int u = 0; u < U; ++u) {
+      if constexpr (EX) {
+        acc = add_rn(acc, mul_rn(v[u], w[u]));
+      } else {
+        acc += v[u] * w[u];
+      }
+    }
   }
-  tl_tail<T, XS, HINT, U / 2>(acc, a, x, xs, j, n, pol);
+  tl_tail<T, XS, HINT, EX, U / 2>(acc, a, x, xs, j, n, pol);
   return warp_sum(acc);
 }
 
 // One phase of the solve: for each row q = s n + row of this warp,
 // epi(q, sum_j A[q, j] (xs x)[s, j]), v holding the first batch of the
 // warp's first row; each next row's first batch is issued before the
-// current row's epilogue.
-template <typename T, bool XS, bool HINT, int U, class Epi>
+// current row's epilogue.  EX (the three-level forms): the row product
+// rounded apart (tl_row), and every lane calls epi(q, sum, lane).
+template <typename T, bool XS, bool HINT, bool EX = false, int U, class Epi>
 __device__ __forceinline__ void tl_phase(const T* A, const T* x, const T* xs, int rows,
                                          int n, unsigned long long pol, T (&v)[U], Epi epi) {
   const int lane = threadIdx.x & 31;
   const int warps = gridDim.x * TL_WARPS;
   for (int q = blockIdx.x * TL_WARPS + (threadIdx.x >> 5); q < rows; q += warps) {
     const size_t off = (size_t)(q / n) * n;
-    const T acc = tl_row<T, XS, HINT>(A + (size_t)q * n, x + off, XS ? xs + off : nullptr, n,
-                                      lane, pol, v);
+    const T acc = tl_row<T, XS, HINT, EX>(A + (size_t)q * n, x + off, XS ? xs + off : nullptr,
+                                          n, lane, pol, v);
     if (q + warps < rows) tl_fetch<HINT>(A + (size_t)(q + warps) * n, n, lane, pol, v);
-    if (lane == 0) epi(q, acc);
+    if constexpr (EX) {
+      epi(q, acc, lane);
+    } else {
+      if (lane == 0) epi(q, acc);
+    }
   }
 }
 
-// y = M x for a k x k matrix in global memory and x, y in shared memory;
-// one warp per row.  Ends with a block synchronisation.
+// The three-level forms' x2 = s rc2 of all m systems into shared memory
+// (m n values), by the whole block: rc2[q] the sum of row q's k2 level-1
+// chunk sums in ascending order from the first (+0 for a chunk past n1),
+// each sum and the product rounded apart.  Ends with a block
+// synchronisation.
 template <typename T>
+__device__ __forceinline__ void tl_stage_x2(const TlSolve<T>& p, const T* rc, T* x2) {
+  const int rows = p.m * p.n;
+  for (int q = threadIdx.x; q < rows; q += blockDim.x) {
+    const int s = q / p.n, a0 = (q % p.n) * p.k2;
+    const T* r = rc + (size_t)s * p.n1 + a0;
+    const int cnt = min(p.k2, p.n1 - a0);
+    T acc = r[0];
+    for (int j = 1; j < p.k2; ++j) acc = add_rn(acc, j < cnt ? r[j] : T(0));
+    x2[q] = mul_rn(p.s[q], acc);
+  }
+  __syncthreads();
+}
+
+// zc of the level-1 chunks of dense row q (system q / n) from its value
+// z2: zc[a] = rc[a] d1inv[a] + z2 (rounded apart), a lane a chunk.
+template <typename T>
+__device__ __forceinline__ void tl_levels(const TlSolve<T>& p, const T* rc, int q, T z2,
+                                          int lane) {
+  const int s = q / p.n, a0 = (q % p.n) * p.k2, a1 = min(p.n1, a0 + p.k2);
+  const size_t off = (size_t)s * p.n1;
+  for (int a = a0 + lane; a < a1; a += 32)
+    p.zc[off + a] = add_rn(mul_rn(rc[off + a], p.d1inv[off + a]), z2);
+}
+
+// y = M x for a k x k matrix in global memory and x, y in shared memory;
+// one warp per row (EX: products and sums rounded apart).  Ends with a
+// block synchronisation.
+template <typename T, bool EX = false>
 __device__ void small_matvec(const T* __restrict__ M, const T* x, T* y, int k) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int row = warp; row < k; row += TL_WARPS) {
     const T* a = M + (size_t)row * k;
     T acc = T(0);
-    for (int j = lane; j < k; j += 32) acc += a[j] * x[j];
+    for (int j = lane; j < k; j += 32) {
+      if constexpr (EX) {
+        acc = add_rn(acc, mul_rn(a[j], x[j]));
+      } else {
+        acc += a[j] * x[j];
+      }
+    }
     acc = warp_sum(acc);
     if (lane == 0) y[row] = acc;
   }
@@ -488,8 +561,9 @@ __device__ void small_matvec(const T* __restrict__ M, const T* x, T* y, int k) {
 
 // The small solve of deflation group g (0 the compartments, with one
 // refinement sweep with Asc; 1 the moment fields; 2 the Ritz fields) for
-// system s, by the whole block, its vectors in shared memory.
-template <typename T>
+// system s, by the whole block, its vectors in shared memory (EX:
+// small_matvec's products and sums rounded apart).
+template <typename T, bool EX = false>
 __device__ void tl_small(const TlSolve<T>& p, const T* __restrict__ proj, int g, int s,
                          T* x) {
   const int nf = p.n_comp + p.nw + p.nr;
@@ -503,12 +577,12 @@ __device__ void tl_small(const TlSolve<T>& p, const T* __restrict__ proj, int g,
   const T* pr = proj + (size_t)s * nf + off;
   for (int j = threadIdx.x; j < k; j += blockDim.x) x[j] = sg[j] * pr[j];
   __syncthreads();
-  small_matvec(Mi, x, y, k);
+  small_matvec<T, EX>(Mi, x, y, k);
   if (g == 0) {                       // zc = zc + invc (rsc - Asc zc)
-    small_matvec(p.Asc, y, t, k);
+    small_matvec<T, EX>(p.Asc, y, t, k);
     for (int j = threadIdx.x; j < k; j += blockDim.x) t[j] = x[j] - t[j];
     __syncthreads();
-    small_matvec(Mi, t, x, k);        // x is free: rsc is no longer needed
+    small_matvec<T, EX>(Mi, t, x, k);  // x is free: rsc is no longer needed
     for (int j = threadIdx.x; j < k; j += blockDim.x) y[j] = y[j] + x[j];
     __syncthreads();
   }
@@ -526,7 +600,18 @@ __device__ void tl_small(const TlSolve<T>& p, const T* __restrict__ proj, int g,
 // small solves need only proj: the last blocks of the grid (which have no
 // rows when the grid is larger than the rows need) run them during phase 1,
 // their vectors in dynamic shared memory.
-template <typename T>
+//
+// THREE (three-level data, d1inv): the dense system has n = n2 rows on
+// super-chunks of k2 level-1 chunks.  Each block first stages x2 = s rc2
+// of all systems in shared memory (tl_stage_x2: rc2 the k2-sums of rc),
+// the rows' first matrix loads already issued; the phases read x2 in
+// place of s rc:  1. z1 = inv x2   2. t = x2 - As z1   3. z2 = s (z1 + inv t)
+// (without As z2 = s (inv x2)), and the last phase's epilogue writes the
+// row's k2 level-1 values zc[a] = rc[a] d1inv[a] + z2, a lane a chunk
+// (tl_levels).  Every product and sum of these forms is rounded apart,
+// small solves included, so coarse.solve_ordered_plain equals them to the
+// last bit.
+template <typename T, bool THREE>
 __global__ void __launch_bounds__(KNP_THREADS)
 tl_solve_kernel(const TlSolve<T> p, const T* __restrict__ rc, const T* __restrict__ proj) {
   extern __shared__ __align__(16) unsigned char tl_smem[];
@@ -534,10 +619,27 @@ tl_solve_kernel(const TlSolve<T> p, const T* __restrict__ rc, const T* __restric
   const int n = p.n, rows = p.m * p.n;
   const int q0 = blockIdx.x * TL_WARPS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   const bool refine = p.As != nullptr;
+  T* x2 = reinterpret_cast<T*>(tl_smem);         // THREE: m n values
+  T* sv = THREE ? x2 + rows : x2;                // the small solves' vectors
   T v[U];
   // with the refinement inv is kept in L2 for its second read
   const unsigned long long keep = tl_policy_keep();
-  if (refine) {
+  if constexpr (THREE) {
+    constexpr bool hint1 = sizeof(T) == 4;
+    if (refine) {
+      if (q0 < rows) tl_fetch<true>(p.inv + (size_t)q0 * n, n, lane, keep, v);
+      tl_stage_x2(p, rc, x2);
+      tl_phase<T, false, true, true>(p.inv, x2, nullptr, rows, n, keep, v,
+                                     [&](int q, T acc, int l) { if (l == 0) p.z1[q] = acc; });
+    } else {
+      if (q0 < rows) tl_fetch<hint1>(p.inv + (size_t)q0 * n, n, lane, keep, v);
+      tl_stage_x2(p, rc, x2);
+      tl_phase<T, false, hint1, true>(p.inv, x2, nullptr, rows, n, keep, v,
+                                      [&](int q, T acc, int l) {
+                                        tl_levels(p, rc, q, mul_rn(p.s[q], acc), l);
+                                      });
+    }
+  } else if (refine) {
     if (q0 < rows) tl_fetch<true>(p.inv + (size_t)q0 * n, n, lane, keep, v);
     tl_phase<T, true, true>(p.inv, rc, p.s, rows, n, keep, v,
                             [&](int q, T acc) { p.z1[q] = acc; });
@@ -550,7 +652,7 @@ tl_solve_kernel(const TlSolve<T> p, const T* __restrict__ rc, const T* __restric
   }
   if (p.n_comp + p.nw + p.nr > 0) {
     for (int task = gridDim.x - 1 - blockIdx.x; task < 3 * p.m; task += gridDim.x)
-      tl_small(p, proj, task % 3, task / 3, reinterpret_cast<T*>(tl_smem));
+      tl_small<T, THREE>(p, proj, task % 3, task / 3, sv);
   }
   if (!refine) return;
 
@@ -558,6 +660,20 @@ tl_solve_kernel(const TlSolve<T> p, const T* __restrict__ rc, const T* __restric
   const unsigned long long stream = tl_policy_stream();
   if (q0 < rows) tl_fetch<true>(p.As + (size_t)q0 * n, n, lane, stream, v);
   grid.sync();
+  if constexpr (THREE) {
+    tl_phase<T, false, true, true>(p.As, p.z1, nullptr, rows, n, stream, v,
+                                   [&](int q, T acc, int l) {
+                                     if (l == 0) p.t[q] = x2[q] - acc;
+                                   });
+    if (q0 < rows) tl_fetch<true>(p.inv + (size_t)q0 * n, n, lane, keep, v);
+    grid.sync();
+    tl_phase<T, false, true, true>(p.inv, p.t, nullptr, rows, n, keep, v,
+                                   [&](int q, T acc, int l) {
+                                     tl_levels(p, rc, q, mul_rn(p.s[q], add_rn(p.z1[q], acc)),
+                                               l);
+                                   });
+    return;
+  }
   // rounded as the plain version: the product s rc, then the difference
   tl_phase<T, false, true>(p.As, p.z1, nullptr, rows, n, stream, v,
                            [&](int q, T acc) { p.t[q] = mul_rn(p.s[q], rc[q]) - acc; });
@@ -742,7 +858,15 @@ __device__ __forceinline__ void tl_chunk_sums(const T* __restrict__ r, T* __rest
 // expressions, the same orders; the xor shuffle tree leaves every lane the
 // same row sum), so the outputs equal theirs bit for bit; rc and zc go
 // through the workspace's buffers.
-template <typename T, int ND, bool BJ>
+//
+// THREE (three-level data, d1inv; dynamic shared memory m n values): after
+// the barrier each block stages x2 = s rc2 (tl_stage_x2), and the warp of
+// dense row q (n = n2 rows a system) computes z2 = s (inv x2)[q], writes
+// its k2 level-1 values zc[a] = rc[a] d1inv[a] + z2 (tl_levels) and
+// prolongs them over the row's k2 agg cells, each lane recomputing its
+// cell's chunk value the same way; every product and sum rounded apart,
+// as the three-level solve kernel computes them.
+template <typename T, int ND, bool BJ, bool THREE>
 __global__ void __launch_bounds__(KNP_THREADS)
 tl_coarse_kernel(const TlSolve<T> p, const T* __restrict__ r, T* __restrict__ out,
                  const T* __restrict__ mask, T* __restrict__ rc, const T* __restrict__ Pinv,
@@ -754,12 +878,46 @@ tl_coarse_kernel(const TlSolve<T> p, const T* __restrict__ r, T* __restrict__ ou
   const int q0 = blockIdx.x * TL_WARPS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   const int warps = gridDim.x * TL_WARPS;
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  tl_chunk_sums<T, ND>(r, rc, rs_tile, p.m, nc, agg, n, cpt);
+  tl_chunk_sums<T, ND>(r, rc, rs_tile, p.m, nc, agg, THREE ? p.n1 : n, cpt);
   T v[U];
   const unsigned long long keep = tl_policy_keep();
   if (q0 < rows) tl_fetch<hint>(p.inv + (size_t)q0 * n, n, lane, keep, v);
   grid.sync();
   const size_t ncz = (size_t)nc;
+  if constexpr (THREE) {
+    extern __shared__ __align__(16) unsigned char tl_smem[];
+    T* x2 = reinterpret_cast<T*>(tl_smem);
+    tl_stage_x2(p, rc, x2);
+    for (int q = q0; q < rows; q += warps) {
+      const int s = q / n;
+      const T acc = tl_row<T, false, hint, true>(p.inv + (size_t)q * n, x2 + (size_t)s * n,
+                                                 nullptr, n, lane, keep, v);
+      if (q + warps < rows) tl_fetch<hint>(p.inv + (size_t)(q + warps) * n, n, lane, keep, v);
+      const T z2 = mul_rn(p.s[q], acc);
+      tl_levels(p, rc, q, z2, lane);
+      const int a0 = (q % n) * p.k2;
+      const int c0 = a0 * agg, c1 = min(nc, min(p.n1, a0 + p.k2) * agg);
+      const T* rcs = rc + (size_t)s * p.n1;
+      const T* d1s = p.d1inv + (size_t)s * p.n1;
+      T* o = out + (size_t)s * ND * ncz;
+      for (int c = c0 + lane; c < c1; c += 32) {
+        const int a = c / agg;
+        const T z = add_rn(mul_rn(rcs[a], d1s[a]), z2);
+        T zv[ND];
+        if constexpr (BJ) {
+          bj_block_apply<T, ND>(Pinv + (size_t)s * ND * ND * ncz, r + (size_t)s * ND * ncz, zv,
+                                c, ncz);
+        } else {
+#pragma unroll
+          for (int i = 0; i < ND; ++i) zv[i] = o[i * ncz + c];
+        }
+#pragma unroll
+        for (int i = 0; i < ND; ++i)
+          o[i * ncz + c] = mask ? (zv[i] + z) * mask[i * ncz + c] : zv[i] + z;
+      }
+    }
+    return;
+  }
   for (int q = q0; q < rows; q += warps) {
     const int s = q / n, a = q % n;
     const size_t off = (size_t)s * n;
@@ -867,27 +1025,32 @@ static int tl_fields_prepare(int smem) {
 
 // The grid (the blocks the rows need plus one for each small solve, at most
 // the co-resident limit that a cooperative launch requires) and the shared
-// memory of the small solves, for p's sizes on the current device.
+// memory of the small solves (and of x2, three-level), for p's sizes on the
+// current device.
 template <typename T>
 static int tl_solve_prepare(TlSolve<T>* p) {
   const int kmax = std::max(p->n_comp, std::max(p->nw, p->nr));
-  const size_t smem = 3 * (size_t)kmax * sizeof(T);
-  if (smem > TL_MAX_SMEM || p->m < 1 || p->n < 1) return (int)cudaErrorInvalidValue;
+  const bool three = p->d1inv != nullptr;
+  const size_t smem = 3 * (size_t)kmax * sizeof(T) + (three ? (size_t)p->m * p->n * sizeof(T) : 0);
+  if (smem > TL_MAX_SMEM || p->m < 1 || p->n < 1 || p->n1 < 1 || p->k2 < 1 ||
+      (three ? (long long)p->n * p->k2 < p->n1 || (long long)(p->n - 1) * p->k2 >= p->n1
+             : p->n1 != p->n || p->k2 != 1))
+    return (int)cudaErrorInvalidValue;
   p->smem = (int)smem;
+  const void* fn = three ? (const void*)tl_solve_kernel<T, true>
+                         : (const void*)tl_solve_kernel<T, false>;
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
   // the attribute is the kernel's, shared by every workspace: raised to the
   // most a block can have, never lowered below another workspace's need
   cudaError_t e = smem > 48 * 1024
-                      ? cudaFuncSetAttribute(tl_solve_kernel<T>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                      ? cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              TL_MAX_SMEM)
                       : cudaSuccess;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tl_solve_kernel<T>,
-                                                      KNP_THREADS, p->smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, KNP_THREADS, p->smem);
   if (e != cudaSuccess) return (int)e;
   if (!coop || per_sm < 1) return (int)cudaErrorNotSupported;
   const long long rows = (long long)p->m * p->n;
@@ -898,21 +1061,28 @@ static int tl_solve_prepare(TlSolve<T>* p) {
 
 // With the refinement a cooperative launch (its grid barriers need every
 // block resident); without it (one phase, no barrier) a plain launch.
-template <typename T>
-static int tl_solve_launch(const TlSolve<T>* p, const T* rc, const T* proj, void* stream) {
-  TlSolve<T> prm = *p;
+template <typename T, bool THREE>
+static int tl_solve_run(const TlSolve<T>& prm, const T* rc, const T* proj, void* stream) {
   if (prm.As == nullptr) {
-    tl_solve_kernel<T><<<prm.grid, KNP_THREADS, prm.smem, (cudaStream_t)stream>>>(prm, rc, proj);
+    tl_solve_kernel<T, THREE><<<prm.grid, KNP_THREADS, prm.smem, (cudaStream_t)stream>>>(
+        prm, rc, proj);
     return (int)cudaGetLastError();
   }
   void* args[] = {(void*)&prm, (void*)&rc, (void*)&proj};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)tl_solve_kernel<T>, dim3(prm.grid), dim3(KNP_THREADS), args,
+      (const void*)tl_solve_kernel<T, THREE>, dim3(prm.grid), dim3(KNP_THREADS), args,
       (size_t)prm.smem, (cudaStream_t)stream);
   // a refused launch also sets the runtime's last error: read it here, or
   // the next launch of any kernel would report it
   const cudaError_t last = cudaGetLastError();
   return e != cudaSuccess ? (int)e : (int)last;
+}
+
+template <typename T>
+static int tl_solve_launch(const TlSolve<T>* p, const T* rc, const T* proj, void* stream) {
+  TlSolve<T> prm = *p;
+  return prm.d1inv ? tl_solve_run<T, true>(prm, rc, proj, stream)
+                   : tl_solve_run<T, false>(prm, rc, proj, stream);
 }
 
 // With Pinv and r (nd = 4 only) the folded apply: out = Pinv r + the
@@ -946,29 +1116,59 @@ static int tl_prolong_launch(T* out, const T* zc, const T* coef, const T* OH, co
   return (int)cudaGetLastError();
 }
 
+// The one-launch apply's kernel: nd = 4 or 8, the folded form (Pinv, nd =
+// 4 only), two- or three-level.
+template <typename T>
+static const void* tl_coarse_fn(int nd, bool bj, bool three) {
+  if (three)
+    return bj ? (const void*)tl_coarse_kernel<T, 4, true, true>
+           : nd == 4 ? (const void*)tl_coarse_kernel<T, 4, false, true>
+                     : (const void*)tl_coarse_kernel<T, 8, false, true>;
+  return bj ? (const void*)tl_coarse_kernel<T, 4, true, false>
+         : nd == 4 ? (const void*)tl_coarse_kernel<T, 4, false, false>
+                   : (const void*)tl_coarse_kernel<T, 8, false, false>;
+}
+
+// Dynamic shared memory of the one-launch apply: x2 of the m systems
+// (three-level), none two-level.
+template <typename T>
+static size_t tl_coarse_smem(const TlSolve<T>* p) {
+  return p->d1inv ? (size_t)p->m * p->n * sizeof(T) : 0;
+}
+
 // The one-launch apply's grids for nd = 4 (grids[0]), nd = 8 (grids[1])
 // and the folded apply at nd = 4 (grids[2]): the blocks its phases can use
 // (the chunk-sum tiles, a warp a coarse row), at most the co-resident limit
-// that a cooperative launch requires.  Once per workspace; a refused query
-// clears the runtime's last error.
+// that a cooperative launch requires; three-level, each kernel's dynamic
+// shared memory limit raised to x2's size first (never lowered).  Once per
+// workspace; a refused query clears the runtime's last error.
 template <typename T>
 static int tl_coarse_prepare(const TlSolve<T>* p, int agg, int cpt, int* grids) {
+  const size_t smem = tl_coarse_smem(p);
   if (p->As != nullptr || p->n_comp + p->nw + p->nr > 0 || p->m < 1 || p->n < 1 || cpt < 1 ||
-      agg < 1 || (long long)cpt * agg > TL_MAX_TILE)
+      agg < 1 || (long long)cpt * agg > TL_MAX_TILE ||
+      smem + TL_MAX_TILE * sizeof(T) > TL_MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  const void* fns[] = {(const void*)tl_coarse_kernel<T, 4, false>,
-                       (const void*)tl_coarse_kernel<T, 8, false>,
-                       (const void*)tl_coarse_kernel<T, 4, true>};
-  const long long tiles = (long long)p->m * ((p->n + cpt - 1) / cpt);
+  const bool three = p->d1inv != nullptr;
+  const void* fns[] = {tl_coarse_fn<T>(4, false, three), tl_coarse_fn<T>(8, false, three),
+                       tl_coarse_fn<T>(4, true, three)};
+  const long long tiles = (long long)p->m * ((p->n1 + cpt - 1) / cpt);
   const long long rows = ((long long)p->m * p->n + TL_WARPS - 1) / TL_WARPS;
   const long long need = std::max(tiles, rows);
   for (int k = 0; k < 3 && e == cudaSuccess; ++k) {
+    if (smem > 48 * 1024) {
+      cudaFuncAttributes attr;
+      e = cudaFuncGetAttributes(&attr, fns[k]);
+      if (e == cudaSuccess && attr.maxDynamicSharedSizeBytes < (int)smem)
+        e = cudaFuncSetAttribute(fns[k], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) break;
+    }
     int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fns[k], KNP_THREADS, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fns[k], KNP_THREADS, smem);
     if (e == cudaSuccess && (!coop || per_sm < 1)) e = cudaErrorNotSupported;
     if (e == cudaSuccess) grids[k] = (int)std::min((long long)per_sm * sms, need);
   }
@@ -983,16 +1183,14 @@ static int tl_coarse_launch(const TlSolve<T>* p, const T* r, T* out, const T* ma
                             void* stream) {
   if ((nd != 4 && nd != 8) || (Pinv && nd != 4) || grid < 1 || cpt < 1 ||
       (long long)cpt * agg > TL_MAX_TILE || p->As != nullptr || p->n_comp + p->nw + p->nr > 0 ||
-      nc > p->n * agg || nc <= (p->n - 1) * agg)
+      nc > p->n1 * agg || nc <= (p->n1 - 1) * agg)
     return (int)cudaErrorInvalidValue;
   TlSolve<T> prm = *p;
   void* args[] = {(void*)&prm, (void*)&r, (void*)&out, (void*)&mask, (void*)&rc,
                   (void*)&Pinv, (void*)&nc, (void*)&agg, (void*)&cpt};
-  const void* fn = Pinv      ? (const void*)tl_coarse_kernel<T, 4, true>
-                   : nd == 4 ? (const void*)tl_coarse_kernel<T, 4, false>
-                             : (const void*)tl_coarse_kernel<T, 8, false>;
-  const cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(KNP_THREADS), args, 0,
-                                                    (cudaStream_t)stream);
+  const void* fn = tl_coarse_fn<T>(nd, Pinv != nullptr, prm.d1inv != nullptr);
+  const cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(KNP_THREADS), args,
+                                                    tl_coarse_smem(p), (cudaStream_t)stream);
   // a refused launch also sets the runtime's last error: read it here, or
   // the next launch of any kernel would report it
   const cudaError_t last = cudaGetLastError();

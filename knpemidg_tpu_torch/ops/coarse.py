@@ -7,7 +7,10 @@ in three steps over m systems (``csrc/two_level.cu``):
                 moment fields and the Ritz fields (nf of them in all);
   solve         the equilibrated dense coarse solve (one refinement sweep
                 when the data has ``As``) and the small deflation solves:
-                zc (m, n_agg), coef (m, nf);
+                zc (m, n_agg), coef (m, nf); three-level data (``d1inv``,
+                build_two_level above max_dense) solves densely on the n2
+                super-chunk sums of k2 chunks each and adds the level-1
+                Jacobi sweep, zc = rc d1inv + z2[a / k2];
   prolong_add   out += broadcast zc + coef^T [OH; W; Wr], in place, then
                 out *= the live mask (nd, nc) where one is given (the pair
                 layout's masked apply).
@@ -29,7 +32,11 @@ the two.  The kernels take nd = 4 (cell layout) and 2nd = 8 (pair layout),
 and restrict and prolong_add nd = 3 (2D cells, the MMS verification path),
 where every apply takes the three launches (the one-launch apply is built
 for nd = 4 and 8).  K6 and K7 count their launches apart (``_batched`` for
-K7), and restrict and prolong_add their nd = 3 launches apart (``_nd3``).
+K7), restrict and prolong_add their nd = 3 launches apart (``_nd3``), and
+the solve and the one-launch apply their three-level forms (``_three``).
+The three-level forms compute every product and sum rounded apart, so
+their twins in the kernels' order (:func:`solve_ordered_plain`,
+:func:`coarse_apply_ordered_plain`) equal them to the last bit.
 
 The two-level data is frozen for a whole Krylov solve, so :func:`operands`
 checks it once and builds the solve's workspace (:class:`CoarseWork`): the
@@ -75,11 +82,12 @@ RESTRICT_SLICES = 3   # at most this many restrict blocks share a tile's fields
 class Coarse(NamedTuple):
     """Kernel operands of frozen two-level data, with a leading system axis
     on the coarse matrices; the deflation groups (None when absent) are
-    shared by the systems."""
+    shared by the systems.  Three-level data (``d1inv``) has its dense
+    matrices on n2 super-chunks of k2 chunks each, n_agg <= n2 k2."""
     agg: int
-    inv: torch.Tensor                  # (m, n_agg, n_agg)
-    s: torch.Tensor                    # (m, n_agg)
-    As: Optional[torch.Tensor]         # (m, n_agg, n_agg) or None
+    inv: torch.Tensor                  # (m, n2, n2); n2 = n_agg when two-level
+    s: torch.Tensor                    # (m, n2)
+    As: Optional[torch.Tensor]         # (m, n2, n2) or None
     OH: Optional[torch.Tensor]         # (n_comp, nc)
     comp: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]   # inv, s, As
     W: Optional[torch.Tensor]          # (nw, nd, nc)
@@ -87,12 +95,23 @@ class Coarse(NamedTuple):
     Wr: Optional[torch.Tensor]         # (nr, nd, nc)
     ritz: Optional[Tuple[torch.Tensor, torch.Tensor]]                 # inv, s
     batched: bool                      # K7 (counted apart from K6)
+    d1inv: Optional[torch.Tensor] = None   # (m, n_agg): three-level, else None
     work: Optional["CoarseWork"] = None    # built by operands()
 
     @property
     def sizes(self):
         """(n_comp, nw, nr)."""
         return tuple(0 if t is None else t.shape[0] for t in (self.OH, self.W, self.Wr))
+
+    @property
+    def levels(self):
+        """(n_agg, n2, k2): the chunks, the dense system's rows and the
+        chunks a row sums (k2 = 1, n2 = n_agg when two-level)."""
+        n2 = self.inv.shape[-1]
+        if self.d1inv is None:
+            return n2, n2, 1
+        n_agg = self.d1inv.shape[-1]
+        return n_agg, n2, -(-n_agg // n2)
 
 
 def operands(data, agg: int, batched: bool) -> Coarse:
@@ -113,12 +132,18 @@ def operands(data, agg: int, batched: bool) -> Coarse:
                 As=sys_axis(data.get("As")), OH=c(data.get("comp_onehot")),
                 comp=group("comp_inv", "comp_s", "comp_As"), W=c(data.get("mom_W")),
                 mom=group("mom_inv", "mom_s"), Wr=c(data.get("ritz_W")),
-                ritz=group("ritz_inv", "ritz_s"), batched=batched)
+                ritz=group("ritz_inv", "ritz_s"), batched=batched,
+                d1inv=sys_axis(data.get("d1inv")))
     return co._replace(work=work(co))
 
 
 def _name(entry, co: Coarse):
-    return f"two_level_{entry}" + ("_batched" if co.batched else "")
+    """The launch counter of an entry: the three-level solve and one-launch
+    apply count apart ("_three"; restrict and prolong_add are the same
+    kernels at both depths)."""
+    three = co.d1inv is not None and entry in ("solve", "coarse")
+    return f"two_level_{entry}" + ("_three" if three else "") + (
+        "_batched" if co.batched else "")
 
 
 def _nd_name(name, nd):
@@ -133,7 +158,7 @@ def _nd_name(name, nd):
 def restrict_plain(co: Coarse, r):
     """(rc (m, n_agg), proj (m, nf)) of r (m, nd, nc)."""
     m, _, nc = r.shape
-    n_agg = co.s.shape[-1]
+    n_agg = co.levels[0]
     rs = r.sum(dim=1)                                            # (m, nc)
     rp = torch.nn.functional.pad(rs, (0, n_agg * co.agg - nc))
     rc = rp.reshape(m, n_agg, co.agg).sum(dim=-1)
@@ -153,14 +178,39 @@ def _mv(A, x):
     return torch.einsum("mij,mj->mi", A, x)
 
 
+def _super_sums(co: Coarse, rc, ordered=False):
+    """rc2 (m, n2): the sums of rc (m, n_agg) over each super-chunk's k2
+    chunks (zeros past n_agg); ``ordered``: in ascending order from the
+    first, as the kernels add them."""
+    n_agg, n2, k2 = co.levels
+    rcp = torch.nn.functional.pad(rc, (0, n2 * k2 - n_agg)).reshape(rc.shape[0], n2, k2)
+    if not ordered:
+        return rcp.sum(dim=-1)
+    acc = rcp[..., 0]
+    for j in range(1, k2):
+        acc = acc + rcp[..., j]
+    return acc
+
+
+def _prolong_levels(co: Coarse, rc, z2):
+    """zc (m, n_agg) of the three-level solve: the level-1 Jacobi sweep
+    rc d1inv plus each chunk's super-chunk value z2 (m, n2)."""
+    n_agg, _, k2 = co.levels
+    return rc * co.d1inv + z2.repeat_interleave(k2, dim=1)[:, :n_agg]
+
+
 def solve_plain(co: Coarse, rc, proj):
     """(zc (m, n_agg), coef (m, nf)): the coarse values to prolong and the
-    deflation coefficients."""
-    rs = co.s * rc
+    deflation coefficients (three-level data: the dense solve on the
+    super-chunk sums, then :func:`_prolong_levels`)."""
+    three = co.d1inv is not None
+    rs = co.s * (_super_sums(co, rc) if three else rc)
     z = _mv(co.inv, rs)
     if co.As is not None:
         z = z + _mv(co.inv, rs - _mv(co.As, z))
     zc = co.s * z
+    if three:
+        zc = _prolong_levels(co, rc, zc)
     n_comp, nw, nr = co.sizes
     coefs = []
     if co.comp is not None:
@@ -200,6 +250,85 @@ def coarse_apply_plain(co: Coarse, out, r, mask=None):
     """The plain versions in turn: restrict, solve, prolong_add (masked
     where ``mask`` is given), into ``out`` in place; returns out."""
     return prolong_add_plain(co, out, *solve_plain(co, *restrict_plain(co, r)), mask)
+
+
+# ---------------------------------------------------------------------------
+# the three-level forms' twins in the kernels' order of operations
+# ---------------------------------------------------------------------------
+
+def _warp_mv(A, x):
+    """A (m, n, k) x (m, k) -> (m, n), each row summed as a kernel's warp
+    sums it (csrc/two_level.cu tl_row, small_matvec): lane l adds the
+    products A[i, j] x[j], j = l mod 32, in increasing j from zero, then
+    the xor-shuffle tree (16, 8, 4, 2, 1); every product rounded apart."""
+    m, n, k = A.shape
+    kp = -(-k // 32) * 32
+    prod = torch.nn.functional.pad(A * x[:, None, :], (0, kp - k)).reshape(m, n, kp // 32, 32)
+    acc = torch.zeros((m, n, 32), dtype=A.dtype, device=A.device)
+    for u in range(kp // 32):
+        acc = acc + prod[:, :, u]
+    lane = torch.arange(32, device=A.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lane ^ o]
+    return acc[..., 0]
+
+
+def solve_ordered_plain(co: Coarse, rc, proj):
+    """:func:`solve_plain` of three-level operands in the three-level solve
+    kernel's order of operations, so that it equals the kernel to the last
+    bit: the k2-sums ascending, x2 = s rc2, each dense and small product a
+    warp's (:func:`_warp_mv`), z1 = inv x2, t = x2 - As z1, z2 = s (z1 +
+    inv t) (without As z2 = s (inv x2)), zc = rc d1inv + z2; the small
+    solves as the kernel's blocks run them.  For the tests and
+    chip_smoke.py; the wrappers' CPU path keeps :func:`solve_plain`."""
+    if co.d1inv is None:
+        raise ValueError("solve_ordered_plain: the twin of the three-level solve only")
+    x2 = co.s * _super_sums(co, rc, ordered=True)
+    z1 = _warp_mv(co.inv, x2)
+    if co.As is not None:
+        z2 = co.s * (z1 + _warp_mv(co.inv, x2 - _warp_mv(co.As, z1)))
+    else:
+        z2 = co.s * z1
+    zc = _prolong_levels(co, rc, z2)
+    n_comp, nw, nr = co.sizes
+    m = rc.shape[0]
+    coefs = []
+    if co.comp is not None:
+        invc, sc, Asc = (t[None].expand(m, *t.shape) for t in co.comp)
+        x = sc * proj[:, :n_comp]
+        y = _warp_mv(invc, x)
+        y = y + _warp_mv(invc, x - _warp_mv(Asc, y))
+        coefs.append(sc * y)
+    for grp, a, b in ((co.mom, n_comp, n_comp + nw), (co.ritz, n_comp + nw, n_comp + nw + nr)):
+        if grp is not None:
+            inv_g, s_g = grp
+            coefs.append(s_g * _warp_mv(inv_g[None].expand(m, *inv_g.shape), s_g * proj[:, a:b]))
+    coef = torch.cat(coefs, dim=1) if coefs else proj.new_zeros((m, 0))
+    return zc, coef
+
+
+def coarse_apply_ordered_plain(co: Coarse, out, r, mask=None):
+    """The three-level one-launch apply (operands without fields or As) in
+    the kernel's order: the chunk sums (each cell's sum over nd in order,
+    then each chunk's in cell order, the last chunk's pad cells adding +0),
+    :func:`solve_ordered_plain`, then out = (out + zc[c / agg]) (* mask),
+    in place; returns out.  The folded apply's out is kernel B's apply."""
+    if co.d1inv is None or co.As is not None or any(co.sizes):
+        raise ValueError("coarse_apply_ordered_plain: the twin of the three-level one-launch "
+                         "apply (no fields, no As) only")
+    m, nd, nc = r.shape
+    rs = r[:, 0]
+    for i in range(1, nd):
+        rs = rs + r[:, i]
+    n_agg = co.levels[0]
+    rp = torch.nn.functional.pad(rs, (0, n_agg * co.agg - nc)).reshape(m, n_agg, co.agg)
+    rc = rp[..., 0]
+    for j in range(1, co.agg):
+        rc = rc + rp[..., j]
+    zc, _ = solve_ordered_plain(co, rc, r.new_zeros((m, 0)))
+    z = zc.repeat_interleave(co.agg, dim=1)[:, None, :nc]
+    out.add_(z)
+    return out if mask is None else out.mul_(mask)
 
 
 # ---------------------------------------------------------------------------
@@ -251,13 +380,14 @@ def _span_table(fields):
 # ---------------------------------------------------------------------------
 
 _SOLVE_PTRS = ("inv", "s", "As", "z1", "t", "zc", "coef", "invc", "sc", "Asc", "inv_m",
-               "s_m", "inv_r", "s_r")
+               "s_m", "inv_r", "s_r", "d1inv")
 
 
 class _SolveParams(ctypes.Structure):
     """``TlSolve<T>`` of ``csrc/two_level.cu``, field for field."""
     _fields_ = [(k, ctypes.c_void_p) for k in _SOLVE_PTRS] + [
-        (k, ctypes.c_int) for k in ("m", "n", "n_comp", "nw", "nr", "grid", "smem", "pad")]
+        (k, ctypes.c_int) for k in ("m", "n", "n_comp", "nw", "nr", "grid", "smem", "n1",
+                                    "k2", "pad")]
 
 
 class CoarseWork(NamedTuple):
@@ -268,6 +398,7 @@ class CoarseWork(NamedTuple):
     ops: Coarse                        # the operands, without work
     m: int                             # systems
     n: int                             # chunks (n_agg)
+    n2: int                            # the dense system's rows (n_agg when two-level)
     nd: Optional[int]                  # the fields' dofs and cells (None without fields)
     nc: Optional[int]
     rc: torch.Tensor                   # (m, n)   restrict
@@ -275,7 +406,7 @@ class CoarseWork(NamedTuple):
     partial: torch.Tensor              # (m, nf, blocks) restrict's block sums
     zc: torch.Tensor                   # (m, n)   solve
     coef: torch.Tensor                 # (m, nf)  solve
-    z1: Optional[torch.Tensor]         # (m, n)   solve's refinement (with As)
+    z1: Optional[torch.Tensor]         # (m, n2)  solve's refinement (with As)
     t: Optional[torch.Tensor]
     spans: Optional[torch.Tensor]      # (nf, 2) int32 [lo, hi) of OH, W, Wr rows
     names: Tuple[str, str, str]        # launch counters of restrict, solve, prolong
@@ -301,14 +432,16 @@ def work(co: Coarse) -> CoarseWork:
     fields -- and allocate the buffers that restrict and solve write; take
     the fields' span table (computed once per field tensor).  On the card
     also the solve kernel's launch parameters, its grid sized once to the
-    co-resident limit, and the kernels' limits."""
+    co-resident limit, and the kernels' limits.  Three-level operands
+    (``d1inv``) have n = n_agg chunks and a dense system of n2 rows."""
     inv = co.inv
     dt, dev = inv.dtype, inv.device
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"two_level operands: expected float32/float64, got {dt}")
     if inv.dim() != 3 or inv.shape[1] != inv.shape[2]:
-        raise ValueError("two_level operands: inv must be (m, n_agg, n_agg)")
-    m, n = inv.shape[0], inv.shape[1]
+        raise ValueError("two_level operands: inv must be (m, n2, n2)")
+    m, n2 = inv.shape[0], inv.shape[1]
+    n = n2 if co.d1inv is None else co.d1inv.shape[-1]
 
     def need(name, t, shape):
         if t.device != dev:
@@ -321,10 +454,17 @@ def work(co: Coarse) -> CoarseWork:
             raise ValueError(f"two_level operands: {name} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
 
-    need("inv", inv, (m, n, n))
-    need("s", co.s, (m, n))
+    need("inv", inv, (m, n2, n2))
+    need("s", co.s, (m, n2))
     if co.As is not None:
-        need("As", co.As, (m, n, n))
+        need("As", co.As, (m, n2, n2))
+    k2 = 1
+    if co.d1inv is not None:
+        need("d1inv", co.d1inv, (m, n))
+        k2 = -(-n // n2)
+        if n2 * k2 - n >= k2:
+            raise ValueError(f"two_level operands: {n} chunks do not fill {n2} super-chunks "
+                             f"of {k2}")
     n_comp, nw, nr = co.sizes
     fields = [("comp_onehot", co.OH), ("mom_W", co.W), ("ritz_W", co.Wr)]
     nc = next((t.shape[-1] for _, t in fields if t is not None), None)
@@ -347,7 +487,9 @@ def work(co: Coarse) -> CoarseWork:
     cpt = max(1, 256 // co.agg)                  # chunks per restrict block
     tile, elt = cpt * co.agg, inv.element_size()
     nd_r = nd or max(COARSE_ND)                  # r's nd is known by then (one-hots only)
-    smem = {"solve": 3 * max(n_comp, nw, nr) * elt,
+    # the three-level solve stages the m systems' x2 = s rc2 in each block
+    stage = m * n2 * elt if co.d1inv is not None else 0
+    smem = {"solve": 3 * max(n_comp, nw, nr) * elt + stage, "coarse": stage,
             "restrict": tile * elt + ((nd_r * tile * elt + 4 * nf) if nf else 0),
             "prolong": 4 * (nw + nr)}
     for entry, need_b in smem.items():
@@ -370,9 +512,9 @@ def work(co: Coarse) -> CoarseWork:
     refine = co.As is not None
     ops = co._replace(work=None)
     wk = CoarseWork(
-        ops=ops, m=m, n=n, nd=nd, nc=nc, rc=buf(m, n), proj=buf(m, nf),
+        ops=ops, m=m, n=n, n2=n2, nd=nd, nc=nc, rc=buf(m, n), proj=buf(m, nf),
         partial=buf(m, nf, -(-n // cpt)), zc=buf(m, n), coef=buf(m, nf),
-        z1=buf(m, n) if refine else None, t=buf(m, n) if refine else None, spans=spans,
+        z1=buf(m, n2) if refine else None, t=buf(m, n2) if refine else None, spans=spans,
         names=tuple(_name(e, co) for e in ("restrict", "solve", "prolong")),
         fields=(_ptr(co.OH), _ptr(co.W), _ptr(co.Wr), _ptr(spans)),
         restrict_tail=(co.agg, n, cpt, n_comp, nw, nr, zs),
@@ -385,7 +527,7 @@ def work(co: Coarse) -> CoarseWork:
             _cuda.call("knp_tl_fields_prepare", dt, max(smem["restrict"], smem["prolong"]))
     groups = (co.comp or (None,) * 3) + (co.mom or (None,) * 2) + (co.ritz or (None,) * 2)
     params = _SolveParams(*(_ptr(t) for t in (inv, co.s, co.As, wk.z1, wk.t, wk.zc, wk.coef)
-                            + groups), m, n, n_comp, nw, nr, 0, 0, 0)
+                            + groups + (co.d1inv,)), m, n2, n_comp, nw, nr, 0, 0, n, k2, 0)
     fused = None
     with torch.cuda.device(dev):
         _cuda.call("knp_tl_solve_prepare", dt, ctypes.addressof(params))

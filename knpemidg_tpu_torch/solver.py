@@ -46,8 +46,8 @@ from .ops.spmv import (bell_matvec, bell_matvec_fan, bell_matvec_multi,
 from .solvers.direct import solve_direct
 from .solvers.krylov import bicgstab_batched, gmres, gmres_batched, pcg
 from .solvers.twolevel import (_np, build_moment_deflation, build_two_level,
-                               compartment_ids, make_two_level, moment_vectors,
-                               ritz_galerkin_host, ritz_lanczos_W,
+                               compartment_ids, make_two_level, moment_galerkin_host,
+                               moment_vectors, ritz_galerkin_host, ritz_lanczos_W,
                                ritz_lanczos_W_host, two_level_apply_batched,
                                two_level_apply_fn)
 from .membrane import engine
@@ -58,12 +58,11 @@ from .utils.stats import SolverStats, bcolors
 def _check_supported(sp: SolverParams):
     """Raise for every solver option the port does not carry yet."""
     unsupported = []
-    if sp.emi_moment_order > 2:
-        unsupported.append("emi_moment_order > 2")
-    for name in ("emi_moment_host", "emi_moment_blocked",
-                 "emi_moment_axial", "emi_moment_order_ics", "knp_ritz"):
-        if getattr(sp, name):
-            unsupported.append(name)
+    if sp.emi_moment_blocked:
+        unsupported.append("emi_moment_blocked (the compartment-blocked moment rows, "
+                           "ROADMAP.md queue 1, item 6)")
+    if sp.knp_ritz:
+        unsupported.append("knp_ritz")
     if sp.knp_solver not in ("gmres", "bicgstab"):
         unsupported.append(f"knp_solver={sp.knp_solver!r}")
     if sp.gmres_orth != "cgs2" or sp.gmres_rot != "replay":
@@ -1221,13 +1220,31 @@ class Solver:
                      for b in blocksK]
         return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
 
-    def _emi_moment_W(self, sp_: SolverParams):
+    def _emi_moment_W(self, sp_: SolverParams, host: bool = False):
         """Per-compartment moment deflation fields W (nw, nd, nc), built
-        from the nodal coordinates as the device holds them."""
+        from the nodal coordinates as the device holds them (``host``: as
+        numpy float64).  With ``emi_moment_order_ics`` above
+        ``emi_moment_order``, each ICS compartment (one whose cells carry a
+        nonzero subdomain tag) gets that order; ``emi_moment_axial`` adds
+        the axial rows of elongated compartments (moment_vectors)."""
         nodes = self.g["nodes"].cpu().numpy().astype(np.float64)  # (nd, d, nc)
         coords = np.moveaxis(nodes, -1, 0)                         # (nc, nd, d)
-        return moment_vectors(coords, self._comp_np, sp_.emi_moment_order,
-                              dtype=self.dtype, device=self.device)
+        comp = self._comp_np
+        order_per_comp = None
+        if sp_.emi_moment_order_ics > sp_.emi_moment_order:
+            # cell_tags are in the mesh's numbering, comp in the solver's
+            # (the pair layout's padded, renumbered axis)
+            tags = np.asarray(self.mesh.cell_tags)
+            idx = getattr(self, "_cell_unpad_idx", None)
+            comp_of_orig = comp[idx] if idx is not None else comp[: tags.shape[0]]
+            order_per_comp = np.full(int(comp.max()) + 1, sp_.emi_moment_order, np.int64)
+            for p in range(order_per_comp.shape[0]):
+                sel = comp_of_orig == p
+                if sel.any() and (tags[sel] != 0).any():
+                    order_per_comp[p] = sp_.emi_moment_order_ics
+        return moment_vectors(coords, comp, sp_.emi_moment_order, dtype=self.dtype,
+                              device=self.device, order_per_comp=order_per_comp, host=host,
+                              axial_order=sp_.emi_moment_axial)
 
     def _emi_moment_data(self, blocks, sp_: SolverParams):
         """Moment-deflation Galerkin data in the layout the solve applies
@@ -1240,6 +1257,20 @@ class Solver:
                 fan=lambda X: pair_matvec_fan(pd_, pe_, self.pairs, X))
         return build_moment_deflation(
             W, fan=lambda X: bell_matvec_fan(blocks, self.g["nbr"], X))
+
+    def _emi_moment_data_host(self, state, blocks, sp_: SolverParams):
+        """Moment-deflation Galerkin in host float64 (``emi_moment_host``):
+        W stays numpy and moment_galerkin_host runs on the cell blocks (on
+        the pair layout freshly assembled ones: the live pair entries carry
+        the same values), so the device holds one copy of the fields, the
+        returned mom_W (on pairs converted with to_pair)."""
+        pair = isinstance(blocks, tuple)
+        blocks_c = self._assemble_emi_cell(state)[0] if pair else blocks
+        W, inv, s = moment_galerkin_host(blocks_c, self.g["nbr"],
+                                         self._emi_moment_W(sp_, host=True))
+        W = self._tensor(W)
+        return {"mom_W": to_pair(self.pairs, W) if pair else W,
+                "mom_inv": self._tensor(inv), "mom_s": self._tensor(s)}
 
     def _pair_W_to_cell(self, W_pair):
         """pair -> cell conversion of harvested deflation fields, on the host
@@ -1349,7 +1380,9 @@ class Solver:
                     comp_onehot=comp_onehot, comp_ids=comp_ids,
                     extra_diag=Pd - blocks[0], ridge=sp_.coarse_ridge)
             if sp_.emi_moment_order > 0:
-                pc["emi"].update(self._emi_moment_data(blocks, sp_))
+                pc["emi"].update(self._emi_moment_data_host(state, blocks, sp_)
+                                 if sp_.emi_moment_host else
+                                 self._emi_moment_data(blocks, sp_))
             if reuse_ritz:
                 pc["emi"].update(reuse_ritz)
             elif n_ritz > 0:

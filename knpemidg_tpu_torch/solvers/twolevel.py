@@ -5,9 +5,11 @@ Additive SPD pieces: a block-Jacobi smoother (kernel B on the card), a
 coarse solve over contiguous fixed-size cell chunks (cells are numbered
 (compartment, Morton), so chunks never straddle membranes and
 restrict/prolong are reshape-sum/broadcast), exact deflation of the
-per-compartment constant modes, order-2 moment deflation and the Ritz
+per-compartment constant modes, polynomial moment deflation and the Ritz
 deflation of harvested small-eigenvalue modes.  The coarse data is built
-once per preconditioner build (an equilibrated dense Cholesky inverse);
+once per preconditioner build (an equilibrated dense Cholesky inverse; on
+large meshes three-level: a Jacobi sweep on the chunk diagonal and the
+dense inverse on super-chunks, build_two_level's ``max_dense``);
 the per-iteration coarse and deflation apply is kernels K6/K7 on the card
 (ops/coarse.py).  The Ritz harvest runs once per build: a device Lanczos
 (ritz_lanczos_W) or a host float64 one (ritz_lanczos_W_host), then a host
@@ -32,19 +34,32 @@ def compartment_ids(mesh) -> np.ndarray:
     return _compartments(mesh)
 
 
-def moment_vectors(coords, comp, order: int = 2, *, dtype, device):
+def moment_vectors(coords, comp, order: int = 2, *, dtype=None, device=None,
+                   order_per_comp=None, host: bool = False, axial_order: int = 0,
+                   axial_min_aspect: float = 4.0, return_comp: bool = False):
     """Per-compartment polynomial moment fields W (nw, nd, nc): for every
-    compartment the centred, per-axis scaled monomials {x,y,z} (order >= 1)
-    and {x^2,xy,...} (order >= 2), zero outside the compartment.  Constants
-    are excluded: the compartment deflation handles them exactly.
-    ``coords`` (nc, nd, d): nodal coordinates per cell; ``comp`` (nc,),
-    -1 on inert pad cells (which get no field)."""
-    if order > 2:
-        raise NotImplementedError("moment deflation orders above 2 are not ported")
+    compartment the centred, per-axis scaled monomials {x,y,z} (order >= 1),
+    {x^2,xy,...} (order >= 2), the cubic (>= 3) and quartic (>= 4) ones,
+    zero outside the compartment.  Constants are excluded: the compartment
+    deflation handles them exactly.  ``coords`` (nc, nd, d): nodal
+    coordinates per cell; ``comp`` (nc,), -1 on inert pad cells (which get
+    no field).
+
+    ``order_per_comp`` (n_comp,): a compartment's own order in place of
+    ``order``.  ``axial_order``: a compartment whose largest per-axis
+    extent is at least ``axial_min_aspect`` times each other one also gets
+    the Chebyshev polynomials T_j of its scaled coordinate along that axis,
+    j = its order + 1 .. axial_order (slow variation along an elongated
+    compartment at a cost of one row a degree).  ``host=True`` returns W
+    as contiguous numpy float64 and touches no device (the host moment
+    Galerkin); otherwise a tensor of ``dtype`` on ``device``.
+    ``return_comp``: also return the compartment of each row (nw,)."""
     comp = np.asarray(comp)
     nc, nd, d = coords.shape
     rows = []
+    row_comp = []
     for p in range(int(comp.max()) + 1):
+        order_p = int(order if order_per_comp is None else order_per_comp[p])
         m = comp == p
         sel = coords[m]
         ctr = sel.mean(axis=(0, 1))
@@ -52,15 +67,36 @@ def moment_vectors(coords, comp, order: int = 2, *, dtype, device):
         L = np.where(L > 0, L, 1.0)
         loc = (coords - ctr) / L                   # (nc, nd, d)
         base = []
-        if order >= 1:
+        if order_p >= 1:
             base += [loc[:, :, a] for a in range(d)]
-        if order >= 2:
+        if order_p >= 2:
             base += [loc[:, :, a] * loc[:, :, b]
                      for a in range(d) for b in range(a, d)]
+        if order_p >= 3:
+            base += [loc[:, :, a] * loc[:, :, b] * loc[:, :, c]
+                     for a in range(d) for b in range(a, d) for c in range(b, d)]
+        if order_p >= 4:
+            base += [loc[:, :, a] * loc[:, :, b] * loc[:, :, c] * loc[:, :, e]
+                     for a in range(d) for b in range(a, d)
+                     for c in range(b, d) for e in range(c, d)]
+        if axial_order > order_p:
+            ax = int(np.argmax(L))
+            others = np.delete(L, ax)
+            if others.size == 0 or L[ax] >= axial_min_aspect * others.max():
+                x = loc[:, :, ax]
+                tm1, t = np.ones_like(x), x          # T_0, T_1
+                for j in range(2, axial_order + 1):
+                    tm1, t = t, 2.0 * x * t - tm1
+                    if j > order_p:
+                        base.append(t)
         for f in base:
             rows.append(np.where(m[:, None], f, 0.0).T)    # (nd, nc)
+            row_comp.append(p)
     W = np.stack(rows) if rows else np.zeros((0, nd, nc))
-    return torch.as_tensor(W, dtype=dtype, device=device)
+    W = np.ascontiguousarray(W) if host else torch.as_tensor(W, dtype=dtype, device=device)
+    if return_comp:
+        return W, np.asarray(row_comp, dtype=np.int64)
+    return W
 
 
 def _equilibration_scale(d):
@@ -97,7 +133,7 @@ def build_moment_deflation(W, fan, ridge: float = 1e-6):
 
 def build_two_level(blocks, nbr, agg_size: int, sym: bool = True,
                     comp_onehot=None, comp_ids=None, extra_diag=None,
-                    mass_diag=None, v=None, max_dense: int = 4096,
+                    mass_diag=None, v=None, max_dense: int | None = 4096,
                     ridge: float = 1e-5):
     """Frozen coarse-level data of the two-level preconditioner: the dense
     equilibrated coarse inverse and the compartment-deflation inverse.
@@ -110,19 +146,45 @@ def build_two_level(blocks, nbr, agg_size: int, sym: bool = True,
 
     ``v``: precomputed per-slot block value sums (K, n), the only thing
     ``blocks`` is read for.  The pair layout passes ops.pairs.pair_v_sums
-    with ``blocks=None``; ``nbr`` and the chunks then index pairs."""
+    with ``blocks=None``; ``nbr`` and the chunks then index pairs.
+
+    ``max_dense``: the largest dense coarse size.  Above it (n_agg = nc /
+    agg_size chunks > max_dense) the build is three-level: the level-1
+    chunk system gets a Jacobi sweep on its cancellation-free diagonal
+    (``d1inv`` (n_agg,), no matrix formed; 0 on a dead chunk, whose
+    diagonal is under the floor max(1e-12 max d1, tiny)), and the dense
+    equilibrated inverse moves up to super-chunks of agg_size k2 cells,
+    k2 = ceil(n_agg / max_dense): level-1 chunk a lies in super-chunk
+    a // k2.  A ~1M-cell mesh at agg 64 then needs a 3,888^2 dense coarse
+    instead of a 15,552^2 one."""
     if v is None:
         nd_b = blocks.shape[1]
         v = sum(blocks[:, i, j] for i in range(nd_b) for j in range(nd_b))  # (K, nc)
     nc = v.shape[1]
     n_agg = -(-nc // agg_size)
-    if n_agg > max_dense:
-        raise NotImplementedError(
-            f"three-level coarse ({n_agg} chunks > {max_dense}) is not ported")
     if ridge < 1e-5:
         raise NotImplementedError("the coarse_ridge NaN-fallback ladder "
                                   "(ridge < 1e-5) is not ported")
     pad = n_agg * agg_size - nc
+    if max_dense is not None and n_agg > max_dense:
+        k2 = -(-n_agg // max_dense)
+        data = build_two_level(None, nbr, agg_size * k2, sym=sym, comp_onehot=comp_onehot,
+                               comp_ids=comp_ids, extra_diag=extra_diag,
+                               mass_diag=mass_diag, v=v, max_dense=None, ridge=ridge)
+        agg = torch.arange(nc + pad, dtype=torch.int64, device=v.device) // agg_size
+        cross = agg[torch.nn.functional.pad(nbr.long(), (0, pad))] != agg[None, :]
+        vm = torch.where(cross, torch.nn.functional.pad(v, (0, pad)), 0.0)
+        d1 = -vm.sum(dim=0).reshape(n_agg, agg_size).sum(dim=1)
+        if mass_diag is not None:
+            d1 = d1 + torch.nn.functional.pad(mass_diag, (0, pad)).reshape(
+                n_agg, agg_size).sum(dim=1)
+        if extra_diag is not None:
+            d1 = d1 + torch.nn.functional.pad(
+                extra_diag.sum(dim=(0, 1)), (0, pad)).reshape(n_agg, agg_size).sum(dim=1)
+        floor1 = torch.clamp(1e-12 * torch.max(d1), min=torch.finfo(d1.dtype).tiny)
+        # dead padded chunks get an exact zero (their residual is zero too)
+        data["d1inv"] = torch.where(d1 > floor1, 1.0 / torch.maximum(d1, floor1), 0.0)
+        return data
     dev = v.device
     agg = torch.arange(nc + pad, dtype=torch.int64, device=dev) // agg_size
     nbr_p = torch.nn.functional.pad(nbr.long(), (0, pad))
@@ -189,7 +251,8 @@ def two_level_apply_fn(data, P_diag, agg_size: int, halves: bool = False,
     (see build_two_level) and the current block-Jacobi diagonal: BJ +
     chunk coarse (with one refinement sweep when ``As`` is present) +
     compartment deflation + moment deflation + Ritz deflation (each when
-    its entries are in ``data``).  The BJ inverse is kernel B's, read from
+    its entries are in ``data``; with ``d1inv`` the three-level coarse of
+    build_two_level).  The BJ inverse is kernel B's, read from
     ``P_diag`` in place (``halves``: the pair diagonal's two diagonal
     sub-blocks only, pair_bj = 'halves', the diagonal unmasked or masked
     alike), into ``inv_out`` where given (the step's buffer).  The apply is
@@ -202,9 +265,8 @@ def two_level_apply_fn(data, P_diag, agg_size: int, halves: bool = False,
     it before the next apply (PCG's z is consumed by its direction update,
     GMRES's w by its Arnoldi step); without it each apply returns a new
     tensor."""
-    for key in ("d1inv", "momb_W"):
-        if key in data:
-            raise NotImplementedError(f"two-level data {key!r} is not ported")
+    if "momb_W" in data:
+        raise NotImplementedError("two-level data 'momb_W' (emi_moment_blocked) is not ported")
     bj = block_jacobi_operands(block_jacobi_inverse(P_diag, halves, inv_out), halves, buffer)
     co = coarse.operands(data, agg_size, batched=False)
 
@@ -225,12 +287,12 @@ def two_level_apply_batched(data, P_diag, agg_size: int, halves: bool = False,
     apply maps (m, nd, nc) -> (m, nd, nc).  The block-Jacobi inverses are
     computed once here, not per apply; the chunk coarse is K7 (on the card
     one launch, the chunk sums, the coarse solve and the prolong-add: no
-    deflation, no As; at nd = 4 with the BJ apply folded in).  ``halves``,
+    deflation, no As; at nd = 4 with the BJ apply folded in; two- or
+    three-level, as build_two_level made ``data``).  ``halves``,
     ``buffer``, ``mask`` (nd, nc, shared by the systems) and ``inv_out``
     as in :func:`two_level_apply_fn`."""
-    for key in ("d1inv", "ritz_W"):
-        if key in data:
-            raise NotImplementedError(f"two-level data {key!r} is not ported")
+    if "ritz_W" in data:
+        raise NotImplementedError("two-level data 'ritz_W' (knp_ritz) is not ported")
     bj = block_jacobi_operands(block_jacobi_inverse(P_diag, halves, inv_out), halves, buffer)
     co = coarse.operands(data, agg_size, batched=True)
 
@@ -333,12 +395,12 @@ def _np(x, dtype=None):
 
 def np_two_level_apply(data, P_diag, agg_size: int):
     """Numpy float64 mirror of :func:`two_level_apply_fn` (additive form with
-    the compartment, moment and Ritz pieces present in ``data``), the
+    the three-level, compartment, moment and Ritz pieces present in
+    ``data``), the
     preconditioner of the host Ritz harvest: the float32 device Lanczos is
     chaotic, a float64 recursion is deterministic."""
-    for key in ("d1inv", "momb_W"):
-        if key in data:
-            raise NotImplementedError(f"two-level data {key!r} is not ported")
+    if "momb_W" in data:
+        raise NotImplementedError("two-level data 'momb_W' (emi_moment_blocked) is not ported")
     d = {k: _np(v, np.float64) for k, v in data.items()}
     Pd = _np(P_diag, np.float64)
     Pinv = np.moveaxis(np.linalg.inv(np.moveaxis(Pd, -1, 0)), 0, -1)   # (nd, nd, nc)
@@ -353,14 +415,26 @@ def np_two_level_apply(data, P_diag, agg_size: int):
             z = z + inv @ (rs - As @ z)
         return s * z
 
-    n_agg = inv.shape[0]
+    if "d1inv" in d:                   # three-level (build_two_level max_dense)
+        d1inv = d["d1inv"]
+        n_agg = d1inv.shape[0]
+        n2 = inv.shape[0]
+        k2 = -(-n_agg // n2)
+        pad2 = n2 * k2 - n_agg
+
+        def coarse_solve(rc):
+            rc2 = np.pad(rc, (0, pad2)).reshape(n2, k2).sum(axis=1)
+            return rc * d1inv + np.repeat(dense_solve(rc2), k2)[:n_agg]
+    else:
+        n_agg = inv.shape[0]
+        coarse_solve = dense_solve
     pad = n_agg * agg_size - nc
 
     def apply(r):
         z = np.einsum("ijc,jc->ic", Pinv, r)
         rs = r.sum(axis=0)
         rc = np.pad(rs, (0, pad)).reshape(n_agg, agg_size).sum(axis=1)
-        zc = np.repeat(dense_solve(rc), agg_size)[:nc]
+        zc = np.repeat(coarse_solve(rc), agg_size)[:nc]
         if "comp_inv" in d:
             invc, sc, OH = d["comp_inv"], d["comp_s"], d["comp_onehot"]
             Asc = d["comp_As"]
@@ -461,6 +535,49 @@ def ritz_galerkin_host(blocks, nbr, W, ridge: float = 1e-8,
     for s in range(1, B.shape[0]):
         AW += np.einsum("ijc,vjc->vic", B[s], Wh[:, :, N[s]])
     G = np.einsum("vic,wic->vw", Wh, AW)
+    Wh, inv, sg = _galerkin_inverse(G, Wh, ridge, drop_rel)
+    if isinstance(W, torch.Tensor):
+        dtype, device = W.dtype, W.device
+    else:
+        dtype, device = torch.float32, "cpu"
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return {"ritz_W": t(Wh), "ritz_inv": t(inv), "ritz_s": t(sg)}
+
+
+def moment_galerkin_host(blocks, nbr, W, ridge: float = 1e-6):
+    """Host float64 deflation Galerkin of the moment fields W (numpy
+    (nw, nd, nc)) on the cell blocks (K, nd, nd, nc): ritz_galerkin_host's
+    Galerkin and inverse (no mean projection), for the ~95 axial fields at
+    ~1M cells that its einsums take minutes over.  A W runs as
+    multiply-adds of whole field rows, elementwise, and the Galerkin as one
+    matrix product on one thread (a threaded BLAS product splits the long
+    sum by the thread count, and its bits with it), in torch on the CPU, so
+    the result repeats whatever the host's threads.  Its rounding is not
+    the einsums': ritz_galerkin_host keeps those, because the Ritz data of
+    the main path reach its recorded counts and kernel digests.
+
+    Returns (W, inv, s), float64 numpy, the dead fields zeroed in W."""
+    B = torch.from_numpy(np.ascontiguousarray(_np(blocks, np.float64)))
+    N = torch.from_numpy(np.ascontiguousarray(_np(nbr)))
+    Wt = torch.from_numpy(np.ascontiguousarray(W, dtype=np.float64))
+    AW = torch.zeros_like(Wt)
+    for s in range(B.shape[0]):
+        Wg = Wt if s == 0 else Wt[:, :, N[s]]
+        for i in range(B.shape[1]):
+            for j in range(B.shape[2]):
+                AW[:, i].addcmul_(B[s, i, j], Wg[:, j])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        G = (Wt.reshape(Wt.shape[0], -1) @ AW.reshape(Wt.shape[0], -1).T).numpy()
+    finally:
+        torch.set_num_threads(threads)
+    return _galerkin_inverse(G, Wt.numpy(), ridge, 1e-6)
+
+
+def _galerkin_inverse(G, Wh, ridge, drop_rel):
+    """The equilibrated, ridged pseudo-inverse of the Galerkin G of the
+    fields Wh: (Wh with its dead fields zeroed, inv, s), float64 numpy."""
     G = 0.5 * (G + G.T)
     dg = np.diagonal(G).copy()
     live = dg > drop_rel * max(dg.max(), 1e-300)
@@ -474,12 +591,7 @@ def ritz_galerkin_host(blocks, nbr, W, ridge: float = 1e-8,
     lam, V = np.linalg.eigh(Gs)
     keep = lam > 1e-6 * lam.max()
     inv = (V[:, keep] / lam[keep]) @ V[:, keep].T
-    if isinstance(W, torch.Tensor):
-        dtype, device = W.dtype, W.device
-    else:
-        dtype, device = torch.float32, "cpu"
-    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    return {"ritz_W": t(Wh), "ritz_inv": t(inv), "ritz_s": t(sg)}
+    return Wh, inv, sg
 
 
 def build_ritz_deflation(blocks, nbr, precond, b, k: int = 40,

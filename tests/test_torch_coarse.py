@@ -163,15 +163,14 @@ def test_unported_two_level_data_raise():
     rng = np.random.default_rng(25)
     d = {k: t64(v) for k, v in _data(rng, 4).items()}
     P = t64(_P_diag(rng, 4))
-    for key in ("d1inv", "momb_W"):
-        with pytest.raises(NotImplementedError):
-            twolevel.two_level_apply_fn(dict(d, **{key: d["s"]}), P, AGG)
+    with pytest.raises(NotImplementedError):             # emi_moment_blocked stays unported
+        twolevel.two_level_apply_fn(dict(d, momb_W=d["s"]), P, AGG)
     with pytest.raises(NotImplementedError):             # knp_ritz stays unported
         twolevel.two_level_apply_batched(
             {"inv": d["inv"][None], "s": d["s"][None], "ritz_W": d["ritz_W"]},
             P[None], AGG)
     with pytest.raises(NotImplementedError):
-        twolevel.np_two_level_apply(dict(d, d1inv=d["s"]), P, AGG)
+        twolevel.np_two_level_apply(dict(d, momb_W=d["s"]), P, AGG)
 
 
 @pytest.mark.parametrize("nd", [4, 8])

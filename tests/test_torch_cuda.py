@@ -875,6 +875,179 @@ def test_two_level_solve_is_one_launch_and_allocates_nothing(case):
     assert len(kernels) == 5 and all("tl_solve_kernel" in k for k in kernels), kernels
 
 
+# the three-level forms (d1inv; coarse.solve_ordered_plain and
+# coarse_apply_ordered_plain are their twins in the kernels' order): K6's
+# solve on the EMI apply's operands (As and the three deflation groups, As
+# alone, neither) and K7's on a KNP pair of ions (with and without As); the
+# one-launch apply (no fields, no As) at nd = 4 and 8.  Sizes: the small
+# fixture's 243 chunks in 61 super-chunks of 4 (one padded) and the
+# 995,328-tet mesh's 15,552 chunks in 3,888
+THREE_CASES = {"k6_full": (None, ("As", "comp", "mom", "ritz")), "k6_coarse": (None, ("As",)),
+               "k6_plain": (None, ()), "k7": (2, ()), "k7_refined": (2, ("As",))}
+THREE_NC = {"small": 243 * 64 - 5, "scale": 995328}
+
+
+@functools.lru_cache(maxsize=None)
+def _three_numpy(case, nd, size):
+    rng = np.random.default_rng(43)
+    m, groups = THREE_CASES[case]
+    nc = THREE_NC[size]
+    d = tp.three_level_data(rng, nd, nc, 64, groups, m, spd=size == "small")
+    n_agg = -(-nc // 64)
+    return d, rng.standard_normal((m or 1, n_agg)), rng.standard_normal((2, m or 1, nd, nc))
+
+
+def _three_case(case, nd, size, dtype, dev):
+    d, rc, (r, out0) = _three_numpy(case, nd, size)
+    data = {k: torch.as_tensor(v, dtype=dtype, device=dev) for k, v in d.items()}
+    co = coarse.operands(data, 64, batched=THREE_CASES[case][0] is not None)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    return co, t(rc), t(r), t(out0)
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize("size", ["small", "scale"])
+@pytest.mark.parametrize("case", sorted(THREE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_three_level_solve_equals_its_ordered_twin(size, case, dtype):
+    """The three-level solve (one launch of tl_solve_kernel<T, true>) on the
+    workspace's buffers equals coarse.solve_ordered_plain bit for bit (zc
+    and the deflation coefficients), counts one two_level_solve_three
+    launch a call, and repeats from call to call; at both sizes, K6's and
+    K7's operands, with and without As and the deflation groups."""
+    dev = cuda_or_skip()
+    co, rc, _, _ = _three_case(case, 4, size, dtype, dev)
+    wk = co.work
+    n_agg, n2, k2 = co.levels
+    assert (n_agg, n2, k2) == ((243, 61, 4) if size == "small" else (15552, 3888, 4))
+    proj = torch.randn((wk.m, sum(co.sizes)), dtype=dtype, device=dev,
+                       generator=torch.Generator(dev).manual_seed(3))
+    wk.rc.copy_(rc)
+    wk.proj.copy_(proj)
+    name = coarse._name("solve", co)
+    assert name == "two_level_solve_three" + ("_batched" if co.batched else "")
+    n0 = _cuda.LAUNCHES[name]
+    zc, coef = coarse.solve(co, wk.rc, wk.proj)
+    zo, co_ = coarse.solve_ordered_plain(co, rc, proj)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[name] == n0 + 1
+    assert torch.equal(_bits(zc), _bits(zo))
+    assert torch.equal(_bits(coef), _bits(co_))
+    zp, cp = coarse.solve_plain(co, rc, proj)
+    assert rel(zc, zp) < (1e-4 if dtype == torch.float32 else 1e-11)
+    first = zc.clone(), coef.clone()
+    zc.fill_(float("nan"))
+    coarse.solve(co, wk.rc, wk.proj)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(zc), _bits(first[0])) and torch.equal(_bits(coef), _bits(first[1]))
+
+
+@pytest.mark.parametrize("size", ["small", "scale"])
+@pytest.mark.parametrize("nd", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_three_level_coarse_equals_its_ordered_twin(size, nd, dtype):
+    """The three-level one-launch apply (tl_coarse_kernel<T, ND, BJ, true>)
+    of two ions equals coarse.coarse_apply_ordered_plain bit for bit,
+    unmasked and masked, and the three launches (restrict, the three-level
+    solve, prolong_add) bit for bit; at nd = 4 also the folded form
+    (kernel B's apply in place of out) against kernel B then the twin.
+    One two_level_coarse_three_batched launch a call."""
+    dev = cuda_or_skip()
+    co, _, r, out0 = _three_case("k7", nd, size, dtype, dev)
+    assert co.work.fused is not None
+    mask = (torch.rand((nd, r.shape[-1]), generator=torch.Generator(dev).manual_seed(4),
+                       device=dev) > 0.1).to(dtype)
+    name = "two_level_coarse_three_batched"
+    for mk in (None, mask):
+        n0 = _cuda.LAUNCHES[name]
+        got = coarse.coarse_add(co, out0.clone(), r, mk)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[name] == n0 + 1
+        twin = coarse.coarse_apply_ordered_plain(co, out0.clone(), r, mk)
+        assert torch.equal(_bits(got), _bits(twin))
+        three = coarse.prolong_add(co, out0.clone(), *coarse.solve(co, *coarse.restrict(co, r)),
+                                   mk)
+        assert torch.equal(_bits(got), _bits(three))
+        plain = coarse.coarse_apply_plain(co, out0.clone(), r, mk)
+        assert rel(got, plain) < (1e-5 if dtype == torch.float32 else 1e-12)
+    if nd != 4:
+        return
+    P = _rand(np.random.default_rng(44), (2, 4, 4, r.shape[-1]), dtype, dev)
+    P[:, range(4), range(4), :] += 4.0
+    bj = spmv.block_jacobi_operands(spmv.block_jacobi_inverse(P))
+    z = spmv.block_jacobi_apply(bj, r)
+    for mk in (None, mask):
+        got = coarse.coarse_add(co, torch.empty_like(r), r, mk, bj)
+        twin = coarse.coarse_apply_ordered_plain(co, z.clone(), r, mk)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(twin))
+
+
+@pytest.mark.parametrize("form", ["k6t", "k7t"])
+def test_three_level_forms_are_one_launch_and_allocate_nothing(form):
+    """Five three-level solves (K6's operands) or one-launch applies (K7's)
+    at the 995,328-tet shapes are five device kernels of that kernel (the
+    profiler, after a warm-up cycle) and allocate nothing (the caching
+    allocator's count)."""
+    dev = cuda_or_skip()
+    case = "k6_full" if form == "k6t" else "k7"
+    co, rc, r, out0 = _three_case(case, 4, "scale", torch.float64, dev)
+    wk = co.work
+    wk.rc.copy_(rc)
+    wk.proj.zero_()
+    out = out0.clone()
+    if form == "k6t":
+        fn, kernel = (lambda: coarse.solve(co, wk.rc, wk.proj)), "tl_solve_kernel"
+    else:
+        fn, kernel = (lambda: coarse.coarse_add(co, out, r)), "tl_coarse_kernel"
+    fn()
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+
+    def five():
+        for _ in range(5):
+            fn()
+
+    kernels = _device_kernels(five, sessions=3, want=5)
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocs
+    assert len(kernels) == 5 and all(kernel in k for k in kernels), kernels
+
+
+def test_three_level_forms_replay_in_a_graph():
+    """The three-level solve and one-launch apply allocate nothing and keep
+    fixed pointers, so a captured call of each replays: the outputs equal
+    the eager calls' to the last bit."""
+    dev = cuda_or_skip()
+    co6, rc, _, _ = _three_case("k6_full", 4, "small", torch.float64, dev)
+    co7, _, r, out0 = _three_case("k7", 4, "small", torch.float64, dev)
+    wk = co6.work
+    wk.rc.copy_(rc)
+    wk.proj.normal_(generator=torch.Generator(dev).manual_seed(5))
+    zc, coef = (t.clone() for t in coarse.solve(co6, wk.rc, wk.proj))
+    eager = coarse.coarse_add(co7, out0.clone(), r)
+    out = out0.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        coarse.solve(co6, wk.rc, wk.proj)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        coarse.solve(co6, wk.rc, wk.proj)
+        coarse.coarse_add(co7, out, r)
+    for _ in range(3):
+        wk.zc.zero_()
+        wk.coef.zero_()
+        out.copy_(out0)
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(wk.zc, zc) and torch.equal(wk.coef, coef)
+    assert torch.equal(out, eager)
+
+
 # the MMS path's largest mesh, mms_square(7): 32,768 triangles, 512 chunks
 MMS_NC = 32768
 

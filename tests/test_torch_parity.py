@@ -190,6 +190,14 @@ def two_level_data(rng, nd, nc, agg, groups=("As", "comp", "mom", "ritz"), m=Non
     d = {"inv": coarse_mat(), "s": rng.uniform(0.5, 2.0, lead + (n,))}
     if "As" in groups:
         d["As"] = coarse_mat()
+    d.update(_deflation_data(rng, nd, nc, groups))
+    return d
+
+
+def _deflation_data(rng, nd, nc, groups):
+    """The compartment ("comp"), moment ("mom") and Ritz ("ritz") groups of
+    two_level_data over nc cells."""
+    d = {}
     if "comp" in groups:
         comp = np.repeat(np.arange(N_COMP), -(-nc // N_COMP))[:nc]
         d["comp_onehot"] = (comp[None, :] == np.arange(N_COMP)[:, None]).astype(float)
@@ -201,6 +209,31 @@ def two_level_data(rng, nd, nc, agg, groups=("As", "comp", "mom", "ritz"), m=Non
             d[f"{key}_W"] = rng.standard_normal((k, nd, nc))
             d[f"{key}_inv"] = _spd(rng, k)
             d[f"{key}_s"] = rng.uniform(0.5, 2.0, k)
+    return d
+
+
+def three_level_data(rng, nd, nc, agg, groups=("As", "comp", "mom", "ritz"), m=None, k2=4,
+                     spd=True):
+    """Seeded numpy three-level data of the shapes build_two_level gives
+    above max_dense: n_agg = ceil(nc / agg) chunks in n2 = ceil(n_agg / k2)
+    super-chunks, the dense inv (and As) on n2 rows, d1inv on the chunks,
+    and the deflation groups of two_level_data.  ``spd=False`` draws the
+    dense matrices as scaled normal ones (the kernels' order of operations
+    does not need them SPD, and a QR at thousands of rows takes seconds)."""
+    n_agg = -(-nc // agg)
+    n2 = -(-n_agg // k2)
+    lead = () if m is None else (m,)
+
+    def coarse_mat():
+        A = np.stack([_spd(rng, n2) if spd else rng.standard_normal((n2, n2)) / np.sqrt(n2)
+                      for _ in range(m or 1)])
+        return A if m else A[0]
+
+    d = {"inv": coarse_mat(), "s": rng.uniform(0.5, 2.0, lead + (n2,)),
+         "d1inv": rng.uniform(0.5, 2.0, lead + (n_agg,))}
+    if "As" in groups:
+        d["As"] = coarse_mat()
+    d.update(_deflation_data(rng, nd, nc, groups))
     return d
 
 

@@ -95,9 +95,9 @@ def test_state_numpy_round_trip(emix_run):
 
 
 @pytest.mark.parametrize("override", [
-    {"knp_ritz": 8}, {"emi_moment_order": 3}, {"knp_solver": "cg"},
-    {"emi_moment_host": True}, {"emi_moment_blocked": True},
-    {"emi_moment_axial": 6}, {"pc_refresh_factor": 2.0}, {"precond": "two_level_mult"},
+    {"knp_ritz": 8}, {"gmres_orth": "mgs"}, {"knp_solver": "cg"},
+    {"gmres_rot": "carry"}, {"emi_moment_blocked": True},
+    {"pair_bj": "none"}, {"pc_refresh_factor": 2.0}, {"precond": "two_level_mult"},
     {"coarse_ridge": 1e-7},
 ])
 def test_unsupported_solver_options_raise(override):

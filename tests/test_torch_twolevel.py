@@ -117,9 +117,12 @@ def test_equilibration_floor_keeps_dead_entries_finite(dtype):
 
 
 def test_unported_coarse_options_raise(setup):
+    """The coarse_ridge NaN-fallback ladder (ridge < 1e-5) stays unported;
+    above max_dense the build is three-level (d1inv), no longer refused."""
     St = setup["St"]
     blocks = t64(setup["blocks"])
-    with pytest.raises(NotImplementedError):
-        twolevel.build_two_level(blocks, St.g["nbr"], 1, sym=True, max_dense=16)
+    three = twolevel.build_two_level(blocks, St.g["nbr"], 64, sym=True, max_dense=16)
+    assert three["d1inv"].shape == (St.n_cells // 64 + (St.n_cells % 64 > 0),)
+    assert three["inv"].shape[0] <= 16
     with pytest.raises(NotImplementedError):
         twolevel.build_two_level(blocks, St.g["nbr"], 64, sym=True, ridge=1e-7)

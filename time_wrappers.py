@@ -33,6 +33,15 @@ and float64, beside the library calls chip_smoke.py holds them to:
        dense projection a partial yardstick of restrict (no chunk sums).
        Each moment field is zero outside its compartment (5 compartments
        of equal cell ranges), as the solver's are;
+  k6t  K6's three-level solve (m = 1, with As and the compartment, moment
+       and Ritz groups: 5, 95 and 24 fields) at the 995,328-tet mesh's cell
+       sizes (15,552 chunks of 64 cells in 3,888 super-chunks of 4), on
+       restrict's outputs, beside its yardstick (the super-chunk sums,
+       then torch.mv per product);
+  k7t  K7's three-level one-launch apply of two ions (no As, no groups) at
+       those sizes into a block-Jacobi output in place, unmasked and with a
+       live mask, and with kernel B's apply folded in, beside the
+       yardstick (one batched torch.matmul on the super-chunk sums);
   k4   to_pair of the EMI solve's 3 vectors (4, 127116) and the KNP solve's
        2 (2, 4, 127116), beside one torch.mul into a preallocated buffer;
        from_pair back as the solver calls it (the EMI solution with the
@@ -161,7 +170,8 @@ measured" where the call cannot be captured).  It also prints the cost of
 reading the current stream both ways.
 
 Usage:  python3 time_wrappers.py [--root DIR]
-            [--only k8,k9,k9s,k9u,k6,k4,k1,k14,k13,k5,k11,k11e,k10e,k10c,k11c,k11a,k14z,k12,k7]
+            [--only k8,k9,k9s,k9u,k6,k4,k1,k14,k13,k5,k11,k11e,k10e,k10c,k11c,k11a,k14z,k12,k7,
+                    k6t,k7t]
         (needs a CUDA card)
 """
 import argparse
@@ -174,7 +184,7 @@ import time
 
 import torch
 
-from chip_smoke import dense_gemvs, graph_ms, lib_apply
+from chip_smoke import dense_gemvs, graph_ms, lib_apply, three_gemvs
 
 SHAPES = {"cell": (4, 124416), "pair": (8, 63558)}
 # coarse sizes: (cells of the layout's r, dofs, chunk size, compartment,
@@ -479,6 +489,67 @@ def time_coarse(coarse, dev, gen):
                     del stack
                 del co, d, r, rc, proj, x, zc, coef, out
                 torch.cuda.empty_cache()
+
+
+# the 995,328-tet mesh's cell layout: cells, chunks of 64, super-chunks of 4
+SCALE = (995328, 64, 4)
+
+
+def three_level_data(batched, dtype, dev, gen):
+    """Random three-level data at SCALE: K6's (As; 5 compartments, 95
+    moment fields each zero outside its compartment, 24 Ritz fields) or
+    K7's (two ions, neither), with r (m, 4, nc)."""
+    nc, agg, k2 = SCALE
+    n_agg = nc // agg
+    n2 = n_agg // k2
+    m = IONS if batched else 1
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    lead = (m,) if batched else ()
+    d = {"inv": rnd(*lead, n2, n2) / n2, "s": 1.0 + rnd(*lead, n2).abs(),
+         "d1inv": 1.0 + rnd(*lead, n_agg).abs()}
+    if not batched:
+        n_comp, nw, nr = 5, 95, 24
+        d["As"] = rnd(n2, n2) / n2
+        for key, k in (("comp", n_comp), ("mom", nw), ("ritz", nr)):
+            d[f"{key}_inv"], d[f"{key}_s"] = rnd(k, k) / k, 1.0 + rnd(k).abs()
+        d["comp_As"] = rnd(n_comp, n_comp) / n_comp
+        comp = torch.arange(nc, device=dev) * n_comp // nc
+        d["comp_onehot"] = (comp == torch.arange(n_comp, device=dev)[:, None]).to(dtype)
+        owner = torch.arange(nw, device=dev) // (nw // n_comp)
+        d["mom_W"] = rnd(nw, 4, nc) * (comp == owner[:, None, None])
+        d["ritz_W"] = rnd(nr, 4, nc)
+    return d, agg, rnd(m, 4, nc)
+
+
+def time_three_level(coarse, dev, gen, batched):
+    """The k6t / k7t sections (see the module docstring)."""
+    from knpemidg_tpu_torch.ops import spmv
+
+    if not hasattr(coarse, "solve_ordered_plain"):
+        print(f"k{7 if batched else 6}ttime  no three-level forms in this tree")
+        return
+    for dtype in (torch.float32, torch.float64):
+        d, agg, r = three_level_data(batched, dtype, dev, gen)
+        co = coarse.operands(d, agg, batched)
+        rc, proj = coarse.restrict(co, r)
+        tag = f"cell {'K7' if batched else 'K6'} three-level {str(dtype):14s}"
+        if not batched:
+            report("k6ttime", f"{tag} solve", lambda: coarse.solve(co, rc, proj))
+            report("k6ttime", f"{tag} super-chunk sums + dense_gemvs",
+                   lambda: three_gemvs(co, rc))
+        else:
+            out = torch.zeros_like(r)
+            lm = (torch.rand(r.shape[1:], generator=gen, device=dev) < 0.98).to(dtype)
+            report("k7ttime", f"{tag} coarse_add (one launch)", lambda: coarse.coarse_add(co, out, r))
+            report("k7ttime", f"{tag} coarse_add (one launch, masked)",
+                   lambda: coarse.coarse_add(co, out, r, lm))
+            bj = cell_bj(spmv, r, gen)
+            report("k7ttime", f"{tag} coarse_add (kernel B folded in)",
+                   lambda: coarse.coarse_add(co, out, r, None, bj))
+            report("k7ttime", f"{tag} super-chunk sums + dense_gemvs",
+                   lambda: three_gemvs(co, rc))
+        del co, d, r, rc, proj
+        torch.cuda.empty_cache()
 
 
 def time_emit(pairs, dev, gen):
@@ -1177,7 +1248,9 @@ def main():
                 "k9s": lambda: time_start(ko, dev, gen),
                 "k9u": lambda: time_solve_update(ko, dev, gen),
                 "k12": lambda: time_emit(pairs, dev, gen),
-                "k7": lambda: time_coarse_apply(coarse, dev, gen)}
+                "k7": lambda: time_coarse_apply(coarse, dev, gen),
+                "k6t": lambda: time_three_level(coarse, dev, gen, False),
+                "k7t": lambda: time_three_level(coarse, dev, gen, True)}
     for key in args.only.split(","):
         sections[key]()
 
